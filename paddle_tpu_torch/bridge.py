@@ -1,0 +1,46 @@
+"""Weight bridge: JAX-package parameters -> the port's state_dict.
+
+The JAX package names parameters as ``paddle_tpu.jit.functional.
+get_params`` gives them (``llama.layers.0.self_attn.q_proj.weight``,
+...), and the port's modules carry the same names. The one layout
+difference: a paddle Linear weight is [in, out], a ``torch.nn.Linear``
+weight is [out, in], so every 2-D weight of a Linear is transposed.
+Embedding ([vocab, hidden]) and norm weights cross as they are.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+#: parameter-name suffixes of Linear weights (transposed on the way in)
+LINEAR_SUFFIXES = ("_proj.weight", "lm_head.weight")
+
+
+def llama_state_from_numpy(params: Dict[str, np.ndarray]
+                           ) -> Dict[str, torch.Tensor]:
+    """{name: array} in the JAX package's layout -> a state_dict for
+    ``paddle_tpu_torch.text.models.LlamaForCausalLM.load_state_dict``."""
+    out = {}
+    for name, arr in params.items():
+        a = np.asarray(arr)
+        if name.endswith(LINEAR_SUFFIXES):
+            if a.ndim != 2:
+                raise ValueError(f"{name}: expected a 2-D Linear weight, "
+                                 f"got shape {a.shape}")
+            a = a.T
+        out[name] = torch.tensor(np.ascontiguousarray(a))
+    return out
+
+
+def llama_state_to_numpy(state: Dict[str, torch.Tensor]
+                         ) -> Dict[str, np.ndarray]:
+    """The inverse of llama_state_from_numpy: a port state_dict -> {name:
+    array} in the JAX package's layout."""
+    out = {}
+    for name, t in state.items():
+        a = t.detach().cpu().numpy()
+        out[name] = np.ascontiguousarray(
+            a.T if name.endswith(LINEAR_SUFFIXES) else a)
+    return out

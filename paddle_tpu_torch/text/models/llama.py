@@ -1,0 +1,351 @@
+"""LLaMA causal LM (counterpart of ``paddle_tpu/text/models/llama.py``).
+
+The serving slice of the port: ``LlamaConfig``, RMSNorm, attention
+(the no-cache flash branch, :259-291, and the paged-KV branch,
+:377-487), the SwiGLU MLP, the decoder stack, the causal-LM head and
+``serving_spec`` (:760). Module and parameter names match the JAX
+package, so ``bridge.llama_state_from_numpy`` maps one set of weights
+onto the other.
+
+Attention paths:
+
+- no cache: ``kernels.flash_attention`` — the CUDA flash forward kernel
+  on the GPU, its plain version on the CPU;
+- paged cache, one token per sequence (a decode tick):
+  ``kernels.paged_attention.paged_decode`` — the CUDA paged-decode
+  kernel on the GPU, its plain version on the CPU;
+- paged cache, several tokens (a prefill chunk): the sequence's pages
+  are gathered and attended with plain PyTorch in f32, as the JAX
+  package does it with XLA (:453-470).
+
+Not carried yet, each raising NotImplementedError: dense and rolling KV
+caches (the decode slice), flashmask, recompute, fused linear CE and
+labels (the training slice), sequence parallelism (the distributed
+slice), and the ``use_flash_attention=False`` escape hatch.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ...core.device import resolve_device
+from ...incubate.nn.functional import fused_rotary_position_embedding
+from ...nn import functional as F
+
+NEG_INF_ATTN = -1e30
+
+
+def _attend_cache(qa, kk, vv, mask, rep):
+    """Masked softmax attention of qa [b, s, h, d] against gathered cache
+    keys/values [b, L, h_kv, d]; mask [s, L] or [b, s, L]. Computed in
+    f32 whatever the cache dtype (a bf16 pool is upcast, not rounded
+    further)."""
+    if rep != 1:
+        kk = kk.repeat_interleave(rep, dim=2)
+        vv = vv.repeat_interleave(rep, dim=2)
+    scale = 1.0 / math.sqrt(qa.shape[-1])
+    logits = torch.einsum("bshd,bLhd->bhsL", qa.float(), kk.float()) * scale
+    mexp = mask[None, None] if mask.dim() == 2 else mask[:, None]
+    logits = torch.where(mexp, logits,
+                         torch.full_like(logits, NEG_INF_ATTN))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhsL,bLhd->bshd", p, vv.float()).to(qa.dtype)
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-6
+    tie_word_embeddings: bool = False
+    use_flash_attention: bool = True
+    sliding_window: Optional[int] = None
+    sequence_parallel: bool = False
+    recompute: bool = False
+    recompute_granularity: str = "full"
+    fused_linear_ce: bool = False
+    fused_ce_chunks: int = 8
+    dtype: str = "float32"
+
+    @staticmethod
+    def tiny(vocab=128, hidden=64, layers=2, heads=4):
+        return LlamaConfig(
+            vocab_size=vocab, hidden_size=hidden,
+            intermediate_size=hidden * 4 // 2 * 2,
+            num_hidden_layers=layers, num_attention_heads=heads,
+            num_key_value_heads=heads, max_position_embeddings=256)
+
+
+def _check_supported(c: LlamaConfig):
+    if not c.use_flash_attention:
+        raise NotImplementedError(
+            "use_flash_attention=False (the JAX package's XLA sdpa escape "
+            "hatch) is not carried by the port: no-cache attention always "
+            "runs the flash kernel")
+    if c.recompute:
+        raise NotImplementedError(
+            "recompute comes with the training slice of the port")
+    if c.fused_linear_ce:
+        raise NotImplementedError(
+            "fused_linear_ce comes with the training slice of the port")
+    if c.sequence_parallel:
+        raise NotImplementedError(
+            "sequence_parallel comes with the distributed slice of the "
+            "port")
+    if c.sliding_window is not None and int(c.sliding_window) < 1:
+        raise ValueError(
+            f"sliding_window must be >= 1, got {c.sliding_window}")
+
+
+class LlamaRMSNorm(nn.Module):
+    def __init__(self, hidden_size, eps=1e-6, device=None, dtype=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(hidden_size, device=device,
+                                              dtype=dtype))
+        self.eps = eps
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, epsilon=self.eps)
+
+
+def _linear(i, o, device, dtype):
+    return nn.Linear(i, o, bias=False, device=device, dtype=dtype)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        c = config
+        self.num_heads = c.num_attention_heads
+        self.num_kv_heads = c.num_key_value_heads
+        self.head_dim = c.hidden_size // c.num_attention_heads
+        self.window = None if c.sliding_window is None \
+            else int(c.sliding_window)
+        hs = c.hidden_size
+        kv = self.num_kv_heads * self.head_dim
+        self.q_proj = _linear(hs, hs, device, dtype)
+        self.k_proj = _linear(hs, kv, device, dtype)
+        self.v_proj = _linear(hs, kv, device, dtype)
+        self.o_proj = _linear(hs, hs, device, dtype)
+
+    def forward(self, x, kv_cache=None, cache_index=None):
+        b, s, _ = x.shape
+        q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+        position_ids = None
+        if kv_cache is not None:
+            # rope positions continue from the cache write offset (a
+            # scalar, or [b] per-slot offsets for the serving engine)
+            idx = torch.as_tensor(cache_index, device=x.device).reshape(-1, 1)
+            position_ids = (torch.arange(s, device=x.device)[None, :]
+                            + idx).expand(b, s)
+        q, k, _ = fused_rotary_position_embedding(
+            q, k, None, position_ids=position_ids,
+            use_neox_rotary_style=True)
+        if kv_cache is not None:
+            return self._cached_attention(q, k, v, kv_cache, cache_index)
+        from ...kernels.flash_attention import flash_attention
+        out = flash_attention(q, k, v, causal=True, window=self.window)
+        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+
+    def _cached_attention(self, q, k, v, kv_cache, cache_index):
+        """KV-cache attention. Only the PAGED layout is carried:
+        (k_pool, v_pool, block_tables) with 2-D block tables, or
+        (k_pool, v_pool, block_tables, k_scale, v_scale) for int8 pools
+        (see kernels/paged_attention.py)."""
+        if len(kv_cache) in (3, 5) and kv_cache[2].dim() == 2:
+            return self._paged_cached_attention(q, k, v, kv_cache,
+                                                cache_index)
+        raise NotImplementedError(
+            "dense (k, v) and rolling (k, v, pos) KV caches come with the "
+            "decode slice of the port; this slice carries the paged "
+            "(k_pool, v_pool, block_tables[, k_scale, v_scale]) layout")
+
+    def _paged_cached_attention(self, q, k, v, kv_cache, cache_index):
+        """Paged-KV attention: write this call's k/v at ``cache_index``
+        (per sequence, [b] or a scalar) into the pools IN PLACE, then
+        attend q against each sequence's pages. The returned cache tuple
+        holds the same (updated) pool tensors."""
+        from ... import monitor
+        from ...kernels.paged_attention import (gather_page_scales,
+                                                gather_pages, paged_decode,
+                                                paged_write_arrays,
+                                                paged_write_quant_arrays)
+        window = self.window
+        rep = self.num_heads // self.num_kv_heads
+        quant = len(kv_cache) == 5
+        kc, vc, bt = kv_cache[:3]
+        ks, vs = (kv_cache[3], kv_cache[4]) if quant else (None, None)
+        b, s = q.shape[0], q.shape[1]
+        bs_ = kc.shape[2]
+        pos0 = torch.as_tensor(cache_index, device=q.device).to(
+            torch.int64).reshape(-1).expand(b)
+        # the allocator guarantees capacity: no host-synced check here
+        if quant:
+            paged_write_quant_arrays(k, v, kc, vc, ks, vs, bt, pos0,
+                                     check_capacity=False)
+        else:
+            paged_write_arrays(k, v, kc, vc, bt, pos0, check_capacity=False)
+        if s == 1:
+            # idle serving lanes sit at cache_index -1: context 0, a
+            # dead slot for the kernel
+            out = paged_decode(q[:, 0], kc, vc, bt, pos0 + 1, window=window,
+                               k_scale=ks, v_scale=vs)[:, None]
+        else:
+            monitor.counter("kernels.decode.paged_gather").increase()
+            L = bt.shape[1] * bs_
+            kk = gather_pages(kc, bt)
+            vv = gather_pages(vc, bt)
+            if quant:
+                kk = kk.float() * gather_page_scales(ks, bt)[..., None]
+                vv = vv.float() * gather_page_scales(vs, bt)[..., None]
+            q_pos = pos0[:, None] + torch.arange(s, device=q.device)[None]
+            k_pos = torch.arange(L, device=q.device)
+            mask = k_pos[None, None, :] <= q_pos[:, :, None]   # [b, s, L]
+            if window is not None:
+                mask = mask & (q_pos[:, :, None] - k_pos[None, None, :]
+                               < window)
+            out = _attend_cache(q, kk, vv, mask, rep)
+        out = out.reshape(b, s, self.num_heads * self.head_dim)
+        return self.o_proj(out), tuple(kv_cache)
+
+
+class LlamaMLP(nn.Module):
+    """SwiGLU MLP."""
+
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        hs, im = config.hidden_size, config.intermediate_size
+        self.gate_proj = _linear(hs, im, device, dtype)
+        self.up_proj = _linear(hs, im, device, dtype)
+        self.down_proj = _linear(im, hs, device, dtype)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.input_layernorm = LlamaRMSNorm(
+            config.hidden_size, config.rms_norm_eps, device, dtype)
+        self.self_attn = LlamaAttention(config, device, dtype)
+        self.post_attention_layernorm = LlamaRMSNorm(
+            config.hidden_size, config.rms_norm_eps, device, dtype)
+        self.mlp = LlamaMLP(config, device, dtype)
+
+    def forward(self, x, kv_cache=None, cache_index=None):
+        if kv_cache is not None:
+            attn, new_cache = self.self_attn(
+                self.input_layernorm(x), kv_cache=kv_cache,
+                cache_index=cache_index)
+            x = x + attn
+            x = x + self.mlp(self.post_attention_layernorm(x))
+            return x, new_cache
+        x = x + self.self_attn(self.input_layernorm(x))
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        return x
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = nn.Embedding(config.vocab_size,
+                                         config.hidden_size, device=device,
+                                         dtype=dtype)
+        self.layers = nn.ModuleList(
+            [LlamaDecoderLayer(config, device, dtype)
+             for _ in range(config.num_hidden_layers)])
+        self.norm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps,
+                                 device, dtype)
+
+    def forward(self, input_ids, kv_caches=None, cache_index=None):
+        x = self.embed_tokens(input_ids)
+        if kv_caches is not None:
+            new_caches = []
+            for lyr, cache in zip(self.layers, kv_caches):
+                x, nc = lyr(x, kv_cache=cache, cache_index=cache_index)
+                new_caches.append(nc)
+            return self.norm(x), new_caches
+        for lyr in self.layers:
+            x = lyr(x)
+        return self.norm(x)
+
+
+class LlamaForCausalLM(nn.Module):
+    """The causal LM. ``device=None`` builds it on ``cuda`` (raising when
+    no GPU is visible); pass ``device="cpu"`` to run the plain versions
+    of the kernels on the CPU. Weights are drawn from ``seed`` (normal,
+    std ``init_std``; norms at 1) — or loaded afterwards with
+    ``load_state_dict`` (see ``bridge.llama_state_from_numpy``)."""
+
+    def __init__(self, config: LlamaConfig, device=None, seed: int = 0,
+                 init_std: float = 0.02):
+        super().__init__()
+        _check_supported(config)
+        self.config = config
+        self.device = resolve_device(device)
+        dtype = getattr(torch, config.dtype)
+        self.llama = LlamaModel(config, self.device, dtype)
+        self.lm_head = None if config.tie_word_embeddings else _linear(
+            config.hidden_size, config.vocab_size, self.device, dtype)
+        self.reset_parameters(seed, init_std)
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int = 0, init_std: float = 0.02):
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        for name, p in self.named_parameters():
+            if name.endswith("norm.weight"):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, init_std, generator=gen)
+
+    def _head(self, h):
+        w = self.lm_head.weight if self.lm_head is not None \
+            else self.llama.embed_tokens.weight
+        return torch.nn.functional.linear(h, w)
+
+    def forward(self, input_ids, labels=None,
+                attn_mask_startend_row_indices=None, kv_caches=None,
+                cache_index=None):
+        if labels is not None:
+            raise NotImplementedError(
+                "labels (the training loss) come with the training slice "
+                "of the port")
+        if attn_mask_startend_row_indices is not None:
+            raise NotImplementedError(
+                "attn_mask_startend_row_indices (flashmask) comes with the "
+                "training slice of the port")
+        input_ids = torch.as_tensor(input_ids, device=self.device)
+        if kv_caches is not None:
+            h, new_caches = self.llama(input_ids, kv_caches=kv_caches,
+                                       cache_index=cache_index)
+            return self._head(h), new_caches
+        return self._head(self.llama(input_ids))
+
+    def serving_spec(self):
+        """Engine geometry probe (``Engine`` reads it through
+        ``serving_model_spec``): the decoder's KV-cache geometry as a
+        plain dict (plus ``num_heads``, which the CUDA decode kernel's
+        shared-memory check needs)."""
+        c = self.config
+        return {
+            "kind": "decoder",
+            "num_layers": c.num_hidden_layers,
+            "kv_heads": c.num_key_value_heads,
+            "num_heads": c.num_attention_heads,
+            "head_dim": c.hidden_size // c.num_attention_heads,
+            "max_context": c.max_position_embeddings,
+            "vocab_size": c.vocab_size,
+        }
