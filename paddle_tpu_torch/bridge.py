@@ -1,11 +1,15 @@
-"""Weight bridge: JAX-package parameters -> the port's state_dict.
+"""Weight bridge: JAX-package parameters and optimizer state -> the
+port's, and back.
 
 The JAX package names parameters as ``paddle_tpu.jit.functional.
 get_params`` gives them (``llama.layers.0.self_attn.q_proj.weight``,
 ...), and the port's modules carry the same names. The one layout
 difference: a paddle Linear weight is [in, out], a ``torch.nn.Linear``
 weight is [out, in], so every 2-D weight of a Linear is transposed.
-Embedding ([vocab, hidden]) and norm weights cross as they are.
+Embedding ([vocab, hidden]) and norm weights cross as they are. Adam
+state ({name: {moment1, moment2[, moment2_max], beta1_pow, beta2_pow}},
+the JAX ``TrainStep``'s ``_opt_state``) crosses the same way: a Linear's
+moments are transposed like its weight, the scalars cross as they are.
 """
 from __future__ import annotations
 
@@ -43,4 +47,47 @@ def llama_state_to_numpy(state: Dict[str, torch.Tensor]
         a = t.detach().cpu().numpy()
         out[name] = np.ascontiguousarray(
             a.T if name.endswith(LINEAR_SUFFIXES) else a)
+    return out
+
+
+def _numpy_of(t):
+    if t.dtype == torch.bfloat16:        # numpy has no bfloat16
+        t = t.float()
+    return t.detach().cpu().numpy()
+
+
+def adam_state_from_numpy(state: Dict[str, Dict[str, np.ndarray]],
+                          device=None, moment_dtype=None
+                          ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's Adam/AdamW state (``TrainStep._opt_state``, as
+    numpy) -> the port's ``TrainStep.opt_state`` layout, moments in
+    ``moment_dtype`` (default: as given)."""
+    out = {}
+    for name, slots in state.items():
+        lin = name.endswith(LINEAR_SUFFIXES)
+        out[name] = {}
+        for slot, arr in slots.items():
+            a = np.asarray(arr, np.float32)
+            if lin and slot.startswith("moment"):
+                a = a.T
+            t = torch.tensor(np.ascontiguousarray(a), device=device)
+            if moment_dtype is not None and slot.startswith("moment"):
+                t = t.to(moment_dtype)
+            out[name][slot] = t
+    return out
+
+
+def adam_state_to_numpy(state: Dict[str, Dict[str, torch.Tensor]]
+                        ) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of adam_state_from_numpy: the port's Adam state ->
+    {name: {slot: f32 array}} in the JAX package's layout."""
+    out = {}
+    for name, slots in state.items():
+        lin = name.endswith(LINEAR_SUFFIXES)
+        out[name] = {}
+        for slot, t in slots.items():
+            a = _numpy_of(t)
+            if lin and slot.startswith("moment"):
+                a = a.T
+            out[name][slot] = np.ascontiguousarray(a)
     return out

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (no-cache LLaMA attention).
+// Flash-attention forward for Hopper (no-cache LLaMA attention, and the
+// forward of training).
 //
 // Replaces the Pallas kernel `_flash_fwd_kernel` launched by
 // `_flash_pallas_fwd` (paddle_tpu/kernels/flash_attention.py:280,
@@ -6,8 +7,12 @@
 // sk - sq) or full online-softmax attention with f32 accumulation, GQA
 // by index (query head qh reads kv head qh / rep, the repeated K/V is
 // never built), an optional sliding window measured back from the
-// causal diagonal, and 0 for a row that sees no key. Flashmask bands
-// and the logsumexp output belong to the training slice.
+// causal diagonal, flashmask row bands per key column (the se head of
+// query head qh is qh / (H / h_se), the batch stride 0 broadcasts a
+// batch-1 mask), and 0 for a row that sees no key. When the caller
+// differentiates (a non-null `lse`), the row logsumexp m + log(l) is
+// written in f32 [B, H, Sq] — NEG_INF for a row that saw no key, which
+// the backward kernels read as "no probability mass".
 //
 // Unlike the Pallas entry, which sends shapes that do not tile to XLA,
 // this kernel masks ragged edges itself: any seq_q, seq_k and head dim
@@ -25,10 +30,11 @@
 // probabilities are read as 16-byte vectors from shared memory so the
 // inner loops are FMA- rather than load-bound; m/l/acc stay in
 // registers in f32. The tile loop runs only over key tiles that meet
-// the causal band and the window (the counterparts of `_causal_k_hi`
-// :151 and `_window_k_lo` :169). Tensor-core (wgmma) tiles and
+// the causal band and the window, and a tile whose every row one
+// flashmask band covers is skipped before its K/V are loaded (the
+// document mask's cross-document tiles). Tensor-core (wgmma) tiles and
 // TMA-fed pipelining are later work.
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
@@ -37,74 +43,45 @@ constexpr int kBQ = 64;   // query rows per block (16 per warp)
 constexpr int kBK = 32;   // keys per shared-memory tile (1 per lane)
 constexpr int kRows = 16; // query rows per warp
 
-__host__ __device__ inline int pad4(int d) { return (d + 3) & ~3; }
-
 size_t smem_bytes(int d) {
-  const int dp = pad4(d);
+  const int dp = fl::pad4(d);
   // q [kBQ][dp], K [kBK][dp+4], V [kBK][dp], p [kBQ][kBK]
   return sizeof(float) * (size_t(kBQ) * dp + size_t(kBK) * (dp + 4) +
                           size_t(kBK) * dp + size_t(kBQ) * kBK);
 }
 
-// Stage rows [r0, r0 + nrows) of one (batch, head) slice into f32
-// shared memory rows of stride `ds`, scaled by `mul`; rows past `nvalid`
-// and columns in [d, dp) are zero.
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ base,
-                                      long long row_stride, int r0,
-                                      int nrows, int nvalid, int d, int dp,
-                                      float* __restrict__ dst, int ds,
-                                      float mul, int tid) {
-  constexpr int kVec = pt::Vec16<T>::n;
-  const bool vec = (d % kVec) == 0 && (row_stride % kVec) == 0 &&
-                   (reinterpret_cast<uintptr_t>(base) % 16) == 0;
-  if (vec) {
-    const int vpr = d / kVec;
-    for (int idx = tid; idx < nrows * vpr; idx += kThreads) {
-      const int j = idx / vpr;
-      const int c = (idx - j * vpr) * kVec;
-      float* out = dst + j * ds + c;
-      if (r0 + j < nvalid) {
-        pt::load16_f32(base + (r0 + j) * row_stride + c, out, mul);
-      } else {
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) out[i] = 0.f;
-      }
-    }
-    for (int idx = tid; idx < nrows * (dp - d); idx += kThreads) {
-      const int j = idx / (dp - d);
-      dst[j * ds + d + (idx - j * (dp - d))] = 0.f;
-    }
-  } else {
-    for (int idx = tid; idx < nrows * dp; idx += kThreads) {
-      const int j = idx / dp;
-      const int c = idx - j * dp;
-      dst[j * ds + c] = (r0 + j < nvalid && c < d)
-                            ? pt::to_f32(base[(r0 + j) * row_stride + c]) * mul
-                            : 0.f;
-    }
-  }
-}
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* lse;       // [B, H, Sq] f32, or null
+  const int* se;    // flashmask bands, or null
+  int H, Hkv, Sq, Sk, D;
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  long long se_sb, se_sh, se_s4;
+  int h_se, causal, window;
+  float scale;
+};
 
 template <typename T, int kDPL>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int H,
-                     int Hkv, int Sq, int Sk, int D, long long q_sb,
-                     long long q_ss, long long q_sh, long long k_sb,
-                     long long k_ss, long long k_sh, long long v_sb,
-                     long long v_ss, long long v_sh, int causal, int window,
-                     float scale) {
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
+  const T* __restrict__ q = static_cast<const T*>(a.q);
+  const T* __restrict__ k = static_cast<const T*>(a.k);
+  const T* __restrict__ v = static_cast<const T*>(a.v);
+  T* __restrict__ o = static_cast<T*>(a.o);
+  const int H = a.H, Sq = a.Sq, Sk = a.Sk, D = a.D;
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int hq = bh - b * H;
-  const int hk = hq / (H / Hkv);
+  const int hk = hq / (H / a.Hkv);
   const int q0 = blockIdx.y * kBQ;
+  const int q_end = min(q0 + kBQ, Sq);
   const int diag = Sk - Sq;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int dp = pad4(D);
+  const int dp = fl::pad4(D);
 
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                   // [kBQ][dp], pre-scaled
@@ -112,21 +89,15 @@ __global__ void __launch_bounds__(kThreads)
   float* v_s = k_s + kBK * (dp + 4);   // [kBK][dp]
   float* p_s = v_s + kBK * dp;         // [kBQ][kBK]
 
-  stage(q + b * q_sb + hq * q_sh, q_ss, q0, kBQ, Sq, D, dp, q_s, dp, scale,
-        tid);
+  fl::stage<T, kThreads>(q + b * a.q_sb + hq * a.q_sh, a.q_ss, q0, kBQ, Sq,
+                         D, dp, q_s, dp, a.scale, tid);
 
-  // key-tile range that can meet this q tile's causal band / window
-  const int nkt = (Sk + kBK - 1) / kBK;
-  int kt_hi = nkt;
-  int kt_lo = 0;
-  if (causal) {
-    const int last_k = min(q0 + kBQ, Sq) - 1 + diag;
-    kt_hi = last_k < 0 ? 0 : min(nkt, last_k / kBK + 1);
-    if (window > 0) {
-      const int first_k = q0 + diag - window + 1;
-      kt_lo = first_k > 0 ? first_k / kBK : 0;
-    }
-  }
+  int kt_lo, kt_hi;
+  fl::k_tile_range(q0, q_end, Sk, kBK, a.causal, a.window, diag, &kt_lo,
+                   &kt_hi);
+  const int* seb = a.se == nullptr
+                       ? nullptr
+                       : a.se + b * a.se_sb + (hq / (H / a.h_se)) * a.se_sh;
 
   const int r0 = warp * kRows;  // this warp's first row within the tile
   float acc[kRows][kDPL];
@@ -139,16 +110,25 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < kDPL; ++i) acc[r][i] = 0.f;
   }
 
-  const T* kb = k + b * k_sb + hk * k_sh;
-  const T* vb = v + b * v_sb + hk * v_sh;
+  const T* kb = k + b * a.k_sb + hk * a.k_sh;
+  const T* vb = v + b * a.v_sb + hk * a.v_sh;
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * kBK;
+    const int kj = k0 + lane;  // this lane's key column
+    fl::Bands bands{};
+    if (seb != nullptr) {
+      bands = fl::load_bands(seb, a.se_s4, kj, Sk);
+      // every warp reads the same 32 columns: a block-uniform skip
+      if (fl::warp_tile_full(bands, q0, q_end)) continue;
+    }
     __syncthreads();  // previous K/V tile consumed (and q staged)
-    stage(kb, k_ss, k0, kBK, Sk, D, dp, k_s, dp + 4, 1.f, tid);
-    stage(vb, v_ss, k0, kBK, Sk, D, dp, v_s, dp, 1.f, tid);
+    fl::stage<T, kThreads>(kb, a.k_ss, k0, kBK, Sk, D, dp, k_s, dp + 4, 1.f,
+                           tid);
+    fl::stage<T, kThreads>(vb, a.v_ss, k0, kBK, Sk, D, dp, v_s, dp, 1.f,
+                           tid);
     __syncthreads();
 
-    // S = q K^T for this warp's 16 rows; lane owns key column k0 + lane
+    // S = q K^T for this warp's 16 rows; lane owns key column kj
     float s[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) s[r] = 0.f;
@@ -165,15 +145,11 @@ __global__ void __launch_bounds__(kThreads)
         s[r] = fmaf(qv.w, kv.w, s[r]);
       }
     }
-    const int kj = k0 + lane;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int qi = q0 + r0 + r;
-      bool keep = kj < Sk && qi < Sq;
-      if (causal) {
-        keep = keep && (qi + diag >= kj);
-        if (window > 0) keep = keep && (qi + diag - kj < window);
-      }
+      bool keep = fl::band_keep(qi, kj, Sq, Sk, a.causal, a.window, diag);
+      if (seb != nullptr) keep = keep && !fl::band_masked(bands, qi);
       const float sv = keep ? s[r] : -INFINITY;
       float mx = sv;
 #pragma unroll
@@ -215,68 +191,57 @@ __global__ void __launch_bounds__(kThreads)
             reinterpret_cast<const float4*>(p_s + (r0 + r) * kBK)[j4];
 #pragma unroll
         for (int i = 0; i < kDPL; ++i) {
-          float a = acc[r][i];
-          a = fmaf(pv.x, vv[0][i], a);
-          a = fmaf(pv.y, vv[1][i], a);
-          a = fmaf(pv.z, vv[2][i], a);
-          a = fmaf(pv.w, vv[3][i], a);
-          acc[r][i] = a;
+          float acc_ri = acc[r][i];
+          acc_ri = fmaf(pv.x, vv[0][i], acc_ri);
+          acc_ri = fmaf(pv.y, vv[1][i], acc_ri);
+          acc_ri = fmaf(pv.z, vv[2][i], acc_ri);
+          acc_ri = fmaf(pv.w, vv[3][i], acc_ri);
+          acc[r][i] = acc_ri;
         }
       }
     }
     __syncwarp();
   }
 
+  // a row is valid when it saw a key: m > -inf, l > 0 (the running-max
+  // counterpart of `m > ROW_INVALID_LSE` :365)
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int qi = q0 + r0 + r;
     if (qi >= Sq) continue;
-    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    const bool valid = l[r] > 0.f;
+    const float inv = valid ? 1.f / l[r] : 0.f;
     T* orow = o + ((size_t(b) * Sq + qi) * H + hq) * size_t(D);
 #pragma unroll
     for (int i = 0; i < kDPL; ++i) {
       const int c = lane + 32 * i;
       if (c < D) orow[c] = pt::from_f32<T>(acc[r][i] * inv);
     }
+    if (a.lse != nullptr && lane == 0)
+      a.lse[size_t(bh) * Sq + qi] = valid ? m[r] + logf(l[r]) : fl::kNegInf;
   }
 }
 
 template <typename T, int kDPL>
-int launch_dpl(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int Hkv, int Sq, int Sk, int D, const long long* st,
-               int causal, int window, float scale, cudaStream_t stream) {
+int launch_dpl(const Args& a, int B, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<T, kDPL>;
-  const size_t smem = smem_bytes(D);
+  const size_t smem = smem_bytes(a.D);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
   }
-  dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, Sq, Sk, D, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, window,
-      scale);
+  dim3 grid(B * a.H, (a.Sq + kBQ - 1) / kBQ);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
   return int(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hkv, int Sq, int Sk, int D, const long long* st,
-           int causal, int window, float scale, cudaStream_t stream) {
-  if (D <= 32)
-    return launch_dpl<T, 1>(q, k, v, o, B, H, Hkv, Sq, Sk, D, st, causal,
-                            window, scale, stream);
-  if (D <= 64)
-    return launch_dpl<T, 2>(q, k, v, o, B, H, Hkv, Sq, Sk, D, st, causal,
-                            window, scale, stream);
-  if (D <= 128)
-    return launch_dpl<T, 4>(q, k, v, o, B, H, Hkv, Sq, Sk, D, st, causal,
-                            window, scale, stream);
-  if (D <= 256)
-    return launch_dpl<T, 8>(q, k, v, o, B, H, Hkv, Sq, Sk, D, st, causal,
-                            window, scale, stream);
+int launch(const Args& a, int B, cudaStream_t stream) {
+  if (a.D <= 32) return launch_dpl<T, 1>(a, B, stream);
+  if (a.D <= 64) return launch_dpl<T, 2>(a, B, stream);
+  if (a.D <= 128) return launch_dpl<T, 4>(a, B, stream);
+  if (a.D <= 256) return launch_dpl<T, 8>(a, B, stream);
   return int(cudaErrorInvalidValue);
 }
 
@@ -287,29 +252,32 @@ PT_DEFINE_PROBE(flash_fwd)
 // q [B, Sq, H, D], k/v [B, Sk, Hkv, D] given by element strides
 // (batch, seq, head; the last dim is contiguous); o contiguous
 // [B, Sq, H, D] of the same dtype (`dtype`: pt::DType f32/bf16/f16).
-// window <= 0 means no window (only read when causal). Returns
-// cudaGetLastError() after launch.
-extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
-                                void* o, int B, int H, int Hkv, int Sq,
-                                int Sk, int D, long long q_sb, long long q_ss,
-                                long long q_sh, long long k_sb,
-                                long long k_ss, long long k_sh,
-                                long long v_sb, long long v_ss,
-                                long long v_sh, int causal, int window,
-                                float scale, int dtype, void* stream) {
-  const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                           v_sb, v_ss, v_sh};
+// lse: f32 [B, H, Sq] or null (not wanted). se: int32 flashmask bands
+// by strides (batch — 0 broadcasts —, se head, band; the Sk column
+// stride is 1) with h_se se heads, or null. window <= 0 means no window
+// (only read when causal). Returns cudaGetLastError() after launch.
+extern "C" int flash_fwd_launch(
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int H, int Hkv, int Sq, int Sk, int D, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, const void* se,
+    long long se_sb, long long se_sh, long long se_s4, int h_se, int causal,
+    int window, float scale, int dtype, void* stream) {
+  if (h_se < 1 || H % Hkv != 0 || H % h_se != 0)
+    return int(cudaErrorInvalidValue);
+  const Args a{q,    k,    v,    o,    static_cast<float*>(lse),
+               static_cast<const int*>(se),
+               H,    Hkv,  Sq,   Sk,   D,
+               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+               se_sb, se_sh, se_s4, h_se, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case pt::kF32:
-      return launch<float>(q, k, v, o, B, H, Hkv, Sq, Sk, D, st, causal,
-                           window, scale, s);
+      return launch<float>(a, B, s);
     case pt::kBF16:
-      return launch<__nv_bfloat16>(q, k, v, o, B, H, Hkv, Sq, Sk, D, st,
-                                   causal, window, scale, s);
+      return launch<__nv_bfloat16>(a, B, s);
     case pt::kF16:
-      return launch<__half>(q, k, v, o, B, H, Hkv, Sq, Sk, D, st, causal,
-                            window, scale, s);
+      return launch<__half>(a, B, s);
     default:
       return int(cudaErrorInvalidValue);
   }

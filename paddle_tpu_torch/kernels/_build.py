@@ -36,8 +36,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 
 #: kernel library name -> its source file under csrc/
-SOURCES = {"paged_decode": "paged_decode.cu", "flash_fwd": "flash_fwd.cu"}
-HEADERS = ("common.cuh",)
+SOURCES = {"paged_decode": "paged_decode.cu", "flash_fwd": "flash_fwd.cu",
+           "flash_bwd": "flash_bwd.cu"}
+HEADERS = ("common.cuh", "flash_common.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
@@ -47,16 +48,23 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
-#: C signature of each library's launch entry (all return cudaError_t)
+_FLASH_BWD = [_P, _P, _P, _P, _P, _P, _P, _P,
+              _I, _I, _I, _I, _I, _I,
+              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+              _P, _L, _L, _L, _I, _I, _I, _F, _I, _P]
+
+#: C signatures of each library's launch entries (all return cudaError_t)
 SIGNATURES = {
-    "paged_decode": ("paged_decode_launch",
+    "paged_decode": {"paged_decode_launch":
                      [_P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
-    "flash_fwd": ("flash_fwd_launch",
-                  [_P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]},
+    "flash_fwd": {"flash_fwd_launch":
+                  [_P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I,
                    _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                   _I, _I, _F, _I, _P]),
+                   _P, _L, _L, _L, _I, _I, _I, _F, _I, _P]},
+    "flash_bwd": {"flash_bwd_dq_launch": _FLASH_BWD,
+                  "flash_bwd_dkv_launch": _FLASH_BWD},
 }
 
 _lock = threading.Lock()
@@ -164,10 +172,10 @@ def load(name: str) -> ctypes.CDLL:
             return lib
         path = build()[name]
         lib = ctypes.CDLL(str(path))
-        fname, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fname)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fname, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fname)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         pfn = getattr(lib, f"{name}_probe")
         pfn.argtypes = [_P, _P, _I, _P]
         pfn.restype = ctypes.c_int

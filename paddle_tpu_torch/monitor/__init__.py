@@ -19,6 +19,9 @@ Kernel-path counters (bumped by the wrappers, one per call):
   ran the plain gather + matmul path.
 - ``kernels.flash.fwd_cuda`` / ``kernels.flash.fwd_plain``: the no-cache
   attention ran the CUDA flash forward kernel / its plain version.
+- ``kernels.flash.bwd_cuda`` / ``kernels.flash.bwd_plain``: a flash
+  backward ran the two CUDA backward kernels (dQ and dK/dV) / the plain
+  backward.
 """
 from __future__ import annotations
 

@@ -1,0 +1,76 @@
+"""Gradient clipping (counterpart of ``paddle_tpu/nn/clip.py``).
+
+A clip object is handed to an optimizer (``grad_clip=``), which applies
+it to the gradients before the update; ``TrainStep`` does the same
+through ``clip_grads``, whose math is ``_clip_pytree``
+(``paddle_tpu/jit/api.py:586-608``). Every clip returns new gradient
+tensors and leaves its inputs alone.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+
+class ClipGradBase:
+    def clip_grads(self, grads: List[Optional[torch.Tensor]]
+                   ) -> List[Optional[torch.Tensor]]:
+        raise NotImplementedError
+
+
+class ClipGradByValue(ClipGradBase):
+    """Clamp every gradient element into [min, max] (min defaults to
+    -max)."""
+
+    def __init__(self, max, min=None):
+        self.max = float(max)
+        self.min = float(min) if min is not None else -float(max)
+
+    def clip_grads(self, grads):
+        return [None if g is None else torch.clamp(g, self.min, self.max)
+                for g in grads]
+
+
+class ClipGradByNorm(ClipGradBase):
+    """Scale each gradient whose own L2 norm exceeds ``clip_norm`` down to
+    it."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = float(clip_norm)
+
+    def clip_grads(self, grads):
+        out = []
+        for g in grads:
+            if g is None:
+                out.append(None)
+                continue
+            n = torch.sqrt(torch.sum(torch.square(g)))
+            s = torch.where(n > self.clip_norm,
+                            self.clip_norm / torch.clamp(n, min=1e-12), 1.0)
+            out.append(g * s)
+        return out
+
+
+class ClipGradByGlobalNorm(ClipGradBase):
+    """Scale all gradients by ``clip_norm / max(global_norm, clip_norm)``,
+    the global norm taken over every gradient in f32 (counterpart of
+    ``ClipGradByGlobalNorm``, ``paddle_tpu/nn/clip.py:57``)."""
+
+    def __init__(self, clip_norm, group_name="default_group",
+                 auto_skip_clip=False):
+        self.clip_norm = float(clip_norm)
+        self.group_name = group_name
+        self.auto_skip_clip = auto_skip_clip
+
+    def global_norm(self, grads):
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in grads if g is not None))
+
+    def clip_grads(self, grads):
+        if all(g is None for g in grads):
+            return list(grads)
+        gn = self.global_norm(grads)
+        scale = self.clip_norm / torch.clamp(gn, min=self.clip_norm)
+        return [None if g is None else (g.float() * scale).to(g.dtype)
+                for g in grads]

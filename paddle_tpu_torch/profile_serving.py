@@ -34,6 +34,7 @@ import torch
 from .inference import Engine, SamplingParams
 from .text.models import LlamaConfig, LlamaForCausalLM
 
+#: the serving configuration (chip_smoke.py imports it too)
 MODEL = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
              num_hidden_layers=4, num_attention_heads=32,
              num_key_value_heads=32, max_position_embeddings=320)

@@ -1,3 +1,3 @@
-from .llama import LlamaConfig, LlamaForCausalLM
+from .llama import LlamaConfig, LlamaForCausalLM, llama_flops_per_token
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM"]
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "llama_flops_per_token"]

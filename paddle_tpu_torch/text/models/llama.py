@@ -1,16 +1,19 @@
 """LLaMA causal LM (counterpart of ``paddle_tpu/text/models/llama.py``).
 
-The serving slice of the port: ``LlamaConfig``, RMSNorm, attention
-(the no-cache flash branch, :259-291, and the paged-KV branch,
-:377-487), the SwiGLU MLP, the decoder stack, the causal-LM head and
-``serving_spec`` (:760). Module and parameter names match the JAX
-package, so ``bridge.llama_state_from_numpy`` maps one set of weights
-onto the other.
+The serving and training slices of the port: ``LlamaConfig``, RMSNorm,
+attention (the no-cache flash branch with flashmask, :221-291, and the
+paged-KV branch, :377-487), the SwiGLU MLP, the decoder stack with
+per-layer full recompute (:669-700), the causal-LM head, the fused
+chunked LM loss when ``labels`` are given (:746-754), ``serving_spec``
+(:760) and ``llama_flops_per_token`` (:837). Module and parameter names
+match the JAX package, so ``bridge.llama_state_from_numpy`` maps one set
+of weights onto the other.
 
 Attention paths:
 
 - no cache: ``kernels.flash_attention`` — the CUDA flash forward kernel
-  on the GPU, its plain version on the CPU;
+  (and, when a gradient is taken, the two CUDA backward kernels) on the
+  GPU, their plain versions on the CPU;
 - paged cache, one token per sequence (a decode tick):
   ``kernels.paged_attention.paged_decode`` — the CUDA paged-decode
   kernel on the GPU, its plain version on the CPU;
@@ -19,9 +22,9 @@ Attention paths:
   package does it with XLA (:453-470).
 
 Not carried yet, each raising NotImplementedError: dense and rolling KV
-caches (the decode slice), flashmask, recompute, fused linear CE and
-labels (the training slice), sequence parallelism (the distributed
-slice), and the ``use_flash_attention=False`` escape hatch.
+caches (the decode slice), selective recompute granularities, sequence
+parallelism (the distributed slice), and the
+``use_flash_attention=False`` escape hatch.
 """
 from __future__ import annotations
 
@@ -33,7 +36,9 @@ import torch
 from torch import nn
 
 from ...core.device import resolve_device
-from ...incubate.nn.functional import fused_rotary_position_embedding
+from ...distributed.fleet.recompute import recompute
+from ...incubate.nn.functional import (fused_linear_cross_entropy,
+                                       fused_rotary_position_embedding)
 from ...nn import functional as F
 
 NEG_INF_ATTN = -1e30
@@ -91,12 +96,14 @@ def _check_supported(c: LlamaConfig):
             "use_flash_attention=False (the JAX package's XLA sdpa escape "
             "hatch) is not carried by the port: no-cache attention always "
             "runs the flash kernel")
-    if c.recompute:
-        raise NotImplementedError(
-            "recompute comes with the training slice of the port")
-    if c.fused_linear_ce:
-        raise NotImplementedError(
-            "fused_linear_ce comes with the training slice of the port")
+    if c.recompute and c.recompute_granularity != "full":
+        if c.recompute_granularity in ("selective", "selective_qkv"):
+            raise NotImplementedError(
+                f"recompute_granularity={c.recompute_granularity!r} comes "
+                f"with a later slice of the port; 'full' is carried")
+        raise ValueError(
+            f"recompute_granularity={c.recompute_granularity!r}: expected "
+            f"'full', 'selective' or 'selective_qkv'")
     if c.sequence_parallel:
         raise NotImplementedError(
             "sequence_parallel comes with the distributed slice of the "
@@ -137,7 +144,8 @@ class LlamaAttention(nn.Module):
         self.v_proj = _linear(hs, kv, device, dtype)
         self.o_proj = _linear(hs, hs, device, dtype)
 
-    def forward(self, x, kv_cache=None, cache_index=None):
+    def forward(self, x, kv_cache=None, cache_index=None,
+                attn_mask_startend_row_indices=None):
         b, s, _ = x.shape
         q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
@@ -155,7 +163,14 @@ class LlamaAttention(nn.Module):
         if kv_cache is not None:
             return self._cached_attention(q, k, v, kv_cache, cache_index)
         from ...kernels.flash_attention import flash_attention
-        out = flash_attention(q, k, v, causal=True, window=self.window)
+        se = attn_mask_startend_row_indices
+        if se is not None and self.window is not None:
+            raise ValueError(
+                "attn_mask_startend_row_indices cannot be combined with "
+                "sliding_window — express the window as extra mask bands "
+                "instead")
+        out = flash_attention(q, k, v, causal=True, window=self.window,
+                              startend_row_indices=se)
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
     def _cached_attention(self, q, k, v, kv_cache, cache_index):
@@ -244,7 +259,8 @@ class LlamaDecoderLayer(nn.Module):
             config.hidden_size, config.rms_norm_eps, device, dtype)
         self.mlp = LlamaMLP(config, device, dtype)
 
-    def forward(self, x, kv_cache=None, cache_index=None):
+    def forward(self, x, kv_cache=None, cache_index=None,
+                attn_mask_startend_row_indices=None):
         if kv_cache is not None:
             attn, new_cache = self.self_attn(
                 self.input_layernorm(x), kv_cache=kv_cache,
@@ -252,7 +268,9 @@ class LlamaDecoderLayer(nn.Module):
             x = x + attn
             x = x + self.mlp(self.post_attention_layernorm(x))
             return x, new_cache
-        x = x + self.self_attn(self.input_layernorm(x))
+        x = x + self.self_attn(
+            self.input_layernorm(x),
+            attn_mask_startend_row_indices=attn_mask_startend_row_indices)
         x = x + self.mlp(self.post_attention_layernorm(x))
         return x
 
@@ -270,7 +288,14 @@ class LlamaModel(nn.Module):
         self.norm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps,
                                  device, dtype)
 
-    def forward(self, input_ids, kv_caches=None, cache_index=None):
+    def forward(self, input_ids, kv_caches=None, cache_index=None,
+                attn_mask_startend_row_indices=None):
+        se = attn_mask_startend_row_indices
+        if se is not None and kv_caches is not None:
+            raise ValueError(
+                "attn_mask_startend_row_indices is not supported with "
+                "kv_caches (cached decode applies causal(+window) masks "
+                "only)")
         x = self.embed_tokens(input_ids)
         if kv_caches is not None:
             new_caches = []
@@ -279,7 +304,12 @@ class LlamaModel(nn.Module):
                 new_caches.append(nc)
             return self.norm(x), new_caches
         for lyr in self.layers:
-            x = lyr(x)
+            if self.config.recompute:
+                # full recompute: the layer reruns in the backward, the
+                # mask bands riding along as an input
+                x = recompute(lyr, x, attn_mask_startend_row_indices=se)
+            else:
+                x = lyr(x, attn_mask_startend_row_indices=se)
         return self.norm(x)
 
 
@@ -319,20 +349,34 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids, labels=None,
                 attn_mask_startend_row_indices=None, kv_caches=None,
                 cache_index=None):
-        if labels is not None:
-            raise NotImplementedError(
-                "labels (the training loss) come with the training slice "
-                "of the port")
-        if attn_mask_startend_row_indices is not None:
-            raise NotImplementedError(
-                "attn_mask_startend_row_indices (flashmask) comes with the "
-                "training slice of the port")
+        """Logits [b, s, vocab]; with ``kv_caches`` also the updated
+        caches. With ``labels`` and ``config.fused_linear_ce`` the f32 mean
+        LM loss of the chunked fused head instead (labels are otherwise
+        ignored, as in the JAX package). ``attn_mask_startend_row_indices``:
+        a flashmask mask ([b|1, h_se, s, C] int) for every layer."""
+        se = attn_mask_startend_row_indices
+        if kv_caches is not None and se is not None:
+            raise ValueError(
+                "attn_mask_startend_row_indices is not supported with "
+                "kv_caches (cached decode applies causal(+window) masks "
+                "only — packed multi-document contexts must be decoded as "
+                "separate requests)")
         input_ids = torch.as_tensor(input_ids, device=self.device)
         if kv_caches is not None:
             h, new_caches = self.llama(input_ids, kv_caches=kv_caches,
                                        cache_index=cache_index)
             return self._head(h), new_caches
-        return self._head(self.llama(input_ids))
+        if se is not None:
+            se = torch.as_tensor(se, device=self.device)
+        h = self.llama(input_ids, attn_mask_startend_row_indices=se)
+        if labels is not None and self.config.fused_linear_ce:
+            # [H, V] (paddle Linear layout); tied: the embedding transposed
+            w = (self.lm_head.weight if self.lm_head is not None
+                 else self.llama.embed_tokens.weight).t()
+            return fused_linear_cross_entropy(
+                h, w, torch.as_tensor(labels, device=self.device),
+                n_chunks=self.config.fused_ce_chunks)
+        return self._head(h)
 
     def serving_spec(self):
         """Engine geometry probe (``Engine`` reads it through
@@ -349,3 +393,13 @@ class LlamaForCausalLM(nn.Module):
             "max_context": c.max_position_embeddings,
             "vocab_size": c.vocab_size,
         }
+
+
+def llama_flops_per_token(config: LlamaConfig) -> float:
+    """Approximate training FLOPs per token: 6 N over the embedding, head
+    and decoder matmul weights (``llama_flops_per_token``, :837)."""
+    n = (config.vocab_size * config.hidden_size * 2
+         + config.num_hidden_layers * (
+             4 * config.hidden_size * config.hidden_size
+             + 3 * config.hidden_size * config.intermediate_size))
+    return 6.0 * n

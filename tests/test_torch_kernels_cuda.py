@@ -107,3 +107,122 @@ def test_flash_fwd_reads_strided_inputs(dev):
     want = fa.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
                         True, 0.125)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _doc_bands(s, bounds, B=1, h_se=1):
+    """Normalized causal document-mask bands [B, h_se, 4, s]: key j of
+    document [lo, hi) is masked for rows >= hi."""
+    raw = torch.zeros(B, h_se, s, 1, dtype=torch.int32)
+    for lo, hi in bounds:
+        raw[:, :, lo:hi, 0] = hi
+    return fa._normalize_startend(raw, s, s, True)
+
+
+def _random_bands(g, s, C, causal, B, h_se):
+    start = torch.randint(0, s, (B, h_se, s, 1), generator=g)
+    cols = [start, torch.clamp(start + torch.randint(
+        1, s, (B, h_se, s, 1), generator=g), max=s)]
+    if C == 4:
+        ut = torch.randint(0, s // 2, (B, h_se, s, 1), generator=g)
+        cols += [ut, torch.clamp(ut + 9, max=s)]
+    return fa._normalize_startend(torch.cat(cols, -1), s, s, causal)
+
+
+# (B, sq, sk, h, hkv, d, causal, window, mask)
+_TRAIN_CASES = {
+    "ragged": (2, 70, 70, 4, 4, 128, True, None, None),
+    "sq_lt_sk": (1, 37, 129, 4, 2, 64, True, None, None),
+    "empty_rows": (1, 100, 77, 4, 2, 64, True, None, None),
+    "gqa_rep4": (2, 96, 96, 8, 2, 128, True, None, None),
+    "window": (1, 130, 130, 4, 2, 64, True, 20, None),
+    "full_d80": (1, 45, 45, 2, 1, 80, False, None, None),
+    "doc_mask_skips": (2, 300, 300, 4, 2, 128, True, None, "doc"),
+    "bands_c2_causal": (2, 90, 90, 4, 2, 64, True, None, "c2"),
+    "bands_c4_full": (1, 90, 90, 4, 4, 64, False, None, "c4"),
+}
+
+
+def _train_inputs(dev, name, dtype):
+    B, sq, sk, h, hkv, d, causal, window, mask = _TRAIN_CASES[name]
+    g = torch.Generator().manual_seed(len(name) * 7 + d)
+    q, k, v, do = (torch.randn(B, s_, hh, d, generator=g).to(dev, dtype)
+                   for s_, hh in ((sq, h), (sk, hkv), (sk, hkv), (sq, h)))
+    se = None
+    if mask == "doc":
+        se = _doc_bands(sq, [(0, 100), (100, 228), (228, sq)])
+    elif mask is not None:
+        se = _random_bands(g, sq, 2 if mask == "c2" else 4, causal, B,
+                           hkv if mask == "c2" else 1)
+    if se is not None:
+        se = se.to(dev)
+    return q, k, v, do, causal, window, se
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(_TRAIN_CASES))
+def test_flash_fwd_lse_and_bwd_match_plain(dev, dtype, name):
+    """The forward with logsumexp and both backward kernels against the
+    plain versions on the same inputs (the plain ones in f32 from the
+    same rounded inputs, so only the output rounding differs)."""
+    q, k, v, do, causal, window, se = _train_inputs(dev, name, dtype)
+    scale = q.shape[-1] ** -0.5
+    t = lambda x: x.transpose(1, 2).float()
+    rtol = 1e-4 if dtype == torch.float32 else 1e-2
+    n_fwd = fa.flash_fwd.launches
+    out, lse = fa.flash_fwd(q, k, v, causal, scale, window, se,
+                            want_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches == n_fwd + 1
+    want, want_lse = fa.flash_plain(t(q), t(k), t(v), causal, scale, window,
+                                    se, return_lse=True)
+    _close(out, want.transpose(1, 2), rtol)
+    # lse: NEG_INF rows exactly, the rest within f32 rounding
+    dead = want_lse <= fa.ROW_INVALID_LSE
+    assert torch.equal(lse <= fa.ROW_INVALID_LSE, dead)
+    _close(lse[~dead], want_lse[~dead], 1e-5)
+
+    o = want.transpose(1, 2).to(dtype)
+    n_dq, n_dkv = fa.flash_bwd.launches_dq, fa.flash_bwd.launches_dkv
+    got = fa.flash_bwd(q, k, v, o, want_lse, do, causal, scale, window, se)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd.launches_dq, fa.flash_bwd.launches_dkv) == (
+        n_dq + 1, n_dkv + 1)
+    ref = fa.flash_bwd_plain(t(q), t(k), t(v), t(o), want_lse, t(do), causal,
+                             scale, window, se)
+    for g_, r_, n in zip(got, ref, ("dq", "dk", "dv")):
+        assert g_.dtype == dtype and g_.shape == r_.transpose(1, 2).shape, n
+        _close(g_, r_.transpose(1, 2), rtol)
+
+
+def test_flash_bwd_reads_strided_grad(dev):
+    """dO from autograd may be a non-contiguous view: same answer as its
+    contiguous copy."""
+    q, k, v, do, causal, window, se = _train_inputs(dev, "ragged",
+                                                    torch.float32)
+    out, lse = fa.flash_fwd(q, k, v, True, 0.1, want_lse=True)
+    wide = torch.randn(2, 70, 4, 256, device=dev)
+    do_view = wide[..., ::2]                    # last stride 2: copied
+    do_heads = torch.randn(2, 4, 70, 128, device=dev).transpose(1, 2)
+    for g in (do_view, do_heads):
+        a = fa.flash_bwd(q, k, v, out, lse, g, True, 0.1)
+        b = fa.flash_bwd(q, k, v, out, lse, g.contiguous(), True, 0.1)
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+def test_flash_autograd_on_cuda_launches_kernels(dev):
+    """flash_attention with requires_grad runs the forward with lse and
+    both backward kernels, and its grads match the CPU's plain path."""
+    q, k, v, do, causal, window, se = _train_inputs(dev, "gqa_rep4",
+                                                    torch.float32)
+    ins = [x.clone().requires_grad_() for x in (q, k, v)]
+    n = (fa.flash_fwd.launches, fa.flash_bwd.launches_dq,
+         fa.flash_bwd.launches_dkv)
+    fa.flash_attention(*ins, causal=True).backward(do)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches_dq,
+            fa.flash_bwd.launches_dkv) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    cpu = [x.detach().cpu().requires_grad_() for x in (q, k, v)]
+    fa.flash_attention(*cpu, causal=True).backward(do.cpu())
+    for a, b in zip(ins, cpu):
+        _close(a.grad.cpu(), b.grad, 1e-4)

@@ -134,20 +134,29 @@ def test_paged_prefill_and_decode_logits_match_jax(variant):
 def test_unsupported_arguments_raise():
     _, tnet, _ = make_pair()
     ids = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tnet(ids, labels=ids)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tnet(ids, attn_mask_startend_row_indices=torch.zeros(1, 1, 4, 1))
+    se = torch.zeros(1, 1, 4, 1, dtype=torch.int32)
     dense = [(torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 4, 16))] * 2
     with pytest.raises(NotImplementedError, match="decode slice"):
         tnet(ids, kv_caches=dense, cache_index=0)
-    for field, value in (("recompute", True), ("fused_linear_ce", True),
-                         ("sequence_parallel", True),
-                         ("use_flash_attention", False)):
+    # the JAX package's flashmask checks (llama.py:221-248, :735-740)
+    with pytest.raises(ValueError, match="kv_caches"):
+        tnet(ids, attn_mask_startend_row_indices=se, kv_caches=dense,
+             cache_index=0)
+    _, wnet, _ = make_pair(window=3)
+    with pytest.raises(ValueError, match="sliding_window"):
+        wnet(ids, attn_mask_startend_row_indices=se)
+    for field, value in (("sequence_parallel", True),
+                         ("use_flash_attention", False),
+                         ("recompute_granularity", "selective")):
         cfg = LlamaConfig.tiny(vocab=64)
+        cfg.recompute = True
         setattr(cfg, field, value)
         with pytest.raises(NotImplementedError):
             LlamaForCausalLM(cfg, device="cpu")
+    cfg = LlamaConfig.tiny(vocab=64)
+    cfg.recompute, cfg.recompute_granularity = True, "layer"
+    with pytest.raises(ValueError, match="recompute_granularity"):
+        LlamaForCausalLM(cfg, device="cpu")
 
 
 def test_seeded_init_is_reproducible():
@@ -158,3 +167,62 @@ def test_seeded_init_is_reproducible():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["lm_head.weight"], c["lm_head.weight"])
     assert torch.equal(a["llama.norm.weight"], torch.ones(32))
+
+
+@pytest.mark.parametrize("mode", ["fused_loss", "flashmask_logits",
+                                  "unfused_labels_ignored"])
+def test_training_forward_matches_jax(mode):
+    """forward(ids, labels) with fused_linear_ce returns the chunked loss;
+    a flashmask document mask reaches every layer; without fused CE the
+    labels are ignored and logits come back — as in the JAX model."""
+    import paddle_tpu.nn.functional as jF
+    from paddle_tpu_torch.nn.functional import document_startend_row_indices
+    jnet, tnet, _ = make_pair(kv=2)
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, 64, (2, 11)).astype(np.int32)
+    lab = rng.integers(0, 64, (2, 11)).astype(np.int32)
+    lab[1, 4] = -100
+    if mode == "fused_loss":
+        jnet.config.fused_linear_ce = tnet.config.fused_linear_ce = True
+        jnet.config.fused_ce_chunks = tnet.config.fused_ce_chunks = 3
+        want = np.asarray(jnet(paddle.to_tensor(ids),
+                               paddle.to_tensor(lab)).numpy())
+        got = tnet(torch.from_numpy(ids), torch.from_numpy(lab))
+        assert got.shape == () and got.dtype == torch.float32
+    elif mode == "flashmask_logits":
+        want = np.asarray(jnet(paddle.to_tensor(ids), None,
+                               jF.document_startend_row_indices([4, 7]))
+                          .numpy())
+        got = tnet(torch.from_numpy(ids), None,
+                   document_startend_row_indices([4, 7]))
+    else:
+        want = np.asarray(jnet(paddle.to_tensor(ids),
+                               paddle.to_tensor(lab)).numpy())
+        got = tnet(torch.from_numpy(ids), torch.from_numpy(lab))
+    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+
+
+def test_recompute_full_gives_the_same_grads():
+    """Full recompute reruns each layer in the backward (two flash
+    forwards per layer) and changes no gradient."""
+    from paddle_tpu_torch.text.models import llama_flops_per_token
+    _, plain, params = make_pair()
+    cfg = dataclasses.replace(plain.config, recompute=True)
+    ckpt = LlamaForCausalLM(cfg, device="cpu")
+    ckpt.load_state_dict(llama_state_from_numpy(params))
+    ids = torch.from_numpy(
+        np.random.default_rng(5).integers(0, 64, (2, 9)).astype(np.int32))
+    grads = []
+    for net in (plain, ckpt):
+        before = monitor.counter("kernels.flash.fwd_plain").get()
+        net(ids).square().mean().backward()
+        grads.append({n: p.grad for n, p in net.named_parameters()})
+        fwd = monitor.counter("kernels.flash.fwd_plain").get() - before
+        assert fwd == (4 if net is ckpt else 2)
+    for n in grads[0]:
+        torch.testing.assert_close(grads[1][n], grads[0][n], rtol=1e-6,
+                                   atol=1e-7)
+    from paddle_tpu.text.models.llama import \
+        llama_flops_per_token as jax_flops
+    for c in (plain.config, LlamaConfig()):
+        assert llama_flops_per_token(c) == jax_flops(c)

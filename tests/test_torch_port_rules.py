@@ -57,6 +57,9 @@ def test_port_import_pulls_in_no_jax():
         "import paddle_tpu_torch.kernels.flash_attention\n"
         "import paddle_tpu_torch.kernels.paged_attention\n"
         "import paddle_tpu_torch.text.models.llama\n"
+        "import paddle_tpu_torch.jit, paddle_tpu_torch.optimizer\n"
+        "import paddle_tpu_torch.nn, paddle_tpu_torch.distributed\n"
+        "import paddle_tpu_torch.incubate.nn.functional\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n")
