@@ -50,10 +50,43 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    equal to them and no *_plain call; ms per step, tokens/s, the share
    of the bf16 peak and the peak device memory.
 
+11. MoE kernels: the grouped-FFN forward, dx and dw kernels against their
+   plain versions at the MoE training shape (8 experts, capacity 8192,
+   hidden 1024, expert FFN 2816, bf16, GELU, counts from a real top-2
+   routing of the bench's 16,384 tokens), a decode tick (capacity 8, f32,
+   one expert empty), a prefill chunk (capacity 128) and a ragged f32 ReLU
+   case (hidden 96, FFN 200, capacity 37, counts 0 / full / odd), held
+   stage by stage (rounded intermediates, then each output on the
+   kernel's own intermediates) and end to end (within MOE_E2E_RATIO of
+   the allowance), with a negative control (dw1 short of one expert's
+   last 64-row tile must be rejected by both); each timed beside its
+   plain version, its bound over the live rows and the timed-only pair
+   of torch.bmm calls;
+12. the MoE serving main path, counts set to 0 just before and read just
+   after: ``bench.py::bench_ernie_moe_serving``'s configuration
+   (``profile_moe``: 4 layers, 2 MoE, 8 experts, f32 weights from a seed)
+   in an Engine with 8 slots, 128-token pages and a 64-token bucket, 16
+   greedy requests of 64-191 prompt tokens and 96 new tokens: every
+   request finished, no page leaked, grouped-FFN forward launches ==
+   (prefills + decode ticks) x 2 MoE layers, paged-decode launches ==
+   ticks x 4 layers, only the kernel dispatch, and two requests' tokens
+   equal to a 1-slot engine's (>= 0.97);
+13. MoE cross-check: a 2-layer ERNIE-MoE (hidden 256, 4 experts, seq 128,
+   f32, TF32 off) — one TrainStep loss and every parameter gradient on
+   the card within 1e-4 of the CPU's, once the router's top-3 margins of
+   the inputs are above 1e-5;
+14. the MoE training main path, counts set to 0 just before and read just
+   after: ``bench.py::bench_ernie_moe``'s configuration (8 layers, 4 MoE,
+   batch 32 x seq 512, CE + aux loss, bf16 AMP, AdamW(1e-4, bf16
+   moments)) for 6 steps: finite, falling losses; grouped-FFN forward, dx
+   and dw launches == 4 MoE layers x 6 steps, flash forward / dQ / dK/dV
+   == 8 layers x 6 steps, no plain call; ms per step, tokens/s, the bf16
+   peak share of ``ernie_moe_flops_per_token`` and the peak memory.
+
 It prints the card line, a {"kernels": [...]} line, and as its last
 line {"ok": true, "device": {...}}. Details land in
 chiprun_out/chip_smoke/ (result JSON, nvcc/ptxas logs). About two
-minutes of command time on an H100, the three kernel builds included.
+minutes of command time on an H100, the five kernel builds included.
 """
 from __future__ import annotations
 
@@ -597,6 +630,441 @@ def train_main_path(torch, mods, fa, monitor, card):
     return rec
 
 
+# -- phases 11-14: the MoE path --------------------------------------------
+
+#: the small on-card MoE cross-check model (one MoE block)
+MOE_XCHECK_MODEL = dict(vocab_size=32000, hidden_size=256,
+                        intermediate_size=704, num_hidden_layers=2,
+                        num_attention_heads=4, num_key_value_heads=4,
+                        num_experts=4, moe_every=2, max_position_embeddings=128)
+#: the smallest gap allowed between consecutive top-3 router probabilities
+#: of the cross-check's tokens: card and CPU logits differ by f32 rounding,
+#: so a closer tie could route differently, and a routing flip is then a
+#: fault, not noise
+MOE_MARGIN_MIN = 1e-5
+#: greedy tokens of the 8-slot engine equal to a 1-slot engine's (a
+#: request's tokens do not depend on its batch-mates)
+MOE_AGREE = 0.97
+#: the grouped-FFN kernels' end-to-end gate against their plain version,
+#: in multiples of the element-wise allowance, by operand dtype. f32 is
+#: held to the allowance itself. A bf16 output also carries the
+#: intermediates' rounding flips (an ha or dz element whose f32 value
+#: sits on a rounding midpoint rounds to the other neighbour), amplified
+#: by the next product; the stage gate holds each rounding to one
+#: allowance, and this bounds their sum: the sound kernels read up to
+#: 2.94 (dx), a dw1 short of one row tile 424 (H100 runs of this script)
+MOE_E2E_RATIO = {"float32": 1.0, "bfloat16": 8.0}
+
+
+def _moe_counts(torch, moe_gate, n_tokens, h, e, cap, seed):
+    """Per-expert counts of a real top-2 routing of n_tokens random tokens
+    at capacity cap (router weights normal, std 0.02)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tok = torch.randn(n_tokens, h, generator=g, device="cuda")
+    wg = torch.randn(h, e, generator=g, device="cuda") * 0.02
+    idx, _, keep, _, _ = moe_gate.topk_gating_sparse(tok @ wg, 2, cap,
+                                                     train=False)
+    owner = torch.where(keep, idx.long(), e)
+    return torch.zeros(e + 1, dtype=torch.int32, device="cuda").index_add(
+        0, owner.reshape(-1), keep.reshape(-1).to(torch.int32))[:e]
+
+
+def _moe_negative_control(torch, moe, x, cnt, inter, dw1, ref_dw1,
+                          plain_dw1, e2e_limit):
+    """dw1 short of one expert's last live row tile (the tile loop one
+    short): subtract that tile's share, x^T dz over its rows (the plain
+    intermediate), and show that both gates reject it: the stage gate
+    (against the plain formula on the kernel's intermediates) and the
+    end-to-end gate (against the plain version, at ``e2e_limit``)."""
+    e0 = int(torch.argmax(cnt))
+    c = int(cnt[e0])
+    lo = (c - 1) // moe.ROW_TILE * moe.ROW_TILE
+    short = dw1.float()
+    short[e0] -= x[e0, lo:c].float().T @ inter["dz"][e0, lo:c]
+    short = short.to(dw1.dtype)
+    stage, e2e = closeness(short, ref_dw1), closeness(short, plain_dw1)
+    print(f"  negative control (dw1 without expert {e0}'s rows {lo}-{c - 1})"
+          f": ratio to tol {stage['ratio']:.3g} (rejected: > 1), end to end "
+          f"{e2e['ratio']:.3g} (rejected: > {e2e_limit})", flush=True)
+    if not (stage["ratio"] > 1.0 and e2e["ratio"] > e2e_limit):
+        fail(f"the checks do not reject dw1 short of a tile: {stage}, {e2e}")
+    return dict(expert=e0, rows=[lo, c], ratio=stage["ratio"],
+                ratio_vs_plain=e2e["ratio"], max_abs_err=stage["max_abs_err"])
+
+
+def _moe_rounding_witness(torch, dt, dz_k, inter):
+    """Where the dx kernel's rounded dz differs from the plain one: how
+    many elements, how many of them by exactly one ulp of ``dt`` (same
+    sign, neighbouring bit patterns), and how many of those have the
+    plain f32 value within 0.05 ulp of the midpoint of the two neighbours
+    (``at_midpoint``; ``median_offset_ulp`` over the one-ulp elements):
+    there the two f32 values, which differ only by the order of
+    summation, sit on either side of a rounding midpoint. Every other
+    differing element is reported by its largest |dz| over the rms of the
+    live dz (``others_max_abs_over_rms``) and its largest distance in
+    ulps (``max_ulps``, same-sign pairs): values near 0, where the f32
+    sums' own error exceeds half an ulp."""
+    differ = dz_k != inter["dz"]
+    a, b = dz_k[differ].to(dt), inter["dz"][differ].to(dt)
+    v = inter["dz32"][differ]
+    same = torch.signbit(a) == torch.signbit(b)
+    ulps = (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+    one = (ulps == 1) & same
+    a, b = a.float(), b.float()
+    off = torch.where(one, (v - (a + b) / 2).abs() / (a - b).abs(), 1.0)
+    mid = off < 0.05
+    live = inter["dz32"][inter["dz32"] != 0]
+    rms = float(live.square().mean().sqrt()) if live.numel() else 0.0
+    others = v[~mid].abs()
+    return dict(elements=dz_k.numel(), differ=int(differ.sum()),
+                one_ulp=int(one.sum()), at_midpoint=int(mid.sum()),
+                median_offset_ulp=float(off[one].median()) if one.any()
+                else None,
+                others_max_abs_over_rms=float(others.max()) / rms
+                if others.numel() else None,
+                max_ulps=int(ulps[same].max()) if same.any() else None)
+
+
+def check_moe_kernels(torch, moe, moe_gate):
+    """Phase 11: the grouped-FFN forward, dx and dw kernels against their
+    plain versions at the training shape (routed counts of the bench's
+    16,384 tokens), a decode tick (8 lanes, one expert empty), a prefill
+    chunk (cap 128, routed) and a ragged f32 case; each timed alone beside
+    the plain version, its bound over the LIVE rows, and the timed-only
+    pair of torch.bmm calls over the padded buffer.
+
+    Two gates. Stage by stage, every compared value is f32 math on the
+    same rounded inputs, rounded once (PR 2's element-wise rule applies):
+    the dx kernel's rounded intermediates ha and dz of the live rows (its
+    scratch) against the plain ones, and each output against the plain
+    formula on the kernel's own intermediates (the forward's ha is the dx
+    kernel's, bit for bit: same tiles, same order); db1 and db2, summed
+    from f32, against the plain version directly. End to end, each output
+    against the plain version within MOE_E2E_RATIO times its allowance
+    (``ratio_vs_plain``): a bf16 output also carries the intermediates'
+    rounding flips, amplified by the next product. For bf16, where the
+    kernel's dz differs from the plain one is recorded
+    (``_moe_rounding_witness``)."""
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    specs = [  # name, E, cap, h, dff, dtype, act, counts (or routed tokens)
+        ("train_bf16", 8, 8192, 1024, 2816, bf16, "gelu", 16384),
+        ("decode_f32", 8, 8, 1024, 2816, f32, "gelu",
+         [2, 3, 0, 1, 4, 2, 2, 2]),
+        ("prefill_f32", 8, 128, 1024, 2816, f32, "gelu", 128),
+        ("ragged_f32", 3, 37, 96, 200, f32, "relu", [0, 37, 13]),
+    ]
+    names = ("out", "dx", "dw1", "db1", "dw2", "db2", "dws")
+    cases = []
+    for i, (name, E, cap, h, dff, dt, act, cspec) in enumerate(specs):
+        cnt = (_moe_counts(torch, moe_gate, cspec, h, E, cap, 10 + i)
+               if isinstance(cspec, int) else
+               torch.tensor(cspec, dtype=torch.int32, device=dev))
+        g = torch.Generator(device=dev).manual_seed(20 + i)
+
+        def r(*shape, sc=1.0):
+            return torch.randn(*shape, generator=g, device=dev) * sc
+        ops = (r(E, cap, h, sc=0.5).to(dt), r(E, h, dff, sc=h ** -0.5).to(dt),
+               r(E, 1, dff, sc=0.1), r(E, dff, h, sc=dff ** -0.5).to(dt),
+               r(E, 1, h, sc=0.1), torch.rand(E, cap, 1, generator=g,
+                                              device=dev))
+        gg = r(E, cap, h).to(dt)
+        got = dict(zip(names, (moe.grouped_ffn_fwd(*ops, cnt, act),)
+                       + moe.grouped_ffn_bwd(*ops, cnt, gg, act)))
+        # the dx kernel's rounded intermediates (scratch, live rows)
+        cops = moe._check_cuda("check", *ops, cnt, gg)
+        s = moe._bwd_scratch(ops[0], dff)
+        dx_b, dw1_b, dw2_b = (torch.empty_like(t) for t in
+                              (ops[0], ops[1], ops[3]))
+        dws_b = torch.empty(E, cap, 1, device=dev)
+        db2_b = torch.empty(E, 1, h, device=dev)
+        db1_b = torch.empty(E, 1, dff, device=dev)
+        moe._bwd_dx_launch(cops, s, dx_b, dws_b, db2_b, act)
+        torch.cuda.synchronize()
+        keep = moe._row_mask(cnt, cap, dev)
+        ha_k = torch.where(keep, s["ha"].float(), 0.0)
+        dz_k = torch.where(keep, s["dz"].float(), 0.0)
+        dname = str(dt).replace("torch.", "")
+        e2e_limit = MOE_E2E_RATIO[dname]
+        inter = moe.grouped_ffn_bwd_intermediates(*ops, cnt, gg, act)
+        plain = dict(zip(names, (moe.grouped_ffn_plain(*ops, cnt, act),)
+                         + moe.grouped_ffn_bwd_outputs(*ops, cnt, gg,
+                                                       **inter)))
+        e2e = {n: closeness(got[n], plain[n]) for n in names}
+        res = {n: closeness(a.to(dt), inter[n].to(dt))
+               for n, a in (("ha", ha_k), ("dz", dz_k))}
+        witness = (None if dt == f32 else
+                   _moe_rounding_witness(torch, dt, dz_k, inter))
+        ref = dict(zip(names, (moe.grouped_ffn_down_plain(
+            ha_k, ops[3], ops[4], ops[5], cnt, dt),)
+            + moe.grouped_ffn_bwd_outputs(*ops, cnt, gg, **dict(
+                inter, ha=ha_k, dz=dz_k))))
+        res.update({n: closeness(got[n], ref[n]) for n in names})
+        sharp = None
+        if name == "train_bf16":
+            sharp = _moe_negative_control(torch, moe, ops[0], cnt, inter,
+                                          got["dw1"], ref["dw1"],
+                                          plain["dw1"], e2e_limit)
+        del got, ref, plain, inter, ha_k, dz_k
+        bad = {n: v for n, v in res.items() if not v["ratio"] <= 1.0}
+        bad.update({f"{n} end to end": v for n, v in e2e.items()
+                    if not v["ratio"] <= e2e_limit})
+        if witness is not None:
+            print(f"  grouped_ffn[{name}] dz, kernel vs plain: {witness}",
+                  flush=True)
+        if bad:
+            fail(f"grouped_ffn[{name}] disagrees with its plain version: "
+                 f"{bad}")
+
+        # timing: each kernel alone (raw launches for dx and dw), the
+        # plain versions, and the bmm pairs over the padded buffer. Bounds
+        # count the port's own entries over the live rows: the forward 2
+        # products, dx 4 (z, dh, dz w1^T, ha w2) writing ha and dz of the
+        # live rows, dw 2 (dw1, dw2) reading them back and writing dw1
+        # and dw2 of every expert.
+        hbuf = r(E, cap, dff, sc=0.5).to(dt)
+        x, w1, _, w2, _, _ = ops
+        live = int(cnt.sum())
+        item = x.element_size()
+        wbytes = int((cnt > 0).sum()) * 2 * h * dff * item
+        rows = live * h * item
+        scratch = 2 * live * dff * item
+        rec = dict(case=name, experts=E, cap=cap, hidden=h, dff=dff,
+                   dtype=dname, activation=act, counts=cnt.tolist(),
+                   live_rows=live,
+                   max_abs_err={n: v["max_abs_err"] for n, v in res.items()},
+                   tol={n: v["tol"] for n, v in res.items()},
+                   ratio={n: v["ratio"] for n, v in res.items()},
+                   ratio_vs_plain={n: v["ratio"] for n, v in e2e.items()},
+                   e2e_limit=e2e_limit, dz_rounding=witness,
+                   negative_control=sharp)
+        plain_bwd = cuda_ms(lambda: moe.grouped_ffn_bwd_plain(
+            *ops, cnt, gg, act), iters=3)
+        parts = {
+            "fwd": (lambda: moe.grouped_ffn_fwd(*ops, cnt, act),
+                    cuda_ms(lambda: moe.grouped_ffn_plain(*ops, cnt, act),
+                            iters=3),
+                    (lambda: (torch.bmm(x, w1), torch.bmm(hbuf, w2))),
+                    wbytes + 2 * rows + 4 * live, 4 * live * h * dff),
+            "dx": (lambda: moe._bwd_dx_launch(cops, s, dx_b, dws_b, db2_b,
+                                              act), plain_bwd,
+                   (lambda: (torch.bmm(gg, w2.transpose(1, 2)),
+                             torch.bmm(hbuf, w1.transpose(1, 2)))),
+                   wbytes + 3 * rows + 8 * live + scratch,
+                   8 * live * h * dff),
+            "dw": (lambda: moe._bwd_dw_launch(cops, s, dw1_b, db1_b, dw2_b),
+                   plain_bwd,
+                   (lambda: (torch.bmm(x.transpose(1, 2), hbuf),
+                             torch.bmm(hbuf.transpose(1, 2), gg))),
+                   2 * rows + 4 * live + scratch + 2 * E * h * dff * item,
+                   4 * live * h * dff),
+        }
+        for part, (fn, plain_ms, pair, nbytes, flops) in parts.items():
+            bms, by = bound_ms(nbytes, flops, dname)
+            rec[part] = dict(ms=cuda_ms(fn, iters=10), plain_ms=plain_ms,
+                             bound_ms=bms, bound_by=by, library_ms=None,
+                             library_pair_ms=cuda_ms(pair, iters=10))
+        print(f"  grouped_ffn[{name}]: ratio to tol "
+              f"{ {n: round(v, 3) for n, v in rec['ratio'].items()} }, end "
+              f"to end {max(rec['ratio_vs_plain'].values()):.3g} (limit "
+              f"{e2e_limit}); " + "; ".join(f"{p} {rec[p]['ms']:.4f} ms (bound "
+                          f"{rec[p]['bound_ms']:.4f} {rec[p]['bound_by']}, "
+                          f"plain {rec[p]['plain_ms']:.4f}, bmm pair "
+                          f"{rec[p]['library_pair_ms']:.4f})"
+                          for p in ("fwd", "dx", "dw")), flush=True)
+        cases.append(rec)
+        del ops, gg, cops, s, dx_b, dw1_b, dw2_b, hbuf
+        torch.cuda.empty_cache()
+    return cases
+
+
+def moe_serving_main_path(torch, mods, launches_of, reset_counts, card):
+    """Phase 12: bench_ernie_moe_serving's configuration, counts set to 0
+    just before it and read just after; then two requests again on a
+    1-slot engine."""
+    P = mods.moe_profile
+    cfg = mods.ErnieMoEConfig(**P.MOE_SERVE_MODEL)
+    model = mods.ErnieMoEForCausalLM(cfg, seed=0)
+    model.eval()
+    reqs = [(p, mods.SamplingParams(max_new_tokens=P.MOE_NEW_TOKENS))
+            for p in P.moe_prompts(cfg.vocab_size)]
+    torch.cuda.synchronize()
+    reset_counts()
+    eng = mods.Engine(model, **P.MOE_ENGINE)
+    t0 = time.perf_counter()
+    outs = eng.run(reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = launches_of()
+    counters = {k: v for k, v in mods.monitor.snapshot().items()
+                if k.startswith(("kernels.", "serving."))}
+    # -- end of the counted MoE serving path --
+    bad = [o for o in outs if not o.ok or len(o.token_ids) !=
+           P.MOE_NEW_TOKENS]
+    if len(outs) != P.MOE_REQUESTS or bad:
+        fail(f"MoE serving: {len(outs)} outputs, failed/short: {bad[:2]}")
+    if eng.leaked_pages():
+        fail(f"MoE serving leaked {eng.leaked_pages()} pages")
+    ticks = eng.decode_ticks
+    prefills = int(counters.get("serving.prefill_slices", 0))
+    n_moe = len(model.moe_layers())
+    want = (prefills + ticks) * n_moe
+    if launches["grouped_ffn_fwd"] != want or \
+            counters.get("kernels.moe.grouped_ffn_fwd_cuda") != want:
+        fail(f"grouped-FFN forward launches {launches['grouped_ffn_fwd']} "
+             f"!= ({prefills} prefills + {ticks} ticks) x {n_moe} MoE layers")
+    if launches["paged_decode"] != ticks * cfg.num_hidden_layers:
+        fail(f"MoE serving paged-decode launches {launches['paged_decode']} "
+             f"!= {ticks} ticks x {cfg.num_hidden_layers} layers")
+    paths = eng.moe_decode_path()
+    plain = {k: v for k, v in counters.items()
+             if (k.endswith("_plain") or "fallback" in k) and v}
+    if paths != {"pallas": want} or plain or \
+            counters.get("serving.moe.decode_path.pallas") != want:
+        fail(f"MoE serving left the kernel path: {paths}, {plain}")
+    n_tok = sum(len(o.token_ids) for o in outs)
+    one = mods.Engine(model, **dict(P.MOE_ENGINE, max_slots=1)).run(
+        [reqs[0], reqs[1]])
+    agree = [sum(int(a == b) for a, b in zip(outs[i].token_ids,
+                                             one[i].token_ids))
+             / len(one[i].token_ids) for i in range(2)]
+    rec = dict(requests=P.MOE_REQUESTS, tokens=n_tok, seconds=serve_s,
+               tokens_per_s=n_tok / serve_s, decode_ticks=ticks,
+               prefills=prefills, launches=launches,
+               moe_decode_path=paths, agreement_1_slot=agree,
+               counters=counters)
+    print(f"MoE serving: {P.MOE_REQUESTS} requests, {n_tok} tokens, {ticks} "
+          f"decode ticks, {prefills} prefills in {serve_s:.2f} s = "
+          f"{n_tok / serve_s:.1f} tok/s on {card}; launches {launches}; "
+          f"8-slot vs 1-slot greedy agreement {agree} (threshold "
+          f"{MOE_AGREE})", flush=True)
+    if min(agree) < MOE_AGREE:
+        fail(f"MoE serving: tokens depend on batch-mates: {agree}")
+    return rec
+
+
+def moe_cross_check(torch, mods):
+    """Phase 13: a 2-layer ERNIE-MoE (one MoE block) on the card against
+    the same weights on the CPU: one TrainStep loss and every parameter
+    gradient, once the router's top-3 margins of the CPU's inputs are
+    above MOE_MARGIN_MIN."""
+    import numpy as np
+    cfg = mods.ErnieMoEConfig(**MOE_XCHECK_MODEL)
+    nets = {"cuda": mods.ErnieMoEForCausalLM(cfg, seed=1)}
+    nets["cpu"] = mods.ErnieMoEForCausalLM(cfg, device="cpu")
+    nets["cpu"].load_state_dict(
+        {k: v.cpu() for k, v in nets["cuda"].state_dict().items()})
+    rng = np.random.default_rng(6)
+    ids = rng.integers(0, cfg.vocab_size, (2, 128)).astype(np.int64)
+    labels = rng.integers(0, cfg.vocab_size, (2, 128)).astype(np.int64)
+    res, seen = {}, {}
+    for dev, net in (("cpu", nets["cpu"]), ("cuda", nets["cuda"])):
+        def keep_input(module, args, dev=dev):
+            seen.setdefault(dev, args[0].detach())      # returns None
+        hook = net.moe_layers()[0].register_forward_pre_hook(keep_input)
+        x, y = (torch.from_numpy(a).to(dev) for a in (ids, labels))
+        ce = mods.CrossEntropyLoss()
+
+        def loss_fn(out, lab, net=net, ce=ce):
+            return ce(out, lab) + net.aux_loss()
+        params = list(net.parameters())
+        grads = torch.autograd.grad(loss_fn(net(x), y), params)
+        hook.remove()
+        step = mods.TrainStep(net, loss_fn, mods.AdamW(1e-3,
+                                                       parameters=params))
+        res[dev] = (float(step(x, y)), [gr.cpu() for gr in grads])
+    h = seen["cpu"].reshape(-1, cfg.hidden_size)
+    probs = torch.softmax(h @ nets["cpu"].moe_layers()[0].gate_weight.detach(),
+                          dim=-1)
+    top = probs.topk(3, dim=-1).values
+    margin = float((top[:, :-1] - top[:, 1:]).min())
+    loss_err = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                   for a, b in zip(res["cuda"][1], res["cpu"][1]))
+    rec = dict(loss_cuda=res["cuda"][0], loss_cpu=res["cpu"][0],
+               loss_rel_err=loss_err, max_rel_grad_err=grad_err,
+               min_top3_margin=margin, margin_min=MOE_MARGIN_MIN,
+               grad_tol=XCHECK_GRAD_TOL, loss_tol=XCHECK_LOSS_TOL)
+    print(f"MoE cross-check: smallest top-3 router margin {margin:.3g} "
+          f"(min {MOE_MARGIN_MIN}); TrainStep loss cuda {res['cuda'][0]:.6f} "
+          f"cpu {res['cpu'][0]:.6f} (rel err {loss_err:.2e}, tol "
+          f"{XCHECK_LOSS_TOL}); max relative grad error {grad_err:.2e} over "
+          f"{len(res['cpu'][1])} parameters (tol {XCHECK_GRAD_TOL})",
+          flush=True)
+    if not margin > MOE_MARGIN_MIN:
+        fail(f"MoE cross-check inputs sit on a routing tie: {rec}")
+    if not (loss_err <= XCHECK_LOSS_TOL and grad_err <= XCHECK_GRAD_TOL):
+        fail(f"MoE cross-check off: {rec}")
+    del nets, res
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_train_main_path(torch, mods, launches_of, reset_counts, card):
+    """Phase 14: bench_ernie_moe's configuration for TRAIN_STEPS steps of
+    one fixed batch, counts set to 0 just before and read just after."""
+    P = mods.moe_profile
+    cfg = mods.ErnieMoEConfig(**P.MOE_TRAIN_MODEL)
+    model = mods.ErnieMoEForCausalLM(cfg, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    step = P.moe_train_step(model)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ids, labels = (torch.randint(0, cfg.vocab_size, (P.MOE_BATCH, P.MOE_SEQ),
+                                 generator=gen, device="cuda")
+                   for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = launches_of()
+    counters = {k: v for k, v in mods.monitor.snapshot().items()
+                if k.startswith("kernels.")}
+    # -- end of the counted MoE training path --
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_moe = len(model.moe_layers())
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        fail(f"MoE training losses not finite and falling: {losses}")
+    want = {"grouped_ffn_fwd": n_moe * TRAIN_STEPS,
+            "grouped_ffn_bwd_dx": n_moe * TRAIN_STEPS,
+            "grouped_ffn_bwd_dw": n_moe * TRAIN_STEPS,
+            "flash_fwd": cfg.num_hidden_layers * TRAIN_STEPS,
+            "flash_bwd_dq": cfg.num_hidden_layers * TRAIN_STEPS,
+            "flash_bwd_dkv": cfg.num_hidden_layers * TRAIN_STEPS}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"MoE training launches {got}, expected {want}")
+    plain = {k: v for k, v in counters.items()
+             if (k.endswith("_plain") or "fallback" in k) and v}
+    if plain or counters.get("kernels.moe.grouped_ffn_bwd_cuda") != \
+            want["grouped_ffn_bwd_dx"] or counters.get(
+                "kernels.flash.bwd_cuda") != want["flash_bwd_dq"]:
+        fail(f"MoE training kernel-path counters disagree: {counters}")
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    tokens = P.MOE_BATCH * P.MOE_SEQ
+    flops = mods.ernie_moe_flops_per_token(cfg) * tokens
+    rec = dict(params=n_params, batch=P.MOE_BATCH, seq=P.MOE_SEQ,
+               steps=TRAIN_STEPS, losses=losses, step_s=times,
+               ms_per_step=steady * 1e3, first_step_ms=times[0] * 1e3,
+               tokens_per_s=tokens / steady,
+               bf16_peak_share=flops / steady / PEAK_FLOPS["bfloat16"],
+               peak_mem_gb=peak_gb, launches=launches, counters=counters)
+    print(f"MoE training: {n_params / 1e6:.1f} M params, batch "
+          f"{P.MOE_BATCH} x seq {P.MOE_SEQ}, losses "
+          f"{[round(x, 4) for x in losses]}; median step "
+          f"{rec['ms_per_step']:.1f} ms (first {rec['first_step_ms']:.1f} "
+          f"ms) = {rec['tokens_per_s']:.0f} tokens/s, "
+          f"{rec['bf16_peak_share']:.4f} of the 989 TFLOP/s bf16 peak "
+          f"(ernie_moe_flops_per_token, routed), peak memory {peak_gb:.1f} "
+          f"GB; launches {launches} on {card}", flush=True)
+    return rec
+
+
 # -- phases 4 and 5: the main path -----------------------------------------
 
 def make_requests(SamplingParams, vocab_size):
@@ -635,24 +1103,38 @@ def main():
         from types import SimpleNamespace
 
         from paddle_tpu_torch import monitor
+        from paddle_tpu_torch import profile_moe as moe_profile
         from paddle_tpu_torch import profile_training as train
+        from paddle_tpu_torch.incubate.distributed.models.moe import \
+            gate as moe_gate
         from paddle_tpu_torch.inference import Engine, SamplingParams
         from paddle_tpu_torch.jit import TrainStep
         from paddle_tpu_torch.kernels import _build as build
         from paddle_tpu_torch.kernels import flash_attention as fa
+        from paddle_tpu_torch.kernels import moe
         from paddle_tpu_torch.kernels import paged_attention as pa
+        from paddle_tpu_torch.nn import CrossEntropyLoss
         from paddle_tpu_torch.nn.functional import \
             document_startend_row_indices as doc_mask
         from paddle_tpu_torch.optimizer import AdamW
         from paddle_tpu_torch.profile_serving import MODEL
         from paddle_tpu_torch.quantization import kv_quantize_arrays
-        from paddle_tpu_torch.text.models import (LlamaConfig,
+        from paddle_tpu_torch.text.models import (ErnieMoEConfig,
+                                                  ErnieMoEForCausalLM,
+                                                  LlamaConfig,
                                                   LlamaForCausalLM,
+                                                  ernie_moe_flops_per_token,
                                                   llama_flops_per_token)
         mods = SimpleNamespace(
             LlamaConfig=LlamaConfig, LlamaForCausalLM=LlamaForCausalLM,
             TrainStep=TrainStep, AdamW=AdamW, doc_mask=doc_mask,
-            llama_flops_per_token=llama_flops_per_token, train=train)
+            llama_flops_per_token=llama_flops_per_token, train=train,
+            ErnieMoEConfig=ErnieMoEConfig,
+            ErnieMoEForCausalLM=ErnieMoEForCausalLM,
+            ernie_moe_flops_per_token=ernie_moe_flops_per_token,
+            CrossEntropyLoss=CrossEntropyLoss, Engine=Engine,
+            SamplingParams=SamplingParams, monitor=monitor,
+            moe_profile=moe_profile)
     except ImportError as e:
         fail(f"cannot import the port (run from the repository root): {e}")
     # a reference states its float32 matmul precision: full f32, no TF32
@@ -784,6 +1266,39 @@ def main():
 
     # 9. + 10. the training main path: counts to 0 just before, read after
     training = train_main_path(torch, mods, fa, monitor, card)
+    torch.cuda.empty_cache()
+
+    # 11. the MoE kernels against their plain versions
+    print("MoE kernels vs plain versions:", flush=True)
+    moe_cases = check_moe_kernels(torch, moe, moe_gate)
+
+    def reset_counts():
+        build.probe.launches = 0
+        pa.paged_decode.launches = 0
+        fa.flash_fwd.launches = 0
+        fa.flash_bwd.launches_dq = fa.flash_bwd.launches_dkv = 0
+        moe.grouped_ffn_fwd.launches = 0
+        moe.grouped_ffn_bwd.launches_dx = moe.grouped_ffn_bwd.launches_dw = 0
+        monitor.reset()
+
+    def launches_of():
+        return {"probe": build.probe.launches,
+                "paged_decode": pa.paged_decode.launches,
+                "flash_fwd": fa.flash_fwd.launches,
+                "flash_bwd_dq": fa.flash_bwd.launches_dq,
+                "flash_bwd_dkv": fa.flash_bwd.launches_dkv,
+                "grouped_ffn_fwd": moe.grouped_ffn_fwd.launches,
+                "grouped_ffn_bwd_dx": moe.grouped_ffn_bwd.launches_dx,
+                "grouped_ffn_bwd_dw": moe.grouped_ffn_bwd.launches_dw}
+
+    # 12. the MoE serving main path, 13. the MoE cross-check, 14. the MoE
+    # training main path (12 and 14 count their launches around them)
+    moe_serving = moe_serving_main_path(torch, mods, launches_of,
+                                        reset_counts, card)
+    torch.cuda.empty_cache()
+    moe_xcheck = moe_cross_check(torch, mods)
+    moe_training = moe_train_main_path(torch, mods, launches_of,
+                                       reset_counts, card)
 
     src = "paddle_tpu_torch/csrc/"
     main_paged = paged_cases[0]
@@ -844,6 +1359,55 @@ def main():
                  "together: compare them with pass_ms",
             cases=[dict(case=c["case"], **c[part]) for c in train_cases],
             **main_train[part]))
+    ms_l, mt_l = moe_serving["launches"], moe_training["launches"]
+    kernels[0]["launches"] += ms_l["probe"]
+    kernels[0]["launches_by_path"] = {"serving": launches["probe"],
+                                      "moe_serving": ms_l["probe"]}
+    kernels[1]["launches"] += ms_l["paged_decode"]
+    kernels[1]["launches_by_path"] = {
+        "serving": launches["paged_decode"],
+        "moe_serving": ms_l["paged_decode"]}
+    for k, name in zip(kernels[2:], ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv")):
+        k["launches"] += mt_l[name]
+        k["launches_by_path"]["moe_training"] = mt_l[name]
+    main_moe = moe_cases[0]
+    for kname, part, line, outs, paths in (
+            ("grouped_ffn_fwd", "fwd", 181, ("out",),
+             {"moe_serving": ms_l["grouped_ffn_fwd"],
+              "moe_training": mt_l["grouped_ffn_fwd"]}),
+            ("grouped_ffn_bwd_dx", "dx", 344, ("dx", "dws", "db2", "ha",
+                                                "dz"),
+             {"moe_training": mt_l["grouped_ffn_bwd_dx"]}),
+            ("grouped_ffn_bwd_dw", "dw", 462, ("dw1", "db1", "dw2"),
+             {"moe_training": mt_l["grouped_ffn_bwd_dw"]})):
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source=src + ("grouped_ffn_fwd.cu" if part == "fwd"
+                          else "grouped_ffn_bwd.cu"),
+            replaces=f"paddle_tpu/kernels/moe.py:{line}",
+            launches=sum(paths.values()), launches_by_path=paths,
+            case=main_moe["case"],
+            max_abs_err=max(main_moe["max_abs_err"][n] for n in outs),
+            tol={n: main_moe["tol"][n] for n in outs},
+            ratio=max(main_moe["ratio"][n] for n in outs),
+            ratio_vs_plain=max(main_moe["ratio_vs_plain"][n] for n in outs
+                               if n in main_moe["ratio_vs_plain"]),
+            e2e_limit=main_moe["e2e_limit"],
+            note="bound_ms counts the port's own entry over the live rows: "
+                 "forward 2 products (weights of the live experts, x in, "
+                 "out written); dx 4 products (z, dh, dz w1^T, ha w2; the "
+                 "weights, x and g in, dx written, ha and dz of the live "
+                 "rows written for dw); dw 2 products (dw1, dw2; x, g, ha "
+                 "and dz of the live rows in, dw1 and dw2 of every expert "
+                 "written); library_ms is null (no single PyTorch call "
+                 "computes a fused grouped FFN); library_pair_ms times two "
+                 "torch.bmm calls over the padded buffer, timed only; "
+                 "plain_ms of dx and dw is the whole plain backward; ratio "
+                 "is the stage gate, ratio_vs_plain the end-to-end one "
+                 "(limit e2e_limit)",
+            cases=[dict(case=c["case"], **c[part]) for c in moe_cases],
+            **main_moe[part]))
     for k in kernels:                 # also under these two names
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]
     result = dict(card=card, kind=kind, torch=torch.__version__,
@@ -856,7 +1420,9 @@ def main():
                                    "serving.preemptions", 0)),
                   counters=counters, agreement=agree,
                   flash_train_cases=train_cases, model_cross_check=xcheck,
-                  training=training, kernels=kernels)
+                  training=training, moe_kernel_cases=moe_cases,
+                  moe_serving=moe_serving, moe_cross_check=moe_xcheck,
+                  moe_training=moe_training, kernels=kernels)
     (OUT_DIR / "result.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

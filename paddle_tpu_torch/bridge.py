@@ -3,7 +3,8 @@ port's, and back.
 
 The JAX package names parameters as ``paddle_tpu.jit.functional.
 get_params`` gives them (``llama.layers.0.self_attn.q_proj.weight``,
-...), and the port's modules carry the same names. The one layout
+``layers.1.mlp.experts.w1``, ...), and the port's modules carry the same
+names. The one layout
 difference: a paddle Linear weight is [in, out], a ``torch.nn.Linear``
 weight is [out, in], so every 2-D weight of a Linear is transposed.
 Embedding ([vocab, hidden]) and norm weights cross as they are. Adam
@@ -48,6 +49,15 @@ def llama_state_to_numpy(state: Dict[str, torch.Tensor]
         out[name] = np.ascontiguousarray(
             a.T if name.endswith(LINEAR_SUFFIXES) else a)
     return out
+
+
+#: ERNIE-MoE crosses by the same rule: its ``*_proj.weight`` and
+#: ``lm_head.weight`` are transposed, and the MoE blocks' raw parameters
+#: (``gate_weight`` [h, E], ``experts.w1`` [E, h, dff], ``b1`` [E, 1, dff],
+#: ``w2``, ``b2``) are kept in the JAX layout by the port and cross as they
+#: are — so the Adam state bridge below holds for MoE unchanged.
+ernie_moe_state_from_numpy = llama_state_from_numpy
+ernie_moe_state_to_numpy = llama_state_to_numpy
 
 
 def _numpy_of(t):

@@ -1,0 +1,438 @@
+// Grouped expert FFN backward for Hopper: the dx kernel and the dw kernel.
+//
+// Replaces the Pallas kernels `_grouped_ffn_bwd_dx_kernel` and
+// `_grouped_ffn_bwd_dw_kernel` launched by `_grouped_ffn_bwd_pallas`
+// (paddle_tpu/kernels/moe.py:344, :462, :552). Same formulas and rounding
+// points, on live rows (r < counts[e], read on the device) only:
+//
+//   gw = round_T(g ws)   z = x w1 + b1   ha = round_T(act(z))
+//   dh = gw w2^T         dz = dh act'(z) (f32), dz_T = round_T(dz)
+//   dx  = round_T(dz_T w1^T), zero on dead rows
+//   dws = sum_h g (ha w2 + b2), zero on dead rows     db2 = sum_rows g ws
+//   dw1 = x^T dz_T       db1 = sum_rows dz (f32)      dw2 = ha^T gw
+//
+// Products accumulate in f32 on the CUDA cores through the tiled product
+// of grouped_gemm.cuh (blocks of 64 x 64 outputs).
+//
+// Design. The Pallas dw kernel recomputes z and dh for its ff tile and
+// keeps dw1 [h, 512] and dw2 [512, h] f32 accumulators (4 MB) in VMEM;
+// the dx kernel sums db2 into an output block that stays resident because
+// the TPU grid runs in order. Neither carries to an H100 (227 KB of
+// shared memory a block by the data sheet, blocks in no order). Here:
+//
+// - dx entry (row 8), three passes on the caller's stream:
+//   1. blocks (expert, 64-row tile, 64-column ff tile): z and dh (two
+//      products over h), then ha and dz_T of the live rows into the
+//      wrapper's scratch [E, C, dff] in T, and the tile's column sums of
+//      f32 dz into db1_part [E, C/64, dff];
+//   2. blocks (expert, row tile, h tile): dx = dz_T w1^T and ha w2 (two
+//      products over dff), dx written, the tile's row sums of
+//      g (ha w2 + b2) into dws_part [E, C, h/64] and its column sums of
+//      g ws into db2_part [E, C/64, h];
+//   3. one pass summing the partials in a fixed order into dws and db2.
+// - dw entry (row 9), reading the dx entry's scratch:
+//   1. dw1 = x^T dz_T, blocks (expert, h tile, ff tile), the product's
+//      depth running over the expert's live rows only;
+//   2. dw2 = ha^T gw, blocks (expert, ff tile, h tile), likewise;
+//   3. db1 from db1_part.
+//
+// So the backward does six products where the Pallas pair recomputes z
+// and dh in both kernels (eight), at the price of the scratch: 2 x E x C
+// x dff elements of T plus the partials. Every sum runs in a fixed order:
+// no atomics, the result is deterministic. A block of dead rows writes
+// zeros where the output has rows (dx) and exits; an expert with no live
+// row issues no read and gets dw1 = dw2 = 0.
+//
+// What bounds it on an H100: at the training shape arithmetic (each
+// product 2 x rows x h x dff operations), run in f32 on the CUDA cores
+// in these first kernels.
+#include "grouped_gemm.cuh"
+
+namespace {
+
+struct BwdArgs {
+  const void* x;
+  const void* g;
+  const void* w1;
+  const float* b1;
+  const void* w2;
+  const float* b2;
+  const float* ws;
+  const int* counts;
+  void* ha;          // [E, C, dff] T scratch
+  void* dz;          // [E, C, dff] T scratch
+  float* db1_part;   // [E, nrt, dff]
+  float* db2_part;   // [E, nrt, h]
+  float* dws_part;   // [E, C, nct]
+  void* dx;          // [E, C, h] T
+  float* dws;        // [E, C]
+  float* db2;        // [E, h]
+  void* dw1;         // [E, h, dff] T
+  float* db1;        // [E, dff]
+  void* dw2;         // [E, dff, h] T
+  int E, C, h, dff, act, nrt, nct;
+};
+
+// dx pass 1: z, dh -> ha, dz_T, db1_part
+template <typename T>
+__global__ void __launch_bounds__(gg::kThreads) grouped_ffn_dx_zdh(BwdArgs a) {
+  const int e = blockIdx.z;
+  const int count = min(a.counts[e], a.C);
+  const int m0 = blockIdx.y * gg::kBM;
+  const int n0 = blockIdx.x * gg::kBN;
+  if (m0 >= count) return;
+  __shared__ __align__(16) float As[gg::kBK * gg::kAP];
+  __shared__ __align__(16) float Bs[gg::kBK * gg::kBP];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const bool active = m0 + ty * 4 < count;
+  const size_t xe = size_t(e) * a.C * a.h;
+  const size_t we = size_t(e) * a.h * a.dff;
+  float z[4][4], dh[4][4];
+  gg::zero(z);
+  gg::zero(dh);
+  {
+    const gg::RowMajor<T> A{static_cast<const T*>(a.x) + xe, a.h, count, a.h};
+    const gg::RowMajor<T> B{static_cast<const T*>(a.w1) + we, a.dff, a.h,
+                            a.dff};
+    gg::mainloop(A, B, m0, n0, a.h, active, z, As, Bs);
+  }
+  {
+    const gg::ScaledRows<T> A{static_cast<const T*>(a.g) + xe,
+                              a.ws + size_t(e) * a.C, a.h, count, a.h};
+    // w2^T: (k = h index, n = ff index) -> w2[e][n * h + k]
+    const gg::ColMajor<T> B{static_cast<const T*>(a.w2) + we, a.h, a.h,
+                            a.dff};
+    gg::mainloop(A, B, m0, n0, a.h, active, dh, As, Bs);
+  }
+  T* ha = static_cast<T*>(a.ha) + size_t(e) * a.C * a.dff;
+  T* dz = static_cast<T*>(a.dz) + size_t(e) * a.C * a.dff;
+  const float* b1 = a.b1 + size_t(e) * a.dff;
+  float colsum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= count) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n >= a.dff) continue;
+      const float zz = z[i][j] + b1[n];
+      const float d = dh[i][j] * gg::act_grad(zz, a.act);
+      ha[size_t(m) * a.dff + n] = pt::from_f32<T>(gg::act_apply(zz, a.act));
+      dz[size_t(m) * a.dff + n] = pt::from_f32<T>(d);
+      colsum[j] += d;
+    }
+  }
+  // the tile's column sums of f32 dz, over ty in a fixed order
+  __syncthreads();  // As is free again
+  float* red = As;  // [16][64]
+#pragma unroll
+  for (int j = 0; j < 4; ++j) red[ty * gg::kBN + tx * 4 + j] = colsum[j];
+  __syncthreads();
+  if (tid < gg::kBN && n0 + tid < a.dff) {
+    float s = 0.f;
+    for (int r = 0; r < 16; ++r) s += red[r * gg::kBN + tid];
+    a.db1_part[(size_t(e) * a.nrt + blockIdx.y) * a.dff + n0 + tid] = s;
+  }
+}
+
+// dx pass 2: dx = dz_T w1^T; g (ha w2 + b2) row sums; g ws column sums
+template <typename T>
+__global__ void __launch_bounds__(gg::kThreads) grouped_ffn_dx_out(BwdArgs a) {
+  const int e = blockIdx.z;
+  const int count = min(a.counts[e], a.C);
+  const int m0 = blockIdx.y * gg::kBM;
+  const int n0 = blockIdx.x * gg::kBN;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  T* dx = static_cast<T*>(a.dx) + size_t(e) * a.C * a.h;
+  if (m0 >= count) {  // block-uniform: dead rows of dx are zeros
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + tx * 4 + j;
+        if (m < a.C && n < a.h) dx[size_t(m) * a.h + n] = pt::from_f32<T>(0.f);
+      }
+    }
+    return;
+  }
+  __shared__ __align__(16) float As[gg::kBK * gg::kAP];
+  __shared__ __align__(16) float Bs[gg::kBK * gg::kBP];
+  const bool active = m0 + ty * 4 < count;
+  const size_t he = size_t(e) * a.C * a.dff;
+  const size_t we = size_t(e) * a.h * a.dff;
+  float dxa[4][4], ffn[4][4];
+  gg::zero(dxa);
+  gg::zero(ffn);
+  {
+    const gg::RowMajor<T> A{static_cast<const T*>(a.dz) + he, a.dff, count,
+                            a.dff};
+    // w1^T: (k = ff index, n = h index) -> w1[e][n * dff + k]
+    const gg::ColMajor<T> B{static_cast<const T*>(a.w1) + we, a.dff, a.dff,
+                            a.h};
+    gg::mainloop(A, B, m0, n0, a.dff, active, dxa, As, Bs);
+  }
+  {
+    const gg::RowMajor<T> A{static_cast<const T*>(a.ha) + he, a.dff, count,
+                            a.dff};
+    const gg::RowMajor<T> B{static_cast<const T*>(a.w2) + we, a.h, a.dff,
+                            a.h};
+    gg::mainloop(A, B, m0, n0, a.dff, active, ffn, As, Bs);
+  }
+  const T* g = static_cast<const T*>(a.g) + size_t(e) * a.C * a.h;
+  const float* b2 = a.b2 + size_t(e) * a.h;
+  const float* ws = a.ws + size_t(e) * a.C;
+  float rowsum[4] = {0.f, 0.f, 0.f, 0.f};
+  float colsum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= a.C) continue;
+    const bool live = m < count;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n >= a.h) continue;
+      dx[size_t(m) * a.h + n] = pt::from_f32<T>(live ? dxa[i][j] : 0.f);
+      if (live) {
+        const float gg_ = pt::to_f32(g[size_t(m) * a.h + n]);
+        rowsum[i] += gg_ * (ffn[i][j] + b2[n]);
+        colsum[j] += gg_ * ws[m];
+      }
+    }
+  }
+  __syncthreads();  // As and Bs are free again
+  float* rred = As;  // [64 rows][16 tx]
+  float* cred = Bs;  // [16 ty][64 cols]
+#pragma unroll
+  for (int i = 0; i < 4; ++i) rred[(ty * 4 + i) * 16 + tx] = rowsum[i];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) cred[ty * gg::kBN + tx * 4 + j] = colsum[j];
+  __syncthreads();
+  if (tid < gg::kBM) {
+    const int m = m0 + tid;
+    if (m < count) {
+      float s = 0.f;
+      for (int c = 0; c < 16; ++c) s += rred[tid * 16 + c];
+      a.dws_part[(size_t(e) * a.C + m) * a.nct + blockIdx.x] = s;
+    }
+  } else if (tid < gg::kBM + gg::kBN) {
+    const int c = tid - gg::kBM;
+    if (n0 + c < a.h) {
+      float s = 0.f;
+      for (int r = 0; r < 16; ++r) s += cred[r * gg::kBN + c];
+      a.db2_part[(size_t(e) * a.nrt + blockIdx.y) * a.h + n0 + c] = s;
+    }
+  }
+}
+
+// dx pass 3: dws and db2 from their partials, in a fixed order
+__global__ void __launch_bounds__(256) grouped_ffn_dx_reduce(BwdArgs a) {
+  const int e = blockIdx.y;
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  const int count = min(a.counts[e], a.C);
+  if (i < a.C) {
+    float s = 0.f;
+    if (i < count)
+      for (int t = 0; t < a.nct; ++t)
+        s += a.dws_part[(size_t(e) * a.C + i) * a.nct + t];
+    a.dws[size_t(e) * a.C + i] = s;
+  }
+  if (i < a.h) {
+    const int live_tiles = gg::cdiv(count, gg::kBM);
+    float s = 0.f;
+    for (int t = 0; t < live_tiles; ++t)
+      s += a.db2_part[(size_t(e) * a.nrt + t) * a.h + i];
+    a.db2[size_t(e) * a.h + i] = s;
+  }
+}
+
+// dw pass 1: dw1[e] = x[e, :count]^T dz_T[e, :count]  ([h, dff])
+template <typename T>
+__global__ void __launch_bounds__(gg::kThreads) grouped_ffn_dw1(BwdArgs a) {
+  const int e = blockIdx.z;
+  const int count = min(a.counts[e], a.C);
+  const int m0 = blockIdx.y * gg::kBM;  // h
+  const int n0 = blockIdx.x * gg::kBN;  // dff
+  __shared__ __align__(16) float As[gg::kBK * gg::kAP];
+  __shared__ __align__(16) float Bs[gg::kBK * gg::kBP];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[4][4];
+  gg::zero(acc);
+  // x^T: (m = h index, k = row) -> x[e][k * h + m]
+  const gg::ColMajor<T> A{static_cast<const T*>(a.x) + size_t(e) * a.C * a.h,
+                          a.h, a.h, count};
+  const gg::RowMajor<T> B{static_cast<const T*>(a.dz) +
+                              size_t(e) * a.C * a.dff,
+                          a.dff, count, a.dff};
+  gg::mainloop(A, B, m0, n0, count, true, acc, As, Bs);
+  T* dw1 = static_cast<T*>(a.dw1) + size_t(e) * a.h * a.dff;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= a.h) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < a.dff) dw1[size_t(m) * a.dff + n] = pt::from_f32<T>(acc[i][j]);
+    }
+  }
+}
+
+// dw pass 2: dw2[e] = ha[e, :count]^T gw[e, :count]  ([dff, h])
+template <typename T>
+__global__ void __launch_bounds__(gg::kThreads) grouped_ffn_dw2(BwdArgs a) {
+  const int e = blockIdx.z;
+  const int count = min(a.counts[e], a.C);
+  const int m0 = blockIdx.y * gg::kBM;  // dff
+  const int n0 = blockIdx.x * gg::kBN;  // h
+  __shared__ __align__(16) float As[gg::kBK * gg::kAP];
+  __shared__ __align__(16) float Bs[gg::kBK * gg::kBP];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[4][4];
+  gg::zero(acc);
+  // ha^T: (m = ff index, k = row) -> ha[e][k * dff + m]
+  const gg::ColMajor<T> A{static_cast<const T*>(a.ha) +
+                              size_t(e) * a.C * a.dff,
+                          a.dff, a.dff, count};
+  const gg::ScaledRows<T> B{static_cast<const T*>(a.g) +
+                                size_t(e) * a.C * a.h,
+                            a.ws + size_t(e) * a.C, a.h, count, a.h};
+  gg::mainloop(A, B, m0, n0, count, true, acc, As, Bs);
+  T* dw2 = static_cast<T*>(a.dw2) + size_t(e) * a.dff * a.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= a.dff) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < a.h) dw2[size_t(m) * a.h + n] = pt::from_f32<T>(acc[i][j]);
+    }
+  }
+}
+
+// dw pass 3: db1 from db1_part over the expert's live row tiles
+__global__ void __launch_bounds__(256) grouped_ffn_db1_reduce(BwdArgs a) {
+  const int e = blockIdx.y;
+  const int f = blockIdx.x * 256 + threadIdx.x;
+  if (f >= a.dff) return;
+  const int live_tiles = gg::cdiv(min(a.counts[e], a.C), gg::kBM);
+  float s = 0.f;
+  for (int t = 0; t < live_tiles; ++t)
+    s += a.db1_part[(size_t(e) * a.nrt + t) * a.dff + f];
+  a.db1[size_t(e) * a.dff + f] = s;
+}
+
+template <typename T>
+int launch_dx(const BwdArgs& a, cudaStream_t s) {
+  const dim3 p1(gg::cdiv(a.dff, gg::kBN), a.nrt, a.E);
+  grouped_ffn_dx_zdh<T><<<p1, gg::kThreads, 0, s>>>(a);
+  if (int err = int(cudaGetLastError())) return err;
+  const dim3 p2(a.nct, a.nrt, a.E);
+  grouped_ffn_dx_out<T><<<p2, gg::kThreads, 0, s>>>(a);
+  if (int err = int(cudaGetLastError())) return err;
+  const dim3 p3(gg::cdiv(a.C > a.h ? a.C : a.h, 256), a.E);
+  grouped_ffn_dx_reduce<<<p3, 256, 0, s>>>(a);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dw(const BwdArgs& a, cudaStream_t s) {
+  const dim3 p1(gg::cdiv(a.dff, gg::kBN), gg::cdiv(a.h, gg::kBM), a.E);
+  grouped_ffn_dw1<T><<<p1, gg::kThreads, 0, s>>>(a);
+  if (int err = int(cudaGetLastError())) return err;
+  const dim3 p2(gg::cdiv(a.h, gg::kBN), gg::cdiv(a.dff, gg::kBM), a.E);
+  grouped_ffn_dw2<T><<<p2, gg::kThreads, 0, s>>>(a);
+  if (int err = int(cudaGetLastError())) return err;
+  const dim3 p3(gg::cdiv(a.dff, 256), a.E);
+  grouped_ffn_db1_reduce<<<p3, 256, 0, s>>>(a);
+  return int(cudaGetLastError());
+}
+
+int dispatch(BwdArgs a, int which, int dtype, void* stream) {
+  if (a.E < 1 || a.C < 1 || a.h < 1 || a.dff < 1 || a.act < 0 || a.act > 1 ||
+      a.E > 65535 || gg::cdiv(a.C, gg::kBM) > 65535 ||
+      gg::cdiv(a.dff, gg::kBM) > 65535 || gg::cdiv(a.h, gg::kBM) > 65535)
+    return int(cudaErrorInvalidValue);
+  a.nrt = gg::cdiv(a.C, gg::kBM);
+  a.nct = gg::cdiv(a.h, gg::kBN);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype * 2 + which) {
+    case pt::kF32 * 2 + 0: return launch_dx<float>(a, s);
+    case pt::kF32 * 2 + 1: return launch_dw<float>(a, s);
+    case pt::kBF16 * 2 + 0: return launch_dx<__nv_bfloat16>(a, s);
+    case pt::kBF16 * 2 + 1: return launch_dw<__nv_bfloat16>(a, s);
+    case pt::kF16 * 2 + 0: return launch_dx<__half>(a, s);
+    case pt::kF16 * 2 + 1: return launch_dw<__half>(a, s);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+PT_DEFINE_PROBE(grouped_ffn_bwd)
+
+// Operands as grouped_ffn_fwd_launch's, plus g [E, C, h] T. Scratch the
+// wrapper allocates: ha, dz [E, C, dff] T; db1_part [E, ceil(C/64), dff],
+// db2_part [E, ceil(C/64), h], dws_part [E, C, ceil(h/64)] f32. Outputs:
+// dx [E, C, h] T, dws [E, C, 1] f32, db2 [E, 1, h] f32. Returns
+// cudaGetLastError() after its launches.
+extern "C" int grouped_ffn_bwd_dx_launch(
+    const void* x, const void* g, const void* w1, const void* b1,
+    const void* w2, const void* b2, const void* ws, const void* counts,
+    void* ha, void* dz, void* db1_part, void* db2_part, void* dws_part,
+    void* dx, void* dws, void* db2, int E, int C, int h, int dff, int act,
+    int dtype, void* stream) {
+  BwdArgs a{};
+  a.x = x;
+  a.g = g;
+  a.w1 = w1;
+  a.b1 = static_cast<const float*>(b1);
+  a.w2 = w2;
+  a.b2 = static_cast<const float*>(b2);
+  a.ws = static_cast<const float*>(ws);
+  a.counts = static_cast<const int*>(counts);
+  a.ha = ha;
+  a.dz = dz;
+  a.db1_part = static_cast<float*>(db1_part);
+  a.db2_part = static_cast<float*>(db2_part);
+  a.dws_part = static_cast<float*>(dws_part);
+  a.dx = dx;
+  a.dws = static_cast<float*>(dws);
+  a.db2 = static_cast<float*>(db2);
+  a.E = E;
+  a.C = C;
+  a.h = h;
+  a.dff = dff;
+  a.act = act;
+  return dispatch(a, 0, dtype, stream);
+}
+
+// Reads the scratch ha, dz, db1_part the dx entry wrote for the same
+// operands. Outputs: dw1 [E, h, dff] T, db1 [E, 1, dff] f32, dw2
+// [E, dff, h] T. Returns cudaGetLastError() after its launches.
+extern "C" int grouped_ffn_bwd_dw_launch(const void* x, const void* g,
+                                         const void* ws, const void* counts,
+                                         void* ha, void* dz, void* db1_part,
+                                         void* dw1, void* db1, void* dw2,
+                                         int E, int C, int h, int dff,
+                                         int dtype, void* stream) {
+  BwdArgs a{};
+  a.x = x;
+  a.g = g;
+  a.ws = static_cast<const float*>(ws);
+  a.counts = static_cast<const int*>(counts);
+  a.ha = ha;
+  a.dz = dz;
+  a.db1_part = static_cast<float*>(db1_part);
+  a.dw1 = dw1;
+  a.db1 = static_cast<float*>(db1);
+  a.dw2 = dw2;
+  a.E = E;
+  a.C = C;
+  a.h = h;
+  a.dff = dff;
+  return dispatch(a, 1, dtype, stream);
+}

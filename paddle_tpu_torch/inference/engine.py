@@ -36,10 +36,15 @@ executables). Sampling draws Gumbel noise from each request's own
 with temperature > 0, so a request's sampled tokens do not depend on
 its slot or on its batch-mates; greedy rows consume nothing.
 
+MoE models (ERNIE-MoE) serve like dense ones: the model runs its MoE
+blocks in decode mode under a cache (no capacity drops, idle lanes
+masked), and the engine reports which dispatch they ran
+(``moe_decode_path()``, ``serving.moe.decode_path.*``).
+
 Left out of this slice, each knob raising NotImplementedError: prefix
 cache, speculative decoding, chunked prefill, multi-tick decode, fault
 injection, deadlines / queue timeouts and cancel, snapshot/restore, span
-tracing (labels), mesh/TP and MoE.
+tracing (labels) and mesh/TP.
 
 ``monitor`` surface: counters ``serving.requests`` / ``serving.tokens``
 / ``serving.finished`` / ``serving.failed`` / ``serving.preemptions`` /
@@ -54,7 +59,7 @@ import inspect
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -267,9 +272,6 @@ class Engine:
             raise ValueError(
                 f"{type(model).__name__} is an ENCODER — it has no KV "
                 f"decode surface for the continuous-batching Engine")
-        if spec.get("moe") is not None or spec.get("moe_layer") is not None:
-            raise NotImplementedError(
-                "MoE serving comes with the MoE slice of the port")
         try:
             fsig = inspect.signature(model.forward)
         except (TypeError, ValueError):
@@ -317,6 +319,7 @@ class Engine:
                     f"geometry: {why}")
             from ..kernels import probe
             probe("paged_decode", self.device)
+        self._init_moe(spec)
         # pool row 0 is the scratch page (inactive lanes) — the
         # allocator hands out ids [1, pool_pages]
         self._alloc = PageAllocator(self.pool_pages, base=1)
@@ -339,6 +342,56 @@ class Engine:
         self._admit_counter = 0
         self._steps = 0
         self._ticks = 0
+
+    def _init_moe(self, spec):
+        """MoE models: read the MoE layer's fallback reason once, as the
+        JAX engine does (:742-750) — ``moe_fallback_reason`` /
+        ``moe_pallas_eligible``, and ``serving.moe.decode_fallback`` when
+        the decode ticks take the scatter path — and baseline the
+        ``kernels.moe.decode_path.*`` counters this engine republishes as
+        ``serving.moe.decode_path.*`` after each step. On ``cuda`` the
+        grouped-FFN kernel library is loaded (and probed) here."""
+        self._moe_layer = spec.get("moe_layer")
+        self.moe_spec = spec.get("moe")
+        self.moe_fallback_reason = None
+        self.moe_pallas_eligible = None
+        self._moe_paths: Dict[str, int] = {}
+        self._moe_seen = self._moe_counters()
+        if self._moe_layer is None:
+            return
+        self.moe_fallback_reason = self._moe_layer._pallas_fallback_reason()
+        self.moe_pallas_eligible = self.moe_fallback_reason is None
+        if not self.moe_pallas_eligible:
+            monitor.counter("serving.moe.decode_fallback").increase()
+        elif self.device.type == "cuda":
+            from ..kernels import probe
+            probe("grouped_ffn_fwd", self.device)
+
+    @staticmethod
+    def _moe_counters() -> Dict[str, int]:
+        prefix = "kernels.moe.decode_path."
+        return {k[len(prefix):]: int(v) for k, v in monitor.snapshot().items()
+                if k.startswith(prefix)}
+
+    def _republish_moe_paths(self) -> None:
+        """Mirror this step's ``kernels.moe.decode_path.*`` deltas (one per
+        MoE layer per prefill chunk or decode tick) into
+        ``serving.moe.decode_path.*`` and ``moe_decode_path()``."""
+        now = self._moe_counters()
+        for suffix, val in now.items():
+            delta = val - self._moe_seen.get(suffix, 0)
+            if delta > 0:
+                monitor.counter("serving.moe.decode_path." + suffix).increase(
+                    delta)
+                self._moe_paths[suffix] = self._moe_paths.get(suffix, 0) + delta
+        self._moe_seen = now
+
+    def moe_decode_path(self) -> Dict[str, int]:
+        """This engine's MoE dispatch breakdown (suffix -> MoE-layer calls):
+        ``{"pallas": n}`` with no ``fallback.*`` key means every MoE block
+        of every prefill chunk and decode tick ran the grouped-FFN
+        kernels. Empty for dense models."""
+        return dict(self._moe_paths)
 
     # -- helpers -------------------------------------------------------------
 
@@ -421,6 +474,8 @@ class Engine:
             outputs.extend(self._run_prefills())
             outputs.extend(self._decode_harvest(pending))
             self._ensure_pages()
+        if self._moe_layer is not None:
+            self._republish_moe_paths()
         monitor.counter("serving.steps").increase()
         self._publish_gauges()
         self._steps += 1

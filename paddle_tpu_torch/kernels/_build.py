@@ -37,8 +37,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 
 #: kernel library name -> its source file under csrc/
 SOURCES = {"paged_decode": "paged_decode.cu", "flash_fwd": "flash_fwd.cu",
-           "flash_bwd": "flash_bwd.cu"}
-HEADERS = ("common.cuh", "flash_common.cuh")
+           "flash_bwd": "flash_bwd.cu", "grouped_ffn_fwd": "grouped_ffn_fwd.cu",
+           "grouped_ffn_bwd": "grouped_ffn_bwd.cu"}
+HEADERS = ("common.cuh", "flash_common.cuh", "grouped_gemm.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
@@ -65,6 +66,12 @@ SIGNATURES = {
                    _P, _L, _L, _L, _I, _I, _I, _F, _I, _P]},
     "flash_bwd": {"flash_bwd_dq_launch": _FLASH_BWD,
                   "flash_bwd_dkv_launch": _FLASH_BWD},
+    "grouped_ffn_fwd": {"grouped_ffn_fwd_launch":
+                        [_P] * 9 + [_I] * 6 + [_P]},
+    "grouped_ffn_bwd": {"grouped_ffn_bwd_dx_launch":
+                        [_P] * 16 + [_I] * 6 + [_P],
+                        "grouped_ffn_bwd_dw_launch":
+                        [_P] * 10 + [_I] * 5 + [_P]},
 }
 
 _lock = threading.Lock()

@@ -22,6 +22,14 @@ Kernel-path counters (bumped by the wrappers, one per call):
 - ``kernels.flash.bwd_cuda`` / ``kernels.flash.bwd_plain``: a flash
   backward ran the two CUDA backward kernels (dQ and dK/dV) / the plain
   backward.
+- ``kernels.moe.grouped_ffn_fwd_cuda`` / ``_plain`` and
+  ``kernels.moe.grouped_ffn_bwd_cuda`` / ``_plain``: the grouped expert
+  FFN forward / backward ran the CUDA kernels / the plain versions.
+- ``kernels.moe.dispatch_path.{pallas,scatter,einsum}`` and
+  ``kernels.moe.decode_path.pallas``: which dispatch an MoE layer's
+  forward (training) / serving decode-mode call ran; a layer that leaves
+  the kernel path bumps ``...fallback.<reason>``. The Engine mirrors the
+  decode counts into ``serving.moe.decode_path.*``.
 """
 from __future__ import annotations
 

@@ -6,7 +6,8 @@ Builds the training configuration chip_smoke.py drives (the JAX
 package's ``bench.py::bench_llama_1b``: vocab 32000, hidden 4096, ff
 11008, 32 heads, 4 layers, fused 4-chunk LM loss, f32 weights drawn from
 a seed; batch 12 x seq 1024; TrainStep(amp_dtype="bfloat16") with
-AdamW(3e-4, bf16 moments)), takes two warm-up steps, then
+AdamW(3e-4, bf16 moments)) and profiles it with ``profile_step`` (which
+``profile_moe`` shares): two warm-up steps, then
 
 1. times ``--steps`` steps without the profiler (host clock around
    steps ending in a synchronize): ms per step and tokens/s;
@@ -47,7 +48,11 @@ BATCH, SEQ = 12, 1024
 
 
 def _kind(name):
-    for key, kind in (("flash_bwd_dkv", "flash dK/dV (port)"),
+    for key, kind in (("grouped_ffn_fwd", "grouped FFN forward (port)"),
+                      ("grouped_ffn_dx", "grouped FFN dx (port)"),
+                      ("grouped_ffn_dw", "grouped FFN dw (port)"),
+                      ("grouped_ffn_db1", "grouped FFN dw (port)"),
+                      ("flash_bwd_dkv", "flash dK/dV (port)"),
                       ("flash_bwd_dq", "flash dQ (port)"),
                       ("flash_fwd", "flash forward (port)"),
                       ("nvjet", "cuBLAS GEMM"), ("gemm", "cuBLAS GEMM"),
@@ -72,32 +77,39 @@ def _device_ms(fn, iters=3):
     return a.elapsed_time(b) / iters
 
 
-def _steps(step, ids, labels, n):
-    for _ in range(n):
-        step((ids, labels), labels)
-    torch.cuda.synchronize()
-
-
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+def parse_args(argv, default_out):
+    ap = argparse.ArgumentParser(
+        description="where a training step's time goes, on one GPU")
     ap.add_argument("--steps", type=int, default=2)
-    ap.add_argument("--out", default="chiprun_out/profile_training")
-    args = ap.parse_args(argv)
+    ap.add_argument("--out", default=default_out)
+    return ap.parse_args(argv)
+
+
+def fixed_batch(vocab_size, batch, seq, device):
+    """The profiled batch: token ids and labels drawn from seed 4."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    return tuple(torch.randint(0, vocab_size, (batch, seq), generator=gen,
+                               device=device) for _ in range(2))
+
+
+def profile_step(step, inputs, labels, args, meta, extra_parts=None):
+    """Profile ``step(inputs, labels)`` (a ``TrainStep``) on one fixed
+    batch: two warm-up steps, then items 1-3 of the module docstring, with
+    ``extra_parts`` ({result key: fn(params)}) timed after the AdamW
+    update. ``meta`` (``batch``, ``seq``, ...) heads the result. Writes
+    the result and the chrome trace to ``args.out``, prints the result as
+    one JSON line and returns it."""
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
 
-    model = LlamaForCausalLM(LlamaConfig(**MODEL), seed=0)
-    opt = AdamW(3e-4, parameters=model.parameters(), moment_dtype="bfloat16")
-    step = TrainStep(model, lambda o, lab: o, opt, amp_dtype="bfloat16")
-    gen = torch.Generator(device=model.device).manual_seed(4)
-    ids, labels = (torch.randint(0, MODEL["vocab_size"], (BATCH, SEQ),
-                                 generator=gen, device=model.device)
-                   for _ in range(2))
-    _steps(step, ids, labels, 2)                  # warm up
+    def run(n):
+        for _ in range(n):
+            step(inputs, labels)
+        torch.cuda.synchronize()
+    run(2)                                        # warm up
 
     t0 = time.perf_counter()
-    _steps(step, ids, labels, args.steps)
+    run(args.steps)
     step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
     trace = out / "trace.json"
@@ -105,34 +117,36 @@ def main(argv=None):
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t1 = time.perf_counter()
-        _steps(step, ids, labels, args.steps)
+        run(args.steps)
         prof_wall_ms = (time.perf_counter() - t1) * 1e3
     prof.export_chrome_trace(str(trace))
     per = _kernel_times(trace)
     busy_ms = sum(v[0] for v in per.values()) / 1e3
-    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:16]
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:20]
     kinds = {}
     for n, (us, _) in per.items():
         kinds[_kind(n)] = kinds.get(_kind(n), 0.0) + us / 1e3 / args.steps
-    # the parts of a step timed alone (this moves the weights: last)
+    # the parts of a step timed alone (these move the weights: last)
     params = step._params
     zeros = {n: torch.zeros_like(p) for n, p in params.items()}
-    opt_ms = _device_ms(lambda: opt.apply_gradients_pytree(
-        params, zeros, step.opt_state, opt.get_lr()))
-    cast_ms = _device_ms(lambda: [p.to(torch.bfloat16)
-                                  for p in params.values()])
+    opt = step._opt
+    parts = {"optimizer_update_ms": _device_ms(
+        lambda: opt.apply_gradients_pytree(params, zeros, step.opt_state,
+                                           opt.get_lr()))}
+    for key, fn in (extra_parts or {}).items():
+        parts[key] = _device_ms(lambda fn=fn: fn(params))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     result = {
-        "device": card, "batch": BATCH, "seq": SEQ, "steps": args.steps,
-        "step_ms": step_ms, "tokens_per_s": BATCH * SEQ * 1e3 / step_ms,
+        "device": card, **meta, "steps": args.steps, "step_ms": step_ms,
+        "tokens_per_s": meta["batch"] * meta["seq"] * 1e3 / step_ms,
         "profiled_step_ms": prof_wall_ms / args.steps,
         "device_busy_ms_per_step": busy_ms / args.steps,
         "device_idle_share": (1.0 - busy_ms / prof_wall_ms
                               if busy_ms else None),
-        "optimizer_update_ms": opt_ms, "amp_cast_ms": cast_ms,
+        **parts,
         "ms_per_step_by_kind": dict(sorted(kinds.items(),
                                            key=lambda kv: -kv[1])),
         "kernels": [{"name": n[:120], "ms_per_step": v[0] / 1e3 / args.steps,
@@ -142,6 +156,20 @@ def main(argv=None):
     }
     (out / "summary.json").write_text(json.dumps(result, indent=1))
     print(json.dumps(result), flush=True)
+    return result
+
+
+def main(argv=None):
+    args = parse_args(argv, "chiprun_out/profile_training")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = LlamaForCausalLM(LlamaConfig(**MODEL), seed=0)
+    opt = AdamW(3e-4, parameters=model.parameters(), moment_dtype="bfloat16")
+    step = TrainStep(model, lambda o, lab: o, opt, amp_dtype="bfloat16")
+    ids, labels = fixed_batch(MODEL["vocab_size"], BATCH, SEQ, model.device)
+    profile_step(step, (ids, labels), labels, args,
+                 dict(batch=BATCH, seq=SEQ),
+                 {"amp_cast_ms": lambda params: [p.to(torch.bfloat16)
+                                                 for p in params.values()]})
 
 
 if __name__ == "__main__":

@@ -226,3 +226,65 @@ def test_flash_autograd_on_cuda_launches_kernels(dev):
     fa.flash_attention(*cpu, causal=True).backward(do.cpu())
     for a, b in zip(ins, cpu):
         _close(a.grad.cpu(), b.grad, 1e-4)
+
+
+# (E, C, h, dff, counts, activation)
+_MOE_CASES = {
+    "ragged_empty": (4, 70, 128, 256, [70, 0, 7, 64], "gelu"),
+    "odd_geometry": (3, 37, 96, 200, [0, 37, 13], "relu"),
+    "decode": (8, 8, 256, 384, [2, 3, 0, 1, 4, 2, 2, 2], "gelu"),
+    "all_dead": (2, 16, 64, 64, [0, 0], "gelu"),
+}
+
+
+def _moe_inputs(dev, name, dtype):
+    E, C, h, f, counts, act = _MOE_CASES[name]
+    g = torch.Generator().manual_seed(len(name) * 11 + h)
+    r = lambda *s, sc: (torch.randn(*s, generator=g) * sc).to(dev)  # noqa
+    ops = [r(E, C, h, sc=0.5).to(dtype), r(E, h, f, sc=h ** -0.5).to(dtype),
+           r(E, 1, f, sc=0.1), r(E, f, h, sc=f ** -0.5).to(dtype),
+           r(E, 1, h, sc=0.1), torch.rand(E, C, 1, generator=g).to(dev)]
+    cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
+    return ops, cnt, r(E, C, h, sc=1.0).to(dtype), act
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(_MOE_CASES))
+def test_grouped_ffn_kernels_match_plain(dev, dtype, name):
+    """The forward, dx and dw kernels against the plain versions (f32 math
+    from the same rounded inputs): dead rows of out, dx and dws zero."""
+    from paddle_tpu_torch.kernels import moe
+    ops, cnt, g, act = _moe_inputs(dev, name, dtype)
+    rtol = 1e-4 if dtype == torch.float32 else 1e-2
+    n = (moe.grouped_ffn_fwd.launches, moe.grouped_ffn_bwd.launches_dx,
+         moe.grouped_ffn_bwd.launches_dw)
+    out = moe.grouped_ffn_fwd(*ops, cnt, act)
+    grads = moe.grouped_ffn_bwd(*ops, cnt, g, act)
+    torch.cuda.synchronize()
+    assert (moe.grouped_ffn_fwd.launches, moe.grouped_ffn_bwd.launches_dx,
+            moe.grouped_ffn_bwd.launches_dw) == (n[0] + 1, n[1] + 1,
+                                                 n[2] + 1)
+    _close(out, moe.grouped_ffn_plain(*ops, cnt, act), rtol)
+    ref = moe.grouped_ffn_bwd_plain(*ops, cnt, g, act)
+    for a, b in zip(grads, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        _close(a, b, rtol)
+    dead = torch.arange(ops[0].shape[1], device=dev)[None] >= cnt[:, None]
+    for t in (out, grads[0], grads[5]):
+        assert not t[dead].any()
+
+
+def test_grouped_ffn_autograd_on_cuda_matches_cpu(dev):
+    """grouped_ffn with requires_grad launches the forward and both
+    backward kernels, and its grads match the CPU's plain path."""
+    from paddle_tpu_torch.kernels import moe
+    ops, cnt, g, act = _moe_inputs(dev, "ragged_empty", torch.float32)
+    ins = [t.clone().requires_grad_() for t in ops]
+    n = moe.grouped_ffn_bwd.launches_dw
+    moe.grouped_ffn(*ins, cnt, activation=act).backward(g)
+    torch.cuda.synchronize()
+    assert moe.grouped_ffn_bwd.launches_dw == n + 1
+    cpu = [t.detach().cpu().requires_grad_() for t in ops]
+    moe.grouped_ffn(*cpu, cnt.cpu(), activation=act).backward(g.cpu())
+    for a, b in zip(ins, cpu):
+        _close(a.grad.cpu(), b.grad, 1e-4)

@@ -57,6 +57,9 @@ def test_port_import_pulls_in_no_jax():
         "import paddle_tpu_torch.kernels.flash_attention\n"
         "import paddle_tpu_torch.kernels.paged_attention\n"
         "import paddle_tpu_torch.text.models.llama\n"
+        "import paddle_tpu_torch.text.models.ernie_moe\n"
+        "import paddle_tpu_torch.kernels.moe, paddle_tpu_torch.profile_moe\n"
+        "import paddle_tpu_torch.incubate.distributed.models.moe\n"
         "import paddle_tpu_torch.jit, paddle_tpu_torch.optimizer\n"
         "import paddle_tpu_torch.nn, paddle_tpu_torch.distributed\n"
         "import paddle_tpu_torch.incubate.nn.functional\n"
@@ -91,6 +94,21 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu(no_gpu):
     assert Engine(net, device="cpu").device == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+
+def test_moe_entry_points_default_to_cuda(no_gpu):
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.text.models import (ErnieMoEConfig,
+                                              ErnieMoEForCausalLM)
+    cfg = ErnieMoEConfig.tiny(vocab=32, hidden=16, heads=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ErnieMoEForCausalLM(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MoELayer(16, 32, 2)
+    net = ErnieMoEForCausalLM(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(net)
+    assert Engine(net, device="cpu").moe_pallas_eligible
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):
