@@ -83,6 +83,36 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    == 8 layers x 6 steps, no plain call; ms per step, tokens/s, the bf16
    peak share of ``ernie_moe_flops_per_token`` and the peak memory.
 
+15. encoder kernels: the head-dim-64 probe of csrc/flash_fwd.cu (row 5:
+   (x x^T) x on a seeded [128, 64] f32 tile of small integers, equal to
+   its plain version bit for bit, timed beside it and the timed-only
+   torch.matmul pair), the flash forward at the encoder's serving shape
+   (B 16, 12 heads, head dim 64, f32, non-causal, C=1 key bands of a
+   padding mask with 4 dead rows that must give zeros and ragged live
+   lengths, L 128 and 96) beside the timed-only SDPA call, and the
+   forward with logsumexp, dQ and dK/dV at the BERT training shape (B
+   256, S 128, 12 heads, head dim 64, bf16, no mask);
+16. the encoder serving main path, counts set to 0 just before the
+   service is built and read just after: ``bench.py::bench_bert_embedding``'s
+   configuration (``profile_encoder.BERT_EMBED``: BERT-base, f32 weights
+   from a seed) in a BatchEncoder (max_batch 16, bucket 32) replaying the
+   64-request trace twice (warm, then timed): every request done, flash
+   forward launches == batches x 12 layers on the masked kernel route
+   only, one head-dim-64 probe launch, no kernel build in steady state;
+   4 requests' embeddings within 1e-4 relative of the same request
+   encoded alone;
+17. BERT cross-check: a 2-layer BertForPretraining at BERT-base widths
+   (seq 128, f32, TF32 off, dropout 0, a padding mask) — one TrainStep
+   loss and every parameter gradient on the card within 1e-4 of the
+   CPU's;
+18. the BERT training main path, counts set to 0 just before and read
+   just after: ``bench.py::bench_bert``'s configuration
+   (``profile_encoder.BERT_TRAIN``: batch 256 x seq 128, dense MLM CE,
+   bf16 AMP, AdamW(1e-4, bf16 moments), dropout 0.1) for 6 steps:
+   finite, falling losses; flash forward, dQ and dK/dV launches == 12
+   layers x 6 steps, no plain call; ms per step, tokens/s, the bf16 peak
+   share by bench_bert's 6N rule and the peak memory.
+
 It prints the card line, a {"kernels": [...]} line, and as its last
 line {"ok": true, "device": {...}}. Details land in
 chiprun_out/chip_smoke/ (result JSON, nvcc/ptxas logs). About two
@@ -369,50 +399,59 @@ def check_is_sharp(torch, fa, q, k, v, out, lse, do, scale, dv, ref_dv):
     return recs
 
 
-def check_flash_train(torch, fa, doc_mask):
-    """Phase 7: the flash forward with logsumexp, the dQ kernel and the
-    dK/dV kernel against flash_plain / flash_bwd_plain (f32 math on the
-    same rounded inputs) at the training shape and five edge cases. Each
-    kernel is timed on its own; the bound of a kernel counts the
+#: phase 7's cases: name, B, sq, sk, h, hkv, d, dtype, window, documents,
+#: causal — the LLaMA training shape (the first: the negative controls run
+#: there) and five edge cases
+LLAMA_TRAIN_SPECS = [
+    ("train_bf16", 12, 1024, 1024, 32, 32, 128, "bfloat16", None, None,
+     True),
+    ("f32", 2, 1024, 1024, 32, 32, 128, "float32", None, None, True),
+    ("gqa8_bf16", 2, 1024, 1024, 32, 8, 128, "bfloat16", None, None, True),
+    ("window256_bf16", 2, 1024, 1024, 32, 32, 128, "bfloat16", 256, None,
+     True),
+    ("sq333_sk1024_bf16", 2, 333, 1024, 32, 32, 128, "bfloat16", None, None,
+     True),
+    ("doc4_bf16", 2, 1024, 1024, 32, 32, 128, "bfloat16", None,
+     [256, 384, 128, 256], True),
+]
+
+
+def check_flash_train(torch, fa, doc_mask, specs=LLAMA_TRAIN_SPECS):
+    """Phase 7 (and phase 15 at the BERT training shape): the flash
+    forward with logsumexp, the dQ kernel and the dK/dV kernel against
+    flash_plain / flash_bwd_plain (f32 math on the same rounded inputs).
+    Each kernel is timed on its own; the bound of a kernel counts the
     operations of its own function (forward 4, dQ 6, dK/dV 8 x pairs x
     d, since each backward kernel recomputes S and dP), the pass bound
     counts the backward pass once (10 = 2.5 x the forward's)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
-    bf16, f32 = torch.bfloat16, torch.float32
-    specs = [  # name, B, sq, sk, h, hkv, d, dtype, window, documents
-        ("train_bf16", 12, 1024, 1024, 32, 32, 128, bf16, None, None),
-        ("f32", 2, 1024, 1024, 32, 32, 128, f32, None, None),
-        ("gqa8_bf16", 2, 1024, 1024, 32, 8, 128, bf16, None, None),
-        ("window256_bf16", 2, 1024, 1024, 32, 32, 128, bf16, 256, None),
-        ("sq333_sk1024_bf16", 2, 333, 1024, 32, 32, 128, bf16, None, None),
-        ("doc4_bf16", 2, 1024, 1024, 32, 32, 128, bf16, None,
-         [256, 384, 128, 256]),
-    ]
+    bf16 = torch.bfloat16
     cases = []
-    for name, B, sq, sk, h, hkv, d, dt, window, docs in specs:
+    for name, B, sq, sk, h, hkv, d, dname, window, docs, causal in specs:
+        dt = getattr(torch, dname)
         q, do = (torch.randn(B, sq, h, d, generator=g, device=dev).to(dt)
                  for _ in range(2))
         k, v = (torch.randn(B, sk, hkv, d, generator=g, device=dev).to(dt)
                 for _ in range(2))
         se = None if docs is None else fa._normalize_startend(
-            doc_mask(docs, device=dev), sq, sk, True)
+            doc_mask(docs, device=dev), sq, sk, causal)
         scale = d ** -0.5
         item = q.element_size()
-        dname = str(dt).replace("torch.", "")
-        keep = fa._keep_mask(sq, sk, h, True, window, se, dev)
-        pairs = int(keep.sum()) * B * h // (keep.numel() // (sq * sk))
+        keep = fa._keep_mask(sq, sk, h, causal, window, se, dev)
+        pairs = B * h * sq * sk if keep is None else \
+            int(keep.sum()) * B * h // (keep.numel() // (sq * sk))
 
         def t(x):
             return x.transpose(1, 2).float()
 
-        out, lse = fa.flash_fwd(q, k, v, True, scale, window, se,
+        out, lse = fa.flash_fwd(q, k, v, causal, scale, window, se,
                                 want_lse=True)
         torch.cuda.synchronize()
 
         def plain_fwd():
-            return fa.flash_plain(t(q), t(k), t(v), True, scale, window, se,
-                                  return_lse=True)
+            return fa.flash_plain(t(q), t(k), t(v), causal, scale, window,
+                                  se, return_lse=True)
         want, want_lse = plain_fwd()
         dead = want_lse <= fa.ROW_INVALID_LSE
         if not torch.equal(lse <= fa.ROW_INVALID_LSE, dead):
@@ -422,13 +461,13 @@ def check_flash_train(torch, fa, doc_mask):
                                 atol=1e-5 * max(1.0, float(
                                     want_lse[~dead].abs().max())))}
         del want, want_lse
-        dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, True, scale, window,
-                                  se)
+        dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, causal, scale,
+                                  window, se)
         torch.cuda.synchronize()
 
         def plain_bwd():
             return fa.flash_bwd_plain(t(q), t(k), t(v), t(out), lse, t(do),
-                                      True, scale, window, se)
+                                      causal, scale, window, se)
         sharp = None
         for n, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), plain_bwd()):
             res[n] = closeness(got, ref.transpose(1, 2))
@@ -454,27 +493,27 @@ def check_flash_train(torch, fa, doc_mask):
         qb, kb = q.numel() * item, k.numel() * item
         rec = dict(case=name, B=B, sq=sq, sk=sk, heads=h, kv_heads=hkv,
                    head_dim=d, dtype=dname, window=window, documents=docs,
-                   pairs=pairs, max_abs_err=errs, tol=tols, ratio=ratios,
-                   negative_control=sharp)
+                   causal=causal, pairs=pairs, max_abs_err=errs, tol=tols,
+                   ratio=ratios, negative_control=sharp)
         rec["fwd"] = dict(
-            ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, True, scale, window,
+            ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, causal, scale, window,
                                             se, want_lse=True), iters=10),
             plain_ms=cuda_ms(plain_fwd, iters=3))
         rec["fwd"].update(zip(("bound_ms", "bound_by"), bound_ms(
             2 * qb + 2 * kb + rows, 4 * pairs * d, dname)))
         rec["dq"] = dict(ms=cuda_ms(lambda: fa._bwd_launch(
-            "flash_bwd_dq_launch", args, dq_b, None, True, scale, window,
+            "flash_bwd_dq_launch", args, dq_b, None, causal, scale, window,
             se), iters=10))
         rec["dq"].update(zip(("bound_ms", "bound_by"), bound_ms(
             3 * qb + 2 * kb + 2 * rows, 6 * pairs * d, dname)))
         rec["dkv"] = dict(ms=cuda_ms(lambda: fa._bwd_launch(
-            "flash_bwd_dkv_launch", args, dk_b, dv_b, True, scale, window,
+            "flash_bwd_dkv_launch", args, dk_b, dv_b, causal, scale, window,
             se), iters=10))
         rec["dkv"].update(zip(("bound_ms", "bound_by"), bound_ms(
             2 * qb + 4 * kb + 2 * rows, 8 * pairs * d, dname)))
         plain_pass = cuda_ms(plain_bwd, iters=3)
         rec["pass"] = dict(
-            ms=cuda_ms(lambda: fa.flash_bwd(q, k, v, out, lse, do, True,
+            ms=cuda_ms(lambda: fa.flash_bwd(q, k, v, out, lse, do, causal,
                                             scale, window, se), iters=10),
             plain_ms=plain_pass)
         rec["pass"].update(zip(("bound_ms", "bound_by"), bound_ms(
@@ -492,12 +531,12 @@ def check_flash_train(torch, fa, doc_mask):
 
             def lib_fwd():
                 return aten._scaled_dot_product_flash_attention(
-                    qt, kt, vt, 0.0, True, False, scale=scale)
+                    qt, kt, vt, 0.0, causal, False, scale=scale)
             o_a, lse_a, cq, ck, mq, mk, seed, off, _ = lib_fwd()
             rec["fwd"]["library_ms"] = cuda_ms(lib_fwd, iters=10)
             rec["pass"]["library_ms"] = cuda_ms(
                 lambda: aten._scaled_dot_product_flash_attention_backward(
-                    dot, qt, kt, vt, o_a, lse_a, cq, ck, mq, mk, 0.0, True,
+                    dot, qt, kt, vt, o_a, lse_a, cq, ck, mq, mk, 0.0, causal,
                     seed, off, scale=scale), iters=10)
             del o_a, lse_a
         rec["dq"]["library_ms"] = rec["dkv"]["library_ms"] = \
@@ -1065,6 +1104,338 @@ def moe_train_main_path(torch, mods, launches_of, reset_counts, card):
     return rec
 
 
+# -- phases 15-18: the encoder path ----------------------------------------
+
+#: phase 15's training case: BERT_TRAIN's attention, one layer (bf16,
+#: head dim 64, bidirectional, no mask)
+BERT_TRAIN_SPECS = [("bert_train_bf16", 256, 128, 128, 12, 12, 64,
+                     "bfloat16", None, None, False)]
+#: the small on-card BERT cross-check model: BERT-base widths, 2 layers
+BERT_XCHECK_LAYERS, BERT_XCHECK_SEQ = 2, 128
+#: batched embeddings against the same request encoded alone (f32, TF32
+#: off: only the order of sums differs; the JAX service's contract)
+EMBED_B1_RTOL = 1e-4
+#: requests of the serving trace held to their b=1 embedding
+EMBED_B1_REQUESTS = 4
+
+
+def check_minor64_probe(torch, fa):
+    """Phase 15a: the head-dim-64 probe of csrc/flash_fwd.cu through its
+    wrapper (which raises on a wrong answer), equal to its plain version
+    bit for bit on the wrapper's small-integer input; the kernel's own
+    launch timed beside the plain version and, timed only, the pair of
+    torch.matmul calls. The wrapper's whole call also holds the plain
+    product it checks against and a host sync, so it is not what the
+    kernel's time reads."""
+    dev = torch.device("cuda")
+    o = fa.probe_minor64(dev)
+    x = fa.minor64_input(dev)
+    want = fa.minor64_probe_plain(x)
+    if not torch.equal(o, want):
+        fail(f"the head-dim-64 probe disagrees with its plain version "
+             f"(max err {max_err(o, want)})")
+    n, d = fa.MINOR64_SHAPE
+    bms, by = bound_ms(2 * x.numel() * 4, 2 * (2 * n * n * d), "float32")
+    rec = dict(case="128x64_f32", max_abs_err=0.0, tol=0.0, ratio=0.0,
+               ms=cuda_ms(lambda: fa._minor64_launch(x, o), iters=50),
+               plain_ms=cuda_ms(lambda: fa.minor64_probe_plain(x), iters=50),
+               library_ms=cuda_ms(lambda: torch.matmul(torch.matmul(x, x.T),
+                                                       x), iters=50),
+               bound_ms=bms, bound_by=by)
+    print(f"  probe_minor64: equal to its plain version; kernel "
+          f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, matmul pair "
+          f"{rec['library_ms']:.4f} ms, bound {bms:.7f} ms ({by})",
+          flush=True)
+    return [rec]
+
+
+def _key_lengths(torch, g, B, L, dead):
+    """Live key lengths of a pinned batch: the last ``dead`` rows 0, one
+    row the whole bucket, the rest ragged in [1, L)."""
+    lens = torch.randint(1, L, (B,), generator=g, device="cuda")
+    lens[0] = L
+    lens[B - dead:] = 0
+    return lens
+
+
+def check_flash_encoder(torch, fa, F):
+    """Phase 15b: the flash forward at the serving shape (B 16, H 12, D 64,
+    f32, non-causal) with C=1 key bands from a pinned batch's padding mask
+    — 4 dead rows whose every key is masked (they must give zeros),
+    ragged live lengths — at L 128 and 96 (not a multiple of the 64-row q
+    tile), timed beside the plain version and the timed-only SDPA call
+    with the same bool mask. The bound counts what this data needs: the
+    pairs (each live row's L queries times its live keys) and the bytes
+    (Q of the live rows, K and V of the live keys, O of every row)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention   # timed only
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(15)
+    B, H, D, dead = 16, 12, 64, 4
+    cases = []
+    for L in (128, 96):
+        q, k, v = (torch.randn(B, L, H, D, generator=g, device=dev)
+                   for _ in range(3))
+        lens = _key_lengths(torch, g, B, L, dead)
+        mask = torch.arange(L, device=dev)[None, :] < lens[:, None]
+        keymask = mask[:, None, None, :]
+        se = fa._normalize_startend(
+            F._mask_to_key_bands(keymask, B, L, L, H), L, L, False)
+        scale = D ** -0.5
+        got = fa.flash_fwd(q, k, v, False, scale, None, se)
+        torch.cuda.synchronize()
+
+        def plain():
+            return fa.flash_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), False, scale,
+                                  se=se).transpose(1, 2)
+        c = closeness(got, plain())
+        if not c["ratio"] <= 1.0:
+            fail(f"flash_fwd[encoder L{L}] disagrees with its plain version: "
+                 f"{c}")
+        if got[B - dead:].any():
+            fail(f"flash_fwd[encoder L{L}]: dead rows are not zero")
+        pairs = int(lens.sum()) * L * H
+        # the bytes the function needs: Q of the live batch rows (every
+        # query of a live row sees its live keys), K and V of the live
+        # keys only, O of every row (dead rows are written as zeros), and
+        # the bands
+        live_rows = int((lens > 0).sum())
+        nbytes = (live_rows * L * H * D + 2 * int(lens.sum()) * H * D
+                  + q.numel()) * 4 + se.numel() * 4
+        bms, by = bound_ms(nbytes, 4 * pairs * D, "float32")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        rec = dict(case=f"serving_f32_L{L}", B=B, sq=L, sk=L, heads=H,
+                   head_dim=D, dtype="float32", dead_rows=dead,
+                   live_keys=lens.tolist(), pairs=pairs, **c,
+                   ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, False, scale,
+                                                   None, se), iters=20),
+                   plain_ms=cuda_ms(plain, iters=5),
+                   library_ms=cuda_ms(lambda: sdpa(
+                       qt, kt, vt, attn_mask=keymask), iters=20),
+                   bound_ms=bms, bound_by=by)
+        print(f"  flash_fwd[encoder L{L}]: err {c['max_abs_err']:.3g} (ratio "
+              f"{c['ratio']:.3g}), dead rows zero; kernel {rec['ms']:.4f} ms, "
+              f"plain {rec['plain_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} "
+              f"ms, bound {bms:.4f} ms ({by})", flush=True)
+        cases.append(rec)
+    return cases
+
+
+def encoder_serving_main_path(torch, mods, launches_of, reset_counts, card):
+    """Phase 16: bench_bert_embedding's configuration (profile_encoder's
+    BERT_EMBED), counts set to 0 just before the service is built and read
+    just after the trace has run twice (warm, then timed); then
+    EMBED_B1_REQUESTS requests held to the same request encoded alone."""
+    import numpy as np
+    enc = mods.enc
+    E = enc.BERT_EMBED
+    cfg = mods.BertConfig(**E["model"])
+    model = mods.BertModel(cfg, seed=E["seed"])
+    model.eval()
+    trace = enc.embed_trace(cfg.vocab_size)
+    torch.cuda.synchronize()
+    reset_counts()
+    # phase 15 already probed this card: forget it, so that the service
+    # runs its head-dim-64 probe once inside the counted run
+    mods.fa._minor64_ok.clear()
+    svc = mods.BatchEncoder(model, max_batch=E["max_batch"],
+                            bucket=E["bucket"])
+    warm = enc.run_embed_trace(svc, trace)
+    c_warm = dict(mods.monitor.snapshot())
+    timed = enc.run_embed_trace(svc, trace)
+    torch.cuda.synchronize()
+    launches = launches_of()
+    counters = {k: v for k, v in mods.monitor.snapshot().items()
+                if k.startswith(("kernels.", "serving.embed."))}
+    recompiles = svc.steady_state_recompiles()
+    # -- end of the counted encoder serving path --
+    outs = warm["outs"] + timed["outs"]
+    bad = [o for o in outs if not o.ok or o.finish_reason != "done"]
+    if len(outs) != 2 * E["n_requests"] or bad:
+        fail(f"encoder serving: {len(outs)} outputs, failed: {bad[:2]}")
+    batches = int(counters.get("serving.embed.batches", 0))
+    want = batches * cfg.num_hidden_layers
+    sdpa = {k: v for k, v in counters.items()
+            if k.startswith("kernels.flash.sdpa.") and v}
+    plain = {k: v for k, v in counters.items()
+             if (k.endswith("_plain") or "fallback" in k) and v}
+    if launches["flash_fwd"] != want or \
+            counters.get("kernels.flash.fwd_cuda") != want:
+        fail(f"encoder flash launches {launches['flash_fwd']} != {batches} "
+             f"batches x {cfg.num_hidden_layers} layers")
+    if sdpa != {"kernels.flash.sdpa.kernel_mask": want} or plain:
+        fail(f"encoder serving left the masked kernel route: {sdpa} {plain}")
+    if launches["probe_minor64"] != 1:
+        fail(f"the encoder ran the head-dim-64 probe "
+             f"{launches['probe_minor64']} times, expected 1")
+    if recompiles != 0:
+        fail(f"encoder serving built {recompiles} kernel libraries in "
+             f"steady state")
+    t_batches = batches - int(c_warm["serving.embed.batches"])
+    t_tokens = counters["serving.embed.tokens"] - c_warm[
+        "serving.embed.tokens"]
+    t_pad = counters["serving.embed.pad_tokens"] - c_warm[
+        "serving.embed.pad_tokens"]
+    # batched against the same request encoded alone (no mask, b = 1)
+    by_id = {o.req_id: o for o in timed["outs"]}
+    first = min(by_id)
+    b1 = []
+    with torch.no_grad():
+        for i in range(EMBED_B1_REQUESTS):
+            ids = torch.from_numpy(trace[1][i][None]).cuda()
+            x, pooled = model(ids)
+            ref = pooled[0] if trace[2][i] == "cls" else x[0].mean(0)
+            got = torch.from_numpy(by_id[first + i].embedding).cuda()
+            b1.append(float((got - ref.float()).abs().max()
+                            / ref.abs().max()))
+    if max(b1) > EMBED_B1_RTOL:
+        fail(f"batched embeddings differ from b=1: {b1}")
+    steps = timed["steps"]
+    rec = dict(requests=E["n_requests"], passes=2, batches=batches,
+               timed=dict(seconds=timed["seconds"], batches=t_batches,
+                          real_tokens=t_tokens, pad_tokens=t_pad,
+                          tokens_per_s=t_tokens / timed["seconds"],
+                          last_arrival_s=float(trace[0][-1]),
+                          pad_share=t_pad / (t_tokens + t_pad),
+                          steps=steps,
+                          host_ms_per_step=timed["host_ms"] / steps,
+                          device_ms_per_step=timed["device_ms"] / steps,
+                          device_ms_per_batch=timed["device_ms"] / t_batches),
+               warm_seconds=warm["seconds"], launches=launches,
+               steady_state_recompiles=recompiles, b1_rel_err=b1,
+               b1_rtol=EMBED_B1_RTOL, counters=counters)
+    tm = rec["timed"]
+    print(f"encoder serving: {E['n_requests']} requests x 2 passes, "
+          f"{batches} batches, flash launches {launches['flash_fwd']} = "
+          f"batches x {cfg.num_hidden_layers}, probe_minor64 "
+          f"{launches['probe_minor64']}; timed pass {tm['seconds']:.3f} s, "
+          f"{tm['batches']} batches, {tm['tokens_per_s']:.0f} real tokens/s "
+          f"(arrival-bound: last arrival {tm['last_arrival_s']:.3f} s), "
+          f"pad share {tm['pad_share']:.3f}, host "
+          f"{tm['host_ms_per_step']:.2f} / device "
+          f"{tm['device_ms_per_step']:.2f} ms per step, device "
+          f"{tm['device_ms_per_batch']:.2f} ms per batch on {card}; batched vs "
+          f"b=1 rel err {max(b1):.2e} (tol {EMBED_B1_RTOL})", flush=True)
+    del svc, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def bert_cross_check(torch, mods):
+    """Phase 17: a 2-layer BertForPretraining at BERT-base widths, seq 128,
+    f32, dropout 0, with a padding mask, on the card against the same
+    weights on the CPU: one TrainStep loss and every parameter gradient
+    of MLM loss + mean(nsp^2) (so the pooler and NSP head count too)."""
+    import dataclasses
+    import numpy as np
+    cfg = mods.BertConfig(**mods.enc.BERT_TRAIN["model"])
+    cfg = dataclasses.replace(cfg, num_hidden_layers=BERT_XCHECK_LAYERS,
+                              hidden_dropout_prob=0.0)
+    nets = {"cuda": mods.BertForPretraining(cfg, seed=1)}
+    nets["cpu"] = mods.BertForPretraining(cfg, device="cpu")
+    nets["cpu"].load_state_dict(
+        {k: v.cpu() for k, v in nets["cuda"].state_dict().items()})
+    rng = np.random.default_rng(7)
+    shape = (2, BERT_XCHECK_SEQ)
+    ids = rng.integers(0, cfg.vocab_size, shape).astype(np.int64)
+    tt = rng.integers(0, 2, shape).astype(np.int64)
+    labels = rng.integers(0, cfg.vocab_size, shape).astype(np.int64)
+    am = np.ones(shape, np.int64)
+    am[1, 88:] = 0
+
+    def loss_fn(out, lab):
+        return out[0] + out[1].square().mean()
+    res = {}
+    for dev, net in nets.items():
+        inputs = tuple(torch.from_numpy(a).to(dev)
+                       for a in (ids, tt, labels, am))
+        params = list(net.parameters())
+        grads = torch.autograd.grad(loss_fn(net(*inputs), None), params)
+        step = mods.TrainStep(net, loss_fn, mods.AdamW(1e-3,
+                                                       parameters=params))
+        res[dev] = (float(step(inputs, inputs[2])),
+                    [gr.cpu() for gr in grads])
+    loss_err = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                   for a, b in zip(res["cuda"][1], res["cpu"][1]))
+    rec = dict(layers=BERT_XCHECK_LAYERS, seq=BERT_XCHECK_SEQ,
+               loss_cuda=res["cuda"][0], loss_cpu=res["cpu"][0],
+               loss_rel_err=loss_err, max_rel_grad_err=grad_err,
+               grad_tol=XCHECK_GRAD_TOL, loss_tol=XCHECK_LOSS_TOL)
+    print(f"BERT cross-check: TrainStep loss cuda {res['cuda'][0]:.6f} cpu "
+          f"{res['cpu'][0]:.6f} (rel err {loss_err:.2e}, tol "
+          f"{XCHECK_LOSS_TOL}); max relative grad error {grad_err:.2e} over "
+          f"{len(res['cpu'][1])} parameters (tol {XCHECK_GRAD_TOL})",
+          flush=True)
+    if not (loss_err <= XCHECK_LOSS_TOL and grad_err <= XCHECK_GRAD_TOL):
+        fail(f"BERT cross-check off: {rec}")
+    del nets, res
+    torch.cuda.empty_cache()
+    return rec
+
+
+def bert_train_main_path(torch, mods, launches_of, reset_counts, card):
+    """Phase 18: bench_bert's configuration (profile_encoder's BERT_TRAIN)
+    for TRAIN_STEPS steps of one fixed batch, dropout 0.1 from the
+    model's generator, counts set to 0 just before and read just after."""
+    enc = mods.enc
+    T = enc.BERT_TRAIN
+    cfg = mods.BertConfig(**T["model"])
+    model = mods.BertForPretraining(cfg, seed=T["seed"])
+    n_params = sum(p.numel() for p in model.parameters())
+    step = enc.bert_train_step(model)
+    inputs, labels = enc.train_batch(cfg.vocab_size, model.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = step(inputs, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = launches_of()
+    counters = {k: v for k, v in mods.monitor.snapshot().items()
+                if k.startswith("kernels.")}
+    # -- end of the counted BERT training path --
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        fail(f"BERT training losses not finite and falling: {losses}")
+    want = cfg.num_hidden_layers * TRAIN_STEPS
+    got = {k: launches[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv")}
+    if set(got.values()) != {want}:
+        fail(f"BERT training launches {got}, expected {want} each")
+    sdpa = {k: v for k, v in counters.items()
+            if k.startswith("kernels.flash.sdpa.") and v}
+    plain = {k: v for k, v in counters.items()
+             if (k.endswith("_plain") or "fallback" in k) and v}
+    if plain or sdpa != {"kernels.flash.sdpa.kernel": want} or \
+            counters.get("kernels.flash.bwd_cuda") != want:
+        fail(f"BERT training kernel-path counters disagree: {counters}")
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    tokens = T["batch"] * T["seq"]
+    flops = enc.bert_flops_per_token(model) * tokens
+    rec = dict(params=n_params, batch=T["batch"], seq=T["seq"],
+               steps=TRAIN_STEPS, losses=losses, step_s=times,
+               ms_per_step=steady * 1e3, first_step_ms=times[0] * 1e3,
+               tokens_per_s=tokens / steady,
+               bf16_peak_share_6n=flops / steady / PEAK_FLOPS["bfloat16"],
+               peak_mem_gb=peak_gb, launches=launches, counters=counters)
+    print(f"BERT training: {n_params / 1e6:.1f} M params, batch {T['batch']} "
+          f"x seq {T['seq']}, dropout {cfg.hidden_dropout_prob}, losses "
+          f"{[round(x, 4) for x in losses]}; median step "
+          f"{rec['ms_per_step']:.1f} ms (first {rec['first_step_ms']:.1f} ms)"
+          f" = {rec['tokens_per_s']:.0f} tokens/s, "
+          f"{rec['bf16_peak_share_6n']:.4f} of the 989 TFLOP/s bf16 peak by "
+          f"bench_bert's 6N rule, peak memory {peak_gb:.1f} GB; launches "
+          f"{got} on {card}", flush=True)
+    del step, model
+    torch.cuda.empty_cache()
+    return rec
+
+
 # -- phases 4 and 5: the main path -----------------------------------------
 
 def make_requests(SamplingParams, vocab_size):
@@ -1103,23 +1474,28 @@ def main():
         from types import SimpleNamespace
 
         from paddle_tpu_torch import monitor
+        from paddle_tpu_torch import profile_encoder as enc
         from paddle_tpu_torch import profile_moe as moe_profile
         from paddle_tpu_torch import profile_training as train
         from paddle_tpu_torch.incubate.distributed.models.moe import \
             gate as moe_gate
-        from paddle_tpu_torch.inference import Engine, SamplingParams
+        from paddle_tpu_torch.inference import (BatchEncoder, Engine,
+                                                SamplingParams)
         from paddle_tpu_torch.jit import TrainStep
         from paddle_tpu_torch.kernels import _build as build
         from paddle_tpu_torch.kernels import flash_attention as fa
         from paddle_tpu_torch.kernels import moe
         from paddle_tpu_torch.kernels import paged_attention as pa
         from paddle_tpu_torch.nn import CrossEntropyLoss
+        from paddle_tpu_torch.nn import functional as F
         from paddle_tpu_torch.nn.functional import \
             document_startend_row_indices as doc_mask
         from paddle_tpu_torch.optimizer import AdamW
         from paddle_tpu_torch.profile_serving import MODEL
         from paddle_tpu_torch.quantization import kv_quantize_arrays
-        from paddle_tpu_torch.text.models import (ErnieMoEConfig,
+        from paddle_tpu_torch.text.models import (BertConfig,
+                                                  BertForPretraining,
+                                                  BertModel, ErnieMoEConfig,
                                                   ErnieMoEForCausalLM,
                                                   LlamaConfig,
                                                   LlamaForCausalLM,
@@ -1134,7 +1510,9 @@ def main():
             ernie_moe_flops_per_token=ernie_moe_flops_per_token,
             CrossEntropyLoss=CrossEntropyLoss, Engine=Engine,
             SamplingParams=SamplingParams, monitor=monitor,
-            moe_profile=moe_profile)
+            moe_profile=moe_profile, enc=enc, BertConfig=BertConfig,
+            BertModel=BertModel, BertForPretraining=BertForPretraining,
+            BatchEncoder=BatchEncoder, fa=fa)
     except ImportError as e:
         fail(f"cannot import the port (run from the repository root): {e}")
     # a reference states its float32 matmul precision: full f32, no TF32
@@ -1274,6 +1652,7 @@ def main():
 
     def reset_counts():
         build.probe.launches = 0
+        fa.probe_minor64.launches = 0
         pa.paged_decode.launches = 0
         fa.flash_fwd.launches = 0
         fa.flash_bwd.launches_dq = fa.flash_bwd.launches_dkv = 0
@@ -1283,6 +1662,7 @@ def main():
 
     def launches_of():
         return {"probe": build.probe.launches,
+                "probe_minor64": fa.probe_minor64.launches,
                 "paged_decode": pa.paged_decode.launches,
                 "flash_fwd": fa.flash_fwd.launches,
                 "flash_bwd_dq": fa.flash_bwd.launches_dq,
@@ -1299,6 +1679,22 @@ def main():
     moe_xcheck = moe_cross_check(torch, mods)
     moe_training = moe_train_main_path(torch, mods, launches_of,
                                        reset_counts, card)
+    torch.cuda.empty_cache()
+
+    # 15. the head-dim-64 probe and the flash kernels at the encoder's
+    # shapes, 16. the encoder serving main path, 17. the BERT cross-check,
+    # 18. the BERT training main path (16 and 18 count around them)
+    print("encoder kernels vs plain versions:", flush=True)
+    minor64_cases = check_minor64_probe(torch, fa)
+    enc_flash_cases = check_flash_encoder(torch, fa, F)
+    bert_train_cases = check_flash_train(torch, fa, doc_mask,
+                                         BERT_TRAIN_SPECS)
+    torch.cuda.empty_cache()
+    enc_serving = encoder_serving_main_path(torch, mods, launches_of,
+                                            reset_counts, card)
+    bert_xcheck = bert_cross_check(torch, mods)
+    bert_training = bert_train_main_path(torch, mods, launches_of,
+                                         reset_counts, card)
 
     src = "paddle_tpu_torch/csrc/"
     main_paged = paged_cases[0]
@@ -1371,6 +1767,27 @@ def main():
                                      "flash_bwd_dkv")):
         k["launches"] += mt_l[name]
         k["launches_by_path"]["moe_training"] = mt_l[name]
+    es_l, bt_l = enc_serving["launches"], bert_training["launches"]
+    kernels[2]["launches"] += es_l["flash_fwd"]
+    kernels[2]["launches_by_path"]["encoder_serving"] = es_l["flash_fwd"]
+    kernels[2]["encoder_cases"] = enc_flash_cases
+    for k, name in zip(kernels[2:], ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv")):
+        k["launches"] += bt_l[name]
+        k["launches_by_path"]["bert_training"] = bt_l[name]
+    bt_case = bert_train_cases[0]
+    kernels[2]["bert_train"] = dict(
+        case=bt_case["case"], max_abs_err=bt_case["max_abs_err"]["out"],
+        ratio=max(bt_case["ratio"][n] for n in ("out", "lse")),
+        **bt_case["fwd"])
+    for k, part, grads in ((kernels[3], "dq", ("dq",)),
+                           (kernels[4], "dkv", ("dk", "dv"))):
+        k["cases"].append(dict(case=bt_case["case"], **bt_case[part]))
+        k["bert_train"] = dict(
+            case=bt_case["case"],
+            max_abs_err=max(bt_case["max_abs_err"][n] for n in grads),
+            ratio=max(bt_case["ratio"][n] for n in grads),
+            pass_ms=bt_case["pass"]["ms"], **bt_case[part])
     main_moe = moe_cases[0]
     for kname, part, line, outs, paths in (
             ("grouped_ffn_fwd", "fwd", 181, ("out",),
@@ -1408,6 +1825,17 @@ def main():
                  "(limit e2e_limit)",
             cases=[dict(case=c["case"], **c[part]) for c in moe_cases],
             **main_moe[part]))
+    kernels.insert(5, dict(
+        name="probe_minor64", route="cuda", source=src + "flash_fwd.cu",
+        replaces="paddle_tpu/kernels/flash_attention.py:801",
+        launches=es_l["probe_minor64"],
+        launches_by_path={"encoder_serving": es_l["probe_minor64"]},
+        cases=minor64_cases,
+        note="library_ms times the pair of torch.matmul calls (timed only); "
+             "the plain version is the same pair",
+        **{k: minor64_cases[0][k] for k in (
+            "max_abs_err", "tol", "ratio", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}))
     for k in kernels:                 # also under these two names
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]
     result = dict(card=card, kind=kind, torch=torch.__version__,
@@ -1422,7 +1850,11 @@ def main():
                   flash_train_cases=train_cases, model_cross_check=xcheck,
                   training=training, moe_kernel_cases=moe_cases,
                   moe_serving=moe_serving, moe_cross_check=moe_xcheck,
-                  moe_training=moe_training, kernels=kernels)
+                  moe_training=moe_training, minor64_cases=minor64_cases,
+                  encoder_flash_cases=enc_flash_cases,
+                  bert_flash_train_cases=bert_train_cases,
+                  encoder_serving=enc_serving, bert_cross_check=bert_xcheck,
+                  bert_training=bert_training, kernels=kernels)
     (OUT_DIR / "result.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

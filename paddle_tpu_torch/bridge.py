@@ -7,7 +7,7 @@ get_params`` gives them (``llama.layers.0.self_attn.q_proj.weight``,
 names. The one layout
 difference: a paddle Linear weight is [in, out], a ``torch.nn.Linear``
 weight is [out, in], so every 2-D weight of a Linear is transposed.
-Embedding ([vocab, hidden]) and norm weights cross as they are. Adam
+Embedding ([vocab, hidden]) and norm parameters cross as they are. Adam
 state ({name: {moment1, moment2[, moment2_max], beta1_pow, beta2_pow}},
 the JAX ``TrainStep``'s ``_opt_state``) crosses the same way: a Linear's
 moments are transposed like its weight, the scalars cross as they are.
@@ -19,8 +19,12 @@ from typing import Dict
 import numpy as np
 import torch
 
-#: parameter-name suffixes of Linear weights (transposed on the way in)
-LINEAR_SUFFIXES = ("_proj.weight", "lm_head.weight")
+#: parameter-name suffixes of Linear weights (transposed on the way in):
+#: LLaMA's and ERNIE-MoE's projections and head, BERT's qkv, out, fc1,
+#: fc2, pooler, transform and nsp_head
+LINEAR_SUFFIXES = ("_proj.weight", "lm_head.weight", ".qkv.weight",
+                   ".out.weight", ".fc1.weight", ".fc2.weight",
+                   "pooler.weight", "transform.weight", "nsp_head.weight")
 
 
 def llama_state_from_numpy(params: Dict[str, np.ndarray]
@@ -58,6 +62,14 @@ def llama_state_to_numpy(state: Dict[str, torch.Tensor]
 #: are — so the Adam state bridge below holds for MoE unchanged.
 ernie_moe_state_from_numpy = llama_state_from_numpy
 ernie_moe_state_to_numpy = llama_state_to_numpy
+
+
+#: BERT crosses by the same rule: its Linear weights are transposed, the
+#: embeddings and LayerNorm parameters cross as they are, and the MLM
+#: decoder is the word embedding itself (one parameter, crossed once). The
+#: Adam state bridge below holds for BERT unchanged.
+bert_state_from_numpy = llama_state_from_numpy
+bert_state_to_numpy = llama_state_to_numpy
 
 
 def _numpy_of(t):

@@ -1,5 +1,5 @@
 // Flash-attention forward for Hopper (no-cache LLaMA attention, and the
-// forward of training).
+// forward of training and of the BERT encoder), and the head-dim-64 probe.
 //
 // Replaces the Pallas kernel `_flash_fwd_kernel` launched by
 // `_flash_pallas_fwd` (paddle_tpu/kernels/flash_attention.py:280,
@@ -48,6 +48,66 @@ size_t smem_bytes(int d) {
   // q [kBQ][dp], K [kBK][dp+4], V [kBK][dp], p [kBQ][kBK]
   return sizeof(float) * (size_t(kBQ) * dp + size_t(kBK) * (dp + 4) +
                           size_t(kBK) * dp + size_t(kBQ) * kBK);
+}
+
+// S = q K^T for one warp's kRows rows (r0, r0 + kRows) of the staged
+// q tile q_s [.][dp] against the staged key tile k_s [kBK][dp + 4]: lane
+// owns key column `lane`. q and K are read as 16-byte vectors, so the
+// loop is FMA- rather than load-bound.
+__device__ __forceinline__ void warp_qk(const float* __restrict__ q_s,
+                                        const float* __restrict__ k_s,
+                                        int dp, int r0, int lane,
+                                        float (&s)[kRows]) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) s[r] = 0.f;
+  const float4* kr = reinterpret_cast<const float4*>(k_s + lane * (dp + 4));
+  for (int c4 = 0; c4 < dp / 4; ++c4) {
+    const float4 kv = kr[c4];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float4 qv =
+          reinterpret_cast<const float4*>(q_s + (r0 + r) * dp)[c4];
+      s[r] = fmaf(qv.x, kv.x, s[r]);
+      s[r] = fmaf(qv.y, kv.y, s[r]);
+      s[r] = fmaf(qv.z, kv.z, s[r]);
+      s[r] = fmaf(qv.w, kv.w, s[r]);
+    }
+  }
+}
+
+// acc += P V for the same warp's rows: P from p_s [.][kBK], V from the
+// staged tile v_s [kBK][dp]; lane owns output columns lane + 32 * i
+// (kDPL of them: 2 at head dim 64).
+template <int kDPL>
+__device__ __forceinline__ void warp_pv(const float* __restrict__ p_s,
+                                        const float* __restrict__ v_s,
+                                        int dp, int r0, int lane,
+                                        float (&acc)[kRows][kDPL]) {
+  for (int j4 = 0; j4 < kBK / 4; ++j4) {
+    float vv[4][kDPL];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int i = 0; i < kDPL; ++i) {
+        const int c = lane + 32 * i;
+        vv[jj][i] = c < dp ? v_s[(j4 * 4 + jj) * dp + c] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float4 pv =
+          reinterpret_cast<const float4*>(p_s + (r0 + r) * kBK)[j4];
+#pragma unroll
+      for (int i = 0; i < kDPL; ++i) {
+        float acc_ri = acc[r][i];
+        acc_ri = fmaf(pv.x, vv[0][i], acc_ri);
+        acc_ri = fmaf(pv.y, vv[1][i], acc_ri);
+        acc_ri = fmaf(pv.z, vv[2][i], acc_ri);
+        acc_ri = fmaf(pv.w, vv[3][i], acc_ri);
+        acc[r][i] = acc_ri;
+      }
+    }
+  }
 }
 
 struct Args {
@@ -130,21 +190,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 
     // S = q K^T for this warp's 16 rows; lane owns key column kj
     float s[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    const float4* kr = reinterpret_cast<const float4*>(k_s + lane * (dp + 4));
-    for (int c4 = 0; c4 < dp / 4; ++c4) {
-      const float4 kv = kr[c4];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv =
-            reinterpret_cast<const float4*>(q_s + (r0 + r) * dp)[c4];
-        s[r] = fmaf(qv.x, kv.x, s[r]);
-        s[r] = fmaf(qv.y, kv.y, s[r]);
-        s[r] = fmaf(qv.z, kv.z, s[r]);
-        s[r] = fmaf(qv.w, kv.w, s[r]);
-      }
-    }
+    warp_qk(q_s, k_s, dp, r0, lane, s);
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int qi = q0 + r0 + r;
@@ -174,32 +220,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
     }
     __syncwarp();
 
-    // acc += P V; lane owns output columns lane + 32 * i
-    for (int j4 = 0; j4 < kBK / 4; ++j4) {
-      float vv[4][kDPL];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int i = 0; i < kDPL; ++i) {
-          const int c = lane + 32 * i;
-          vv[jj][i] = c < dp ? v_s[(j4 * 4 + jj) * dp + c] : 0.f;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 pv =
-            reinterpret_cast<const float4*>(p_s + (r0 + r) * kBK)[j4];
-#pragma unroll
-        for (int i = 0; i < kDPL; ++i) {
-          float acc_ri = acc[r][i];
-          acc_ri = fmaf(pv.x, vv[0][i], acc_ri);
-          acc_ri = fmaf(pv.y, vv[1][i], acc_ri);
-          acc_ri = fmaf(pv.z, vv[2][i], acc_ri);
-          acc_ri = fmaf(pv.w, vv[3][i], acc_ri);
-          acc[r][i] = acc_ri;
-        }
-      }
-    }
+    warp_pv(p_s, v_s, dp, r0, lane, acc);
     __syncwarp();
   }
 
@@ -245,9 +266,73 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   return int(cudaErrorInvalidValue);
 }
 
+// The head-dim-64 probe (row 5): one block computes s = x x^T
+// ([128, 128], f32) and o = s x ([128, 64]) for an f32 x [128, 64] with
+// the forward's own pieces at head dim 64 — the tiles `stage`d into the
+// forward's shared-memory layout (q [kBQ][64], K [kBK][68], V [kBK][64],
+// P [kBQ][kBK]), S by `warp_qk`, and P V into the kDPL = 2 register
+// layout by `warp_pv` (s staged through P one 32-key tile at a time,
+// without the softmax), over two 64-row tiles of x.
+constexpr int kProbeRows = 128;
+constexpr int kProbeD = 64;
+
+__global__ void __launch_bounds__(kThreads)
+    minor64_probe_kernel(const float* __restrict__ x, float* __restrict__ o) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r0 = (tid >> 5) * kRows;
+  const int dp = fl::pad4(kProbeD);
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;
+  float* k_s = q_s + kBQ * dp;
+  float* v_s = k_s + kBK * (dp + 4);
+  float* p_s = v_s + kBK * dp;
+  for (int q0 = 0; q0 < kProbeRows; q0 += kBQ) {
+    __syncthreads();  // the previous row tile is consumed
+    fl::stage<float, kThreads>(x, kProbeD, q0, kBQ, kProbeRows, kProbeD, dp,
+                               q_s, dp, 1.f, tid);
+    float acc[kRows][2];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r][0] = acc[r][1] = 0.f;
+    for (int k0 = 0; k0 < kProbeRows; k0 += kBK) {
+      __syncthreads();  // the previous K/V tile is consumed
+      fl::stage<float, kThreads>(x, kProbeD, k0, kBK, kProbeRows, kProbeD,
+                                 dp, k_s, dp + 4, 1.f, tid);
+      fl::stage<float, kThreads>(x, kProbeD, k0, kBK, kProbeRows, kProbeD,
+                                 dp, v_s, dp, 1.f, tid);
+      __syncthreads();
+      float s[kRows];
+      warp_qk(q_s, k_s, dp, r0, lane, s);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) p_s[(r0 + r) * kBK + lane] = s[r];
+      __syncwarp();
+      warp_pv(p_s, v_s, dp, r0, lane, acc);
+      __syncwarp();
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      float* orow = o + size_t(q0 + r0 + r) * kProbeD;
+      orow[lane] = acc[r][0];
+      orow[lane + 32] = acc[r][1];
+    }
+  }
+}
+
 }  // namespace
 
 PT_DEFINE_PROBE(flash_fwd)
+
+// The head-dim-64 probe, replacing `_pallas_minor64_supported`
+// (paddle_tpu/kernels/flash_attention.py:801, its pl.pallas_call at :827):
+// x f32 contiguous [128, 64] -> o f32 contiguous [128, 64] = (x x^T) x.
+// The wrapper (kernels/flash_attention.py `probe_minor64`) checks the
+// answer and raises when it is wrong. Returns cudaGetLastError().
+extern "C" int flash_fwd_minor64_probe(const void* x, void* o, void* stream) {
+  minor64_probe_kernel<<<1, kThreads, smem_bytes(kProbeD),
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(o));
+  return int(cudaGetLastError());
+}
 
 // q [B, Sq, H, D], k/v [B, Sk, Hkv, D] given by element strides
 // (batch, seq, head; the last dim is contiguous); o contiguous

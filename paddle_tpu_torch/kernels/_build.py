@@ -63,7 +63,8 @@ SIGNATURES = {
                   [_P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I,
                    _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                   _P, _L, _L, _L, _I, _I, _I, _F, _I, _P]},
+                   _P, _L, _L, _L, _I, _I, _I, _F, _I, _P],
+                  "flash_fwd_minor64_probe": [_P, _P, _P]},
     "flash_bwd": {"flash_bwd_dq_launch": _FLASH_BWD,
                   "flash_bwd_dkv_launch": _FLASH_BWD},
     "grouped_ffn_fwd": {"grouped_ffn_fwd_launch":
@@ -127,9 +128,15 @@ def build() -> Dict[str, Path]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, paths[n])
+            build.libraries_built += 1
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return paths
+
+
+#: kernel libraries compiled by this process (the serving surfaces count
+#: the builds that happen inside their steps)
+build.libraries_built = 0
 
 
 def check(err: int, what: str) -> None:

@@ -11,6 +11,11 @@
   paddle layout [B, S, H, D]. On CUDA tensors they launch the
   hand-written Hopper kernels ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu``
   or raise; the plain versions run only for CPU tensors.
+- ``probe_minor64`` / ``minor64_supported``: the head-dim-64 probe
+  (counterpart of ``_pallas_minor64_supported``, :801) and its
+  once-per-device check, which the wrappers run before their first
+  launch at head dim 64 (as ``_head_dim_ok`` :845 gates the Pallas
+  path); ``minor64_probe_plain`` is its plain version.
 - ``flash_attention_arrays`` / ``flash_attention``: the validated,
   differentiable entry (counterparts of :871 and :943). With a gradient
   to take it runs ``_FlashAttnFn`` (the ``_flash_pallas`` custom_vjp,
@@ -167,6 +172,82 @@ def _t(x):
     return x.transpose(1, 2)
 
 
+#: the probe's operand: [128, 64] f32 (the flash tiles at head dim 64)
+MINOR64_SHAPE = (128, 64)
+#: the seed of the probe's one fixed input tile (``minor64_input``)
+MINOR64_SEED = 0
+
+
+def minor64_probe_plain(x):
+    """The probe's function, ``(x x^T) x`` in f32 (the two
+    ``dot_general``s of the Pallas probe body, :816-822)."""
+    x = x.float()
+    return (x @ x.T) @ x
+
+
+def _cuda_device(device):
+    dev = torch.device("cuda" if device is None else device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def minor64_input(device):
+    """The probe's one fixed input: the [128, 64] f32 tile of small
+    integers in [-3, 3] seeded by ``MINOR64_SEED``, on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(MINOR64_SEED)
+    return torch.randint(-3, 4, MINOR64_SHAPE, generator=gen, device=device,
+                         dtype=torch.int32).float()
+
+
+def _minor64_launch(x, o):
+    """One launch of ``flash_fwd_minor64_probe`` on x -> o (both f32
+    [128, 64] on one CUDA device), uncounted and unchecked; raises on a
+    refused launch."""
+    lib = _build.load("flash_fwd")
+    _build.check(lib.flash_fwd_minor64_probe(
+        x.data_ptr(), o.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream),
+        "flash_fwd minor64 probe")
+
+
+def probe_minor64(device=None):
+    """Launch the head-dim-64 probe of ``csrc/flash_fwd.cu`` once on
+    ``device`` (default: the current CUDA device) and check it: on
+    ``minor64_input`` every product and sum is exact in f32, so the
+    answer must equal ``minor64_probe_plain`` bit for bit. Raises when it
+    does not: the port has no other route for head dim 64 (the JAX
+    package sends it to XLA). Counts the launch on
+    ``probe_minor64.launches``; returns the kernel's output."""
+    dev = _cuda_device(device)
+    x = minor64_input(dev)
+    o = torch.empty_like(x)
+    _minor64_launch(x, o)
+    probe_minor64.launches += 1
+    if not torch.equal(o, minor64_probe_plain(x)):
+        raise RuntimeError(
+            f"the head-dim-64 flash probe returned a wrong result on "
+            f"{torch.cuda.get_device_name(dev)}: the flash kernels cannot "
+            f"be trusted at head dim 64 on this card")
+    _minor64_ok[dev] = True
+    return o
+
+
+probe_minor64.launches = 0
+#: devices whose head-dim-64 probe passed in this process
+_minor64_ok = {}
+
+
+def minor64_supported(device) -> bool:
+    """True once the head-dim-64 probe has passed on ``device`` in this
+    process (it is launched on the first call, as ``_minor64_ok`` caches
+    the Pallas probe); a wrong answer raises."""
+    dev = _cuda_device(device)
+    if dev not in _minor64_ok:
+        probe_minor64(dev)
+    return True
+
+
 def flash_fwd(q, k, v, causal: bool, scale: float,
               window: Optional[int] = None, se=None, want_lse: bool = False):
     """Flash forward on the paddle layout: q [B, Sq, H, D], k/v
@@ -175,8 +256,9 @@ def flash_fwd(q, k, v, causal: bool, scale: float,
     flashmask bands [B|1, h_se, 4, Sk] int32.
 
     On CUDA tensors this launches ``csrc/flash_fwd.cu`` (any sequence
-    lengths, head dim <= 256, unit last-dim stride) and counts the launch
-    on ``flash_fwd.launches``; on CPU tensors it runs ``flash_plain``."""
+    lengths, head dim <= 256, unit last-dim stride; at head dim 64 only
+    once ``minor64_supported`` holds) and counts the launch on
+    ``flash_fwd.launches``; on CPU tensors it runs ``flash_plain``."""
     if q.device.type == "cpu":
         monitor.counter("kernels.flash.fwd_plain").increase()
         res = flash_plain(_t(q), _t(k), _t(v), causal, scale, window, se,
@@ -225,6 +307,8 @@ def _flash_fwd_cuda(q, k, v, causal, scale, window, se, want_lse):
     B, Sq, H, D = q.shape
     _, Sk, Hkv, _ = k.shape
     q, k, v = _check_cuda_inputs("flash_fwd", [q, k, v], se)
+    if D == 64:
+        minor64_supported(q.device)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if want_lse else None
@@ -276,6 +360,8 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, window, se):
     B, Sq, H, D = q.shape
     _, Sk, Hkv, _ = k.shape
     q, k, v, do = _check_cuda_inputs("flash_bwd", [q, k, v, do], se)
+    if D == 64:
+        minor64_supported(q.device)
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_bwd: lse must be float32 {(B, H, Sq)}, "
                          f"got {lse.dtype} {tuple(lse.shape)}")

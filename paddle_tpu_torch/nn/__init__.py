@@ -1,6 +1,6 @@
 from . import functional
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
-from .layer import CrossEntropyLoss
+from .layer import CrossEntropyLoss, Dropout, LayerNorm
 
 __all__ = ["functional", "ClipGradByGlobalNorm", "ClipGradByNorm",
-           "ClipGradByValue", "CrossEntropyLoss"]
+           "ClipGradByValue", "CrossEntropyLoss", "Dropout", "LayerNorm"]

@@ -1,3 +1,5 @@
+from .common import Dropout
 from .loss import CrossEntropyLoss
+from .norm import LayerNorm
 
-__all__ = ["CrossEntropyLoss"]
+__all__ = ["CrossEntropyLoss", "Dropout", "LayerNorm"]

@@ -288,3 +288,114 @@ def test_grouped_ffn_autograd_on_cuda_matches_cpu(dev):
     moe.grouped_ffn(*cpu, cnt.cpu(), activation=act).backward(g.cpu())
     for a, b in zip(ins, cpu):
         _close(a.grad.cpu(), b.grad, 1e-4)
+
+
+# -- the encoder slice: the head-dim-64 probe, key bands, dead rows ----------
+
+def test_minor64_probe_matches_plain_and_caches(dev):
+    """The probe launches once, equals (x x^T) x bit for bit on its
+    small-integer tile, and marks the device: ``minor64_supported`` then
+    launches nothing more."""
+    n = fa.probe_minor64.launches
+    out = fa.probe_minor64(dev)
+    assert fa.probe_minor64.launches == n + 1
+    assert torch.equal(out, fa.minor64_probe_plain(fa.minor64_input(dev)))
+    assert fa.minor64_supported(dev)
+    assert fa.probe_minor64.launches == n + 1
+
+
+def _encoder_bands(dev, B, L, H, dead, seed):
+    """C=1 key bands of a pinned batch's padding mask: the last ``dead``
+    rows mask every key, one row keeps all L, the rest ragged."""
+    from paddle_tpu_torch.nn.functional import _mask_to_key_bands
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(1, L, (B,), generator=g)
+    lens[0] = L
+    lens[B - dead:] = 0
+    keep = (torch.arange(L)[None] < lens[:, None])[:, None, None].to(dev)
+    se = fa._normalize_startend(_mask_to_key_bands(keep, B, L, L, H), L, L,
+                                False)
+    return keep, se
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [128, 96, 33])
+def test_flash_encoder_key_bands_and_dead_rows(dev, dtype, L):
+    """Head dim 64, non-causal, one band head broadcast over 6 q heads
+    with a per-row batch stride: the forward with lse and both backward
+    kernels against the plain versions; dead rows give zeros (and NEG_INF
+    lse) and get zero gradients."""
+    B, H, D, dead = 5, 6, 64, 2
+    g = torch.Generator().manual_seed(L)
+    q, k, v, do = (torch.randn(B, L, H, D, generator=g).to(dev, dtype)
+                   for _ in range(4))
+    _, se = _encoder_bands(dev, B, L, H, dead, L)
+    t = lambda x: x.transpose(1, 2).float()              # noqa: E731
+    rtol = 1e-4 if dtype == torch.float32 else 1e-2
+    out, lse = fa.flash_fwd(q, k, v, False, 0.125, None, se, want_lse=True)
+    torch.cuda.synchronize()
+    want, want_lse = fa.flash_plain(t(q), t(k), t(v), False, 0.125, se=se,
+                                    return_lse=True)
+    _close(out, want.transpose(1, 2), rtol)
+    assert not out[B - dead:].any()
+    assert bool((lse[B - dead:] <= fa.ROW_INVALID_LSE).all())
+    o = want.transpose(1, 2).to(dtype)
+    got = fa.flash_bwd(q, k, v, o, want_lse, do, False, 0.125, None, se)
+    ref = fa.flash_bwd_plain(t(q), t(k), t(v), t(o), want_lse, t(do), False,
+                             0.125, None, se)
+    for g_, r_ in zip(got, ref):
+        _close(g_, r_.transpose(1, 2), rtol)
+        assert not g_[B - dead:].any()
+
+
+def test_sdpa_key_mask_on_cuda_matches_cpu(dev):
+    """scaled_dot_product_attention with a padding mask takes the masked
+    kernel route on the card, and its output and gradients match the
+    CPU's plain route."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+    B, L, H, D = 4, 70, 4, 64
+    keep, _ = _encoder_bands(dev, B, L, H, 1, 5)
+    g = torch.Generator().manual_seed(6)
+    base = [torch.randn(B, L, H, D, generator=g) for _ in range(3)]
+    do = torch.randn(B, L, H, D, generator=g)
+    counter = monitor.counter("kernels.flash.sdpa.kernel_mask")
+    n = counter.get()
+    ins = [x.to(dev).requires_grad_() for x in base]
+    scaled_dot_product_attention(*ins, attn_mask=keep).backward(do.to(dev))
+    assert counter.get() == n + 1
+    cpu = [x.clone().requires_grad_() for x in base]
+    out = scaled_dot_product_attention(*cpu, attn_mask=keep.cpu())
+    out.backward(do)
+    for a, b in zip(ins, cpu):
+        _close(a.grad.cpu(), b.grad, 1e-4)
+
+
+def test_batch_encoder_on_cuda_probes_and_matches_b1(dev, monkeypatch):
+    """A head-dim-64 BERT in the BatchEncoder on the card: one probe
+    launch at construction on a device not yet probed, none for a second
+    encoder, batched embeddings equal to each request encoded alone
+    (relative 1e-4, TF32 off)."""
+    from paddle_tpu_torch.inference import BatchEncoder, EmbedParams
+    from paddle_tpu_torch.text.models import BertConfig, BertModel
+    cfg = BertConfig.tiny(vocab=64, hidden=128, layers=2, heads=2)
+    net = BertModel(cfg, device=dev, seed=1)
+    net.eval()
+    monkeypatch.setattr(fa, "_minor64_ok", {})
+    n = fa.probe_minor64.launches
+    BatchEncoder(net, max_batch=4, bucket=16, max_seq=64)
+    assert fa.probe_minor64.launches == n + 1
+    svc = BatchEncoder(net, max_batch=4, bucket=16, max_seq=64)
+    assert fa.probe_minor64.launches == n + 1
+    g = torch.Generator().manual_seed(2)
+    seqs = [torch.randint(1, 64, (int(s),), generator=g)
+            for s in (5, 17, 33, 9, 40)]
+    pools = ["cls", "mean", "mean", "cls", "mean"]
+    outs = svc.run([(s, EmbedParams(pooling=p)) for s, p in zip(seqs, pools)])
+    assert svc.steady_state_recompiles() == 0
+    with torch.no_grad():
+        for s, p, o in zip(seqs, pools, outs):
+            x, pooled = net(s[None].to(dev))
+            ref = (pooled[0] if p == "cls" else x[0].mean(0)).cpu()
+            err = float((torch.from_numpy(o.embedding) - ref).abs().max())
+            assert err <= 1e-4 * float(ref.abs().max()), err

@@ -63,6 +63,9 @@ def test_port_import_pulls_in_no_jax():
         "import paddle_tpu_torch.jit, paddle_tpu_torch.optimizer\n"
         "import paddle_tpu_torch.nn, paddle_tpu_torch.distributed\n"
         "import paddle_tpu_torch.incubate.nn.functional\n"
+        "import paddle_tpu_torch.text.models.bert\n"
+        "import paddle_tpu_torch.inference.encoder\n"
+        "import paddle_tpu_torch.profile_encoder\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n")
@@ -109,6 +112,22 @@ def test_moe_entry_points_default_to_cuda(no_gpu):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(net)
     assert Engine(net, device="cpu").moe_pallas_eligible
+
+
+def test_encoder_entry_points_default_to_cuda(no_gpu):
+    from paddle_tpu_torch.inference import BatchEncoder
+    from paddle_tpu_torch.text.models import (BertConfig,
+                                              BertForPretraining, BertModel)
+    cfg = BertConfig.tiny(vocab=32, hidden=16, layers=1, heads=2)
+    for cls in (BertModel, BertForPretraining):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(cfg)
+    net = BertModel(cfg, device="cpu")
+    assert net.device == torch.device("cpu")
+    assert net.generator.device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchEncoder(net)
+    assert BatchEncoder(net, device="cpu").device == torch.device("cpu")
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):
