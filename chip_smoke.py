@@ -33,9 +33,12 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    backward kernels (dQ, dK/dV) against their plain versions at the
    attention shape of one layer of the training benchmark under bf16 AMP
    (B 12, S 1024, H 32, D 128, causal) plus f32, GQA (8 kv heads),
-   window 256, sq 333 / sk 1024 and a 4-document flashmask, timed beside
-   the plain versions, their bounds and, where aten takes the case, the
-   timed-only aten flash backward;
+   window 256, sq 333 / sk 1024, a 4-document flashmask and the
+   ERNIE-MoE training shape (B 32, S 512, H 16, D 64, causal), timed
+   beside the plain versions, their bounds and, where aten takes the
+   case, the timed-only aten flash forward and backward; each case
+   records its route (bf16: the tensor-core forward and dK/dV, f32: the
+   CUDA-core ones; dQ runs on the CUDA cores);
 8. model cross-check: a 2-layer, hidden-512 LLaMA (8 heads, 2 kv heads,
    window 64, seq 256, f32) — one TrainStep loss and every parameter
    gradient on the card against the same weights on the CPU, then again
@@ -47,8 +50,10 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    TrainStep(amp_dtype="bfloat16") with AdamW(3e-4, bf16 moments) for 6
    steps on one fixed batch: finite, falling losses; flash forward, dQ
    and dK/dV launches == 4 layers x 6 steps each, the *_cuda counters
-   equal to them and no *_plain call; ms per step, tokens/s, the share
-   of the bf16 peak and the peak device memory.
+   equal to them and no *_plain call, every forward and dK/dV launch on
+   the tensor-core route (``kernels.flash.*_cuda_tc``) and none on simt;
+   ms per step, tokens/s, the share of the bf16 peak and the peak device
+   memory.
 
 11. MoE kernels: the grouped-FFN forward, dx and dw kernels against their
    plain versions at the MoE training shape (8 experts, capacity 8192,
@@ -80,8 +85,9 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    batch 32 x seq 512, CE + aux loss, bf16 AMP, AdamW(1e-4, bf16
    moments)) for 6 steps: finite, falling losses; grouped-FFN forward, dx
    and dw launches == 4 MoE layers x 6 steps, flash forward / dQ / dK/dV
-   == 8 layers x 6 steps, no plain call; ms per step, tokens/s, the bf16
-   peak share of ``ernie_moe_flops_per_token`` and the peak memory.
+   == 8 layers x 6 steps, no plain call, forward and dK/dV on the tc
+   route only; ms per step, tokens/s, the bf16 peak share of
+   ``ernie_moe_flops_per_token`` and the peak memory.
 
 15. encoder kernels: the head-dim-64 probe of csrc/flash_fwd.cu (row 5:
    (x x^T) x on a seeded [128, 64] f32 tile of small integers, equal to
@@ -110,11 +116,15 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    (``profile_encoder.BERT_TRAIN``: batch 256 x seq 128, dense MLM CE,
    bf16 AMP, AdamW(1e-4, bf16 moments), dropout 0.1) for 6 steps:
    finite, falling losses; flash forward, dQ and dK/dV launches == 12
-   layers x 6 steps, no plain call; ms per step, tokens/s, the bf16 peak
-   share by bench_bert's 6N rule and the peak memory.
+   layers x 6 steps, no plain call, forward and dK/dV on the tc route
+   only; ms per step, tokens/s, the bf16 peak share by bench_bert's 6N
+   rule and the peak memory.
 
-It prints the card line, a {"kernels": [...]} line, and as its last
-line {"ok": true, "device": {...}}. Details land in
+It prints the card line, a {"kernels": [...]} line (the tensor-core
+forward and dK/dV as ``flash_fwd`` / ``flash_bwd_dkv`` with
+``flash_route`` "cuda-tc", the f32 forward of the serving paths as
+``flash_fwd_simt``), and as its last line {"ok": true, "device":
+{...}}. Details land in
 chiprun_out/chip_smoke/ (result JSON, nvcc/ptxas logs). About two
 minutes of command time on an H100, the five kernel builds included.
 """
@@ -158,6 +168,29 @@ XCHECK_GRAD_TOL, XCHECK_LOSS_TOL = 1e-4, 1e-4
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+#: the per-route launch counters of the flash wrappers
+FLASH_ROUTES = ("fwd_cuda_tc", "fwd_cuda_simt", "dkv_cuda_tc",
+                "dkv_cuda_simt")
+
+
+def flash_routes(counters):
+    """The flash forward and dK/dV launches by route in a counter
+    snapshot."""
+    return {n: int(counters.get(f"kernels.flash.{n}", 0))
+            for n in FLASH_ROUTES}
+
+
+def check_tc_routes(counters, want, what):
+    """A bf16 training path: every flash forward and dK/dV launch on the
+    tensor-core route, none on simt."""
+    got = flash_routes(counters)
+    if got != {"fwd_cuda_tc": want, "fwd_cuda_simt": 0, "dkv_cuda_tc": want,
+               "dkv_cuda_simt": 0}:
+        fail(f"{what}: flash launches by route {got}, expected {want} "
+             f"forward and {want} dK/dV launches on the tc route only")
+    return got
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -318,7 +351,7 @@ def check_flash(torch, fa):
         bms, by = bound_ms(nbytes, flops, str(dt).replace("torch.", ""))
         rec = dict(case=name, B=B, sq=sq, sk=sk, heads=h, kv_heads=hkv,
                    head_dim=d, dtype=str(dt).replace("torch.", ""),
-                   window=window, **c,
+                   window=window, route=fa._route_of([q, k, v]), **c,
                    ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, True, scale,
                                                    window), iters=10),
                    plain_ms=cuda_ms(plain, iters=5),
@@ -329,7 +362,8 @@ def check_flash(torch, fa):
                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        is_causal=True),
                 iters=10)
-        print(f"  flash_fwd[{name}]: err {c['max_abs_err']:.3g} (tol "
+        print(f"  flash_fwd[{name}] ({rec['route']}): err "
+              f"{c['max_abs_err']:.3g} (tol "
               f"{c['tol']}, ratio {c['ratio']:.3g}) kernel {rec['ms']:.4f} "
               f"ms, plain {rec['plain_ms']:.4f} ms, library "
               f"{rec['library_ms']}, bound {bms:.4f} ms ({by})", flush=True)
@@ -401,8 +435,9 @@ def check_is_sharp(torch, fa, q, k, v, out, lse, do, scale, dv, ref_dv):
 
 #: phase 7's cases: name, B, sq, sk, h, hkv, d, dtype, window, documents,
 #: causal — the LLaMA training shape (the first: the negative controls run
-#: there) and five edge cases
-LLAMA_TRAIN_SPECS = [
+#: there), five edge cases and the ERNIE-MoE training shape (profile_moe's
+#: MOE_TRAIN_MODEL attention: batch 32 x seq 512, 16 heads of 64)
+FLASH_TRAIN_SPECS = [
     ("train_bf16", 12, 1024, 1024, 32, 32, 128, "bfloat16", None, None,
      True),
     ("f32", 2, 1024, 1024, 32, 32, 128, "float32", None, None, True),
@@ -413,17 +448,20 @@ LLAMA_TRAIN_SPECS = [
      True),
     ("doc4_bf16", 2, 1024, 1024, 32, 32, 128, "bfloat16", None,
      [256, 384, 128, 256], True),
+    ("moe_train_bf16", 32, 512, 512, 16, 16, 64, "bfloat16", None, None,
+     True),
 ]
 
 
-def check_flash_train(torch, fa, doc_mask, specs=LLAMA_TRAIN_SPECS):
+def check_flash_train(torch, fa, doc_mask, specs=FLASH_TRAIN_SPECS):
     """Phase 7 (and phase 15 at the BERT training shape): the flash
     forward with logsumexp, the dQ kernel and the dK/dV kernel against
     flash_plain / flash_bwd_plain (f32 math on the same rounded inputs).
     Each kernel is timed on its own; the bound of a kernel counts the
     operations of its own function (forward 4, dQ 6, dK/dV 8 x pairs x
     d, since each backward kernel recomputes S and dP), the pass bound
-    counts the backward pass once (10 = 2.5 x the forward's)."""
+    counts the backward pass once (10 = 2.5 x the forward's). Each case
+    records the route (``fa.flash_route``) its forward and dK/dV take."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
     bf16 = torch.bfloat16
@@ -494,7 +532,9 @@ def check_flash_train(torch, fa, doc_mask, specs=LLAMA_TRAIN_SPECS):
         rec = dict(case=name, B=B, sq=sq, sk=sk, heads=h, kv_heads=hkv,
                    head_dim=d, dtype=dname, window=window, documents=docs,
                    causal=causal, pairs=pairs, max_abs_err=errs, tol=tols,
-                   ratio=ratios, negative_control=sharp)
+                   ratio=ratios, negative_control=sharp,
+                   route=dict(fwd=fa._route_of([q, k, v]), dq="simt",
+                              dkv=fa._route_of([q, k, v, do])))
         rec["fwd"] = dict(
             ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, causal, scale, window,
                                             se, want_lse=True), iters=10),
@@ -541,7 +581,8 @@ def check_flash_train(torch, fa, doc_mask, specs=LLAMA_TRAIN_SPECS):
             del o_a, lse_a
         rec["dq"]["library_ms"] = rec["dkv"]["library_ms"] = \
             rec["pass"]["library_ms"]
-        print(f"  flash train[{name}]: err {errs} (ratio to tol {ratios}, "
+        print(f"  flash train[{name}] (routes {rec['route']}): err {errs} "
+              f"(ratio to tol {ratios}, "
               f"tol {tols}); fwd+lse "
               f"{rec['fwd']['ms']:.3f} ms (bound {rec['fwd']['bound_ms']:.3f}"
               f", plain {rec['fwd']['plain_ms']:.3f}, library "
@@ -650,6 +691,7 @@ def train_main_path(torch, mods, fa, monitor, card):
             counters.get("kernels.flash.fwd_plain", 0) or \
             counters.get("kernels.flash.bwd_plain", 0):
         fail(f"training kernel-path counters disagree: {counters}")
+    routes = check_tc_routes(counters, want, "training")
     steady = sorted(times[1:])[len(times[1:]) // 2]
     tokens = batch * seq
     flops = mods.llama_flops_per_token(cfg) * tokens
@@ -658,7 +700,8 @@ def train_main_path(torch, mods, fa, monitor, card):
                ms_per_step=steady * 1e3, first_step_ms=times[0] * 1e3,
                tokens_per_s=tokens / steady,
                bf16_peak_share=flops / steady / PEAK_FLOPS["bfloat16"],
-               peak_mem_gb=peak_gb, launches=launches, counters=counters)
+               peak_mem_gb=peak_gb, launches=launches, counters=counters,
+               flash_routes=routes)
     print(f"training: {n_params / 1e9:.3f} B params, batch {batch} x "
           f"seq {seq}, losses {[round(x, 4) for x in losses]}; "
           f"median step {rec['ms_per_step']:.1f} ms (first "
@@ -1084,6 +1127,7 @@ def moe_train_main_path(torch, mods, launches_of, reset_counts, card):
             want["grouped_ffn_bwd_dx"] or counters.get(
                 "kernels.flash.bwd_cuda") != want["flash_bwd_dq"]:
         fail(f"MoE training kernel-path counters disagree: {counters}")
+    routes = check_tc_routes(counters, want["flash_fwd"], "MoE training")
     steady = sorted(times[1:])[len(times[1:]) // 2]
     tokens = P.MOE_BATCH * P.MOE_SEQ
     flops = mods.ernie_moe_flops_per_token(cfg) * tokens
@@ -1092,7 +1136,8 @@ def moe_train_main_path(torch, mods, launches_of, reset_counts, card):
                ms_per_step=steady * 1e3, first_step_ms=times[0] * 1e3,
                tokens_per_s=tokens / steady,
                bf16_peak_share=flops / steady / PEAK_FLOPS["bfloat16"],
-               peak_mem_gb=peak_gb, launches=launches, counters=counters)
+               peak_mem_gb=peak_gb, launches=launches, counters=counters,
+               flash_routes=routes)
     print(f"MoE training: {n_params / 1e6:.1f} M params, batch "
           f"{P.MOE_BATCH} x seq {P.MOE_SEQ}, losses "
           f"{[round(x, 4) for x in losses]}; median step "
@@ -1205,7 +1250,8 @@ def check_flash_encoder(torch, fa, F):
         bms, by = bound_ms(nbytes, 4 * pairs * D, "float32")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         rec = dict(case=f"serving_f32_L{L}", B=B, sq=L, sk=L, heads=H,
-                   head_dim=D, dtype="float32", dead_rows=dead,
+                   head_dim=D, dtype="float32", route=fa._route_of([q, k, v]),
+                   dead_rows=dead,
                    live_keys=lens.tolist(), pairs=pairs, **c,
                    ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, False, scale,
                                                    None, se), iters=20),
@@ -1213,7 +1259,8 @@ def check_flash_encoder(torch, fa, F):
                    library_ms=cuda_ms(lambda: sdpa(
                        qt, kt, vt, attn_mask=keymask), iters=20),
                    bound_ms=bms, bound_by=by)
-        print(f"  flash_fwd[encoder L{L}]: err {c['max_abs_err']:.3g} (ratio "
+        print(f"  flash_fwd[encoder L{L}] ({rec['route']}): err "
+              f"{c['max_abs_err']:.3g} (ratio "
               f"{c['ratio']:.3g}), dead rows zero; kernel {rec['ms']:.4f} ms, "
               f"plain {rec['plain_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} "
               f"ms, bound {bms:.4f} ms ({by})", flush=True)
@@ -1414,6 +1461,7 @@ def bert_train_main_path(torch, mods, launches_of, reset_counts, card):
     if plain or sdpa != {"kernels.flash.sdpa.kernel": want} or \
             counters.get("kernels.flash.bwd_cuda") != want:
         fail(f"BERT training kernel-path counters disagree: {counters}")
+    routes = check_tc_routes(counters, want, "BERT training")
     steady = sorted(times[1:])[len(times[1:]) // 2]
     tokens = T["batch"] * T["seq"]
     flops = enc.bert_flops_per_token(model) * tokens
@@ -1422,7 +1470,8 @@ def bert_train_main_path(torch, mods, launches_of, reset_counts, card):
                ms_per_step=steady * 1e3, first_step_ms=times[0] * 1e3,
                tokens_per_s=tokens / steady,
                bf16_peak_share_6n=flops / steady / PEAK_FLOPS["bfloat16"],
-               peak_mem_gb=peak_gb, launches=launches, counters=counters)
+               peak_mem_gb=peak_gb, launches=launches, counters=counters,
+               flash_routes=routes)
     print(f"BERT training: {n_params / 1e6:.1f} M params, batch {T['batch']} "
           f"x seq {T['seq']}, dropout {cfg.hidden_dropout_prob}, losses "
           f"{[round(x, 4) for x in losses]}; median step "
@@ -1700,34 +1749,69 @@ def main():
     main_paged = paged_cases[0]
     main_flash = flash_cases[0]
     main_train = train_cases[0]
+    bt_case = bert_train_cases[0]
+    all_train = train_cases + bert_train_cases
+    ms_l, mt_l = moe_serving["launches"], moe_training["launches"]
+    es_l, bt_l = enc_serving["launches"], bert_training["launches"]
+    # launches by route: the bf16 training paths run the tc kernels, the
+    # f32 serving paths the simt forward (their counter snapshots)
+    tc_paths = {"training": training, "moe_training": moe_training,
+                "bert_training": bert_training}
+    simt_paths = {"serving": dict(counters=counters),
+                  "encoder_serving": enc_serving}
+
+    def by_path(paths, route):
+        return {p: flash_routes(r["counters"])[route]
+                for p, r in paths.items()}
+
+    def flash_case(c, part, outs):
+        return dict(case=c["case"], route=c["route"][part],
+                    max_abs_err=max(c["max_abs_err"][n] for n in outs),
+                    ratio=max(c["ratio"][n] for n in outs), **c[part])
+
+    fwd_tc = by_path(tc_paths, "fwd_cuda_tc")
+    fwd_simt = by_path(simt_paths, "fwd_cuda_simt")
     kernels = [
         dict(name="probe", route="cuda", source=src + "common.cuh",
              replaces="paddle_tpu/kernels/flash_attention.py:105",
-             launches=launches["probe"], cases=probe_cases,
+             launches=launches["probe"] + ms_l["probe"],
+             launches_by_path={"serving": launches["probe"],
+                               "moe_serving": ms_l["probe"]},
+             cases=probe_cases,
              **{k: probe_cases[0][k] for k in (
                  "max_abs_err", "tol", "ratio", "ms", "plain_ms",
                  "bound_ms", "bound_by", "library_ms")}),
         dict(name="paged_decode", route="cuda",
              source=src + "paged_decode.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:278",
-             launches=launches["paged_decode"], cases=paged_cases,
-             library_ms=None,
+             launches=launches["paged_decode"] + ms_l["paged_decode"],
+             launches_by_path={"serving": launches["paged_decode"],
+                               "moe_serving": ms_l["paged_decode"]},
+             cases=paged_cases, library_ms=None,
              **{k: main_paged[k] for k in (
                  "max_abs_err", "tol", "ratio", "ms", "plain_ms", "bound_ms",
                  "bound_by")}),
-        dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
+        dict(name="flash_fwd", route="cuda", flash_route="cuda-tc",
+             source=src + "flash_fwd.cu",
              replaces="paddle_tpu/kernels/flash_attention.py:280",
-             launches=launches["flash_fwd"]
-             + training["launches"]["flash_fwd"],
-             launches_by_path={"serving": launches["flash_fwd"],
-                               "training": training["launches"]["flash_fwd"]},
-             cases=flash_cases,
-             train=dict(case=main_train["case"],
-                        max_abs_err=main_train["max_abs_err"]["out"],
-                        lse_max_abs_err=main_train["max_abs_err"]["lse"],
-                        ratio=max(main_train["ratio"][n]
-                                  for n in ("out", "lse")),
-                        **main_train["fwd"]),
+             launches=sum(fwd_tc.values()), launches_by_path=fwd_tc,
+             case=main_train["case"],
+             max_abs_err=main_train["max_abs_err"]["out"],
+             lse_max_abs_err=main_train["max_abs_err"]["lse"],
+             tol=main_train["tol"]["out"],
+             ratio=max(main_train["ratio"][n] for n in ("out", "lse")),
+             cases=[flash_case(c, "fwd", ("out", "lse")) for c in all_train
+                    if c["route"]["fwd"] == "tc"],
+             bert_train=flash_case(bt_case, "fwd", ("out", "lse")),
+             **main_train["fwd"]),
+        dict(name="flash_fwd_simt", route="cuda", flash_route="cuda-simt",
+             source=src + "flash_fwd.cu",
+             replaces="paddle_tpu/kernels/flash_attention.py:280",
+             launches=sum(fwd_simt.values()), launches_by_path=fwd_simt,
+             case=main_flash["case"], cases=flash_cases,
+             encoder_cases=enc_flash_cases,
+             train_cases=[flash_case(c, "fwd", ("out", "lse"))
+                          for c in all_train if c["route"]["fwd"] == "simt"],
              **{k: main_flash[k] for k in (
                  "max_abs_err", "tol", "ratio", "ms", "plain_ms", "bound_ms",
                  "bound_by", "library_ms")}),
@@ -1735,11 +1819,17 @@ def main():
     for kname, part, line, grads in (
             ("flash_bwd_dq", "dq", 452, ("dq",)),
             ("flash_bwd_dkv", "dkv", 521, ("dk", "dv"))):
-        kernels.append(dict(
-            name=kname, route="cuda", source=src + "flash_bwd.cu",
+        paths = {"training": training["launches"][kname],
+                 "moe_training": mt_l[kname],
+                 "bert_training": bt_l[kname]}
+        route = "simt"
+        if part == "dkv":
+            route, paths = "tc", by_path(tc_paths, "dkv_cuda_tc")
+        entry = dict(
+            name=kname, route="cuda", flash_route=f"cuda-{route}",
+            source=src + "flash_bwd.cu",
             replaces=f"paddle_tpu/kernels/flash_attention.py:{line}",
-            launches=training["launches"][kname],
-            launches_by_path={"training": training["launches"][kname]},
+            launches=sum(paths.values()), launches_by_path=paths,
             case=main_train["case"],
             max_abs_err=max(main_train["max_abs_err"][n] for n in grads),
             tol={n: main_train["tol"][n] for n in grads},
@@ -1753,41 +1843,27 @@ def main():
                  "backward, timed only, null where aten does not take the "
                  "case) each compute the whole pass, dq, dk and dv "
                  "together: compare them with pass_ms",
-            cases=[dict(case=c["case"], **c[part]) for c in train_cases],
-            **main_train[part]))
-    ms_l, mt_l = moe_serving["launches"], moe_training["launches"]
-    kernels[0]["launches"] += ms_l["probe"]
-    kernels[0]["launches_by_path"] = {"serving": launches["probe"],
-                                      "moe_serving": ms_l["probe"]}
-    kernels[1]["launches"] += ms_l["paged_decode"]
-    kernels[1]["launches_by_path"] = {
-        "serving": launches["paged_decode"],
-        "moe_serving": ms_l["paged_decode"]}
-    for k, name in zip(kernels[2:], ("flash_fwd", "flash_bwd_dq",
-                                     "flash_bwd_dkv")):
-        k["launches"] += mt_l[name]
-        k["launches_by_path"]["moe_training"] = mt_l[name]
-    es_l, bt_l = enc_serving["launches"], bert_training["launches"]
-    kernels[2]["launches"] += es_l["flash_fwd"]
-    kernels[2]["launches_by_path"]["encoder_serving"] = es_l["flash_fwd"]
-    kernels[2]["encoder_cases"] = enc_flash_cases
-    for k, name in zip(kernels[2:], ("flash_fwd", "flash_bwd_dq",
-                                     "flash_bwd_dkv")):
-        k["launches"] += bt_l[name]
-        k["launches_by_path"]["bert_training"] = bt_l[name]
-    bt_case = bert_train_cases[0]
-    kernels[2]["bert_train"] = dict(
-        case=bt_case["case"], max_abs_err=bt_case["max_abs_err"]["out"],
-        ratio=max(bt_case["ratio"][n] for n in ("out", "lse")),
-        **bt_case["fwd"])
-    for k, part, grads in ((kernels[3], "dq", ("dq",)),
-                           (kernels[4], "dkv", ("dk", "dv"))):
-        k["cases"].append(dict(case=bt_case["case"], **bt_case[part]))
-        k["bert_train"] = dict(
-            case=bt_case["case"],
-            max_abs_err=max(bt_case["max_abs_err"][n] for n in grads),
-            ratio=max(bt_case["ratio"][n] for n in grads),
-            pass_ms=bt_case["pass"]["ms"], **bt_case[part])
+            cases=[flash_case(c, part, grads) for c in all_train
+                   if c["route"][part] == route],
+            bert_train=dict(flash_case(bt_case, part, grads),
+                            pass_ms=bt_case["pass"]["ms"]),
+            **main_train[part])
+        if part == "dkv":
+            entry["simt_cases"] = [flash_case(c, part, grads)
+                                   for c in all_train
+                                   if c["route"][part] == "simt"]
+        kernels.append(entry)
+    kernels.append(dict(
+        name="probe_minor64", route="cuda", source=src + "flash_fwd.cu",
+        replaces="paddle_tpu/kernels/flash_attention.py:801",
+        launches=es_l["probe_minor64"],
+        launches_by_path={"encoder_serving": es_l["probe_minor64"]},
+        cases=minor64_cases,
+        note="library_ms times the pair of torch.matmul calls (timed only); "
+             "the plain version is the same pair",
+        **{k: minor64_cases[0][k] for k in (
+            "max_abs_err", "tol", "ratio", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}))
     main_moe = moe_cases[0]
     for kname, part, line, outs, paths in (
             ("grouped_ffn_fwd", "fwd", 181, ("out",),
@@ -1825,17 +1901,6 @@ def main():
                  "(limit e2e_limit)",
             cases=[dict(case=c["case"], **c[part]) for c in moe_cases],
             **main_moe[part]))
-    kernels.insert(5, dict(
-        name="probe_minor64", route="cuda", source=src + "flash_fwd.cu",
-        replaces="paddle_tpu/kernels/flash_attention.py:801",
-        launches=es_l["probe_minor64"],
-        launches_by_path={"encoder_serving": es_l["probe_minor64"]},
-        cases=minor64_cases,
-        note="library_ms times the pair of torch.matmul calls (timed only); "
-             "the plain version is the same pair",
-        **{k: minor64_cases[0][k] for k in (
-            "max_abs_err", "tol", "ratio", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")}))
     for k in kernels:                 # also under these two names
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]
     result = dict(card=card, kind=kind, torch=torch.__version__,

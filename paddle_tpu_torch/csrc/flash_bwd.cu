@@ -20,25 +20,36 @@
 //   f32 registers (lane = output column).
 // - dK/dV kernel: here the port departs from the Pallas block structure,
 //   which writes per-q-head partials in k's dtype and sums a GQA group
-//   afterwards. One block per (batch, kv head, 64-key tile), 8 warps of
-//   8 keys, keeps its K and V tile in shared memory and loops over the
-//   group's rep query heads and over the q tiles (32 rows, lane = row)
-//   the band and window allow. dK and dV accumulate in f32 registers
-//   across the whole group and are written once: no partial buffer, no
-//   second pass, no atomics, and the result is deterministic.
+//   afterwards. One block per (batch, kv head, 64-key tile) keeps its K
+//   and V tile in shared memory and loops over the group's rep query
+//   heads and over the q tiles the band and window allow. dK and dV
+//   accumulate in f32 registers across the whole group and are written
+//   once: no partial buffer, no second pass, no atomics, and the result
+//   is deterministic. Two routes, chosen in `flash_bwd_dkv_launch` by
+//   dtype and shape (`tc::route_ok`, as the forward's):
+//   - tc (bf16/fp16, head dim a multiple of 8 up to 256, 16-byte aligned
+//     rows: every training path): `flash_bwd_dkv_tc_kernel`, mma.sync
+//     tiles with keys as the M dimension, Q/dO streamed through a
+//     cp.async ring, P^T and dS^T split into 16-bit hi + lo terms for the
+//     second products (one bf16 rounding fails the port's gate ~9-23x,
+//     the split passes it at ~0.48; csrc/flash_tc.cuh). Two 16 x 128 f32
+//     accumulators a warp are 128 registers a thread at head dim <= 128;
+//     head dim 256 splits the columns over two warps.
+//   - simt (f32 and the rest): `flash_bwd_dkv_kernel`, 8 warps of 8 keys,
+//     32-row q tiles (lane = row), f32 FMA on the CUDA cores.
 //
-// Both skip a tile whose every row one flashmask band covers before its
-// operands are staged.
+// Both kernels skip a tile whose every row one flashmask band covers
+// before its operands are staged. dQ runs on the simt kernel on every
+// route and reads the same lse and Delta.
 //
 // What bounds them on an H100: arithmetic. A backward pass does 2.5x the
 // forward's operations (S once more, dP, dV, dK, dQ); these kernels
-// recompute S and dP in each of the two kernels, so they do 3.5x, in
-// f32 on the CUDA cores (67 TFLOP/s peak), against O(S*D) bytes. The
-// inner loops read 16-byte vectors from padded shared memory (a row per
-// lane at stride dp + 4 is bank-conflict free) so they stay FMA-bound.
-// Tensor-core tiles, TMA pipelining and sharing S/dP between dQ and
-// dK/dV are later work.
-#include "flash_common.cuh"
+// recompute S and dP in each of the two kernels, so they do 3.5x. The
+// simt inner loops read 16-byte vectors from padded shared memory (a row
+// per lane at stride dp + 4 is bank-conflict free) so they stay
+// FMA-bound. A tensor-core dQ, wgmma tiles and sharing S/dP between dQ
+// and dK/dV are later work.
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -435,6 +446,254 @@ __global__ void __launch_bounds__(kKThreads) flash_bwd_dkv_kernel(Args a) {
   }
 }
 
+// ------------------------------------------------------ dK/dV, tc route --
+//
+// The simt kernel's block structure on the tensor cores: one block per
+// (batch, kv head, 64-key tile) keeps its K and V tile in shared memory
+// and loops over the group's rep query heads and the 32-row q tiles the
+// band, window and bands allow; Q, dO, lse and Delta stream through a
+// 2-stage cp.async ring. Four warps of 16 keys each (keys are the M
+// dimension): S^T = K Q^T and dP^T = V dO^T by mma.sync from ldmatrix
+// fragments, P^T = exp2(scale log2e S^T - log2e lse) (0 for a masked pair
+// or a row without keys), dS^T = P^T (dP^T - Delta); both are split into
+// hi + lo 16-bit terms in registers (their accumulators are the A
+// operand) and dV += P^T_hi dO + P^T_lo dO, dK += dS^T_hi Q + dS^T_lo Q
+// with ldmatrix.trans fragments of dO and Q. dK and dV accumulate in f32
+// across the whole GQA group and are written once (dK times scale): no
+// atomics, no partial buffers, deterministic. At head dim 256 eight warps
+// run: two per key row, each owning half of dK's and dV's columns (and
+// both computing that row's S^T and dP^T), so the accumulators stay at
+// 128 registers a thread.
+
+template <int kD>
+struct DkvTc {
+  static constexpr int kWD = kD > 128 ? 2 : 1;  // warps per 16-key row
+  static constexpr int kDW = kD / kWD;          // dK/dV columns per warp
+  static constexpr int kWarps = 4 * kWD;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBK = 64;                // keys per block
+  static constexpr int kBQ = 32;                // q rows per tile
+  static constexpr int kLd = kD + 8;            // shared row stride
+  template <typename T>
+  static constexpr size_t smem() {
+    // K, V [kBK][kLd]; Q, dO [2][kBQ][kLd]; lse, Delta [2][kBQ] (f32)
+    return sizeof(T) * (2 * size_t(kBK) * kLd + 4 * size_t(kBQ) * kLd) +
+           sizeof(float) * 4 * size_t(kBQ);
+  }
+};
+
+template <typename T, int kD>
+__global__ void __launch_bounds__(DkvTc<kD>::kThreads)
+    flash_bwd_dkv_tc_kernel(Args a) {
+  using C = DkvTc<kD>;
+  constexpr int kBK = C::kBK, kBQ = C::kBQ, kLd = C::kLd;
+  constexpr int kNT = kBQ / 8, kDT = C::kDW / 8, kThreads = C::kThreads;
+  const T* __restrict__ q = static_cast<const T*>(a.q);
+  const T* __restrict__ k = static_cast<const T*>(a.k);
+  const T* __restrict__ v = static_cast<const T*>(a.v);
+  const T* __restrict__ dout = static_cast<const T*>(a.dout);
+  T* __restrict__ dk = static_cast<T*>(a.out0);
+  T* __restrict__ dv = static_cast<T*>(a.out1);
+  const int H = a.H, Hkv = a.Hkv, Sq = a.Sq, Sk = a.Sk, D = a.D;
+  const int rep = H / Hkv;
+  const int b = blockIdx.x / Hkv;
+  const int hk = blockIdx.x - b * Hkv;
+  const int k0 = blockIdx.y * kBK;
+  const int k_end = min(k0 + kBK, Sk);
+  const int diag = Sk - Sq;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int kr = (warp & 3) * 16;         // this warp's keys [kr, kr + 16)
+  const int c0 = (warp >> 2) * C::kDW;    // and dK/dV columns [c0, +kDW)
+  const int j0 = k0 + kr + g;             // this thread's keys j0, j0 + 8
+
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  T* k_s = reinterpret_cast<T*>(smem_tc);                       // [kBK][kLd]
+  T* v_s = k_s + kBK * kLd;                                     // [kBK][kLd]
+  T* q_s = v_s + kBK * kLd;                                // [2][kBQ][kLd]
+  T* do_s = q_s + 2 * kBQ * kLd;                           // [2][kBQ][kLd]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kBQ * kLd);  // [2][kBQ]
+  float* dl_s = lse_s + 2 * kBQ;                                  // [2][kBQ]
+
+  tc::load_tile<T, kBK, kD, kLd, kThreads>(
+      k_s, k + b * a.k_sb + hk * a.k_sh, a.k_ss, k0, Sk, D, tid);
+  tc::load_tile<T, kBK, kD, kLd, kThreads>(
+      v_s, v + b * a.v_sb + hk * a.v_sh, a.v_ss, k0, Sk, D, tid);
+
+  // the group's query heads share one se head (h_se divides Hkv): the
+  // bands of this thread's two keys, and the block's skip extremes
+  const bool has_se = a.se != nullptr;
+  fl::Bands bj[2] = {}, ext = {};
+  if (has_se) {
+    const int* seb = a.se + b * a.se_sb + (hk / (Hkv / a.h_se)) * a.se_sh;
+    bj[0] = fl::load_bands(seb, a.se_s4, j0, Sk);
+    bj[1] = fl::load_bands(seb, a.se_s4, j0 + 8, Sk);
+    ext = fl::warp_band_extremes<kBK>(seb, a.se_s4, k0, Sk, lane);
+  }
+
+  int qt_lo, qt_hi;
+  fl::q_tile_range(k0, k_end, Sq, kBQ, a.causal, a.window, diag, &qt_lo,
+                   &qt_hi);
+  const int nq = qt_hi - qt_lo;
+  const int n_items = rep * nq;  // (query head of the group, q tile)
+  auto next = [&](int it) {      // block-uniform whole-tile skip
+    if (has_se)
+      for (; it < n_items; ++it) {
+        const int qlo = (qt_lo + it % nq) * kBQ;
+        if (!fl::tile_full(ext, qlo, min(qlo + kBQ, Sq))) break;
+      }
+    return it;
+  };
+  // start the copy of item it (when there is one) into stage st
+  auto load_q = [&](int it, int st) {
+    if (it >= n_items) {
+      tc::cp_async_commit();
+      return;
+    }
+    const int hq = hk * rep + it / nq;
+    const int qlo = (qt_lo + it % nq) * kBQ;
+    const size_t row0 = (size_t(b) * H + hq) * Sq + qlo;
+    tc::load_tile<T, kBQ, kD, kLd, kThreads>(
+        q_s + st * kBQ * kLd, q + b * a.q_sb + hq * a.q_sh, a.q_ss, qlo, Sq,
+        D, tid);
+    tc::load_tile<T, kBQ, kD, kLd, kThreads>(
+        do_s + st * kBQ * kLd, dout + b * a.do_sb + hq * a.do_sh, a.do_ss,
+        qlo, Sq, D, tid);
+    if (tid < kBQ) {
+      const bool ok = qlo + tid < Sq;
+      tc::cp_async4(lse_s + st * kBQ + tid, a.lse + (ok ? row0 + tid : 0), ok);
+      tc::cp_async4(dl_s + st * kBQ + tid, a.delta + (ok ? row0 + tid : 0),
+                    ok);
+    }
+    tc::cp_async_commit();
+  };
+
+  int it = next(0);
+  load_q(it, 0);  // one group: K, V and the first q tile
+
+  float dk_acc[kDT][4], dv_acc[kDT][4];
+#pragma unroll
+  for (int n = 0; n < kDT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  const float sl2 = a.scale * tc::kLog2e;
+
+  for (int st = 0; it < n_items; st ^= 1) {
+    tc::cp_async_wait<0>();
+    // this q tile (and K, V) landed for every thread, and every warp is
+    // done with the tile before it, whose stage the next copy refills
+    __syncthreads();
+    const int in = next(it + 1);
+    load_q(in, st ^ 1);
+    const int qlo = (qt_lo + it % nq) * kBQ;
+    const T* qs = q_s + st * kBQ * kLd;
+    const T* dos = do_s + st * kBQ * kLd;
+    const float* ls = lse_s + st * kBQ;
+    const float* dls = dl_s + st * kBQ;
+
+    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x kBQ rows
+    float s[kNT][4], dp[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      unsigned ka[4], va[4];
+      const int off = (kr + tc::a_row(lane)) * kLd + kk * 16 + tc::a_col(lane);
+      tc::ldsm_x4(ka, k_s + off);
+      tc::ldsm_x4(va, v_s + off);
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        unsigned qf[4], df[4];
+        const int qoff =
+            (np * 16 + tc::b_row(lane)) * kLd + kk * 16 + tc::b_col(lane);
+        tc::ldsm_x4(qf, qs + qoff);
+        tc::mma<T>(s[2 * np], ka, qf[0], qf[1]);
+        tc::mma<T>(s[2 * np + 1], ka, qf[2], qf[3]);
+        tc::ldsm_x4(df, dos + qoff);
+        tc::mma<T>(dp[2 * np], va, df[0], df[1]);
+        tc::mma<T>(dp[2 * np + 1], va, df[2], df[3]);
+      }
+    }
+
+    // P^T and dS^T in place; masks only where the band, window or bands
+    // reach into the tile (rows past Sq or without keys get lse2 = inf)
+    const bool masked =
+        has_se ||
+        (a.causal && (qlo + diag < k0 + kBK - 1 ||
+                      (a.window > 0 &&
+                       qlo + kBQ - 1 + diag - k0 >= a.window)));
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ql = n * 8 + 2 * t + (e & 1);
+        const int qi = qlo + ql;
+        const float lse = ls[ql];
+        const float lse2 = qi < Sq && lse > fl::kRowInvalidLse
+                               ? lse * tc::kLog2e
+                               : INFINITY;
+        float p = exp2f(fmaf(s[n][e], sl2, -lse2));
+        if (masked) {
+          const int h = e >> 1;
+          bool keep = fl::band_keep(qi, j0 + 8 * h, Sq, Sk, a.causal,
+                                    a.window, diag);
+          if (has_se) keep = keep && !fl::band_masked(bj[h], qi);
+          if (!keep) p = 0.f;
+        }
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - dls[ql]);
+      }
+
+    // dV += P^T_hi dO + P^T_lo dO, dK += dS^T_hi Q + dS^T_lo Q
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+      unsigned ph[4], pl[4], dh[4], dl[4];
+      tc::split_a<T>(s[2 * kk], s[2 * kk + 1], ph, pl);
+      tc::split_a<T>(dp[2 * kk], dp[2 * kk + 1], dh, dl);
+#pragma unroll
+      for (int dn = 0; dn < kDT / 2; ++dn) {
+        const int off = (kk * 16 + tc::a_row(lane)) * kLd + c0 + dn * 16 +
+                        tc::a_col(lane);
+        unsigned of[4], qf[4];
+        tc::ldsm_x4_t(of, dos + off);
+        tc::mma<T>(dv_acc[2 * dn], ph, of[0], of[1]);
+        tc::mma<T>(dv_acc[2 * dn], pl, of[0], of[1]);
+        tc::mma<T>(dv_acc[2 * dn + 1], ph, of[2], of[3]);
+        tc::mma<T>(dv_acc[2 * dn + 1], pl, of[2], of[3]);
+        tc::ldsm_x4_t(qf, qs + off);
+        tc::mma<T>(dk_acc[2 * dn], dh, qf[0], qf[1]);
+        tc::mma<T>(dk_acc[2 * dn], dl, qf[0], qf[1]);
+        tc::mma<T>(dk_acc[2 * dn + 1], dh, qf[2], qf[3]);
+        tc::mma<T>(dk_acc[2 * dn + 1], dl, qf[2], qf[3]);
+      }
+    }
+    it = in;
+  }
+  tc::cp_async_wait<0>();
+
+  // dK carries the scale of S = scale q k^T once, here
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = j0 + 8 * h;
+    if (j >= Sk) continue;
+    const size_t off = ((size_t(b) * Sk + j) * Hkv + hk) * size_t(D);
+#pragma unroll
+    for (int n = 0; n < kDT; ++n) {
+      const int c = c0 + n * 8 + 2 * t;
+      if (c < D) {
+        *reinterpret_cast<unsigned*>(dk + off + c) = tc::pack2<T>(
+            dk_acc[n][2 * h] * a.scale, dk_acc[n][2 * h + 1] * a.scale);
+        *reinterpret_cast<unsigned*>(dv + off + c) =
+            tc::pack2<T>(dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------ launch --
 
 template <typename Kernel>
@@ -464,6 +723,27 @@ int launch_dkv_dpl(const Args& a, int B, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
+template <typename T, int kD>
+int launch_dkv_tc_d(const Args& a, int B, cudaStream_t stream) {
+  using C = DkvTc<kD>;
+  auto kernel = flash_bwd_dkv_tc_kernel<T, kD>;
+  const size_t smem = C::template smem<T>();
+  if (int e = set_smem(kernel, smem)) return e;
+  dim3 grid(B * a.Hkv, (a.Sk + C::kBK - 1) / C::kBK);
+  kernel<<<grid, C::kThreads, smem, stream>>>(a);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dkv_tc(const Args& a, int B, cudaStream_t stream) {
+  switch (tc::tile_d(a.D)) {
+    case 32: return launch_dkv_tc_d<T, 32>(a, B, stream);
+    case 64: return launch_dkv_tc_d<T, 64>(a, B, stream);
+    case 128: return launch_dkv_tc_d<T, 128>(a, B, stream);
+    default: return launch_dkv_tc_d<T, 256>(a, B, stream);
+  }
+}
+
 template <typename T>
 int launch(const Args& a, int B, int which, cudaStream_t stream) {
   const int dpl = a.D <= 32 ? 1 : a.D <= 64 ? 2 : a.D <= 128 ? 4
@@ -481,17 +761,25 @@ int launch(const Args& a, int B, int which, cudaStream_t stream) {
   }
 }
 
+// which: 0 dQ (simt), 1 dK/dV on the simt route, 2 dK/dV on the tc route
 int dispatch(const Args& a, int B, int which, int dtype, void* stream) {
   if (a.h_se < 1 || a.H % a.Hkv != 0 || a.Hkv % a.h_se != 0)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case pt::kF32:
+  switch (dtype * 4 + which) {
+    case pt::kF32 * 4 + 0:
+    case pt::kF32 * 4 + 1:
       return launch<float>(a, B, which, s);
-    case pt::kBF16:
+    case pt::kBF16 * 4 + 0:
+    case pt::kBF16 * 4 + 1:
       return launch<__nv_bfloat16>(a, B, which, s);
-    case pt::kF16:
+    case pt::kBF16 * 4 + 2:
+      return launch_dkv_tc<__nv_bfloat16>(a, B, s);
+    case pt::kF16 * 4 + 0:
+    case pt::kF16 * 4 + 1:
       return launch<__half>(a, B, which, s);
+    case pt::kF16 * 4 + 2:
+      return launch_dkv_tc<__half>(a, B, s);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -549,5 +837,7 @@ extern "C" int flash_bwd_dkv_launch(FLASH_BWD_PARAMS) {
   const long long st[12] = {q_sb, q_ss, q_sh, k_sb,  k_ss,  k_sh,
                             v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
   if (out1 == nullptr) return int(cudaErrorInvalidValue);
-  return dispatch(FLASH_BWD_ARGS, B, 1, dtype, stream);
+  const void* ptrs[4] = {q, k, v, dout};
+  const bool tc_route = tc::route_ok(dtype, D, ptrs, 4, st, 12);
+  return dispatch(FLASH_BWD_ARGS, B, tc_route ? 2 : 1, dtype, stream);
 }

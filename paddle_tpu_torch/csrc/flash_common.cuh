@@ -1,7 +1,8 @@
 // Pieces shared by the flash forward (flash_fwd.cu) and backward
-// (flash_bwd.cu) kernels, so the three kernels can never stage, mask or
-// skip differently (the counterpart of the helpers shared by the three
-// Pallas kernels in paddle_tpu/kernels/flash_attention.py:151-273).
+// (flash_bwd.cu) kernels of both routes (simt and tc), so no two of them
+// can mask or skip differently (the counterpart of the helpers shared by
+// the three Pallas kernels in paddle_tpu/kernels/flash_attention.py:
+// 151-273).
 //
 // Layout of the flashmask bands: the wrapper normalizes
 // startend_row_indices to int32 [B|1, h_se, 4, Sk] (lts, lte, uts, ute
@@ -144,6 +145,30 @@ __device__ __forceinline__ bool warp_tile_full(const Bands& b, int q_lo,
                    __reduce_min_sync(all, b.lte),
                    __reduce_max_sync(all, b.uts),
                    __reduce_min_sync(all, b.ute), q_lo, q_hi);
+}
+
+// The tile_full inputs (max lts, min lte, max uts, min ute) of key
+// columns [k0, k0 + kNK) (kNK a multiple of 32), the same in every lane.
+template <int kNK>
+__device__ __forceinline__ Bands warp_band_extremes(
+    const int* __restrict__ seb, long long s4, int k0, int Sk, int lane) {
+  Bands e = load_bands(seb, s4, k0 + lane, Sk);
+#pragma unroll
+  for (int i = 1; i < kNK / 32; ++i) {
+    const Bands b = load_bands(seb, s4, k0 + lane + 32 * i, Sk);
+    e.lts = max(e.lts, b.lts);
+    e.lte = min(e.lte, b.lte);
+    e.uts = max(e.uts, b.uts);
+    e.ute = min(e.ute, b.ute);
+  }
+  const unsigned all = 0xffffffffu;
+  return Bands{__reduce_max_sync(all, e.lts), __reduce_min_sync(all, e.lte),
+               __reduce_max_sync(all, e.uts), __reduce_min_sync(all, e.ute)};
+}
+
+__device__ __forceinline__ bool tile_full(const Bands& ext, int q_lo,
+                                          int q_hi) {
+  return tile_full(ext.lts, ext.lte, ext.uts, ext.ute, q_lo, q_hi);
 }
 
 }  // namespace fl

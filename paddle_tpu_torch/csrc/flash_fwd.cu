@@ -20,21 +20,39 @@
 // wrapper reads q/k/v in the paddle [B, S, H, D] layout without a
 // transpose copy and writes out contiguous [B, Sq, H, D].
 //
-// What bounds it on an H100: arithmetic. At seq 1024, d 128 every
-// loaded K/V element is reused by 64 query rows of a tile (and the
-// other tiles hit L2), so the work is ~4*S*S*D/2 flops against O(S*D)
-// bytes. This first version runs the f32 math on the CUDA cores
-// (67 TFLOP/s peak), not the tensor cores: one block per (batch*head,
-// 64-row q tile), 4 warps of 16 rows each; K/V stream through shared
-// memory 32 keys at a time (one key column per lane); q, K and the
-// probabilities are read as 16-byte vectors from shared memory so the
-// inner loops are FMA- rather than load-bound; m/l/acc stay in
-// registers in f32. The tile loop runs only over key tiles that meet
-// the causal band and the window, and a tile whose every row one
-// flashmask band covers is skipped before its K/V are loaded (the
-// document mask's cross-document tiles). Tensor-core (wgmma) tiles and
-// TMA-fed pipelining are later work.
-#include "flash_common.cuh"
+// Two routes, chosen in `flash_fwd_launch` by dtype and shape
+// (`tc::route_ok`; the wrapper's `flash_route` mirrors it):
+//
+// - tc: bf16 and fp16 operands with a head dim that is a multiple of 8 up
+//   to 256 and 16-byte aligned rows — every training path (LLaMA
+//   [12, 1024, 32, 128], ERNIE-MoE [32, 512, 16, 64], BERT [256, 128, 12,
+//   64]). Tensor-core tiles (`flash_fwd_tc_kernel`, below): mma.sync
+//   m16n8k16 with f32 accumulators from ldmatrix fragments, K/V through a
+//   cp.async ring, the online softmax on the accumulators. P is split
+//   into P_hi + P_lo, both 16-bit, for O += P V: one rounding of P to
+//   bf16 (FlashAttention-2/3's arithmetic) fails the port's bf16 gate by
+//   ~6-23x, the split passes it at ~0.48, as f32 math does
+//   (csrc/flash_tc.cuh, tests/test_torch_flash_tc_arith.py). The split
+//   costs 1.5x the tensor-core operations.
+// - simt: f32, and 16-bit shapes the tc route does not take — the f32
+//   serving paths (LLaMA no-cache forward, the encoder) and the head-dim-64
+//   probe. f32 math on the CUDA cores (`flash_fwd_kernel`): one block per
+//   (batch*head, 64-row q tile), 4 warps of 16 rows each; K/V stream
+//   through shared memory 32 keys at a time (one key column per lane); q,
+//   K and the probabilities are read as 16-byte vectors from shared
+//   memory so the inner loops are FMA- rather than load-bound; m/l/acc
+//   stay in registers in f32.
+//
+// What bounds it on an H100: at the LLaMA training shape bytes and
+// operations nearly tie (~400 MB of q, k, v and out at 3.35 TB/s; ~103
+// GFLOP of S and P V at the bf16 peak); at BERT's S 128, bytes. The tc
+// route issues 1.5x those operations (the split) through mma.sync, whose
+// rate is below wgmma's; PERF.md keeps its times beside the bound. Both
+// routes run the key tiles that meet the causal band and the window
+// only, and skip a tile whose every row one flashmask band covers before
+// its K/V are loaded (the document mask's cross-document tiles). wgmma
+// tiles fed by TMA are later work.
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -318,6 +336,310 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------------------ tc route --
+//
+// One block per (batch * head, kBQ-row q tile); each warp owns kM m16
+// row tiles, so each K/V fragment it loads feeds kM products. The q tile
+// is copied once by cp.async; K/V tiles of kBK keys stream through a
+// 2-stage cp.async ring in padded shared memory (row stride kD + 8
+// elements: ldmatrix reads are conflict-free), with one barrier a tile.
+// S = Q K^T by mma.sync m16n8k16 from ldmatrix fragments; the online
+// softmax runs on the accumulators (scale applied in f32, exp2 with
+// scale * log2e folded in, masks only on tiles the band, window, bands
+// or the ragged key edge reach); P is split into bf16 (fp16) P_hi and
+// P_lo in registers and O += P_hi V + P_lo V from ldmatrix.trans
+// fragments of V; l is summed from the unsplit P.
+
+// Tile shapes from a comparison on the card (PERF.md): two row
+// tiles a warp halve the ldmatrix traffic per product; 32-key tiles keep
+// head dim 128's accumulators (2 x 64 + 2 x 16 a thread) near the
+// register file; head dim 256 keeps one row tile a warp.
+template <int kD>
+struct FwdTc {
+  static constexpr int kWarps = kD <= 128 ? 4 : 8;  // warps per block
+  static constexpr int kM = kD <= 128 ? 2 : 1;      // m16 row tiles a warp
+  static constexpr int kBK = kD <= 64 ? 64 : 32;    // keys per tile
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBQ = 16 * kM * kWarps;     // query rows per block
+  static constexpr int kLd = kD + 8;               // shared row stride
+  static constexpr int kNT = kBK / 8;              // S n8 tiles per row tile
+  static constexpr int kDT = kD / 8;               // O n8 tiles per row tile
+  template <typename T>
+  static constexpr size_t smem() {
+    // q [kBQ][kLd], K and V [2][kBK][kLd], bands [2][4][kBK] (int)
+    return sizeof(T) * (size_t(kBQ) + 4 * size_t(kBK)) * kLd +
+           sizeof(int) * 8 * size_t(kBK);
+  }
+};
+
+template <typename T, int kD>
+__global__ void __launch_bounds__(FwdTc<kD>::kThreads)
+    flash_fwd_tc_kernel(Args a) {
+  using C = FwdTc<kD>;
+  constexpr int kBQ = C::kBQ, kBK = C::kBK, kLd = C::kLd, kM = C::kM;
+  constexpr int kNT = C::kNT, kDT = C::kDT, kThreads = C::kThreads;
+  const T* __restrict__ q = static_cast<const T*>(a.q);
+  const T* __restrict__ k = static_cast<const T*>(a.k);
+  const T* __restrict__ v = static_cast<const T*>(a.v);
+  T* __restrict__ o = static_cast<T*>(a.o);
+  const int H = a.H, Sq = a.Sq, Sk = a.Sk, D = a.D;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int hq = bh - b * H;
+  const int hk = hq / (H / a.Hkv);
+  // the last q tiles (the longest under a causal band) start first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int q_end = min(q0 + kBQ, Sq);
+  const int diag = Sk - Sq;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r0 = (tid >> 5) * 16 * kM;  // this warp's first row in the tile
+  const int g = lane >> 2, t = lane & 3;
+
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  T* q_s = reinterpret_cast<T*>(smem_tc);        // [kBQ][kLd]
+  T* k_s = q_s + kBQ * kLd;                                  // [2][kBK][kLd]
+  T* v_s = k_s + 2 * kBK * kLd;                              // [2][kBK][kLd]
+  int* se_s = reinterpret_cast<int*>(v_s + 2 * kBK * kLd);  // [2][4][kBK]
+  const T* kb = k + b * a.k_sb + hk * a.k_sh;
+  const T* vb = v + b * a.v_sb + hk * a.v_sh;
+  const int* seb = a.se == nullptr
+                       ? nullptr
+                       : a.se + b * a.se_sb + (hq / (H / a.h_se)) * a.se_sh;
+  int kt_lo, kt_hi;
+  fl::k_tile_range(q0, q_end, Sk, kBK, a.causal, a.window, diag, &kt_lo,
+                   &kt_hi);
+  // the first key tile at or after kt that the bands do not cover whole
+  // (every warp computes the same answer: the skip is block-uniform)
+  auto next = [&](int kt) {
+    if (seb != nullptr)
+      while (kt < kt_hi &&
+             fl::tile_full(fl::warp_band_extremes<kBK>(seb, a.se_s4, kt * kBK,
+                                                       Sk, lane),
+                           q0, q_end))
+        ++kt;
+    return kt;
+  };
+  // start the copy of key tile kt (when there is one) into stage st
+  auto load_kv = [&](int kt, int st) {
+    if (kt < kt_hi) {
+      const int k0 = kt * kBK;
+      tc::load_tile<T, kBK, kD, kLd, kThreads>(k_s + st * kBK * kLd, kb,
+                                               a.k_ss, k0, Sk, D, tid);
+      tc::load_tile<T, kBK, kD, kLd, kThreads>(v_s + st * kBK * kLd, vb,
+                                               a.v_ss, k0, Sk, D, tid);
+      if (seb != nullptr && tid < kBK) {
+        const fl::Bands bj = fl::load_bands(seb, a.se_s4, k0 + tid, Sk);
+        int* s = se_s + st * 4 * kBK + tid;
+        s[0] = bj.lts;
+        s[kBK] = bj.lte;
+        s[2 * kBK] = bj.uts;
+        s[3 * kBK] = bj.ute;
+      }
+    }
+    tc::cp_async_commit();  // one group a tile, empty past the last one
+  };
+
+  tc::load_tile<T, kBQ, kD, kLd, kThreads>(
+      q_s, q + b * a.q_sb + hq * a.q_sh, a.q_ss, q0, Sq, D, tid);
+  int kt = next(kt_lo);
+  load_kv(kt, 0);  // one group: q and the first key tile
+
+  float acc[kM][kDT][4];
+#pragma unroll
+  for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+    for (int n = 0; n < kDT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0.f;
+  // the running max of scale log2e S, and this thread's share of the row
+  // sum, of rows g and g + 8 of each row tile
+  float m[kM][2], l[kM][2];
+#pragma unroll
+  for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[mi][h] = -INFINITY;
+      l[mi][h] = 0.f;
+    }
+  const float sl2 = a.scale * tc::kLog2e;
+
+  for (int st = 0; kt < kt_hi; st ^= 1) {
+    tc::cp_async_wait<0>();
+    // tile kt (and q) landed for every thread, and every warp is done
+    // with the tile before it, whose stage the next copy refills
+    __syncthreads();
+    const int kn = next(kt + 1);
+    load_kv(kn, st ^ 1);
+    const T* ks = k_s + st * kBK * kLd;
+    const T* vs = v_s + st * kBK * kLd;
+    const int k0 = kt * kBK;
+
+    // S = Q K^T for this warp's kM x 16 rows x kBK keys
+    float s[kM][kNT][4];
+#pragma unroll
+    for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mi][n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      unsigned qa[kM][4];
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi)
+        tc::ldsm_x4(qa[mi], q_s + (r0 + 16 * mi + tc::a_row(lane)) * kLd +
+                                kk * 16 + tc::a_col(lane));
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        unsigned kf[4];
+        tc::ldsm_x4(kf, ks + (np * 16 + tc::b_row(lane)) * kLd + kk * 16 +
+                            tc::b_col(lane));
+#pragma unroll
+        for (int mi = 0; mi < kM; ++mi) {
+          tc::mma<T>(s[mi][2 * np], qa[mi], kf[0], kf[1]);
+          tc::mma<T>(s[mi][2 * np + 1], qa[mi], kf[2], kf[3]);
+        }
+      }
+    }
+
+    // masks, only where the band, the window, the bands or the ragged
+    // key edge reach into the tile
+    const bool masked =
+        seb != nullptr || k0 + kBK > Sk ||
+        (a.causal && (q0 + diag < k0 + kBK - 1 ||
+                      (a.window > 0 && q_end - 1 + diag - k0 >= a.window)));
+    if (masked) {
+      const int* sst = se_s + st * 4 * kBK;
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+        for (int n = 0; n < kNT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = q0 + r0 + 16 * mi + g + ((e >> 1) << 3);
+            const int jl = n * 8 + 2 * t + (e & 1);
+            bool keep = fl::band_keep(qi, k0 + jl, Sq, Sk, a.causal,
+                                      a.window, diag);
+            if (seb != nullptr)
+              keep = keep &&
+                     !fl::band_masked(
+                         fl::Bands{sst[jl], sst[kBK + jl], sst[2 * kBK + jl],
+                                   sst[3 * kBK + jl]},
+                         qi);
+            if (!keep) s[mi][n][e] = -INFINITY;
+          }
+    }
+
+    // online softmax of rows g (h = 0) and g + 8 (h = 1) of each row
+    // tile; a quad of lanes shares a row
+#pragma unroll
+    for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < kNT; ++n)
+          mx = fmaxf(mx, fmaxf(s[mi][n][2 * h], s[mi][n][2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[mi][h], mx * sl2);
+        const float base = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = exp2f(m[mi][h] - base);
+        m[mi][h] = m_new;
+        float rs = 0.f;
+#pragma unroll
+        for (int n = 0; n < kNT; ++n)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float p = exp2f(fmaf(s[mi][n][2 * h + j], sl2, -base));
+            s[mi][n][2 * h + j] = p;
+            rs += p;
+          }
+        l[mi][h] = l[mi][h] * alpha + rs;
+#pragma unroll
+        for (int n = 0; n < kDT; ++n) {
+          acc[mi][n][2 * h] *= alpha;
+          acc[mi][n][2 * h + 1] *= alpha;
+        }
+      }
+
+    // O += P_hi V + P_lo V, the accumulators of S as the A operand
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      unsigned ph[kM][4], pl[kM][4];
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi)
+        tc::split_a<T>(s[mi][2 * kk], s[mi][2 * kk + 1], ph[mi], pl[mi]);
+#pragma unroll
+      for (int dp = 0; dp < kD / 16; ++dp) {
+        unsigned vf[4];
+        tc::ldsm_x4_t(vf, vs + (kk * 16 + tc::a_row(lane)) * kLd + dp * 16 +
+                              tc::a_col(lane));
+#pragma unroll
+        for (int mi = 0; mi < kM; ++mi) {
+          tc::mma<T>(acc[mi][2 * dp], ph[mi], vf[0], vf[1]);
+          tc::mma<T>(acc[mi][2 * dp], pl[mi], vf[0], vf[1]);
+          tc::mma<T>(acc[mi][2 * dp + 1], ph[mi], vf[2], vf[3]);
+          tc::mma<T>(acc[mi][2 * dp + 1], pl[mi], vf[2], vf[3]);
+        }
+      }
+    }
+    kt = kn;
+  }
+  tc::cp_async_wait<0>();
+
+  // a row is valid when it saw a key (l > 0); lse = (m + log2 l) ln 2
+#pragma unroll
+  for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float lh = l[mi][h];
+      lh += __shfl_xor_sync(0xffffffffu, lh, 1);
+      lh += __shfl_xor_sync(0xffffffffu, lh, 2);
+      const int qi = q0 + r0 + 16 * mi + g + 8 * h;
+      if (qi >= Sq) continue;
+      const bool valid = lh > 0.f;
+      const float inv = valid ? 1.f / lh : 0.f;
+      T* orow = o + ((size_t(b) * Sq + qi) * H + hq) * size_t(D);
+#pragma unroll
+      for (int n = 0; n < kDT; ++n) {
+        const int c = n * 8 + 2 * t;
+        if (c < D)
+          *reinterpret_cast<unsigned*>(orow + c) = tc::pack2<T>(
+              acc[mi][n][2 * h] * inv, acc[mi][n][2 * h + 1] * inv);
+      }
+      if (a.lse != nullptr && t == 0)
+        a.lse[size_t(bh) * Sq + qi] =
+            valid ? (m[mi][h] + log2f(lh)) * tc::kLn2 : fl::kNegInf;
+    }
+}
+
+template <typename T, int kD>
+int launch_tc_d(const Args& a, int B, cudaStream_t stream) {
+  using C = FwdTc<kD>;
+  auto kernel = flash_fwd_tc_kernel<T, kD>;
+  const size_t smem = C::template smem<T>();
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+  }
+  dim3 grid(B * a.H, (a.Sq + C::kBQ - 1) / C::kBQ);
+  kernel<<<grid, C::kThreads, smem, stream>>>(a);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_tc(const Args& a, int B, cudaStream_t stream) {
+  switch (tc::tile_d(a.D)) {
+    case 32: return launch_tc_d<T, 32>(a, B, stream);
+    case 64: return launch_tc_d<T, 64>(a, B, stream);
+    case 128: return launch_tc_d<T, 128>(a, B, stream);
+    default: return launch_tc_d<T, 256>(a, B, stream);
+  }
+}
+
 }  // namespace
 
 PT_DEFINE_PROBE(flash_fwd)
@@ -356,13 +678,18 @@ extern "C" int flash_fwd_launch(
                q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                se_sb, se_sh, se_s4, h_se, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* ptrs[3] = {q, k, v};
+  const long long strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss,
+                                k_sh, v_sb, v_ss, v_sh};
+  const bool tc_route = tc::route_ok(dtype, D, ptrs, 3, strides, 9);
   switch (dtype) {
     case pt::kF32:
       return launch<float>(a, B, s);
     case pt::kBF16:
-      return launch<__nv_bfloat16>(a, B, s);
+      return tc_route ? launch_tc<__nv_bfloat16>(a, B, s)
+                      : launch<__nv_bfloat16>(a, B, s);
     case pt::kF16:
-      return launch<__half>(a, B, s);
+      return tc_route ? launch_tc<__half>(a, B, s) : launch<__half>(a, B, s);
     default:
       return int(cudaErrorInvalidValue);
   }

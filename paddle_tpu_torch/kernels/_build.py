@@ -39,7 +39,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 SOURCES = {"paged_decode": "paged_decode.cu", "flash_fwd": "flash_fwd.cu",
            "flash_bwd": "flash_bwd.cu", "grouped_ffn_fwd": "grouped_ffn_fwd.cu",
            "grouped_ffn_bwd": "grouped_ffn_bwd.cu"}
-HEADERS = ("common.cuh", "flash_common.cuh", "grouped_gemm.cuh")
+HEADERS = ("common.cuh", "flash_common.cuh", "flash_tc.cuh",
+           "grouped_gemm.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]

@@ -11,6 +11,10 @@
   paddle layout [B, S, H, D]. On CUDA tensors they launch the
   hand-written Hopper kernels ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu``
   or raise; the plain versions run only for CPU tensors.
+- ``flash_route``: which of the two CUDA routes a forward or dK/dV
+  launch takes, by dtype, head dim, strides and addresses: "tc" (the
+  bf16/fp16 tensor-core kernels) or "simt" (the f32 CUDA-core kernels,
+  which also take any other 16-bit shape). dQ always runs on simt.
 - ``probe_minor64`` / ``minor64_supported``: the head-dim-64 probe
   (counterpart of ``_pallas_minor64_supported``, :801) and its
   once-per-device check, which the wrappers run before their first
@@ -44,6 +48,29 @@ NEG_INF = -1e30
 ROW_INVALID_LSE = NEG_INF / 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_HEAD_DIM = 256
+
+
+def flash_route(dtype, head_dim, strides, addresses):
+    """The route of a forward or dK/dV launch, the rule the C entries
+    apply (``tc::route_ok``, ``csrc/flash_tc.cuh``): "tc" for bfloat16 or
+    float16 operands with a head dim that is a multiple of 8 up to
+    ``MAX_HEAD_DIM`` and 16-byte aligned rows (every batch, sequence and
+    head stride in ``strides`` a multiple of 8 elements, every address in
+    ``addresses`` a multiple of 16), else "simt"."""
+    if dtype not in (torch.bfloat16, torch.float16) or head_dim % 8 or \
+            head_dim > MAX_HEAD_DIM:
+        return "simt"
+    if any(s % 8 for s in strides) or any(a % 16 for a in addresses):
+        return "simt"
+    return "tc"
+
+
+def _route_of(tensors):
+    """``flash_route`` of checked CUDA operands [B, S, H, D]."""
+    q = tensors[0]
+    return flash_route(q.dtype, q.shape[-1],
+                       [t.stride(i) for t in tensors for i in range(3)],
+                       [t.data_ptr() for t in tensors])
 
 
 def _normalize_startend(se, sq, sk, causal):
@@ -257,8 +284,10 @@ def flash_fwd(q, k, v, causal: bool, scale: float,
 
     On CUDA tensors this launches ``csrc/flash_fwd.cu`` (any sequence
     lengths, head dim <= 256, unit last-dim stride; at head dim 64 only
-    once ``minor64_supported`` holds) and counts the launch on
-    ``flash_fwd.launches``; on CPU tensors it runs ``flash_plain``."""
+    once ``minor64_supported`` holds) on the route ``flash_route`` names,
+    and counts the launch on ``flash_fwd.launches`` and on the counter
+    ``kernels.flash.fwd_cuda_tc`` or ``_simt``; on CPU tensors it runs
+    ``flash_plain``."""
     if q.device.type == "cpu":
         monitor.counter("kernels.flash.fwd_plain").increase()
         res = flash_plain(_t(q), _t(k), _t(v), causal, scale, window, se,
@@ -329,6 +358,8 @@ def _flash_fwd_cuda(q, k, v, causal, scale, window, se, want_lse):
     _build.check(err, "flash_fwd kernel")
     flash_fwd.launches += 1
     monitor.counter("kernels.flash.fwd_cuda").increase()
+    monitor.counter(f"kernels.flash.fwd_cuda_{_route_of([q, k, v])}") \
+        .increase()
     return (out, lse) if want_lse else out
 
 
@@ -340,8 +371,9 @@ def flash_bwd(q, k, v, o, lse, do, causal: bool, scale: float,
 
     On CUDA tensors this computes Delta = rowsum(dO * O) in f32 and
     launches the two kernels of ``csrc/flash_bwd.cu`` (counted on
-    ``flash_bwd.launches_dq`` / ``flash_bwd.launches_dkv``); on CPU
-    tensors it runs ``flash_bwd_plain``."""
+    ``flash_bwd.launches_dq`` / ``flash_bwd.launches_dkv``; the dK/dV
+    launch also on ``kernels.flash.dkv_cuda_tc`` or ``_simt`` by
+    ``flash_route``); on CPU tensors it runs ``flash_bwd_plain``."""
     if q.device.type == "cpu":
         monitor.counter("kernels.flash.bwd_plain").increase()
         dq, dk, dv = flash_bwd_plain(_t(q), _t(k), _t(v), _t(o), lse, _t(do),
@@ -381,6 +413,8 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, window, se):
                 window, se)
     flash_bwd.launches_dkv += 1
     monitor.counter("kernels.flash.bwd_cuda").increase()
+    monitor.counter(f"kernels.flash.dkv_cuda_{_route_of([q, k, v, do])}") \
+        .increase()
     return dq, dk, dv
 
 

@@ -320,3 +320,42 @@ def test_gqa_dkv_group_sum_differs_by_bf16_rounding_only():
                              + pallas.abs())
         assert bool((diff <= bound + 1e-30).all())
         assert float(diff.max() / port.abs().max()) < 1e-2
+
+
+# (dtype, head dim, (batch, seq, head) strides, addresses, route) — the
+# rule both C entries apply (tc::route_ok in csrc/flash_tc.cuh)
+_ROUTES = {
+    "bf16_d128": (torch.bfloat16, 128, (1024 * 32 * 128, 32 * 128, 128),
+                  (0, 4096), "tc"),
+    "fp16_d64": (torch.float16, 64, (128 * 12 * 64, 12 * 64, 64), (16,),
+                 "tc"),
+    "bf16_d8": (torch.bfloat16, 8, (64, 16, 8), (32,), "tc"),
+    "bf16_d256": (torch.bfloat16, 256, (256 * 2, 256 * 2, 256), (0,), "tc"),
+    "fused_qkv_view": (torch.bfloat16, 64, (130 * 3 * 4 * 64, 3 * 4 * 64,
+                                            64), (0, 512, 1024), "tc"),
+    "f32": (torch.float32, 128, (2 * 128, 2 * 128, 128), (0,), "simt"),
+    "bf16_d30": (torch.bfloat16, 30, (60, 60, 30), (0,), "simt"),
+    "bf16_d264": (torch.bfloat16, 264, (528, 528, 264), (0,), "simt"),
+    "row_stride_off_8": (torch.bfloat16, 64, (4 * 65 * 9, 4 * 65, 65),
+                         (0,), "simt"),
+    "address_off_16": (torch.bfloat16, 64, (64, 64, 64), (0, 2), "simt"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ROUTES))
+def test_flash_route_rule(name):
+    """The route a forward or dK/dV launch takes: tensor cores for 16-bit
+    operands with a head dim that is a multiple of 8 up to 256 and
+    16-byte aligned rows, the CUDA-core kernels for everything else."""
+    dtype, d, strides, addrs, route = _ROUTES[name]
+    assert tfa.flash_route(dtype, d, strides, addrs) == route
+
+
+def test_flash_route_of_checked_operands():
+    """``_route_of`` reads the strides and addresses of the operands the
+    wrappers launch on: a contiguous bf16 layout takes tc, a view whose
+    rows start 2 bytes off takes simt."""
+    x = torch.zeros(2, 10, 4, 72, dtype=torch.bfloat16)
+    assert tfa._route_of([x[..., :64], x[..., 8:]]) == "tc"
+    assert tfa._route_of([x[..., 1:65]]) == "simt"
+    assert tfa._route_of([x.float()]) == "simt"

@@ -142,8 +142,8 @@ _TRAIN_CASES = {
 }
 
 
-def _train_inputs(dev, name, dtype):
-    B, sq, sk, h, hkv, d, causal, window, mask = _TRAIN_CASES[name]
+def _train_inputs(dev, name, dtype, cases=_TRAIN_CASES):
+    B, sq, sk, h, hkv, d, causal, window, mask = cases[name]
     g = torch.Generator().manual_seed(len(name) * 7 + d)
     q, k, v, do = (torch.randn(B, s_, hh, d, generator=g).to(dev, dtype)
                    for s_, hh in ((sq, h), (sk, hkv), (sk, hkv), (sq, h)))
@@ -192,6 +192,135 @@ def test_flash_fwd_lse_and_bwd_match_plain(dev, dtype, name):
     for g_, r_, n in zip(got, ref, ("dq", "dk", "dv")):
         assert g_.dtype == dtype and g_.shape == r_.transpose(1, 2).shape, n
         _close(g_, r_.transpose(1, 2), rtol)
+
+
+def _route_counts():
+    from paddle_tpu_torch import monitor
+    return {n: monitor.counter(f"kernels.flash.{n}").get()
+            for n in ("fwd_cuda_tc", "fwd_cuda_simt", "dkv_cuda_tc",
+                      "dkv_cuda_simt")}
+
+
+def _route_delta(before):
+    return {n: v - before[n] for n, v in _route_counts().items() if
+            v != before[n]}
+
+
+#: the route of every existing bf16 case above: 16-bit, head dim a
+#: multiple of 8, 16-byte aligned rows -> tc; head dim 30 -> simt
+_FWD_ROUTES = {128: "tc", 80: "tc", 64: "tc", 32: "tc", 256: "tc",
+               30: "simt"}
+
+
+def test_flash_routes_of_existing_bf16_cases(dev):
+    """Which route each existing bf16 case takes, from the per-route
+    counters: the forward cases by head dim, every training case (head
+    dims 64, 80 and 128) on tc for the forward and dK/dV."""
+    for d, route in _FWD_ROUTES.items():
+        q = torch.randn(1, 40, 2, d, device=dev).to(torch.bfloat16)
+        before = _route_counts()
+        fa.flash_fwd(q, q, q, True, d ** -0.5)
+        assert _route_delta(before) == {f"fwd_cuda_{route}": 1}, d
+    for name in sorted(_TRAIN_CASES):
+        q, k, v, do, causal, window, se = _train_inputs(dev, name,
+                                                        torch.bfloat16)
+        before = _route_counts()
+        out, lse = fa.flash_fwd(q, k, v, causal, 0.1, window, se,
+                                want_lse=True)
+        fa.flash_bwd(q, k, v, out, lse, do, causal, 0.1, window, se)
+        assert _route_delta(before) == {"fwd_cuda_tc": 1,
+                                        "dkv_cuda_tc": 1}, name
+
+
+def _gate(got, ref):
+    """chip_smoke.py's ``closeness`` rule for a 16-bit output: |got - ref|
+    <= eps(dtype) |ref| + 1e-3 rms(ref); returns the worst ratio (pass:
+    <= 1)."""
+    rtol = torch.finfo(got.dtype).eps
+    got, ref = got.float(), ref.float()
+    atol = max(1e-3 * float(ref.square().mean().sqrt()), 1e-30)
+    return float(((got - ref).abs() / (rtol * ref.abs() + atol)).max())
+
+
+# (B, sq, sk, h, hkv, d, causal, window, mask) on the tensor-core route
+_TC_CASES = {
+    "d64": (2, 200, 200, 4, 4, 64, True, None, None),
+    "d128": (2, 200, 200, 4, 4, 128, True, None, None),
+    "d256": (1, 150, 150, 4, 2, 256, True, None, None),
+    "d40_full": (2, 77, 77, 2, 2, 40, False, None, None),
+    "empty_rows": (1, 100, 77, 4, 2, 128, True, None, None),
+    "sk_ragged": (1, 64, 200, 4, 4, 128, True, None, None),
+    "gqa4": (2, 160, 160, 8, 2, 128, True, None, None),
+    "window": (1, 300, 300, 4, 2, 64, True, 40, None),
+    "bands_c2": (2, 150, 150, 4, 2, 64, True, None, "c2"),
+    "bands_c4": (1, 150, 150, 4, 4, 128, False, None, "c4"),
+    "doc_mask": (2, 300, 300, 4, 2, 128, True, None, "doc"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", sorted(_TC_CASES))
+def test_flash_tc_route_within_gate(dev, dtype, name):
+    """The tensor-core forward (out, lse) and dK/dV against the plain
+    versions under chip_smoke.py's element-wise gate, on the tc route by
+    the counters; dQ (simt) alongside. Rows without keys give zeros, NEG_INF
+    lse and zero dQ."""
+    q, k, v, do, causal, window, se = _train_inputs(dev, name, dtype,
+                                                    _TC_CASES)
+    scale = q.shape[-1] ** -0.5
+    t = lambda x: x.transpose(1, 2).float()              # noqa: E731
+    before = _route_counts()
+    out, lse = fa.flash_fwd(q, k, v, causal, scale, window, se,
+                            want_lse=True)
+    torch.cuda.synchronize()
+    want, want_lse = fa.flash_plain(t(q), t(k), t(v), causal, scale, window,
+                                    se, return_lse=True)
+    assert _gate(out, want.transpose(1, 2)) <= 1.0
+    dead = want_lse <= fa.ROW_INVALID_LSE
+    assert torch.equal(lse <= fa.ROW_INVALID_LSE, dead)
+    _close(lse[~dead], want_lse[~dead], 1e-5)
+    assert not out.transpose(1, 2)[dead].any()
+    grads = fa.flash_bwd(q, k, v, out, lse, do, causal, scale, window, se)
+    torch.cuda.synchronize()
+    assert _route_delta(before) == {"fwd_cuda_tc": 1, "dkv_cuda_tc": 1}
+    ref = fa.flash_bwd_plain(t(q), t(k), t(v), t(out), lse, t(do), causal,
+                             scale, window, se)
+    for g_, r_, n in zip(grads, ref, ("dq", "dk", "dv")):
+        assert g_.dtype == dtype and g_.shape == r_.transpose(1, 2).shape
+        assert _gate(g_, r_.transpose(1, 2)) <= 1.0, n
+    assert not grads[0].transpose(1, 2)[dead].any()
+
+
+def test_flash_tc_reads_strided_views(dev):
+    """bf16 q/k/v as views of one fused [B, S, 3, H, D] projection and dO
+    as a head-major view stay on the tc route (their strides are
+    multiples of 8) and give what their contiguous copies give, bit for
+    bit; a view whose rows are not 16-byte aligned takes the simt route
+    and the same answer within the gate."""
+    g = torch.Generator().manual_seed(9)
+    qkv = torch.randn(2, 130, 3, 4, 64, generator=g).to(dev, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(2, 4, 130, 64, generator=g).to(
+        dev, torch.bfloat16).transpose(1, 2)
+    before = _route_counts()
+    out, lse = fa.flash_fwd(q, k, v, True, 0.125, want_lse=True)
+    grads = fa.flash_bwd(q, k, v, out, lse, do, True, 0.125)
+    assert _route_delta(before) == {"fwd_cuda_tc": 1, "dkv_cuda_tc": 1}
+    cont = [x.contiguous() for x in (q, k, v, do)]
+    out2, lse2 = fa.flash_fwd(*cont[:3], True, 0.125, want_lse=True)
+    grads2 = fa.flash_bwd(*cont[:3], out2, lse2, cont[3], True, 0.125)
+    for a, b in zip((out, lse, *grads), (out2, lse2, *grads2)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    wide = torch.randn(2, 130, 4, 72, generator=g).to(dev, torch.bfloat16)
+    q_odd = wide[..., 1:65]                      # rows 2 bytes off
+    assert fa.flash_route(q_odd.dtype, 64, q_odd.stride()[:3],
+                          [q_odd.data_ptr()]) == "simt"
+    before = _route_counts()
+    out3 = fa.flash_fwd(q_odd, k, v, True, 0.125)
+    assert _route_delta(before) == {"fwd_cuda_simt": 1}
+    want = fa.flash_plain(*(x.transpose(1, 2).float() for x in (q_odd, k, v)),
+                          True, 0.125).transpose(1, 2)
+    assert _gate(out3, want) <= 1.0
 
 
 def test_flash_bwd_reads_strided_grad(dev):
