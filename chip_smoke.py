@@ -12,10 +12,16 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    runs when it is loaded;
 3. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the shapes the main path gives it plus a few more, within a
-   stated tolerance, timed with CUDA events beside the plain version,
-   one library call where PyTorch has one, and the bound (the least time
-   the card could take: bytes over 3.35 TB/s or operations over the
-   dtype's peak, whichever is larger);
+   stated tolerance, timed with CUDA events (raw launches; the flash
+   forward's wrapper, with its host work, beside as wrapper_ms) beside
+   the plain version, one library call where PyTorch has one, and the
+   bound (the least time the card could take: bytes over 3.35 TB/s or
+   operations over the dtype's peak, whichever is larger; the tf32x3
+   route's operations counted three times at the 495 TFLOP/s TF32 peak,
+   the work f32-grade products take on the tensor cores), failing a time
+   below its bound;
+   the f32 forward at the main shape also through views whose rows are
+   not 16-byte aligned, the one case left to the CUDA-core kernel;
 4. + 5. the main path, with every launch count set to 0 just before it
    and read just after: the no-cache LlamaForCausalLM forward at the
    full width of the repo's serving benchmark (vocab 32000, hidden 4096,
@@ -24,8 +30,9 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    tokens, 128 new tokens each, mostly greedy, a few sampled) with 16
    slots, 128-token pages, a 64-token prefill bucket and a bf16 pool;
 6. checks: finite logits of the right shape, 4 flash launches in the
-   forward, every request finished, paged-decode launches == decode
-   ticks x 4 layers, no leaked pages, and a cross-check of two greedy
+   forward, all on the tf32x3 route, every request finished,
+   paged-decode launches == decode ticks x 4 layers, no leaked pages, and
+   a cross-check of two greedy
    requests against teacher-forced argmax of the no-cache forward
    (bf16 pool and an f32 pool).
 
@@ -36,9 +43,11 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    window 256, sq 333 / sk 1024, a 4-document flashmask and the
    ERNIE-MoE training shape (B 32, S 512, H 16, D 64, causal), timed
    beside the plain versions, their bounds and, where aten takes the
-   case, the timed-only aten flash forward and backward; each case
-   records its route (bf16: the tensor-core forward and dK/dV, f32: the
-   CUDA-core ones; dQ runs on the CUDA cores);
+   case, the timed-only aten flash forward and backward (SDPA f32 beside
+   the f32 forward); each case records its route (bf16: the tensor-core
+   forward, dQ and dK/dV; f32: the tf32x3 forward, the CUDA-core dQ and
+   dK/dV); negative controls: dV without one q tile and dQ without one
+   key tile must be rejected;
 8. model cross-check: a 2-layer, hidden-512 LLaMA (8 heads, 2 kv heads,
    window 64, seq 256, f32) — one TrainStep loss and every parameter
    gradient on the card against the same weights on the CPU, then again
@@ -50,8 +59,9 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    TrainStep(amp_dtype="bfloat16") with AdamW(3e-4, bf16 moments) for 6
    steps on one fixed batch: finite, falling losses; flash forward, dQ
    and dK/dV launches == 4 layers x 6 steps each, the *_cuda counters
-   equal to them and no *_plain call, every forward and dK/dV launch on
-   the tensor-core route (``kernels.flash.*_cuda_tc``) and none on simt;
+   equal to them and no *_plain call, every forward, dQ and dK/dV launch
+   on the tensor-core route (``kernels.flash.*_cuda_tc``) and none on
+   another;
    ms per step, tokens/s, the share of the bf16 peak and the peak device
    memory.
 
@@ -85,13 +95,14 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    batch 32 x seq 512, CE + aux loss, bf16 AMP, AdamW(1e-4, bf16
    moments)) for 6 steps: finite, falling losses; grouped-FFN forward, dx
    and dw launches == 4 MoE layers x 6 steps, flash forward / dQ / dK/dV
-   == 8 layers x 6 steps, no plain call, forward and dK/dV on the tc
+   == 8 layers x 6 steps, no plain call, forward, dQ and dK/dV on the tc
    route only; ms per step, tokens/s, the bf16 peak share of
    ``ernie_moe_flops_per_token`` and the peak memory.
 
 15. encoder kernels: the head-dim-64 probe of csrc/flash_fwd.cu (row 5:
-   (x x^T) x on a seeded [128, 64] f32 tile of small integers, equal to
-   its plain version bit for bit, timed beside it and the timed-only
+   (x x^T) x on a seeded [128, 64] f32 tile of small integers through the
+   tf32x3 route's tiles, equal to its plain version bit for bit, timed
+   beside it and the timed-only
    torch.matmul pair), the flash forward at the encoder's serving shape
    (B 16, 12 heads, head dim 64, f32, non-causal, C=1 key bands of a
    padding mask with 4 dead rows that must give zeros and ragged live
@@ -104,7 +115,8 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    from a seed) in a BatchEncoder (max_batch 16, bucket 32) replaying the
    64-request trace twice (warm, then timed): every request done, flash
    forward launches == batches x 12 layers on the masked kernel route
-   only, one head-dim-64 probe launch, no kernel build in steady state;
+   only, all on the tf32x3 route, one head-dim-64 probe launch, no kernel
+   build in steady state;
    4 requests' embeddings within 1e-4 relative of the same request
    encoded alone;
 17. BERT cross-check: a 2-layer BertForPretraining at BERT-base widths
@@ -116,14 +128,16 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    (``profile_encoder.BERT_TRAIN``: batch 256 x seq 128, dense MLM CE,
    bf16 AMP, AdamW(1e-4, bf16 moments), dropout 0.1) for 6 steps:
    finite, falling losses; flash forward, dQ and dK/dV launches == 12
-   layers x 6 steps, no plain call, forward and dK/dV on the tc route
+   layers x 6 steps, no plain call, forward, dQ and dK/dV on the tc route
    only; ms per step, tokens/s, the bf16 peak share by bench_bert's 6N
    rule and the peak memory.
 
 It prints the card line, a {"kernels": [...]} line (the tensor-core
-forward and dK/dV as ``flash_fwd`` / ``flash_bwd_dkv`` with
-``flash_route`` "cuda-tc", the f32 forward of the serving paths as
-``flash_fwd_simt``), and as its last line {"ok": true, "device":
+forward, dQ and dK/dV as ``flash_fwd`` / ``flash_bwd_dq`` /
+``flash_bwd_dkv`` with ``flash_route`` "cuda-tc", the f32 forward of the
+serving paths as ``flash_fwd_tf32x3``, the CUDA-core forward and dQ as
+``flash_fwd_simt`` / ``flash_bwd_dq_simt``), and as its last line
+{"ok": true, "device":
 {...}}. Details land in
 chiprun_out/chip_smoke/ (result JSON, nvcc/ptxas logs). About two
 minutes of command time on an H100, the five kernel builds included.
@@ -142,7 +156,12 @@ OUT_DIR = ROOT / "chiprun_out" / "chip_smoke"
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12,
+              "tf32": 495e12}
+#: TF32 products an f32-grade product takes on the tensor cores (3xTF32:
+#: big big + big small + small big), the work the tf32x3 route's bound
+#: counts at the TF32 peak
+TF32X3_PRODUCTS = 3
 
 # the serving and training configurations are those of
 # paddle_tpu_torch.profile_serving / profile_training (imported in main)
@@ -171,26 +190,38 @@ def fail(msg):
 
 
 #: the per-route launch counters of the flash wrappers
-FLASH_ROUTES = ("fwd_cuda_tc", "fwd_cuda_simt", "dkv_cuda_tc",
-                "dkv_cuda_simt")
+FLASH_ROUTES = ("fwd_cuda_tc", "fwd_cuda_tf32x3", "fwd_cuda_simt",
+                "dq_cuda_tc", "dq_cuda_simt", "dkv_cuda_tc", "dkv_cuda_simt")
 
 
 def flash_routes(counters):
-    """The flash forward and dK/dV launches by route in a counter
+    """The flash forward, dQ and dK/dV launches by route in a counter
     snapshot."""
     return {n: int(counters.get(f"kernels.flash.{n}", 0))
             for n in FLASH_ROUTES}
 
 
-def check_tc_routes(counters, want, what):
-    """A bf16 training path: every flash forward and dK/dV launch on the
-    tensor-core route, none on simt."""
+def check_routes(counters, want, what):
+    """Every flash launch of a path on the routes ``want`` names (route
+    counter -> launches), none on any other."""
     got = flash_routes(counters)
-    if got != {"fwd_cuda_tc": want, "fwd_cuda_simt": 0, "dkv_cuda_tc": want,
-               "dkv_cuda_simt": 0}:
-        fail(f"{what}: flash launches by route {got}, expected {want} "
-             f"forward and {want} dK/dV launches on the tc route only")
+    if got != {n: want.get(n, 0) for n in FLASH_ROUTES}:
+        fail(f"{what}: flash launches by route {got}, expected {want} and "
+             f"none elsewhere")
     return got
+
+
+def check_tc_routes(counters, want, what):
+    """A bf16 training path: every flash forward, dQ and dK/dV launch on
+    the tensor-core route, none on tf32x3 or simt."""
+    return check_routes(counters, {"fwd_cuda_tc": want, "dq_cuda_tc": want,
+                                   "dkv_cuda_tc": want}, what)
+
+
+def check_f32_routes(counters, want, what):
+    """An f32 serving path: every flash forward launch on the tf32x3
+    route, none on tc or simt, and no backward launch."""
+    return check_routes(counters, {"fwd_cuda_tf32x3": want}, what)
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -215,6 +246,20 @@ def bound_ms(nbytes, flops, dtype):
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def flash_bound(nbytes, flops, dname, route):
+    """``bound_ms`` of a flash kernel on its route, with the peak it is
+    held to: the dtype's, except that the tf32x3 route counts
+    TF32X3_PRODUCTS TF32 products per counted operation at the TF32 peak
+    (f32-grade results on the tensor cores), where the f32 CUDA-core peak
+    would put the bound above what the route can reach."""
+    if route == "tf32x3":
+        return (*bound_ms(nbytes, TF32X3_PRODUCTS * flops, "tf32"),
+                f"tf32 {PEAK_FLOPS['tf32'] / 1e12:.0f} TFLOP/s x "
+                f"{TF32X3_PRODUCTS}")
+    return (*bound_ms(nbytes, flops, dname),
+            f"{dname} {PEAK_FLOPS[dname] / 1e12:.0f} TFLOP/s")
 
 
 def max_err(got, want):
@@ -314,22 +359,34 @@ def check_paged(torch, pa, kvq):
 
 def check_flash(torch, fa):
     """Flash forward at B 2, S 1024, H 32, D 128 causal f32 (the no-cache
-    forward's shape), plus GQA, sq != sk with a window, and bf16."""
+    forward's shape, the tf32x3 route), plus GQA, sq != sk with a window,
+    a ragged head dim 80, bf16 (the tc route), and the main f32 shape read
+    through views whose rows are 4 bytes off 16-byte alignment, which only
+    the simt kernel takes. ``ms`` times the raw launch, ``wrapper_ms``
+    the wrapper (checks, allocation, counters) around it."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    specs = [("main_f32", 2, 1024, 1024, 32, 32, 128, torch.float32, None),
-             ("gqa_f32", 2, 1024, 1024, 32, 8, 128, torch.float32, None),
+    # name, B, sq, sk, h, hkv, d, dtype, window, rows 16-byte aligned
+    specs = [("main_f32", 2, 1024, 1024, 32, 32, 128, torch.float32, None,
+              True),
+             ("gqa_f32", 2, 1024, 1024, 32, 8, 128, torch.float32, None,
+              True),
              ("sq_ne_sk_window", 2, 333, 1024, 32, 32, 128, torch.float32,
-              256),
-             ("ragged_d80", 1, 100, 77, 4, 2, 80, torch.float32, None),
+              256, True),
+             ("ragged_d80", 1, 100, 77, 4, 2, 80, torch.float32, None, True),
              ("main_bf16", 2, 1024, 1024, 32, 32, 128, torch.bfloat16,
-              None)]
+              None, True),
+             ("main_f32_unaligned", 2, 1024, 1024, 32, 32, 128,
+              torch.float32, None, False)]
     cases = []
-    for name, B, sq, sk, h, hkv, d, dt, window in specs:
-        q = torch.randn(B, sq, h, d, generator=g, device=dev).to(dt)
-        k = torch.randn(B, sk, hkv, d, generator=g, device=dev).to(dt)
-        v = torch.randn(B, sk, hkv, d, generator=g, device=dev).to(dt)
+    for name, B, sq, sk, h, hkv, d, dt, window, aligned in specs:
+        pad = 0 if aligned else 1
+
+        def make(s_, hh):
+            x = torch.randn(B, s_, hh, d + pad, generator=g, device=dev)
+            return x.to(dt)[..., pad:]
+        q, k, v = make(sq, h), make(sk, hkv), make(sk, hkv)
         scale = d ** -0.5
         got = fa.flash_fwd(q, k, v, True, scale, window)
         torch.cuda.synchronize()
@@ -348,27 +405,41 @@ def check_flash(torch, fa):
         pairs = int((hi - lo).clamp(min=0).sum())
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         flops = 4 * B * h * pairs * d
-        bms, by = bound_ms(nbytes, flops, str(dt).replace("torch.", ""))
+        dname = str(dt).replace("torch.", "")
+        route = fa._route_of("fwd", [q, k, v])
+        bms, by, peak = flash_bound(nbytes, flops, dname, route)
         rec = dict(case=name, B=B, sq=sq, sk=sk, heads=h, kv_heads=hkv,
-                   head_dim=d, dtype=str(dt).replace("torch.", ""),
-                   window=window, route=fa._route_of([q, k, v]), **c,
-                   ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, True, scale,
-                                                   window), iters=10),
+                   head_dim=d, dtype=dname, window=window, route=route, **c,
+                   ms=cuda_ms(lambda: fa._fwd_launch(q, k, v, got, None, True,
+                                                     scale, window, None),
+                              iters=10),
+                   wrapper_ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, True,
+                                                           scale, window),
+                                      iters=10),
                    plain_ms=cuda_ms(plain, iters=5),
-                   bound_ms=bms, bound_by=by, library_ms=None)
-        if name == "main_f32":
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                   bound_ms=bms, bound_by=by, bound_peak=peak,
+                   library_ms=None)
+        if name.startswith("main_f32"):
+            # SDPA takes 16-byte aligned rows: the unaligned case's library
+            # call reads aligned copies of the same inputs
+            qt, kt, vt = (t.transpose(1, 2) if aligned
+                          else t.transpose(1, 2).contiguous()
+                          for t in (q, k, v))
             rec["library_ms"] = cuda_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        is_causal=True),
                 iters=10)
-        print(f"  flash_fwd[{name}] ({rec['route']}): err "
+        print(f"  flash_fwd[{name}] ({route}): err "
               f"{c['max_abs_err']:.3g} (tol "
               f"{c['tol']}, ratio {c['ratio']:.3g}) kernel {rec['ms']:.4f} "
               f"ms, plain {rec['plain_ms']:.4f} ms, library "
-              f"{rec['library_ms']}, bound {bms:.4f} ms ({by})", flush=True)
+              f"{rec['library_ms']}, bound {bms:.4f} ms ({by}, {peak})",
+              flush=True)
         if not c["ratio"] <= 1.0:
             fail(f"flash_fwd[{name}] disagrees with its plain version: {c}")
+        if rec["ms"] < bms:
+            fail(f"flash_fwd[{name}]: {rec['ms']} ms is below its bound "
+                 f"{bms} ms ({peak})")
         cases.append(rec)
     return cases
 
@@ -397,38 +468,67 @@ def check_probe(torch, build):
                  bound_ms=bms, bound_by=by)]
 
 
-def check_is_sharp(torch, fa, q, k, v, out, lse, do, scale, dv, ref_dv):
+def _dq_key_tile_share(torch, q, k, v, lse, do, delta, scale, lo, hi):
+    """The share of dQ (causal, sq == sk, [B, S, H, D]) that keys
+    [lo, hi) contribute, in f32: scale dS[:, :, lo:hi] K[lo:hi] with dS =
+    P (dP - Delta) over the rows that see those keys."""
+    def t(x):
+        return x.transpose(1, 2).float()
+    qf, kf, vf, dof = t(q), t(k[:, lo:hi]), t(v[:, lo:hi]), t(do)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    rows = torch.arange(q.shape[1], device=q.device)[:, None]
+    keys = torch.arange(lo, hi, device=q.device)[None, :]
+    p = torch.where(rows >= keys, torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta[..., None])
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale).transpose(1, 2)
+
+
+def check_is_sharp(torch, fa, q, k, v, out, lse, do, scale, grads, refs):
     """Negative controls at the main training shape (causal, sq == sk): a
     dK/dV kernel that leaves out one 32-row q tile, either the last (its
     q-tile loop one short) or one in the middle (a tile wrongly skipped),
-    misses that tile's share of dV. Subtract the share (flash_bwd_plain
-    over those rows and the keys up to their end: with sq < sk the rows
-    sit bottom-right, where they sit in the full causal band) from the
-    kernel's dV and show that the element-wise check rejects each. The
-    rule it replaced (max abs error within 1e-2 of max |ref|) is reported
-    beside it."""
+    misses that tile's share of dV; a dQ kernel that leaves out one
+    32-key tile in the middle misses that tile's share of dQ in every row
+    that sees it. Subtract the share (flash_bwd_plain over those rows and
+    the keys up to their end: with sq < sk the rows sit bottom-right,
+    where they sit in the full causal band; for dQ the tile's keys against
+    every row) from the kernel's output and show that the element-wise
+    check rejects each. The rule it replaced (max abs error within 1e-2
+    of max |ref|) is reported beside it."""
     def t(x):
         return x.transpose(1, 2).float()
-    old_tol = 1e-2 * max(1.0, float(ref_dv.abs().max()))
+    dq, dv = grads
+    ref_dq, ref_dv = refs
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
     recs = {}
-    for label, lo in (("last_q_tile", q.shape[1] - 32), ("q_tile_480", 480)):
+    for label, lo in (("last_q_tile", q.shape[1] - 32), ("q_tile_480", 480),
+                      ("dq_key_tile_480", 480)):
         hi = lo + 32
-        share = fa.flash_bwd_plain(
-            t(q[:, lo:hi]), t(k[:, :hi]), t(v[:, :hi]), t(out[:, lo:hi]),
-            lse[:, :, lo:hi].contiguous(), t(do[:, lo:hi]), True, scale)[2]
-        short = dv.float()
-        short[:, :hi] -= share.transpose(1, 2)
-        c = closeness(short.to(dv.dtype), ref_dv)
+        if label.startswith("dq"):
+            got, ref = dq, ref_dq
+            short = dq.float() - _dq_key_tile_share(
+                torch, q, k, v, lse, do, delta, scale, lo, hi)
+        else:
+            got, ref = dv, ref_dv
+            share = fa.flash_bwd_plain(
+                t(q[:, lo:hi]), t(k[:, :hi]), t(v[:, :hi]), t(out[:, lo:hi]),
+                lse[:, :, lo:hi].contiguous(), t(do[:, lo:hi]), True,
+                scale)[2]
+            short = dv.float()
+            short[:, :hi] -= share.transpose(1, 2)
+        old_tol = 1e-2 * max(1.0, float(ref.abs().max()))
+        c = closeness(short.to(got.dtype), ref)
         recs[label] = rec = dict(ratio=c["ratio"],
                                  max_abs_err=c["max_abs_err"],
                                  old_rule_tol=old_tol,
                                  old_rule_passes=c["max_abs_err"] <= old_tol)
-        print(f"  negative control (dV without {label}): ratio to tol "
+        what = "dQ" if label.startswith("dq") else "dV"
+        print(f"  negative control ({what} without {label}): ratio to tol "
               f"{c['ratio']:.3g} (rejected: > 1); max abs err "
               f"{c['max_abs_err']:.3g}, old rule tol {old_tol:.3g} (passes "
               f"the old rule: {rec['old_rule_passes']})", flush=True)
         if not c["ratio"] > 1.0:
-            fail(f"the element-wise check does not reject dV without "
+            fail(f"the element-wise check does not reject {what} without "
                  f"{label}: {rec}")
     return recs
 
@@ -506,13 +606,14 @@ def check_flash_train(torch, fa, doc_mask, specs=FLASH_TRAIN_SPECS):
         def plain_bwd():
             return fa.flash_bwd_plain(t(q), t(k), t(v), t(out), lse, t(do),
                                       causal, scale, window, se)
+        refs = [r.transpose(1, 2) for r in plain_bwd()]
+        for n, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+            res[n] = closeness(got, ref)
         sharp = None
-        for n, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), plain_bwd()):
-            res[n] = closeness(got, ref.transpose(1, 2))
-            if n == "dv" and name == "train_bf16":
-                sharp = check_is_sharp(torch, fa, q, k, v, out, lse, do,
-                                       scale, got, ref.transpose(1, 2))
-        del dq, dk, dv
+        if name == "train_bf16":
+            sharp = check_is_sharp(torch, fa, q, k, v, out, lse, do, scale,
+                                   (dq, dv), (refs[0], refs[2]))
+        del dq, dk, dv, refs
         errs = {n: r["max_abs_err"] for n, r in res.items()}
         tols = {n: r["tol"] for n, r in res.items()}
         ratios = {n: r["ratio"] for n, r in res.items()}
@@ -533,24 +634,33 @@ def check_flash_train(torch, fa, doc_mask, specs=FLASH_TRAIN_SPECS):
                    head_dim=d, dtype=dname, window=window, documents=docs,
                    causal=causal, pairs=pairs, max_abs_err=errs, tol=tols,
                    ratio=ratios, negative_control=sharp,
-                   route=dict(fwd=fa._route_of([q, k, v]), dq="simt",
-                              dkv=fa._route_of([q, k, v, do])))
-        rec["fwd"] = dict(
-            ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, causal, scale, window,
-                                            se, want_lse=True), iters=10),
+                   route={n: fa._route_of(n, [q, k, v] if n == "fwd"
+                                          else [q, k, v, do])
+                          for n in fa.FLASH_KERNELS})
+        # each kernel's bytes and counted operations (forward 4, dQ 6,
+        # dK/dV 8 x pairs x d), the pass's (10)
+        work = {"fwd": (2 * qb + 2 * kb + rows, 4),
+                "dq": (3 * qb + 2 * kb + 2 * rows, 6),
+                "dkv": (2 * qb + 4 * kb + 2 * rows, 8)}
+        for n, (nbytes, per_pair) in work.items():
+            rec[n] = {}
+            rec[n]["bound_ms"], rec[n]["bound_by"], rec[n]["bound_peak"] = \
+                flash_bound(nbytes, per_pair * pairs * d, dname,
+                            rec["route"][n])
+        out_b, lse_b = torch.empty_like(out), torch.empty_like(lse)
+        rec["fwd"].update(
+            ms=cuda_ms(lambda: fa._fwd_launch(q, k, v, out_b, lse_b, causal,
+                                              scale, window, se), iters=10),
+            wrapper_ms=cuda_ms(lambda: fa.flash_fwd(
+                q, k, v, causal, scale, window, se, want_lse=True),
+                iters=10),
             plain_ms=cuda_ms(plain_fwd, iters=3))
-        rec["fwd"].update(zip(("bound_ms", "bound_by"), bound_ms(
-            2 * qb + 2 * kb + rows, 4 * pairs * d, dname)))
-        rec["dq"] = dict(ms=cuda_ms(lambda: fa._bwd_launch(
+        rec["dq"]["ms"] = cuda_ms(lambda: fa._bwd_launch(
             "flash_bwd_dq_launch", args, dq_b, None, causal, scale, window,
-            se), iters=10))
-        rec["dq"].update(zip(("bound_ms", "bound_by"), bound_ms(
-            3 * qb + 2 * kb + 2 * rows, 6 * pairs * d, dname)))
-        rec["dkv"] = dict(ms=cuda_ms(lambda: fa._bwd_launch(
+            se), iters=10)
+        rec["dkv"]["ms"] = cuda_ms(lambda: fa._bwd_launch(
             "flash_bwd_dkv_launch", args, dk_b, dv_b, causal, scale, window,
-            se), iters=10))
-        rec["dkv"].update(zip(("bound_ms", "bound_by"), bound_ms(
-            2 * qb + 4 * kb + 2 * rows, 8 * pairs * d, dname)))
+            se), iters=10)
         plain_pass = cuda_ms(plain_bwd, iters=3)
         rec["pass"] = dict(
             ms=cuda_ms(lambda: fa.flash_bwd(q, k, v, out, lse, do, causal,
@@ -563,10 +673,15 @@ def check_flash_train(torch, fa, doc_mask, specs=FLASH_TRAIN_SPECS):
         rec["library_note"] = (
             "aten flash attention takes bf16/fp16 with equal heads, sq == "
             "sk and no window or mask; it computes dq, dk and dv in one "
-            "call, so its time stands beside the pass")
-        if dt == bf16 and h == hkv and sq == sk and window is None \
-                and se is None:
-            qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+            "call, so its time stands beside the pass; an f32 case's "
+            "forward stands beside SDPA f32 (no aten f32 flash backward)")
+        plain_case = h == hkv and sq == sk and window is None and se is None
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        if dt == torch.float32 and plain_case:
+            rec["fwd"]["library_ms"] = cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, scale=scale), iters=10)
+        if dt == bf16 and plain_case:
             aten = torch.ops.aten
 
             def lib_fwd():
@@ -581,6 +696,11 @@ def check_flash_train(torch, fa, doc_mask, specs=FLASH_TRAIN_SPECS):
             del o_a, lse_a
         rec["dq"]["library_ms"] = rec["dkv"]["library_ms"] = \
             rec["pass"]["library_ms"]
+        for n in ("fwd", "dq", "dkv"):
+            if rec[n]["ms"] < rec[n]["bound_ms"]:
+                fail(f"flash train[{name}] {n}: {rec[n]['ms']} ms is below "
+                     f"its bound {rec[n]['bound_ms']} ms "
+                     f"({rec[n]['bound_peak']})")
         print(f"  flash train[{name}] (routes {rec['route']}): err {errs} "
               f"(ratio to tol {ratios}, "
               f"tol {tols}); fwd+lse "
@@ -593,7 +713,7 @@ def check_flash_train(torch, fa, doc_mask, specs=FLASH_TRAIN_SPECS):
               f"{rec['pass']['bound_ms']:.3f}, plain {plain_pass:.3f}, "
               f"library {rec['pass']['library_ms']})", flush=True)
         cases.append(rec)
-        del q, k, v, do, out, lse, delta, args, dq_b, dk_b, dv_b
+        del q, k, v, do, out, lse, delta, args, dq_b, dk_b, dv_b, out_b, lse_b
         torch.cuda.empty_cache()
     return cases
 
@@ -1165,9 +1285,10 @@ EMBED_B1_REQUESTS = 4
 
 
 def check_minor64_probe(torch, fa):
-    """Phase 15a: the head-dim-64 probe of csrc/flash_fwd.cu through its
-    wrapper (which raises on a wrong answer), equal to its plain version
-    bit for bit on the wrapper's small-integer input; the kernel's own
+    """Phase 15a: the head-dim-64 probe of csrc/flash_fwd.cu (the tf32x3
+    route's tiles) through its wrapper (which raises on a wrong answer),
+    equal to its plain version bit for bit on the wrapper's small-integer
+    input; the kernel's own
     launch timed beside the plain version and, timed only, the pair of
     torch.matmul calls. The wrapper's whole call also holds the plain
     product it checks against and a host sync, so it is not what the
@@ -1180,8 +1301,10 @@ def check_minor64_probe(torch, fa):
         fail(f"the head-dim-64 probe disagrees with its plain version "
              f"(max err {max_err(o, want)})")
     n, d = fa.MINOR64_SHAPE
-    bms, by = bound_ms(2 * x.numel() * 4, 2 * (2 * n * n * d), "float32")
+    bms, by, peak = flash_bound(2 * x.numel() * 4, 2 * (2 * n * n * d),
+                                "float32", "tf32x3")
     rec = dict(case="128x64_f32", max_abs_err=0.0, tol=0.0, ratio=0.0,
+               route="tf32x3", bound_peak=peak,
                ms=cuda_ms(lambda: fa._minor64_launch(x, o), iters=50),
                plain_ms=cuda_ms(lambda: fa.minor64_probe_plain(x), iters=50),
                library_ms=cuda_ms(lambda: torch.matmul(torch.matmul(x, x.T),
@@ -1247,14 +1370,18 @@ def check_flash_encoder(torch, fa, F):
         live_rows = int((lens > 0).sum())
         nbytes = (live_rows * L * H * D + 2 * int(lens.sum()) * H * D
                   + q.numel()) * 4 + se.numel() * 4
-        bms, by = bound_ms(nbytes, 4 * pairs * D, "float32")
+        route = fa._route_of("fwd", [q, k, v])
+        bms, by, peak = flash_bound(nbytes, 4 * pairs * D, "float32", route)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         rec = dict(case=f"serving_f32_L{L}", B=B, sq=L, sk=L, heads=H,
-                   head_dim=D, dtype="float32", route=fa._route_of([q, k, v]),
-                   dead_rows=dead,
+                   head_dim=D, dtype="float32", route=route,
+                   bound_peak=peak, dead_rows=dead,
                    live_keys=lens.tolist(), pairs=pairs, **c,
-                   ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, False, scale,
-                                                   None, se), iters=20),
+                   ms=cuda_ms(lambda: fa._fwd_launch(q, k, v, got, None,
+                                                     False, scale, None, se),
+                              iters=20),
+                   wrapper_ms=cuda_ms(lambda: fa.flash_fwd(
+                       q, k, v, False, scale, None, se), iters=20),
                    plain_ms=cuda_ms(plain, iters=5),
                    library_ms=cuda_ms(lambda: sdpa(
                        qt, kt, vt, attn_mask=keymask), iters=20),
@@ -1263,7 +1390,10 @@ def check_flash_encoder(torch, fa, F):
               f"{c['max_abs_err']:.3g} (ratio "
               f"{c['ratio']:.3g}), dead rows zero; kernel {rec['ms']:.4f} ms, "
               f"plain {rec['plain_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} "
-              f"ms, bound {bms:.4f} ms ({by})", flush=True)
+              f"ms, bound {bms:.4f} ms ({by}, {peak})", flush=True)
+        if rec["ms"] < bms:
+            fail(f"flash_fwd[encoder L{L}]: {rec['ms']} ms is below its "
+                 f"bound {bms} ms ({peak})")
         cases.append(rec)
     return cases
 
@@ -1312,6 +1442,7 @@ def encoder_serving_main_path(torch, mods, launches_of, reset_counts, card):
              f"batches x {cfg.num_hidden_layers} layers")
     if sdpa != {"kernels.flash.sdpa.kernel_mask": want} or plain:
         fail(f"encoder serving left the masked kernel route: {sdpa} {plain}")
+    routes = check_f32_routes(counters, want, "encoder serving")
     if launches["probe_minor64"] != 1:
         fail(f"the encoder ran the head-dim-64 probe "
              f"{launches['probe_minor64']} times, expected 1")
@@ -1350,7 +1481,7 @@ def encoder_serving_main_path(torch, mods, launches_of, reset_counts, card):
                           device_ms_per_batch=timed["device_ms"] / t_batches),
                warm_seconds=warm["seconds"], launches=launches,
                steady_state_recompiles=recompiles, b1_rel_err=b1,
-               b1_rtol=EMBED_B1_RTOL, counters=counters)
+               b1_rtol=EMBED_B1_RTOL, counters=counters, flash_routes=routes)
     tm = rec["timed"]
     print(f"encoder serving: {E['n_requests']} requests x 2 passes, "
           f"{batches} batches, flash launches {launches['flash_fwd']} = "
@@ -1657,6 +1788,8 @@ def main():
         fail(f"kernel-path counters disagree with launches: {counters}")
     if launches["probe"] < 1:
         fail("the engine did not run the kernel probe")
+    serving_routes = check_f32_routes(counters, launches["flash_fwd"],
+                                      "serving")
     if eng.leaked_pages():
         fail(f"{eng.leaked_pages()} pages leaked")
     n_tok = sum(len(o.token_ids) for o in outs)
@@ -1754,11 +1887,11 @@ def main():
     ms_l, mt_l = moe_serving["launches"], moe_training["launches"]
     es_l, bt_l = enc_serving["launches"], bert_training["launches"]
     # launches by route: the bf16 training paths run the tc kernels, the
-    # f32 serving paths the simt forward (their counter snapshots)
+    # f32 serving paths the tf32x3 forward (their counter snapshots)
     tc_paths = {"training": training, "moe_training": moe_training,
                 "bert_training": bert_training}
-    simt_paths = {"serving": dict(counters=counters),
-                  "encoder_serving": enc_serving}
+    f32_paths = {"serving": dict(counters=counters),
+                 "encoder_serving": enc_serving}
 
     def by_path(paths, route):
         return {p: flash_routes(r["counters"])[route]
@@ -1769,8 +1902,17 @@ def main():
                     max_abs_err=max(c["max_abs_err"][n] for n in outs),
                     ratio=max(c["ratio"][n] for n in outs), **c[part])
 
+    def first_on(cases, route, part=None):
+        return next(c for c in cases
+                    if (c["route"] if part is None else c["route"][part])
+                    == route)
+
     fwd_tc = by_path(tc_paths, "fwd_cuda_tc")
-    fwd_simt = by_path(simt_paths, "fwd_cuda_simt")
+    fwd_tf32 = by_path(f32_paths, "fwd_cuda_tf32x3")
+    fwd_simt = by_path({**tc_paths, **f32_paths}, "fwd_cuda_simt")
+    simt_flash = first_on(flash_cases, "simt")
+    main_numbers = ("max_abs_err", "tol", "ratio", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "bound_peak", "library_ms")
     kernels = [
         dict(name="probe", route="cuda", source=src + "common.cuh",
              replaces="paddle_tpu/kernels/flash_attention.py:105",
@@ -1804,38 +1946,48 @@ def main():
                     if c["route"]["fwd"] == "tc"],
              bert_train=flash_case(bt_case, "fwd", ("out", "lse")),
              **main_train["fwd"]),
+        dict(name="flash_fwd_tf32x3", route="cuda", flash_route="cuda-tf32x3",
+             source=src + "flash_fwd.cu",
+             replaces="paddle_tpu/kernels/flash_attention.py:280",
+             launches=sum(fwd_tf32.values()), launches_by_path=fwd_tf32,
+             case=main_flash["case"],
+             cases=[c for c in flash_cases if c["route"] == "tf32x3"],
+             encoder_cases=enc_flash_cases,
+             train_cases=[flash_case(c, "fwd", ("out", "lse"))
+                          for c in all_train
+                          if c["route"]["fwd"] == "tf32x3"],
+             note="bound_ms counts 3 TF32 products per counted operation "
+                  "at the 495 TFLOP/s TF32 peak (3xTF32), or the bytes, the "
+                  "larger; library_ms is SDPA f32 (timed only)",
+             **{k: main_flash[k] for k in main_numbers}),
         dict(name="flash_fwd_simt", route="cuda", flash_route="cuda-simt",
              source=src + "flash_fwd.cu",
              replaces="paddle_tpu/kernels/flash_attention.py:280",
              launches=sum(fwd_simt.values()), launches_by_path=fwd_simt,
-             case=main_flash["case"], cases=flash_cases,
-             encoder_cases=enc_flash_cases,
-             train_cases=[flash_case(c, "fwd", ("out", "lse"))
-                          for c in all_train if c["route"]["fwd"] == "simt"],
-             **{k: main_flash[k] for k in (
-                 "max_abs_err", "tol", "ratio", "ms", "plain_ms", "bound_ms",
-                 "bound_by", "library_ms")}),
+             case=simt_flash["case"],
+             cases=[c for c in flash_cases if c["route"] == "simt"],
+             note="held at a case the tc and tf32x3 routes refuse (rows "
+                  "not 16-byte aligned); no main path launches it",
+             **{k: simt_flash[k] for k in main_numbers}),
     ]
-    for kname, part, line, grads in (
-            ("flash_bwd_dq", "dq", 452, ("dq",)),
-            ("flash_bwd_dkv", "dkv", 521, ("dk", "dv"))):
-        paths = {"training": training["launches"][kname],
-                 "moe_training": mt_l[kname],
-                 "bert_training": bt_l[kname]}
-        route = "simt"
-        if part == "dkv":
-            route, paths = "tc", by_path(tc_paths, "dkv_cuda_tc")
+    for kname, part, line, grads, route in (
+            ("flash_bwd_dq", "dq", 452, ("dq",), "tc"),
+            ("flash_bwd_dq_simt", "dq", 452, ("dq",), "simt"),
+            ("flash_bwd_dkv", "dkv", 521, ("dk", "dv"), "tc")):
+        paths = by_path(tc_paths, f"{part}_cuda_{route}")
+        main = main_train if route == "tc" else \
+            first_on(all_train, route, part)
         entry = dict(
             name=kname, route="cuda", flash_route=f"cuda-{route}",
             source=src + "flash_bwd.cu",
             replaces=f"paddle_tpu/kernels/flash_attention.py:{line}",
             launches=sum(paths.values()), launches_by_path=paths,
-            case=main_train["case"],
-            max_abs_err=max(main_train["max_abs_err"][n] for n in grads),
-            tol={n: main_train["tol"][n] for n in grads},
-            ratio=max(main_train["ratio"][n] for n in grads),
-            pass_ms=main_train["pass"]["ms"],
-            pass_bound_ms=main_train["pass"]["bound_ms"],
+            case=main["case"],
+            max_abs_err=max(main["max_abs_err"][n] for n in grads),
+            tol={n: main["tol"][n] for n in grads},
+            ratio=max(main["ratio"][n] for n in grads),
+            pass_ms=main["pass"]["ms"],
+            pass_bound_ms=main["pass"]["bound_ms"],
             note="bound_ms counts this kernel's own function (S and dP "
                  "recomputed in each backward kernel); pass_bound_ms counts "
                  "one backward pass (2.5x the forward's operations); "
@@ -1845,10 +1997,11 @@ def main():
                  "together: compare them with pass_ms",
             cases=[flash_case(c, part, grads) for c in all_train
                    if c["route"][part] == route],
-            bert_train=dict(flash_case(bt_case, part, grads),
-                            pass_ms=bt_case["pass"]["ms"]),
-            **main_train[part])
-        if part == "dkv":
+            **main[part])
+        if route == "tc":
+            entry["bert_train"] = dict(flash_case(bt_case, part, grads),
+                                       pass_ms=bt_case["pass"]["ms"])
+        if kname == "flash_bwd_dkv":
             entry["simt_cases"] = [flash_case(c, part, grads)
                                    for c in all_train
                                    if c["route"][part] == "simt"]
@@ -1910,7 +2063,8 @@ def main():
                                seconds=serve_s, tokens_per_s=tok_s,
                                decode_ticks=ticks,
                                preemptions=counters.get(
-                                   "serving.preemptions", 0)),
+                                   "serving.preemptions", 0),
+                               flash_routes=serving_routes),
                   counters=counters, agreement=agree,
                   flash_train_cases=train_cases, model_cross_check=xcheck,
                   training=training, moe_kernel_cases=moe_cases,

@@ -12,12 +12,23 @@
 // paddle [B, S, H, D] layout, ragged edges are masked here, and
 // sq != sk goes through diag_off = sk - sq like the forward.
 //
-// - dQ kernel: one block per (batch*head, 64-row q tile), 4 warps of 16
-//   rows. Q (pre-scaled), dO, lse and Delta are staged once; K and V
-//   stream through shared memory 32 keys at a time over the key tiles
-//   the band and window allow. Per tile S and dP are recomputed (lane =
-//   key column), dS goes through shared memory, and dS K accumulates in
-//   f32 registers (lane = output column).
+// Each kernel takes one of two routes, chosen in its entry by dtype and
+// shape (`tc::route`, the rule the forward shares; the wrapper's
+// `flash_route` mirrors it): tc for bf16 with a head dim that is a
+// multiple of 8 up to 256 and 16-byte aligned rows (every training path),
+// simt for the rest — f32, fp16 (whose exponent range cannot carry dS's
+// 16-bit split: csrc/flash_tc.cuh), odd head dims, unaligned rows.
+//
+// - dQ kernel, tc (`flash_bwd_dq_tc_kernel`): the tc forward's block
+//   structure with q rows as the M dimension; S, dP and dQ += dS K by
+//   mma.sync from ldmatrix fragments, dS split into bf16 hi + lo terms for
+//   its product (below). simt (`flash_bwd_dq_kernel`): one block per
+//   (batch*head, 64-row q tile), 4 warps of 16 rows. Q (pre-scaled), dO,
+//   lse and Delta are staged once; K and V stream through shared memory
+//   32 keys at a time over the key tiles the band and window allow. Per
+//   tile S and dP are recomputed (lane = key column), dS goes through
+//   shared memory, and dS K accumulates in f32 registers (lane = output
+//   column).
 // - dK/dV kernel: here the port departs from the Pallas block structure,
 //   which writes per-q-head partials in k's dtype and sums a GQA group
 //   afterwards. One block per (batch, kv head, 64-key tile) keeps its K
@@ -25,30 +36,27 @@
 //   heads and over the q tiles the band and window allow. dK and dV
 //   accumulate in f32 registers across the whole group and are written
 //   once: no partial buffer, no second pass, no atomics, and the result
-//   is deterministic. Two routes, chosen in `flash_bwd_dkv_launch` by
-//   dtype and shape (`tc::route_ok`, as the forward's):
-//   - tc (bf16/fp16, head dim a multiple of 8 up to 256, 16-byte aligned
-//     rows: every training path): `flash_bwd_dkv_tc_kernel`, mma.sync
-//     tiles with keys as the M dimension, Q/dO streamed through a
-//     cp.async ring, P^T and dS^T split into 16-bit hi + lo terms for the
-//     second products (one bf16 rounding fails the port's gate ~9-23x,
-//     the split passes it at ~0.48; csrc/flash_tc.cuh). Two 16 x 128 f32
-//     accumulators a warp are 128 registers a thread at head dim <= 128;
-//     head dim 256 splits the columns over two warps.
-//   - simt (f32 and the rest): `flash_bwd_dkv_kernel`, 8 warps of 8 keys,
-//     32-row q tiles (lane = row), f32 FMA on the CUDA cores.
+//   is deterministic.
+//   - tc: `flash_bwd_dkv_tc_kernel`, mma.sync tiles with keys as the M
+//     dimension, Q/dO streamed through a cp.async ring, P^T and dS^T split
+//     into bf16 hi + lo terms for the second products (one bf16 rounding
+//     fails the port's gate ~9-23x, the split passes it at ~0.48;
+//     csrc/flash_tc.cuh). Two 16 x 128 f32 accumulators a warp are 128
+//     registers a thread at head dim <= 128; head dim 256 splits the
+//     columns over two warps.
+//   - simt: `flash_bwd_dkv_kernel`, 8 warps of 8 keys, 32-row q tiles
+//     (lane = row), f32 FMA on the CUDA cores.
 //
 // Both kernels skip a tile whose every row one flashmask band covers
-// before its operands are staged. dQ runs on the simt kernel on every
-// route and reads the same lse and Delta.
+// before its operands are staged, and read the same lse and Delta.
 //
 // What bounds them on an H100: arithmetic. A backward pass does 2.5x the
 // forward's operations (S once more, dP, dV, dK, dQ); these kernels
-// recompute S and dP in each of the two kernels, so they do 3.5x. The
-// simt inner loops read 16-byte vectors from padded shared memory (a row
-// per lane at stride dp + 4 is bank-conflict free) so they stay
-// FMA-bound. A tensor-core dQ, wgmma tiles and sharing S/dP between dQ
-// and dK/dV are later work.
+// recompute S and dP in each of the two kernels, so they do 3.5x (the tc
+// route 1.5x that on the split products). The simt inner loops read
+// 16-byte vectors from padded shared memory (a row per lane at stride
+// dp + 4 is bank-conflict free) so they stay FMA-bound. wgmma tiles and
+// sharing S/dP between dQ and dK/dV are later work.
 #include "flash_tc.cuh"
 
 namespace {
@@ -694,6 +702,217 @@ __global__ void __launch_bounds__(DkvTc<kD>::kThreads)
   }
 }
 
+// --------------------------------------------------------- dQ, tc route --
+//
+// The tc forward's block structure with q rows as the M dimension: one
+// block per (batch * head, 64-row q tile), the longest causal tiles
+// first. Q and dO are copied once by cp.async (lse and Delta of this
+// thread's two rows are read into registers beside them); K and V tiles of
+// kBK keys stream through a 2-stage cp.async ring in padded shared memory,
+// with one barrier a tile, over the key tiles the band and window allow,
+// skipping a tile one flashmask band covers whole before it is loaded.
+// Each warp owns one m16 row tile: S = Q K^T and dP = dO V^T by mma.sync
+// m16n8k16 from ldmatrix fragments (products of bf16 inputs, exact into
+// f32), P = exp2(scale log2e S - log2e lse) on the accumulators (0 for a
+// masked pair, a row past Sq or a row without keys: lse NEG_INF), dS =
+// P (dP - Delta) in place, split into hi + lo bf16 terms that are the A
+// operand as P is in the forward, and dQ += dS_hi K + dS_lo K from
+// ldmatrix.trans fragments of the same K tile that S read. dQ is scaled
+// once on store. At head dim 256 eight warps run: two per row tile, each
+// owning half of dQ's columns (both compute that tile's S and dP), so the
+// accumulator stays at 64 registers a thread. GQA by index: q head h reads
+// kv head h / rep, and dQ needs no group sum. bf16 only (see the route
+// rule in flash_tc.cuh).
+
+template <int kD>
+struct DqTc {
+  static constexpr int kWD = kD > 128 ? 2 : 1;    // warps per row tile
+  static constexpr int kDW = kD / kWD;            // dQ columns per warp
+  static constexpr int kM = 1;                    // m16 row tiles a warp
+  static constexpr int kWarps = 4 * kWD;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBQ = 64 * kM;             // q rows per block
+  static constexpr int kBK = kD <= 64 ? 64 : 32;  // keys per tile
+  static constexpr int kLd = kD + 8;              // shared row stride
+  static constexpr int kNT = kBK / 8;             // S n8 tiles
+  static constexpr int kDT = kDW / 8;             // dQ n8 tiles per warp
+  template <typename T>
+  static constexpr size_t smem() {
+    // Q, dO [kBQ][kLd]; K, V [2][kBK][kLd]; bands [2][4][kBK] (int)
+    return sizeof(T) * (2 * size_t(kBQ) + 4 * size_t(kBK)) * kLd +
+           sizeof(int) * 8 * size_t(kBK);
+  }
+};
+
+template <int kD>
+__global__ void __launch_bounds__(DqTc<kD>::kThreads)
+    flash_bwd_dq_tc_kernel(Args a) {
+  using T = __nv_bfloat16;
+  using C = DqTc<kD>;
+  constexpr int kBQ = C::kBQ, kBK = C::kBK, kLd = C::kLd, kM = C::kM;
+  constexpr int kNT = C::kNT, kDT = C::kDT, kThreads = C::kThreads;
+  const T* __restrict__ q = static_cast<const T*>(a.q);
+  const T* __restrict__ k = static_cast<const T*>(a.k);
+  const T* __restrict__ v = static_cast<const T*>(a.v);
+  const T* __restrict__ dout = static_cast<const T*>(a.dout);
+  T* __restrict__ dq = static_cast<T*>(a.out0);
+  const int H = a.H, Sq = a.Sq, Sk = a.Sk, D = a.D;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int hq = bh - b * H;
+  const int hk = hq / (H / a.Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int q_end = min(q0 + kBQ, Sq);
+  const int diag = Sk - Sq;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (warp & 3) * 16 * kM;  // this warp's rows [r0, +16 kM)
+  const int c0 = (warp >> 2) * C::kDW;  // and dQ columns [c0, c0 + kDW)
+
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  T* q_s = reinterpret_cast<T*>(smem_tc);                    // [kBQ][kLd]
+  T* do_s = q_s + kBQ * kLd;                                 // [kBQ][kLd]
+  T* k_s = do_s + kBQ * kLd;                                 // [2][kBK][kLd]
+  T* v_s = k_s + 2 * kBK * kLd;                              // [2][kBK][kLd]
+  int* se_s = reinterpret_cast<int*>(v_s + 2 * kBK * kLd);  // [2][4][kBK]
+  const T* kb = k + b * a.k_sb + hk * a.k_sh;
+  const T* vb = v + b * a.v_sb + hk * a.v_sh;
+  const int* seb = a.se == nullptr
+                       ? nullptr
+                       : a.se + b * a.se_sb + (hq / (H / a.h_se)) * a.se_sh;
+  int kt_lo, kt_hi;
+  fl::k_tile_range(q0, q_end, Sk, kBK, a.causal, a.window, diag, &kt_lo,
+                   &kt_hi);
+  auto next = [&](int kt) {  // block-uniform whole-tile skip
+    if (seb != nullptr)
+      while (kt < kt_hi &&
+             fl::tile_full(fl::warp_band_extremes<kBK>(seb, a.se_s4, kt * kBK,
+                                                       Sk, lane),
+                           q0, q_end))
+        ++kt;
+    return kt;
+  };
+  auto load_kv = [&](int kt, int st) {
+    if (kt < kt_hi) {
+      const int k0 = kt * kBK;
+      tc::load_tile<T, kBK, kD, kLd, kThreads>(k_s + st * kBK * kLd, kb,
+                                               a.k_ss, k0, Sk, D, tid);
+      tc::load_tile<T, kBK, kD, kLd, kThreads>(v_s + st * kBK * kLd, vb,
+                                               a.v_ss, k0, Sk, D, tid);
+      if (seb != nullptr && tid < kBK) {
+        const fl::Bands bj = fl::load_bands(seb, a.se_s4, k0 + tid, Sk);
+        int* s = se_s + st * 4 * kBK + tid;
+        s[0] = bj.lts;
+        s[kBK] = bj.lte;
+        s[2 * kBK] = bj.uts;
+        s[3 * kBK] = bj.ute;
+      }
+    }
+    tc::cp_async_commit();
+  };
+
+  tc::load_tile<T, kBQ, kD, kLd, kThreads>(
+      q_s, q + b * a.q_sb + hq * a.q_sh, a.q_ss, q0, Sq, D, tid);
+  tc::load_tile<T, kBQ, kD, kLd, kThreads>(
+      do_s, dout + b * a.do_sb + hq * a.do_sh, a.do_ss, q0, Sq, D, tid);
+  int kt = next(kt_lo);
+  load_kv(kt, 0);  // one group: Q, dO and the first key tile
+
+  // log2e lse (inf for a row past Sq or without keys: P = 0) and Delta of
+  // rows g and g + 8 of each of this warp's row tiles
+  float lse2[kM][2], dl[kM][2];
+#pragma unroll
+  for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = q0 + r0 + 16 * mi + g + 8 * h;
+      const float lse = qi < Sq ? a.lse[size_t(bh) * Sq + qi] : fl::kNegInf;
+      lse2[mi][h] = lse > fl::kRowInvalidLse ? lse * tc::kLog2e : INFINITY;
+      dl[mi][h] = qi < Sq ? a.delta[size_t(bh) * Sq + qi] : 0.f;
+    }
+
+  float acc[kM][kDT][4];
+#pragma unroll
+  for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+    for (int n = 0; n < kDT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0.f;
+  const float sl2 = a.scale * tc::kLog2e;
+
+  for (int st = 0; kt < kt_hi; st ^= 1) {
+    tc::cp_async_wait<0>();
+    // tile kt (and Q, dO) landed for every thread, and every warp is done
+    // with the tile before it, whose stage the next copy refills
+    __syncthreads();
+    const int kn = next(kt + 1);
+    load_kv(kn, st ^ 1);
+    const T* ks = k_s + st * kBK * kLd;
+    const int k0 = kt * kBK;
+
+    float s[kM][kNT][4], dp[kM][kNT][4];
+    tc::warp_abt<T, kM, kNT, kD, kLd, kLd>(q_s, ks, r0, lane, s);
+    tc::warp_abt<T, kM, kNT, kD, kLd, kLd>(do_s, v_s + st * kBK * kLd, r0,
+                                           lane, dp);
+
+    // P and dS in place; masks only where the band, the window, the bands
+    // or the ragged key edge reach into the tile
+    const bool masked =
+        seb != nullptr || k0 + kBK > Sk ||
+        (a.causal && (q0 + diag < k0 + kBK - 1 ||
+                      (a.window > 0 && q_end - 1 + diag - k0 >= a.window)));
+    const int* sst = se_s + st * 4 * kBK;
+#pragma unroll
+    for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          float p = exp2f(fmaf(s[mi][n][e], sl2, -lse2[mi][h]));
+          if (masked) {
+            const int qi = q0 + r0 + 16 * mi + g + 8 * h;
+            const int jl = n * 8 + 2 * t + (e & 1);
+            bool keep = fl::band_keep(qi, k0 + jl, Sq, Sk, a.causal,
+                                      a.window, diag);
+            if (seb != nullptr)
+              keep = keep &&
+                     !fl::band_masked(
+                         fl::Bands{sst[jl], sst[kBK + jl], sst[2 * kBK + jl],
+                                   sst[3 * kBK + jl]},
+                         qi);
+            if (!keep) p = 0.f;
+          }
+          dp[mi][n][e] = p * (dp[mi][n][e] - dl[mi][h]);
+        }
+
+    // dQ += dS_hi K + dS_lo K
+    tc::warp_pb_split<T, kM, kNT, kDT, kLd>(dp, ks, c0, lane, acc);
+    kt = kn;
+  }
+  tc::cp_async_wait<0>();
+
+  // dQ carries the scale of S = scale q k^T once, here
+#pragma unroll
+  for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = q0 + r0 + 16 * mi + g + 8 * h;
+      if (qi >= Sq) continue;
+      T* row = dq + ((size_t(b) * Sq + qi) * H + hq) * size_t(D);
+#pragma unroll
+      for (int n = 0; n < kDT; ++n) {
+        const int c = c0 + n * 8 + 2 * t;
+        if (c < D)
+          *reinterpret_cast<unsigned*>(row + c) =
+              tc::pack2<T>(acc[mi][n][2 * h] * a.scale,
+                           acc[mi][n][2 * h + 1] * a.scale);
+      }
+    }
+}
+
 // ------------------------------------------------------------ launch --
 
 template <typename Kernel>
@@ -734,16 +953,34 @@ int launch_dkv_tc_d(const Args& a, int B, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dkv_tc(const Args& a, int B, cudaStream_t stream) {
+template <int kD>
+int launch_dq_tc_d(const Args& a, int B, cudaStream_t stream) {
+  using C = DqTc<kD>;
+  auto kernel = flash_bwd_dq_tc_kernel<kD>;
+  const size_t smem = C::template smem<__nv_bfloat16>();
+  if (int e = set_smem(kernel, smem)) return e;
+  dim3 grid(B * a.H, (a.Sq + C::kBQ - 1) / C::kBQ);
+  kernel<<<grid, C::kThreads, smem, stream>>>(a);
+  return int(cudaGetLastError());
+}
+
+// the tc kernels (bf16 only) at the tile head dim of D
+int launch_tc(const Args& a, int B, tc::Kernel kernel, cudaStream_t s) {
+  using T = __nv_bfloat16;
+  const bool dq = kernel == tc::kDq;
   switch (tc::tile_d(a.D)) {
-    case 32: return launch_dkv_tc_d<T, 32>(a, B, stream);
-    case 64: return launch_dkv_tc_d<T, 64>(a, B, stream);
-    case 128: return launch_dkv_tc_d<T, 128>(a, B, stream);
-    default: return launch_dkv_tc_d<T, 256>(a, B, stream);
+    case 32: return dq ? launch_dq_tc_d<32>(a, B, s)
+                       : launch_dkv_tc_d<T, 32>(a, B, s);
+    case 64: return dq ? launch_dq_tc_d<64>(a, B, s)
+                       : launch_dkv_tc_d<T, 64>(a, B, s);
+    case 128: return dq ? launch_dq_tc_d<128>(a, B, s)
+                        : launch_dkv_tc_d<T, 128>(a, B, s);
+    default: return dq ? launch_dq_tc_d<256>(a, B, s)
+                       : launch_dkv_tc_d<T, 256>(a, B, s);
   }
 }
 
+// the simt kernels: which 0 dQ, 1 dK/dV
 template <typename T>
 int launch(const Args& a, int B, int which, cudaStream_t stream) {
   const int dpl = a.D <= 32 ? 1 : a.D <= 64 ? 2 : a.D <= 128 ? 4
@@ -761,27 +998,24 @@ int launch(const Args& a, int B, int which, cudaStream_t stream) {
   }
 }
 
-// which: 0 dQ (simt), 1 dK/dV on the simt route, 2 dK/dV on the tc route
-int dispatch(const Args& a, int B, int which, int dtype, void* stream) {
+// One backward kernel (dQ or dK/dV) on the route `tc::route` gives.
+int dispatch(const Args& a, int B, tc::Kernel kernel, int dtype,
+             void* stream) {
   if (a.h_se < 1 || a.H % a.Hkv != 0 || a.Hkv % a.h_se != 0)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype * 4 + which) {
-    case pt::kF32 * 4 + 0:
-    case pt::kF32 * 4 + 1:
-      return launch<float>(a, B, which, s);
-    case pt::kBF16 * 4 + 0:
-    case pt::kBF16 * 4 + 1:
-      return launch<__nv_bfloat16>(a, B, which, s);
-    case pt::kBF16 * 4 + 2:
-      return launch_dkv_tc<__nv_bfloat16>(a, B, s);
-    case pt::kF16 * 4 + 0:
-    case pt::kF16 * 4 + 1:
-      return launch<__half>(a, B, which, s);
-    case pt::kF16 * 4 + 2:
-      return launch_dkv_tc<__half>(a, B, s);
-    default:
-      return int(cudaErrorInvalidValue);
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  const long long st[12] = {a.q_sb, a.q_ss, a.q_sh, a.k_sb,  a.k_ss,
+                            a.k_sh, a.v_sb, a.v_ss, a.v_sh, a.do_sb,
+                            a.do_ss, a.do_sh};
+  if (tc::route(kernel, dtype, a.D, ptrs, 4, st, 12) == tc::kTc)
+    return launch_tc(a, B, kernel, s);
+  const int which = kernel == tc::kDq ? 0 : 1;
+  switch (dtype) {
+    case pt::kF32: return launch<float>(a, B, which, s);
+    case pt::kBF16: return launch<__nv_bfloat16>(a, B, which, s);
+    case pt::kF16: return launch<__half>(a, B, which, s);
+    default: return int(cudaErrorInvalidValue);
   }
 }
 
@@ -830,14 +1064,12 @@ PT_DEFINE_PROBE(flash_bwd)
 extern "C" int flash_bwd_dq_launch(FLASH_BWD_PARAMS) {
   const long long st[12] = {q_sb, q_ss, q_sh, k_sb,  k_ss,  k_sh,
                             v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
-  return dispatch(FLASH_BWD_ARGS, B, 0, dtype, stream);
+  return dispatch(FLASH_BWD_ARGS, B, tc::kDq, dtype, stream);
 }
 
 extern "C" int flash_bwd_dkv_launch(FLASH_BWD_PARAMS) {
   const long long st[12] = {q_sb, q_ss, q_sh, k_sb,  k_ss,  k_sh,
                             v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
   if (out1 == nullptr) return int(cudaErrorInvalidValue);
-  const void* ptrs[4] = {q, k, v, dout};
-  const bool tc_route = tc::route_ok(dtype, D, ptrs, 4, st, 12);
-  return dispatch(FLASH_BWD_ARGS, B, tc_route ? 2 : 1, dtype, stream);
+  return dispatch(FLASH_BWD_ARGS, B, tc::kDkv, dtype, stream);
 }

@@ -20,23 +20,30 @@
 // wrapper reads q/k/v in the paddle [B, S, H, D] layout without a
 // transpose copy and writes out contiguous [B, Sq, H, D].
 //
-// Two routes, chosen in `flash_fwd_launch` by dtype and shape
-// (`tc::route_ok`; the wrapper's `flash_route` mirrors it):
+// Three routes, chosen in `flash_fwd_launch` by dtype and shape
+// (`tc::route`; the wrapper's `flash_route` mirrors it):
 //
 // - tc: bf16 and fp16 operands with a head dim that is a multiple of 8 up
 //   to 256 and 16-byte aligned rows — every training path (LLaMA
 //   [12, 1024, 32, 128], ERNIE-MoE [32, 512, 16, 64], BERT [256, 128, 12,
-//   64]). Tensor-core tiles (`flash_fwd_tc_kernel`, below): mma.sync
-//   m16n8k16 with f32 accumulators from ldmatrix fragments, K/V through a
-//   cp.async ring, the online softmax on the accumulators. P is split
-//   into P_hi + P_lo, both 16-bit, for O += P V: one rounding of P to
-//   bf16 (FlashAttention-2/3's arithmetic) fails the port's bf16 gate by
+//   64]). mma.sync m16n8k16 with f32 accumulators from ldmatrix
+//   fragments, K/V through a cp.async ring, the online softmax on the
+//   accumulators (`flash_fwd_mma_kernel` with `FwdTc`, below). P is split
+//   into P_hi + P_lo, both 16-bit, for O += P V: one rounding of P to bf16
+//   (FlashAttention-2/3's arithmetic) fails the port's bf16 gate by
 //   ~6-23x, the split passes it at ~0.48, as f32 math does
 //   (csrc/flash_tc.cuh, tests/test_torch_flash_tc_arith.py). The split
 //   costs 1.5x the tensor-core operations.
-// - simt: f32, and 16-bit shapes the tc route does not take — the f32
-//   serving paths (LLaMA no-cache forward, the encoder) and the head-dim-64
-//   probe. f32 math on the CUDA cores (`flash_fwd_kernel`): one block per
+// - tf32x3: f32 operands with a head dim that is a multiple of 8 up to 256,
+//   16-byte aligned rows and strides that are multiples of 4 elements —
+//   the f32 serving paths (LLaMA no-cache forward [2, 1024, 32, 128], the
+//   encoder [16, L, 12, 64] with key bands) and the head-dim-64 probe. The
+//   same kernel body with `FwdTf32`: mma.sync m16n8k8 on tf32 operands,
+//   each product taken as big big + big small + small big (3xTF32), which
+//   holds the f32 gate (atol 1e-4 of max(1, max |ref|)) that one TF32
+//   product misses.
+// - simt: what the other two refuse (an odd head dim, unaligned rows).
+//   f32 math on the CUDA cores (`flash_fwd_kernel`): one block per
 //   (batch*head, 64-row q tile), 4 warps of 16 rows each; K/V stream
 //   through shared memory 32 keys at a time (one key column per lane); q,
 //   K and the probabilities are read as 16-byte vectors from shared
@@ -47,11 +54,14 @@
 // operations nearly tie (~400 MB of q, k, v and out at 3.35 TB/s; ~103
 // GFLOP of S and P V at the bf16 peak); at BERT's S 128, bytes. The tc
 // route issues 1.5x those operations (the split) through mma.sync, whose
-// rate is below wgmma's; PERF.md keeps its times beside the bound. Both
-// routes run the key tiles that meet the causal band and the window
-// only, and skip a tile whose every row one flashmask band covers before
-// its K/V are loaded (the document mask's cross-document tiles). wgmma
-// tiles fed by TMA are later work.
+// rate is below wgmma's; f32-grade results on the tensor cores take 3x
+// the operations at the TF32 peak (495 TFLOP/s), so the tf32x3 route's
+// bound at the LLaMA serving shape (17.2 GFLOP counted) is operations.
+// PERF.md keeps the times beside the bounds. Every route runs the key
+// tiles that meet the causal band and the window only, and skips a tile
+// whose every row one flashmask band covers before its K/V are loaded
+// (the document mask's cross-document tiles). wgmma tiles fed by TMA are
+// later work.
 #include "flash_tc.cuh"
 
 namespace {
@@ -284,100 +294,114 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   return int(cudaErrorInvalidValue);
 }
 
-// The head-dim-64 probe (row 5): one block computes s = x x^T
-// ([128, 128], f32) and o = s x ([128, 64]) for an f32 x [128, 64] with
-// the forward's own pieces at head dim 64 — the tiles `stage`d into the
-// forward's shared-memory layout (q [kBQ][64], K [kBK][68], V [kBK][64],
-// P [kBQ][kBK]), S by `warp_qk`, and P V into the kDPL = 2 register
-// layout by `warp_pv` (s staged through P one 32-key tile at a time,
-// without the softmax), over two 64-row tiles of x.
-constexpr int kProbeRows = 128;
-constexpr int kProbeD = 64;
-
-__global__ void __launch_bounds__(kThreads)
-    minor64_probe_kernel(const float* __restrict__ x, float* __restrict__ o) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int r0 = (tid >> 5) * kRows;
-  const int dp = fl::pad4(kProbeD);
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + kBQ * dp;
-  float* v_s = k_s + kBK * (dp + 4);
-  float* p_s = v_s + kBK * dp;
-  for (int q0 = 0; q0 < kProbeRows; q0 += kBQ) {
-    __syncthreads();  // the previous row tile is consumed
-    fl::stage<float, kThreads>(x, kProbeD, q0, kBQ, kProbeRows, kProbeD, dp,
-                               q_s, dp, 1.f, tid);
-    float acc[kRows][2];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r][0] = acc[r][1] = 0.f;
-    for (int k0 = 0; k0 < kProbeRows; k0 += kBK) {
-      __syncthreads();  // the previous K/V tile is consumed
-      fl::stage<float, kThreads>(x, kProbeD, k0, kBK, kProbeRows, kProbeD,
-                                 dp, k_s, dp + 4, 1.f, tid);
-      fl::stage<float, kThreads>(x, kProbeD, k0, kBK, kProbeRows, kProbeD,
-                                 dp, v_s, dp, 1.f, tid);
-      __syncthreads();
-      float s[kRows];
-      warp_qk(q_s, k_s, dp, r0, lane, s);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) p_s[(r0 + r) * kBK + lane] = s[r];
-      __syncwarp();
-      warp_pv(p_s, v_s, dp, r0, lane, acc);
-      __syncwarp();
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float* orow = o + size_t(q0 + r0 + r) * kProbeD;
-      orow[lane] = acc[r][0];
-      orow[lane + 32] = acc[r][1];
-    }
-  }
-}
-
-// ------------------------------------------------------------ tc route --
+// ------------------------------------------------- tc and tf32x3 routes --
 //
+// One kernel body, `flash_fwd_mma_kernel<C>`, for both tensor-core routes;
+// the traits C name the operand type, the tile shape and the two products.
 // One block per (batch * head, kBQ-row q tile); each warp owns kM m16
 // row tiles, so each K/V fragment it loads feeds kM products. The q tile
 // is copied once by cp.async; K/V tiles of kBK keys stream through a
-// 2-stage cp.async ring in padded shared memory (row stride kD + 8
-// elements: ldmatrix reads are conflict-free), with one barrier a tile.
-// S = Q K^T by mma.sync m16n8k16 from ldmatrix fragments; the online
-// softmax runs on the accumulators (scale applied in f32, exp2 with
-// scale * log2e folded in, masks only on tiles the band, window, bands
-// or the ragged key edge reach); P is split into bf16 (fp16) P_hi and
-// P_lo in registers and O += P_hi V + P_lo V from ldmatrix.trans
-// fragments of V; l is summed from the unsplit P.
+// 2-stage cp.async ring in padded shared memory, with one barrier a tile.
+// S = Q K^T into f32 accumulators; the online softmax runs on the
+// accumulators (scale applied in f32, exp2 with scale * log2e folded in,
+// masks only on tiles the band, window, bands or the ragged key edge
+// reach); O += P V with P taken from the accumulators as the A operand
+// and split (16-bit hi + lo, or tf32 big + small); l is summed from the
+// unsplit P.
+//
+// - FwdTc (bf16/fp16): mma.sync m16n8k16 from ldmatrix fragments (rows of
+//   kD + 8 elements: ldmatrix reads are conflict-free). Tile shapes from a
+//   comparison on the card (PERF.md): two row tiles a warp halve the
+//   ldmatrix traffic per product; 32-key tiles keep head dim 128's
+//   accumulators (2 x 64 + 2 x 16 a thread) near the register file; head
+//   dim 256 keeps one row tile a warp.
+// - FwdTf32 (f32): mma.sync m16n8k8 on tf32 operands, 3xTF32 (each
+//   product big big + big small + small big, csrc/flash_tc.cuh), fragments
+//   read by 32-bit loads from rows of kD + 8 (Q, K) and kD + 4 (V) words,
+//   split as they are read. Shared memory is twice the 16-bit kernel's per
+//   element, so every head dim runs one row tile a warp and 32-key tiles:
+//   64-row q tiles, two blocks an SM at head dim 128, and twice the blocks
+//   of 128-row tiles at the encoder's short sequences (a comparison on the
+//   card found two row tiles a warp no faster at head dim 128, where they
+//   spill, and slower at 64).
 
-// Tile shapes from a comparison on the card (PERF.md): two row
-// tiles a warp halve the ldmatrix traffic per product; 32-key tiles keep
-// head dim 128's accumulators (2 x 64 + 2 x 16 a thread) near the
-// register file; head dim 256 keeps one row tile a warp.
-template <int kD>
+template <typename T, int kD_>
 struct FwdTc {
+  using Elem = T;
+  static constexpr int kD = kD_;
   static constexpr int kWarps = kD <= 128 ? 4 : 8;  // warps per block
   static constexpr int kM = kD <= 128 ? 2 : 1;      // m16 row tiles a warp
   static constexpr int kBK = kD <= 64 ? 64 : 32;    // keys per tile
-  static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kBQ = 16 * kM * kWarps;     // query rows per block
-  static constexpr int kLd = kD + 8;               // shared row stride
-  static constexpr int kNT = kBK / 8;              // S n8 tiles per row tile
-  static constexpr int kDT = kD / 8;               // O n8 tiles per row tile
-  template <typename T>
-  static constexpr size_t smem() {
-    // q [kBQ][kLd], K and V [2][kBK][kLd], bands [2][4][kBK] (int)
-    return sizeof(T) * (size_t(kBQ) + 4 * size_t(kBK)) * kLd +
-           sizeof(int) * 8 * size_t(kBK);
+  static constexpr int kLdQ = kD + 8, kLdK = kD + 8, kLdV = kD + 8;
+  static constexpr int kNT = kBK / 8;               // S n8 tiles per row tile
+  static constexpr int kDT = kD / 8;                // O n8 tiles per row tile
+  static __device__ __forceinline__ void qk(const T* q_s, const T* k_s,
+                                            int r0, int lane,
+                                            float (&s)[kM][kNT][4]) {
+    tc::warp_abt<T, kM, kNT, kD, kLdQ, kLdK>(q_s, k_s, r0, lane, s);
+  }
+  static __device__ __forceinline__ void pv(const float (&p)[kM][kNT][4],
+                                            const T* v_s, int lane,
+                                            float (&acc)[kM][kDT][4]) {
+    tc::warp_pb_split<T, kM, kNT, kDT, kLdV>(p, v_s, 0, lane, acc);
+  }
+  static __device__ __forceinline__ void store2(T* p, float x, float y) {
+    *reinterpret_cast<unsigned*>(p) = tc::pack2<T>(x, y);
   }
 };
 
-template <typename T, int kD>
-__global__ void __launch_bounds__(FwdTc<kD>::kThreads)
-    flash_fwd_tc_kernel(Args a) {
-  using C = FwdTc<kD>;
-  constexpr int kBQ = C::kBQ, kBK = C::kBK, kLd = C::kLd, kM = C::kM;
-  constexpr int kNT = C::kNT, kDT = C::kDT, kThreads = C::kThreads;
+template <int kD>
+using FwdBf16 = FwdTc<__nv_bfloat16, kD>;
+template <int kD>
+using FwdF16 = FwdTc<__half, kD>;
+
+template <int kD_>
+struct FwdTf32 {
+  using Elem = float;
+  static constexpr int kD = kD_;
+  static constexpr int kWarps = 4;
+  static constexpr int kM = 1;
+  static constexpr int kBK = 32;
+  static constexpr int kLdQ = kD + 8, kLdK = kD + 8, kLdV = kD + 4;
+  static constexpr int kNT = kBK / 8;
+  static constexpr int kDT = kD / 8;
+  static __device__ __forceinline__ void qk(const float* q_s,
+                                            const float* k_s, int r0,
+                                            int lane,
+                                            float (&s)[kM][kNT][4]) {
+    tc::warp_abt_tf32x3<kM, kNT, kD, kLdQ, kLdK>(q_s, k_s, r0, lane, s);
+  }
+  static __device__ __forceinline__ void pv(const float (&p)[kM][kNT][4],
+                                            const float* v_s, int lane,
+                                            float (&acc)[kM][kDT][4]) {
+    tc::warp_pb_tf32x3<kM, kNT, kDT, kLdV>(p, v_s, lane, acc);
+  }
+  static __device__ __forceinline__ void store2(float* p, float x, float y) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  }
+};
+
+// The block shape and shared memory of a traits struct C.
+template <class C>
+struct Tile {
+  static constexpr int kThreads = 32 * C::kWarps;
+  static constexpr int kBQ = 16 * C::kM * C::kWarps;  // query rows a block
+  static constexpr size_t smem() {
+    // q [kBQ][kLdQ], K [2][kBK][kLdK], V [2][kBK][kLdV], bands [2][4][kBK]
+    return sizeof(typename C::Elem) *
+               (size_t(kBQ) * C::kLdQ + 2 * size_t(C::kBK) * (C::kLdK + C::kLdV)) +
+           sizeof(int) * 8 * size_t(C::kBK);
+  }
+};
+
+template <class C>
+__global__ void __launch_bounds__(Tile<C>::kThreads)
+    flash_fwd_mma_kernel(Args a) {
+  using T = typename C::Elem;
+  constexpr int kD = C::kD, kBK = C::kBK, kM = C::kM;
+  constexpr int kLdQ = C::kLdQ, kLdK = C::kLdK, kLdV = C::kLdV;
+  constexpr int kNT = C::kNT, kDT = C::kDT;
+  constexpr int kBQ = Tile<C>::kBQ, kThreads = Tile<C>::kThreads;
   const T* __restrict__ q = static_cast<const T*>(a.q);
   const T* __restrict__ k = static_cast<const T*>(a.k);
   const T* __restrict__ v = static_cast<const T*>(a.v);
@@ -397,10 +421,10 @@ __global__ void __launch_bounds__(FwdTc<kD>::kThreads)
   const int g = lane >> 2, t = lane & 3;
 
   extern __shared__ __align__(16) unsigned char smem_tc[];
-  T* q_s = reinterpret_cast<T*>(smem_tc);        // [kBQ][kLd]
-  T* k_s = q_s + kBQ * kLd;                                  // [2][kBK][kLd]
-  T* v_s = k_s + 2 * kBK * kLd;                              // [2][kBK][kLd]
-  int* se_s = reinterpret_cast<int*>(v_s + 2 * kBK * kLd);  // [2][4][kBK]
+  T* q_s = reinterpret_cast<T*>(smem_tc);                   // [kBQ][kLdQ]
+  T* k_s = q_s + kBQ * kLdQ;                                // [2][kBK][kLdK]
+  T* v_s = k_s + 2 * kBK * kLdK;                            // [2][kBK][kLdV]
+  int* se_s = reinterpret_cast<int*>(v_s + 2 * kBK * kLdV);  // [2][4][kBK]
   const T* kb = k + b * a.k_sb + hk * a.k_sh;
   const T* vb = v + b * a.v_sb + hk * a.v_sh;
   const int* seb = a.se == nullptr
@@ -424,10 +448,10 @@ __global__ void __launch_bounds__(FwdTc<kD>::kThreads)
   auto load_kv = [&](int kt, int st) {
     if (kt < kt_hi) {
       const int k0 = kt * kBK;
-      tc::load_tile<T, kBK, kD, kLd, kThreads>(k_s + st * kBK * kLd, kb,
-                                               a.k_ss, k0, Sk, D, tid);
-      tc::load_tile<T, kBK, kD, kLd, kThreads>(v_s + st * kBK * kLd, vb,
-                                               a.v_ss, k0, Sk, D, tid);
+      tc::load_tile<T, kBK, kD, kLdK, kThreads>(k_s + st * kBK * kLdK, kb,
+                                                a.k_ss, k0, Sk, D, tid);
+      tc::load_tile<T, kBK, kD, kLdV, kThreads>(v_s + st * kBK * kLdV, vb,
+                                                a.v_ss, k0, Sk, D, tid);
       if (seb != nullptr && tid < kBK) {
         const fl::Bands bj = fl::load_bands(seb, a.se_s4, k0 + tid, Sk);
         int* s = se_s + st * 4 * kBK + tid;
@@ -440,7 +464,7 @@ __global__ void __launch_bounds__(FwdTc<kD>::kThreads)
     tc::cp_async_commit();  // one group a tile, empty past the last one
   };
 
-  tc::load_tile<T, kBQ, kD, kLd, kThreads>(
+  tc::load_tile<T, kBQ, kD, kLdQ, kThreads>(
       q_s, q + b * a.q_sb + hq * a.q_sh, a.q_ss, q0, Sq, D, tid);
   int kt = next(kt_lo);
   load_kv(kt, 0);  // one group: q and the first key tile
@@ -471,37 +495,11 @@ __global__ void __launch_bounds__(FwdTc<kD>::kThreads)
     __syncthreads();
     const int kn = next(kt + 1);
     load_kv(kn, st ^ 1);
-    const T* ks = k_s + st * kBK * kLd;
-    const T* vs = v_s + st * kBK * kLd;
     const int k0 = kt * kBK;
 
     // S = Q K^T for this warp's kM x 16 rows x kBK keys
     float s[kM][kNT][4];
-#pragma unroll
-    for (int mi = 0; mi < kM; ++mi)
-#pragma unroll
-      for (int n = 0; n < kNT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[mi][n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      unsigned qa[kM][4];
-#pragma unroll
-      for (int mi = 0; mi < kM; ++mi)
-        tc::ldsm_x4(qa[mi], q_s + (r0 + 16 * mi + tc::a_row(lane)) * kLd +
-                                kk * 16 + tc::a_col(lane));
-#pragma unroll
-      for (int np = 0; np < kNT / 2; ++np) {
-        unsigned kf[4];
-        tc::ldsm_x4(kf, ks + (np * 16 + tc::b_row(lane)) * kLd + kk * 16 +
-                            tc::b_col(lane));
-#pragma unroll
-        for (int mi = 0; mi < kM; ++mi) {
-          tc::mma<T>(s[mi][2 * np], qa[mi], kf[0], kf[1]);
-          tc::mma<T>(s[mi][2 * np + 1], qa[mi], kf[2], kf[3]);
-        }
-      }
-    }
+    C::qk(q_s, k_s + st * kBK * kLdK, r0, lane, s);
 
     // masks, only where the band, the window, the bands or the ragged
     // key edge reach into the tile
@@ -564,27 +562,8 @@ __global__ void __launch_bounds__(FwdTc<kD>::kThreads)
         }
       }
 
-    // O += P_hi V + P_lo V, the accumulators of S as the A operand
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      unsigned ph[kM][4], pl[kM][4];
-#pragma unroll
-      for (int mi = 0; mi < kM; ++mi)
-        tc::split_a<T>(s[mi][2 * kk], s[mi][2 * kk + 1], ph[mi], pl[mi]);
-#pragma unroll
-      for (int dp = 0; dp < kD / 16; ++dp) {
-        unsigned vf[4];
-        tc::ldsm_x4_t(vf, vs + (kk * 16 + tc::a_row(lane)) * kLd + dp * 16 +
-                              tc::a_col(lane));
-#pragma unroll
-        for (int mi = 0; mi < kM; ++mi) {
-          tc::mma<T>(acc[mi][2 * dp], ph[mi], vf[0], vf[1]);
-          tc::mma<T>(acc[mi][2 * dp], pl[mi], vf[0], vf[1]);
-          tc::mma<T>(acc[mi][2 * dp + 1], ph[mi], vf[2], vf[3]);
-          tc::mma<T>(acc[mi][2 * dp + 1], pl[mi], vf[2], vf[3]);
-        }
-      }
-    }
+    // O += P V, the accumulators of S as the A operand
+    C::pv(s, v_s + st * kBK * kLdV, lane, acc);
     kt = kn;
   }
   tc::cp_async_wait<0>();
@@ -606,8 +585,8 @@ __global__ void __launch_bounds__(FwdTc<kD>::kThreads)
       for (int n = 0; n < kDT; ++n) {
         const int c = n * 8 + 2 * t;
         if (c < D)
-          *reinterpret_cast<unsigned*>(orow + c) = tc::pack2<T>(
-              acc[mi][n][2 * h] * inv, acc[mi][n][2 * h + 1] * inv);
+          C::store2(orow + c, acc[mi][n][2 * h] * inv,
+                    acc[mi][n][2 * h + 1] * inv);
       }
       if (a.lse != nullptr && t == 0)
         a.lse[size_t(bh) * Sq + qi] =
@@ -615,28 +594,98 @@ __global__ void __launch_bounds__(FwdTc<kD>::kThreads)
     }
 }
 
-template <typename T, int kD>
-int launch_tc_d(const Args& a, int B, cudaStream_t stream) {
-  using C = FwdTc<kD>;
-  auto kernel = flash_fwd_tc_kernel<T, kD>;
-  const size_t smem = C::template smem<T>();
+template <class C>
+int launch_mma_d(const Args& a, int B, cudaStream_t stream) {
+  auto kernel = flash_fwd_mma_kernel<C>;
+  const size_t smem = Tile<C>::smem();
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
   }
-  dim3 grid(B * a.H, (a.Sq + C::kBQ - 1) / C::kBQ);
-  kernel<<<grid, C::kThreads, smem, stream>>>(a);
+  dim3 grid(B * a.H, (a.Sq + Tile<C>::kBQ - 1) / Tile<C>::kBQ);
+  kernel<<<grid, Tile<C>::kThreads, smem, stream>>>(a);
   return int(cudaGetLastError());
 }
 
-template <typename T>
-int launch_tc(const Args& a, int B, cudaStream_t stream) {
+template <template <int> class C>
+int launch_mma(const Args& a, int B, cudaStream_t stream) {
   switch (tc::tile_d(a.D)) {
-    case 32: return launch_tc_d<T, 32>(a, B, stream);
-    case 64: return launch_tc_d<T, 64>(a, B, stream);
-    case 128: return launch_tc_d<T, 128>(a, B, stream);
-    default: return launch_tc_d<T, 256>(a, B, stream);
+    case 32: return launch_mma_d<C<32>>(a, B, stream);
+    case 64: return launch_mma_d<C<64>>(a, B, stream);
+    case 128: return launch_mma_d<C<128>>(a, B, stream);
+    default: return launch_mma_d<C<256>>(a, B, stream);
+  }
+}
+
+// The head-dim-64 probe (row 5): one block computes s = x x^T ([128, 128],
+// f32) and o = s x ([128, 64]) for an f32 x [128, 64] with the tf32x3
+// route's own tiles at head dim 64 (FwdTf32<64>: its warps, row tiles,
+// key tiles and padded shared-memory rows), 64-row tile by tile: S by
+// `qk`, then O += S V by `pv` with S in the accumulators as P stands there
+// in the forward, without the softmax. On the probe's input (integers in
+// [-3, 3]) every entry of s is an integer of magnitude <= 576 < 2^11 and
+// every entry of o one below 2^24, so each tf32 split is exact (small
+// terms 0) and so is every sum: the answer must equal (x x^T) x bit for
+// bit.
+using Probe = FwdTf32<64>;
+constexpr int kProbeRows = 128;
+static_assert(kProbeRows % Tile<Probe>::kBQ == 0 &&
+                  kProbeRows % Probe::kBK == 0,
+              "the probe's rows are whole row and key tiles");
+
+constexpr size_t probe_smem() {
+  return sizeof(float) * (size_t(Tile<Probe>::kBQ) * Probe::kLdQ +
+                          size_t(Probe::kBK) * (Probe::kLdK + Probe::kLdV));
+}
+
+__global__ void __launch_bounds__(Tile<Probe>::kThreads)
+    minor64_probe_kernel(const float* __restrict__ x, float* __restrict__ o) {
+  using C = Probe;
+  constexpr int kBK = C::kBK, kD = C::kD, kM = C::kM;
+  constexpr int kBQ = Tile<C>::kBQ, kThreads = Tile<C>::kThreads;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r0 = (tid >> 5) * 16 * kM;
+  const int g = lane >> 2, t = lane & 3;
+  extern __shared__ __align__(16) unsigned char smem_probe[];
+  float* q_s = reinterpret_cast<float*>(smem_probe);  // [kBQ][kLdQ]
+  float* k_s = q_s + kBQ * C::kLdQ;                     // [kBK][kLdK]
+  float* v_s = k_s + kBK * C::kLdK;                     // [kBK][kLdV]
+  for (int q0 = 0; q0 < kProbeRows; q0 += kBQ) {
+    float acc[kM][C::kDT][4];
+#pragma unroll
+    for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+      for (int n = 0; n < C::kDT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0.f;
+    for (int k0 = 0; k0 < kProbeRows; k0 += kBK) {
+      __syncthreads();  // the previous row and key tiles are consumed
+      if (k0 == 0)
+        tc::load_tile<float, kBQ, kD, C::kLdQ, kThreads>(
+            q_s, x, kD, q0, kProbeRows, kD, tid);
+      tc::load_tile<float, kBK, kD, C::kLdK, kThreads>(k_s, x, kD, k0,
+                                                       kProbeRows, kD, tid);
+      tc::load_tile<float, kBK, kD, C::kLdV, kThreads>(v_s, x, kD, k0,
+                                                       kProbeRows, kD, tid);
+      tc::cp_async_commit();
+      tc::cp_async_wait<0>();
+      __syncthreads();
+      float s[kM][C::kNT][4];
+      C::qk(q_s, k_s, r0, lane, s);
+      C::pv(s, v_s, lane, acc);
+    }
+#pragma unroll
+    for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* orow = o + size_t(q0 + r0 + 16 * mi + g + 8 * h) * kD;
+#pragma unroll
+        for (int n = 0; n < C::kDT; ++n)
+          C::store2(orow + n * 8 + 2 * t, acc[mi][n][2 * h],
+                    acc[mi][n][2 * h + 1]);
+      }
   }
 }
 
@@ -650,7 +699,12 @@ PT_DEFINE_PROBE(flash_fwd)
 // The wrapper (kernels/flash_attention.py `probe_minor64`) checks the
 // answer and raises when it is wrong. Returns cudaGetLastError().
 extern "C" int flash_fwd_minor64_probe(const void* x, void* o, void* stream) {
-  minor64_probe_kernel<<<1, kThreads, smem_bytes(kProbeD),
+  const size_t smem = probe_smem();
+  cudaError_t e = cudaFuncSetAttribute(
+      minor64_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (e != cudaSuccess) return int(e);
+  minor64_probe_kernel<<<1, Tile<Probe>::kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(o));
   return int(cudaGetLastError());
@@ -681,15 +735,17 @@ extern "C" int flash_fwd_launch(
   const void* ptrs[3] = {q, k, v};
   const long long strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss,
                                 k_sh, v_sb, v_ss, v_sh};
-  const bool tc_route = tc::route_ok(dtype, D, ptrs, 3, strides, 9);
+  const tc::Route r = tc::route(tc::kFwd, dtype, D, ptrs, 3, strides, 9);
   switch (dtype) {
     case pt::kF32:
-      return launch<float>(a, B, s);
+      return r == tc::kTf32x3 ? launch_mma<FwdTf32>(a, B, s)
+                              : launch<float>(a, B, s);
     case pt::kBF16:
-      return tc_route ? launch_tc<__nv_bfloat16>(a, B, s)
-                      : launch<__nv_bfloat16>(a, B, s);
+      return r == tc::kTc ? launch_mma<FwdBf16>(a, B, s)
+                          : launch<__nv_bfloat16>(a, B, s);
     case pt::kF16:
-      return tc_route ? launch_tc<__half>(a, B, s) : launch<__half>(a, B, s);
+      return r == tc::kTc ? launch_mma<FwdF16>(a, B, s)
+                          : launch<__half>(a, B, s);
     default:
       return int(cudaErrorInvalidValue);
   }

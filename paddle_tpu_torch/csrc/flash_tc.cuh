@@ -1,8 +1,9 @@
-// Tensor-core building blocks of the bf16/fp16 ("tc") flash kernels
-// (flash_fwd.cu, flash_bwd.cu): 16-byte cp.async tile copies into padded
-// shared memory, ldmatrix fragment loads, mma.sync.m16n8k16 with f32
-// accumulators, and the hi/lo split of an f32 operand into two 16-bit
-// terms.
+// Tensor-core building blocks of the flash kernels (flash_fwd.cu,
+// flash_bwd.cu): 16-byte cp.async tile copies into padded shared memory,
+// ldmatrix fragment loads, mma.sync.m16n8k16 with f32 accumulators and
+// the hi/lo split of an f32 operand into two 16-bit terms ("tc" route);
+// mma.sync.m16n8k8 on tf32 operands split big + small ("tf32x3" route);
+// and the route rule the C entries share.
 //
 // Fragment layouts (PTX ISA, "mma.m16n8k16"): lane = 4 g + t. The f32
 // accumulator of a 16x8 tile holds (row g, cols 2t, 2t+1) in c[0..1] and
@@ -10,7 +11,8 @@
 // holds (row g, k 2t..2t+1), (row g + 8, k 2t..), (row g, k 2t+8..),
 // (row g + 8, k 2t+8..) in a[0..3] — so the accumulators of two
 // neighbouring 16x8 tiles, packed pairwise, are the A operand of the next
-// product (P V, P^T dO, dS^T Q) without a trip through shared memory.
+// product (P V, dS K, P^T dO, dS^T Q) without a trip through shared
+// memory.
 //
 // Why the split: rounding the probabilities P (and dS) to bf16 before the
 // second product, as FlashAttention-2/3 do, puts a relative error of up
@@ -19,7 +21,24 @@
 // P = P_hi + P_lo with both terms bf16 carries 16 bits of P, and the two
 // products go into one f32 accumulator: the outputs then sit at ~0.48 of
 // the gate, as f32 math does (tests/test_torch_flash_tc_arith.py
-// emulates both on the CPU).
+// emulates both on the CPU). fp16 has bf16's 16 bits but not f32's
+// exponent range: a dS below 2^-14 loses bits in both terms and one above
+// 65504 overflows, so the backward kernels take the tc route for bf16
+// only; the forward's P lies in [0, 1] and keeps it for fp16 too.
+//
+// tf32x3 (f32 operands, CUTLASS's "fast f32"): TF32 keeps 11 significant
+// bits, so one TF32 product misses the f32 gate (atol 1e-4 of max(1,
+// max |ref|)) 3-5x in a CPU emulation. Each operand x is split into
+// big = tf32(x) and small = tf32(x - big), and a b = big big + big small
+// + small big into one f32 accumulator, which leaves ~2^-21 relative:
+// f32-grade on the tensor cores for 3x the TF32 operations. The m16n8k8
+// tf32 A operand holds (row g, k t), (row g + 8, k t), (row g, k t + 4),
+// (row g + 8, k t + 4) and B (k t, n g), (k t + 4, n g). The kernels
+// number the k dimension so that k t is column 2t and k t + 4 column
+// 2t + 1 of each 8-wide chunk, in A and in B alike (a product sums over
+// k, so any order common to both is the same product): an f32
+// accumulator tile (cols 2t, 2t+1) is then an A operand as it stands,
+// and a Q or K row fragment is one 8-byte load.
 #pragma once
 
 #include "flash_common.cuh"
@@ -176,38 +195,224 @@ template <typename T, int kRows, int kD, int kLd, int kNT>
 __device__ __forceinline__ void load_tile(T* dst, const T* src,
                                           long long rs, int r0, int nvalid,
                                           int D, int tid) {
-  constexpr int kC = kD / 8;  // 16-byte chunks per row
+  constexpr int kE = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int kC = kD / kE;         // chunks per row
   constexpr int kN = kRows * kC;
 #pragma unroll
   for (int it = 0; it < (kN + kNT - 1) / kNT; ++it) {
     const int i = tid + it * kNT;
     if (kN % kNT == 0 || i < kN) {
       const int r = i / kC;
-      const int c = (i - r * kC) * 8;
+      const int c = (i - r * kC) * kE;
       const bool ok = r0 + r < nvalid && c < D;
       cp_async16(dst + r * kLd + c, ok ? src + (r0 + r) * rs + c : src, ok);
     }
   }
 }
 
-// The shapes the tc kernels take: 16-bit inputs, head dim a multiple of 8
-// up to 256, and 16-byte aligned rows (every base address 16-byte aligned
-// and every batch, sequence and head stride a multiple of 8 elements).
-// Everything else goes to the f32 CUDA-core ("simt") kernels. The Python
-// wrappers mirror this rule in `flash_route`.
-__host__ inline bool route_ok(int dtype, int D, const void* const* ptrs,
-                              int n_ptrs, const long long* strides,
-                              int n_strides) {
-  if (dtype != pt::kBF16 && dtype != pt::kF16) return false;
-  if (D % 8 != 0 || D > 256) return false;
-  for (int i = 0; i < n_ptrs; ++i)
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
-  for (int i = 0; i < n_strides; ++i)
-    if (strides[i] % 8 != 0) return false;
-  return true;
+// s[mi][n] = A B^T over depth kD for this warp's kM m16 row tiles of A
+// (rows r0 + 16 mi.., row stride kLdA) against the kNT n8 row tiles of B
+// (rows 0.., row stride kLdB), both row-major 16-bit in shared memory:
+// S = Q K^T in the forward and dQ, dP = dO V^T in dQ.
+template <typename T, int kM, int kNT, int kD, int kLdA, int kLdB>
+__device__ __forceinline__ void warp_abt(const T* a_s, const T* b_s, int r0,
+                                         int lane,
+                                         float (&s)[kM][kNT][4]) {
+#pragma unroll
+  for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[mi][n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    unsigned af[kM][4];
+#pragma unroll
+    for (int mi = 0; mi < kM; ++mi)
+      ldsm_x4(af[mi], a_s + (r0 + 16 * mi + a_row(lane)) * kLdA + kk * 16 +
+                          a_col(lane));
+#pragma unroll
+    for (int np = 0; np < kNT / 2; ++np) {
+      unsigned bf[4];
+      ldsm_x4(bf, b_s + (np * 16 + b_row(lane)) * kLdB + kk * 16 +
+                      b_col(lane));
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi) {
+        mma<T>(s[mi][2 * np], af[mi], bf[0], bf[1]);
+        mma<T>(s[mi][2 * np + 1], af[mi], bf[2], bf[3]);
+      }
+    }
+  }
 }
 
-// The compile-time head dim a tc kernel is instantiated at for D.
+// acc[mi][n] += P B, P given as f32 accumulators (kM m16 row tiles x kKT
+// n8 tiles of the k dimension) and split into hi + lo terms of T, B
+// k-major in shared memory (row = k, stride kLdB), output columns
+// [c0, c0 + 8 kNT): O += P V in the forward, dQ += dS K in dQ.
+template <typename T, int kM, int kKT, int kNT, int kLdB>
+__device__ __forceinline__ void warp_pb_split(const float (&p)[kM][kKT][4],
+                                              const T* b_s, int c0,
+                                              int lane,
+                                              float (&acc)[kM][kNT][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kKT / 2; ++kk) {
+    unsigned ph[kM][4], pl[kM][4];
+#pragma unroll
+    for (int mi = 0; mi < kM; ++mi)
+      split_a<T>(p[mi][2 * kk], p[mi][2 * kk + 1], ph[mi], pl[mi]);
+#pragma unroll
+    for (int dn = 0; dn < kNT / 2; ++dn) {
+      unsigned bf[4];
+      ldsm_x4_t(bf, b_s + (kk * 16 + a_row(lane)) * kLdB + c0 + dn * 16 +
+                        a_col(lane));
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi) {
+        mma<T>(acc[mi][2 * dn], ph[mi], bf[0], bf[1]);
+        mma<T>(acc[mi][2 * dn], pl[mi], bf[0], bf[1]);
+        mma<T>(acc[mi][2 * dn + 1], ph[mi], bf[2], bf[3]);
+        mma<T>(acc[mi][2 * dn + 1], pl[mi], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- tf32x3
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, "
+      "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = big + small, both tf32 (round to nearest, ties away); returns big.
+__device__ __forceinline__ unsigned split_tf32(float x, unsigned& small) {
+  unsigned big, sm;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(sm) : "f"(x - __uint_as_float(big)));
+  small = sm;
+  return big;
+}
+
+// c += a b on split operands: the two cross terms, then big big.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const unsigned (&ab)[4],
+                                           const unsigned (&as)[4],
+                                           unsigned bb0, unsigned bb1,
+                                           unsigned bs0, unsigned bs1) {
+  mma_tf32(c, as, bb0, bb1);
+  mma_tf32(c, ab, bs0, bs1);
+  mma_tf32(c, ab, bb0, bb1);
+}
+
+// warp_abt on f32 operands by 3xTF32: a row's 8-wide k chunk is read as
+// one float2 per lane (k t = column 2t, k t + 4 = column 2t + 1). Rows of
+// stride kLdA, kLdB = 8 (mod 32) words keep those reads free of bank
+// conflicts.
+template <int kM, int kNT, int kD, int kLdA, int kLdB>
+__device__ __forceinline__ void warp_abt_tf32x3(const float* a_s,
+                                                const float* b_s, int r0,
+                                                int lane,
+                                                float (&s)[kM][kNT][4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[mi][n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kD / 8; ++kk) {
+    unsigned ab[kM][4], as[kM][4];
+#pragma unroll
+    for (int mi = 0; mi < kM; ++mi) {
+      const float* ar = a_s + (r0 + 16 * mi + g) * kLdA + kk * 8 + 2 * t;
+      const float2 x0 = *reinterpret_cast<const float2*>(ar);
+      const float2 x1 = *reinterpret_cast<const float2*>(ar + 8 * kLdA);
+      ab[mi][0] = split_tf32(x0.x, as[mi][0]);
+      ab[mi][1] = split_tf32(x1.x, as[mi][1]);
+      ab[mi][2] = split_tf32(x0.y, as[mi][2]);
+      ab[mi][3] = split_tf32(x1.y, as[mi][3]);
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      const float2 y = *reinterpret_cast<const float2*>(
+          b_s + (n * 8 + g) * kLdB + kk * 8 + 2 * t);
+      unsigned bs0, bs1;
+      const unsigned bb0 = split_tf32(y.x, bs0);
+      const unsigned bb1 = split_tf32(y.y, bs1);
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi)
+        mma_3xtf32(s[mi][n], ab[mi], as[mi], bb0, bb1, bs0, bs1);
+    }
+  }
+}
+
+// acc += P B by 3xTF32, P given as f32 accumulators (kM x kKT tiles) —
+// an accumulator tile is the A operand of its 8-wide k chunk as it stands
+// (k t = key 2t, k t + 4 = key 2t + 1) — and B f32 k-major in shared
+// memory (row = k, stride kLdB = 4 (mod 32) words: the reads of rows 2t
+// and 2t + 1 are free of bank conflicts), all kNT n8 tiles of columns.
+template <int kM, int kKT, int kNT, int kLdB>
+__device__ __forceinline__ void warp_pb_tf32x3(const float (&p)[kM][kKT][4],
+                                               const float* b_s, int lane,
+                                               float (&acc)[kM][kNT][4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < kKT; ++kk) {
+    unsigned ab[kM][4], as[kM][4];
+#pragma unroll
+    for (int mi = 0; mi < kM; ++mi) {
+      ab[mi][0] = split_tf32(p[mi][kk][0], as[mi][0]);
+      ab[mi][1] = split_tf32(p[mi][kk][2], as[mi][1]);
+      ab[mi][2] = split_tf32(p[mi][kk][1], as[mi][2]);
+      ab[mi][3] = split_tf32(p[mi][kk][3], as[mi][3]);
+    }
+    const float* br = b_s + (kk * 8 + 2 * t) * kLdB + g;
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      unsigned bs0, bs1;
+      const unsigned bb0 = split_tf32(br[n * 8], bs0);
+      const unsigned bb1 = split_tf32(br[kLdB + n * 8], bs1);
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi)
+        mma_3xtf32(acc[mi][n], ab[mi], as[mi], bb0, bb1, bs0, bs1);
+    }
+  }
+}
+
+// The route rule of the three flash kernels, shared by the C entries; the
+// Python wrappers mirror it in `flash_route`. All routes need a head dim
+// that is a multiple of 8 up to 256 and every base address 16-byte
+// aligned; then
+// - kTc (mma.sync on 16-bit operands): bf16 for every kernel, fp16 for
+//   the forward only (its split operand P lies in [0, 1]; the backward's
+//   dS does not fit fp16's range, see above), with every batch, sequence
+//   and head stride a multiple of 8 elements;
+// - kTf32x3: f32 for the forward, with strides a multiple of 4 elements;
+// - kSimt (f32 FMA on the CUDA cores): everything else — f32 backward,
+//   fp16 backward, odd head dims, unaligned rows.
+enum Kernel { kFwd = 0, kDq = 1, kDkv = 2 };
+enum Route { kSimt = 0, kTc = 1, kTf32x3 = 2 };
+
+__host__ inline Route route(Kernel kernel, int dtype, int D,
+                            const void* const* ptrs, int n_ptrs,
+                            const long long* strides, int n_strides) {
+  if (D % 8 != 0 || D > 256) return kSimt;
+  for (int i = 0; i < n_ptrs; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return kSimt;
+  const bool tc = dtype == pt::kBF16 || (dtype == pt::kF16 && kernel == kFwd);
+  const bool tf32 = dtype == pt::kF32 && kernel == kFwd;
+  if (!tc && !tf32) return kSimt;
+  const int align = tc ? 8 : 4;  // elements in 16 bytes
+  for (int i = 0; i < n_strides; ++i)
+    if (strides[i] % align != 0) return kSimt;
+  return tc ? kTc : kTf32x3;
+}
+
+// The compile-time head dim a tc or tf32x3 kernel is instantiated at.
 __host__ inline int tile_d(int D) {
   return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
 }

@@ -11,10 +11,12 @@
   paddle layout [B, S, H, D]. On CUDA tensors they launch the
   hand-written Hopper kernels ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu``
   or raise; the plain versions run only for CPU tensors.
-- ``flash_route``: which of the two CUDA routes a forward or dK/dV
-  launch takes, by dtype, head dim, strides and addresses: "tc" (the
-  bf16/fp16 tensor-core kernels) or "simt" (the f32 CUDA-core kernels,
-  which also take any other 16-bit shape). dQ always runs on simt.
+- ``flash_route``: which of the three CUDA routes a launch of the
+  forward, dQ or dK/dV kernel takes, by dtype, head dim, strides and
+  addresses: "tc" (the 16-bit tensor-core kernels: bf16 for all three,
+  fp16 for the forward only), "tf32x3" (the f32 forward on the tensor
+  cores, 3xTF32) or "simt" (the f32 CUDA-core kernels, which take the
+  rest).
 - ``probe_minor64`` / ``minor64_supported``: the head-dim-64 probe
   (counterpart of ``_pallas_minor64_supported``, :801) and its
   once-per-device check, which the wrappers run before their first
@@ -50,25 +52,40 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_HEAD_DIM = 256
 
 
-def flash_route(dtype, head_dim, strides, addresses):
-    """The route of a forward or dK/dV launch, the rule the C entries
-    apply (``tc::route_ok``, ``csrc/flash_tc.cuh``): "tc" for bfloat16 or
-    float16 operands with a head dim that is a multiple of 8 up to
-    ``MAX_HEAD_DIM`` and 16-byte aligned rows (every batch, sequence and
-    head stride in ``strides`` a multiple of 8 elements, every address in
-    ``addresses`` a multiple of 16), else "simt"."""
-    if dtype not in (torch.bfloat16, torch.float16) or head_dim % 8 or \
-            head_dim > MAX_HEAD_DIM:
-        return "simt"
-    if any(s % 8 for s in strides) or any(a % 16 for a in addresses):
-        return "simt"
-    return "tc"
+#: the kernels of the route rule
+FLASH_KERNELS = ("fwd", "dq", "dkv")
 
 
-def _route_of(tensors):
-    """``flash_route`` of checked CUDA operands [B, S, H, D]."""
+def flash_route(kernel, dtype, head_dim, strides, addresses):
+    """The route of one launch of ``kernel`` ("fwd", "dq" or "dkv"), the
+    rule the C entries apply (``tc::route``, ``csrc/flash_tc.cuh``). Every
+    route but "simt" needs a head dim that is a multiple of 8 up to
+    ``MAX_HEAD_DIM`` and every address in ``addresses`` a multiple of 16;
+    then "tc" for bfloat16 (any kernel) or float16 (the forward only: the
+    backward's dS does not fit float16's range once split) with every
+    batch, sequence and head stride in ``strides`` a multiple of 8
+    elements, "tf32x3" for a float32 forward with those strides a multiple
+    of 4; "simt" for everything else."""
+    if kernel not in FLASH_KERNELS:
+        raise ValueError(f"flash_route: kernel must be one of "
+                         f"{FLASH_KERNELS}, got {kernel!r}")
+    if head_dim % 8 or head_dim > MAX_HEAD_DIM or \
+            any(a % 16 for a in addresses):
+        return "simt"
+    if dtype == torch.bfloat16 or (dtype == torch.float16 and
+                                   kernel == "fwd"):
+        route, align = "tc", 8
+    elif dtype == torch.float32 and kernel == "fwd":
+        route, align = "tf32x3", 4
+    else:
+        return "simt"
+    return "simt" if any(s % align for s in strides) else route
+
+
+def _route_of(kernel, tensors):
+    """``flash_route`` of ``kernel`` on checked CUDA operands [B, S, H, D]."""
     q = tensors[0]
-    return flash_route(q.dtype, q.shape[-1],
+    return flash_route(kernel, q.dtype, q.shape[-1],
                        [t.stride(i) for t in tensors for i in range(3)],
                        [t.data_ptr() for t in tensors])
 
@@ -286,8 +303,8 @@ def flash_fwd(q, k, v, causal: bool, scale: float,
     lengths, head dim <= 256, unit last-dim stride; at head dim 64 only
     once ``minor64_supported`` holds) on the route ``flash_route`` names,
     and counts the launch on ``flash_fwd.launches`` and on the counter
-    ``kernels.flash.fwd_cuda_tc`` or ``_simt``; on CPU tensors it runs
-    ``flash_plain``."""
+    ``kernels.flash.fwd_cuda_tc``, ``_tf32x3`` or ``_simt``; on CPU
+    tensors it runs ``flash_plain``."""
     if q.device.type == "cpu":
         monitor.counter("kernels.flash.fwd_plain").increase()
         res = flash_plain(_t(q), _t(k), _t(v), causal, scale, window, se,
@@ -334,7 +351,6 @@ def _se_args(se, B):
 
 def _flash_fwd_cuda(q, k, v, causal, scale, window, se, want_lse):
     B, Sq, H, D = q.shape
-    _, Sk, Hkv, _ = k.shape
     q, k, v = _check_cuda_inputs("flash_fwd", [q, k, v], se)
     if D == 64:
         minor64_supported(q.device)
@@ -343,6 +359,19 @@ def _flash_fwd_cuda(q, k, v, causal, scale, window, se, want_lse):
         if want_lse else None
     if out.numel() == 0:
         return (out, lse) if want_lse else out
+    _fwd_launch(q, k, v, out, lse, causal, scale, window, se)
+    flash_fwd.launches += 1
+    monitor.counter("kernels.flash.fwd_cuda").increase()
+    route = _route_of("fwd", [q, k, v])
+    monitor.counter(f"kernels.flash.fwd_cuda_{route}").increase()
+    return (out, lse) if want_lse else out
+
+
+def _fwd_launch(q, k, v, out, lse, causal, scale, window, se):
+    """One launch of ``flash_fwd_launch`` on checked operands into ``out``
+    (and ``lse`` unless None), uncounted; raises on a refused launch."""
+    B, Sq, H, D = q.shape
+    _, Sk, Hkv, _ = k.shape
     lib = _build.load("flash_fwd")
     err = lib.flash_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -356,11 +385,6 @@ def _flash_fwd_cuda(q, k, v, causal, scale, window, se, want_lse):
         float(scale), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_fwd kernel")
-    flash_fwd.launches += 1
-    monitor.counter("kernels.flash.fwd_cuda").increase()
-    monitor.counter(f"kernels.flash.fwd_cuda_{_route_of([q, k, v])}") \
-        .increase()
-    return (out, lse) if want_lse else out
 
 
 def flash_bwd(q, k, v, o, lse, do, causal: bool, scale: float,
@@ -371,9 +395,10 @@ def flash_bwd(q, k, v, o, lse, do, causal: bool, scale: float,
 
     On CUDA tensors this computes Delta = rowsum(dO * O) in f32 and
     launches the two kernels of ``csrc/flash_bwd.cu`` (counted on
-    ``flash_bwd.launches_dq`` / ``flash_bwd.launches_dkv``; the dK/dV
-    launch also on ``kernels.flash.dkv_cuda_tc`` or ``_simt`` by
-    ``flash_route``); on CPU tensors it runs ``flash_bwd_plain``."""
+    ``flash_bwd.launches_dq`` / ``flash_bwd.launches_dkv``, and by
+    ``flash_route`` on ``kernels.flash.dq_cuda_tc`` or ``_simt`` and
+    ``kernels.flash.dkv_cuda_tc`` or ``_simt``); on CPU tensors it runs
+    ``flash_bwd_plain``."""
     if q.device.type == "cpu":
         monitor.counter("kernels.flash.bwd_plain").increase()
         dq, dk, dv = flash_bwd_plain(_t(q), _t(k), _t(v), _t(o), lse, _t(do),
@@ -413,8 +438,9 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, window, se):
                 window, se)
     flash_bwd.launches_dkv += 1
     monitor.counter("kernels.flash.bwd_cuda").increase()
-    monitor.counter(f"kernels.flash.dkv_cuda_{_route_of([q, k, v, do])}") \
-        .increase()
+    for kernel in ("dq", "dkv"):
+        route = _route_of(kernel, [q, k, v, do])
+        monitor.counter(f"kernels.flash.{kernel}_cuda_{route}").increase()
     return dq, dk, dv
 
 

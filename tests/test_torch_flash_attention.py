@@ -322,40 +322,67 @@ def test_gqa_dkv_group_sum_differs_by_bf16_rounding_only():
         assert float(diff.max() / port.abs().max()) < 1e-2
 
 
-# (dtype, head dim, (batch, seq, head) strides, addresses, route) — the
-# rule both C entries apply (tc::route_ok in csrc/flash_tc.cuh)
+# (dtype, head dim, (batch, seq, head) strides, addresses, route of the
+# forward, dQ and dK/dV) — the rule the C entries apply (tc::route in
+# csrc/flash_tc.cuh)
+_TC = {"fwd": "tc", "dq": "tc", "dkv": "tc"}
+_SIMT = {"fwd": "simt", "dq": "simt", "dkv": "simt"}
+_F32 = {"fwd": "tf32x3", "dq": "simt", "dkv": "simt"}
+_F16 = {"fwd": "tc", "dq": "simt", "dkv": "simt"}
 _ROUTES = {
     "bf16_d128": (torch.bfloat16, 128, (1024 * 32 * 128, 32 * 128, 128),
-                  (0, 4096), "tc"),
+                  (0, 4096), _TC),
     "fp16_d64": (torch.float16, 64, (128 * 12 * 64, 12 * 64, 64), (16,),
-                 "tc"),
-    "bf16_d8": (torch.bfloat16, 8, (64, 16, 8), (32,), "tc"),
-    "bf16_d256": (torch.bfloat16, 256, (256 * 2, 256 * 2, 256), (0,), "tc"),
+                 _F16),
+    "bf16_d8": (torch.bfloat16, 8, (64, 16, 8), (32,), _TC),
+    "bf16_d256": (torch.bfloat16, 256, (256 * 2, 256 * 2, 256), (0,), _TC),
     "fused_qkv_view": (torch.bfloat16, 64, (130 * 3 * 4 * 64, 3 * 4 * 64,
-                                            64), (0, 512, 1024), "tc"),
-    "f32": (torch.float32, 128, (2 * 128, 2 * 128, 128), (0,), "simt"),
-    "bf16_d30": (torch.bfloat16, 30, (60, 60, 30), (0,), "simt"),
-    "bf16_d264": (torch.bfloat16, 264, (528, 528, 264), (0,), "simt"),
+                                            64), (0, 512, 1024), _TC),
+    "f32": (torch.float32, 128, (2 * 128, 2 * 128, 128), (0,), _F32),
+    "bf16_d30": (torch.bfloat16, 30, (60, 60, 30), (0,), _SIMT),
+    "bf16_d264": (torch.bfloat16, 264, (528, 528, 264), (0,), _SIMT),
     "row_stride_off_8": (torch.bfloat16, 64, (4 * 65 * 9, 4 * 65, 65),
-                         (0,), "simt"),
-    "address_off_16": (torch.bfloat16, 64, (64, 64, 64), (0, 2), "simt"),
+                         (0,), _SIMT),
+    "address_off_16": (torch.bfloat16, 64, (64, 64, 64), (0, 2), _SIMT),
+    "fp16_d264": (torch.float16, 264, (528, 528, 264), (0,), _SIMT),
+    "f32_fused_qkv_view": (torch.float32, 64, (130 * 3 * 4 * 64,
+                                               3 * 4 * 64, 64),
+                           (0, 1024, 2048), _F32),
+    "f32_d30": (torch.float32, 30, (60, 60, 30), (0,), _SIMT),
+    "f32_d264": (torch.float32, 264, (528, 528, 264), (0,), _SIMT),
+    "f32_stride_off_4": (torch.float32, 64, (4 * 66, 66, 66), (0,), _SIMT),
+    "f32_address_off_16": (torch.float32, 64, (256, 256, 64), (0, 8),
+                           _SIMT),
 }
 
 
 @pytest.mark.parametrize("name", sorted(_ROUTES))
 def test_flash_route_rule(name):
-    """The route a forward or dK/dV launch takes: tensor cores for 16-bit
-    operands with a head dim that is a multiple of 8 up to 256 and
-    16-byte aligned rows, the CUDA-core kernels for everything else."""
-    dtype, d, strides, addrs, route = _ROUTES[name]
-    assert tfa.flash_route(dtype, d, strides, addrs) == route
+    """The route of each kernel's launch: 16-bit tensor cores for bf16
+    (forward, dQ and dK/dV) and fp16 (the forward only: dS does not fit
+    fp16 once split), 3xTF32 tensor cores for an f32 forward, each with a
+    head dim that is a multiple of 8 up to 256 and 16-byte aligned rows;
+    the CUDA-core kernels for everything else."""
+    dtype, d, strides, addrs, routes = _ROUTES[name]
+    assert {k: tfa.flash_route(k, dtype, d, strides, addrs)
+            for k in tfa.FLASH_KERNELS} == routes
 
 
 def test_flash_route_of_checked_operands():
-    """``_route_of`` reads the strides and addresses of the operands the
-    wrappers launch on: a contiguous bf16 layout takes tc, a view whose
-    rows start 2 bytes off takes simt."""
+    """``_route_of`` reads the dtype, strides and addresses of the
+    operands the wrappers launch on: a contiguous bf16 layout takes tc for
+    every kernel, a view whose rows start 2 bytes off takes simt; f32
+    takes tf32x3 for the forward and simt for the backward; fp16 takes tc
+    for the forward and simt for dQ and dK/dV."""
     x = torch.zeros(2, 10, 4, 72, dtype=torch.bfloat16)
-    assert tfa._route_of([x[..., :64], x[..., 8:]]) == "tc"
-    assert tfa._route_of([x[..., 1:65]]) == "simt"
-    assert tfa._route_of([x.float()]) == "simt"
+    for kernel in tfa.FLASH_KERNELS:
+        assert tfa._route_of(kernel, [x[..., :64], x[..., 8:]]) == "tc"
+        assert tfa._route_of(kernel, [x[..., 1:65]]) == "simt"
+    assert tfa._route_of("fwd", [x.float()]) == "tf32x3"
+    assert tfa._route_of("fwd", [x.float()[..., 2:66]]) == "simt"
+    assert tfa._route_of("fwd", [x.half()]) == "tc"
+    for kernel in ("dq", "dkv"):
+        assert tfa._route_of(kernel, [x.float()]) == "simt"
+        assert tfa._route_of(kernel, [x.half()]) == "simt"
+    with pytest.raises(ValueError):
+        tfa.flash_route("dk", torch.bfloat16, 64, (), ())

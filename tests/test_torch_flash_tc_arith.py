@@ -1,15 +1,23 @@
-"""The arithmetic of the tensor-core ("tc") flash kernels
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), emulated in plain PyTorch
-on the CPU and held to ``flash_plain`` / ``flash_bwd_plain`` (f32 math on
-the same bf16 inputs) under chip_smoke.py's element-wise gate.
+"""The arithmetic of the tensor-core flash kernels (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``), emulated in plain PyTorch on the CPU and held to
+``flash_plain`` / ``flash_bwd_plain`` (f32 math on the same inputs) under
+chip_smoke.py's element-wise gate.
 
-The kernels take the products whose operands are inputs (S = Q K^T,
+The "tc" kernels take the products whose operands are inputs (S = Q K^T,
 dP = dO V^T) from the bf16 inputs exactly, with f32 accumulators; the
-products whose left operand the kernel computes (P V, P^T dO, dS^T Q)
-take it as two bf16 terms, hi + lo, into one f32 accumulator. The tests
-show that this split passes the gate (ratio <= 1) and that rounding P
-and dS to bf16 once, as FlashAttention-2/3 do, fails it several times
-over: the control that the gate is sharp enough to tell the two apart.
+products whose left operand the kernel computes (P V, dS K, P^T dO,
+dS^T Q) take it as two bf16 terms, hi + lo, into one f32 accumulator.
+The tests show that this split passes the gate (ratio <= 1) and that
+rounding P and dS to bf16 once, as FlashAttention-2/3 do, fails it
+several times over: the control that the gate is sharp enough to tell the
+two apart. In fp16 the same split of dS loses bits or overflows where
+the reference keeps f32, which is why the backward kernels take the tc
+route for bf16 only.
+
+The "tf32x3" forward takes every product of f32 operands as big big +
+big small + small big of their TF32 terms (big = tf32(x), small =
+tf32(x - big)); it passes the f32 gate, one TF32 product fails it, and on
+the head-dim-64 probe's integer tile it is exact.
 """
 import numpy as np
 import pytest
@@ -20,25 +28,34 @@ from paddle_tpu_torch.kernels import flash_attention as fa
 LOG2E = 1.4426950408889634
 #: query rows per dK/dV tile (``DkvTc``)
 BQ = 32
+#: keys per tile of the tf32x3 forward (``FwdTf32``)
+BK_TF32 = 32
 #: a single bf16 rounding of P must fail the gate by more than this
 SHARP = 4.0
 
 
-def gate_ratio(got, ref):
-    """chip_smoke.py's ``closeness`` rule for a 16-bit output, copied:
-    |got - ref| <= eps(dtype) |ref| + 1e-3 rms(ref); the worst ratio of
-    the error to its allowance (pass: <= 1)."""
-    rtol = torch.finfo(got.dtype).eps
+def gate_ratio(got, ref, atol_floor=0.0):
+    """chip_smoke.py's ``closeness`` rule, copied: |got - ref| <= rtol
+    |ref| + atol, for a 16-bit output rtol eps(dtype) and atol 1e-3
+    rms(ref), for an f32 one rtol 0 and atol 1e-4 max(1, max |ref|); the
+    worst ratio of the error to its allowance (pass: <= 1; inf when got
+    is not finite). ``atol_floor`` raises atol to at least that value."""
+    if not bool(torch.isfinite(got).all()):
+        return float("inf")
+    half = got.dtype != torch.float32
+    rtol = torch.finfo(got.dtype).eps if half else 0.0
     got, ref = got.float(), ref.float()
-    atol = max(1e-3 * float(ref.square().mean().sqrt()), 1e-30)
+    atol = 1e-3 * float(ref.square().mean().sqrt()) if half else \
+        1e-4 * max(1.0, float(ref.abs().max()))
+    atol = max(atol, atol_floor, 1e-30)
     return float(((got - ref).abs() / (rtol * ref.abs() + atol)).max())
 
 
-def _terms(x, split):
+def _terms(x, split, dtype=torch.bfloat16):
     """The 16-bit terms of the f32 operand x that a kernel feeds its
     second product: hi and lo with the split, one rounding without."""
-    hi = x.to(torch.bfloat16).float()
-    return [hi, (x - hi).to(torch.bfloat16).float()] if split else [hi]
+    hi = x.to(dtype).float()
+    return [hi, (x - hi).to(dtype).float()] if split else [hi]
 
 
 def _repeat_kv(x, h):
@@ -75,12 +92,12 @@ def tc_forward(q, k, v, scale, keep, split):
     return out.to(torch.bfloat16)
 
 
-def tc_dkv(q, k, v, o, lse, do, scale, keep, split):
+def tc_dkv(q, k, v, o, lse, do, scale, keep, split, dtype=torch.bfloat16):
     """The dK/dV kernel's tile arithmetic: per q tile of BQ rows,
     P = exp2(scale log2e S - log2e lse) (0 where masked or for a row
-    without keys), dS = P (dP - Delta), dV += each term of P^T times dO,
-    dK += each term of dS^T times Q, dK times scale at the end; a GQA
-    group summed in f32; both rounded to bf16 once."""
+    without keys), dS = P (dP - Delta), dV += each 16-bit term of P^T
+    times dO, dK += each term of dS^T times Q, dK times scale at the end;
+    a GQA group summed in f32; both rounded to ``dtype`` once."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     qf, of, dof = q.float(), o.float(), do.float()
@@ -98,13 +115,87 @@ def tc_dkv(q, k, v, o, lse, do, scale, keep, split):
         if keep is not None:
             p = torch.where(keep[..., rows, :], p, 0.0)
         ds = p * (dp - delta[:, :, rows])
-        for term in _terms(p, split):
+        for term in _terms(p, split, dtype):
             dv = dv + term.transpose(-1, -2) @ dof[:, :, rows]
-        for term in _terms(ds, split):
+        for term in _terms(ds, split, dtype):
             dk = dk + term.transpose(-1, -2) @ qf[:, :, rows]
     dk = (dk * scale).reshape(b, hkv, h // hkv, sk, d).sum(2)
     dv = dv.reshape(b, hkv, h // hkv, sk, d).sum(2)
-    return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+    return dk.to(dtype), dv.to(dtype)
+
+
+def tc_dq(q, k, v, o, lse, do, scale, keep, split, dtype=torch.bfloat16):
+    """The dQ kernel's tile arithmetic (``flash_bwd_dq_tc_kernel``): per
+    key tile (``DqTc::kBK``: 64 keys at head dim <= 64, else 32),
+    P = exp2(scale log2e S - log2e lse) (0 where masked or for a row
+    without keys), dS = P (dP - Delta), dQ += each 16-bit term of dS
+    times K; dQ times scale at the end, rounded to ``dtype`` once."""
+    h = q.shape[1]
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf, vf = _repeat_kv(k, h), _repeat_kv(v, h)
+    delta = (dof * of).sum(-1, keepdim=True)
+    lse2 = torch.where(lse > fa.ROW_INVALID_LSE, lse * LOG2E,
+                       torch.inf)[..., None]
+    bk = 64 if q.shape[-1] <= 64 else 32
+    dq = torch.zeros(qf.shape)
+    for k0 in range(0, kf.shape[2], bk):
+        cols = slice(k0, k0 + bk)
+        s = qf @ kf[:, :, cols].transpose(-1, -2)
+        dp = dof @ vf[:, :, cols].transpose(-1, -2)
+        p = torch.exp2(s * (scale * LOG2E) - lse2)
+        if keep is not None:
+            p = torch.where(keep[..., cols], p, 0.0)
+        ds = p * (dp - delta)
+        for term in _terms(ds, split, dtype):
+            dq = dq + term @ kf[:, :, cols]
+    return (dq * scale).to(dtype)
+
+
+def tf32(x):
+    """TF32 rounding as ``cvt.rna.tf32.f32`` does it: the f32 bit pattern
+    rounded to 10 mantissa bits, ties away from zero."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def mm_tf32(a, b, passes):
+    """a @ b on the tensor cores' TF32 products: ``passes`` 3 takes big
+    big + big small + small big of the split operands (3xTF32), 1 takes
+    one product of the rounded operands."""
+    ab, bb = tf32(a), tf32(b)
+    if passes == 1:
+        return ab @ bb
+    return tf32(a - ab) @ bb + ab @ tf32(b - bb) + ab @ bb
+
+
+def tf32x3_forward(q, k, v, scale, keep, passes=3):
+    """The tf32x3 forward's tile arithmetic (``FwdTf32``) on f32 q
+    [B, H, Sq, D], k/v [B, Hkv, Sk, D]: per key tile of BK_TF32 keys S by
+    ``mm_tf32``, the online softmax of the tc forward in f32, O += P V by
+    ``mm_tf32``; returns (out, lse)."""
+    h = q.shape[1]
+    kf, vf = _repeat_kv(k, h), _repeat_kv(v, h)
+    sl2 = scale * LOG2E
+    bk = BK_TF32
+    m = torch.full(q.shape[:-1] + (1,), -torch.inf)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, kf.shape[2], bk):
+        s = mm_tf32(q, kf[:, :, k0:k0 + bk].transpose(-1, -2), passes)
+        if keep is not None:
+            s = torch.where(keep[..., k0:k0 + bk], s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * sl2)
+        base = torch.where(m_new == -torch.inf, 0.0, m_new)
+        alpha = torch.exp2(m - base)
+        p = torch.exp2(s * sl2 - base)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + mm_tf32(p, vf[:, :, k0:k0 + bk], passes)
+        m = m_new
+    valid = l > 0
+    out = torch.where(valid, acc / torch.where(valid, l, 1.0), 0.0)
+    lse = torch.where(valid, (m + torch.log2(torch.where(valid, l, 1.0)))
+                      / LOG2E, fa.NEG_INF)
+    return out, lse[..., 0]
 
 
 # name: (B, S, H, Hkv, D, document lengths or None); all causal
@@ -159,3 +250,130 @@ def test_dkv_split_passes_and_single_rounding_fails(name):
         ratios[split] = (gate_ratio(dk, rk), gate_ratio(dv, rv))
     assert max(ratios[True]) <= 1.0, ratios
     assert min(ratios[False]) > SHARP, ratios
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_dq_split_passes_and_single_rounding_fails(name):
+    """The dQ kernel's split of dS into bf16 hi + lo passes the gate; one
+    bf16 rounding of dS fails it by more than SHARP."""
+    q, k, v, do, scale, se, keep = _inputs(name)
+    out, lse = fa.flash_plain(q.float(), k.float(), v.float(), True, scale,
+                              se=se, return_lse=True)
+    o = out.to(torch.bfloat16)
+    rq = fa.flash_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                            do.float(), True, scale, se=se)[0]
+    split = gate_ratio(tc_dq(q, k, v, o, lse, do, scale, keep, True), rq)
+    single = gate_ratio(tc_dq(q, k, v, o, lse, do, scale, keep, False), rq)
+    assert split <= 1.0, split
+    assert single > SHARP, single
+
+
+#: fp16's smallest subnormal step: one rounding of an f32 result to fp16
+#: can be off by half of it wherever |result| < 2^-14
+F16_STEP = 2.0 ** -24
+
+
+@pytest.mark.parametrize("mul", [1e-4, 1e-5, 1e4])
+def test_fp16_split_of_ds_fails_where_f32_ds_passes(mul):
+    """fp16 backward at dO = randn x mul (causal S 512, D 128): dS kept in
+    f32 and each output rounded to fp16 once (the simt kernels) stays
+    within the gate, its atol floored at one fp16 subnormal step (below
+    2^-14 the output format's own resolution; at x 1e-4 and x 1e-5 the
+    outputs lie there); the tc kernels' split of dS into two fp16 terms
+    loses bits below 2^-14 and overflows above 65504, and misses that
+    gate or gives inf, for dQ and dK alike. This is why fp16 dQ and dK/dV
+    are routed to simt."""
+    rng = np.random.default_rng(16)
+    S, D = 512, 128
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, 2, S, D), dtype=np.float32)).half() for _ in range(3))
+    do = torch.from_numpy(rng.standard_normal((1, 2, S, D), dtype=np.float32)
+                          * mul).half()
+    scale = D ** -0.5
+    out, lse = fa.flash_plain(q.float(), k.float(), v.float(), True, scale,
+                              return_lse=True)
+    o = out.half()
+    keep = fa._keep_mask(S, S, 2, True, None, None, q.device)
+    rq, rk, _ = fa.flash_bwd_plain(q.float(), k.float(), v.float(),
+                                   o.float(), lse, do.float(), True, scale)
+    assert bool(torch.isfinite(rq.half()).all() and
+                torch.isfinite(rk.half()).all())
+    # the simt kernels: f32 math, each output rounded to fp16 once
+    simt = (gate_ratio(rq.half(), rq, F16_STEP),
+            gate_ratio(rk.half(), rk, F16_STEP))
+    assert max(simt) <= 1.0, simt
+    dq = tc_dq(q, k, v, o, lse, do, scale, keep, True, torch.float16)
+    dk = tc_dkv(q, k, v, o, lse, do, scale, keep, True, torch.float16)[0]
+    split = (gate_ratio(dq, rq, F16_STEP), gate_ratio(dk, rk, F16_STEP))
+    assert min(split) > 1.0, split
+
+
+# name: (B, S, H, Hkv, D, causal, window, mask): "doc" a causal document
+# mask, "pad" C=1 key bands of a padding mask with dead batch rows
+F32_CASES = {
+    "d128_causal": (1, 384, 2, 2, 128, True, None, None),
+    "d128_gqa_window": (1, 384, 8, 2, 128, True, 100, None),
+    "d128_docmask": (1, 384, 4, 2, 128, True, None, [128, 192, 64]),
+    "d64_pad_bands_dead_rows": (4, 128, 4, 4, 64, False, None, "pad"),
+}
+
+
+def _f32_inputs(name):
+    from paddle_tpu_torch.nn.functional import _mask_to_key_bands
+    B, S, H, Hkv, D, causal, window, mask = F32_CASES[name]
+    rng = np.random.default_rng(len(name) + 100)
+    q = torch.from_numpy(rng.standard_normal((B, H, S, D), dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, Hkv, S, D),
+                                                 dtype=np.float32))
+            for _ in range(2))
+    se = None
+    if mask == "pad":
+        lens = torch.tensor([S, 77, 13, 0])          # the last row dead
+        pad = (torch.arange(S)[None] < lens[:, None])[:, None, None]
+        se = fa._normalize_startend(_mask_to_key_bands(pad, B, S, S, H), S,
+                                    S, False)
+    elif mask is not None:
+        raw = torch.zeros(1, 1, S, 1, dtype=torch.int32)
+        lo = 0
+        for n in mask:
+            raw[:, :, lo:lo + n, 0] = lo + n
+            lo += n
+        se = fa._normalize_startend(raw, S, S, True)
+    keep = fa._keep_mask(S, S, H, causal, window, se, q.device)
+    return q, k, v, D ** -0.5, causal, window, se, keep
+
+
+@pytest.mark.parametrize("name", sorted(F32_CASES))
+def test_tf32x3_forward_passes_and_one_pass_tf32_fails(name):
+    """The tf32x3 forward (out and lse) within the f32 gate of
+    ``flash_plain``; one TF32 product instead of three misses it."""
+    q, k, v, scale, causal, window, se, keep = _f32_inputs(name)
+    ref, ref_lse = fa.flash_plain(q, k, v, causal, scale, window, se,
+                                  return_lse=True)
+    out, lse = tf32x3_forward(q, k, v, scale, keep)
+    dead = ref_lse <= fa.ROW_INVALID_LSE
+    assert torch.equal(lse <= fa.ROW_INVALID_LSE, dead)
+    assert not out[dead].any()
+    assert gate_ratio(out, ref) <= 1.0
+    live = ~dead
+    assert float((lse[live] - ref_lse[live]).abs().max()) <= \
+        1e-5 * max(1.0, float(ref_lse[live].abs().max()))
+    one_pass, _ = tf32x3_forward(q, k, v, scale, keep, passes=1)
+    assert gate_ratio(one_pass, ref) > 1.0
+
+
+def test_probe_tile_is_exact_through_tf32x3():
+    """The head-dim-64 probe runs the tf32x3 route's tiles on its integer
+    input: every entry of x x^T (|s| <= 576 < 2^11) is a TF32 number, so
+    every small term is 0, and every sum stays below 2^24: (x x^T) x
+    through 3xTF32, key tile by key tile, equals the plain product bit for
+    bit."""
+    x = fa.minor64_input("cpu")
+    s = mm_tf32(x, x.T, 3)
+    assert torch.equal(tf32(s), s) and torch.equal(tf32(x), x)
+    assert float(s.abs().max()) <= 576
+    o = torch.zeros_like(x)
+    for k0 in range(0, x.shape[0], BK_TF32):
+        o = o + mm_tf32(s[:, k0:k0 + BK_TF32], x[k0:k0 + BK_TF32], 3)
+    assert float(o.abs().max()) < 2 ** 24
+    assert torch.equal(o, fa.minor64_probe_plain(x))

@@ -10,6 +10,8 @@ Tolerances: 1e-4 relative to the output's scale for f32, 1e-2 for half
 precision outputs (the kernels accumulate in f32; the plain versions sum
 in another order).
 """
+import math
+
 import pytest
 import torch
 
@@ -197,7 +199,8 @@ def test_flash_fwd_lse_and_bwd_match_plain(dev, dtype, name):
 def _route_counts():
     from paddle_tpu_torch import monitor
     return {n: monitor.counter(f"kernels.flash.{n}").get()
-            for n in ("fwd_cuda_tc", "fwd_cuda_simt", "dkv_cuda_tc",
+            for n in ("fwd_cuda_tc", "fwd_cuda_tf32x3", "fwd_cuda_simt",
+                      "dq_cuda_tc", "dq_cuda_simt", "dkv_cuda_tc",
                       "dkv_cuda_simt")}
 
 
@@ -210,12 +213,14 @@ def _route_delta(before):
 #: multiple of 8, 16-byte aligned rows -> tc; head dim 30 -> simt
 _FWD_ROUTES = {128: "tc", 80: "tc", 64: "tc", 32: "tc", 256: "tc",
                30: "simt"}
+#: the tc route's launches of one bf16 forward and backward pass
+_TC_PASS = {"fwd_cuda_tc": 1, "dq_cuda_tc": 1, "dkv_cuda_tc": 1}
 
 
 def test_flash_routes_of_existing_bf16_cases(dev):
     """Which route each existing bf16 case takes, from the per-route
     counters: the forward cases by head dim, every training case (head
-    dims 64, 80 and 128) on tc for the forward and dK/dV."""
+    dims 64, 80 and 128) on tc for the forward, dQ and dK/dV."""
     for d, route in _FWD_ROUTES.items():
         q = torch.randn(1, 40, 2, d, device=dev).to(torch.bfloat16)
         before = _route_counts()
@@ -228,17 +233,21 @@ def test_flash_routes_of_existing_bf16_cases(dev):
         out, lse = fa.flash_fwd(q, k, v, causal, 0.1, window, se,
                                 want_lse=True)
         fa.flash_bwd(q, k, v, out, lse, do, causal, 0.1, window, se)
-        assert _route_delta(before) == {"fwd_cuda_tc": 1,
-                                        "dkv_cuda_tc": 1}, name
+        assert _route_delta(before) == _TC_PASS, name
 
 
-def _gate(got, ref):
-    """chip_smoke.py's ``closeness`` rule for a 16-bit output: |got - ref|
-    <= eps(dtype) |ref| + 1e-3 rms(ref); returns the worst ratio (pass:
+def _gate(got, ref, atol_floor=0.0):
+    """chip_smoke.py's ``closeness`` rule, |got - ref| <= rtol |ref| +
+    atol: for a 16-bit output rtol eps(dtype) and atol 1e-3 rms(ref), for
+    an f32 one rtol 0 and atol 1e-4 max(1, max |ref|); ``atol_floor``
+    raises atol to at least that value. Returns the worst ratio (pass:
     <= 1)."""
-    rtol = torch.finfo(got.dtype).eps
+    half = got.dtype != torch.float32
+    rtol = torch.finfo(got.dtype).eps if half else 0.0
     got, ref = got.float(), ref.float()
-    atol = max(1e-3 * float(ref.square().mean().sqrt()), 1e-30)
+    atol = 1e-3 * float(ref.square().mean().sqrt()) if half else \
+        1e-4 * max(1.0, float(ref.abs().max()))
+    atol = max(atol, atol_floor, 1e-30)
     return float(((got - ref).abs() / (rtol * ref.abs() + atol)).max())
 
 
@@ -258,13 +267,27 @@ _TC_CASES = {
 }
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+#: a pass's launches by route: bf16 on tc throughout; fp16's forward on
+#: tc, its backward on simt (dS does not fit fp16 once split); f32's
+#: forward on tf32x3, its backward on simt
+_PASS_ROUTES = {
+    torch.bfloat16: _TC_PASS,
+    torch.float16: {"fwd_cuda_tc": 1, "dq_cuda_simt": 1,
+                    "dkv_cuda_simt": 1},
+    torch.float32: {"fwd_cuda_tf32x3": 1, "dq_cuda_simt": 1,
+                    "dkv_cuda_simt": 1},
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
 @pytest.mark.parametrize("name", sorted(_TC_CASES))
 def test_flash_tc_route_within_gate(dev, dtype, name):
-    """The tensor-core forward (out, lse) and dK/dV against the plain
-    versions under chip_smoke.py's element-wise gate, on the tc route by
-    the counters; dQ (simt) alongside. Rows without keys give zeros, NEG_INF
-    lse and zero dQ."""
+    """The tensor-core forward (out, lse; tc for 16-bit operands, tf32x3
+    for f32), dQ and dK/dV against the plain versions under
+    chip_smoke.py's element-wise gate (f32: atol 1e-4 of max(1,
+    max |ref|)), on the routes the counters name. Rows without keys give
+    zeros, NEG_INF lse and zero dQ."""
     q, k, v, do, causal, window, se = _train_inputs(dev, name, dtype,
                                                     _TC_CASES)
     scale = q.shape[-1] ** -0.5
@@ -282,13 +305,74 @@ def test_flash_tc_route_within_gate(dev, dtype, name):
     assert not out.transpose(1, 2)[dead].any()
     grads = fa.flash_bwd(q, k, v, out, lse, do, causal, scale, window, se)
     torch.cuda.synchronize()
-    assert _route_delta(before) == {"fwd_cuda_tc": 1, "dkv_cuda_tc": 1}
+    assert _route_delta(before) == _PASS_ROUTES[dtype]
     ref = fa.flash_bwd_plain(t(q), t(k), t(v), t(out), lse, t(do), causal,
                              scale, window, se)
     for g_, r_, n in zip(grads, ref, ("dq", "dk", "dv")):
         assert g_.dtype == dtype and g_.shape == r_.transpose(1, 2).shape
         assert _gate(g_, r_.transpose(1, 2)) <= 1.0, n
     assert not grads[0].transpose(1, 2)[dead].any()
+
+
+#: fp16's smallest subnormal step: one rounding of an f32 result to fp16
+#: can be off by half of it wherever |result| < 2^-14
+F16_STEP = 2.0 ** -24
+
+
+@pytest.mark.parametrize("mul", [1e-4, 1e-5, 1e4])
+def test_flash_fp16_backward_on_simt_small_and_large_do(dev, mul):
+    """fp16 dO scaled far from 1: the backward runs on simt (dS in f32, as
+    the reference keeps it), so dQ, dK and dV are finite and within the
+    fp16 gate, its atol floored at one fp16 subnormal step (at x 1e-4 and
+    x 1e-5 the outputs lie below 2^-14, where one rounding to fp16 may
+    cost that much), where the 16-bit split of dS would lose bits or
+    overflow (tests/test_torch_flash_tc_arith.py)."""
+    g = torch.Generator().manual_seed(int(-math.log10(mul)) + 20)
+    B, S, H, D = 1, 256, 2, 128
+    q, k, v = (torch.randn(B, S, H, D, generator=g).to(dev, torch.float16)
+               for _ in range(3))
+    do = (torch.randn(B, S, H, D, generator=g) * mul).to(dev, torch.float16)
+    scale = D ** -0.5
+    t = lambda x: x.transpose(1, 2).float()              # noqa: E731
+    out, lse = fa.flash_fwd(q, k, v, True, scale, want_lse=True)
+    before = _route_counts()
+    grads = fa.flash_bwd(q, k, v, out, lse, do, True, scale)
+    torch.cuda.synchronize()
+    assert _route_delta(before) == {"dq_cuda_simt": 1, "dkv_cuda_simt": 1}
+    ref = fa.flash_bwd_plain(t(q), t(k), t(v), t(out), lse, t(do), True,
+                             scale)
+    for g_, r_, n in zip(grads, ref, ("dq", "dk", "dv")):
+        assert bool(torch.isfinite(r_.half()).all()), n
+        assert bool(torch.isfinite(g_).all()), n
+        assert _gate(g_, r_.transpose(1, 2), F16_STEP) <= 1.0, n
+
+
+def test_flash_tf32x3_reads_strided_views(dev):
+    """f32 q/k/v as views of one fused [B, S, 3, H, D] projection and dO
+    as a head-major view stay on the tf32x3 forward (strides multiples of
+    4) and give what their contiguous copies give, bit for bit; a view
+    whose rows are not 16-byte aligned takes the simt forward and the same
+    answer within the f32 gate."""
+    g = torch.Generator().manual_seed(10)
+    qkv = torch.randn(2, 130, 3, 4, 64, generator=g).to(dev)
+    q, k, v = qkv.unbind(2)
+    before = _route_counts()
+    out, lse = fa.flash_fwd(q, k, v, True, 0.125, want_lse=True)
+    assert _route_delta(before) == {"fwd_cuda_tf32x3": 1}
+    out2, lse2 = fa.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                              True, 0.125, want_lse=True)
+    torch.testing.assert_close(out, out2, rtol=0, atol=0)
+    torch.testing.assert_close(lse, lse2, rtol=0, atol=0)
+    wide = torch.randn(2, 130, 4, 72, generator=g).to(dev)
+    q_odd = wide[..., 2:66]                      # rows 8 bytes off
+    assert fa.flash_route("fwd", q_odd.dtype, 64, q_odd.stride()[:3],
+                          [q_odd.data_ptr()]) == "simt"
+    before = _route_counts()
+    out3 = fa.flash_fwd(q_odd, k, v, True, 0.125)
+    assert _route_delta(before) == {"fwd_cuda_simt": 1}
+    want = fa.flash_plain(*(x.transpose(1, 2).float() for x in (q_odd, k, v)),
+                          True, 0.125).transpose(1, 2)
+    _close(out3, want, 1e-4)
 
 
 def test_flash_tc_reads_strided_views(dev):
@@ -305,7 +389,7 @@ def test_flash_tc_reads_strided_views(dev):
     before = _route_counts()
     out, lse = fa.flash_fwd(q, k, v, True, 0.125, want_lse=True)
     grads = fa.flash_bwd(q, k, v, out, lse, do, True, 0.125)
-    assert _route_delta(before) == {"fwd_cuda_tc": 1, "dkv_cuda_tc": 1}
+    assert _route_delta(before) == _TC_PASS
     cont = [x.contiguous() for x in (q, k, v, do)]
     out2, lse2 = fa.flash_fwd(*cont[:3], True, 0.125, want_lse=True)
     grads2 = fa.flash_bwd(*cont[:3], out2, lse2, cont[3], True, 0.125)
@@ -313,7 +397,7 @@ def test_flash_tc_reads_strided_views(dev):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     wide = torch.randn(2, 130, 4, 72, generator=g).to(dev, torch.bfloat16)
     q_odd = wide[..., 1:65]                      # rows 2 bytes off
-    assert fa.flash_route(q_odd.dtype, 64, q_odd.stride()[:3],
+    assert fa.flash_route("fwd", q_odd.dtype, 64, q_odd.stride()[:3],
                           [q_odd.data_ptr()]) == "simt"
     before = _route_counts()
     out3 = fa.flash_fwd(q_odd, k, v, True, 0.125)
