@@ -69,14 +69,21 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    plain versions at the MoE training shape (8 experts, capacity 8192,
    hidden 1024, expert FFN 2816, bf16, GELU, counts from a real top-2
    routing of the bench's 16,384 tokens), a decode tick (capacity 8, f32,
-   one expert empty), a prefill chunk (capacity 128) and a ragged f32 ReLU
-   case (hidden 96, FFN 200, capacity 37, counts 0 / full / odd), held
-   stage by stage (rounded intermediates, then each output on the
-   kernel's own intermediates) and end to end (within MOE_E2E_RATIO of
-   the allowance), with a negative control (dw1 short of one expert's
-   last 64-row tile must be rejected by both); each timed beside its
-   plain version, its bound over the live rows and the timed-only pair
-   of torch.bmm calls;
+   one expert empty), a prefill chunk (capacity 128), a ragged f32 ReLU
+   case (hidden 96, FFN 200, capacity 37, counts 0 / full / odd) and a
+   bf16 case whose widths the tensor-core route refuses (hidden 1020,
+   FFN 2812), held stage by stage (rounded intermediates, then each
+   output on the kernel's own intermediates) and end to end (within
+   MOE_E2E_RATIO of the allowance); the forward and dx launch on the
+   route ``grouped_ffn_route`` names (the training shape on "tc", wgmma
+   and TMA; the f32 and refused cases on "simt"), read from the
+   ``kernels.moe.grouped_ffn_{fwd,dx}_cuda_{tc,simt}`` counters; negative
+   controls at the training shape (dw1 short of one expert's last 64-row
+   tile, out short of the down product's last 64-deep K tile, dx short
+   of the last 64-deep K tile of dff) must each be rejected by both
+   gates; each timed beside its plain version, its bound over the live
+   rows (a time below it fails), its TFLOP/s and the timed-only pair of
+   torch.bmm calls;
 12. the MoE serving main path, counts set to 0 just before and read just
    after: ``bench.py::bench_ernie_moe_serving``'s configuration
    (``profile_moe``: 4 layers, 2 MoE, 8 experts, f32 weights from a seed)
@@ -84,8 +91,9 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    greedy requests of 64-191 prompt tokens and 96 new tokens: every
    request finished, no page leaked, grouped-FFN forward launches ==
    (prefills + decode ticks) x 2 MoE layers, paged-decode launches ==
-   ticks x 4 layers, only the kernel dispatch, and two requests' tokens
-   equal to a 1-slot engine's (>= 0.97);
+   ticks x 4 layers, only the kernel dispatch, every grouped-FFN forward
+   on the simt route (f32), and two requests' tokens equal to a 1-slot
+   engine's (>= 0.97);
 13. MoE cross-check: a 2-layer ERNIE-MoE (hidden 256, 4 experts, seq 128,
    f32, TF32 off) — one TrainStep loss and every parameter gradient on
    the card within 1e-4 of the CPU's, once the router's top-3 margins of
@@ -95,9 +103,10 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    batch 32 x seq 512, CE + aux loss, bf16 AMP, AdamW(1e-4, bf16
    moments)) for 6 steps: finite, falling losses; grouped-FFN forward, dx
    and dw launches == 4 MoE layers x 6 steps, flash forward / dQ / dK/dV
-   == 8 layers x 6 steps, no plain call, forward, dQ and dK/dV on the tc
-   route only; ms per step, tokens/s, the bf16 peak share of
-   ``ernie_moe_flops_per_token`` and the peak memory.
+   == 8 layers x 6 steps, no plain call, the flash forward, dQ and dK/dV
+   and the grouped-FFN forward and dx on the tc route only; ms per step,
+   tokens/s, the bf16 peak share of ``ernie_moe_flops_per_token`` and the
+   peak memory.
 
 15. encoder kernels: the head-dim-64 probe of csrc/flash_fwd.cu (row 5:
    (x x^T) x on a seeded [128, 64] f32 tile of small integers through the
@@ -136,7 +145,10 @@ It prints the card line, a {"kernels": [...]} line (the tensor-core
 forward, dQ and dK/dV as ``flash_fwd`` / ``flash_bwd_dq`` /
 ``flash_bwd_dkv`` with ``flash_route`` "cuda-tc", the f32 forward of the
 serving paths as ``flash_fwd_tf32x3``, the CUDA-core forward and dQ as
-``flash_fwd_simt`` / ``flash_bwd_dq_simt``), and as its last line
+``flash_fwd_simt`` / ``flash_bwd_dq_simt``; the grouped-FFN forward as
+``grouped_ffn_fwd`` on the tc route and ``grouped_ffn_fwd_simt``, dx and
+dw as ``grouped_ffn_bwd_dx`` (tc) and ``grouped_ffn_bwd_dw`` (simt), each
+with its ``grouped_ffn_route``), and as its last line
 {"ok": true, "device":
 {...}}. Details land in
 chiprun_out/chip_smoke/ (result JSON, nvcc/ptxas logs). About two
@@ -146,6 +158,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -856,6 +869,28 @@ MOE_AGREE = 0.97
 #: allowance, and this bounds their sum: the sound kernels read up to
 #: 2.94 (dx), a dw1 short of one row tile 424 (H100 runs of this script)
 MOE_E2E_RATIO = {"float32": 1.0, "bfloat16": 8.0}
+#: depth of a stage of the tc route's mainloop (csrc/grouped_gemm_tc.cuh
+#: kBK): the K tile the negative controls leave out
+MOE_K_TILE = 64
+#: the per-route launch counters of the grouped-FFN forward and dx kernels
+MOE_ROUTES = ("fwd_cuda_tc", "fwd_cuda_simt", "dx_cuda_tc", "dx_cuda_simt")
+
+
+def moe_routes(counters):
+    """The grouped-FFN forward and dx launches by route in a counter
+    snapshot."""
+    return {n: int(counters.get(f"kernels.moe.grouped_ffn_{n}", 0))
+            for n in MOE_ROUTES}
+
+
+def check_moe_routes(counters, want, what):
+    """Every grouped-FFN forward and dx launch of a path on the routes
+    ``want`` names (route counter -> launches), none on any other."""
+    got = moe_routes(counters)
+    if got != {n: want.get(n, 0) for n in MOE_ROUTES}:
+        fail(f"{what}: grouped-FFN launches by route {got}, expected {want} "
+             f"and none elsewhere")
+    return got
 
 
 def _moe_counts(torch, moe_gate, n_tokens, h, e, cap, seed):
@@ -894,6 +929,38 @@ def _moe_negative_control(torch, moe, x, cnt, inter, dw1, ref_dw1,
                 ratio_vs_plain=e2e["ratio"], max_abs_err=stage["max_abs_err"])
 
 
+def _moe_k_tile_controls(torch, keep, ops, ha_k, dz_k, got, ref, plain,
+                         e2e_limit):
+    """out short of the down product's last MOE_K_TILE-deep K tile, and dx
+    short of the last K tile of dff (each mainloop one stage short):
+    subtract that tile's share (the plain product of the kernel's own ha,
+    or dz, over the tile's dff columns) on the live rows, and show that
+    both gates reject each: the stage gate and the end-to-end one (at
+    ``e2e_limit``)."""
+    _, w1, _, w2, _, ws = ops
+    dff = w1.shape[2]
+    lo = (dff - 1) // MOE_K_TILE * MOE_K_TILE
+    shares = {"out": torch.bmm(ha_k[..., lo:], w2[:, lo:].float()) * ws,
+              "dx": torch.bmm(dz_k[..., lo:],
+                              w1[..., lo:].float().transpose(1, 2))}
+    res = {}
+    for n, share in shares.items():
+        short = (got[n].float() - torch.where(keep, share, 0.0)).to(
+            got[n].dtype)
+        stage, e2e = closeness(short, ref[n]), closeness(short, plain[n])
+        print(f"  negative control ({n} without dff columns {lo}-{dff - 1})"
+              f": ratio to tol {stage['ratio']:.3g} (rejected: > 1), end to "
+              f"end {e2e['ratio']:.3g} (rejected: > {e2e_limit})",
+              flush=True)
+        if not (stage["ratio"] > 1.0 and e2e["ratio"] > e2e_limit):
+            fail(f"the checks do not reject {n} short of a K tile: {stage}, "
+                 f"{e2e}")
+        res[n] = dict(dff_columns=[lo, dff], ratio=stage["ratio"],
+                      ratio_vs_plain=e2e["ratio"],
+                      max_abs_err=stage["max_abs_err"])
+    return res
+
+
 def _moe_rounding_witness(torch, dt, dz_k, inter):
     """Where the dx kernel's rounded dz differs from the plain one: how
     many elements, how many of them by exactly one ulp of ``dt`` (same
@@ -927,13 +994,42 @@ def _moe_rounding_witness(torch, dt, dz_k, inter):
                 max_ulps=int(ulps[same].max()) if same.any() else None)
 
 
-def check_moe_kernels(torch, moe, moe_gate):
+def check_moe_tc_sass(build):
+    """The grouped-FFN tc kernels' machine code, as built: each kernel of
+    the tc route (``*_tcI*``) holds wgmma (HGMMA) and TMA load (UTMALDG)
+    instructions, counted in ``cuobjdump -sass`` of its library."""
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    counts = {}
+    for lib in ("grouped_ffn_fwd", "grouped_ffn_bwd"):
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(build.build()[lib])], capture_output=True,
+                              text=True, timeout=300)
+        if sass.returncode != 0:
+            fail(f"cuobjdump -sass of {lib} failed: {sass.stderr[-2000:]}")
+        for fn in sass.stdout.split("Function : ")[1:]:
+            name = fn.split("\n", 1)[0].strip()
+            tc = re.search(r"grouped_ffn_([a-z]+_[a-z]+_tc)(?:I|<)", name)
+            if tc:
+                ty = "fp16" if "__half" in name else "bf16"
+                counts[f"{tc.group(1)}<{ty}>"] = dict(
+                    HGMMA=fn.count("HGMMA"), UTMALDG=fn.count("UTMALDG"))
+    print(f"  tc kernels' SASS (wgmma, TMA loads): {counts}", flush=True)
+    if len(counts) != 8 or not all(c["HGMMA"] and c["UTMALDG"]
+                                   for c in counts.values()):
+        fail(f"the grouped-FFN tc kernels lack wgmma or TMA: {counts}")
+    return counts
+
+
+def check_moe_kernels(torch, moe, moe_gate, monitor):
     """Phase 11: the grouped-FFN forward, dx and dw kernels against their
     plain versions at the training shape (routed counts of the bench's
     16,384 tokens), a decode tick (8 lanes, one expert empty), a prefill
-    chunk (cap 128, routed) and a ragged f32 case; each timed alone beside
-    the plain version, its bound over the LIVE rows, and the timed-only
-    pair of torch.bmm calls over the padded buffer.
+    chunk (cap 128, routed), a ragged f32 case and a bf16 case the tc
+    route refuses; the forward and dx on the route ``grouped_ffn_route``
+    names (tc at the training shape only); each timed alone beside the
+    plain version, its bound over the LIVE rows (failing a time below
+    it), its TFLOP/s, and the timed-only pair of torch.bmm calls over the
+    padded buffer.
 
     Two gates. Stage by stage, every compared value is f32 math on the
     same rounded inputs, rounded once (PR 2's element-wise rule applies):
@@ -955,6 +1051,8 @@ def check_moe_kernels(torch, moe, moe_gate):
          [2, 3, 0, 1, 4, 2, 2, 2]),
         ("prefill_f32", 8, 128, 1024, 2816, f32, "gelu", 128),
         ("ragged_f32", 3, 37, 96, 200, f32, "relu", [0, 37, 13]),
+        ("refused_bf16", 4, 256, 1020, 2812, bf16, "gelu",
+         [256, 100, 0, 37]),
     ]
     names = ("out", "dx", "dw1", "db1", "dw2", "db2", "dws")
     cases = []
@@ -971,8 +1069,19 @@ def check_moe_kernels(torch, moe, moe_gate):
                r(E, 1, h, sc=0.1), torch.rand(E, cap, 1, generator=g,
                                               device=dev))
         gg = r(E, cap, h).to(dt)
+        route = moe.grouped_ffn_route(dt, h, dff)
+        if route != ("tc" if name == "train_bf16" else "simt"):
+            fail(f"grouped_ffn[{name}]: route {route}")
+        before = moe_routes(monitor.snapshot())
         got = dict(zip(names, (moe.grouped_ffn_fwd(*ops, cnt, act),)
                        + moe.grouped_ffn_bwd(*ops, cnt, gg, act)))
+        after = moe_routes(monitor.snapshot())
+        want = {n: before[n] + (n in (f"fwd_cuda_{route}",
+                                      f"dx_cuda_{route}"))
+                for n in MOE_ROUTES}
+        if after != want:
+            fail(f"grouped_ffn[{name}]: launches by route {after}, "
+                 f"expected {want}")
         # the dx kernel's rounded intermediates (scratch, live rows)
         cops = moe._check_cuda("check", *ops, cnt, gg)
         s = moe._bwd_scratch(ops[0], dff)
@@ -1002,11 +1111,13 @@ def check_moe_kernels(torch, moe, moe_gate):
             + moe.grouped_ffn_bwd_outputs(*ops, cnt, gg, **dict(
                 inter, ha=ha_k, dz=dz_k))))
         res.update({n: closeness(got[n], ref[n]) for n in names})
-        sharp = None
+        sharp = k_tiles = None
         if name == "train_bf16":
             sharp = _moe_negative_control(torch, moe, ops[0], cnt, inter,
                                           got["dw1"], ref["dw1"],
                                           plain["dw1"], e2e_limit)
+            k_tiles = _moe_k_tile_controls(torch, keep, ops, ha_k, dz_k, got,
+                                           ref, plain, e2e_limit)
         del got, ref, plain, inter, ha_k, dz_k
         bad = {n: v for n, v in res.items() if not v["ratio"] <= 1.0}
         bad.update({f"{n} end to end": v for n, v in e2e.items()
@@ -1039,7 +1150,8 @@ def check_moe_kernels(torch, moe, moe_gate):
                    ratio={n: v["ratio"] for n, v in res.items()},
                    ratio_vs_plain={n: v["ratio"] for n, v in e2e.items()},
                    e2e_limit=e2e_limit, dz_rounding=witness,
-                   negative_control=sharp)
+                   negative_control=sharp, k_tile_controls=k_tiles,
+                   route=dict(fwd=route, dx=route, dw="simt"))
         plain_bwd = cuda_ms(lambda: moe.grouped_ffn_bwd_plain(
             *ops, cnt, gg, act), iters=3)
         parts = {
@@ -1063,17 +1175,26 @@ def check_moe_kernels(torch, moe, moe_gate):
         }
         for part, (fn, plain_ms, pair, nbytes, flops) in parts.items():
             bms, by = bound_ms(nbytes, flops, dname)
-            rec[part] = dict(ms=cuda_ms(fn, iters=10), plain_ms=plain_ms,
-                             bound_ms=bms, bound_by=by, library_ms=None,
-                             library_pair_ms=cuda_ms(pair, iters=10))
-        print(f"  grouped_ffn[{name}]: ratio to tol "
+            ms = cuda_ms(fn, iters=10)
+            rec[part] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                             bound_by=by, library_ms=None,
+                             library_pair_ms=cuda_ms(pair, iters=10),
+                             tflops=flops / ms / 1e9)
+        print(f"  grouped_ffn[{name}] ({route}): ratio to tol "
               f"{ {n: round(v, 3) for n, v in rec['ratio'].items()} }, end "
               f"to end {max(rec['ratio_vs_plain'].values()):.3g} (limit "
-              f"{e2e_limit}); " + "; ".join(f"{p} {rec[p]['ms']:.4f} ms (bound "
-                          f"{rec[p]['bound_ms']:.4f} {rec[p]['bound_by']}, "
-                          f"plain {rec[p]['plain_ms']:.4f}, bmm pair "
-                          f"{rec[p]['library_pair_ms']:.4f})"
-                          for p in ("fwd", "dx", "dw")), flush=True)
+              f"{e2e_limit}); " + "; ".join(
+                  f"{p} {rec[p]['ms']:.4f} ms = {rec[p]['tflops']:.1f} "
+                  f"TFLOP/s (bound {rec[p]['bound_ms']:.4f} "
+                  f"{rec[p]['bound_by']}, plain {rec[p]['plain_ms']:.4f}, "
+                  f"bmm pair {rec[p]['library_pair_ms']:.4f})"
+                  for p in ("fwd", "dx", "dw")), flush=True)
+        low = {p: (rec[p]["ms"], rec[p]["bound_ms"])
+               for p in ("fwd", "dx", "dw")
+               if rec[p]["ms"] < rec[p]["bound_ms"]}
+        if low:
+            fail(f"grouped_ffn[{name}]: times below their bounds (ms, "
+                 f"bound): {low}")
         cases.append(rec)
         del ops, gg, cops, s, dx_b, dw1_b, dw2_b, hbuf
         torch.cuda.empty_cache()
@@ -1124,6 +1245,8 @@ def moe_serving_main_path(torch, mods, launches_of, reset_counts, card):
     if paths != {"pallas": want} or plain or \
             counters.get("serving.moe.decode_path.pallas") != want:
         fail(f"MoE serving left the kernel path: {paths}, {plain}")
+    routes = check_moe_routes(counters, {"fwd_cuda_simt": want},
+                              "MoE serving")
     n_tok = sum(len(o.token_ids) for o in outs)
     one = mods.Engine(model, **dict(P.MOE_ENGINE, max_slots=1)).run(
         [reqs[0], reqs[1]])
@@ -1134,7 +1257,7 @@ def moe_serving_main_path(torch, mods, launches_of, reset_counts, card):
                tokens_per_s=n_tok / serve_s, decode_ticks=ticks,
                prefills=prefills, launches=launches,
                moe_decode_path=paths, agreement_1_slot=agree,
-               counters=counters)
+               counters=counters, grouped_ffn_routes=routes)
     print(f"MoE serving: {P.MOE_REQUESTS} requests, {n_tok} tokens, {ticks} "
           f"decode ticks, {prefills} prefills in {serve_s:.2f} s = "
           f"{n_tok / serve_s:.1f} tok/s on {card}; launches {launches}; "
@@ -1248,6 +1371,9 @@ def moe_train_main_path(torch, mods, launches_of, reset_counts, card):
                 "kernels.flash.bwd_cuda") != want["flash_bwd_dq"]:
         fail(f"MoE training kernel-path counters disagree: {counters}")
     routes = check_tc_routes(counters, want["flash_fwd"], "MoE training")
+    moe_tc = check_moe_routes(counters, {
+        "fwd_cuda_tc": want["grouped_ffn_fwd"],
+        "dx_cuda_tc": want["grouped_ffn_bwd_dx"]}, "MoE training")
     steady = sorted(times[1:])[len(times[1:]) // 2]
     tokens = P.MOE_BATCH * P.MOE_SEQ
     flops = mods.ernie_moe_flops_per_token(cfg) * tokens
@@ -1257,7 +1383,7 @@ def moe_train_main_path(torch, mods, launches_of, reset_counts, card):
                tokens_per_s=tokens / steady,
                bf16_peak_share=flops / steady / PEAK_FLOPS["bfloat16"],
                peak_mem_gb=peak_gb, launches=launches, counters=counters,
-               flash_routes=routes)
+               flash_routes=routes, grouped_ffn_routes=moe_tc)
     print(f"MoE training: {n_params / 1e6:.1f} M params, batch "
           f"{P.MOE_BATCH} x seq {P.MOE_SEQ}, losses "
           f"{[round(x, 4) for x in losses]}; median step "
@@ -1830,7 +1956,8 @@ def main():
 
     # 11. the MoE kernels against their plain versions
     print("MoE kernels vs plain versions:", flush=True)
-    moe_cases = check_moe_kernels(torch, moe, moe_gate)
+    moe_sass = check_moe_tc_sass(build)
+    moe_cases = check_moe_kernels(torch, moe, moe_gate, monitor)
 
     def reset_counts():
         build.probe.launches = 0
@@ -2018,29 +2145,38 @@ def main():
             "max_abs_err", "tol", "ratio", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")}))
     main_moe = moe_cases[0]
-    for kname, part, line, outs, paths in (
-            ("grouped_ffn_fwd", "fwd", 181, ("out",),
-             {"moe_serving": ms_l["grouped_ffn_fwd"],
-              "moe_training": mt_l["grouped_ffn_fwd"]}),
+    decode_moe = next(c for c in moe_cases if c["case"] == "decode_f32")
+    mr_s = moe_serving["grouped_ffn_routes"]
+    mr_t = moe_training["grouped_ffn_routes"]
+    for kname, part, line, outs, route, case, paths in (
+            ("grouped_ffn_fwd", "fwd", 181, ("out",), "tc", main_moe,
+             {"moe_serving": mr_s["fwd_cuda_tc"],
+              "moe_training": mr_t["fwd_cuda_tc"]}),
+            ("grouped_ffn_fwd_simt", "fwd", 181, ("out",), "simt",
+             decode_moe, {"moe_serving": mr_s["fwd_cuda_simt"],
+                          "moe_training": mr_t["fwd_cuda_simt"]}),
             ("grouped_ffn_bwd_dx", "dx", 344, ("dx", "dws", "db2", "ha",
-                                                "dz"),
-             {"moe_training": mt_l["grouped_ffn_bwd_dx"]}),
-            ("grouped_ffn_bwd_dw", "dw", 462, ("dw1", "db1", "dw2"),
-             {"moe_training": mt_l["grouped_ffn_bwd_dw"]})):
+                                                "dz"), "tc", main_moe,
+             {"moe_training": mr_t["dx_cuda_tc"]}),
+            ("grouped_ffn_bwd_dw", "dw", 462, ("dw1", "db1", "dw2"), "simt",
+             main_moe, {"moe_training": mt_l["grouped_ffn_bwd_dw"]})):
         kernels.append(dict(
-            name=kname, route="cuda",
+            name=kname, route="cuda", grouped_ffn_route=route,
             source=src + ("grouped_ffn_fwd.cu" if part == "fwd"
                           else "grouped_ffn_bwd.cu"),
             replaces=f"paddle_tpu/kernels/moe.py:{line}",
             launches=sum(paths.values()), launches_by_path=paths,
-            case=main_moe["case"],
-            max_abs_err=max(main_moe["max_abs_err"][n] for n in outs),
-            tol={n: main_moe["tol"][n] for n in outs},
-            ratio=max(main_moe["ratio"][n] for n in outs),
-            ratio_vs_plain=max(main_moe["ratio_vs_plain"][n] for n in outs
-                               if n in main_moe["ratio_vs_plain"]),
-            e2e_limit=main_moe["e2e_limit"],
-            note="bound_ms counts the port's own entry over the live rows: "
+            case=case["case"],
+            max_abs_err=max(case["max_abs_err"][n] for n in outs),
+            tol={n: case["tol"][n] for n in outs},
+            ratio=max(case["ratio"][n] for n in outs),
+            ratio_vs_plain=max(case["ratio_vs_plain"][n] for n in outs
+                               if n in case["ratio_vs_plain"]),
+            e2e_limit=case["e2e_limit"],
+            note="grouped_ffn_route: tc (wgmma on TMA-fed 128 x 128 tiles, "
+                 "bf16/fp16 with h and dff multiples of 8) or simt (f32 FMA "
+                 "on the CUDA cores; the dw kernel on every route); "
+                 "bound_ms counts the port's own entry over the live rows: "
                  "forward 2 products (weights of the live experts, x in, "
                  "out written); dx 4 products (z, dh, dz w1^T, ha w2; the "
                  "weights, x and g in, dx written, ha and dz of the live "
@@ -2052,8 +2188,11 @@ def main():
                  "plain_ms of dx and dw is the whole plain backward; ratio "
                  "is the stage gate, ratio_vs_plain the end-to-end one "
                  "(limit e2e_limit)",
-            cases=[dict(case=c["case"], **c[part]) for c in moe_cases],
-            **main_moe[part]))
+            cases=[dict(case=c["case"], route=c["route"][part], **c[part])
+                   for c in moe_cases if c["route"][part] == route],
+            sass={k: v for k, v in moe_sass.items()
+                  if route == "tc" and k.startswith(part)},
+            **case[part]))
     for k in kernels:                 # also under these two names
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]
     result = dict(card=card, kind=kind, torch=torch.__version__,
@@ -2068,6 +2207,7 @@ def main():
                   counters=counters, agreement=agree,
                   flash_train_cases=train_cases, model_cross_check=xcheck,
                   training=training, moe_kernel_cases=moe_cases,
+                  moe_tc_sass=moe_sass,
                   moe_serving=moe_serving, moe_cross_check=moe_xcheck,
                   moe_training=moe_training, minor64_cases=minor64_cases,
                   encoder_flash_cases=enc_flash_cases,

@@ -11,8 +11,12 @@
 //   dws = sum_h g (ha w2 + b2), zero on dead rows     db2 = sum_rows g ws
 //   dw1 = x^T dz_T       db1 = sum_rows dz (f32)      dw2 = ha^T gw
 //
-// Products accumulate in f32 on the CUDA cores through the tiled product
-// of grouped_gemm.cuh (blocks of 64 x 64 outputs).
+// Products accumulate in f32: on the tensor cores ("tc" route, bf16 and
+// fp16 with h and dff multiples of 8, gg::route) through the Hopper
+// mainloop of grouped_gemm_tc.cuh (wgmma on TMA-fed 128 x 128 tiles), or
+// on the CUDA cores ("simt" route: f32, odd widths) through the tiled
+// product of grouped_gemm.cuh (64 x 64 tiles). The dx entry picks its
+// route by that rule; the dw entry runs simt on every route.
 //
 // Design. The Pallas dw kernel recomputes z and dh for its ff tile and
 // keeps dw1 [h, 512] and dw2 [512, h] f32 accumulators (4 MB) in VMEM;
@@ -20,16 +24,23 @@
 // the TPU grid runs in order. Neither carries to an H100 (227 KB of
 // shared memory a block by the data sheet, blocks in no order). Here:
 //
-// - dx entry (row 8), three passes on the caller's stream:
-//   1. blocks (expert, 64-row tile, 64-column ff tile): z and dh (two
-//      products over h), then ha and dz_T of the live rows into the
-//      wrapper's scratch [E, C, dff] in T, and the tile's column sums of
-//      f32 dz into db1_part [E, C/64, dff];
+// - dx entry (row 8), on the caller's stream:
+//   0. (tc only) gw = round_T(g ws) of the live rows, zero on the dead,
+//      into the wrapper's scratch [E, C, h]: TMA cannot scale rows while
+//      it loads, so the product reads gw as stored (bit for bit the value
+//      gg::ScaledRows computes on load on the simt route);
+//   1. blocks (expert, row tile, ff tile): z and dh (two products over
+//      h), then ha and dz_T of the live rows into the wrapper's scratch
+//      [E, C, dff] in T, and the column sums of f32 dz over each 64-row
+//      tile into db1_part [E, C/64, dff];
 //   2. blocks (expert, row tile, h tile): dx = dz_T w1^T and ha w2 (two
-//      products over dff), dx written, the tile's row sums of
-//      g (ha w2 + b2) into dws_part [E, C, h/64] and its column sums of
-//      g ws into db2_part [E, C/64, h];
+//      products over dff), dx written, the row sums of g (ha w2 + b2)
+//      over each 64-column tile into dws_part [E, C, h/64] and the column
+//      sums of g ws over each 64-row tile into db2_part [E, C/64, h];
 //   3. one pass summing the partials in a fixed order into dws and db2.
+//   The partials keep their 64-granular layout on both routes: a 128-row
+//   tc block writes one row-tile partial per warpgroup, and one column
+//   partial per 64 columns.
 // - dw entry (row 9), reading the dx entry's scratch:
 //   1. dw1 = x^T dz_T, blocks (expert, h tile, ff tile), the product's
 //      depth running over the expert's live rows only;
@@ -38,15 +49,17 @@
 //
 // So the backward does six products where the Pallas pair recomputes z
 // and dh in both kernels (eight), at the price of the scratch: 2 x E x C
-// x dff elements of T plus the partials. Every sum runs in a fixed order:
+// x dff elements of T (and E x C x h for gw on the tc route) plus the
+// partials. Every sum runs in a fixed order:
 // no atomics, the result is deterministic. A block of dead rows writes
 // zeros where the output has rows (dx) and exits; an expert with no live
 // row issues no read and gets dw1 = dw2 = 0.
 //
 // What bounds it on an H100: at the training shape arithmetic (each
-// product 2 x rows x h x dff operations), run in f32 on the CUDA cores
-// in these first kernels.
-#include "grouped_gemm.cuh"
+// product 2 x rows x h x dff operations): the dx entry's four products
+// run on the tensor cores on the tc route; the dw entry's two still run
+// in f32 on the CUDA cores.
+#include "grouped_gemm_tc.cuh"
 
 namespace {
 
@@ -61,6 +74,7 @@ struct BwdArgs {
   const int* counts;
   void* ha;          // [E, C, dff] T scratch
   void* dz;          // [E, C, dff] T scratch
+  void* gw;          // [E, C, h] T scratch (tc route)
   float* db1_part;   // [E, nrt, dff]
   float* db2_part;   // [E, nrt, h]
   float* dws_part;   // [E, C, nct]
@@ -325,6 +339,226 @@ __global__ void __launch_bounds__(256) grouped_ffn_db1_reduce(BwdArgs a) {
   a.db1[size_t(e) * a.dff + f] = s;
 }
 
+// -- the "tc" route of the dx entry ------------------------------------------
+
+// The ring of both tc passes (stages, blocks an SM): two 128-column f32
+// accumulators take ~157 registers a thread, so one block an SM. Chosen
+// over 3, 5 and 6 stages, and over 64-column tiles (two blocks an SM, or
+// one with six stages), by a timing comparison at the training shape on
+// an H100.
+using TcRing = ggtc::Ring<4, 1>;
+
+// dx pass 0: gw = round_T(g ws) on live rows, zero on dead rows; one
+// thread per 8 elements (h is a multiple of 8 on this route)
+template <typename T>
+__global__ void __launch_bounds__(256) grouped_ffn_dx_gw(BwdArgs a) {
+  const int e = blockIdx.y;
+  const int count = min(a.counts[e], a.C);
+  const int per_row = a.h / 8;
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= (long long)a.C * per_row) return;
+  const int m = int(i / per_row);
+  const size_t off = (size_t(e) * a.C + m) * a.h + size_t(i % per_row) * 8;
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (m < count) {
+    const uint4 raw =
+        *reinterpret_cast<const uint4*>(static_cast<const T*>(a.g) + off);
+    const T* gi = reinterpret_cast<const T*>(&raw);
+    T* go = reinterpret_cast<T*>(&v);
+    const float w = a.ws[size_t(e) * a.C + m];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) go[k] = pt::from_f32<T>(pt::to_f32(gi[k]) * w);
+  }
+  *reinterpret_cast<uint4*>(static_cast<T*>(a.gw) + off) = v;
+}
+
+// dx pass 1: z = x w1 (maps a0, b0: w1 MN-major; the forward's up pass
+// runs the same loop), dh = gw w2^T (a1, b1: w2 K-major) -> ha, dz_T,
+// db1_part
+template <typename T>
+__global__ void __launch_bounds__(ggtc::kThreads, TcRing::kBlocks)
+    grouped_ffn_dx_zdh_tc(const __grid_constant__ ggtc::Maps maps,
+                          BwdArgs a) {
+  const int e = blockIdx.z;
+  const int count = min(a.counts[e], a.C);
+  const int m0 = blockIdx.y * ggtc::kBM;
+  const int n0 = blockIdx.x * ggtc::kBN;
+  if (m0 >= count) return;
+  extern __shared__ uint8_t smem[];
+  const TcRing r = ggtc::make_ring<TcRing>(smem);
+  const int k_tiles = gg::cdiv(a.h, ggtc::kBK);
+  if (threadIdx.x >= ggtc::kConsumers) {
+    if (threadIdx.x == ggtc::kConsumers) {
+      const ggtc::Product p[2] = {{&maps.a0, &maps.b0, true, k_tiles},
+                                  {&maps.a1, &maps.b1, false, k_tiles}};
+      ggtc::produce(r, p, 2, e, m0, n0);
+    }
+    return;
+  }
+  float z[ggtc::kAcc], dh[ggtc::kAcc];
+  int j = 0;
+  ggtc::consume<T, true>(z, r, j, k_tiles);
+  ggtc::consume<T, false>(dh, r, j, k_tiles);
+  ggtc::drain(z);
+  ggtc::fence_acc(dh);
+  T* ha = static_cast<T*>(a.ha) + size_t(e) * a.C * a.dff;
+  T* dz = static_cast<T*>(a.dz) + size_t(e) * a.C * a.dff;
+  const float* b1 = a.b1 + size_t(e) * a.dff;
+  const int lane = threadIdx.x % 32;
+  const int row = m0 + threadIdx.x / 32 * 16 + lane / 4;
+  // cs[2 jj + c]: this thread's sum of f32 dz of column 8 jj + 2 (lane %
+  // 4) + c over its two rows, live rows only
+  float cs[ggtc::kBN / 4];
+#pragma unroll
+  for (int jj = 0; jj < ggtc::kBN / 8; ++jj) {
+    const int n = n0 + 8 * jj + 2 * (lane % 4);
+    cs[2 * jj] = cs[2 * jj + 1] = 0.f;
+    if (n >= a.dff) continue;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = row + 8 * hr;
+      if (m >= count) continue;
+      float d[2], h2[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float zz = z[4 * jj + 2 * hr + c] + b1[n + c];
+        d[c] = dh[4 * jj + 2 * hr + c] * gg::act_grad(zz, a.act);
+        h2[c] = gg::act_apply(zz, a.act);
+        cs[2 * jj + c] += d[c];
+      }
+      ggtc::store2(ha + size_t(m) * a.dff + n, h2[0], h2[1]);
+      ggtc::store2(dz + size_t(m) * a.dff + n, d[0], d[1]);
+    }
+  }
+  const int tile = blockIdx.y * 2 + threadIdx.x / 128;
+  ggtc::col_sums(r, cs,
+                 a.db1_part + (size_t(e) * a.nrt + tile) * a.dff + n0,
+                 a.dff - n0, tile < a.nrt);
+}
+
+// dx pass 2: dx = dz_T w1^T (maps a0, b0: w1 K-major), ffn = ha w2 (a1,
+// b1: w2 MN-major); g (ffn + b2) row sums, g ws column sums
+template <typename T>
+__global__ void __launch_bounds__(ggtc::kThreads, TcRing::kBlocks)
+    grouped_ffn_dx_out_tc(const __grid_constant__ ggtc::Maps maps,
+                          BwdArgs a) {
+  const int e = blockIdx.z;
+  const int count = min(a.counts[e], a.C);
+  const int m0 = blockIdx.y * ggtc::kBM;
+  const int n0 = blockIdx.x * ggtc::kBN;
+  T* dx = static_cast<T*>(a.dx) + size_t(e) * a.C * a.h;
+  if (m0 >= count) {  // block-uniform: dead rows of dx are zeros
+    for (int i = threadIdx.x; i < ggtc::kBM * ggtc::kBN / 2;
+         i += ggtc::kThreads) {
+      const int m = m0 + i / (ggtc::kBN / 2);
+      const int n = n0 + 2 * (i % (ggtc::kBN / 2));
+      if (m < a.C && n < a.h)
+        ggtc::store2(dx + size_t(m) * a.h + n, 0.f, 0.f);
+    }
+    return;
+  }
+  extern __shared__ uint8_t smem[];
+  const TcRing r = ggtc::make_ring<TcRing>(smem);
+  const int k_tiles = gg::cdiv(a.dff, ggtc::kBK);
+  if (threadIdx.x >= ggtc::kConsumers) {
+    if (threadIdx.x == ggtc::kConsumers) {
+      const ggtc::Product p[2] = {{&maps.a0, &maps.b0, false, k_tiles},
+                                  {&maps.a1, &maps.b1, true, k_tiles}};
+      ggtc::produce(r, p, 2, e, m0, n0);
+    }
+    return;
+  }
+  float dxa[ggtc::kAcc], ffn[ggtc::kAcc];
+  int j = 0;
+  ggtc::consume<T, false>(dxa, r, j, k_tiles);
+  ggtc::consume<T, true>(ffn, r, j, k_tiles);
+  ggtc::drain(ffn);
+  ggtc::fence_acc(dxa);
+  const T* g = static_cast<const T*>(a.g) + size_t(e) * a.C * a.h;
+  const float* b2 = a.b2 + size_t(e) * a.h;
+  const float* ws = a.ws + size_t(e) * a.C;
+  const int lane = threadIdx.x % 32;
+  const int row = m0 + threadIdx.x / 32 * 16 + lane / 4;
+  constexpr int kHalves = ggtc::kBN / 64;  // 64-column partials of dws
+  float cs[ggtc::kBN / 4];
+  float rs[2][kHalves] = {};  // [row][64-column half], live rows only
+#pragma unroll
+  for (int jj = 0; jj < ggtc::kBN / 8; ++jj) {
+    const int n = n0 + 8 * jj + 2 * (lane % 4);
+    cs[2 * jj] = cs[2 * jj + 1] = 0.f;
+    if (n >= a.h) continue;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = row + 8 * hr;
+      if (m >= a.C) continue;
+      const bool live = m < count;
+      ggtc::store2(dx + size_t(m) * a.h + n,
+                   live ? dxa[4 * jj + 2 * hr] : 0.f,
+                   live ? dxa[4 * jj + 2 * hr + 1] : 0.f);
+      if (!live) continue;
+      const float w = ws[m];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float gv = pt::to_f32(g[size_t(m) * a.h + n + c]);
+        rs[hr][jj / 8] += gv * (ffn[4 * jj + 2 * hr + c] + b2[n + c]);
+        cs[2 * jj + c] += gv * w;
+      }
+    }
+  }
+  // row sums over each 64-column half: the 4 lanes of a row, in order
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int m = row + 8 * hr;
+#pragma unroll
+    for (int half = 0; half < kHalves; ++half) {
+      const float v = ggtc::quad_row_sum(rs[hr][half]);
+      const int t = blockIdx.x * kHalves + half;
+      if (lane % 4 == 0 && m < count && t < a.nct)
+        a.dws_part[(size_t(e) * a.C + m) * a.nct + t] = v;
+    }
+  }
+  const int tile = blockIdx.y * 2 + threadIdx.x / 128;
+  ggtc::col_sums(r, cs, a.db2_part + (size_t(e) * a.nrt + tile) * a.h + n0,
+                 a.h - n0, tile < a.nrt);
+}
+
+template <typename T>
+int launch_dx_tc(const BwdArgs& a, int dtype, cudaStream_t s) {
+  using ggtc::kBoxA;
+  using ggtc::kBoxBMn;
+  using ggtc::make_map;
+  if (reinterpret_cast<uintptr_t>(a.g) % 16 ||
+      reinterpret_cast<uintptr_t>(a.gw) % 16)
+    return int(cudaErrorMisalignedAddress);
+  ggtc::Maps p1{}, p2{};
+  if (!make_map(&p1.a0, a.x, dtype, a.h, a.C, a.E, kBoxA) ||
+      !make_map(&p1.b0, a.w1, dtype, a.dff, a.h, a.E, kBoxBMn) ||
+      !make_map(&p1.a1, a.gw, dtype, a.h, a.C, a.E, kBoxA) ||
+      !make_map(&p1.b1, a.w2, dtype, a.h, a.dff, a.E, ggtc::kBoxBK) ||
+      !make_map(&p2.a0, a.dz, dtype, a.dff, a.C, a.E, kBoxA) ||
+      !make_map(&p2.b0, a.w1, dtype, a.dff, a.h, a.E, ggtc::kBoxBK) ||
+      !make_map(&p2.a1, a.ha, dtype, a.dff, a.C, a.E, kBoxA) ||
+      !make_map(&p2.b1, a.w2, dtype, a.h, a.dff, a.E, kBoxBMn))
+    return int(cudaErrorInvalidValue);
+  const auto zdh_k = grouped_ffn_dx_zdh_tc<T>;
+  const auto out_k = grouped_ffn_dx_out_tc<T>;
+  if (int err = ggtc::allow_smem<TcRing>(zdh_k)) return err;
+  if (int err = ggtc::allow_smem<TcRing>(out_k)) return err;
+  const dim3 p0(
+      unsigned((static_cast<long long>(a.C) * (a.h / 8) + 255) / 256), a.E);
+  grouped_ffn_dx_gw<T><<<p0, 256, 0, s>>>(a);
+  if (int err = int(cudaGetLastError())) return err;
+  const dim3 g1(gg::cdiv(a.dff, ggtc::kBoxBK), gg::cdiv(a.C, ggtc::kBM), a.E);
+  zdh_k<<<g1, ggtc::kThreads, TcRing::kSmemBytes, s>>>(p1, a);
+  if (int err = int(cudaGetLastError())) return err;
+  const dim3 g2(gg::cdiv(a.h, ggtc::kBoxBK), gg::cdiv(a.C, ggtc::kBM), a.E);
+  out_k<<<g2, ggtc::kThreads, TcRing::kSmemBytes, s>>>(p2, a);
+  if (int err = int(cudaGetLastError())) return err;
+  const dim3 p3(gg::cdiv(a.C > a.h ? a.C : a.h, 256), a.E);
+  grouped_ffn_dx_reduce<<<p3, 256, 0, s>>>(a);
+  return int(cudaGetLastError());
+}
+
 template <typename T>
 int launch_dx(const BwdArgs& a, cudaStream_t s) {
   const dim3 p1(gg::cdiv(a.dff, gg::kBN), a.nrt, a.E);
@@ -359,12 +593,16 @@ int dispatch(BwdArgs a, int which, int dtype, void* stream) {
   a.nrt = gg::cdiv(a.C, gg::kBM);
   a.nct = gg::cdiv(a.h, gg::kBN);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool tc = which == 0 && gg::route(dtype, a.h, a.dff) == gg::kTc;
   switch (dtype * 2 + which) {
     case pt::kF32 * 2 + 0: return launch_dx<float>(a, s);
     case pt::kF32 * 2 + 1: return launch_dw<float>(a, s);
-    case pt::kBF16 * 2 + 0: return launch_dx<__nv_bfloat16>(a, s);
+    case pt::kBF16 * 2 + 0:
+      return tc ? launch_dx_tc<__nv_bfloat16>(a, dtype, s)
+                : launch_dx<__nv_bfloat16>(a, s);
     case pt::kBF16 * 2 + 1: return launch_dw<__nv_bfloat16>(a, s);
-    case pt::kF16 * 2 + 0: return launch_dx<__half>(a, s);
+    case pt::kF16 * 2 + 0:
+      return tc ? launch_dx_tc<__half>(a, dtype, s) : launch_dx<__half>(a, s);
     case pt::kF16 * 2 + 1: return launch_dw<__half>(a, s);
     default: return int(cudaErrorInvalidValue);
   }
@@ -375,14 +613,17 @@ int dispatch(BwdArgs a, int which, int dtype, void* stream) {
 PT_DEFINE_PROBE(grouped_ffn_bwd)
 
 // Operands as grouped_ffn_fwd_launch's, plus g [E, C, h] T. Scratch the
-// wrapper allocates: ha, dz [E, C, dff] T; db1_part [E, ceil(C/64), dff],
+// wrapper allocates: ha, dz [E, C, dff] T; gw [E, C, h] T (written and
+// read on the tc route only); db1_part [E, ceil(C/64), dff],
 // db2_part [E, ceil(C/64), h], dws_part [E, C, ceil(h/64)] f32. Outputs:
 // dx [E, C, h] T, dws [E, C, 1] f32, db2 [E, 1, h] f32. Returns
-// cudaGetLastError() after its launches.
+// cudaGetLastError() after its launches (or the error of a tensor map
+// libcuda refuses). The route is gg::route's.
 extern "C" int grouped_ffn_bwd_dx_launch(
     const void* x, const void* g, const void* w1, const void* b1,
     const void* w2, const void* b2, const void* ws, const void* counts,
-    void* ha, void* dz, void* db1_part, void* db2_part, void* dws_part,
+    void* ha, void* dz, void* gw, void* db1_part, void* db2_part,
+    void* dws_part,
     void* dx, void* dws, void* db2, int E, int C, int h, int dff, int act,
     int dtype, void* stream) {
   BwdArgs a{};
@@ -396,6 +637,7 @@ extern "C" int grouped_ffn_bwd_dx_launch(
   a.counts = static_cast<const int*>(counts);
   a.ha = ha;
   a.dz = dz;
+  a.gw = gw;
   a.db1_part = static_cast<float*>(db1_part);
   a.db2_part = static_cast<float*>(db2_part);
   a.dws_part = static_cast<float*>(dws_part);

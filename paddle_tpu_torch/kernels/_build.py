@@ -40,7 +40,7 @@ SOURCES = {"paged_decode": "paged_decode.cu", "flash_fwd": "flash_fwd.cu",
            "flash_bwd": "flash_bwd.cu", "grouped_ffn_fwd": "grouped_ffn_fwd.cu",
            "grouped_ffn_bwd": "grouped_ffn_bwd.cu"}
 HEADERS = ("common.cuh", "flash_common.cuh", "flash_tc.cuh",
-           "grouped_gemm.cuh")
+           "grouped_gemm.cuh", "grouped_gemm_tc.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
@@ -71,7 +71,7 @@ SIGNATURES = {
     "grouped_ffn_fwd": {"grouped_ffn_fwd_launch":
                         [_P] * 9 + [_I] * 6 + [_P]},
     "grouped_ffn_bwd": {"grouped_ffn_bwd_dx_launch":
-                        [_P] * 16 + [_I] * 6 + [_P],
+                        [_P] * 17 + [_I] * 6 + [_P],
                         "grouped_ffn_bwd_dw_launch":
                         [_P] * 10 + [_I] * 5 + [_P]},
 }

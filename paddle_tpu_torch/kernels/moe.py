@@ -24,7 +24,10 @@ with rows at or past ``counts[e]`` zero and skipped.
   ``_grouped_ffn_bwd_pallas`` :552). On CUDA tensors they launch
   ``csrc/grouped_ffn_fwd.cu`` and the dx and dw kernels of
   ``csrc/grouped_ffn_bwd.cu`` or raise; the plain versions run only for
-  CPU tensors.
+  CPU tensors. The forward and the dx kernel take one of two routes
+  (``grouped_ffn_route``): "tc", wgmma on TMA-fed tiles
+  (``csrc/grouped_gemm_tc.cuh``), or "simt", f32 FMA on the CUDA cores
+  (``csrc/grouped_gemm.cuh``); the dw kernel runs simt.
 - ``grouped_ffn``: the differentiable entry (:711), casting as JAX does:
   x, w1 and w2 to their promoted dtype, b1, b2 and ws to f32, the result
   to x's dtype. With a gradient to take it runs ``_GroupedFFNFn`` (the
@@ -42,8 +45,9 @@ from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ACTS = {"gelu": 0, "relu": 1}
-#: row tile of the kernels (csrc/grouped_gemm.cuh kBM): the backward's
-#: per-tile partial sums are laid out by it
+#: row and column tile of the backward's per-tile partial sums
+#: (csrc/grouped_gemm.cuh kBM, kBN; the tc route's 128 x 128 blocks write
+#: two of each)
 ROW_TILE = 64
 COL_TILE = 64
 
@@ -92,10 +96,31 @@ def _act_grad(z, activation):
     return (z > 0.0).float()
 
 
+def grouped_ffn_route(dtype, h, dff):
+    """The route of one launch of the forward or the dx kernel, the rule
+    the C entries apply (``gg::route``, ``csrc/grouped_gemm_tc.cuh``):
+    "tc" (wgmma and TMA) for bfloat16 and float16 with h and dff
+    multiples of 8, so that every row is a multiple of 16 bytes as TMA
+    needs; "simt" (f32 FMA on the CUDA cores) for everything else."""
+    if dtype in (torch.bfloat16, torch.float16) and h % 8 == 0 \
+            and dff % 8 == 0:
+        return "tc"
+    return "simt"
+
+
 def _row_mask(counts, cap, device):
     """[E, C, 1] keep-mask: slot c of expert e is live iff c < counts[e]."""
     slot = torch.arange(cap, device=device, dtype=torch.int32)
     return (slot[None, :] < counts.to(torch.int32)[:, None])[..., None]
+
+
+def grouped_ffn_gw_plain(g, ws, counts):
+    """The dx kernel's first pass on the tc route: gw = g ws in f32,
+    rounded to g's dtype (the reference's rounding point, :413-416), zero
+    on dead rows -> [E, C, h] in g's dtype."""
+    gw32 = torch.where(_row_mask(counts, g.shape[1], g.device),
+                       g.float() * ws.float(), 0.0)
+    return gw32.to(g.dtype)
 
 
 def grouped_ffn_down_plain(ha, w2, b2, ws, counts, dtype):
@@ -120,12 +145,13 @@ def grouped_ffn_bwd_intermediates(x, w1, b1, w2, b2, ws, counts, g,
                                   activation="gelu"):
     """The backward's first stage (the dx kernel's first pass): f32
     tensors, zero on dead rows, at the kernels' rounding points (T = x's
-    dtype): gw32 = g ws, gw = round_T(gw32), ha = round_T(act(z)) with z =
-    x w1 + b1, dz32 = (gw w2^T) act'(z), dz = round_T(dz32)."""
+    dtype): gw32 = g ws, gw = round_T(gw32) (``grouped_ffn_gw_plain``),
+    ha = round_T(act(z)) with z = x w1 + b1, dz32 = (gw w2^T) act'(z),
+    dz = round_T(dz32)."""
     t = x.dtype
     keep = _row_mask(counts, x.shape[1], x.device)
     gw32 = torch.where(keep, g.float() * ws.float(), 0.0)
-    gw = gw32.to(t).float()
+    gw = grouped_ffn_gw_plain(g.to(t), ws, counts).float()
     z = torch.bmm(x.float(), w1.float()) + b1.float()
     ha = torch.where(keep, _act_apply(z, activation).to(t).float(), 0.0)
     dh = torch.bmm(gw, w2.float().transpose(1, 2))
@@ -187,20 +213,38 @@ def _check_cuda(what, x, w1, b1, w2, b2, ws, counts, g=None):
         raise ValueError(f"{what}: counts must be int32, got {counts.dtype}")
     if any(t.device != x.device for t in got.values()):
         raise ValueError(f"{what}: all operands must be on one device")
-    return [t.contiguous() for t in [x, w1, b1, w2, b2, ws, counts]
-            + ([] if g is None else [g])]
+    # contiguous, and 16-byte aligned as the tc route's TMA loads need (a
+    # view that starts mid-row is copied)
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in
+            (t.contiguous() for t in [x, w1, b1, w2, b2, ws, counts]
+             + ([] if g is None else [g]))]
 
 
 def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _fwd_launch(ops, ha, out, activation):
+    """One launch of ``csrc/grouped_ffn_fwd.cu`` on checked operands
+    ``ops`` = (x, w1, b1, w2, b2, ws, counts) with the scratch ``ha``
+    [E, C, dff] in x's dtype."""
+    x, w1, b1, w2, b2, ws, counts = ops
+    E, C, h = x.shape
+    lib = _build.load("grouped_ffn_fwd")
+    _build.check(lib.grouped_ffn_fwd_launch(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), ws.data_ptr(), counts.data_ptr(), ha.data_ptr(),
+        out.data_ptr(), E, C, h, w1.shape[2], _ACTS[activation],
+        _DTYPES[x.dtype], _stream(x)), "grouped_ffn_fwd kernel")
+
+
 def grouped_ffn_fwd(x, w1, b1, w2, b2, ws, counts, activation="gelu"):
     """The grouped FFN forward: operands as ``grouped_ffn_plain`` with x,
     w1, w2 in one dtype and b1, b2, ws in f32, counts int32. On CUDA
-    tensors this launches ``csrc/grouped_ffn_fwd.cu`` (counted on
-    ``grouped_ffn_fwd.launches``); on CPU tensors it runs
-    ``grouped_ffn_plain``."""
+    tensors this launches ``csrc/grouped_ffn_fwd.cu`` on the route
+    ``grouped_ffn_route`` names (counted on ``grouped_ffn_fwd.launches``
+    and ``kernels.moe.grouped_ffn_fwd_cuda_{tc,simt}``); on CPU tensors it
+    runs ``grouped_ffn_plain``."""
     if activation not in _ACTS:
         raise ValueError(f"activation must be 'gelu' or 'relu', got "
                          f"{activation!r}")
@@ -219,14 +263,11 @@ def grouped_ffn_fwd(x, w1, b1, w2, b2, ws, counts, activation="gelu"):
     # the activation of the live rows, rounded to x's dtype (the JAX
     # kernel keeps it in VMEM; see the source's note)
     ha = torch.empty((E, C, dff), dtype=x.dtype, device=x.device)
-    lib = _build.load("grouped_ffn_fwd")
-    _build.check(lib.grouped_ffn_fwd_launch(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), ws.data_ptr(), counts.data_ptr(), ha.data_ptr(),
-        out.data_ptr(), E, C, h, dff, _ACTS[activation], _DTYPES[x.dtype],
-        _stream(x)), "grouped_ffn_fwd kernel")
+    _fwd_launch((x, w1, b1, w2, b2, ws, counts), ha, out, activation)
     grouped_ffn_fwd.launches += 1
     monitor.counter("kernels.moe.grouped_ffn_fwd_cuda").increase()
+    monitor.counter("kernels.moe.grouped_ffn_fwd_cuda_"
+                    + grouped_ffn_route(x.dtype, h, dff)).increase()
     return out
 
 
@@ -235,14 +276,18 @@ grouped_ffn_fwd.launches = 0
 
 def _bwd_scratch(x, dff):
     """The scratch the dx kernel writes and the dw kernel reads: ha and
-    dz of the live rows in x's dtype, and the per-tile partial sums."""
+    dz of the live rows in x's dtype, and the per-tile partial sums; and
+    gw, which the dx kernel writes and reads on the tc route (an empty
+    tensor on the simt route)."""
     E, C, h = x.shape
     nrt = -(-C // ROW_TILE)
     nct = -(-h // COL_TILE)
     dev = x.device
+    tc = grouped_ffn_route(x.dtype, h, dff) == "tc"
     return dict(
         ha=torch.empty((E, C, dff), dtype=x.dtype, device=dev),
         dz=torch.empty((E, C, dff), dtype=x.dtype, device=dev),
+        gw=torch.empty((E, C, h) if tc else (0,), dtype=x.dtype, device=dev),
         db1_part=torch.empty((E, nrt, dff), dtype=torch.float32, device=dev),
         db2_part=torch.empty((E, nrt, h), dtype=torch.float32, device=dev),
         dws_part=torch.empty((E, C, nct), dtype=torch.float32, device=dev))
@@ -258,8 +303,9 @@ def _bwd_dx_launch(ops, s, dx, dws, db2, activation):
     _build.check(lib.grouped_ffn_bwd_dx_launch(
         x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), ws.data_ptr(), counts.data_ptr(),
-        s["ha"].data_ptr(), s["dz"].data_ptr(), s["db1_part"].data_ptr(),
-        s["db2_part"].data_ptr(), s["dws_part"].data_ptr(), dx.data_ptr(),
+        s["ha"].data_ptr(), s["dz"].data_ptr(), s["gw"].data_ptr(),
+        s["db1_part"].data_ptr(), s["db2_part"].data_ptr(),
+        s["dws_part"].data_ptr(), dx.data_ptr(),
         dws.data_ptr(), db2.data_ptr(), E, C, h, w1.shape[2],
         _ACTS[activation], _DTYPES[x.dtype], _stream(x)),
         "grouped_ffn_bwd dx kernel")
@@ -281,9 +327,11 @@ def _bwd_dw_launch(ops, s, dw1, db1, dw2):
 def grouped_ffn_bwd(x, w1, b1, w2, b2, ws, counts, g, activation="gelu"):
     """The grouped FFN backward -> (dx, dw1, db1, dw2, db2, dws). On CUDA
     tensors this launches the dx kernel (dx, dws, db2; it also writes ha
-    and dz of the live rows) and then the dw kernel (dw1, db1, dw2) of
-    ``csrc/grouped_ffn_bwd.cu``, counted on ``grouped_ffn_bwd.launches_dx``
-    / ``launches_dw``; on CPU tensors it runs ``grouped_ffn_bwd_plain``."""
+    and dz of the live rows) on the route ``grouped_ffn_route`` names and
+    then the dw kernel (dw1, db1, dw2) of ``csrc/grouped_ffn_bwd.cu``,
+    counted on ``grouped_ffn_bwd.launches_dx`` / ``launches_dw`` and the
+    dx kernel also on ``kernels.moe.grouped_ffn_dx_cuda_{tc,simt}``; on
+    CPU tensors it runs ``grouped_ffn_bwd_plain``."""
     if activation not in _ACTS:
         raise ValueError(f"activation must be 'gelu' or 'relu', got "
                          f"{activation!r}")
@@ -308,6 +356,8 @@ def grouped_ffn_bwd(x, w1, b1, w2, b2, ws, counts, g, activation="gelu"):
     s = _bwd_scratch(x, dff)
     _bwd_dx_launch(ops, s, dx, dws, db2, activation)
     grouped_ffn_bwd.launches_dx += 1
+    monitor.counter("kernels.moe.grouped_ffn_dx_cuda_"
+                    + grouped_ffn_route(x.dtype, h, dff)).increase()
     _bwd_dw_launch(ops, s, dw1, db1, dw2)
     grouped_ffn_bwd.launches_dw += 1
     monitor.counter("kernels.moe.grouped_ffn_bwd_cuda").increase()

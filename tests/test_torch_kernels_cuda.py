@@ -447,6 +447,8 @@ _MOE_CASES = {
     "odd_geometry": (3, 37, 96, 200, [0, 37, 13], "relu"),
     "decode": (8, 8, 256, 384, [2, 3, 0, 1, 4, 2, 2, 2], "gelu"),
     "all_dead": (2, 16, 64, 64, [0, 0], "gelu"),
+    # h and dff not multiples of 8: the tc route refuses every dtype
+    "tc_refused": (3, 50, 100, 204, [50, 20, 0], "gelu"),
 }
 
 
@@ -461,22 +463,38 @@ def _moe_inputs(dev, name, dtype):
     return ops, cnt, r(E, C, h, sc=1.0).to(dtype), act
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def _moe_route_counts():
+    from paddle_tpu_torch import monitor
+    return {f"{k}_{r}": monitor.counter(
+        f"kernels.moe.grouped_ffn_{k}_cuda_{r}").get()
+        for k in ("fwd", "dx") for r in ("tc", "simt")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("name", sorted(_MOE_CASES))
 def test_grouped_ffn_kernels_match_plain(dev, dtype, name):
     """The forward, dx and dw kernels against the plain versions (f32 math
-    from the same rounded inputs): dead rows of out, dx and dws zero."""
+    from the same rounded inputs): dead rows of out, dx and dws zero; the
+    forward and dx launch on the route grouped_ffn_route names (bf16 and
+    fp16 with h and dff multiples of 8: tc)."""
     from paddle_tpu_torch.kernels import moe
     ops, cnt, g, act = _moe_inputs(dev, name, dtype)
     rtol = 1e-4 if dtype == torch.float32 else 1e-2
     n = (moe.grouped_ffn_fwd.launches, moe.grouped_ffn_bwd.launches_dx,
          moe.grouped_ffn_bwd.launches_dw)
+    routes = _moe_route_counts()
     out = moe.grouped_ffn_fwd(*ops, cnt, act)
     grads = moe.grouped_ffn_bwd(*ops, cnt, g, act)
     torch.cuda.synchronize()
     assert (moe.grouped_ffn_fwd.launches, moe.grouped_ffn_bwd.launches_dx,
             moe.grouped_ffn_bwd.launches_dw) == (n[0] + 1, n[1] + 1,
                                                  n[2] + 1)
+    route = moe.grouped_ffn_route(dtype, ops[0].shape[2], ops[1].shape[2])
+    assert route == ("simt" if dtype == torch.float32 or name == "tc_refused"
+                     else "tc")
+    want = {k: v + (k.endswith("_" + route)) for k, v in routes.items()}
+    assert _moe_route_counts() == want
     _close(out, moe.grouped_ffn_plain(*ops, cnt, act), rtol)
     ref = moe.grouped_ffn_bwd_plain(*ops, cnt, g, act)
     for a, b in zip(grads, ref):
@@ -487,6 +505,52 @@ def test_grouped_ffn_kernels_match_plain(dev, dtype, name):
         assert not t[dead].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_grouped_ffn_tc_dead_rows_hold_nan(dev, dtype):
+    """Live counts that end mid-way through a 128-row tile, NaN in the
+    dead rows of x and g and in every scratch row before the launches:
+    the tc kernels read those rows inside a live tile but drop them by a
+    select, so live outputs are finite and equal the plain version's (on
+    the same inputs with the dead rows zero), and the dead rows of out, dx
+    and dws are exactly 0."""
+    from paddle_tpu_torch.kernels import moe
+    E, C, h, f, act = 3, 256, 128, 192, "gelu"
+    cnt = torch.tensor([77, 150, 0], dtype=torch.int32, device=dev)
+    assert moe.grouped_ffn_route(dtype, h, f) == "tc"
+    g = torch.Generator().manual_seed(17)
+    r = lambda *s, sc: (torch.randn(*s, generator=g) * sc).to(dev)  # noqa
+    ops = [r(E, C, h, sc=0.5).to(dtype), r(E, h, f, sc=h ** -0.5).to(dtype),
+           r(E, 1, f, sc=0.1), r(E, f, h, sc=f ** -0.5).to(dtype),
+           r(E, 1, h, sc=0.1), torch.rand(E, C, 1, generator=g).to(dev)]
+    gg = r(E, C, h, sc=1.0).to(dtype)
+    dead = torch.arange(C, device=dev)[None] >= cnt[:, None]
+    clean = [t.clone() for t in ops] + [gg.clone()]
+    ops[0][dead] = float("nan")
+    gg[dead] = float("nan")
+    nan = lambda t: t.fill_(float("nan"))  # noqa: E731
+    out = torch.empty_like(ops[0])
+    moe._fwd_launch((*ops, cnt), nan(torch.empty(E, C, f, dtype=dtype,
+                                                  device=dev)), out, act)
+    s = moe._bwd_scratch(ops[0], f)
+    for k in ("ha", "dz", "gw"):
+        nan(s[k])
+    dx = torch.empty_like(ops[0])
+    dws = torch.empty(E, C, 1, device=dev)
+    db2 = torch.empty(E, 1, h, device=dev)
+    dw1, dw2 = torch.empty_like(ops[1]), torch.empty_like(ops[3])
+    db1 = torch.empty(E, 1, f, device=dev)
+    bops = (*ops, cnt, gg)
+    moe._bwd_dx_launch(bops, s, dx, dws, db2, act)
+    moe._bwd_dw_launch(bops, s, dw1, db1, dw2)
+    torch.cuda.synchronize()
+    fwd_ref = moe.grouped_ffn_plain(*clean[:6], cnt, act)
+    ref = moe.grouped_ffn_bwd_plain(*clean[:6], cnt, clean[6], act)
+    for got, want in zip((out, dx, dw1, db1, dw2, db2, dws),
+                         (fwd_ref,) + ref):
+        assert bool(torch.isfinite(got).all())
+        _close(got, want, 1e-2)
+    for t in (out, dx, dws):
+        assert not t[dead].any()
 def test_grouped_ffn_autograd_on_cuda_matches_cpu(dev):
     """grouped_ffn with requires_grad launches the forward and both
     backward kernels, and its grads match the CPU's plain path."""
