@@ -44,10 +44,13 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    ERNIE-MoE training shape (B 32, S 512, H 16, D 64, causal), timed
    beside the plain versions, their bounds and, where aten takes the
    case, the timed-only aten flash forward and backward (SDPA f32 beside
-   the f32 forward); each case records its route (bf16: the tensor-core
-   forward, dQ and dK/dV; f32: the tf32x3 forward, the CUDA-core dQ and
-   dK/dV); negative controls: dV without one q tile and dQ without one
-   key tile must be rejected;
+   the f32 forward, the backward of aten's memory-efficient attention
+   beside the f32 pass); each case records its route (bf16: the
+   tensor-core forward, dQ and dK/dV; f32: the tf32x3 forward, the
+   CUDA-core dQ and dK/dV) and every 16-bit forward launches the wgmma
+   kernel, whose SASS holds HGMMA and UTMALDG; negative controls: out
+   without one 32-key tile, dV without one q tile and dQ without one key
+   tile must be rejected;
 8. model cross-check: a 2-layer, hidden-512 LLaMA (8 heads, 2 kv heads,
    window 64, seq 256, f32) — one TrainStep loss and every parameter
    gradient on the card against the same weights on the CPU, then again
@@ -60,7 +63,8 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    steps on one fixed batch: finite, falling losses; flash forward, dQ
    and dK/dV launches == 4 layers x 6 steps each, the *_cuda counters
    equal to them and no *_plain call, every forward, dQ and dK/dV launch
-   on the tensor-core route (``kernels.flash.*_cuda_tc``) and none on
+   on the tensor-core route (``kernels.flash.*_cuda_tc``), every forward
+   on its wgmma kernel (``kernels.flash.fwd_cuda_tc_wgmma``) and none on
    another;
    ms per step, tokens/s, the share of the bf16 peak and the peak device
    memory.
@@ -74,10 +78,11 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    bf16 case whose widths the tensor-core route refuses (hidden 1020,
    FFN 2812), held stage by stage (rounded intermediates, then each
    output on the kernel's own intermediates) and end to end (within
-   MOE_E2E_RATIO of the allowance); the forward and dx launch on the
+   MOE_E2E_RATIO of the allowance); the forward, dx and dw launch on the
    route ``grouped_ffn_route`` names (the training shape on "tc", wgmma
    and TMA; the f32 and refused cases on "simt"), read from the
-   ``kernels.moe.grouped_ffn_{fwd,dx}_cuda_{tc,simt}`` counters; negative
+   ``kernels.moe.grouped_ffn_{fwd,dx,dw}_cuda_{tc,simt}`` counters, and
+   the tc kernels' SASS holds HGMMA and UTMALDG; negative
    controls at the training shape (dw1 short of one expert's last 64-row
    tile, out short of the down product's last 64-deep K tile, dx short
    of the last 64-deep K tile of dff) must each be rejected by both
@@ -104,7 +109,8 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    moments)) for 6 steps: finite, falling losses; grouped-FFN forward, dx
    and dw launches == 4 MoE layers x 6 steps, flash forward / dQ / dK/dV
    == 8 layers x 6 steps, no plain call, the flash forward, dQ and dK/dV
-   and the grouped-FFN forward and dx on the tc route only; ms per step,
+   and the grouped-FFN forward, dx and dw on the tc route only (every
+   flash forward on its wgmma kernel); ms per step,
    tokens/s, the bf16 peak share of ``ernie_moe_flops_per_token`` and the
    peak memory.
 
@@ -138,17 +144,19 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    bf16 AMP, AdamW(1e-4, bf16 moments), dropout 0.1) for 6 steps:
    finite, falling losses; flash forward, dQ and dK/dV launches == 12
    layers x 6 steps, no plain call, forward, dQ and dK/dV on the tc route
-   only; ms per step, tokens/s, the bf16 peak share by bench_bert's 6N
-   rule and the peak memory.
+   only, every forward on its wgmma kernel; ms per step, tokens/s, the
+   bf16 peak share by bench_bert's 6N rule and the peak memory.
 
 It prints the card line, a {"kernels": [...]} line (the tensor-core
-forward, dQ and dK/dV as ``flash_fwd`` / ``flash_bwd_dq`` /
-``flash_bwd_dkv`` with ``flash_route`` "cuda-tc", the f32 forward of the
-serving paths as ``flash_fwd_tf32x3``, the CUDA-core forward and dQ as
-``flash_fwd_simt`` / ``flash_bwd_dq_simt``; the grouped-FFN forward as
-``grouped_ffn_fwd`` on the tc route and ``grouped_ffn_fwd_simt``, dx and
-dw as ``grouped_ffn_bwd_dx`` (tc) and ``grouped_ffn_bwd_dw`` (simt), each
-with its ``grouped_ffn_route``), and as its last line
+forward, dQ and dK/dV as ``flash_fwd`` (its wgmma kernel,
+``launches_wgmma``) / ``flash_bwd_dq`` / ``flash_bwd_dkv`` with
+``flash_route`` "cuda-tc", the f32 forward of the serving paths as
+``flash_fwd_tf32x3``, the CUDA-core forward and dQ as ``flash_fwd_simt``
+/ ``flash_bwd_dq_simt``; the grouped-FFN forward as ``grouped_ffn_fwd``
+on the tc route and ``grouped_ffn_fwd_simt``, dx as
+``grouped_ffn_bwd_dx`` (tc), dw as ``grouped_ffn_bwd_dw`` (tc) and
+``grouped_ffn_bwd_dw_simt`` (the f32 prefill case), each with its
+``grouped_ffn_route``), and as its last line
 {"ok": true, "device":
 {...}}. Details land in
 chiprun_out/chip_smoke/ (result JSON, nvcc/ptxas logs). About two
@@ -202,9 +210,12 @@ def fail(msg):
     sys.exit(1)
 
 
-#: the per-route launch counters of the flash wrappers
-FLASH_ROUTES = ("fwd_cuda_tc", "fwd_cuda_tf32x3", "fwd_cuda_simt",
-                "dq_cuda_tc", "dq_cuda_simt", "dkv_cuda_tc", "dkv_cuda_simt")
+#: the per-route launch counters of the flash wrappers (the forward's by
+#: the kernel its C entry reports it ran; a tc forward at head dims up to
+#: 128 also counts on fwd_cuda_tc_wgmma: the wgmma kernel)
+FLASH_ROUTES = ("fwd_cuda_tc", "fwd_cuda_tc_wgmma", "fwd_cuda_tf32x3",
+                "fwd_cuda_simt", "dq_cuda_tc", "dq_cuda_simt", "dkv_cuda_tc",
+                "dkv_cuda_simt")
 
 
 def flash_routes(counters):
@@ -225,10 +236,13 @@ def check_routes(counters, want, what):
 
 
 def check_tc_routes(counters, want, what):
-    """A bf16 training path: every flash forward, dQ and dK/dV launch on
-    the tensor-core route, none on tf32x3 or simt."""
-    return check_routes(counters, {"fwd_cuda_tc": want, "dq_cuda_tc": want,
-                                   "dkv_cuda_tc": want}, what)
+    """A bf16 training path (head dim 64 or 128): every flash forward, dQ
+    and dK/dV launch on the tensor-core route, every forward on its wgmma
+    kernel, none on tf32x3 or simt."""
+    return check_routes(counters, {"fwd_cuda_tc": want,
+                                   "fwd_cuda_tc_wgmma": want,
+                                   "dq_cuda_tc": want, "dkv_cuda_tc": want},
+                        what)
 
 
 def check_f32_routes(counters, want, what):
@@ -546,6 +560,36 @@ def check_is_sharp(torch, fa, q, k, v, out, lse, do, scale, grads, refs):
     return recs
 
 
+#: keys per tile of the tc forward's wgmma kernel at head dim 128
+#: (csrc/flash_fwd.cu Fwd128): the key tile its negative control leaves
+#: out
+FWD_KEY_TILE = 32
+
+
+def check_fwd_is_sharp(torch, fa, q, k, v, ref, scale, lo):
+    """Negative control of the forward at the main training shape (causal,
+    sq == sk): a kernel that skips the key tile [lo, lo + FWD_KEY_TILE)
+    (a walk one tile short, or a tile wrongly skipped) outputs attention
+    over the other keys: flash_plain with those key columns masked for
+    every row (flashmask bands), in f32, rounded to the output dtype.
+    The element-wise check against the plain version ``ref`` must reject
+    it."""
+    sq, sk = q.shape[1], k.shape[1]
+    hi = lo + FWD_KEY_TILE
+    bands = torch.zeros(1, 1, 4, sk, dtype=torch.int32, device=q.device)
+    bands[..., 1, lo:hi] = sq                  # rows [0, sq) of keys lo..hi
+    short = fa.flash_plain(*(x.transpose(1, 2).float() for x in (q, k, v)),
+                           True, scale, se=bands).transpose(1, 2)
+    c = closeness(short.to(q.dtype), ref)
+    print(f"  negative control (out without keys {lo}-{hi - 1}): ratio to "
+          f"tol {c['ratio']:.3g} (rejected: > 1); max abs err "
+          f"{c['max_abs_err']:.3g}", flush=True)
+    if not c["ratio"] > 1.0:
+        fail(f"the element-wise check does not reject out without keys "
+             f"{lo}-{hi - 1}: {c}")
+    return dict(keys=[lo, hi], ratio=c["ratio"], max_abs_err=c["max_abs_err"])
+
+
 #: phase 7's cases: name, B, sq, sk, h, hkv, d, dtype, window, documents,
 #: causal — the LLaMA training shape (the first: the negative controls run
 #: there), five edge cases and the ERNIE-MoE training shape (profile_moe's
@@ -575,10 +619,12 @@ def check_flash_train(torch, fa, doc_mask, specs=FLASH_TRAIN_SPECS):
     d, since each backward kernel recomputes S and dP), the pass bound
     counts the backward pass once (10 = 2.5 x the forward's). Each case
     records the route (``fa.flash_route``) its forward and dK/dV take."""
+    from paddle_tpu_torch import monitor
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
     bf16 = torch.bfloat16
     cases = []
+    wgmma = monitor.counter("kernels.flash.fwd_cuda_tc_wgmma")
     for name, B, sq, sk, h, hkv, d, dname, window, docs, causal in specs:
         dt = getattr(torch, dname)
         q, do = (torch.randn(B, sq, h, d, generator=g, device=dev).to(dt)
@@ -596,9 +642,16 @@ def check_flash_train(torch, fa, doc_mask, specs=FLASH_TRAIN_SPECS):
         def t(x):
             return x.transpose(1, 2).float()
 
+        n_wgmma = wgmma.get()
         out, lse = fa.flash_fwd(q, k, v, causal, scale, window, se,
                                 want_lse=True)
         torch.cuda.synchronize()
+        fwd_kernel = ("wgmma" if wgmma.get() == n_wgmma + 1 else
+                      "mma_sync" if fa._route_of("fwd", [q, k, v]) == "tc"
+                      else None)
+        if dt != torch.float32 and fwd_kernel != "wgmma":
+            fail(f"flash_fwd[{name}]: the 16-bit forward at head dim {d} "
+                 f"did not launch the wgmma kernel ({fwd_kernel})")
 
         def plain_fwd():
             return fa.flash_plain(t(q), t(k), t(v), causal, scale, window,
@@ -611,6 +664,10 @@ def check_flash_train(torch, fa, doc_mask, specs=FLASH_TRAIN_SPECS):
                "lse": closeness(lse[~dead], want_lse[~dead], rtol=0.0,
                                 atol=1e-5 * max(1.0, float(
                                     want_lse[~dead].abs().max())))}
+        fwd_sharp = None
+        if name == "train_bf16":
+            fwd_sharp = check_fwd_is_sharp(torch, fa, q, k, v,
+                                           want.transpose(1, 2), scale, 512)
         del want, want_lse
         dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, causal, scale,
                                   window, se)
@@ -626,6 +683,7 @@ def check_flash_train(torch, fa, doc_mask, specs=FLASH_TRAIN_SPECS):
         if name == "train_bf16":
             sharp = check_is_sharp(torch, fa, q, k, v, out, lse, do, scale,
                                    (dq, dv), (refs[0], refs[2]))
+            sharp["fwd_key_tile_512"] = fwd_sharp
         del dq, dk, dv, refs
         errs = {n: r["max_abs_err"] for n, r in res.items()}
         tols = {n: r["tol"] for n, r in res.items()}
@@ -649,7 +707,8 @@ def check_flash_train(torch, fa, doc_mask, specs=FLASH_TRAIN_SPECS):
                    ratio=ratios, negative_control=sharp,
                    route={n: fa._route_of(n, [q, k, v] if n == "fwd"
                                           else [q, k, v, do])
-                          for n in fa.FLASH_KERNELS})
+                          for n in fa.FLASH_KERNELS},
+                   fwd_kernel=fwd_kernel)
         # each kernel's bytes and counted operations (forward 4, dQ 6,
         # dK/dV 8 x pairs x d), the pass's (10)
         work = {"fwd": (2 * qb + 2 * kb + rows, 4),
@@ -687,13 +746,24 @@ def check_flash_train(torch, fa, doc_mask, specs=FLASH_TRAIN_SPECS):
             "aten flash attention takes bf16/fp16 with equal heads, sq == "
             "sk and no window or mask; it computes dq, dk and dv in one "
             "call, so its time stands beside the pass; an f32 case's "
-            "forward stands beside SDPA f32 (no aten f32 flash backward)")
+            "forward stands beside SDPA f32 and its pass beside the "
+            "backward of aten's memory-efficient attention "
+            "(_efficient_attention_backward, through autograd)")
         plain_case = h == hkv and sq == sk and window is None and se is None
         qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
         if dt == torch.float32 and plain_case:
             rec["fwd"]["library_ms"] = cuda_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal, scale=scale), iters=10)
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                o_e = torch.nn.functional.scaled_dot_product_attention(
+                    qg, kg, vg, is_causal=causal, scale=scale)
+            rec["pass"]["library_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(o_e, (qg, kg, vg), dot,
+                                            retain_graph=True), iters=10)
+            del qg, kg, vg, o_e
         if dt == bf16 and plain_case:
             aten = torch.ops.aten
 
@@ -872,19 +942,21 @@ MOE_E2E_RATIO = {"float32": 1.0, "bfloat16": 8.0}
 #: depth of a stage of the tc route's mainloop (csrc/grouped_gemm_tc.cuh
 #: kBK): the K tile the negative controls leave out
 MOE_K_TILE = 64
-#: the per-route launch counters of the grouped-FFN forward and dx kernels
-MOE_ROUTES = ("fwd_cuda_tc", "fwd_cuda_simt", "dx_cuda_tc", "dx_cuda_simt")
+#: the per-route launch counters of the grouped-FFN forward, dx and dw
+#: kernels
+MOE_ROUTES = ("fwd_cuda_tc", "fwd_cuda_simt", "dx_cuda_tc", "dx_cuda_simt",
+              "dw_cuda_tc", "dw_cuda_simt")
 
 
 def moe_routes(counters):
-    """The grouped-FFN forward and dx launches by route in a counter
+    """The grouped-FFN forward, dx and dw launches by route in a counter
     snapshot."""
     return {n: int(counters.get(f"kernels.moe.grouped_ffn_{n}", 0))
             for n in MOE_ROUTES}
 
 
 def check_moe_routes(counters, want, what):
-    """Every grouped-FFN forward and dx launch of a path on the routes
+    """Every grouped-FFN forward, dx and dw launch of a path on the routes
     ``want`` names (route counter -> launches), none on any other."""
     got = moe_routes(counters)
     if got != {n: want.get(n, 0) for n in MOE_ROUTES}:
@@ -994,29 +1066,57 @@ def _moe_rounding_witness(torch, dt, dz_k, inter):
                 max_ulps=int(ulps[same].max()) if same.any() else None)
 
 
+def _sass_counts(build, lib, pattern):
+    """{kernel<type>: HGMMA and UTMALDG counts} of the functions of
+    library ``lib`` whose name (mangled or not) matches ``pattern``, named
+    by its groups joined, from ``cuobjdump -sass``."""
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.build()[lib])],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass of {lib} failed: {sass.stderr[-2000:]}")
+    counts = {}
+    for fn in sass.stdout.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        m = re.search(pattern, name)
+        if m:
+            ty = "fp16" if "__half" in name else "bf16"
+            short = "_d".join(x for x in m.groups() if x)
+            counts[f"{short}<{ty}>"] = dict(
+                HGMMA=fn.count("HGMMA"), UTMALDG=fn.count("UTMALDG"))
+    return counts
+
+
 def check_moe_tc_sass(build):
     """The grouped-FFN tc kernels' machine code, as built: each kernel of
-    the tc route (``*_tcI*``) holds wgmma (HGMMA) and TMA load (UTMALDG)
-    instructions, counted in ``cuobjdump -sass`` of its library."""
-    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    the tc route (``*_tcI*``: the forward's two passes, dx's two, the dw
+    products) holds wgmma (HGMMA) and TMA load (UTMALDG) instructions,
+    counted in ``cuobjdump -sass`` of its library."""
     counts = {}
     for lib in ("grouped_ffn_fwd", "grouped_ffn_bwd"):
-        sass = subprocess.run([str(cuobjdump), "-sass",
-                               str(build.build()[lib])], capture_output=True,
-                              text=True, timeout=300)
-        if sass.returncode != 0:
-            fail(f"cuobjdump -sass of {lib} failed: {sass.stderr[-2000:]}")
-        for fn in sass.stdout.split("Function : ")[1:]:
-            name = fn.split("\n", 1)[0].strip()
-            tc = re.search(r"grouped_ffn_([a-z]+_[a-z]+_tc)(?:I|<)", name)
-            if tc:
-                ty = "fp16" if "__half" in name else "bf16"
-                counts[f"{tc.group(1)}<{ty}>"] = dict(
-                    HGMMA=fn.count("HGMMA"), UTMALDG=fn.count("UTMALDG"))
+        counts.update(_sass_counts(build, lib,
+                                   r"grouped_ffn_([a-z]+_[a-z]+_tc)(?:I|<)"))
     print(f"  tc kernels' SASS (wgmma, TMA loads): {counts}", flush=True)
-    if len(counts) != 8 or not all(c["HGMMA"] and c["UTMALDG"]
-                                   for c in counts.values()):
+    if len(counts) != 10 or not all(c["HGMMA"] and c["UTMALDG"]
+                                    for c in counts.values()):
         fail(f"the grouped-FFN tc kernels lack wgmma or TMA: {counts}")
+    return counts
+
+
+def check_flash_wgmma_sass(build):
+    """The tc forward's wgmma kernel as built (bf16 and fp16 at tile head
+    dims 64 and 128): each instantiation holds wgmma (HGMMA) and TMA load
+    (UTMALDG) instructions (``cuobjdump -sass`` of the flash_fwd
+    library)."""
+    counts = _sass_counts(
+        build, "flash_fwd", r"(flash_fwd_wgmma_kernel).*?"
+                            r"(?:Li(64|128)E|, (64|128),)")
+    print(f"  tc forward's wgmma kernel SASS (wgmma, TMA loads): {counts}",
+          flush=True)
+    if len(counts) != 4 or not all(c["HGMMA"] and c["UTMALDG"]
+                                   for c in counts.values()):
+        fail(f"the flash forward's wgmma kernel lacks wgmma or TMA: "
+             f"{counts}")
     return counts
 
 
@@ -1077,7 +1177,8 @@ def check_moe_kernels(torch, moe, moe_gate, monitor):
                        + moe.grouped_ffn_bwd(*ops, cnt, gg, act)))
         after = moe_routes(monitor.snapshot())
         want = {n: before[n] + (n in (f"fwd_cuda_{route}",
-                                      f"dx_cuda_{route}"))
+                                      f"dx_cuda_{route}",
+                                      f"dw_cuda_{route}"))
                 for n in MOE_ROUTES}
         if after != want:
             fail(f"grouped_ffn[{name}]: launches by route {after}, "
@@ -1151,7 +1252,7 @@ def check_moe_kernels(torch, moe, moe_gate, monitor):
                    ratio_vs_plain={n: v["ratio"] for n, v in e2e.items()},
                    e2e_limit=e2e_limit, dz_rounding=witness,
                    negative_control=sharp, k_tile_controls=k_tiles,
-                   route=dict(fwd=route, dx=route, dw="simt"))
+                   route=dict(fwd=route, dx=route, dw=route))
         plain_bwd = cuda_ms(lambda: moe.grouped_ffn_bwd_plain(
             *ops, cnt, gg, act), iters=3)
         parts = {
@@ -1373,7 +1474,8 @@ def moe_train_main_path(torch, mods, launches_of, reset_counts, card):
     routes = check_tc_routes(counters, want["flash_fwd"], "MoE training")
     moe_tc = check_moe_routes(counters, {
         "fwd_cuda_tc": want["grouped_ffn_fwd"],
-        "dx_cuda_tc": want["grouped_ffn_bwd_dx"]}, "MoE training")
+        "dx_cuda_tc": want["grouped_ffn_bwd_dx"],
+        "dw_cuda_tc": want["grouped_ffn_bwd_dw"]}, "MoE training")
     steady = sorted(times[1:])[len(times[1:]) // 2]
     tokens = P.MOE_BATCH * P.MOE_SEQ
     flops = mods.ernie_moe_flops_per_token(cfg) * tokens
@@ -1854,6 +1956,7 @@ def main():
     probe_cases = check_probe(torch, build)
     paged_cases = check_paged(torch, pa, kv_quantize_arrays)
     flash_cases = check_flash(torch, fa)
+    flash_sass = check_flash_wgmma_sass(build)
     train_cases = check_flash_train(torch, fa, doc_mask)
 
     # 4. + 5. the main path: counts to 0 just before, read just after
@@ -2011,7 +2114,7 @@ def main():
     main_train = train_cases[0]
     bt_case = bert_train_cases[0]
     all_train = train_cases + bert_train_cases
-    ms_l, mt_l = moe_serving["launches"], moe_training["launches"]
+    ms_l = moe_serving["launches"]
     es_l, bt_l = enc_serving["launches"], bert_training["launches"]
     # launches by route: the bf16 training paths run the tc kernels, the
     # f32 serving paths the tf32x3 forward (their counter snapshots)
@@ -2035,6 +2138,7 @@ def main():
                     == route)
 
     fwd_tc = by_path(tc_paths, "fwd_cuda_tc")
+    fwd_wgmma = by_path(tc_paths, "fwd_cuda_tc_wgmma")
     fwd_tf32 = by_path(f32_paths, "fwd_cuda_tf32x3")
     fwd_simt = by_path({**tc_paths, **f32_paths}, "fwd_cuda_simt")
     simt_flash = first_on(flash_cases, "simt")
@@ -2061,9 +2165,15 @@ def main():
                  "max_abs_err", "tol", "ratio", "ms", "plain_ms", "bound_ms",
                  "bound_by")}),
         dict(name="flash_fwd", route="cuda", flash_route="cuda-tc",
-             source=src + "flash_fwd.cu",
+             kernel="flash_fwd_wgmma_kernel", source=src + "flash_fwd.cu",
              replaces="paddle_tpu/kernels/flash_attention.py:280",
              launches=sum(fwd_tc.values()), launches_by_path=fwd_tc,
+             launches_wgmma=sum(fwd_wgmma.values()), sass=flash_sass,
+             note="the tc route's forward: at head dims up to 128 the "
+                  "wgmma kernel (wgmma fed by TMA, a producer warp and one "
+                  "consumer warpgroup), at larger ones the mma.sync "
+                  "kernel; launches_wgmma counts the former, as the C "
+                  "entry reports the kernel it ran",
              case=main_train["case"],
              max_abs_err=main_train["max_abs_err"]["out"],
              lse_max_abs_err=main_train["max_abs_err"]["lse"],
@@ -2146,6 +2256,7 @@ def main():
             "bound_by", "library_ms")}))
     main_moe = moe_cases[0]
     decode_moe = next(c for c in moe_cases if c["case"] == "decode_f32")
+    prefill_moe = next(c for c in moe_cases if c["case"] == "prefill_f32")
     mr_s = moe_serving["grouped_ffn_routes"]
     mr_t = moe_training["grouped_ffn_routes"]
     for kname, part, line, outs, route, case, paths in (
@@ -2158,8 +2269,10 @@ def main():
             ("grouped_ffn_bwd_dx", "dx", 344, ("dx", "dws", "db2", "ha",
                                                 "dz"), "tc", main_moe,
              {"moe_training": mr_t["dx_cuda_tc"]}),
-            ("grouped_ffn_bwd_dw", "dw", 462, ("dw1", "db1", "dw2"), "simt",
-             main_moe, {"moe_training": mt_l["grouped_ffn_bwd_dw"]})):
+            ("grouped_ffn_bwd_dw", "dw", 462, ("dw1", "db1", "dw2"), "tc",
+             main_moe, {"moe_training": mr_t["dw_cuda_tc"]}),
+            ("grouped_ffn_bwd_dw_simt", "dw", 462, ("dw1", "db1", "dw2"),
+             "simt", prefill_moe, {"moe_training": mr_t["dw_cuda_simt"]})):
         kernels.append(dict(
             name=kname, route="cuda", grouped_ffn_route=route,
             source=src + ("grouped_ffn_fwd.cu" if part == "fwd"
@@ -2174,8 +2287,9 @@ def main():
                                if n in case["ratio_vs_plain"]),
             e2e_limit=case["e2e_limit"],
             note="grouped_ffn_route: tc (wgmma on TMA-fed 128 x 128 tiles, "
-                 "bf16/fp16 with h and dff multiples of 8) or simt (f32 FMA "
-                 "on the CUDA cores; the dw kernel on every route); "
+                 "bf16/fp16 with h and dff multiples of 8; the dw products "
+                 "read both operands MN-major) or simt (f32 FMA on the CUDA "
+                 "cores: f32, odd widths); "
                  "bound_ms counts the port's own entry over the live rows: "
                  "forward 2 products (weights of the live experts, x in, "
                  "out written); dx 4 products (z, dh, dz w1^T, ha w2; the "
@@ -2207,7 +2321,7 @@ def main():
                   counters=counters, agreement=agree,
                   flash_train_cases=train_cases, model_cross_check=xcheck,
                   training=training, moe_kernel_cases=moe_cases,
-                  moe_tc_sass=moe_sass,
+                  moe_tc_sass=moe_sass, flash_wgmma_sass=flash_sass,
                   moe_serving=moe_serving, moe_cross_check=moe_xcheck,
                   moe_training=moe_training, minor64_cases=minor64_cases,
                   encoder_flash_cases=enc_flash_cases,

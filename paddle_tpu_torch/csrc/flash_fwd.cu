@@ -26,14 +26,16 @@
 // - tc: bf16 and fp16 operands with a head dim that is a multiple of 8 up
 //   to 256 and 16-byte aligned rows — every training path (LLaMA
 //   [12, 1024, 32, 128], ERNIE-MoE [32, 512, 16, 64], BERT [256, 128, 12,
-//   64]). mma.sync m16n8k16 with f32 accumulators from ldmatrix
-//   fragments, K/V through a cp.async ring, the online softmax on the
-//   accumulators (`flash_fwd_mma_kernel` with `FwdTc`, below). P is split
-//   into P_hi + P_lo, both 16-bit, for O += P V: one rounding of P to bf16
-//   (FlashAttention-2/3's arithmetic) fails the port's bf16 gate by
-//   ~6-23x, the split passes it at ~0.48, as f32 math does
-//   (csrc/flash_tc.cuh, tests/test_torch_flash_tc_arith.py). The split
-//   costs 1.5x the tensor-core operations.
+//   64]). Head dims up to 128 (every main path) run wgmma fed by TMA
+//   (`flash_fwd_wgmma_kernel`, below); larger ones mma.sync m16n8k16 from
+//   ldmatrix fragments, K/V through a cp.async ring
+//   (`flash_fwd_mma_kernel` with `FwdTc`). Both take f32 accumulators and
+//   run the online softmax on them. P is split into P_hi + P_lo, both
+//   16-bit, for O += P V: one rounding of P to bf16 (FlashAttention-2/3's
+//   arithmetic) fails the port's bf16 gate by ~6-23x, the split passes it
+//   at ~0.48, as f32 math does (csrc/flash_tc.cuh,
+//   tests/test_torch_flash_tc_arith.py). The split costs 1.5x the
+//   tensor-core operations.
 // - tf32x3: f32 operands with a head dim that is a multiple of 8 up to 256,
 //   16-byte aligned rows and strides that are multiples of 4 elements —
 //   the f32 serving paths (LLaMA no-cache forward [2, 1024, 32, 128], the
@@ -53,16 +55,16 @@
 // What bounds it on an H100: at the LLaMA training shape bytes and
 // operations nearly tie (~400 MB of q, k, v and out at 3.35 TB/s; ~103
 // GFLOP of S and P V at the bf16 peak); at BERT's S 128, bytes. The tc
-// route issues 1.5x those operations (the split) through mma.sync, whose
-// rate is below wgmma's; f32-grade results on the tensor cores take 3x
+// route issues 1.5x those operations (the split); f32-grade results on
+// the tensor cores take 3x
 // the operations at the TF32 peak (495 TFLOP/s), so the tf32x3 route's
 // bound at the LLaMA serving shape (17.2 GFLOP counted) is operations.
 // PERF.md keeps the times beside the bounds. Every route runs the key
 // tiles that meet the causal band and the window only, and skips a tile
 // whose every row one flashmask band covers before its K/V are loaded
-// (the document mask's cross-document tiles). wgmma tiles fed by TMA are
-// later work.
+// (the document mask's cross-document tiles).
 #include "flash_tc.cuh"
+#include "grouped_gemm_tc.cuh"
 
 namespace {
 
@@ -309,12 +311,9 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 // and split (16-bit hi + lo, or tf32 big + small); l is summed from the
 // unsplit P.
 //
-// - FwdTc (bf16/fp16): mma.sync m16n8k16 from ldmatrix fragments (rows of
-//   kD + 8 elements: ldmatrix reads are conflict-free). Tile shapes from a
-//   comparison on the card (PERF.md): two row tiles a warp halve the
-//   ldmatrix traffic per product; 32-key tiles keep head dim 128's
-//   accumulators (2 x 64 + 2 x 16 a thread) near the register file; head
-//   dim 256 keeps one row tile a warp.
+// - FwdTc (bf16/fp16, head dims above 128 since the wgmma kernel took the
+//   rest): mma.sync m16n8k16 from ldmatrix fragments (rows of kD + 8
+//   elements: ldmatrix reads are conflict-free), one row tile a warp.
 // - FwdTf32 (f32): mma.sync m16n8k8 on tf32 operands, 3xTF32 (each
 //   product big big + big small + small big, csrc/flash_tc.cuh), fragments
 //   read by 32-bit loads from rows of kD + 8 (Q, K) and kD + 4 (V) words,
@@ -329,9 +328,10 @@ template <typename T, int kD_>
 struct FwdTc {
   using Elem = T;
   static constexpr int kD = kD_;
-  static constexpr int kWarps = kD <= 128 ? 4 : 8;  // warps per block
-  static constexpr int kM = kD <= 128 ? 2 : 1;      // m16 row tiles a warp
-  static constexpr int kBK = kD <= 64 ? 64 : 32;    // keys per tile
+  static_assert(kD == 256, "the wgmma kernel takes tile head dims <= 128");
+  static constexpr int kWarps = 8;                  // warps per block
+  static constexpr int kM = 1;                      // m16 row tiles a warp
+  static constexpr int kBK = 32;                    // keys per tile
   static constexpr int kLdQ = kD + 8, kLdK = kD + 8, kLdV = kD + 8;
   static constexpr int kNT = kBK / 8;               // S n8 tiles per row tile
   static constexpr int kDT = kD / 8;                // O n8 tiles per row tile
@@ -349,11 +349,6 @@ struct FwdTc {
     *reinterpret_cast<unsigned*>(p) = tc::pack2<T>(x, y);
   }
 };
-
-template <int kD>
-using FwdBf16 = FwdTc<__nv_bfloat16, kD>;
-template <int kD>
-using FwdF16 = FwdTc<__half, kD>;
 
 template <int kD_>
 struct FwdTf32 {
@@ -618,6 +613,501 @@ int launch_mma(const Args& a, int B, cudaStream_t stream) {
   }
 }
 
+// ------------------------------------------- tc route: the wgmma kernel --
+//
+// `flash_fwd_wgmma_kernel<C>`: the tc route's forward at tile head dims 64
+// and 128 (head dims up to 128; `launch_tc`), on Hopper's wgmma with TMA.
+// One block per (batch * head, 64-row q tile), the shape of the
+// grouped-FFN mainloop (csrc/grouped_gemm_tc.cuh, whose barrier, TMA,
+// descriptor and tensor-map helpers it uses) cut to one consumer
+// warpgroup and a producer warp, several blocks an SM.
+//
+// - The producer warp loads Q once and then K and V tiles of kBN keys
+//   into a ring of kStages stages with full/empty mbarriers, through 4-D
+//   tensor maps over (D, heads, S, B) with the caller's strides (no copy
+//   of a strided view). A row of a tile is one or two 64-column slabs of
+//   128 bytes (128B swizzle, as the grouped FFN's MN-major boxes); TMA
+//   writes zeros past D, Sq and Sk.
+// - The producer alone decides which key tiles a block visits: the causal
+//   band and the window (fl::k_tile_range), minus the tiles one flashmask
+//   band covers whole (the same skip as the mma.sync kernel, before the
+//   K/V loads). With each stage it writes the tile's index and its key
+//   columns' bands into shared memory; a stage with index -1 ends the
+//   walk. The consumers follow that sequence, so the two sides cannot
+//   disagree on it (a disagreement would deadlock on a barrier).
+// - The consumer warpgroup computes S = Q K^T by wgmma m64n{kBN}k16 (Q and
+//   K from shared memory, both K-major) into f32 accumulators; the masks
+//   and the online softmax on the accumulators (scale and exp2 in f32, as
+//   the mma.sync kernel); P split into 16-bit P_hi + P_lo; O += P_hi V +
+//   P_lo V by wgmma m64n{kD}k16 with A from registers and V from shared
+//   memory, MN-major (the transpose bit). The A fragment of each warp's
+//   16 rows has the layout of the accumulator of S
+//   (tests/test_torch_flash_tc_arith.py emulates both maps), so P turns
+//   into its fragments in place. l is summed from the unsplit P.
+// - It issues S of tile j together with O's products of tile j - 1 (P_hi
+//   and P_lo stay live in registers until those retire), so its softmax
+//   of tile j runs while its O products do; the stage of tile j - 1 is
+//   released once they have retired. The other blocks of the SM (3 or 4,
+//   Fwd64 / Fwd128) fill the tensor cores while this one runs its softmax,
+//   loads or stores: at every main-path shape that beat two warpgroups a
+//   block taking turns (FlashAttention-3's ping-pong) and larger key
+//   tiles (PERF.md).
+// - The branches around the products depend only on values the compiler
+//   knows to be the same in every lane (the role and the tile index
+//   broadcast by __shfl_sync): a product on a path it thinks divergent is
+//   serialized (ptxas C7518).
+// What bounds it: at the LLaMA training shape the tensor cores (S and the
+// split O products, 1.5x the second product's operations); at BERT's S
+// 128 the bytes and each block's fill and drain.
+
+namespace fwg {
+
+constexpr int kBQ = 64;                    // query rows a block
+constexpr int kConsumers = 128;            // the consumer warpgroup
+constexpr int kThreads = kConsumers + 32;  // and the producer warp
+
+// tile head dim kD (64 or 128), keys per tile kBN (32, 64 or 128),
+// stages, blocks an SM kBlocks (one block's loads, softmax and stores
+// overlap another's products)
+template <typename T, int kD_, int kBN_, int kStages_, int kBlocks_>
+struct Cfg {
+  using Elem = T;
+  static constexpr int kD = kD_, kBN = kBN_, kStages = kStages_;
+  static constexpr int kBlocks = kBlocks_;
+  static constexpr int kSlabs = kD / 64;   // 64-column slabs of a row
+  static constexpr int kQSlab = kBQ * 128;  // bytes of a Q slab
+  static constexpr int kKSlab = kBN * 128;  // bytes of a K or V slab
+  static constexpr int kQBytes = kSlabs * kQSlab;
+  static constexpr int kKBytes = kSlabs * kKSlab;
+  static constexpr int kStageBytes = 2 * kKBytes;  // K, then V
+  static constexpr int kInfo = 4 * kBN + 1;        // bands [4][kBN], kt
+  static constexpr int kBarOff =
+      (kQBytes + kStages * kStageBytes + kStages * kInfo * 4 + 7) & ~7;
+  static constexpr int kSmemBytes = 1024 + kBarOff + (2 * kStages + 1) * 8;
+  static_assert(kD == 64 || kD == 128, "tile head dim");
+  static_assert(kBlocks * (kSmemBytes + 1024) <= 233472,
+                "the blocks of an SM fit its shared memory");
+  static_assert(kBN == 32 || kBN == 64 || kBN == 128, "keys per tile");
+};
+
+// The shared memory of a block: Q slabs, the stages (K slabs, V slabs),
+// each stage's info (its key tile's bands and index), the barriers.
+template <class C>
+struct Smem {
+  uint32_t base;  // shared address, 1024-byte aligned
+  int* info;      // [kStages][kInfo]
+  __device__ __forceinline__ uint32_t q(int slab) const {
+    return base + slab * C::kQSlab;
+  }
+  __device__ __forceinline__ uint32_t k(int s, int slab) const {
+    return base + C::kQBytes + s * C::kStageBytes + slab * C::kKSlab;
+  }
+  __device__ __forceinline__ uint32_t v(int s, int slab) const {
+    return k(s, slab) + C::kKBytes;
+  }
+  __device__ __forceinline__ uint32_t full(int s) const {
+    return base + C::kBarOff + 8 * s;
+  }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return full(C::kStages + s);
+  }
+  __device__ __forceinline__ uint32_t qbar() const {
+    return full(2 * C::kStages);
+  }
+};
+
+// keeps the compiler from moving the P fragments' reads across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void fence(unsigned (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+struct Maps {
+  CUtensorMap q, k, v;
+};
+
+
+// 2^x on the SFU, flushing results below 2^-126 to 0 (a probability that
+// small is below every l's rounding: the row's largest term is 1)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S = Q K^T of the tile in stage s: kD / 16 k16 steps, 32 bytes along the
+// swizzled 128-byte rows of a slab, 8-row groups 1 KB apart; one wgmma
+// group
+template <class C>
+__device__ __forceinline__ void qk(float (&sc)[C::kBN / 2], const Smem<C>& sm,
+                                   int s) {
+#pragma unroll
+  for (int kk = 0; kk < C::kD / 16; ++kk)
+    ggtc::mma_ss<typename C::Elem, C::kBN, 0, 0>(
+        sc, ggtc::desc(sm.q(kk / 4) + (kk % 4) * 32, 16, 1024),
+        ggtc::desc(sm.k(s, kk / 4) + (kk % 4) * 32, 16, 1024), kk > 0);
+  ggtc::wgmma_commit();
+}
+
+// O += P_hi V + P_lo V of the tile in stage s: a k16 chunk is 16 key rows
+// of 128 bytes; the 64-column slabs of V kBN x 128 bytes apart (leading
+// byte offset); one wgmma group
+template <class C>
+__device__ __forceinline__ void pv(float (&o)[C::kD / 2],
+                                   const unsigned (&ph)[C::kBN / 16][4],
+                                   const unsigned (&pl)[C::kBN / 16][4],
+                                   const Smem<C>& sm, int s) {
+#pragma unroll
+  for (int c = 0; c < C::kBN / 16; ++c) {
+    const uint64_t dv = ggtc::desc(sm.v(s, 0) + c * 16 * 128, C::kKSlab, 1024);
+    ggtc::mma_rs<typename C::Elem, C::kD, 1>(o, ph[c], dv, true);
+    ggtc::mma_rs<typename C::Elem, C::kD, 1>(o, pl[c], dv, true);
+  }
+  ggtc::wgmma_commit();
+}
+
+// The masks of key tile kt (only where the band, the window, the bands in
+// `info` or the ragged key edge reach into it; block rows [q0, q_end),
+// this thread's rows qr and qr + 8, key columns 8 jj + 2 t (+1)), then the
+// online softmax of the thread's two rows (a quad of lanes shares a row):
+// P in sc, l updated, O's rescale in alpha.
+template <class C>
+__device__ __forceinline__ void softmax(float (&sc)[C::kBN / 2], float (&m)[2],
+                                        float (&l)[2], float (&alpha)[2],
+                                        const Args& a, const int* seb,
+                                        const int* info, int kt, int q0,
+                                        int q_end, int qr, int t, float sl2) {
+  constexpr int kBN = C::kBN;
+  const int Sq = a.Sq, Sk = a.Sk, diag = Sk - Sq;
+  const int k0 = kt * kBN;
+  const bool masked =
+      seb != nullptr || k0 + kBN > Sk ||
+      (a.causal && (q0 + diag < k0 + kBN - 1 ||
+                    (a.window > 0 && q_end - 1 + diag - k0 >= a.window)));
+  if (masked) {
+#pragma unroll
+    for (int jj = 0; jj < kBN / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = qr + ((e >> 1) << 3);
+        const int jl = 8 * jj + 2 * t + (e & 1);
+        bool keep =
+            fl::band_keep(qi, k0 + jl, Sq, Sk, a.causal, a.window, diag);
+        if (seb != nullptr)
+          keep = keep &&
+                 !fl::band_masked(fl::Bands{info[jl], info[kBN + jl],
+                                            info[2 * kBN + jl],
+                                            info[3 * kBN + jl]},
+                                  qi);
+        if (!keep) sc[4 * jj + e] = -INFINITY;
+      }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < kBN / 8; ++jj)
+      mx = fmaxf(mx, fmaxf(sc[4 * jj + 2 * h], sc[4 * jj + 2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[h], mx * sl2);
+    const float base = m_new == -INFINITY ? 0.f : m_new;
+    alpha[h] = exp2_ftz(m[h] - base);
+    m[h] = m_new;
+    float rs = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < kBN / 8; ++jj)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float p = exp2_ftz(fmaf(sc[4 * jj + 2 * h + c], sl2, -base));
+        sc[4 * jj + 2 * h + c] = p;
+        rs += p;
+      }
+    l[h] = l[h] * alpha[h] + rs;
+  }
+}
+
+// P -> the A fragments of its k16 chunks (keys 16 c .. 16 c + 15): the
+// accumulators of key columns 16 c + 2 t (+1) and 16 c + 8 + 2 t (+1) of
+// rows g and g + 8, split into hi + lo
+template <class C>
+__device__ __forceinline__ void split(const float (&sc)[C::kBN / 2],
+                                      unsigned (&ph)[C::kBN / 16][4],
+                                      unsigned (&pl)[C::kBN / 16][4]) {
+  using T = typename C::Elem;
+#pragma unroll
+  for (int c = 0; c < C::kBN / 16; ++c) {
+    ph[c][0] = tc::split2<T>(sc[8 * c], sc[8 * c + 1], pl[c][0]);
+    ph[c][1] = tc::split2<T>(sc[8 * c + 2], sc[8 * c + 3], pl[c][1]);
+    ph[c][2] = tc::split2<T>(sc[8 * c + 4], sc[8 * c + 5], pl[c][2]);
+    ph[c][3] = tc::split2<T>(sc[8 * c + 6], sc[8 * c + 7], pl[c][3]);
+  }
+}
+
+// the key tile in stage s (-1: the walk has ended), the same in every lane
+// for the compiler
+template <class C>
+__device__ __forceinline__ int tile_at(const Smem<C>& sm, int s) {
+  return __shfl_sync(0xffffffffu, sm.info[s * C::kInfo + 4 * C::kBN], 0);
+}
+
+// the first key tile at or after kt that the bands do not cover whole
+// (the whole warp computes it; every lane gets the same answer)
+template <int kBN>
+__device__ __forceinline__ int next_tile(int kt, int kt_hi, const int* seb,
+                                         long long s4, int Sk, int q0,
+                                         int q_end, int lane) {
+  if (seb != nullptr)
+    while (kt < kt_hi &&
+           fl::tile_full(
+               fl::warp_band_extremes<kBN>(seb, s4, kt * kBN, Sk, lane), q0,
+               q_end))
+      ++kt;
+  return kt;
+}
+
+template <class C>
+__global__ void __launch_bounds__(kThreads, C::kBlocks)
+    flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps, Args a) {
+  using T = typename C::Elem;
+  constexpr int kD = C::kD, kBN = C::kBN, S = C::kStages;
+  constexpr int kSlabs = C::kSlabs, kInfo = C::kInfo;
+  const int H = a.H, Sq = a.Sq, Sk = a.Sk;
+  // one block per (batch * head, q tile), q tiles fastest, so the blocks
+  // in flight share heads and their K/V stay in L2; the last q tiles of a
+  // head (the longest under a causal band) start first
+  const int nq = (Sq + kBQ - 1) / kBQ;
+  const int bh = blockIdx.x / nq;
+  const int b = bh / H;
+  const int hq = bh - b * H;
+  const int hk = hq / (H / a.Hkv);
+  const int q0 = (nq - 1 - (blockIdx.x - bh * nq)) * kBQ;
+  const int q_end = min(q0 + kBQ, Sq);
+  const int diag = Sk - Sq;
+  const int lane = threadIdx.x % 32;
+
+  extern __shared__ uint8_t smem_wg[];
+  const uint32_t raw = ggtc::smem_u32(smem_wg);
+  const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
+  const Smem<C> sm{raw + pad,
+                   reinterpret_cast<int*>(smem_wg + pad + C::kQBytes +
+                                          S * C::kStageBytes)};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      ggtc::mbar_init(sm.full(s), 32);                // the producer warp
+      ggtc::mbar_init(sm.empty(s), kConsumers / 32);  // each consumer warp
+    }
+    ggtc::mbar_init(sm.qbar(), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int* seb = a.se == nullptr
+                       ? nullptr
+                       : a.se + b * a.se_sb + (hq / (H / a.h_se)) * a.se_sh;
+  int kt_lo, kt_hi;
+  fl::k_tile_range(q0, q_end, Sk, kBN, a.causal, a.window, diag, &kt_lo,
+                   &kt_hi);
+
+  // producer or consumer, known to the compiler as the same in every
+  // lane, so that the products below are not on a divergent path (which
+  // would serialize them)
+  const bool producer =
+      __shfl_sync(0xffffffffu, int(threadIdx.x) / kConsumers, 0) != 0;
+  if (producer) {
+    // -- the producer warp --
+    if (lane == 0) {
+      ggtc::mbar_expect_tx(sm.qbar(), C::kQBytes);
+#pragma unroll
+      for (int c = 0; c < kSlabs; ++c)
+        ggtc::tma_load4(sm.q(c), &maps.q, sm.qbar(), 64 * c, hq, q0, b);
+    }
+    int kt = next_tile<kBN>(kt_lo, kt_hi, seb, a.se_s4, Sk, q0, q_end, lane);
+    for (int j = 0;; ++j) {
+      const int s = j % S;
+      if (j >= S) ggtc::mbar_wait(sm.empty(s), ((j / S) + 1) & 1);
+      int* info = sm.info + s * kInfo;
+      if (kt >= kt_hi) {  // the end of the walk
+        if (lane == 0) info[4 * kBN] = -1;
+        ggtc::mbar_arrive(sm.full(s));
+        break;
+      }
+      const int k0 = kt * kBN;
+      if (seb != nullptr)
+#pragma unroll 1
+        for (int i = 0; i < kBN / 32; ++i) {
+          const int c = lane + 32 * i;
+          const fl::Bands bj = fl::load_bands(seb, a.se_s4, k0 + c, Sk);
+          info[c] = bj.lts;
+          info[kBN + c] = bj.lte;
+          info[2 * kBN + c] = bj.uts;
+          info[3 * kBN + c] = bj.ute;
+        }
+      if (lane == 0) {
+        info[4 * kBN] = kt;
+        ggtc::mbar_expect_tx(sm.full(s), C::kStageBytes);
+#pragma unroll
+        for (int c = 0; c < kSlabs; ++c) {
+          ggtc::tma_load4(sm.k(s, c), &maps.k, sm.full(s), 64 * c, hk, k0, b);
+          ggtc::tma_load4(sm.v(s, c), &maps.v, sm.full(s), 64 * c, hk, k0, b);
+        }
+      } else {
+        ggtc::mbar_arrive(sm.full(s));
+      }
+      kt = next_tile<kBN>(kt + 1, kt_hi, seb, a.se_s4, Sk, q0, q_end, lane);
+    }
+  } else {
+    // -- the consumer warpgroup --
+    const int g = lane / 4, t = lane % 4;
+    // this thread's rows (h = 0, 1) in the block: the warp's 16
+    const int r0 = (threadIdx.x / 32) * 16 + g;
+    const float sl2 = a.scale * tc::kLog2e;
+    float o[kD / 2];
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float sc[kBN / 2];
+    // P_hi and P_lo of the last tile, live until its products retire
+    unsigned ph[kBN / 16][4], pl[kBN / 16][4];
+    const int qr = q0 + r0;
+
+    // S of tile j is issued with O's products of tile j - 1 (P_hi and P_lo
+    // stay live until those retire): the softmax of tile j runs while
+    // they do.
+    ggtc::mbar_wait(sm.qbar(), 0);
+    ggtc::mbar_wait(sm.full(0), 0);
+    int kt = tile_at(sm, 0);
+    if (kt >= 0) {
+      float alpha[2];
+      ggtc::wgmma_fence();
+      qk(sc, sm, 0);
+      ggtc::wgmma_wait<0>();
+      ggtc::fence_acc(sc);
+      // O is 0: nothing to rescale
+      softmax<C>(sc, m, l, alpha, a, seb, sm.info, kt, q0, q_end, qr, t,
+                 sl2);
+      split<C>(sc, ph, pl);
+      int s_prev = 0;
+      for (int j = 1;; ++j) {
+        const int s = j % S;
+        ggtc::mbar_wait(sm.full(s), (j / S) & 1);
+        kt = tile_at(sm, s);
+        if (kt < 0) break;
+        ggtc::wgmma_fence();
+        qk(sc, sm, s);
+        pv(o, ph, pl, sm, s_prev);
+        ggtc::wgmma_wait<1>();  // S (the O products may still run)
+        ggtc::fence_acc(sc);
+        softmax<C>(sc, m, l, alpha, a, seb, sm.info + s * kInfo, kt, q0,
+                   q_end, qr, t, sl2);
+        ggtc::wgmma_wait<0>();  // the previous tile's O products
+        ggtc::fence_acc(o);
+        fence(ph);
+        fence(pl);
+        if (lane == 0) ggtc::mbar_arrive(sm.empty(s_prev));
+#pragma unroll
+        for (int jj = 0; jj < kD / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[4 * jj + e] *= alpha[e >> 1];
+        split<C>(sc, ph, pl);
+        s_prev = s;
+      }
+      ggtc::wgmma_fence();
+      pv(o, ph, pl, sm, s_prev);  // the last tile's O products
+      ggtc::wgmma_wait<0>();
+      ggtc::fence_acc(o);
+    }
+
+    // a row is valid when it saw a key (l > 0); lse = (m + log2 l) ln 2
+    T* ob = static_cast<T*>(a.o);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float lh = l[h];
+      lh += __shfl_xor_sync(0xffffffffu, lh, 1);
+      lh += __shfl_xor_sync(0xffffffffu, lh, 2);
+      const int qi = q0 + r0 + 8 * h;
+      if (qi >= Sq) continue;
+      const bool valid = lh > 0.f;
+      const float inv = valid ? 1.f / lh : 0.f;
+      T* orow = ob + ((size_t(b) * Sq + qi) * H + hq) * size_t(a.D);
+#pragma unroll
+      for (int jj = 0; jj < kD / 8; ++jj) {
+        const int c = 8 * jj + 2 * t;
+        if (c < a.D)
+          *reinterpret_cast<unsigned*>(orow + c) = tc::pack2<T>(
+              o[4 * jj + 2 * h] * inv, o[4 * jj + 2 * h + 1] * inv);
+      }
+      if (a.lse != nullptr && t == 0)
+        a.lse[size_t(bh) * Sq + qi] =
+            valid ? (m[h] + log2f(lh)) * tc::kLn2 : fl::kNegInf;
+    }
+  }
+}
+
+}  // namespace fwg
+
+// The wgmma kernel's configurations by tile head dim: 32 keys a tile, 4
+// stages and 4 blocks an SM at 64, 3 and 3 at 128 (chosen by timing them
+// against 64- and 128-key tiles on the card; PERF.md). Small blocks, many
+// to an SM, win at every main-path shape: the blocks overlap one
+// another's loads, softmax and stores.
+template <typename T>
+using Fwd64 = fwg::Cfg<T, 64, 32, 4, 4>;
+template <typename T>
+using Fwd128 = fwg::Cfg<T, 128, 32, 3, 3>;
+
+// One launch of the wgmma kernel (tile head dim 64 or 128): the tensor
+// maps over (D, heads, S, B) with the caller's strides, then the grid.
+template <class C>
+int launch_wgmma_d(const Args& a, int B, int dtype, cudaStream_t stream) {
+  constexpr int kBN = C::kBN;
+  fwg::Maps maps{};
+  auto map = [&](CUtensorMap* m, const void* p, int heads, int rows,
+                 long long sh, long long ss, long long sb, int box_rows) {
+    const cuuint64_t dims[4] = {cuuint64_t(a.D), cuuint64_t(heads),
+                                cuuint64_t(rows > 0 ? rows : 1),
+                                cuuint64_t(B)};
+    const cuuint64_t strides[3] = {cuuint64_t(sh) * 2, cuuint64_t(ss) * 2,
+                                   cuuint64_t(sb) * 2};
+    return ggtc::make_map_nd(m, p, dtype, 4, dims, strides, 2, box_rows);
+  };
+  if (!map(&maps.q, a.q, a.H, a.Sq, a.q_sh, a.q_ss, a.q_sb, fwg::kBQ) ||
+      !map(&maps.k, a.k, a.Hkv, a.Sk, a.k_sh, a.k_ss, a.k_sb, kBN) ||
+      !map(&maps.v, a.v, a.Hkv, a.Sk, a.v_sh, a.v_ss, a.v_sb, kBN))
+    return int(cudaErrorInvalidValue);
+  auto kernel = fwg::flash_fwd_wgmma_kernel<C>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
+  if (e != cudaSuccess) return int(e);
+  const long long blocks =
+      (long long)((a.Sq + fwg::kBQ - 1) / fwg::kBQ) * B * a.H;
+  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  kernel<<<unsigned(blocks), fwg::kThreads, C::kSmemBytes, stream>>>(maps,
+                                                                     a);
+  return int(cudaGetLastError());
+}
+
+// The kernel a launch ran, as flash_fwd_launch reports it
+enum FwdKernel { kFwdSimt = 0, kFwdTf32x3 = 1, kFwdMma = 2, kFwdWgmma = 3 };
+
+// The tc route: the wgmma kernel where tc::fwd_wgmma holds (tile head
+// dims up to 128), the mma.sync kernel (FwdTc) above; *kernel says which.
+template <typename T>
+int launch_tc(const Args& a, int B, int dtype, cudaStream_t stream,
+              int* kernel) {
+  if (!tc::fwd_wgmma(a.D)) {
+    *kernel = kFwdMma;
+    return launch_mma_d<FwdTc<T, 256>>(a, B, stream);
+  }
+  *kernel = kFwdWgmma;
+  if (tc::tile_d(a.D) <= 64)
+    return launch_wgmma_d<Fwd64<T>>(a, B, dtype, stream);
+  return launch_wgmma_d<Fwd128<T>>(a, B, dtype, stream);
+}
+
 // The head-dim-64 probe (row 5): one block computes s = x x^T ([128, 128],
 // f32) and o = s x ([128, 64]) for an f32 x [128, 64] with the tf32x3
 // route's own tiles at head dim 64 (FwdTf32<64>: its warps, row tiles,
@@ -716,14 +1206,16 @@ extern "C" int flash_fwd_minor64_probe(const void* x, void* o, void* stream) {
 // lse: f32 [B, H, Sq] or null (not wanted). se: int32 flashmask bands
 // by strides (batch — 0 broadcasts —, se head, band; the Sk column
 // stride is 1) with h_se se heads, or null. window <= 0 means no window
-// (only read when causal). Returns cudaGetLastError() after launch.
+// (only read when causal). *kernel (unless null) is set to the kernel
+// the launch ran (FwdKernel: 0 simt, 1 tf32x3, 2 tc mma.sync, 3 tc
+// wgmma). Returns cudaGetLastError() after launch.
 extern "C" int flash_fwd_launch(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int Hkv, int Sq, int Sk, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, const void* se,
     long long se_sb, long long se_sh, long long se_s4, int h_se, int causal,
-    int window, float scale, int dtype, void* stream) {
+    int window, float scale, int dtype, void* stream, int* kernel) {
   if (h_se < 1 || H % Hkv != 0 || H % h_se != 0)
     return int(cudaErrorInvalidValue);
   const Args a{q,    k,    v,    o,    static_cast<float*>(lse),
@@ -736,17 +1228,24 @@ extern "C" int flash_fwd_launch(
   const long long strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss,
                                 k_sh, v_sb, v_ss, v_sh};
   const tc::Route r = tc::route(tc::kFwd, dtype, D, ptrs, 3, strides, 9);
+  int launched = r == tc::kTf32x3 ? kFwdTf32x3 : kFwdSimt;
+  int err;
   switch (dtype) {
     case pt::kF32:
-      return r == tc::kTf32x3 ? launch_mma<FwdTf32>(a, B, s)
-                              : launch<float>(a, B, s);
+      err = r == tc::kTf32x3 ? launch_mma<FwdTf32>(a, B, s)
+                             : launch<float>(a, B, s);
+      break;
     case pt::kBF16:
-      return r == tc::kTc ? launch_mma<FwdBf16>(a, B, s)
-                          : launch<__nv_bfloat16>(a, B, s);
+      err = r == tc::kTc ? launch_tc<__nv_bfloat16>(a, B, dtype, s, &launched)
+                         : launch<__nv_bfloat16>(a, B, s);
+      break;
     case pt::kF16:
-      return r == tc::kTc ? launch_mma<FwdF16>(a, B, s)
-                          : launch<__half>(a, B, s);
+      err = r == tc::kTc ? launch_tc<__half>(a, B, dtype, s, &launched)
+                         : launch<__half>(a, B, s);
+      break;
     default:
       return int(cudaErrorInvalidValue);
   }
+  if (kernel != nullptr) *kernel = launched;
+  return err;
 }

@@ -417,4 +417,10 @@ __host__ inline int tile_d(int D) {
   return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
 }
 
+// Which kernel a forward on the tc route launches (mirrored by
+// flash_attention.flash_fwd_tc_kernel): the wgmma kernel at tile head
+// dims up to 128 (flash_fwd.cu `flash_fwd_wgmma_kernel`), the mma.sync
+// kernel (`flash_fwd_mma_kernel` with FwdTc) at 256.
+__host__ inline bool fwd_wgmma(int D) { return tile_d(D) <= 128; }
+
 }  // namespace tc

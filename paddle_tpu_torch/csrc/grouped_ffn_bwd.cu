@@ -15,8 +15,8 @@
 // fp16 with h and dff multiples of 8, gg::route) through the Hopper
 // mainloop of grouped_gemm_tc.cuh (wgmma on TMA-fed 128 x 128 tiles), or
 // on the CUDA cores ("simt" route: f32, odd widths) through the tiled
-// product of grouped_gemm.cuh (64 x 64 tiles). The dx entry picks its
-// route by that rule; the dw entry runs simt on every route.
+// product of grouped_gemm.cuh (64 x 64 tiles). Both entries pick their
+// route by that rule, so they agree on the same operands.
 //
 // Design. The Pallas dw kernel recomputes z and dh for its ff tile and
 // keeps dw1 [h, 512] and dw2 [512, h] f32 accumulators (4 MB) in VMEM;
@@ -44,8 +44,16 @@
 // - dw entry (row 9), reading the dx entry's scratch:
 //   1. dw1 = x^T dz_T, blocks (expert, h tile, ff tile), the product's
 //      depth running over the expert's live rows only;
-//   2. dw2 = ha^T gw, blocks (expert, ff tile, h tile), likewise;
+//   2. dw2 = ha^T gw, blocks (expert, ff tile, h tile), likewise (the
+//      simt route scales g by ws on load; the tc route reads the dx
+//      entry's gw scratch);
 //   3. db1 from db1_part.
+//   On the tc route both products read both operands MN-major (x, dz,
+//   ha, gw as stored: the descriptors' transpose bits), cdiv(count, 64)
+//   stages deep; the rows of the last stage past the count lie inside C
+//   and may hold anything (the caller's dispatch buffer, scratch rows the
+//   dx entry never writes), so the consumers zero them in both tiles
+//   before that stage's products (ggtc::zero_k_rows).
 //
 // So the backward does six products where the Pallas pair recomputes z
 // and dh in both kernels (eight), at the price of the scratch: 2 x E x C
@@ -56,9 +64,9 @@
 // row issues no read and gets dw1 = dw2 = 0.
 //
 // What bounds it on an H100: at the training shape arithmetic (each
-// product 2 x rows x h x dff operations): the dx entry's four products
-// run on the tensor cores on the tc route; the dw entry's two still run
-// in f32 on the CUDA cores.
+// product 2 x rows x h x dff operations): on the tc route both entries'
+// products run on the tensor cores; on the simt route in f32 on the CUDA
+// cores.
 #include "grouped_gemm_tc.cuh"
 
 namespace {
@@ -348,6 +356,12 @@ __global__ void __launch_bounds__(256) grouped_ffn_db1_reduce(BwdArgs a) {
 // an H100.
 using TcRing = ggtc::Ring<4, 1>;
 
+// The ring of the dw products (one 64-register accumulator, an epilogue
+// that only rounds and stores): four stages, one block an SM, chosen by
+// timing it against 2 and 3 stages at two blocks an SM and 6 at one
+// (PERF.md).
+using DwRing = ggtc::Ring<4, 1>;
+
 // dx pass 0: gw = round_T(g ws) on live rows, zero on dead rows; one
 // thread per 8 elements (h is a multiple of 8 on this route)
 template <typename T>
@@ -559,6 +573,85 @@ int launch_dx_tc(const BwdArgs& a, int dtype, cudaStream_t s) {
   return int(cudaGetLastError());
 }
 
+// dw products on the tc route: out[e] = A[e, :count]^T B[e, :count] with
+// A (maps.a0: x or ha, M = its columns) and B (maps.b0: dz or gw, N = its
+// columns) both MN-major, the depth over the expert's live rows; out
+// [E, M, N] in T. An expert without live rows gets zeros and issues no
+// load.
+template <typename T>
+__global__ void __launch_bounds__(ggtc::kThreads, DwRing::kBlocks)
+    grouped_ffn_dw_mn_tc(const __grid_constant__ ggtc::Maps maps,
+                         const int* counts, int C, void* out, int M, int N) {
+  const int e = blockIdx.z;
+  const int count = min(counts[e], C);
+  const int m0 = blockIdx.y * ggtc::kBM;
+  const int n0 = blockIdx.x * ggtc::kBN;
+  T* o = static_cast<T*>(out) + size_t(e) * M * N;
+  if (count <= 0) {  // block-uniform
+    for (int i = threadIdx.x; i < ggtc::kBM * ggtc::kBN / 2;
+         i += ggtc::kThreads) {
+      const int m = m0 + i / (ggtc::kBN / 2);
+      const int n = n0 + 2 * (i % (ggtc::kBN / 2));
+      if (m < M && n < N) ggtc::store2(o + size_t(m) * N + n, 0.f, 0.f);
+    }
+    return;
+  }
+  extern __shared__ uint8_t smem[];
+  const DwRing r = ggtc::make_ring<DwRing>(smem);
+  const int k_tiles = gg::cdiv(count, ggtc::kBK);
+  if (threadIdx.x >= ggtc::kConsumers) {
+    if (threadIdx.x == ggtc::kConsumers) {
+      const ggtc::Product p{&maps.a0, &maps.b0, true, k_tiles, true};
+      ggtc::produce(r, &p, 1, e, m0, n0);
+    }
+    return;
+  }
+  float acc[ggtc::kAcc];
+  int j = 0;
+  ggtc::consume<T, true, true>(acc, r, j, k_tiles, count % ggtc::kBK);
+  ggtc::drain(acc);
+  const int lane = threadIdx.x % 32;
+  const int row = m0 + threadIdx.x / 32 * 16 + lane / 4;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int m = row + 8 * hr;
+    if (m >= M) continue;
+#pragma unroll
+    for (int jj = 0; jj < ggtc::kBN / 8; ++jj) {
+      const int n = n0 + 8 * jj + 2 * (lane % 4);
+      if (n < N)
+        ggtc::store2(o + size_t(m) * N + n, acc[4 * jj + 2 * hr],
+                     acc[4 * jj + 2 * hr + 1]);
+    }
+  }
+}
+
+template <typename T>
+int launch_dw_tc(const BwdArgs& a, int dtype, cudaStream_t s) {
+  using ggtc::kBoxBMn;
+  using ggtc::make_map;
+  if (a.gw == nullptr) return int(cudaErrorInvalidValue);
+  ggtc::Maps m1{}, m2{};
+  if (!make_map(&m1.a0, a.x, dtype, a.h, a.C, a.E, kBoxBMn) ||
+      !make_map(&m1.b0, a.dz, dtype, a.dff, a.C, a.E, kBoxBMn) ||
+      !make_map(&m2.a0, a.ha, dtype, a.dff, a.C, a.E, kBoxBMn) ||
+      !make_map(&m2.b0, a.gw, dtype, a.h, a.C, a.E, kBoxBMn))
+    return int(cudaErrorInvalidValue);
+  const auto k = grouped_ffn_dw_mn_tc<T>;
+  if (int err = ggtc::allow_smem<DwRing>(k)) return err;
+  const dim3 g1(gg::cdiv(a.dff, ggtc::kBN), gg::cdiv(a.h, ggtc::kBM), a.E);
+  k<<<g1, ggtc::kThreads, DwRing::kSmemBytes, s>>>(m1, a.counts, a.C, a.dw1,
+                                                    a.h, a.dff);
+  if (int err = int(cudaGetLastError())) return err;
+  const dim3 g2(gg::cdiv(a.h, ggtc::kBN), gg::cdiv(a.dff, ggtc::kBM), a.E);
+  k<<<g2, ggtc::kThreads, DwRing::kSmemBytes, s>>>(m2, a.counts, a.C, a.dw2,
+                                                    a.dff, a.h);
+  if (int err = int(cudaGetLastError())) return err;
+  const dim3 p3(gg::cdiv(a.dff, 256), a.E);
+  grouped_ffn_db1_reduce<<<p3, 256, 0, s>>>(a);
+  return int(cudaGetLastError());
+}
+
 template <typename T>
 int launch_dx(const BwdArgs& a, cudaStream_t s) {
   const dim3 p1(gg::cdiv(a.dff, gg::kBN), a.nrt, a.E);
@@ -593,17 +686,20 @@ int dispatch(BwdArgs a, int which, int dtype, void* stream) {
   a.nrt = gg::cdiv(a.C, gg::kBM);
   a.nct = gg::cdiv(a.h, gg::kBN);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tc = which == 0 && gg::route(dtype, a.h, a.dff) == gg::kTc;
+  const bool tc = gg::route(dtype, a.h, a.dff) == gg::kTc;
   switch (dtype * 2 + which) {
     case pt::kF32 * 2 + 0: return launch_dx<float>(a, s);
     case pt::kF32 * 2 + 1: return launch_dw<float>(a, s);
     case pt::kBF16 * 2 + 0:
       return tc ? launch_dx_tc<__nv_bfloat16>(a, dtype, s)
                 : launch_dx<__nv_bfloat16>(a, s);
-    case pt::kBF16 * 2 + 1: return launch_dw<__nv_bfloat16>(a, s);
+    case pt::kBF16 * 2 + 1:
+      return tc ? launch_dw_tc<__nv_bfloat16>(a, dtype, s)
+                : launch_dw<__nv_bfloat16>(a, s);
     case pt::kF16 * 2 + 0:
       return tc ? launch_dx_tc<__half>(a, dtype, s) : launch_dx<__half>(a, s);
-    case pt::kF16 * 2 + 1: return launch_dw<__half>(a, s);
+    case pt::kF16 * 2 + 1:
+      return tc ? launch_dw_tc<__half>(a, dtype, s) : launch_dw<__half>(a, s);
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -652,15 +748,18 @@ extern "C" int grouped_ffn_bwd_dx_launch(
   return dispatch(a, 0, dtype, stream);
 }
 
-// Reads the scratch ha, dz, db1_part the dx entry wrote for the same
-// operands. Outputs: dw1 [E, h, dff] T, db1 [E, 1, dff] f32, dw2
-// [E, dff, h] T. Returns cudaGetLastError() after its launches.
+// Reads the scratch ha, dz, db1_part (and, on the tc route, gw) the dx
+// entry wrote for the same operands; gw may be null on the simt route,
+// and the tc route refuses a null gw. Outputs: dw1 [E, h, dff] T, db1
+// [E, 1, dff] f32, dw2 [E, dff, h] T. Returns cudaGetLastError() after
+// its launches (or the error of a tensor map libcuda refuses). The route
+// is gg::route's, as the dx entry's.
 extern "C" int grouped_ffn_bwd_dw_launch(const void* x, const void* g,
                                          const void* ws, const void* counts,
-                                         void* ha, void* dz, void* db1_part,
-                                         void* dw1, void* db1, void* dw2,
-                                         int E, int C, int h, int dff,
-                                         int dtype, void* stream) {
+                                         void* ha, void* dz, void* gw,
+                                         void* db1_part, void* dw1, void* db1,
+                                         void* dw2, int E, int C, int h,
+                                         int dff, int dtype, void* stream) {
   BwdArgs a{};
   a.x = x;
   a.g = g;
@@ -668,6 +767,7 @@ extern "C" int grouped_ffn_bwd_dw_launch(const void* x, const void* g,
   a.counts = static_cast<const int*>(counts);
   a.ha = ha;
   a.dz = dz;
+  a.gw = gw;
   a.db1_part = static_cast<float*>(db1_part);
   a.dw1 = dw1;
   a.db1 = static_cast<float*>(db1);

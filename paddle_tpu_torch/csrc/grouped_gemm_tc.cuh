@@ -1,6 +1,8 @@
 // The Hopper mainloop of the grouped expert-FFN kernels' tensor-core
 // route ("tc": bf16 and fp16 with h and dff multiples of 8;
-// grouped_ffn_fwd.cu, grouped_ffn_bwd.cu). One block computes a 128 x 128
+// grouped_ffn_fwd.cu, grouped_ffn_bwd.cu), and the device and host
+// helpers (barriers, TMA, descriptors, tensor maps) of the flash forward's
+// wgmma kernel (flash_fwd.cu). One block computes a 128 x 128
 // tile of C = A B for one expert, in f32 registers, and hands them to the
 // kernel's epilogue, as gg::mainloop does for the "simt" route.
 //
@@ -20,16 +22,22 @@
 // - Operands come through 3-D tensor maps (contiguous dim, rows, expert),
 //   encoded on the host at each launch with libcuda's
 //   cuTensorMapEncodeTiled, obtained through cudaGetDriverEntryPoint (no
-//   -lcuda). A is always K-major: box {64, 128}. B is K-major (box
-//   {64, 128}: a weight read transposed) or MN-major (two boxes {64, 64}:
-//   a weight read as stored), chosen by the descriptor's transpose bit,
-//   so no transposed copy of a weight is made.
+//   -lcuda). A is K-major (box {64, 128}: the forward's and dx's rows) or
+//   MN-major (two boxes {64, 64}: x^T or ha^T of the dw products, read as
+//   stored); B is K-major (box {64, 128}: a weight read transposed) or
+//   MN-major (two boxes {64, 64}: a weight or a row buffer read as
+//   stored). The descriptors' transpose bits pick the majorness, so no
+//   transposed copy is made.
 // - Ragged edges: TMA fills what lies past a tensor's bounds (rows past C,
 //   columns past h or dff, the K tail) with zeros. Rows past counts[e]
 //   but inside C are read as they are: the kernels' scratch rows there may
-//   hold anything, NaN included, and since each product is independent by
-//   row such a row reaches only its own output row, which every epilogue
-//   drops by a select (never by a multiply with a mask).
+//   hold anything, NaN included. Where the product's depth runs over
+//   columns (forward, dx), each product is independent by row, such a row
+//   reaches only its own output row, and every epilogue drops it by a
+//   select (never by a multiply with a mask). Where the depth runs over
+//   rows (dw: both operands MN-major), a dead row would enter every sum
+//   (0 * NaN = NaN), so the consumers zero the dead rows of the last
+//   stage in both tiles before its products (`zero_k_rows`).
 //
 // Accumulator layout (the wgmma D fragment): thread t of a warpgroup, warp
 // w = t / 32, lane l, holds d[4 j + q] at row 16 w + l / 4 + 8 (q >> 1),
@@ -46,10 +54,11 @@ namespace gg {
 
 enum Route { kSimt = 0, kTc = 1 };
 
-// The route of one launch of the forward or the dx entry (mirrored by
-// moe.grouped_ffn_route): the tensor cores for bf16 and fp16 when every
-// row of x, g, the weights and the scratch is a multiple of 16 bytes
-// (TMA's rule for strides), the CUDA cores for the rest (f32, odd widths).
+// The route of one launch of the forward, the dx or the dw entry
+// (mirrored by moe.grouped_ffn_route): the tensor cores for bf16 and fp16
+// when every row of x, g, the weights and the scratch is a multiple of 16
+// bytes (TMA's rule for strides), the CUDA cores for the rest (f32, odd
+// widths).
 __host__ inline Route route(int dtype, int h, int dff) {
   return (dtype == pt::kBF16 || dtype == pt::kF16) && h % 8 == 0 &&
                  dff % 8 == 0
@@ -128,9 +137,12 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
+// mbarrier wait that traps instead of hanging: a producer and consumers
+// that disagree would otherwise wait forever (about 10 s of %globaltimer)
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
-  do {
+  uint64_t t0 = 0;
+  for (int spins = 0;; ++spins) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -138,7 +150,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
-  } while (!done);
+    if (done) return;
+    if ((spins & 1023) == 1023) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (t0 == 0) t0 = now;
+      else if (now - t0 > 10000000000ull) __trap();
+    }
+  }
 }
 
 // box of map at (c0, c1, c2) (innermost first) -> shared dst, completing
@@ -151,6 +170,19 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// the 4-D box of map at (c0, c1, c2, c3) -> shared dst, as tma_load
+__device__ __forceinline__ void tma_load4(uint32_t dst,
+                                          const CUtensorMap* map,
+                                          uint32_t bar, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -176,49 +208,111 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous products
-__device__ __forceinline__ void fence_acc(float (&d)[kAcc]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// The wgmma products m64nNk16 (N = 32, 64 or 128) with f32 accumulators
+// d[N / 2]: operand lists and their register numbers
 #define GGTC_D8(b)                                                      \
   "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]),       \
       "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
-#define GGTC_MMA(ty)                                                     \
-  asm volatile(                                                          \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                       \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." ty "." ty " "        \
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "    \
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, " \
-      "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, " \
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, " \
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "          \
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"                                   \
-      : GGTC_D8(0), GGTC_D8(8), GGTC_D8(16), GGTC_D8(24), GGTC_D8(32),   \
-        GGTC_D8(40), GGTC_D8(48), GGTC_D8(56)                            \
-      : "l"(da), "l"(db), "r"(int(accumulate)), "n"(kTransB))
+#define GGTC_D16 GGTC_D8(0), GGTC_D8(8)
+#define GGTC_D32 GGTC_D16, GGTC_D8(16), GGTC_D8(24)
+#define GGTC_D64 GGTC_D32, GGTC_D8(32), GGTC_D8(40), GGTC_D8(48), GGTC_D8(56)
+#define GGTC_R0 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, " \
+                "%13, %14, %15"
+#define GGTC_R16 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, " \
+                 "%27, %28, %29, %30, %31"
+#define GGTC_R32 "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
+                 "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
+                 "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define GGTC_N32 "32", "{" GGTC_R0 "}", GGTC_D16
+#define GGTC_N64 "64", "{" GGTC_R0 ", " GGTC_R16 "}", GGTC_D32
+#define GGTC_N128 \
+  "128", "{" GGTC_R0 ", " GGTC_R16 ", " GGTC_R32 "}", GGTC_D64
+// A and B from shared memory (descriptors da, db): after the n
+// accumulators come da, db, the accumulate flag and the transpose bits
+// (the accumulators' operand list is the variadic tail)
+#define GGTC_SS(ty, pred, args, n, regs, ...)                            \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " pred ", 0;\n"          \
+               "wgmma.mma_async.sync.aligned.m64n" n "k16.f32." ty "." ty \
+               " " regs ", " args ";\n}\n"                                \
+               : __VA_ARGS__                                              \
+               : "l"(da), "l"(db), "r"(int(accumulate)), "n"(kTransA),    \
+                 "n"(kTransB))
+// A from registers (a[4]), B from shared memory: after the n accumulators
+// come a, db, the accumulate flag and B's transpose bit
+#define GGTC_RS(ty, pred, args, n, regs, ...)                            \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " pred ", 0;\n"          \
+               "wgmma.mma_async.sync.aligned.m64n" n "k16.f32." ty "." ty \
+               " " regs ", " args ";\n}\n"                                \
+               : __VA_ARGS__                                              \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),     \
+                 "r"(int(accumulate)), "n"(kTransB))
+#define GGTC_TY(T, M, ...)                            \
+  if constexpr (std::is_same<T, __half>::value)       \
+    M("f16", __VA_ARGS__);                            \
+  else                                                \
+    M("bf16", __VA_ARGS__)
 
-// d = A B + (accumulate ? d : 0), A 64 x 16 (descriptor da, K-major), B
-// 16 x 128 (descriptor db; kTransB: MN-major)
-template <typename T, int kTransB>
-__device__ __forceinline__ void mma(float (&d)[kAcc], uint64_t da,
-                                    uint64_t db, bool accumulate) {
-  if constexpr (std::is_same<T, __half>::value)
-    GGTC_MMA("f16");
-  else
-    GGTC_MMA("bf16");
+// d = A B + (accumulate ? d : 0) for T = bf16 or fp16: A 64 x 16
+// (descriptor da; kTransA: MN-major), B 16 x N (descriptor db; kTransB:
+// MN-major)
+template <typename T, int N, int kTransA, int kTransB>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
+                                       uint64_t db, bool accumulate) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma n");
+  if constexpr (N == 32) {
+    GGTC_TY(T, GGTC_SS, "%18", "%16, %17, p, 1, 1, %19, %20", GGTC_N32);
+  } else if constexpr (N == 64) {
+    GGTC_TY(T, GGTC_SS, "%34", "%32, %33, p, 1, 1, %35, %36", GGTC_N64);
+  } else {
+    GGTC_TY(T, GGTC_SS, "%66", "%64, %65, p, 1, 1, %67, %68", GGTC_N128);
+  }
 }
 
-#undef GGTC_MMA
+// the same with A 64 x 16 from registers: a[4], the fragment of a thread
+// (the layout of an accumulator's 16 columns)
+template <typename T, int N, int kTransB>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
+                                       const unsigned (&a)[4], uint64_t db,
+                                       bool accumulate) {
+  static_assert(N == 64 || N == 128, "wgmma n");
+  if constexpr (N == 64) {
+    GGTC_TY(T, GGTC_RS, "%37", "{%32, %33, %34, %35}, %36, p, 1, 1, %38",
+            GGTC_N64);
+  } else {
+    GGTC_TY(T, GGTC_RS, "%69", "{%64, %65, %66, %67}, %68, p, 1, 1, %70",
+            GGTC_N128);
+  }
+}
+
+#undef GGTC_TY
+#undef GGTC_RS
+#undef GGTC_SS
+#undef GGTC_N128
+#undef GGTC_N64
+#undef GGTC_N32
+#undef GGTC_R32
+#undef GGTC_R16
+#undef GGTC_R0
+#undef GGTC_D64
+#undef GGTC_D32
+#undef GGTC_D16
 #undef GGTC_D8
 
-// One product of a block: A [E, rows, K] read K-major, B read K-major
-// ([E, N, K]) or MN-major ([E, K, N]), over k_tiles stages.
+// One product of a block: A read K-major ([E, M, K]) or MN-major
+// ([E, K, M]), B read K-major ([E, N, K]) or MN-major ([E, K, N]), over
+// k_tiles stages.
 struct Product {
   const CUtensorMap* a;
   const CUtensorMap* b;
   bool b_mn;
   int k_tiles;
+  bool a_mn = false;
 };
 
 // Lays the ring out over the kernel's dynamic shared memory and
@@ -255,7 +349,14 @@ __device__ __forceinline__ void produce(const R& r, const Product* p, int np,
       if (j >= S) mbar_wait(r.empty(s), ((j / S) + 1) & 1);
       const uint32_t full = r.full(s);
       mbar_expect_tx(full, kStageBytes);
-      tma_load(r.a(s), p[q].a, full, kt * kBK, m0, e);
+      if (p[q].a_mn) {
+#pragma unroll
+        for (int c = 0; c < kBM / 64; ++c)
+          tma_load(r.a(s) + c * kHalfTile, p[q].a, full, m0 + 64 * c,
+                   kt * kBK, e);
+      } else {
+        tma_load(r.a(s), p[q].a, full, kt * kBK, m0, e);
+      }
       if (p[q].b_mn) {
 #pragma unroll
         for (int c = 0; c < kBN / 64; ++c)
@@ -267,21 +368,51 @@ __device__ __forceinline__ void produce(const R& r, const Product* p, int np,
     }
 }
 
+// The two consumer warpgroups only (the producer warp may have exited).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// Zeroes K rows [live, kBK) of a stage whose A and B tiles are both
+// MN-major (four 64 x 64 slabs, one 128-byte line per K row; the 128B
+// swizzle only permutes the 16-byte chunks inside a line), then makes the
+// writes visible to the tensor cores' (async) proxy and waits for both
+// consumer warpgroups, which share the B tile.
+template <typename R>
+__device__ __forceinline__ void zero_k_rows(const R& r, int s, int live) {
+  const int per_slab = (kBK - live) * 8;  // 16-byte chunks a slab
+  for (int i = threadIdx.x; i < 4 * per_slab; i += kConsumers) {
+    const int slab = i / per_slab;
+    const uint32_t at = r.a(s) + slab * kHalfTile + live * 128 +
+                        (i - slab * per_slab) * 16;
+    asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(at),
+                 "r"(0)
+                 : "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  consumers_sync();
+}
+
 // A consumer warpgroup: acc = its 64 rows of one product, stages j.. of
 // the ring (j advances); the first k16 product overwrites acc (scale-d 0),
 // so no other instruction writes an accumulator while products are in
 // flight. Each stage's four k16 products form one wgmma group; once the
 // next group is issued the previous one has retired and its stage is
-// released.
-template <typename T, bool kBMn, typename R>
+// released. kAMn: A MN-major; then B is too, the depth runs over rows,
+// and `tail` (1..63, or 0 for none) rows of the last stage are live: the
+// rest are zeroed before its products (`zero_k_rows`).
+template <typename T, bool kBMn, bool kAMn = false, typename R>
 __device__ __forceinline__ void consume(float (&acc)[kAcc], const R& r,
-                                        int& j, int k_tiles) {
+                                        int& j, int k_tiles, int tail = 0) {
+  static_assert(!kAMn || kBMn, "a depth over rows reads B MN-major too");
   constexpr int S = R::kStages;
   const int wg = threadIdx.x / 128;
   const bool lead = threadIdx.x % 32 == 0;
   for (int kt = 0; kt < k_tiles; ++kt, ++j) {
     const int s = j % S;
     mbar_wait(r.full(s), (j / S) & 1);
+    if constexpr (kAMn)
+      if (tail > 0 && kt == k_tiles - 1) zero_k_rows(r, s, tail);
     const uint32_t a = r.a(s) + wg * kHalfTile;
     const uint32_t b = r.b(s);
     fence_acc(acc);
@@ -290,11 +421,14 @@ __device__ __forceinline__ void consume(float (&acc)[kAcc], const R& r,
     for (int kk = 0; kk < kBK / 16; ++kk) {
       // K-major: a k16 step is 32 bytes along the swizzled 128-byte row;
       // MN-major: 16 rows of 128 bytes, the 64-column slabs 8 KB apart
-      // (leading byte offset), 8-row groups 1 KB apart (stride)
-      const uint64_t da = desc(a + kk * 32, 16, 1024);
+      // (leading byte offset), 8-row groups 1 KB apart (stride); an
+      // MN-major A is one slab (64 rows of the warpgroup)
+      const uint64_t da = kAMn ? desc(a + kk * 16 * 128, kHalfTile, 1024)
+                               : desc(a + kk * 32, 16, 1024);
       const uint64_t db = kBMn ? desc(b + kk * 16 * 128, kHalfTile, 1024)
                                : desc(b + kk * 32, 16, 1024);
-      mma<T, kBMn ? 1 : 0>(acc, da, db, kt > 0 || kk > 0);
+      mma_ss<T, kBN, kAMn ? 1 : 0, kBMn ? 1 : 0>(acc, da, db,
+                                              kt > 0 || kk > 0);
     }
     wgmma_commit();
     wgmma_wait<1>();
@@ -307,11 +441,6 @@ __device__ __forceinline__ void consume(float (&acc)[kAcc], const R& r,
 __device__ __forceinline__ void drain(float (&acc)[kAcc]) {
   wgmma_wait<0>();
   fence_acc(acc);
-}
-
-// The two consumer warpgroups only (the producer warp may have exited).
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
 // Two adjacent T values from f32, one 4-byte store.
@@ -391,30 +520,41 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map over [E, rows, cols] of T (dtype bf16 or fp16, cols contiguous):
-// boxes of 64 columns x box_rows rows of one expert, 128B swizzle, zeros
-// past the bounds. False if libcuda refuses it (e.g. an address not
-// 16-byte aligned).
-inline bool make_map(CUtensorMap* map, const void* base, int dtype, int cols,
-                     int rows, int E, int box_rows) {
+// A map of `rank` dims (innermost first, the first contiguous; byte
+// strides of dims 1..rank-1) over T (dtype bf16 or fp16): boxes of 64
+// elements of dim 0 x box_rows of dim `row_dim`, 1 of every other dim,
+// 128B swizzle, zeros past the bounds. False if libcuda refuses it (e.g.
+// an address or a stride not a multiple of 16 bytes).
+inline bool make_map_nd(CUtensorMap* map, const void* base, int dtype,
+                        int rank, const cuuint64_t* dims,
+                        const cuuint64_t* strides, int row_dim,
+                        int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows),
-                              cuuint64_t(E)};
-  const cuuint64_t strides[2] = {cuuint64_t(cols) * 2,
-                                 cuuint64_t(cols) * rows * 2};
-  const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  box[row_dim] = cuuint32_t(box_rows);
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(map,
             dtype == pt::kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-            3, const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            cuuint32_t(rank), const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Box rows of an A operand, a K-major B and an MN-major B.
+// A map over [E, rows, cols] of T (cols contiguous): boxes of 64 columns x
+// box_rows rows of one expert.
+inline bool make_map(CUtensorMap* map, const void* base, int dtype, int cols,
+                     int rows, int E, int box_rows) {
+  const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows),
+                              cuuint64_t(E)};
+  const cuuint64_t strides[2] = {cuuint64_t(cols) * 2,
+                                 cuuint64_t(cols) * rows * 2};
+  return make_map_nd(map, base, dtype, 3, dims, strides, 1, box_rows);
+}
+
+// Box rows of a K-major A, a K-major B and an MN-major B (or A).
 constexpr int kBoxA = kBM;
 constexpr int kBoxBK = kBN;
 constexpr int kBoxBMn = kBK;

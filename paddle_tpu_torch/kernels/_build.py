@@ -64,7 +64,7 @@ SIGNATURES = {
                   [_P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I,
                    _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                   _P, _L, _L, _L, _I, _I, _I, _F, _I, _P],
+                   _P, _L, _L, _L, _I, _I, _I, _F, _I, _P, _P],
                   "flash_fwd_minor64_probe": [_P, _P, _P]},
     "flash_bwd": {"flash_bwd_dq_launch": _FLASH_BWD,
                   "flash_bwd_dkv_launch": _FLASH_BWD},
@@ -73,7 +73,7 @@ SIGNATURES = {
     "grouped_ffn_bwd": {"grouped_ffn_bwd_dx_launch":
                         [_P] * 17 + [_I] * 6 + [_P],
                         "grouped_ffn_bwd_dw_launch":
-                        [_P] * 10 + [_I] * 5 + [_P]},
+                        [_P] * 11 + [_I] * 5 + [_P]},
 }
 
 _lock = threading.Lock()

@@ -16,7 +16,8 @@
   addresses: "tc" (the 16-bit tensor-core kernels: bf16 for all three,
   fp16 for the forward only), "tf32x3" (the f32 forward on the tensor
   cores, 3xTF32) or "simt" (the f32 CUDA-core kernels, which take the
-  rest).
+  rest). ``flash_fwd_tc_kernel``: which kernel a forward on the tc route
+  launches, "wgmma" (head dims up to 128) or "mma_sync" (above).
 - ``probe_minor64`` / ``minor64_supported``: the head-dim-64 probe
   (counterpart of ``_pallas_minor64_supported``, :801) and its
   once-per-device check, which the wrappers run before their first
@@ -37,6 +38,7 @@ outputs 0 and has logsumexp NEG_INF.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -80,6 +82,22 @@ def flash_route(kernel, dtype, head_dim, strides, addresses):
     else:
         return "simt"
     return "simt" if any(s % align for s in strides) else route
+
+
+#: the largest head dim whose tc-route forward runs the wgmma kernel
+FWD_WGMMA_MAX_HEAD_DIM = 128
+
+
+def flash_fwd_tc_kernel(head_dim):
+    """The kernel a forward on the "tc" route launches, the rule the C
+    entry applies (``tc::fwd_wgmma``, ``csrc/flash_tc.cuh``): "wgmma"
+    (``flash_fwd_wgmma_kernel``: wgmma fed by TMA) for head dims up to
+    ``FWD_WGMMA_MAX_HEAD_DIM``, "mma_sync" (``flash_fwd_mma_kernel``) for
+    larger ones (up to ``MAX_HEAD_DIM``)."""
+    if not 0 < head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_fwd_tc_kernel: head_dim must be in "
+                         f"(0, {MAX_HEAD_DIM}], got {head_dim}")
+    return "wgmma" if head_dim <= FWD_WGMMA_MAX_HEAD_DIM else "mma_sync"
 
 
 def _route_of(kernel, tensors):
@@ -302,9 +320,11 @@ def flash_fwd(q, k, v, causal: bool, scale: float,
     On CUDA tensors this launches ``csrc/flash_fwd.cu`` (any sequence
     lengths, head dim <= 256, unit last-dim stride; at head dim 64 only
     once ``minor64_supported`` holds) on the route ``flash_route`` names,
-    and counts the launch on ``flash_fwd.launches`` and on the counter
-    ``kernels.flash.fwd_cuda_tc``, ``_tf32x3`` or ``_simt``; on CPU
-    tensors it runs ``flash_plain``."""
+    and counts the launch on ``flash_fwd.launches`` and, by the kernel
+    the C entry reports it ran, on the counter ``kernels.flash.fwd_cuda_tc``,
+    ``_tf32x3`` or ``_simt`` (a tc launch of the wgmma kernel also on
+    ``kernels.flash.fwd_cuda_tc_wgmma``); on CPU tensors it runs
+    ``flash_plain``."""
     if q.device.type == "cpu":
         monitor.counter("kernels.flash.fwd_plain").increase()
         res = flash_plain(_t(q), _t(k), _t(v), causal, scale, window, se,
@@ -359,20 +379,30 @@ def _flash_fwd_cuda(q, k, v, causal, scale, window, se, want_lse):
         if want_lse else None
     if out.numel() == 0:
         return (out, lse) if want_lse else out
-    _fwd_launch(q, k, v, out, lse, causal, scale, window, se)
+    route, kernel = _fwd_launch(q, k, v, out, lse, causal, scale, window,
+                                se)
     flash_fwd.launches += 1
     monitor.counter("kernels.flash.fwd_cuda").increase()
-    route = _route_of("fwd", [q, k, v])
     monitor.counter(f"kernels.flash.fwd_cuda_{route}").increase()
+    if kernel == "wgmma":
+        monitor.counter("kernels.flash.fwd_cuda_tc_wgmma").increase()
     return (out, lse) if want_lse else out
+
+
+#: (route, kernel) of each kernel ``flash_fwd_launch`` reports it ran
+_FWD_LAUNCHED = (("simt", None), ("tf32x3", None), ("tc", "mma_sync"),
+                 ("tc", "wgmma"))
 
 
 def _fwd_launch(q, k, v, out, lse, causal, scale, window, se):
     """One launch of ``flash_fwd_launch`` on checked operands into ``out``
-    (and ``lse`` unless None), uncounted; raises on a refused launch."""
+    (and ``lse`` unless None), uncounted; raises on a refused launch.
+    Returns the (route, tc kernel) the C entry reports it ran: ("simt",
+    None), ("tf32x3", None), ("tc", "mma_sync") or ("tc", "wgmma")."""
     B, Sq, H, D = q.shape
     _, Sk, Hkv, _ = k.shape
     lib = _build.load("flash_fwd")
+    launched = ctypes.c_int(-1)
     err = lib.flash_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
@@ -383,8 +413,10 @@ def _fwd_launch(q, k, v, out, lse, causal, scale, window, se):
         *_se_args(se, B),
         int(bool(causal)), 0 if window is None else int(window),
         float(scale), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream,
+        ctypes.addressof(launched))
     _build.check(err, "flash_fwd kernel")
+    return _FWD_LAUNCHED[launched.value]
 
 
 def flash_bwd(q, k, v, o, lse, do, causal: bool, scale: float,

@@ -24,10 +24,10 @@ with rows at or past ``counts[e]`` zero and skipped.
   ``_grouped_ffn_bwd_pallas`` :552). On CUDA tensors they launch
   ``csrc/grouped_ffn_fwd.cu`` and the dx and dw kernels of
   ``csrc/grouped_ffn_bwd.cu`` or raise; the plain versions run only for
-  CPU tensors. The forward and the dx kernel take one of two routes
+  CPU tensors. The forward, dx and dw kernels take one of two routes
   (``grouped_ffn_route``): "tc", wgmma on TMA-fed tiles
   (``csrc/grouped_gemm_tc.cuh``), or "simt", f32 FMA on the CUDA cores
-  (``csrc/grouped_gemm.cuh``); the dw kernel runs simt.
+  (``csrc/grouped_gemm.cuh``).
 - ``grouped_ffn``: the differentiable entry (:711), casting as JAX does:
   x, w1 and w2 to their promoted dtype, b1, b2 and ws to f32, the result
   to x's dtype. With a gradient to take it runs ``_GroupedFFNFn`` (the
@@ -97,11 +97,14 @@ def _act_grad(z, activation):
 
 
 def grouped_ffn_route(dtype, h, dff):
-    """The route of one launch of the forward or the dx kernel, the rule
-    the C entries apply (``gg::route``, ``csrc/grouped_gemm_tc.cuh``):
-    "tc" (wgmma and TMA) for bfloat16 and float16 with h and dff
-    multiples of 8, so that every row is a multiple of 16 bytes as TMA
-    needs; "simt" (f32 FMA on the CUDA cores) for everything else."""
+    """The route of one launch of the forward, the dx or the dw kernel,
+    the rule the C entries apply (``gg::route``,
+    ``csrc/grouped_gemm_tc.cuh``): "tc" (wgmma and TMA) for bfloat16 and
+    float16 with h and dff multiples of 8, so that every row is a
+    multiple of 16 bytes as TMA needs; "simt" (f32 FMA on the CUDA cores)
+    for everything else. The dx and dw kernels of one backward apply it
+    to the same operands, so the dw kernel finds the gw scratch the dx
+    kernel wrote on the tc route."""
     if dtype in (torch.bfloat16, torch.float16) and h % 8 == 0 \
             and dff % 8 == 0:
         return "tc"
@@ -313,14 +316,23 @@ def _bwd_dx_launch(ops, s, dx, dws, db2, activation):
 
 def _bwd_dw_launch(ops, s, dw1, db1, dw2):
     """One launch of the dw entry of ``csrc/grouped_ffn_bwd.cu``: reads
-    the dx entry's scratch ``s``."""
+    the dx entry's scratch ``s``, its gw too on the tc route (raises when
+    ``s`` holds none there)."""
     x, w1, b1, w2, b2, ws, counts, g = ops
     E, C, h = x.shape
+    dff = w1.shape[2]
+    gw = s["gw"]
+    if grouped_ffn_route(x.dtype, h, dff) == "tc" and \
+            tuple(gw.shape) != (E, C, h):
+        raise ValueError(
+            f"grouped_ffn_bwd dw kernel: the tc route reads the dx "
+            f"kernel's gw scratch [{E}, {C}, {h}], got {tuple(gw.shape)}")
     lib = _build.load("grouped_ffn_bwd")
     _build.check(lib.grouped_ffn_bwd_dw_launch(
         x.data_ptr(), g.data_ptr(), ws.data_ptr(), counts.data_ptr(),
-        s["ha"].data_ptr(), s["dz"].data_ptr(), s["db1_part"].data_ptr(),
-        dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), E, C, h, w1.shape[2],
+        s["ha"].data_ptr(), s["dz"].data_ptr(),
+        gw.data_ptr() if gw.numel() else None, s["db1_part"].data_ptr(),
+        dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), E, C, h, dff,
         _DTYPES[x.dtype], _stream(x)), "grouped_ffn_bwd dw kernel")
 
 
@@ -328,10 +340,11 @@ def grouped_ffn_bwd(x, w1, b1, w2, b2, ws, counts, g, activation="gelu"):
     """The grouped FFN backward -> (dx, dw1, db1, dw2, db2, dws). On CUDA
     tensors this launches the dx kernel (dx, dws, db2; it also writes ha
     and dz of the live rows) on the route ``grouped_ffn_route`` names and
-    then the dw kernel (dw1, db1, dw2) of ``csrc/grouped_ffn_bwd.cu``,
-    counted on ``grouped_ffn_bwd.launches_dx`` / ``launches_dw`` and the
-    dx kernel also on ``kernels.moe.grouped_ffn_dx_cuda_{tc,simt}``; on
-    CPU tensors it runs ``grouped_ffn_bwd_plain``."""
+    then the dw kernel (dw1, db1, dw2) of ``csrc/grouped_ffn_bwd.cu`` on
+    the same route, counted on ``grouped_ffn_bwd.launches_dx`` /
+    ``launches_dw`` and by route on
+    ``kernels.moe.grouped_ffn_{dx,dw}_cuda_{tc,simt}``; on CPU tensors it
+    runs ``grouped_ffn_bwd_plain``."""
     if activation not in _ACTS:
         raise ValueError(f"activation must be 'gelu' or 'relu', got "
                          f"{activation!r}")
@@ -354,12 +367,13 @@ def grouped_ffn_bwd(x, w1, b1, w2, b2, ws, counts, g, activation="gelu"):
     if x.numel() == 0 or dw1.numel() == 0:
         return tuple(t.zero_() for t in (dx, dw1, db1, dw2, db2, dws))
     s = _bwd_scratch(x, dff)
+    route = grouped_ffn_route(x.dtype, h, dff)
     _bwd_dx_launch(ops, s, dx, dws, db2, activation)
     grouped_ffn_bwd.launches_dx += 1
-    monitor.counter("kernels.moe.grouped_ffn_dx_cuda_"
-                    + grouped_ffn_route(x.dtype, h, dff)).increase()
+    monitor.counter("kernels.moe.grouped_ffn_dx_cuda_" + route).increase()
     _bwd_dw_launch(ops, s, dw1, db1, dw2)
     grouped_ffn_bwd.launches_dw += 1
+    monitor.counter("kernels.moe.grouped_ffn_dw_cuda_" + route).increase()
     monitor.counter("kernels.moe.grouped_ffn_bwd_cuda").increase()
     return dx, dw1, db1, dw2, db2, dws
 

@@ -386,3 +386,63 @@ def test_flash_route_of_checked_operands():
         assert tfa._route_of(kernel, [x.half()]) == "simt"
     with pytest.raises(ValueError):
         tfa.flash_route("dk", torch.bfloat16, 64, (), ())
+
+
+# head dim -> the kernel a tc-route forward launches (tc::fwd_wgmma in
+# csrc/flash_tc.cuh: the wgmma kernel at tile head dims up to 128)
+_FWD_TC_KERNELS = {8: "wgmma", 32: "wgmma", 40: "wgmma", 64: "wgmma",
+                   72: "wgmma", 80: "wgmma", 128: "wgmma", 136: "mma_sync",
+                   192: "mma_sync", 256: "mma_sync"}
+
+
+@pytest.mark.parametrize("d", sorted(_FWD_TC_KERNELS))
+def test_flash_fwd_tc_kernel_rule(d):
+    """The tc route's forward runs the wgmma kernel at head dims up to
+    FWD_WGMMA_MAX_HEAD_DIM and the mma.sync kernel above; the rule only
+    speaks of head dims a route takes."""
+    assert tfa.flash_fwd_tc_kernel(d) == _FWD_TC_KERNELS[d]
+    assert (d <= tfa.FWD_WGMMA_MAX_HEAD_DIM) == (_FWD_TC_KERNELS[d]
+                                                 == "wgmma")
+    assert tfa.flash_route("fwd", torch.bfloat16, d,
+                           (64 * d, 4 * d, d), (0,)) == "tc"
+
+
+@pytest.mark.parametrize("d", [0, 264, -8])
+def test_flash_fwd_tc_kernel_refuses_head_dims_off_the_route(d):
+    with pytest.raises(ValueError):
+        tfa.flash_fwd_tc_kernel(d)
+
+
+def test_flash_fwd_counts_no_wgmma_launch_on_the_cpu():
+    """On CPU tensors the forward runs the plain version: neither the tc
+    counter nor the wgmma kernel's counts a launch."""
+    x = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    before = {n: monitor.counter(f"kernels.flash.{n}").get()
+              for n in ("fwd_plain", "fwd_cuda_tc", "fwd_cuda_tc_wgmma")}
+    tfa.flash_fwd(x, x, x, True, 0.125)
+    after = {n: monitor.counter(f"kernels.flash.{n}").get() for n in before}
+    assert after == dict(before, fwd_plain=before["fwd_plain"] + 1)
+
+
+def test_fwd_launched_kernels_follow_the_c_entry():
+    """``_FWD_LAUNCHED`` reads the kernel id ``flash_fwd_launch`` reports
+    in the order of the C enum ``FwdKernel`` (csrc/flash_fwd.cu), and
+    holds every (route, tc kernel) pair the rule can name."""
+    import pathlib
+    import re
+    src = (pathlib.Path(tfa.__file__).parents[1] / "csrc" /
+           "flash_fwd.cu").read_text()
+    enum = re.search(r"enum FwdKernel \{([^}]*)\}", src).group(1)
+    ids = dict((n, int(i)) for n, i in
+               re.findall(r"kFwd(\w+) = (\d+)", enum))
+    assert ids == {"Simt": 0, "Tf32x3": 1, "Mma": 2, "Wgmma": 3}
+    assert tfa._FWD_LAUNCHED == (("simt", None), ("tf32x3", None),
+                                 ("tc", "mma_sync"), ("tc", "wgmma"))
+    named = set()
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for d in (8, 60, 64, 128, 136, 256):
+            route = tfa.flash_route("fwd", dtype, d, (64 * d, 4 * d, d),
+                                    (0,))
+            named.add((route, tfa.flash_fwd_tc_kernel(d)
+                       if route == "tc" else None))
+    assert named == set(tfa._FWD_LAUNCHED)

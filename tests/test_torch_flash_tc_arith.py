@@ -62,16 +62,18 @@ def _repeat_kv(x, h):
     return x.float().repeat_interleave(h // x.shape[1], dim=1)
 
 
-def tc_forward(q, k, v, scale, keep, split):
+def tc_forward(q, k, v, scale, keep, split, bk=None):
     """The forward kernel's tile arithmetic on q [B, H, Sq, D], k/v
-    [B, Hkv, Sk, D] (bf16): per key tile (``FwdTc::kBK``: 64 keys at head
-    dim <= 64, else 32), S in f32, the running max in units of scale
-    log2e, exp2, l summed from the unsplit P, O += each term of P times V;
-    the output rounded to bf16 once."""
+    [B, Hkv, Sk, D] (bf16): per key tile (``bk`` keys; by default the
+    mma.sync kernel's ``FwdTc::kBK``: 64 at head dim <= 64, else 32), S in
+    f32, the running max in units of scale log2e, exp2, l summed from the
+    unsplit P, O += each term of P times V; the output rounded to bf16
+    once."""
     h = q.shape[1]
     qf, kf, vf = q.float(), _repeat_kv(k, h), _repeat_kv(v, h)
     sl2 = scale * LOG2E
-    bk = 64 if q.shape[-1] <= 64 else 32
+    if bk is None:
+        bk = 64 if q.shape[-1] <= 64 else 32
     m = torch.full(q.shape[:-1] + (1,), -torch.inf)
     l = torch.zeros_like(m)
     acc = torch.zeros(qf.shape)
@@ -233,6 +235,82 @@ def test_forward_split_passes_and_single_rounding_fails(name):
     single = gate_ratio(tc_forward(q, k, v, scale, keep, False), ref)
     assert split <= 1.0, split
     assert single > SHARP, single
+
+
+@pytest.mark.parametrize("bk", [32, 64, 128])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_wgmma_forward_tiles_split_passes(name, bk):
+    """The wgmma forward's key tiles (32 keys in ``Fwd64`` / ``Fwd128`` of
+    csrc/flash_fwd.cu; 64 and 128, the other sizes ``fwg::Cfg`` takes)
+    keep the arithmetic: the split passes the gate, one rounding of P
+    fails it by more than SHARP."""
+    q, k, v, _, scale, se, keep = _inputs(name)
+    ref = fa.flash_plain(q.float(), k.float(), v.float(), True, scale,
+                         se=se)
+    split = gate_ratio(tc_forward(q, k, v, scale, keep, True, bk), ref)
+    single = gate_ratio(tc_forward(q, k, v, scale, keep, False, bk), ref)
+    assert split <= 1.0, split
+    assert single > SHARP, single
+
+
+def _acc_map(n):
+    """(row, column) of f32 accumulator i of thread T of a warpgroup in
+    wgmma m64n{n}k16 (PTX ISA, the D fragment; csrc/grouped_gemm_tc.cuh):
+    warp w = T // 32, lane = 4 g + t; row 16 w + g + 8 ((i % 4) // 2),
+    column 8 (i // 4) + 2 t + i % 2. Arrays [128 threads, n / 2]."""
+    T, i = np.arange(128)[:, None], np.arange(n // 2)[None, :]
+    g, t = T % 32 // 4, T % 4
+    return 16 * (T // 32) + g + 8 * (i % 4 // 2), 8 * (i // 4) + 2 * t + i % 2
+
+
+def _a_frag_map(n):
+    """(row, k) of 16-bit half e (0 low, 1 high) of A register r of k16
+    chunk c, thread T, for wgmma with A from registers (PTX ISA: each
+    warp's 16 rows hold the mma.m16n8k16 A fragment): row 16 w + g +
+    8 (r % 2), k 16 c + 8 (r // 2) + 2 t + e. Arrays [128, n / 16, 4, 2]."""
+    T = np.arange(128)[:, None, None, None]
+    c = np.arange(n // 16)[None, :, None, None]
+    r, e = np.arange(4)[None, None, :, None], np.arange(2)
+    g, t = T % 32 // 4, T % 4
+    rows = 16 * (T // 32) + g + 8 * (r % 2) + 0 * c + 0 * e
+    return rows, 16 * c + 8 * (r // 2) + 2 * t + e + 0 * rows
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_s_accumulators_are_the_p_fragments_in_place(n):
+    """The wgmma forward builds register r of P's k16 chunk c from its S
+    accumulators 8 c + 2 r (low half) and 8 c + 2 r + 1 (high half): the
+    row/column map of m64n{n}k16's accumulators then gives every element
+    where the register-A fragment wants it, so S turns into P_hi and P_lo
+    fragments in place. Emulated on a random P: the fragments rebuilt by
+    the A map are P rounded to bf16 (hi) and its remainder (lo), and
+    P_hi V + P_lo V holds the gate where one rounding of P misses it."""
+    acc_r, acc_c = _acc_map(n)
+    fr, fk = _a_frag_map(n)
+    idx = (8 * np.arange(n // 16)[:, None, None] + 2 * np.arange(4)[:, None]
+           + np.arange(2))                       # [chunk, reg, half]
+    assert np.array_equal(acc_r[:, idx], fr)
+    assert np.array_equal(acc_c[:, idx], fk)
+    cells = acc_r * n + acc_c
+    assert np.array_equal(np.sort(cells.ravel()), np.arange(64 * n))
+    rng = np.random.default_rng(n)
+    p = torch.from_numpy(rng.uniform(0, 1, (64, n)).astype(np.float32) ** 8)
+    v = torch.from_numpy(rng.standard_normal((n, 128)).astype(np.float32)) \
+        .to(torch.bfloat16)
+    regs = p[torch.from_numpy(acc_r), torch.from_numpy(acc_c)]  # [128, n/2]
+    hi = regs.to(torch.bfloat16).float()
+    lo = (regs - hi).to(torch.bfloat16).float()
+    a_hi, a_lo = torch.zeros(64, n), torch.zeros(64, n)
+    at = (torch.from_numpy(fr), torch.from_numpy(fk))
+    a_hi[at] = hi[:, torch.from_numpy(idx)]
+    a_lo[at] = lo[:, torch.from_numpy(idx)]
+    assert torch.equal(a_hi, p.to(torch.bfloat16).float())
+    assert torch.equal(a_lo, (p - a_hi).to(torch.bfloat16).float())
+    ref = p @ v.float()
+    split = (a_hi @ v.float() + a_lo @ v.float()).to(torch.bfloat16)
+    single = (a_hi @ v.float()).to(torch.bfloat16)
+    assert gate_ratio(split, ref) <= 1.0
+    assert gate_ratio(single, ref) > 1.0
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

@@ -152,6 +152,8 @@ def _train_inputs(dev, name, dtype, cases=_TRAIN_CASES):
     se = None
     if mask == "doc":
         se = _doc_bands(sq, [(0, 100), (100, 228), (228, sq)])
+    elif mask == "doc4":
+        se = _doc_bands(sq, [(0, 128), (128, 320), (320, 384), (384, sq)])
     elif mask is not None:
         se = _random_bands(g, sq, 2 if mask == "c2" else 4, causal, B,
                            hkv if mask == "c2" else 1)
@@ -407,6 +409,131 @@ def test_flash_tc_reads_strided_views(dev):
     assert _gate(out3, want) <= 1.0
 
 
+def _wgmma_launches():
+    from paddle_tpu_torch import monitor
+    return monitor.counter("kernels.flash.fwd_cuda_tc_wgmma").get()
+
+
+# (B, sq, sk, h, hkv, d, causal, window, mask): the tc forward's wgmma
+# kernel (head dims up to 128)
+_WGMMA_CASES = {
+    "causal_d64": (2, 300, 300, 4, 4, 64, True, None, None),
+    "causal_d128": (2, 300, 300, 4, 4, 128, True, None, None),
+    "full_d64": (2, 200, 200, 4, 4, 64, False, None, None),
+    "full_d128": (1, 260, 260, 4, 4, 128, False, None, None),
+    "gqa4_d128": (2, 256, 256, 8, 2, 128, True, None, None),
+    "gqa2_d64": (1, 256, 256, 4, 2, 64, True, None, None),
+    "window_d64": (1, 400, 400, 4, 2, 64, True, 100, None),
+    "window_d128": (1, 400, 400, 4, 2, 128, True, 100, None),
+    "doc4_d64": (2, 512, 512, 4, 2, 64, True, None, "doc4"),
+    "doc4_d128": (2, 512, 512, 4, 4, 128, True, None, "doc4"),
+    "bands_c4_d128": (1, 150, 150, 4, 4, 128, False, None, "c4"),
+    "sq333_sk1024_d64": (1, 333, 1024, 4, 2, 64, True, None, None),
+    "sq333_sk1024_d128": (1, 333, 1024, 4, 4, 128, True, None, None),
+    "no_key_rows_d128": (1, 200, 77, 4, 2, 128, True, None, None),
+    "no_key_rows_d64": (1, 300, 130, 2, 2, 64, True, 30, None),
+    "d40_full": (1, 77, 77, 2, 2, 40, False, None, None),
+    "d80_causal": (1, 150, 150, 2, 1, 80, True, None, None),
+    "d32_causal": (2, 129, 129, 2, 2, 32, True, None, None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", sorted(_WGMMA_CASES))
+def test_flash_fwd_wgmma_within_gate(dev, dtype, name):
+    """The tc forward at head dims up to 128 launches the wgmma kernel
+    (``kernels.flash.fwd_cuda_tc_wgmma``) and holds chip_smoke.py's gate
+    against the plain version: causal and full, GQA, windows, a
+    4-document flashmask and random C=4 bands (whole key tiles skipped),
+    sq 333 / sk 1024, ragged head dims, rows that see no key (zeros and
+    NEG_INF logsumexp); the logsumexp within 1e-5 of its largest value."""
+    q, k, v, do, causal, window, se = _train_inputs(dev, name, dtype,
+                                                    _WGMMA_CASES)
+    d = q.shape[-1]
+    assert fa.flash_fwd_tc_kernel(d) == "wgmma"
+    t = lambda x: x.transpose(1, 2).float()              # noqa: E731
+    before, n = _route_counts(), _wgmma_launches()
+    out, lse = fa.flash_fwd(q, k, v, causal, d ** -0.5, window, se,
+                            want_lse=True)
+    torch.cuda.synchronize()
+    assert _route_delta(before) == {"fwd_cuda_tc": 1}
+    assert _wgmma_launches() == n + 1
+    want, want_lse = fa.flash_plain(t(q), t(k), t(v), causal, d ** -0.5,
+                                    window, se, return_lse=True)
+    assert _gate(out, want.transpose(1, 2)) <= 1.0
+    dead = want_lse <= fa.ROW_INVALID_LSE
+    assert torch.equal(lse <= fa.ROW_INVALID_LSE, dead)
+    assert bool((lse[dead] == fa.NEG_INF).all())
+    _close(lse[~dead], want_lse[~dead], 1e-5)
+    assert not out.transpose(1, 2)[dead].any()
+    if name.startswith("no_key_rows"):
+        assert bool(dead.any())
+    # the same launch without logsumexp writes the same output
+    out2 = fa.flash_fwd(q, k, v, causal, d ** -0.5, window, se)
+    torch.testing.assert_close(out, out2, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fwd_wgmma_reads_strided_views(dev, d):
+    """bf16 q/k/v as views of one fused [B, S, 3, H, D] projection, and k
+    as a head-major [B, H, S, D] buffer read transposed (strides of any
+    order, multiples of 8): the wgmma kernel's tensor maps take the views
+    as they are and give what the contiguous copies give, bit for bit."""
+    g = torch.Generator().manual_seed(d)
+    qkv = torch.randn(2, 200, 3, 4, d, generator=g).to(dev, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    k_heads = torch.randn(2, 4, 200, d, generator=g).to(
+        dev, torch.bfloat16).transpose(1, 2)
+    for kk in (k, k_heads):
+        n = _wgmma_launches()
+        out, lse = fa.flash_fwd(q, kk, v, True, 0.1, want_lse=True)
+        assert _wgmma_launches() == n + 1
+        out2, lse2 = fa.flash_fwd(q.contiguous(), kk.contiguous(),
+                                  v.contiguous(), True, 0.1, want_lse=True)
+        torch.testing.assert_close(out, out2, rtol=0, atol=0)
+        torch.testing.assert_close(lse, lse2, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_fwd_d192_stays_on_mma_sync(dev, dtype):
+    """Head dim 192 (tile head dim 256) keeps the tc route's mma.sync
+    kernel: counted on ``fwd_cuda_tc``, not on ``fwd_cuda_tc_wgmma``, and
+    within the gate."""
+    g = torch.Generator().manual_seed(192)
+    q, k, v = (torch.randn(1, 150, 2, 192, generator=g).to(dev, dtype)
+               for _ in range(3))
+    assert fa.flash_fwd_tc_kernel(192) == "mma_sync"
+    before, n = _route_counts(), _wgmma_launches()
+    out = fa.flash_fwd(q, k, v, True, 192 ** -0.5)
+    torch.cuda.synchronize()
+    assert _route_delta(before) == {"fwd_cuda_tc": 1}
+    assert _wgmma_launches() == n
+    want = fa.flash_plain(*(x.transpose(1, 2).float() for x in (q, k, v)),
+                          True, 192 ** -0.5).transpose(1, 2)
+    assert _gate(out, want) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("d", [32, 40, 60, 64, 80, 128, 136, 192, 256])
+def test_flash_fwd_reports_the_kernel_of_the_rule(dev, dtype, d):
+    """The kernel the forward's C entry reports it ran (the counters'
+    source) is the one ``flash_route`` and ``flash_fwd_tc_kernel`` name,
+    and its output is within the gate."""
+    g = torch.Generator().manual_seed(d)
+    q, k, v = (torch.randn(1, 70, 2, d, generator=g).to(dev, dtype)
+               for _ in range(3))
+    out = torch.empty_like(q)
+    launched = fa._fwd_launch(q, k, v, out, None, True, d ** -0.5, None,
+                              None)
+    route = fa._route_of("fwd", [q, k, v])
+    assert launched == (route, fa.flash_fwd_tc_kernel(d)
+                        if route == "tc" else None)
+    want = fa.flash_plain(*(x.transpose(1, 2).float() for x in (q, k, v)),
+                          True, d ** -0.5).transpose(1, 2)
+    assert _gate(out, want) <= 1.0
+
+
 def test_flash_bwd_reads_strided_grad(dev):
     """dO from autograd may be a non-contiguous view: same answer as its
     contiguous copy."""
@@ -467,7 +594,7 @@ def _moe_route_counts():
     from paddle_tpu_torch import monitor
     return {f"{k}_{r}": monitor.counter(
         f"kernels.moe.grouped_ffn_{k}_cuda_{r}").get()
-        for k in ("fwd", "dx") for r in ("tc", "simt")}
+        for k in ("fwd", "dx", "dw") for r in ("tc", "simt")}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -476,8 +603,8 @@ def _moe_route_counts():
 def test_grouped_ffn_kernels_match_plain(dev, dtype, name):
     """The forward, dx and dw kernels against the plain versions (f32 math
     from the same rounded inputs): dead rows of out, dx and dws zero; the
-    forward and dx launch on the route grouped_ffn_route names (bf16 and
-    fp16 with h and dff multiples of 8: tc)."""
+    forward, dx and dw launch on the route grouped_ffn_route names (bf16
+    and fp16 with h and dff multiples of 8: tc)."""
     from paddle_tpu_torch.kernels import moe
     ops, cnt, g, act = _moe_inputs(dev, name, dtype)
     rtol = 1e-4 if dtype == torch.float32 else 1e-2
@@ -551,6 +678,55 @@ def test_grouped_ffn_tc_dead_rows_hold_nan(dev, dtype):
         _close(got, want, 1e-2)
     for t in (out, dx, dws):
         assert not t[dead].any()
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_grouped_ffn_dw_tc_counts_and_nan_dead_rows(dev, dtype):
+    """The dw kernel on the tc route at live counts 0, 1, 63, 64, 65 and C
+    (an empty expert, a last 64-row stage with one live row, a whole one,
+    one past it, the capacity), with NaN in every dead row of x and of
+    the scratch ha and dz: the dead rows of the last stage are zeroed
+    before its products, so dw1 and dw2 are finite and hold the gate
+    against the plain formula on the dx kernel's own intermediates (f32
+    math, rounded once); an empty expert's dw1 and dw2 are exactly 0."""
+    from paddle_tpu_torch.kernels import moe
+    E, C, h, f, act = 6, 200, 128, 192, "gelu"
+    cnt = torch.tensor([0, 1, 63, 64, 65, C], dtype=torch.int32, device=dev)
+    assert moe.grouped_ffn_route(dtype, h, f) == "tc"
+    g = torch.Generator().manual_seed(23)
+    r = lambda *s, sc: (torch.randn(*s, generator=g) * sc).to(dev)  # noqa
+    ops = [r(E, C, h, sc=0.5).to(dtype), r(E, h, f, sc=h ** -0.5).to(dtype),
+           r(E, 1, f, sc=0.1), r(E, f, h, sc=f ** -0.5).to(dtype),
+           r(E, 1, h, sc=0.1), torch.rand(E, C, 1, generator=g).to(dev)]
+    gg = r(E, C, h, sc=1.0).to(dtype)
+    keep = moe._row_mask(cnt, C, dev)
+    x_clean = torch.where(keep, ops[0].float(), 0.0)
+    ops[0] = torch.where(keep, ops[0], float("nan")).to(dtype)
+    s = moe._bwd_scratch(ops[0], f)
+    for k in ("ha", "dz", "gw"):
+        s[k].fill_(float("nan"))
+    bops = (*ops, cnt, gg)
+    dx = torch.empty_like(ops[0])
+    dws = torch.empty(E, C, 1, device=dev)
+    db2 = torch.empty(E, 1, h, device=dev)
+    moe._bwd_dx_launch(bops, s, dx, dws, db2, act)
+    dead = ~keep[..., 0]
+    assert bool(s["ha"][dead].isnan().all() and s["dz"][dead].isnan().all())
+    dw1, dw2 = torch.empty_like(ops[1]), torch.empty_like(ops[3])
+    db1 = torch.empty(E, 1, f, device=dev)
+    moe._bwd_dw_launch(bops, s, dw1, db1, dw2)
+    torch.cuda.synchronize()
+    ha_k = torch.where(keep, s["ha"].float(), 0.0)
+    dz_k = torch.where(keep, s["dz"].float(), 0.0)
+    gw = moe.grouped_ffn_gw_plain(gg, ops[5], cnt).float()
+    for got, want in ((dw1, torch.bmm(x_clean.transpose(1, 2), dz_k)),
+                      (dw2, torch.bmm(ha_k.transpose(1, 2), gw))):
+        assert bool(torch.isfinite(got).all())
+        assert _gate(got, want) <= 1.0
+        assert not got[0].any()
+    ref = moe.grouped_ffn_bwd_plain(torch.where(keep, ops[0], 0.0), *ops[1:],
+                                    cnt, gg, act)
+    _close(db1, ref[2], 1e-4)
+
+
 def test_grouped_ffn_autograd_on_cuda_matches_cpu(dev):
     """grouped_ffn with requires_grad launches the forward and both
     backward kernels, and its grads match the CPU's plain path."""
