@@ -21,7 +21,15 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    the work f32-grade products take on the tensor cores), failing a time
    below its bound;
    the f32 forward at the main shape also through views whose rows are
-   not 16-byte aligned, the one case left to the CUDA-core kernel;
+   not 16-byte aligned, the one case left to the CUDA-core kernel; paged
+   decode at both serving geometries (LLaMA: 16 slots, 32 heads, d 128,
+   f32, bf16 and int8 pools, GQA, a window; ERNIE-MoE: 8 slots, 16
+   heads, d 64, f32 pool), the raw launch and the wrapper each held to
+   the plain version (and to each other, bit for bit), its chunking as
+   the C entry reports it, timed from a CUDA graph of raw launches (the
+   split kernel and the combine) that cycles through copies of the pools
+   larger together than the L2, beside the wrapper, and a negative
+   control: the combine without one slot's last chunk must be rejected;
 4. + 5. the main path, with every launch count set to 0 just before it
    and read just after: the no-cache LlamaForCausalLM forward at the
    full width of the repo's serving benchmark (vocab 32000, hidden 4096,
@@ -32,7 +40,8 @@ Every phase is fatal (any failure exits non-zero and prints no result):
 6. checks: finite logits of the right shape, 4 flash launches in the
    forward, all on the tf32x3 route, every request finished,
    paged-decode launches == decode ticks x 4 layers, no leaked pages, and
-   a cross-check of two greedy
+   every decode call on the split kernel (``kernels.decode.paged_cuda_split``,
+   by what the C entry reports), a cross-check of two greedy
    requests against teacher-forced argmax of the no-cache forward
    (bf16 pool and an f32 pool).
 
@@ -80,13 +89,16 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    output on the kernel's own intermediates) and end to end (within
    MOE_E2E_RATIO of the allowance); the forward, dx and dw launch on the
    route ``grouped_ffn_route`` names (the training shape on "tc", wgmma
-   and TMA; the f32 and refused cases on "simt"), read from the
-   ``kernels.moe.grouped_ffn_{fwd,dx,dw}_cuda_{tc,simt}`` counters, and
+   and TMA; the decode tick's forward on "rows", the weight-streaming
+   passes; the other f32 and refused cases on "simt"), read from the
+   ``kernels.moe.grouped_ffn_{fwd,dx,dw}_cuda_{tc,rows,simt}`` counters, and
    the tc kernels' SASS holds HGMMA and UTMALDG; negative
    controls at the training shape (dw1 short of one expert's last 64-row
    tile, out short of the down product's last 64-deep K tile, dx short
-   of the last 64-deep K tile of dff) must each be rejected by both
-   gates; each timed beside its plain version, its bound over the live
+   of the last 64-deep K tile of dff) and at the decode tick (the rows
+   route's out without its last K split) must each be rejected by both
+   gates; each timed beside its plain version (an f32 forward from a
+   CUDA graph of raw launches, the wrapper beside), its bound over the live
    rows (a time below it fails), its TFLOP/s and the timed-only pair of
    torch.bmm calls;
 12. the MoE serving main path, counts set to 0 just before and read just
@@ -96,8 +108,10 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    greedy requests of 64-191 prompt tokens and 96 new tokens: every
    request finished, no page leaked, grouped-FFN forward launches ==
    (prefills + decode ticks) x 2 MoE layers, paged-decode launches ==
-   ticks x 4 layers, only the kernel dispatch, every grouped-FFN forward
-   on the simt route (f32), and two requests' tokens equal to a 1-slot
+   ticks x 4 layers, every decode call on the split kernel, only the
+   kernel dispatch, every decode tick's grouped-FFN forward on the rows
+   route and every prefill's on simt (capacity 128), by the route the C
+   entry reports, and two requests' tokens equal to a 1-slot
    engine's (>= 0.97);
 13. MoE cross-check: a 2-layer ERNIE-MoE (hidden 256, 4 experts, seq 128,
    f32, TF32 off) — one TrainStep loss and every parameter gradient on
@@ -152,8 +166,11 @@ forward, dQ and dK/dV as ``flash_fwd`` (its wgmma kernel,
 ``launches_wgmma``) / ``flash_bwd_dq`` / ``flash_bwd_dkv`` with
 ``flash_route`` "cuda-tc", the f32 forward of the serving paths as
 ``flash_fwd_tf32x3``, the CUDA-core forward and dQ as ``flash_fwd_simt``
-/ ``flash_bwd_dq_simt``; the grouped-FFN forward as ``grouped_ffn_fwd``
-on the tc route and ``grouped_ffn_fwd_simt``, dx as
+/ ``flash_bwd_dq_simt``; paged decode as ``paged_decode`` (its two
+kernels, launches by path and on the split kernel, the MoE geometry's
+case); the grouped-FFN forward as ``grouped_ffn_fwd``
+on the tc route, ``grouped_ffn_fwd_rows`` (the decode tick) and
+``grouped_ffn_fwd_simt`` (the prefill), dx as
 ``grouped_ffn_bwd_dx`` (tc), dw as ``grouped_ffn_bwd_dw`` (tc) and
 ``grouped_ffn_bwd_dw_simt`` (the f32 prefill case), each with its
 ``grouped_ffn_route``), and as its last line
@@ -251,6 +268,18 @@ def check_f32_routes(counters, want, what):
     return check_routes(counters, {"fwd_cuda_tf32x3": want}, what)
 
 
+def check_paged_split(counters, launches, what):
+    """Every paged-decode call of a serving path ran the split kernel and
+    the combine (the C entry reported more than one chunk a slot), none
+    the single-chunk path: the decode counters by route."""
+    got = {r: int(counters.get(f"kernels.decode.paged_cuda_{r}", 0))
+           for r in ("split", "single")}
+    if got != {"split": launches, "single": 0}:
+        fail(f"{what}: paged-decode calls by route {got}, expected "
+             f"{launches} on the split kernel and none elsewhere")
+    return got
+
+
 def cuda_ms(fn, iters=20, warmup=3):
     """Mean device ms of fn() over `iters` back-to-back calls (CUDA
     events around the whole run, after `warmup` calls)."""
@@ -321,27 +350,118 @@ def closeness(got, ref, rtol=None, atol=None):
 
 # -- phase 3: kernels against their plain versions -------------------------
 
+def graph_ms(torch, fn, calls=20, reps=5):
+    """Device ms of one fn() from a CUDA graph of ``calls`` back-to-back
+    calls, replayed ``reps`` times between CUDA events (after one call
+    outside the graph): the kernels' own time with the host's launch
+    work taken out, which at a few microseconds a kernel is larger than
+    the kernels (events around eager calls then time the host)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        g.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (reps * calls)
+
+
+#: the paged decode's serving geometries: (slots, h, h_kv, d, pool dtype,
+#: longest context) of LLaMA (profile_serving.MODEL in the Engine of
+#: phase 5) and ERNIE-MoE (profile_moe's serving engine, phase 12), both
+#: with 128-token pages and 3 pages a slot
+PAGED_SERVING = {"llama": (16, 32, 32, 128, "bfloat16", 320),
+                 "ernie_moe": (8, 16, 16, 64, "float32", 287)}
+
+
+def _paged_combine_control(torch, pa, got, scratch, ctx, want, window,
+                           chunk):
+    """The combine skipping one slot's last chunk: the kernel's own
+    partials (its scratch) combined in chunk order, as the combine does,
+    once over every chunk (which must equal the kernel's output within
+    the gate, so the recombination is the kernel's) and once without the
+    last chunk of the slot with the most chunks; the closeness gate must
+    reject the second."""
+    b, h, d = got.shape
+    acc, ml = pa.decode_partials(scratch, b, h, d)
+    lo = (ctx - window).clamp(min=0) if window else torch.zeros_like(ctx)
+    hi = ctx.clamp(max=acc.shape[2] * chunk)
+    first, last = lo // chunk, (hi - 1) // chunk
+    slot = int(torch.argmax(torch.where(hi > lo, last - first, -1)))
+
+    def combine(drop):
+        out = torch.zeros_like(got)
+        for s_ in range(b):
+            if hi[s_] <= lo[s_]:
+                continue
+            cs = list(range(int(first[s_]), int(last[s_]) + 1))
+            if drop and s_ == slot:
+                cs = cs[:-1]
+            m, l, a = ml[s_, :, cs, 0], ml[s_, :, cs, 1], acc[s_, :, cs]
+            w = torch.exp(m - m.max(dim=1, keepdim=True).values)
+            out[s_] = (a * w[..., None]).sum(1) / (l * w).sum(1)[:, None]
+        return out
+    full = closeness(combine(False), got)
+    short = closeness(combine(True), want)
+    print(f"  negative control (combine without slot {slot}'s last chunk "
+          f"of {int(last[slot] - first[slot]) + 1}): ratio to tol "
+          f"{short['ratio']:.3g} (rejected: > 1; every chunk: "
+          f"{full['ratio']:.3g} against the kernel)", flush=True)
+    if not (full["ratio"] <= 1.0 and short["ratio"] > 1.0):
+        fail(f"the paged-decode gate does not reject a combine short of a "
+             f"chunk: {full}, {short}")
+    return dict(slot=slot, chunks=int(last[slot] - first[slot]) + 1,
+                ratio=short["ratio"], max_abs_err=short["max_abs_err"],
+                ratio_full_recombine=full["ratio"])
+
+
 def check_paged(torch, pa, kvq):
-    """Paged decode at the serving shape (16 slots, h = h_kv = 32, d 128,
-    page 128, contexts ragged up to 320 with dead slots) for f32, bf16
-    and int8 pools, plus a GQA (rep 4) and a window case."""
+    """Paged decode at the two serving geometries (PAGED_SERVING: LLaMA,
+    16 slots, h = h_kv = 32, d 128, contexts ragged up to 320 with dead
+    slots, f32, bf16 and int8 pools, GQA rep 4 and a window; ERNIE-MoE, 8
+    slots, h = h_kv = 16, d 64, f32 pool, contexts ragged up to 287 with
+    a dead slot): the raw launch and the wrapper each against the plain
+    version (the wrapper bit-equal to the raw launch), its chunking as
+    the C entry reports it, timed as raw launches of the split kernel and
+    the combine (``ms``: ``graph_ms`` cycling through copies of the pools
+    that together exceed the L2, ``cold_copies``) and through the wrapper
+    (``wrapper_ms``, events around eager calls: host included) beside the
+    plain version and the bound over the live tokens; at both serving
+    cases the combine without a slot's last chunk must be rejected."""
+    from paddle_tpu_torch.ab_serving_kernels import cold_copies
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    b, d, bs, nblk = 16, 128, 128, 3
-    ctx = torch.randint(1, 321, (b,), generator=g, device=dev)
-    ctx[3] = 0
-    ctx[11] = 0                        # dead (idle) slots
-    ctx[0], ctx[5], ctx[7] = 320, 128, 1
-    nb = b * nblk + 1
-    bt = (torch.randperm(nb - 1, generator=g, device=dev) + 1).reshape(
-        b, nblk).to(torch.int32)
     cases = []
-    specs = [("serving_bf16", 32, 32, torch.bfloat16, None),
-             ("serving_f32", 32, 32, torch.float32, None),
-             ("int8", 32, 32, torch.int8, None),
-             ("gqa_rep4", 32, 8, torch.bfloat16, None),
-             ("window", 32, 32, torch.bfloat16, 100)]
-    for name, h, hkv, dt, window in specs:
+    specs = [("serving_bf16", "llama", 32, torch.bfloat16, None),
+             ("serving_f32", "llama", 32, torch.float32, None),
+             ("int8", "llama", 32, torch.int8, None),
+             ("gqa_rep4", "llama", 8, torch.bfloat16, None),
+             ("window", "llama", 32, torch.bfloat16, 100),
+             ("moe_serving_f32", "ernie_moe", 16, torch.float32, None)]
+    ctxs = {}
+    for geo, (b, _, _, _, _, longest) in PAGED_SERVING.items():
+        ctx = torch.randint(1, longest + 1, (b,), generator=g, device=dev)
+        ctx[3] = 0                     # a dead (idle) slot
+        ctx[0] = longest
+        if geo == "llama":
+            ctx[11] = 0
+            ctx[5], ctx[7] = 128, 1
+        ctxs[geo] = ctx
+    bs, nblk = 128, 3
+    for name, geo, hkv, dt, window in specs:
+        b, h, _, d, _, _ = PAGED_SERVING[geo]
+        ctx = ctxs[geo]
+        nb = b * nblk + 1
+        bt = (torch.randperm(nb - 1, generator=g, device=dev) + 1).reshape(
+            b, nblk).to(torch.int32)
         q = torch.randn(b, h, d, generator=g, device=dev)
         kf = torch.randn(nb, hkv, bs, d, generator=g, device=dev)
         vf = torch.randn(nb, hkv, bs, d, generator=g, device=dev)
@@ -353,33 +473,68 @@ def check_paged(torch, pa, kvq):
             kc, vc = kf.to(dt), vf.to(dt)
         args = (q, kc, vc, bt, ctx)
         kw = dict(window=window, k_scale=ks, v_scale=vs)
+        qf, btc, cl = pa._check_cuda(q, kc, vc, bt, ctx, ks, vs)
+        out = torch.empty(b, h, d, device=dev)
+        scratch = pa.decode_scratch(qf, btc, bs)
+        chunk, nch = pa._decode_launch(qf, kc, vc, btc, cl, out, scratch,
+                                       d ** -0.5, window, ks, vs)
         got = pa.paged_decode(*args, **kw)
         torch.cuda.synchronize()
         want = pa.paged_attention_arrays(*args, **kw)
-        c = closeness(got, want)
+        c = closeness(out, want)
+        c_wrap = closeness(got, want)
+        control = (_paged_combine_control(torch, pa, out, scratch, ctx,
+                                          want, window, chunk)
+                   if name in ("serving_bf16", "moe_serving_f32") else None)
         live = (torch.minimum(ctx, torch.tensor(nblk * bs, device=dev))
                 - (torch.clamp(ctx - window, min=0) if window else 0)
                 ).clamp(min=0)
         toks = int(live.sum())
         item = kc.element_size()
-        nbytes = (2 * toks * hkv * d * item + (8 * toks * hkv if ks is
-                                               not None else 0)
-                  + 2 * q.numel() * 4 + bt.numel() * 4 + ctx.numel() * 8)
+        kv_bytes = 2 * toks * hkv * d * item + (8 * toks * hkv if ks is
+                                                not None else 0)
+        nbytes = (kv_bytes + 2 * q.numel() * 4 + bt.numel() * 4
+                  + ctx.numel() * 8)
         flops = 4 * toks * h * d
         bms, by = bound_ms(nbytes, flops, "float32")
-        rec = dict(case=name, heads=h, kv_heads=hkv,
-                   pool=str(dt).replace("torch.", ""), window=window, **c,
-                   ms=cuda_ms(lambda: pa.paged_decode(*args, **kw)),
+        pools = cold_copies(torch, (kc, vc, ks, vs), kv_bytes)
+        walk = iter(range(10 ** 9))
+
+        def raw():
+            kc_, vc_, ks_, vs_ = pools[next(walk) % len(pools)]
+            return pa._decode_launch(qf, kc_, vc_, btc, cl, out, scratch,
+                                     d ** -0.5, window, ks_, vs_)
+        rec = dict(case=name, geometry=geo, slots=b, heads=h, kv_heads=hkv,
+                   head_dim=d, pool=str(dt).replace("torch.", ""),
+                   window=window, **c, wrapper_ratio=c_wrap["ratio"],
+                   chunk=chunk, chunks_launched=nch,
+                   ms=graph_ms(torch, raw), pool_copies=len(pools),
+                   wrapper_ms=cuda_ms(lambda: pa.paged_decode(*args, **kw)),
                    plain_ms=cuda_ms(lambda: pa.paged_attention_arrays(
                        *args, **kw)),
-                   bound_ms=bms, bound_by=by, live_tokens=toks)
+                   bound_ms=bms, bound_by=by, live_tokens=toks,
+                   negative_control=control)
+        del pools
         print(f"  paged_decode[{name}]: err {c['max_abs_err']:.3g} (tol "
-              f"{c['tol']}, ratio {c['ratio']:.3g}) kernel {rec['ms']:.4f} "
-              f"ms, plain {rec['plain_ms']:.4f} ms, bound {bms:.4f} ms "
-              f"({by})", flush=True)
+              f"{c['tol']}, ratio {c['ratio']:.3g}; wrapper ratio "
+              f"{c_wrap['ratio']:.3g}); {nch} chunks of {chunk}; kernels "
+              f"{rec['ms']:.4f} ms ({rec['pool_copies']} pool copies), "
+              f"wrapper {rec['wrapper_ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by})",
+              flush=True)
         if not c["ratio"] <= 1.0:
             fail(f"paged_decode[{name}] disagrees with its plain version: "
                  f"{c}")
+        if not (c_wrap["ratio"] <= 1.0 and torch.equal(got, out)):
+            fail(f"paged_decode[{name}]: the wrapper's output differs from "
+                 f"its plain version ({c_wrap}) or from the raw launch's")
+        if chunk != pa.DECODE_CHUNK or nch != pa.paged_decode_chunks(
+                nblk, bs) or nch * chunk < int(ctx.max()):
+            fail(f"paged_decode[{name}]: the C entry reports {nch} chunks "
+                 f"of {chunk} for contexts up to {int(ctx.max())}")
+        if rec["ms"] < bms:
+            fail(f"paged_decode[{name}]: {rec['ms']} ms is below its bound "
+                 f"{bms} ms")
         cases.append(rec)
     return cases
 
@@ -944,8 +1099,10 @@ MOE_E2E_RATIO = {"float32": 1.0, "bfloat16": 8.0}
 MOE_K_TILE = 64
 #: the per-route launch counters of the grouped-FFN forward, dx and dw
 #: kernels
-MOE_ROUTES = ("fwd_cuda_tc", "fwd_cuda_simt", "dx_cuda_tc", "dx_cuda_simt",
-              "dw_cuda_tc", "dw_cuda_simt")
+MOE_ROUTES = ("fwd_cuda_tc", "fwd_cuda_rows", "fwd_cuda_simt", "dx_cuda_tc",
+              "dx_cuda_simt", "dw_cuda_tc", "dw_cuda_simt")
+#: the forward's route at each case of phase 11 (the rest: "simt")
+MOE_FWD_ROUTE = {"train_bf16": "tc", "decode_f32": "rows"}
 
 
 def moe_routes(counters):
@@ -1031,6 +1188,51 @@ def _moe_k_tile_controls(torch, keep, ops, ha_k, dz_k, got, ref, plain,
                       ratio_vs_plain=e2e["ratio"],
                       max_abs_err=stage["max_abs_err"])
     return res
+
+
+def _moe_rows_split_control(torch, moe, ops, cnt, act, ref_out, plain_out,
+                            e2e_limit):
+    """out of the rows route without the down pass's last K split: after
+    a launch, the kernel's own partials (its scratch holds the down
+    pass's [S, E, C, h] sums of the live rows) reduced as its epilogue
+    does, in split order with b2 and ws, once over every split (which
+    must give the kernel's out within the gate, so the reduction is the
+    kernel's) and once without the last split; both gates, the stage
+    one and the end-to-end one (at ``e2e_limit``), must reject the
+    second."""
+    x, w1, _, _, b2, ws = ops
+    E, C, h = x.shape
+    dff = w1.shape[2]
+    cops = moe._check_cuda("control", *ops, cnt)
+    part = moe.grouped_ffn_rows_scratch(E, C, h, dff, x.device)
+    ha = torch.empty(E, C, dff, device=x.device)
+    out = torch.empty_like(x)
+    if moe._fwd_launch(cops, ha, out, act, part) != "rows":
+        fail("the rows control's launch took another route")
+    torch.cuda.synchronize()
+    S = -(-dff // moe.ROWS_K_SPLIT)
+    parts = part[:S * E * C * h].view(S, E, C, h)
+    keep = moe._row_mask(cnt, C, x.device)
+
+    def reduce(n):
+        total = parts[0]
+        for k in range(1, n):
+            total = total + parts[k]
+        return torch.where(keep, (total + b2) * ws, 0.0)
+    full = closeness(reduce(S), out)
+    short = reduce(S - 1)
+    stage, e2e = closeness(short, ref_out), closeness(short, plain_out)
+    print(f"  negative control (rows route's out without K split {S - 1} of "
+          f"{S}): ratio to tol {stage['ratio']:.3g} (rejected: > 1), end to "
+          f"end {e2e['ratio']:.3g} (rejected: > {e2e_limit}); every split: "
+          f"{full['ratio']:.3g} against the kernel", flush=True)
+    if not (full["ratio"] <= 1.0 and stage["ratio"] > 1.0
+            and e2e["ratio"] > e2e_limit):
+        fail(f"the checks do not reject the rows route short of a K split: "
+             f"{full}, {stage}, {e2e}")
+    return dict(splits=S, dropped=S - 1, ratio=stage["ratio"],
+                ratio_vs_plain=e2e["ratio"], max_abs_err=stage["max_abs_err"],
+                ratio_full_reduce=full["ratio"])
 
 
 def _moe_rounding_witness(torch, dt, dz_k, inter):
@@ -1170,13 +1372,16 @@ def check_moe_kernels(torch, moe, moe_gate, monitor):
                                               device=dev))
         gg = r(E, cap, h).to(dt)
         route = moe.grouped_ffn_route(dt, h, dff)
-        if route != ("tc" if name == "train_bf16" else "simt"):
-            fail(f"grouped_ffn[{name}]: route {route}")
+        fwd_route = moe.grouped_ffn_route(dt, h, dff, cap)
+        if route != ("tc" if name == "train_bf16" else "simt") or \
+                fwd_route != MOE_FWD_ROUTE.get(name, "simt"):
+            fail(f"grouped_ffn[{name}]: routes {fwd_route} (forward), "
+                 f"{route} (dx, dw)")
         before = moe_routes(monitor.snapshot())
         got = dict(zip(names, (moe.grouped_ffn_fwd(*ops, cnt, act),)
                        + moe.grouped_ffn_bwd(*ops, cnt, gg, act)))
         after = moe_routes(monitor.snapshot())
-        want = {n: before[n] + (n in (f"fwd_cuda_{route}",
+        want = {n: before[n] + (n in (f"fwd_cuda_{fwd_route}",
                                       f"dx_cuda_{route}",
                                       f"dw_cuda_{route}"))
                 for n in MOE_ROUTES}
@@ -1212,7 +1417,11 @@ def check_moe_kernels(torch, moe, moe_gate, monitor):
             + moe.grouped_ffn_bwd_outputs(*ops, cnt, gg, **dict(
                 inter, ha=ha_k, dz=dz_k))))
         res.update({n: closeness(got[n], ref[n]) for n in names})
-        sharp = k_tiles = None
+        sharp = k_tiles = rows_split = None
+        if fwd_route == "rows":
+            rows_split = _moe_rows_split_control(torch, moe, ops, cnt, act,
+                                                 ref["out"], plain["out"],
+                                                 e2e_limit)
         if name == "train_bf16":
             sharp = _moe_negative_control(torch, moe, ops[0], cnt, inter,
                                           got["dw1"], ref["dw1"],
@@ -1252,7 +1461,8 @@ def check_moe_kernels(torch, moe, moe_gate, monitor):
                    ratio_vs_plain={n: v["ratio"] for n, v in e2e.items()},
                    e2e_limit=e2e_limit, dz_rounding=witness,
                    negative_control=sharp, k_tile_controls=k_tiles,
-                   route=dict(fwd=route, dx=route, dw=route))
+                   rows_split_control=rows_split,
+                   route=dict(fwd=fwd_route, dx=route, dw=route))
         plain_bwd = cuda_ms(lambda: moe.grouped_ffn_bwd_plain(
             *ops, cnt, gg, act), iters=3)
         parts = {
@@ -1281,7 +1491,20 @@ def check_moe_kernels(torch, moe, moe_gate, monitor):
                              bound_by=by, library_ms=None,
                              library_pair_ms=cuda_ms(pair, iters=10),
                              tflops=flops / ms / 1e9)
-        print(f"  grouped_ffn[{name}] ({route}): ratio to tol "
+            if part == "fwd" and dt == f32:
+                # f32 forwards last about as long as the host's launch
+                # work: ms from a CUDA graph of raw launches, the
+                # wrapper's events time beside
+                ha_b = torch.empty(E, cap, dff, device=dev)
+                out_b = torch.empty_like(ops[0])
+                part_b = (moe.grouped_ffn_rows_scratch(E, cap, h, dff, dev)
+                          if fwd_route == "rows" else None)
+                fops = cops[:7]
+                rec[part].update(wrapper_ms=ms, ms=graph_ms(
+                    torch, lambda: moe._fwd_launch(fops, ha_b, out_b, act,
+                                                   part_b)))
+                rec[part]["tflops"] = flops / rec[part]["ms"] / 1e9
+        print(f"  grouped_ffn[{name}] ({fwd_route}, {route}): ratio to tol "
               f"{ {n: round(v, 3) for n, v in rec['ratio'].items()} }, end "
               f"to end {max(rec['ratio_vs_plain'].values()):.3g} (limit "
               f"{e2e_limit}); " + "; ".join(
@@ -1346,8 +1569,13 @@ def moe_serving_main_path(torch, mods, launches_of, reset_counts, card):
     if paths != {"pallas": want} or plain or \
             counters.get("serving.moe.decode_path.pallas") != want:
         fail(f"MoE serving left the kernel path: {paths}, {plain}")
-    routes = check_moe_routes(counters, {"fwd_cuda_simt": want},
+    # every decode tick's forward on the rows route, every prefill's on
+    # the simt tiles (capacity 128): by the route the C entry reports
+    routes = check_moe_routes(counters, {"fwd_cuda_rows": ticks * n_moe,
+                                         "fwd_cuda_simt": prefills * n_moe},
                               "MoE serving")
+    decode_routes = check_paged_split(counters, launches["paged_decode"],
+                                      "MoE serving")
     n_tok = sum(len(o.token_ids) for o in outs)
     one = mods.Engine(model, **dict(P.MOE_ENGINE, max_slots=1)).run(
         [reqs[0], reqs[1]])
@@ -1358,7 +1586,8 @@ def moe_serving_main_path(torch, mods, launches_of, reset_counts, card):
                tokens_per_s=n_tok / serve_s, decode_ticks=ticks,
                prefills=prefills, launches=launches,
                moe_decode_path=paths, agreement_1_slot=agree,
-               counters=counters, grouped_ffn_routes=routes)
+               counters=counters, grouped_ffn_routes=routes,
+               paged_decode_routes=decode_routes)
     print(f"MoE serving: {P.MOE_REQUESTS} requests, {n_tok} tokens, {ticks} "
           f"decode ticks, {prefills} prefills in {serve_s:.2f} s = "
           f"{n_tok / serve_s:.1f} tok/s on {card}; launches {launches}; "
@@ -2019,6 +2248,8 @@ def main():
         fail("the engine did not run the kernel probe")
     serving_routes = check_f32_routes(counters, launches["flash_fwd"],
                                       "serving")
+    decode_routes = check_paged_split(counters, launches["paged_decode"],
+                                      "serving")
     if eng.leaked_pages():
         fail(f"{eng.leaked_pages()} pages leaked")
     n_tok = sum(len(o.token_ids) for o in outs)
@@ -2110,6 +2341,7 @@ def main():
 
     src = "paddle_tpu_torch/csrc/"
     main_paged = paged_cases[0]
+    moe_paged = next(c for c in paged_cases if c["geometry"] == "ernie_moe")
     main_flash = flash_cases[0]
     main_train = train_cases[0]
     bt_case = bert_train_cases[0]
@@ -2155,15 +2387,33 @@ def main():
                  "max_abs_err", "tol", "ratio", "ms", "plain_ms",
                  "bound_ms", "bound_by", "library_ms")}),
         dict(name="paged_decode", route="cuda",
+             kernels=["paged_decode_split", "paged_decode_combine"],
              source=src + "paged_decode.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:278",
              launches=launches["paged_decode"] + ms_l["paged_decode"],
              launches_by_path={"serving": launches["paged_decode"],
                                "moe_serving": ms_l["paged_decode"]},
+             launches_split={"serving": decode_routes["split"],
+                             "moe_serving": moe_serving[
+                                 "paged_decode_routes"]["split"]},
+             moe_serving_case={k: moe_paged[k] for k in (
+                 "case", "max_abs_err", "ratio", "wrapper_ratio", "ms",
+                 "pool_copies", "wrapper_ms", "plain_ms", "bound_ms",
+                 "bound_by", "chunks_launched", "negative_control")},
+             note="one call: the split kernel over (chunk of "
+                  "DECODE_CHUNK tokens, kv head, slot) and the combine of "
+                  "the chunks' partials; ms is their device time from a "
+                  "CUDA graph of raw launches cycling through pool_copies "
+                  "copies of the pools (more than the L2 between two reads "
+                  "of one), wrapper_ms the wrapper's (events around eager "
+                  "calls, host included); launches_split counts the calls "
+                  "whose C entry reported more than one chunk a slot",
              cases=paged_cases, library_ms=None,
              **{k: main_paged[k] for k in (
-                 "max_abs_err", "tol", "ratio", "ms", "plain_ms", "bound_ms",
-                 "bound_by")}),
+                 "max_abs_err", "tol", "ratio", "wrapper_ratio", "ms",
+                 "pool_copies", "wrapper_ms", "plain_ms", "bound_ms",
+                 "bound_by", "chunk", "chunks_launched",
+                 "negative_control")}),
         dict(name="flash_fwd", route="cuda", flash_route="cuda-tc",
              kernel="flash_fwd_wgmma_kernel", source=src + "flash_fwd.cu",
              replaces="paddle_tpu/kernels/flash_attention.py:280",
@@ -2263,9 +2513,12 @@ def main():
             ("grouped_ffn_fwd", "fwd", 181, ("out",), "tc", main_moe,
              {"moe_serving": mr_s["fwd_cuda_tc"],
               "moe_training": mr_t["fwd_cuda_tc"]}),
+            ("grouped_ffn_fwd_rows", "fwd", 181, ("out",), "rows",
+             decode_moe, {"moe_serving": mr_s["fwd_cuda_rows"],
+                          "moe_training": mr_t["fwd_cuda_rows"]}),
             ("grouped_ffn_fwd_simt", "fwd", 181, ("out",), "simt",
-             decode_moe, {"moe_serving": mr_s["fwd_cuda_simt"],
-                          "moe_training": mr_t["fwd_cuda_simt"]}),
+             prefill_moe, {"moe_serving": mr_s["fwd_cuda_simt"],
+                           "moe_training": mr_t["fwd_cuda_simt"]}),
             ("grouped_ffn_bwd_dx", "dx", 344, ("dx", "dws", "db2", "ha",
                                                 "dz"), "tc", main_moe,
              {"moe_training": mr_t["dx_cuda_tc"]}),
@@ -2288,8 +2541,13 @@ def main():
             e2e_limit=case["e2e_limit"],
             note="grouped_ffn_route: tc (wgmma on TMA-fed 128 x 128 tiles, "
                  "bf16/fp16 with h and dff multiples of 8; the dw products "
-                 "read both operands MN-major) or simt (f32 FMA on the CUDA "
-                 "cores: f32, odd widths); "
+                 "read both operands MN-major), rows (the forward of f32 "
+                 "buffers of capacity <= 16: the live experts' weights "
+                 "streamed once over (column slab, K split, expert) blocks, "
+                 "K-split partials summed by a reduce epilogue) or simt "
+                 "(f32 FMA on the CUDA cores: f32, odd widths); an f32 "
+                 "forward's ms comes from a CUDA graph of raw launches "
+                 "(wrapper_ms: the wrapper); "
                  "bound_ms counts the port's own entry over the live rows: "
                  "forward 2 products (weights of the live experts, x in, "
                  "out written); dx 4 products (z, dh, dz w1^T, ha w2; the "
@@ -2304,6 +2562,8 @@ def main():
                  "(limit e2e_limit)",
             cases=[dict(case=c["case"], route=c["route"][part], **c[part])
                    for c in moe_cases if c["route"][part] == route],
+            rows_split_control=(case["rows_split_control"]
+                                if route == "rows" else None),
             sass={k: v for k, v in moe_sass.items()
                   if route == "tc" and k.startswith(part)},
             **case[part]))
@@ -2317,7 +2577,8 @@ def main():
                                decode_ticks=ticks,
                                preemptions=counters.get(
                                    "serving.preemptions", 0),
-                               flash_routes=serving_routes),
+                               flash_routes=serving_routes,
+                               paged_decode_routes=decode_routes),
                   counters=counters, agreement=agree,
                   flash_train_cases=train_cases, model_cross_check=xcheck,
                   training=training, moe_kernel_cases=moe_cases,

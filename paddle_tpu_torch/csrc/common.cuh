@@ -61,6 +61,34 @@ __device__ __forceinline__ void load16_f32(const T* __restrict__ src,
   for (int i = 0; i < Vec16<T>::n; ++i) dst[i] = to_f32(e[i]) * mul;
 }
 
+// Asynchronous copies global -> shared (cp.async, sm_80+): 16 bytes (the
+// L2-only .cg path) or 4 bytes, or that many zero bytes when !pred (src
+// is then not read but must be a valid address). A thread's copies
+// complete in the groups it commits, oldest first; wait<N> returns once
+// at most N of its groups are still in flight.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 __global__ void probe_kernel(const float* __restrict__ x,
                              float* __restrict__ o, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;

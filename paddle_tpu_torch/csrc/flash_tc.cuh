@@ -52,31 +52,11 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, or 16 zero bytes when !pred (src is then
-// not read but must be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-// 4 bytes global -> shared, or zeros when !pred.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// the cp.async copies of common.cuh
+using pt::cp_async16;
+using pt::cp_async4;
+using pt::cp_async_commit;
+using pt::cp_async_wait;
 
 // Four 8x8 b16 matrices; lane l gives the row address of matrix l / 8.
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {

@@ -30,8 +30,9 @@
 // What bounds it on an H100: at the training shape (8 experts, ~4,096
 // live rows each, h 1024, dff 2816) arithmetic, 4 x rows x h x dff
 // operations against a few tens of MB; at a decode tick (a few live rows
-// per expert) the expert weights are the bytes that bound it. Two routes
-// by gg::route (grouped_gemm_tc.cuh):
+// per expert) the expert weights are the bytes that bound it: 161 MB of
+// w1 and w2 for 7 live experts, 0.048 ms at 3.35 TB/s (data sheet).
+// Three routes by gg::route (grouped_gemm_tc.cuh):
 //
 // - "tc" (bf16, fp16; h and dff multiples of 8): both passes run the
 //   Hopper mainloop of grouped_gemm_tc.cuh (wgmma on TMA-fed 128 x 128
@@ -39,8 +40,14 @@
 //   pass computes z with exactly the K loop of the dx entry's first pass
 //   (same maps, tiles, order and instruction), so the forward's ha and
 //   the dx entry's are equal bit for bit.
-// - "simt" (f32, odd widths): the f32 FMA product of grouped_gemm.cuh on
-//   the CUDA cores, blocks of 64 x 64.
+// - "rows" (f32 with C <= gg::kRowsMaxC, h and dff multiples of 4: the
+//   serving decode tick): each pass streams every live expert's weight
+//   once over many blocks (namespace rows below): a 64-row tile would
+//   use a few of its rows while one block per SM streamed its weight
+//   slab with nothing in flight behind it.
+// - "simt" (f32 and odd widths otherwise, e.g. the serving prefill at C
+//   128): the f32 FMA product of grouped_gemm.cuh on the CUDA cores,
+//   blocks of 64 x 64.
 #include "grouped_gemm_tc.cuh"
 
 namespace {
@@ -272,6 +279,297 @@ int launch_tc(const FwdArgs& a, int dtype, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
+
+// -- the "rows" route --------------------------------------------------------
+
+// f32 buffers of few rows (C <= gg::kRowsMaxC: a serving decode tick).
+// Four launches: up pass, up reduce, down pass, down reduce, each after
+// the first a programmatic dependent launch, so a kernel's blocks take
+// their places during the tail of the one before: the down pass streams
+// its first weight stages before it waits for ha.
+// Each pass is out_rows[e] = rows[e] w[e] over the live rows only, a few
+// per expert against a [K, N] weight, so its bytes are the weights: the
+// pass streams every live expert's weight once across many blocks.
+// Blocks go over (128-column slab, K split of kKS rows, expert); an
+// expert with count 0 exits before any load. A block copies its expert's
+// live rows of the K split into shared memory (16-byte cp.async, zeros
+// past K) and streams its [kKS, 128] weight slab through a ring of
+// kStages stages of kStageK rows (16-byte cp.async, zeros past K), one
+// row of 512 bytes a warp: lane l holds columns 4l..4l+3 and the four
+// warps take every fourth row of a stage. f32 FMAs on the CUDA cores, a
+// [rows][4] accumulator a thread; the warps' sums add in order through
+// shared memory into the K split's f32 partial of the live rows, and a
+// reduce kernel sums the splits in order (no atomics) and applies the
+// pass's epilogue: b1 and act into ha (up), b2 and ws into out, rows
+// past counts[e] zero (down). Dead rows of x and ha are never read.
+namespace rows {
+
+// Programmatic dependent launch (sm_90): a kernel launched by
+// launch_dependent may start while the kernel before it on the stream is
+// still running, once every block of that one has called
+// pdl_launch_dependents (or exited); pdl_wait then returns when it has
+// completed and its writes are visible. Work that reads nothing the
+// earlier kernel writes (weights, the block's own setup) goes before
+// pdl_wait. In a kernel launched the ordinary way pdl_wait returns at
+// once.
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" :::);
+}
+
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid,
+                             dim3 block, size_t smem, cudaStream_t stream,
+                             Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBN = 128;    // columns a block: 4 a lane
+constexpr int kKS = 256;    // K rows a block (the K split)
+constexpr int kStageK = 16;  // K rows a stage
+constexpr int kStages = 4;  // ring depth
+static_assert(kStageK % kWarps == 0, "whole rows a warp");
+static_assert(kStages * kStageK >= kWarps * gg::kRowsMaxC,
+              "the warps' sums fit in the ring");
+
+template <int kRows>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (size_t(kStages) * kStageK * kBN +
+                          size_t(kRows) * kKS);
+}
+
+struct Pass {
+  const float* a;  // [E, C, K] rows (x, or ha)
+  const float* w;  // [E, K, N]
+  const int* counts;
+  float* part;  // [S, E, C, N]: the K splits' sums of the live rows
+  int E, C, K, N;
+};
+
+template <int kRows>
+__global__ void __launch_bounds__(kThreads)
+    grouped_ffn_rows_pass(const Pass p) {
+  const int n0 = blockIdx.x * kBN;
+  const int split = blockIdx.y;
+  const int e = blockIdx.z;
+  pdl_launch_dependents();  // the reduce may take its places now
+  const int count = min(p.counts[e], p.C);
+  if (count <= 0) return;  // no live row: no weight read
+  const int k0 = split * kKS;
+  const int kn = min(kKS, p.K - k0);
+  const int nst = gg::cdiv(kn, kStageK);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  extern __shared__ __align__(16) float smem_f[];
+  float* ring = smem_f;                          // [kStages][kStageK][kBN]
+  float* xs = ring + kStages * kStageK * kBN;    // [kRows][kKS]
+  const float* we = p.w + size_t(e) * p.K * p.N;
+
+  auto load_stage = [&](int st) {
+    float* dst = ring + (st % kStages) * kStageK * kBN;
+    for (int i = tid; i < kStageK * kBN / 4; i += kThreads) {
+      const int kk = i / (kBN / 4);
+      const int c = 4 * (i - kk * (kBN / 4));
+      const int k = st * kStageK + kk;
+      const bool ok = k < kn && n0 + c < p.N;  // N % 4 == 0
+      pt::cp_async16(dst + kk * kBN + c,
+                     ok ? we + size_t(k0 + k) * p.N + n0 + c : we, ok);
+    }
+  };
+  // the weights do not depend on the kernel before: their first stages
+  // are in flight before the wait
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nst) load_stage(st);
+    pt::cp_async_commit();
+  }
+  pdl_wait();  // down: the up pass's reduce has written ha
+  // the live rows of this K split
+  const float* ae = p.a + size_t(e) * p.C * p.K + k0;
+  for (int i = tid; i < count * (kKS / 4); i += kThreads) {
+    const int m = i / (kKS / 4);
+    const int kk = 4 * (i - m * (kKS / 4));
+    const bool ok = kk < kn;  // K % 4 == 0: a piece is whole or past K
+    pt::cp_async16(xs + m * kKS + kk, ok ? ae + size_t(m) * p.K + kk : ae,
+                   ok);
+  }
+  pt::cp_async_commit();
+  pt::cp_async_wait<0>();  // the rows (and the first stages) landed
+
+  float acc[kRows][4];
+#pragma unroll
+  for (int m = 0; m < kRows; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+  for (int st = 0; st < nst; ++st) {
+    if (st + kStages - 1 < nst) load_stage(st + kStages - 1);
+    pt::cp_async_commit();
+    pt::cp_async_wait<kStages - 1>();  // stage st landed
+    __syncthreads();
+    const float* ws = ring + (st % kStages) * kStageK * kBN;
+#pragma unroll
+    for (int i = 0; i < kStageK / kWarps; ++i) {
+      const int kk = warp + kWarps * i;
+      const float4 wv = *reinterpret_cast<const float4*>(ws + kk * kBN +
+                                                         4 * lane);
+      const float* xk = xs + st * kStageK + kk;
+#pragma unroll
+      for (int m = 0; m < kRows; ++m) {
+        if (m < count) {  // block-uniform
+          const float xv = xk[m * kKS];
+          acc[m][0] = fmaf(xv, wv.x, acc[m][0]);
+          acc[m][1] = fmaf(xv, wv.y, acc[m][1]);
+          acc[m][2] = fmaf(xv, wv.z, acc[m][2]);
+          acc[m][3] = fmaf(xv, wv.w, acc[m][3]);
+        }
+      }
+    }
+    __syncthreads();  // the stage may be refilled
+  }
+  pt::cp_async_wait<0>();  // only empty groups remain; the ring is free
+
+  // the four warps' sums, in warp order, into the split's partial
+  float* red = ring;  // [kWarps][kRows][kBN]
+#pragma unroll
+  for (int m = 0; m < kRows; ++m)
+    if (m < count)
+      *reinterpret_cast<float4*>(red + (warp * kRows + m) * kBN + 4 * lane) =
+          make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+  __syncthreads();
+  float* out = p.part + (size_t(split) * p.E + e) * p.C * p.N;
+  for (int i = tid; i < count * (kBN / 4); i += kThreads) {
+    const int m = i / (kBN / 4);
+    const int c = 4 * (i - m * (kBN / 4));
+    if (n0 + c >= p.N) continue;
+    float4 s = *reinterpret_cast<const float4*>(red + m * kBN + c);
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      const float4 t =
+          *reinterpret_cast<const float4*>(red + (w * kRows + m) * kBN + c);
+      s.x += t.x;
+      s.y += t.y;
+      s.z += t.z;
+      s.w += t.w;
+    }
+    *reinterpret_cast<float4*>(out + size_t(m) * p.N + n0 + c) = s;
+  }
+}
+
+// the sum of the S split partials of row (e, m), columns n..n+3, in
+// split order
+__device__ __forceinline__ float4 split_sum(const float* part, int S, int E,
+                                            int C, int N, int e, int m,
+                                            int n) {
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k = 0; k < S; ++k) {
+    const float4 t = *reinterpret_cast<const float4*>(
+        part + ((size_t(k) * E + e) * C + m) * N + n);
+    s.x += t.x;
+    s.y += t.y;
+    s.z += t.z;
+    s.w += t.w;
+  }
+  return s;
+}
+
+// up: ha[e, m, n] = act(sum + b1[e, n]) for the live rows (the simt
+// route's epilogue); dead rows are neither read nor written
+__global__ void __launch_bounds__(kThreads)
+    grouped_ffn_rows_up_reduce(FwdArgs a, const float* part, int S) {
+  const int m = blockIdx.y;
+  const int e = blockIdx.z;
+  const int n = 4 * (blockIdx.x * kThreads + threadIdx.x);
+  pdl_launch_dependents();  // the down pass may prefetch w2 now
+  if (m >= min(a.counts[e], a.C) || n >= a.dff) return;
+  pdl_wait();  // the up pass has written its partials
+  const float4 z = split_sum(part, S, a.E, a.C, a.dff, e, m, n);
+  const float* b1 = a.b1 + size_t(e) * a.dff + n;
+  *reinterpret_cast<float4*>(static_cast<float*>(a.ha) +
+                             (size_t(e) * a.C + m) * a.dff + n) =
+      make_float4(gg::act_apply(z.x + b1[0], a.act),
+                  gg::act_apply(z.y + b1[1], a.act),
+                  gg::act_apply(z.z + b1[2], a.act),
+                  gg::act_apply(z.w + b1[3], a.act));
+}
+
+// down: out[e, m, n] = (sum + b2[e, n]) ws[e, m] on the live rows, 0 on
+// every other row of the buffer
+__global__ void __launch_bounds__(kThreads)
+    grouped_ffn_rows_down_reduce(FwdArgs a, const float* part, int S) {
+  const int m = blockIdx.y;
+  const int e = blockIdx.z;
+  const int n = 4 * (blockIdx.x * kThreads + threadIdx.x);
+  if (n >= a.h) return;
+  pdl_wait();  // the down pass has written its partials
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (m < min(a.counts[e], a.C)) {
+    const float4 s = split_sum(part, S, a.E, a.C, a.h, e, m, n);
+    const float* b2 = a.b2 + size_t(e) * a.h + n;
+    const float w = a.ws[size_t(e) * a.C + m];
+    v = make_float4((s.x + b2[0]) * w, (s.y + b2[1]) * w, (s.z + b2[2]) * w,
+                    (s.w + b2[3]) * w);
+  }
+  *reinterpret_cast<float4*>(static_cast<float*>(a.out) +
+                             (size_t(e) * a.C + m) * a.h + n) = v;
+}
+
+// the f32 elements the scratch of both passes takes: S splits of the
+// live rows, [S, E, C, N] (mirrored by moe.grouped_ffn_rows_scratch)
+inline long long part_elems(const FwdArgs& a) {
+  const long long up = 1LL * gg::cdiv(a.h, kKS) * a.dff;
+  const long long down = 1LL * gg::cdiv(a.dff, kKS) * a.h;
+  return (up > down ? up : down) * a.E * a.C;
+}
+
+template <int kRows>
+int launch(const FwdArgs& a, float* part, cudaStream_t stream) {
+  static_assert(smem_bytes<kRows>() <= 48 * 1024, "static shared limit");
+  const auto pass = grouped_ffn_rows_pass<kRows>;
+  constexpr size_t smem = smem_bytes<kRows>();
+  const int* counts = a.counts;
+  const Pass up{static_cast<const float*>(a.x), static_cast<const float*>(a.w1),
+                counts, part, a.E, a.C, a.h, a.dff};
+  const Pass down{static_cast<const float*>(a.ha),
+                  static_cast<const float*>(a.w2), counts, part, a.E, a.C,
+                  a.dff, a.h};
+  // the up pass after the caller's kernels; each next kernel a
+  // programmatic dependent launch of the one before (pdl_wait)
+  pass<<<dim3(gg::cdiv(a.dff, kBN), gg::cdiv(a.h, kKS), a.E), kThreads, smem,
+         stream>>>(up);
+  if (int e = int(cudaGetLastError())) return e;
+  if (int e = int(launch_dependent(
+          grouped_ffn_rows_up_reduce,
+          dim3(gg::cdiv(a.dff, 4 * kThreads), a.C, a.E), dim3(kThreads), 0,
+          stream, a, static_cast<const float*>(part), gg::cdiv(a.h, kKS))))
+    return e;
+  if (int e = int(launch_dependent(
+          pass, dim3(gg::cdiv(a.h, kBN), gg::cdiv(a.dff, kKS), a.E),
+          dim3(kThreads), smem, stream, down)))
+    return e;
+  return int(launch_dependent(
+      grouped_ffn_rows_down_reduce, dim3(gg::cdiv(a.h, 4 * kThreads), a.C, a.E),
+      dim3(kThreads), 0, stream, a, static_cast<const float*>(part),
+      gg::cdiv(a.dff, kKS)));
+}
+
+}  // namespace rows
+
 }  // namespace
 
 PT_DEFINE_PROBE(grouped_ffn_fwd)
@@ -279,15 +577,19 @@ PT_DEFINE_PROBE(grouped_ffn_fwd)
 // x [E, C, h], w1 [E, h, dff], w2 [E, dff, h] contiguous in one dtype T
 // (`dtype`: 0 f32, 1 bf16, 2 f16); b1 [E, 1, dff], b2 [E, 1, h], ws
 // [E, C, 1] f32; counts [E] int32 on the device; ha [E, C, dff] T scratch;
-// out [E, C, h] T. act: 0 tanh-GELU, 1 ReLU. The route is gg::route's.
-// Returns cudaGetLastError() after its launches (or the error of a tensor
-// map libcuda refuses).
+// out [E, C, h] T; part: f32 scratch of part_elems elements, read on the
+// "rows" route only (rows::part_elems). act: 0 tanh-GELU, 1 ReLU. The
+// route is gg::route's with the capacity; *route gets the one that ran
+// (gg::Route). Returns cudaGetLastError() after its launches (or the
+// error of a tensor map libcuda refuses).
 extern "C" int grouped_ffn_fwd_launch(const void* x, const void* w1,
                                       const void* b1, const void* w2,
                                       const void* b2, const void* ws,
                                       const void* counts, void* ha, void* out,
-                                      int E, int C, int h, int dff, int act,
-                                      int dtype, void* stream) {
+                                      void* part, int E, int C, int h,
+                                      int dff, int act, int dtype,
+                                      int part_elems, void* stream,
+                                      int* route) {
   if (E < 1 || C < 1 || h < 1 || dff < 1 || act < 0 || act > 1 ||
       E > 65535 || gg::cdiv(C, gg::kBM) > 65535)
     return int(cudaErrorInvalidValue);
@@ -306,7 +608,15 @@ extern "C" int grouped_ffn_fwd_launch(const void* x, const void* w1,
                   dff,
                   act};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tc = gg::route(dtype, h, dff) == gg::kTc;
+  const gg::Route r = gg::route(dtype, h, dff, C);
+  *route = int(r);
+  if (r == gg::kRows) {
+    if (part == nullptr || part_elems < rows::part_elems(a))
+      return int(cudaErrorInvalidValue);
+    float* p = static_cast<float*>(part);
+    return C <= 8 ? rows::launch<8>(a, p, s) : rows::launch<16>(a, p, s);
+  }
+  const bool tc = r == gg::kTc;
   switch (dtype) {
     case pt::kF32:
       return launch<float>(a, s);

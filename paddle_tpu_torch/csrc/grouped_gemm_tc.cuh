@@ -52,18 +52,26 @@
 
 namespace gg {
 
-enum Route { kSimt = 0, kTc = 1 };
+enum Route { kSimt = 0, kTc = 1, kRows = 2 };
+
+// the largest capacity the forward's "rows" route takes
+constexpr int kRowsMaxC = 16;
 
 // The route of one launch of the forward, the dx or the dw entry
 // (mirrored by moe.grouped_ffn_route): the tensor cores for bf16 and fp16
 // when every row of x, g, the weights and the scratch is a multiple of 16
-// bytes (TMA's rule for strides), the CUDA cores for the rest (f32, odd
-// widths).
-__host__ inline Route route(int dtype, int h, int dff) {
-  return (dtype == pt::kBF16 || dtype == pt::kF16) && h % 8 == 0 &&
-                 dff % 8 == 0
-             ? kTc
-             : kSimt;
+// bytes (TMA's rule for strides); for the forward (`capacity` > 0, the
+// buffer's C) of f32 with C <= kRowsMaxC and 16-byte rows, "rows", the
+// weight-streaming passes of grouped_ffn_fwd.cu; the CUDA-core tiles for
+// the rest (f32, odd widths). dx and dw pass no capacity.
+__host__ inline Route route(int dtype, int h, int dff, int capacity = 0) {
+  if ((dtype == pt::kBF16 || dtype == pt::kF16) && h % 8 == 0 &&
+      dff % 8 == 0)
+    return kTc;
+  if (dtype == pt::kF32 && capacity > 0 && capacity <= kRowsMaxC &&
+      h % 4 == 0 && dff % 4 == 0)
+    return kRows;
+  return kSimt;
 }
 
 }  // namespace gg

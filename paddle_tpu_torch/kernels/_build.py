@@ -58,8 +58,7 @@ _FLASH_BWD = [_P, _P, _P, _P, _P, _P, _P, _P,
 #: C signatures of each library's launch entries (all return cudaError_t)
 SIGNATURES = {
     "paged_decode": {"paged_decode_launch":
-                     [_P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]},
+                     [_P] * 10 + [_I] * 8 + [_F, _I, _P, _P]},
     "flash_fwd": {"flash_fwd_launch":
                   [_P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I,
@@ -69,7 +68,7 @@ SIGNATURES = {
     "flash_bwd": {"flash_bwd_dq_launch": _FLASH_BWD,
                   "flash_bwd_dkv_launch": _FLASH_BWD},
     "grouped_ffn_fwd": {"grouped_ffn_fwd_launch":
-                        [_P] * 9 + [_I] * 6 + [_P]},
+                        [_P] * 10 + [_I] * 7 + [_P, _P]},
     "grouped_ffn_bwd": {"grouped_ffn_bwd_dx_launch":
                         [_P] * 17 + [_I] * 6 + [_P],
                         "grouped_ffn_bwd_dw_launch":
@@ -138,6 +137,16 @@ def build() -> Dict[str, Path]:
 #: kernel libraries compiled by this process (the serving surfaces count
 #: the builds that happen inside their steps)
 build.libraries_built = 0
+
+
+def stream(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, read without
+    building a ``torch.cuda.Stream`` (the serving decode tick's wrappers,
+    paged decode and the grouped-FFN forward, launch on it; the host
+    cost of both reads is timed by ``paddle_tpu_torch/ab_serving_kernels.py``)."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def check(err: int, what: str) -> None:

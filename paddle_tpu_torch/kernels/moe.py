@@ -27,7 +27,9 @@ with rows at or past ``counts[e]`` zero and skipped.
   CPU tensors. The forward, dx and dw kernels take one of two routes
   (``grouped_ffn_route``): "tc", wgmma on TMA-fed tiles
   (``csrc/grouped_gemm_tc.cuh``), or "simt", f32 FMA on the CUDA cores
-  (``csrc/grouped_gemm.cuh``).
+  (``csrc/grouped_gemm.cuh``); the forward also takes "rows" for f32
+  buffers of few rows (a serving decode tick), which streams the live
+  experts' weights across many blocks and sums K splits.
 - ``grouped_ffn``: the differentiable entry (:711), casting as JAX does:
   x, w1 and w2 to their promoted dtype, b1, b2 and ws to f32, the result
   to x's dtype. With a gradient to take it runs ``_GroupedFFNFn`` (the
@@ -37,6 +39,8 @@ with rows at or past ``counts[e]`` zero and skipped.
 and is not carried: the CUDA kernels take any h, dff and capacity.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -50,6 +54,14 @@ _ACTS = {"gelu": 0, "relu": 1}
 #: two of each)
 ROW_TILE = 64
 COL_TILE = 64
+
+#: the forward's "rows" route (csrc/grouped_ffn_fwd.cu, namespace rows):
+#: the largest capacity it takes (gg::kRowsMaxC) and the K rows a block
+#: streams (the K split, kKS)
+ROWS_MAX_CAPACITY = 16
+ROWS_K_SPLIT = 256
+#: gg::Route codes the forward's C entry reports
+_ROUTES = {0: "simt", 1: "tc", 2: "rows"}
 
 BLOCK_TOKENS = 256
 _SUBLANE = {torch.int8: 32, torch.bfloat16: 16, torch.float16: 16}
@@ -96,19 +108,37 @@ def _act_grad(z, activation):
     return (z > 0.0).float()
 
 
-def grouped_ffn_route(dtype, h, dff):
+def grouped_ffn_route(dtype, h, dff, capacity=None):
     """The route of one launch of the forward, the dx or the dw kernel,
     the rule the C entries apply (``gg::route``,
     ``csrc/grouped_gemm_tc.cuh``): "tc" (wgmma and TMA) for bfloat16 and
     float16 with h and dff multiples of 8, so that every row is a
-    multiple of 16 bytes as TMA needs; "simt" (f32 FMA on the CUDA cores)
-    for everything else. The dx and dw kernels of one backward apply it
-    to the same operands, so the dw kernel finds the gw scratch the dx
-    kernel wrote on the tc route."""
+    multiple of 16 bytes as TMA needs; for the forward, which passes its
+    buffer's ``capacity``, "rows" (the weight-streaming passes) for
+    float32 with capacity <= ROWS_MAX_CAPACITY and h and dff multiples of
+    4; "simt" (f32 FMA on the CUDA cores) for everything else. The dx
+    and dw kernels pass no capacity and apply it to the same operands, so
+    the dw kernel finds the gw scratch the dx kernel wrote on the tc
+    route."""
     if dtype in (torch.bfloat16, torch.float16) and h % 8 == 0 \
             and dff % 8 == 0:
         return "tc"
+    if dtype == torch.float32 and capacity is not None \
+            and 0 < capacity <= ROWS_MAX_CAPACITY and h % 4 == 0 \
+            and dff % 4 == 0:
+        return "rows"
     return "simt"
+
+
+def grouped_ffn_rows_scratch(E, C, h, dff, device=None):
+    """The f32 scratch of the forward's "rows" route: the K splits'
+    partial sums of the live rows, [S, E, C, N] for the up pass (S =
+    ceil(h / ROWS_K_SPLIT), N = dff) and then the down pass (S =
+    ceil(dff / ROWS_K_SPLIT), N = h), flat, as large as the larger."""
+    up = -(-h // ROWS_K_SPLIT) * dff
+    down = -(-dff // ROWS_K_SPLIT) * h
+    return torch.empty(max(up, down) * E * C, dtype=torch.float32,
+                       device=device)
 
 
 def _row_mask(counts, cap, device):
@@ -227,27 +257,37 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _fwd_launch(ops, ha, out, activation):
+def _fwd_launch(ops, ha, out, activation, part=None):
     """One launch of ``csrc/grouped_ffn_fwd.cu`` on checked operands
     ``ops`` = (x, w1, b1, w2, b2, ws, counts) with the scratch ``ha``
-    [E, C, dff] in x's dtype."""
+    [E, C, dff] in x's dtype and, on the "rows" route, ``part``
+    (``grouped_ffn_rows_scratch``, allocated here when None). Returns the
+    route the C entry reports it ran."""
     x, w1, b1, w2, b2, ws, counts = ops
     E, C, h = x.shape
+    dff = w1.shape[2]
+    if part is None and grouped_ffn_route(x.dtype, h, dff, C) == "rows":
+        part = grouped_ffn_rows_scratch(E, C, h, dff, x.device)
     lib = _build.load("grouped_ffn_fwd")
+    route = ctypes.c_int(-1)
     _build.check(lib.grouped_ffn_fwd_launch(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), ws.data_ptr(), counts.data_ptr(), ha.data_ptr(),
-        out.data_ptr(), E, C, h, w1.shape[2], _ACTS[activation],
-        _DTYPES[x.dtype], _stream(x)), "grouped_ffn_fwd kernel")
+        out.data_ptr(), None if part is None else part.data_ptr(), E, C, h,
+        dff, _ACTS[activation], _DTYPES[x.dtype],
+        0 if part is None else part.numel(), _build.stream(x.device),
+        ctypes.addressof(route)), "grouped_ffn_fwd kernel")
+    return _ROUTES[route.value]
 
 
 def grouped_ffn_fwd(x, w1, b1, w2, b2, ws, counts, activation="gelu"):
     """The grouped FFN forward: operands as ``grouped_ffn_plain`` with x,
     w1, w2 in one dtype and b1, b2, ws in f32, counts int32. On CUDA
     tensors this launches ``csrc/grouped_ffn_fwd.cu`` on the route
-    ``grouped_ffn_route`` names (counted on ``grouped_ffn_fwd.launches``
-    and ``kernels.moe.grouped_ffn_fwd_cuda_{tc,simt}``); on CPU tensors it
-    runs ``grouped_ffn_plain``."""
+    ``grouped_ffn_route`` names for the capacity (counted on
+    ``grouped_ffn_fwd.launches`` and, by the route the C entry reports,
+    ``kernels.moe.grouped_ffn_fwd_cuda_{tc,rows,simt}``); on CPU tensors
+    it runs ``grouped_ffn_plain``."""
     if activation not in _ACTS:
         raise ValueError(f"activation must be 'gelu' or 'relu', got "
                          f"{activation!r}")
@@ -266,11 +306,11 @@ def grouped_ffn_fwd(x, w1, b1, w2, b2, ws, counts, activation="gelu"):
     # the activation of the live rows, rounded to x's dtype (the JAX
     # kernel keeps it in VMEM; see the source's note)
     ha = torch.empty((E, C, dff), dtype=x.dtype, device=x.device)
-    _fwd_launch((x, w1, b1, w2, b2, ws, counts), ha, out, activation)
+    route = _fwd_launch((x, w1, b1, w2, b2, ws, counts), ha, out,
+                        activation)
     grouped_ffn_fwd.launches += 1
     monitor.counter("kernels.moe.grouped_ffn_fwd_cuda").increase()
-    monitor.counter("kernels.moe.grouped_ffn_fwd_cuda_"
-                    + grouped_ffn_route(x.dtype, h, dff)).increase()
+    monitor.counter("kernels.moe.grouped_ffn_fwd_cuda_" + route).increase()
     return out
 
 

@@ -11,8 +11,9 @@ block table ``[b, max_blocks]``. Writes land in page
   version is held to.
 - ``paged_decode``: the kernel wrapper (counterpart of
   ``paged_decode_pallas``). On a CUDA tensor it launches the hand-written
-  Hopper kernel ``csrc/paged_decode.cu`` or raises; the plain version
-  runs only for CPU tensors.
+  Hopper kernels of ``csrc/paged_decode.cu`` (the context split into
+  DECODE_CHUNK-token chunks, one block each, then a combine of their
+  partials) or raises; the plain version runs only for CPU tensors.
 - ``paged_write_arrays`` / ``paged_write_quant_arrays``: append a chunk
   of K/V (int8 + scales for a quantized pool). They update the pools IN
   PLACE (``index_put_``) — where the JAX package donates the pools and
@@ -24,6 +25,8 @@ GQA: pools carry ``h_kv`` heads; query head ``qh`` reads kv head
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -38,31 +41,57 @@ NEG_INF = -1e30
 MAX_SMEM_BYTES = 232448
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
               torch.int8: 3}
-_TOK = 32       # tokens per staged tile in csrc/paged_decode.cu
+_KV_ITEM = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2,
+            torch.int8: 1}
+#: what paged_decode_launch reports: (chunk tokens, chunks launched)
+_Report = ctypes.c_int * 2
+#: csrc/paged_decode.cu: tokens a block (one chunk of the live range),
+#: warps a block, the largest head dim (8 values a lane)
+DECODE_CHUNK = 64
+_WARPS = 4
+MAX_HEAD_DIM = 256
 
 
-def paged_decode_smem_bytes(rep: int, d: int) -> int:
+def paged_decode_chunks(max_blocks: int, block_size: int) -> int:
+    """Chunks the decode kernel launches a (kv head, slot) for a block
+    table of ``max_blocks`` pages: the table's capacity over
+    DECODE_CHUNK (the C entry reports the number it launched)."""
+    return -(-max_blocks * block_size // DECODE_CHUNK)
+
+
+def paged_decode_smem_bytes(rep: int, d: int, item: int = 4) -> int:
     """Shared memory one block of csrc/paged_decode.cu takes for a
-    (rep, head_dim) geometry (dynamic part + the static row table)."""
-    return 4 * (rep * d + _TOK * (d + 1) + _TOK * d + rep * _TOK
-                + rep * d + 3 * rep) + 8 * _TOK
+    (rep, head_dim) geometry and a pool of ``item``-byte elements: K and
+    V rows of a chunk in the pool dtype (16-byte padded), their int8
+    scales, the token row table, the warps' partials for the merge, and
+    a 32-byte tail."""
+    pitch = -(-d * item // 16) * 16
+    groups = _WARPS // min(rep, _WARPS)
+    return (2 * DECODE_CHUNK * pitch + 2 * DECODE_CHUNK * 4
+            + 8 * DECODE_CHUNK + 4 * groups * rep * (d + 2) + 32)
 
 
+@functools.lru_cache(maxsize=None)
 def paged_kernel_requirements(num_heads, kv_heads, head_dim,
                               cache_dtype) -> Optional[str]:
     """Which limit of the CUDA decode kernel a pool geometry misses, as a
     readable string, or None when the kernel takes it. (Replaces the
-    TPU's tile rules in ``paged_pallas_requirements``: any page size and
-    head dim work; the limits are the pool dtype and shared memory.)"""
+    TPU's tile rules in ``paged_pallas_requirements``: any page size
+    works; the limits are the pool dtype, the head dim and shared
+    memory.)"""
     problems = []
     if cache_dtype not in _KV_DTYPES:
         problems.append(f"cache dtype {cache_dtype} is not one of "
                         f"float32, bfloat16, float16, int8")
+    if head_dim > MAX_HEAD_DIM:
+        problems.append(f"head_dim {head_dim} is above {MAX_HEAD_DIM} "
+                        f"(8 values a lane)")
     if kv_heads < 1 or num_heads % kv_heads:
         problems.append(f"query heads ({num_heads}) are not a multiple of "
                         f"kv heads ({kv_heads})")
     else:
-        need = paged_decode_smem_bytes(num_heads // kv_heads, head_dim)
+        need = paged_decode_smem_bytes(num_heads // kv_heads, head_dim,
+                                       _KV_ITEM.get(cache_dtype, 4))
         if need > MAX_SMEM_BYTES:
             problems.append(
                 f"rep {num_heads // kv_heads} x head_dim {head_dim} needs "
@@ -218,10 +247,13 @@ def paged_decode(q, k_cache, v_cache, block_tables, context_lens,
     page pools through the block tables, masked to ``context_lens`` (and
     a sliding ``window``). Returns [b, h, d] in q's dtype.
 
-    On CUDA tensors this launches ``csrc/paged_decode.cu`` (one block per
-    (kv head, slot); dead slots load nothing and emit zeros) and counts
-    the launch on ``paged_decode.launches``; on CPU tensors it runs the
-    plain ``paged_attention_arrays``."""
+    On CUDA tensors this launches ``csrc/paged_decode.cu`` (blocks over
+    (chunk of the context, kv head, slot), then a combine of the chunks'
+    partials; dead slots load nothing and emit zeros) and counts the call
+    on ``paged_decode.launches`` and, by what the C entry reports it ran,
+    on ``kernels.decode.paged_cuda_split`` (more than one chunk a slot,
+    and the combine) or ``kernels.decode.paged_cuda_single``; on CPU
+    tensors it runs the plain ``paged_attention_arrays``."""
     b, h, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -242,8 +274,8 @@ def paged_decode(q, k_cache, v_cache, block_tables, context_lens,
 paged_decode.launches = 0
 
 
-def _paged_decode_cuda(q, k_cache, v_cache, block_tables, context_lens,
-                       scale, window, k_scale, v_scale):
+def _check_cuda(q, k_cache, v_cache, block_tables, context_lens, k_scale,
+                v_scale):
     b, h, d = q.shape
     nb, h_kv, bs, dk = k_cache.shape
     quant = k_cache.dtype == torch.int8
@@ -277,23 +309,78 @@ def _paged_decode_cuda(q, k_cache, v_cache, block_tables, context_lens,
             f"paged_decode: block_tables {tuple(block_tables.shape)} / "
             f"context_lens {tuple(context_lens.shape)} do not match "
             f"batch {b}")
+    # (a call each only where a cast or a copy is needed: these run in
+    # every layer of every decode tick)
+    return (_as(q, torch.float32), _as(block_tables, torch.int32),
+            _as(context_lens, torch.int32))
+
+
+def _as(t, dtype):
+    return (t if t.dtype == dtype and t.is_contiguous()
+            else t.to(dtype).contiguous())
+
+
+def decode_scratch(q, block_tables, block_size):
+    """The split kernel's f32 scratch for one call, one allocation: the
+    chunks' unnormalised accumulators [b, h, nch, d], then their (m, l)
+    [b, h, nch, 2] (``decode_partials`` views them); empty when the
+    table holds one chunk (no combine)."""
+    b, h, d = q.shape
+    nch = paged_decode_chunks(block_tables.shape[1], block_size)
+    return torch.empty(0 if nch == 1 else b * h * nch * (d + 2),
+                       dtype=torch.float32, device=q.device)
+
+
+def decode_partials(scratch, b, h, d):
+    """(acc [b, h, nch, d], (m, l) [b, h, nch, 2]) views of a
+    ``decode_scratch`` tensor."""
+    nch = scratch.numel() // (b * h * (d + 2))
+    n = b * h * nch * d
+    return (scratch[:n].view(b, h, nch, d),
+            scratch[n:].view(b, h, nch, 2))
+
+
+def _decode_launch(qf, k_cache, v_cache, bt, cl, out, scratch, scale,
+                   window, k_scale=None, v_scale=None):
+    """One launch of ``paged_decode_launch`` on checked operands (f32
+    contiguous ``qf``, int32 ``bt`` and ``cl``) into ``out`` [b, h, d]
+    f32 with the ``scratch`` of ``decode_scratch``, uncounted; raises on
+    a refused launch. Returns what the C entry reports it ran: (chunk
+    tokens, chunks a (kv head, slot))."""
+    b, h, d = qf.shape
+    _, h_kv, bs, _ = k_cache.shape
+    quant = k_cache.dtype == torch.int8
+    nch = scratch.numel() // (b * h * (d + 2))
+    part = scratch.data_ptr() if nch else None
     lib = _build.load("paged_decode")
-    qf = q.float().contiguous()
-    bt = block_tables.to(torch.int32).contiguous()
-    cl = context_lens.to(torch.int32).contiguous()
-    out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
-    if b == 0:
-        return out.to(q.dtype)
-    err = lib.paged_decode_launch(
+    report = _Report(-1, -1)
+    _build.check(lib.paged_decode_launch(
         qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
-        bt.data_ptr(), cl.data_ptr(), out.data_ptr(),
+        bt.data_ptr(), cl.data_ptr(), out.data_ptr(), part,
+        part and part + 4 * b * h * nch * d, nch,
         b, h, h_kv, d, bs, bt.shape[1],
         0 if window is None else int(window), float(scale),
         _KV_DTYPES[k_cache.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "paged_decode kernel")
+        _build.stream(qf.device),
+        ctypes.addressof(report)), "paged_decode kernel")
+    return report[0], report[1]
+
+
+def _paged_decode_cuda(q, k_cache, v_cache, block_tables, context_lens,
+                       scale, window, k_scale, v_scale):
+    b, h, d = q.shape
+    qf, bt, cl = _check_cuda(q, k_cache, v_cache, block_tables,
+                             context_lens, k_scale, v_scale)
+    out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    if b == 0:
+        return out.to(q.dtype)
+    _, nch = _decode_launch(qf, k_cache, v_cache, bt, cl, out,
+                            decode_scratch(qf, bt, k_cache.shape[2]),
+                            scale, window, k_scale, v_scale)
     paged_decode.launches += 1
     monitor.counter("kernels.decode.paged_cuda").increase()
-    return out.to(q.dtype)
+    monitor.counter("kernels.decode.paged_cuda_"
+                    + ("split" if nch > 1 else "single")).increase()
+    return out if q.dtype == torch.float32 else out.to(q.dtype)

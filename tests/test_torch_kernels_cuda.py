@@ -75,6 +75,94 @@ def test_paged_decode_matches_plain(dev, dtype, rep, window, d, bs):
     assert not got[0].any()                       # dead slot: zeros
 
 
+def _decode_counts():
+    from paddle_tpu_torch import monitor
+    return {r: monitor.counter(f"kernels.decode.paged_cuda_{r}").get()
+            for r in ("split", "single")}
+
+
+#: the serving geometries: (h, h_kv, d) of LLaMA (bf16 pool) and ERNIE-MoE
+#: (f32 pool), 128-token pages, 3 pages a slot
+_SERVING_DECODE = {"llama": (32, 32, 128), "ernie_moe": (16, 16, 64)}
+#: contexts 0-320 on either side of the 64-token chunk edges
+_EDGE_CONTEXTS = [0, 1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 255, 256,
+                  257, 319, 320]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.int8])
+@pytest.mark.parametrize("geometry", sorted(_SERVING_DECODE))
+@pytest.mark.parametrize("rep,window", [(1, None), (1, 100), (4, None),
+                                        (8, 70)])
+def test_paged_decode_split_at_serving_geometry(dev, dtype, geometry, rep,
+                                                window):
+    """The split kernel at both serving geometries (GQA: the query heads
+    kept, the kv heads divided by rep), contexts across the chunk edges
+    and a dead slot: within the f32 gate of its plain version, dead slots
+    zero, and the C entry reports DECODE_CHUNK-token chunks, as many a
+    (kv head, slot) as the table holds, which covers the longest
+    context; the call counts once, on the split counter."""
+    h, hkv, d = _SERVING_DECODE[geometry]
+    hkv //= rep
+    bs, nblk = 128, 3
+    b = len(_EDGE_CONTEXTS)
+    g = torch.Generator(device=dev).manual_seed(rep * 7 + d)
+    ctx = torch.tensor(_EDGE_CONTEXTS, device=dev)
+    nb = b * nblk + 1
+    bt = (torch.randperm(nb - 1, generator=g, device=dev) + 1).reshape(
+        b, nblk).to(torch.int32)
+    q = torch.randn(b, h, d, generator=g, device=dev)
+    kf = torch.randn(nb, hkv, bs, d, generator=g, device=dev)
+    vf = torch.randn(nb, hkv, bs, d, generator=g, device=dev)
+    ks = vs = None
+    if dtype == torch.int8:
+        (kc, ks), (vc, vs) = kv_quantize_arrays(kf), kv_quantize_arrays(vf)
+    else:
+        kc, vc = kf.to(dtype), vf.to(dtype)
+    qf, btc, cl = pa._check_cuda(q, kc, vc, bt, ctx, ks, vs)
+    out = torch.empty(b, h, d, device=dev)
+    scratch = pa.decode_scratch(qf, btc, bs)
+    chunk, nch = pa._decode_launch(qf, kc, vc, btc, cl, out, scratch,
+                                   d ** -0.5, window, ks, vs)
+    assert chunk == pa.DECODE_CHUNK
+    assert nch == -(-nblk * bs // chunk) == pa.paged_decode_chunks(nblk, bs)
+    assert nch >= -(-int(ctx.max()) // chunk)
+    counts, launches = _decode_counts(), pa.paged_decode.launches
+    got = pa.paged_decode(q, kc, vc, bt, ctx, window=window, k_scale=ks,
+                          v_scale=vs)
+    torch.cuda.synchronize()
+    assert pa.paged_decode.launches == launches + 1
+    assert _decode_counts() == {"split": counts["split"] + 1,
+                                "single": counts["single"]}
+    want = pa.paged_attention_arrays(q, kc, vc, bt, ctx, window=window,
+                                     k_scale=ks, v_scale=vs)
+    _close(got, want, 1e-4)
+    _close(out, want, 1e-4)
+    assert not got[0].any()
+    assert torch.equal(got, out)        # no atomics: the same bits
+
+
+def test_paged_decode_single_chunk_writes_directly(dev):
+    """A block table of one chunk (2 pages of 16): the kernel writes the
+    output itself, the C entry reports one chunk, and the call counts on
+    the single counter."""
+    b, h, d, bs, nblk = 4, 8, 64, 16, 2
+    g = torch.Generator(device=dev).manual_seed(5)
+    ctx = torch.tensor([0, 1, 17, 32], device=dev)
+    bt = (torch.arange(b * nblk, device=dev) + 1).reshape(b, nblk).to(
+        torch.int32)
+    q = torch.randn(b, h, d, generator=g, device=dev)
+    kc = torch.randn(b * nblk + 1, h, bs, d, generator=g, device=dev)
+    vc = torch.randn(b * nblk + 1, h, bs, d, generator=g, device=dev)
+    counts = _decode_counts()
+    got = pa.paged_decode(q, kc, vc, bt, ctx)
+    torch.cuda.synchronize()
+    assert _decode_counts() == {"split": counts["split"],
+                                "single": counts["single"] + 1}
+    _close(got, pa.paged_attention_arrays(q, kc, vc, bt, ctx), 1e-4)
+    assert not got[0].any()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,sq,sk,h,hkv,d,causal,window", [
     (2, 64, 64, 4, 4, 128, True, None),
@@ -594,7 +682,7 @@ def _moe_route_counts():
     from paddle_tpu_torch import monitor
     return {f"{k}_{r}": monitor.counter(
         f"kernels.moe.grouped_ffn_{k}_cuda_{r}").get()
-        for k in ("fwd", "dx", "dw") for r in ("tc", "simt")}
+        for k in ("fwd", "dx", "dw") for r in ("tc", "rows", "simt")}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -617,10 +705,16 @@ def test_grouped_ffn_kernels_match_plain(dev, dtype, name):
     assert (moe.grouped_ffn_fwd.launches, moe.grouped_ffn_bwd.launches_dx,
             moe.grouped_ffn_bwd.launches_dw) == (n[0] + 1, n[1] + 1,
                                                  n[2] + 1)
-    route = moe.grouped_ffn_route(dtype, ops[0].shape[2], ops[1].shape[2])
+    E, C, h = ops[0].shape
+    route = moe.grouped_ffn_route(dtype, h, ops[1].shape[2])
     assert route == ("simt" if dtype == torch.float32 or name == "tc_refused"
                      else "tc")
-    want = {k: v + (k.endswith("_" + route)) for k, v in routes.items()}
+    fwd = moe.grouped_ffn_route(dtype, h, ops[1].shape[2], C)
+    assert fwd == ("rows" if dtype == torch.float32
+                   and C <= moe.ROWS_MAX_CAPACITY and name != "tc_refused"
+                   else route)
+    want = {k: v + (k == "fwd_" + fwd or k in ("dx_" + route, "dw_" + route))
+            for k, v in routes.items()}
     assert _moe_route_counts() == want
     _close(out, moe.grouped_ffn_plain(*ops, cnt, act), rtol)
     ref = moe.grouped_ffn_bwd_plain(*ops, cnt, g, act)
@@ -725,6 +819,80 @@ def test_grouped_ffn_dw_tc_counts_and_nan_dead_rows(dev, dtype):
     ref = moe.grouped_ffn_bwd_plain(torch.where(keep, ops[0], 0.0), *ops[1:],
                                     cnt, gg, act)
     _close(db1, ref[2], 1e-4)
+
+
+def _rows_inputs(dev, E, C, h, f, counts, seed, nan_dead=False):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc: (torch.randn(*s, generator=g) * sc).to(dev)  # noqa
+    ops = [r(E, C, h, sc=0.5), r(E, h, f, sc=h ** -0.5), r(E, 1, f, sc=0.1),
+           r(E, f, h, sc=f ** -0.5), r(E, 1, h, sc=0.1),
+           torch.rand(E, C, 1, generator=g).to(dev)]
+    cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
+    dead = torch.arange(C, device=dev)[None] >= cnt[:, None]
+    clean = [t.clone() for t in ops]
+    if nan_dead:
+        ops[0][dead] = float("nan")
+    return ops, clean, cnt, dead
+
+
+@pytest.mark.parametrize("name,E,C,h,f,counts", [
+    ("decode", 8, 8, 1024, 2816, [2, 3, 0, 1, 4, 2, 2, 2]),
+    ("odd_counts", 8, 8, 1024, 2816, [1, 3, 5, 7, 0, 8, 6, 1]),
+    ("cap16", 4, 16, 512, 1408, [16, 9, 0, 15]),
+    ("k_tail", 3, 9, 300, 520, [9, 0, 4]),
+])
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+def test_grouped_ffn_rows_route(dev, name, E, C, h, f, counts, act):
+    """The forward's "rows" route (f32, capacity <= ROWS_MAX_CAPACITY) at
+    the serving decode shape and odd counts, an empty expert, capacities
+    8 and 16 (both row templates) and K splits with a tail (h 300, dff
+    520), NaN in every dead row of x: within the f32 gate of the plain
+    version on the clean inputs, live rows finite, dead rows exactly 0,
+    counted on the route the C entry reports."""
+    from paddle_tpu_torch.kernels import moe
+    ops, clean, cnt, dead = _rows_inputs(dev, E, C, h, f, counts,
+                                         len(name) + C, nan_dead=True)
+    assert moe.grouped_ffn_route(torch.float32, h, f, C) == "rows"
+    routes, n = _moe_route_counts(), moe.grouped_ffn_fwd.launches
+    out = moe.grouped_ffn_fwd(*ops, cnt, act)
+    torch.cuda.synchronize()
+    assert moe.grouped_ffn_fwd.launches == n + 1
+    assert _moe_route_counts() == dict(routes,
+                                       fwd_rows=routes["fwd_rows"] + 1)
+    want = moe.grouped_ffn_plain(*clean, cnt, act)
+    assert bool(torch.isfinite(out).all())
+    assert _gate(out, want) <= 1.0
+    assert not out[dead].any()
+
+
+def test_grouped_ffn_rows_threshold_and_split_scratch(dev):
+    """One row over the threshold takes the simt tiles; the rows route's
+    scratch holds the down pass's K-split partials of the live rows,
+    which sum (in split order, with b2 and ws) to its output."""
+    from paddle_tpu_torch.kernels import moe
+    E, h, f = 4, 256, 640
+    C = moe.ROWS_MAX_CAPACITY + 1
+    ops, _, cnt, _ = _rows_inputs(dev, E, C, h, f, [C, 3, 0, 9], 31)
+    routes = _moe_route_counts()
+    out = moe.grouped_ffn_fwd(*ops, cnt, "gelu")
+    assert _moe_route_counts() == dict(routes,
+                                       fwd_simt=routes["fwd_simt"] + 1)
+    _close(out, moe.grouped_ffn_plain(*ops, cnt, "gelu"), 1e-4)
+    C = moe.ROWS_MAX_CAPACITY
+    ops, _, cnt, dead = _rows_inputs(dev, E, C, h, f, [C, 3, 0, 9], 32)
+    part = moe.grouped_ffn_rows_scratch(E, C, h, f, dev)
+    ha = torch.empty(E, C, f, device=dev)
+    out = torch.empty(E, C, h, device=dev)
+    assert moe._fwd_launch((*ops, cnt), ha, out, "gelu", part) == "rows"
+    torch.cuda.synchronize()
+    S = -(-f // moe.ROWS_K_SPLIT)
+    parts = part[:S * E * C * h].reshape(S, E, C, h)
+    total = parts[0]
+    for k in range(1, S):
+        total = total + parts[k]
+    keep = ~dead[..., None]
+    re = torch.where(keep, (total + ops[4]) * ops[5], 0.0)
+    torch.testing.assert_close(out, re, rtol=0, atol=0)
 
 
 def test_grouped_ffn_autograd_on_cuda_matches_cpu(dev):

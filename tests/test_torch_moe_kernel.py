@@ -222,3 +222,85 @@ def test_wrappers_reject_other_devices_and_activations():
         moe.grouped_ffn_fwd(*meta, cnt.to("meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         moe.grouped_ffn_bwd(*meta, cnt.to("meta"), ops["g"].to("meta"))
+
+
+# -- the forward's "rows" route (csrc/grouped_ffn_fwd.cu, namespace rows) ---
+
+def _rows_emulation(x, w1, b1, w2, b2, ws, counts, act,
+                    split=moe.ROWS_K_SPLIT):
+    """The rows route's arithmetic in f32 torch, schedule and all: each
+    pass sums every K split of ``split`` rows over the expert's live rows
+    only (a row at or past counts[e] is never read) into a partial, and
+    the reduce epilogue sums the partials in split order, then adds b1
+    and applies act into ha (up) or adds b2 and multiplies by ws, with
+    rows past the count zero (down)."""
+    E, C, h = x.shape
+
+    def passes(a, w, e, n):
+        K = w.shape[1]
+        parts = [a[e, :n, k0:k0 + split] @ w[e, k0:k0 + split]
+                 for k0 in range(0, K, split)]
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        return total
+    out = torch.zeros(E, C, h)
+    for e in range(E):
+        n = min(int(counts[e]), C)
+        if n == 0:
+            continue
+        ha = moe._act_apply(passes(x, w1, e, n) + b1[e], act)
+        y = passes(ha[None], w2[e:e + 1], 0, n)
+        out[e, :n] = (y + b2[e]) * ws[e, :n]
+    return out
+
+
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+def test_rows_schedule_matches_jax_reference(act):
+    """Counts 0..C (an empty expert, every count up to the capacity), NaN
+    in every dead row of x, and K not a multiple of the split on both
+    passes (h 304: splits 256 + 48; dff 520: 256 + 256 + 8): the rows
+    route's schedule against ``grouped_ffn_reference``, which zeroes the
+    dead rows by a select. f32: the module's forward bar."""
+    C = 8
+    counts = list(range(C + 1))
+    e, h, f = len(counts), 304, 520
+    ops = _operands(11, e, C, h, f)
+    cnt = torch.tensor(counts, dtype=torch.int32)
+    dead = np.arange(C)[None, :] >= np.asarray(counts)[:, None]
+    ops["x"][dead] = np.nan
+    want, _ = _jax_ref(ops, counts, act)
+    assert np.isfinite(want).all()
+    t = _torch(ops)
+    got = _rows_emulation(*(t[n] for n in ORDER), cnt, act)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    assert not got[torch.from_numpy(dead)].any()
+    assert moe.grouped_ffn_route(torch.float32, h, f, C) == "rows"
+
+
+def test_rows_scratch_holds_both_passes():
+    """The scratch the wrapper allocates for the rows route: the larger of
+    the two passes' [S, E, C, N] partials."""
+    E, C, h, f = 8, 8, 1024, 2816
+    s = moe.grouped_ffn_rows_scratch(E, C, h, f)
+    assert s.dtype == torch.float32
+    assert s.numel() == max(4 * f, 11 * h) * E * C
+    assert moe.grouped_ffn_rows_scratch(2, 3, 304, 520).numel() == \
+        max(2 * 520, 3 * 304) * 2 * 3
+
+
+@pytest.mark.parametrize("dtype,h,dff,cap,route", [
+    (torch.float32, 1024, 2816, 8, "rows"),     # the serving decode tick
+    (torch.float32, 1024, 2816, moe.ROWS_MAX_CAPACITY, "rows"),
+    (torch.float32, 1024, 2816, moe.ROWS_MAX_CAPACITY + 1, "simt"),
+    (torch.float32, 1024, 2816, 128, "simt"),   # the serving prefill
+    (torch.float32, 1024, 2816, None, "simt"),  # dx and dw: no capacity
+    (torch.float32, 1022, 2816, 8, "simt"),     # rows not 16-byte runs
+    (torch.float32, 1024, 2814, 8, "simt"),
+    (torch.bfloat16, 1024, 2816, 8, "tc"),
+    (torch.float16, 1024, 2816, 8, "tc"),
+    (torch.bfloat16, 1020, 2812, 8, "simt"),    # bf16 never takes rows
+])
+def test_rows_route_rule(dtype, h, dff, cap, route):
+    assert moe.grouped_ffn_route(dtype, h, dff, cap) == route
