@@ -43,7 +43,31 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    every decode call on the split kernel (``kernels.decode.paged_cuda_split``,
    by what the C entry reports), a cross-check of two greedy
    requests against teacher-forced argmax of the no-cache forward
-   (bf16 pool and an f32 pool).
+   (bf16 pool and an f32 pool);
+6b. the serving accelerators, at the serving shapes (16 slots, 128-token
+   pages, 64-token bucket, bf16 pool), each run on
+   ``bench.py::bench_llama_serving``'s arrival trace with its counts set
+   to 0 just before the engine is built and read just after the trace
+   drains: every request finished, 0 pages leaked, paged-decode launches
+   == device ticks x layers (under speculation: ticks x (k+1) draft steps
+   x the draft's layer), every decode call on the split kernel; printed
+   tokens/s and the engine's host and device-wait ms a step and a tick.
+   (a) multi-tick: the 24-request trace, all greedy, ``multi_tick=8``
+   against 1, each engine counted on its second pass (the first, like
+   the JAX bench's compile pass, captures the graphs): tokens identical
+   for every request, fused dispatches on
+   captured CUDA graphs, and ``torch.profiler`` around one step whose
+   dispatch replays the k=8 graph over 16 equal requests must show 8 x 4
+   ``paged_decode_split`` kernels and as many combines; (b) prefix: the
+   ``serving_prefix`` trace (a 256-token shared system prompt, prompts
+   320-447) with the prefix cache on and off; (c) chunked: the
+   ``serving_longctx`` trace (16 requests at 20 Hz, every 4th a
+   1536-token whale, 96 new tokens) with 256 prefill tokens a step and
+   monolithic, the small requests' p99 TTFT printed; (d) speculative:
+   ``serving_spec`` (a 1-layer draft from seed 1, k = 4) on the 24-request
+   trace, its accept rate printed. In (b)-(d) every request's tokens hold
+   teacher-forced agreement >= AGREE_BF16 and the share identical to the
+   plain engine's is printed. The ERNIE-MoE case of (d) runs as phase 12b;
 
 7. training kernels: the flash forward with logsumexp and the two
    backward kernels (dQ, dK/dV) against their plain versions at the
@@ -113,6 +137,11 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    route and every prefill's on simt (capacity 128), by the route the C
    entry reports, and two requests' tokens equal to a 1-slot
    engine's (>= 0.97);
+12b. ``bench.py::bench_ernie_moe_serving(draft_layers=1, spec_k=4)``: a
+   1-layer dense LLaMA drafting for the ERNIE-MoE verifier, and the
+   draft-free engine, on its 16-request trace, counted as in 6b, with
+   grouped-FFN forward launches == (prefills + ticks) x MoE layers and
+   every request's tokens held to one paged teacher-forced forward;
 13. MoE cross-check: a 2-layer ERNIE-MoE (hidden 256, 4 experts, seq 128,
    f32, TF32 off) — one TrainStep loss and every parameter gradient on
    the card within 1e-4 of the CPU's, once the router's top-3 margins of
@@ -176,7 +205,7 @@ on the tc route, ``grouped_ffn_fwd_rows`` (the decode tick) and
 ``grouped_ffn_route``), and as its last line
 {"ok": true, "device":
 {...}}. Details land in
-chiprun_out/chip_smoke/ (result JSON, nvcc/ptxas logs). About two
+chiprun_out/chip_smoke/ (result JSON, nvcc/ptxas logs). About two and a half
 minutes of command time on an H100, the five kernel builds included.
 """
 from __future__ import annotations
@@ -2073,6 +2102,348 @@ def bert_train_main_path(torch, mods, launches_of, reset_counts, card):
     return rec
 
 
+# -- phase 6b: the serving accelerators ------------------------------------
+
+#: the draft length of bench.py's speculative serving extras
+SPEC_K = 4
+#: requests of phase 6b's profiler check, all greedy, equal lengths
+PROFILE_SLOTS, PROFILE_PROMPT = 16, 128
+
+
+def bench_trace(vocab, n_requests=24, prompt_lo=64, prompt_hi=192,
+                arrival_rate_hz=40.0, shared_prefix=0, whale_every=0,
+                whale_prompt=0):
+    """bench.py::bench_llama_serving's arrival trace, drawn in its order
+    from one seed-0 generator: (arrival seconds, prompts)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    arrivals = np.cumsum(rng.exponential(1.0 / arrival_rate_hz, n_requests))
+    system = (rng.integers(0, vocab, (shared_prefix,)) if shared_prefix
+              else np.zeros((0,), np.int64))
+    prompts = [np.concatenate([system, rng.integers(
+        0, vocab, (int(rng.integers(prompt_lo, prompt_hi))
+                   - shared_prefix,))]).astype(np.int64)
+        for _ in range(n_requests)]
+    if whale_every:
+        for i in range(0, n_requests, int(whale_every)):
+            prompts[i] = rng.integers(0, vocab, (int(whale_prompt),)).astype(
+                np.int64)
+    return arrivals, prompts
+
+
+def drive_trace(torch, eng, SamplingParams, trace, new_tokens):
+    """One pass of an arrival trace (bench.py::_drive_serving_trace):
+    each greedy request joins at its arrival time on the host clock; the
+    loop sleeps only while the engine is idle. Returns (outputs in
+    arrival order, seconds, each step's wall ms)."""
+    arrivals, prompts = trace
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, i, n, steps = [], 0, len(prompts), []
+    while len(outs) < n:
+        now = time.perf_counter() - t0
+        while i < n and arrivals[i] <= now:
+            eng.add_request(prompts[i],
+                            SamplingParams(max_new_tokens=new_tokens))
+            i += 1
+        if i < n and eng.idle:
+            time.sleep(max(0.0, arrivals[i] - (time.perf_counter() - t0)))
+            continue
+        t1 = time.perf_counter()
+        outs.extend(eng.step())
+        steps.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    return (sorted(outs, key=lambda o: o.req_id),
+            time.perf_counter() - t0, steps)
+
+
+def paged_teacher_forced_agreement(torch, model, prompt, tokens):
+    """Share of ``tokens`` equal to the argmax of ONE paged forward over
+    prompt + tokens[:-1] into a fresh f32 pool (the serving function of
+    the model: MoE blocks in decode mode, no capacity drops)."""
+    import numpy as np
+    from paddle_tpu_torch.inference.engine import _make_paged_pools, inject_bt
+    spec = model.serving_spec()
+    seq = np.concatenate([prompt, np.asarray(tokens[:-1], np.int64)])
+    pages = -(-len(seq) // 128)
+    pools = _make_paged_pools(spec["num_layers"], pages + 1,
+                              spec["kv_heads"], 128, spec["head_dim"],
+                              torch.float32, False, "cuda")
+    bt = torch.arange(1, pages + 1, dtype=torch.int32,
+                      device="cuda")[None]
+    with torch.no_grad():
+        logits, _ = model(torch.from_numpy(seq[None]).cuda(),
+                          kv_caches=inject_bt(pools, bt),
+                          cache_index=torch.zeros(1, dtype=torch.int64,
+                                                  device="cuda"))
+    want = logits[0, len(prompt) - 1:].argmax(-1).cpu().tolist()
+    return sum(int(a == b) for a, b in zip(tokens, want)) / len(tokens)
+
+
+def accel_run(torch, mods, what, model, engine_kw, trace, new_tokens,
+              launches_of, reset_counts, card, decode_calls_per_tick,
+              warm=False):
+    """One counted serving run: counts set to 0 just before the engine is
+    built (``warm``: the engine runs the trace once first, as the JAX
+    bench's compile pass, and the counts go to 0 before the second pass),
+    read just after the trace drains. Fails unless every request
+    finished with its full length, no page leaked, every decode call ran
+    the split paged-decode kernel, and paged-decode launches == device
+    ticks x ``decode_calls_per_tick`` (the layers; under speculation the
+    draft's k+1 steps x its layers)."""
+    if warm:
+        eng = mods.Engine(model, **engine_kw)
+        drive_trace(torch, eng, mods.SamplingParams, trace, new_tokens)
+        reset_counts()
+    else:
+        reset_counts()
+        eng = mods.Engine(model, **engine_kw)
+    ticks0 = eng.decode_ticks
+    outs, secs, step_ms = drive_trace(torch, eng, mods.SamplingParams,
+                                      trace, new_tokens)
+    launches = launches_of()
+    counters = {k: v for k, v in mods.monitor.snapshot().items()
+                if k.startswith(("kernels.", "serving."))}
+    host_ms = mods.monitor.histogram("serving.hist.host_ms_per_tick").sum
+    dev_ms = mods.monitor.histogram("serving.hist.device_ms_per_tick").sum
+    # -- end of the counted run --
+    bad = [o for o in outs if not o.ok or len(o.token_ids) != new_tokens]
+    if len(outs) != len(trace[1]) or bad:
+        fail(f"{what}: {len(outs)} outputs, failed/short: {bad[:2]}")
+    leaked = eng.leaked_pages()
+    if leaked:
+        fail(f"{what}: {leaked} pages leaked")
+    ticks, steps = eng.decode_ticks - ticks0, int(counters["serving.steps"])
+    if launches["paged_decode"] != ticks * decode_calls_per_tick or \
+            counters.get("kernels.decode.paged_cuda") != \
+            launches["paged_decode"] or any(
+                v for k, v in counters.items() if k.endswith("_plain")):
+        fail(f"{what}: paged-decode launches {launches['paged_decode']} != "
+             f"{ticks} ticks x {decode_calls_per_tick}, or a plain call: "
+             f"{counters}")
+    check_paged_split(counters, launches["paged_decode"], what)
+    n_tok = sum(len(o.token_ids) for o in outs)
+    rec = dict(requests=len(outs), tokens=n_tok, seconds=secs,
+               tokens_per_s=n_tok / secs, steps=steps, decode_ticks=ticks,
+               ms_per_step=secs * 1e3 / steps,
+               host_ms_per_step=host_ms / steps,
+               device_wait_ms_per_step=dev_ms / steps,
+               host_ms_per_tick=host_ms / max(ticks, 1),
+               device_wait_ms_per_tick=dev_ms / max(ticks, 1),
+               step_ms_max=max(step_ms),
+               step_ms_median=float(sorted(step_ms)[len(step_ms) // 2]),
+               ttft_ms=[o.ttft_ms for o in outs],
+               launches=launches, counters=counters)
+    print(f"  {what}: {n_tok} tokens in {secs:.2f} s = {n_tok / secs:.1f} "
+          f"tok/s, {steps} steps, {ticks} device ticks, host "
+          f"{host_ms / steps:.3f} / device-wait {dev_ms / steps:.3f} ms a "
+          f"step ({host_ms / max(ticks, 1):.3f} / "
+          f"{dev_ms / max(ticks, 1):.3f} a tick) on {card}", flush=True)
+    return rec, eng, outs
+
+
+def hold_agreement(torch, model, what, trace, outs, plain, threshold,
+                   paged=False):
+    """Every request's tokens against teacher-forced argmax (the no-cache
+    forward, or one paged forward) at ``threshold``, and the share of
+    requests whose tokens equal the plain engine's."""
+    tf = paged_teacher_forced_agreement if paged else \
+        teacher_forced_agreement
+    agree = [tf(torch, model, p, o.token_ids)
+             for p, o in zip(trace[1], outs)]
+    same = sum(int(o.token_ids == q.token_ids)
+               for o, q in zip(outs, plain)) / len(outs)
+    print(f"  {what}: teacher-forced agreement min {min(agree):.4f} "
+          f"(threshold {threshold}); {same:.4f} of requests identical to "
+          f"the plain engine's", flush=True)
+    if min(agree) < threshold:
+        fail(f"{what}: teacher-forced agreement below {threshold}: {agree}")
+    return dict(agreement_min=min(agree), agreement=agree,
+                identical_share=same)
+
+
+def profile_one_replay(torch, mods, eng, layers):
+    """torch.profiler around one step whose dispatch is a k=8 multi-tick
+    replay over 16 equal greedy requests: the device trace must hold
+    8 x layers split paged-decode kernels and as many combines."""
+    from paddle_tpu_torch.profile_serving import _kernel_times
+    import numpy as np
+    rng = np.random.default_rng(1)
+    for _ in range(PROFILE_SLOTS):
+        eng.add_request(rng.integers(0, eng.vocab_size, (PROFILE_PROMPT,)),
+                        mods.SamplingParams(max_new_tokens=32))
+    eng.step()                                 # admit + prefill all 16
+    eng.step()                  # a k=8 dispatch (captures it if need be)
+    c = mods.monitor.counter
+    d0, t0 = c("serving.multi_tick.dispatches").get(), \
+        c("serving.multi_tick.ticks").get()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    trace = OUT_DIR / "multi_tick_replay_trace.json"
+    prof.export_chrome_trace(str(trace))
+    per, _ = _kernel_times(trace)
+    trace.unlink()
+    got = {k: sum(v[1] for n, v in per.items() if k in n)
+           for k in ("paged_decode_split", "paged_decode_combine")}
+    fused = (c("serving.multi_tick.dispatches").get() - d0,
+             c("serving.multi_tick.ticks").get() - t0)
+    while eng.num_active:
+        eng.step()
+    print(f"  profiler, one multi-tick step (dispatches, ticks) {fused}: "
+          f"{got} (want {8 * layers} each)", flush=True)
+    if fused != (1, 8) or got != {"paged_decode_split": 8 * layers,
+                                  "paged_decode_combine": 8 * layers}:
+        fail(f"multi-tick replay: {fused} dispatch/ticks, device kernels "
+             f"{got}; names seen {sorted(per)[:20]}")
+    return dict(dispatches_ticks=fused, kernels=got)
+
+
+def serving_accelerators(torch, mods, model, launches_of, reset_counts,
+                         card):
+    """Phase 6b: bench.py::bench_llama_serving's traces at the keywords of
+    its serving extras (the 24-request default at multi_tick 8 and 1,
+    serving_prefix, serving_longctx, serving_spec) in Engines of 16
+    slots, 128-token pages, a 64-token bucket and a bf16 pool, each run
+    counted on its own (``accel_run``)."""
+    import dataclasses
+    import numpy as np
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    common = dict(max_slots=16, page_size=128, prefill_bucket=64,
+                  cache_dtype="bfloat16")
+    print("serving accelerators:", flush=True)
+    res, paths = {}, {}
+
+    def run(name, kw, trace, new_tokens, calls=L, warm=False):
+        rec, eng, outs = accel_run(torch, mods, name, model,
+                                   dict(common, **kw), trace, new_tokens,
+                                   launches_of, reset_counts, card, calls,
+                                   warm)
+        res[name], paths[name] = rec, rec.pop("launches")
+        return eng, outs
+
+    # (a) multi-tick: the default trace, all greedy, k = 8 against 1, each
+    # engine's second pass (the first captures the graphs)
+    base = bench_trace(cfg.vocab_size)
+    ctx = PROMPT_HI + NEW_TOKENS
+    eng8, multi = run("multi_tick_8", dict(max_context=ctx, multi_tick=8),
+                      base, NEW_TOKENS, warm=True)
+    _, single = run("multi_tick_1", dict(max_context=ctx), base, NEW_TOKENS,
+                    warm=True)
+    mt = res["multi_tick_8"]["counters"]
+    if [o.token_ids for o in multi] != [o.token_ids for o in single]:
+        fail("multi-tick: tokens differ from the single-tick engine's")
+    if not mt.get("serving.multi_tick.dispatches"):
+        fail("multi-tick: no fused dispatch ran")
+    res["multi_tick_8"]["fused"] = {k[len("serving.multi_tick."):]: v
+                                    for k, v in mt.items()
+                                    if k.startswith("serving.multi_tick.")}
+    res["multi_tick_8"]["graphs"] = eng8._multi.captured
+    res["multi_tick_8"]["profile_replay"] = profile_one_replay(
+        torch, mods, eng8, L)
+    del eng8
+    # (b) prefix: a 256-token shared system prompt, cache on and off
+    trace = bench_trace(cfg.vocab_size, shared_prefix=256, prompt_lo=320,
+                        prompt_hi=448)
+    kw = dict(max_context=448 + NEW_TOKENS)
+    eng, on = run("prefix_on", dict(kw, prefix_cache=True), trace,
+                  NEW_TOKENS)
+    res["prefix_on"]["hit_rate"] = eng.prefix_hit_rate
+    if not res["prefix_on"]["counters"].get("serving.prefix_hits"):
+        fail("prefix cache: no hit on the shared-prefix trace")
+    _, off = run("prefix_off", kw, trace, NEW_TOKENS)
+    res["prefix_on"]["agreement"] = hold_agreement(
+        torch, model, "prefix_on", trace, on, off, AGREE_BF16)
+    # (c) chunked: every 4th request a 1536-token whale, 256 tokens a step
+    trace = bench_trace(cfg.vocab_size, n_requests=16, whale_every=4,
+                        whale_prompt=1536, arrival_rate_hz=20.0)
+    kw = dict(max_context=1537 + 96)
+    _, chunked = run("chunked", dict(kw, max_prefill_tokens_per_step=256),
+                     trace, 96)
+    _, mono = run("monolithic", kw, trace, 96)
+    for name, outs in (("chunked", chunked), ("monolithic", mono)):
+        small = [o.ttft_ms for i, o in enumerate(outs) if i % 4]
+        res[name]["small_ttft_p99_ms"] = float(np.percentile(small, 99))
+    print(f"  small-request p99 TTFT: chunked "
+          f"{res['chunked']['small_ttft_p99_ms']:.1f} ms, monolithic "
+          f"{res['monolithic']['small_ttft_p99_ms']:.1f} ms", flush=True)
+    res["chunked"]["agreement"] = hold_agreement(
+        torch, model, "chunked", trace, chunked, mono, AGREE_BF16)
+    # (d) speculative: a 1-layer draft (seed 1) proposing SPEC_K tokens
+    dcfg = dataclasses.replace(cfg, num_hidden_layers=1,
+                               max_position_embeddings=ctx + SPEC_K + 1)
+    draft = mods.LlamaForCausalLM(dcfg, seed=1)
+    draft.eval()
+    eng, spec = run("spec", dict(max_context=ctx, draft_model=draft,
+                                 spec_k=SPEC_K),
+                    base, NEW_TOKENS, calls=(SPEC_K + 1) * 1)
+    res["spec"]["accept_rate"] = eng.spec_accept_rate
+    print(f"  spec: accept rate {eng.spec_accept_rate:.4f}", flush=True)
+    res["spec"]["agreement"] = hold_agreement(
+        torch, model, "spec", base, spec, single, AGREE_BF16)
+    return res, paths
+
+
+def moe_spec_path(torch, mods, launches_of, reset_counts, card):
+    """Phase 12b: bench.py::bench_ernie_moe_serving(draft_layers=1,
+    spec_k=4) — a 1-layer dense LLaMA (seed 1) drafting for the ERNIE-MoE
+    verifier (8 slots, 128-token pages, 64-token bucket), against the
+    draft-free engine on the same trace; grouped-FFN forward launches ==
+    (prefills + ticks) x MoE layers."""
+    import numpy as np
+    P = mods.moe_profile
+    ctx = P.MOE_PROMPT_HI + P.MOE_NEW_TOKENS + SPEC_K + 1
+    cfg = mods.ErnieMoEConfig(**dict(P.MOE_SERVE_MODEL,
+                                     max_position_embeddings=ctx))
+    model = mods.ErnieMoEForCausalLM(cfg, seed=0)
+    model.eval()
+    draft = mods.LlamaForCausalLM(mods.LlamaConfig(
+        vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+        intermediate_size=cfg.intermediate_size, num_hidden_layers=1,
+        num_attention_heads=cfg.num_attention_heads,
+        num_key_value_heads=cfg.num_key_value_heads,
+        max_position_embeddings=ctx), seed=1)
+    draft.eval()
+    trace = (np.cumsum(np.random.default_rng(0).exponential(
+        1.0 / 40.0, P.MOE_REQUESTS)), P.moe_prompts(cfg.vocab_size))
+    kw = dict(P.MOE_ENGINE, max_context=ctx)
+    print("MoE speculative serving:", flush=True)
+    res, paths = {}, {}
+    n_moe = len(model.moe_layers())
+    for name, extra, calls in (
+            ("moe_plain", {}, cfg.num_hidden_layers),
+            ("moe_spec", dict(draft_model=draft, spec_k=SPEC_K),
+             SPEC_K + 1)):
+        rec, eng, outs = accel_run(torch, mods, name, model,
+                                   dict(kw, **extra), trace,
+                                   P.MOE_NEW_TOKENS, launches_of,
+                                   reset_counts, card, calls)
+        launches = rec.pop("launches")
+        want = (int(rec["counters"].get("serving.prefill_slices", 0))
+                + rec["decode_ticks"]) * n_moe
+        if launches["grouped_ffn_fwd"] != want or \
+                eng.moe_decode_path() != {"pallas": want}:
+            fail(f"{name}: grouped-FFN forward launches "
+                 f"{launches['grouped_ffn_fwd']} / {eng.moe_decode_path()} "
+                 f"!= {want}")
+        rec["grouped_ffn_routes"] = moe_routes(rec["counters"])
+        res[name], paths[name] = rec, launches
+        res[name + "_outs"] = outs
+        if name == "moe_spec":
+            rec["accept_rate"] = eng.spec_accept_rate
+            print(f"  moe_spec: accept rate {eng.spec_accept_rate:.4f}",
+                  flush=True)
+    thr = AGREE_BF16 if eng.cache_dtype != torch.float32 else AGREE_F32
+    res["moe_spec"]["agreement"] = hold_agreement(
+        torch, model, "moe_spec", trace, res.pop("moe_spec_outs"),
+        res.pop("moe_plain_outs"), thr, paged=True)
+    return res, paths
+
+
 # -- phases 4 and 5: the main path -----------------------------------------
 
 def make_requests(SamplingParams, vocab_size):
@@ -2180,6 +2551,27 @@ def main():
     print(f"build: {sorted(build.SOURCES)} in {build_s:.1f} s, probes ok",
           flush=True)
 
+    def reset_counts():
+        build.probe.launches = 0
+        fa.probe_minor64.launches = 0
+        pa.paged_decode.launches = 0
+        fa.flash_fwd.launches = 0
+        fa.flash_bwd.launches_dq = fa.flash_bwd.launches_dkv = 0
+        moe.grouped_ffn_fwd.launches = 0
+        moe.grouped_ffn_bwd.launches_dx = moe.grouped_ffn_bwd.launches_dw = 0
+        monitor.reset()
+
+    def launches_of():
+        return {"probe": build.probe.launches,
+                "probe_minor64": fa.probe_minor64.launches,
+                "paged_decode": pa.paged_decode.launches,
+                "flash_fwd": fa.flash_fwd.launches,
+                "flash_bwd_dq": fa.flash_bwd.launches_dq,
+                "flash_bwd_dkv": fa.flash_bwd.launches_dkv,
+                "grouped_ffn_fwd": moe.grouped_ffn_fwd.launches,
+                "grouped_ffn_bwd_dx": moe.grouped_ffn_bwd.launches_dx,
+                "grouped_ffn_bwd_dw": moe.grouped_ffn_bwd.launches_dw}
+
     # 3. kernels against their plain versions
     print("kernels vs plain versions:", flush=True)
     probe_cases = check_probe(torch, build)
@@ -2277,8 +2669,15 @@ def main():
     if min(agree["f32_pool"]) < AGREE_F32 or \
             min(agree["bf16_pool"]) < AGREE_BF16:
         fail(f"cross-check below threshold: {agree}")
+    del eng, f32_eng
+    torch.cuda.empty_cache()
+
+    # 6b. the serving accelerators, each run counted on its own
+    accel, accel_paths = serving_accelerators(torch, mods, model,
+                                              launches_of, reset_counts,
+                                              card)
     # the serving phase's model and engines go before training's
-    del model, eng, f32_eng, outs, f32_outs
+    del model, outs, f32_outs
     torch.cuda.empty_cache()
 
     # 8. the model on the card against the CPU, at small depth
@@ -2293,31 +2692,15 @@ def main():
     moe_sass = check_moe_tc_sass(build)
     moe_cases = check_moe_kernels(torch, moe, moe_gate, monitor)
 
-    def reset_counts():
-        build.probe.launches = 0
-        fa.probe_minor64.launches = 0
-        pa.paged_decode.launches = 0
-        fa.flash_fwd.launches = 0
-        fa.flash_bwd.launches_dq = fa.flash_bwd.launches_dkv = 0
-        moe.grouped_ffn_fwd.launches = 0
-        moe.grouped_ffn_bwd.launches_dx = moe.grouped_ffn_bwd.launches_dw = 0
-        monitor.reset()
-
-    def launches_of():
-        return {"probe": build.probe.launches,
-                "probe_minor64": fa.probe_minor64.launches,
-                "paged_decode": pa.paged_decode.launches,
-                "flash_fwd": fa.flash_fwd.launches,
-                "flash_bwd_dq": fa.flash_bwd.launches_dq,
-                "flash_bwd_dkv": fa.flash_bwd.launches_dkv,
-                "grouped_ffn_fwd": moe.grouped_ffn_fwd.launches,
-                "grouped_ffn_bwd_dx": moe.grouped_ffn_bwd.launches_dx,
-                "grouped_ffn_bwd_dw": moe.grouped_ffn_bwd.launches_dw}
-
     # 12. the MoE serving main path, 13. the MoE cross-check, 14. the MoE
     # training main path (12 and 14 count their launches around them)
     moe_serving = moe_serving_main_path(torch, mods, launches_of,
                                         reset_counts, card)
+    torch.cuda.empty_cache()
+    moe_spec, moe_spec_paths = moe_spec_path(torch, mods, launches_of,
+                                             reset_counts, card)
+    accel.update(moe_spec)
+    accel_paths.update(moe_spec_paths)
     torch.cuda.empty_cache()
     moe_xcheck = moe_cross_check(torch, mods)
     moe_training = moe_train_main_path(torch, mods, launches_of,
@@ -2340,6 +2723,14 @@ def main():
                                          reset_counts, card)
 
     src = "paddle_tpu_torch/csrc/"
+
+    def accel_by_path(kernel):
+        return {p: l[kernel] for p, l in accel_paths.items()}
+
+    def moe_accel(route):
+        return {p: r["grouped_ffn_routes"][route] for p, r in accel.items()
+                if "grouped_ffn_routes" in r}
+
     main_paged = paged_cases[0]
     moe_paged = next(c for c in paged_cases if c["geometry"] == "ernie_moe")
     main_flash = flash_cases[0]
@@ -2379,9 +2770,11 @@ def main():
     kernels = [
         dict(name="probe", route="cuda", source=src + "common.cuh",
              replaces="paddle_tpu/kernels/flash_attention.py:105",
-             launches=launches["probe"] + ms_l["probe"],
+             launches=launches["probe"] + ms_l["probe"] + sum(
+                 accel_by_path("probe").values()),
              launches_by_path={"serving": launches["probe"],
-                               "moe_serving": ms_l["probe"]},
+                               "moe_serving": ms_l["probe"],
+                               **accel_by_path("probe")},
              cases=probe_cases,
              **{k: probe_cases[0][k] for k in (
                  "max_abs_err", "tol", "ratio", "ms", "plain_ms",
@@ -2390,12 +2783,17 @@ def main():
              kernels=["paged_decode_split", "paged_decode_combine"],
              source=src + "paged_decode.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:278",
-             launches=launches["paged_decode"] + ms_l["paged_decode"],
+             launches=launches["paged_decode"] + ms_l["paged_decode"] + sum(
+                 accel_by_path("paged_decode").values()),
              launches_by_path={"serving": launches["paged_decode"],
-                               "moe_serving": ms_l["paged_decode"]},
+                               "moe_serving": ms_l["paged_decode"],
+                               **accel_by_path("paged_decode")},
              launches_split={"serving": decode_routes["split"],
                              "moe_serving": moe_serving[
-                                 "paged_decode_routes"]["split"]},
+                                 "paged_decode_routes"]["split"],
+                             **{p: int(r["counters"].get(
+                                 "kernels.decode.paged_cuda_split", 0))
+                                for p, r in accel.items()}},
              moe_serving_case={k: moe_paged[k] for k in (
                  "case", "max_abs_err", "ratio", "wrapper_ratio", "ms",
                  "pool_copies", "wrapper_ms", "plain_ms", "bound_ms",
@@ -2515,10 +2913,12 @@ def main():
               "moe_training": mr_t["fwd_cuda_tc"]}),
             ("grouped_ffn_fwd_rows", "fwd", 181, ("out",), "rows",
              decode_moe, {"moe_serving": mr_s["fwd_cuda_rows"],
-                          "moe_training": mr_t["fwd_cuda_rows"]}),
+                          "moe_training": mr_t["fwd_cuda_rows"],
+                          **moe_accel("fwd_cuda_rows")}),
             ("grouped_ffn_fwd_simt", "fwd", 181, ("out",), "simt",
              prefill_moe, {"moe_serving": mr_s["fwd_cuda_simt"],
-                           "moe_training": mr_t["fwd_cuda_simt"]}),
+                           "moe_training": mr_t["fwd_cuda_simt"],
+                           **moe_accel("fwd_cuda_simt")}),
             ("grouped_ffn_bwd_dx", "dx", 344, ("dx", "dws", "db2", "ha",
                                                 "dz"), "tc", main_moe,
              {"moe_training": mr_t["dx_cuda_tc"]}),
@@ -2580,6 +2980,7 @@ def main():
                                flash_routes=serving_routes,
                                paged_decode_routes=decode_routes),
                   counters=counters, agreement=agree,
+                  serving_accelerators=accel,
                   flash_train_cases=train_cases, model_cross_check=xcheck,
                   training=training, moe_kernel_cases=moe_cases,
                   moe_tc_sass=moe_sass, flash_wgmma_sass=flash_sass,

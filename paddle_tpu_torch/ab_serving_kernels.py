@@ -269,6 +269,8 @@ def main(argv=None):
         for root in _order(roots, args.serving_pairs):
             rec = _run(root, ["-m", "paddle_tpu_torch.profile_serving",
                               "--out", str(root / "build" / "ab_profile")])
+            # a tree whose profile_serving reports medians by multi_tick
+            rec = rec["medians"]["1"] if "medians" in rec else rec
             keep = {k: rec[k] for k in ("step_ms", "tokens_per_s",
                                         "device_busy_ms_per_step",
                                         "port_kernels") if k in rec}

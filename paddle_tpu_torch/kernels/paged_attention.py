@@ -177,9 +177,10 @@ def _page_slots(block_tables, positions, s, bs, check_capacity=True):
     """(page, slot) [b, s] for a chunk of s consecutive tokens starting at
     per-sequence ``positions``.
 
-    Idle serving lanes sit at position -1 with an all-zero block-table
-    row: the page index is floor-divided and clamped into the table, so
-    their writes land in scratch page 0. ``check_capacity`` raises on a
+    A negative position (an idle serving lane, or a row frozen inside a
+    multi-tick stretch, at cache index -1) writes into scratch page 0,
+    whatever its block-table row holds: a frozen row's table still maps
+    its pages, which a prefix cache may share. ``check_capacity`` raises on a
     position past the table's capacity (clamping would overwrite the
     last page); it costs a host sync, so the serving steps, whose
     allocator already guarantees capacity, turn it off."""
@@ -197,6 +198,7 @@ def _page_slots(block_tables, positions, s, bs, check_capacity=True):
     pos = positions[:, None] + torch.arange(s, device=positions.device)[None]
     idx = torch.div(pos, bs, rounding_mode="floor").clamp_(0, nblk - 1)
     page = torch.gather(block_tables.long(), 1, idx)          # [b, s]
+    page = torch.where(pos < 0, torch.zeros_like(page), page)
     return page, torch.remainder(pos, bs)
 
 

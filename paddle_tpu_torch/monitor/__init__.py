@@ -117,13 +117,15 @@ class Histogram:
     ``percentile`` as a bucket midpoint clamped to the observed min and
     max. Values <= 0 land in a zero bucket."""
 
-    __slots__ = ("name", "_buckets", "_zeros", "_count", "_min", "_max")
+    __slots__ = ("name", "_buckets", "_zeros", "_count", "_sum", "_min",
+                 "_max")
 
     def __init__(self, name: str = ""):
         self.name = name
         self._buckets: Dict[int, int] = {}
         self._zeros = 0
         self._count = 0
+        self._sum = 0.0
         self._min = float("inf")
         self._max = float("-inf")
 
@@ -131,6 +133,7 @@ class Histogram:
         v = float(v)
         with _lock:
             self._count += 1
+            self._sum += v
             self._min = min(self._min, v)
             self._max = max(self._max, v)
             if v <= 0.0:
@@ -142,6 +145,11 @@ class Histogram:
     @property
     def count(self) -> int:
         return self._count
+
+    @property
+    def sum(self) -> float:
+        """Sum of the recorded values."""
+        return self._sum
 
     def percentile(self, q: float) -> float:
         """Value at percentile ``q`` (0..100)."""
@@ -192,6 +200,11 @@ def histogram(name: str) -> Histogram:
         with _lock:
             h = _histograms.setdefault(name, Histogram(name))
     return h
+
+
+def counters() -> Dict[str, int]:
+    """Every counter's value (no gauges)."""
+    return {name: c.get() for name, c in list(_counters.items())}
 
 
 def snapshot() -> Dict[str, float]:

@@ -1,35 +1,42 @@
 """Where a serving decode tick's time goes, on one NVIDIA GPU.
 
     python -m paddle_tpu_torch.profile_serving [--config llama|ernie_moe]
-        [--steps 20] [--out DIR]
+        [--multi-tick K [K ...]] [--pairs N] [--steps 12] [--out DIR]
 
 Builds a serving configuration chip_smoke.py drives, with f32 weights
 drawn from a seed:
 
 - ``llama`` (default): vocab 32000, hidden 4096, ff 11008, 32 heads, 4
   layers; Engine with 16 slots, 128-token pages, a 64-token prefill
-  bucket, max context 320, bf16 pool;
+  bucket, a bf16 pool and a max context of 384 (3 pages a slot, as the
+  bench's 320);
 - ``ernie_moe``: ``profile_moe``'s serving configuration
   (``bench.py::bench_ernie_moe_serving``: hidden 1024, expert FFN 2816,
   4 layers of which 2 MoE, 16 heads, 8 experts, top-2) in its Engine (8
-  slots, 128-token pages, a 64-token bucket, f32 pool): each tick runs
-  paged decode in every layer and the grouped-FFN forward at capacity 8
-  in every MoE layer.
+  slots, 128-token pages, a 64-token bucket): each tick runs paged
+  decode in every layer and the grouped-FFN forward at capacity 8 in
+  every MoE layer.
 
-It fills every slot with a greedy request (128-token prompts), lets a
-few steps warm up, then
+For each ``--multi-tick`` value in turn, ``--pairs`` times (one model,
+an engine a run), it fills every slot with a greedy request (128-token
+prompts), lets two steps prefill and warm up (capturing the multi-tick
+graph), then
 
 1. times ``--steps`` steady decode steps without the profiler (host
-   clock around steps ending in a synchronize): ms per step and
-   tokens/s;
+   clock around steps ending in a synchronize): ms per step (a step is
+   k device ticks under ``multi_tick=k``), ms per device tick, tokens/s,
+   and the engine's host ms a tick (``serving.hist.host_ms_per_tick``);
 2. records ``--steps`` more under ``torch.profiler`` (CPU + CUDA) and
    sums the device kernels of the exported trace: device-busy ms per
-   step and the device idle share of the window (busy: the union of the
-   device intervals), the port's paged-decode and grouped-FFN kernels
-   per step (the union of theirs), and the kernels by device time.
+   step and per tick and the device idle share of the window (busy: the
+   union of the device intervals), the port's paged-decode and
+   grouped-FFN kernels per tick (the union of theirs), and the kernels
+   by device time.
 
-Prints one JSON line and writes it, with the chrome trace, to ``--out``
-(default chiprun_out/profile_serving). Needs a GPU: it raises otherwise.
+Prints one JSON line per run and a last one with every run and the
+medians by k, and writes it, with the last run's chrome trace, to
+``--out`` (default chiprun_out/profile_serving). Needs a GPU: it raises
+otherwise.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import monitor
 from .inference import Engine, SamplingParams
 from .text.models import LlamaConfig, LlamaForCausalLM
 
@@ -88,87 +96,129 @@ def _kernel_times(trace_path):
 PORT_KERNELS = ("paged_decode", "grouped_ffn")
 
 
-def build_engine(config):
-    """(engine, slots, vocab) of a serving configuration."""
+def build_model(config):
+    """(model, engine kwargs, slots, vocab) of a serving configuration."""
     if config == "llama":
         model = LlamaForCausalLM(LlamaConfig(**MODEL), seed=0)
-        model.eval()
-        return Engine(model, max_slots=16, page_size=128, prefill_bucket=64,
-                      max_context=320, cache_dtype="bfloat16"), 16, \
-            MODEL["vocab_size"]
-    from .profile_moe import MOE_ENGINE, MOE_SERVE_MODEL
-    from .text.models import ErnieMoEConfig, ErnieMoEForCausalLM
-    model = ErnieMoEForCausalLM(ErnieMoEConfig(**MOE_SERVE_MODEL), seed=0)
+        kw = dict(max_slots=16, page_size=128, prefill_bucket=64,
+                  max_context=384, cache_dtype="bfloat16")
+        vocab = MODEL["vocab_size"]
+    else:
+        from .profile_moe import MOE_ENGINE, MOE_SERVE_MODEL
+        from .text.models import ErnieMoEConfig, ErnieMoEForCausalLM
+        model = ErnieMoEForCausalLM(ErnieMoEConfig(**MOE_SERVE_MODEL),
+                                    seed=0)
+        kw = dict(MOE_ENGINE, max_context=384)
+        vocab = MOE_SERVE_MODEL["vocab_size"]
     model.eval()
-    return Engine(model, **MOE_ENGINE), MOE_ENGINE["max_slots"], \
-        MOE_SERVE_MODEL["vocab_size"]
+    return model, kw, kw["max_slots"], vocab
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("llama", "ernie_moe"),
-                    default="llama")
-    ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--out", default="chiprun_out/profile_serving")
-    args = ap.parse_args(argv)
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-    eng, slots, vocab = build_engine(args.config)
+def profile_run(model, kw, slots, vocab, k, steps, out):
+    """One engine at ``multi_tick=k``: the timed and the profiled window
+    (see the module docstring). Returns the run's summary."""
+    eng = Engine(model, multi_tick=k, **kw)
     rng = np.random.default_rng(0)
-    budget = 4 + 2 * args.steps + 2
     for _ in range(slots):
         eng.add_request(rng.integers(0, vocab, (128,)),
-                        SamplingParams(max_new_tokens=budget))
-    _steps(eng, 4)                   # prefill every slot, warm decode
+                        SamplingParams(max_new_tokens=256))
+    _steps(eng, 2)                   # prefill every slot, warm decode
     if eng.num_active != slots:
         raise RuntimeError(f"{eng.num_active} of {slots} slots decoding")
-
+    host = monitor.histogram("serving.hist.host_ms_per_tick")
+    h0, n0, t_0 = host.sum, eng._steps, eng.decode_ticks
+    tok0 = monitor.counter("serving.tokens").get()
     t0 = time.perf_counter()
-    _steps(eng, args.steps)
-    step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    _steps(eng, steps)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    ticks = eng.decode_ticks - t_0
+    tokens = monitor.counter("serving.tokens").get() - tok0
+    host_ms = host.sum - h0
 
     trace = out / "trace.json"
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    t_1 = eng.decode_ticks
     with torch.profiler.profile(activities=acts) as prof:
         t1 = time.perf_counter()
-        _steps(eng, args.steps)
+        _steps(eng, steps)
         prof_wall_ms = (time.perf_counter() - t1) * 1e3
     prof.export_chrome_trace(str(trace))
+    prof_ticks = eng.decode_ticks - t_1
+    if eng.num_active != slots:
+        raise RuntimeError("a request finished inside the windows")
     # busy time is the union of the device intervals: a programmatic
     # dependent launch (the rows route's later passes) starts during the
     # kernel before it and waits, so their durations overlap
     per, spans = _kernel_times(trace)
     busy_ms = _union_us([sp[1:] for sp in spans]) / 1e3
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:12]
+    port = {n: [_union_us([sp[1:] for sp in spans if n in sp[0]]) / 1e3
+                / prof_ticks,
+                sum(v[1] for m, v in per.items() if n in m) / prof_ticks]
+            for n in PORT_KERNELS}
+    return {
+        "multi_tick": k, "steps": steps, "ticks": ticks,
+        "step_ms": wall_ms / steps, "tick_ms": wall_ms / ticks,
+        "tokens_per_s": tokens * 1e3 / wall_ms,
+        "host_ms_per_tick": host_ms / ticks,
+        "fused_graphs": eng._multi.captured if eng._multi else [],
+        "profiled_step_ms": prof_wall_ms / steps,
+        "device_busy_ms_per_step": busy_ms / steps,
+        "device_busy_ms_per_tick": busy_ms / prof_ticks,
+        "device_idle_share": (1.0 - busy_ms / prof_wall_ms
+                              if busy_ms else None),
+        "port_kernels_per_tick": {
+            n: {"ms": v[0], "calls": v[1]} for n, v in port.items()}
+        if busy_ms else "not measured",
+        "kernels": [{"name": n[:120], "ms_per_tick": v[0] / 1e3 / prof_ticks,
+                     "calls_per_tick": v[1] / prof_ticks,
+                     "share_of_busy": v[0] / 1e3 / busy_ms}
+                    for n, v in top] if busy_ms else "not measured",
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", choices=("llama", "ernie_moe"),
+                    default="llama")
+    ap.add_argument("--multi-tick", type=int, nargs="+", default=[1],
+                    help="Engine multi_tick values, run in turn")
+    ap.add_argument("--pairs", type=int, default=1,
+                    help="rounds over the --multi-tick values")
+    ap.add_argument("--steps", type=int, default=12)
+    ap.add_argument("--out", default="chiprun_out/profile_serving")
+    args = ap.parse_args(argv)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    port = {k: [_union_us([sp[1:] for sp in spans if k in sp[0]]) / 1e3
-                / args.steps,
-                sum(v[1] for n, v in per.items() if k in n) / args.steps]
-            for k in PORT_KERNELS}
-    result = {
-        "device": card, "config": args.config, "slots": slots,
-        "steps": args.steps,
-        "step_ms": step_ms, "tokens_per_s": slots * 1e3 / step_ms,
-        "profiled_step_ms": prof_wall_ms / args.steps,
-        "device_busy_ms_per_step": busy_ms / args.steps,
-        "device_idle_share": (1.0 - busy_ms / prof_wall_ms
-                              if busy_ms else None),
-        "port_kernels": {k: {"ms_per_step": v[0], "calls_per_step": v[1]}
-                         for k, v in port.items()} if busy_ms
-        else "not measured",
-        "kernels": [{"name": n[:120], "ms_per_step": v[0] / 1e3 / args.steps,
-                     "calls_per_step": v[1] / args.steps,
-                     "share_of_busy": v[0] / 1e3 / busy_ms}
-                    for n, v in top] if busy_ms else "not measured",
-    }
+    model, kw, slots, vocab = build_model(args.config)
+    runs = []
+    for _ in range(args.pairs):
+        for k in args.multi_tick:
+            run = profile_run(model, kw, slots, vocab, k, args.steps, out)
+            print(json.dumps(run), flush=True)
+            runs.append(run)
+    def median(k, m):
+        vals = [r[m] for r in runs if r["multi_tick"] == k
+                and r[m] is not None]
+        return float(np.median(vals)) if vals else "not measured"
+
+    medians = {k: {m: median(k, m)
+                   for m in ("step_ms", "tick_ms", "tokens_per_s",
+                             "host_ms_per_tick", "device_busy_ms_per_step",
+                             "device_busy_ms_per_tick",
+                             "device_idle_share")}
+               for k in args.multi_tick}
+    result = {"device": card, "config": args.config, "slots": slots,
+              "medians": medians, "runs": runs}
     (out / "summary.json").write_text(json.dumps(result, indent=1))
-    print(json.dumps(result), flush=True)
+    print(json.dumps({"device": card, "config": args.config,
+                      "medians": medians}), flush=True)
 
 
 if __name__ == "__main__":

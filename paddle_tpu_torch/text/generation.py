@@ -1,6 +1,7 @@
 """Generation primitives of the serving slice (counterpart of
 ``paddle_tpu/text/generation.py``: ``_model_forward`` :47,
-``sample_token_arrays`` :64, ``_resolve_cache_dtype`` :195).
+``sample_token_arrays`` :64, ``verify_token_arrays`` :131,
+``_resolve_cache_dtype`` :195).
 
 Randomness: JAX threefry keys cannot be reproduced in PyTorch, so the
 sampler takes its noise as an argument — Gumbel noise the caller draws
@@ -80,6 +81,51 @@ def sample_token_arrays(logits, noise, temperature, top_k, top_p,
         filt = scaled
     sampled = torch.argmax(filt + noise, dim=-1)
     return torch.where(temperature > 0, sampled, greedy)
+
+
+def verify_token_arrays(logits, drafts, noise, temperature, top_k, top_p,
+                        use_filters: bool = True, greedy: bool = False):
+    """Multi-position verify scoring, the speculative-decoding acceptance
+    rule. The target scored ``n = k + 1`` positions in one forward:
+    position 0 continues the real context, position j the context
+    extended by ``drafts[:, :j]``. The positions are walked with the
+    serving sampler (``sample_token_arrays``), and a draft is accepted
+    while it EQUALS the token the target emits there, so every emitted
+    token is the target's own: the output is the draft-free engine's.
+
+    logits [b, n, V] float; drafts [b, n - 1] int; noise [b, n, V] f32
+    Gumbel noise, row r's position j drawn as the (j+1)-th draw of row
+    r's generator this tick (ignored on greedy rows and with
+    ``greedy=True``, the all-greedy variant); temperature / top_p [b]
+    float, top_k [b] int; ``use_filters`` as in ``sample_token_arrays``.
+
+    Returns (tokens [b, n] int64, accepted [b] int64): row r emits
+    ``tokens[r, :accepted[r] + 1]`` (one target token always rides
+    after the matched drafts). A row stops consuming randomness at its
+    first mismatch, so the caller leaves a sampled row's generator
+    ``accepted + 1`` draws on, where plain decoding of the same tokens
+    leaves it."""
+    b, n, _ = logits.shape
+    # the last position has no draft to match: a -1 sentinel ends every
+    # chain there
+    dr = torch.cat([drafts.long(),
+                    torch.full((b, 1), -1, dtype=torch.long,
+                               device=logits.device)], dim=1)
+    active = torch.ones((b,), dtype=torch.bool, device=logits.device)
+    toks, matches = [], []
+    for j in range(n):
+        lg = logits[:, j]
+        if greedy:
+            tok = torch.argmax(lg.float(), dim=-1)
+        else:
+            tok = sample_token_arrays(lg, noise[:, j], temperature, top_k,
+                                      top_p, use_filters=use_filters)
+        active = active & (tok == dr[:, j])
+        toks.append(tok)
+        matches.append(active)
+    tokens = torch.stack(toks, dim=1)
+    accepted = torch.stack(matches, dim=1).sum(dim=1)
+    return tokens, accepted
 
 
 def _resolve_cache_dtype(cache_dtype, params, device):

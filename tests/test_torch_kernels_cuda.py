@@ -1020,3 +1020,122 @@ def test_batch_encoder_on_cuda_probes_and_matches_b1(dev, monkeypatch):
             ref = (pooled[0] if p == "cls" else x[0].mean(0)).cpu()
             err = float((torch.from_numpy(o.embedding) - ref).abs().max())
             assert err <= 1e-4 * float(ref.abs().max()), err
+
+
+# -- multi-tick decode on a CUDA graph ---------------------------------------
+
+def _decoding_engine(dev, moe=False, k=8):
+    """A tiny LLaMA (or ERNIE-MoE) Engine on the card with 4 greedy
+    requests prefilled and decoding (one step: admit + prefill)."""
+    from paddle_tpu_torch.inference import Engine, SamplingParams
+    from paddle_tpu_torch.text import models
+    if moe:
+        cfg = models.ErnieMoEConfig.tiny(vocab=128, hidden=64, layers=2,
+                                         heads=4, experts=4)
+        model = models.ErnieMoEForCausalLM(cfg, device=dev, seed=0,
+                                           init_std=0.2)
+    else:
+        cfg = models.LlamaConfig.tiny(vocab=128, hidden=64, layers=2,
+                                      heads=4)
+        model = models.LlamaForCausalLM(cfg, device=dev, seed=0,
+                                        init_std=0.2)
+    model.eval()
+    eng = Engine(model, max_slots=4, page_size=16, max_context=128,
+                 cache_dtype="float32", multi_tick=k)
+    g = torch.Generator().manual_seed(5)
+    for n in (5, 17, 30, 12):
+        eng.add_request(torch.randint(0, 128, (n,), generator=g),
+                        SamplingParams(max_new_tokens=40))
+    eng.step()
+    assert eng.num_active == 4
+    return eng
+
+
+def _load_multi(eng):
+    import numpy as np
+    bud = np.array([40 - len(r.generated) for r in eng._slots])
+    eng._flush_bt()
+    eng._multi.load(eng._last, eng._pos, eng._live,
+                    np.full((4,), -1), bud)
+
+
+@pytest.mark.parametrize("moe", [False, True], ids=["llama", "ernie_moe"])
+def test_multi_tick_graph_replay_equals_eager_ticks(dev, moe):
+    """The captured k=8 graph's replay writes the same tokens, ok flags,
+    advanced state and pool pages as the eager body on the same inputs,
+    bit for bit; the replay credits the wrappers' launch counts (8 ticks
+    x 2 layers of paged decode, and the MoE layer's grouped-FFN forward)
+    and the capture counted none of its own."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.kernels import moe as moe_kernels
+    eng = _decoding_engine(dev, moe)
+    mt = eng._multi
+    pools0 = [t.clone() for c in eng._pools for t in c]
+    _load_multi(eng)
+    toks, oks = (t.clone() for t in mt.ticks(8))
+    state = [t.clone() for t in (mt.last, mt.pos, mt.bud)]
+    pools1 = [t.clone() for c in eng._pools for t in c]
+    for dst, src in zip((t for c in eng._pools for t in c), pools0):
+        dst.copy_(src)
+    _load_multi(eng)
+    mt.run(8)                                   # warm-up, capture, replay
+    assert mt.captured == [8]
+    _load_multi(eng)
+    for dst, src in zip((t for c in eng._pools for t in c), pools0):
+        dst.copy_(src)
+    n_pd = pa.paged_decode.launches
+    n_mon = monitor.counter("kernels.decode.paged_cuda").get()
+    n_ffn = moe_kernels.grouped_ffn_fwd.launches
+    gt, go = mt.run(8)                          # a replay only
+    torch.cuda.synchronize()
+    assert torch.equal(gt, toks) and torch.equal(go, oks)
+    assert bool(oks.all())
+    for got, want in zip((mt.last, mt.pos, mt.bud), state):
+        assert torch.equal(got, want)
+    for got, want in zip((t for c in eng._pools for t in c), pools1):
+        assert torch.equal(got[1:], want[1:])   # page 0: the scratch page
+    assert pa.paged_decode.launches - n_pd == 8 * 2
+    assert monitor.counter("kernels.decode.paged_cuda").get() - n_mon == 16
+    assert moe_kernels.grouped_ffn_fwd.launches - n_ffn == (8 if moe else 0)
+
+
+@pytest.mark.parametrize("moe", [False, True], ids=["llama", "ernie_moe"])
+def test_multi_tick_engine_tokens_equal_single_tick(dev, moe):
+    """multi_tick=8 emits the single-tick engine's tokens bit for bit on
+    the card, every fused dispatch a graph replay; paged-decode launches
+    == device ticks x layers (the warm-up tick of each captured bucket
+    counted among the ticks)."""
+    outs = {}
+    for k in (1, 8):
+        eng = _decoding_engine(dev, moe, k=k)
+        n_pd, t0 = pa.paged_decode.launches, eng.decode_ticks
+        got = []
+        while eng.num_active:
+            got.extend(eng.step())
+        assert pa.paged_decode.launches - n_pd == \
+            (eng.decode_ticks - t0) * 2
+        outs[k] = sorted((o.req_id, o.token_ids) for o in got)
+        if k == 8:
+            assert eng._multi.captured
+        assert eng.leaked_pages() == 0
+    assert outs[8] == outs[1]
+
+
+def test_multi_tick_capture_raises_on_a_host_sync(dev, monkeypatch):
+    """The capture runs under set_sync_debug_mode("error"): a body that
+    syncs with the host (here an .item() in the forward) fails the
+    capture loudly, naming it, and no graph is kept."""
+    eng = _decoding_engine(dev)
+    fwd = eng.model.forward
+
+    def syncing(*a, **kw):
+        out = fwd(*a, **kw)
+        out[0].sum().item()
+        return out
+
+    monkeypatch.setattr(eng.model, "forward", syncing)
+    _load_multi(eng)
+    with pytest.raises(RuntimeError, match="multi-tick decode"):
+        eng._multi.run(8)
+    assert eng._multi.captured == []
+    assert torch.cuda.get_sync_debug_mode() == 0
