@@ -73,15 +73,21 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    backward kernels (dQ, dK/dV) against their plain versions at the
    attention shape of one layer of the training benchmark under bf16 AMP
    (B 12, S 1024, H 32, D 128, causal) plus f32, GQA (8 kv heads),
-   window 256, sq 333 / sk 1024, a 4-document flashmask and the
-   ERNIE-MoE training shape (B 32, S 512, H 16, D 64, causal), timed
+   window 256, sq 333 / sk 1024, a 4-document flashmask, the
+   ERNIE-MoE training shape (B 32, S 512, H 16, D 64, causal) and bf16 at
+   head dim 256 (B 2, S 1024, H 8, causal), timed
    beside the plain versions, their bounds and, where aten takes the
    case, the timed-only aten flash forward and backward (SDPA f32 beside
    the f32 forward, the backward of aten's memory-efficient attention
    beside the f32 pass); each case records its route (bf16: the
    tensor-core forward, dQ and dK/dV; f32: the tf32x3 forward, the
-   CUDA-core dQ and dK/dV) and every 16-bit forward launches the wgmma
-   kernel, whose SASS holds HGMMA and UTMALDG; negative controls: out
+   CUDA-core dQ and dK/dV) and the kernel each C entry reported it ran:
+   every 16-bit forward and every bf16 dQ and dK/dV launches its wgmma
+   kernel at head dim <= 128 and its mma.sync kernel at 256, and each
+   wgmma kernel's SASS (the forward
+   at bf16 and fp16, dQ and dK/dV at bf16, tile head dims 64 and 128)
+   holds HGMMA and UTMALDG; at the LLaMA case the wrapper's Delta =
+   rowsum(dO O) is timed as a share of its pass; negative controls: out
    without one 32-key tile, dV without one q tile and dQ without one key
    tile must be rejected;
 8. model cross-check: a 2-layer, hidden-512 LLaMA (8 heads, 2 kv heads,
@@ -96,9 +102,9 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    steps on one fixed batch: finite, falling losses; flash forward, dQ
    and dK/dV launches == 4 layers x 6 steps each, the *_cuda counters
    equal to them and no *_plain call, every forward, dQ and dK/dV launch
-   on the tensor-core route (``kernels.flash.*_cuda_tc``), every forward
-   on its wgmma kernel (``kernels.flash.fwd_cuda_tc_wgmma``) and none on
-   another;
+   on the tensor-core route (``kernels.flash.*_cuda_tc``), each on its
+   wgmma kernel (``kernels.flash.{fwd,dq,dkv}_cuda_tc_wgmma``) and none
+   on another;
    ms per step, tokens/s, the share of the bf16 peak and the peak device
    memory.
 
@@ -153,7 +159,7 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    and dw launches == 4 MoE layers x 6 steps, flash forward / dQ / dK/dV
    == 8 layers x 6 steps, no plain call, the flash forward, dQ and dK/dV
    and the grouped-FFN forward, dx and dw on the tc route only (every
-   flash forward on its wgmma kernel); ms per step,
+   flash forward, dQ and dK/dV on its wgmma kernel); ms per step,
    tokens/s, the bf16 peak share of ``ernie_moe_flops_per_token`` and the
    peak memory.
 
@@ -187,13 +193,16 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    bf16 AMP, AdamW(1e-4, bf16 moments), dropout 0.1) for 6 steps:
    finite, falling losses; flash forward, dQ and dK/dV launches == 12
    layers x 6 steps, no plain call, forward, dQ and dK/dV on the tc route
-   only, every forward on its wgmma kernel; ms per step, tokens/s, the
+   only, each on its wgmma kernel; ms per step, tokens/s, the
    bf16 peak share by bench_bert's 6N rule and the peak memory.
 
 It prints the card line, a {"kernels": [...]} line (the tensor-core
-forward, dQ and dK/dV as ``flash_fwd`` (its wgmma kernel,
-``launches_wgmma``) / ``flash_bwd_dq`` / ``flash_bwd_dkv`` with
-``flash_route`` "cuda-tc", the f32 forward of the serving paths as
+forward, dQ and dK/dV as ``flash_fwd`` / ``flash_bwd_dq`` /
+``flash_bwd_dkv`` with ``flash_route`` "cuda-tc", each naming its wgmma
+kernel (``kernel``, ``launches_wgmma``, ``sass``) and, for dQ and dK/dV,
+its mma.sync kernel at head dim 256 (``mma_sync_case``), every case the
+kernel its C entry reported, the f32 forward of the
+serving paths as
 ``flash_fwd_tf32x3``, the CUDA-core forward and dQ as ``flash_fwd_simt``
 / ``flash_bwd_dq_simt``; paged decode as ``paged_decode`` (its two
 kernels, launches by path and on the split kernel, the MoE geometry's
@@ -256,11 +265,12 @@ def fail(msg):
     sys.exit(1)
 
 
-#: the per-route launch counters of the flash wrappers (the forward's by
-#: the kernel its C entry reports it ran; a tc forward at head dims up to
-#: 128 also counts on fwd_cuda_tc_wgmma: the wgmma kernel)
+#: the per-route launch counters of the flash wrappers (each by the kernel
+#: its C entry reports it ran; a tc launch at head dims up to 128 also
+#: counts on *_cuda_tc_wgmma: the wgmma kernel)
 FLASH_ROUTES = ("fwd_cuda_tc", "fwd_cuda_tc_wgmma", "fwd_cuda_tf32x3",
-                "fwd_cuda_simt", "dq_cuda_tc", "dq_cuda_simt", "dkv_cuda_tc",
+                "fwd_cuda_simt", "dq_cuda_tc", "dq_cuda_tc_wgmma",
+                "dq_cuda_simt", "dkv_cuda_tc", "dkv_cuda_tc_wgmma",
                 "dkv_cuda_simt")
 
 
@@ -269,6 +279,22 @@ def flash_routes(counters):
     snapshot."""
     return {n: int(counters.get(f"kernels.flash.{n}", 0))
             for n in FLASH_ROUTES}
+
+
+def reported_kernel(before, after, n):
+    """The kernel the C entry of flash kernel ``n`` ("fwd", "dq" or "dkv")
+    reported it ran, for the one launch between two counter snapshots:
+    "wgmma" (``{n}_cuda_tc_wgmma``), "mma_sync" (``{n}_cuda_tc`` less
+    those), "tf32x3" or "simt"; None unless exactly one launch moved the
+    counters."""
+    moved = {r: int(after.get(f"kernels.flash.{n}_cuda_{r}", 0))
+             - int(before.get(f"kernels.flash.{n}_cuda_{r}", 0))
+             for r in ("tc", "tc_wgmma", "tf32x3", "simt")}
+    ran = {"wgmma": moved["tc_wgmma"],
+           "mma_sync": moved["tc"] - moved["tc_wgmma"],
+           "tf32x3": moved["tf32x3"], "simt": moved["simt"]}
+    return next((k for k, c in ran.items() if c == 1), None) \
+        if sorted(ran.values()) == [0, 0, 0, 1] else None
 
 
 def check_routes(counters, want, what):
@@ -283,12 +309,10 @@ def check_routes(counters, want, what):
 
 def check_tc_routes(counters, want, what):
     """A bf16 training path (head dim 64 or 128): every flash forward, dQ
-    and dK/dV launch on the tensor-core route, every forward on its wgmma
-    kernel, none on tf32x3 or simt."""
-    return check_routes(counters, {"fwd_cuda_tc": want,
-                                   "fwd_cuda_tc_wgmma": want,
-                                   "dq_cuda_tc": want, "dkv_cuda_tc": want},
-                        what)
+    and dK/dV launch on the tensor-core route, each on its wgmma kernel,
+    none on tf32x3 or simt."""
+    return check_routes(counters, {n: want for n in FLASH_ROUTES
+                                   if "_cuda_tc" in n}, what)
 
 
 def check_f32_routes(counters, want, what):
@@ -776,8 +800,9 @@ def check_fwd_is_sharp(torch, fa, q, k, v, ref, scale, lo):
 
 #: phase 7's cases: name, B, sq, sk, h, hkv, d, dtype, window, documents,
 #: causal — the LLaMA training shape (the first: the negative controls run
-#: there), five edge cases and the ERNIE-MoE training shape (profile_moe's
-#: MOE_TRAIN_MODEL attention: batch 32 x seq 512, 16 heads of 64)
+#: there), five edge cases, the ERNIE-MoE training shape (profile_moe's
+#: MOE_TRAIN_MODEL attention: batch 32 x seq 512, 16 heads of 64) and bf16
+#: at head dim 256, where the tc route runs the mma.sync kernels
 FLASH_TRAIN_SPECS = [
     ("train_bf16", 12, 1024, 1024, 32, 32, 128, "bfloat16", None, None,
      True),
@@ -791,6 +816,7 @@ FLASH_TRAIN_SPECS = [
      [256, 384, 128, 256], True),
     ("moe_train_bf16", 32, 512, 512, 16, 16, 64, "bfloat16", None, None,
      True),
+    ("d256_bf16", 2, 1024, 1024, 8, 8, 256, "bfloat16", None, None, True),
 ]
 
 
@@ -802,13 +828,19 @@ def check_flash_train(torch, fa, doc_mask, specs=FLASH_TRAIN_SPECS):
     operations of its own function (forward 4, dQ 6, dK/dV 8 x pairs x
     d, since each backward kernel recomputes S and dP), the pass bound
     counts the backward pass once (10 = 2.5 x the forward's). Each case
-    records the route (``fa.flash_route``) its forward and dK/dV take."""
+    records the route (``fa.flash_route``) its forward, dQ and dK/dV take
+    and the kernel each C entry reported it ran (``fwd_kernel``,
+    ``bwd_kernel``, from the deltas of the route counters): every 16-bit
+    forward and every bf16 dQ and dK/dV must have run its wgmma kernel at
+    head dim <= 128 and its mma.sync kernel above. At the LLaMA training
+    case (``train_bf16``) the wrapper's Delta = rowsum(dO O) is timed on
+    its own, as a share of the pass (aten's backward computes it
+    inside)."""
     from paddle_tpu_torch import monitor
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
     bf16 = torch.bfloat16
     cases = []
-    wgmma = monitor.counter("kernels.flash.fwd_cuda_tc_wgmma")
     for name, B, sq, sk, h, hkv, d, dname, window, docs, causal in specs:
         dt = getattr(torch, dname)
         q, do = (torch.randn(B, sq, h, d, generator=g, device=dev).to(dt)
@@ -826,16 +858,15 @@ def check_flash_train(torch, fa, doc_mask, specs=FLASH_TRAIN_SPECS):
         def t(x):
             return x.transpose(1, 2).float()
 
-        n_wgmma = wgmma.get()
+        tc_kernel = fa.flash_tc_kernel("fwd", d)
+        before = monitor.snapshot()
         out, lse = fa.flash_fwd(q, k, v, causal, scale, window, se,
                                 want_lse=True)
         torch.cuda.synchronize()
-        fwd_kernel = ("wgmma" if wgmma.get() == n_wgmma + 1 else
-                      "mma_sync" if fa._route_of("fwd", [q, k, v]) == "tc"
-                      else None)
-        if dt != torch.float32 and fwd_kernel != "wgmma":
+        fwd_kernel = reported_kernel(before, monitor.snapshot(), "fwd")
+        if dt != torch.float32 and fwd_kernel != tc_kernel:
             fail(f"flash_fwd[{name}]: the 16-bit forward at head dim {d} "
-                 f"did not launch the wgmma kernel ({fwd_kernel})")
+                 f"did not launch the {tc_kernel} kernel ({fwd_kernel})")
 
         def plain_fwd():
             return fa.flash_plain(t(q), t(k), t(v), causal, scale, window,
@@ -853,9 +884,16 @@ def check_flash_train(torch, fa, doc_mask, specs=FLASH_TRAIN_SPECS):
             fwd_sharp = check_fwd_is_sharp(torch, fa, q, k, v,
                                            want.transpose(1, 2), scale, 512)
         del want, want_lse
+        before = monitor.snapshot()
         dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, causal, scale,
                                   window, se)
         torch.cuda.synchronize()
+        after = monitor.snapshot()
+        bwd_kernel = {n: reported_kernel(before, after, n)
+                      for n in ("dq", "dkv")}
+        if dt == bf16 and bwd_kernel != {"dq": tc_kernel, "dkv": tc_kernel}:
+            fail(f"flash_bwd[{name}]: the bf16 backward at head dim {d} did "
+                 f"not launch the {tc_kernel} kernels ({bwd_kernel})")
 
         def plain_bwd():
             return fa.flash_bwd_plain(t(q), t(k), t(v), t(out), lse, t(do),
@@ -892,7 +930,7 @@ def check_flash_train(torch, fa, doc_mask, specs=FLASH_TRAIN_SPECS):
                    route={n: fa._route_of(n, [q, k, v] if n == "fwd"
                                           else [q, k, v, do])
                           for n in fa.FLASH_KERNELS},
-                   fwd_kernel=fwd_kernel)
+                   fwd_kernel=fwd_kernel, bwd_kernel=bwd_kernel)
         # each kernel's bytes and counted operations (forward 4, dQ 6,
         # dK/dV 8 x pairs x d), the pass's (10)
         work = {"fwd": (2 * qb + 2 * kb + rows, 4),
@@ -924,6 +962,16 @@ def check_flash_train(torch, fa, doc_mask, specs=FLASH_TRAIN_SPECS):
             plain_ms=plain_pass)
         rec["pass"].update(zip(("bound_ms", "bound_by"), bound_ms(
             4 * qb + 4 * kb + rows, 10 * pairs * d, dname)))
+        if name == "train_bf16":
+            rec["pass"]["delta_ms"] = cuda_ms(
+                lambda: (do.float() * out.float()).sum(-1).transpose(1, 2)
+                .contiguous(), iters=10)
+            rec["pass"]["delta_share"] = \
+                rec["pass"]["delta_ms"] / rec["pass"]["ms"]
+            print(f"  flash train[{name}]: Delta = rowsum(dO O) "
+                  f"{rec['pass']['delta_ms']:.4f} ms = "
+                  f"{rec['pass']['delta_share']:.3f} of the wrapper's pass "
+                  f"{rec['pass']['ms']:.4f} ms", flush=True)
         rec["dq"]["plain_ms"] = rec["dkv"]["plain_ms"] = plain_pass
         rec["fwd"]["library_ms"] = rec["pass"]["library_ms"] = None
         rec["library_note"] = (
@@ -968,7 +1016,8 @@ def check_flash_train(torch, fa, doc_mask, specs=FLASH_TRAIN_SPECS):
                 fail(f"flash train[{name}] {n}: {rec[n]['ms']} ms is below "
                      f"its bound {rec[n]['bound_ms']} ms "
                      f"({rec[n]['bound_peak']})")
-        print(f"  flash train[{name}] (routes {rec['route']}): err {errs} "
+        print(f"  flash train[{name}] (routes {rec['route']}, backward "
+              f"kernels {bwd_kernel}): err {errs} "
               f"(ratio to tol {ratios}, "
               f"tol {tols}); fwd+lse "
               f"{rec['fwd']['ms']:.3f} ms (bound {rec['fwd']['bound_ms']:.3f}"
@@ -1334,20 +1383,25 @@ def check_moe_tc_sass(build):
     return counts
 
 
-def check_flash_wgmma_sass(build):
-    """The tc forward's wgmma kernel as built (bf16 and fp16 at tile head
-    dims 64 and 128): each instantiation holds wgmma (HGMMA) and TMA load
-    (UTMALDG) instructions (``cuobjdump -sass`` of the flash_fwd
-    library)."""
-    counts = _sass_counts(
-        build, "flash_fwd", r"(flash_fwd_wgmma_kernel).*?"
-                            r"(?:Li(64|128)E|, (64|128),)")
-    print(f"  tc forward's wgmma kernel SASS (wgmma, TMA loads): {counts}",
+#: the flash libraries' wgmma kernels (name pattern, its first template
+#: int being the tile head dim), each at tile head dims 64 and 128: the
+#: forward at bf16 and fp16, dQ and dK/dV at bf16 (4 instantiations each)
+FLASH_WGMMA_SASS = {
+    "flash_fwd": r"(flash_fwd_wgmma_kernel).*?(?:Li(64|128)E|, (64|128),)",
+    "flash_bwd": r"flash_bwd_(dq|dkv)_wgmma_kernel.*?"
+                 r"(?:Li(64|128)E|, (64|128),)"}
+
+
+def check_flash_wgmma_sass(build, lib):
+    """The tc route's wgmma kernels of flash library ``lib`` as built
+    (``FLASH_WGMMA_SASS``): each instantiation holds wgmma (HGMMA) and TMA
+    load (UTMALDG) instructions (``cuobjdump -sass`` of the library)."""
+    counts = _sass_counts(build, lib, FLASH_WGMMA_SASS[lib])
+    print(f"  {lib} wgmma kernels' SASS (wgmma, TMA loads): {counts}",
           flush=True)
     if len(counts) != 4 or not all(c["HGMMA"] and c["UTMALDG"]
                                    for c in counts.values()):
-        fail(f"the flash forward's wgmma kernel lacks wgmma or TMA: "
-             f"{counts}")
+        fail(f"the {lib} wgmma kernels lack wgmma or TMA: {counts}")
     return counts
 
 
@@ -2577,7 +2631,8 @@ def main():
     probe_cases = check_probe(torch, build)
     paged_cases = check_paged(torch, pa, kv_quantize_arrays)
     flash_cases = check_flash(torch, fa)
-    flash_sass = check_flash_wgmma_sass(build)
+    flash_sass = check_flash_wgmma_sass(build, "flash_fwd")
+    flash_bwd_sass = check_flash_wgmma_sass(build, "flash_bwd")
     train_cases = check_flash_train(torch, fa, doc_mask)
 
     # 4. + 5. the main path: counts to 0 just before, read just after
@@ -2752,6 +2807,8 @@ def main():
 
     def flash_case(c, part, outs):
         return dict(case=c["case"], route=c["route"][part],
+                    kernel=c["fwd_kernel"] if part == "fwd"
+                    else c["bwd_kernel"][part],
                     max_abs_err=max(c["max_abs_err"][n] for n in outs),
                     ratio=max(c["ratio"][n] for n in outs), **c[part])
 
@@ -2860,6 +2917,7 @@ def main():
             ("flash_bwd_dq_simt", "dq", 452, ("dq",), "simt"),
             ("flash_bwd_dkv", "dkv", 521, ("dk", "dv"), "tc")):
         paths = by_path(tc_paths, f"{part}_cuda_{route}")
+        wgmma_paths = by_path(tc_paths, f"{part}_cuda_tc_wgmma")
         main = main_train if route == "tc" else \
             first_on(all_train, route, part)
         entry = dict(
@@ -2886,6 +2944,27 @@ def main():
         if route == "tc":
             entry["bert_train"] = dict(flash_case(bt_case, part, grads),
                                        pass_ms=bt_case["pass"]["ms"])
+            mma = next(c for c in all_train
+                       if c["bwd_kernel"][part] == "mma_sync")
+            entry.update(
+                kernel=f"flash_bwd_{part}_wgmma_kernel",
+                launches_wgmma=sum(wgmma_paths.values()),
+                launches_wgmma_by_path=wgmma_paths,
+                mma_sync_kernel=f"flash_bwd_{part}_tc_kernel",
+                mma_sync_case=dict(flash_case(mma, part, grads),
+                                   pass_ms=mma["pass"]["ms"]),
+                sass={k: v for k, v in flash_bwd_sass.items()
+                      if k.startswith(part + "_")},
+                kernel_note="the tc route runs the wgmma kernel (wgmma fed "
+                            "by TMA) at head dims up to 128 and the mma.sync "
+                            "kernel above; launches_wgmma counts the former, "
+                            "as the C entry reports the kernel it ran; no "
+                            "main path runs the latter (head dims 64 and "
+                            "128): mma_sync_case holds it against its plain "
+                            "version at head dim 256 in phase 7")
+            if part == "dq":
+                entry["delta_ms"] = main["pass"]["delta_ms"]
+                entry["delta_share_of_pass"] = main["pass"]["delta_share"]
         if kname == "flash_bwd_dkv":
             entry["simt_cases"] = [flash_case(c, part, grads)
                                    for c in all_train
@@ -2984,6 +3063,7 @@ def main():
                   flash_train_cases=train_cases, model_cross_check=xcheck,
                   training=training, moe_kernel_cases=moe_cases,
                   moe_tc_sass=moe_sass, flash_wgmma_sass=flash_sass,
+                  flash_bwd_wgmma_sass=flash_bwd_sass,
                   moe_serving=moe_serving, moe_cross_check=moe_xcheck,
                   moe_training=moe_training, minor64_cases=minor64_cases,
                   encoder_flash_cases=enc_flash_cases,

@@ -620,7 +620,9 @@ int launch_mma(const Args& a, int B, cudaStream_t stream) {
 // One block per (batch * head, 64-row q tile), the shape of the
 // grouped-FFN mainloop (csrc/grouped_gemm_tc.cuh, whose barrier, TMA,
 // descriptor and tensor-map helpers it uses) cut to one consumer
-// warpgroup and a producer warp, several blocks an SM.
+// warpgroup and a producer warp, several blocks an SM. Its products, the
+// producer's walk and the fragment split are the ones the backward's
+// wgmma kernels use too (csrc/flash_tc.cuh `wg`).
 //
 // - The producer warp loads Q once and then K and V tiles of kBN keys
 //   into a ring of kStages stages with full/empty mbarriers, through 4-D
@@ -716,58 +718,26 @@ struct Smem {
   }
 };
 
-// keeps the compiler from moving the P fragments' reads across the
-// asynchronous products
-template <int N>
-__device__ __forceinline__ void fence(unsigned (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
-}
-
 struct Maps {
   CUtensorMap q, k, v;
 };
 
-
-// 2^x on the SFU, flushing results below 2^-126 to 0 (a probability that
-// small is below every l's rounding: the row's largest term is 1)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// S = Q K^T of the tile in stage s: kD / 16 k16 steps, 32 bytes along the
-// swizzled 128-byte rows of a slab, 8-row groups 1 KB apart; one wgmma
-// group
+// S = Q K^T of the tile in stage s (one wgmma group)
 template <class C>
 __device__ __forceinline__ void qk(float (&sc)[C::kBN / 2], const Smem<C>& sm,
                                    int s) {
-#pragma unroll
-  for (int kk = 0; kk < C::kD / 16; ++kk)
-    ggtc::mma_ss<typename C::Elem, C::kBN, 0, 0>(
-        sc, ggtc::desc(sm.q(kk / 4) + (kk % 4) * 32, 16, 1024),
-        ggtc::desc(sm.k(s, kk / 4) + (kk % 4) * 32, 16, 1024), kk > 0);
-  ggtc::wgmma_commit();
+  wg::ss<typename C::Elem, C::kBN, C::kD>(sc, sm.q(0), C::kQSlab, sm.k(s, 0),
+                                          C::kKSlab);
 }
 
-// O += P_hi V + P_lo V of the tile in stage s: a k16 chunk is 16 key rows
-// of 128 bytes; the 64-column slabs of V kBN x 128 bytes apart (leading
-// byte offset); one wgmma group
+// O += P_hi V + P_lo V of the tile in stage s (one wgmma group)
 template <class C>
 __device__ __forceinline__ void pv(float (&o)[C::kD / 2],
                                    const unsigned (&ph)[C::kBN / 16][4],
                                    const unsigned (&pl)[C::kBN / 16][4],
                                    const Smem<C>& sm, int s) {
-#pragma unroll
-  for (int c = 0; c < C::kBN / 16; ++c) {
-    const uint64_t dv = ggtc::desc(sm.v(s, 0) + c * 16 * 128, C::kKSlab, 1024);
-    ggtc::mma_rs<typename C::Elem, C::kD, 1>(o, ph[c], dv, true);
-    ggtc::mma_rs<typename C::Elem, C::kD, 1>(o, pl[c], dv, true);
-  }
-  ggtc::wgmma_commit();
+  wg::rs_split<typename C::Elem, C::kD, C::kBN>(o, ph, pl, sm.v(s, 0),
+                                                C::kKSlab);
 }
 
 // The masks of key tile kt (only where the band, the window, the bands in
@@ -816,14 +786,15 @@ __device__ __forceinline__ void softmax(float (&sc)[C::kBN / 2], float (&m)[2],
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     const float m_new = fmaxf(m[h], mx * sl2);
     const float base = m_new == -INFINITY ? 0.f : m_new;
-    alpha[h] = exp2_ftz(m[h] - base);
+    alpha[h] = wg::exp2_ftz(m[h] - base);
     m[h] = m_new;
     float rs = 0.f;
 #pragma unroll
     for (int jj = 0; jj < kBN / 8; ++jj)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const float p = exp2_ftz(fmaf(sc[4 * jj + 2 * h + c], sl2, -base));
+        const float p =
+            wg::exp2_ftz(fmaf(sc[4 * jj + 2 * h + c], sl2, -base));
         sc[4 * jj + 2 * h + c] = p;
         rs += p;
       }
@@ -831,43 +802,11 @@ __device__ __forceinline__ void softmax(float (&sc)[C::kBN / 2], float (&m)[2],
   }
 }
 
-// P -> the A fragments of its k16 chunks (keys 16 c .. 16 c + 15): the
-// accumulators of key columns 16 c + 2 t (+1) and 16 c + 8 + 2 t (+1) of
-// rows g and g + 8, split into hi + lo
-template <class C>
-__device__ __forceinline__ void split(const float (&sc)[C::kBN / 2],
-                                      unsigned (&ph)[C::kBN / 16][4],
-                                      unsigned (&pl)[C::kBN / 16][4]) {
-  using T = typename C::Elem;
-#pragma unroll
-  for (int c = 0; c < C::kBN / 16; ++c) {
-    ph[c][0] = tc::split2<T>(sc[8 * c], sc[8 * c + 1], pl[c][0]);
-    ph[c][1] = tc::split2<T>(sc[8 * c + 2], sc[8 * c + 3], pl[c][1]);
-    ph[c][2] = tc::split2<T>(sc[8 * c + 4], sc[8 * c + 5], pl[c][2]);
-    ph[c][3] = tc::split2<T>(sc[8 * c + 6], sc[8 * c + 7], pl[c][3]);
-  }
-}
-
 // the key tile in stage s (-1: the walk has ended), the same in every lane
 // for the compiler
 template <class C>
 __device__ __forceinline__ int tile_at(const Smem<C>& sm, int s) {
-  return __shfl_sync(0xffffffffu, sm.info[s * C::kInfo + 4 * C::kBN], 0);
-}
-
-// the first key tile at or after kt that the bands do not cover whole
-// (the whole warp computes it; every lane gets the same answer)
-template <int kBN>
-__device__ __forceinline__ int next_tile(int kt, int kt_hi, const int* seb,
-                                         long long s4, int Sk, int q0,
-                                         int q_end, int lane) {
-  if (seb != nullptr)
-    while (kt < kt_hi &&
-           fl::tile_full(
-               fl::warp_band_extremes<kBN>(seb, s4, kt * kBN, Sk, lane), q0,
-               q_end))
-      ++kt;
-  return kt;
+  return wg::uniform(sm.info + s * C::kInfo + 4 * C::kBN);
 }
 
 template <class C>
@@ -891,20 +830,12 @@ __global__ void __launch_bounds__(kThreads, C::kBlocks)
   const int lane = threadIdx.x % 32;
 
   extern __shared__ uint8_t smem_wg[];
-  const uint32_t raw = ggtc::smem_u32(smem_wg);
-  const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
-  const Smem<C> sm{raw + pad,
-                   reinterpret_cast<int*>(smem_wg + pad + C::kQBytes +
-                                          S * C::kStageBytes)};
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      ggtc::mbar_init(sm.full(s), 32);                // the producer warp
-      ggtc::mbar_init(sm.empty(s), kConsumers / 32);  // each consumer warp
-    }
-    ggtc::mbar_init(sm.qbar(), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  const uint32_t base = wg::aligned_base(smem_wg);
+  const Smem<C> sm{base, reinterpret_cast<int*>(
+                             smem_wg + (base - ggtc::smem_u32(smem_wg)) +
+                             C::kQBytes + S * C::kStageBytes)};
+  wg::init_barriers<S, kConsumers>(sm,
+                                   [&] { ggtc::mbar_init(sm.qbar(), 1); });
   const int* seb = a.se == nullptr
                        ? nullptr
                        : a.se + b * a.se_sb + (hq / (H / a.h_se)) * a.se_sh;
@@ -915,9 +846,7 @@ __global__ void __launch_bounds__(kThreads, C::kBlocks)
   // producer or consumer, known to the compiler as the same in every
   // lane, so that the products below are not on a divergent path (which
   // would serialize them)
-  const bool producer =
-      __shfl_sync(0xffffffffu, int(threadIdx.x) / kConsumers, 0) != 0;
-  if (producer) {
+  if (wg::is_producer<kConsumers>()) {
     // -- the producer warp --
     if (lane == 0) {
       ggtc::mbar_expect_tx(sm.qbar(), C::kQBytes);
@@ -925,40 +854,8 @@ __global__ void __launch_bounds__(kThreads, C::kBlocks)
       for (int c = 0; c < kSlabs; ++c)
         ggtc::tma_load4(sm.q(c), &maps.q, sm.qbar(), 64 * c, hq, q0, b);
     }
-    int kt = next_tile<kBN>(kt_lo, kt_hi, seb, a.se_s4, Sk, q0, q_end, lane);
-    for (int j = 0;; ++j) {
-      const int s = j % S;
-      if (j >= S) ggtc::mbar_wait(sm.empty(s), ((j / S) + 1) & 1);
-      int* info = sm.info + s * kInfo;
-      if (kt >= kt_hi) {  // the end of the walk
-        if (lane == 0) info[4 * kBN] = -1;
-        ggtc::mbar_arrive(sm.full(s));
-        break;
-      }
-      const int k0 = kt * kBN;
-      if (seb != nullptr)
-#pragma unroll 1
-        for (int i = 0; i < kBN / 32; ++i) {
-          const int c = lane + 32 * i;
-          const fl::Bands bj = fl::load_bands(seb, a.se_s4, k0 + c, Sk);
-          info[c] = bj.lts;
-          info[kBN + c] = bj.lte;
-          info[2 * kBN + c] = bj.uts;
-          info[3 * kBN + c] = bj.ute;
-        }
-      if (lane == 0) {
-        info[4 * kBN] = kt;
-        ggtc::mbar_expect_tx(sm.full(s), C::kStageBytes);
-#pragma unroll
-        for (int c = 0; c < kSlabs; ++c) {
-          ggtc::tma_load4(sm.k(s, c), &maps.k, sm.full(s), 64 * c, hk, k0, b);
-          ggtc::tma_load4(sm.v(s, c), &maps.v, sm.full(s), 64 * c, hk, k0, b);
-        }
-      } else {
-        ggtc::mbar_arrive(sm.full(s));
-      }
-      kt = next_tile<kBN>(kt + 1, kt_hi, seb, a.se_s4, Sk, q0, q_end, lane);
-    }
+    wg::produce_kv<C>(sm, &maps.k, &maps.v, kt_lo, kt_hi, seb, a.se_s4, Sk,
+                      q0, q_end, hk, b, lane);
   } else {
     // -- the consumer warpgroup --
     const int g = lane / 4, t = lane % 4;
@@ -989,7 +886,7 @@ __global__ void __launch_bounds__(kThreads, C::kBlocks)
       // O is 0: nothing to rescale
       softmax<C>(sc, m, l, alpha, a, seb, sm.info, kt, q0, q_end, qr, t,
                  sl2);
-      split<C>(sc, ph, pl);
+      wg::split<T, kBN>(sc, ph, pl);
       int s_prev = 0;
       for (int j = 1;; ++j) {
         const int s = j % S;
@@ -1005,14 +902,14 @@ __global__ void __launch_bounds__(kThreads, C::kBlocks)
                    q_end, qr, t, sl2);
         ggtc::wgmma_wait<0>();  // the previous tile's O products
         ggtc::fence_acc(o);
-        fence(ph);
-        fence(pl);
+        wg::fence(ph);
+        wg::fence(pl);
         if (lane == 0) ggtc::mbar_arrive(sm.empty(s_prev));
 #pragma unroll
         for (int jj = 0; jj < kD / 8; ++jj)
 #pragma unroll
           for (int e = 0; e < 4; ++e) o[4 * jj + e] *= alpha[e >> 1];
-        split<C>(sc, ph, pl);
+        wg::split<T, kBN>(sc, ph, pl);
         s_prev = s;
       }
       ggtc::wgmma_fence();
@@ -1065,18 +962,12 @@ template <class C>
 int launch_wgmma_d(const Args& a, int B, int dtype, cudaStream_t stream) {
   constexpr int kBN = C::kBN;
   fwg::Maps maps{};
-  auto map = [&](CUtensorMap* m, const void* p, int heads, int rows,
-                 long long sh, long long ss, long long sb, int box_rows) {
-    const cuuint64_t dims[4] = {cuuint64_t(a.D), cuuint64_t(heads),
-                                cuuint64_t(rows > 0 ? rows : 1),
-                                cuuint64_t(B)};
-    const cuuint64_t strides[3] = {cuuint64_t(sh) * 2, cuuint64_t(ss) * 2,
-                                   cuuint64_t(sb) * 2};
-    return ggtc::make_map_nd(m, p, dtype, 4, dims, strides, 2, box_rows);
-  };
-  if (!map(&maps.q, a.q, a.H, a.Sq, a.q_sh, a.q_ss, a.q_sb, fwg::kBQ) ||
-      !map(&maps.k, a.k, a.Hkv, a.Sk, a.k_sh, a.k_ss, a.k_sb, kBN) ||
-      !map(&maps.v, a.v, a.Hkv, a.Sk, a.v_sh, a.v_ss, a.v_sb, kBN))
+  if (!wg::make_map_bshd(&maps.q, a.q, dtype, a.D, a.H, a.Sq, B, a.q_sh,
+                         a.q_ss, a.q_sb, fwg::kBQ) ||
+      !wg::make_map_bshd(&maps.k, a.k, dtype, a.D, a.Hkv, a.Sk, B, a.k_sh,
+                         a.k_ss, a.k_sb, kBN) ||
+      !wg::make_map_bshd(&maps.v, a.v, dtype, a.D, a.Hkv, a.Sk, B, a.v_sh,
+                         a.v_ss, a.v_sb, kBN))
     return int(cudaErrorInvalidValue);
   auto kernel = fwg::flash_fwd_wgmma_kernel<C>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -1090,19 +981,17 @@ int launch_wgmma_d(const Args& a, int B, int dtype, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-// The kernel a launch ran, as flash_fwd_launch reports it
-enum FwdKernel { kFwdSimt = 0, kFwdTf32x3 = 1, kFwdMma = 2, kFwdWgmma = 3 };
-
-// The tc route: the wgmma kernel where tc::fwd_wgmma holds (tile head
-// dims up to 128), the mma.sync kernel (FwdTc) above; *kernel says which.
+// The tc route: the wgmma kernel where tc::wgmma holds (tile head dims up
+// to 128), the mma.sync kernel (FwdTc) above; *kernel says which
+// (tc::Launched).
 template <typename T>
 int launch_tc(const Args& a, int B, int dtype, cudaStream_t stream,
               int* kernel) {
-  if (!tc::fwd_wgmma(a.D)) {
-    *kernel = kFwdMma;
+  if (!tc::wgmma(a.D)) {
+    *kernel = tc::kLaunchedMma;
     return launch_mma_d<FwdTc<T, 256>>(a, B, stream);
   }
-  *kernel = kFwdWgmma;
+  *kernel = tc::kLaunchedWgmma;
   if (tc::tile_d(a.D) <= 64)
     return launch_wgmma_d<Fwd64<T>>(a, B, dtype, stream);
   return launch_wgmma_d<Fwd128<T>>(a, B, dtype, stream);
@@ -1207,7 +1096,7 @@ extern "C" int flash_fwd_minor64_probe(const void* x, void* o, void* stream) {
 // by strides (batch — 0 broadcasts —, se head, band; the Sk column
 // stride is 1) with h_se se heads, or null. window <= 0 means no window
 // (only read when causal). *kernel (unless null) is set to the kernel
-// the launch ran (FwdKernel: 0 simt, 1 tf32x3, 2 tc mma.sync, 3 tc
+// the launch ran (tc::Launched: 0 simt, 1 tf32x3, 2 tc mma.sync, 3 tc
 // wgmma). Returns cudaGetLastError() after launch.
 extern "C" int flash_fwd_launch(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
@@ -1228,7 +1117,7 @@ extern "C" int flash_fwd_launch(
   const long long strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss,
                                 k_sh, v_sb, v_ss, v_sh};
   const tc::Route r = tc::route(tc::kFwd, dtype, D, ptrs, 3, strides, 9);
-  int launched = r == tc::kTf32x3 ? kFwdTf32x3 : kFwdSimt;
+  int launched = r == tc::kTf32x3 ? tc::kLaunchedTf32x3 : tc::kLaunchedSimt;
   int err;
   switch (dtype) {
     case pt::kF32:

@@ -3,7 +3,9 @@
 // ldmatrix fragment loads, mma.sync.m16n8k16 with f32 accumulators and
 // the hi/lo split of an f32 operand into two 16-bit terms ("tc" route);
 // mma.sync.m16n8k8 on tf32 operands split big + small ("tf32x3" route);
-// and the route rule the C entries share.
+// the route rule the C entries share, and the rule that picks the tc
+// route's wgmma kernels; and (namespace `wg`, at the end) the pieces the
+// three wgmma kernels share.
 //
 // Fragment layouts (PTX ISA, "mma.m16n8k16"): lane = 4 g + t. The f32
 // accumulator of a 16x8 tile holds (row g, cols 2t, 2t+1) in c[0..1] and
@@ -42,6 +44,7 @@
 #pragma once
 
 #include "flash_common.cuh"
+#include "grouped_gemm_tc.cuh"
 
 namespace tc {
 
@@ -397,10 +400,252 @@ __host__ inline int tile_d(int D) {
   return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
 }
 
-// Which kernel a forward on the tc route launches (mirrored by
-// flash_attention.flash_fwd_tc_kernel): the wgmma kernel at tile head
-// dims up to 128 (flash_fwd.cu `flash_fwd_wgmma_kernel`), the mma.sync
-// kernel (`flash_fwd_mma_kernel` with FwdTc) at 256.
-__host__ inline bool fwd_wgmma(int D) { return tile_d(D) <= 128; }
+// Which kernel a launch on the tc route runs, one rule for the forward,
+// dQ and dK/dV (mirrored by flash_attention.flash_tc_kernel): the wgmma
+// kernels at tile head dims up to 128 (flash_fwd.cu
+// `flash_fwd_wgmma_kernel`, flash_bwd.cu `flash_bwd_dq_wgmma_kernel` and
+// `flash_bwd_dkv_wgmma_kernel`), the mma.sync kernels at 256.
+__host__ inline bool wgmma(int D) { return tile_d(D) <= 128; }
+
+// The kernel a C entry reports it ran (its last argument; mirrored by
+// flash_attention._LAUNCHED): the backward entries report kSimt, kMma or
+// kWgmma, the forward any of the four.
+enum Launched {
+  kLaunchedSimt = 0,
+  kLaunchedTf32x3 = 1,
+  kLaunchedMma = 2,
+  kLaunchedWgmma = 3
+};
 
 }  // namespace tc
+
+// ------------------------------------------- the wgmma kernels' pieces --
+//
+// Shared by the tc route's wgmma kernels (flash_fwd.cu
+// `flash_fwd_wgmma_kernel`, flash_bwd.cu `flash_bwd_dq_wgmma_kernel` and
+// `flash_bwd_dkv_wgmma_kernel`): each is a producer warp that loads tiles
+// by TMA through 4-D tensor maps (`make_map_bshd`) into a ring of stages
+// and alone decides the walk, and consumer warpgroups that run wgmma on
+// them (csrc/grouped_gemm_tc.cuh holds the products, barriers and TMA
+// copies). A tile of rows x D is D / 64 slabs of rows x 128 bytes, 128B
+// swizzle; TMA writes zeros past D and past the rows of a tensor.
+//
+// Products on those slabs: `ss` (A and B both K-major: S = Q K^T, dP =
+// dO V^T, S^T = K Q^T, dP^T = V dO^T) and `rs_split` (A from registers,
+// two 16-bit terms of an f32 operand, B read MN-major through the
+// descriptor's transpose bit: O += P V, dQ += dS K, dV += P^T dO, dK +=
+// dS^T Q). The f32 accumulators of an m64nNk16 product hold, in thread t
+// of its warpgroup, row 16 (t / 32) + g + 8 (i % 4 / 2) and column
+// 8 (i / 4) + 2 (t % 4) + i % 2 of accumulator i (g = t % 32 / 4): for
+// each warp's 16 rows that is the mma.m16n8k16 A fragment's layout, so
+// `split` turns them into register-A fragments in place
+// (tests/test_torch_flash_tc_arith.py emulates both maps).
+
+namespace wg {
+
+// keeps the compiler from moving A fragments' reads across the
+// asynchronous products that read them
+template <int N>
+__device__ __forceinline__ void fence(unsigned (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+// 2^x on the SFU, flushing results below 2^-126 to 0 (a probability that
+// small is below every sum's rounding)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// acc = A B^T over depth kD: A's 64 rows and B's N rows K-major in
+// 64-column slabs a_slab and b_slab bytes apart (from a and b); a k16
+// step is 32 bytes along the swizzled 128-byte rows, 8-row groups 1 KB
+// apart. One wgmma group.
+template <typename T, int N, int kD>
+__device__ __forceinline__ void ss(float (&acc)[N / 2], uint32_t a,
+                                   uint32_t a_slab, uint32_t b,
+                                   uint32_t b_slab) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    ggtc::mma_ss<T, N, 0, 0>(
+        acc, ggtc::desc(a + (kk / 4) * a_slab + (kk % 4) * 32, 16, 1024),
+        ggtc::desc(b + (kk / 4) * b_slab + (kk % 4) * 32, 16, 1024),
+        kk > 0);
+  ggtc::wgmma_commit();
+}
+
+// acc += hi B + lo B: A given as the hi and lo register fragments of its
+// kK / 16 k16 chunks, B [kK rows][N] read MN-major from b (a k16 chunk is
+// 16 rows of 128 bytes; the 64-column slabs `slab` bytes apart, the
+// leading byte offset). One wgmma group.
+template <typename T, int N, int kK>
+__device__ __forceinline__ void rs_split(float (&acc)[N / 2],
+                                         const unsigned (&hi)[kK / 16][4],
+                                         const unsigned (&lo)[kK / 16][4],
+                                         uint32_t b, uint32_t slab) {
+#pragma unroll
+  for (int c = 0; c < kK / 16; ++c) {
+    const uint64_t db = ggtc::desc(b + c * 16 * 128, slab, 1024);
+    ggtc::mma_rs<T, N, 1>(acc, hi[c], db, true);
+    ggtc::mma_rs<T, N, 1>(acc, lo[c], db, true);
+  }
+  ggtc::wgmma_commit();
+}
+
+// The f32 accumulators x of an m64nNk16 product -> the A fragments of its
+// k16 chunks (columns 16 c .. 16 c + 15), split into hi + lo 16-bit terms
+// (tc::split2): accumulators 8 c + 2 r and 8 c + 2 r + 1 are register r of
+// chunk c.
+template <typename T, int N>
+__device__ __forceinline__ void split(const float (&x)[N / 2],
+                                      unsigned (&hi)[N / 16][4],
+                                      unsigned (&lo)[N / 16][4]) {
+#pragma unroll
+  for (int c = 0; c < N / 16; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      hi[c][r] = tc::split2<T>(x[8 * c + 2 * r], x[8 * c + 2 * r + 1],
+                               lo[c][r]);
+}
+
+// Moves registers between the warpgroups of a block (sm_90a; every warp
+// of the warpgroup executes it): a producer warpgroup gives registers up,
+// consumer warpgroups take them (N a multiple of 8 in [24, 256]).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// *p read by lane 0 and given to every lane: the same value in every lane
+// for the compiler, so a product behind a branch on it is not on a path
+// ptxas thinks divergent (which would serialize it, C7518)
+__device__ __forceinline__ int uniform(const int* p) {
+  return __shfl_sync(0xffffffffu, *p, 0);
+}
+
+// The producer warp or a consumer thread (the first kConsumers threads),
+// the same in every lane for the compiler.
+template <int kConsumers>
+__device__ __forceinline__ bool is_producer() {
+  return __shfl_sync(0xffffffffu, int(threadIdx.x) / kConsumers, 0) != 0;
+}
+
+// the first key tile at or after kt (tiles of kBN keys, up to kt_hi) that
+// the bands of `seb` do not cover whole for query rows [q0, q_end) (the
+// whole warp computes it; every lane gets the same answer)
+template <int kBN>
+__device__ __forceinline__ int next_k_tile(int kt, int kt_hi, const int* seb,
+                                           long long s4, int Sk, int q0,
+                                           int q_end, int lane) {
+  if (seb != nullptr)
+    while (kt < kt_hi &&
+           fl::tile_full(
+               fl::warp_band_extremes<kBN>(seb, s4, kt * kBN, Sk, lane), q0,
+               q_end))
+      ++kt;
+  return kt;
+}
+
+// The producer warp's walk over the key tiles a block of query rows
+// [q0, q_end) visits (flash_fwd_wgmma_kernel, flash_bwd_dq_wgmma_kernel):
+// from kt to kt_hi, minus the tiles one flashmask band of `seb` covers
+// whole. For each tile, in order, the key columns' bands and its index go
+// into its stage's info (C::kInfo ints: bands [4][kBN], then the index),
+// and TMA loads its K and V slabs (kv head hk, batch b; C::kStageBytes on
+// the stage's full barrier, which every lane arrives on); a stage whose
+// index is -1 ends the walk. Only the producer decides the walk, and the
+// consumers follow the stages (two sides that disagreed would deadlock
+// on a barrier).
+template <class C, class Sm>
+__device__ __forceinline__ void produce_kv(const Sm& sm, const CUtensorMap* k,
+                                           const CUtensorMap* v, int kt,
+                                           int kt_hi, const int* seb,
+                                           long long s4, int Sk, int q0,
+                                           int q_end, int hk, int b,
+                                           int lane) {
+  constexpr int S = C::kStages, kBN = C::kBN, kInfo = C::kInfo;
+  kt = next_k_tile<kBN>(kt, kt_hi, seb, s4, Sk, q0, q_end, lane);
+  for (int j = 0;; ++j) {
+    const int s = j % S;
+    if (j >= S) ggtc::mbar_wait(sm.empty(s), ((j / S) + 1) & 1);
+    int* info = sm.info + s * kInfo;
+    if (kt >= kt_hi) {  // the end of the walk
+      if (lane == 0) info[4 * kBN] = -1;
+      ggtc::mbar_arrive(sm.full(s));
+      return;
+    }
+    const int k0 = kt * kBN;
+    if (seb != nullptr)
+#pragma unroll 1
+      for (int i = 0; i < kBN / 32; ++i) {
+        const int c = lane + 32 * i;
+        const fl::Bands bj = fl::load_bands(seb, s4, k0 + c, Sk);
+        info[c] = bj.lts;
+        info[kBN + c] = bj.lte;
+        info[2 * kBN + c] = bj.uts;
+        info[3 * kBN + c] = bj.ute;
+      }
+    if (lane == 0) {
+      info[4 * kBN] = kt;
+      ggtc::mbar_expect_tx(sm.full(s), C::kStageBytes);
+#pragma unroll
+      for (int c = 0; c < C::kSlabs; ++c) {
+        ggtc::tma_load4(sm.k(s, c), k, sm.full(s), 64 * c, hk, k0, b);
+        ggtc::tma_load4(sm.v(s, c), v, sm.full(s), 64 * c, hk, k0, b);
+      }
+    } else {
+      ggtc::mbar_arrive(sm.full(s));
+    }
+    kt = next_k_tile<kBN>(kt + 1, kt_hi, seb, s4, Sk, q0, q_end, lane);
+  }
+}
+
+// Lays a block's dynamic shared memory out from a 1024-byte aligned base
+// (the 128B swizzle's unit): returns the base's shared address.
+__device__ __forceinline__ uint32_t aligned_base(const void* smem) {
+  const uint32_t raw = ggtc::smem_u32(smem);
+  return (raw + 1023) & ~1023u;
+}
+
+// Initialises a block's barriers: each of the kStages stages' full barrier
+// (the producer warp's 32 lanes arrive) and empty barrier (each of the
+// kConsumers / 32 consumer warps), then the kernel's own ones (`more()`:
+// the operands loaded once, a second ring). Every thread of the block must
+// call it.
+template <int kStages, int kConsumers, class Sm, typename More>
+__device__ __forceinline__ void init_barriers(const Sm& sm, More more) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      ggtc::mbar_init(sm.full(s), 32);
+      ggtc::mbar_init(sm.empty(s), kConsumers / 32);
+    }
+    more();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// A map over a [B, rows, heads, D] tensor of T (bf16 or fp16; dtype) given
+// by element strides (batch sb, row ss, head sh; D contiguous), as 4-D
+// (D, heads, rows, B): boxes of 64 columns x box_rows rows of one head and
+// batch. False if libcuda refuses it.
+inline bool make_map_bshd(CUtensorMap* m, const void* p, int dtype, int D,
+                          int heads, int rows, int B, long long sh,
+                          long long ss, long long sb, int box_rows) {
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads),
+                              cuuint64_t(rows > 0 ? rows : 1),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(sh) * 2, cuuint64_t(ss) * 2,
+                                 cuuint64_t(sb) * 2};
+  return ggtc::make_map_nd(m, p, dtype, 4, dims, strides, 2, box_rows);
+}
+
+}  // namespace wg

@@ -53,7 +53,7 @@ _F = ctypes.c_float
 _FLASH_BWD = [_P, _P, _P, _P, _P, _P, _P, _P,
               _I, _I, _I, _I, _I, _I,
               _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-              _P, _L, _L, _L, _I, _I, _I, _F, _I, _P]
+              _P, _L, _L, _L, _I, _I, _I, _F, _I, _P, _P]
 
 #: C signatures of each library's launch entries (all return cudaError_t)
 SIGNATURES = {

@@ -16,8 +16,9 @@
   addresses: "tc" (the 16-bit tensor-core kernels: bf16 for all three,
   fp16 for the forward only), "tf32x3" (the f32 forward on the tensor
   cores, 3xTF32) or "simt" (the f32 CUDA-core kernels, which take the
-  rest). ``flash_fwd_tc_kernel``: which kernel a forward on the tc route
-  launches, "wgmma" (head dims up to 128) or "mma_sync" (above).
+  rest). ``flash_tc_kernel``: which kernel a launch of the forward, dQ
+  or dK/dV on the tc route runs, one rule for the three: "wgmma" (head
+  dims up to 128) or "mma_sync" (above).
 - ``probe_minor64`` / ``minor64_supported``: the head-dim-64 probe
   (counterpart of ``_pallas_minor64_supported``, :801) and its
   once-per-device check, which the wrappers run before their first
@@ -84,20 +85,32 @@ def flash_route(kernel, dtype, head_dim, strides, addresses):
     return "simt" if any(s % align for s in strides) else route
 
 
-#: the largest head dim whose tc-route forward runs the wgmma kernel
-FWD_WGMMA_MAX_HEAD_DIM = 128
+#: the largest head dim whose tc-route launches (forward, dQ and dK/dV)
+#: run the wgmma kernels
+WGMMA_MAX_HEAD_DIM = 128
+
+
+def flash_tc_kernel(kernel, head_dim):
+    """The kernel a launch of ``kernel`` ("fwd", "dq" or "dkv") on the
+    "tc" route runs, the one rule the C entries apply (``tc::wgmma``,
+    ``csrc/flash_tc.cuh``): "wgmma" (``flash_fwd_wgmma_kernel``,
+    ``flash_bwd_dq_wgmma_kernel``, ``flash_bwd_dkv_wgmma_kernel``: wgmma
+    fed by TMA) for head dims up to ``WGMMA_MAX_HEAD_DIM``, "mma_sync"
+    (``flash_fwd_mma_kernel``, ``flash_bwd_dq_tc_kernel``,
+    ``flash_bwd_dkv_tc_kernel``) for larger ones (up to
+    ``MAX_HEAD_DIM``)."""
+    if kernel not in FLASH_KERNELS:
+        raise ValueError(f"flash_tc_kernel: kernel must be one of "
+                         f"{FLASH_KERNELS}, got {kernel!r}")
+    if not 0 < head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_tc_kernel: head_dim must be in "
+                         f"(0, {MAX_HEAD_DIM}], got {head_dim}")
+    return "wgmma" if head_dim <= WGMMA_MAX_HEAD_DIM else "mma_sync"
 
 
 def flash_fwd_tc_kernel(head_dim):
-    """The kernel a forward on the "tc" route launches, the rule the C
-    entry applies (``tc::fwd_wgmma``, ``csrc/flash_tc.cuh``): "wgmma"
-    (``flash_fwd_wgmma_kernel``: wgmma fed by TMA) for head dims up to
-    ``FWD_WGMMA_MAX_HEAD_DIM``, "mma_sync" (``flash_fwd_mma_kernel``) for
-    larger ones (up to ``MAX_HEAD_DIM``)."""
-    if not 0 < head_dim <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_fwd_tc_kernel: head_dim must be in "
-                         f"(0, {MAX_HEAD_DIM}], got {head_dim}")
-    return "wgmma" if head_dim <= FWD_WGMMA_MAX_HEAD_DIM else "mma_sync"
+    """``flash_tc_kernel`` of the forward."""
+    return flash_tc_kernel("fwd", head_dim)
 
 
 def _route_of(kernel, tensors):
@@ -389,9 +402,11 @@ def _flash_fwd_cuda(q, k, v, causal, scale, window, se, want_lse):
     return (out, lse) if want_lse else out
 
 
-#: (route, kernel) of each kernel ``flash_fwd_launch`` reports it ran
-_FWD_LAUNCHED = (("simt", None), ("tf32x3", None), ("tc", "mma_sync"),
-                 ("tc", "wgmma"))
+#: (route, tc kernel) of each kernel a C entry reports it ran, by the id
+#: it writes (``tc::Launched``, ``csrc/flash_tc.cuh``; the backward
+#: entries never report tf32x3)
+_LAUNCHED = (("simt", None), ("tf32x3", None), ("tc", "mma_sync"),
+             ("tc", "wgmma"))
 
 
 def _fwd_launch(q, k, v, out, lse, causal, scale, window, se):
@@ -416,7 +431,7 @@ def _fwd_launch(q, k, v, out, lse, causal, scale, window, se):
         torch.cuda.current_stream(q.device).cuda_stream,
         ctypes.addressof(launched))
     _build.check(err, "flash_fwd kernel")
-    return _FWD_LAUNCHED[launched.value]
+    return _LAUNCHED[launched.value]
 
 
 def flash_bwd(q, k, v, o, lse, do, causal: bool, scale: float,
@@ -427,10 +442,11 @@ def flash_bwd(q, k, v, o, lse, do, causal: bool, scale: float,
 
     On CUDA tensors this computes Delta = rowsum(dO * O) in f32 and
     launches the two kernels of ``csrc/flash_bwd.cu`` (counted on
-    ``flash_bwd.launches_dq`` / ``flash_bwd.launches_dkv``, and by
-    ``flash_route`` on ``kernels.flash.dq_cuda_tc`` or ``_simt`` and
-    ``kernels.flash.dkv_cuda_tc`` or ``_simt``); on CPU tensors it runs
-    ``flash_bwd_plain``."""
+    ``flash_bwd.launches_dq`` / ``flash_bwd.launches_dkv`` and, by the
+    kernel each C entry reports it ran, on ``kernels.flash.dq_cuda_tc``
+    or ``_simt`` and ``kernels.flash.dkv_cuda_tc`` or ``_simt``, a tc
+    launch of a wgmma kernel also on ``kernels.flash.dq_cuda_tc_wgmma`` /
+    ``dkv_cuda_tc_wgmma``); on CPU tensors it runs ``flash_bwd_plain``."""
     if q.device.type == "cpu":
         monitor.counter("kernels.flash.bwd_plain").increase()
         dq, dk, dv = flash_bwd_plain(_t(q), _t(k), _t(v), _t(o), lse, _t(do),
@@ -463,26 +479,31 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, window, se):
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     args = (q, k, v, do, lse, delta)
-    _bwd_launch("flash_bwd_dq_launch", args, dq, None, causal, scale,
-                window, se)
+    ran = {"dq": _bwd_launch("flash_bwd_dq_launch", args, dq, None, causal,
+                             scale, window, se)}
     flash_bwd.launches_dq += 1
-    _bwd_launch("flash_bwd_dkv_launch", args, dk, dv, causal, scale,
-                window, se)
+    ran["dkv"] = _bwd_launch("flash_bwd_dkv_launch", args, dk, dv, causal,
+                             scale, window, se)
     flash_bwd.launches_dkv += 1
     monitor.counter("kernels.flash.bwd_cuda").increase()
-    for kernel in ("dq", "dkv"):
-        route = _route_of(kernel, [q, k, v, do])
+    for kernel, (route, tc_kernel) in ran.items():
         monitor.counter(f"kernels.flash.{kernel}_cuda_{route}").increase()
+        if tc_kernel == "wgmma":
+            monitor.counter(f"kernels.flash.{kernel}_cuda_tc_wgmma") \
+                .increase()
     return dq, dk, dv
 
 
 def _bwd_launch(entry, args, out0, out1, causal, scale, window, se):
     """One launch of a ``csrc/flash_bwd.cu`` entry on checked operands
-    ``args`` = (q, k, v, do, lse, delta); raises on a refused launch."""
+    ``args`` = (q, k, v, do, lse, delta), uncounted; raises on a refused
+    launch. Returns the (route, tc kernel) the C entry reports it ran:
+    ("simt", None), ("tc", "mma_sync") or ("tc", "wgmma")."""
     q, k, v, do, lse, delta = args
     B, Sq, H, D = q.shape
     _, Sk, Hkv, _ = k.shape
     lib = _build.load("flash_bwd")
+    launched = ctypes.c_int(-1)
     err = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), out0.data_ptr(),
@@ -495,8 +516,10 @@ def _bwd_launch(entry, args, out0, out1, causal, scale, window, se):
         *_se_args(se, B),
         int(bool(causal)), 0 if window is None else int(window),
         float(scale), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream,
+        ctypes.addressof(launched))
     _build.check(err, entry)
+    return _LAUNCHED[launched.value]
 
 
 class _FlashAttnFn(torch.autograd.Function):

@@ -120,7 +120,7 @@ def profile_step(step, inputs, labels, args, meta, extra_parts=None):
         run(args.steps)
         prof_wall_ms = (time.perf_counter() - t1) * 1e3
     prof.export_chrome_trace(str(trace))
-    per = _kernel_times(trace)
+    per, _ = _kernel_times(trace)
     busy_ms = sum(v[0] for v in per.values()) / 1e3
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:20]
     kinds = {}

@@ -10,6 +10,8 @@ CPU the ``flash_fwd`` / ``flash_bwd`` wrappers run the plain versions;
 the CUDA kernels are held to those plain versions on the card
 (tests/test_torch_kernels_cuda.py and chip_smoke.py).
 """
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -388,8 +390,8 @@ def test_flash_route_of_checked_operands():
         tfa.flash_route("dk", torch.bfloat16, 64, (), ())
 
 
-# head dim -> the kernel a tc-route forward launches (tc::fwd_wgmma in
-# csrc/flash_tc.cuh: the wgmma kernel at tile head dims up to 128)
+# head dim -> the kernel a tc-route launch runs (tc::wgmma in
+# csrc/flash_tc.cuh: the wgmma kernels at tile head dims up to 128)
 _FWD_TC_KERNELS = {8: "wgmma", 32: "wgmma", 40: "wgmma", 64: "wgmma",
                    72: "wgmma", 80: "wgmma", 128: "wgmma", 136: "mma_sync",
                    192: "mma_sync", 256: "mma_sync"}
@@ -398,11 +400,11 @@ _FWD_TC_KERNELS = {8: "wgmma", 32: "wgmma", 40: "wgmma", 64: "wgmma",
 @pytest.mark.parametrize("d", sorted(_FWD_TC_KERNELS))
 def test_flash_fwd_tc_kernel_rule(d):
     """The tc route's forward runs the wgmma kernel at head dims up to
-    FWD_WGMMA_MAX_HEAD_DIM and the mma.sync kernel above; the rule only
+    WGMMA_MAX_HEAD_DIM and the mma.sync kernel above; the rule only
     speaks of head dims a route takes."""
     assert tfa.flash_fwd_tc_kernel(d) == _FWD_TC_KERNELS[d]
-    assert (d <= tfa.FWD_WGMMA_MAX_HEAD_DIM) == (_FWD_TC_KERNELS[d]
-                                                 == "wgmma")
+    assert (d <= tfa.WGMMA_MAX_HEAD_DIM) == (_FWD_TC_KERNELS[d]
+                                             == "wgmma")
     assert tfa.flash_route("fwd", torch.bfloat16, d,
                            (64 * d, 4 * d, d), (0,)) == "tc"
 
@@ -411,6 +413,40 @@ def test_flash_fwd_tc_kernel_rule(d):
 def test_flash_fwd_tc_kernel_refuses_head_dims_off_the_route(d):
     with pytest.raises(ValueError):
         tfa.flash_fwd_tc_kernel(d)
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+@pytest.mark.parametrize("d", sorted(_FWD_TC_KERNELS))
+def test_flash_tc_kernel_is_one_rule_for_the_three_kernels(kernel, d):
+    """The forward, dQ and dK/dV on the tc route follow one rule
+    (``tc::wgmma``): the wgmma kernels at head dims up to
+    WGMMA_MAX_HEAD_DIM, the mma.sync kernels above; the forward's name
+    for it agrees, and bf16 takes the tc route for all three."""
+    assert tfa.flash_tc_kernel(kernel, d) == _FWD_TC_KERNELS[d]
+    assert tfa.flash_tc_kernel(kernel, d) == tfa.flash_fwd_tc_kernel(d)
+    assert tfa.flash_route(kernel, torch.bfloat16, d,
+                           (64 * d, 4 * d, d), (0,)) == "tc"
+
+
+@pytest.mark.parametrize("kernel, d", [("dk", 64), ("dq", 0), ("dkv", 264),
+                                       ("fwd", -8)])
+def test_flash_tc_kernel_refuses_kernels_and_head_dims_off_the_route(
+        kernel, d):
+    with pytest.raises(ValueError):
+        tfa.flash_tc_kernel(kernel, d)
+
+
+def test_flash_bwd_counts_no_wgmma_launch_on_the_cpu():
+    """On CPU tensors the backward runs the plain version: neither the tc
+    counters of dQ and dK/dV nor their wgmma kernels' count a launch."""
+    x = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    out, lse = tfa.flash_fwd(x, x, x, True, 0.125, want_lse=True)
+    names = ["bwd_plain"] + [f"{k}_cuda_tc{w}" for k in ("dq", "dkv")
+                             for w in ("", "_wgmma")]
+    before = {n: monitor.counter(f"kernels.flash.{n}").get() for n in names}
+    tfa.flash_bwd(x, x, x, out, lse, x, True, 0.125)
+    after = {n: monitor.counter(f"kernels.flash.{n}").get() for n in names}
+    assert after == dict(before, bwd_plain=before["bwd_plain"] + 1)
 
 
 def test_flash_fwd_counts_no_wgmma_launch_on_the_cpu():
@@ -424,25 +460,58 @@ def test_flash_fwd_counts_no_wgmma_launch_on_the_cpu():
     assert after == dict(before, fwd_plain=before["fwd_plain"] + 1)
 
 
-def test_fwd_launched_kernels_follow_the_c_entry():
-    """``_FWD_LAUNCHED`` reads the kernel id ``flash_fwd_launch`` reports
-    in the order of the C enum ``FwdKernel`` (csrc/flash_fwd.cu), and
-    holds every (route, tc kernel) pair the rule can name."""
+def test_flash_bwd_kernels_use_no_atomics():
+    """dK/dV sums a GQA group inside one block and writes once, and dQ
+    needs no group sum: no kernel of csrc/flash_bwd.cu (nor the headers
+    it includes) adds into memory, so the backward is deterministic."""
     import pathlib
     import re
-    src = (pathlib.Path(tfa.__file__).parents[1] / "csrc" /
-           "flash_fwd.cu").read_text()
-    enum = re.search(r"enum FwdKernel \{([^}]*)\}", src).group(1)
+    csrc = pathlib.Path(tfa.__file__).parents[1] / "csrc"
+    for name in ("flash_bwd.cu", "flash_tc.cuh", "flash_common.cuh",
+                 "grouped_gemm_tc.cuh", "common.cuh"):
+        src = (csrc / name).read_text()
+        assert not re.search(r"atomic[A-Z]|\bred\.|\batom\.", src), name
+
+
+def test_fwd_launched_kernels_follow_the_c_entry():
+    """``_LAUNCHED`` reads the kernel id that ``flash_fwd_launch`` and the
+    two backward entries report in the order of the C enum ``Launched``
+    (csrc/flash_tc.cuh), and holds every (route, tc kernel) pair the rule
+    can name: all four for the forward, simt, mma.sync and wgmma for dQ
+    and dK/dV. Each entry takes the report as its last argument (a
+    pointer in ``_build.SIGNATURES``) and writes it."""
+    import pathlib
+    import re
+
+    from paddle_tpu_torch.kernels import _build
+    csrc = pathlib.Path(tfa.__file__).parents[1] / "csrc"
+    src = (csrc / "flash_tc.cuh").read_text()
+    enum = re.search(r"enum Launched \{([^}]*)\}", src).group(1)
     ids = dict((n, int(i)) for n, i in
-               re.findall(r"kFwd(\w+) = (\d+)", enum))
+               re.findall(r"kLaunched(\w+) = (\d+)", enum))
     assert ids == {"Simt": 0, "Tf32x3": 1, "Mma": 2, "Wgmma": 3}
-    assert tfa._FWD_LAUNCHED == (("simt", None), ("tf32x3", None),
-                                 ("tc", "mma_sync"), ("tc", "wgmma"))
-    named = set()
-    for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        for d in (8, 60, 64, 128, 136, 256):
-            route = tfa.flash_route("fwd", dtype, d, (64 * d, 4 * d, d),
-                                    (0,))
-            named.add((route, tfa.flash_fwd_tc_kernel(d)
-                       if route == "tc" else None))
-    assert named == set(tfa._FWD_LAUNCHED)
+    assert tfa._LAUNCHED == (("simt", None), ("tf32x3", None),
+                             ("tc", "mma_sync"), ("tc", "wgmma"))
+    named = {k: set() for k in tfa.FLASH_KERNELS}
+    for kernel in tfa.FLASH_KERNELS:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for d in (8, 60, 64, 96, 128, 136, 256):
+                route = tfa.flash_route(kernel, dtype, d,
+                                        (64 * d, 4 * d, d), (0,))
+                named[kernel].add((route, tfa.flash_tc_kernel(kernel, d)
+                                   if route == "tc" else None))
+    assert named["fwd"] == set(tfa._LAUNCHED)
+    assert named["dq"] == named["dkv"] == {tfa._LAUNCHED[i]
+                                           for i in (0, 2, 3)}
+    bwd = (csrc / "flash_bwd.cu").read_text()
+    assert "float scale, int dtype, void *stream, int *kernel" in bwd
+    for entry in ("dq", "dkv"):
+        body = re.search(rf"flash_bwd_{entry}_launch\(FLASH_BWD_PARAMS\) "
+                         r"\{(.*?)\n\}", bwd, re.S).group(1)
+        assert "dtype, stream, kernel);" in body
+    fwd = (csrc / "flash_fwd.cu").read_text()
+    assert "float scale, int dtype, void* stream, int* kernel)" in fwd
+    for lib, entry in (("flash_fwd", "flash_fwd_launch"),
+                       ("flash_bwd", "flash_bwd_dq_launch"),
+                       ("flash_bwd", "flash_bwd_dkv_launch")):
+        assert _build.SIGNATURES[lib][entry][-2:] == [ctypes.c_void_p] * 2

@@ -94,8 +94,10 @@ def tc_forward(q, k, v, scale, keep, split, bk=None):
     return out.to(torch.bfloat16)
 
 
-def tc_dkv(q, k, v, o, lse, do, scale, keep, split, dtype=torch.bfloat16):
-    """The dK/dV kernel's tile arithmetic: per q tile of BQ rows,
+def tc_dkv(q, k, v, o, lse, do, scale, keep, split, dtype=torch.bfloat16,
+           bq=BQ):
+    """The dK/dV kernel's tile arithmetic: per q tile of ``bq`` rows
+    (``DkvTc::kBQ`` by default; the wgmma kernel's ``DkvCfg::kBQ``),
     P = exp2(scale log2e S - log2e lse) (0 where masked or for a row
     without keys), dS = P (dP - Delta), dV += each 16-bit term of P^T
     times dO, dK += each term of dS^T times Q, dK times scale at the end;
@@ -109,8 +111,8 @@ def tc_dkv(q, k, v, o, lse, do, scale, keep, split, dtype=torch.bfloat16):
                        torch.inf)[..., None]
     dk = torch.zeros(b, h, sk, d)
     dv = torch.zeros(b, h, sk, d)
-    for q0 in range(0, sq, BQ):
-        rows = slice(q0, q0 + BQ)
+    for q0 in range(0, sq, bq):
+        rows = slice(q0, q0 + bq)
         s = qf[:, :, rows] @ kf.transpose(-1, -2)
         dp = dof[:, :, rows] @ vf.transpose(-1, -2)
         p = torch.exp2(s * (scale * LOG2E) - lse2[:, :, rows])
@@ -126,11 +128,12 @@ def tc_dkv(q, k, v, o, lse, do, scale, keep, split, dtype=torch.bfloat16):
     return dk.to(dtype), dv.to(dtype)
 
 
-def tc_dq(q, k, v, o, lse, do, scale, keep, split, dtype=torch.bfloat16):
-    """The dQ kernel's tile arithmetic (``flash_bwd_dq_tc_kernel``): per
-    key tile (``DqTc::kBK``: 64 keys at head dim <= 64, else 32),
-    P = exp2(scale log2e S - log2e lse) (0 where masked or for a row
-    without keys), dS = P (dP - Delta), dQ += each 16-bit term of dS
+def tc_dq(q, k, v, o, lse, do, scale, keep, split, dtype=torch.bfloat16,
+          bk=32):
+    """The dQ kernel's tile arithmetic: per key tile of ``bk`` keys (32:
+    ``DqCfg::kBN`` of the wgmma kernel, ``DqTc::kBK`` of the mma.sync
+    one), P = exp2(scale log2e S - log2e lse) (0 where masked or for a
+    row without keys), dS = P (dP - Delta), dQ += each 16-bit term of dS
     times K; dQ times scale at the end, rounded to ``dtype`` once."""
     h = q.shape[1]
     qf, of, dof = q.float(), o.float(), do.float()
@@ -138,7 +141,6 @@ def tc_dq(q, k, v, o, lse, do, scale, keep, split, dtype=torch.bfloat16):
     delta = (dof * of).sum(-1, keepdim=True)
     lse2 = torch.where(lse > fa.ROW_INVALID_LSE, lse * LOG2E,
                        torch.inf)[..., None]
-    bk = 64 if q.shape[-1] <= 64 else 32
     dq = torch.zeros(qf.shape)
     for k0 in range(0, kf.shape[2], bk):
         cols = slice(k0, k0 + bk)
@@ -203,10 +205,15 @@ def tf32x3_forward(q, k, v, scale, keep, passes=3):
 # name: (B, S, H, Hkv, D, document lengths or None); all causal
 CASES = {"causal_d128": (1, 512, 2, 2, 128, None),
          "gqa_docmask_d64": (1, 512, 8, 2, 64, [256, 128, 128])}
+#: bf16 at tile head dim 256, where the tc route's backward runs the
+#: mma.sync kernels (``DqTc``, ``DkvTc``; 32-key and 32-row tiles, the
+#: wgmma kernels' too)
+D256_CASES = {"causal_d256": (1, 256, 2, 2, 256, None),
+              "gqa_docmask_d256": (1, 256, 4, 2, 256, [128, 64, 64])}
 
 
 def _inputs(name):
-    B, S, H, Hkv, D, docs = CASES[name]
+    B, S, H, Hkv, D, docs = {**CASES, **D256_CASES}[name]
     rng = np.random.default_rng(len(name))
     q, do = (torch.from_numpy(rng.standard_normal((B, H, S, D),
                                                   dtype=np.float32))
@@ -276,15 +283,18 @@ def _a_frag_map(n):
     return rows, 16 * c + 8 * (r // 2) + 2 * t + e + 0 * rows
 
 
-@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("n", [32, 64, 128])
 def test_s_accumulators_are_the_p_fragments_in_place(n):
-    """The wgmma forward builds register r of P's k16 chunk c from its S
-    accumulators 8 c + 2 r (low half) and 8 c + 2 r + 1 (high half): the
-    row/column map of m64n{n}k16's accumulators then gives every element
-    where the register-A fragment wants it, so S turns into P_hi and P_lo
-    fragments in place. Emulated on a random P: the fragments rebuilt by
-    the A map are P rounded to bf16 (hi) and its remainder (lo), and
-    P_hi V + P_lo V holds the gate where one rounding of P misses it."""
+    """The wgmma kernels build register r of an operand's k16 chunk c from
+    its accumulators 8 c + 2 r (low half) and 8 c + 2 r + 1 (high half)
+    (``wg::split``, csrc/flash_tc.cuh): the row/column map of m64n{n}k16's
+    accumulators then gives every element where the register-A fragment
+    wants it, so S turns into P_hi and P_lo fragments in place in the
+    forward (n = its key tile), and so do dS in dQ (n = kBN) and P^T and
+    dS^T in dK/dV (n = kBQ; both 32 as configured). Emulated on a random
+    P: the fragments rebuilt by the A map are P rounded to bf16 (hi) and
+    its remainder (lo), and P_hi V + P_lo V holds the gate where one
+    rounding of P misses it."""
     acc_r, acc_c = _acc_map(n)
     fr, fk = _a_frag_map(n)
     idx = (8 * np.arange(n // 16)[:, None, None] + 2 * np.arange(4)[:, None]
@@ -313,7 +323,7 @@ def test_s_accumulators_are_the_p_fragments_in_place(n):
     assert gate_ratio(single, ref) > 1.0
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(D256_CASES))
 def test_dkv_split_passes_and_single_rounding_fails(name):
     q, k, v, do, scale, se, keep = _inputs(name)
     out, lse = fa.flash_plain(q.float(), k.float(), v.float(), True, scale,
@@ -330,7 +340,7 @@ def test_dkv_split_passes_and_single_rounding_fails(name):
     assert min(ratios[False]) > SHARP, ratios
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(D256_CASES))
 def test_dq_split_passes_and_single_rounding_fails(name):
     """The dQ kernel's split of dS into bf16 hi + lo passes the gate; one
     bf16 rounding of dS fails it by more than SHARP."""
@@ -344,6 +354,56 @@ def test_dq_split_passes_and_single_rounding_fails(name):
     single = gate_ratio(tc_dq(q, k, v, o, lse, do, scale, keep, False), rq)
     assert split <= 1.0, split
     assert single > SHARP, single
+
+
+#: keys per tile of the wgmma dQ kernel (``DqCfg::kBN``, csrc/flash_bwd.cu)
+WGMMA_DQ_BN = 32
+#: q rows per item of the wgmma dK/dV kernel (``DkvCfg::kBQ``)
+WGMMA_DKV_BQ = 32
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_wgmma_dq_tiles_split_passes(name):
+    """The wgmma dQ kernel's key tiles keep the arithmetic: dQ += dS_hi K
+    + dS_lo K per tile of ``WGMMA_DQ_BN`` keys passes the gate, one bf16
+    rounding of dS fails it by more than SHARP."""
+    bk = WGMMA_DQ_BN
+    q, k, v, do, scale, se, keep = _inputs(name)
+    out, lse = fa.flash_plain(q.float(), k.float(), v.float(), True, scale,
+                              se=se, return_lse=True)
+    o = out.to(torch.bfloat16)
+    rq = fa.flash_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                            do.float(), True, scale, se=se)[0]
+    split = gate_ratio(tc_dq(q, k, v, o, lse, do, scale, keep, True, bk=bk),
+                       rq)
+    single = gate_ratio(tc_dq(q, k, v, o, lse, do, scale, keep, False,
+                              bk=bk), rq)
+    assert split <= 1.0, split
+    assert single > SHARP, single
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_wgmma_dkv_tiles_split_passes(name):
+    """The wgmma dK/dV kernel's items (``WGMMA_DKV_BQ`` q rows of one
+    query head; its keys, the M dimension, are independent rows, so the
+    key tile does not enter the arithmetic) keep it too: dV += P^T_hi dO
+    + P^T_lo dO and dK += dS^T_hi Q + dS^T_lo Q summed over the GQA group
+    in f32 pass the gate, one bf16 rounding of P^T and dS^T fails it by
+    more than SHARP."""
+    q, k, v, do, scale, se, keep = _inputs(name)
+    out, lse = fa.flash_plain(q.float(), k.float(), v.float(), True, scale,
+                              se=se, return_lse=True)
+    o = out.to(torch.bfloat16)
+    _, rk, rv = fa.flash_bwd_plain(q.float(), k.float(), v.float(),
+                                   o.float(), lse, do.float(), True, scale,
+                                   se=se)
+    ratios = {}
+    for split in (True, False):
+        dk, dv = tc_dkv(q, k, v, o, lse, do, scale, keep, split,
+                        bq=WGMMA_DKV_BQ)
+        ratios[split] = (gate_ratio(dk, rk), gate_ratio(dv, rv))
+    assert max(ratios[True]) <= 1.0, ratios
+    assert min(ratios[False]) > SHARP, ratios
 
 
 #: fp16's smallest subnormal step: one rounding of an f32 result to fp16

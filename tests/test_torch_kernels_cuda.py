@@ -523,6 +523,8 @@ _WGMMA_CASES = {
     "d40_full": (1, 77, 77, 2, 2, 40, False, None, None),
     "d80_causal": (1, 150, 150, 2, 1, 80, True, None, None),
     "d32_causal": (2, 129, 129, 2, 2, 32, True, None, None),
+    "d96_causal": (1, 200, 200, 4, 2, 96, True, None, None),
+    "d96_window_gqa": (2, 260, 260, 8, 2, 96, True, 70, None),
 }
 
 
@@ -620,6 +622,139 @@ def test_flash_fwd_reports_the_kernel_of_the_rule(dev, dtype, d):
     want = fa.flash_plain(*(x.transpose(1, 2).float() for x in (q, k, v)),
                           True, d ** -0.5).transpose(1, 2)
     assert _gate(out, want) <= 1.0
+
+
+def _bwd_wgmma_launches():
+    from paddle_tpu_torch import monitor
+    return {k: monitor.counter(f"kernels.flash.{k}_cuda_tc_wgmma").get()
+            for k in ("dq", "dkv")}
+
+
+@pytest.mark.parametrize("name", sorted(_WGMMA_CASES))
+def test_flash_bwd_wgmma_within_gate(dev, name):
+    """bf16 dQ and dK/dV at head dims up to 128 launch the wgmma kernels
+    (``kernels.flash.{dq,dkv}_cuda_tc_wgmma``, from what the C entries
+    report) and hold chip_smoke.py's gate against ``flash_bwd_plain``:
+    causal and full, GQA, windows, a 4-document flashmask and random C=4
+    bands (whole tiles skipped), sq 333 / sk 1024, rows that see no key
+    (their dQ zero), head dims 32-128 and odd multiples of 8 (40, 80,
+    96)."""
+    q, k, v, do, causal, window, se = _train_inputs(dev, name,
+                                                    torch.bfloat16,
+                                                    _WGMMA_CASES)
+    d = q.shape[-1]
+    assert fa.flash_tc_kernel("dq", d) == "wgmma"
+    scale = d ** -0.5
+    t = lambda x: x.transpose(1, 2).float()              # noqa: E731
+    out, lse = fa.flash_fwd(q, k, v, causal, scale, window, se,
+                            want_lse=True)
+    before, n = _route_counts(), _bwd_wgmma_launches()
+    grads = fa.flash_bwd(q, k, v, out, lse, do, causal, scale, window, se)
+    torch.cuda.synchronize()
+    assert _route_delta(before) == {"dq_cuda_tc": 1, "dkv_cuda_tc": 1}
+    assert _bwd_wgmma_launches() == {k_: v_ + 1 for k_, v_ in n.items()}
+    ref = fa.flash_bwd_plain(t(q), t(k), t(v), t(out), lse, t(do), causal,
+                             scale, window, se)
+    for g_, r_, nm in zip(grads, ref, ("dq", "dk", "dv")):
+        assert g_.dtype == torch.bfloat16
+        assert g_.shape == r_.transpose(1, 2).shape, nm
+        assert _gate(g_, r_.transpose(1, 2)) <= 1.0, nm
+    dead = lse <= fa.ROW_INVALID_LSE
+    assert not grads[0].transpose(1, 2)[dead].any()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_wgmma_reads_strided_views(dev, d):
+    """bf16 q/k/v as views of one fused [B, S, 3, H, D] projection and dO
+    as a head-major view: the wgmma dQ and dK/dV kernels' tensor maps
+    take them as they are and give what the contiguous copies give, bit
+    for bit."""
+    g = torch.Generator().manual_seed(d + 1)
+    qkv = torch.randn(2, 190, 3, 4, d, generator=g).to(dev, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(2, 4, 190, d, generator=g).to(
+        dev, torch.bfloat16).transpose(1, 2)
+    out, lse = fa.flash_fwd(q, k, v, True, 0.1, want_lse=True)
+    n = _bwd_wgmma_launches()
+    grads = fa.flash_bwd(q, k, v, out, lse, do, True, 0.1)
+    assert _bwd_wgmma_launches() == {k_: v_ + 1 for k_, v_ in n.items()}
+    cont = [x.contiguous() for x in (q, k, v, do)]
+    grads2 = fa.flash_bwd(*cont[:3], out, lse, cont[3], True, 0.1)
+    for a, b in zip(grads, grads2):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_flash_bwd_d192_d256_stay_on_mma_sync(dev, d):
+    """Tile head dim 256 keeps the tc route's mma.sync dQ and dK/dV
+    kernels: counted on ``dq_cuda_tc`` / ``dkv_cuda_tc``, not on the
+    wgmma counters, and within the gate."""
+    g = torch.Generator().manual_seed(d)
+    q, k, v, do = (torch.randn(1, 150, 2, d, generator=g).to(
+        dev, torch.bfloat16) for _ in range(4))
+    assert fa.flash_tc_kernel("dkv", d) == "mma_sync"
+    out, lse = fa.flash_fwd(q, k, v, True, d ** -0.5, want_lse=True)
+    before, n = _route_counts(), _bwd_wgmma_launches()
+    grads = fa.flash_bwd(q, k, v, out, lse, do, True, d ** -0.5)
+    torch.cuda.synchronize()
+    assert _route_delta(before) == {"dq_cuda_tc": 1, "dkv_cuda_tc": 1}
+    assert _bwd_wgmma_launches() == n
+    t = lambda x: x.transpose(1, 2).float()              # noqa: E731
+    ref = fa.flash_bwd_plain(t(q), t(k), t(v), t(out), lse, t(do), True,
+                             d ** -0.5)
+    for g_, r_ in zip(grads, ref):
+        assert _gate(g_, r_.transpose(1, 2)) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("d", [32, 40, 60, 64, 80, 96, 128, 136, 192, 256])
+def test_flash_bwd_reports_the_kernel_of_the_rule(dev, dtype, d):
+    """The kernel each backward C entry reports it ran (the counters'
+    source) is the one ``flash_route`` and ``flash_tc_kernel`` name (bf16:
+    wgmma up to 128, mma.sync above; fp16, f32 and head dim 60: simt), and
+    its outputs are within the gate (fp16's atol floored at one fp16
+    subnormal step, as the simt fp16 test does)."""
+    g = torch.Generator().manual_seed(d + 7)
+    q, k, v, do = (torch.randn(1, 70, 2, d, generator=g).to(dev, dtype)
+                   for _ in range(4))
+    out, lse = fa.flash_fwd(q, k, v, True, d ** -0.5, want_lse=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    t = lambda x: x.transpose(1, 2).float()              # noqa: E731
+    ref = fa.flash_bwd_plain(t(q), t(k), t(v), t(out), lse, t(do), True,
+                             d ** -0.5)
+    floor = F16_STEP if dtype == torch.float16 else 0.0
+    for kernel, entry, outs in (("dq", "flash_bwd_dq_launch", (dq, None)),
+                                ("dkv", "flash_bwd_dkv_launch", (dk, dv))):
+        launched = fa._bwd_launch(entry, args, *outs, True, d ** -0.5, None,
+                                  None)
+        route = fa._route_of(kernel, [q, k, v, do])
+        assert launched == (route, fa.flash_tc_kernel(kernel, d)
+                            if route == "tc" else None), kernel
+    torch.cuda.synchronize()
+    for got, r_ in zip((dq, dk, dv), ref):
+        assert _gate(got, r_.transpose(1, 2), floor) <= 1.0
+
+
+def test_flash_dkv_wgmma_is_deterministic(dev):
+    """dK and dV of a GQA case (4 query heads a kv head, a causal band and
+    a document mask) on the wgmma kernel: each block sums its group in
+    f32 in a fixed order and writes once, so two runs agree bit for bit."""
+    q, k, v, do, causal, window, se = _train_inputs(dev, "doc4_d64",
+                                                    torch.bfloat16,
+                                                    _WGMMA_CASES)
+    q = torch.cat([q, q.flip(2)], 2)          # 8 query heads over 2 kv
+    do = torch.cat([do, do.flip(2)], 2)
+    out, lse = fa.flash_fwd(q, k, v, causal, 0.125, window, se,
+                            want_lse=True)
+    n = _bwd_wgmma_launches()
+    a = fa.flash_bwd(q, k, v, out, lse, do, causal, 0.125, window, se)
+    b = fa.flash_bwd(q, k, v, out, lse, do, causal, 0.125, window, se)
+    assert _bwd_wgmma_launches() == {k_: v_ + 2 for k_, v_ in n.items()}
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def test_flash_bwd_reads_strided_grad(dev):
