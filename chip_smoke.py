@@ -68,6 +68,29 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    trace, its accept rate printed. In (b)-(d) every request's tokens hold
    teacher-forced agreement >= AGREE_BF16 and the share identical to the
    plain engine's is printed. The ERNIE-MoE case of (d) runs as phase 12b;
+6c. the reliability plane at the same width and ``multi_tick=8`` on the
+   same 24-request trace, each part counted like 6b (paged-decode
+   launches == device ticks x 4 on the split kernel, 0 pages leaked, the
+   invariant audit clean, no CUDA graph beyond the k buckets of 6b's
+   clean multi_tick=8 run): (a) chaos, bench.py's ``serving_chaos``
+   (``FaultInjector(seed=0, rate=0.02)`` over every site, plus a plan
+   forcing one decode.nan and one alloc.exhausted, one engine driving the
+   trace twice): every request finishes or fails as
+   ``nan_logits`` / ``error:prefill``, nan_logits failures ==
+   ``serving.nan_quarantines`` == decode.nan + prefill.nan faults, a
+   decode.nan and an alloc.exhausted landed, survivors' teacher-forced
+   agreement >= AGREE_BF16; survivors' tokens/s, faults by site, repairs
+   and step errors printed; (b) ``snapshot_to`` after step 40 (every 6th
+   request sampled at temperature 0.8, seeded), ``restore_from`` on a
+   fresh engine: every request finishes, waiting ones identical to the
+   uninterrupted run, resumed ones (teacher-forced; sampled ones through
+   the sampler with their noise replayed) >= AGREE_BF16; (c) deadlines
+   of 20 k=1 ticks on a third of the requests and one cancel mid-decode,
+   on the second pass of one engine (the first captures the graphs):
+   the deadline clamp fires, every expiry within one step of its
+   deadline, the cancel's pages back at once, every other request's
+   tokens the clean run's (a prefix when a deadline cut them); overlap
+   ms a tick printed beside host and device;
 
 7. training kernels: the flash forward with logsumexp and the two
    backward kernels (dQ, dK/dV) against their plain versions at the
@@ -2362,7 +2385,9 @@ def serving_accelerators(torch, mods, model, launches_of, reset_counts,
     its serving extras (the 24-request default at multi_tick 8 and 1,
     serving_prefix, serving_longctx, serving_spec) in Engines of 16
     slots, 128-token pages, a 64-token bucket and a bf16 pool, each run
-    counted on its own (``accel_run``)."""
+    counted on its own (``accel_run``). Also returns the clean
+    multi_tick=8 run's outputs and captured k buckets (phase 6c's
+    reference)."""
     import dataclasses
     import numpy as np
     cfg = model.config
@@ -2439,7 +2464,7 @@ def serving_accelerators(torch, mods, model, launches_of, reset_counts,
     print(f"  spec: accept rate {eng.spec_accept_rate:.4f}", flush=True)
     res["spec"]["agreement"] = hold_agreement(
         torch, model, "spec", base, spec, single, AGREE_BF16)
-    return res, paths
+    return res, paths, dict(outs=multi, graphs=res["multi_tick_8"]["graphs"])
 
 
 def moe_spec_path(torch, mods, launches_of, reset_counts, card):
@@ -2495,6 +2520,363 @@ def moe_spec_path(torch, mods, launches_of, reset_counts, card):
     res["moe_spec"]["agreement"] = hold_agreement(
         torch, model, "moe_spec", trace, res.pop("moe_spec_outs"),
         res.pop("moe_plain_outs"), thr, paged=True)
+    return res, paths
+
+
+# -- phase 6c: reliability at the serving shapes ---------------------------
+
+#: bench.py's serving_chaos extra: FaultInjector(seed 0, rate 0.02) over
+#: every site the engine queries
+CHAOS_SEED, CHAOS_RATE = 0, 0.02
+#: phase 6c (a)'s forced faults: which queries a step makes follows the
+#: wall-clock arrivals, so the seeded draws reach a decode.nan and an
+#: alloc.exhausted on some runs only; the plan fires one of each at the
+#: first query at or after its step (the plan draws nothing from the
+#: injector's Generator)
+CHAOS_PLAN = "30:decode.nan,60:alloc.exhausted"
+#: phase 6c (b): the step after which the snapshot is written (the first
+#: step past it at which every request of the trace has arrived)
+SNAPSHOT_STEP = 40
+#: phase 6c (c): deadlines of about this many k=1 device ticks
+DEADLINE_TICKS = 20
+
+
+def drive_requests(torch, eng, trace, params_of, on_step=None):
+    """``drive_trace`` with per-request SamplingParams (``params_of(i)``)
+    and a hook: ``on_step(eng, n_steps, n_arrived, outs)`` runs after each
+    step (it may add an Output it caused, such as a cancel's, to ``outs``).
+    Returns (outputs by req_id, seconds, each step's wall ms)."""
+    arrivals, prompts = trace
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, i, n, steps = {}, 0, len(prompts), []
+    while len(outs) < n:
+        now = time.perf_counter() - t0
+        while i < n and arrivals[i] <= now:
+            eng.add_request(prompts[i], params_of(i))
+            i += 1
+        if i < n and eng.idle:
+            time.sleep(max(0.0, arrivals[i] - (time.perf_counter() - t0)))
+            continue
+        t1 = time.perf_counter()
+        outs.update({o.req_id: o for o in eng.step()})
+        steps.append((time.perf_counter() - t1) * 1e3)
+        if on_step is not None:
+            on_step(eng, len(steps), i, outs)
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0, steps
+
+
+def sampled_teacher_forced_agreement(torch, model, prompt, tokens, sp):
+    """Share of a SAMPLED request's tokens equal to the port's sampler
+    applied to the no-cache forward over prompt + tokens[:-1], with the
+    request's noise replayed from its seed (one Gumbel draw a token, as
+    the engine draws them): robust to a flip, which only moves one
+    position, and sensitive to a wrong generator state, which moves all."""
+    import numpy as np
+    from paddle_tpu_torch.text.generation import (gumbel_noise,
+                                                  sample_token_arrays)
+    seq = np.concatenate([prompt, np.asarray(tokens[:-1], np.int64)])
+    with torch.no_grad():
+        logits = model(torch.from_numpy(seq[None]).cuda())[0]
+    cur = logits[len(prompt) - 1:].float()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(sp.seed))
+    V = cur.shape[-1]
+    noise = torch.stack([gumbel_noise(V, gen, "cuda") for _ in tokens])
+    n = len(tokens)
+    want = sample_token_arrays(
+        cur, noise, torch.full((n,), float(sp.temperature), device="cuda"),
+        torch.full((n,), int(sp.top_k), device="cuda"),
+        torch.full((n,), float(sp.top_p), device="cuda")).cpu().tolist()
+    return sum(int(a == b) for a, b in zip(tokens, want)) / n
+
+
+def _rel_counts(mods, what, engines, ticks, launches_of, clean_graphs, card):
+    """The counted-run gates of phase 6c (as ``accel_run``'s): paged-decode
+    launches == device ticks x 4 layers, every call on the split kernel,
+    no plain call, audit clean, no page leaked, no graph beyond the clean
+    run's k buckets. Returns (record, launches)."""
+    launches = launches_of()
+    counters = {k: v for k, v in mods.monitor.snapshot().items()
+                if k.startswith(("kernels.", "serving."))}
+    layers = engines[0].serving_spec["num_layers"]
+    if launches["paged_decode"] != ticks * layers or \
+            counters.get("kernels.decode.paged_cuda") != \
+            launches["paged_decode"] or any(
+                v for k, v in counters.items() if k.endswith("_plain")):
+        fail(f"{what}: paged-decode launches {launches['paged_decode']} != "
+             f"{ticks} ticks x {layers}, or a plain call: {counters}")
+    check_paged_split(counters, launches["paged_decode"], what)
+    for eng in engines:
+        findings = eng.check_invariants()
+        leaked = eng.leaked_pages()
+        if findings or leaked:
+            fail(f"{what}: {leaked} pages leaked, audit {findings}")
+        extra = sorted(set(eng._multi.captured) - set(clean_graphs))
+        if extra:
+            fail(f"{what}: CUDA graphs captured for k {extra} beyond the "
+                 f"clean run's buckets {clean_graphs}")
+    host = mods.monitor.histogram("serving.hist.host_ms_per_tick").sum
+    dev = mods.monitor.histogram("serving.hist.device_ms_per_tick").sum
+    ov = mods.monitor.histogram("serving.hist.overlap_ms_per_tick").sum
+    rec = dict(decode_ticks=ticks, steps=int(counters["serving.steps"]),
+               host_ms_per_tick=host / max(ticks, 1),
+               device_ms_per_tick=dev / max(ticks, 1),
+               overlap_ms_per_tick=ov / max(ticks, 1),
+               graphs=[eng._multi.captured for eng in engines],
+               counters=counters, card=card)
+    print(f"  {what}: {ticks} device ticks, host {rec['host_ms_per_tick']:.3f}"
+          f" / device {rec['device_ms_per_tick']:.3f} / overlap "
+          f"{rec['overlap_ms_per_tick']:.3f} ms a tick on {card}", flush=True)
+    return rec, launches
+
+
+def serving_reliability(torch, mods, model, clean, k1_tick_ms, launches_of,
+                        reset_counts, card):
+    """Phase 6c: the reliability plane at bench.py::bench_llama_serving's
+    width (16 slots, 128-token pages, 64-token bucket, bf16 pool,
+    multi_tick=8) on the 24-request trace of phase 6b, against 6b's clean
+    multi_tick=8 run (``clean``: its outputs and captured k buckets).
+    Every part counts its launches from 0 before its engine and reads them
+    after its drain (``_rel_counts``).
+
+    (a) chaos, bench.py's serving_chaos: FaultInjector(seed 0, rate 0.02)
+    over every site, one engine driving the trace twice (warm, timed): the
+    faults must include a decode.nan and an alloc.exhausted that landed
+    (seed 0 reaches both on some runs only, so ``CHAOS_PLAN`` forces one
+    of each at fixed steps);
+    every request finishes or fails as nan_logits / error:prefill, the
+    nan_logits failures == serving.nan_quarantines == decode.nan +
+    prefill.nan faults; survivors hold teacher-forced agreement >=
+    AGREE_BF16. (b) a snapshot after step SNAPSHOT_STEP, restored on a
+    fresh engine: every request finishes; waiting ones emit the
+    uninterrupted run's tokens exactly, resumed ones hold teacher-forced
+    agreement (sampled ones: the sampler over the no-cache forward with
+    their noise replayed from the seed) >= AGREE_BF16. (c) deadlines of
+    DEADLINE_TICKS k=1 ticks on a third of the requests and one cancel
+    mid-decode, on the trace's second pass through one engine (the first,
+    without deadlines, captures the graphs and seeds the clamp's tick
+    estimate): the deadline clamp fires, every expiry lands within one
+    step of its deadline, the cancel returns the pages at once, and every
+    other request's tokens are the clean run's (a prefix of them when a
+    deadline cut it)."""
+    from paddle_tpu_torch.inference import FaultInjector, FaultPlan
+    cfg = model.config
+    common = dict(max_slots=16, page_size=128, prefill_bucket=64,
+                  cache_dtype="bfloat16", multi_tick=8,
+                  max_context=PROMPT_HI + NEW_TOKENS)
+    trace = bench_trace(cfg.vocab_size)
+    prompts = trace[1]
+    clean_outs, clean_graphs = clean["outs"], clean["graphs"]
+    greedy = mods.SamplingParams(max_new_tokens=NEW_TOKENS)
+    print("serving reliability:", flush=True)
+    res, paths = {}, {}
+
+    # (a) chaos: the warm pass and the timed pass on one engine
+    reset_counts()
+    inj = FaultInjector(seed=CHAOS_SEED, rate=CHAOS_RATE,
+                        plan=FaultPlan.parse(CHAOS_PLAN))
+    eng = mods.Engine(model, fault_injector=inj, **common)
+    passes = []
+    for _ in range(2):
+        off = eng._next_id
+        outs, secs, _ = drive_requests(torch, eng, trace, lambda i: greedy)
+        passes.append(([outs[off + j] for j in range(len(prompts))], secs))
+    rec, paths["reliability_chaos"] = _rel_counts(
+        mods, "chaos", [eng], eng.decode_ticks, launches_of, clean_graphs,
+        card)
+    c = rec["counters"]
+    every = [o for outs, _ in passes for o in outs]
+    bad = [o for o in every if not o.ok and o.finish_reason != "nan_logits"
+           and not o.finish_reason.startswith("error:prefill")]
+    n_nan = sum(o.finish_reason == "nan_logits" for o in every)
+    want_nan = inj.counts.get("decode.nan", 0) + \
+        inj.counts.get("prefill.nan", 0)
+    if bad or n_nan != c.get("serving.nan_quarantines", 0) or \
+            n_nan != want_nan:
+        fail(f"chaos: failures outside the allowed set {bad[:2]}, or "
+             f"nan_logits {n_nan} != quarantines "
+             f"{c.get('serving.nan_quarantines')} != injected {want_nan}")
+    # a recorded alloc.exhausted always took effect (a prefill requeued or
+    # a sequence preempted); every request then still retired as checked
+    if not n_nan or not inj.counts.get("alloc.exhausted"):
+        fail(f"chaos: a decode.nan and an alloc.exhausted did not both "
+             f"land: {inj.counts}, {c}")
+    timed, secs = passes[1]
+    surv = [(j, o) for j, o in enumerate(timed) if o.ok]
+    agree = [teacher_forced_agreement(torch, model, prompts[j], o.token_ids)
+             for j, o in surv]
+    same = sum(o.token_ids == clean_outs[j].token_ids for j, o in surv)
+    if agree and min(agree) < AGREE_BF16:
+        fail(f"chaos: a survivor's teacher-forced agreement {min(agree)} "
+             f"< {AGREE_BF16}")
+    n_tok = sum(len(o.token_ids) for _, o in surv)
+    rec.update(faults=dict(inj.counts), requests=len(every),
+               survivors_timed=len(surv), survivor_tokens=n_tok,
+               seconds=secs, survivor_tokens_per_s=n_tok / secs,
+               identical_to_clean=same / max(len(surv), 1),
+               agreement_min=min(agree) if agree else None,
+               invariant_repairs=c.get("serving.invariant_repairs", 0),
+               step_errors=c.get("serving.step_errors", 0),
+               nan_quarantines=n_nan)
+    print(f"  chaos: faults {inj.counts}; {len(surv)} of {len(timed)} "
+          f"survive the timed pass, {n_tok / secs:.1f} tok/s of survivors, "
+          f"{same} identical to the clean run, agreement min "
+          f"{rec['agreement_min']}; invariant repairs "
+          f"{rec['invariant_repairs']}, step errors {rec['step_errors']}",
+          flush=True)
+    res["reliability_chaos"] = rec
+    del eng
+
+    # (b) snapshot after step SNAPSHOT_STEP, restored on a fresh engine;
+    # every 6th request sampled (temperature 0.8, seeded)
+    def params_b(i):
+        if i % 6 == 5:
+            return mods.SamplingParams(max_new_tokens=NEW_TOKENS,
+                                       temperature=0.8, seed=i)
+        return greedy
+
+    path = OUT_DIR / "snapshot_6c.json"
+    snap_at = {}
+
+    def snapshot_after(e, n_steps, arrived, outs):
+        if n_steps >= SNAPSHOT_STEP and arrived == len(prompts) \
+                and not snap_at:
+            e.snapshot_to(str(path))
+            snap_at["step"] = n_steps
+
+    reset_counts()
+    eng = mods.Engine(model, **common)
+    uninterrupted, _, _ = drive_requests(torch, eng, trace, params_b,
+                                         snapshot_after)
+    if not snap_at:
+        fail("restore: the trace drained before the snapshot step")
+    eng2 = mods.Engine(model, **common)
+    n_restored = eng2.restore_from(str(path))
+    restored = {}
+    while not eng2.idle:
+        restored.update({o.req_id: o for o in eng2.step()})
+    rec, paths["reliability_restore"] = _rel_counts(
+        mods, "restore", [eng, eng2], eng.decode_ticks + eng2.decode_ticks,
+        launches_of, clean_graphs, card)
+    snap = json.loads(path.read_text())
+    resumed = {e["req_id"] for e in snap["requests"] if e["generated"]}
+    if len(restored) != n_restored or any(not o.ok or len(o.token_ids)
+                                          != NEW_TOKENS
+                                          for o in restored.values()):
+        fail(f"restore: {len(restored)} of {n_restored} restored requests "
+             f"finished, or one failed or ran short")
+    rows = {}
+    for rid, o in restored.items():
+        j = rid                 # a fresh engine: ids in arrival order
+        sp = params_b(j)
+        if rid not in resumed:
+            if o.token_ids != uninterrupted[rid].token_ids:
+                fail(f"restore: request {rid}, waiting at the snapshot, "
+                     f"differs from the uninterrupted run")
+            continue
+        a = (sampled_teacher_forced_agreement(torch, model, prompts[j],
+                                              o.token_ids, sp)
+             if sp.temperature > 0 else
+             teacher_forced_agreement(torch, model, prompts[j],
+                                      o.token_ids))
+        rows[rid] = dict(agreement=a, sampled=sp.temperature > 0,
+                         identical=o.token_ids
+                         == uninterrupted[rid].token_ids)
+    low = {r: v for r, v in rows.items() if v["agreement"] < AGREE_BF16}
+    if low:
+        fail(f"restore: resumed requests below {AGREE_BF16}: {low}")
+    sampled = [v for v in rows.values() if v["sampled"]]
+    rec.update(snapshot_step=snap_at["step"], restored=n_restored,
+               resumed=len(rows), waiting_identical=n_restored - len(rows),
+               resumed_identical=sum(v["identical"] for v in rows.values()),
+               sampled_resumed=len(sampled),
+               sampled_identical=sum(v["identical"] for v in sampled),
+               agreement_min=min((v["agreement"] for v in rows.values()),
+                                 default=None), rows=rows)
+    print(f"  restore: snapshot after step {snap_at['step']}, "
+          f"{n_restored} restored ({len(rows)} resumed, "
+          f"{rec['resumed_identical']} of them identical; sampled "
+          f"{rec['sampled_identical']} of {len(sampled)} identical), "
+          f"agreement min {rec['agreement_min']}", flush=True)
+    res["reliability_restore"] = rec
+    del eng, eng2
+
+    # (c) deadlines of ~DEADLINE_TICKS k=1 ticks on a third of the
+    # requests, and one cancel mid-decode, on the trace's second pass: the
+    # first (no deadline) captures the graphs and gives the deadline
+    # clamp its tick estimate, so a fused dispatch between two arrivals
+    # meets live deadlines (after the arrivals the queue drains only as
+    # the deadlines expire)
+    deadline_ms = DEADLINE_TICKS * k1_tick_ms
+
+    def params_c(i):
+        if i % 3 == 0:
+            return mods.SamplingParams(max_new_tokens=NEW_TOKENS,
+                                       deadline_ms=deadline_ms)
+        return greedy
+
+    cancelled = {}
+
+    def cancel_one(e, n_steps, arrived, outs):
+        if cancelled:
+            return
+        for r in e._slots:
+            if r is not None and (r.req_id - off) % 3 and \
+                    r.state == "DECODE" and len(r.generated) >= 16:
+                free0, held = e.pages_free, len(r.pages)
+                out = e.cancel(r.req_id)
+                if e.pages_free != free0 + held:
+                    fail(f"cancel: {held} pages did not return at once")
+                cancelled[out.req_id] = outs[out.req_id] = out
+                return
+
+    reset_counts()
+    eng = mods.Engine(model, **common)
+    drive_requests(torch, eng, trace, lambda i: greedy)
+    off = eng._next_id
+    outs, secs, step_ms = drive_requests(torch, eng, trace, params_c,
+                                         cancel_one)
+    rec, paths["reliability_deadline"] = _rel_counts(
+        mods, "deadline", [eng], eng.decode_ticks, launches_of, clean_graphs,
+        card)
+    c = rec["counters"]
+    if not cancelled or not c.get("serving.multi_tick.clamp.deadline"):
+        fail(f"deadline: no cancel ({cancelled}) or no deadline clamp: {c}")
+    # an expiry lands at the step after the deadline passed: within the
+    # worst step of the run plus the drive loop's gap between two steps
+    worst = max(step_ms) + 1.0
+    overrun = []
+    for rid, o in outs.items():
+        ref = clean_outs[rid - off].token_ids
+        if rid in cancelled:
+            ok = o.finish_reason == "cancelled" and \
+                o.token_ids == ref[:len(o.token_ids)]
+        elif (rid - off) % 3 == 0:
+            late = (o.spans[-1]["t0_ms"] - o.spans[0]["t0_ms"]) - deadline_ms
+            overrun.append(late)
+            ok = (o.ok and o.token_ids == ref and late <= worst) or (
+                o.finish_reason == "deadline" and 0.0 < late <= worst
+                and o.token_ids == ref[:len(o.token_ids)])
+        else:
+            ok = o.ok and o.token_ids == ref
+        if not ok:
+            fail(f"deadline: request {rid} {o.finish_reason} with "
+                 f"{len(o.token_ids)} tokens breaks the contract (deadline "
+                 f"{deadline_ms:.1f} ms, worst step {worst:.2f} ms)")
+    rec.update(deadline_ms=deadline_ms, k1_tick_ms=k1_tick_ms,
+               timeouts=c.get("serving.timeouts", 0),
+               clamp_deadline=c["serving.multi_tick.clamp.deadline"],
+               cancelled=sorted(cancelled), worst_step_ms=worst,
+               overrun_ms_max=max(overrun), seconds=secs)
+    print(f"  deadline: {deadline_ms:.1f} ms on {len(overrun)} requests, "
+          f"{rec['timeouts']} timeouts, deadline clamps "
+          f"{rec['clamp_deadline']}, overrun max {max(overrun):.2f} ms "
+          f"(worst step {worst:.2f}); cancelled {sorted(cancelled)}; "
+          f"overlap {rec['overlap_ms_per_tick']:.3f} ms a tick", flush=True)
+    res["reliability_deadline"] = rec
+    del eng
     return res, paths
 
 
@@ -2728,9 +3110,15 @@ def main():
     torch.cuda.empty_cache()
 
     # 6b. the serving accelerators, each run counted on its own
-    accel, accel_paths = serving_accelerators(torch, mods, model,
-                                              launches_of, reset_counts,
-                                              card)
+    accel, accel_paths, clean8 = serving_accelerators(
+        torch, mods, model, launches_of, reset_counts, card)
+    # 6c. the reliability plane at the serving shapes, each part counted
+    rel, rel_paths = serving_reliability(
+        torch, mods, model, clean8, accel["multi_tick_1"]["step_ms_median"],
+        launches_of, reset_counts, card)
+    accel.update(rel)
+    accel_paths.update(rel_paths)
+    del clean8
     # the serving phase's model and engines go before training's
     del model, outs, f32_outs
     torch.cuda.empty_cache()

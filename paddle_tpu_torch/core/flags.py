@@ -1,0 +1,64 @@
+"""Runtime flag registry.
+
+Counterpart of ``paddle_tpu/core/flags.py``, reduced to what the port's
+flags need: a flag is defined in Python with its default, overridden by
+the ``FLAGS_<name>`` environment variable when the flag is defined, and
+read or written through ``get_flag`` / ``set_flags``. The serving flags
+(``serving_fault_*``, ``serving_debug_invariants``) are defined in
+``inference/reliability.py``.
+"""
+from __future__ import annotations
+
+import os
+from typing import Any, Dict
+
+
+class _Flag:
+    __slots__ = ("name", "default", "value", "type", "help")
+
+    def __init__(self, name, default, help=""):
+        self.name = name
+        self.default = default
+        self.type = type(default)
+        self.help = help
+        env = os.environ.get(f"FLAGS_{name}")
+        self.value = default if env is None else _parse(env, self.type)
+
+
+def _parse(s: str, ty):
+    if ty is bool:
+        return s.lower() in ("1", "true", "yes", "on")
+    if ty is int:
+        return int(s)
+    if ty is float:
+        return float(s)
+    return s
+
+
+_registry: Dict[str, _Flag] = {}
+
+
+def define_flag(name: str, default, help: str = "") -> _Flag:
+    """Register ``name`` (once; a second definition keeps the first)."""
+    if name not in _registry:
+        _registry[name] = _Flag(name, default, help)
+    return _registry[name]
+
+
+def _key(name: str) -> str:
+    key = name[6:] if name.startswith("FLAGS_") else name
+    if key not in _registry:
+        raise ValueError(f"Flag {name} is not registered")
+    return key
+
+
+def set_flags(flags: Dict[str, Any]) -> None:
+    """Set flags by name (with or without the ``FLAGS_`` prefix); a
+    string value is parsed to the flag's type."""
+    for k, v in flags.items():
+        fl = _registry[_key(k)]
+        fl.value = _parse(v, fl.type) if isinstance(v, str) else fl.type(v)
+
+
+def get_flag(name: str):
+    return _registry[_key(name)].value

@@ -1,6 +1,7 @@
 """Distributed subset of the port: ``fleet.recompute`` (activation
-checkpointing). Meshes, collectives and parallel layers come with the
-distributed slice."""
-from . import fleet
+checkpointing) and ``watchdog.Heartbeat`` (the in-process stall watcher
+of ``Engine.run``). Meshes, collectives, parallel layers and the
+launcher's cross-rank heartbeats come with the distributed slice."""
+from . import fleet, watchdog
 
-__all__ = ["fleet"]
+__all__ = ["fleet", "watchdog"]

@@ -66,10 +66,39 @@ blocks in decode mode under a cache (no capacity drops, idle lanes
 masked), and the engine reports which dispatch they ran
 (``moe_decode_path()``, ``serving.moe.decode_path.*``).
 
-Left out of this slice, each raising NotImplementedError: fault
-injection, deadlines / queue timeouts and cancel (and with them the
-multi-tick deadline clamp), snapshot/restore, span tracing (labels) and
-mesh/TP.
+The reliability and observability plane (``reliability.py`` has the
+fault catalog and the snapshot format, ``tracing.py`` the span
+timelines):
+
+* Request lifecycle hardening: per-request ``deadline_ms`` /
+  ``max_queue_steps`` enforced on the engine's injectable ``clock`` in
+  the step's overlap window (``_expire``), ``cancel(req_id)``, and a
+  terminal FAILED(reason) state — one bad request (NaN logits, an
+  injected device error, a prefill that keeps failing) is retired with
+  its pages freed while every other slot keeps serving; ``step()`` never
+  raises for a per-request failure. A NaN in one slot's sampling logits
+  fails that slot alone (``serving.nan_quarantines``).
+* Deterministic fault injection: a seeded ``FaultInjector``
+  (``fault_injector=`` or ``FLAGS_serving_fault_*``) fires named faults
+  at the allocator, the prefix cache, the prefill / decode / verify
+  forwards and the draft loop, queried at the JAX engine's call sites in
+  its order, so a seed replays the same faults in both frameworks. The
+  unarmed path pays one ``is not None`` test a site. An armed injector
+  (or ``debug_invariants``) audits the allocator every step
+  (``check_invariants``).
+* Crash-exact snapshot/restore: ``snapshot()`` serializes the host-side
+  truth (tokens, sampling params, generator states, admission order) and
+  ``restore()`` re-admits it through the preemption / resume-prefill
+  machinery. ``run(heartbeat_timeout=...)`` attaches a
+  ``distributed.watchdog.Heartbeat`` that snapshots and reports a
+  stalled loop.
+* Span timelines: every request carries QUEUED -> PREFILL slices ->
+  DECODE -> ... -> FINISHED / FAILED on the engine clock
+  (``Output.spans``); ``label`` names the engine in them and scopes its
+  metrics (``monitor.scope``).
+
+Left out: mesh/TP decode, the fleet's ``extract_request`` and the
+compile tracker (the distributed and analysis slices).
 
 ``monitor`` surface: counters ``serving.requests`` / ``serving.tokens``
 / ``serving.finished`` / ``serving.failed`` / ``serving.preemptions`` /
@@ -77,15 +106,22 @@ mesh/TP.
 ``serving.prefill_slices`` / ``serving.prefix_{lookups,hits,
 tokens_reused}`` / ``serving.spec_{drafted,accepted}`` /
 ``serving.multi_tick.{dispatches,ticks,warmup_ticks}`` /
-``serving.multi_tick.clamp.{max_new,pages,spec}`` /
-``serving.multi_tick.scan_exit.{eos,length,nan_logits,horizon}``;
+``serving.multi_tick.clamp.{max_new,pages,spec,deadline}`` /
+``serving.multi_tick.scan_exit.{eos,length,nan_logits,horizon}`` /
+``serving.{timeouts,cancelled,nan_quarantines,step_errors,
+invariant_repairs,stalls,snapshot_saves,snapshot_restores}`` /
+``serving.fault_injected.<site>``;
 gauges ``serving.slots_active`` / ``serving.pages_free`` /
 ``serving.queue_depth`` / ``serving.ttft_ms`` / ``serving.tpot_ms`` /
 ``serving.prefill_tokens_per_step`` / ``serving.prefix_hit_rate`` /
 ``serving.prefix_pages_shared`` / ``serving.spec_accept_rate`` /
 ``serving.multi_tick.ticks_per_dispatch`` /
-``serving.{host,device}_ms_per_tick`` (a step's wall time, split at the
-host's waits for device results; histograms ``serving.hist.*`` too).
+``serving.{host,device,overlap}_ms_per_tick`` (a step's wall time split
+at the host's waits for device results, host work hidden under a
+dispatch booked as device time and shown as overlap — ``_sync_timed``);
+histograms ``serving.hist.{host,device,overlap}_ms_per_tick`` /
+``serving.hist.tick_ms`` / ``serving.hist.{queue_wait,ttft,tpot}_ms``.
+A labeled engine writes each also under ``serving.<label>.…``.
 """
 from __future__ import annotations
 
@@ -100,12 +136,15 @@ import torch
 
 from .. import monitor
 from ..core.device import resolve_device
+from ..core.flags import get_flag
 from ..kernels.paged_attention import paged_kernel_requirements
 from ..text.generation import (_model_forward, _resolve_cache_dtype,
                                gumbel_noise, sample_token_arrays,
                                verify_token_arrays)
+from . import tracing
 from .allocator import PageAllocator
 from .prefix_cache import PrefixCache
+from .reliability import InjectedFault, injector_from_flags
 
 # request lifecycle states
 WAITING = "WAITING"
@@ -115,13 +154,19 @@ FINISHED = "FINISHED"
 PREEMPTED = "PREEMPTED"
 FAILED = "FAILED"
 
-_LATER = "a later serving slice of the port"
+#: prefill attempts before a transiently failing request is FAILED
+#: (injected device errors and unexpected prefill errors requeue up to
+#: this many times). Pool-pressure requeues (PoolPressure) are exempt:
+#: under chunked prefill, admission charges only the first slice, so a
+#: dry pool mid-prompt is the normal backpressure path.
+MAX_PREFILL_RETRIES = 3
 
 
 class PoolPressure(RuntimeError):
     """A prefill slice could not get pages (pool dry after eviction):
-    the request goes back to the queue and retries; running sequences
-    finishing or being preempted free the pages it waits for."""
+    the request goes back to the queue and retries without burning its
+    retry budget; running sequences finishing or being preempted free
+    the pages it waits for."""
 
 
 @dataclass
@@ -135,6 +180,9 @@ class SamplingParams:
     top_p: float = 0.0
     eos_token_id: Optional[int] = None
     seed: int = 0
+    # enforced on the engine clock at every step: a request past its
+    # deadline — or one still waiting for a slot after max_queue_steps
+    # steps — is FAILED ("deadline" / "queue_timeout"), pages freed
     deadline_ms: Optional[float] = None
     max_queue_steps: Optional[int] = None
 
@@ -145,16 +193,24 @@ class SamplingParams:
         if float(self.temperature) < 0:
             raise ValueError(
                 f"temperature must be >= 0, got {self.temperature}")
-        if self.deadline_ms is not None or self.max_queue_steps is not None:
-            raise NotImplementedError(
-                f"deadline_ms / max_queue_steps come with {_LATER}")
+        if self.deadline_ms is not None and float(self.deadline_ms) <= 0:
+            raise ValueError(
+                f"deadline_ms must be > 0, got {self.deadline_ms}")
+        if self.max_queue_steps is not None \
+                and int(self.max_queue_steps) < 1:
+            raise ValueError(
+                f"max_queue_steps must be >= 1, got "
+                f"{self.max_queue_steps}")
 
 
 @dataclass
 class Output:
     """One retired request: the generated continuation (including the
     eos token when one was emitted) plus serving latencies. A FAILED
-    request (NaN logits) surfaces here too, with ``error`` set."""
+    request surfaces here too: ``finish_reason`` names the failure
+    ("cancelled" / "deadline" / "queue_timeout" / "nan_logits" /
+    "error:…"), ``error`` carries it, and ``token_ids`` holds what was
+    generated before it."""
 
     req_id: int
     prompt_ids: List[int]
@@ -164,6 +220,9 @@ class Output:
     tpot_ms: float                # mean inter-token latency after that
     preemptions: int = 0
     error: Optional[str] = None   # None iff the request FINISHED
+    # the request's span timeline (tracing.py): QUEUED -> PREFILL slices
+    # -> DECODE -> ... -> FINISHED / FAILED, contiguous on the engine clock
+    spans: List[dict] = field(default_factory=list)
 
     @property
     def ok(self) -> bool:
@@ -188,10 +247,15 @@ class Request:
     written: int = 0                      # tokens in the paged cache
     admit_seq: int = -1                   # admission order (preemption)
     preemptions: int = 0
+    retries: int = 0                      # failed prefill attempts
+    queued_step: int = -1                 # step the request last queued
     arrival_t: float = 0.0
     first_token_t: float = 0.0
     finish_t: float = 0.0
     finish_reason: Optional[str] = None
+    # host-truth span log (tracing.py) on the engine clock: plain dicts,
+    # so it rides snapshot/restore
+    spans: List[dict] = field(default_factory=list)
 
     def resume_tokens(self) -> List[int]:
         """The prefix a (re-)prefill writes into the cache: the prompt
@@ -287,11 +351,15 @@ def inject_bt(pools, bt):
 class _PendingTick:
     """One queued decode dispatch: the device outputs to fetch, the
     (slot, request) pairs it covered (harvest skips rows whose request
-    left DECODE in between), and what the harvest needs of its kind."""
+    left DECODE in between), the attribution bookkeeping (the host clock
+    when the dispatch's launches returned and the ``_device_s`` mark, for
+    ``_sync_timed``'s window), and what the harvest needs of its kind."""
 
     kind: str                 # "single" | "multi" | "spec"
     data: tuple
     active: list
+    t_dispatch: float         # perf_counter after the launches
+    dev_mark: float           # self._device_s at dispatch
     ticks: int = 1            # device ticks this dispatch covers
     k: int = 0                # multi: fused ticks; spec: draft length
     # spec: each sampled row's generator state after 1..k+1 draws
@@ -314,6 +382,15 @@ class Engine:
     model (and a draft model) must live on that device. On ``cuda`` the
     constructor checks that the decode kernel takes the pool geometry
     and launches the kernel library's probe once.
+
+    Reliability knobs: ``clock`` (the injectable clock every timestamp,
+    deadline and span reads; ``time.perf_counter`` by default),
+    ``fault_injector`` (a ``FaultInjector``; None arms one from
+    ``FLAGS_serving_fault_*``, off by default; False forces it off),
+    ``debug_invariants`` (audit the allocator after every step and
+    raise on a finding; None reads ``FLAGS_serving_debug_invariants``)
+    and ``label`` (names the engine in span timelines and writes its
+    metrics also under ``serving.<label>.…``).
     """
 
     def __init__(self, model, max_slots: int = 8, page_size: int = 16,
@@ -330,15 +407,8 @@ class Engine:
                  multi_tick: int = 1,
                  fault_injector=None,
                  clock=None,
+                 debug_invariants: Optional[bool] = None,
                  label: Optional[str] = None):
-        unsupported = [
-            ("fault_injector", fault_injector not in (None, False)),
-            ("clock (deadlines)", clock is not None),
-            ("label (span tracing)", label is not None),
-        ]
-        for knob, on in unsupported:
-            if on:
-                raise NotImplementedError(f"Engine {knob} comes with {_LATER}")
         spec = serving_model_spec(model)
         if spec.get("kind") == "encoder":
             raise ValueError(
@@ -448,6 +518,43 @@ class Engine:
         # any host-side slot change or token emitted outside the fused
         # path, so the next fused dispatch uploads them again
         self._multi_clean = False
+        self._init_reliability(clock, fault_injector, debug_invariants,
+                               label)
+
+    def _init_reliability(self, clock, fault_injector, debug_invariants,
+                          label):
+        """The reliability and observability state (the JAX engine's
+        ``__init__`` :637-698)."""
+        # every timestamp, deadline and span reads this clock (tests and
+        # replays inject a virtual one); host/device attribution alone
+        # stays on time.perf_counter
+        self._clock = clock if clock is not None else time.perf_counter
+        self.label = str(label) if label is not None else "engine"
+        self._mon = monitor.scope(label)
+        # LIVE requests only (retired ones leave at _retire)
+        self.requests: Dict[int, Request] = {}
+        if fault_injector is False:
+            self._injector = None
+        elif fault_injector is None:
+            self._injector = injector_from_flags()
+        else:
+            self._injector = fault_injector
+        self._debug_invariants = (
+            bool(get_flag("serving_debug_invariants"))
+            if debug_invariants is None else bool(debug_invariants))
+        # the decode.nan fault: a [S] vector with a NaN at the victim's
+        # row, uploaded on the fault tick and added to that dispatch's
+        # sampling logits only (a clean tick launches nothing for it)
+        self._poison_dev: Optional[torch.Tensor] = None
+        self._poisoned = False
+        # host work that ran while the device executed the in-flight
+        # dispatch (_sync_timed): booked as device time, published as
+        # serving.overlap_ms_per_tick
+        self._overlap_s = 0.0
+        # EWMA of a device tick on the injectable clock: the unit of the
+        # multi-tick deadline clamp (_deadline_ticks)
+        self._tick_est_ms = 0.0
+        self.last_stall_snapshot: Optional[dict] = None
 
     def _init_moe(self, spec):
         """MoE models: read the MoE layer's fallback reason once, as the
@@ -506,12 +613,37 @@ class Engine:
         """Host -> device upload of engine state."""
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
-    def _fetch(self, *ts):
-        """Device -> host numpy copies, the wait charged to the step's
-        device share (``serving.device_ms_per_tick``)."""
+    def _sync_timed(self, ts, dispatch_t: Optional[float] = None,
+                    dev_mark: float = 0.0):
+        """Device -> host numpy copies of ``ts`` (the first copy waits for
+        the dispatched work), the wait charged to the step's DEVICE share
+        (the JAX engine's ``_sync_timed``).
+
+        A decode harvest passes ``dispatch_t``, the host clock when its
+        dispatch's launches had all returned, and ``dev_mark``, the
+        ``_device_s`` reading then. When the wait actually blocked, the
+        device was busy for the whole dispatch -> ready window (its work
+        was queued and not done), so the host work that ran inside it is
+        charged to the device share and counted as OVERLAP (device
+        seconds other syncs already claimed inside the window are
+        subtracted). A wait that returns at once means the device
+        finished at an unknown point during the host work, so only the
+        measured wait is charged: the conservative split that keeps the
+        host share honest when the host is the bottleneck. The window
+        opens after the launches, where the JAX engine opens it before
+        its executable call: an eager dispatch's launches are host work
+        (at k=1 most of a tick), and the device may idle behind them."""
         t0 = time.perf_counter()
         out = [t.cpu().numpy() for t in ts]
-        self._device_s += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        blocked = t1 - t0
+        if dispatch_t is not None:
+            extra = (t1 - dispatch_t) - (self._device_s - dev_mark)
+            if blocked > 5e-5 and extra > blocked:
+                self._device_s += extra
+                self._overlap_s += extra - blocked
+                return out
+        self._device_s += blocked
         return out
 
     def _pbucket(self, n: int) -> int:
@@ -585,49 +717,99 @@ class Engine:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(params.seed))
         req = Request(req_id=rid, prompt=prompt, params=params,
-                      generator=gen, arrival_t=time.perf_counter())
+                      generator=gen, arrival_t=self._clock(),
+                      queued_step=self._steps)
         self._next_id += 1
+        self.requests[rid] = req
         self._waiting.append(req)
-        monitor.counter("serving.requests").increase()
+        tracing.open_span(req.spans, tracing.QUEUED, req.arrival_t * 1e3,
+                          self.label)
+        self._mon.counter("serving.requests").increase()
         return rid
 
     def step(self) -> List[Output]:
-        """One scheduler tick: queue the decode work for the slots the
-        last step settled, admit and prefill new requests while the
-        device works, harvest the tokens (retiring finished requests),
-        then grow pages for the next dispatch. Returns the requests that
-        finished or failed during this tick. Under ``multi_tick`` one
-        step may cover up to k device ticks."""
+        """One scheduler tick, in the JAX engine's order: queue the
+        decode work for the slots the last step settled, then — while
+        the device works — the deadline sweep, admission and prefill,
+        then harvest the tokens (retiring finished requests) and grow
+        pages for the next dispatch. Returns the requests that finished
+        or failed during this tick; a per-request failure (deadline, NaN
+        logits, a prefill error) retires that request and never raises
+        out of here. Under ``multi_tick`` one step may cover up to k
+        device ticks, and a deadline may be overrun by one dispatch."""
         outputs: List[Output] = []
         wall0 = time.perf_counter()
+        clk0 = self._clock()
         self._device_s = 0.0
+        self._overlap_s = 0.0
+        if self._injector is not None:
+            self._injector.on_step(self._steps)
+            self._prefix_faults()
         with torch.no_grad():
-            pending = self._decode_dispatch()
+            # (a) the decode work of the slots settled by the last step
+            pending = self._safe_decode()
+            # (b) the overlap window: a request retired here has its
+            # in-flight tokens discarded at harvest; pages it frees may
+            # go to a prefill below, whose writes follow the dispatch on
+            # the stream
+            outputs.extend(self._expire())
             self._pf_step_tokens = 0
             self._admit()
             outputs.extend(self._run_prefills())
+            # (c) sync + harvest, (d) page growth for the next dispatch
             outputs.extend(self._decode_harvest(pending))
             self._ensure_pages()
+        if self._injector is not None and \
+                self._injector.fire("alloc.refcount_skew", record=False):
+            # a stray reference on a live page (a lost free, a doubled
+            # share): the audit below must repair it; recorded only when
+            # a live page existed to skew
+            held = [p for r in self._slots if r is not None
+                    for p in r.pages]
+            if held:
+                self._injector.record("alloc.refcount_skew")
+                self._alloc.share(
+                    held[int(self._injector.rng.integers(0, len(held)))])
+        self._maybe_audit()
         if self._moe_layer is not None:
             self._republish_moe_paths()
-        monitor.counter("serving.steps").increase()
+        self._mon.counter("serving.steps").increase()
         self._publish_gauges()
+        # host/device attribution on the wall clock (never the
+        # injectable one); under multi_tick these are per dispatch
         wall_ms = (time.perf_counter() - wall0) * 1e3
         dev_ms = min(self._device_s * 1e3, wall_ms)
-        for name, v in (("host", wall_ms - dev_ms), ("device", dev_ms)):
-            monitor.gauge(f"serving.{name}_ms_per_tick").set(v)
-            monitor.histogram(f"serving.hist.{name}_ms_per_tick").record(v)
-        if pending is not None and self.multi_tick > 1:
-            monitor.gauge("serving.multi_tick.ticks_per_dispatch").set(
-                pending.ticks)
+        ov_ms = min(self._overlap_s * 1e3, dev_ms)
+        for name, v in (("host", wall_ms - dev_ms), ("device", dev_ms),
+                        ("overlap", ov_ms)):
+            self._mon.gauge(f"serving.{name}_ms_per_tick").set(v)
+            self._mon.histogram(f"serving.hist.{name}_ms_per_tick").record(v)
+        self._mon.histogram("serving.hist.tick_ms").record(wall_ms)
+        if pending is not None:
+            if self.multi_tick > 1:
+                self._mon.gauge("serving.multi_tick.ticks_per_dispatch").set(
+                    pending.ticks)
+            # a device tick's duration on the INJECTABLE clock: the unit
+            # of the deadline clamp
+            d_ms = (self._clock() - clk0) * 1e3 / max(1, pending.ticks)
+            self._tick_est_ms = d_ms if self._tick_est_ms <= 0.0 \
+                else 0.7 * self._tick_est_ms + 0.3 * d_ms
         self._steps += 1
         return outputs
 
-    def run(self, requests: Sequence, max_steps: int = 100_000
-            ) -> List[Output]:
+    def run(self, requests: Sequence, max_steps: int = 100_000,
+            heartbeat_timeout: Optional[float] = None,
+            snapshot_path: Optional[str] = None) -> List[Output]:
         """Offline serving: queue every (ids, SamplingParams) pair — bare
-        ids get default params — then step until all finish. Returns
-        Outputs ordered by request id."""
+        ids get default params — then step until all finish or fail.
+        Returns Outputs ordered by request id.
+
+        ``heartbeat_timeout=T`` attaches a ``Heartbeat``: every step
+        ticks it, and a loop that makes no progress for T seconds (one
+        step is one DISPATCH, up to k device ticks under
+        ``multi_tick``) triggers ``_stall_report`` — a stack dump of
+        every thread plus a host-state snapshot, written to
+        ``snapshot_path`` when given and kept on ``last_stall_snapshot``."""
         ids_list = []
         for item in requests:
             if isinstance(item, (tuple, list)) and len(item) == 2 and \
@@ -636,16 +818,90 @@ class Engine:
             else:
                 ids_list.append(self.add_request(item))
         want = set(ids_list)
+        hb = None
+        if heartbeat_timeout is not None:
+            from ..distributed.watchdog import Heartbeat
+            hb = Heartbeat(float(heartbeat_timeout),
+                           on_stall=lambda age: self._stall_report(
+                               age, snapshot_path))
+            hb.start()
         outs: List[Output] = []
-        for _ in range(max_steps):
-            outs.extend(o for o in self.step() if o.req_id in want)
-            if len(outs) == len(want):
-                break
-        else:
-            raise RuntimeError(
-                f"engine did not drain in {max_steps} steps "
-                f"({len(outs)}/{len(want)} finished)")
+        try:
+            for _ in range(max_steps):
+                outs.extend(o for o in self.step() if o.req_id in want)
+                if hb is not None:
+                    hb.tick()
+                if len(outs) == len(want):
+                    break
+            else:
+                raise RuntimeError(
+                    f"engine did not drain in {max_steps} steps "
+                    f"({len(outs)}/{len(want)} finished)")
+        finally:
+            if hb is not None:
+                hb.stop()
         return sorted(outs, key=lambda o: o.req_id)
+
+    def cancel(self, req_id: int) -> Optional[Output]:
+        """Abort a live or queued request now: its slot is freed, its
+        pages return to the pool, and its Output (``finish_reason``
+        "cancelled", the tokens generated so far) is returned. Unknown or
+        already-retired ids return None. Safe at any point of the
+        lifecycle: waiting, preempted, mid-prefill or mid-decode."""
+        req = self.requests.get(int(req_id))
+        if req is None or req.state in (FINISHED, FAILED):
+            return None
+        self._mon.counter("serving.cancelled").increase()
+        return self._fail(req, "cancelled")
+
+    def snapshot(self, sync: bool = True) -> dict:
+        """Crash-exact host-state snapshot (reliability.py has the
+        format): queued and live requests' tokens, sampling params,
+        generator states, admission order, prefix-index metadata — not
+        the KV pools. ``sync`` is the JAX engine's knob (skip the device
+        fetch of live rng keys on a wedged device); the port's generator
+        states are host bookkeeping, so the snapshot is exact either
+        way."""
+        from .reliability import snapshot_engine
+        return snapshot_engine(self, sync=sync)
+
+    def restore(self, snap: dict, strict: bool = True) -> int:
+        """Re-admit a snapshot's requests into this (fresh or drained)
+        engine through the preemption / resume-prefill machinery; the
+        restored run emits the uninterrupted run's tokens. Returns the
+        number of requests re-admitted."""
+        from .reliability import restore_engine
+        return restore_engine(self, snap, strict=strict)
+
+    def snapshot_to(self, path: str, sync: bool = True) -> str:
+        from .reliability import save_snapshot
+        return save_snapshot(self.snapshot(sync=sync), path)
+
+    def restore_from(self, path: str, strict: bool = True) -> int:
+        from .reliability import load_snapshot
+        return self.restore(load_snapshot(path), strict=strict)
+
+    def check_invariants(self, repair: bool = False) -> List[str]:
+        """Cross-check the allocator against every reference the engine
+        can account for (live requests' pages plus one per prefix-cache
+        entry), the allocator's own free-list / refcount consistency and
+        the prefix index's digest integrity. Returns the findings (empty
+        = healthy); ``repair=True`` also fixes them. Run each step under
+        ``debug_invariants`` (raise on findings) or an injector armed at
+        ``alloc.refcount_skew`` (repair and count)."""
+        expected: Dict[int, int] = {}
+        for r in self.requests.values():
+            held = r.pages if r.pages else (r.shared_pages or [])
+            for p in held:
+                expected[p] = expected.get(p, 0) + 1
+        if self._prefix is not None:
+            for ent in self._prefix._store.values():
+                expected[ent.page] = expected.get(ent.page, 0) + 1
+        findings = self._alloc.check_invariants(expected=expected,
+                                                repair=repair)
+        if self._prefix is not None:
+            findings += self._prefix.check_integrity(repair=repair)
+        return findings
 
     @property
     def num_waiting(self) -> int:
@@ -702,6 +958,198 @@ class Engine:
             self._prefix.clear()
         return self.pool_pages - self.pages_free
 
+    # -- reliability internals -----------------------------------------------
+
+    def _fault(self, site: str) -> bool:
+        """One fault-point query (False with no injector armed: the
+        production path's one ``is not None`` test)."""
+        return self._injector is not None and self._injector.fire(site)
+
+    def _fault_raise(self, site: str) -> None:
+        if self._fault(site):
+            raise InjectedFault(site)
+
+    def _prefix_faults(self) -> None:
+        """The step's prefix-cache fault points: a forced digest
+        collision (the exact-token compare must make it a miss) and a
+        corrupted entry (never hit again; the audit or eviction reclaims
+        it)."""
+        if self._prefix is None:
+            return
+        if self._fault("prefix.hash_collision"):
+            self._prefix.force_collision()
+        if self._injector.fire("prefix.stale_entry", record=False) \
+                and len(self._prefix):
+            # recorded only when there was an entry to corrupt
+            self._injector.record("prefix.stale_entry")
+            self._prefix.corrupt_entry(self._injector.rng)
+
+    def _maybe_audit(self) -> None:
+        auditing = self._debug_invariants or (
+            self._injector is not None
+            and self._injector.enabled("alloc.refcount_skew"))
+        if not auditing:
+            return
+        repair = self._injector is not None
+        findings = self.check_invariants(repair=repair)
+        if findings:
+            if repair:
+                monitor.counter("serving.invariant_repairs").increase(
+                    len(findings))
+            else:
+                raise RuntimeError(
+                    "engine invariant audit failed "
+                    "(FLAGS_serving_debug_invariants):\n  "
+                    + "\n  ".join(findings))
+
+    def _expire(self) -> List[Output]:
+        """The step's deadline sweep, in the overlap window: fail every
+        request past its deadline (waiting OR running: its pages free
+        now) and every waiting request past its queue-step budget.
+        Enforcement lands on dispatch boundaries: under ``multi_tick``
+        a deadline can be overrun by one dispatch (``_deadline_ticks``
+        shrinks the fused k toward the nearest deadline), and an expired
+        request's in-flight tokens are discarded at harvest."""
+        outs: List[Output] = []
+        now = self._clock()
+        for req in list(self._waiting) + [r for r in self._slots
+                                          if r is not None]:
+            p = req.params
+            if p.deadline_ms is not None and \
+                    (now - req.arrival_t) * 1e3 > float(p.deadline_ms):
+                self._mon.counter("serving.timeouts").increase()
+                outs.append(self._fail(req, "deadline"))
+            elif p.max_queue_steps is not None and \
+                    req.state in (WAITING, PREEMPTED) and \
+                    self._steps - req.queued_step \
+                    > int(p.max_queue_steps):
+                self._mon.counter("serving.timeouts").increase()
+                outs.append(self._fail(req, "queue_timeout"))
+        return outs
+
+    def _stall_report(self, age: float,
+                      snapshot_path: Optional[str] = None) -> None:
+        """Heartbeat stall callback (the watcher thread): dump every
+        thread's stack to stderr and snapshot the host state — the trail
+        a wedged serving process leaves before it is killed. The snapshot
+        reads no device memory (``sync=False``)."""
+        import faulthandler
+        monitor.counter("serving.stalls").increase()
+        print(f"engine watchdog: run() loop stalled for {age:.1f}s at "
+              f"step {self._steps} ({self.num_active} active, "
+              f"{len(self._waiting)} waiting, "
+              f"{self._alloc.free_pages} pages free) — dumping stacks "
+              f"and snapshotting", flush=True)
+        try:
+            faulthandler.dump_traceback(all_threads=True)
+        except (OSError, RuntimeError, ValueError):
+            pass    # stderr gone: the snapshot below still matters
+        try:
+            self.last_stall_snapshot = self.snapshot(sync=False)
+            if snapshot_path:
+                from .reliability import save_snapshot
+                save_snapshot(self.last_stall_snapshot, snapshot_path)
+        except Exception as e:  # noqa: BLE001 — diagnostics must not raise
+            print(f"engine watchdog: stall snapshot failed: {e!r}",
+                  flush=True)
+
+    def _safe_prefill(self, req: Request,
+                      cap: Optional[int] = None) -> Optional[Output]:
+        """Isolation wrapper: a failing prefill requeues or retires THIS
+        request, with the pages it took rolled back; the other slots are
+        untouched and step() goes on."""
+        try:
+            return self._prefill(req, cap)
+        except PoolPressure as e:
+            # backpressure, not a failure: wait for pages without
+            # burning the retry budget
+            return self._requeue(req, str(e).partition("\n")[0],
+                                 count_retry=False)
+        except InjectedFault:
+            monitor.counter("serving.step_errors").increase()
+            return self._requeue(req, "injected device error")
+        except RuntimeError as e:
+            # other transient prefill errors retry on a later step,
+            # against the retry budget
+            return self._requeue(req, str(e).partition("\n")[0]
+                                 or type(e).__name__)
+        except Exception as e:  # noqa: BLE001 — request isolation
+            monitor.counter("serving.step_errors").increase()
+            return self._fail(req, f"error:{type(e).__name__}")
+
+    def _requeue(self, req: Request, why: str,
+                 count_retry: bool = True) -> Optional[Output]:
+        self._rollback_prefill(req)
+        if count_retry:
+            req.retries += 1
+            if req.retries > MAX_PREFILL_RETRIES:
+                return self._fail(req, f"error:prefill ({why})")
+        req.state = PREEMPTED if req.generated else WAITING
+        req.queued_step = self._steps
+        self._waiting.appendleft(req)
+        return None
+
+    def _rollback_prefill(self, req: Request) -> None:
+        """Undo a partly run prefill: drop every page reference the
+        request holds (merged or still admission-only) and hand its slot
+        back."""
+        self._clear_slot(req)
+
+    def _safe_decode(self) -> Optional[_PendingTick]:
+        """Isolation wrapper around the decode dispatch: an injected
+        device error fires BEFORE anything is launched (host state
+        coherent), so the step just skips the tick and the next retries
+        it — one step of latency, never corruption."""
+        try:
+            return self._decode_dispatch()
+        except InjectedFault:
+            monitor.counter("serving.step_errors").increase()
+            return None
+
+    def _poison_slot(self, active: List[int]) -> None:
+        """The decode.nan fault point: pick one active slot (the
+        injector's Generator) and add a NaN to its sampling logits this
+        tick; the finite-logits flag must fail exactly that slot. The
+        vector goes up on the current stream, ahead of the dispatch."""
+        if active and self._fault("decode.nan"):
+            victim = active[int(
+                self._injector.rng.integers(0, len(active)))]
+            pz = np.zeros((self.max_slots,), np.float32)
+            pz[victim] = np.nan
+            self._poison_dev = self._up(pz)
+            self._poisoned = True
+
+    def _unpoison(self) -> None:
+        if self._poisoned:
+            self._poison_dev = None
+            self._poisoned = False
+
+    def _poison(self, logits: torch.Tensor) -> torch.Tensor:
+        """``logits`` ([S, ...] f32) plus this tick's poison vector on a
+        fault tick; unchanged (nothing launched) otherwise."""
+        if not self._poisoned:
+            return logits
+        pv = self._poison_dev.view((-1,) + (1,) * (logits.dim() - 1))
+        return logits + pv
+
+    def _open_span(self, req: Request, phase: str,
+                   slot: Optional[int] = None, **detail) -> None:
+        """Open the request's next span at the engine clock, closing the
+        one before at the same instant. A QUEUED or PREEMPTED span that
+        closes into PREFILL is a queue wait
+        (``serving.hist.queue_wait_ms``)."""
+        t = self._clock() * 1e3
+        closed = tracing.close_open(req.spans, t)
+        if closed is not None:
+            dur = closed["t1_ms"] - closed["t0_ms"]
+            if closed["phase"] == tracing.MIGRATING:
+                self._mon.histogram("serving.hist.migration_ms").record(dur)
+            elif closed["phase"] in (tracing.QUEUED, tracing.PREEMPTED) \
+                    and phase == tracing.PREFILL:
+                self._mon.histogram("serving.hist.queue_wait_ms").record(dur)
+        tracing.open_span(req.spans, phase, t, self.label, slot=slot,
+                          **detail)
+
     # -- scheduler internals -------------------------------------------------
 
     def _admit(self) -> None:
@@ -720,9 +1168,9 @@ class Engine:
                 # request appends into stays private
                 req.shared_pages, req.prefix_len = self._prefix.acquire(
                     toks, max_chunks=(len(toks) - 1) // self.page_size)
-                monitor.counter("serving.prefix_lookups").increase()
+                self._mon.counter("serving.prefix_lookups").increase()
                 if req.prefix_len:
-                    monitor.counter("serving.prefix_hits").increase()
+                    self._mon.counter("serving.prefix_hits").increase()
             # shared pages are resident: charge the uncached tail only,
             # and under chunked prefill only its first slice
             tail = len(toks) - req.prefix_len
@@ -774,15 +1222,7 @@ class Engine:
                 if left <= 0 and req is not oldest:
                     continue
                 cap = max(self.prefill_bucket, left)
-            try:
-                out = self._prefill(req, cap)
-            except PoolPressure:
-                # admission charged only the first slice: a dry pool
-                # mid-prompt waits, back in the queue, for pages
-                self._clear_slot(req)
-                req.state = PREEMPTED if req.generated else WAITING
-                self._waiting.appendleft(req)
-                out = None
+            out = self._safe_prefill(req, cap)
             if out is not None:
                 outs.append(out)
         return outs
@@ -817,6 +1257,12 @@ class Engine:
         # pages for REAL tokens only: block-table entries beyond them
         # stay 0, so bucket-padding writes land in the scratch page
         need = _ceil_div(start + T, self.page_size) - len(req.pages)
+        if self._fault("alloc.exhausted"):
+            # a simulated admission race: pool pressure, which
+            # _safe_prefill turns into a budget-free requeue
+            raise PoolPressure(
+                f"injected pool exhaustion: sequence {req.req_id} "
+                f"requested {need} page(s)")
         if need > 0:
             try:
                 priv = self._alloc.alloc(need, seq=req.req_id)
@@ -832,15 +1278,22 @@ class Engine:
         bt_row[0, :len(req.pages)] = req.pages
         prompt = np.zeros((1, pb), np.int64)
         prompt[0, :T] = toks[start:start + T]
+        # one span per slice: the QUEUED (or PREEMPTED) wait closes here
+        self._open_span(req, tracing.PREFILL, slot=req.slot,
+                        start=int(start), tokens=int(T))
         bt_dev, prompt_dev = self._up(bt_row), self._up(prompt)
         start_dev = torch.tensor([start], dtype=torch.int64,
                                  device=self.device)
+        self._fault_raise("prefill.device_error")
+        poisoned = self._fault("prefill.nan")
         logits = _model_forward(self.model, prompt_dev,
                                 self._inject_bt(bt_dev), start_dev)
         if self._spec is not None:
             # the same chunk into the draft pools (same pages, positions)
             self._spec.prefill(bt_dev, prompt_dev, start_dev)
         cur = logits[:, T - 1].float()                       # [1, V]
+        if poisoned:
+            cur = cur + float("nan")
         ok = torch.isfinite(cur).all(dim=-1)
         if fresh and final:
             p = req.params
@@ -849,15 +1302,18 @@ class Engine:
                 torch.tensor([p.temperature], device=self.device),
                 torch.tensor([p.top_k], device=self.device),
                 torch.tensor([p.top_p], device=self.device))
-            ok_h, tok_h = self._fetch(ok, tok)
+            ok_h, tok_h = self._sync_timed((ok, tok))
         else:
-            ok_h, = self._fetch(ok)
-        monitor.counter("serving.prefill_tokens").increase(pb)
-        monitor.counter("serving.prefill_slices").increase()
+            ok_h, = self._sync_timed((ok,))
+        self._mon.counter("serving.prefill_tokens").increase(pb)
+        self._mon.counter("serving.prefill_slices").increase()
         self._pf_step_tokens += pb
         if start == req.prefix_len:
             monitor.counter("serving.prefix_tokens_reused").increase(start)
         if not bool(ok_h[0]):
+            # the request is quarantined: pages freed, nothing enters the
+            # prefix cache, the other slots never see it
+            self._mon.counter("serving.nan_quarantines").increase()
             return self._fail(req, "nan_logits")
         req.written = start + T
         if not final:
@@ -869,8 +1325,8 @@ class Engine:
         if fresh:
             t = int(tok_h[0])
             req.generated.append(t)
-            req.first_token_t = time.perf_counter()
-            monitor.counter("serving.tokens").increase()
+            req.first_token_t = self._clock()
+            self._mon.counter("serving.tokens").increase()
             reason = self._finish_reason(req, t)
             if reason:
                 return self._finish(req, reason)
@@ -890,6 +1346,9 @@ class Engine:
         self._bt_dirty = True
         self._multi_clean = False
         req.state = DECODE
+        # one DECODE span from activation to finish / preemption (not one
+        # a tick: the timeline stays O(lifecycle transitions))
+        self._open_span(req, tracing.DECODE, slot=i)
 
     def _ensure_pages(self):
         """Before the decode dispatch, every active slot must own every
@@ -929,6 +1388,12 @@ class Engine:
     def _alloc_or_preempt(self, req: Request):
         while True:
             try:
+                if self._fault("alloc.exhausted"):
+                    # simulated mid-decode pool pressure: the same
+                    # evict-or-preempt ladder a real dry pool takes
+                    raise RuntimeError(
+                        f"injected pool exhaustion: sequence "
+                        f"{req.req_id} requested 1 page")
                 return self._alloc.alloc(1, seq=req.req_id)
             except RuntimeError:
                 # an idle cached prefix goes before any live sequence;
@@ -950,10 +1415,12 @@ class Engine:
         """Evict back to the front of the waiting queue: pages freed,
         tokens and generator kept — a resume prefill rebuilds the
         cache."""
-        monitor.counter("serving.preemptions").increase()
+        self._mon.counter("serving.preemptions").increase()
         req.preemptions += 1
+        self._open_span(req, tracing.PREEMPTED, kind="pages")
         self._clear_slot(req)
         req.state = PREEMPTED if req.generated else WAITING
+        req.queued_step = self._steps       # a fresh queue-age budget
         self._waiting.appendleft(req)
 
     def _decode_dispatch(self) -> Optional[_PendingTick]:
@@ -975,13 +1442,17 @@ class Engine:
             variant = "filtered"
         else:
             variant = "plain"
+        # an injected device loss fires BEFORE anything is launched or
+        # any generator drawn: _safe_decode skips the tick
+        self._fault_raise("decode.device_error")
+        self._poison_slot(active)
         snap = [(i, self._slots[i]) for i in active]
         self._flush_bt()
         if self._spec is not None:
             if self.multi_tick > 1:
                 # speculation owns the horizon: every dispatch of a
                 # multi_tick config is counted as an exclusion
-                monitor.counter("serving.multi_tick.clamp.spec").increase()
+                self._mon.counter("serving.multi_tick.clamp.spec").increase()
             return self._dispatch_spec(snap, variant)
         mk = self._multi_k(active, variant)
         if mk > 1:
@@ -990,7 +1461,8 @@ class Engine:
         logits = _model_forward(self.model, self._up(self._last)[:, None],
                                 self._inject_bt(self._bt_dev),
                                 self._up(idx))
-        cur = logits[:, -1].float()
+        cur = self._poison(logits[:, -1].float())
+        self._unpoison()
         ok = torch.isfinite(cur).all(dim=-1)
         if variant == "greedy":
             nxt = torch.argmax(cur, dim=-1)
@@ -1002,20 +1474,24 @@ class Engine:
                 self._up(self._topks), self._up(self._topps),
                 use_filters=variant == "filtered")
         self._ticks += 1
-        return _PendingTick(kind="single", data=(nxt, ok), active=snap)
+        return _PendingTick(kind="single", data=(nxt, ok), active=snap,
+                            t_dispatch=time.perf_counter(),
+                            dev_mark=self._device_s)
 
     def _multi_k(self, active: List[int], variant: str) -> int:
         """Eligibility ladder and clamp of the fused multi-tick decode:
         only when every live slot is in a greedy stretch with nothing
         pending host-side (greedy variant, nothing waiting, no slot
-        mid-prefill, no draft model). k is clamped to the longest
-        remaining budget (shorter rows freeze in the loop) and to the
-        tightest allocated page coverage (no allocator inside the loop),
-        then rounded DOWN to a bucket. (Deadlines, and with them the
-        JAX engine's deadline clamp, come with a later slice.)"""
+        mid-prefill, no draft model, no NaN armed for this tick — the
+        quarantine must land on the tick single-tick decoding gives it).
+        k is clamped to the longest remaining budget (shorter rows
+        freeze in the loop), to the tightest allocated page coverage (no
+        allocator inside the loop) and to the nearest deadline
+        (``_deadline_ticks``), then rounded DOWN to a bucket."""
         K = self.multi_tick
         if (K <= 1 or self._spec is not None or variant != "greedy"
-                or self._waiting or self.num_prefilling):
+                or self._waiting or self._poisoned
+                or self.num_prefilling):
             return 1
         horizon = 0      # longest remaining budget over live rows
         cov = None       # tightest allocated-page coverage
@@ -1028,13 +1504,40 @@ class Engine:
         k = K
         if horizon < k:
             k = horizon
-            monitor.counter("serving.multi_tick.clamp.max_new").increase()
+            self._mon.counter("serving.multi_tick.clamp.max_new").increase()
         if cov is not None and cov < k:
             k = cov
-            monitor.counter("serving.multi_tick.clamp.pages").increase()
+            self._mon.counter("serving.multi_tick.clamp.pages").increase()
+        dl = self._deadline_ticks(active)
+        if dl < k:
+            k = dl
+            self._mon.counter(
+                "serving.multi_tick.clamp.deadline").increase()
         if k < 2:
             return 1
         return self._multi_bucket(k)
+
+    def _deadline_ticks(self, active: List[int]) -> int:
+        """Ticks until the nearest active deadline, in units of the
+        device-tick EWMA on the injectable clock (``_tick_est_ms``): the
+        deadline leg of the multi-tick clamp. ``multi_tick`` when no slot
+        has a deadline or no estimate exists yet; a slot that still
+        overshoots is expired by ``_expire`` on the next step."""
+        est = self._tick_est_ms
+        if est <= 0.0:
+            return self.multi_tick
+        ticks = self.multi_tick
+        now = None
+        for i in active:
+            req = self._slots[i]
+            dl = req.params.deadline_ms
+            if dl is None:
+                continue
+            if now is None:
+                now = self._clock()
+            left = float(dl) - (now - req.arrival_t) * 1e3
+            ticks = min(ticks, int(left // est))
+        return max(1, ticks)
 
     def _multi_bucket(self, k: int) -> int:
         """Largest bucket <= k: powers of two, plus ``multi_tick`` itself
@@ -1065,10 +1568,11 @@ class Engine:
             self._multi_clean = True
         toks, oks = self._multi.run(k)
         self._ticks += k
-        monitor.counter("serving.multi_tick.dispatches").increase()
-        monitor.counter("serving.multi_tick.ticks").increase(k)
+        self._mon.counter("serving.multi_tick.dispatches").increase()
+        self._mon.counter("serving.multi_tick.ticks").increase(k)
         return _PendingTick(kind="multi", data=(toks, oks), active=snap,
-                            ticks=k, k=k)
+                            t_dispatch=time.perf_counter(),
+                            dev_mark=self._device_s, ticks=k, k=k)
 
     def _dispatch_spec(self, snap, variant: str) -> _PendingTick:
         """Queue one draft/verify tick: the draft proposes k tokens a
@@ -1081,11 +1585,16 @@ class Engine:
         last, pos, live = (self._up(self._last), self._up(self._pos),
                            self._up(self._live))
         drafts = self._spec.draft(self._bt_dev, last, pos, live)
+        if self._fault("spec.disagree"):
+            # a draft/target divergence storm: exact-match verification
+            # must reject the garbage with the emitted stream unchanged
+            drafts = self._spec.sabotage(drafts)
         idx = torch.where(live > 0, pos, torch.full_like(pos, -1))
         logits = _model_forward(self.model,
                                 torch.cat([last[:, None], drafts], dim=1),
                                 self._inject_bt(self._bt_dev), idx)
-        scored = logits.float()
+        scored = self._poison(logits.float())
+        self._unpoison()
         ok = torch.isfinite(scored).all(dim=2).all(dim=1)
         noise, states = None, {}
         if variant != "greedy":
@@ -1105,14 +1614,15 @@ class Engine:
             use_filters=variant == "filtered", greedy=variant == "greedy")
         self._ticks += 1
         return _PendingTick(kind="spec", data=(toks, acc, ok), active=snap,
-                            k=k, gen_states=states)
+                            t_dispatch=time.perf_counter(),
+                            dev_mark=self._device_s, k=k, gen_states=states)
 
     def _decode_harvest(self, pend: Optional[_PendingTick]
                         ) -> List[Output]:
         """Fetch the queued dispatch's tokens and retire its rows."""
         if pend is None:
             return []
-        host = self._fetch(*pend.data)
+        host = self._sync_timed(pend.data, pend.t_dispatch, pend.dev_mark)
         if pend.kind == "multi":
             return self._harvest_multi(pend, *host)
         if pend.kind == "spec":
@@ -1124,7 +1634,9 @@ class Engine:
         and return its finish reason, if any."""
         req.written += 1
         req.generated.append(tok)
-        monitor.counter("serving.tokens").increase()
+        if req.first_token_t == 0.0:      # a restored request's first
+            req.first_token_t = self._clock()
+        self._mon.counter("serving.tokens").increase()
         return self._finish_reason(req, tok)
 
     def _harvest_single(self, pend, nxt, okv) -> List[Output]:
@@ -1136,6 +1648,7 @@ class Engine:
             if not bool(okv[i]):
                 # NaN/inf logits on THIS slot only: retire it, every
                 # other lane keeps decoding
+                self._mon.counter("serving.nan_quarantines").increase()
                 outs.append(self._fail(req, "nan_logits"))
                 continue
             tok = int(nxt[i])
@@ -1156,25 +1669,34 @@ class Engine:
         for i, req in pend.active:
             if self._slots[i] is not req or req.state != DECODE:
                 continue
+            done = False
             for j in range(pend.k):
                 if not bool(oks[i, j]):
-                    monitor.counter(
+                    self._mon.counter("serving.nan_quarantines").increase()
+                    self._mon.counter(
                         "serving.multi_tick.scan_exit.nan_logits").increase()
                     outs.append(self._fail(req, "nan_logits"))
-                    exited = True
+                    done = True
                     break
                 tok = int(toks[i, j])
                 reason = self._emit(req, tok)
                 self._pos[i] = req.written
                 self._last[i] = tok
                 if reason:
-                    monitor.counter(
+                    self._mon.counter(
                         "serving.multi_tick.scan_exit." + reason).increase()
                     outs.append(self._finish(req, reason))
-                    exited = True
+                    done = True
                     break
+            if done:
+                exited = True
+            else:
+                # the open DECODE stint records its fused progress
+                tracing.bump_open(req.spans, tracing.DECODE,
+                                  multi_ticks=pend.k, multi_dispatches=1)
         if not exited:
-            monitor.counter("serving.multi_tick.scan_exit.horizon").increase()
+            self._mon.counter(
+                "serving.multi_tick.scan_exit.horizon").increase()
         return outs
 
     def _harvest_spec(self, pend, toks, acc, okv) -> List[Output]:
@@ -1185,6 +1707,7 @@ class Engine:
             if self._slots[i] is not req or req.state != DECODE:
                 continue
             if not bool(okv[i]):
+                self._mon.counter("serving.nan_quarantines").increase()
                 outs.append(self._fail(req, "nan_logits"))
                 continue
             n_acc = int(acc[i])
@@ -1242,18 +1765,25 @@ class Engine:
         req.written = 0
 
     def _finish(self, req: Request, reason: str) -> Output:
-        monitor.counter("serving.finished").increase()
+        self._mon.counter("serving.finished").increase()
         return self._retire(req, reason, FINISHED)
 
     def _fail(self, req: Request, reason: str) -> Output:
-        monitor.counter("serving.failed").increase()
+        """Terminal FAILED(reason): the request is retired now — slot
+        cleared, pages freed, out of the queue — and surfaces as an
+        Output with ``error`` set; every other request keeps serving."""
+        self._mon.counter("serving.failed").increase()
         return self._retire(req, reason, FAILED)
 
     def _retire(self, req: Request, reason: str, state: str) -> Output:
-        req.finish_t = time.perf_counter()
+        queued = req.state in (WAITING, PREEMPTED)
+        req.finish_t = self._clock()
         req.state = state
         req.finish_reason = reason
+        if queued:
+            self._waiting.remove(req)     # failed while queued
         self._clear_slot(req)         # pages freed NOW, not end-of-call
+        self.requests.pop(req.req_id, None)
         n = len(req.generated)
         got_first = req.first_token_t > 0.0
         ttft_ms = ((req.first_token_t - req.arrival_t) * 1e3
@@ -1261,26 +1791,35 @@ class Engine:
         tpot_ms = ((req.finish_t - req.first_token_t) / (n - 1) * 1e3
                    if got_first and n > 1 else 0.0)
         if got_first:
-            monitor.gauge("serving.ttft_ms").set(ttft_ms)
+            self._mon.gauge("serving.ttft_ms").set(ttft_ms)
+            self._mon.histogram("serving.hist.ttft_ms").record(ttft_ms)
         if got_first and n > 1:
-            monitor.gauge("serving.tpot_ms").set(tpot_ms)
+            self._mon.gauge("serving.tpot_ms").set(tpot_ms)
+            self._mon.histogram("serving.hist.tpot_ms").record(tpot_ms)
+        # the terminal span, sealed at finish_t; the Output carries its
+        # own copy of the timeline
+        tracing.seal(req.spans,
+                     tracing.FINISHED if state == FINISHED
+                     else tracing.FAILED,
+                     req.finish_t * 1e3, self.label,
+                     reason=None if state == FINISHED else reason)
         return Output(req_id=req.req_id, prompt_ids=list(req.prompt),
                       token_ids=list(req.generated), finish_reason=reason,
                       ttft_ms=ttft_ms, tpot_ms=tpot_ms,
                       preemptions=req.preemptions,
-                      error=None if state == FINISHED else reason)
+                      error=None if state == FINISHED else reason,
+                      spans=tracing.copy_spans(req.spans))
 
     def _publish_gauges(self):
-        monitor.gauge("serving.slots_active").set(self.num_active)
-        monitor.gauge("serving.pages_free").set(self._alloc.free_pages)
-        monitor.gauge("serving.queue_depth").set(len(self._waiting))
-        monitor.gauge("serving.prefill_tokens_per_step").set(
+        mon = self._mon
+        mon.gauge("serving.slots_active").set(self.num_active)
+        mon.gauge("serving.pages_free").set(self._alloc.free_pages)
+        mon.gauge("serving.queue_depth").set(len(self._waiting))
+        mon.gauge("serving.prefill_tokens_per_step").set(
             self._pf_step_tokens)
         if self._prefix is not None:
-            monitor.gauge("serving.prefix_hit_rate").set(
-                self._prefix.hit_rate)
-            monitor.gauge("serving.prefix_pages_shared").set(
+            mon.gauge("serving.prefix_hit_rate").set(self._prefix.hit_rate)
+            mon.gauge("serving.prefix_pages_shared").set(
                 self._alloc.shared_pages)
         if self._spec is not None and self._spec_drafted:
-            monitor.gauge("serving.spec_accept_rate").set(
-                self.spec_accept_rate)
+            mon.gauge("serving.spec_accept_rate").set(self.spec_accept_rate)

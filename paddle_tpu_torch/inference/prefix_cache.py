@@ -68,8 +68,13 @@ class PrefixCache:
     ``PageAllocator.free`` of the request's pages at finish or
     preemption (shared pages just drop a reference), and ``evict`` under
     pool pressure. ``hash_fn`` is injectable so tests can force digest
-    collisions.
+    collisions; ``force_collision`` and ``corrupt_entry`` are the fault
+    points the engine's injector drives.
     """
+
+    #: digest every forced collision resolves to (fault injection: a
+    #: constant key makes ANY two root chunks collide)
+    COLLIDED = b"\x00" * 16
 
     def __init__(self, allocator, page_size: int, hash_fn=_chunk_hash):
         self._alloc = allocator
@@ -77,21 +82,58 @@ class PrefixCache:
         self._store: Dict[bytes, _Entry] = {}
         self._tick = 0
         self._hash_fn = hash_fn
+        # the prefix.hash_collision fault point: each armed count forces
+        # the NEXT root-chunk digest to COLLIDED
+        self._collide_next = 0
         self.hits = 0
         self.lookups = 0
+
+    def _hash(self, parent, tokens) -> bytes:
+        if self._collide_next > 0 and parent is None:
+            self._collide_next -= 1
+            return self.COLLIDED
+        return self._hash_fn(parent, tokens)
+
+    def force_collision(self, n: int = 1) -> None:
+        """Arm ``n`` forced digest collisions (the
+        ``prefix.hash_collision`` fault point): the next ``n`` root-chunk
+        hashes all return one constant digest. The exact-token compare
+        turns the collision into a miss, never into serving another
+        prompt's KV."""
+        self._collide_next += int(n)
+
+    def corrupt_entry(self, rng) -> Optional[bytes]:
+        """Make one cached entry STALE (the ``prefix.stale_entry`` fault
+        point): its chunk tokens become out-of-vocab sentinels, index
+        metadata that no longer matches the page. It can never be hit
+        again (the token compare fails) and ``check_integrity`` reclaims
+        it. The victim is drawn from ``rng`` (the injector's numpy
+        Generator) over the sorted keys. Returns its key (None when the
+        cache is empty)."""
+        if not self._store:
+            return None
+        keys = sorted(self._store)
+        key = keys[int(rng.integers(0, len(keys)))]
+        ent = self._store[key]
+        ent.chunk = tuple([-1] * len(ent.chunk))
+        return key
 
     def check_integrity(self, repair: bool = False) -> List[str]:
         """Verify every entry's key still equals the chained digest of
         (parent, chunk), the invariant ``insert`` establishes. With
         ``repair=True`` stale entries and their (unreachable) subtrees
-        are dropped, returning their pages to the pool."""
+        are dropped, returning their pages to the pool. Forced-collision
+        roots (key == COLLIDED) are exempt: they were inserted under the
+        forced digest and still pass the exact-token compare."""
         findings: List[str] = []
         stale = []
         for key, ent in self._store.items():
+            if key == self.COLLIDED:
+                continue
             if self._hash_fn(ent.parent, ent.chunk) != key:
                 findings.append(
                     f"stale prefix-cache entry depth {ent.depth} "
-                    f"(key {key.hex()[:12]}...): stored chunk no longer "
+                    f"(key {key.hex()[:12]}…): stored chunk no longer "
                     f"matches its digest")
                 stale.append(key)
         if repair:
@@ -125,7 +167,7 @@ class PrefixCache:
         parent: Optional[bytes] = None
         for i in range(min(len(tokens) // ps, max_chunks)):
             chunk = tuple(int(t) for t in tokens[i * ps:(i + 1) * ps])
-            key = self._hash_fn(parent, chunk)
+            key = self._hash(parent, chunk)
             ent = self._store.get(key)
             if ent is None or ent.chunk != chunk:
                 break
@@ -173,7 +215,7 @@ class PrefixCache:
         added = 0
         for i in range(n_tokens // ps):
             chunk = tuple(int(t) for t in tokens[i * ps:(i + 1) * ps])
-            key = self._hash_fn(parent, chunk)
+            key = self._hash(parent, chunk)
             ent = self._store.get(key)
             if ent is not None and ent.chunk != chunk:
                 # digest collision with a different chunk: the incumbent

@@ -20,8 +20,8 @@ meanwhile.
 
 The draft decodes greedily (argmax: no generator is touched); on
 ``cuda`` each of its single-token steps runs the CUDA paged-decode
-kernel. Corrupting drafts on purpose (the JAX package's ``sabotage``)
-is fault injection and comes with the reliability slice.
+kernel. ``sabotage`` corrupts a drafted chunk on purpose (the engine's
+``spec.disagree`` fault point).
 """
 from __future__ import annotations
 
@@ -107,3 +107,12 @@ class SpeculativeDecoder:
             out.append(tok)
             p = p + live
         return torch.stack(out[:self.k], dim=1)
+
+    def sabotage(self, drafts):
+        """Corrupt a drafted chunk (the engine's ``spec.disagree`` fault
+        point): every proposal shifts to a DIFFERENT in-vocab token, a
+        draft/target divergence storm. Exact-match verification then
+        rejects (almost) all of them; the emitted stream stays the
+        draft-free engine's, each tick shrinking toward 1 token. Runs on
+        the drafts' device, with no host round trip."""
+        return (drafts + 1) % self.engine.vocab_size

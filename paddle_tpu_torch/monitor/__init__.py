@@ -9,6 +9,8 @@ of the JAX package.
     monitor.counter("kernels.decode.paged_cuda").increase()
     monitor.gauge("serving.ttft_ms").set(12.5)
     monitor.snapshot()   # {'kernels.decode.paged_cuda': 1, ...}
+    monitor.scope("replica0").counter("serving.steps").increase()
+    # -> serving.steps and serving.replica0.steps
 
 Kernel-path counters (bumped by the wrappers, one per call):
 
@@ -39,7 +41,7 @@ from __future__ import annotations
 
 import math
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 _lock = threading.Lock()
 _counters: Dict[str, "Counter"] = {}
@@ -200,6 +202,78 @@ def histogram(name: str) -> Histogram:
         with _lock:
             h = _histograms.setdefault(name, Histogram(name))
     return h
+
+
+class _Pair:
+    """Fan-out wrapper a Scope hands back: every write lands on both the
+    unlabeled aggregate instrument and its ``serving.<label>.…`` twin;
+    reads come from the aggregate."""
+
+    __slots__ = ("_agg", "_scoped")
+
+    def __init__(self, agg, scoped):
+        self._agg = agg
+        self._scoped = scoped
+
+    def __getattr__(self, attr):
+        agg_fn = getattr(self._agg, attr)
+        scoped_fn = getattr(self._scoped, attr)
+        if not callable(agg_fn):
+            return agg_fn
+
+        def both(*a, **kw):
+            out = agg_fn(*a, **kw)
+            scoped_fn(*a, **kw)
+            return out
+        return both
+
+
+class Scope:
+    """Label-scoped view of the registry. ``scope("replica0")`` returns
+    an emitter whose ``counter`` / ``gauge`` / ``histogram`` write BOTH
+    the unlabeled aggregate (``serving.ttft_ms``) and the labeled twin
+    (``serving.replica0.ttft_ms``)."""
+
+    __slots__ = ("label",)
+
+    def __init__(self, label: str):
+        self.label = label
+
+    def scoped_name(self, name: str) -> str:
+        """serving.x.y -> serving.<label>.x.y (the label slots in after
+        the ``serving.`` namespace, so prefix filters over the unlabeled
+        keys never match a labeled twin)."""
+        if name.startswith("serving."):
+            return f"serving.{self.label}." + name[len("serving."):]
+        return f"{self.label}.{name}"
+
+    def _pair(self, getter, name: str):
+        return _Pair(getter(name), getter(self.scoped_name(name)))
+
+    def counter(self, name: str):
+        return self._pair(counter, name)
+
+    def gauge(self, name: str):
+        return self._pair(gauge, name)
+
+    def histogram(self, name: str):
+        return self._pair(histogram, name)
+
+
+class _Unscoped:
+    """``scope(None)``: the registry's own get-or-create functions, so an
+    unlabeled emitter costs what a bare ``monitor.counter`` call does."""
+
+    label = None
+    counter = staticmethod(counter)
+    gauge = staticmethod(gauge)
+    histogram = staticmethod(histogram)
+
+
+def scope(label: Optional[str]):
+    """Labeled emitter over the registry (see Scope); ``scope(None)``
+    writes the unlabeled names only, at no extra cost."""
+    return _Unscoped if label is None else Scope(str(label))
 
 
 def counters() -> Dict[str, int]:

@@ -25,7 +25,12 @@ graph), then
 1. times ``--steps`` steady decode steps without the profiler (host
    clock around steps ending in a synchronize): ms per step (a step is
    k device ticks under ``multi_tick=k``), ms per device tick, tokens/s,
-   and the engine's host ms a tick (``serving.hist.host_ms_per_tick``);
+   the engine's host ms a tick (``serving.hist.host_ms_per_tick``: the
+   host time not hidden under a dispatch), its overlap ms a tick (host
+   work that ran while the device executed the dispatch,
+   ``serving.hist.overlap_ms_per_tick``) and their sum, the host's own
+   work a tick (``host_work_ms_per_tick``: the step's wall time less its
+   blocking waits, the quantity older engines booked as host time);
 2. records ``--steps`` more under ``torch.profiler`` (CPU + CUDA) and
    sums the device kernels of the exported trace: device-busy ms per
    step and per tick and the device idle share of the window (busy: the
@@ -34,7 +39,8 @@ graph), then
    by device time.
 
 Prints one JSON line per run and a last one with every run and the
-medians by k, and writes it, with the last run's chrome trace, to
+medians and quartiles by k, and writes it, with the last run's chrome
+trace, to
 ``--out`` (default chiprun_out/profile_serving). Needs a GPU: it raises
 otherwise.
 """
@@ -126,7 +132,8 @@ def profile_run(model, kw, slots, vocab, k, steps, out):
     if eng.num_active != slots:
         raise RuntimeError(f"{eng.num_active} of {slots} slots decoding")
     host = monitor.histogram("serving.hist.host_ms_per_tick")
-    h0, n0, t_0 = host.sum, eng._steps, eng.decode_ticks
+    overlap = monitor.histogram("serving.hist.overlap_ms_per_tick")
+    h0, o0, t_0 = host.sum, overlap.sum, eng.decode_ticks
     tok0 = monitor.counter("serving.tokens").get()
     t0 = time.perf_counter()
     _steps(eng, steps)
@@ -134,6 +141,7 @@ def profile_run(model, kw, slots, vocab, k, steps, out):
     ticks = eng.decode_ticks - t_0
     tokens = monitor.counter("serving.tokens").get() - tok0
     host_ms = host.sum - h0
+    overlap_ms = overlap.sum - o0
 
     trace = out / "trace.json"
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -162,6 +170,8 @@ def profile_run(model, kw, slots, vocab, k, steps, out):
         "step_ms": wall_ms / steps, "tick_ms": wall_ms / ticks,
         "tokens_per_s": tokens * 1e3 / wall_ms,
         "host_ms_per_tick": host_ms / ticks,
+        "overlap_ms_per_tick": overlap_ms / ticks,
+        "host_work_ms_per_tick": (host_ms + overlap_ms) / ticks,
         "fused_graphs": eng._multi.captured if eng._multi else [],
         "profiled_step_ms": prof_wall_ms / steps,
         "device_busy_ms_per_step": busy_ms / steps,
@@ -176,6 +186,24 @@ def profile_run(model, kw, slots, vocab, k, steps, out):
                      "share_of_busy": v[0] / 1e3 / busy_ms}
                     for n, v in top] if busy_ms else "not measured",
     }
+
+
+#: the per-run metrics summarized by median and quartiles
+QUARTILE_METRICS = ("step_ms", "tick_ms", "tokens_per_s", "host_ms_per_tick",
+                    "overlap_ms_per_tick", "host_work_ms_per_tick",
+                    "device_busy_ms_per_step", "device_busy_ms_per_tick",
+                    "device_idle_share")
+
+
+def quartiles(runs, k, metrics, at=50):
+    """{metric: the ``at``-th percentile over the runs at multi_tick k}
+    ("not measured" where no run has the metric)."""
+    out = {}
+    for m in metrics:
+        vals = [r[m] for r in runs if r["multi_tick"] == k
+                and r.get(m) is not None]
+        out[m] = float(np.percentile(vals, at)) if vals else "not measured"
+    return out
 
 
 def main(argv=None):
@@ -203,19 +231,12 @@ def main(argv=None):
             run = profile_run(model, kw, slots, vocab, k, args.steps, out)
             print(json.dumps(run), flush=True)
             runs.append(run)
-    def median(k, m):
-        vals = [r[m] for r in runs if r["multi_tick"] == k
-                and r[m] is not None]
-        return float(np.median(vals)) if vals else "not measured"
-
-    medians = {k: {m: median(k, m)
-                   for m in ("step_ms", "tick_ms", "tokens_per_s",
-                             "host_ms_per_tick", "device_busy_ms_per_step",
-                             "device_busy_ms_per_tick",
-                             "device_idle_share")}
+    medians = {k: quartiles(runs, k, QUARTILE_METRICS, at=50)
                for k in args.multi_tick}
+    spread = {k: {q: quartiles(runs, k, QUARTILE_METRICS, at=q)
+                  for q in (25, 75)} for k in args.multi_tick}
     result = {"device": card, "config": args.config, "slots": slots,
-              "medians": medians, "runs": runs}
+              "medians": medians, "quartiles": spread, "runs": runs}
     (out / "summary.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({"device": card, "config": args.config,
                       "medians": medians}), flush=True)

@@ -6,7 +6,8 @@ The contract: the same greedy tokens, exactly, on a staggered
 mixed-length trace and on a trace whose small pool forces preemption
 and resume; the same allocator accounting (free pages after every
 step, preemption counts, a balanced pool at the end); sampled tokens of
-a request independent of its batch-mates; unsupported knobs raise.
+a request independent of its batch-mates; the reliability knobs
+(injector, clock, label, deadlines) taken, malformed values refused.
 (Sampled tokens are not compared across frameworks: JAX threefry keys
 cannot be reproduced in PyTorch.)
 """
@@ -17,7 +18,7 @@ import torch
 from paddle_tpu.inference.engine import Engine as JaxEngine
 from paddle_tpu.inference.engine import SamplingParams as JaxParams
 from paddle_tpu_torch import monitor
-from paddle_tpu_torch.inference import Engine, SamplingParams
+from paddle_tpu_torch.inference import Engine, FaultInjector, SamplingParams
 from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
 
 from test_torch_llama import make_pair
@@ -155,17 +156,40 @@ def test_greedy_rows_match_the_no_cache_model():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(fault_injector=object()), dict(clock=lambda: 0.0),
+    dict(fault_injector=FaultInjector(seed=1)), dict(clock=lambda: 0.0),
     dict(label="replica0")], ids=lambda k: next(iter(k)))
 def test_unsupported_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="later serving slice"):
-        Engine(_tiny(), device="cpu", **knob)
+    """The reliability knobs an earlier slice refused are served now:
+    the engine takes each, it is in effect on a run (the injector is the
+    engine's, a constant clock stamps every span and latency at 0, the
+    label names every span's origin), and a malformed value raises."""
+    eng = Engine(_tiny(), device="cpu", **knob)
+    out = eng.run([([1, 2, 3], SamplingParams(max_new_tokens=3))])[0]
+    assert out.ok and out.spans[-1]["phase"] == "FINISHED"
+    if "fault_injector" in knob:
+        assert eng._injector is knob["fault_injector"]
+        with pytest.raises(ValueError, match="unknown fault site"):
+            FaultInjector(sites=("bogus.site",))
+    if "clock" in knob:
+        assert out.ttft_ms == 0.0
+        assert {s["t0_ms"] for s in out.spans} == {0.0}
+    if "label" in knob:
+        assert {s["origin"] for s in out.spans} == {"replica0"}
+        with pytest.raises(ValueError, match="multi_tick"):
+            Engine(_tiny(), device="cpu", multi_tick=0, **knob)
 
 
 def test_unsupported_request_knobs_raise():
+    """deadline_ms and max_queue_steps are accepted; non-positive values
+    and a request beyond max_context raise ValueError."""
     eng = Engine(_tiny(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.add_request([1, 2, 3], SamplingParams(deadline_ms=5.0))
+    eng.add_request([1, 2, 3], SamplingParams(deadline_ms=5.0,
+                                              max_queue_steps=2))
+    with pytest.raises(ValueError, match="deadline_ms"):
+        eng.add_request([1, 2, 3], SamplingParams(deadline_ms=-1.0))
+    with pytest.raises(ValueError, match="max_queue_steps"):
+        eng.add_request([1, 2, 3], SamplingParams(max_queue_steps=0))
     with pytest.raises(ValueError, match="max_context"):
         eng.add_request(list(range(250)), SamplingParams(max_new_tokens=16))
+    assert eng.num_waiting == 1
 

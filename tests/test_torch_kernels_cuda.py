@@ -1274,3 +1274,96 @@ def test_multi_tick_capture_raises_on_a_host_sync(dev, monkeypatch):
         eng._multi.run(8)
     assert eng._multi.captured == []
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+# -- the reliability plane on the card ---------------------------------------
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_decode_nan_fails_one_slot_on_card(dev, k):
+    """A FaultPlan NaN in one slot's decode logits (the poisoned tick is
+    a single-tick dispatch even under multi_tick) fails that slot alone,
+    with the tokens it had; every other slot's tokens equal the
+    fault-free run's, and no page leaks."""
+    from paddle_tpu_torch.inference import FaultInjector, FaultPlan
+    outs = {}
+    for plan in (None, FaultPlan([(4, "decode.nan")])):
+        eng = _decoding_engine(dev, k=k)
+        if plan is not None:
+            eng._injector = FaultInjector(plan=plan)
+        got = []
+        while eng.num_active:
+            got.extend(eng.step())
+        outs[plan is None] = {o.req_id: o for o in got}
+        assert eng.leaked_pages() == 0
+    clean, faulty = outs[True], outs[False]
+    failed = [r for r, o in faulty.items() if not o.ok]
+    assert len(failed) == 1 and faulty[failed[0]].error == "nan_logits"
+    r = failed[0]
+    assert faulty[r].token_ids == \
+        clean[r].token_ids[:len(faulty[r].token_ids)]
+    for rid, o in faulty.items():
+        if rid != r:
+            assert o.token_ids == clean[rid].token_ids, rid
+
+
+def test_deadline_under_inflight_graph_hands_pages_to_new_request(dev):
+    """A deadline that expires while a k=8 graph is in flight frees the
+    request's pages in the step's overlap window; a request arriving in
+    that window (admitted and prefilled in the same step) gets those
+    pages, and its tokens — and the surviving request's — equal a run
+    without the deadline: the prefill's writes follow the replay on the
+    one stream. (7 pages hold the victim's and the survivor's lifetimes,
+    so neither run preempts; the late request waits for a slot in the
+    run without the deadline.)"""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.inference import Engine, SamplingParams
+    from paddle_tpu_torch.text import models
+    cfg = models.LlamaConfig.tiny(vocab=128, hidden=64, layers=2, heads=4)
+    model = models.LlamaForCausalLM(cfg, device=dev, seed=0, init_std=0.2)
+    model.eval()
+    g = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(0, 128, (n,), generator=g) for n in (17, 5, 20)]
+    res = {}
+    for deadline in (None, 100.0):
+        clk = {"t": 0.0}
+        eng = Engine(model, max_slots=2, page_size=16, max_context=128,
+                     pool_pages=7, cache_dtype="float32", multi_tick=8,
+                     clock=lambda: clk["t"])
+        victim = eng.add_request(prompts[0], SamplingParams(
+            max_new_tokens=40, deadline_ms=deadline))
+        eng.add_request(prompts[1], SamplingParams(max_new_tokens=40))
+        for _ in range(3):
+            eng.step()                    # prefill, then fused dispatches
+        while eng.pages_free:             # until the pool is dry
+            eng.step()
+        pages = set(eng.requests[victim].pages)
+        expire = eng._expire
+        arrived = []
+
+        def expire_then_arrive():
+            outs = expire()
+            arrived.append(eng.add_request(prompts[2], SamplingParams(
+                max_new_tokens=24)))
+            return outs
+
+        eng._expire = expire_then_arrive
+        clk["t"] = 1.0                    # past the victim's deadline
+        d0 = monitor.counter("serving.multi_tick.dispatches").get()
+        done = {o.req_id: o for o in eng.step()}
+        eng._expire = expire
+        assert monitor.counter("serving.multi_tick.dispatches").get() == \
+            d0 + 1                        # the step's dispatch was fused
+        if deadline is not None:
+            assert done[victim].finish_reason == "deadline"
+            new = eng.requests[arrived[0]]
+            assert new.written and pages & set(new.pages), \
+                (pages, new.pages)
+        while eng.num_active or eng.num_waiting:
+            done.update({o.req_id: o for o in eng.step()})
+        assert eng.leaked_pages() == 0
+        res[deadline] = done
+    assert res[None][victim].ok and res[None][victim].preemptions == 0
+    for rid, o in res[100.0].items():
+        if rid != victim:
+            assert o.ok and o.preemptions == 0
+            assert o.token_ids == res[None][rid].token_ids, rid
