@@ -30,6 +30,17 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    split kernel and the combine) that cycles through copies of the pools
    larger together than the L2, beside the wrapper, and a negative
    control: the combine without one slot's last chunk must be rejected;
+3b. the fused Adam / AdamW update (csrc/fused_adam.cu, port-only: the
+   fusion XLA makes of the JAX TrainStep's update) against the plain
+   per-tensor rule: three updates from a fresh state, every parameter and
+   state slot bit-equal (torch.equal), at the LLaMA, ERNIE-MoE and BERT
+   training parameter sets at full size (bf16 moments, AdamW 0.01) and on
+   odd sizes (vector tails, one element, several chunks) with f32 and bf16
+   moments, decay on and off, Adam's L2, amsgrad and parameters off
+   16-byte alignment; negative control: a chunk table without its middle
+   full chunk at the LLaMA set must be rejected; the training sets timed on a
+   cold L2 beside their bound (20 bytes a parameter), the plain rule and
+   the timed-only torch._fused_adamw_ (another function);
 4. + 5. the main path, with every launch count set to 0 just before it
    and read just after: the no-cache LlamaForCausalLM forward at the
    full width of the repo's serving benchmark (vocab 32000, hidden 4096,
@@ -117,6 +128,11 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    window 64, seq 256, f32) — one TrainStep loss and every parameter
    gradient on the card against the same weights on the CPU, then again
    with a document mask;
+8b. GradScaler: the same model without the window, 4 eager steps under
+   ``amp.GradScaler`` (scale 2^16) with Momentum on the card and on the
+   CPU from the same weights, one gradient element set to inf by hand at
+   step 2: that step skipped and the scale halved on both, and every
+   parameter on the card within the f32 gate of the CPU's;
 9. + 10. the training main path, counts set to 0 just before it and read
    just after: ``bench.py::bench_llama_1b``'s configuration (LLaMA-7B
    widths at 4 layers, ~1.07 B parameters, batch 12 x seq 1024, fused
@@ -127,9 +143,27 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    equal to them and no *_plain call, every forward, dQ and dK/dV launch
    on the tensor-core route (``kernels.flash.*_cuda_tc``), each on its
    wgmma kernel (``kernels.flash.{fwd,dq,dkv}_cuda_tc_wgmma``) and none
-   on another;
+   on another; one fused update launch a step
+   (``kernels.optimizer.adam_fused`` == 6, ``adam_plain`` == 0);
    ms per step, tokens/s, the share of the bf16 peak and the peak device
-   memory.
+   memory; then one step's real gradients applied through the fused and
+   the plain route to two copies of the parameters and the optimizer
+   state, bit-equal, and the update's ms on both routes
+   (``profile_training.update_ms``);
+9b. the LLaMA pretraining recipe at the same shape: AdamW on
+   LinearWarmup(CosineAnnealingDecay(3e-4, 100), 2 steps from 0),
+   ``apply_decay_param_fun`` naming the norms out (read by no train
+   step, as in the JAX package), 4 steps under recompute "none", "full",
+   "selective" and "selective_qkv", each counted on its own: finite,
+   falling losses, the lr of every step the scheduler's, flash forward
+   launches == 2 x layers x steps under recompute (the rerun) and layers
+   x steps without, dQ and dK/dV == layers x steps, all on their wgmma
+   kernels, one fused update a step, the q / k / v tags of
+   "selective_qkv" run once a layer and step (saved) and no other tag
+   run ("selective" keeps attn_core and ffn_mid as the ends of its
+   checkpointed regions); one step with a 3-document mask under
+   "selective"; peak memory ordered full < selective <= selective_qkv <
+   none; a tag's copy timed.
 
 11. MoE kernels: the grouped-FFN forward, dx and dw kernels against their
    plain versions at the MoE training shape (8 experts, capacity 8192,
@@ -182,9 +216,9 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    and dw launches == 4 MoE layers x 6 steps, flash forward / dQ / dK/dV
    == 8 layers x 6 steps, no plain call, the flash forward, dQ and dK/dV
    and the grouped-FFN forward, dx and dw on the tc route only (every
-   flash forward, dQ and dK/dV on its wgmma kernel); ms per step,
-   tokens/s, the bf16 peak share of ``ernie_moe_flops_per_token`` and the
-   peak memory.
+   flash forward, dQ and dK/dV on its wgmma kernel), one fused update a
+   step; ms per step, tokens/s, the bf16 peak share of
+   ``ernie_moe_flops_per_token`` and the peak memory.
 
 15. encoder kernels: the head-dim-64 probe of csrc/flash_fwd.cu (row 5:
    (x x^T) x on a seeded [128, 64] f32 tile of small integers through the
@@ -216,7 +250,8 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    bf16 AMP, AdamW(1e-4, bf16 moments), dropout 0.1) for 6 steps:
    finite, falling losses; flash forward, dQ and dK/dV launches == 12
    layers x 6 steps, no plain call, forward, dQ and dK/dV on the tc route
-   only, each on its wgmma kernel; ms per step, tokens/s, the
+   only, each on its wgmma kernel, one fused update a step; ms per step,
+   tokens/s, the
    bf16 peak share by bench_bert's 6N rule and the peak memory.
 
 It prints the card line, a {"kernels": [...]} line (the tensor-core
@@ -234,11 +269,12 @@ on the tc route, ``grouped_ffn_fwd_rows`` (the decode tick) and
 ``grouped_ffn_fwd_simt`` (the prefill), dx as
 ``grouped_ffn_bwd_dx`` (tc), dw as ``grouped_ffn_bwd_dw`` (tc) and
 ``grouped_ffn_bwd_dw_simt`` (the f32 prefill case), each with its
-``grouped_ffn_route``), and as its last line
+``grouped_ffn_route``; the fused update as ``fused_adam``), and as its
+last line
 {"ok": true, "device":
 {...}}. Details land in
 chiprun_out/chip_smoke/ (result JSON, nvcc/ptxas logs). About two and a half
-minutes of command time on an H100, the five kernel builds included.
+minutes of command time on an H100, the six kernel builds included.
 """
 from __future__ import annotations
 
@@ -1125,6 +1161,7 @@ def train_main_path(torch, mods, fa, monitor, card):
     torch.cuda.reset_peak_memory_stats()
     fa.flash_fwd.launches = 0
     fa.flash_bwd.launches_dq = fa.flash_bwd.launches_dkv = 0
+    mods.fad.fused_adam_launch.launches = 0
     monitor.reset()
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
@@ -1136,6 +1173,7 @@ def train_main_path(torch, mods, fa, monitor, card):
     launches = {"flash_fwd": fa.flash_fwd.launches,
                 "flash_bwd_dq": fa.flash_bwd.launches_dq,
                 "flash_bwd_dkv": fa.flash_bwd.launches_dkv}
+    adam_launches = mods.fad.fused_adam_launch.launches
     counters = {k: v for k, v in monitor.snapshot().items()
                 if k.startswith("kernels.")}
     # -- end of the counted training path --
@@ -1151,6 +1189,7 @@ def train_main_path(torch, mods, fa, monitor, card):
             counters.get("kernels.flash.bwd_plain", 0):
         fail(f"training kernel-path counters disagree: {counters}")
     routes = check_tc_routes(counters, want, "training")
+    update_routes = check_adam_routes(counters, adam_launches, "training")
     steady = sorted(times[1:])[len(times[1:]) // 2]
     tokens = batch * seq
     flops = mods.llama_flops_per_token(cfg) * tokens
@@ -1160,15 +1199,508 @@ def train_main_path(torch, mods, fa, monitor, card):
                tokens_per_s=tokens / steady,
                bf16_peak_share=flops / steady / PEAK_FLOPS["bfloat16"],
                peak_mem_gb=peak_gb, launches=launches, counters=counters,
-               flash_routes=routes)
+               flash_routes=routes, update_routes=update_routes,
+               fused_adam_launches=adam_launches,
+               update_ab=update_routes_agree(torch, mods, step, ids,
+                                             labels))
+    rec["update_ms"], rec["update_plain_ms"] = mods.train.update_ms(step)
     print(f"training: {n_params / 1e9:.3f} B params, batch {batch} x "
           f"seq {seq}, losses {[round(x, 4) for x in losses]}; "
           f"median step {rec['ms_per_step']:.1f} ms (first "
           f"{rec['first_step_ms']:.1f} ms) = {rec['tokens_per_s']:.0f} "
           f"tokens/s, {rec['bf16_peak_share']:.3f} of the 989 TFLOP/s bf16 "
           f"peak (llama_flops_per_token), peak memory {peak_gb:.1f} GB; "
-          f"launches {launches} on {card}", flush=True)
+          f"launches {launches}, {adam_launches} fused updates; the update "
+          f"{rec['update_ms']:.3f} ms fused, {rec['update_plain_ms']:.3f} "
+          f"ms plain (profile_training.update_ms) on {card}", flush=True)
     return rec
+
+
+def check_adam_routes(counters, launches, what):
+    """Every optimizer update of a training path on the fused route: one
+    fused launch a step, no tensor on the plain rule."""
+    got = {r: int(counters.get(f"kernels.optimizer.adam_{r}", 0))
+           for r in ("fused", "plain")}
+    if got != {"fused": TRAIN_STEPS, "plain": 0} or launches != TRAIN_STEPS:
+        fail(f"{what}: updates by route {got} ({launches} fused launches), "
+             f"expected {TRAIN_STEPS} fused and no plain one")
+    return got
+
+
+def update_routes_agree(torch, mods, step, ids, labels):
+    """The real gradients of one LLaMA step applied through the fused
+    route (``apply_gradients_pytree``) and the plain rule
+    (``profile_training.plain_update``) to two copies of the parameters
+    and the optimizer state: bit-equal."""
+    _, grads = step.loss_and_grads((ids, labels), labels)
+    opt = step._opt
+    copies = []
+    for _ in range(2):
+        copies.append(({n: p.detach().clone()
+                        for n, p in step._params.items()},
+                       {n: {k: v.clone() for k, v in st.items()}
+                        for n, st in step.opt_state.items()}))
+    (pa, sa), (pb, sb) = copies
+    opt.apply_gradients_pytree(pa, grads, sa, opt.get_lr())
+    mods.train.plain_update(opt, pb, grads, sb, opt.get_lr())
+    torch.cuda.synchronize()
+    eq = all(torch.equal(pa[n], pb[n]) for n in pa) and all(
+        torch.equal(sa[n][k], sb[n][k]) for n in sa for k in sa[n])
+    moved = sum(int((pa[n] != step._params[n]).sum()) for n in pa)
+    rec = dict(bit_equal=eq, params=len(pa), elements_moved=moved)
+    print(f"training update A/B: one step's real gradients through the "
+          f"fused and the plain route, {len(pa)} tensors, {moved:,} "
+          f"elements moved: {'bit-equal' if eq else 'DIFFERENT'}",
+          flush=True)
+    if not eq or not moved:
+        fail(f"the fused and the plain update disagree on the LLaMA "
+             f"step's gradients: {rec}")
+    del copies, pa, pb, sa, sb, grads
+    torch.cuda.empty_cache()
+    return rec
+
+
+# -- phase 3b: the fused Adam / AdamW update -------------------------------
+
+#: sizes of phase 3b's odd cases: one element, vector tails, a parameter
+#: of several chunks with a ragged last one
+ADAM_ODD_SIZES = (1, 7, 8, 4099, 8192 + 13, 3 * 8192 + 5, (1 << 20) + 3)
+#: phase 3b's cases: name -> (parameter set, moment dtype, amsgrad, decay,
+#: coefficient, parameters 4 bytes off 16-byte alignment); the three
+#: training sets are those of phases 9, 14 and 18 (AdamW, bf16 moments)
+ADAM_CASES = {
+    "llama_train": ("llama", "bfloat16", False, "decoupled", 0.01, False),
+    "ernie_moe_train": ("ernie_moe", "bfloat16", False, "decoupled", 0.01,
+                        False),
+    "bert_train": ("bert", "bfloat16", False, "decoupled", 0.01, False),
+    "odd_f32_decay": ("odd", "float32", False, "decoupled", 0.05, False),
+    "odd_bf16_nodecay": ("odd", "bfloat16", False, "none", 0.0, False),
+    "odd_f32_adam_l2": ("odd", "float32", False, "l2", 0.02, False),
+    "odd_bf16_amsgrad": ("odd", "bfloat16", True, "decoupled", 0.05, False),
+    "odd_f32_amsgrad_l2_unaligned": ("odd", "float32", True, "l2", 0.02,
+                                     True),
+}
+ADAM_LR, ADAM_BETAS, ADAM_EPS = 3e-4, (0.9, 0.999), 1e-8
+
+
+def adam_param_sets(torch, mods):
+    """{set: [numel of each parameter]} of the three training
+    configurations (the models built on the card once, their parameter
+    sizes read, the models freed) and the odd sizes."""
+    enc, P = mods.enc, mods.moe_profile
+    builds = {
+        "llama": lambda: mods.LlamaForCausalLM(
+            mods.LlamaConfig(**mods.train.MODEL), seed=0),
+        "ernie_moe": lambda: mods.ErnieMoEForCausalLM(
+            mods.ErnieMoEConfig(**P.MOE_TRAIN_MODEL), seed=0),
+        "bert": lambda: mods.BertForPretraining(
+            mods.BertConfig(**enc.BERT_TRAIN["model"]),
+            seed=enc.BERT_TRAIN["seed"])}
+    sets = {"odd": list(ADAM_ODD_SIZES)}
+    for name, build in builds.items():
+        model = build()
+        sets[name] = [p.numel() for p in model.parameters()
+                      if p.requires_grad]
+        del model
+        torch.cuda.empty_cache()
+    return sets
+
+
+def _adam_tensors(torch, sizes, mdt, amsgrad, unaligned, seed):
+    """Parameters, gradients and fresh AdamW state on the card: each
+    parameter a flat f32 tensor (4 bytes into its buffer when
+    ``unaligned``), every 7th gradient element 0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    off = 1 if unaligned else 0
+    mdt = getattr(torch, mdt)
+    ps, gs, sts = [], [], []
+    for n in sizes:
+        ps.append(torch.randn(n + off, generator=g, device="cuda")[off:]
+                  .mul_(0.02))
+        gr = torch.randn(n, generator=g, device="cuda").mul_(1e-3)
+        gr[::7] = 0.0
+        gs.append(gr)
+        st = {"moment1": torch.zeros(n, dtype=mdt, device="cuda"),
+              "moment2": torch.zeros(n, dtype=mdt, device="cuda"),
+              "beta1_pow": torch.full((), ADAM_BETAS[0], device="cuda"),
+              "beta2_pow": torch.full((), ADAM_BETAS[1], device="cuda")}
+        if amsgrad:
+            st["moment2_max"] = torch.zeros(n, dtype=mdt, device="cuda")
+        sts.append(st)
+    return ps, gs, sts
+
+
+def _clone_state(sts):
+    return [{k: v.clone() for k, v in st.items()} for st in sts]
+
+
+def _adam_equal(torch, ps, sts, ref_ps, ref_sts):
+    """(bit-equal, max |fused - plain| over the parameters)."""
+    eq = all(torch.equal(a, b) for a, b in zip(ps, ref_ps)) and all(
+        torch.equal(s[k], r[k]) for s, r in zip(sts, ref_sts) for k in s)
+    err = max(float((a - b).abs().max()) for a, b in zip(ps, ref_ps))
+    return eq, err
+
+
+def cold_ms(torch, fn, iters, flush):
+    """Mean device ms of one fn() with the L2 flushed before each (events
+    around each call alone)."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
+
+
+def check_fused_adam(torch, mods, fad):
+    """Phase 3b: the fused update (csrc/fused_adam.cu) against the plain
+    per-tensor rule (``adam_update_plain``) on the card: three updates
+    from a fresh state, every parameter and state slot bit-equal, in each
+    case of ADAM_CASES; a chunk table without one chunk rejected at the
+    LLaMA set; the three training sets timed on a cold L2 beside their
+    bound, the plain loop and ``torch._fused_adamw_`` (another function:
+    PyTorch's bias correction and epsilon, f32 moments; timed only)."""
+    sets = adam_param_sets(torch, mods)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    lr_t = torch.tensor(ADAM_LR, dtype=torch.float32, device="cuda")
+    b1, b2 = ADAM_BETAS
+    cases = []
+    for name, (pset, mdt, ams, decay, coeff, unal) in ADAM_CASES.items():
+        sizes = sets[pset]
+        ps, gs, sts = _adam_tensors(torch, sizes, mdt, ams, unal,
+                                    len(cases))
+        ref_ps, ref_sts = [p.clone() for p in ps], _clone_state(sts)
+
+        def fused():
+            fad.fused_adam_launch(ps, gs, sts, ADAM_LR, b1, b2, ADAM_EPS,
+                                  amsgrad=ams, decay=decay, coeff=coeff)
+
+        def plain(pp=ref_ps, ss=ref_sts):
+            for p, g, st in zip(pp, gs, ss):
+                fad.adam_update_plain(p, g, st, lr_t, b1, b2, ADAM_EPS,
+                                      ams, decay, coeff)
+        for _ in range(3):
+            fused()
+            plain()
+        torch.cuda.synchronize()
+        eq, err = _adam_equal(torch, ps, sts, ref_ps, ref_sts)
+        n = sum(sizes)
+        msize = 2 if mdt == "bfloat16" else 4
+        nbytes = n * (4 + 4 + 4 + (3 if ams else 2) * 2 * msize)
+        bound, bound_by = bound_ms(nbytes, 20 * n, "float32")
+        case = dict(case=name, params=n, tensors=len(sizes),
+                    moment_dtype=mdt, amsgrad=ams, decay=decay,
+                    coeff=coeff, unaligned=unal, bit_equal=eq,
+                    max_abs_err=err, tol="bit-equal (torch.equal)",
+                    bound_ms=bound, bound_by=bound_by,
+                    chunks=int(fad.adam_chunks(sizes, "cuda").shape[0]))
+        if not eq:
+            fail(f"fused Adam [{name}]: not bit-equal to the plain rule "
+                 f"after 3 updates (max |diff| {err:.3e})")
+        tables = fad.adam_tables(ps, gs, sts, ams)
+        if name == "llama_train":
+            # negative control: the table without its middle full chunk
+            # must leave that chunk behind the plain update
+            chunks = tables.chunks
+            full = torch.nonzero(chunks[:, 2] == fad.ADAM_CHUNK).flatten()
+            mid = int(full[full.numel() // 2])        # a full chunk
+            bad = torch.cat([chunks[:mid], chunks[mid + 1:]])
+            fad.fused_adam_launch(ps, gs, sts, ADAM_LR, b1, b2, ADAM_EPS,
+                                  amsgrad=ams, decay=decay, coeff=coeff,
+                                  tables=tables._replace(chunks=bad))
+            plain()
+            torch.cuda.synchronize()
+            caught, _ = _adam_equal(torch, ps, sts, ref_ps, ref_sts)
+            i, start, count = (int(v) for v in chunks[mid].tolist())
+            rest = torch.equal(ps[i][:start], ref_ps[i][:start]) and \
+                torch.equal(ps[i][start + count:],
+                            ref_ps[i][start + count:])
+            case["negative_control"] = dict(
+                dropped_chunk=[i, start, count],
+                rejected=not caught, rest_equal=rest)
+            if caught or not rest:
+                fail(f"fused Adam negative control not rejected: "
+                     f"{case['negative_control']}")
+        if pset != "odd":
+            # ms: the launch on tables built once (the kernels' device
+            # time); wrapper_ms: the wrapper, its checks and its table
+            # upload included, as a step calls it
+            case["ms"] = cold_ms(torch, lambda: fad.fused_adam_launch(
+                ps, gs, sts, ADAM_LR, b1, b2, ADAM_EPS, amsgrad=ams,
+                decay=decay, coeff=coeff, tables=tables), 5, flush)
+            case["wrapper_ms"] = cold_ms(torch, fused, 5, flush)
+            case["plain_ms"] = cold_ms(torch, plain, 2, flush)
+            case["library_ms"], case["library_note"] = _fused_adamw_ms(
+                torch, ps, gs, flush)
+            case["ratio_to_bound"] = case["ms"] / bound
+        print(f"fused Adam [{name}]: {n:,} params in {len(sizes)} tensors "
+              f"({case['chunks']} chunks), {mdt} moments, amsgrad {ams}, "
+              f"decay {decay} {coeff}: bit-equal to the plain rule after 3 "
+              f"updates" + (f"; {case['ms']:.3f} ms (wrapper "
+                            f"{case['wrapper_ms']:.3f}, bound "
+                            f"{bound:.3f}, plain {case['plain_ms']:.3f}, "
+                            f"torch._fused_adamw_ "
+                            f"{case['library_ms']:.3f})" if "ms" in case
+                            else ""), flush=True)
+        cases.append(case)
+        del ps, gs, sts, ref_ps, ref_sts
+        torch.cuda.empty_cache()
+    del flush
+    return cases
+
+
+def _fused_adamw_ms(torch, ps, gs, flush):
+    """``torch._fused_adamw_`` over the same parameters and gradients with
+    f32 moments (it takes no bf16 moments): the nearest library
+    yardstick of bandwidth, not the same function."""
+    m1 = [torch.zeros_like(p) for p in ps]
+    m2 = [torch.zeros_like(p) for p in ps]
+    steps = [torch.ones((), device="cuda") for _ in ps]
+
+    def run():
+        torch._fused_adamw_(ps, gs, m1, m2, [], steps, lr=ADAM_LR,
+                            beta1=ADAM_BETAS[0], beta2=ADAM_BETAS[1],
+                            weight_decay=0.01, eps=ADAM_EPS, amsgrad=False,
+                            maximize=False)
+    ms = cold_ms(torch, run, 5, flush)
+    return ms, ("torch._fused_adamw_, f32 moments (28 bytes a parameter), "
+                "PyTorch's bias correction: not the same function")
+
+
+# -- phase 8b: the dynamic loss scale on the card ----------------------------
+
+SCALER_STEPS, SCALER_INF_AT = 4, 1
+
+
+def grad_scaler_check(torch, mods):
+    """Phase 8b: phase 8's LLaMA (f32 weights, fused CE) for SCALER_STEPS
+    eager steps under ``amp.GradScaler`` (the fp16 default scale 2^16)
+    with Momentum, on the card and on the CPU from the same weights, one
+    gradient element set to inf by hand at step SCALER_INF_AT: that step
+    skipped and the scale halved on both, and every parameter on the card
+    within the f32 gate of the CPU's."""
+    import numpy as np
+    cfg = mods.LlamaConfig(**XCHECK_MODEL)
+    nets = {"cuda": mods.LlamaForCausalLM(cfg, seed=1)}
+    nets["cpu"] = mods.LlamaForCausalLM(cfg, device="cpu")
+    nets["cpu"].load_state_dict(
+        {k: v.cpu() for k, v in nets["cuda"].state_dict().items()})
+    rng = np.random.default_rng(6)
+    ids = rng.integers(0, cfg.vocab_size, (2, 256)).astype(np.int64)
+    labels = rng.integers(0, cfg.vocab_size, (2, 256)).astype(np.int64)
+    runs = {}
+    for dev, net in nets.items():
+        opt = mods.optimizer.Momentum(0.05, momentum=0.9,
+                                      parameters=net.parameters())
+        scaler = mods.GradScaler(init_loss_scaling=2.0 ** 16)
+        x, y = (torch.from_numpy(a).to(dev) for a in (ids, labels))
+        found, scales, losses = [], [], []
+        for i in range(SCALER_STEPS):
+            loss = net(x, y)
+            losses.append(float(loss))
+            scaler.scale(loss).backward()
+            if i == SCALER_INF_AT:
+                with torch.no_grad():
+                    net.llama.embed_tokens.weight.grad[0, 3] = float("inf")
+            scaler.step(opt)
+            found.append(scaler._found_inf)
+            scaler.update()
+            scales.append(scaler._scale)
+            opt.clear_grad()
+        runs[dev] = dict(found=found, scales=scales, losses=losses,
+                         params=[p.detach().cpu() for p in
+                                 net.parameters()])
+    want_found = [i == SCALER_INF_AT for i in range(SCALER_STEPS)]
+    ratio = max(closeness(a, b)["ratio"] for a, b in
+                zip(runs["cuda"]["params"], runs["cpu"]["params"]))
+    rec = dict(found_inf=runs["cuda"]["found"],
+               scales=runs["cuda"]["scales"],
+               losses_cuda=runs["cuda"]["losses"],
+               losses_cpu=runs["cpu"]["losses"], params_ratio=ratio,
+               gate="f32: |cuda - cpu| <= 1e-4 max(1, max |cpu|)")
+    print(f"GradScaler: skipped {runs['cuda']['found']} (cpu "
+          f"{runs['cpu']['found']}), scale {runs['cuda']['scales']}, "
+          f"parameters card vs CPU at {ratio:.3f} of the f32 gate",
+          flush=True)
+    if runs["cuda"]["found"] != want_found or \
+            runs["cpu"]["found"] != want_found or \
+            runs["cuda"]["scales"] != runs["cpu"]["scales"] or \
+            runs["cuda"]["scales"][SCALER_INF_AT] != 2.0 ** 15 or \
+            ratio > 1.0:
+        fail(f"GradScaler on the card: {rec}")
+    del nets, runs
+    torch.cuda.empty_cache()
+    return rec
+
+
+# -- phase 9b: the LLaMA pretraining recipe --------------------------------
+
+RECIPE_STEPS, RECIPE_WARMUP, RECIPE_T_MAX, RECIPE_LR = 4, 2, 100, 3e-4
+#: the recompute settings of phase 9b; "none" is the baseline of memory
+RECIPE_GRANULARITIES = ("none", "full", "selective", "selective_qkv")
+#: the tags each granularity saves (one run a layer and step) and the
+#: ones it recomputes (two); "selective" keeps attn_core and ffn_mid as
+#: the ends of its checkpointed regions, untagged
+RECIPE_TAGS = {"selective_qkv": (("attn_q", "attn_k", "attn_v"), ())}
+
+
+def _recipe_sched(mods):
+    lr = mods.optimizer.lr
+    return lr.LinearWarmup(lr.CosineAnnealingDecay(RECIPE_LR, RECIPE_T_MAX),
+                           RECIPE_WARMUP, 0.0, RECIPE_LR)
+
+
+def pretrain_recipe_path(torch, mods, fa, fad, monitor, card):
+    """Phase 9b: the LLaMA pretraining recipe at the bench shape
+    (profile_training's MODEL, BATCH and SEQ; TrainStep(amp_dtype=
+    "bfloat16"); AdamW on LinearWarmup(CosineAnnealingDecay), norms named
+    out of decay by apply_decay_param_fun, which the train step does not
+    read, as in the JAX package) for RECIPE_STEPS steps under each of
+    RECIPE_GRANULARITIES, counts set to 0 just before each run and read
+    just after, then one step with a document mask under "selective"."""
+    batch, seq = mods.train.BATCH, mods.train.SEQ
+    ids, labels = (torch.randint(
+        0, mods.train.MODEL["vocab_size"], (batch, seq),
+        generator=torch.Generator(device="cuda").manual_seed(4),
+        device="cuda") for _ in range(2))
+    ref = _recipe_sched(mods)
+    want_lrs = []
+    for _ in range(RECIPE_STEPS):
+        want_lrs.append(ref())
+        ref.step()
+    runs = {}
+    for gran in RECIPE_GRANULARITIES:
+        cfg = mods.LlamaConfig(**mods.train.MODEL, recompute=gran != "none",
+                               recompute_granularity="full" if gran ==
+                               "none" else gran)
+        model = mods.LlamaForCausalLM(cfg, seed=0)
+        sched = _recipe_sched(mods)
+        opt = mods.AdamW(sched, parameters=model.named_parameters(),
+                         apply_decay_param_fun=lambda n: "norm" not in n)
+        step = mods.TrainStep(model, lambda out, lab: out, opt,
+                              amp_dtype="bfloat16")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_fwd.launches = 0
+        fa.flash_bwd.launches_dq = fa.flash_bwd.launches_dkv = 0
+        fad.fused_adam_launch.launches = 0
+        monitor.reset()
+        lrs, losses, times = [], [], []
+        for _ in range(RECIPE_STEPS):
+            lrs.append(opt.get_lr())
+            t0 = time.perf_counter()
+            loss = step((ids, labels), labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            sched.step()
+        launches = {"flash_fwd": fa.flash_fwd.launches,
+                    "flash_bwd_dq": fa.flash_bwd.launches_dq,
+                    "flash_bwd_dkv": fa.flash_bwd.launches_dkv,
+                    "fused_adam": fad.fused_adam_launch.launches}
+        counters = {k: v for k, v in monitor.snapshot().items()
+                    if k.startswith(("kernels.", "recompute."))}
+        # -- end of the counted run --
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        layers, n = cfg.num_hidden_layers, RECIPE_STEPS
+        rec = dict(losses=losses, lrs=lrs, step_ms=sorted(times[1:])[
+            len(times[1:]) // 2] * 1e3, peak_mem_gb=peak_gb,
+            launches=launches, counters=counters)
+        what = f"recipe [{gran}]"
+        if not all(map(math.isfinite, losses)) or \
+                not losses[-1] < losses[0]:
+            fail(f"{what}: losses not finite and falling: {losses}")
+        if lrs != want_lrs:
+            fail(f"{what}: lr sequence {lrs}, the scheduler's {want_lrs}")
+        fwd_want = (1 if gran == "none" else 2) * layers * n
+        want = {"flash_fwd": fwd_want, "flash_bwd_dq": layers * n,
+                "flash_bwd_dkv": layers * n, "fused_adam": n}
+        if launches != want:
+            fail(f"{what}: launches {launches}, expected {want}")
+        wg = {k: int(counters.get(f"kernels.flash.{k}_cuda_tc_wgmma", 0))
+              for k in ("fwd", "dq", "dkv")}
+        if wg != {"fwd": fwd_want, "dq": layers * n, "dkv": layers * n}:
+            fail(f"{what}: flash launches on their wgmma kernels {wg}")
+        if counters.get("kernels.optimizer.adam_fused") != n or \
+                counters.get("kernels.optimizer.adam_plain", 0):
+            fail(f"{what}: update routes {counters}")
+        saved, rerun = RECIPE_TAGS.get(gran, ((), ()))
+        for tag in ("attn_core", "ffn_mid", "attn_q", "attn_k", "attn_v"):
+            got = counters.get(f"recompute.checkpoint_name.{tag}", 0)
+            exp = layers * n * (1 if tag in saved else 2 if tag in rerun
+                                else 0)
+            if got != exp:
+                fail(f"{what}: tag {tag} ran {got} times, expected {exp}")
+        if gran == "selective":
+            rec["flashmask_step"] = _recipe_flashmask_step(
+                torch, mods, fa, fad, monitor, step, ids, labels, layers)
+        print(f"recipe [{gran}]: losses {[round(x, 4) for x in losses]}, "
+              f"lrs {lrs}, median step {rec['step_ms']:.1f} ms, peak "
+              f"memory {peak_gb:.2f} GB, launches {launches} on {card}",
+              flush=True)
+        runs[gran] = rec
+        del model, opt, step, sched
+        torch.cuda.empty_cache()
+    peaks = {g: runs[g]["peak_mem_gb"] for g in RECIPE_GRANULARITIES}
+    if not (peaks["full"] < peaks["selective"] <= peaks["selective_qkv"]
+            < peaks["none"]):
+        fail(f"recipe peak memory out of order (full < selective <= "
+             f"selective_qkv < none): {peaks}")
+    tag_ms = _tag_ms(torch, mods)
+    print(f"recipe peak memory GB {peaks}; checkpoint_name copies "
+          f"{tag_ms} ms", flush=True)
+    return dict(runs=runs, peak_mem_gb=peaks, want_lrs=want_lrs,
+                checkpoint_name_ms=tag_ms)
+
+
+def _recipe_flashmask_step(torch, mods, fa, fad, monitor, step, ids,
+                           labels, layers):
+    """One step of the selective run with a 3-document mask, counted."""
+    se = mods.doc_mask([384, 256, mods.train.SEQ - 640], device="cuda")
+    fa.flash_fwd.launches = 0
+    fa.flash_bwd.launches_dq = fa.flash_bwd.launches_dkv = 0
+    fad.fused_adam_launch.launches = 0
+    monitor.reset()
+    loss = float(step((ids, labels, se), labels))
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": fa.flash_fwd.launches,
+                "flash_bwd_dq": fa.flash_bwd.launches_dq,
+                "flash_bwd_dkv": fa.flash_bwd.launches_dkv,
+                "fused_adam": fad.fused_adam_launch.launches}
+    tags = {k: v for k, v in monitor.snapshot().items()
+            if k.startswith("recompute.") and v}
+    want = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers, "fused_adam": 1}
+    want_tags = {}        # "selective" tags nothing
+    if not math.isfinite(loss) or launches != want or tags != want_tags:
+        fail(f"recipe flashmask step: loss {loss}, launches {launches} "
+             f"(expected {want}), tags {tags} (expected {want_tags})")
+    return dict(loss=loss, launches=launches, tags=tags)
+
+
+def _tag_ms(torch, mods):
+    """Device ms of one checkpoint_name copy at the bench shape's tagged
+    activations under "selective_qkv" (bf16 under AMP): q [B, S, hidden],
+    k and v [B, S, kv heads x head dim]."""
+    from paddle_tpu_torch.distributed.fleet import checkpoint_name
+    m = mods.train.MODEL
+    out = {}
+    kv = m["num_key_value_heads"] * m["hidden_size"] // \
+        m["num_attention_heads"]
+    for tag, width in (("attn_q", m["hidden_size"]), ("attn_k", kv)):
+        x = torch.randn(mods.train.BATCH, mods.train.SEQ, width,
+                        device="cuda", dtype=torch.bfloat16)
+        out[tag] = cuda_ms(lambda x=x: checkpoint_name(x, "timing"))
+        del x
+    return out
 
 
 # -- phases 11-14: the MoE path --------------------------------------------
@@ -1807,6 +2339,8 @@ def moe_train_main_path(torch, mods, launches_of, reset_counts, card):
                 "kernels.flash.bwd_cuda") != want["flash_bwd_dq"]:
         fail(f"MoE training kernel-path counters disagree: {counters}")
     routes = check_tc_routes(counters, want["flash_fwd"], "MoE training")
+    update_routes = check_adam_routes(counters, launches["fused_adam"],
+                                      "MoE training")
     moe_tc = check_moe_routes(counters, {
         "fwd_cuda_tc": want["grouped_ffn_fwd"],
         "dx_cuda_tc": want["grouped_ffn_bwd_dx"],
@@ -1820,7 +2354,8 @@ def moe_train_main_path(torch, mods, launches_of, reset_counts, card):
                tokens_per_s=tokens / steady,
                bf16_peak_share=flops / steady / PEAK_FLOPS["bfloat16"],
                peak_mem_gb=peak_gb, launches=launches, counters=counters,
-               flash_routes=routes, grouped_ffn_routes=moe_tc)
+               flash_routes=routes, grouped_ffn_routes=moe_tc,
+               update_routes=update_routes)
     print(f"MoE training: {n_params / 1e6:.1f} M params, batch "
           f"{P.MOE_BATCH} x seq {P.MOE_SEQ}, losses "
           f"{[round(x, 4) for x in losses]}; median step "
@@ -2156,6 +2691,8 @@ def bert_train_main_path(torch, mods, launches_of, reset_counts, card):
             counters.get("kernels.flash.bwd_cuda") != want:
         fail(f"BERT training kernel-path counters disagree: {counters}")
     routes = check_tc_routes(counters, want, "BERT training")
+    update_routes = check_adam_routes(counters, launches["fused_adam"],
+                                      "BERT training")
     steady = sorted(times[1:])[len(times[1:]) // 2]
     tokens = T["batch"] * T["seq"]
     flops = enc.bert_flops_per_token(model) * tokens
@@ -2165,7 +2702,7 @@ def bert_train_main_path(torch, mods, launches_of, reset_counts, card):
                tokens_per_s=tokens / steady,
                bf16_peak_share_6n=flops / steady / PEAK_FLOPS["bfloat16"],
                peak_mem_gb=peak_gb, launches=launches, counters=counters,
-               flash_routes=routes)
+               flash_routes=routes, update_routes=update_routes)
     print(f"BERT training: {n_params / 1e6:.1f} M params, batch {T['batch']} "
           f"x seq {T['seq']}, dropout {cfg.hidden_dropout_prob}, losses "
           f"{[round(x, 4) for x in losses]}; median step "
@@ -2918,16 +3455,19 @@ def main():
         from types import SimpleNamespace
 
         from paddle_tpu_torch import monitor
+        from paddle_tpu_torch import optimizer as optimizer
         from paddle_tpu_torch import profile_encoder as enc
         from paddle_tpu_torch import profile_moe as moe_profile
         from paddle_tpu_torch import profile_training as train
         from paddle_tpu_torch.incubate.distributed.models.moe import \
             gate as moe_gate
+        from paddle_tpu_torch.amp import GradScaler
         from paddle_tpu_torch.inference import (BatchEncoder, Engine,
                                                 SamplingParams)
         from paddle_tpu_torch.jit import TrainStep
         from paddle_tpu_torch.kernels import _build as build
         from paddle_tpu_torch.kernels import flash_attention as fa
+        from paddle_tpu_torch.kernels import fused_adam as fad
         from paddle_tpu_torch.kernels import moe
         from paddle_tpu_torch.kernels import paged_attention as pa
         from paddle_tpu_torch.nn import CrossEntropyLoss
@@ -2956,7 +3496,8 @@ def main():
             SamplingParams=SamplingParams, monitor=monitor,
             moe_profile=moe_profile, enc=enc, BertConfig=BertConfig,
             BertModel=BertModel, BertForPretraining=BertForPretraining,
-            BatchEncoder=BatchEncoder, fa=fa)
+            BatchEncoder=BatchEncoder, fa=fa, fad=fad, optimizer=optimizer,
+            GradScaler=GradScaler)
     except ImportError as e:
         fail(f"cannot import the port (run from the repository root): {e}")
     # a reference states its float32 matmul precision: full f32, no TF32
@@ -2995,6 +3536,7 @@ def main():
         fa.flash_bwd.launches_dq = fa.flash_bwd.launches_dkv = 0
         moe.grouped_ffn_fwd.launches = 0
         moe.grouped_ffn_bwd.launches_dx = moe.grouped_ffn_bwd.launches_dw = 0
+        fad.fused_adam_launch.launches = 0
         monitor.reset()
 
     def launches_of():
@@ -3006,7 +3548,8 @@ def main():
                 "flash_bwd_dkv": fa.flash_bwd.launches_dkv,
                 "grouped_ffn_fwd": moe.grouped_ffn_fwd.launches,
                 "grouped_ffn_bwd_dx": moe.grouped_ffn_bwd.launches_dx,
-                "grouped_ffn_bwd_dw": moe.grouped_ffn_bwd.launches_dw}
+                "grouped_ffn_bwd_dw": moe.grouped_ffn_bwd.launches_dw,
+                "fused_adam": fad.fused_adam_launch.launches}
 
     # 3. kernels against their plain versions
     print("kernels vs plain versions:", flush=True)
@@ -3016,6 +3559,8 @@ def main():
     flash_sass = check_flash_wgmma_sass(build, "flash_fwd")
     flash_bwd_sass = check_flash_wgmma_sass(build, "flash_bwd")
     train_cases = check_flash_train(torch, fa, doc_mask)
+    # 3b. the fused Adam / AdamW update against the plain rule
+    adam_cases = check_fused_adam(torch, mods, fad)
 
     # 4. + 5. the main path: counts to 0 just before, read just after
     build.probe.launches = 0
@@ -3123,12 +3668,16 @@ def main():
     del model, outs, f32_outs
     torch.cuda.empty_cache()
 
-    # 8. the model on the card against the CPU, at small depth
+    # 8. the model on the card against the CPU, at small depth; 8b. the
+    # dynamic loss scale on the card against the CPU
     xcheck = model_cross_check(torch, mods)
+    scaler = grad_scaler_check(torch, mods)
 
     # 9. + 10. the training main path: counts to 0 just before, read after
     training = train_main_path(torch, mods, fa, monitor, card)
     torch.cuda.empty_cache()
+    # 9b. the pretraining recipe under each recompute granularity
+    recipe = pretrain_recipe_path(torch, mods, fa, fad, monitor, card)
 
     # 11. the MoE kernels against their plain versions
     print("MoE kernels vs plain versions:", flush=True)
@@ -3185,7 +3734,8 @@ def main():
     # launches by route: the bf16 training paths run the tc kernels, the
     # f32 serving paths the tf32x3 forward (their counter snapshots)
     tc_paths = {"training": training, "moe_training": moe_training,
-                "bert_training": bert_training}
+                "bert_training": bert_training,
+                **{f"recipe_{g}": r for g, r in recipe["runs"].items()}}
     f32_paths = {"serving": dict(counters=counters),
                  "encoder_serving": enc_serving}
 
@@ -3434,6 +3984,37 @@ def main():
             sass={k: v for k, v in moe_sass.items()
                   if route == "tc" and k.startswith(part)},
             **case[part]))
+    adam_main = adam_cases[0]
+    adam_paths = {"training": training["fused_adam_launches"],
+                  "moe_training": moe_training["launches"]["fused_adam"],
+                  "bert_training": bert_training["launches"]["fused_adam"],
+                  **{f"recipe_{g}": r["launches"]["fused_adam"]
+                     for g, r in recipe["runs"].items()},
+                  "recipe_flashmask": recipe["runs"]["selective"][
+                      "flashmask_step"]["launches"]["fused_adam"]}
+    kernels.append(dict(
+        name="fused_adam", route="cuda", source=src + "fused_adam.cu",
+        replaces="port-only: no TPU kernel; the per-parameter fusion XLA "
+                 "makes of the JAX TrainStep's update, "
+                 "paddle_tpu/jit/api.py:508",
+        launches=sum(adam_paths.values()), launches_by_path=adam_paths,
+        case=adam_main["case"], max_abs_err=adam_main["max_abs_err"],
+        tol="bit-equal (torch.equal on every parameter and state slot)",
+        ms=adam_main["ms"], wrapper_ms=adam_main["wrapper_ms"],
+        plain_ms=adam_main["plain_ms"],
+        bound_ms=adam_main["bound_ms"], bound_by=adam_main["bound_by"],
+        library_ms=adam_main["library_ms"],
+        library_note=adam_main["library_note"],
+        negative_control=adam_main["negative_control"],
+        note="one launch updates every f32 parameter of a step (a chunk "
+             "table drives the blocks; 16-byte vectors, a scalar tail), a "
+             "second advances the beta powers; bound_ms counts 20 bytes a "
+             "parameter with bf16 moments (f32 parameter read and written, "
+             "f32 gradient read, two bf16 moments read and written); ms on "
+             "a cold L2, the launch on tables built once; wrapper_ms the "
+             "wrapper with its checks and table upload; plain_ms the "
+             "per-tensor rule",
+        cases=adam_cases))
     for k in kernels:                 # also under these two names
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]
     result = dict(card=card, kind=kind, torch=torch.__version__,
@@ -3457,7 +4038,9 @@ def main():
                   encoder_flash_cases=enc_flash_cases,
                   bert_flash_train_cases=bert_train_cases,
                   encoder_serving=enc_serving, bert_cross_check=bert_xcheck,
-                  bert_training=bert_training, kernels=kernels)
+                  bert_training=bert_training, fused_adam_cases=adam_cases,
+                  grad_scaler=scaler, pretrain_recipe=recipe,
+                  kernels=kernels)
     (OUT_DIR / "result.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,11 @@ get_params`` gives them (``llama.layers.0.self_attn.q_proj.weight``,
 names. The one layout
 difference: a paddle Linear weight is [in, out], a ``torch.nn.Linear``
 weight is [out, in], so every 2-D weight of a Linear is transposed.
-Embedding ([vocab, hidden]) and norm parameters cross as they are. Adam
-state ({name: {moment1, moment2[, moment2_max], beta1_pow, beta2_pow}},
-the JAX ``TrainStep``'s ``_opt_state``) crosses the same way: a Linear's
-moments are transposed like its weight, the scalars cross as they are.
+Embedding ([vocab, hidden]) and norm parameters cross as they are. Any
+optimizer's state ({name: {slot: array}}, the JAX ``TrainStep``'s
+``_opt_state``: Adam's moments and beta powers, Momentum's velocity,
+NAdam's step, ...) crosses the same way: a Linear's slots shaped like
+its weight are transposed like it, the scalars cross as they are.
 """
 from __future__ import annotations
 
@@ -78,38 +79,53 @@ def _numpy_of(t):
     return t.detach().cpu().numpy()
 
 
-def adam_state_from_numpy(state: Dict[str, Dict[str, np.ndarray]],
-                          device=None, moment_dtype=None
-                          ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The JAX package's Adam/AdamW state (``TrainStep._opt_state``, as
-    numpy) -> the port's ``TrainStep.opt_state`` layout, moments in
-    ``moment_dtype`` (default: as given)."""
+def optimizer_state_from_numpy(state: Dict[str, Dict[str, np.ndarray]],
+                               device=None, moment_dtype=None
+                               ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Any optimizer's state in the JAX package's layout (a
+    ``TrainStep._opt_state`` as numpy: {param name: {slot: array}}) ->
+    the port's ``TrainStep.opt_state``. Every slot shaped like its
+    parameter is transposed with a Linear weight; ASGD's ``y`` window
+    ([n, *shape]) has its last two axes transposed; scalars (beta powers,
+    step counts) cross as they are, in their dtype. ``moment_dtype``
+    (default: as given) applies to the ``moment*`` slots."""
     out = {}
     for name, slots in state.items():
-        lin = name.endswith(LINEAR_SUFFIXES)
         out[name] = {}
         for slot, arr in slots.items():
-            a = np.asarray(arr, np.float32)
-            if lin and slot.startswith("moment"):
-                a = a.T
-            t = torch.tensor(np.ascontiguousarray(a), device=device)
+            a = np.asarray(arr)
+            if a.dtype.kind == "f":
+                a = a.astype(np.float32)
+            a = _linear_layout(name, slot, a)
+            t = torch.tensor(np.array(a, order="C"), device=device)
             if moment_dtype is not None and slot.startswith("moment"):
                 t = t.to(moment_dtype)
             out[name][slot] = t
     return out
 
 
-def adam_state_to_numpy(state: Dict[str, Dict[str, torch.Tensor]]
-                        ) -> Dict[str, Dict[str, np.ndarray]]:
-    """The inverse of adam_state_from_numpy: the port's Adam state ->
-    {name: {slot: f32 array}} in the JAX package's layout."""
+def optimizer_state_to_numpy(state: Dict[str, Dict[str, torch.Tensor]]
+                             ) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of optimizer_state_from_numpy: the port's optimizer
+    state -> {name: {slot: array}} in the JAX package's layout (floating
+    slots as f32)."""
     out = {}
     for name, slots in state.items():
-        lin = name.endswith(LINEAR_SUFFIXES)
-        out[name] = {}
-        for slot, t in slots.items():
-            a = _numpy_of(t)
-            if lin and slot.startswith("moment"):
-                a = a.T
-            out[name][slot] = np.ascontiguousarray(a)
+        out[name] = {slot: np.array(
+            _linear_layout(name, slot, _numpy_of(t)), order="C")
+            for slot, t in slots.items()}
     return out
+
+
+def _linear_layout(name, slot, a):
+    """A Linear weight's state slot in the other layout: its last two axes
+    swapped (the moments, velocities, ... and ASGD's [n, in, out] window;
+    the 0-d scalars stay)."""
+    if name.endswith(LINEAR_SUFFIXES) and a.ndim >= 2:
+        return np.swapaxes(a, -1, -2)
+    return a
+
+
+#: the Adam / AdamW state bridges' first names
+adam_state_from_numpy = optimizer_state_from_numpy
+adam_state_to_numpy = optimizer_state_to_numpy

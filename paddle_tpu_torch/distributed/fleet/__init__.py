@@ -1,3 +1,5 @@
-from .recompute import recompute
+from .recompute import (checkpoint_name, recompute, recompute_sequential,
+                        save_only_names)
 
-__all__ = ["recompute"]
+__all__ = ["recompute", "recompute_sequential", "checkpoint_name",
+           "save_only_names"]

@@ -1,5 +1,5 @@
 """Whole-train-step API (counterpart of ``paddle_tpu/jit``):
-``TrainStep``."""
-from .api import TrainStep
+``TrainStep`` and ``compile_train_step``."""
+from .api import TrainStep, compile_train_step
 
-__all__ = ["TrainStep"]
+__all__ = ["TrainStep", "compile_train_step"]

@@ -22,8 +22,12 @@ holds two copies of the weights or of the moments.
   ``jax.value_and_grad``); a parameter the loss does not reach gets a
   zero gradient.
 - Then the optimizer's ``grad_clip`` (:506-507), then
-  ``apply_gradients_pytree`` (:508) with no decay mask: AdamW decays
-  every parameter, as in the JAX package.
+  ``apply_gradients_pytree`` (:508) at ``optimizer.get_lr()`` (read at
+  every call, so an ``lr.LRScheduler`` drives the steps, :553) with no
+  decay mask: AdamW decays every parameter, as in the JAX package. Any of
+  the port's per-parameter optimizers runs there; Adam and AdamW update
+  every f32 parameter on the card in one fused launch
+  (``kernels/fused_adam.py``).
 
 The step follows the model's device: inputs and labels (tensors or numpy
 arrays) are moved there. Left out: the ``analysis`` lint on the first
@@ -98,6 +102,14 @@ class TrainStep:
         return t
 
     def __call__(self, inputs, labels):
+        loss, grads = self.loss_and_grads(inputs, labels)
+        self._opt.apply_gradients_pytree(self._params, grads,
+                                         self._opt_state, self._opt.get_lr())
+        return loss
+
+    def loss_and_grads(self, inputs, labels):
+        """The step without its update: (loss, {parameter name: gradient}),
+        the gradients clipped by the optimizer's ``grad_clip``."""
         if not isinstance(inputs, (list, tuple)):
             inputs = (inputs,)
         inputs = tuple(self._cast(x) for x in _as_tensor(tuple(inputs),
@@ -115,10 +127,7 @@ class TrainStep:
         clip = self._opt._grad_clip
         if clip is not None:
             grads = clip.clip_grads(grads)
-        self._opt.apply_gradients_pytree(
-            self._params, dict(zip(names, grads)), self._opt_state,
-            self._opt.get_lr())
-        return loss
+        return loss, dict(zip(names, grads))
 
     def sync_to_model(self):
         """The parameters are updated in place, so only the optimizer's
@@ -132,3 +141,13 @@ class TrainStep:
         self._params = {n: p for n, p in self._model.named_parameters()
                         if p.requires_grad}
         self._device = next(iter(self._params.values())).device
+
+    @property
+    def loss_scale(self):
+        """No loss scaling inside the train step (:581-583)."""
+        return 1.0
+
+
+def compile_train_step(model, loss_fn, optimizer, **kw):
+    """``TrainStep(model, loss_fn, optimizer, **kw)`` (:611)."""
+    return TrainStep(model, loss_fn, optimizer, **kw)

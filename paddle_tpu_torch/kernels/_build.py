@@ -38,7 +38,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 #: kernel library name -> its source file under csrc/
 SOURCES = {"paged_decode": "paged_decode.cu", "flash_fwd": "flash_fwd.cu",
            "flash_bwd": "flash_bwd.cu", "grouped_ffn_fwd": "grouped_ffn_fwd.cu",
-           "grouped_ffn_bwd": "grouped_ffn_bwd.cu"}
+           "grouped_ffn_bwd": "grouped_ffn_bwd.cu",
+           "fused_adam": "fused_adam.cu"}
 HEADERS = ("common.cuh", "flash_common.cuh", "flash_tc.cuh",
            "grouped_gemm.cuh", "grouped_gemm_tc.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -73,6 +74,9 @@ SIGNATURES = {
                         [_P] * 17 + [_I] * 6 + [_P],
                         "grouped_ffn_bwd_dw_launch":
                         [_P] * 11 + [_I] * 5 + [_P]},
+    "fused_adam": {"fused_adam_launch":
+                   [_P, _P, _L] + [_I] * 6 + [_F] * 7 + [_P],
+                   "fused_adam_route": [_I, _I, _I]},
 }
 
 _lock = threading.Lock()

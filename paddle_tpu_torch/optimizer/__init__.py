@@ -1,21 +1,14 @@
-"""Optimizers (counterpart of ``paddle_tpu/optimizer``): ``Adam`` and
-``AdamW`` with the JAX package's exact update math. The package's other
-optimizers and its ``lr`` schedulers come with a later slice: naming one
-raises NotImplementedError."""
+"""Optimizers (counterpart of ``paddle_tpu/optimizer``): the fourteen
+optimizers of the JAX package with its exact update math, parameter
+groups, ``multi_precision`` master weights, and the ``lr`` schedulers.
+Adam and AdamW update every float32 parameter on the card in one fused
+CUDA launch (``kernels/fused_adam.py``)."""
+from . import lr
+from .lbfgs import LBFGS
 from .optimizer import Optimizer
-from .optimizers import Adam, AdamW
+from .optimizers import (ASGD, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
+                         Lamb, Momentum, NAdam, RAdam, RMSProp, Rprop)
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
-
-#: in ``paddle_tpu.optimizer`` but not carried by this slice of the port
-LATER = ("SGD", "Momentum", "Adagrad", "RMSProp", "Lamb", "Adamax",
-         "Adadelta", "NAdam", "RAdam", "ASGD", "Rprop", "LBFGS", "lr")
-
-
-def __getattr__(name):
-    if name in LATER:
-        raise NotImplementedError(
-            f"paddle_tpu_torch.optimizer.{name} comes with a later slice of "
-            f"the port; this slice carries Adam and AdamW with float "
-            f"learning rates")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = ["lr", "Optimizer", "LBFGS", "ASGD", "SGD", "Adadelta", "Adagrad",
+           "Adam", "Adamax", "AdamW", "Lamb", "Momentum", "NAdam", "RAdam",
+           "RMSProp", "Rprop"]

@@ -22,9 +22,9 @@ The profile builds the training configuration and runs
 steps timed without the profiler, ``--steps`` more under
 ``torch.profiler`` summed by kind (the grouped-FFN and flash kernels of
 the port, cuBLAS GEMMs, elementwise, copies and casts, reductions) with
-the device idle share, and the AdamW update timed alone. Prints one JSON
-line and writes it, with the chrome trace, to ``--out`` (default
-chiprun_out/profile_moe). Needs a GPU: it raises otherwise.
+the device idle share, and the AdamW update timed alone on both routes.
+Prints one JSON line and writes it, with the chrome trace, to ``--out``
+(default chiprun_out/profile_moe). Needs a GPU: it raises otherwise.
 """
 from __future__ import annotations
 

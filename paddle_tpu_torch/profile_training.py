@@ -16,9 +16,13 @@ AdamW(3e-4, bf16 moments)) and profiles it with ``profile_step`` (which
    step, the device idle share of the window, the kernels by device time
    and their sums by kind (the port's flash kernels, cuBLAS GEMMs,
    elementwise, copies and casts, reductions);
-3. times two parts of a step alone with CUDA events: the AdamW update
-   of every parameter (``apply_gradients_pytree``) and the bf16 cast of
-   the parameters for the forward.
+3. times parts of a step alone with CUDA events: the AdamW update of
+   every parameter on both routes in turns, the step's own
+   (``apply_gradients_pytree``: one fused launch, ``csrc/fused_adam.cu``)
+   as ``optimizer_update_ms`` and the per-tensor plain rule the port ran
+   before it (``plain_update``) as ``optimizer_update_plain_ms``, each
+   the median of ``UPDATE_PAIRS`` pairs; and the bf16 cast of the parameters
+   for the forward.
 
 Prints one JSON line and writes it, with the chrome trace, to ``--out``
 (default chiprun_out/profile_training). Needs a GPU: it raises otherwise.
@@ -34,7 +38,7 @@ from pathlib import Path
 import torch
 
 from .jit import TrainStep
-from .optimizer import AdamW
+from .optimizer import AdamW, Optimizer
 from .profile_serving import _kernel_times
 from .text.models import LlamaConfig, LlamaForCausalLM
 
@@ -45,6 +49,8 @@ MODEL = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
              num_key_value_heads=32, max_position_embeddings=1024,
              fused_linear_ce=True, fused_ce_chunks=4)
 BATCH, SEQ = 12, 1024
+#: fused / plain update timings, taken in turns (``update_ms``)
+UPDATE_PAIRS = 3
 
 
 def _kind(name):
@@ -55,6 +61,7 @@ def _kind(name):
                       ("flash_bwd_dkv", "flash dK/dV (port)"),
                       ("flash_bwd_dq", "flash dQ (port)"),
                       ("flash_fwd", "flash forward (port)"),
+                      ("fused_adam", "fused Adam update (port)"),
                       ("nvjet", "cuBLAS GEMM"), ("gemm", "cuBLAS GEMM"),
                       ("copy", "copies and casts"),
                       ("Memcpy", "copies and casts"),
@@ -83,6 +90,33 @@ def parse_args(argv, default_out):
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default=default_out)
     return ap.parse_args(argv)
+
+
+@torch.no_grad()
+def plain_update(opt, params, grads, state, lr):
+    """The optimizer's per-tensor rule over every parameter, one at a
+    time (``Optimizer._apply_updates``): the update the port ran before
+    the fused kernel, timed beside it."""
+    items = [(p, grads[n], state[n], p.dtype) for n, p in params.items()]
+    Optimizer._apply_updates(opt, items, lr, opt._weight_decay)
+
+
+def update_ms(step):
+    """(fused ms, plain ms): the update of every parameter of ``step`` (a
+    ``TrainStep``) from zero gradients, the step's own route
+    (``apply_gradients_pytree``) and the plain rule in turns, the median
+    of ``UPDATE_PAIRS`` each. Moves the weights and the optimizer
+    state."""
+    opt, params, state = step._opt, step._params, step.opt_state
+    zeros = {n: torch.zeros_like(p) for n, p in params.items()}
+    lr = opt.get_lr()
+    fused, plain = [], []
+    for _ in range(UPDATE_PAIRS):
+        fused.append(_device_ms(lambda: opt.apply_gradients_pytree(
+            params, zeros, state, lr)))
+        plain.append(_device_ms(lambda: plain_update(opt, params, zeros,
+                                                     state, lr)))
+    return sorted(fused)[UPDATE_PAIRS // 2], sorted(plain)[UPDATE_PAIRS // 2]
 
 
 def fixed_batch(vocab_size, batch, seq, device):
@@ -128,11 +162,9 @@ def profile_step(step, inputs, labels, args, meta, extra_parts=None):
         kinds[_kind(n)] = kinds.get(_kind(n), 0.0) + us / 1e3 / args.steps
     # the parts of a step timed alone (these move the weights: last)
     params = step._params
-    zeros = {n: torch.zeros_like(p) for n, p in params.items()}
-    opt = step._opt
-    parts = {"optimizer_update_ms": _device_ms(
-        lambda: opt.apply_gradients_pytree(params, zeros, step.opt_state,
-                                           opt.get_lr()))}
+    fused_ms, plain_ms = update_ms(step)
+    parts = {"optimizer_update_ms": fused_ms,
+             "optimizer_update_plain_ms": plain_ms}
     for key, fn in (extra_parts or {}).items():
         parts[key] = _device_ms(lambda fn=fn: fn(params))
     card = subprocess.run(

@@ -3,11 +3,12 @@
 The serving and training slices of the port: ``LlamaConfig``, RMSNorm,
 attention (the no-cache flash branch with flashmask, :221-291, and the
 paged-KV branch, :377-487), the SwiGLU MLP, the decoder stack with
-per-layer full recompute (:669-700), the causal-LM head, the fused
-chunked LM loss when ``labels`` are given (:746-754), ``serving_spec``
-(:760) and ``llama_flops_per_token`` (:837). Module and parameter names
-match the JAX package, so ``bridge.llama_state_from_numpy`` maps one set
-of weights onto the other.
+per-layer recompute, full or selective (:669-700), the causal-LM head,
+the fused chunked LM loss when ``labels`` are given (:746-754),
+``serving_spec`` (:760) and ``llama_flops_per_token`` (:837). Module and
+parameter names match the JAX package, so
+``bridge.llama_state_from_numpy`` maps one set of weights onto the
+other.
 
 Attention paths:
 
@@ -21,10 +22,23 @@ Attention paths:
   are gathered and attended with plain PyTorch in f32, as the JAX
   package does it with XLA (:453-470).
 
+Recompute granularities (``recompute=True``): "full" checkpoints the
+whole layer and keeps only its input. "selective" keeps what the JAX
+policy saves by name, the attention output (``attn_core``) and the SwiGLU
+product (``ffn_mid``), by where its regions end: the layer runs as two
+checkpointed regions, norm -> q/k/v -> rope -> flash and norm -> gate/up
+-> SwiGLU, with o_proj, down_proj and the residual adds outside them. The
+rerun then stops at the regions' ends, as XLA's drops what the saved
+names make dead; the region outputs are kept by the products that read
+them, at no copy, and the second region's input (the residual after
+attention) is kept too. "selective_qkv" also keeps q, k and v after rope:
+they are tagged (``attn_q`` / ``attn_k`` / ``attn_v``, not on the
+flashmask path, as in the JAX model) and the attention region runs under
+``save_only_names`` of them. See ``distributed/fleet/recompute.py``.
+
 Not carried yet, each raising NotImplementedError: dense and rolling KV
-caches (the decode slice), selective recompute granularities, sequence
-parallelism (the distributed slice), and the
-``use_flash_attention=False`` escape hatch.
+caches (the decode slice), sequence parallelism (the distributed slice),
+and the ``use_flash_attention=False`` escape hatch.
 """
 from __future__ import annotations
 
@@ -36,7 +50,8 @@ import torch
 from torch import nn
 
 from ...core.device import resolve_device
-from ...distributed.fleet.recompute import recompute
+from ...distributed.fleet.recompute import (checkpoint_name, recompute,
+                                             save_only_names)
 from ...incubate.nn.functional import (fused_linear_cross_entropy,
                                        fused_rotary_position_embedding)
 from ...nn import functional as F
@@ -96,11 +111,7 @@ def _check_supported(c: LlamaConfig):
             "use_flash_attention=False (the JAX package's XLA sdpa escape "
             "hatch) is not carried by the port: no-cache attention always "
             "runs the flash kernel")
-    if c.recompute and c.recompute_granularity != "full":
-        if c.recompute_granularity in ("selective", "selective_qkv"):
-            raise NotImplementedError(
-                f"recompute_granularity={c.recompute_granularity!r} comes "
-                f"with a later slice of the port; 'full' is carried")
+    if c.recompute and c.recompute_granularity not in GRANULARITIES:
         raise ValueError(
             f"recompute_granularity={c.recompute_granularity!r}: expected "
             f"'full', 'selective' or 'selective_qkv'")
@@ -111,6 +122,18 @@ def _check_supported(c: LlamaConfig):
     if c.sliding_window is not None and int(c.sliding_window) < 1:
         raise ValueError(
             f"sliding_window must be >= 1, got {c.sliding_window}")
+
+
+#: the recompute granularities (llama.py:677-684)
+GRANULARITIES = ("full", "selective", "selective_qkv")
+#: the tags "selective_qkv" saves in the attention region
+QKV_TAGS = ("attn_q", "attn_k", "attn_v")
+
+
+def _tags_qkv(config: LlamaConfig) -> bool:
+    """Whether the attention tags q, k and v for a selective policy."""
+    return config.recompute and \
+        config.recompute_granularity == "selective_qkv"
 
 
 class LlamaRMSNorm(nn.Module):
@@ -137,6 +160,7 @@ class LlamaAttention(nn.Module):
         self.head_dim = c.hidden_size // c.num_attention_heads
         self.window = None if c.sliding_window is None \
             else int(c.sliding_window)
+        self._tag_qkv = _tags_qkv(c)
         hs = c.hidden_size
         kv = self.num_kv_heads * self.head_dim
         self.q_proj = _linear(hs, hs, device, dtype)
@@ -146,12 +170,19 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, kv_cache=None, cache_index=None,
                 attn_mask_startend_row_indices=None):
+        if kv_cache is None:
+            return self.o_proj(self.core(x, attn_mask_startend_row_indices))
+        q, k, v = self._qkv(x, cache_index)
+        return self._cached_attention(q, k, v, kv_cache, cache_index)
+
+    def _qkv(self, x, cache_index=None):
+        """q, k, v [b, s, heads, head_dim], q and k after rope."""
         b, s, _ = x.shape
         q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         position_ids = None
-        if kv_cache is not None:
+        if cache_index is not None:
             # rope positions continue from the cache write offset (a
             # scalar, or [b] per-slot offsets for the serving engine)
             idx = torch.as_tensor(cache_index, device=x.device).reshape(-1, 1)
@@ -160,8 +191,11 @@ class LlamaAttention(nn.Module):
         q, k, _ = fused_rotary_position_embedding(
             q, k, None, position_ids=position_ids,
             use_neox_rotary_style=True)
-        if kv_cache is not None:
-            return self._cached_attention(q, k, v, kv_cache, cache_index)
+        return q, k, v
+
+    def core(self, x, attn_mask_startend_row_indices=None):
+        """The no-cache attention up to o_proj (``attn_core``, [b, s,
+        heads x head_dim]): q/k/v, rope and the flash kernel."""
         from ...kernels.flash_attention import flash_attention
         se = attn_mask_startend_row_indices
         if se is not None and self.window is not None:
@@ -169,9 +203,14 @@ class LlamaAttention(nn.Module):
                 "attn_mask_startend_row_indices cannot be combined with "
                 "sliding_window — express the window as extra mask bands "
                 "instead")
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x)
+        if self._tag_qkv and se is None:
+            q, k, v = (checkpoint_name(t, n)
+                       for t, n in zip((q, k, v), QKV_TAGS))
         out = flash_attention(q, k, v, causal=True, window=self.window,
                               startend_row_indices=se)
-        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        return out.reshape(b, s, self.num_heads * self.head_dim)
 
     def _cached_attention(self, q, k, v, kv_cache, cache_index):
         """KV-cache attention. Only the PAGED layout is carried:
@@ -246,7 +285,11 @@ class LlamaMLP(nn.Module):
         self.down_proj = _linear(im, hs, device, dtype)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return self.down_proj(self.mid(x))
+
+    def mid(self, x):
+        """The SwiGLU product (``ffn_mid``)."""
+        return F.silu(self.gate_proj(x)) * self.up_proj(x)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -273,6 +316,25 @@ class LlamaDecoderLayer(nn.Module):
             attn_mask_startend_row_indices=attn_mask_startend_row_indices)
         x = x + self.mlp(self.post_attention_layernorm(x))
         return x
+
+    def forward_selective(self, x, attn_mask_startend_row_indices=None,
+                          policy=None):
+        """The layer as two checkpointed regions that end at attn_core
+        and ffn_mid, o_proj, down_proj and the residual adds outside them
+        (selective recompute); ``policy`` runs the attention region
+        selectively (q, k, v saved under "selective_qkv"). The mask bands
+        ride along as a checkpointed input."""
+        a = recompute(self._attn_region, x, attn_mask_startend_row_indices,
+                      policy=policy)
+        x = x + self.self_attn.o_proj(a)
+        m = recompute(self._ffn_region, x)
+        return x + self.mlp.down_proj(m)
+
+    def _attn_region(self, x, se):
+        return self.self_attn.core(self.input_layernorm(x), se)
+
+    def _ffn_region(self, x):
+        return self.mlp.mid(self.post_attention_layernorm(x))
 
 
 class LlamaModel(nn.Module):
@@ -303,11 +365,17 @@ class LlamaModel(nn.Module):
                 x, nc = lyr(x, kv_cache=cache, cache_index=cache_index)
                 new_caches.append(nc)
             return self.norm(x), new_caches
+        gran = self.config.recompute_granularity \
+            if self.config.recompute else None
+        policy = save_only_names(*QKV_TAGS) \
+            if gran == "selective_qkv" else None
         for lyr in self.layers:
-            if self.config.recompute:
-                # full recompute: the layer reruns in the backward, the
-                # mask bands riding along as an input
+            if gran == "full":
+                # the layer reruns in the backward, the mask bands riding
+                # along as a checkpointed input
                 x = recompute(lyr, x, attn_mask_startend_row_indices=se)
+            elif gran is not None:
+                x = lyr.forward_selective(x, se, policy)
             else:
                 x = lyr(x, attn_mask_startend_row_indices=se)
         return self.norm(x)

@@ -1367,3 +1367,132 @@ def test_deadline_under_inflight_graph_hands_pages_to_new_request(dev):
         if rid != victim:
             assert o.ok and o.preemptions == 0
             assert o.token_ids == res[None][rid].token_ids, rid
+
+
+# -- the fused Adam / AdamW update (csrc/fused_adam.cu) ----------------------
+
+def _adam_case(dev, mdt, amsgrad, offset, seed):
+    """Parameters of odd sizes (vector tails, a tensor of one element, one
+    of several chunks), each ``offset`` elements into its buffer (1: not
+    16-byte aligned, the scalar path), with state after three steps."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ps, gs, sts = [], [], []
+    for n in (1, 7, 8, 4099, 8192 + 13, 3 * 8192):
+        ps.append(torch.randn(n + offset, generator=g, device=dev)[offset:])
+        gs.append(torch.randn(n, generator=g, device=dev) * 0.1)
+        gs[-1][::5] = 0.0
+        st = {"moment1": (torch.randn(n, generator=g, device=dev)
+                          * 0.01).to(mdt),
+              "moment2": (torch.rand(n, generator=g, device=dev)
+                          * 1e-3).to(mdt),
+              "beta1_pow": torch.tensor(0.9 ** 3, device=dev),
+              "beta2_pow": torch.tensor(0.999 ** 3, device=dev)}
+        if amsgrad:
+            st["moment2_max"] = (torch.rand(n, generator=g, device=dev)
+                                 * 1e-3).to(mdt)
+        sts.append(st)
+    return ps, gs, sts
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("decay", ["none", "decoupled", "l2"])
+@pytest.mark.parametrize("amsgrad", [False, True])
+@pytest.mark.parametrize("mdt", [torch.float32, torch.bfloat16])
+def test_fused_adam_bit_equal_to_plain(dev, mdt, amsgrad, decay, offset):
+    """Three launches against three plain updates: every parameter and
+    state slot equal bit for bit."""
+    from paddle_tpu_torch.kernels import fused_adam as fad
+    ps, gs, sts = _adam_case(dev, mdt, amsgrad, offset, seed=offset + 7)
+    ref_p = [p.clone() for p in ps]
+    ref_s = [{k: v.clone() for k, v in s.items()} for s in sts]
+    lr = torch.tensor(3e-4, dtype=torch.float32, device=dev)
+    launches = fad.fused_adam_launch.launches
+    for _ in range(3):
+        fad.fused_adam_launch(ps, gs, sts, 3e-4, 0.9, 0.999, 1e-8,
+                              amsgrad=amsgrad, decay=decay, coeff=0.05)
+        for p, g, s in zip(ref_p, gs, ref_s):
+            fad.adam_update_plain(p, g, s, lr, 0.9, 0.999, 1e-8, amsgrad,
+                                  decay, 0.05)
+    torch.cuda.synchronize()
+    assert fad.fused_adam_launch.launches == launches + 3
+    for p, r in zip(ps, ref_p):
+        assert torch.equal(p, r)
+    for s, r in zip(sts, ref_s):
+        for k in s:
+            assert s[k].dtype == r[k].dtype and torch.equal(s[k], r[k]), k
+
+
+def test_fused_adam_route_rule_matches_c(dev):
+    from paddle_tpu_torch.kernels import fused_adam as fad
+    lib = _build.load("fused_adam")
+    dts = {0: torch.float32, 1: torch.bfloat16, 2: torch.float16}
+    for a, pa_ in dts.items():
+        for b, ga in dts.items():
+            for c, ma in dts.items():
+                want = fad.adam_update_route(dev, pa_, ga, ma) == "fused"
+                assert bool(lib.fused_adam_route(a, b, c)) == want
+
+
+def test_fused_adam_rejects_a_table_without_one_chunk(dev):
+    from paddle_tpu_torch.kernels import fused_adam as fad
+    ps, gs, sts = _adam_case(dev, torch.bfloat16, False, 0, seed=3)
+    ref = [p.clone() for p in ps]
+    tables = fad.adam_tables(ps, gs, sts, False)
+    fad.fused_adam_launch(ps, gs, sts, 3e-4, 0.9, 0.999, 1e-8,
+                          amsgrad=False,
+                          tables=tables._replace(chunks=tables.chunks[:-1]))
+    torch.cuda.synchronize()
+    last = ps[-1][-8192:]
+    assert torch.equal(last, ref[-1][-8192:])     # the dropped chunk
+    assert not torch.equal(ps[-1][:8192], ref[-1][:8192])
+
+
+def test_fused_adam_checks_every_launch(dev):
+    """A launch after a good one, on the same addresses, where one
+    parameter's moments are now bf16 views of the f32 buffers the first
+    launch read: the check runs again and refuses the mixed dtypes."""
+    from paddle_tpu_torch.kernels import fused_adam as fad
+    ps, gs, sts = _adam_case(dev, torch.float32, False, 0, seed=5)
+    fad.fused_adam_launch(ps, gs, sts, 3e-4, 0.9, 0.999, 1e-8,
+                          amsgrad=False)
+    n = ps[1].numel()
+    for slot in ("moment1", "moment2"):
+        view = sts[1][slot].view(torch.bfloat16)[:n]
+        assert view.data_ptr() == sts[1][slot].data_ptr()
+        sts[1][slot] = view
+    launches = fad.fused_adam_launch.launches
+    with pytest.raises(ValueError, match="one moment dtype"):
+        fad.fused_adam_launch(ps, gs, sts, 3e-4, 0.9, 0.999, 1e-8,
+                              amsgrad=False)
+    assert fad.fused_adam_launch.launches == launches
+
+
+def test_adam_routes_and_counters_on_card(dev):
+    """An eager AdamW step: the f32 parameters in one fused launch, a bf16
+    parameter under multi_precision on the plain route; the f32 result
+    equal to the plain rule's bit for bit."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch import optimizer as topt
+    g = torch.Generator(device=dev).manual_seed(0)
+    f32 = [torch.nn.Parameter(torch.randn(n, generator=g, device=dev))
+           for n in (33, 8200)]
+    half = torch.nn.Parameter(torch.randn(64, generator=g, device=dev)
+                              .to(torch.bfloat16))
+    ref = [p.detach().clone() for p in f32]
+    for p in f32 + [half]:
+        p.grad = torch.randn(p.shape, generator=g, device=dev).to(p.dtype)
+    monitor.reset()
+    opt = topt.AdamW(1e-3, parameters=f32 + [half], multi_precision=True,
+                     moment_dtype="bfloat16")
+    opt.step()
+    torch.cuda.synchronize()
+    snap = monitor.snapshot()
+    assert snap.get("kernels.optimizer.adam_fused") == 1
+    assert snap.get("kernels.optimizer.adam_plain") == 1
+    rule = topt.AdamW(1e-3, parameters=ref, moment_dtype="bfloat16")
+    lr = torch.tensor(1e-3, dtype=torch.float32, device=dev)
+    for r, p in zip(ref, f32):
+        rule._update(r, p.grad, rule._init_state(r), lr)
+        assert torch.equal(p.detach(), r)
+    assert opt._accumulators[id(half)]["_master_weight"].dtype == \
+        torch.float32

@@ -146,8 +146,7 @@ def test_unsupported_arguments_raise():
     with pytest.raises(ValueError, match="sliding_window"):
         wnet(ids, attn_mask_startend_row_indices=se)
     for field, value in (("sequence_parallel", True),
-                         ("use_flash_attention", False),
-                         ("recompute_granularity", "selective")):
+                         ("use_flash_attention", False)):
         cfg = LlamaConfig.tiny(vocab=64)
         cfg.recompute = True
         setattr(cfg, field, value)

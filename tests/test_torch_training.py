@@ -169,9 +169,6 @@ def test_eager_step_matches_rule_and_refuses_decay_fun():
     torch.testing.assert_close(p.detach(), q, rtol=0, atol=0)
     opt.clear_grad()
     assert p.grad is None
-    with pytest.raises(NotImplementedError, match="later slice"):
-        topt.AdamW(0.1, parameters=[p],
-                   apply_decay_param_fun=lambda n: True).step()
 
 
 @pytest.mark.parametrize("clip", ["global", "norm", "value"])
@@ -189,15 +186,3 @@ def test_clip_matches_jax(clip):
     for (k, w), g in zip(want.items(), got):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=k,
                                    **TOL)
-
-
-@pytest.mark.parametrize("name", ["SGD", "Momentum", "Lamb", "lr"])
-def test_later_slice_optimizers_raise(name):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        getattr(topt, name)
-    p = torch.zeros(2, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        topt.AdamW(lambda: 0.1, parameters=[p])
-    opt = topt.AdamW(0.1, parameters=[p])
-    opt.set_lr(0.05)
-    assert opt.get_lr() == 0.05
