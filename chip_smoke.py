@@ -102,6 +102,33 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    deadline, the cancel's pages back at once, every other request's
    tokens the clean run's (a prefix when a deadline cut them); overlap
    ms a tick printed beside host and device;
+6d. one-shot decoding (``text.generate`` / ``beam_search``) at the same
+   model, 16 prompts of 128 tokens and 128 new tokens (caches sized for
+   256), each run counted on its own (counts to 0 just before, read just
+   after; no plain version may run) and printed with tokens/s and the
+   median ms of a decode step (the card's events and the host's clock)
+   beside 6b's Engine ticks at k=1 and k=8: (a) paged f32 and bf16 pools,
+   paged-decode launches == 127 x 4, all on the split kernel,
+   teacher-forced agreement >= AGREE_F32 / AGREE_BF16; (b) dense f32,
+   bf16, int8 (int8 at AGREE_BF16), the share identical to (a) printed;
+   (c) the model at a 64-token window, where "auto" rolls and the
+   128-token prefill is longer than the window: rolling bf16 and int8
+   tokens equal to the dense layout's, agreement against the windowed
+   no-cache forward; (d) use_cache=False, 32 new tokens: flash forward
+   launches == 32 x 4, all tf32x3; (e) ERNIE-MoE (phase 12's model), 8
+   prompts, 96 new tokens, paged f32: grouped-FFN forward launches ==
+   (1 + 95) x 2, the steps' on "rows", the prefill's on simt, paged
+   decode == 95 x 4, paged teacher-forced agreement >= MOE_AGREE; (f)
+   beam search (2 prompts, 4 beams, 32 new tokens, eos, length penalty
+   0.8, dense f32): each best beam's normalised score within 1e-3 of its
+   teacher-forced recomputation, num_beams=1 equal to greedy; (g)
+   sampling (T 0.8, top-k 50, top-p 0.9, seed 0) twice: identical, every
+   token in its teacher-forced keep set; (h) synchronizations under
+   ``torch.cuda.set_sync_debug_mode("warn")`` of the paged and dense
+   bf16 runs at 32 and 128 new tokens: equal at both lengths (a control
+   counts 3 known reads); (i) the incubate ``paged_attention`` op at
+   phase 3's LLaMA geometry (bf16, int8 pools): bit-equal to
+   ``paged_decode``, within the gate of ``paged_attention_arrays``;
 
 7. training kernels: the flash forward with logsumexp and the two
    backward kernels (dQ, dK/dV) against their plain versions at the
@@ -273,8 +300,8 @@ on the tc route, ``grouped_ffn_fwd_rows`` (the decode tick) and
 last line
 {"ok": true, "device":
 {...}}. Details land in
-chiprun_out/chip_smoke/ (result JSON, nvcc/ptxas logs). About two and a half
-minutes of command time on an H100, the six kernel builds included.
+chiprun_out/chip_smoke/ (result JSON, nvcc/ptxas logs). About three minutes
+of command time on an H100, the six kernel builds included.
 """
 from __future__ import annotations
 
@@ -3417,6 +3444,377 @@ def serving_reliability(torch, mods, model, clean, k1_tick_ms, launches_of,
     return res, paths
 
 
+# -- phase 6d: one-shot decoding -------------------------------------------
+
+#: phase 6d's batch: prompts x prompt tokens x new tokens (total = 128 +
+#: _bucketed(128) = 256), and the ERNIE-MoE case's
+ONE_SHOT_B, ONE_SHOT_S, ONE_SHOT_NEW = 16, 128, 128
+ONE_SHOT_MOE_B, ONE_SHOT_MOE_NEW = 8, 96
+#: (c)'s window: shorter than the 128-token prompt, so "auto" rolls
+ONE_SHOT_WINDOW = 64
+#: (f) and (g)
+BEAM_B, BEAM_K, BEAM_NEW, BEAM_LP = 2, 4, 32, 0.8
+SAMPLE_KW = dict(temperature=0.8, top_k=50, top_p=0.9, seed=0)
+#: (f)'s gate on a returned beam's length-normalised score against its
+#: teacher-forced recomputation, relative
+BEAM_SCORE_RTOL = 1e-3
+
+
+def one_shot_tf_agreement(torch, model, seqs, s):
+    """Per row, the share of the generated tokens seqs[:, s:] equal to
+    the argmax of ONE no-cache forward over seqs[:, :-1]."""
+    with torch.no_grad():
+        pred = model(seqs[:, :-1])[:, s - 1:].argmax(-1)
+    return (pred == seqs[:, s:]).float().mean(1).tolist()
+
+
+def one_shot_keep_sets(torch, logits, temperature, top_k, top_p):
+    """generate's sampler keep set of each row of logits [n, V]: ranks <
+    top_k, then the nucleus of the renormalised survivors."""
+    scaled = logits.float() / temperature
+    svals, order = torch.sort(scaled, dim=-1, descending=True, stable=True)
+    ranks = torch.arange(scaled.shape[-1], device=scaled.device)[None]
+    keep = ranks < top_k
+    probs = torch.softmax(torch.where(keep, svals, float("-inf")), dim=-1)
+    keep = keep & ((torch.cumsum(probs, -1) - probs) < top_p)
+    return torch.zeros_like(keep).scatter(1, order, keep)
+
+
+def count_syncs(torch, fn):
+    """Synchronizations fn() makes, as ``torch.cuda.set_sync_debug_mode``
+    ("warn") reports them (warnings captured); the card is synchronised
+    after the count, outside it."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _windowed(model, window):
+    """Set the LLaMA model's sliding window (config and every layer);
+    returns the old one."""
+    old = model.config.sliding_window
+    model.config.sliding_window = window
+    for lyr in model.llama.layers:
+        lyr.self_attn.window = window
+    return old
+
+
+def one_shot_decoding(torch, mods, model, engine_ticks, launches_of,
+                      reset_counts, card):
+    """Phase 6d: ``text.generate`` / ``beam_search`` at the serving model
+    (LLaMA-7B widths, 4 layers, f32), 16 prompts of 128 tokens, 128 new
+    tokens; every run counted on its own (counts to 0 just before, read
+    just after) and printed with tokens/s and ms a decode step beside
+    the Engine's k=1 and k=8 ticks of this call. (a) greedy paged f32 and
+    bf16 pools: paged-decode launches == 127 x 4, all split, no plain
+    call, teacher-forced agreement >= AGREE_F32 / AGREE_BF16; (b) dense
+    f32, bf16, int8 (the same gate, int8 at AGREE_BF16; identical share
+    against (a) printed); (c) the model at a 64-token window: "auto"
+    picks rolling, the 128-token prefill past the window; rolling bf16 and
+    int8 tokens == the dense layout's, agreement against the windowed
+    no-cache forward; (d) use_cache=False, 32 new tokens: flash forward
+    launches == 32 x 4, all tf32x3; (e) ERNIE-MoE (bench_ernie_moe_serving's
+    model), 8 prompts, 96 new tokens, paged f32: grouped-FFN forward
+    launches == (1 + 95) x 2, the steps on "rows", paged-decode == 95 x 4,
+    paged teacher-forced >= MOE_AGREE; (f) beam search, 2 prompts, 4
+    beams, 32 new tokens, eos set, length_penalty 0.8, dense f32: each
+    best beam's length-normalised score within BEAM_SCORE_RTOL of its
+    teacher-forced recomputation, num_beams=1 == greedy dense; (g)
+    sampling (T 0.8, top-k 50, top-p 0.9, seed 0) twice: identical, every
+    token in its teacher-forced keep set; (h) the synchronizations of (a)'s
+    paged bf16 and (b)'s dense bf16 runs at 32 and 128 new tokens equal
+    (none grows with the length), with a control that counts known
+    syncs; (i) the incubate paged_attention op at phase 3's LLaMA
+    geometry (bf16, int8 pools) bit-equal to paged_decode and within the
+    gate of paged_attention_arrays. Returns (records, launches by run)."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.quantization import kv_quantize_arrays
+    from paddle_tpu_torch.text import beam_search, generate
+    from paddle_tpu_torch.text.generation import _beam_search
+    cfg = model.config
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    B, S, NEW = ONE_SHOT_B, ONE_SHOT_S, ONE_SHOT_NEW
+    g = torch.Generator(device="cuda").manual_seed(14)
+    ids = torch.randint(0, V, (B, S), generator=g, device="cuda")
+    k1, k8 = (engine_ticks[k]["seconds"] * 1e3
+              / engine_ticks[k]["decode_ticks"]
+              for k in ("multi_tick_1", "multi_tick_8"))
+    print(f"one-shot decoding (Engine of phase 6b: k=1 {k1:.3f}, k=8 "
+          f"{k8:.3f} wall ms a device tick):", flush=True)
+    res, paths = {}, {}
+    # one short call of each model's first path before any time is taken
+    # (first-call costs: allocator, library handles)
+    generate(model, ids, 2, cache_impl="paged", page_size=128)
+    torch.cuda.synchronize()
+
+    def counted(name, call, m=model):
+        """One counted run of call(); the model's forwards stamped (host
+        clock and a CUDA event each, asynchronously) for the ms a step:
+        the medians of the intervals between one decode forward and the
+        next (the first, the prefill, left out)."""
+        stamps, events = [], []
+
+        def stamp(*_):
+            stamps.append(time.perf_counter())
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        hook = m.register_forward_pre_hook(stamp)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            out = call()
+        finally:
+            hook.remove()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = launches_of()
+        counters = {k: v for k, v in mods.monitor.snapshot().items()
+                    if k.startswith("kernels.")}
+        plain = {k: v for k, v in counters.items()
+                 if k.endswith("_plain") and v}
+        if plain:
+            fail(f"one-shot {name}: a plain version ran: {plain}")
+        host = sorted(b - a for a, b in zip(stamps[1:], stamps[2:]))
+        dev = sorted(a.elapsed_time(b) for a, b in zip(events[1:],
+                                                       events[2:]))
+        res[name] = dict(seconds=secs, counters=counters, forwards=len(stamps),
+                         host_ms_per_step=(host[len(host) // 2] * 1e3
+                                           if host else None),
+                         device_ms_per_step=dev[len(dev) // 2] if dev
+                         else None)
+        paths[name] = launches
+        return out, secs
+
+    def gen(name, m, x, new, **kw):
+        """A counted generate of ``new`` tokens (after an uncounted one of
+        4, the warm-up of this path), with tokens/s over its wall time
+        and the medians of a decode step's host and device ms."""
+        generate(m, x, 4, **kw)
+        out, secs = counted(name, lambda: generate(m, x, new, **kw), m)
+        b = x.shape[0]
+        r = res[name]
+        r.update(new_tokens=new, batch=b, tokens_per_s=b * new / secs,
+                 k1_tick_ms=k1, k8_tick_ms=k8)
+        print(f"  {name}: {b} x {new} tokens in {secs:.3f} s = "
+              f"{b * new / secs:.1f} tok/s; a decode step (median) "
+              f"{r['device_ms_per_step']:.3f} ms on the card's events, "
+              f"{r['host_ms_per_step']:.3f} on the host's clock (Engine k=1 "
+              f"{k1:.3f}, k=8 {k8:.3f} ms a tick) on {card}", flush=True)
+        if tuple(out.shape) != (b, x.shape[1] + new) or \
+                out.device.type != "cuda":
+            fail(f"one-shot {name}: result {tuple(out.shape)} on "
+                 f"{out.device}")
+        return out
+
+    def agreement(name, m, out, thr):
+        agree = one_shot_tf_agreement(torch, m, out, S)
+        res[name]["agreement"] = agree
+        print(f"    teacher-forced agreement min {min(agree):.4f} mean "
+              f"{sum(agree) / len(agree):.4f} (threshold {thr})", flush=True)
+        if min(agree) < thr:
+            fail(f"one-shot {name}: teacher-forced agreement {agree} < "
+                 f"{thr}")
+
+    def launches_are(name, want):
+        got = {k: paths[name][k] for k in want}
+        if got != want:
+            fail(f"one-shot {name}: launches {paths[name]}, expected {want}")
+
+    # (a) paged, greedy, f32 and bf16 pools
+    paged = {}
+    for dt, thr in (("float32", AGREE_F32), ("bfloat16", AGREE_BF16)):
+        name = f"one_shot_paged_{dt}"
+        paged[dt] = gen(name, model, ids, NEW, cache_impl="paged",
+                        page_size=128, cache_dtype=dt)
+        launches_are(name, {"paged_decode": (NEW - 1) * L, "flash_fwd": 0})
+        check_paged_split(res[name]["counters"], (NEW - 1) * L, name)
+        agreement(name, model, paged[dt], thr)
+    # (b) dense f32, bf16, int8
+    dense = {}
+    for dt, thr in (("float32", AGREE_F32), ("bfloat16", AGREE_BF16),
+                    ("int8", AGREE_BF16)):
+        name = f"one_shot_dense_{dt}"
+        dense[dt] = gen(name, model, ids, NEW, cache_impl="dense",
+                        cache_dtype=dt)
+        launches_are(name, {"paged_decode": 0, "flash_fwd": 0})
+        if res[name]["counters"].get("kernels.decode.dense") != NEW * L:
+            fail(f"one-shot {name}: dense cache calls "
+                 f"{res[name]['counters']}")
+        agreement(name, model, dense[dt], thr)
+        ref = paged.get(dt, paged["bfloat16"])
+        same = float((dense[dt][:, S:] == ref[:, S:]).float().mean())
+        res[name]["identical_share_vs_paged"] = same
+        print(f"    identical to (a)'s paged "
+              f"{dt if dt in paged else 'bfloat16'} tokens: {same:.4f}",
+              flush=True)
+    # (c) rolling: the model at a 64-token window
+    old = _windowed(model, ONE_SHOT_WINDOW)
+    try:
+        for dt in ("bfloat16", "int8"):
+            roll, den = f"one_shot_rolling_{dt}", f"one_shot_dense_window_{dt}"
+            r = gen(roll, model, ids, NEW, cache_dtype=dt)   # "auto"
+            if res[roll]["counters"].get("kernels.decode.rolling") != NEW * L:
+                fail(f"one-shot {roll}: 'auto' did not roll: "
+                     f"{res[roll]['counters']}")
+            d = gen(den, model, ids, NEW, cache_impl="dense", cache_dtype=dt)
+            same = bool(torch.equal(r, d))
+            res[roll]["equal_to_dense"] = same
+            print(f"    rolling == dense layout of the windowed model: "
+                  f"{same}", flush=True)
+            if not same:
+                share = float((r[:, S:] == d[:, S:]).float().mean())
+                fail(f"one-shot {roll}: tokens differ from the dense "
+                     f"layout's (identical share {share:.4f})")
+            agreement(roll, model, r, AGREE_BF16)
+    finally:
+        _windowed(model, old)
+    # (d) the padded path: 32 full no-cache forwards
+    name = "one_shot_padded"
+    out = gen(name, model, ids, 32, use_cache=False)
+    launches_are(name, {"flash_fwd": 32 * L, "paged_decode": 0})
+    res[name]["flash_routes"] = check_f32_routes(res[name]["counters"],
+                                                 32 * L, name)
+    agreement(name, model, out, AGREE_F32)
+    # (e) ERNIE-MoE, paged f32
+    P = mods.moe_profile
+    mcfg = mods.ErnieMoEConfig(**P.MOE_SERVE_MODEL)
+    moe_model = mods.ErnieMoEForCausalLM(mcfg, seed=0)
+    moe_model.eval()
+    mids = torch.randint(0, mcfg.vocab_size, (ONE_SHOT_MOE_B, S),
+                         generator=g, device="cuda")
+    name, mnew = "one_shot_moe_paged_float32", ONE_SHOT_MOE_NEW
+    generate(moe_model, mids, 2, cache_impl="paged", page_size=128)
+    n_moe = len(moe_model.moe_layers())
+    mout = gen(name, moe_model, mids, mnew, cache_impl="paged",
+               page_size=128, cache_dtype="float32")
+    launches_are(name, {"paged_decode": (mnew - 1) * mcfg.num_hidden_layers,
+                        "grouped_ffn_fwd": mnew * n_moe})
+    check_paged_split(res[name]["counters"],
+                      (mnew - 1) * mcfg.num_hidden_layers, name)
+    # the prefill (capacity 8 x 128) on simt, the steps (capacity 8) on rows
+    res[name]["grouped_ffn_routes"] = check_moe_routes(
+        res[name]["counters"], {"fwd_cuda_rows": (mnew - 1) * n_moe,
+                                "fwd_cuda_simt": n_moe}, name)
+    agree = [paged_teacher_forced_agreement(
+        torch, moe_model, mids[r].cpu().numpy(), mout[r, S:].tolist())
+        for r in range(ONE_SHOT_MOE_B)]
+    res[name]["agreement"] = agree
+    print(f"    paged teacher-forced agreement min {min(agree):.4f} "
+          f"(threshold {MOE_AGREE})", flush=True)
+    if min(agree) < MOE_AGREE:
+        fail(f"one-shot {name}: teacher-forced agreement {agree}")
+    del moe_model
+    torch.cuda.empty_cache()
+    # (f) beam search, dense f32
+    bids = ids[:BEAM_B]
+    eos = int(dense["float32"][0, S + 10])     # a token greedy emits
+    name = "one_shot_beam"
+    (tokens, norm, lens), secs = counted(name, lambda: _beam_search(
+        model, bids, BEAM_NEW, BEAM_K, BEAM_LP, eos, "float32"))
+    step_ms = res[name]["device_ms_per_step"]
+    with torch.no_grad():
+        lp = torch.log_softmax(model(tokens[:, :-1]).float(), dim=-1)
+    rel = []
+    for r in range(BEAM_B):
+        n = int(lens[r])
+        tf = float(lp[r, S - 1:S - 1 + n].gather(
+            -1, tokens[r, S:S + n, None]).sum()) / n ** BEAM_LP
+        rel.append(abs(float(norm[r]) - tf) / abs(tf))
+    one = beam_search(model, bids, BEAM_NEW, num_beams=1, eos_token_id=eos,
+                      cache_dtype="float32")
+    greedy = generate(model, bids, BEAM_NEW, eos_token_id=eos,
+                      cache_impl="dense", cache_dtype="float32")
+    res[name].update(scores=norm.tolist(), lengths=lens.tolist(), eos=eos,
+                     score_rel_err=rel, one_beam_equals_greedy=bool(
+                         torch.equal(one, greedy)))
+    print(f"  {name}: {BEAM_B} prompts x {BEAM_K} beams x {BEAM_NEW} tokens "
+          f"in {secs:.3f} s ({step_ms:.3f} ms a step), scores "
+          f"{norm.tolist()} (lengths {lens.tolist()}), teacher-forced "
+          f"relative error {rel} (gate {BEAM_SCORE_RTOL}); num_beams=1 == "
+          f"greedy dense: {res[name]['one_beam_equals_greedy']}", flush=True)
+    if max(rel) > BEAM_SCORE_RTOL or not res[name]["one_beam_equals_greedy"]:
+        fail(f"one-shot beam search: {res[name]}")
+    # (g) sampling, twice from one seed
+    name = "one_shot_sampled"
+    a = gen(name, model, ids, NEW, cache_impl="dense",
+            cache_dtype="float32", **SAMPLE_KW)
+    b = generate(model, ids, NEW, cache_impl="dense", cache_dtype="float32",
+                 **SAMPLE_KW)
+    with torch.no_grad():
+        logits = model(a[:, :-1])[:, S - 1:]
+    keep = one_shot_keep_sets(torch, logits.reshape(-1, V),
+                              SAMPLE_KW["temperature"], SAMPLE_KW["top_k"],
+                              SAMPLE_KW["top_p"])
+    inside = float(keep.gather(1, a[:, S:].reshape(-1, 1)).float().mean())
+    res[name].update(repeat_equal=bool(torch.equal(a, b)),
+                     share_in_keep_set=inside)
+    print(f"    same seed twice identical: {res[name]['repeat_equal']}; "
+          f"share of tokens in their teacher-forced keep set {inside}",
+          flush=True)
+    if not res[name]["repeat_equal"] or inside != 1.0:
+        fail(f"one-shot sampling: {res[name]}")
+    # (h) no per-step host synchronisation
+    # the control: 2 and 5 host reads of a card tensor differ by 3 syncs
+    control = count_syncs(torch, lambda: [int(ids[0, i]) for i in range(5)]) \
+        - count_syncs(torch, lambda: [int(ids[0, i]) for i in range(2)])
+    syncs = {}
+    for impl, dt in (("paged", "bfloat16"), ("dense", "bfloat16")):
+        for n in (32, NEW):
+            syncs[f"{impl}_{dt}_{n}"] = count_syncs(torch, lambda: generate(
+                model, ids, n, cache_impl=impl, page_size=128,
+                cache_dtype=dt))
+    res["one_shot_syncs"] = dict(syncs=syncs, control_5_less_2_reads=control)
+    print(f"  synchronizations (set_sync_debug_mode): {syncs}; control "
+          f"(5 host reads less 2) {control}", flush=True)
+    if control != 3 or syncs["paged_bfloat16_32"] != \
+            syncs[f"paged_bfloat16_{NEW}"] or syncs["dense_bfloat16_32"] \
+            != syncs[f"dense_bfloat16_{NEW}"]:
+        fail(f"one-shot decoding syncs grow with the length (or the count "
+             f"misses known syncs): {syncs}, control {control}")
+    # (i) the incubate paged_attention op at phase 3's LLaMA geometry
+    b, h, hkv, d, _, longest = PAGED_SERVING["llama"]
+    bs, nblk = 128, 3
+    ctx = torch.randint(1, longest + 1, (b,), generator=g, device="cuda")
+    ctx[3] = ctx[11] = 0
+    ctx[0] = longest
+    nb = b * nblk + 1
+    bt = (torch.randperm(nb - 1, generator=g, device="cuda") + 1).reshape(
+        b, nblk).to(torch.int32)
+    q = torch.randn(b, h, d, generator=g, device="cuda")
+    ops = {}
+    for dt in (torch.bfloat16, torch.int8):
+        kf = torch.randn(nb, hkv, bs, d, generator=g, device="cuda")
+        vf = torch.randn(nb, hkv, bs, d, generator=g, device="cuda")
+        if dt == torch.int8:
+            (kc, ks), (vc, vs) = kv_quantize_arrays(kf), kv_quantize_arrays(vf)
+        else:
+            kc, vc, ks, vs = kf.to(dt), vf.to(dt), None, None
+        got = IF.paged_attention(q, kc, vc, bt, ctx, k_scale=ks, v_scale=vs)
+        raw = pa.paged_decode(q, kc, vc, bt, ctx, k_scale=ks, v_scale=vs)
+        want = pa.paged_attention_arrays(q, kc, vc, bt, ctx, k_scale=ks,
+                                         v_scale=vs)
+        c = closeness(got, want)
+        key = str(dt).replace("torch.", "")
+        ops[key] = dict(equal_to_paged_decode=bool(torch.equal(got, raw)),
+                        **c)
+        print(f"  incubate paged_attention[{key}]: == paged_decode "
+              f"{ops[key]['equal_to_paged_decode']}, err "
+              f"{c['max_abs_err']:.3g} (ratio {c['ratio']:.3g})", flush=True)
+        if not (ops[key]["equal_to_paged_decode"] and c["ratio"] <= 1.0):
+            fail(f"incubate paged_attention[{key}]: {ops[key]}")
+    res["one_shot_paged_attention_op"] = ops
+    return res, paths
+
+
 # -- phases 4 and 5: the main path -----------------------------------------
 
 def make_requests(SamplingParams, vocab_size):
@@ -3664,6 +4062,13 @@ def main():
     accel.update(rel)
     accel_paths.update(rel_paths)
     del clean8
+    # 6d. one-shot decoding (generate, beam_search), each run counted
+    one_shot, one_shot_paths = one_shot_decoding(
+        torch, mods, model, accel, launches_of, reset_counts, card)
+    # its counted runs join the registry the kernel line reads launches from
+    accel.update({p: r for p, r in one_shot.items() if p in one_shot_paths})
+    accel_paths.update(one_shot_paths)
+    torch.cuda.empty_cache()
     # the serving phase's model and engines go before training's
     del model, outs, f32_outs
     torch.cuda.empty_cache()
@@ -3737,7 +4142,8 @@ def main():
                 "bert_training": bert_training,
                 **{f"recipe_{g}": r for g, r in recipe["runs"].items()}}
     f32_paths = {"serving": dict(counters=counters),
-                 "encoder_serving": enc_serving}
+                 "encoder_serving": enc_serving,
+                 "one_shot_padded": one_shot["one_shot_padded"]}
 
     def by_path(paths, route):
         return {p: flash_routes(r["counters"])[route]
@@ -4040,7 +4446,7 @@ def main():
                   encoder_serving=enc_serving, bert_cross_check=bert_xcheck,
                   bert_training=bert_training, fused_adam_cases=adam_cases,
                   grad_scaler=scaler, pretrain_recipe=recipe,
-                  kernels=kernels)
+                  one_shot_decoding=one_shot, kernels=kernels)
     (OUT_DIR / "result.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

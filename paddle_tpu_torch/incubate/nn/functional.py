@@ -1,15 +1,30 @@
-"""Fused-op subset of the LLaMA path (counterparts of
-``paddle_tpu/incubate/nn/functional/__init__.py:92``
-``fused_rotary_position_embedding`` and :173
-``fused_linear_cross_entropy``)."""
+"""Fused and decode ops of the LLaMA path (counterparts of
+``paddle_tpu/incubate/nn/functional/__init__.py``):
+``fused_rotary_position_embedding`` (:92), ``fused_linear_cross_entropy``
+(:173) and the decode-op surface — ``masked_multihead_attention``
+(:554), ``variable_length_memory_efficient_attention`` (:657),
+``paged_attention`` / ``paged_write`` / ``paged_quant_write`` (:689-724),
+``block_multihead_attention`` (:725, refused as there) and
+``blha_get_max_len`` (:742).
+
+``paged_attention`` runs ``kernels.paged_attention.paged_decode``: the
+CUDA paged-decode kernel on a CUDA tensor, its plain version on a CPU
+tensor. The writes (``paged_write``, ``paged_quant_write``,
+``masked_multihead_attention``'s cache) update the caches IN PLACE and
+return the same tensors, where the JAX package returns new arrays.
+"""
 from __future__ import annotations
+
+import math
 
 import torch
 
 
-def _rope_tables(d, position_ids, s_len, dtype, device):
-    """Neox-layout sin/cos tables [b|1, s, 1, d] in ``dtype``: angles in
-    f32 at base 10000, ``position_ids`` [s] or [b, s] (None = arange)."""
+def _rope_tables(d, position_ids, s_len, dtype, device, neox=True):
+    """sin/cos tables [b|1, s, 1, d] in ``dtype`` in the layout of the
+    rotary style: neox ``[θ0..θd/2-1, θ0..θd/2-1]``, interleaved
+    ``[θ0, θ0, θ1, θ1, ...]``. Angles in f32 at base 10000,
+    ``position_ids`` [s] or [b, s] (None = arange)."""
     inv = 1.0 / (10000.0 ** (torch.arange(0, d, 2, dtype=torch.float32,
                                           device=device) / d))
     if position_ids is None:
@@ -17,8 +32,12 @@ def _rope_tables(d, position_ids, s_len, dtype, device):
     else:
         pos_idx = torch.as_tensor(position_ids, device=device)
     pos = pos_idx.to(torch.float32)[..., :, None] * inv      # [..., s, d/2]
-    s_a = torch.cat([torch.sin(pos), torch.sin(pos)], dim=-1)
-    c_a = torch.cat([torch.cos(pos), torch.cos(pos)], dim=-1)
+    if neox:
+        s_a = torch.cat([torch.sin(pos), torch.sin(pos)], dim=-1)
+        c_a = torch.cat([torch.cos(pos), torch.cos(pos)], dim=-1)
+    else:
+        s_a = torch.sin(pos).repeat_interleave(2, dim=-1)
+        c_a = torch.cos(pos).repeat_interleave(2, dim=-1)
     s_a = s_a.to(dtype)[..., :, None, :]
     c_a = c_a.to(dtype)[..., :, None, :]
     if s_a.dim() == 3:                       # shared positions: batch dim
@@ -26,29 +45,52 @@ def _rope_tables(d, position_ids, s_len, dtype, device):
     return s_a, c_a
 
 
+def _gather_table(tab, position_ids, dtype, device):
+    """A user sin/cos table ([s_max, d], any leading ones) indexed by
+    ``position_ids`` ([s] or [b, s]) -> [b|1, s, 1, d] in ``dtype``."""
+    t = torch.as_tensor(tab, device=device)
+    t = t.reshape(t.shape[-2], t.shape[-1])
+    g = t[torch.as_tensor(position_ids, device=device).long()]
+    g = g.to(dtype)[..., :, None, :]
+    return g[None] if g.dim() == 3 else g
+
+
 def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
                                     position_ids=None,
                                     use_neox_rotary_style=True):
-    """RoPE on [b, s, h, d] tensors, neox style (rotate halves). Returns
-    the rotated (q, k, v) with None for absent inputs; v passes through
-    rotated like the JAX package does when given."""
-    if not use_neox_rotary_style:
-        raise NotImplementedError(
-            "interleaved (non-neox) RoPE is not carried by the port's "
-            "serving slice")
-    if sin is not None or cos is not None:
-        raise NotImplementedError(
-            "user sin/cos tables are not carried by the port's serving "
-            "slice")
+    """RoPE on [b, s, h, d] tensors. Returns the rotated (q, k, v) with
+    None for absent inputs; v is rotated like the others when given, as
+    in the JAX package.
+
+    Neox style rotates halves (``[-x2, x1]``), the interleaved style
+    (``use_neox_rotary_style=False``) rotates pairs (``(-x1, x0), (-x3,
+    x2), ...``). The angles are computed at base 10000 from
+    ``position_ids`` ([s] or [b, s]; None = arange), unless both ``sin``
+    and ``cos`` are given: user tables, used as they are (broadcast
+    against [b, s, h, d]) or, with ``position_ids``, as [s_max, d]
+    tables indexed by them."""
+    neox = use_neox_rotary_style
+    user = sin is not None and cos is not None
 
     def make(t):
         if t is None:
             return None
         d = t.shape[-1]
-        s_a, c_a = _rope_tables(d, position_ids, t.shape[1], t.dtype,
-                                t.device)
-        t1, t2 = t[..., : d // 2], t[..., d // 2:]
-        rot = torch.cat([-t2, t1], dim=-1)
+        if not user:
+            s_a, c_a = _rope_tables(d, position_ids, t.shape[1], t.dtype,
+                                    t.device, neox)
+        elif position_ids is None:
+            s_a, c_a = (torch.as_tensor(a, device=t.device)
+                        for a in (sin, cos))
+        else:
+            s_a, c_a = (_gather_table(a, position_ids, t.dtype, t.device)
+                        for a in (sin, cos))
+        if neox:
+            t1, t2 = t[..., : d // 2], t[..., d // 2:]
+            rot = torch.cat([-t2, t1], dim=-1)
+        else:
+            rot = torch.stack([-t[..., 1::2], t[..., 0::2]],
+                              dim=-1).reshape(t.shape)
         return t * c_a + rot * s_a
 
     return tuple(make(t) for t in (q, k, v))
@@ -139,3 +181,168 @@ def fused_linear_cross_entropy(hidden, weight, labels, ignore_index=-100,
         hs = torch.cat([hs, hs.new_zeros(pad, hs.shape[-1])])
         ls = torch.cat([ls, ls.new_full((pad,), ignore_index)])
     return _FusedLinearCE.apply(hs, weight, ls, int(ignore_index), chunks)
+
+
+def masked_multihead_attention(x, cache_kv=None, bias=None, src_mask=None,
+                               cum_offsets=None, sequence_lengths=None,
+                               rotary_tensor=None, beam_cache_offset=None,
+                               qkv_out_scale=None, out_shift=None,
+                               out_smooth=None, seq_len=1,
+                               rotary_emb_dims=0,
+                               use_neox_rotary_style=False,
+                               compute_dtype="default", out_scale=-1,
+                               quant_round_type=1, quant_max_bound=127.0,
+                               quant_min_bound=-127.0):
+    """Single-token decode attention against a dense KV cache, the JAX
+    package's supported subset (:554): x [b, 3*h*d] packed qkv for one
+    step, cache_kv [2, b, h, max_seq, d], optional bias [3, h, d],
+    optional additive src_mask [b, 1, 1, L], sequence_lengths [b, 1] =
+    each sequence's write position (default: src_mask's length - 1).
+    Returns (out [b, h*d], cache_kv), the cache written in place. Beam
+    offsets, in-kernel rotary and the int8-quant arguments are refused as
+    in the JAX package. The capacity check of ``sequence_lengths`` reads
+    the positions on the host (a sync)."""
+    if cum_offsets is not None or beam_cache_offset is not None:
+        raise NotImplementedError(
+            "cum_offsets/beam_cache_offset are CUDA-serving specifics")
+    if rotary_tensor is not None or rotary_emb_dims:
+        raise NotImplementedError(
+            "apply rotary embeddings before the call (fused_rotary_"
+            "position_embedding); the in-kernel rotary path is not carried")
+    if qkv_out_scale is not None or out_shift is not None \
+            or out_smooth is not None or (out_scale is not None
+                                          and out_scale > 0):
+        raise NotImplementedError(
+            "int8-quant scales are CUDA-kernel specifics")
+    if cache_kv is None:
+        raise ValueError("masked_multihead_attention requires cache_kv")
+    if src_mask is None and sequence_lengths is None:
+        raise ValueError(
+            "pass sequence_lengths (write positions) or src_mask "
+            "(whose last dim implies position = L - 1)")
+    _, b, h, max_seq, d = cache_kv.shape
+    dev = cache_kv.device
+    if sequence_lengths is not None:
+        pos = torch.as_tensor(sequence_lengths, device=dev).reshape(b).long()
+        pmax = int(pos.max())
+        if pmax >= max_seq:
+            # an out-of-range write would be dropped while the mask
+            # unmasks every slot: fail loudly
+            raise ValueError(
+                f"sequence_lengths position {pmax} exceeds the cache's "
+                f"max_seq_len {max_seq}")
+    else:
+        if src_mask.shape[-1] > max_seq:
+            raise ValueError(
+                f"src_mask length {src_mask.shape[-1]} exceeds the "
+                f"cache's max_seq_len {max_seq}")
+        pos = torch.full((b,), src_mask.shape[-1] - 1, dtype=torch.long,
+                         device=dev)
+    qkv = x.reshape(b, 3, h, d).float()
+    if bias is not None:
+        qkv = qkv + torch.as_tensor(bias, device=dev).float()[None]
+    qa, ka, va = qkv.unbind(1)                                # [b, h, d]
+    bi = torch.arange(b, device=dev)
+    cache_kv[0, bi, :, pos] = ka.to(cache_kv.dtype)
+    cache_kv[1, bi, :, pos] = va.to(cache_kv.dtype)
+    logits = torch.einsum("bhd,bhLd->bhL", qa, cache_kv[0].float())
+    logits = logits / math.sqrt(d)
+    valid = torch.arange(max_seq, device=dev)[None, :] <= pos[:, None]
+    logits = torch.where(valid[:, None, :], logits,
+                         torch.full_like(logits, -1e30))
+    if src_mask is not None:
+        lm = torch.as_tensor(src_mask, device=dev).reshape(b, 1, -1).float()
+        logits[..., :lm.shape[-1]] += lm
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhL,bhLd->bhd", p, cache_kv[1].float())
+    return out.reshape(b, h * d).to(x.dtype), cache_kv
+
+
+def variable_length_memory_efficient_attention(query, key, value,
+                                               seq_lens, kv_seq_lens,
+                                               mask=None, scale=None,
+                                               causal=False, name=None):
+    """Attention with per-sequence lengths (:657): q [B, H, S, D], k / v
+    [B, H, T, D]; keys at or past ``kv_seq_lens`` are masked, query rows
+    at or past ``seq_lens`` give zeros; ``causal`` aligns the queries to
+    the last keys (query s sees keys <= s + T - S); ``mask`` is added to
+    the scores. Computed in the inputs' dtype."""
+    B, H, S, D = query.shape
+    T = key.shape[2]
+    dev = query.device
+    scl = scale if scale is not None else 1.0 / math.sqrt(D)
+    scores = torch.einsum("bhsd,bhtd->bhst", query, key) * scl
+    kvl = torch.as_tensor(kv_seq_lens, device=dev)
+    kmask = torch.arange(T, device=dev)[None, :] < kvl.reshape(-1, 1)
+    neg = torch.full_like(scores, -1e30)
+    scores = torch.where(kmask[:, None, None, :], scores, neg)
+    if causal:
+        cm = (torch.arange(S, device=dev)[:, None] + (T - S)
+              >= torch.arange(T, device=dev)[None, :])
+        scores = torch.where(cm[None, None], scores, neg)
+    if mask is not None:
+        scores = scores + torch.as_tensor(mask, device=dev)
+    out = torch.einsum("bhst,bhtd->bhsd", torch.softmax(scores, dim=-1),
+                       value)
+    sl = torch.as_tensor(seq_lens, device=dev)
+    qmask = torch.arange(S, device=dev)[None, :] < sl.reshape(-1, 1)
+    return out * qmask[:, None, :, None]
+
+
+def paged_attention(query, k_cache, v_cache, block_tables, context_lens,
+                    scale=None, k_scale=None, v_scale=None):
+    """One decode step against a paged KV cache (:689; the capability
+    behind the reference's block_multihead_attention): query [b, h, d],
+    page pools [num_blocks, h_kv, block_size, d], block_tables [b,
+    max_blocks], context_lens [b] (0 = a dead slot, zeros out); pass the
+    k_scale / v_scale pools [num_blocks, h_kv, block_size] of an int8
+    pool. Runs ``kernels.paged_attention.paged_decode``: the CUDA
+    kernel on the card, its plain version on the CPU."""
+    from ...kernels.paged_attention import paged_decode
+    return paged_decode(query, k_cache, v_cache, block_tables, context_lens,
+                        scale=scale, k_scale=k_scale, v_scale=v_scale)
+
+
+def paged_write(key, value, k_cache, v_cache, block_tables, positions):
+    """Append one token's k / v per sequence ([b, h_kv, d], or a chunk
+    [b, s, h_kv, d]) at ``positions`` [b] into the paged pools, in place
+    (the write half of the paged-decode loop). Returns the pools."""
+    from ...kernels.paged_attention import paged_write_arrays
+    return paged_write_arrays(key, value, k_cache, v_cache, block_tables,
+                              torch.as_tensor(positions,
+                                              device=k_cache.device))
+
+
+def paged_quant_write(key, value, k_cache, v_cache, k_scale, v_scale,
+                      block_tables, positions):
+    """paged_write for an int8 page pool: quantizes the float chunk per
+    (token, kv_head) and writes the values and the per-slot scales, in
+    place. Returns the four pools."""
+    from ...kernels.paged_attention import paged_write_quant_arrays
+    return paged_write_quant_arrays(key, value, k_cache, v_cache, k_scale,
+                                    v_scale, block_tables,
+                                    torch.as_tensor(positions,
+                                                    device=k_cache.device))
+
+
+def block_multihead_attention(*args, **kwargs):
+    """(reference: block_multihead_attention, the paged-KV CUDA serving
+    entry with packed qkv rows, cum offsets and rope tables). Refused as
+    in the JAX package (:725): its capability is ``paged_attention`` +
+    ``paged_write`` here, or ``text.generate(cache_impl="paged")``."""
+    raise NotImplementedError(
+        "use paddle_tpu_torch.incubate.nn.functional.paged_attention (+ "
+        "paged_write / paged_quant_write), or paddle_tpu_torch.text."
+        "generate(cache_impl='paged') for the CUDA paged-decode path — "
+        "this entry's serving argument layout (packed qkv rows, "
+        "cum_offsets, rope tables) is not carried")
+
+
+def blha_get_max_len(seq_lens_encoder, seq_lens_decoder, batch_size=None,
+                     name=None):
+    """The largest encoder and decoder lengths, each as a [1] tensor
+    (:742); read on the host."""
+    enc = torch.as_tensor(seq_lens_encoder)
+    dec = torch.as_tensor(seq_lens_decoder)
+    return (torch.tensor([int(enc.max())], device=enc.device),
+            torch.tensor([int(dec.max())], device=dec.device))

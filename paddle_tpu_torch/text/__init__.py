@@ -1,3 +1,4 @@
 from . import generation, models
+from .generation import beam_search, generate
 
-__all__ = ["generation", "models"]
+__all__ = ["beam_search", "generate", "generation", "models"]

@@ -6,14 +6,17 @@ i is an MoE block when i % moe_every == moe_every - 1, its ``MoELayer``
 with a GShard gate, the config's top-k and capacity factor, and the
 dispatch mode ``moe_dispatch_mode`` ("pallas": the grouped-FFN kernels).
 Attention is the port's ``LlamaAttention``: the flash kernels without a
-cache, the paged cache with one.
+cache, and with one every layout it takes (dense, int8 dense, rolling,
+paged).
 
 - Without a cache the forward returns logits (:147-149); training adds
   ``aux_loss()`` to its loss.
-- With a cache (the serving ``Engine``) every MoE block runs in decode
-  mode (:127-146, :84-97): no capacity drops, and a live-lane mask from
+- With a cache (the serving ``Engine``, or ``text.generate`` /
+  ``beam_search``) every MoE block runs in decode mode (:127-146,
+  :84-97): no capacity drops, and a live-lane mask from
   ``cache_index >= 0`` (the engine's idle lanes sit at -1), so a dead lane
-  claims no expert slot and the kernels skip it.
+  claims no expert slot and the kernels skip it. One-shot decoding
+  passes one scalar index >= 0: every lane is live.
 
 Parameter names equal the JAX names (``layers.1.mlp.experts.w1``,
 ``layers.1.mlp.gate_weight``, ...; no ``llama.`` prefix), so
@@ -131,8 +134,10 @@ class ErnieMoEForCausalLM(nn.Module):
                 p.normal_(0.0, init_std, generator=gen)
 
     def forward(self, input_ids, kv_caches=None, cache_index=None):
-        """Logits [b, s, vocab]; with ``kv_caches`` (the paged layout)
-        also the updated caches."""
+        """Logits [b, s, vocab]; with ``kv_caches`` (any layout of
+        ``LlamaAttention._cached_attention``: a per-sequence [b]
+        ``cache_index`` for the paged serving layout, one scalar for every
+        layout in one-shot decoding) also the updated caches."""
         input_ids = torch.as_tensor(input_ids, device=self.device)
         x = self.embed_tokens(input_ids)
         if kv_caches is not None:

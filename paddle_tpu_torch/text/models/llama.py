@@ -1,8 +1,9 @@
 """LLaMA causal LM (counterpart of ``paddle_tpu/text/models/llama.py``).
 
-The serving and training slices of the port: ``LlamaConfig``, RMSNorm,
-attention (the no-cache flash branch with flashmask, :221-291, and the
-paged-KV branch, :377-487), the SwiGLU MLP, the decoder stack with
+The serving, training and decode slices of the port: ``LlamaConfig``,
+RMSNorm, attention (the no-cache branch with flashmask, :221-291, and
+the four KV-cache layouts: dense and int8 dense, :293-375, paged,
+:377-487, rolling, :489-567), the SwiGLU MLP, the decoder stack with
 per-layer recompute, full or selective (:669-700), the causal-LM head,
 the fused chunked LM loss when ``labels`` are given (:746-754),
 ``serving_spec`` (:760) and ``llama_flops_per_token`` (:837). Module and
@@ -14,7 +15,16 @@ Attention paths:
 
 - no cache: ``kernels.flash_attention`` — the CUDA flash forward kernel
   (and, when a gradient is taken, the two CUDA backward kernels) on the
-  GPU, their plain versions on the CPU;
+  GPU, their plain versions on the CPU; with
+  ``use_flash_attention=False`` and no window, the plain
+  ``nn.functional.scaled_dot_product_attention(use_flash=False)`` core
+  over k / v repeated to the query heads (the JAX escape hatch, :259-286);
+- dense cache ``(k, v)`` / ``(k, v, k_scale, v_scale)`` (int8, one scale
+  a token and kv head) and rolling cache ``(k, v, pos)`` / ``(k, v, pos,
+  k_scale, v_scale)`` (``C`` slots, ``pos`` [C] each slot's position, -1
+  = empty): written in place at one scalar ``cache_index`` and attended
+  with plain PyTorch in f32 (``_attend_cache``), as the JAX package does
+  with XLA;
 - paged cache, one token per sequence (a decode tick):
   ``kernels.paged_attention.paged_decode`` — the CUDA paged-decode
   kernel on the GPU, its plain version on the CPU;
@@ -36,9 +46,8 @@ they are tagged (``attn_q`` / ``attn_k`` / ``attn_v``, not on the
 flashmask path, as in the JAX model) and the attention region runs under
 ``save_only_names`` of them. See ``distributed/fleet/recompute.py``.
 
-Not carried yet, each raising NotImplementedError: dense and rolling KV
-caches (the decode slice), sequence parallelism (the distributed slice),
-and the ``use_flash_attention=False`` escape hatch.
+Not carried yet, raising NotImplementedError: sequence parallelism (the
+distributed slice).
 """
 from __future__ import annotations
 
@@ -76,6 +85,17 @@ def _attend_cache(qa, kk, vv, mask, rep):
     return torch.einsum("bhsL,bLhd->bshd", p, vv.float()).to(qa.dtype)
 
 
+def _scalar_index(cache_index, device):
+    """The one cache index a dense or rolling cache takes for the whole
+    batch, as a 0-d int64 tensor on ``device`` (no copy when it is one)."""
+    idx = torch.as_tensor(cache_index, device=device)
+    if idx.numel() != 1:
+        raise ValueError(
+            "dense and rolling KV caches take one scalar cache_index for "
+            f"the whole batch, got shape {tuple(idx.shape)}")
+    return idx.reshape(()).to(torch.int64)
+
+
 @dataclass
 class LlamaConfig:
     vocab_size: int = 32000
@@ -106,11 +126,6 @@ class LlamaConfig:
 
 
 def _check_supported(c: LlamaConfig):
-    if not c.use_flash_attention:
-        raise NotImplementedError(
-            "use_flash_attention=False (the JAX package's XLA sdpa escape "
-            "hatch) is not carried by the port: no-cache attention always "
-            "runs the flash kernel")
     if c.recompute and c.recompute_granularity not in GRANULARITIES:
         raise ValueError(
             f"recompute_granularity={c.recompute_granularity!r}: expected "
@@ -160,6 +175,7 @@ class LlamaAttention(nn.Module):
         self.head_dim = c.hidden_size // c.num_attention_heads
         self.window = None if c.sliding_window is None \
             else int(c.sliding_window)
+        self.use_flash = c.use_flash_attention
         self._tag_qkv = _tags_qkv(c)
         hs = c.hidden_size
         kv = self.num_kv_heads * self.head_dim
@@ -195,7 +211,10 @@ class LlamaAttention(nn.Module):
 
     def core(self, x, attn_mask_startend_row_indices=None):
         """The no-cache attention up to o_proj (``attn_core``, [b, s,
-        heads x head_dim]): q/k/v, rope and the flash kernel."""
+        heads x head_dim]): q/k/v, rope and the flash kernel — or, with
+        ``use_flash_attention=False`` and no window, the plain sdpa core
+        over k / v repeated to the query heads (a window always takes
+        the flash path, as in the JAX model)."""
         from ...kernels.flash_attention import flash_attention
         se = attn_mask_startend_row_indices
         if se is not None and self.window is not None:
@@ -203,27 +222,174 @@ class LlamaAttention(nn.Module):
                 "attn_mask_startend_row_indices cannot be combined with "
                 "sliding_window — express the window as extra mask bands "
                 "instead")
+        if se is not None and not self.use_flash:
+            raise ValueError(
+                "attn_mask_startend_row_indices requires "
+                "use_flash_attention=True (the flashmask bands only exist "
+                "on the flash path)")
         b, s, _ = x.shape
         q, k, v = self._qkv(x)
         if self._tag_qkv and se is None:
             q, k, v = (checkpoint_name(t, n)
                        for t, n in zip((q, k, v), QKV_TAGS))
-        out = flash_attention(q, k, v, causal=True, window=self.window,
-                              startend_row_indices=se)
+        if self.use_flash or self.window is not None:
+            out = flash_attention(q, k, v, causal=True, window=self.window,
+                                  startend_row_indices=se)
+        else:
+            rep = self.num_heads // self.num_kv_heads
+            if rep != 1:
+                k = k.repeat_interleave(rep, dim=2)
+                v = v.repeat_interleave(rep, dim=2)
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                 use_flash=False)
         return out.reshape(b, s, self.num_heads * self.head_dim)
 
     def _cached_attention(self, q, k, v, kv_cache, cache_index):
-        """KV-cache attention. Only the PAGED layout is carried:
-        (k_pool, v_pool, block_tables) with 2-D block tables, or
-        (k_pool, v_pool, block_tables, k_scale, v_scale) for int8 pools
-        (see kernels/paged_attention.py)."""
+        """KV-cache attention, routed by the cache tuple as in the JAX
+        model (:315-321):
+
+        - (k, v): dense [b, L, h_kv, d] cache, any float dtype;
+        - (k, v, k_scale, v_scale): dense int8 cache with f32 scales
+          [b, L, h_kv], one a token and kv head;
+        - (k_pool, v_pool, block_tables[, k_scale, v_scale]) with 2-D
+          block tables: paged (see kernels/paged_attention.py);
+        - (k, v, pos[, k_scale, v_scale]) with 1-D pos: rolling buffer of
+          C slots, C = ``sliding_window`` (or less).
+
+        Every layout is written IN PLACE: the returned tuple holds the
+        same (updated) tensors."""
         if len(kv_cache) in (3, 5) and kv_cache[2].dim() == 2:
             return self._paged_cached_attention(q, k, v, kv_cache,
                                                 cache_index)
-        raise NotImplementedError(
-            "dense (k, v) and rolling (k, v, pos) KV caches come with the "
-            "decode slice of the port; this slice carries the paged "
-            "(k_pool, v_pool, block_tables[, k_scale, v_scale]) layout")
+        if len(kv_cache) in (3, 5):
+            return self._rolling_cached_attention(q, k, v, kv_cache,
+                                                  cache_index)
+        if len(kv_cache) not in (2, 4):
+            raise ValueError(
+                f"a KV cache is a tuple of 2 or 4 (dense), 3 or 5 (paged "
+                f"or rolling) tensors, got {len(kv_cache)}")
+        return self._dense_cached_attention(q, k, v, kv_cache, cache_index)
+
+    def _done(self, out, kv_cache):
+        b, s = out.shape[0], out.shape[1]
+        out = out.reshape(b, s, self.num_heads * self.head_dim)
+        return self.o_proj(out), tuple(kv_cache)
+
+    def _dense_cached_attention(self, q, k, v, kv_cache, cache_index):
+        """Dense cache (JAX :293-375): this call's k / v written at
+        [idx, idx + s) (int8: quantized per token and kv head), then q
+        attends the cache, so the chunk sees its own (quantized) k / v;
+        the mask keeps k_pos <= q_pos and, with a window,
+        q_pos - k_pos < window.
+
+        With a window shorter than the cache, q attends only positions
+        [idx - window, idx + s), in order: the keys, shapes and order the
+        rolling layout attends (its C = window slots by position, then
+        the chunk), so the two layouts compute the same sums and give the
+        same tokens bit for bit. Otherwise the whole cache."""
+        from ... import monitor
+        from ...quantization.functional import kv_quantize_arrays
+        monitor.counter("kernels.decode.dense").increase()
+        rep = self.num_heads // self.num_kv_heads
+        window = self.window
+        ck, cv = kv_cache[:2]
+        quant = len(kv_cache) == 4
+        s, L = q.shape[1], ck.shape[1]
+        idx = _scalar_index(cache_index, q.device)
+        q_pos = idx + torch.arange(s, device=q.device)
+        if quant:
+            ks, vs = kv_cache[2:]
+            (qk, sk), (qv, sv) = kv_quantize_arrays(k), kv_quantize_arrays(v)
+            writes = ((ck, qk), (cv, qv), (ks, sk), (vs, sv))
+        else:
+            writes = ((ck, k), (cv, v))
+        for dst, src in writes:
+            dst.index_copy_(1, q_pos, src.to(dst.dtype))
+        if window is not None and window < L:
+            k_pos = idx - window + torch.arange(window + s, device=q.device)
+            take = k_pos.clamp(0, L - 1)
+
+            def sel(t):
+                return t.index_select(1, take)
+        else:
+            k_pos = torch.arange(L, device=q.device)
+
+            def sel(t):
+                return t
+        if quant:
+            kk = sel(ck).float() * sel(ks)[..., None]
+            vv = sel(cv).float() * sel(vs)[..., None]
+        else:
+            kk, vv = sel(ck), sel(cv)
+        mask = (k_pos[None, :] >= 0) & (k_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
+        return self._done(_attend_cache(q, kk, vv, mask, rep), kv_cache)
+
+    def _rolling_cached_attention(self, q, k, v, kv_cache, cache_index):
+        """Rolling buffer (JAX :489-567): C slots hold the window's K/V,
+        pos[j] the absolute position of slot j (-1: never written). The
+        chunk attends the cache AS IT STOOD before this call concatenated
+        with itself (pos_cat = [pos, cur_pos]): a prefill longer than the
+        window still sees, from its early rows, the keys the roll-in is
+        about to evict, and the band mask hides stale slots (their
+        positions are <= idx - C <= q_pos - window). Then only the last
+        min(s, C) tokens are rolled in at new_pos % C. The int8 form sends
+        the chunk through its own quantize -> dequantize round trip before
+        it attends, as the dense int8 layout does.
+
+        The slots are read in position order (slot (idx + j) % C holds
+        position idx - C + j, or nothing), where the JAX package reads
+        them in slot order: the dense layout reads the same keys in that
+        order, and the two give the same tokens bit for bit."""
+        from ... import monitor
+        from ...quantization.functional import (kv_dequantize_arrays,
+                                                kv_quantize_arrays)
+        window = self.window
+        if window is None:
+            raise ValueError(
+                "rolling (k, v, pos) caches require sliding_window")
+        monitor.counter("kernels.decode.rolling").increase()
+        rep = self.num_heads // self.num_kv_heads
+        ck, cv, pos = kv_cache[:3]
+        quant = len(kv_cache) == 5
+        s, C = q.shape[1], ck.shape[1]
+        idx = _scalar_index(cache_index, q.device)
+        cur_pos = idx + torch.arange(s, device=q.device)
+        order = torch.remainder(idx + torch.arange(C, device=q.device), C)
+
+        def sel(t):
+            return t.index_select(1, order)
+        if quant:
+            ks, vs = kv_cache[3:]
+            (qk, sk), (qv, sv) = kv_quantize_arrays(k), kv_quantize_arrays(v)
+            ka_c, va_c = kv_dequantize_arrays(qk, sk), kv_dequantize_arrays(
+                qv, sv)
+            ckf = sel(ck).float() * sel(ks)[..., None]
+            cvf = sel(cv).float() * sel(vs)[..., None]
+        else:
+            ka_c, va_c = k.to(ck.dtype), v.to(cv.dtype)
+            ckf, cvf = sel(ck), sel(cv)
+        kk = torch.cat([ckf, ka_c.to(ckf.dtype)], dim=1)
+        vv = torch.cat([cvf, va_c.to(cvf.dtype)], dim=1)
+        pos_cat = torch.cat([pos.index_select(0, order).to(torch.int64),
+                             cur_pos])                             # [C + s]
+        mask = ((pos_cat[None, :] >= 0)
+                & (pos_cat[None, :] <= cur_pos[:, None])
+                & (cur_pos[:, None] - pos_cat[None, :] < window))
+        out = _attend_cache(q, kk, vv, mask, rep)
+        # roll the chunk in: only its last min(s, C) tokens survive
+        lo = max(s - C, 0)
+        new_pos = cur_pos[lo:]
+        slots = torch.remainder(new_pos, C)
+        if quant:
+            writes = ((ck, qk), (cv, qv), (ks, sk), (vs, sv))
+        else:
+            writes = ((ck, k), (cv, v))
+        for dst, src in writes:
+            dst.index_copy_(1, slots, src[:, lo:].to(dst.dtype))
+        pos.index_copy_(0, slots, new_pos.to(pos.dtype))
+        return self._done(out, kv_cache)
 
     def _paged_cached_attention(self, q, k, v, kv_cache, cache_index):
         """Paged-KV attention: write this call's k/v at ``cache_index``
@@ -270,8 +436,7 @@ class LlamaAttention(nn.Module):
                 mask = mask & (q_pos[:, :, None] - k_pos[None, None, :]
                                < window)
             out = _attend_cache(q, kk, vv, mask, rep)
-        out = out.reshape(b, s, self.num_heads * self.head_dim)
-        return self.o_proj(out), tuple(kv_cache)
+        return self._done(out, kv_cache)
 
 
 class LlamaMLP(nn.Module):

@@ -1496,3 +1496,37 @@ def test_adam_routes_and_counters_on_card(dev):
         assert torch.equal(p.detach(), r)
     assert opt._accumulators[id(half)]["_master_weight"].dtype == \
         torch.float32
+
+
+# -- one-shot decoding -------------------------------------------------------
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+def test_generate_paged_on_card_matches_cpu(dev, cache_dtype):
+    """generate(cache_impl="paged") on the card: every decode step on the
+    CUDA split kernel (no plain call), and its greedy tokens held to the
+    same weights on the CPU, teacher-forced: the card's tokens agree with
+    the CPU no-cache argmax at >= 0.97 (f32 pool) / 0.85 (bf16 pool), the
+    thresholds of chip_smoke.py."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.text import generate, models
+    cfg = models.LlamaConfig.tiny(vocab=128, hidden=128, layers=2, heads=4)
+    cfg.num_key_value_heads = 2
+    card = models.LlamaForCausalLM(cfg, device=dev, seed=0, init_std=0.2)
+    cpu = models.LlamaForCausalLM(cfg, device="cpu", seed=0, init_std=0.2)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    ids = torch.randint(0, 128, (4, 70), generator=torch.Generator()
+                        .manual_seed(3))
+    monitor.reset()
+    launches = pa.paged_decode.launches
+    out = generate(card, ids, 24, cache_impl="paged", page_size=16,
+                   cache_dtype=cache_dtype)
+    torch.cuda.synchronize()
+    snap = monitor.snapshot()
+    assert out.device.type == "cuda" and tuple(out.shape) == (4, 94)
+    assert pa.paged_decode.launches - launches == 23 * 2
+    assert snap.get("kernels.decode.paged_cuda_split") == 23 * 2
+    assert not snap.get("kernels.decode.paged_plain")
+    with torch.no_grad():
+        want = cpu(out[:, :-1].cpu()).argmax(-1)[:, 69:]
+    agree = float((out[:, 70:].cpu() == want).float().mean())
+    assert agree >= (0.97 if cache_dtype == "float32" else 0.85), agree

@@ -136,8 +136,6 @@ def test_unsupported_arguments_raise():
     ids = torch.zeros((1, 4), dtype=torch.int64)
     se = torch.zeros(1, 1, 4, 1, dtype=torch.int32)
     dense = [(torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 4, 16))] * 2
-    with pytest.raises(NotImplementedError, match="decode slice"):
-        tnet(ids, kv_caches=dense, cache_index=0)
     # the JAX package's flashmask checks (llama.py:221-248, :735-740)
     with pytest.raises(ValueError, match="kv_caches"):
         tnet(ids, attn_mask_startend_row_indices=se, kv_caches=dense,
@@ -145,13 +143,10 @@ def test_unsupported_arguments_raise():
     _, wnet, _ = make_pair(window=3)
     with pytest.raises(ValueError, match="sliding_window"):
         wnet(ids, attn_mask_startend_row_indices=se)
-    for field, value in (("sequence_parallel", True),
-                         ("use_flash_attention", False)):
-        cfg = LlamaConfig.tiny(vocab=64)
-        cfg.recompute = True
-        setattr(cfg, field, value)
-        with pytest.raises(NotImplementedError):
-            LlamaForCausalLM(cfg, device="cpu")
+    cfg = LlamaConfig.tiny(vocab=64)
+    cfg.recompute, cfg.sequence_parallel = True, True
+    with pytest.raises(NotImplementedError):
+        LlamaForCausalLM(cfg, device="cpu")
     cfg = LlamaConfig.tiny(vocab=64)
     cfg.recompute, cfg.recompute_granularity = True, "layer"
     with pytest.raises(ValueError, match="recompute_granularity"):

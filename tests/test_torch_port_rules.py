@@ -63,6 +63,7 @@ def test_port_import_pulls_in_no_jax():
         "import paddle_tpu_torch.jit, paddle_tpu_torch.optimizer\n"
         "import paddle_tpu_torch.nn, paddle_tpu_torch.distributed\n"
         "import paddle_tpu_torch.incubate.nn.functional\n"
+        "import paddle_tpu_torch.text, paddle_tpu_torch.text.generation\n"
         "import paddle_tpu_torch.text.models.bert\n"
         "import paddle_tpu_torch.inference.encoder\n"
         "import paddle_tpu_torch.profile_encoder\n"
