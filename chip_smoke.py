@@ -279,7 +279,32 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    layers x 6 steps, no plain call, forward, dQ and dK/dV on the tc route
    only, each on its wgmma kernel, one fused update a step; ms per step,
    tokens/s, the
-   bf16 peak share by bench_bert's 6N rule and the peak memory.
+   bf16 peak share by bench_bert's 6N rule and the peak memory;
+19. the eager dygraph surface (``import paddle_tpu_torch as paddle``):
+   first a 2-layer f32 copy of the model below, dropout 0, on the card
+   (tf32x3 forward, simt backward) against the same weights on the CPU
+   (the plain versions): the loss and every parameter gradient within
+   ``closeness``'s f32 gate, and one AdamW(1e-3) step on the card (the
+   fused update) against the plain rule on the CPU from the card's
+   weights and gradients, every Parameter read back through the model,
+   within the same gate; then the main path (``profile_eager``'s model,
+   batch and optimizer), counts set to 0 just before and read just
+   after: Embedding(30522, 768) ->
+   TransformerEncoder(12 x TransformerEncoderLayer(768, 12, 3072,
+   dropout 0.1, gelu)) with a bool key-padding mask [32, 1, 1, 128]
+   (lengths 64-128) -> Linear(768, 2) on the first token ->
+   cross_entropy, under amp.auto_cast O1 bf16, AdamW(2e-5, weight decay
+   0.01; BERT fine-tuning's rate: at 1e-4 Adam's first, sign-sized step
+   overshoots a fresh 12-layer model), 6 steps of one fixed batch
+   [32, 128]: finite losses, the last below the first, and the batch's
+   eval-mode loss (dropout off) lower after the 6 steps than before;
+   linear outputs bf16, layer_norm outputs and the loss f32; the tc
+   wgmma forward, dQ and dK/dV == 12 x 6 each, sdpa on the key-mask
+   kernel route == 12 x 6 and never a plain route, one fused Adam a step
+   and no plain one; ms per step (events and host medians), tokens/s,
+   peak memory, the host's share of a step and the ops dispatched a step,
+   the forward + backward's host enqueue time against its events, and
+   (one more, uncounted step) the host syncs a step makes.
 
 It prints the card line, a {"kernels": [...]} line (the tensor-core
 forward, dQ and dK/dV as ``flash_fwd`` / ``flash_bwd_dq`` /
@@ -305,9 +330,11 @@ of command time on an H100, the six kernel builds included.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -2743,6 +2770,248 @@ def bert_train_main_path(torch, mods, launches_of, reset_counts, card):
     return rec
 
 
+# -- phase 19: the eager dygraph surface -----------------------------------
+# the model, batch, loss and optimizer are profile_eager's (``ep``)
+
+#: the card-vs-CPU copy: 2 layers, dropout 0, f32, batch 4; its AdamW
+#: step at 1e-3, ten times closeness's f32 atol (1e-4), so that a
+#: parameter the update missed shows as a ratio near 10
+EAGER_XCHECK_LAYERS, EAGER_XCHECK_BATCH, EAGER_XCHECK_LR = 2, 4, 1e-3
+
+
+def eager_cross_check(torch, paddle, ep):
+    """Phase 19 (a): a 2-layer f32 copy of the eager model, dropout 0, one
+    forward and backward on the card (tf32x3 forward, simt backward)
+    against the same weights on the CPU (the plain versions); then one
+    ``AdamW.step()`` on the card (the fused update) against the plain
+    rule on the CPU, applied to the card's weights and gradients: every
+    surface Parameter, read back through the model after the step."""
+    from paddle_tpu_torch.kernels.fused_adam import adam_update_plain
+    res = {}
+    paddle.set_device("gpu")
+    paddle.seed(1)
+    card = ep.build_model(EAGER_XCHECK_LAYERS, 0.0)
+    for dev in ("gpu", "cpu"):
+        paddle.set_device(dev)
+        model = card
+        if dev == "cpu":
+            model = ep.build_model(EAGER_XCHECK_LAYERS, 0.0)
+            model.set_state_dict(card.state_dict())
+        batch, _ = ep.fixed_batch(EAGER_XCHECK_BATCH)
+        loss = ep.loss_of(model, *batch)
+        loss.backward()
+        res[dev] = (loss._data.detach().float().cpu(),
+                    {k: p.grad._data.float().cpu()
+                     for k, p in model.state_dict().items()
+                     if p.grad is not None})
+    paddle.set_device("gpu")
+    loss_c = closeness(res["gpu"][0], res["cpu"][0])
+    grads = {k: closeness(g, res["cpu"][1][k])
+             for k, g in res["gpu"][1].items()}
+    worst = max(grads, key=lambda k: grads[k]["ratio"])
+    # the update: the card's fused step against the plain rule on the CPU
+    before = {k: p._data.detach().float().cpu().clone()
+              for k, p in card.state_dict().items()}
+    opt = ep.make_optimizer(card, lr=EAGER_XCHECK_LR)
+    opt.step()
+    torch.cuda.synchronize()
+    upd = {}
+    for k, p in card.state_dict().items():
+        want = before[k].clone()
+        state = {"moment1": torch.zeros_like(want),
+                 "moment2": torch.zeros_like(want),
+                 "beta1_pow": torch.tensor(opt._beta1),
+                 "beta2_pow": torch.tensor(opt._beta2)}
+        adam_update_plain(want, res["gpu"][1][k], state,
+                          torch.tensor(EAGER_XCHECK_LR), opt._beta1,
+                          opt._beta2, opt._epsilon, False, "decoupled",
+                          ep.WEIGHT_DECAY)
+        upd[k] = closeness(p._data.detach().float().cpu(), want)
+    worst_upd = max(upd, key=lambda k: upd[k]["ratio"])
+    rec = dict(layers=EAGER_XCHECK_LAYERS, batch=EAGER_XCHECK_BATCH,
+               seq=ep.SEQ, loss_cuda=float(res["gpu"][0]),
+               loss_cpu=float(res["cpu"][0]), loss=loss_c,
+               grads=len(grads), worst_grad=worst,
+               worst_grad_ratio=grads[worst]["ratio"],
+               worst_grad_max_abs_err=grads[worst]["max_abs_err"],
+               update_lr=EAGER_XCHECK_LR, updated=len(upd),
+               worst_update=worst_upd,
+               worst_update_ratio=upd[worst_upd]["ratio"],
+               worst_update_max_abs_err=upd[worst_upd]["max_abs_err"],
+               fused_adam_launches=1)
+    print(f"eager cross-check: loss cuda {rec['loss_cuda']:.6f} cpu "
+          f"{rec['loss_cpu']:.6f} (ratio {loss_c['ratio']:.3f}); "
+          f"{len(grads)} gradients, worst {worst} ratio "
+          f"{grads[worst]['ratio']:.3f} (max abs err "
+          f"{grads[worst]['max_abs_err']:.2e}); AdamW({EAGER_XCHECK_LR}) "
+          f"on the card against the plain rule on the CPU: {len(upd)} "
+          f"parameters, worst {worst_upd} ratio "
+          f"{upd[worst_upd]['ratio']:.3f} (max abs err "
+          f"{upd[worst_upd]['max_abs_err']:.2e}); pass <= 1, closeness's "
+          f"f32 gate", flush=True)
+    n_params = len(card.parameters())
+    if len(grads) != len(res["cpu"][1]) or len(grads) < 4 or \
+            len(upd) != n_params or len(grads) != n_params:
+        fail(f"eager cross-check: gradients {sorted(grads)} vs "
+             f"{sorted(res['cpu'][1])}, {n_params} parameters")
+    if not (loss_c["ratio"] <= 1 and grads[worst]["ratio"] <= 1
+            and upd[worst_upd]["ratio"] <= 1):
+        fail(f"eager cross-check off: {rec}")
+    del card, res, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def eager_train_main_path(torch, paddle, ep, dispatch, launches_of,
+                          reset_counts, card):
+    """Phase 19 (b): the eager surface's training loop at BERT-base widths
+    and depth for TRAIN_STEPS steps of one fixed batch, counts set to 0
+    just before and read just after. Beside the training losses (dropout
+    on), the loss of the batch in eval mode (dropout off, no gradient)
+    before the first step and after the last."""
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    m = ep.MODEL
+    model = ep.build_model()
+    n_params = sum(p.size for p in model.parameters())
+    opt = ep.make_optimizer(model)
+    batch, lens = ep.fixed_batch()
+    seen = {}
+
+    def eval_loss():
+        model.eval()
+        with paddle.no_grad():
+            loss = float(ep.forward_loss(model, batch))
+        model.train()
+        return loss
+
+    def dtype_of(key):
+        def hook(layer, inputs, out):
+            seen.setdefault(key, out.dtype.name)   # returns None: keep out
+        return hook
+    layer0 = model[1].layers[0]
+    hooks = [layer0.linear1.register_forward_post_hook(dtype_of("linear")),
+             layer0.norm1.register_forward_post_hook(
+                 dtype_of("layer_norm"))]
+    eval_before = eval_loss()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, host_s, step_s, ev_ms, ops = [], [], [], [], []
+    fb_host_s, fb_ev_ms = [], []
+
+    def step():
+        e0, eb, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(3))
+        n0 = dispatch.op_count
+        t0 = time.perf_counter()
+        e0.record()
+        loss = ep.forward_loss(model, batch)
+        loss.backward()
+        eb.record()
+        tb = time.perf_counter()
+        opt.step()
+        opt.clear_grad()
+        e1.record()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ops.append(dispatch.op_count - n0)
+        fb_host_s.append(tb - t0)
+        fb_ev_ms.append(e0.elapsed_time(eb))
+        host_s.append(t1 - t0)
+        step_s.append(t2 - t0)
+        ev_ms.append(e0.elapsed_time(e1))
+        seen.setdefault("loss", loss.dtype.name)
+        losses.append(float(loss))
+    with ep.GcClock() as gc_clock:
+        for _ in range(TRAIN_STEPS):
+            step()
+    launches = launches_of()
+    counters = {k: v for k, v in paddle.monitor.snapshot().items()
+                if k.startswith("kernels.")}
+    # -- end of the counted eager path --
+    eval_after = eval_loss()
+    gc_objects = len(gc.get_objects())
+    # one more step, uncounted, under the sync debug mode: the host syncs
+    # a step makes (after which the host's clock includes the device's)
+    syncs = count_syncs(torch, step)
+    for lst in (losses, host_s, step_s, ev_ms, ops, fb_host_s, fb_ev_ms):
+        lst.pop()
+    for h in hooks:
+        h.remove()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(map(math.isfinite, losses + [eval_before, eval_after])) \
+            or not losses[-1] < losses[0] or not eval_after < eval_before:
+        fail(f"eager training losses not finite and falling: {losses}, "
+             f"eval mode {eval_before} -> {eval_after}")
+    if seen != {"linear": "bfloat16", "layer_norm": "float32",
+                "loss": "float32"}:
+        fail(f"eager O1 dtypes {seen}")
+    want = m["layers"] * TRAIN_STEPS
+    routes = {k: counters.get(f"kernels.flash.{k}_cuda_tc_wgmma", 0)
+              for k in ("fwd", "dq", "dkv")}
+    sdpa = {k: v for k, v in counters.items()
+            if k.startswith("kernels.flash.sdpa.") and v}
+    got = {k: launches[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv")}
+    if set(routes.values()) != {want} or set(got.values()) != {want}:
+        fail(f"eager flash launches {got}, wgmma routes {routes}, "
+             f"expected {want} each")
+    if sdpa != {"kernels.flash.sdpa.kernel_mask": want}:
+        fail(f"eager sdpa routes {sdpa}, expected only kernel_mask == {want}")
+    if counters.get("kernels.optimizer.adam_fused") != TRAIN_STEPS or \
+            counters.get("kernels.optimizer.adam_plain", 0):
+        fail(f"eager optimizer routes: {counters}")
+    plain = {k: v for k, v in counters.items()
+             if (k.endswith("_plain") or "fallback" in k) and v}
+    if plain:
+        fail(f"eager path ran plain versions: {plain}")
+    med = statistics.median
+    steady = med(step_s[1:])
+    tokens = ep.BATCH * ep.SEQ
+    rec = dict(params=n_params, batch=ep.BATCH, seq=ep.SEQ, lr=ep.LR,
+               lengths=lens.tolist(), steps=TRAIN_STEPS,
+               dropout=m["dropout"], losses=losses,
+               eval_loss_before=eval_before, eval_loss_after=eval_after,
+               gc_ms_per_step=gc_clock.seconds * 1e3 / TRAIN_STEPS,
+               gc_collections=gc_clock.collections,
+               gc_tracked_objects=gc_objects, dtypes=seen,
+               step_s=step_s, host_s=host_s, events_ms=ev_ms,
+               ms_per_step=steady * 1e3,
+               events_ms_per_step=med(ev_ms[1:]),
+               host_ms_per_step=med(host_s[1:]) * 1e3,
+               host_share=med(host_s[1:]) / steady,
+               fwd_bwd_host_ms=med(fb_host_s[1:]) * 1e3,
+               fwd_bwd_events_ms=med(fb_ev_ms[1:]),
+               fwd_bwd_host_share=med(fb_host_s[1:]) * 1e3 / med(
+                   fb_ev_ms[1:]), syncs_per_step=syncs,
+               ops_per_step=ops, host_us_per_op=med(
+                   h / n for h, n in zip(host_s[1:], ops[1:])) * 1e6,
+               first_step_ms=step_s[0] * 1e3, tokens_per_s=tokens / steady,
+               peak_mem_gb=peak_gb, launches=launches, counters=counters,
+               fused_adam_launches=launches["fused_adam"])
+    print(f"eager surface training: {n_params / 1e6:.1f} M params, batch "
+          f"{ep.BATCH} x seq {ep.SEQ}, dropout {m['dropout']}, O1 "
+          f"bf16, losses {[round(x, 4) for x in losses]} (eval mode "
+          f"{eval_before:.4f} -> {eval_after:.4f}); median step "
+          f"{rec['ms_per_step']:.1f} ms (events {rec['events_ms_per_step']:.1f}"
+          f" ms, first {rec['first_step_ms']:.1f} ms) = "
+          f"{rec['tokens_per_s']:.0f} tokens/s, host {rec['host_ms_per_step']:.1f}"
+          f" ms a step ({rec['host_share']:.3f} of it; {ops[-1]} ops, "
+          f"{rec['host_us_per_op']:.1f} us an op; {syncs} syncs a step); "
+          f"forward + backward: host {rec['fwd_bwd_host_ms']:.1f} ms to "
+          f"enqueue, events {rec['fwd_bwd_events_ms']:.1f} ms (share "
+          f"{rec['fwd_bwd_host_share']:.3f}), peak memory "
+          f"{peak_gb:.1f} GB; gc {rec['gc_ms_per_step']:.1f} ms a step "
+          f"({gc_clock.collections} collections, {gc_objects} tracked "
+          f"objects); launches {got}, {launches['fused_adam']} "
+          f"fused Adam on {card}", flush=True)
+    del opt, model
+    torch.cuda.empty_cache()
+    return rec
+
+
 # -- phase 6b: the serving accelerators ------------------------------------
 
 #: the draft length of bench.py's speculative serving extras
@@ -3868,7 +4137,7 @@ def main():
         from paddle_tpu_torch.kernels import fused_adam as fad
         from paddle_tpu_torch.kernels import moe
         from paddle_tpu_torch.kernels import paged_attention as pa
-        from paddle_tpu_torch.nn import CrossEntropyLoss
+        from paddle_tpu_torch.nn._modules import CrossEntropyLoss
         from paddle_tpu_torch.nn import functional as F
         from paddle_tpu_torch.nn.functional import \
             document_startend_row_indices as doc_mask
@@ -4118,6 +4387,16 @@ def main():
     bert_xcheck = bert_cross_check(torch, mods)
     bert_training = bert_train_main_path(torch, mods, launches_of,
                                          reset_counts, card)
+    torch.cuda.empty_cache()
+
+    # 19. the eager dygraph surface: the card against the CPU, then its
+    # training main path (counts around it)
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import profile_eager as ep
+    from paddle_tpu_torch.core import dispatch
+    eager_xcheck = eager_cross_check(torch, paddle, ep)
+    eager = eager_train_main_path(torch, paddle, ep, dispatch, launches_of,
+                                  reset_counts, card)
 
     src = "paddle_tpu_torch/csrc/"
 
@@ -4139,7 +4418,7 @@ def main():
     # launches by route: the bf16 training paths run the tc kernels, the
     # f32 serving paths the tf32x3 forward (their counter snapshots)
     tc_paths = {"training": training, "moe_training": moe_training,
-                "bert_training": bert_training,
+                "bert_training": bert_training, "eager_training": eager,
                 **{f"recipe_{g}": r for g, r in recipe["runs"].items()}}
     f32_paths = {"serving": dict(counters=counters),
                  "encoder_serving": enc_serving,
@@ -4394,6 +4673,7 @@ def main():
     adam_paths = {"training": training["fused_adam_launches"],
                   "moe_training": moe_training["launches"]["fused_adam"],
                   "bert_training": bert_training["launches"]["fused_adam"],
+                  "eager_training": eager["fused_adam_launches"],
                   **{f"recipe_{g}": r["launches"]["fused_adam"]
                      for g, r in recipe["runs"].items()},
                   "recipe_flashmask": recipe["runs"]["selective"][
@@ -4446,7 +4726,9 @@ def main():
                   encoder_serving=enc_serving, bert_cross_check=bert_xcheck,
                   bert_training=bert_training, fused_adam_cases=adam_cases,
                   grad_scaler=scaler, pretrain_recipe=recipe,
-                  one_shot_decoding=one_shot, kernels=kernels)
+                  one_shot_decoding=one_shot,
+                  eager_cross_check=eager_xcheck, eager_training=eager,
+                  kernels=kernels)
     (OUT_DIR / "result.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

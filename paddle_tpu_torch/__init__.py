@@ -6,7 +6,28 @@ is held to). It imports ``torch``, never ``jax``, and nothing of
 package wrote in Pallas for the TPU is a hand-written CUDA kernel for
 Hopper (``csrc/*.cu``, built with ``nvcc`` at first use).
 
-This slice serves LLaMA through the continuous-batching ``Engine``:
+The eager dygraph surface is the paddle API over torch:
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    paddle.seed(0)
+    layer = nn.TransformerEncoderLayer(768, 12, 3072)     # on the GPU
+    x = paddle.randn([8, 128, 768])
+    with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss = layer(x).mean()
+    loss.backward()
+
+``Tensor`` wraps a ``torch.Tensor`` (it does not subclass it: paddle's
+``shape``, ``size`` and ``dtype`` collide with torch's), every op body
+is a torch function dispatched through ``core.dispatch.run_op`` (AMP
+cast by op name, NaN check), and torch autograd is the tape. Tensors,
+parameters and the creation ops land on the current place, ``cuda:0``
+unless ``set_device("cpu")`` was called; without a GPU they raise. The
+names of the JAX package's top level whose modules are not ported yet
+(``linalg``, ``ops.inplace``, conv / pooling / rnn, ``io``, ``vision``,
+``jit.to_static``, ...) are absent.
+
+The port's models and the serving ``Engine`` take raw torch tensors:
 
     from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.inference import Engine, SamplingParams
@@ -16,9 +37,54 @@ This slice serves LLaMA through the continuous-batching ``Engine``:
     outs = eng.run([(prompt_ids, SamplingParams(max_new_tokens=128))])
 
 Entry points run on ``cuda`` by default and raise when no GPU is
-visible; ``device="cpu"`` runs the kernels' plain PyTorch versions.
+visible; ``device="cpu"`` (``set_device("cpu")`` for the surface) runs
+the kernels' plain PyTorch versions.
 """
+import numpy as _np
+import torch as _torch
+
 from . import monitor
 from .core.device import resolve_device
+from .core.dtype import (bfloat16, bool_, complex64, complex128, dtype,
+                         finfo, float8_e4m3fn, float8_e5m2, float16, float32,
+                         float64, get_default_dtype, iinfo, int8, int16,
+                         int32, int64, promote_types, pstring, raw,
+                         set_default_dtype, uint8)
+from .core.place import (CPUPlace, CUDAPinnedPlace, CUDAPlace, Place,
+                         TPUPlace, XPUPlace, get_device,
+                         is_compiled_with_cuda, is_compiled_with_tpu,
+                         is_compiled_with_xpu, set_device)
+from .core.tensor import Tensor, to_tensor
+from .core.random import get_rng_state, seed, set_rng_state
+from .core.flags import get_flags, set_flags
+from .core import flags
+from . import ops
+from .ops.creation import *  # noqa: F401,F403
+from .ops.math import *  # noqa: F401,F403
+from .ops.manipulation import *  # noqa: F401,F403
+from .ops.logic import *  # noqa: F401,F403
+from .ops.search import *  # noqa: F401,F403
+from .ops.stat import *  # noqa: F401,F403
+from .ops.math import bmm, dot, matmul, mm, mv, pow  # noqa: F401
+from . import autograd
+from .autograd import grad
+from . import amp
+from .framework import ParamAttr, load, save
+from . import framework
+from . import nn
+from . import optimizer
 
-__all__ = ["monitor", "resolve_device"]
+bool = bool_  # noqa: A001 (paddle.bool)
+pi = float(_np.pi)
+nan = float(_np.nan)
+inf = float(_np.inf)
+newaxis = None
+
+no_grad = _torch.no_grad
+enable_grad = _torch.enable_grad
+is_grad_enabled = _torch.is_grad_enabled
+set_grad_enabled = _torch.set_grad_enabled
+
+
+def in_dynamic_mode():
+    return True

@@ -55,9 +55,13 @@ class GradScaler:
 
     def scale(self, var):
         """``var`` times the scale, the scale first rounded to ``var``'s
-        dtype (as the JAX package multiplies by an array of that dtype)."""
+        dtype (as the JAX package multiplies by an array of that dtype);
+        a surface Tensor comes back as one, its graph kept."""
         if not self._enable:
             return var
+        from ..core.tensor import Tensor
+        if isinstance(var, Tensor):
+            return Tensor._from_data(self.scale(var._data))
         return var * torch.tensor(self._scale, dtype=var.dtype,
                                   device=var.device)
 

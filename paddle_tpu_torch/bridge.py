@@ -129,3 +129,13 @@ def _linear_layout(name, slot, a):
 #: the Adam / AdamW state bridges' first names
 adam_state_from_numpy = optimizer_state_from_numpy
 adam_state_to_numpy = optimizer_state_to_numpy
+
+
+def layer_state_from_jax(jax_layer) -> Dict[str, np.ndarray]:
+    """{structured name: array} of a JAX-package ``nn.Layer``'s state dict
+    (parameters and persistable buffers), for the eager surface's
+    ``Layer.set_state_dict``. Both surfaces keep paddle's [in, out]
+    Linear layout, so nothing is transposed. Reads the layer through its
+    own methods; imports nothing of the JAX package."""
+    return {name: np.asarray(t.numpy())
+            for name, t in jax_layer.state_dict().items()}

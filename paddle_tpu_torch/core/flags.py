@@ -3,9 +3,10 @@
 Counterpart of ``paddle_tpu/core/flags.py``, reduced to what the port's
 flags need: a flag is defined in Python with its default, overridden by
 the ``FLAGS_<name>`` environment variable when the flag is defined, and
-read or written through ``get_flag`` / ``set_flags``. The serving flags
-(``serving_fault_*``, ``serving_debug_invariants``) are defined in
-``inference/reliability.py``.
+read or written through ``get_flag`` / ``get_flags`` / ``set_flags``.
+The serving flags (``serving_fault_*``, ``serving_debug_invariants``)
+are defined in ``inference/reliability.py``; the eager surface's NaN
+check flags below, ``sdpa_use_flash`` in ``nn/functional/attention.py``.
 """
 from __future__ import annotations
 
@@ -62,3 +63,19 @@ def set_flags(flags: Dict[str, Any]) -> None:
 
 def get_flag(name: str):
     return _registry[_key(name)].value
+
+
+def get_flags(flags) -> Dict[str, Any]:
+    """{name: value} of one flag name or a list of them."""
+    if isinstance(flags, str):
+        flags = [flags]
+    return {f: get_flag(f) for f in flags}
+
+
+define_flag("check_nan_inf", False,
+            "scan every eager op's floating outputs for NaN/Inf")
+define_flag("check_nan_inf_level", 0, "0: raise on NaN/Inf; >0: print only")
+define_flag("check_nan_inf_batch", 1,
+            "ops per NaN-check host sync: 1 raises at the offending op; "
+            "larger batches read the flags of N ops in one sync, "
+            "reporting up to N ops late")

@@ -14,9 +14,25 @@ import torch
 
 
 class ClipGradBase:
-    def clip_grads(self, grads: List[Optional[torch.Tensor]]
-                   ) -> List[Optional[torch.Tensor]]:
+    def _clip(self, grads: List[Optional[torch.Tensor]]
+              ) -> List[Optional[torch.Tensor]]:
         raise NotImplementedError
+
+    def clip_grads(self, grads):
+        """New clipped gradients for ``grads`` (torch tensors, or the
+        eager surface's Tensors, which come back wrapped)."""
+        from ..core.tensor import Tensor
+        if not any(isinstance(g, Tensor) for g in grads):
+            return self._clip(list(grads))
+        out = self._clip([g._data if isinstance(g, Tensor) else g
+                          for g in grads])
+        return [None if g is None else Tensor._from_data(g) for g in out]
+
+    def __call__(self, params_grads):
+        """The JAX package's form: [(param, grad)] -> [(param, clipped)]."""
+        params = [p for p, _ in params_grads]
+        return list(zip(params, self.clip_grads([g for _, g in
+                                                 params_grads])))
 
 
 class ClipGradByValue(ClipGradBase):
@@ -27,7 +43,7 @@ class ClipGradByValue(ClipGradBase):
         self.max = float(max)
         self.min = float(min) if min is not None else -float(max)
 
-    def clip_grads(self, grads):
+    def _clip(self, grads):
         return [None if g is None else torch.clamp(g, self.min, self.max)
                 for g in grads]
 
@@ -39,7 +55,7 @@ class ClipGradByNorm(ClipGradBase):
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
 
-    def clip_grads(self, grads):
+    def _clip(self, grads):
         out = []
         for g in grads:
             if g is None:
@@ -67,7 +83,7 @@ class ClipGradByGlobalNorm(ClipGradBase):
         return torch.sqrt(sum(torch.sum(torch.square(g.float()))
                               for g in grads if g is not None))
 
-    def clip_grads(self, grads):
+    def _clip(self, grads):
         if all(g is None for g in grads):
             return list(grads)
         gn = self.global_norm(grads)

@@ -24,13 +24,16 @@ does what the JAX one does (:196-212): it ignores groups and
 per-parameter rates, takes the lr it is given, and decays with
 ``self._weight_decay`` unless ``wd_mask`` says no.
 
-A torch parameter carries no paddle name (``Tensor.name`` is read-only),
-so the port takes names the torch way: ``parameters`` (or a group's
-"params") may hold (name, tensor) pairs, as ``model.named_parameters()``
-gives them. ``state_dict`` uses the JAX key format: ``<param
-name>.<slot>`` (the given name, else ``param_<index>``, as for the JAX
-package's unnamed parameters), ``@global_step`` and, under a scheduler,
-``@lr_state``; AdamW's ``apply_decay_param_fun`` reads the same name.
+``parameters`` (or a group's "params") may hold the eager surface's
+``Parameter``s (``layer.parameters()``): each is unwrapped to its leaf
+torch tensor and named by its ``.name``, as the JAX package names it. A
+raw torch parameter carries no paddle name (``Tensor.name`` is
+read-only), so raw parameters may come as (name, tensor) pairs, as
+``model.named_parameters()`` gives them. ``state_dict`` uses the JAX
+key format: ``<param name>.<slot>`` (the given name, else
+``param_<index>``, as for the JAX package's unnamed parameters),
+``@global_step`` and, under a scheduler, ``@lr_state``; AdamW's
+``apply_decay_param_fun`` reads the same name.
 """
 from __future__ import annotations
 
@@ -92,14 +95,24 @@ class Optimizer:
         self._global_step = 0
 
     def _unpack(self, params) -> list:
-        """The tensors of ``params``, recording the names of (name, tensor)
-        pairs (group dicts pass through)."""
+        """The torch tensors of ``params``, recording the names of (name,
+        tensor) pairs and of named surface Parameters (group dicts pass
+        through)."""
+        from ..core.tensor import Tensor
         out = []
         for p in params:
             if isinstance(p, tuple) and len(p) == 2 and isinstance(p[0],
                                                                    str):
                 self._names[id(p[1])] = p[0]
                 p = p[1]
+            elif isinstance(p, Tensor):
+                if p.name:
+                    self._names[id(p._data)] = p.name
+                attr = getattr(p, "optimize_attr", None)
+                p = p._data
+                if attr is not None:
+                    # the per-parameter lr the eager step reads
+                    p.optimize_attr = attr
             out.append(p)
         return out
 
@@ -220,6 +233,7 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
+        """``loss.backward()`` (a torch or a surface tensor), then ``step``."""
         loss.backward()
         self.step()
         return None, [(p, p.grad) for p in self._parameter_list]

@@ -35,7 +35,7 @@ import torch
 
 from .inference import EmbedParams
 from .jit import TrainStep
-from .nn import CrossEntropyLoss
+from .nn._modules import CrossEntropyLoss
 from .optimizer import AdamW
 from .profile_training import parse_args, profile_step
 from .text.models import BertConfig, BertForPretraining

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from .jit import TrainStep
-from .nn import CrossEntropyLoss
+from .nn._modules import CrossEntropyLoss
 from .optimizer import AdamW
 from .profile_training import fixed_batch, parse_args, profile_step
 from .text.models import ErnieMoEConfig, ErnieMoEForCausalLM

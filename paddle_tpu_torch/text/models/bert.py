@@ -29,7 +29,7 @@ from torch import nn
 from ...core.device import resolve_device
 from ...incubate.nn.functional import fused_linear_cross_entropy
 from ...nn import functional as F
-from ...nn.layer import Dropout, LayerNorm
+from ...nn._modules import Dropout, LayerNorm
 
 
 @dataclass

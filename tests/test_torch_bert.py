@@ -42,6 +42,7 @@ from paddle_tpu.text.models import BertModel as JaxBertModel
 from paddle_tpu_torch import jit as tjit
 from paddle_tpu_torch import monitor
 from paddle_tpu_torch import nn as tnn
+from paddle_tpu_torch.nn import _modules
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.bridge import (adam_state_from_numpy,
                                      adam_state_to_numpy,
@@ -221,8 +222,8 @@ def test_model_dropout_draws_from_its_generator():
     torch.testing.assert_close(net(ids)[0], a, rtol=0, atol=0)
     net.eval()
     torch.testing.assert_close(net(ids)[0], net(ids)[0], rtol=0, atol=0)
-    assert all(m.generator is net.generator for m in net.modules()
-               if isinstance(m, tnn.Dropout))
+    drops = [m for m in net.modules() if isinstance(m, _modules.Dropout)]
+    assert drops and all(m.generator is net.generator for m in drops)
 
 
 # -- scaled_dot_product_attention -------------------------------------------

@@ -1530,3 +1530,54 @@ def test_generate_paged_on_card_matches_cpu(dev, cache_dtype):
         want = cpu(out[:, :-1].cpu()).argmax(-1)[:, 69:]
     agree = float((out[:, 70:].cpu() == want).float().mean())
     assert agree >= (0.97 if cache_dtype == "float32" else 0.85), agree
+
+
+# -- the eager dygraph surface (paddle_tpu_torch as paddle) ---------------------
+
+def test_eager_surface_trains_on_the_kernels(dev):
+    """The slice's path at a small size on the card: Embedding ->
+    TransformerEncoder (bool key-padding mask) -> Linear -> cross_entropy
+    under amp.auto_cast O1 bf16, AdamW, 3 steps. Every layer's attention
+    takes the tc wgmma forward, dQ and dK/dV with key-mask bands, every
+    step one fused Adam launch, and nothing runs a plain version."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import monitor, nn
+    from paddle_tpu_torch.core import place as place_mod
+    from paddle_tpu_torch.kernels import fused_adam as fad
+    place_mod.set_device("gpu")
+    paddle.seed(0)
+    layers, steps = 2, 3
+    enc = nn.TransformerEncoder(nn.TransformerEncoderLayer(
+        128, 2, 256, dropout=0.1, activation="gelu"), layers)
+    emb, head = nn.Embedding(100, 128), nn.Linear(128, 2)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=1e-3, weight_decay=0.01,
+        parameters=emb.parameters() + enc.parameters() + head.parameters())
+    g = torch.Generator().manual_seed(1)
+    ids = paddle.to_tensor(torch.randint(0, 100, (4, 128), generator=g))
+    lens = torch.tensor([128, 100, 64, 77])
+    keep = paddle.to_tensor((torch.arange(128)[None] < lens[:, None])[
+        :, None, None, :])
+    labels = paddle.to_tensor(torch.randint(0, 2, (4,), generator=g))
+    monitor.reset()
+    fad.fused_adam_launch.launches = 0
+    losses = []
+    for _ in range(steps):
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            h = enc(emb(ids), src_mask=keep)
+            loss = nn.functional.cross_entropy(head(h[:, 0]), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    snap = monitor.snapshot()
+    want = layers * steps
+    for k in ("fwd", "dq", "dkv"):
+        assert snap.get(f"kernels.flash.{k}_cuda_tc_wgmma") == want, snap
+    assert snap.get("kernels.flash.sdpa.kernel_mask") == want
+    for k in ("plain", "plain_mask", "dense_mask", "core"):
+        assert not snap.get(f"kernels.flash.sdpa.{k}"), snap
+    assert snap.get("kernels.optimizer.adam_fused") == steps
+    assert not snap.get("kernels.optimizer.adam_plain")
+    assert fad.fused_adam_launch.launches >= steps
+    assert all(math.isfinite(v) for v in losses)

@@ -67,6 +67,8 @@ def test_port_import_pulls_in_no_jax():
         "import paddle_tpu_torch.text.models.bert\n"
         "import paddle_tpu_torch.inference.encoder\n"
         "import paddle_tpu_torch.profile_encoder\n"
+        "import paddle_tpu_torch.nn.functional, paddle_tpu_torch.autograd\n"
+        "import paddle_tpu_torch.amp, paddle_tpu_torch.framework\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n")
@@ -138,3 +140,30 @@ def test_chip_smoke_fails_without_gpu(tmp_path):
                          timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_eager_surface_defaults_to_cuda_and_raises_without_gpu(no_gpu):
+    """to_tensor, Layer parameters and the creation ops land on the
+    current place, the GPU unless the CPU was asked for: without one
+    they raise, and nothing moves to the CPU on its own."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place as place_mod
+    prev = place_mod._current_place
+    place_mod._current_place = place_mod.CUDAPlace(0)
+    try:
+        assert paddle.get_device() == "gpu:0"
+        for make in (lambda: paddle.to_tensor([1.0]),
+                     lambda: paddle.zeros([2]), lambda: paddle.randn([2]),
+                     lambda: paddle.nn.Linear(2, 2),
+                     lambda: paddle.set_device("gpu")):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+        assert paddle.get_device() == "gpu:0"
+        with pytest.raises(RuntimeError, match="not supported"):
+            paddle.set_device("tpu")
+        paddle.set_device("cpu")
+        assert paddle.to_tensor([1.0]).place == paddle.CPUPlace()
+        assert paddle.nn.Linear(2, 2).weight._data.device.type == "cpu"
+        assert not paddle.is_compiled_with_cuda()
+    finally:
+        place_mod._current_place = prev

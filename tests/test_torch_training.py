@@ -98,11 +98,26 @@ def test_cross_entropy_matches_jax(reduction, trailing):
 
 
 def test_cross_entropy_refuses_later_slice_options():
-    x, y = torch.zeros(2, 3), torch.zeros(2, dtype=torch.long)
-    for kw in (dict(soft_label=True), dict(label_smoothing=0.1),
-               dict(weight=torch.ones(3))):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            cross_entropy(x, y, **kw)
+    """The options a slice once refused (soft labels, label smoothing,
+    class weights, use_softmax=False) came with the eager surface's
+    whole loss.py: on raw tensors they equal the JAX cross_entropy."""
+    rng = np.random.default_rng(3)
+    x = rng.uniform(0.05, 1.0, (4, 3)).astype(np.float32)
+    y = np.array([0, 2, 1, 2])
+    soft = rng.uniform(0, 1, (4, 3)).astype(np.float32)
+    w = np.array([0.5, 1.0, 2.0], np.float32)
+    for lab, kw in ((soft, dict(soft_label=True)),
+                    (y, dict(label_smoothing=0.1)),
+                    (y, dict(weight=w)), (y, dict(use_softmax=False))):
+        tkw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+               for k, v in kw.items()}
+        jkw = {k: paddle.to_tensor(v) if isinstance(v, np.ndarray) else v
+               for k, v in kw.items()}
+        got = cross_entropy(torch.from_numpy(x), torch.from_numpy(lab),
+                            **tkw)
+        want = jax_ce(paddle.to_tensor(x), paddle.to_tensor(lab), **jkw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()),
+                                   rtol=1e-6, err_msg=str(kw))
 
 
 def _bf16_close(got, want):
