@@ -22,9 +22,10 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    below its bound;
    the f32 forward at the main shape also through views whose rows are
    not 16-byte aligned, the one case left to the CUDA-core kernel; paged
-   decode at both serving geometries (LLaMA: 16 slots, 32 heads, d 128,
+   decode at the serving geometries (LLaMA: 16 slots, 32 heads, d 128,
    f32, bf16 and int8 pools, GQA, a window; ERNIE-MoE: 8 slots, 16
-   heads, d 64, f32 pool), the raw launch and the wrapper each held to
+   heads, d 64, f32 pool; phase 20's replay engine: 8 slots, 32 heads,
+   d 128, 16-token pages, f32 pool, split and single-chunk), the raw launch and the wrapper each held to
    the plain version (and to each other, bit for bit), its chunking as
    the C entry reports it, timed from a CUDA graph of raw launches (the
    split kernel and the combine) that cycles through copies of the pools
@@ -304,7 +305,45 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    and no plain one; ms per step (events and host medians), tokens/s,
    peak memory, the host's share of a step and the ops dispatched a step,
    the forward + backward's host enqueue time against its events, and
-   (one more, uncounted step) the host syncs a step makes.
+   (one more, uncounted step) the host syncs a step makes;
+20. the serving replay tool, ``python -m paddle_tpu_torch.serving_replay``,
+   each run a subprocess whose exit must be 0 and whose report gives its
+   wrappers' launch counts (from 0 in the fresh process): (a) a
+   24-request trace written to chiprun_out/chip_smoke/ (prompts 64-127,
+   128 new tokens) at the widest LLaMA its flags express (``--hidden
+   4096 --heads 32 --layers 4 --vocab 32000``, f32), 8 slots, plain and
+   ``--multi-tick 8``, both under ``--expect-pallas``: every request
+   finished, 0 leaked pages, every decode call on the split paged-decode
+   kernel, the same tokens both ways; (b) ``--chaos`` with
+   ``--trace-out`` and ``--expect-complete-timelines`` at (a)'s model on
+   a 24-request chaos trace the phase writes (shared system prompts,
+   contexts to 255; under ``--expect-pallas``, faults injected, survivors
+   exact, no leak) and on the chaos fixture (single-chunk kernel; a gate
+   only); (c) ``--embedding`` at BERT-base widths on a 256-request trace
+   of 128-512 tokens the phase writes (batches of 32) and on the
+   embedding fixture (a gate only), the tf32x3 forward and no plain call;
+   (d) two Engines over one copy of (a)'s model: after MIGRATE_AT steps 2
+   greedy and 2 sampled live requests leave the first
+   (``extract_request``) and join the second's queue (``readmit``), and
+   every stream equals an uninterrupted run's bit for bit; tokens/s,
+   device and host ms a tick and the launches of each run (rates of the
+   phase's own traces only);
+21. the eager surface's new modules on the card (``set_device("gpu")``):
+   (a) ResNet-50's stem and stage 1 from the new layers (Conv2D 7x7/2 64,
+   BatchNorm2D, ReLU, MaxPool2D 3x3/2, three 64-64-256 bottlenecks,
+   AdaptiveAvgPool2D, Linear to 1000), batch 32 x 3 x 224 x 224, O1 bf16,
+   AdamW, 6 steps, finite losses; (b) PTB "large" language models
+   (Zaremba et al.: 2 layers of 1500, vocab 10,000, 35 steps, batch 20,
+   dropout 0.65, SGD 1.0 clipped at 10), LSTM then GRU, 6 f32 steps each;
+   each of (a) and (b) first as an f32 copy (batch 2, dropout 0) on the
+   card against the same weights on the CPU, the loss and every gradient
+   within ``closeness``'s f32 gate; (c) cholesky, qr, svd, eigh, solve,
+   lstsq, inv and det on 64 x 256 x 256 f32 batches: residuals and
+   reconstructions over the input's norm, and values against the CPU's,
+   below LAPACK's test ratio (30 x n x eps); (d) interpolate in every
+   mode down and up, grid_sample and fold against the CPU within the
+   f32 gate; ms a step (events and host), images or tokens a second and
+   peak memory, beside the card.
 
 It prints the card line, a {"kernels": [...]} line (the tensor-core
 forward, dQ and dK/dV as ``flash_fwd`` / ``flash_bwd_dq`` /
@@ -325,8 +364,9 @@ on the tc route, ``grouped_ffn_fwd_rows`` (the decode tick) and
 last line
 {"ok": true, "device":
 {...}}. Details land in
-chiprun_out/chip_smoke/ (result JSON, nvcc/ptxas logs). About three minutes
-of command time on an H100, the six kernel builds included.
+chiprun_out/chip_smoke/ (result JSON, nvcc/ptxas logs, the replay
+runs' logs). About four and a half minutes of command time on an H100,
+the six kernel builds included.
 """
 from __future__ import annotations
 
@@ -541,11 +581,17 @@ def graph_ms(torch, fn, calls=20, reps=5):
 
 
 #: the paged decode's serving geometries: (slots, h, h_kv, d, pool dtype,
-#: longest context) of LLaMA (profile_serving.MODEL in the Engine of
-#: phase 5) and ERNIE-MoE (profile_moe's serving engine, phase 12), both
-#: with 128-token pages and 3 pages a slot
-PAGED_SERVING = {"llama": (16, 32, 32, 128, "bfloat16", 320),
-                 "ernie_moe": (8, 16, 16, 64, "float32", 287)}
+#: longest context, page size, pages a slot) of LLaMA
+#: (profile_serving.MODEL in the Engine of phase 5), ERNIE-MoE
+#: (profile_moe's serving engine, phase 12) and phase 20's replay engine
+#: (REPLAY_LLAMA + REPLAY_ENGINE: 16-token pages, a table of 16 pages for
+#: the replay's own traces, whose contexts reach 255, on the split kernel;
+#: a table of 4 for the chaos fixture's, whose contexts reach 34, on the
+#: single-chunk kernel)
+PAGED_SERVING = {"llama": (16, 32, 32, 128, "bfloat16", 320, 128, 3),
+                 "ernie_moe": (8, 16, 16, 64, "float32", 287, 128, 3),
+                 "replay": (8, 32, 32, 128, "float32", 255, 16, 16),
+                 "replay_fixture": (8, 32, 32, 128, "float32", 34, 16, 4)}
 
 
 def _paged_combine_control(torch, pa, got, scratch, ctx, want, window,
@@ -590,18 +636,21 @@ def _paged_combine_control(torch, pa, got, scratch, ctx, want, window,
 
 
 def check_paged(torch, pa, kvq):
-    """Paged decode at the two serving geometries (PAGED_SERVING: LLaMA,
-    16 slots, h = h_kv = 32, d 128, contexts ragged up to 320 with dead
+    """Paged decode at the serving geometries (PAGED_SERVING: LLaMA, 16
+    slots, h = h_kv = 32, d 128, contexts ragged up to 320 with dead
     slots, f32, bf16 and int8 pools, GQA rep 4 and a window; ERNIE-MoE, 8
     slots, h = h_kv = 16, d 64, f32 pool, contexts ragged up to 287 with
-    a dead slot): the raw launch and the wrapper each against the plain
+    a dead slot; the replay engine of phase 20, 8 slots, h = h_kv = 32, d
+    128, 16-token pages, f32 pool, contexts ragged up to 255 (split) and
+    up to 34 (single chunk), each with a dead slot): the raw launch and the wrapper each against the plain
     version (the wrapper bit-equal to the raw launch), its chunking as
     the C entry reports it, timed as raw launches of the split kernel and
     the combine (``ms``: ``graph_ms`` cycling through copies of the pools
     that together exceed the L2, ``cold_copies``) and through the wrapper
     (``wrapper_ms``, events around eager calls: host included) beside the
-    plain version and the bound over the live tokens; at both serving
-    cases the combine without a slot's last chunk must be rejected."""
+    plain version and the bound over the live tokens; at the three
+    split serving cases (``controlled``) the combine without a slot's last
+    chunk must be rejected."""
     from paddle_tpu_torch.ab_serving_kernels import cold_copies
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -611,9 +660,13 @@ def check_paged(torch, pa, kvq):
              ("int8", "llama", 32, torch.int8, None),
              ("gqa_rep4", "llama", 8, torch.bfloat16, None),
              ("window", "llama", 32, torch.bfloat16, 100),
-             ("moe_serving_f32", "ernie_moe", 16, torch.float32, None)]
+             ("moe_serving_f32", "ernie_moe", 16, torch.float32, None),
+             ("replay_f32", "replay", 32, torch.float32, None),
+             ("replay_single_f32", "replay_fixture", 32, torch.float32,
+              None)]
+    controlled = ("serving_bf16", "moe_serving_f32", "replay_f32")
     ctxs = {}
-    for geo, (b, _, _, _, _, longest) in PAGED_SERVING.items():
+    for geo, (b, _, _, _, _, longest, _, _) in PAGED_SERVING.items():
         ctx = torch.randint(1, longest + 1, (b,), generator=g, device=dev)
         ctx[3] = 0                     # a dead (idle) slot
         ctx[0] = longest
@@ -621,9 +674,8 @@ def check_paged(torch, pa, kvq):
             ctx[11] = 0
             ctx[5], ctx[7] = 128, 1
         ctxs[geo] = ctx
-    bs, nblk = 128, 3
     for name, geo, hkv, dt, window in specs:
-        b, h, _, d, _, _ = PAGED_SERVING[geo]
+        b, h, _, d, _, _, bs, nblk = PAGED_SERVING[geo]
         ctx = ctxs[geo]
         nb = b * nblk + 1
         bt = (torch.randperm(nb - 1, generator=g, device=dev) + 1).reshape(
@@ -651,7 +703,7 @@ def check_paged(torch, pa, kvq):
         c_wrap = closeness(got, want)
         control = (_paged_combine_control(torch, pa, out, scratch, ctx,
                                           want, window, chunk)
-                   if name in ("serving_bf16", "moe_serving_f32") else None)
+                   if name in controlled else None)
         live = (torch.minimum(ctx, torch.tensor(nblk * bs, device=dev))
                 - (torch.clamp(ctx - window, min=0) if window else 0)
                 ).clamp(min=0)
@@ -2782,83 +2834,58 @@ EAGER_XCHECK_LAYERS, EAGER_XCHECK_BATCH, EAGER_XCHECK_LR = 2, 4, 1e-3
 def eager_cross_check(torch, paddle, ep):
     """Phase 19 (a): a 2-layer f32 copy of the eager model, dropout 0, one
     forward and backward on the card (tf32x3 forward, simt backward)
-    against the same weights on the CPU (the plain versions); then one
-    ``AdamW.step()`` on the card (the fused update) against the plain
-    rule on the CPU, applied to the card's weights and gradients: every
-    surface Parameter, read back through the model after the step."""
+    against the same weights on the CPU (the plain versions), through
+    ``_xcheck``; then one ``AdamW.step()`` on the card (the fused update)
+    against the plain rule on the CPU, applied to the card's weights and
+    gradients: every surface Parameter, read back through the model after
+    the step."""
     from paddle_tpu_torch.kernels.fused_adam import adam_update_plain
-    res = {}
+
+    def update(card, card_grads):
+        before = {k: p._data.detach().float().cpu().clone()
+                  for k, p in card.named_parameters()}
+        opt = ep.make_optimizer(card, lr=EAGER_XCHECK_LR)
+        opt.step()
+        torch.cuda.synchronize()
+        upd = {}
+        for k, p in card.named_parameters():
+            want = before[k].clone()
+            state = {"moment1": torch.zeros_like(want),
+                     "moment2": torch.zeros_like(want),
+                     "beta1_pow": torch.tensor(opt._beta1),
+                     "beta2_pow": torch.tensor(opt._beta2)}
+            adam_update_plain(want, card_grads[k], state,
+                              torch.tensor(EAGER_XCHECK_LR), opt._beta1,
+                              opt._beta2, opt._epsilon, False, "decoupled",
+                              ep.WEIGHT_DECAY)
+            upd[k] = closeness(p._data.detach().float().cpu(), want)
+        worst = max(upd, key=lambda k: upd[k]["ratio"])
+        rec = dict(update_lr=EAGER_XCHECK_LR, updated=len(upd),
+                   worst_update=worst,
+                   worst_update_ratio=upd[worst]["ratio"],
+                   worst_update_max_abs_err=upd[worst]["max_abs_err"])
+        if len(upd) != len(card.parameters()) or upd[worst]["ratio"] > 1:
+            fail(f"eager cross-check: the card's AdamW step is off the "
+                 f"plain rule: {rec}")
+        return rec
+
     paddle.set_device("gpu")
     paddle.seed(1)
-    card = ep.build_model(EAGER_XCHECK_LAYERS, 0.0)
-    for dev in ("gpu", "cpu"):
-        paddle.set_device(dev)
-        model = card
-        if dev == "cpu":
-            model = ep.build_model(EAGER_XCHECK_LAYERS, 0.0)
-            model.set_state_dict(card.state_dict())
-        batch, _ = ep.fixed_batch(EAGER_XCHECK_BATCH)
-        loss = ep.loss_of(model, *batch)
-        loss.backward()
-        res[dev] = (loss._data.detach().float().cpu(),
-                    {k: p.grad._data.float().cpu()
-                     for k, p in model.state_dict().items()
-                     if p.grad is not None})
-    paddle.set_device("gpu")
-    loss_c = closeness(res["gpu"][0], res["cpu"][0])
-    grads = {k: closeness(g, res["cpu"][1][k])
-             for k, g in res["gpu"][1].items()}
-    worst = max(grads, key=lambda k: grads[k]["ratio"])
-    # the update: the card's fused step against the plain rule on the CPU
-    before = {k: p._data.detach().float().cpu().clone()
-              for k, p in card.state_dict().items()}
-    opt = ep.make_optimizer(card, lr=EAGER_XCHECK_LR)
-    opt.step()
-    torch.cuda.synchronize()
-    upd = {}
-    for k, p in card.state_dict().items():
-        want = before[k].clone()
-        state = {"moment1": torch.zeros_like(want),
-                 "moment2": torch.zeros_like(want),
-                 "beta1_pow": torch.tensor(opt._beta1),
-                 "beta2_pow": torch.tensor(opt._beta2)}
-        adam_update_plain(want, res["gpu"][1][k], state,
-                          torch.tensor(EAGER_XCHECK_LR), opt._beta1,
-                          opt._beta2, opt._epsilon, False, "decoupled",
-                          ep.WEIGHT_DECAY)
-        upd[k] = closeness(p._data.detach().float().cpu(), want)
-    worst_upd = max(upd, key=lambda k: upd[k]["ratio"])
-    rec = dict(layers=EAGER_XCHECK_LAYERS, batch=EAGER_XCHECK_BATCH,
-               seq=ep.SEQ, loss_cuda=float(res["gpu"][0]),
-               loss_cpu=float(res["cpu"][0]), loss=loss_c,
-               grads=len(grads), worst_grad=worst,
-               worst_grad_ratio=grads[worst]["ratio"],
-               worst_grad_max_abs_err=grads[worst]["max_abs_err"],
-               update_lr=EAGER_XCHECK_LR, updated=len(upd),
-               worst_update=worst_upd,
-               worst_update_ratio=upd[worst_upd]["ratio"],
-               worst_update_max_abs_err=upd[worst_upd]["max_abs_err"],
-               fused_adam_launches=1)
+    batch, _ = ep.fixed_batch(EAGER_XCHECK_BATCH)
+    rec = _xcheck(paddle, lambda: ep.build_model(EAGER_XCHECK_LAYERS, 0.0),
+                  [t._data.cpu() for t in batch], ep.loss_of, then=update)
+    rec.update(layers=EAGER_XCHECK_LAYERS, batch=EAGER_XCHECK_BATCH,
+               seq=ep.SEQ, fused_adam_launches=1)
     print(f"eager cross-check: loss cuda {rec['loss_cuda']:.6f} cpu "
-          f"{rec['loss_cpu']:.6f} (ratio {loss_c['ratio']:.3f}); "
-          f"{len(grads)} gradients, worst {worst} ratio "
-          f"{grads[worst]['ratio']:.3f} (max abs err "
-          f"{grads[worst]['max_abs_err']:.2e}); AdamW({EAGER_XCHECK_LR}) "
-          f"on the card against the plain rule on the CPU: {len(upd)} "
-          f"parameters, worst {worst_upd} ratio "
-          f"{upd[worst_upd]['ratio']:.3f} (max abs err "
-          f"{upd[worst_upd]['max_abs_err']:.2e}); pass <= 1, closeness's "
+          f"{rec['loss_cpu']:.6f} (ratio {rec['loss_ratio']:.3f}); "
+          f"{rec['grads']} gradients, worst {rec['worst_grad']} ratio "
+          f"{rec['worst_grad_ratio']:.3f} (max abs err "
+          f"{rec['worst_grad_max_abs_err']:.2e}); AdamW({EAGER_XCHECK_LR}) "
+          f"on the card against the plain rule on the CPU: "
+          f"{rec['updated']} parameters, worst {rec['worst_update']} ratio "
+          f"{rec['worst_update_ratio']:.3f} (max abs err "
+          f"{rec['worst_update_max_abs_err']:.2e}); pass <= 1, closeness's "
           f"f32 gate", flush=True)
-    n_params = len(card.parameters())
-    if len(grads) != len(res["cpu"][1]) or len(grads) < 4 or \
-            len(upd) != n_params or len(grads) != n_params:
-        fail(f"eager cross-check: gradients {sorted(grads)} vs "
-             f"{sorted(res['cpu'][1])}, {n_params} parameters")
-    if not (loss_c["ratio"] <= 1 and grads[worst]["ratio"] <= 1
-            and upd[worst_upd]["ratio"] <= 1):
-        fail(f"eager cross-check off: {rec}")
-    del card, res, opt
-    torch.cuda.empty_cache()
     return rec
 
 
@@ -3010,6 +3037,648 @@ def eager_train_main_path(torch, paddle, ep, dispatch, launches_of,
     del opt, model
     torch.cuda.empty_cache()
     return rec
+
+
+# -- phase 20: the serving replay tool and request migration ---------------
+
+#: phase 20's LLaMA: the widest the replay tool's flags express (LLaMA-7B
+#: widths, 4 layers, f32 weights, FFN 4 x hidden)
+REPLAY_LLAMA = ["--hidden", "4096", "--heads", "32", "--layers", "4",
+                "--vocab", "32000"]
+REPLAY_ENGINE = ["--max-slots", "8", "--page-size", "16", "--pool-pages",
+                 "128", "--prefill-bucket", "64"]
+#: BERT-base widths for the --embedding replay
+REPLAY_BERT = ["--hidden", "768", "--heads", "12", "--layers", "12",
+               "--vocab", "30522"]
+REPLAY_REQUESTS, REPLAY_PROMPT, REPLAY_NEW = 24, (64, 127), 128
+#: (b)'s chaos trace: REPLAY_REQUESTS requests of REPLAY_PROMPT tokens,
+#: every other one opening with a shared 48-token system prompt (three
+#: 16-token pages for the prefix cache), 32-128 new tokens each
+CHAOS_SYSTEM, CHAOS_NEW = 48, (32, 128)
+#: (c)'s embedding trace at BERT-base serving sizes: 256 requests of
+#: 128-512 tokens, one every 2 ms, mean and CLS pooling over two tenants,
+#: batches of up to 32 padded to 64-token buckets
+EMBED_REQUESTS, EMBED_SEQ = 256, (128, 512)
+EMBED_SERVICE = ["--max-batch", "32", "--bucket", "64"]
+#: (d)'s migration: requests, new tokens, and the step after which
+#: 2 greedy and 2 sampled live requests move to the second engine
+MIGRATE_REQUESTS, MIGRATE_NEW, MIGRATE_AT = 8, 64, 6
+
+
+def replay_trace(path):
+    """The 24-request decoder trace of phase 20 (a): prompts of 64-127
+    tokens, 128 new tokens each (within the tool's 256 positions), one
+    arrival every 10 ms."""
+    import numpy as np
+    rng = np.random.default_rng(20)
+    with open(path, "w") as fh:
+        for i in range(REPLAY_REQUESTS):
+            fh.write(json.dumps({
+                "arrival_ms": 10 * i,
+                "prompt_len": int(rng.integers(REPLAY_PROMPT[0],
+                                               REPLAY_PROMPT[1] + 1)),
+                "new_tokens": REPLAY_NEW}) + "\n")
+
+
+def chaos_trace(path):
+    """The chaos trace of phase 20 (b): REPLAY_REQUESTS requests, prompts
+    of REPLAY_PROMPT tokens of which every other one starts with the
+    CHAOS_SYSTEM-token system prompt, CHAOS_NEW new tokens, one arrival
+    every 10 ms; contexts reach 255, within the tool's 256 positions."""
+    import numpy as np
+    rng = np.random.default_rng(22)
+    with open(path, "w") as fh:
+        for i in range(REPLAY_REQUESTS):
+            line = {"arrival_ms": 10 * i,
+                    "prompt_len": int(rng.integers(REPLAY_PROMPT[0],
+                                                   REPLAY_PROMPT[1] + 1)),
+                    "new_tokens": int(rng.integers(CHAOS_NEW[0],
+                                                   CHAOS_NEW[1] + 1))}
+            if i % 2 == 0:
+                line["system_len"] = CHAOS_SYSTEM
+            fh.write(json.dumps(line) + "\n")
+
+
+def embed_trace(path):
+    """The embedding trace of phase 20 (c): EMBED_REQUESTS requests of
+    EMBED_SEQ tokens, one every 2 ms, pooling and tenant alternating."""
+    import numpy as np
+    rng = np.random.default_rng(23)
+    with open(path, "w") as fh:
+        for i in range(EMBED_REQUESTS):
+            fh.write(json.dumps({
+                "arrival_ms": 2 * i,
+                "seq_len": int(rng.integers(EMBED_SEQ[0], EMBED_SEQ[1] + 1)),
+                "pooling": "mean" if i % 2 == 0 else "cls",
+                "tenant": "ab"[i % 3 == 0]}) + "\n")
+
+
+def run_replay(what, args, timeout=600):
+    """``python -m paddle_tpu_torch.serving_replay`` as a subprocess; any
+    exit but 0 fails the phase. Returns its JSON report."""
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.serving_replay"] + \
+        [str(a) for a in args] + ["--json"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=timeout)
+    secs = time.perf_counter() - t0
+    (OUT_DIR / f"replay_{what}.log").write_text(
+        " ".join(cmd) + "\n" + out.stdout + out.stderr)
+    if out.returncode != 0:
+        fail(f"replay {what}: exit {out.returncode}: {out.stderr[-2000:]}")
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+    if not lines:
+        fail(f"replay {what}: no report")
+    report = json.loads(lines[-1])
+    report["process_s"] = secs
+    return report
+
+
+def _replay_decoder_gates(what, rep):
+    paths = rep["decode_paths"]
+    n_pd = rep["launches"]["paged_decode"]
+    c = rep["counters"]
+    if rep["failed"] or rep["total_tokens"] != REPLAY_REQUESTS * REPLAY_NEW \
+            or len(rep["tokens"]) != REPLAY_REQUESTS:
+        fail(f"replay {what}: failed {rep['failed']}, "
+             f"{rep['total_tokens']} tokens")
+    if rep["leaked_pages"]:
+        fail(f"replay {what}: {rep['leaked_pages']} pages leaked")
+    if not n_pd or paths["cuda_split"] != n_pd or paths["cuda_single"] \
+            or paths["plain"] or c.get("kernels.decode.paged_cuda") != n_pd:
+        fail(f"replay {what}: paged-decode launches {n_pd}, paths {paths}")
+
+
+def _migration(torch, mods, launches_of, reset_counts):
+    """Phase 20 (d): two Engines on the card over one LLaMA's weights;
+    after MIGRATE_AT steps 2 greedy and 2 sampled live requests leave the
+    first (``extract_request``) and join the second's queue; every
+    request's tokens equal an uninterrupted run's."""
+    import numpy as np
+    cfg = mods.LlamaConfig.tiny(vocab=32000, hidden=4096, layers=4,
+                                heads=32)
+    model = mods.LlamaForCausalLM(cfg, seed=0)
+    model.eval()
+    rng = np.random.default_rng(21)
+    reqs = []
+    for i in range(MIGRATE_REQUESTS):
+        n = int(rng.integers(REPLAY_PROMPT[0], REPLAY_PROMPT[1] + 1))
+        sampled = i % 2 == 1
+        reqs.append((rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64),
+                     dict(max_new_tokens=MIGRATE_NEW,
+                          temperature=0.8 if sampled else 0.0,
+                          top_k=50 if sampled else 0, seed=100 + i)))
+    kw = dict(max_slots=8, page_size=16, max_context=256, prefill_bucket=64)
+    ref = {o.req_id: o.token_ids for o in mods.Engine(model, **kw).run(
+        [(p, mods.SamplingParams(**k)) for p, k in reqs])}
+    reset_counts()
+    a, b = mods.Engine(model, **kw), mods.Engine(model, **kw)
+    for p, k in reqs:
+        a.add_request(p, mods.SamplingParams(**k))
+    done = {}
+    for _ in range(MIGRATE_AT):
+        done.update({o.req_id: o for o in a.step()})
+    live = [r for r in a.requests.values() if r.generated]
+    greedy = [r.req_id for r in live if r.params.temperature == 0][:2]
+    sampled = [r.req_id for r in live if r.params.temperature > 0][:2]
+    if len(greedy) != 2 or len(sampled) != 2:
+        fail(f"migration: live greedy {greedy}, sampled {sampled}")
+    moved = [a.extract_request(rid) for rid in greedy + sampled]
+    for r in moved:
+        b.readmit(r)
+    while not (a.idle and b.idle):
+        for eng in (a, b):
+            done.update({o.req_id: o for o in eng.step()})
+    launches = launches_of()
+    got = {rid: o.token_ids for rid, o in done.items()}
+    leaked = a.leaked_pages() + b.leaked_pages()
+    diff = sorted(r for r in ref if got.get(r) != ref[r])
+    rec = dict(requests=MIGRATE_REQUESTS, moved_greedy=greedy,
+               moved_sampled=sampled, at_step=MIGRATE_AT,
+               mismatched=diff, leaked_pages=leaked, launches=launches,
+               tokens=sum(len(t) for t in got.values()))
+    if diff or leaked or not all(o.ok for o in done.values()):
+        fail(f"migration: streams differ from the uninterrupted run: {rec}")
+    del model, a, b
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _replay_fixture_gates(runs):
+    """The fixture runs of (b) and (c), gates only (toy lengths, no rate
+    is kept): the chaos fixture's contexts reach 34, a table of one
+    64-token chunk, so its decode runs the single-chunk kernel
+    (check_paged's replay_single_f32 case holds that route to plain);
+    the embedding fixture's encoder runs the probe and the flash
+    forward."""
+    rep = runs["chaos_fixture"]
+    paths, ch = rep["decode_paths"], rep["chaos"]
+    if not paths["cuda_single"] or paths["cuda_split"] or paths["plain"] \
+            or not ch["total_injected"] or not ch["survivors_exact"]:
+        fail(f"replay chaos_fixture: paths {paths}, chaos {ch}")
+    rep = runs["embedding_fixture"]
+    if rep["failed"] or not rep["launches"]["flash_fwd"] or \
+            rep["counters"].get("kernels.flash.fwd_plain"):
+        fail(f"replay embedding_fixture: failed {rep['failed']}, launches "
+             f"{rep['launches']}, counters {rep['counters']}")
+
+
+def replay_main_path(torch, mods, launches_of, reset_counts, card):
+    """Phase 20: the port's replay tool on the card, each run a
+    subprocess whose counts start at 0 and are read from its report:
+    (a) REPLAY_LLAMA serving the 24-request trace plain and with
+    --multi-tick 8, both under --expect-pallas (every decode tick on the
+    split paged-decode kernel), every request finished, no page leaked,
+    the same tokens; (b) --chaos with --trace-out and
+    --expect-complete-timelines at REPLAY_LLAMA on the phase's own chaos
+    trace (under --expect-pallas, faults injected, survivors exact) and on
+    the chaos fixture (a gate only); (c) --embedding at BERT-base widths
+    on the phase's 256-request trace and on the embedding fixture (a gate
+    only); (d) request migration between two Engines in this process
+    (``_migration``). Rates are kept for the phase's own traces only."""
+    trace = OUT_DIR / "replay_trace.jsonl"
+    replay_trace(trace)
+    chaos = OUT_DIR / "replay_chaos_trace.jsonl"
+    chaos_trace(chaos)
+    embed = OUT_DIR / "replay_embed_trace.jsonl"
+    embed_trace(embed)
+    fix = ROOT / "tests" / "fixtures"
+    llama = REPLAY_LLAMA + REPLAY_ENGINE
+    runs = {}
+    for what, extra in (("plain", []), ("multi_tick_8",
+                                        ["--multi-tick", "8"])):
+        rep = run_replay(what, [trace] + llama + ["--expect-pallas"] + extra)
+        _replay_decoder_gates(what, rep)
+        runs[what] = rep
+    if runs["plain"]["tokens"] != runs["multi_tick_8"]["tokens"]:
+        fail("replay: --multi-tick 8 tokens differ from the plain run's")
+    if not runs["multi_tick_8"]["counters"].get(
+            "serving.multi_tick.dispatches"):
+        fail("replay: --multi-tick 8 fused no dispatch")
+    runs["chaos"] = rep = run_replay("chaos", [
+        chaos, "--chaos", "--expect-pallas", "--trace-out",
+        OUT_DIR / "replay_chaos_spans.json",
+        "--expect-complete-timelines"] + llama)
+    if not rep["chaos"]["total_injected"] or rep["leaked_pages"]:
+        fail(f"replay chaos: {rep['chaos']}")
+    runs["chaos_fixture"] = run_replay("chaos_fixture", [
+        fix / "serving_trace_chaos.jsonl", "--chaos", "--trace-out",
+        OUT_DIR / "replay_chaos_fixture_spans.json",
+        "--expect-complete-timelines"] + llama)
+    runs["embedding"] = rep = run_replay("embedding", [
+        embed, "--embedding"] + REPLAY_BERT + EMBED_SERVICE)
+    if rep["failed"] or not rep["launches"]["flash_fwd"] or \
+            rep["counters"].get("kernels.flash.fwd_plain") or \
+            rep["requests"] != EMBED_REQUESTS:
+        fail(f"replay embedding: failed {rep['failed']}, launches "
+             f"{rep['launches']}, counters {rep['counters']}")
+    runs["embedding_fixture"] = run_replay("embedding_fixture", [
+        fix / "serving_trace_embed.jsonl", "--embedding"] + REPLAY_BERT)
+    _replay_fixture_gates(runs)
+    migration = _migration(torch, mods, launches_of, reset_counts)
+    out = {}
+    for what, rep in runs.items():
+        hd = rep.get("host_device", {})
+        gate_only = what.endswith("_fixture")
+        out[what] = dict(
+            total_tokens=rep["total_tokens"], steps=rep["steps"],
+            requests=rep["requests"], launches=rep["launches"],
+            counters={k: v for k, v in rep["counters"].items()
+                      if k.startswith("kernels.")},
+            chaos=rep.get("chaos"), failed=rep["failed"],
+            process_s=rep["process_s"], gate_only=gate_only)
+        if gate_only:
+            print(f"replay {what} (gate only): {rep['requests']} requests, "
+                  f"{rep['total_tokens']} tokens, failed {rep['failed']}, "
+                  f"launches {rep['launches']}", flush=True)
+            continue
+        out[what].update(
+            tokens_per_sec=rep["tokens_per_sec"], wall_s=rep["wall_s"],
+            device_ms_per_tick=hd.get("device_ms_per_tick", {}).get("mean"),
+            host_ms_per_tick=hd.get("host_ms_per_tick", {}).get("mean"),
+            host_share=hd.get("host_share"),
+            fused_ticks=hd.get("multi_tick", {}).get("fused_ticks"),
+            latency_ms=rep.get("latency_ms"), pad_ratio=rep.get("pad_ratio"),
+            batch_fill=rep.get("batch_fill"))
+        print(f"replay {what}: {rep['requests']} requests, "
+              f"{rep['total_tokens']} tokens in {rep['wall_s']} s = "
+              f"{rep['tokens_per_sec']} tok/s, device "
+              f"{out[what]['device_ms_per_tick']} ms/tick, host "
+              f"{out[what]['host_ms_per_tick']} ms/tick, failed "
+              f"{rep['failed']}, launches {rep['launches']} "
+              f"({rep['process_s']:.1f} s of process) on {card}", flush=True)
+    out["migration"] = migration
+    print(f"replay migration: {MIGRATE_REQUESTS} requests, moved greedy "
+          f"{migration['moved_greedy']} and sampled "
+          f"{migration['moved_sampled']} after step {MIGRATE_AT}: every "
+          f"stream equals the uninterrupted run's, launches "
+          f"{migration['launches']}", flush=True)
+    return out
+
+
+# -- phase 21: conv, pooling, RNN, linalg and resize on the eager surface --
+
+#: (a) ResNet-50's stem and stage 1 at ImageNet's input, O1 bf16
+RESNET_BATCH, RESNET_XCHECK_BATCH = 32, 2
+#: (b) Zaremba et al.'s "large" PTB LSTM: 2 layers of 1500, vocab 10k,
+#: 35 steps, batch 20, dropout 0.65, SGD at 1.0 with the norm clipped at 10
+PTB = dict(vocab=10000, hidden=1500, layers=2, steps=35, batch=20,
+           dropout=0.65, lr=1.0, clip=10.0)
+PTB_XCHECK_BATCH = 2
+#: (c) batched linalg: 64 matrices of 256 x 256, f32
+LINALG_BATCH, LINALG_N = 64, 256
+#: (c)'s gate, LAPACK's own test ratio: a residual or reconstruction over
+#: the input's norm, and the card's eigen / singular values, determinants
+#: and solutions against the CPU's, each divided by n x eps(f32), below the
+#: threshold LAPACK's test suite passes at (THRESH 30 in its input files)
+LINALG_THRESH = 30
+
+
+def resnet_stem_stage1(nn):
+    """Conv2D 7x7/2 64 - BatchNorm2D - ReLU - MaxPool2D 3x3/2 - three
+    bottlenecks 64-64-256 (the first with a projection) -
+    AdaptiveAvgPool2D(1) - Linear(256, 1000)."""
+    class Bottleneck(nn.Layer):
+        def __init__(self, cin, mid, project):
+            super().__init__()
+            self.conv1 = nn.Conv2D(cin, mid, 1, bias_attr=False)
+            self.bn1 = nn.BatchNorm2D(mid)
+            self.conv2 = nn.Conv2D(mid, mid, 3, padding=1, bias_attr=False)
+            self.bn2 = nn.BatchNorm2D(mid)
+            self.conv3 = nn.Conv2D(mid, 4 * mid, 1, bias_attr=False)
+            self.bn3 = nn.BatchNorm2D(4 * mid)
+            self.relu = nn.ReLU()
+            self.project = nn.Sequential(
+                nn.Conv2D(cin, 4 * mid, 1, bias_attr=False),
+                nn.BatchNorm2D(4 * mid)) if project else None
+
+        def forward(self, x):
+            y = self.relu(self.bn1(self.conv1(x)))
+            y = self.relu(self.bn2(self.conv2(y)))
+            y = self.bn3(self.conv3(y))
+            skip = self.project(x) if self.project is not None else x
+            return self.relu(y + skip)
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.stem = nn.Sequential(
+                nn.Conv2D(3, 64, 7, stride=2, padding=3, bias_attr=False),
+                nn.BatchNorm2D(64), nn.ReLU(), nn.MaxPool2D(3, 2, 1))
+            self.stage1 = nn.Sequential(Bottleneck(64, 64, True),
+                                        Bottleneck(256, 64, False),
+                                        Bottleneck(256, 64, False))
+            self.pool = nn.AdaptiveAvgPool2D(1)
+            self.fc = nn.Linear(256, 1000)
+
+        def forward(self, x):
+            y = self.pool(self.stage1(self.stem(x)))
+            return self.fc(y.reshape([y.shape[0], -1]))
+    return Net()
+
+
+def rnn_lm(nn, mode, dropout):
+    """Embedding - dropout - 2-layer LSTM / GRU (inter-layer dropout) -
+    dropout - Linear to the vocabulary."""
+    class LM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(PTB["vocab"], PTB["hidden"])
+            self.drop = nn.Dropout(dropout)
+            rnn = nn.LSTM if mode == "lstm" else nn.GRU
+            self.rnn = rnn(PTB["hidden"], PTB["hidden"],
+                           num_layers=PTB["layers"], dropout=dropout)
+            self.out = nn.Linear(PTB["hidden"], PTB["vocab"])
+
+        def forward(self, ids):
+            y, _ = self.rnn(self.drop(self.emb(ids)))
+            return self.out(self.drop(y))
+    return LM()
+
+
+def _xcheck(paddle, build, inputs, loss_of, then=None):
+    """One f32 forward + backward of ``build()`` on the card and of a CPU
+    copy with the card's weights, on the same inputs: closeness's f32
+    gate on the loss and on every gradient. ``then(card_model,
+    card_grads)``, when given, runs before the card's model is freed and
+    returns more fields for the record."""
+    import torch
+    res = {}
+    paddle.set_device("gpu")
+    card_net = build()
+    for dev in ("gpu", "cpu"):
+        paddle.set_device(dev)
+        net = card_net
+        if dev == "cpu":
+            net = build()
+            net.set_state_dict(card_net.state_dict())
+        loss = loss_of(net, *[paddle.to_tensor(a) for a in inputs])
+        loss.backward()
+        res[dev] = (loss._data.detach().float().cpu(),
+                    {k: p.grad._data.float().cpu()
+                     for k, p in net.named_parameters()
+                     if p.grad is not None})
+    paddle.set_device("gpu")
+    loss_c = closeness(res["gpu"][0], res["cpu"][0])
+    grads = {k: closeness(g, res["cpu"][1][k])
+             for k, g in res["gpu"][1].items()}
+    worst = max(grads, key=lambda k: grads[k]["ratio"])
+    n_params = len(card_net.parameters())
+    rec = dict(loss_cuda=float(res["gpu"][0]), loss_cpu=float(res["cpu"][0]),
+               loss_ratio=loss_c["ratio"], grads=len(grads),
+               worst_grad=worst, worst_grad_ratio=grads[worst]["ratio"],
+               worst_grad_max_abs_err=grads[worst]["max_abs_err"])
+    if len(grads) != n_params or len(res["cpu"][1]) != n_params or \
+            loss_c["ratio"] > 1 or grads[worst]["ratio"] > 1:
+        fail(f"card-vs-CPU check off ({n_params} parameters): {rec}")
+    if then is not None:
+        rec.update(then(card_net, res["gpu"][1]))
+    del card_net
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _train_steps(torch, paddle, model, opt, batch_of, loss_of, amp):
+    """TRAIN_STEPS steps of one fixed batch: losses, per-step event and
+    host ms, peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ev_ms, host_ms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        if amp:
+            with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss = loss_of(model, *batch_of)
+        else:
+            loss = loss_of(model, *batch_of)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        e1.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ev_ms.append(e0.elapsed_time(e1))
+        losses.append(float(loss))
+    if not all(map(math.isfinite, losses)):
+        fail(f"training losses not finite: {losses}")
+    return dict(losses=losses, step_ms_events=statistics.median(ev_ms[1:]),
+                step_ms_host=statistics.median(host_ms[1:]),
+                first_step_ms=host_ms[0],
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _resnet(torch, paddle, card):
+    import numpy as np
+    from paddle_tpu_torch import nn
+    F = nn.functional
+
+    def loss_of(net, x, y):
+        return F.cross_entropy(net(x), y)
+    rng = np.random.default_rng(31)
+    xs = rng.standard_normal((RESNET_XCHECK_BATCH, 3, 224, 224)).astype(
+        np.float32)
+    ys = rng.integers(0, 1000, (RESNET_XCHECK_BATCH,)).astype(np.int64)
+    paddle.seed(3)
+    xcheck = _xcheck(paddle, lambda: resnet_stem_stage1(nn), [xs, ys],
+                     loss_of)
+    paddle.set_device("gpu")
+    paddle.seed(4)
+    net = resnet_stem_stage1(nn)
+    opt = paddle.optimizer.AdamW(learning_rate=1e-3,
+                                 parameters=net.parameters())
+    x = paddle.randn([RESNET_BATCH, 3, 224, 224])
+    y = paddle.to_tensor(rng.integers(0, 1000, (RESNET_BATCH,)))
+    rec = _train_steps(torch, paddle, net, opt, (x, y), loss_of, amp=True)
+    rec.update(images_per_s=RESNET_BATCH / rec["step_ms_events"] * 1e3,
+               params=sum(int(np.prod(p.shape)) for p in net.parameters()),
+               xcheck=xcheck)
+    print(f"resnet-50 stem + stage 1: {rec['params'] / 1e6:.2f} M params, "
+          f"batch {RESNET_BATCH}x3x224x224 O1 bf16 AdamW: losses "
+          f"{[round(v, 4) for v in rec['losses']]}, "
+          f"{rec['step_ms_events']:.2f} ms/step (events; host "
+          f"{rec['step_ms_host']:.2f}) = {rec['images_per_s']:.0f} images/s, "
+          f"peak {rec['peak_gb']:.2f} GB on {card}; card vs CPU (f32, batch "
+          f"{RESNET_XCHECK_BATCH}): loss ratio {xcheck['loss_ratio']:.3f}, "
+          f"{xcheck['grads']} gradients, worst {xcheck['worst_grad']} ratio "
+          f"{xcheck['worst_grad_ratio']:.3f}", flush=True)
+    del net, opt
+    return rec
+
+
+def _ptb(torch, paddle, card, mode):
+    import numpy as np
+    from paddle_tpu_torch import nn
+    F = nn.functional
+
+    def loss_of(net, ids, labels):
+        logits = net(ids)
+        return F.cross_entropy(logits.reshape([-1, PTB["vocab"]]),
+                               labels.reshape([-1]))
+    rng = np.random.default_rng(32)
+
+    def batch(b):
+        seq = rng.integers(0, PTB["vocab"], (b, PTB["steps"] + 1))
+        return seq[:, :-1].astype(np.int64), seq[:, 1:].astype(np.int64)
+    paddle.seed(5)
+    xcheck = _xcheck(paddle, lambda: rnn_lm(nn, mode, 0.0),
+                     list(batch(PTB_XCHECK_BATCH)), loss_of)
+    paddle.set_device("gpu")
+    paddle.seed(6)
+    net = rnn_lm(nn, mode, PTB["dropout"])
+    opt = paddle.optimizer.SGD(
+        learning_rate=PTB["lr"], parameters=net.parameters(),
+        grad_clip=nn.ClipGradByGlobalNorm(PTB["clip"]))
+    ids, labels = (paddle.to_tensor(a) for a in batch(PTB["batch"]))
+    rec = _train_steps(torch, paddle, net, opt, (ids, labels), loss_of,
+                       amp=False)
+    tokens = PTB["batch"] * PTB["steps"]
+    rec.update(tokens_per_s=tokens / rec["step_ms_events"] * 1e3,
+               params=sum(int(np.prod(p.shape)) for p in net.parameters()),
+               xcheck=xcheck)
+    print(f"{mode} language model (PTB large: {PTB}): "
+          f"{rec['params'] / 1e6:.1f} M params, f32: losses "
+          f"{[round(v, 4) for v in rec['losses']]}, "
+          f"{rec['step_ms_events']:.2f} ms/step (events; host "
+          f"{rec['step_ms_host']:.2f}) = {rec['tokens_per_s']:.0f} tokens/s, "
+          f"peak {rec['peak_gb']:.2f} GB on {card}; card vs CPU (f32, "
+          f"dropout 0, batch {PTB_XCHECK_BATCH}): loss ratio "
+          f"{xcheck['loss_ratio']:.3f}, worst {xcheck['worst_grad']} ratio "
+          f"{xcheck['worst_grad_ratio']:.3f}", flush=True)
+    del net, opt
+    return rec
+
+
+def _rel(t, ref):
+    return float((t - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def _linalg(torch, paddle, card):
+    """(c): every op on the card at LINALG_BATCH x 256 x 256 f32, held by
+    reconstruction / residual (relative to the input's norm) and its
+    values against the same op on the CPU."""
+    from paddle_tpu_torch import linalg as L
+    g = torch.Generator(device="cpu").manual_seed(33)
+    n = LINALG_N
+    a_cpu = torch.randn(LINALG_BATCH, n, n, generator=g)
+    spd_cpu = a_cpu @ a_cpu.mT / n + torch.eye(n)
+    near_i = torch.eye(n) + 0.02 * a_cpu / n ** 0.5
+    b_cpu = torch.randn(LINALG_BATCH, n, 4, generator=g)
+    paddle.set_device("gpu")
+    a, spd, ni, b = (paddle.to_tensor(t.cuda()) for t in
+                     (a_cpu, spd_cpu, near_i, b_cpu))
+    eye = torch.eye(n, device="cuda")
+    res, ms = {}, {}
+
+    def timed(name, fn):
+        out = fn()
+        ms[name] = cuda_ms(fn, iters=3, warmup=1)
+        return out
+    Lc = timed("cholesky", lambda: L.cholesky(spd))._data
+    res["cholesky"] = _rel(Lc @ Lc.mT, spd._data)
+    q, r = (t._data for t in timed("qr", lambda: L.qr(a)))
+    res["qr"] = max(_rel(q @ r, a._data), _rel(q.mT @ q, eye))
+    u, s, vh = (t._data for t in timed("svd", lambda: L.svd(a)))
+    res["svd"] = _rel((u * s[..., None, :]) @ vh, a._data)
+    w, v = (t._data for t in timed("eigh", lambda: L.eigh(spd)))
+    res["eigh"] = _rel((v * w[..., None, :]) @ v.mT, spd._data)
+    x = timed("solve", lambda: L.solve(spd, b))._data
+    res["solve"] = _rel(spd._data @ x, b._data)
+    # least squares on the (full-rank) SPD batch: the optimum solves it
+    sol = timed("lstsq", lambda: L.lstsq(spd, b))[0]._data
+    res["lstsq"] = _rel(spd._data @ sol, b._data)
+    inv = timed("inv", lambda: L.inv(spd))._data
+    res["inv"] = _rel(spd._data @ inv, eye.expand_as(inv))
+    det = timed("det", lambda: L.det(ni))._data
+    agree = dict(
+        eigh=_rel(w.cpu(), torch.linalg.eigvalsh(spd_cpu)),
+        svd=_rel(s.cpu(), torch.linalg.svdvals(a_cpu)),
+        det=_rel(det.cpu(), torch.linalg.det(near_i)),
+        solve=_rel(x.cpu(), torch.linalg.solve(spd_cpu, b_cpu)),
+        lstsq=_rel(sol.cpu(), torch.linalg.solve(spd_cpu, b_cpu)))
+    unit = n * torch.finfo(torch.float32).eps
+    ratio = {k: v / unit for k, v in {**res, **{
+        f"{k}_vs_cpu": v for k, v in agree.items()}}.items()}
+    rec = dict(batch=LINALG_BATCH, n=n, residual=res, cpu_agreement=agree,
+               ratio=ratio, ms=ms, thresh=LINALG_THRESH)
+    print(f"linalg on the card, {LINALG_BATCH} x {n} x {n} f32: residuals "
+          f"{ {k: f'{v:.1e}' for k, v in res.items()} }, CPU agreement "
+          f"{ {k: f'{v:.1e}' for k, v in agree.items()} }, worst / (n eps) "
+          f"{max(ratio.values()):.2f} ({max(ratio, key=ratio.get)}; pass < "
+          f"{LINALG_THRESH}), ms "
+          f"{ {k: round(v, 3) for k, v in ms.items()} } on {card}",
+          flush=True)
+    if not max(ratio.values()) < LINALG_THRESH:
+        fail(f"linalg off: {rec}")
+    return rec
+
+
+def _resize(torch, paddle, card):
+    """(d): interpolate in every mode, down and up, grid_sample and fold on
+    the card against the CPU, within closeness's f32 gate."""
+    from paddle_tpu_torch.nn import functional as F
+    g = torch.Generator(device="cpu").manual_seed(34)
+    x2 = torch.randn(8, 16, 64, 64, generator=g)
+    x1 = torch.randn(8, 16, 100, generator=g)
+    x3 = torch.randn(2, 4, 16, 16, 16, generator=g)
+    theta = torch.randn(8, 2, 3, generator=g) * 0.3 + torch.tensor(
+        [[1.0, 0, 0], [0, 1.0, 0]])
+    cases = {}
+    for mode in ("nearest", "bilinear", "bicubic", "area"):
+        for size in ((23, 29), (97, 111)):
+            cases[f"{mode}_{size[0]}x{size[1]}"] = (
+                lambda t, m=mode, s=size: F.interpolate(t, size=list(s),
+                                                        mode=m), x2)
+    cases["linear_down"] = (lambda t: F.interpolate(
+        t, size=[37], mode="linear", data_format="NCW"), x1)
+    cases["linear_up"] = (lambda t: F.interpolate(
+        t, size=[251], mode="linear", data_format="NCW"), x1)
+    cases["trilinear_up"] = (lambda t: F.interpolate(
+        t, size=[24, 20, 32], mode="trilinear", data_format="NCDHW"), x3)
+    cases["trilinear_down"] = (lambda t: F.interpolate(
+        t, size=[7, 9, 5], mode="trilinear", data_format="NCDHW"), x3)
+    for pad in ("zeros", "border", "reflection"):
+        cases[f"grid_sample_{pad}"] = (
+            lambda t, p=pad: F.grid_sample(t, F.affine_grid(
+                paddle.to_tensor(theta.to(t._data.device)), [8, 16, 48, 56],
+                align_corners=False), padding_mode=p), x2)
+    cols = F.unfold(paddle.to_tensor(x2), [3, 3], strides=2, paddings=1)
+    cols_cpu = cols._data.detach().cpu()
+    cases["fold"] = (lambda t: F.fold(t, [64, 64], [3, 3], strides=2,
+                                      paddings=1), cols_cpu)
+    worst = {}
+    for name, (fn, inp) in cases.items():
+        outs = {}
+        for dev in ("gpu", "cpu"):
+            paddle.set_device(dev)
+            outs[dev] = fn(paddle.to_tensor(inp))._data.float().cpu()
+        worst[name] = closeness(outs["gpu"], outs["cpu"])["ratio"]
+    paddle.set_device("gpu")
+    bad = {k: v for k, v in worst.items() if not v <= 1}
+    print(f"resize / grid / fold on the card vs the CPU: {len(worst)} "
+          f"cases, worst ratio {max(worst.values()):.3f} "
+          f"({max(worst, key=worst.get)}); pass <= 1", flush=True)
+    if bad:
+        fail(f"resize cases off the CPU: {bad}")
+    return dict(cases=worst)
+
+
+def eager_new_surface(torch, card):
+    """Phase 21: the eager surface's new modules on the card
+    (``set_device("gpu")``): (a) ResNet-50's stem and stage 1, (b) PTB
+    large LSTM and GRU language models, (c) batched linalg, (d) resize,
+    grid sampling and fold, each against the CPU."""
+    import paddle_tpu_torch as paddle
+    out = dict(resnet=_resnet(torch, paddle, card))
+    torch.cuda.empty_cache()
+    for mode in ("lstm", "gru"):
+        out[mode] = _ptb(torch, paddle, card, mode)
+        torch.cuda.empty_cache()
+    out["linalg"] = _linalg(torch, paddle, card)
+    out["resize"] = _resize(torch, paddle, card)
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 6b: the serving accelerators ------------------------------------
@@ -4050,8 +4719,7 @@ def one_shot_decoding(torch, mods, model, engine_ticks, launches_of,
         fail(f"one-shot decoding syncs grow with the length (or the count "
              f"misses known syncs): {syncs}, control {control}")
     # (i) the incubate paged_attention op at phase 3's LLaMA geometry
-    b, h, hkv, d, _, longest = PAGED_SERVING["llama"]
-    bs, nblk = 128, 3
+    b, h, hkv, d, _, longest, bs, nblk = PAGED_SERVING["llama"]
     ctx = torch.randint(1, longest + 1, (b,), generator=g, device="cuda")
     ctx[3] = ctx[11] = 0
     ctx[0] = longest
@@ -4397,8 +5065,21 @@ def main():
     eager_xcheck = eager_cross_check(torch, paddle, ep)
     eager = eager_train_main_path(torch, paddle, ep, dispatch, launches_of,
                                   reset_counts, card)
+    torch.cuda.empty_cache()
+
+    # 20. the replay tool on the card (each run a subprocess whose counts
+    # start at 0 and come back in its report) and request migration
+    # (counted around it); 21. the new eager modules against the CPU
+    replay = replay_main_path(torch, mods, launches_of, reset_counts, card)
+    surface = eager_new_surface(torch, card)
 
     src = "paddle_tpu_torch/csrc/"
+
+    def replay_by_path(kernel):
+        """Phase 20's launches of ``kernel``: each replay subprocess's
+        report and the migration's count."""
+        return {f"replay_{w}": r["launches"][kernel]
+                for w, r in replay.items() if r["launches"][kernel]}
 
     def accel_by_path(kernel):
         return {p: l[kernel] for p, l in accel_paths.items()}
@@ -4422,7 +5103,9 @@ def main():
                 **{f"recipe_{g}": r for g, r in recipe["runs"].items()}}
     f32_paths = {"serving": dict(counters=counters),
                  "encoder_serving": enc_serving,
-                 "one_shot_padded": one_shot["one_shot_padded"]}
+                 "one_shot_padded": one_shot["one_shot_padded"],
+                 "replay_embedding": replay["embedding"],
+                 "replay_embedding_fixture": replay["embedding_fixture"]}
 
     def by_path(paths, route):
         return {p: flash_routes(r["counters"])[route]
@@ -4451,10 +5134,12 @@ def main():
         dict(name="probe", route="cuda", source=src + "common.cuh",
              replaces="paddle_tpu/kernels/flash_attention.py:105",
              launches=launches["probe"] + ms_l["probe"] + sum(
-                 accel_by_path("probe").values()),
+                 accel_by_path("probe").values()) + sum(
+                 replay_by_path("probe").values()),
              launches_by_path={"serving": launches["probe"],
                                "moe_serving": ms_l["probe"],
-                               **accel_by_path("probe")},
+                               **accel_by_path("probe"),
+                               **replay_by_path("probe")},
              cases=probe_cases,
              **{k: probe_cases[0][k] for k in (
                  "max_abs_err", "tol", "ratio", "ms", "plain_ms",
@@ -4464,16 +5149,22 @@ def main():
              source=src + "paged_decode.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:278",
              launches=launches["paged_decode"] + ms_l["paged_decode"] + sum(
-                 accel_by_path("paged_decode").values()),
+                 accel_by_path("paged_decode").values()) + sum(
+                 replay_by_path("paged_decode").values()),
              launches_by_path={"serving": launches["paged_decode"],
                                "moe_serving": ms_l["paged_decode"],
-                               **accel_by_path("paged_decode")},
+                               **accel_by_path("paged_decode"),
+                               **replay_by_path("paged_decode")},
              launches_split={"serving": decode_routes["split"],
                              "moe_serving": moe_serving[
                                  "paged_decode_routes"]["split"],
                              **{p: int(r["counters"].get(
                                  "kernels.decode.paged_cuda_split", 0))
-                                for p, r in accel.items()}},
+                                for p, r in accel.items()},
+                             **{f"replay_{w}": int(r["counters"].get(
+                                 "kernels.decode.paged_cuda_split", 0))
+                                for w, r in replay.items()
+                                if "counters" in r}},
              moe_serving_case={k: moe_paged[k] for k in (
                  "case", "max_abs_err", "ratio", "wrapper_ratio", "ms",
                  "pool_copies", "wrapper_ms", "plain_ms", "bound_ms",
@@ -4596,8 +5287,10 @@ def main():
     kernels.append(dict(
         name="probe_minor64", route="cuda", source=src + "flash_fwd.cu",
         replaces="paddle_tpu/kernels/flash_attention.py:801",
-        launches=es_l["probe_minor64"],
-        launches_by_path={"encoder_serving": es_l["probe_minor64"]},
+        launches=es_l["probe_minor64"] + sum(
+            replay_by_path("probe_minor64").values()),
+        launches_by_path={"encoder_serving": es_l["probe_minor64"],
+                          **replay_by_path("probe_minor64")},
         cases=minor64_cases,
         note="library_ms times the pair of torch.matmul calls (timed only); "
              "the plain version is the same pair",
@@ -4728,6 +5421,7 @@ def main():
                   grad_scaler=scaler, pretrain_recipe=recipe,
                   one_shot_decoding=one_shot,
                   eager_cross_check=eager_xcheck, eager_training=eager,
+                  replay=replay, eager_new_surface=surface,
                   kernels=kernels)
     (OUT_DIR / "result.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -22,9 +22,15 @@ The eager dygraph surface is the paddle API over torch:
 is a torch function dispatched through ``core.dispatch.run_op`` (AMP
 cast by op name, NaN check), and torch autograd is the tape. Tensors,
 parameters and the creation ops land on the current place, ``cuda:0``
-unless ``set_device("cpu")`` was called; without a GPU they raise. The
-names of the JAX package's top level whose modules are not ported yet
-(``linalg``, ``ops.inplace``, conv / pooling / rnn, ``io``, ``vision``,
+unless ``set_device("cpu")`` was called; without a GPU they raise.
+``linalg`` is a real module, the ``*_`` in-place variants are top-level
+names and ``Tensor`` methods, and ``nn`` holds conv, pooling, the resize
+/ fold / shuffle / grid functionals and the recurrent layers. ``jit``,
+``inference``, ``text``, ``incubate``, ``regularizer``, ``quantization``
+and ``distributed`` resolve as attributes on first use (a module
+``__getattr__``: importing them here would pull the serving and model
+stacks into every ``import``). The names of the JAX package's top level
+whose modules are not ported yet (``io``, ``vision``, ``fft``,
 ``jit.to_static``, ...) are absent.
 
 The port's models and the serving ``Engine`` take raw torch tensors:
@@ -65,7 +71,10 @@ from .ops.manipulation import *  # noqa: F401,F403
 from .ops.logic import *  # noqa: F401,F403
 from .ops.search import *  # noqa: F401,F403
 from .ops.stat import *  # noqa: F401,F403
+from . import linalg  # real module: import paddle_tpu_torch.linalg works
+from .ops.linalg import cdist, einsum, matrix_transpose, norm, pdist  # noqa: F401
 from .ops.math import bmm, dot, matmul, mm, mv, pow  # noqa: F401
+from .ops.inplace import *  # noqa: F401,F403
 from . import autograd
 from .autograd import grad
 from . import amp
@@ -88,3 +97,17 @@ set_grad_enabled = _torch.set_grad_enabled
 
 def in_dynamic_mode():
     return True
+
+
+#: subpackages resolved on first attribute access (``paddle.jit``, ...)
+_LAZY_SUBPACKAGES = ("jit", "inference", "text", "incubate", "regularizer",
+                     "quantization", "distributed")
+
+
+def __getattr__(name):
+    if name in _LAZY_SUBPACKAGES:
+        import importlib
+        mod = importlib.import_module(__name__ + "." + name)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

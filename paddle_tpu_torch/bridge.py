@@ -134,8 +134,29 @@ adam_state_to_numpy = optimizer_state_to_numpy
 def layer_state_from_jax(jax_layer) -> Dict[str, np.ndarray]:
     """{structured name: array} of a JAX-package ``nn.Layer``'s state dict
     (parameters and persistable buffers), for the eager surface's
-    ``Layer.set_state_dict``. Both surfaces keep paddle's [in, out]
-    Linear layout, so nothing is transposed. Reads the layer through its
-    own methods; imports nothing of the JAX package."""
+    ``Layer.set_state_dict``. Reads the layer through its own methods;
+    imports nothing of the JAX package.
+
+    The eager surface keeps the JAX layers' names and layouts, so every
+    entry crosses as it is:
+
+    - Linear ``weight`` [in, out] (paddle's layout) and ``bias``;
+    - Conv*D ``weight`` [out, in/groups, *k], Conv*DTranspose ``weight``
+      [in, out/groups, *k] (torch's layouts too), ``bias`` [out];
+    - BatchNorm*D ``weight``, ``bias`` and the buffers ``_mean`` /
+      ``_variance`` [C];
+    - SimpleRNN / LSTM / GRU ``weight_ih_l{k}`` [G*H, in], ``weight_hh_l{k}``
+      [G*H, H], ``bias_ih_l{k}`` / ``bias_hh_l{k}`` [G*H], with
+      ``_reverse`` for the backward direction (G 1, 4 or 3; the gate
+      orders are torch's), and the cells' ``weight_ih`` / ``weight_hh`` /
+      ``bias_ih`` / ``bias_hh``."""
     return {name: np.asarray(t.numpy())
             for name, t in jax_layer.state_dict().items()}
+
+
+def layer_state_to_numpy(layer) -> Dict[str, np.ndarray]:
+    """The inverse of layer_state_from_jax: an eager-surface ``Layer``'s
+    state dict as {structured name: array}, for a JAX-package layer's
+    ``set_state_dict`` (bfloat16 entries as float32)."""
+    return {name: _numpy_of(t._data)
+            for name, t in layer.state_dict().items()}

@@ -1411,6 +1411,60 @@ class Engine:
                 if victim is req:
                     return None
 
+    def extract_request(self, req_id: int,
+                        device_key: bool = False) -> Optional[Request]:
+        """Remove a live request from this engine whole — slot cleared,
+        pages freed, dropped from the queue and the request table — and
+        return it (prompt, tokens generated so far, sampling params, its
+        generator), ready for re-admission elsewhere through the
+        preemption / resume-prefill path: another Engine over the same
+        weights takes it in with ``readmit``, and the token stream
+        continues bit for bit, greedy and sampled.
+        The state becomes PREEMPTED when tokens were generated (a resume
+        prefill rebuilds the cache from them), else WAITING; a MIGRATING
+        span opens, closed by the destination's next span. Returns None
+        for unknown or retired ids.
+
+        Every step harvests its tokens before it returns, so between
+        steps the generator has made exactly one draw per generated token
+        of a sampled request (a speculative tick resets it to its
+        accepted draws), and it leaves in that state. ``device_key`` is
+        the JAX engine's switch for fetching the rng key from the device;
+        the generator lives on the request here, so only False, the
+        caller-sets-the-state contract, is taken."""
+        if device_key:
+            raise ValueError(
+                "device_key=True reads a device-side rng key; the port "
+                "keeps each request's torch.Generator on the request: "
+                "pass device_key=False")
+        req = self.requests.get(int(req_id))
+        if req is None or req.state in (FINISHED, FAILED):
+            return None
+        self._clear_slot(req)
+        try:
+            self._waiting.remove(req)
+        except ValueError:
+            pass
+        self.requests.pop(req.req_id, None)
+        req.state = PREEMPTED if req.generated else WAITING
+        # the open span (QUEUED / PREFILL / DECODE / PREEMPTED) closes
+        # here; origin stays this engine's label
+        self._open_span(req, tracing.MIGRATING)
+        return req
+
+    def readmit(self, req: Request, waited_steps: int = 0) -> None:
+        """Take in a request another engine gave up whole
+        (``extract_request``, or a snapshot's entry): it joins the back of
+        the waiting queue and the request table, with ``waited_steps`` of
+        its queue-age budget already spent, and resumes through the
+        preemption / resume-prefill path."""
+        if req.req_id in self.requests:
+            raise ValueError(f"request id {req.req_id} is already live on "
+                             f"this engine")
+        req.queued_step = self._steps - int(waited_steps)
+        self.requests[req.req_id] = req
+        self._waiting.append(req)
+
     def _preempt(self, req: Request):
         """Evict back to the front of the waiting queue: pages freed,
         tokens and generator kept — a resume prefill rebuilds the

@@ -460,13 +460,11 @@ def restore_engine(eng, snap: Dict[str, object],
             preemptions=int(ent.get("preemptions", 0)),
             retries=int(ent.get("retries", 0)),
             arrival_t=now - float(ent.get("elapsed_ms", 0.0)) / 1e3,
-            queued_step=eng._steps - int(ent.get("waited_steps", 0)),
         )
         req.spans = tracing.restore_spans(
             ent.get("spans"), req.arrival_t * 1e3, now * 1e3,
             eng.label, bool(req.generated))
-        eng.requests[req.req_id] = req
-        eng._waiting.append(req)
+        eng.readmit(req, waited_steps=int(ent.get("waited_steps", 0)))
     eng._next_id = max(eng._next_id, int(snap.get("next_id", 0)))
     eng._admit_counter = max(eng._admit_counter,
                              int(snap.get("admit_counter", 0)))

@@ -291,6 +291,20 @@ def snapshot() -> Dict[str, float]:
     return out
 
 
+def histograms() -> Dict[str, Dict[str, float]]:
+    """Every histogram that holds a value: {name: count, p50, p90, p99,
+    mean, min, max} (the JAX monitor's ``snapshot(detail=True)`` entries
+    for histograms)."""
+    out: Dict[str, Dict[str, float]] = {}
+    for name, h in sorted(_histograms.items()):
+        if h.count:
+            out[name] = {"count": h.count, "p50": h.percentile(50),
+                         "p90": h.percentile(90), "p99": h.percentile(99),
+                         "mean": h.sum / h.count, "min": h._min,
+                         "max": h._max}
+    return out
+
+
 def reset():
     """Zero every registered counter, gauge and histogram (the keys
     survive, so held references stay valid)."""

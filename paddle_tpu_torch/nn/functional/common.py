@@ -2,14 +2,24 @@
 ``paddle_tpu/nn/functional/common.py``).
 
 Surface Tensors go through ``run_op``; raw torch tensors take the same
-body and come out raw. The vision functionals of the JAX module
-(interpolate / upsample, unfold / fold, pixel_shuffle, channel_shuffle,
-affine_grid / grid_sample) come with a later slice.
+body and come out raw.
+
+``interpolate`` computes what the JAX package's ``jax.image.resize``
+computes, not what torch's ``F.interpolate`` does: every resized axis is
+a matmul by the scale-and-translate weight matrix ``jax.image`` builds
+(half-pixel centres; a triangle kernel for the linear modes and "area",
+Keys cubic with a = -0.5 for "bicubic", both widened by the scale when
+downsampling, i.e. antialiased), and "nearest" picks
+floor((i + 0.5) in / out). ``align_corners`` and ``align_mode`` are
+taken and ignored, as the JAX package ignores them. ``unfold`` / ``fold``
+pad first (the JAX paddings may be asymmetric) and then run torch's
+im2col / col2im; ``grid_sample`` is the JAX gather, corner by corner.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as TF
 
 from ...core import random as random_mod
 from ...core.dispatch import surface, unwrap, wrap
@@ -267,3 +277,279 @@ def sparse_attention(query, key, value, sparse_csr_offset,
     return surface("sparse_attention", fn, [
         query, key, value, sparse_csr_offset, sparse_csr_columns,
         key_padding_mask, attn_mask])
+
+
+# ---- resize / fold / shuffle / grid ----------------------------------------
+
+def _interp_size(shape_sp, size, scale_factor):
+    if size is not None:
+        return [int(unwrap(s)) for s in size]
+    if isinstance(scale_factor, (int, float)):
+        scale_factor = [scale_factor] * len(shape_sp)
+    return [int(np.floor(s * f)) for s, f in zip(shape_sp, scale_factor)]
+
+
+def _triangle(x):
+    return np.maximum(0.0, 1.0 - np.abs(x))
+
+
+def _keys_cubic(x):
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+def _resize_weights(in_size, out_size, kernel):
+    """[in, out] resampling matrix of ``jax.image.resize`` along one axis
+    (``compute_weight_mat`` with translation 0 and antialiasing), in f64."""
+    inv_scale = in_size / out_size
+    kernel_scale = max(inv_scale, 1.0)
+    sample_f = (np.arange(out_size) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample_f[None, :] - np.arange(in_size)[:, None]) \
+        / kernel_scale
+    w = kernel(x)
+    tot = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(tot) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(tot != 0, tot, 1), 0.0)
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return np.where(inside[None, :], w, 0.0)
+
+
+def _nearest_index(in_size, out_size):
+    """``jax.image``'s nearest source rows: floor((i + 0.5) in / out) in
+    f32."""
+    off = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) \
+        * np.float32(in_size) / np.float32(out_size)
+    return np.floor(off.astype(np.float32)).astype(np.int64)
+
+
+_RESIZE_KERNELS = {"bilinear": _triangle, "area": _triangle,
+                   "trilinear": _triangle, "linear": _triangle,
+                   "bicubic": _keys_cubic}
+
+
+def _resize(v, sp_axes, out_sp, mode):
+    out = v if v.is_floating_point() or mode == "nearest" else v.float()
+    for ax, n in zip(sp_axes, out_sp):
+        m = out.shape[ax]
+        if m == n:
+            continue
+        if mode == "nearest":
+            idx = torch.as_tensor(_nearest_index(m, n), device=v.device)
+            out = out.index_select(ax, idx)
+            continue
+        w = torch.as_tensor(_resize_weights(m, n, _RESIZE_KERNELS[mode]),
+                            dtype=out.dtype, device=v.device)
+        out = torch.movedim(torch.movedim(out, ax, -1) @ w, -1, ax)
+    return out.to(v.dtype)
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, align_mode=0, data_format="NCHW",
+                name=None):
+    """Resize the spatial dims as ``jax.image.resize`` does (modes
+    nearest / linear / bilinear / trilinear / bicubic / area; see the
+    module docstring). ``align_corners`` / ``align_mode`` are ignored."""
+    if size is None and scale_factor is None:
+        raise ValueError("one of size / scale_factor must be set")
+    if mode not in _RESIZE_KERNELS and mode != "nearest":
+        raise ValueError(f"unknown interpolate mode {mode!r}")
+    shape = unwrap(x).shape
+    channel_last = data_format in ("NHWC", "NDHWC", "NWC")
+    nd = len(shape) - 2
+    sp_axes = list(range(1, 1 + nd)) if channel_last \
+        else list(range(2, 2 + nd))
+    out_sp = _interp_size([shape[i] for i in sp_axes], size, scale_factor)
+    return surface("interpolate",
+                   lambda v: _resize(v, sp_axes, out_sp, mode), [x])
+
+
+def upsample(x, size=None, scale_factor=None, mode="nearest",
+             align_corners=False, align_mode=0, data_format="NCHW",
+             name=None):
+    return interpolate(x, size, scale_factor, mode, align_corners,
+                       align_mode, data_format)
+
+
+def nearest_interp(x, size=None, scale_factor=None, data_format="NCHW",
+                   **kw):
+    return interpolate(x, size=size, scale_factor=scale_factor,
+                       mode="nearest", data_format=data_format)
+
+
+def bilinear_interp(x, size=None, scale_factor=None, data_format="NCHW",
+                    align_corners=False, **kw):
+    return interpolate(x, size=size, scale_factor=scale_factor,
+                       mode="bilinear", align_corners=align_corners,
+                       data_format=data_format)
+
+
+def bicubic_interp(x, size=None, scale_factor=None, data_format="NCHW",
+                   align_corners=False, **kw):
+    return interpolate(x, size=size, scale_factor=scale_factor,
+                       mode="bicubic", align_corners=align_corners,
+                       data_format=data_format)
+
+
+def linear_interp(x, size=None, scale_factor=None, data_format="NCW",
+                  align_corners=False, **kw):
+    return interpolate(x, size=size, scale_factor=scale_factor,
+                       mode="linear", align_corners=align_corners,
+                       data_format=data_format)
+
+
+def trilinear_interp(x, size=None, scale_factor=None, data_format="NCDHW",
+                     align_corners=False, **kw):
+    return interpolate(x, size=size, scale_factor=scale_factor,
+                       mode="trilinear", align_corners=align_corners,
+                       data_format=data_format)
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _fold_pads(p):
+    """paddle's fold / unfold paddings -> (top, bottom, left, right)."""
+    if isinstance(p, int):
+        return p, p, p, p
+    if len(p) == 2:
+        return p[0], p[0], p[1], p[1]
+    pt, pl, pb, pr = p
+    return pt, pb, pl, pr
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """im2col: NCHW -> [N, C*kh*kw, L], channel-major rows."""
+    k, s, d = _pair(kernel_sizes), _pair(strides), _pair(dilations)
+    pt, pb, pl, pr = _fold_pads(paddings)
+
+    def fn(a):
+        a = TF.pad(a, [pl, pr, pt, pb])
+        return TF.unfold(a, k, dilation=d, padding=0, stride=s)
+    return surface("unfold", fn, [x])
+
+
+def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0, dilations=1,
+         name=None):
+    """col2im, the adjoint of unfold: overlapping patches add."""
+    (oh, ow), k = _pair(output_sizes), _pair(kernel_sizes)
+    s, d = _pair(strides), _pair(dilations)
+    pt, pb, pl, pr = _fold_pads(paddings)
+
+    def fn(cols):
+        hp, wp = oh + pt + pb, ow + pl + pr
+        out = TF.fold(cols, (hp, wp), k, dilation=d, padding=0, stride=s)
+        return out[:, :, pt:hp - pb, pl:wp - pr]
+    return surface("fold", fn, [x])
+
+
+def pixel_shuffle(x, upscale_factor, data_format="NCHW", name=None):
+    r = upscale_factor
+
+    def fn(a):
+        if data_format == "NCHW":
+            n, c, h, w = a.shape
+            a = a.reshape(n, c // (r * r), r, r, h, w)
+            return a.permute(0, 1, 4, 2, 5, 3).reshape(
+                n, c // (r * r), h * r, w * r)
+        n, h, w, c = a.shape
+        a = a.reshape(n, h, w, r, r, c // (r * r))
+        return a.permute(0, 1, 3, 2, 4, 5).reshape(
+            n, h * r, w * r, c // (r * r))
+    return surface("pixel_shuffle", fn, [x])
+
+
+def pixel_unshuffle(x, downscale_factor, data_format="NCHW", name=None):
+    r = downscale_factor
+
+    def fn(a):
+        if data_format == "NCHW":
+            n, c, h, w = a.shape
+            a = a.reshape(n, c, h // r, r, w // r, r)
+            return a.permute(0, 1, 3, 5, 2, 4).reshape(
+                n, c * r * r, h // r, w // r)
+        n, h, w, c = a.shape
+        a = a.reshape(n, h // r, r, w // r, r, c)
+        return a.permute(0, 1, 3, 2, 4, 5).reshape(
+            n, h // r, w // r, c * r * r)
+    return surface("pixel_unshuffle", fn, [x])
+
+
+def channel_shuffle(x, groups, data_format="NCHW", name=None):
+    def fn(a):
+        if data_format == "NCHW":
+            n, c, h, w = a.shape
+            a = a.reshape(n, groups, c // groups, h, w)
+            return a.transpose(1, 2).reshape(n, c, h, w)
+        n, h, w, c = a.shape
+        a = a.reshape(n, h, w, groups, c // groups)
+        return a.transpose(3, 4).reshape(n, h, w, c)
+    return surface("channel_shuffle", fn, [x])
+
+
+def affine_grid(theta, out_shape, align_corners=True, name=None):
+    """2-D affine sampling grid [n, h, w, 2] (x, y) in [-1, 1]."""
+    n, h, w = (int(unwrap(out_shape[0])), int(unwrap(out_shape[-2])),
+               int(unwrap(out_shape[-1])))
+
+    def fn(th):
+        kw = dict(dtype=th.dtype, device=th.device)
+        if align_corners:
+            ys = torch.linspace(-1.0, 1.0, h, **kw)
+            xs = torch.linspace(-1.0, 1.0, w, **kw)
+        else:
+            ys = (torch.arange(h, **kw) * 2 + 1) / h - 1
+            xs = (torch.arange(w, **kw) * 2 + 1) / w - 1
+        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+        base = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)
+        return torch.einsum("hwk,nck->nhwc", base, th)
+    return surface("affine_grid", fn, [theta])
+
+
+def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True, name=None):
+    """2-D grid sampling of an NCHW input at grid [n, ho, wo, 2] (x, y in
+    [-1, 1]): the JAX package's four-corner gather (nearest rounds);
+    "border" and "zeros" clamp the index, "zeros" then zeroes a corner
+    outside the input, "reflection" reflects it."""
+    def fn(a, g):
+        n, c, h, w = a.shape
+        gx, gy = g[..., 0], g[..., 1]
+        if align_corners:
+            fx = (gx + 1) * (w - 1) / 2
+            fy = (gy + 1) * (h - 1) / 2
+        else:
+            fx = ((gx + 1) * w - 1) / 2
+            fy = ((gy + 1) * h - 1) / 2
+        bidx = torch.arange(n, device=a.device)[:, None, None]
+
+        def reflect(i, size):
+            period = 2 * max(size - 1, 1)
+            i = torch.abs(i) % period
+            return torch.where(i >= size, period - i, i)
+
+        def gather(ix, iy):
+            if padding_mode == "reflection":
+                ixc, iyc = reflect(ix, w), reflect(iy, h)
+            else:
+                ixc, iyc = ix.clamp(0, w - 1), iy.clamp(0, h - 1)
+            vals = a[bidx, :, iyc, ixc]                 # [n, ho, wo, c]
+            if padding_mode == "zeros":
+                ok = (ix >= 0) & (ix <= w - 1) & (iy >= 0) & (iy <= h - 1)
+                vals = vals * ok[..., None].to(vals.dtype)
+            return vals
+
+        if mode == "nearest":
+            out = gather(torch.round(fx).to(torch.int64),
+                         torch.round(fy).to(torch.int64))
+        else:
+            x0 = torch.floor(fx).to(torch.int64)
+            y0 = torch.floor(fy).to(torch.int64)
+            wx, wy = fx - x0, fy - y0
+            out = (gather(x0, y0) * ((1 - wx) * (1 - wy))[..., None]
+                   + gather(x0 + 1, y0) * (wx * (1 - wy))[..., None]
+                   + gather(x0, y0 + 1) * ((1 - wx) * wy)[..., None]
+                   + gather(x0 + 1, y0 + 1) * (wx * wy)[..., None])
+        return torch.movedim(out, -1, 1)
+    return surface("grid_sample", fn, [x, grid])

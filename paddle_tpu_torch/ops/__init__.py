@@ -9,7 +9,9 @@ leaf that takes no part in a graph in place (an optimizer holding it
 sees the write); otherwise the tensor adopts the result and its graph,
 as the JAX package rebinds. ``setitem`` on a tensor in a graph is a new
 graph node: the gradient reaches both the kept values and those
-written. ``ops/linalg.py`` and ``ops/inplace.py`` are not ported yet.
+written; a negative-step slice reads and writes through ``torch.flip``
+(torch slices take positive steps only). The ``*_`` variants all follow
+``inplace.make_inplace``.
 """
 from __future__ import annotations
 
@@ -18,9 +20,11 @@ import torch
 
 from ..core.dispatch import run_op, unwrap
 from ..core.tensor import Tensor
-from . import creation, logic, manipulation, math, search, stat
+from . import creation, linalg, logic, manipulation, math, search, stat
+from . import inplace
+from .inplace import make_inplace
 
-_MODULES = [math, manipulation, logic, search, stat]
+_MODULES = [math, manipulation, logic, search, stat, linalg]
 
 _METHOD_EXCLUDE = {
     "to_tensor", "builtins_sum", "builtins_abs", "builtins_min",
@@ -43,6 +47,7 @@ def _patch_methods():
             setattr(Tensor, name, fn)
     # paddle convention: Tensor.numel() is a 0-D int64 Tensor
     Tensor.numel = manipulation.numel
+    Tensor.norm = linalg.norm
     for name, fn in dict(
             pow=math.pow_, add=math.add, subtract=math.subtract,
             multiply=math.multiply, divide=math.divide, mod=math.mod,
@@ -61,22 +66,6 @@ def _patch_methods():
         setattr(Tensor, name, fn)
 
 
-def _make_inplace(opname, fn2):
-    def inplace(self, *args, **kwargs):
-        out = fn2(self, *args, **kwargs)
-        d, o = self._data, out._data
-        if d.grad_fn is None and not (torch.is_grad_enabled() and (
-                d.requires_grad or o.requires_grad)) and \
-                d.shape == o.shape and d.dtype == o.dtype:
-            with torch.no_grad():
-                d.copy_(o)
-        else:
-            self._data, self._sg = o, out._sg
-        return self
-    inplace.__name__ = opname
-    return inplace
-
-
 def _patch_inplace():
     pairs = {
         "add_": math.add, "subtract_": math.subtract,
@@ -85,12 +74,15 @@ def _patch_inplace():
         "sqrt_": math.sqrt, "rsqrt_": math.rsqrt, "floor_": math.floor,
         "ceil_": math.ceil, "round_": math.round, "abs_": math.abs,
         "tanh_": math.tanh, "sigmoid_": math.sigmoid, "neg_": math.neg,
-        "reciprocal_": math.reciprocal, "cast_": manipulation.cast,
-        "pow_": math.pow_, "remainder_": math.remainder,
-        "mod_": math.mod, "lerp_": math.lerp,
+        "reciprocal_": math.reciprocal, "pow_": math.pow_,
+        "remainder_": math.remainder, "mod_": math.mod, "lerp_": math.lerp,
     }
     for name, fn in pairs.items():
-        setattr(Tensor, name, _make_inplace(name, fn))
+        setattr(Tensor, name, make_inplace(name, fn))
+    # every ops.inplace variant not bound above (cast_ among them)
+    for name in inplace.__all__:
+        if not hasattr(Tensor, name):
+            setattr(Tensor, name, getattr(inplace, name))
 
     def uniform_(self, min=-1.0, max=1.0, seed=0, name=None):  # noqa: A002
         return creation.uniform_inplace(self, min, max, seed)
@@ -161,7 +153,8 @@ def _index(idx, device):
 
 def _getitem(self, idx):
     tidx = _index(idx, self._data.device)
-    return run_op("getitem", lambda a: a[tidx], [self])
+    return run_op("getitem", lambda a: manipulation._getitem_body(a, tidx),
+                  [self])
 
 
 def _setitem(self, idx, value):
@@ -171,10 +164,18 @@ def _setitem(self, idx, value):
         self._data.requires_grad or (isinstance(v, torch.Tensor)
                                      and v.requires_grad))
     if not in_graph:
+        pidx, flips = manipulation._positive_steps(tidx, self._data.shape)
         with torch.no_grad():
-            self._data[tidx] = v
+            if flips:
+                # a negative-step slice: write through a flipped copy
+                b = self._data.flip(flips)
+                b[pidx] = v
+                self._data.copy_(b.flip(flips))
+            else:
+                self._data[tidx] = v
         return self
-    out = run_op("setitem", lambda a, vv: manipulation._at_set(a, tidx, vv),
+    out = run_op("setitem",
+                 lambda a, vv: manipulation._setitem_body(a, tidx, vv),
                  [self, value])
     self._data, self._sg = out._data, out._sg
     return self

@@ -453,25 +453,67 @@ def slice(input, axes, starts, ends):  # noqa: A001,A002
     return run_op("slice", fn, [input])
 
 
+def _consumed_dims(i):
+    """Dims of the indexed tensor one index entry consumes."""
+    if i is None or i is Ellipsis:
+        return 0
+    if isinstance(i, (torch.Tensor, np.ndarray)) and i.dtype in (
+            torch.bool, np.bool_):
+        return i.ndim
+    return 1
+
+
+def _positive_steps(idx, shape):
+    """Rewrite the negative-step slices of an index as positive-step
+    slices of the tensor flipped along their dims (torch slices take
+    positive steps only). Returns (index, dims to flip); no dims when the
+    index has no negative step. ``a[idx]`` equals
+    ``a.flip(dims)[index]`` element for element, in the same order."""
+    items = list(idx) if isinstance(idx, tuple) else [idx]
+    if not builtins.any(isinstance(i, builtins_slice) and i.step is not None
+                        and int(i.step) < 0 for i in items):
+        return idx, []
+    used = builtins_sum(_consumed_dims(i) for i in items)
+    out, flips, d = [], [], 0
+    for i in items:
+        if i is Ellipsis:
+            out.append(i)
+            d += len(shape) - used
+            continue
+        if isinstance(i, builtins_slice) and i.step is not None \
+                and int(i.step) < 0:
+            n = int(shape[d])
+            start, stop, step = i.indices(n)
+            # element k of the flipped dim is element n-1-k of the original
+            out.append(builtins_slice(n - 1 - start, n - 1 - stop, -step))
+            flips.append(d)
+        else:
+            out.append(i)
+        d += _consumed_dims(i)
+    return tuple(out), flips
+
+
+def _getitem_body(a, idx):
+    pidx, flips = _positive_steps(idx, a.shape)
+    return a.flip(flips)[pidx] if flips else a[idx]
+
+
+def _setitem_body(a, idx, v):
+    """``a`` with ``a[idx] = v`` written into a clone (a graph node)."""
+    pidx, flips = _positive_steps(idx, a.shape)
+    if not flips:
+        return _at_set(a, idx, v)
+    return _at_set(a.flip(flips), pidx, v).flip(flips)
+
+
 def strided_slice(x, axes, starts, ends, strides, name=None):
     axes_, st_, en_, sd_ = map(_ints, (axes, starts, ends, strides))
 
     def fn(a):
-        if builtins.any(d < 0 for d in sd_):
-            np_idx = [builtins_slice(None)] * a.dim()
-            for ax, s, e, d in zip(axes_, st_, en_, sd_):
-                np_idx[ax] = builtins_slice(s, e, d)
-            sel = [np.arange(a.shape[ax])[np_idx[ax]] for ax in
-                   range(a.dim())]
-            out = a
-            for ax, ix in enumerate(sel):
-                out = torch.index_select(out, ax, torch.as_tensor(
-                    ix, device=a.device))
-            return out
         idx = [builtins_slice(None)] * a.dim()
         for ax, s, e, d in zip(axes_, st_, en_, sd_):
             idx[ax] = builtins_slice(s, e, d)
-        return a[tuple(idx)]
+        return _getitem_body(a, tuple(idx))
     return run_op("strided_slice", fn, [x])
 
 

@@ -69,6 +69,15 @@ def test_port_import_pulls_in_no_jax():
         "import paddle_tpu_torch.profile_encoder\n"
         "import paddle_tpu_torch.nn.functional, paddle_tpu_torch.autograd\n"
         "import paddle_tpu_torch.amp, paddle_tpu_torch.framework\n"
+        "import paddle_tpu_torch.linalg, paddle_tpu_torch.ops.inplace\n"
+        "import paddle_tpu_torch.nn.functional.conv\n"
+        "import paddle_tpu_torch.nn.functional.pooling\n"
+        "import paddle_tpu_torch.nn.layer.conv\n"
+        "import paddle_tpu_torch.nn.layer.pooling\n"
+        "import paddle_tpu_torch.nn.layer.rnn\n"
+        "import paddle_tpu_torch.serving_replay\n"
+        "import paddle_tpu_torch as p\n"
+        "[getattr(p, n) for n in p._LAZY_SUBPACKAGES]\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n")
