@@ -343,7 +343,36 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    below LAPACK's test ratio (30 x n x eps); (d) interpolate in every
    mode down and up, grid_sample and fold against the CPU within the
    f32 gate; ms a step (events and host), images or tokens a second and
-   peak memory, beside the card.
+   peak memory, beside the card;
+22. the high-level paths: (a) ``paddle.Model`` over phase 19's Embedding
+   and 12-layer TransformerEncoder with a head on the first token: first
+   a 2-layer f32 copy, dropout 0, its ``Model.train_batch`` loss and
+   every gradient of its TrainStep on the card against the same weights
+   on the CPU (``_xcheck``, closeness's f32 gate); then the main path,
+   counts set to 0 just before and read just after: 256 sequences of 128
+   tokens from a seed (the first token one of two markers, the label
+   which), a DataLoader over a seeded RandomSampler in batches of 32 with
+   two worker processes, ``prepare(AdamW(cosine from 2e-5),
+   CrossEntropyLoss(), Accuracy(), amp_configs O1)`` (which must build a
+   TrainStep: bf16), ``fit`` for 2 epochs with 64 eval sequences each
+   epoch and ModelCheckpoint, LRScheduler and EarlyStopping, then
+   ``evaluate``, ``predict(stack_outputs=True)``, ``save`` and a fresh
+   Model's ``load`` + ``evaluate`` (equal to the first): finite losses,
+   the wgmma forward, dQ and dK/dV == 12 x steps each, the f32
+   evaluations' forwards on tf32x3 == 12 x eval batches, one fused Adam a
+   step, no plain version; ms a step (events, host), samples/s, the
+   share of a step cycle the device waits on the host, the cost of the
+   per-step float(loss) read (steps through train_batch against the
+   train step with one read, in turns) and peak memory; (b) ``jit.save``
+   of ``bench_bert_embedding``'s f32 BertModel at [32, 128] int64
+   (``torch.export``; the flash forward as the custom op
+   ``paddle_tpu_torch::flash_fwd``), ``create_predictor(Config(...))``,
+   handles and ``run``, counted around one run: both outputs within
+   closeness's f32 gate of the eager forward on the card, 12 tf32x3
+   launches inside the exported program, the ``.pdiparams`` equal to the
+   model's state dict; negative control: a copy of the artifact with one
+   element of the first layer's qkv weight moved by 1 must fail the
+   gate; ms a run (events) and sequences/s.
 
 It prints the card line, a {"kernels": [...]} line (the tensor-core
 forward, dQ and dK/dV as ``flash_fwd`` / ``flash_bwd_dq`` /
@@ -365,7 +394,7 @@ last line
 {"ok": true, "device":
 {...}}. Details land in
 chiprun_out/chip_smoke/ (result JSON, nvcc/ptxas logs, the replay
-runs' logs). About four and a half minutes of command time on an H100,
+runs' logs). About five and a half minutes of command time on an H100,
 the six kernel builds included.
 """
 from __future__ import annotations
@@ -373,6 +402,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -3396,23 +3426,31 @@ def rnn_lm(nn, mode, dropout):
     return LM()
 
 
-def _xcheck(paddle, build, inputs, loss_of, then=None):
+def _xcheck(paddle, build, inputs, loss_of, then=None, grads_of=None):
     """One f32 forward + backward of ``build()`` on the card and of a CPU
     copy with the card's weights, on the same inputs: closeness's f32
-    gate on the loss and on every gradient. ``then(card_model,
+    gate on the loss and on every gradient. The CPU copy is made before
+    either runs. ``grads_of(net, *inputs) -> (loss, {name: gradient})``,
+    when given, replaces ``loss_of`` and ``backward`` (a path that takes
+    its gradients itself, and may update the weights after). ``then(card_model,
     card_grads)``, when given, runs before the card's model is freed and
     returns more fields for the record."""
     import torch
     res = {}
     paddle.set_device("gpu")
     card_net = build()
-    for dev in ("gpu", "cpu"):
+    paddle.set_device("cpu")
+    cpu_net = build()
+    cpu_net.set_state_dict(card_net.state_dict())
+    for dev, net in (("gpu", card_net), ("cpu", cpu_net)):
         paddle.set_device(dev)
-        net = card_net
-        if dev == "cpu":
-            net = build()
-            net.set_state_dict(card_net.state_dict())
-        loss = loss_of(net, *[paddle.to_tensor(a) for a in inputs])
+        tensors = [paddle.to_tensor(a) for a in inputs]
+        if grads_of is not None:
+            loss, grads = grads_of(net, *tensors)
+            res[dev] = (torch.as_tensor(float(loss)),
+                        {k: g.float().cpu() for k, g in grads.items()})
+            continue
+        loss = loss_of(net, *tensors)
         loss.backward()
         res[dev] = (loss._data.detach().float().cpu(),
                     {k: p.grad._data.float().cpu()
@@ -3679,6 +3717,408 @@ def eager_new_surface(torch, card):
     out["resize"] = _resize(torch, paddle, card)
     torch.cuda.empty_cache()
     return out
+
+
+# -- phase 22: paddle.Model on the card, and the jit.save predictor ---------
+
+#: phase 22's data: HAPI_N training and HAPI_EVAL_N eval sequences of
+#: profile_eager.SEQ tokens drawn from HAPI_SEED (the eval set from the
+#: next seed); each sequence starts with one of two marker tokens and the
+#: label names which, so accuracy can rise
+HAPI_N, HAPI_EVAL_N, HAPI_SEED, HAPI_MARKERS = 256, 64, 22, (1000, 2000)
+HAPI_EPOCHS, HAPI_WORKERS = 2, 2
+#: the card-vs-CPU copy: 2 layers, dropout 0, f32, a batch of 4
+HAPI_XCHECK_LAYERS, HAPI_XCHECK_BATCH = 2, 4
+#: steps timed through train_batch (a float(loss) read each) and through
+#: the train step alone (one read at the end), HAPI_SYNC_PAIRS times each
+HAPI_SYNC_STEPS, HAPI_SYNC_PAIRS = 4, 3
+#: the predictor's input: [PREDICT_BATCH, PREDICT_SEQ] int64 ids; runs
+#: timed; the element of the first layer's qkv weight the negative
+#: control moves, and by how much
+PREDICT_BATCH, PREDICT_SEQ, PREDICT_RUNS = 32, 128, 10
+PREDICT_PERTURB = ("encoder.0.attention.qkv.weight", (0, 0), 1.0)
+
+
+def hapi_network(paddle, ep, layers=None, dropout=None):
+    """``profile_eager.build_model``'s Embedding and TransformerEncoder
+    (BERT-base widths; ``layers`` and ``dropout`` to cut them), then a
+    head that puts the first token into 2 classes."""
+    nn = paddle.nn
+
+    class FirstToken(nn.Layer):
+        """Its Linear(d_model, 2) on the first token."""
+
+        def __init__(self, linear):
+            super().__init__()
+            self.linear = linear
+
+        def forward(self, h):
+            return self.linear(h[:, 0])
+
+    m = ep.build_model(ep.MODEL["layers"] if layers is None else layers,
+                       ep.MODEL["dropout"] if dropout is None else dropout)
+    return nn.Sequential(m[0], m[1], FirstToken(m[2]))
+
+
+def hapi_dataset(torch, paddle, ep, n, seed):
+    """A TensorDataset of n sequences on the CPU (the workers read it):
+    ids [n, SEQ] and labels, the first token the label's marker."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, ep.MODEL["vocab"], (n, ep.SEQ), generator=g)
+    labels = torch.randint(0, 2, (n,), generator=g)
+    ids[:, 0] = torch.tensor(HAPI_MARKERS)[labels]
+    return paddle.io.TensorDataset([paddle.to_tensor(ids, place="cpu"),
+                                    paddle.to_tensor(labels, place="cpu")])
+
+
+def _hapi_model(paddle, ep, net, lr, amp):
+    model = paddle.Model(net)
+    opt = paddle.optimizer.AdamW(learning_rate=lr,
+                                 parameters=net.parameters(),
+                                 weight_decay=ep.WEIGHT_DECAY)
+    model.prepare(opt, paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy(),
+                  amp_configs=amp)
+    if model._train_step is None:
+        fail("phase 22: Model.prepare built no TrainStep (the eager "
+             "fallback ran)")
+    return model
+
+
+def hapi_cross_check(torch, paddle, ep):
+    """Phase 22 (a), first: a 2-layer f32 copy of the network, dropout 0,
+    in a prepared Model on the card (TrainStep: the tf32x3 forward, the
+    simt backward) against the same weights on the CPU (the plain
+    versions), through ``_xcheck``: the loss ``Model.train_batch`` reports
+    and every gradient of its train step within closeness's f32 gate."""
+    ds = hapi_dataset(torch, paddle, ep, HAPI_XCHECK_BATCH, HAPI_SEED)
+    batch = [t._data for t in ds.tensors]
+
+    def grads_of(net, ids, labels):
+        model = _hapi_model(paddle, ep, net, EAGER_XCHECK_LR, None)
+        _, grads = model._train_step.loss_and_grads((ids,), labels)
+        return model.train_batch([ids], labels)[0], grads
+
+    paddle.seed(1)
+    rec = _xcheck(paddle, lambda: hapi_network(
+        paddle, ep, HAPI_XCHECK_LAYERS, 0.0), batch, None,
+        grads_of=grads_of)
+    rec.update(layers=HAPI_XCHECK_LAYERS, batch=HAPI_XCHECK_BATCH,
+               seq=ep.SEQ)
+    print(f"hapi cross-check: Model.train_batch loss cuda "
+          f"{rec['loss_cuda']:.6f} cpu {rec['loss_cpu']:.6f} (ratio "
+          f"{rec['loss_ratio']:.3f}); {rec['grads']} gradients, worst "
+          f"{rec['worst_grad']} ratio {rec['worst_grad_ratio']:.3f} (max abs "
+          f"err {rec['worst_grad_max_abs_err']:.2e}); pass <= 1, "
+          f"closeness's f32 gate", flush=True)
+    return rec
+
+
+def _step_clock(torch, paddle):
+    """A callback that stamps each train batch's begin and end with the
+    host clock and a CUDA event, and keeps the batch losses."""
+
+    class StepClock(paddle.callbacks.Callback):
+        def __init__(self):
+            super().__init__()
+            self.marks, self.losses = [], []
+
+        def _mark(self):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return time.perf_counter(), e
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self.marks.append([])
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.marks[-1].append([self._mark()])
+
+        def on_train_batch_end(self, step, logs=None):
+            self.marks[-1][-1].append(self._mark())
+            self.losses.append(logs["loss"])
+
+        def timings(self):
+            """(host ms, event ms) of each step, and the host ms of each
+            cycle from one batch's begin to the next's in an epoch."""
+            steps, cycles = [], []
+            for epoch in self.marks:
+                for i, ((t0, e0), (t1, e1)) in enumerate(epoch):
+                    steps.append(((t1 - t0) * 1e3, e0.elapsed_time(e1)))
+                    if i + 1 < len(epoch):
+                        cycles.append((epoch[i + 1][0][0] - t0) * 1e3)
+            return steps, cycles
+    return StepClock()
+
+
+def _sync_cost(torch, model, batch):
+    """ms a step that the per-step float(loss) read of ``train_batch``
+    costs: HAPI_SYNC_STEPS steps through ``Model.train_batch`` against as
+    many through its train step with one read at the end, in turns,
+    medians of HAPI_SYNC_PAIRS pairs a step."""
+    ids, labels = batch
+
+    def with_reads():
+        for _ in range(HAPI_SYNC_STEPS):
+            model.train_batch([ids], labels)
+
+    def one_read():
+        loss = None
+        for _ in range(HAPI_SYNC_STEPS):
+            loss = model._train_step((ids,), labels)
+        float(loss)
+    got = {"with_reads": [], "one_read": []}
+    for _ in range(HAPI_SYNC_PAIRS):
+        for name, fn in (("with_reads", with_reads), ("one_read", one_read)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            got[name].append((time.perf_counter() - t0) * 1e3
+                             / HAPI_SYNC_STEPS)
+    med = {k: statistics.median(v) for k, v in got.items()}
+    return dict(ms_per_step=med, samples=got,
+                cost_ms_per_step=med["with_reads"] - med["one_read"])
+
+
+def hapi_main_path(torch, paddle, ep, launches_of, reset_counts, card):
+    """Phase 22 (a): ``paddle.Model`` at BERT-base widths and depth, counts
+    set to 0 just before and read just after: ``fit`` (HAPI_EPOCHS epochs
+    of a seeded RandomSampler over HAPI_N sequences in batches of 32, two
+    worker processes, O1 -> a bf16 TrainStep, AdamW on a cosine schedule
+    from 2e-5, eval data every epoch, ModelCheckpoint, LRScheduler and
+    EarlyStopping), ``evaluate``, ``predict(stack_outputs=True)``,
+    ``save``, and a fresh Model's ``load`` + ``evaluate``."""
+    import shutil
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    net = hapi_network(paddle, ep)
+    n_params = sum(p.size for p in net.parameters())
+    layers = ep.MODEL["layers"]
+    train_ds = hapi_dataset(torch, paddle, ep, HAPI_N, HAPI_SEED)
+    eval_ds = hapi_dataset(torch, paddle, ep, HAPI_EVAL_N, HAPI_SEED + 1)
+    sampler = paddle.io.RandomSampler(
+        train_ds, generator=torch.Generator().manual_seed(HAPI_SEED))
+    train = paddle.io.DataLoader(train_ds, batch_sampler=paddle.io.BatchSampler(
+        sampler=sampler, batch_size=ep.BATCH), num_workers=HAPI_WORKERS)
+    evald = paddle.io.DataLoader(eval_ds, batch_size=ep.BATCH)
+    steps = HAPI_EPOCHS * len(train)
+    # fit and the callback each step the schedule once a batch
+    sched = paddle.optimizer.lr.CosineAnnealingDecay(ep.LR, T_max=4 * steps)
+    model = _hapi_model(paddle, ep, net, sched, {"level": "O1"})
+    ckpt = ROOT / "build" / "chip_smoke_hapi"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    clock = _step_clock(torch, paddle)
+    cbs = [clock, paddle.callbacks.ModelCheckpoint(
+        save_freq=HAPI_EPOCHS, save_dir=str(ckpt / "fit")),
+        paddle.callbacks.LRScheduler(by_step=True),
+        paddle.callbacks.EarlyStopping(monitor="loss", patience=HAPI_EPOCHS,
+                                       verbose=0)]
+    lr0 = model._optimizer.get_lr()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    model.fit(train, eval_data=evald, epochs=HAPI_EPOCHS, verbose=0,
+              callbacks=cbs)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    opt_lr = model._optimizer.get_lr()
+    ev = model.evaluate(evald, verbose=0)
+    out = model.predict(evald, stack_outputs=True)[0]
+    model.save(str(ckpt / "final"))
+    fresh = _hapi_model(paddle, ep, hapi_network(paddle, ep), ep.LR,
+                        {"level": "O1"})
+    fresh.load(str(ckpt / "final"))
+    ev_loaded = fresh.evaluate(evald, verbose=0)
+    torch.cuda.synchronize()
+    launches = launches_of()
+    counters = {k: v for k, v in paddle.monitor.snapshot().items()
+                if k.startswith("kernels.")}
+    # -- end of the counted path --
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    files = sorted(p.name for p in (ckpt / "fit").iterdir())
+    del fresh
+    if not all(map(math.isfinite, clock.losses)) or \
+            len(clock.losses) != steps:
+        fail(f"hapi fit: {len(clock.losses)} losses for {steps} steps, "
+             f"finite: {clock.losses}")
+    if files != [f"{HAPI_EPOCHS - 1}.pdopt", f"{HAPI_EPOCHS - 1}.pdparams"]:
+        fail(f"hapi ModelCheckpoint wrote {files}")
+    if tuple(out.shape) != (HAPI_EVAL_N, 2) or \
+            not torch.isfinite(torch.from_numpy(out)).all():
+        fail(f"hapi predict: shape {out.shape}, values {out}")
+    loss_c = closeness(torch.tensor(ev_loaded["loss"]),
+                       torch.tensor(ev["loss"]))
+    if loss_c["ratio"] > 1 or ev_loaded["acc"] != ev["acc"]:
+        fail(f"hapi: the loaded Model evaluates {ev_loaded}, the trained "
+             f"one {ev}")
+    eval_fwd = len(evald) * (HAPI_EPOCHS + 3)   # fit's evals, evaluate,
+    want_tc = layers * steps                     # predict, the loaded one
+    # the bf16 steps on the wgmma kernels, the f32 evaluations on tf32x3
+    got = check_routes(counters, {
+        **{n: want_tc for n in FLASH_ROUTES if "_cuda_tc" in n},
+        "fwd_cuda_tf32x3": layers * eval_fwd}, "hapi")
+    if launches["flash_fwd"] != want_tc + layers * eval_fwd or \
+            launches["flash_bwd_dq"] != want_tc or \
+            launches["flash_bwd_dkv"] != want_tc:
+        fail(f"hapi launches {launches}")
+    if counters.get("kernels.optimizer.adam_fused") != steps or \
+            counters.get("kernels.optimizer.adam_plain", 0) or \
+            launches["fused_adam"] != steps:
+        fail(f"hapi optimizer routes: {counters}, launches {launches}")
+    plain = {k: v for k, v in counters.items()
+             if (k.endswith("_plain") or "fallback" in k) and v}
+    if plain:
+        fail(f"hapi path ran plain versions: {plain}")
+    sync = _sync_cost(torch, model, next(iter(train)))
+    med = statistics.median
+    step_t, cycles = clock.timings()
+    step_host = med(h for h, _ in step_t[1:])
+    step_ev = med(e for _, e in step_t[1:])
+    cycle = med(cycles[1:])
+    rec = dict(params=n_params, batch=ep.BATCH, seq=ep.SEQ, steps=steps,
+               epochs=HAPI_EPOCHS, workers=HAPI_WORKERS,
+               eval_batches=len(evald), losses=clock.losses,
+               lr_first=lr0, lr_last=opt_lr, evaluate=ev,
+               evaluate_loaded=ev_loaded, fit_s=fit_s,
+               step_ms_host=step_host, step_ms_events=step_ev,
+               cycle_ms=cycle, samples_per_s=ep.BATCH / cycle * 1e3,
+               host_outside_device_share=(cycle - step_ev) / cycle,
+               step_host_ms=[h for h, _ in step_t],
+               step_events_ms=[e for _, e in step_t], cycles_ms=cycles,
+               float_loss_sync=sync, peak_mem_gb=peak_gb,
+               flash_routes=got,
+               launches=launches, counters=counters, checkpoints=files)
+    print(f"hapi Model.fit: {n_params / 1e6:.1f} M params, {steps} steps "
+          f"of {ep.BATCH} x {ep.SEQ} (O1 -> bf16 TrainStep, {HAPI_WORKERS} "
+          f"workers), losses {clock.losses[0]:.4f} -> "
+          f"{clock.losses[-1]:.4f}, eval {ev}; median step "
+          f"{step_host:.2f} ms host / {step_ev:.2f} ms events, cycle "
+          f"{cycle:.2f} ms = {rec['samples_per_s']:.1f} samples/s, host "
+          f"outside the device {rec['host_outside_device_share']:.3f} of a "
+          f"cycle; float(loss) read {sync['cost_ms_per_step']:.2f} ms a "
+          f"step ({sync['ms_per_step']}); peak memory {peak_gb:.1f} GB; "
+          f"launches wgmma {want_tc} x3, tf32x3 {layers * eval_fwd}, fused "
+          f"Adam {launches['fused_adam']} on {card}", flush=True)
+    del model, net
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def predictor_main_path(torch, mods, launches_of, reset_counts, card):
+    """Phase 22 (b): ``jit.save`` of the f32 BertModel of
+    ``bench_bert_embedding`` (BERT-base, seed 0) at [32, 128] int64,
+    ``create_predictor(Config(...))``, handles and ``run``, counted around
+    one run: the outputs within closeness's f32 gate of the eager forward
+    on the card, 12 tf32x3 flash launches inside the exported program,
+    the loaded ``.pdiparams`` equal to the model's state dict; a copy of
+    the artifact with one attention weight moved must fail the gate."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    from paddle_tpu_torch import inference, jit
+    E = mods.enc.BERT_EMBED
+    cfg = mods.BertConfig(**E["model"])
+    model = mods.BertModel(cfg, seed=E["seed"]).eval()
+    d = ROOT / "build" / "chip_smoke_predictor"
+    shutil.rmtree(d, ignore_errors=True)
+    prefix = str(d / "bert")
+    t0 = time.perf_counter()
+    jit.save(model, prefix, input_spec=[jit.InputSpec(
+        [PREDICT_BATCH, PREDICT_SEQ], "int64")])
+    save_s = time.perf_counter() - t0
+    ids = torch.randint(0, cfg.vocab_size, (PREDICT_BATCH, PREDICT_SEQ),
+                        generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        want = [t.cpu() for t in model(ids.cuda())]
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    with open(prefix + ".pdiparams", "rb") as f:
+        st = pickle.load(f)
+    arrays = {**st["params"], **st["frozen"], **st["buffers"]}
+    diff = sorted(k for k in set(sd) | set(arrays) if k not in sd or
+                  k not in arrays or not torch.equal(
+                      torch.from_numpy(np.asarray(arrays[k])), sd[k]))
+    if diff or st["n_inputs"] != 1:
+        fail(f"predictor: .pdiparams differ from the state dict at {diff}")
+
+    def predictor(path):
+        t = time.perf_counter()
+        pred = inference.create_predictor(inference.Config(path + ".pdmodel"))
+        pred.get_input_handle(pred.get_input_names()[0]).copy_from_cpu(
+            ids.numpy())
+        return pred, time.perf_counter() - t
+
+    def outputs(pred):
+        return [torch.from_numpy(pred.get_output_handle(n).copy_to_cpu())
+                for n in pred.get_output_names()]
+    pred, load_s = predictor(prefix)
+    pred.run()                                   # first run, uncounted
+    torch.cuda.synchronize()
+    reset_counts()
+    pred.run()
+    torch.cuda.synchronize()
+    launches = launches_of()
+    counters = {k: v for k, v in mods.monitor.snapshot().items()
+                if k.startswith("kernels.")}
+    # -- end of the counted run --
+    got = outputs(pred)
+    layers = cfg.num_hidden_layers
+    check_f32_routes(counters, layers, "predictor")
+    if launches["flash_fwd"] != layers:
+        fail(f"predictor: {launches['flash_fwd']} flash launches a run, "
+             f"expected {layers}")
+    gates = [closeness(g, w) for g, w in zip(got, want)]
+    if len(got) != 2 or max(g["ratio"] for g in gates) > 1:
+        fail(f"predictor output off the eager forward: {gates}")
+    # timing: events around pred.run (host copies in and out included) and
+    # around the loaded program on a device batch
+    ids_dev = ids.cuda()
+    run_ms = [cuda_ms(pred.run, iters=1, warmup=0)
+              for _ in range(PREDICT_RUNS)]
+    layer_ms = [cuda_ms(lambda: pred._layer(ids_dev), iters=1, warmup=0)
+                for _ in range(PREDICT_RUNS)]
+    # negative control: one attention weight moved in a copy
+    name, idx, delta = PREDICT_PERTURB
+    st["params"][name][idx] += delta
+    with open(prefix + "_moved.pdiparams", "wb") as f:
+        pickle.dump(st, f)
+    shutil.copy(prefix + ".pdmodel", prefix + "_moved.pdmodel")
+    bad, _ = predictor(prefix + "_moved")
+    bad.run()
+    moved = max(closeness(g, w)["ratio"] for g, w in zip(outputs(bad), want))
+    if moved <= 1:
+        fail(f"predictor negative control: a moved {name}{list(idx)} passed "
+             f"the gate (ratio {moved:.3f})")
+    med = statistics.median(run_ms)
+    rec = dict(batch=PREDICT_BATCH, seq=PREDICT_SEQ, layers=layers,
+               save_s=save_s, load_s=load_s,
+               pdmodel_bytes=os.path.getsize(prefix + ".pdmodel"),
+               pdiparams_bytes=os.path.getsize(prefix + ".pdiparams"),
+               max_abs_err=max(g["max_abs_err"] for g in gates),
+               ratio=max(g["ratio"] for g in gates), gates=gates,
+               run_ms=run_ms, run_ms_median=med,
+               program_ms=layer_ms,
+               program_ms_median=statistics.median(layer_ms),
+               sequences_per_s=PREDICT_BATCH / med * 1e3,
+               negative_control=dict(weight=name, index=list(idx),
+                                     delta=delta, ratio=moved),
+               launches=launches, counters=counters)
+    print(f"predictor: BERT-base f32 exported in {save_s:.1f} s "
+          f"({rec['pdmodel_bytes'] / 1e6:.1f} MB program, "
+          f"{rec['pdiparams_bytes'] / 1e6:.1f} MB weights), loaded in "
+          f"{load_s:.1f} s; [{PREDICT_BATCH}, {PREDICT_SEQ}] a run: {med:.2f} "
+          f"ms (events, host copies in and out included; the program alone "
+          f"{rec['program_ms_median']:.2f} ms) = "
+          f"{rec['sequences_per_s']:.0f} sequences/s; {layers} tf32x3 "
+          f"launches a run; ratio {rec['ratio']:.3f} of closeness's f32 "
+          f"gate; moved weight {moved:.1f} (rejected) on {card}",
+          flush=True)
+    del pred, bad, model
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
 
 
 # -- phase 6b: the serving accelerators ------------------------------------
@@ -5073,6 +5513,13 @@ def main():
     replay = replay_main_path(torch, mods, launches_of, reset_counts, card)
     surface = eager_new_surface(torch, card)
 
+    # 22. paddle.Model on the card (the card against the CPU, then the
+    # counted path) and the jit.save predictor (counted around one run)
+    hapi_xcheck = hapi_cross_check(torch, paddle, ep)
+    hapi = hapi_main_path(torch, paddle, ep, launches_of, reset_counts, card)
+    predictor = predictor_main_path(torch, mods, launches_of, reset_counts,
+                                    card)
+
     src = "paddle_tpu_torch/csrc/"
 
     def replay_by_path(kernel):
@@ -5100,12 +5547,14 @@ def main():
     # f32 serving paths the tf32x3 forward (their counter snapshots)
     tc_paths = {"training": training, "moe_training": moe_training,
                 "bert_training": bert_training, "eager_training": eager,
-                **{f"recipe_{g}": r for g, r in recipe["runs"].items()}}
+                **{f"recipe_{g}": r for g, r in recipe["runs"].items()},
+                "hapi": hapi}
     f32_paths = {"serving": dict(counters=counters),
                  "encoder_serving": enc_serving,
                  "one_shot_padded": one_shot["one_shot_padded"],
                  "replay_embedding": replay["embedding"],
-                 "replay_embedding_fixture": replay["embedding_fixture"]}
+                 "replay_embedding_fixture": replay["embedding_fixture"],
+                 "hapi": hapi, "predictor": predictor}
 
     def by_path(paths, route):
         return {p: flash_routes(r["counters"])[route]
@@ -5370,7 +5819,8 @@ def main():
                   **{f"recipe_{g}": r["launches"]["fused_adam"]
                      for g, r in recipe["runs"].items()},
                   "recipe_flashmask": recipe["runs"]["selective"][
-                      "flashmask_step"]["launches"]["fused_adam"]}
+                      "flashmask_step"]["launches"]["fused_adam"],
+                  "hapi": hapi["launches"]["fused_adam"]}
     kernels.append(dict(
         name="fused_adam", route="cuda", source=src + "fused_adam.cu",
         replaces="port-only: no TPU kernel; the per-parameter fusion XLA "
@@ -5422,7 +5872,8 @@ def main():
                   one_shot_decoding=one_shot,
                   eager_cross_check=eager_xcheck, eager_training=eager,
                   replay=replay, eager_new_surface=surface,
-                  kernels=kernels)
+                  hapi_cross_check=hapi_xcheck, hapi=hapi,
+                  predictor=predictor, kernels=kernels)
     (OUT_DIR / "result.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

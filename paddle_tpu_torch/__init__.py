@@ -27,11 +27,24 @@ unless ``set_device("cpu")`` was called; without a GPU they raise.
 names and ``Tensor`` methods, and ``nn`` holds conv, pooling, the resize
 / fold / shuffle / grid functionals and the recurrent layers. ``jit``,
 ``inference``, ``text``, ``incubate``, ``regularizer``, ``quantization``
-and ``distributed`` resolve as attributes on first use (a module
-``__getattr__``: importing them here would pull the serving and model
-stacks into every ``import``). The names of the JAX package's top level
-whose modules are not ported yet (``io``, ``vision``, ``fft``,
-``jit.to_static``, ...) are absent.
+``distributed``, ``io``, ``metric``, ``hapi``, ``callbacks`` and
+``reader`` resolve as attributes on first use, and so do ``Model``,
+``summary`` and ``flops`` of ``hapi`` (a module ``__getattr__``:
+importing them here would pull the serving, model and data stacks into
+every ``import``; ``dir()`` lists them). The high-level paths:
+
+    model = paddle.Model(net)                      # a Layer or a Module
+    model.prepare(paddle.optimizer.AdamW(2e-5, parameters=net.parameters()),
+                  nn.CrossEntropyLoss(), paddle.metric.Accuracy(),
+                  amp_configs={"level": "O1"})     # a bf16 TrainStep
+    model.fit(paddle.io.DataLoader(ds, batch_size=32, num_workers=2))
+    paddle.jit.save(net, "out/net", input_spec=[paddle.jit.InputSpec(
+        [32, 128], "int64")])                      # torch.export
+    pred = paddle.inference.create_predictor(
+        paddle.inference.Config("out/net.pdmodel"))
+
+The names of the JAX package's top level whose modules are not ported
+yet (``vision``, ``fft``, ``static``, ``jit.to_static``, ...) are absent.
 
 The port's models and the serving ``Engine`` take raw torch tensors:
 
@@ -80,7 +93,11 @@ from .autograd import grad
 from . import amp
 from .framework import ParamAttr, load, save
 from . import framework
+from .framework.misc import (batch, check_shape, create_parameter,
+                             disable_signal_handler, get_cuda_rng_state,
+                             set_cuda_rng_state, set_printoptions)
 from . import nn
+from .nn.initializer.lazy_init import LazyGuard
 from . import optimizer
 
 bool = bool_  # noqa: A001 (paddle.bool)
@@ -101,13 +118,26 @@ def in_dynamic_mode():
 
 #: subpackages resolved on first attribute access (``paddle.jit``, ...)
 _LAZY_SUBPACKAGES = ("jit", "inference", "text", "incubate", "regularizer",
-                     "quantization", "distributed")
+                     "quantization", "distributed", "io", "metric", "hapi",
+                     "callbacks", "reader")
+#: names of a subpackage resolved on first access (``paddle.Model``)
+_LAZY_NAMES = {"Model": "hapi", "summary": "hapi", "flops": "hapi"}
 
 
 def __getattr__(name):
+    import importlib
     if name in _LAZY_SUBPACKAGES:
-        import importlib
         mod = importlib.import_module(__name__ + "." + name)
         globals()[name] = mod
         return mod
+    if name in _LAZY_NAMES:
+        value = getattr(importlib.import_module(
+            __name__ + "." + _LAZY_NAMES[name]), name)
+        globals()[name] = value
+        return value
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY_SUBPACKAGES) |
+                  set(_LAZY_NAMES))

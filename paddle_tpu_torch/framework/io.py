@@ -3,8 +3,9 @@
 The JAX package's file format: a magic line, then a pickle in which every
 tensor is a dict of numpy data ({"__tensor__": True, "data": array,
 "stop_gradient": bool}; bfloat16 as {"__bf16__": True, "data": uint16
-view}). No torch object is pickled, so a state dict saved by either
-package loads in the other. A loaded tensor lands on the current place.
+view}); a raw torch tensor is saved as a Tensor. No torch object is
+pickled, so a state dict saved by either package loads in the other. A
+loaded tensor lands on the current place.
 """
 from __future__ import annotations
 
@@ -22,13 +23,14 @@ _MAGIC = b"PTPU1\n"
 
 
 def _to_serializable(obj):
-    if isinstance(obj, Tensor):
-        t = obj._data.detach().cpu()
+    if isinstance(obj, (Tensor, torch.Tensor)):
+        sg = obj.stop_gradient if isinstance(obj, Tensor) else \
+            not obj.requires_grad
+        t = (obj._data if isinstance(obj, Tensor) else obj).detach().cpu()
         if t.dtype == torch.bfloat16:
             return {_BF16_TAG: True, "data": t.view(torch.int16).numpy().view(
-                np.uint16), "stop_gradient": obj.stop_gradient}
-        return {"__tensor__": True, "data": t.numpy(),
-                "stop_gradient": obj.stop_gradient}
+                np.uint16), "stop_gradient": sg}
+        return {"__tensor__": True, "data": t.numpy(), "stop_gradient": sg}
     if isinstance(obj, dict):
         return {k: _to_serializable(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):

@@ -55,6 +55,14 @@ class Parameter(Tensor):
         self.need_clip = need_clip
         self.is_distributed = False
 
+    def initialize(self):
+        """Run the initializer deferred by ``LazyGuard`` (no-op
+        otherwise)."""
+        init = self.__dict__.pop("_lazy_initializer", None)
+        if init is not None:
+            init(self)
+        return self
+
     def __repr__(self):
         return "Parameter containing:\n" + super().__repr__()
 

@@ -1,7 +1,16 @@
-"""``TrainStep`` (counterpart of ``paddle_tpu/jit/api.py:443``).
+"""``InputSpec`` and ``TrainStep`` (counterparts of
+``paddle_tpu/jit/api.py:31`` and ``:443``).
 
     step = TrainStep(model, loss_fn, optimizer, amp_dtype="bfloat16")
     loss = step(inputs, labels)        # f32 scalar tensor
+
+``model`` is a raw ``torch.nn.Module`` (the port's model families) or a
+surface ``Layer``. A Layer's weights are bound through
+``jit/functional.py`` (``bind_state``) where a Module's go through
+``torch.func.functional_call``; its inputs and labels reach it and
+``loss_fn`` as surface ``Tensor``s, and its optimizer is a surface one
+(``parameters=layer.parameters()``), whose Parameters' leaves the step
+updates in place. Everything below holds for both.
 
 One call runs forward, loss, backward, gradient clipping and the
 optimizer update. The JAX ``TrainStep`` compiles that into one donated
@@ -35,8 +44,52 @@ compile (:550-551) and the distributed watchdog (:563-564).
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 from torch import nn
+
+from ..core.tensor import Tensor
+from . import functional
+
+
+class InputSpec:
+    """Shape / dtype spec (paddle.static.InputSpec). A ``None`` or -1 dim
+    is a wildcard."""
+
+    def __init__(self, shape, dtype="float32", name=None):
+        self.shape = list(shape)
+        self.dtype = dtype
+        self.name = name
+
+    def matches(self, shape, dtype) -> Optional[str]:
+        """None if (shape, dtype) satisfies the spec, else the reason."""
+        from ..core import dtype as dtype_mod
+        shape = tuple(shape)
+        if len(shape) != len(self.shape):
+            return (f"rank mismatch: got {list(shape)}, spec expects "
+                    f"{self.shape}")
+        for got, want in zip(shape, self.shape):
+            if want not in (None, -1) and got != want:
+                return (f"shape mismatch: got {list(shape)}, spec expects "
+                        f"{self.shape}")
+        try:
+            want_dt = dtype_mod.dtype(self.dtype)
+        except (TypeError, ValueError):
+            # a typo'd spec dtype must not silently disable the check
+            return (f"spec dtype {self.dtype!r} is not a known dtype "
+                    "(typo in the InputSpec?)")
+        try:
+            got_dt = dtype_mod.dtype(dtype)
+        except (TypeError, ValueError):
+            got_dt = dtype_mod.dtype(np.dtype(dtype).name)
+        if got_dt != want_dt:
+            return f"dtype mismatch: got {dtype}, spec expects {self.dtype}"
+        return None
+
+    def __repr__(self):
+        return f"InputSpec(shape={self.shape}, dtype={self.dtype})"
 
 
 def _as_tensor(x, device):
@@ -44,7 +97,22 @@ def _as_tensor(x, device):
         return x
     if isinstance(x, (list, tuple)):
         return type(x)(_as_tensor(a, device) for a in x)
+    if isinstance(x, Tensor):
+        return x._data.to(device)
     return torch.as_tensor(x, device=device)
+
+
+def _wrap_tree(x):
+    if isinstance(x, torch.Tensor):
+        return Tensor._from_data(x)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_wrap_tree(a) for a in x)
+    return x
+
+
+def _is_layer(model):
+    from ..nn.layer.layers import Layer
+    return isinstance(model, Layer)
 
 
 class _LossAndGrads(nn.Module):
@@ -77,7 +145,8 @@ class TrainStep:
         self._amp_dtype = None if amp_dtype is None else (
             amp_dtype if isinstance(amp_dtype, torch.dtype)
             else getattr(torch, str(amp_dtype)))
-        self._runner = _LossAndGrads(model)
+        self._layer = _is_layer(model)
+        self._runner = None if self._layer else _LossAndGrads(model)
         self.sync_from_model()
         self._opt_state = optimizer.init_state_pytree(self._params)
 
@@ -118,16 +187,32 @@ class TrainStep:
         names = list(self._params)
         masters = [self._params[n] for n in names]
         with torch.enable_grad():
-            bound = {"model." + n: self._cast(m)
-                     for n, m in zip(names, masters)}
-            loss, grads = torch.func.functional_call(
-                self._runner, bound, (inputs, labels, self._loss_fn,
-                                      masters))
-        del bound
+            if self._layer:
+                loss, grads = self._layer_loss_and_grads(
+                    names, masters, inputs, labels)
+            else:
+                bound = {"model." + n: self._cast(m)
+                         for n, m in zip(names, masters)}
+                loss, grads = torch.func.functional_call(
+                    self._runner, bound, (inputs, labels, self._loss_fn,
+                                          masters))
+                del bound
         clip = self._opt._grad_clip
         if clip is not None:
             grads = clip.clip_grads(grads)
         return loss, dict(zip(names, grads))
+
+    def _layer_loss_and_grads(self, names, masters, inputs, labels):
+        """A surface Layer's forward on the cast weights (bound through
+        ``functional_call``, in training mode), ``loss_fn`` on surface
+        Tensors, the f32 loss's gradients on the masters."""
+        bound = {n: self._cast(m) for n, m in zip(names, masters)}
+        out, _ = functional.functional_call(self._model, bound, {}, inputs,
+                                            training=True)
+        loss = self._loss_fn(_wrap_tree(out), _wrap_tree(labels))
+        loss = (loss._data if isinstance(loss, Tensor) else loss).float()
+        grads = torch.autograd.grad(loss, masters, materialize_grads=True)
+        return loss.detach(), list(grads)
 
     def sync_to_model(self):
         """The parameters are updated in place, so only the optimizer's
@@ -138,8 +223,11 @@ class TrainStep:
     def sync_from_model(self):
         """Re-read the model's trainable parameters (e.g. after
         ``load_state_dict`` replaced them)."""
-        self._params = {n: p for n, p in self._model.named_parameters()
-                        if p.requires_grad}
+        if self._layer:
+            self._params = functional.get_params(self._model)
+        else:
+            self._params = {n: p for n, p in self._model.named_parameters()
+                            if p.requires_grad}
         self._device = next(iter(self._params.values())).device
 
     @property

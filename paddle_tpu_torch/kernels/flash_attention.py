@@ -27,7 +27,12 @@
 - ``flash_attention_arrays`` / ``flash_attention``: the validated,
   differentiable entry (counterparts of :871 and :943). With a gradient
   to take it runs ``_FlashAttnFn`` (the ``_flash_pallas`` custom_vjp,
-  :700); under ``torch.no_grad()`` only the forward, with no lse.
+  :700); under ``torch.no_grad()`` only the forward, with no lse —
+  through the custom op ``torch.ops.paddle_tpu_torch.flash_fwd``
+  (``flash_fwd_op``) while torch traces the call (``torch.export``, as
+  ``jit.save`` exports, or ``torch.compile``): the C entry launches on
+  ``data_ptr()`` through ctypes, which a fake tensor cannot give, so the
+  traced graph holds the op and runs ``flash_fwd`` itself when it runs.
 
 Semantics shared by every version: causal masking is bottom-right
 aligned (query i sees keys j <= i + sk - sq); GQA by index (query head h
@@ -522,6 +527,29 @@ def _bwd_launch(entry, args, out0, out1, causal, scale, window, se):
     return _LAUNCHED[launched.value]
 
 
+def _traced(q) -> bool:
+    """Whether torch is tracing this call (``torch.export`` /
+    ``torch.compile``: the operands are fake tensors)."""
+    from torch._subclasses.fake_tensor import is_fake
+    return torch.compiler.is_compiling() or is_fake(q)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 se: Optional[torch.Tensor], causal: bool, scale: float,
+                 window: Optional[int]) -> torch.Tensor:
+    """``flash_fwd`` (no lse) as an op a traced graph can hold: on a CUDA
+    tensor the kernel launch, counted as ``flash_fwd`` counts it; on a
+    CPU tensor the plain version (made contiguous, as the fake says)."""
+    out = flash_fwd(q, k, v, causal, scale, window, se)
+    return out if q.device.type == "cuda" else out.contiguous()
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, se, causal, scale, window):
+    return q.new_empty(q.shape)
+
+
 class _FlashAttnFn(torch.autograd.Function):
     """Differentiable flash attention (the ``_flash_pallas`` custom_vjp,
     :700-740): the forward writes the logsumexp and saves q, k, v, out,
@@ -589,6 +617,8 @@ def flash_attention_arrays(q, k, v, causal=False, scale=None,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttnFn.apply(q, k, v, se, causal, s, window)
+    if _traced(q):
+        return flash_fwd_op(q, k, v, se, causal, s, window)
     return flash_fwd(q, k, v, causal, s, window, se)
 
 

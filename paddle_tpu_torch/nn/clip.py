@@ -90,3 +90,28 @@ class ClipGradByGlobalNorm(ClipGradBase):
         scale = self.clip_norm / torch.clamp(gn, min=self.clip_norm)
         return [None if g is None else (g.float() * scale).to(g.dtype)
                 for g in grads]
+
+
+def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
+                    error_if_nonfinite=False):
+    """Scale the ``.grad`` of ``parameters`` (surface Parameters) in place
+    by ``min(max_norm / max(total norm, 1e-6), 1)``; returns the total
+    norm as a 0-d Tensor (counterpart of ``clip_grad_norm_``,
+    ``paddle_tpu/nn/clip.py:91``)."""
+    from ..core.tensor import Tensor
+    if isinstance(parameters, Tensor):
+        parameters = [parameters]
+    grads = [p.grad._data for p in parameters if p.grad is not None]
+    if not grads:
+        return Tensor._from_data(torch.zeros(()))
+    norm_type = float(norm_type)
+    if norm_type == float("inf"):
+        total = torch.stack([g.abs().max() for g in grads]).max()
+    else:
+        total = torch.stack([(g.abs() ** norm_type).sum()
+                             for g in grads]).sum() ** (1.0 / norm_type)
+    scale = torch.clamp(max_norm / torch.clamp(total, min=1e-6), max=1.0)
+    with torch.no_grad():
+        for g in grads:
+            g.mul_(scale.to(g.dtype))
+    return Tensor._from_data(total)

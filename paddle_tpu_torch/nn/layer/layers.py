@@ -115,7 +115,9 @@ class Layer:
                          default_initializer=None):
         """A Parameter of ``shape`` on the current place, filled by the
         attr's initializer, else ``default_initializer``, else the global
-        one, else zeros for a bias and XavierNormal for a weight."""
+        one, else zeros for a bias and XavierNormal for a weight (under
+        ``LazyGuard``: zeros, the initializer kept for
+        ``Parameter.initialize``)."""
         attr = ParamAttr._to_attr(attr)
         if attr is False:
             return None
@@ -136,7 +138,11 @@ class Layer:
         p = Parameter(data, trainable=attr.trainable, name=attr.name,
                       regularizer=attr.regularizer, need_clip=attr.need_clip,
                       learning_rate=attr.learning_rate)
-        initializer(p)
+        from ..initializer import lazy_init
+        if lazy_init.in_lazy_mode():
+            p._lazy_initializer = initializer
+        else:
+            initializer(p)
         return p
 
     def add_parameter(self, name, parameter):

@@ -1581,3 +1581,99 @@ def test_eager_surface_trains_on_the_kernels(dev):
     assert not snap.get("kernels.optimizer.adam_plain")
     assert fad.fused_adam_launch.launches >= steps
     assert all(math.isfinite(v) for v in losses)
+
+
+@pytest.mark.parametrize("dtype,d,causal", [(torch.float32, 64, False),
+                                            (torch.float32, 128, True),
+                                            (torch.bfloat16, 64, True),
+                                            (torch.bfloat16, 128, False)])
+def test_flash_custom_op_bit_equal_to_the_direct_entry(dev, dtype, d,
+                                                      causal):
+    """``torch.ops.paddle_tpu_torch.flash_fwd`` (the op ``jit.save``
+    exports) launches the same kernel as ``flash_fwd`` and counts it."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = (torch.randn(2, 256, 4, d, generator=g, device=dev)
+               .to(dtype) for _ in range(3))
+    want = fa.flash_fwd(q, k, v, causal, d ** -0.5)
+    n = fa.flash_fwd.launches
+    got = torch.ops.paddle_tpu_torch.flash_fwd(q, k, v, None, causal,
+                                               d ** -0.5, None)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches == n + 1
+    assert torch.equal(got, want)
+
+
+def test_exported_bert_on_card_equals_eager(dev, tmp_path):
+    """An f32 BertModel (head dim 64, 2 layers) through jit.save /
+    jit.load on the card: the tf32x3 forward inside the exported program,
+    once a layer, and the outputs within 1e-4 of the eager forward's
+    scale."""
+    from paddle_tpu_torch import jit, monitor
+    from paddle_tpu_torch.text.models import BertConfig, BertModel
+    cfg = BertConfig(vocab_size=512, hidden_size=128, num_hidden_layers=2,
+                     num_attention_heads=2, intermediate_size=256,
+                     max_position_embeddings=128)
+    model = BertModel(cfg, seed=0).eval()
+    prefix = str(tmp_path / "bert")
+    jit.save(model, prefix, input_spec=[jit.InputSpec([4, 64], "int64")])
+    loaded = jit.load(prefix)
+    ids = torch.randint(0, 512, (4, 64), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    with torch.no_grad():
+        want = model(ids)
+    loaded(ids)                                    # the first run loads
+    monitor.reset()
+    got = loaded(ids)
+    torch.cuda.synchronize()
+    assert monitor.snapshot().get("kernels.flash.fwd_cuda_tf32x3") == 2
+    assert not monitor.snapshot().get("kernels.flash.fwd_plain")
+    for g_, w in zip(got, want):
+        _close(g_._data, w, 1e-4)
+
+
+def test_hapi_fit_on_card_runs_the_kernels(dev):
+    """paddle.Model on a 2-layer surface Transformer classifier, O1 -> a
+    bf16 TrainStep: the wgmma forward, dQ and dK/dV once a layer and step,
+    one fused Adam a step, the f32 evaluate on the tf32x3 forward."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import monitor, nn
+    from paddle_tpu_torch.core import place as place_mod
+    place_mod.set_device("gpu")
+    paddle.seed(0)
+    layers, steps = 2, 3
+    net = nn.Sequential(nn.Embedding(100, 128), nn.TransformerEncoder(
+        nn.TransformerEncoderLayer(128, 2, 256, dropout=0.1,
+                                   activation="gelu"), layers))
+
+    class Head(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc = nn.Linear(128, 2)
+
+        def forward(self, h):
+            return self.fc(h[:, 0])
+    net.add_sublayer("head", Head())
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 100, (12, 128), generator=g)
+    labels = torch.randint(0, 2, (12,), generator=g)
+    ds = paddle.io.TensorDataset([paddle.to_tensor(ids, place="cpu"),
+                                  paddle.to_tensor(labels, place="cpu")])
+    model = paddle.Model(net)
+    model.prepare(paddle.optimizer.AdamW(1e-3, parameters=net.parameters()),
+                  nn.CrossEntropyLoss(), paddle.metric.Accuracy(),
+                  amp_configs={"level": "O1"})
+    assert model._train_step is not None
+    monitor.reset()
+    model.fit(ds, batch_size=4, epochs=1, shuffle=False, verbose=0,
+              num_workers=2)
+    snap = monitor.snapshot()
+    for k in ("fwd", "dq", "dkv"):
+        assert snap.get(f"kernels.flash.{k}_cuda_tc_wgmma") == \
+            layers * steps, snap
+    assert snap.get("kernels.optimizer.adam_fused") == steps
+    monitor.reset()
+    logs = model.evaluate(ds, batch_size=4, verbose=0)
+    snap = monitor.snapshot()
+    assert snap.get("kernels.flash.fwd_cuda_tf32x3", 0) + snap.get(
+        "kernels.flash.fwd_cuda_simt", 0) == layers * steps, snap
+    assert math.isfinite(logs["loss"])
