@@ -372,7 +372,38 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    launches inside the exported program, the ``.pdiparams`` equal to the
    model's state dict; negative control: a copy of the artifact with one
    element of the first layer's qkv weight moved by 1 must fail the
-   gate; ms a run (events) and sequences/s.
+   gate; ms a run (events) and sequences/s;
+23. weight-only quantized serving: (a) phase 4's LLaMA (LLaMA-7B widths,
+   4 layers) with bf16 weights from seed 0, then the same converted by
+   ``quantize_for_inference`` to int8 and to int4 (group-16 scales),
+   each serving phase 20's 24-request decoder trace (prompts 64-127, 128
+   new tokens, one every 10 ms) through an Engine of 8 slots, 16-token
+   pages and a bf16 pool: a warm pass, then 3 timed passes counted
+   together (every request finished, 0 leaked pages, paged-decode
+   launches == device ticks x 4 on the split kernel, no plain call);
+   int8 again at ``multi_tick=8`` (no CUDA graph captured after the warm
+   pass); 29 WeightOnlyLinears and no float linear left, the linears'
+   bytes at most 0.51x bf16's (int8; int4's int8 container with its
+   group scales 0.5625x); tokens/s (median and spread), parameter and
+   buffer bytes, peak allocated, the share of greedy tokens equal to the
+   bf16 model's and the device ms of a decode tick's 29 linears (each
+   timed on an [8, in] bf16 input); the closeness gate: [8, 128]
+   teacher-forced logits
+   of the int8 model against the same model holding weight_dequantize(q,
+   s) in bf16 and in f32, both of the int8 model's distances within 2x
+   the bf16 dequantized model's own distance from the f32 one; (b)
+   ``generate`` on the int8 model, 8 x 128 prompts, 64 new tokens, over
+   paged bf16 and int8 KV caches: finite logits, paged-decode launches
+   == 63 x 4, ms a step; (c) ``llm_int8_linear`` at [T, 4096] x [4096,
+   11008], T 1, 8, 128, 2048: at threshold 0 bit-equal to the CPU route
+   (``torch._int_mm`` against an int32 matmul), with an outlier column
+   (T <= 128) within the f32 gate, ms beside bf16 ``torch.matmul`` and
+   ``weight_only_linear``; (d) the fused ops on the card against the CPU
+   at BERT-base widths in f32 (``fused_multi_head_attention``,
+   ``fused_feedforward``, ``fused_bias_dropout_residual_layer_norm``,
+   ``FusedTransformerEncoderLayer`` forward and backward) within the f32
+   gate, and ``fused_moe`` at ERNIE-MoE's serving widths in bf16 against
+   the CPU's f32 within its bf16 gate; ms of each.
 
 It prints the card line, a {"kernels": [...]} line (the tensor-core
 forward, dQ and dK/dV as ``flash_fwd`` / ``flash_bwd_dq`` /
@@ -394,8 +425,8 @@ last line
 {"ok": true, "device":
 {...}}. Details land in
 chiprun_out/chip_smoke/ (result JSON, nvcc/ptxas logs, the replay
-runs' logs). About five and a half minutes of command time on an H100,
-the six kernel builds included.
+runs' logs). About eight minutes of command time on an H100, the six
+kernel builds included.
 """
 from __future__ import annotations
 
@@ -4121,6 +4152,551 @@ def predictor_main_path(torch, mods, launches_of, reset_counts, card):
     return rec
 
 
+# -- phase 23: weight-only int8 / int4 serving, nn.quant and incubate ------
+
+#: (a) the Engine of phase 20's replay runs (8 slots, 16-token pages, 128
+#: pages, a 64-token bucket) with a bf16 pool, over phase 20's decoder
+#: trace; a warm pass, then QUANT_PASSES timed ones
+QUANT_ENGINE = dict(max_slots=8, page_size=16, pool_pages=128,
+                    prefill_bucket=64, max_context=256,
+                    cache_dtype="bfloat16")
+QUANT_PASSES = 3
+#: the converted linears' bytes on the card (weights and scales) over their
+#: bf16 bytes: int8 is 1 byte a weight and one bf16 scale a column (0.5 +
+#: 1/K); int4 keeps its values in an int8 container, as the JAX package
+#: does, plus a bf16 scale a 16-row group: 0.5625
+QUANT_BYTES_LIMIT = {"int8": 0.51, "int4": 0.5625 + 1e-3}
+#: the closeness gate: one teacher-forced [8, 128] forward of the int8
+#: model against the same model whose converted linears hold
+#: weight_dequantize(q, s) in bf16. The two differ only where the scale is
+#: multiplied (after the bf16 product, one rounding more) and in the bf16
+#: rounding of each dequantized weight, so both sit within bf16's own
+#: rounding noise of the exact (f32) dequantized model, measured in the
+#: same run as the bf16 dequantized model's distance from it: the int8
+#: model's distance from the exact one, and its distance from the bf16
+#: dequantized one, each at most QUANT_CLOSE_RATIO x that noise (relative
+#: L2 of the logits)
+QUANT_TF = (8, 128)
+QUANT_CLOSE_RATIO = 2.0
+#: (b) generate on the int8 model: batch, prompt, new tokens
+QUANT_GEN = (8, 128, 64)
+#: (c) llm_int8_linear at LLaMA-7B's up projection, [T, 4096] x [4096,
+#: 11008]; the outlier case (column 7 x 30, threshold 6) at the rows up to
+#: INT8_OUTLIER_ROWS (its CPU route is an int32 matmul)
+INT8_K, INT8_N, INT8_ROWS, INT8_OUTLIER_ROWS = 4096, 11008, (1, 8, 128,
+                                                              2048), 128
+#: (d) BERT-base widths, f32: batch, sequence, hidden, heads, FFN
+FUSED_BERT = (32, 128, 768, 12, 3072)
+#: fused_moe at ERNIE-MoE's serving widths (profile_moe: hidden 1024, FFN
+#: 2816, 8 experts, top 2) over 8 slots' 128-token prefills, bf16
+FUSED_MOE_TOKENS = (8, 128)
+#: the bf16 gate of fused_moe against the CPU's f32 on the same bf16
+#: inputs: rtol two bf16 ulps (the down product's and the combine's
+#: roundings), atol 2^-4 of the output's rms (the [..., 2 x FFN]
+#: intermediate rounded to bf16 before the down product: 2^-9 relative in
+#: each of its 2816 terms, about 2^-8 of the rms summed)
+MOE_BF16_RTOL, MOE_BF16_ATOL_RMS = 2.0 ** -6, 2.0 ** -4
+
+
+def quant_trace(vocab):
+    """Phase 20's decoder trace: replay_trace's prompt lengths (64-127,
+    from its generator), token ids from a seed, one arrival every 10 ms."""
+    import numpy as np
+    rng = np.random.default_rng(20)
+    lens = [int(rng.integers(REPLAY_PROMPT[0], REPLAY_PROMPT[1] + 1))
+            for _ in range(REPLAY_REQUESTS)]
+    ids = np.random.default_rng(23)
+    return (np.arange(REPLAY_REQUESTS) * 0.010,
+            [ids.integers(0, vocab, (n,)).astype(np.int64) for n in lens])
+
+
+def quant_model(torch, mods, weight_dtype):
+    """phase 4's LLaMA (profile_serving.MODEL) with bf16 weights from seed
+    0, converted by quantize_for_inference unless ``weight_dtype`` is
+    "bfloat16". Returns (model, seconds the conversion took)."""
+    from paddle_tpu_torch.profile_serving import MODEL
+    from paddle_tpu_torch.quantization import quantize_for_inference
+    model = mods.LlamaForCausalLM(mods.LlamaConfig(**MODEL,
+                                                   dtype="bfloat16"), seed=0)
+    model.eval()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if weight_dtype != "bfloat16":
+        quantize_for_inference(model, weight_dtype=weight_dtype)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def free_cuda(torch):
+    """Collect the engines' reference cycles (a multi-tick engine's CUDA
+    graphs hold their memory pool until then), then return the cache."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def linear_bytes(torch, model):
+    """(the linears' bytes — weights, scales, biases — and the model's
+    parameters plus buffers, in bytes on the card; the float and the
+    converted linears counted)."""
+    from paddle_tpu_torch.quantization import WeightOnlyLinear
+    lin = sum(_nbytes(list(m.parameters(recurse=False))
+                      + list(m.buffers(recurse=False)))
+              for m in model.modules()
+              if isinstance(m, (torch.nn.Linear, WeightOnlyLinear)))
+    return lin, _nbytes(list(model.parameters()) + list(model.buffers()))
+
+
+def quant_serve(torch, mods, what, model, trace, ref, launches_of,
+                reset_counts, card, multi_tick=1):
+    """(a): one Engine over ``model``: a warm pass of the trace, then
+    QUANT_PASSES timed passes counted together (counts to 0 just before,
+    read just after): every request finished at full length each pass, no
+    page leaked, paged-decode launches == device ticks x layers, all on
+    the split kernel, no plain call; under multi_tick no graph captured
+    after the warm pass. tokens/s (median, spread), the parameters' and
+    buffers' bytes, the peak allocated, the share of greedy tokens equal
+    to ``ref`` (the bf16 model's first timed pass) and the device ms of a
+    decode tick's linears (``decode_linears_ms``)."""
+    L = model.config.num_hidden_layers
+    eng = mods.Engine(model, multi_tick=multi_tick, **QUANT_ENGINE)
+    drive_trace(torch, eng, mods.SamplingParams, trace, REPLAY_NEW)
+    graphs = list(eng._multi.captured) if multi_tick > 1 else []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ticks0, passes = eng.decode_ticks, []
+    for _ in range(QUANT_PASSES):
+        outs, secs, _ = drive_trace(torch, eng, mods.SamplingParams, trace,
+                                    REPLAY_NEW)
+        passes.append((outs, secs))
+    launches = launches_of()
+    counters = {k: v for k, v in mods.monitor.snapshot().items()
+                if k.startswith(("kernels.", "serving."))}
+    peak = torch.cuda.max_memory_allocated()
+    # -- end of the counted run --
+    ticks = eng.decode_ticks - ticks0
+    for outs, _ in passes:
+        bad = [o for o in outs if not o.ok or len(o.token_ids) != REPLAY_NEW]
+        if len(outs) != REPLAY_REQUESTS or bad:
+            fail(f"quant {what}: {len(outs)} outputs, failed/short: "
+                 f"{bad[:2]}")
+    if eng.leaked_pages():
+        fail(f"quant {what}: {eng.leaked_pages()} pages leaked")
+    n_pd = launches["paged_decode"]
+    if n_pd != ticks * L or counters.get("kernels.decode.paged_cuda") != \
+            n_pd or any(v for k, v in counters.items()
+                        if k.endswith("_plain")):
+        fail(f"quant {what}: paged-decode launches {n_pd} != {ticks} ticks "
+             f"x {L}, or a plain call: {counters}")
+    check_paged_split(counters, n_pd, f"quant {what}")
+    if multi_tick > 1 and (list(eng._multi.captured) != graphs
+                           or not counters.get(
+                               "serving.multi_tick.dispatches")):
+        fail(f"quant {what}: graphs {graphs} after the warm pass, "
+             f"{eng._multi.captured} after the timed ones, dispatches "
+             f"{counters.get('serving.multi_tick.dispatches')}")
+    tokens = [o.token_ids for o in passes[0][0]]
+    n_tok = sum(len(t) for t in tokens)
+    rates = sorted(n_tok / s for _, s in passes)
+    same = 1.0 if ref is None else sum(
+        int(a == b) for t, r in zip(tokens, ref) for a, b in zip(t, r)) / \
+        n_tok
+    lin_b, all_b = linear_bytes(torch, model)
+    lin_ms = decode_linears_ms(torch, model)
+    rec = dict(weights=what, multi_tick=multi_tick, requests=REPLAY_REQUESTS,
+               tokens_per_pass=n_tok, passes=QUANT_PASSES,
+               seconds=[s for _, s in passes],
+               tokens_per_s=rates, tokens_per_s_median=rates[len(rates) // 2],
+               tokens_per_s_spread=rates[-1] - rates[0], decode_ticks=ticks,
+               ms_per_tick=sum(s for _, s in passes) * 1e3 / ticks,
+               linear_bytes=lin_b, model_bytes=all_b, peak_allocated=peak,
+               decode_linears_ms=lin_ms,
+               decode_linears_bound_ms=lin_b / HBM_BYTES_PER_S * 1e3,
+               greedy_equal_to_bf16=same, graphs=graphs,
+               launches=launches, counters=counters)
+    print(f"  {what}{' k=%d' % multi_tick if multi_tick > 1 else ''}: "
+          f"{n_tok} tokens a pass, {QUANT_PASSES} passes: "
+          f"{rec['tokens_per_s_median']:.1f} tok/s median (spread "
+          f"{rec['tokens_per_s_spread']:.1f}), {ticks} device ticks, "
+          f"{rec['ms_per_tick']:.3f} wall ms a tick, its 29 linears "
+          f"{lin_ms:.4f} device ms (their bytes once at the HBM rate: "
+          f"{rec['decode_linears_bound_ms']:.4f}); parameters + buffers "
+          f"{all_b / 1e9:.3f} GB (linears {lin_b / 1e9:.3f}), peak "
+          f"allocated {peak / 1e9:.3f} GB; greedy tokens equal to bf16's "
+          f"{same:.4f}; paged decode {n_pd} on the split kernel on {card}",
+          flush=True)
+    del eng
+    free_cuda(torch)
+    return rec, tokens
+
+
+def decode_linears_ms(torch, model):
+    """Device ms of a decode tick's linears: each linear (float or
+    converted) timed with CUDA events on an [8, in] bf16 input (the
+    QUANT_ENGINE slots' tokens), summed."""
+    from paddle_tpu_torch.quantization import WeightOnlyLinear
+    g = torch.Generator(device="cuda").manual_seed(19)
+    xs, total = {}, 0.0
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Linear, WeightOnlyLinear)):
+                k = m.in_features
+                if k not in xs:
+                    xs[k] = torch.randn(QUANT_ENGINE["max_slots"], k,
+                                        generator=g, device="cuda",
+                                        dtype=torch.bfloat16)
+                total += cuda_ms(lambda: m(xs[k]))
+    return total
+
+
+def dequantized_copy(torch, model, dtype):
+    """A copy of a converted ``model`` in ``dtype`` whose WeightOnlyLinears
+    are torch.nn.Linears holding weight_dequantize(q, s) (rounded to
+    ``dtype``)."""
+    import copy
+    from paddle_tpu_torch.quantization import WeightOnlyLinear
+    from paddle_tpu_torch.quantization.functional import weight_dequantize
+    ref = copy.deepcopy(model)
+    for mod in list(ref.modules()):
+        for name, c in list(mod.named_children()):
+            if isinstance(c, WeightOnlyLinear):
+                lin = torch.nn.Linear(c.in_features, c.out_features,
+                                      bias=c.bias is not None, device="meta")
+                lin.weight = torch.nn.Parameter(weight_dequantize(
+                    c.weight, c.weight_scale).t().contiguous().to(dtype),
+                    requires_grad=False)
+                if c.bias is not None:
+                    lin.bias = torch.nn.Parameter(c.bias.to(dtype),
+                                                  requires_grad=False)
+                setattr(mod, name, lin)
+    return ref.to(dtype)
+
+
+def quant_closeness(torch, model):
+    """(a)'s closeness gate (QUANT_CLOSE_RATIO)."""
+    b, s = QUANT_TF
+    ids = torch.randint(0, model.config.vocab_size, (b, s),
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            17), device="cuda")
+    with torch.no_grad():
+        got = model(ids).float()
+        ref16 = dequantized_copy(torch, model, torch.bfloat16)
+        want = ref16(ids).float()
+        del ref16
+        ref32 = dequantized_copy(torch, model, torch.float32)
+        exact = ref32(ids).float()
+        del ref32
+    torch.cuda.empty_cache()
+
+    def rel(a, r):
+        return float((a - r).norm() / r.norm())
+    noise = rel(want, exact)
+    rec = dict(rel_l2=rel(got, want), int8_vs_exact=rel(got, exact),
+               bf16_dequant_vs_exact=noise, bound_ratio=QUANT_CLOSE_RATIO,
+               max_abs_err=float((got - want).abs().max()),
+               argmax_equal=float((got.argmax(-1) == want.argmax(-1))
+                                  .float().mean()))
+    rec["ratio"] = max(rec["rel_l2"], rec["int8_vs_exact"]) / max(
+        noise, 1e-30)
+    print(f"  closeness, [{b}, {s}] teacher-forced logits, relative L2: "
+          f"int8 vs the bf16 dequantized weights {rec['rel_l2']:.6f}, int8 "
+          f"vs the exact f32 dequantized model {rec['int8_vs_exact']:.6f}, "
+          f"bf16 dequantized vs exact (bf16's noise) {noise:.6f}: "
+          f"{rec['ratio']:.3f} x the noise (bound {QUANT_CLOSE_RATIO}); "
+          f"argmax equal {rec['argmax_equal']:.4f}", flush=True)
+    if not math.isfinite(rec["ratio"]) or rec["ratio"] > QUANT_CLOSE_RATIO:
+        fail(f"quant closeness: {rec}")
+    return rec
+
+
+def quant_generate(torch, mods, model, launches_of, reset_counts, card):
+    """(b): generate on the int8 model over the paged bf16 and int8 KV
+    caches, each counted on its own (after an uncounted warm-up of 4
+    tokens): the logits of every forward finite, paged-decode launches ==
+    (new - 1) steps x layers on the split kernel, no plain call; ms a
+    decode step (the median interval between forwards on the card's
+    events) and tokens/s."""
+    from paddle_tpu_torch.text import generate
+    b, s, new = QUANT_GEN
+    L = model.config.num_hidden_layers
+    ids = torch.randint(0, model.config.vocab_size, (b, s),
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            18), device="cuda")
+    res, paths = {}, {}
+    for cache in ("bfloat16", "int8"):
+        what = f"quant_generate_{cache}_cache"
+        kw = dict(cache_impl="paged", page_size=16, cache_dtype=cache)
+        generate(model, ids, 4, **kw)
+        events, finite = [], []
+
+        def pre(*_):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+        def post(m, inputs, out):
+            logits = out[0] if isinstance(out, tuple) else out
+            finite.append(torch.isfinite(logits).all())
+        hooks = [model.register_forward_pre_hook(pre),
+                 model.register_forward_hook(post)]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            out = generate(model, ids, new, **kw)
+        finally:
+            for h in hooks:
+                h.remove()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = launches_of()
+        counters = {k: v for k, v in mods.monitor.snapshot().items()
+                    if k.startswith("kernels.")}
+        # -- end of the counted run --
+        steps = new - 1
+        if tuple(out.shape) != (b, s + new) or not bool(
+                torch.stack(finite).all()):
+            fail(f"quant {what}: shape {tuple(out.shape)}, finite logits "
+                 f"{[bool(f) for f in finite]}")
+        if launches["paged_decode"] != steps * L or any(
+                v for k, v in counters.items() if k.endswith("_plain")):
+            fail(f"quant {what}: paged-decode launches "
+                 f"{launches['paged_decode']} != {steps} x {L}, or a plain "
+                 f"call: {counters}")
+        check_paged_split(counters, steps * L, f"quant {what}")
+        dev = sorted(a.elapsed_time(c) for a, c in zip(events[1:],
+                                                       events[2:]))
+        res[what] = dict(batch=b, prompt=s, new_tokens=new, seconds=secs,
+                         tokens_per_s=b * new / secs,
+                         ms_per_step=dev[len(dev) // 2],
+                         forwards=len(events), counters=counters)
+        paths[what] = launches
+        print(f"  {what}: {b} x {new} tokens in {secs:.3f} s = "
+              f"{b * new / secs:.1f} tok/s, a decode step {dev[len(dev) // 2]:.3f} "
+              f"ms (median, events), {launches['paged_decode']} paged-decode "
+              f"launches on {card}", flush=True)
+    return res, paths
+
+
+def int8_linear_check(torch, card):
+    """(c): llm_int8_linear at [T, INT8_K] x [INT8_K, INT8_N]: at threshold
+    0 the card's output equals the CPU route's bit for bit (the int32
+    product is exact on both, the scaling the same f32 elementwise ops);
+    with an outlier column (x 30, threshold 6) within closeness's f32 gate
+    of the CPU's; ms (events) beside bf16 torch.matmul of the same shape
+    and weight_only_linear (int8, per-column scales) on bf16 inputs."""
+    from paddle_tpu_torch.nn import quant
+    g = torch.Generator(device="cuda").manual_seed(31)
+    w = torch.randn(INT8_K, INT8_N, generator=g, device="cuda") * 0.02
+    q, s = quant.weight_quantize(w, algo="llm.int8")
+    qc, sc = q.cpu(), s.cpu()
+    wb = w.to(torch.bfloat16)
+    q8, s8 = quant.weight_quantize(wb)
+    out = []
+    for t in INT8_ROWS:
+        x = torch.randn(t, INT8_K, generator=g, device="cuda")
+        got = quant.llm_int8_linear(x, q, None, s, threshold=0.0)
+        want = quant.llm_int8_linear(x.cpu(), qc, None, sc, threshold=0.0)
+        rec = dict(rows=t, bit_equal=bool(torch.equal(got.cpu(), want)))
+        if not rec["bit_equal"]:
+            fail(f"llm_int8_linear [{t}, {INT8_K}]: the card differs from "
+                 f"the CPU route at threshold 0, max "
+                 f"{max_err(got.cpu(), want)}")
+        if t <= INT8_OUTLIER_ROWS:
+            xo = x.clone()
+            xo[:, 7] *= 30.0
+            c = closeness(quant.llm_int8_linear(xo, q, None, s).cpu(),
+                          quant.llm_int8_linear(xo.cpu(), qc, None, sc))
+            if c["ratio"] > 1:
+                fail(f"llm_int8_linear [{t}, {INT8_K}] with outliers: {c}")
+            rec["outliers"] = c
+            rec["outlier_ms"] = cuda_ms(
+                lambda: quant.llm_int8_linear(xo, q, None, s))
+        xb = x.to(torch.bfloat16)
+        rec.update(ms=cuda_ms(lambda: quant.llm_int8_linear(
+            x, q, None, s, threshold=0.0)),
+            bf16_matmul_ms=cuda_ms(lambda: xb @ wb),
+            weight_only_int8_ms=cuda_ms(
+                lambda: quant.weight_only_linear(xb, q8, None, s8)))
+        out.append(rec)
+        print(f"  llm_int8_linear [{t}, {INT8_K}] x [{INT8_K}, {INT8_N}]: "
+              f"bit-equal to the CPU at threshold 0; {rec['ms']:.4f} ms "
+              f"(bf16 matmul {rec['bf16_matmul_ms']:.4f}, weight_only_linear "
+              f"int8 {rec['weight_only_int8_ms']:.4f})"
+              + (f"; outliers {rec['outlier_ms']:.4f} ms at ratio "
+                 f"{rec['outliers']['ratio']:.3f} of the f32 gate"
+                 if "outliers" in rec else "") + f" on {card}", flush=True)
+    return out
+
+
+def fused_ops_check(torch, paddle, card):
+    """(d): the fused functionals at BERT-base widths in f32 on the card
+    against the same calls on the CPU (dropout 0, closeness's f32 gate),
+    FusedTransformerEncoderLayer forward and backward (``_xcheck``), and
+    fused_moe at ERNIE-MoE serving widths in bf16 against the CPU's f32 on
+    the same bf16 inputs (MOE_BF16_*); ms of each on the card."""
+    from paddle_tpu_torch import incubate
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.profile_moe import MOE_SERVE_MODEL
+    B, S, H, NH, FF = FUSED_BERT
+    g = torch.Generator().manual_seed(41)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g) * scale + shift
+    mask = torch.zeros(B, 1, 1, S)
+    mask[::2, ..., S - 16:] = -1e4          # half the batch padded by 16
+    args = {
+        "fused_multi_head_attention": (
+            lambda a: IF.fused_multi_head_attention(
+                a["x"], a["qkv"], a["wo"], ln_scale=a["s1"], ln_bias=a["b1"],
+                qkv_bias=a["bqkv"], linear_bias=a["bo"],
+                attn_mask=a["mask"], dropout_rate=0.0,
+                attn_dropout_rate=0.0),
+            dict(x=rn(B, S, H), qkv=rn(3, NH, H // NH, H, scale=0.02),
+                 wo=rn(H, H, scale=0.02), s1=rn(H, scale=0.1, shift=1.0),
+                 b1=rn(H, scale=0.1), bqkv=rn(3 * H, scale=0.02),
+                 bo=rn(H, scale=0.02), mask=mask)),
+        "fused_feedforward": (
+            lambda a: IF.fused_feedforward(
+                a["x"], a["w1"], a["w2"], a["b1"], a["b2"], a["s1"],
+                a["c1"], a["s2"], a["c2"], dropout1_rate=0.0,
+                dropout2_rate=0.0, activation="gelu"),
+            dict(x=rn(B, S, H), w1=rn(H, FF, scale=0.02),
+                 w2=rn(FF, H, scale=0.02), b1=rn(FF, scale=0.02),
+                 b2=rn(H, scale=0.02), s1=rn(H, scale=0.1, shift=1.0),
+                 c1=rn(H, scale=0.1), s2=rn(H, scale=0.1, shift=1.0),
+                 c2=rn(H, scale=0.1))),
+        "fused_bias_dropout_residual_layer_norm": (
+            lambda a: IF.fused_bias_dropout_residual_layer_norm(
+                a["x"], a["r"], a["b"], a["s"], a["c"], dropout_rate=0.0),
+            dict(x=rn(B, S, H), r=rn(B, S, H), b=rn(H, scale=0.02),
+                 s=rn(H, scale=0.1, shift=1.0), c=rn(H, scale=0.1))),
+    }
+    res = {}
+    for name, (call, a) in args.items():
+        want = call(a)
+        on = {k: v.cuda() for k, v in a.items()}
+        c = closeness(call(on).cpu(), want)
+        c["ms"] = cuda_ms(lambda: call(on))
+        res[name] = c
+        print(f"  {name} [{B}, {S}, {H}] f32: ratio {c['ratio']:.4f} of "
+              f"closeness's f32 gate, {c['ms']:.4f} ms on {card}",
+              flush=True)
+        if c["ratio"] > 1:
+            fail(f"{name} on the card vs the CPU: {c}")
+    x_enc = rn(B, S, H).numpy()
+
+    def grads_of(net, x):
+        """The loss and every parameter's gradient; a parameter the layer
+        does not use (the post-LN blocks' pre-LN ones) has zeros."""
+        loss = (net(x) ** 2).mean()
+        loss.backward()
+        return loss, {k: torch.zeros_like(p._data) if p.grad is None
+                      else p.grad._data for k, p in net.named_parameters()}
+
+    def timed(net, grads):
+        x = paddle.to_tensor(x_enc)
+        fwd = cuda_ms(lambda: net(x), iters=10)
+        fb = cuda_ms(lambda: (net(x) ** 2).mean().backward(), iters=10)
+        return dict(forward_ms=fwd, forward_backward_ms=fb)
+    enc = _xcheck(paddle, lambda: incubate.nn.FusedTransformerEncoderLayer(
+        H, NH, FF, dropout_rate=0.0, activation="gelu"), [x_enc], None,
+        then=timed, grads_of=grads_of)
+    res["fused_transformer_encoder_layer"] = enc
+    print(f"  FusedTransformerEncoderLayer [{B}, {S}, {H}] f32: loss and "
+          f"{enc['grads']} gradients within closeness's f32 gate (worst "
+          f"{enc['worst_grad']} at {enc['worst_grad_ratio']:.4f}); forward "
+          f"{enc['forward_ms']:.3f} ms, forward + backward "
+          f"{enc['forward_backward_ms']:.3f} ms on {card}", flush=True)
+    d, f = MOE_SERVE_MODEL["hidden_size"], MOE_SERVE_MODEL["intermediate_size"]
+    e = MOE_SERVE_MODEL["num_experts"]
+    n, t = FUSED_MOE_TOKENS
+    bf = [v.to(torch.bfloat16) for v in (
+        rn(n, t, d), rn(n, t, e), rn(e, d, 2 * f, scale=0.02),
+        rn(e, f, d, scale=0.02))]
+    want = IF.fused_moe(*(v.float() for v in bf), moe_topk=2)
+    on = [v.cuda() for v in bf]
+    got = IF.fused_moe(*on, moe_topk=2).cpu()
+    rms = float(want.square().mean().sqrt())
+    c = closeness(got, want, rtol=MOE_BF16_RTOL, atol=MOE_BF16_ATOL_RMS * rms)
+    c["ms"] = cuda_ms(lambda: IF.fused_moe(*on, moe_topk=2), iters=10)
+    c["rms_err_over_rms"] = float((got.float() - want).square().mean()
+                                  .sqrt()) / rms
+    res["fused_moe"] = c
+    print(f"  fused_moe [{n}, {t}, {d}] x {e} experts (FFN {f}, top 2) bf16 "
+          f"vs the CPU's f32: ratio {c['ratio']:.4f} of the bf16 gate, rms "
+          f"error {c['rms_err_over_rms']:.6f} of the rms, {c['ms']:.3f} ms "
+          f"on {card}", flush=True)
+    if c["ratio"] > 1:
+        fail(f"fused_moe on the card vs the CPU: {c}")
+    return res
+
+
+def quant_main_path(torch, paddle, mods, launches_of, reset_counts, card):
+    """Phase 23: (a) phase 20's 24-request decoder trace served by
+    QUANT_ENGINE over phase 4's LLaMA at bf16 weights, then converted by
+    quantize_for_inference to int8 (also at multi_tick 8: no graph
+    captured after the warm pass) and to int4 (group-16 scales), each
+    built from seed 0 and counted on its own (``quant_serve``), with the
+    conversion's gates (29 WeightOnlyLinears, no float linear left, the
+    linears' bytes within QUANT_BYTES_LIMIT of bf16's) and the closeness
+    gate on the int8 model; (b) generate on the int8 model; (c)
+    llm_int8_linear; (d) the fused ops. Returns (records, launches by
+    counted run)."""
+    from paddle_tpu_torch.quantization import WeightOnlyLinear
+    print("weight-only quantized serving:", flush=True)
+    res, paths = {}, {}
+    model, _ = quant_model(torch, mods, "bfloat16")
+    trace = quant_trace(model.config.vocab_size)
+    res["bfloat16"], ref = quant_serve(torch, mods, "bfloat16", model,
+                                       trace, None, launches_of,
+                                       reset_counts, card)
+    bf16_linear_bytes = res["bfloat16"]["linear_bytes"]
+    del model
+    free_cuda(torch)
+    for wd in ("int8", "int4"):
+        model, conv_s = quant_model(torch, mods, wd)
+        n_wol = sum(isinstance(m, WeightOnlyLinear) for m in model.modules())
+        n_float = sum(isinstance(m, torch.nn.Linear)
+                      for m in model.modules())
+        L = model.config.num_hidden_layers
+        if n_wol != 7 * L + 1 or n_float:
+            fail(f"quant {wd}: {n_wol} WeightOnlyLinears (want {7 * L + 1}),"
+                 f" {n_float} float linears left")
+        rec, _ = quant_serve(torch, mods, wd, model, trace, ref,
+                             launches_of, reset_counts, card)
+        rec.update(weight_only_linears=n_wol, convert_s=conv_s,
+                   linear_bytes_ratio=rec["linear_bytes"]
+                   / bf16_linear_bytes)
+        print(f"  {wd}: {n_wol} WeightOnlyLinears converted in "
+              f"{conv_s:.2f} s; the linears' bytes "
+              f"{rec['linear_bytes_ratio']:.4f} of bf16's (limit "
+              f"{QUANT_BYTES_LIMIT[wd]})", flush=True)
+        if rec["linear_bytes_ratio"] > QUANT_BYTES_LIMIT[wd]:
+            fail(f"quant {wd}: linears at {rec['linear_bytes_ratio']} of "
+                 f"bf16's bytes")
+        res[wd] = rec
+        if wd == "int8":
+            res["int8_multi_tick_8"], _ = quant_serve(
+                torch, mods, "int8", model, trace, ref, launches_of,
+                reset_counts, card, multi_tick=8)
+            res["closeness"] = quant_closeness(torch, model)
+            gen, gen_paths = quant_generate(torch, mods, model, launches_of,
+                                            reset_counts, card)
+            res.update(gen)
+            paths.update(gen_paths)
+        del model
+        free_cuda(torch)
+    for wd in ("bfloat16", "int8", "int8_multi_tick_8", "int4"):
+        paths[f"quant_serving_{wd}"] = res[wd].pop("launches")
+    res["llm_int8_linear"] = int8_linear_check(torch, card)
+    res["fused_ops"] = fused_ops_check(torch, paddle, card)
+    torch.cuda.empty_cache()
+    return res, paths
+
+
 # -- phase 6b: the serving accelerators ------------------------------------
 
 #: the draft length of bench.py's speculative serving extras
@@ -5520,6 +6096,12 @@ def main():
     predictor = predictor_main_path(torch, mods, launches_of, reset_counts,
                                     card)
 
+    # 23. weight-only int8 / int4 serving at phase 4's widths (each run
+    # counted on its own), generate on the int8 model, llm_int8_linear and
+    # the fused ops against the CPU
+    quant, quant_paths = quant_main_path(torch, paddle, mods, launches_of,
+                                         reset_counts, card)
+
     src = "paddle_tpu_torch/csrc/"
 
     def replay_by_path(kernel):
@@ -5530,6 +6112,10 @@ def main():
 
     def accel_by_path(kernel):
         return {p: l[kernel] for p, l in accel_paths.items()}
+
+    def quant_by_path(kernel):
+        """Phase 23's launches of ``kernel``, by counted run."""
+        return {p: l[kernel] for p, l in quant_paths.items()}
 
     def moe_accel(route):
         return {p: r["grouped_ffn_routes"][route] for p, r in accel.items()
@@ -5545,10 +6131,14 @@ def main():
     es_l, bt_l = enc_serving["launches"], bert_training["launches"]
     # launches by route: the bf16 training paths run the tc kernels, the
     # f32 serving paths the tf32x3 forward (their counter snapshots)
+    # phase 23's counted runs, by the names of quant_paths
+    quant_runs = {(p if p.startswith("quant_") else f"quant_serving_{p}"):
+                  r for p, r in quant.items()
+                  if isinstance(r, dict) and "counters" in r}
     tc_paths = {"training": training, "moe_training": moe_training,
                 "bert_training": bert_training, "eager_training": eager,
                 **{f"recipe_{g}": r for g, r in recipe["runs"].items()},
-                "hapi": hapi}
+                "hapi": hapi, **quant_runs}
     f32_paths = {"serving": dict(counters=counters),
                  "encoder_serving": enc_serving,
                  "one_shot_padded": one_shot["one_shot_padded"],
@@ -5599,11 +6189,13 @@ def main():
              replaces="paddle_tpu/kernels/paged_attention.py:278",
              launches=launches["paged_decode"] + ms_l["paged_decode"] + sum(
                  accel_by_path("paged_decode").values()) + sum(
-                 replay_by_path("paged_decode").values()),
+                 replay_by_path("paged_decode").values()) + sum(
+                 quant_by_path("paged_decode").values()),
              launches_by_path={"serving": launches["paged_decode"],
                                "moe_serving": ms_l["paged_decode"],
                                **accel_by_path("paged_decode"),
-                               **replay_by_path("paged_decode")},
+                               **replay_by_path("paged_decode"),
+                               **quant_by_path("paged_decode")},
              launches_split={"serving": decode_routes["split"],
                              "moe_serving": moe_serving[
                                  "paged_decode_routes"]["split"],
@@ -5613,7 +6205,10 @@ def main():
                              **{f"replay_{w}": int(r["counters"].get(
                                  "kernels.decode.paged_cuda_split", 0))
                                 for w, r in replay.items()
-                                if "counters" in r}},
+                                if "counters" in r},
+                             **{p: int(r["counters"].get(
+                                 "kernels.decode.paged_cuda_split", 0))
+                                for p, r in quant_runs.items()}},
              moe_serving_case={k: moe_paged[k] for k in (
                  "case", "max_abs_err", "ratio", "wrapper_ratio", "ms",
                  "pool_copies", "wrapper_ms", "plain_ms", "bound_ms",
@@ -5873,7 +6468,8 @@ def main():
                   eager_cross_check=eager_xcheck, eager_training=eager,
                   replay=replay, eager_new_surface=surface,
                   hapi_cross_check=hapi_xcheck, hapi=hapi,
-                  predictor=predictor, kernels=kernels)
+                  predictor=predictor, quantized_serving=quant,
+                  kernels=kernels)
     (OUT_DIR / "result.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,11 @@ get_params`` gives them (``llama.layers.0.self_attn.q_proj.weight``,
 names. The one layout
 difference: a paddle Linear weight is [in, out], a ``torch.nn.Linear``
 weight is [out, in], so every 2-D weight of a Linear is transposed.
-Embedding ([vocab, hidden]) and norm parameters cross as they are. Any
+Embedding ([vocab, hidden]) and norm parameters cross as they are. A
+linear converted by ``quantize_for_inference`` keeps the JAX layout in
+both packages (``weight`` int8 [in, out] beside its ``weight_scale``, and
+``bias``): such a weight, known by its int8 dtype or its sibling
+``weight_scale``, crosses untransposed with its buffers. Any
 optimizer's state ({name: {slot: array}}, the JAX ``TrainStep``'s
 ``_opt_state``: Adam's moments and beta powers, Momentum's velocity,
 NAdam's step, ...) crosses the same way: a Linear's slots shaped like
@@ -28,14 +32,23 @@ LINEAR_SUFFIXES = ("_proj.weight", "lm_head.weight", ".qkv.weight",
                    "pooler.weight", "transform.weight", "nsp_head.weight")
 
 
+def _float_linear(name, state, dtype) -> bool:
+    """Whether ``name`` is the weight of a float Linear (transposed across),
+    not of a quantized one (int8, or with a ``weight_scale`` beside it)."""
+    return (name.endswith(LINEAR_SUFFIXES)
+            and str(dtype) not in ("int8", "torch.int8")
+            and name + "_scale" not in state)
+
+
 def llama_state_from_numpy(params: Dict[str, np.ndarray]
                            ) -> Dict[str, torch.Tensor]:
     """{name: array} in the JAX package's layout -> a state_dict for
-    ``paddle_tpu_torch.text.models.LlamaForCausalLM.load_state_dict``."""
+    ``paddle_tpu_torch.text.models.LlamaForCausalLM.load_state_dict`` (of
+    a converted model too: its buffers are among the arrays)."""
     out = {}
     for name, arr in params.items():
         a = np.asarray(arr)
-        if name.endswith(LINEAR_SUFFIXES):
+        if _float_linear(name, params, a.dtype):
             if a.ndim != 2:
                 raise ValueError(f"{name}: expected a 2-D Linear weight, "
                                  f"got shape {a.shape}")
@@ -52,7 +65,7 @@ def llama_state_to_numpy(state: Dict[str, torch.Tensor]
     for name, t in state.items():
         a = t.detach().cpu().numpy()
         out[name] = np.ascontiguousarray(
-            a.T if name.endswith(LINEAR_SUFFIXES) else a)
+            a.T if _float_linear(name, state, t.dtype) else a)
     return out
 
 

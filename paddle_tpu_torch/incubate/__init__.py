@@ -1,3 +1,34 @@
-from . import distributed, nn
+"""paddle.incubate (counterpart of ``paddle_tpu/incubate``): the fused
+ops and layers (``nn``), ``LookAhead`` / ``ModelAverage`` and the
+functional minimizers (``optimizer``), ``asp``, ``autograd``,
+``autotune``, the MoE stack (``distributed``), ``identity_loss`` and the
+softmax-mask fusions, and ``inference`` (resolved on first access: it
+pulls in the serving stack, which imports this package).
 
-__all__ = ["distributed", "nn"]
+The graph and segment ops of the JAX package (``graph_khop_sampler``,
+``graph_reindex``, ``graph_sample_neighbors``, ``graph_send_recv``,
+``segment_{sum,mean,max,min}``) wait for the port's ``geometric``."""
+from . import asp, autograd, autotune, distributed, nn, optimizer
+from ..nn.functional.common import (  # noqa: F401
+    fused_softmax_mask as softmax_mask_fuse,
+    fused_softmax_mask_upper_triangle as softmax_mask_fuse_upper_triangle)
+from ..nn.functional.loss import identity_loss  # noqa: F401
+from .optimizer import LookAhead, ModelAverage  # noqa: F401
+
+__all__ = ["asp", "autograd", "autotune", "distributed", "nn",
+           "optimizer", "inference", "LookAhead", "ModelAverage",
+           "identity_loss", "softmax_mask_fuse",
+           "softmax_mask_fuse_upper_triangle"]
+
+
+def __getattr__(name):
+    if name == "inference":
+        import importlib
+        mod = importlib.import_module("paddle_tpu_torch.inference")
+        globals()["inference"] = mod
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | {"inference"})

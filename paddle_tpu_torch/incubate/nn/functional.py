@@ -1,11 +1,27 @@
-"""Fused and decode ops of the LLaMA path (counterparts of
+"""Fused and decode ops (counterparts of
 ``paddle_tpu/incubate/nn/functional/__init__.py``):
 ``fused_rotary_position_embedding`` (:92), ``fused_linear_cross_entropy``
-(:173) and the decode-op surface — ``masked_multihead_attention``
+(:173), the decode-op surface — ``masked_multihead_attention``
 (:554), ``variable_length_memory_efficient_attention`` (:657),
 ``paged_attention`` / ``paged_write`` / ``paged_quant_write`` (:689-724),
 ``block_multihead_attention`` (:725, refused as there) and
-``blha_get_max_len`` (:742).
+``blha_get_max_len`` (:742) — and the fused-op batch: ``fused_moe``
+(:15), ``fused_rms_norm`` (:68), ``fused_linear`` (:234),
+``fused_matmul_bias`` (:246), ``fused_linear_activation`` (:262),
+``fused_bias_act`` (:271), ``fused_dropout_add`` (:295),
+``fused_layer_norm`` (:317), ``fused_bias_dropout_residual_layer_norm``
+(:346), ``fused_feedforward`` (:383), ``fused_multi_head_attention``
+(:452) and ``fused_multi_transformer`` (:543, refused as there).
+
+The fused-op batch is plain PyTorch, as the JAX ops are plain ``jnp``
+compositions (no Pallas kernel in any of them), and follows
+``nn.functional``'s rule: surface Tensors in and out, or raw torch
+tensors in and out. ``fused_moe`` runs every expert on every token, as
+the JAX one does; it is not the grouped-FFN kernel of ``MoELayer``.
+Their dropouts draw f32 uniforms from the port's generator of the
+input's device (``core.random``): the JAX threefry masks cannot be
+reproduced, so only the rate and the scaling agree. "gelu" is the tanh
+approximation, ``jax.nn.gelu``'s default.
 
 ``paged_attention`` runs ``kernels.paged_attention.paged_decode``: the
 CUDA paged-decode kernel on a CUDA tensor, its plain version on a CPU
@@ -18,6 +34,13 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as TF
+
+from ...core import random as random_mod
+from ...core.dispatch import surface
+from ...nn.functional.activation import swiglu  # noqa: F401
+from ...nn.functional.common import dropout
+from ...nn.functional.norm import rms_norm
 
 
 def _rope_tables(d, position_ids, s_len, dtype, device, neox=True):
@@ -346,3 +369,284 @@ def blha_get_max_len(seq_lens_encoder, seq_lens_decoder, batch_size=None,
     dec = torch.as_tensor(seq_lens_decoder)
     return (torch.tensor([int(enc.max())], device=enc.device),
             torch.tensor([int(dec.max())], device=dec.device))
+
+
+# -- the fused-op batch -------------------------------------------------------
+
+def _gelu(a):
+    return TF.gelu(a, approximate="tanh")
+
+
+def _relu(a):
+    return torch.clamp(a, min=0)
+
+
+def _drop(a, rate, training, mode):
+    """``nn.functional.dropout`` of a raw tensor, its mask from the port's
+    generator of a's device."""
+    return dropout(a, rate, training=training, mode=mode,
+                   generator=random_mod.generator(a.device))
+
+
+def _ln(a, scale, bias, eps, axes=(-1,)):
+    """LayerNorm over ``axes`` with the population variance, as the JAX
+    compositions write it ((a - mean) / sqrt(var + eps))."""
+    mean = a.mean(dim=axes, keepdim=True)
+    var = a.var(dim=axes, keepdim=True, unbiased=False)
+    out = (a - mean) / torch.sqrt(var + eps)
+    if scale is not None:
+        out = out * scale
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def _fused_moe(xx, gl, w1, w2, b1, b2, moe_topk, norm_topk_prob):
+    # ties to the lowest index, as jax.lax.top_k (imported here: the text
+    # package imports this module through its models)
+    from ...text.generation import _top_k_first
+    probs = torch.softmax(gl.float(), dim=-1)
+    topv, topi = _top_k_first(probs, moe_topk)             # [b, s, k]
+    if norm_topk_prob:
+        topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    h = torch.einsum("bsd,edf->besf", xx, w1)
+    if b1 is not None:
+        h = h + b1.reshape(1, w1.shape[0], 1, -1)
+    a, g = h.chunk(2, dim=-1)
+    y = torch.einsum("besf,efd->besd", TF.silu(a) * g, w2)
+    if b2 is not None:
+        y = y + b2.reshape(1, w2.shape[0], 1, -1)
+    comb = (TF.one_hot(topi, gl.shape[-1]).to(topv.dtype)
+            * topv[..., None]).sum(dim=-2)                  # [b, s, E]
+    return torch.einsum("bse,besd->bsd", comb.to(y.dtype), y)
+
+
+def fused_moe(x, gate_weight, ffn1_weight, ffn2_weight, ffn1_bias=None,
+              ffn1_scale=None, ffn2_bias=None, ffn2_scale=None,
+              quant_method="None", moe_topk=2, norm_topk_prob=True):
+    """Mixture-of-experts SwiGLU FFN, every expert on every token (:15):
+    x [b, s, d]; ``gate_weight`` the per-token gate logits [b, s, E];
+    ``ffn1_weight`` [E, d, 2 dff] (the gate and up halves), ``ffn2_weight``
+    [E, dff, d], biases [E, 1, 2 dff] / [E, 1, d]. The top-k gate
+    probabilities (renormalised with ``norm_topk_prob``) combine the
+    experts' outputs. Quantized experts are refused, as in the JAX
+    package."""
+    if quant_method not in (None, "None", "none"):
+        raise NotImplementedError("fused_moe quant_method is not supported")
+    if ffn1_scale is not None or ffn2_scale is not None:
+        raise NotImplementedError(
+            "fused_moe dequantization scales require a quant_method, "
+            "which is not supported")
+    return surface("fused_moe", lambda *a: _fused_moe(
+        *a, moe_topk, norm_topk_prob),
+        [x, gate_weight, ffn1_weight, ffn2_weight, ffn1_bias, ffn2_bias])
+
+
+def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6,
+                   begin_norm_axis=-1):
+    """RMS norm over the dims from ``begin_norm_axis`` on (:68)."""
+    ndim = len(x.shape)
+    ax = begin_norm_axis % ndim
+    if ax == ndim - 1:
+        out = rms_norm(x, norm_weight, epsilon=epsilon)
+        return out + norm_bias if norm_bias is not None else out
+    axes = tuple(range(ax, ndim))
+
+    def fn(a, w, b):
+        ms = a.float().square().mean(dim=axes, keepdim=True)
+        out = a * torch.reciprocal(torch.sqrt(ms + epsilon)).to(a.dtype) * w
+        return out if b is None else out + b
+    return surface("fused_rms_norm", fn, [x, norm_weight, norm_bias])
+
+
+def fused_linear(x, weight, bias=None, transpose_weight=False, name=None):
+    """x @ W (+ b); W [in, out], or [out, in] with ``transpose_weight``
+    (:234)."""
+    def fn(a, w, b):
+        out = a @ (w.t() if transpose_weight else w)
+        return out if b is None else out + b
+    return surface("fused_linear", fn, [x, weight, bias])
+
+
+def fused_matmul_bias(x, y, bias=None, transpose_x=False,
+                      transpose_y=False, name=None):
+    """op(x) @ op(y) (+ bias), op a transpose of the last two axes when
+    asked (:246)."""
+    def fn(a, b, c):
+        if transpose_x:
+            a = a.transpose(-2, -1)
+        if transpose_y:
+            b = b.transpose(-2, -1)
+        out = a @ b
+        return out if c is None else out + c
+    return surface("fused_matmul_bias", fn, [x, y, bias])
+
+
+_LINEAR_ACTS = {"gelu": _gelu, "relu": _relu, "none": lambda a: a}
+
+
+def fused_linear_activation(x, y, bias, trans_x=False, trans_y=False,
+                            activation="gelu", name=None):
+    """act(fused_matmul_bias(...)), act one of gelu, relu, none (:262)."""
+    out = fused_matmul_bias(x, y, bias, trans_x, trans_y)
+    return surface("fused_act", _LINEAR_ACTS[activation], [out])
+
+
+def _gated(act):
+    def fn(v):
+        u, g = v.chunk(2, dim=-1)
+        return act(u) * g
+    return fn
+
+
+_BIAS_ACTS = {"gelu": _gelu, "relu": _relu, "swiglu": _gated(TF.silu),
+              "geglu": _gated(_gelu)}
+
+
+def fused_bias_act(x, bias=None, dequant_scales=None, shift=None,
+                   smooth=None, act_method="gelu", compute_dtype="default",
+                   quant_scale=-1, quant_round_type=0, quant_max_bound=0,
+                   quant_min_bound=0, name=None):
+    """act(x + bias), act one of gelu, relu, swiglu, geglu (:271); the
+    quantization arguments are taken and ignored, as in the JAX
+    package."""
+    act = _BIAS_ACTS[act_method]
+    return surface("fused_bias_act",
+                   lambda a, b: act(a if b is None else a + b), [x, bias])
+
+
+def fused_dropout_add(x, y, p=0.5, training=True, mode="upscale_in_train",
+                      name=None):
+    """dropout(x) + y (:295)."""
+    return surface("fused_dropout_add",
+                   lambda a, b: _drop(a, p, training, mode) + b, [x, y])
+
+
+def fused_layer_norm(x, norm_weight, norm_bias, epsilon=1e-5,
+                     residual_alpha=1.0, begin_norm_axis=1, bias=None,
+                     residual=None, quant_scale=-1, quant_round_type=0,
+                     quant_max_bound=0, quant_min_bound=0, name=None):
+    """LayerNorm over the dims from ``begin_norm_axis`` on of x (+ bias)
+    (+ residual_alpha x residual) (:317); with a residual, returns (out,
+    the pre-norm sum)."""
+    def fn(a, w, b, bi, res):
+        if bi is not None:
+            a = a + bi
+        res_out = None
+        if res is not None:
+            a = a + residual_alpha * res
+            res_out = a
+        axes = tuple(range(begin_norm_axis, a.dim()))
+        shape = (1,) * begin_norm_axis + tuple(a.shape[begin_norm_axis:])
+        out = _ln(a, w.reshape(shape), b.reshape(shape), epsilon, axes)
+        return (out, res_out) if res_out is not None else out
+    return surface("fused_layer_norm", fn,
+                   [x, norm_weight, norm_bias, bias, residual])
+
+
+def fused_bias_dropout_residual_layer_norm(
+        x, residual, bias=None, ln_scale=None, ln_bias=None,
+        dropout_rate=0.5, ln_epsilon=1e-5, training=True,
+        mode="upscale_in_train", name=None):
+    """LayerNorm(dropout(x + bias) + residual) (:346)."""
+    def fn(a, res, bi, s, b):
+        if bi is not None:
+            a = a + bi
+        return _ln(_drop(a, dropout_rate, training, mode) + res, s, b,
+                   ln_epsilon)
+    return surface("fused_bias_dropout_residual_ln", fn,
+                   [x, residual, bias, ln_scale, ln_bias])
+
+
+_FFN_ACTS = {"relu": _relu, "gelu": _gelu}
+
+
+def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,
+                      linear2_bias=None, ln1_scale=None, ln1_bias=None,
+                      ln2_scale=None, ln2_bias=None, dropout1_rate=0.5,
+                      dropout2_rate=0.5, activation="relu",
+                      ln1_epsilon=1e-5, ln2_epsilon=1e-5,
+                      pre_layer_norm=False, training=True, mode=
+                      "upscale_in_train", ring_id=-1, name=None):
+    """The Transformer FFN block (:383): [pre-LN] -> linear1 -> act ->
+    dropout -> linear2 -> dropout -> + residual [-> post-LN, with the ln2
+    parameters, else the ln1 ones]."""
+    act = _FFN_ACTS[activation]
+
+    def fn(a, w1, w2, b1, b2, s1, bb1, s2, bb2):
+        resid = a
+        if pre_layer_norm:
+            a = _ln(a, s1, bb1, ln1_epsilon)
+        h = a @ w1
+        if b1 is not None:
+            h = h + b1
+        h = _drop(act(h), dropout1_rate, training, mode) @ w2
+        if b2 is not None:
+            h = h + b2
+        out = resid + _drop(h, dropout2_rate, training, mode)
+        if not pre_layer_norm:
+            out = _ln(out, s2 if s2 is not None else s1,
+                      bb2 if bb2 is not None else bb1, ln2_epsilon)
+        return out
+    return surface("fused_feedforward", fn,
+                   [x, linear1_weight, linear2_weight, linear1_bias,
+                    linear2_bias, ln1_scale, ln1_bias, ln2_scale, ln2_bias])
+
+
+def fused_multi_head_attention(x, qkv_weight, linear_weight,
+                               pre_layer_norm=False, pre_ln_scale=None,
+                               pre_ln_bias=None, ln_scale=None,
+                               ln_bias=None, pre_ln_epsilon=1e-5,
+                               qkv_bias=None, linear_bias=None,
+                               cache_kv=None, attn_mask=None,
+                               dropout_rate=0.5, attn_dropout_rate=0.5,
+                               ln_epsilon=1e-5, training=True,
+                               mode="upscale_in_train", ring_id=-1,
+                               add_residual=True, num_heads=None,
+                               name=None):
+    """The whole MHA block (:452): [pre-LN] -> QKV -> softmax attention
+    (+ an additive ``attn_mask``) -> dropout -> out projection -> dropout
+    -> + residual [-> post-LN]. qkv_weight [3, heads, head_dim, embed].
+    A ``cache_kv`` is refused, as in the JAX package."""
+    if cache_kv is not None:
+        raise NotImplementedError(
+            "cached decode: use nn.MultiHeadAttention(cache=...); the "
+            "fused kernel's cache layout is not carried")
+
+    def fn(a, wqkv, wo, pls, plb, ls, lb, bqkv, bo, mask):
+        resid = a
+        if pre_layer_norm:
+            a = _ln(a, pls, plb, pre_ln_epsilon)
+        _, heads, d, _ = wqkv.shape
+        qkv = torch.einsum("bse,thde->tbshd", a, wqkv)
+        if bqkv is not None:
+            qkv = qkv + bqkv.reshape(3, 1, 1, heads, d)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+        scores = torch.einsum("bshd,bthd->bhst", q, k) / math.sqrt(d)
+        if mask is not None:
+            scores = scores + mask
+        attn = _drop(torch.softmax(scores, dim=-1), attn_dropout_rate,
+                     training, mode)
+        ctx = torch.einsum("bhst,bthd->bshd", attn, v)
+        out = ctx.reshape(ctx.shape[0], ctx.shape[1], heads * d) @ wo
+        if bo is not None:
+            out = out + bo
+        out = _drop(out, dropout_rate, training, mode)
+        if add_residual:
+            out = out + resid
+        if not pre_layer_norm:
+            out = _ln(out, ls, lb, ln_epsilon)
+        return out
+    return surface("fused_multi_head_attention", fn,
+                   [x, qkv_weight, linear_weight, pre_ln_scale, pre_ln_bias,
+                    ln_scale, ln_bias, qkv_bias, linear_bias, attn_mask])
+
+
+def fused_multi_transformer(*args, **kwargs):
+    """(reference: fused_multi_transformer, a whole decoder stack as one
+    CUDA call). Refused as in the JAX package (:543): stack
+    ``FusedTransformerEncoderLayer``s or ``nn.TransformerEncoder``."""
+    raise NotImplementedError(
+        "build the transformer stack from FusedTransformerEncoderLayer / "
+        "nn.TransformerEncoder layers; this entry's single-call decoder "
+        "stack is not carried")

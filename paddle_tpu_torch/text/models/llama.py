@@ -575,9 +575,12 @@ class LlamaForCausalLM(nn.Module):
                 p.normal_(0.0, init_std, generator=gen)
 
     def _head(self, h):
-        w = self.lm_head.weight if self.lm_head is not None \
-            else self.llama.embed_tokens.weight
-        return torch.nn.functional.linear(h, w)
+        """The LM head module (a ``torch.nn.Linear``, or what
+        ``quantize_for_inference`` put in its place); tied, the embedding
+        weight."""
+        if self.lm_head is not None:
+            return self.lm_head(h)
+        return torch.nn.functional.linear(h, self.llama.embed_tokens.weight)
 
     def forward(self, input_ids, labels=None,
                 attn_mask_startend_row_indices=None, kv_caches=None,
@@ -606,6 +609,12 @@ class LlamaForCausalLM(nn.Module):
             # [H, V] (paddle Linear layout); tied: the embedding transposed
             w = (self.lm_head.weight if self.lm_head is not None
                  else self.llama.embed_tokens.weight).t()
+            if not w.is_floating_point():
+                raise ValueError(
+                    "the fused linear cross entropy needs a float LM head, "
+                    f"but lm_head is a {type(self.lm_head).__name__} holding "
+                    f"{w.dtype} weights (converted by quantize_for_inference)"
+                    ": training a quantized model is not supported")
             return fused_linear_cross_entropy(
                 h, w, torch.as_tensor(labels, device=self.device),
                 n_chunks=self.config.fused_ce_chunks)

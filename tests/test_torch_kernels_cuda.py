@@ -1677,3 +1677,72 @@ def test_hapi_fit_on_card_runs_the_kernels(dev):
     assert snap.get("kernels.flash.fwd_cuda_tf32x3", 0) + snap.get(
         "kernels.flash.fwd_cuda_simt", 0) == layers * steps, snap
     assert math.isfinite(logs["loss"])
+
+
+# -- weight-only quantized serving (quantization, nn.quant) ------------------
+
+@pytest.mark.parametrize("t,k,n", [(1, 64, 40), (8, 64, 40), (17, 24, 16),
+                                   (33, 20, 12), (128, 256, 96)])
+def test_int_mm_route_pads_and_equals_the_cpu(dev, t, k, n):
+    """torch._int_mm wants more than 16 rows and K, N multiples of 8: the
+    wrapper pads with zeros and slices back; the int32 result equals the
+    CPU route's exactly, and so does llm_int8_linear's at threshold 0."""
+    from paddle_tpu_torch.nn import quant
+    g = torch.Generator().manual_seed(t * 7 + k)
+    a = torch.randint(-127, 128, (t, k), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    got = quant.int8_matmul(a.to(dev), b.to(dev))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (t, n)
+    assert torch.equal(got.cpu(), quant.int8_matmul(a, b))
+    x = torch.randn(t, k, generator=g)
+    s = torch.rand(n, generator=g) * 0.01 + 1e-3
+    want = quant.llm_int8_linear(x, b, None, s, threshold=0.0)
+    card = quant.llm_int8_linear(x.to(dev), b.to(dev), None, s.to(dev),
+                                 threshold=0.0)
+    assert torch.equal(card.cpu(), want)
+
+
+@pytest.mark.parametrize("weight_dtype", ["int8", "int4"])
+@pytest.mark.parametrize("k", [1, 8])
+def test_quantized_engine_on_card_matches_cpu(dev, weight_dtype, k):
+    """A converted tiny LLaMA served on the card (multi_tick 1 and 8, the
+    decode ticks as CUDA graphs at 8) against the same converted weights
+    on the CPU: every decode call on the split kernel, no plain call, and
+    the greedy tokens teacher-forced against the CPU's no-cache argmax at
+    >= 0.97 (f32 pool)."""
+    import numpy as np
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.inference import Engine, SamplingParams
+    from paddle_tpu_torch.quantization import (WeightOnlyLinear,
+                                               quantize_for_inference)
+    from paddle_tpu_torch.text import models
+    cfg = models.LlamaConfig.tiny(vocab=128, hidden=128, layers=2, heads=4)
+    cpu = models.LlamaForCausalLM(cfg, device="cpu", seed=0, init_std=0.2)
+    quantize_for_inference(cpu, weight_dtype)
+    card = models.LlamaForCausalLM(cfg, device=dev, seed=0, init_std=0.2)
+    quantize_for_inference(card, weight_dtype)
+    card.load_state_dict({n: v.to(dev) for n, v in cpu.state_dict().items()})
+    assert sum(isinstance(m, WeightOnlyLinear) for m in card.modules()) == 15
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(0, 128, (n,)).astype(np.int64),
+             SamplingParams(max_new_tokens=20)) for n in (9, 30, 17, 44)]
+    eng = Engine(card, max_slots=4, page_size=16, max_context=96,
+                 cache_dtype="float32", multi_tick=k)
+    eng.run(reqs)                       # captures the graphs at k = 8
+    monitor.reset()
+    launches = pa.paged_decode.launches
+    ticks = eng.decode_ticks
+    outs = eng.run(reqs)
+    snap = monitor.snapshot()
+    n_pd = pa.paged_decode.launches - launches
+    assert n_pd == (eng.decode_ticks - ticks) * 2
+    assert snap.get("kernels.decode.paged_cuda") == n_pd
+    assert not any(v for n, v in snap.items() if n.endswith("_plain"))
+    for (prompt, _), o in zip(reqs, outs):
+        assert o.ok and len(o.token_ids) == 20
+        seq = np.concatenate([prompt, np.asarray(o.token_ids[:-1])])
+        with torch.no_grad():
+            want = cpu(torch.from_numpy(seq[None]))[0, len(prompt) - 1:]
+        agree = float((torch.tensor(o.token_ids) == want.argmax(-1))
+                      .float().mean())
+        assert agree >= 0.97, agree

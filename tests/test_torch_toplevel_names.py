@@ -3,7 +3,10 @@ public name of ``paddle_tpu`` exists in ``paddle_tpu_torch`` but for the
 modules not ported yet (listed here; the list only shrinks), the names
 the high-level slice brought resolve after a bare import (lazily, with
 no jax and nothing of ``paddle_tpu`` pulled in), and ``dir()`` lists
-them."""
+them; the quantization slice's ``quantization``, ``nn.quant`` and
+``incubate`` names resolve after a bare import too, and every public name
+of the JAX package's ``quantization`` and ``nn.quant`` modules exists in
+the port's."""
 import os
 import subprocess
 import sys
@@ -84,3 +87,54 @@ def test_high_level_names_resolve_lazily_without_jax():
     assert out.stdout.splitlines() == [
         "[]", "[]", "paddle_tpu_torch.hapi.model paddle_tpu_torch.io "
         "paddle_tpu_torch.hapi", "[]"]
+
+
+#: names the quantization / incubate slice brought, by attribute path
+QUANT_NAMES = ("quantization.WeightOnlyLinear",
+               "quantization.quantize_for_inference", "quantization.PTQ",
+               "quantization.QAT", "quantization.functional.weight_quantize",
+               "nn.quant.weight_only_linear", "nn.quant.llm_int8_linear",
+               "nn.quant.Stub", "nn.quant.quant_layers.FakeQuantAbsMax",
+               "incubate.LookAhead", "incubate.ModelAverage",
+               "incubate.nn.FusedTransformerEncoderLayer",
+               "incubate.nn.functional.fused_moe",
+               "incubate.optimizer.functional.minimize_lbfgs",
+               "incubate.asp.prune_model", "incubate.autograd.forward_grad",
+               "incubate.autotune.set_config", "incubate.softmax_mask_fuse",
+               "incubate.inference.create_predictor")
+
+
+def test_quantization_names_resolve_after_a_bare_import():
+    code = ("import sys\n"
+            "import paddle_tpu_torch as p\n"
+            f"paths = {QUANT_NAMES!r}\n"
+            "def get(path):\n"
+            "    obj = p\n"
+            "    for part in path.split('.'):\n"
+            "        obj = getattr(obj, part, None)\n"
+            "    return obj\n"
+            "print([n for n in paths if get(n) is None])\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines() == ["[]", "[]"]
+
+
+@pytest.mark.parametrize("path", ["quantization", "quantization.functional",
+                                  "quantization.observers",
+                                  "quantization.quanters",
+                                  "quantization.qat", "quantization.layers",
+                                  "nn.quant", "nn.quant.quant_layers"])
+def test_quantization_names_match_jax(path):
+    import importlib
+    jmod = importlib.import_module("paddle_tpu." + path)
+    tmod = importlib.import_module("paddle_tpu_torch." + path)
+    imports = {"annotations", "jax", "jnp", "np", "run_op", "unwrap", "wrap",
+               "torch", "Layer", "copy", "abc"}
+    missing = {n for n in dir(jmod) if not n.startswith("_")} - \
+        set(dir(tmod)) - imports
+    assert missing == set()
