@@ -403,7 +403,36 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    ``fused_feedforward``, ``fused_bias_dropout_residual_layer_norm``,
    ``FusedTransformerEncoderLayer`` forward and backward) within the f32
    gate, and ``fused_moe`` at ERNIE-MoE's serving widths in bf16 against
-   the CPU's f32 within its bf16 gate; ms of each.
+   the CPU's f32 within its bf16 gate; ms of each;
+24. the profiler and debugging surface: (a) phase 19's loop (BERT-base
+   width and depth, 32 x 128, O1 bf16, AdamW), 2 warm steps, then 6
+   steps with the profiler closed, 6 under ``Profiler(timer_only=True)``
+   and, counted (counts to 0 just before, read just after), 6 under
+   ``Profiler(targets=[CPU, GPU], scheduler=make_scheduler(closed=1,
+   ready=1, record=4, repeat=1), profile_memory=True, record_shapes=True,
+   on_trace_ready=export_chrome_tracing(...))``, each step inside
+   ``RecordEvent("train_step")``: the exported trace read back by
+   ``load_profiler_result`` holds as many dispatch spans as
+   ``dispatch.op_count`` rose over the 4 recorded steps and 4
+   ``train_step`` spans; its device lane and the summary's device view
+   list the wgmma forward, dQ and dK/dV at 12 x 4 launches each and
+   ``fused_adam_kernel`` at 4, each equal to its wrapper's count over the
+   window, no plain version run; 4 memory samples whose peaks equal
+   ``torch.cuda.max_memory_allocated()`` read after each step; no shape
+   churn; no build after the first step; the summary's tables and ms a
+   step (events and host) closed, timer-only and recording printed; (b)
+   one step under ``enable_tensor_checker(CHECK_NAN_INF_AND_ABORT)``
+   passes, and (negative control) with an inf in the first layer's query
+   weight the next must raise FloatingPointError naming an op;
+   ``collect_operator_stats`` over one f32 step of phase 19's 2-layer
+   copy gives the same (op, dtype) table on the card and the CPU; (c)
+   ``paddle.device.cuda.memory_allocated()`` equals torch's, the
+   properties' name nvidia-smi's, a matmul on a side ``Stream`` (under
+   ``stream_guard``, ordered by ``Event``s and ``synchronize``) equals
+   the default stream's bit for bit, ``to_dlpack`` / ``from_dlpack``
+   share the tensor's memory, and ``cpp_extension.load`` (g++) +
+   ``register_op`` run a C function forward and backward when the
+   machine has g++.
 
 It prints the card line, a {"kernels": [...]} line (the tensor-core
 forward, dQ and dK/dV as ``flash_fwd`` / ``flash_bwd_dq`` /
@@ -625,8 +654,9 @@ def graph_ms(torch, fn, calls=20, reps=5):
     the kernels (events around eager calls then time the host)."""
     fn()
     torch.cuda.synchronize()
+    from paddle_tpu_torch.inference.decode_graph import gc_paused
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with gc_paused(), torch.cuda.graph(g):
         for _ in range(calls):
             fn()
     g.replay()
@@ -4697,6 +4727,385 @@ def quant_main_path(torch, paddle, mods, launches_of, reset_counts, card):
     return res, paths
 
 
+# -- phase 24: the profiler and debugging surface ---------------------------
+
+#: phase 24's schedule: one closed step, one READY step (the torch
+#: profiler's CUPTI set-up), PROFILE_RECORD recorded steps, once
+PROFILE_RECORD = 4
+PROFILE_SCHEDULE = dict(closed=1, ready=1, record=PROFILE_RECORD, repeat=1)
+PROFILE_STEPS = 2 + PROFILE_RECORD
+#: kernels the device view must show, by the wrapper count they equal
+PROFILE_KERNELS = {"flash_fwd_wgmma_kernel": "flash_fwd",
+                   "flash_bwd_dq_wgmma_kernel": "flash_bwd_dq",
+                   "flash_bwd_dkv_wgmma_kernel": "flash_bwd_dkv",
+                   "fused_adam_kernel": "fused_adam"}
+#: the torch profiler's own traces (large; not brought back)
+PROFILE_LOG_DIR = ROOT / "build" / "profiler_log"
+
+
+def _profiled_loop(torch, ep, model, opt, batch, steps, prof=None,
+                   probe=None):
+    """``steps`` steps of phase 19's loop, each inside
+    ``RecordEvent("train_step")``, the card synchronised after each, then
+    ``prof.step()`` when a profiler runs. ``probe(i, where)`` runs before
+    step i's body ("before"), after its synchronize ("body") and after
+    its ``prof.step()`` ("after"). Returns per step (host s to enqueue,
+    wall s to the synchronize, events ms, prof.step() s)."""
+    from paddle_tpu_torch.profiler import RecordEvent
+    enq, wall, ev, pstep = [], [], [], []
+    for i in range(steps):
+        if probe:
+            probe(i, "before")
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        with RecordEvent("train_step"):
+            loss = ep.forward_loss(model, batch)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+        e1.record()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        enq.append(t1 - t0)
+        wall.append(t2 - t0)
+        ev.append(e0.elapsed_time(e1))
+        if probe:
+            probe(i, "body")
+        t3 = time.perf_counter()
+        if prof is not None:
+            prof.step()
+        pstep.append(time.perf_counter() - t3)
+        if probe:
+            probe(i, "after")
+    return enq, wall, ev, pstep
+
+
+def _step_medians(enq, wall, ev, window):
+    med = statistics.median
+    return dict(ms_per_step=med(wall[window]) * 1e3,
+                events_ms_per_step=med(ev[window]),
+                host_ms_per_step=med(enq[window]) * 1e3,
+                step_ms=[w * 1e3 for w in wall[window]])
+
+
+def profiler_main_path(torch, paddle, ep, dispatch, launches_of,
+                       reset_counts, card):
+    """Phase 24 (a): phase 19's loop at BERT-base width and depth under
+    ``paddle.profiler`` (targets CPU + GPU, one closed, one READY and
+    PROFILE_RECORD recorded steps, memory and shapes recorded, the
+    chrome trace exported), counts set to 0 just before and read just
+    after; beside it the same loop with the profiler closed and with
+    ``timer_only=True``."""
+    from paddle_tpu_torch import profiler as P
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    model = ep.build_model()
+    opt = ep.make_optimizer(model)
+    batch, _ = ep.fixed_batch()
+    window = slice(2, PROFILE_STEPS)       # the recorded steps
+    _profiled_loop(torch, ep, model, opt, batch, 2)          # warm
+    closed = _step_medians(*_profiled_loop(
+        torch, ep, model, opt, batch, PROFILE_STEPS)[:3], window)
+
+    def profiler(**kw):
+        return P.Profiler(
+            targets=[P.ProfilerTarget.CPU, P.ProfilerTarget.GPU],
+            scheduler=P.make_scheduler(**PROFILE_SCHEDULE),
+            profile_memory=True, record_shapes=True,
+            log_dir=str(PROFILE_LOG_DIR), **kw)
+
+    with profiler(timer_only=True) as p:
+        timer_only = _step_medians(*_profiled_loop(
+            torch, ep, model, opt, batch, PROFILE_STEPS, p)[:3], window)
+
+    seen = {}
+
+    def on_trace_ready(prof):
+        P.export_chrome_tracing(str(OUT_DIR / "profiler"))(prof)
+        rt = prof.runtime_stats   # its collectors are replaced after this
+        seen.update(summary=prof.summary(row_limit=12),
+                    data=prof.statistic_data, ops=rt.ops,
+                    compiles=rt.compiles, memory=rt.memory)
+
+    marks = {}
+
+    def probe(i, where):
+        if (i, where) in ((window.start, "before"),
+                          (window.stop - 1, "body")):
+            marks[where] = (launches_of(), dispatch.op_count)
+        if where == "after" and window.start <= i < window.stop:
+            marks.setdefault("max_allocated", []).append(
+                torch.cuda.max_memory_allocated())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with profiler(on_trace_ready=on_trace_ready) as p:
+        enq, wall, ev, pstep = _profiled_loop(torch, ep, model, opt, batch,
+                                              PROFILE_STEPS, p, probe)
+    launches = launches_of()
+    counters = {k: v for k, v in paddle.monitor.snapshot().items()
+                if k.startswith("kernels.")}
+    # -- end of the counted path --
+    recording = _step_medians(enq, wall, ev, window)
+    trace = P.load_profiler_result(p.last_trace_path)
+    (l0, n0), (l1, n1) = marks["before"], marks["body"]
+    xs = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    ops_in_trace = sum(e["cat"] == "op" for e in xs)
+    steps_in_trace = sum(e["cat"] == "user" and e["name"] == "train_step"
+                         for e in xs)
+    in_trace = {}
+    for e in xs:
+        if e["cat"] == "kernel":
+            in_trace[e["name"]] = in_trace.get(e["name"], 0) + 1
+    view = seen["data"].kernel_stats
+    want = {k: l1[w] - l0[w] for k, w in PROFILE_KERNELS.items()}
+    got = {k: (in_trace.get(k, 0), view.get(k, {}).get("calls", 0))
+           for k in PROFILE_KERNELS}
+    layers = ep.MODEL["layers"]
+    expect = {k: (PROFILE_RECORD if w == "fused_adam" else
+                  layers * PROFILE_RECORD)
+              for k, w in PROFILE_KERNELS.items()}
+    if ops_in_trace != n1 - n0:
+        fail(f"profiler: {ops_in_trace} dispatch spans in the trace, "
+             f"dispatch.op_count rose by {n1 - n0} over the window")
+    if steps_in_trace != PROFILE_RECORD:
+        fail(f"profiler: {steps_in_trace} train_step spans, expected "
+             f"{PROFILE_RECORD}")
+    if any(got[k] != (want[k], want[k]) or want[k] != expect[k]
+           for k in PROFILE_KERNELS):
+        fail(f"profiler device view (trace, summary) {got}, wrapper "
+             f"counts over the window {want}, expected {expect}")
+    plain = {k: v for k, v in counters.items()
+             if (k.endswith("_plain") or "fallback" in k) and v}
+    if plain:
+        fail(f"profiled path ran plain versions: {plain}")
+    samples = seen["memory"].samples
+    peaks = [s["peak_bytes_in_use"] for s in samples]
+    if len(samples) != PROFILE_RECORD or \
+            peaks != marks["max_allocated"] or \
+            {s["source"] for s in samples} != {"device"} or \
+            seen["memory"].peak() != marks["max_allocated"][-1]:
+        fail(f"profiler memory samples {samples} against "
+             f"max_memory_allocated {marks['max_allocated']}")
+    churn = seen["ops"].shape_churn_report()
+    recompiles = seen["compiles"].steady_state_recompiles()
+    if churn or recompiles:
+        fail(f"profiler: shape churn {churn}, steady-state builds "
+             f"{recompiles}")
+    ops_top = sorted(((n, st.calls, st.total_s * 1e3)
+                      for n, st in seen["ops"].stats.items()),
+                     key=lambda r: -r[2])[:10]
+    kernels_top = sorted(((n, s["calls"], s["total_ms"])
+                          for n, s in view.items()),
+                         key=lambda r: -r[2])[:10]
+    busy_ms = sum(s["total_ms"] for s in view.values()) / PROFILE_RECORD
+    (OUT_DIR / "profiler" / "summary.txt").write_text(seen["summary"])
+    trace_mb = sum(f.stat().st_size for f in PROFILE_LOG_DIR.glob(
+        "*.pt.trace.json")) / 1e6
+    rec = dict(layers=layers, batch=ep.BATCH, seq=ep.SEQ,
+               schedule=PROFILE_SCHEDULE, closed=closed,
+               timer_only=timer_only, recording=recording,
+               prepare_s=pstep[0], trace_ready_s=pstep[window.stop - 1],
+               ops_per_step=(n1 - n0) / PROFILE_RECORD,
+               device_kernels=got, wrapper_launches=want,
+               device_busy_ms_per_step=busy_ms,
+               device_busy_share=busy_ms / recording["ms_per_step"],
+               memory_peaks=peaks, peak_mem_gb=peaks[-1] / 1e9,
+               ops_top=ops_top, kernels_top=kernels_top,
+               chrome_trace=str(Path(p.last_trace_path).relative_to(ROOT)),
+               chrome_trace_mb=Path(p.last_trace_path).stat().st_size / 1e6,
+               torch_trace_mb=trace_mb, launches=launches,
+               counters=counters)
+    print(seen["summary"], flush=True)
+    print(f"profiler (phase 19's loop, {layers} layers, batch {ep.BATCH} x "
+          f"{ep.SEQ}, O1 bf16): ms a step, median of the {PROFILE_RECORD} "
+          f"recorded steps (events / host to enqueue): closed "
+          f"{closed['ms_per_step']:.2f} ({closed['events_ms_per_step']:.2f}"
+          f" / {closed['host_ms_per_step']:.2f}), timer_only "
+          f"{timer_only['ms_per_step']:.2f} "
+          f"({timer_only['events_ms_per_step']:.2f} / "
+          f"{timer_only['host_ms_per_step']:.2f}), recording "
+          f"{recording['ms_per_step']:.2f} "
+          f"({recording['events_ms_per_step']:.2f} / "
+          f"{recording['host_ms_per_step']:.2f}); READY (CUPTI set-up) "
+          f"{pstep[0]:.2f} s, trace ready (stop, export) "
+          f"{pstep[window.stop - 1]:.2f} s; {rec['ops_per_step']:.0f} ops "
+          f"a step; device view {got} == wrapper counts {want}; device "
+          f"busy {busy_ms:.2f} ms a step ({rec['device_busy_share']:.3f}); "
+          f"peak {peaks[-1] / 1e9:.2f} GB == max_memory_allocated; top ops "
+          f"{[(n, c, round(ms, 2)) for n, c, ms in ops_top[:5]]}; top "
+          f"kernels {[(n, c, round(ms, 2)) for n, c, ms in kernels_top[:5]]}"
+          f"; chrome trace {rec['chrome_trace_mb']:.1f} MB, torch trace "
+          f"{trace_mb:.1f} MB on {card}", flush=True)
+    del opt, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def debugging_check(torch, paddle, ep, card):
+    """Phase 24 (b): ``amp.debugging`` on the card. One step of phase
+    19's loop under ``enable_tensor_checker(CHECK_NAN_INF_AND_ABORT)``
+    passes; negative control: with one element of the first layer's query
+    weight set to inf the next step must raise FloatingPointError naming
+    an op. Then ``collect_operator_stats`` over one f32 step of phase
+    19's 2-layer cross-check copy on the card and on the CPU: the same
+    (op, dtype) -> count table."""
+    from paddle_tpu_torch.amp import debugging as D
+    from paddle_tpu_torch.core import dispatch
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    model = ep.build_model()
+    opt = ep.make_optimizer(model)
+    batch, _ = ep.fixed_batch()
+    cfg = D.TensorCheckerConfig(
+        enable=True, debug_mode=D.DebugMode.CHECK_NAN_INF_AND_ABORT)
+    D.enable_tensor_checker(cfg)
+    try:
+        t0 = time.perf_counter()
+        ep.step(model, opt, batch)
+        torch.cuda.synchronize()
+        checked_s = time.perf_counter() - t0
+        q = model[1].layers[0].self_attn.q_proj.weight
+        with paddle.no_grad():
+            q._data[0, 0] = float("inf")
+        raised = None
+        try:
+            ep.step(model, opt, batch)
+        except FloatingPointError as e:
+            raised = str(e)
+    finally:
+        D.disable_tensor_checker()
+        dispatch._nan_pending.clear()
+    if raised is None or not raised.startswith("Op "):
+        fail(f"tensor checker: an inf weight did not raise naming an op "
+             f"({raised!r})")
+    del opt, model
+    torch.cuda.empty_cache()
+
+    tables = {}
+    for dev in ("gpu", "cpu"):
+        paddle.set_device(dev)
+        paddle.seed(1)
+        net = ep.build_model(EAGER_XCHECK_LAYERS, 0.0)
+        o = ep.make_optimizer(net, lr=EAGER_XCHECK_LR)
+        b, _ = ep.fixed_batch(EAGER_XCHECK_BATCH)
+        with D.collect_operator_stats():
+            loss = ep.loss_of(net, *b)
+            loss.backward()
+            o.step()
+            o.clear_grad()
+        tables[dev] = D.operator_stats()
+    paddle.set_device("gpu")
+    if tables["gpu"] != tables["cpu"] or not tables["gpu"]:
+        fail(f"operator stats differ: card {tables['gpu']} cpu "
+             f"{tables['cpu']}")
+    rec = dict(checked_step_s=checked_s, negative_control=raised,
+               operator_stats={f"{k[0]}:{k[1]}": v
+                               for k, v in sorted(tables["gpu"].items())})
+    print(f"amp.debugging: one BERT-base step under the tensor checker "
+          f"({checked_s:.2f} s), an inf query weight raised "
+          f"{raised!r}; operator stats of a 2-layer f32 step equal on the "
+          f"card and the CPU ({sum(tables['gpu'].values())} ops, "
+          f"{len(tables['gpu'])} (op, dtype) rows) on {card}", flush=True)
+    return rec
+
+
+PHASE24_EXT = r'''
+extern "C" void phase24_affine(const float* x, float* y, long n, float a) {
+  for (long i = 0; i < n; ++i) y[i] = a * x[i] + 1.0f;
+}
+'''
+
+
+def device_utils_check(torch, paddle, card):
+    """Phase 24 (c): ``paddle.device`` and ``paddle.utils`` on the card:
+    the allocator reading, the card's name, a matmul on a side Stream
+    ordered by Events, DLPack without a copy, and ``cpp_extension`` with
+    g++ when the machine has it."""
+    import ctypes
+    import shutil
+
+    from paddle_tpu_torch import device as D
+    from paddle_tpu_torch.utils import cpp_extension
+    paddle.set_device("gpu")
+    keep = torch.empty(1 << 20, device="cuda")   # a known allocation
+    alloc = (D.cuda.memory_allocated(), torch.cuda.memory_allocated())
+    name = D.cuda.get_device_properties().name
+    if alloc[0] != alloc[1] or name != card.split(",")[0].strip():
+        fail(f"device: memory_allocated {alloc}, name {name!r} vs {card!r}")
+    del keep
+    g = torch.Generator(device="cuda").manual_seed(24)
+    a, b = (paddle.to_tensor(torch.randn(2048, 2048, generator=g,
+                                         device="cuda")) for _ in range(2))
+    ready = D.Event()
+    ready.record()                       # a and b made on the default stream
+    side = D.Stream()
+    side.wait_event(ready)
+    with D.stream_guard(side):
+        on_side = torch.cuda.current_stream() == side.stream_base
+        c = paddle.matmul(a, b)
+    done = side.record_event()
+    D.current_stream().wait_event(done)
+    D.synchronize()
+    ref = paddle.matmul(a, b)
+    D.synchronize()
+    if not on_side or side == D.current_stream() or \
+            not torch.equal(c._data, ref._data):
+        fail(f"device: the side stream's matmul (current inside the guard "
+             f"{on_side}) differs from the default stream's")
+    t = paddle.randn([64, 64])
+    cap = paddle.to_dlpack(t)
+    back = paddle.from_dlpack(cap)
+    shared = back._data.data_ptr() == t._data.data_ptr() == \
+        torch.from_dlpack(cap).data_ptr()
+    if not shared:
+        fail("dlpack: to_dlpack / from_dlpack copied the cuda tensor")
+    ext = None
+    if shutil.which("g++"):
+        src = ROOT / "build" / "phase24_ext" / "phase24_affine.cc"
+        src.parent.mkdir(parents=True, exist_ok=True)
+        src.write_text(PHASE24_EXT)
+        lib = cpp_extension.load("phase24_affine", [str(src)],
+                                 build_directory=str(src.parent))
+        lib.phase24_affine.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.c_long, ctypes.c_float]
+
+        def fwd(x, a=1.0):
+            x = x.contiguous()
+            y = torch.empty_like(x)
+            lib.phase24_affine(x.data_ptr(), y.data_ptr(), x.numel(), a)
+            return y
+
+        op = cpp_extension.register_op(
+            "phase24_affine", fwd, backward=lambda x, gy, a=1.0: gy * a)
+        x = paddle.to_tensor(torch.arange(6, dtype=torch.float32),
+                             place="cpu", stop_gradient=False)
+        y = op(x, a=3.0)
+        y.sum().backward()
+        ok = torch.equal(y._data.detach(), 3 * x._data.detach() + 1) and \
+            torch.equal(x.grad._data, torch.full((6,), 3.0))
+        if not ok:
+            fail(f"cpp_extension: {y._data} / {x.grad._data}")
+        ext = "g++ build, forward and backward equal to 3x + 1 and 3"
+    else:
+        print("cpp_extension: no g++ on this machine; not exercised on the "
+              "card (tests/test_torch_device_utils.py covers it on the CPU)",
+              flush=True)
+    rec = dict(memory_allocated=alloc, device_name=name,
+               side_stream_matmul="bit-equal", dlpack_shared=shared,
+               cpp_extension=ext, device_count=D.device_count(),
+               cudnn=D.get_cudnn_version())
+    print(f"device / utils: memory_allocated {alloc[0]} == torch's, "
+          f"properties name {name!r}, a 2048^2 matmul on a side stream "
+          f"(guard, events, synchronize) bit-equal to the default "
+          f"stream's, dlpack shares data_ptr, cpp_extension: {ext}",
+          flush=True)
+    return rec
+
+
 # -- phase 6b: the serving accelerators ------------------------------------
 
 #: the draft length of bench.py's speculative serving extras
@@ -6102,6 +6511,13 @@ def main():
     quant, quant_paths = quant_main_path(torch, paddle, mods, launches_of,
                                          reset_counts, card)
 
+    # 24. the profiler and debugging surface: phase 19's loop profiled
+    # (counts around it), amp.debugging, then device and utils
+    prof_run = profiler_main_path(torch, paddle, ep, dispatch, launches_of,
+                                  reset_counts, card)
+    debugging = debugging_check(torch, paddle, ep, card)
+    device_utils = device_utils_check(torch, paddle, card)
+
     src = "paddle_tpu_torch/csrc/"
 
     def replay_by_path(kernel):
@@ -6138,7 +6554,7 @@ def main():
     tc_paths = {"training": training, "moe_training": moe_training,
                 "bert_training": bert_training, "eager_training": eager,
                 **{f"recipe_{g}": r for g, r in recipe["runs"].items()},
-                "hapi": hapi, **quant_runs}
+                "hapi": hapi, **quant_runs, "profiler": prof_run}
     f32_paths = {"serving": dict(counters=counters),
                  "encoder_serving": enc_serving,
                  "one_shot_padded": one_shot["one_shot_padded"],
@@ -6415,7 +6831,8 @@ def main():
                      for g, r in recipe["runs"].items()},
                   "recipe_flashmask": recipe["runs"]["selective"][
                       "flashmask_step"]["launches"]["fused_adam"],
-                  "hapi": hapi["launches"]["fused_adam"]}
+                  "hapi": hapi["launches"]["fused_adam"],
+                  "profiler": prof_run["launches"]["fused_adam"]}
     kernels.append(dict(
         name="fused_adam", route="cuda", source=src + "fused_adam.cu",
         replaces="port-only: no TPU kernel; the per-parameter fusion XLA "
@@ -6469,7 +6886,8 @@ def main():
                   replay=replay, eager_new_surface=surface,
                   hapi_cross_check=hapi_xcheck, hapi=hapi,
                   predictor=predictor, quantized_serving=quant,
-                  kernels=kernels)
+                  profiler=prof_run, debugging=debugging,
+                  device_utils=device_utils, kernels=kernels)
     (OUT_DIR / "result.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,11 +27,13 @@ unless ``set_device("cpu")`` was called; without a GPU they raise.
 names and ``Tensor`` methods, and ``nn`` holds conv, pooling, the resize
 / fold / shuffle / grid functionals and the recurrent layers. ``jit``,
 ``inference``, ``text``, ``incubate``, ``regularizer``, ``quantization``
-``distributed``, ``io``, ``metric``, ``hapi``, ``callbacks`` and
-``reader`` resolve as attributes on first use, and so do ``Model``,
-``summary`` and ``flops`` of ``hapi`` (a module ``__getattr__``:
-importing them here would pull the serving, model and data stacks into
-every ``import``; ``dir()`` lists them). The high-level paths:
+``distributed``, ``io``, ``metric``, ``hapi``, ``callbacks``,
+``reader``, ``profiler``, ``device``, ``utils``, ``sysconfig`` and
+``version`` resolve as attributes on first use, and so do ``Model``,
+``summary`` and ``flops`` of ``hapi`` and ``to_dlpack`` / ``from_dlpack``
+of ``utils.dlpack`` (a module ``__getattr__``: importing them here would
+pull the serving, model, data and profiler stacks into every
+``import``; ``dir()`` lists them). The high-level paths:
 
     model = paddle.Model(net)                      # a Layer or a Module
     model.prepare(paddle.optimizer.AdamW(2e-5, parameters=net.parameters()),
@@ -119,9 +121,11 @@ def in_dynamic_mode():
 #: subpackages resolved on first attribute access (``paddle.jit``, ...)
 _LAZY_SUBPACKAGES = ("jit", "inference", "text", "incubate", "regularizer",
                      "quantization", "distributed", "io", "metric", "hapi",
-                     "callbacks", "reader")
+                     "callbacks", "reader", "profiler", "device", "utils",
+                     "sysconfig", "version")
 #: names of a subpackage resolved on first access (``paddle.Model``)
-_LAZY_NAMES = {"Model": "hapi", "summary": "hapi", "flops": "hapi"}
+_LAZY_NAMES = {"Model": "hapi", "summary": "hapi", "flops": "hapi",
+               "to_dlpack": "utils.dlpack", "from_dlpack": "utils.dlpack"}
 
 
 def __getattr__(name):

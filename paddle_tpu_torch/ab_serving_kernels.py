@@ -50,6 +50,7 @@ chiprun_out/ab_serving_kernels.json). Needs a GPU.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -98,9 +99,13 @@ def _graph_ms(torch, fn, calls=20, reps=5):
     fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(calls):
-            fn()
+    gc.disable()                # a collection would fail the capture
+    try:
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+    finally:
+        gc.enable()
     g.replay()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)

@@ -8,9 +8,15 @@ Op names are the JAX package's, so the AMP lists hit the same ops.
 There is no tape to record: the body's torch ops build torch's autograd
 graph, so an output is differentiable exactly when some input is and
 the output is floating.
+
+Two hook lists let the profiler and ``amp.debugging`` watch every op
+(:110-160 of the JAX module): ``OP_OBSERVERS`` see each op's output
+tensors, ``OP_TIMING_HOOKS`` its host dispatch seconds and input
+signature. Empty lists cost one truthiness test each per op.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -113,10 +119,61 @@ def _check_nan_inf(name, out):
         flush_nan_checks()
 
 
+#: observers called as ``obs(op_name, output_tensors)`` after every op
+#: (``amp.debugging``'s operator stats and tensor dumps, the profiler's
+#: output dtypes)
+OP_OBSERVERS = []
+
+#: hooks called as ``hook(op_name, seconds, input_signature)`` after every
+#: op (``profiler.stats.OpDispatchTracer``). The seconds are host dispatch
+#: time: on ``cuda`` the launch cost, since kernels run asynchronously.
+OP_TIMING_HOOKS = []
+
+
+def dtype_name(dtype) -> str:
+    """A torch dtype under the JAX package's name (``float32``, ``bool``)."""
+    return str(dtype).rpartition(".")[2]
+
+
+def _notify(name, out):
+    if OP_OBSERVERS:
+        leaves = _leaves(out)
+        for obs in list(OP_OBSERVERS):
+            obs(name, leaves)
+
+
+def input_signature(tensor_args) -> tuple:
+    """``("(2, 3):float32", ...)`` of the tensor inputs: the key an eager
+    op's shape churn is read by."""
+    sig = []
+    for x in tensor_args:
+        a = unwrap(x)
+        if isinstance(a, (torch.Tensor, np.ndarray)):
+            sig.append(f"{tuple(a.shape)}:{dtype_name(a.dtype)}")
+    return tuple(sig)
+
+
+def _timed(runner, name, fn, tensor_args, attrs):
+    t0 = time.perf_counter()
+    try:
+        return runner(name, fn, tensor_args, **attrs)
+    finally:
+        dt = time.perf_counter() - t0
+        sig = input_signature(tensor_args)
+        for hook in list(OP_TIMING_HOOKS):
+            hook(name, dt, sig)
+
+
 def run_op(name: str, fn: Callable, tensor_args: Sequence[Any], **attrs):
     """Run the differentiable op ``fn(*torch_inputs, **attrs)`` eagerly:
     AMP cast, unwrap, body, NaN check, wrap (a tensor, or a tuple/list
     of them, mirroring ``fn``'s output)."""
+    if OP_TIMING_HOOKS:
+        return _timed(_run_op, name, fn, tensor_args, attrs)
+    return _run_op(name, fn, tensor_args, **attrs)
+
+
+def _run_op(name: str, fn: Callable, tensor_args: Sequence[Any], **attrs):
     global op_count
     op_count += 1
     amp = _amp_state()
@@ -125,6 +182,7 @@ def run_op(name: str, fn: Callable, tensor_args: Sequence[Any], **attrs):
     out = fn(*_unwrap_all(tensor_args), **attrs)
     if get_flag("check_nan_inf"):
         _check_nan_inf(name, out)
+    _notify(name, out)
     return _wrap_tree(out)
 
 
@@ -132,12 +190,20 @@ def run_op_nodiff(name: str, fn: Callable, tensor_args: Sequence[Any],
                   **attrs):
     """Run a non-differentiable op (comparisons, argmax, ...): no AMP
     cast, the body under ``torch.no_grad()``, outputs stop gradients."""
+    if OP_TIMING_HOOKS:
+        return _timed(_run_op_nodiff, name, fn, tensor_args, attrs)
+    return _run_op_nodiff(name, fn, tensor_args, **attrs)
+
+
+def _run_op_nodiff(name: str, fn: Callable, tensor_args: Sequence[Any],
+                   **attrs):
     global op_count
     op_count += 1
     with torch.no_grad():
         out = fn(*_unwrap_all(tensor_args), **attrs)
     if get_flag("check_nan_inf"):
         _check_nan_inf(name, out)
+    _notify(name, out)
     # detached: a view made under no_grad can still require grad
     return _wrap_tree(out, detach=True)
 

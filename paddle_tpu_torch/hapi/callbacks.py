@@ -1,9 +1,10 @@
 """hapi callbacks (counterpart of ``paddle_tpu/hapi/callbacks.py``).
 
-The same callbacks firing at the same points. ``TelemetryLogger`` reports
-step times only: the port compiles no programs, so it has no recompile
-count, and ``CallbackList`` adds it only when it is passed (the JAX
-package also adds it under ``PADDLE_TPU_MONITOR=1``).
+The same callbacks firing at the same points. ``CallbackList`` adds a
+``TelemetryLogger`` when ``monitor.enabled()`` (``PADDLE_TPU_MONITOR=1``
+or ``monitor.enable()``); its recompiles are what the port builds or
+captures at run time (kernel libraries, CUDA graphs), where the JAX
+package counts XLA compiles.
 """
 from __future__ import annotations
 
@@ -56,6 +57,9 @@ class CallbackList:
             self.callbacks.insert(0, ProgBarLogger(
                 log_freq=params.get("log_freq", 10),
                 verbose=params.get("verbose", 2)))
+        if monitor.enabled() and not any(
+                isinstance(c, TelemetryLogger) for c in self.callbacks):
+            self.callbacks.append(TelemetryLogger())
         for c in self.callbacks:
             c.set_model(model)
             c.set_params(params)
@@ -114,10 +118,13 @@ class ProgBarLogger(Callback):
 
 
 class TelemetryLogger(Callback):
-    """Per-epoch step-time telemetry through the ``monitor`` registry
-    (``train.steps``, ``train.step_ms``); each epoch one line like
+    """Per-epoch telemetry through the ``monitor`` registry: step times
+    measured here (``train.steps``, ``train.step_ms``), and the kernel
+    builds and CUDA graph captures of the epoch (the always-on counters
+    that ``profiler/stats.py`` feeds). Each epoch one line like
 
-        [telemetry] epoch 1: steps 50 avg_step_ms 12.4 (min 11.0 max 31.2)
+        [telemetry] epoch 1: steps 50 avg_step_ms 12.4 (min 11.0 max
+        31.2) recompiles 0 compile_s 0.00
     """
 
     def __init__(self, verbose=1):
@@ -125,12 +132,20 @@ class TelemetryLogger(Callback):
         self.verbose = verbose
         self.last_line = None
 
+    def _compiles(self):
+        from ..profiler.stats import COMPILE_COUNTERS
+        return (sum(monitor.counter(c).get()
+                    for c, _ in COMPILE_COUNTERS.values()),
+                sum(monitor.gauge(g).get()
+                    for _, g in COMPILE_COUNTERS.values()))
+
     def on_epoch_begin(self, epoch, logs=None):
         self._epoch = epoch
         self._steps = 0
         self._dt_total = 0.0
         self._dt_min = float("inf")
         self._dt_max = 0.0
+        self._compiles0 = self._compiles()
 
     def on_train_batch_begin(self, step, logs=None):
         self._t0 = time.perf_counter()
@@ -147,11 +162,15 @@ class TelemetryLogger(Callback):
     def on_epoch_end(self, epoch, logs=None):
         if not getattr(self, "_steps", 0):
             return
+        c1, s1 = self._compiles()
+        c0, s0 = self._compiles0
         avg = self._dt_total / self._steps * 1e3
+        monitor.gauge("train.epoch_recompiles").set(c1 - c0)
         self.last_line = (
             f"[telemetry] epoch {epoch + 1}: steps {self._steps} "
             f"avg_step_ms {avg:.1f} (min {self._dt_min * 1e3:.1f} "
-            f"max {self._dt_max * 1e3:.1f})")
+            f"max {self._dt_max * 1e3:.1f}) "
+            f"recompiles {c1 - c0} compile_s {s1 - s0:.2f}")
         if self.verbose:
             print(self.last_line)
 

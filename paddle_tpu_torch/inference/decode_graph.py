@@ -18,7 +18,11 @@ dispatch:
   each dispatch replays one graph. A capture that fails raises, naming
   what broke it — there is no eager path on ``cuda``. The warm-up and
   the capture run under ``torch.cuda.set_sync_debug_mode("error")``, so
-  a host sync left in the body is an error, not a stall;
+  a host sync left in the body is an error, not a stall. Python's
+  cyclic collector is off during the capture (``gc_paused``): a dropped
+  Engine is a reference cycle, and a collection inside the capture would
+  free its graphs and memory with CUDA calls that invalidate the
+  capture;
 * on ``cpu`` the same body runs as a Python loop.
 
 Tick j of the body: a row still ALIVE (live, budget > 0) feeds its
@@ -31,10 +35,13 @@ Kernel launch counts: the wrappers count in Python, which a replay does
 not run. The change of every ``monitor`` counter and every wrapper's
 ``launches*`` attribute during a capture is recorded with its graph and
 credited again at each replay, so ``paged_decode.launches`` still reads
-one a layer a device tick.
+one a layer a device tick. Each capture (its warm-up tick included) is
+one ``profiler.stats.compile_event("graph_capture", seconds)``.
 """
 from __future__ import annotations
 
+import gc
+import time
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
@@ -42,6 +49,7 @@ import numpy as np
 import torch
 
 from .. import monitor
+from ..profiler.stats import compile_event
 from ..text.generation import _model_forward
 
 
@@ -160,6 +168,7 @@ class MultiTick:
         frozen: nothing advances and every write lands in the scratch
         page), then capture the k-tick body into the shared pool."""
         eng = self._eng
+        t0 = time.perf_counter()
         toks, oks = self._outputs(k)
         if self._stream is None:
             self._stream = torch.cuda.Stream(eng.device)
@@ -180,8 +189,8 @@ class MultiTick:
             stage = "capture"
             graph = torch.cuda.CUDAGraph()
             before = _launch_counts()
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._stream):
+            with gc_paused(), torch.cuda.graph(graph, pool=self._pool,
+                                               stream=self._stream):
                 with _no_host_sync():
                     self.ticks(k, toks, oks)
             after = _launch_counts()
@@ -200,7 +209,26 @@ class MultiTick:
                 monitor.counter(key).increase(-d)
             else:
                 setattr(key[0], key[1], getattr(key[0], key[1]) - d)
+        compile_event("graph_capture", time.perf_counter() - t0)
         return _Graph(graph=graph, credit=credit)
+
+
+class gc_paused:
+    """Python's cyclic garbage collector off for the block (back on after
+    it, if it was on). Wrap a CUDA graph capture in it: a collection
+    there can reach a dead cycle that holds CUDA graphs or memory (a
+    dropped Engine), and freeing them while a stream captures fails the
+    capture with ``cudaErrorStreamCaptureInvalidated``. Dead cycles are
+    collected after the block as usual."""
+
+    def __enter__(self):
+        self._was_enabled = gc.isenabled()
+        gc.disable()
+
+    def __exit__(self, *exc):
+        if self._was_enabled:
+            gc.enable()
+        return False
 
 
 class _no_host_sync:

@@ -229,24 +229,16 @@ def phase_shares(spans: List[dict]) -> Dict[str, float]:
 # -- chrome-trace export -----------------------------------------------------
 
 
-def _rank_info():
-    """(rank, world_size) of this process: torch.distributed's when a
-    process group is up, else the single-process (0, 1)."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
 def build_serving_trace(timelines: Dict[int, List[dict]]) -> dict:
     """Chrome-trace dict for a set of stitched request timelines
     (``{req_id: spans}``): one pid per origin (replica/worker) carrying
-    the process's rank (``_rank_info``), tid = slot lane
+    the process's rank (``profiler.chrome_trace._rank_info``), tid = slot lane
     (lane 0 is the queued/parked/migrating lane — spans with no slot),
     "X" complete events in microseconds off a common origin. Output is
     deterministic: origins, requests, and events are emitted in sorted
     order, times rounded to fixed precision — the same virtual-clock
     replay produces byte-identical bytes."""
+    from ..profiler.chrome_trace import _rank_info
     rank, world = _rank_info()
 
     origins: List[str] = sorted(

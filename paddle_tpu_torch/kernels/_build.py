@@ -16,7 +16,9 @@ does not return the right answer: the port never routes around a
 kernel that does not run.
 
 Nothing here runs at import: ``nvcc`` and the GPU are touched only when
-a wrapper is first called on a CUDA tensor.
+a wrapper is first called on a CUDA tensor. Each library compiled is one
+``profiler.stats.compile_event("kernel_build", seconds)`` (the
+``kernels.builds`` counter; a profiler window's build tracker).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -114,8 +117,10 @@ def build() -> Dict[str, Path]:
     todo = [n for n in SOURCES if not paths[n].exists()]
     if not todo:
         return paths
+    from ..profiler.stats import compile_event
     nvcc = nvcc_path()
     procs = {}
+    t0 = time.perf_counter()
     for n in todo:
         tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
@@ -133,6 +138,7 @@ def build() -> Dict[str, Path]:
         else:
             os.replace(tmp, paths[n])
             build.libraries_built += 1
+            compile_event("kernel_build", time.perf_counter() - t0)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return paths

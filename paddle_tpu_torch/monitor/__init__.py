@@ -36,10 +36,20 @@ Kernel-path counters (bumped by the wrappers, one per call):
   ``.core``: the route a ``scaled_dot_product_attention`` call took (the
   flash kernels / their plain versions, without or with key-mask bands;
   the plain core for a dense mask or ``use_flash=False``).
+
+What the port builds or captures at run time (``profiler/stats.py``'s
+``compile_event``, always on): ``kernels.builds`` / ``kernels.build_secs``
+(kernel libraries compiled by ``nvcc``) and ``cuda.graph_captures`` /
+``cuda.graph_capture_secs`` (the Engine's multi-tick CUDA graphs);
+``dispatch.ops`` counts the ops a ``Profiler`` window recorded.
+
+The registry is always live; ``PADDLE_TPU_MONITOR=1`` (or ``enable()``)
+gates only emission: hapi's per-epoch ``TelemetryLogger`` line.
 """
 from __future__ import annotations
 
 import math
+import os
 import threading
 from typing import Dict, Optional
 
@@ -47,6 +57,7 @@ _lock = threading.Lock()
 _counters: Dict[str, "Counter"] = {}
 _gauges: Dict[str, "Gauge"] = {}
 _histograms: Dict[str, "Histogram"] = {}
+_enabled_override: Optional[bool] = None
 
 
 class Counter:
@@ -74,23 +85,51 @@ class Counter:
 
 
 class Gauge:
-    """Last-value gauge."""
+    """Last-value gauge with running count, mean, min and max."""
 
-    __slots__ = ("name", "_value")
+    __slots__ = ("name", "_value", "_count", "_total", "_min", "_max")
 
     def __init__(self, name: str):
         self.name = name
         self._value = 0.0
+        self._count = 0
+        self._total = 0.0
+        self._min = float("inf")
+        self._max = float("-inf")
+
+    def _observe(self, v: float):
+        self._count += 1
+        self._total += v
+        self._min = min(self._min, v)
+        self._max = max(self._max, v)
 
     def set(self, v: float) -> float:
-        self._value = float(v)
-        return self._value
+        v = float(v)
+        with _lock:
+            self._value = v
+            self._observe(v)
+        return v
+
+    def add(self, v: float) -> float:
+        """Accumulate into the last value (duration totals)."""
+        v = float(v)
+        with _lock:
+            self._value += v
+            self._observe(v)
+            return self._value
 
     def get(self) -> float:
         return self._value
 
+    def stats(self) -> Dict[str, float]:
+        if not self._count:
+            return dict(last=0.0, count=0, mean=0.0, min=0.0, max=0.0)
+        return dict(last=self._value, count=self._count,
+                    mean=self._total / self._count, min=self._min,
+                    max=self._max)
+
     def reset(self):
-        self._value = 0.0
+        self.__init__(self.name)
 
     def __repr__(self):
         return f"Gauge({self.name}={self._value})"
@@ -169,6 +208,16 @@ class Histogram:
                 val = (lo + hi) / 2.0
                 break
         return min(max(val, self._min), self._max)
+
+    def stats(self) -> Dict[str, float]:
+        """count, mean, min, max, p50, p90 and p99 (zeros when empty)."""
+        if not self._count:
+            return dict(count=0, mean=0.0, min=0.0, max=0.0, p50=0.0,
+                        p90=0.0, p99=0.0)
+        return dict(count=self._count, mean=self._sum / self._count,
+                    min=self._min, max=self._max,
+                    p50=self.percentile(50), p90=self.percentile(90),
+                    p99=self.percentile(99))
 
     def reset(self):
         self.__init__(self.name)
@@ -281,13 +330,18 @@ def counters() -> Dict[str, int]:
     return {name: c.get() for name, c in list(_counters.items())}
 
 
-def snapshot() -> Dict[str, float]:
-    """One flat dict of every counter and gauge value."""
-    out: Dict[str, float] = {}
+def snapshot(detail: bool = False) -> Dict[str, object]:
+    """One flat dict of every counter and gauge value. With
+    ``detail=True`` a gauge is its running stats dict and every histogram
+    joins as its stats dict (count, mean, min, max, p50, p90, p99)."""
+    out: Dict[str, object] = {}
     for name, c in sorted(_counters.items()):
         out[name] = c.get()
     for name, g in sorted(_gauges.items()):
-        out[name] = g.get()
+        out[name] = g.stats() if detail else g.get()
+    if detail:
+        for name, h in sorted(_histograms.items()):
+            out[name] = h.stats()
     return out
 
 
@@ -295,14 +349,8 @@ def histograms() -> Dict[str, Dict[str, float]]:
     """Every histogram that holds a value: {name: count, p50, p90, p99,
     mean, min, max} (the JAX monitor's ``snapshot(detail=True)`` entries
     for histograms)."""
-    out: Dict[str, Dict[str, float]] = {}
-    for name, h in sorted(_histograms.items()):
-        if h.count:
-            out[name] = {"count": h.count, "p50": h.percentile(50),
-                         "p90": h.percentile(90), "p99": h.percentile(99),
-                         "mean": h.sum / h.count, "min": h._min,
-                         "max": h._max}
-    return out
+    return {name: h.stats() for name, h in sorted(_histograms.items())
+            if h.count}
 
 
 def reset():
@@ -314,3 +362,28 @@ def reset():
         g.reset()
     for h in _histograms.values():
         h.reset()
+
+
+def enabled() -> bool:
+    """True when telemetry emission is on: ``PADDLE_TPU_MONITOR=1`` in
+    the environment, or an explicit ``enable()``."""
+    if _enabled_override is not None:
+        return _enabled_override
+    return os.environ.get("PADDLE_TPU_MONITOR", "0").lower() in (
+        "1", "true", "yes", "on")
+
+
+def enable():
+    global _enabled_override
+    _enabled_override = True
+
+
+def disable():
+    global _enabled_override
+    _enabled_override = False
+
+
+def _clear_override():
+    """Fall back to the environment variable."""
+    global _enabled_override
+    _enabled_override = None

@@ -244,3 +244,22 @@ def test_frozen_row_never_writes_a_shared_prefix_page():
     assert all(torch.equal(x, y) for x, y in zip(before, after))
     plain = Engine(net, **kw).run(reqs)
     assert [outs[0], outs[1]] == [o.token_ids for o in plain]
+
+
+@pytest.mark.parametrize("was_enabled", [True, False])
+def test_gc_paused_turns_the_collector_off_and_restores_it(was_enabled):
+    """The guard around a graph capture: the cyclic collector is off
+    inside (an exception included) and as it was after."""
+    import gc
+    from paddle_tpu_torch.inference.decode_graph import gc_paused
+    (gc.enable if was_enabled else gc.disable)()
+    try:
+        with gc_paused():
+            assert not gc.isenabled()
+        assert gc.isenabled() == was_enabled
+        with pytest.raises(KeyError):
+            with gc_paused():
+                raise KeyError("body")
+        assert gc.isenabled() == was_enabled
+    finally:
+        gc.enable()

@@ -1276,6 +1276,96 @@ def test_multi_tick_capture_raises_on_a_host_sync(dev, monkeypatch):
     assert torch.cuda.get_sync_debug_mode() == 0
 
 
+def _dead_engine(dev):
+    """A k=8 Engine that captured its graph, dropped: an Engine is a
+    reference cycle, so its graphs and pool pages wait for a collection.
+    Returns a weak reference to its MultiTick (alive until collected)."""
+    import weakref
+    eng = _decoding_engine(dev)
+    while eng.num_active:
+        eng.step()
+    assert eng._multi.captured
+    ref = weakref.ref(eng._multi)
+    del eng
+    return ref
+
+
+_COLLECT_IN_CAPTURE = """
+import gc, sys, torch
+sys.path.insert(0, "tests")
+from test_torch_kernels_cuda import _dead_engine, _decoding_engine, _load_multi
+from paddle_tpu_torch.inference import decode_graph
+gc.collect()
+gc.disable()
+dev = torch.device("cuda")
+ref = _dead_engine(dev)
+assert ref() is not None
+eng = _decoding_engine(dev)
+ticks = decode_graph.MultiTick.ticks
+
+def collecting(self, k, *a):
+    if torch.cuda.is_current_stream_capturing():
+        gc.collect()
+    return ticks(self, k, *a)
+
+decode_graph.MultiTick.ticks = collecting
+_load_multi(eng)
+try:
+    eng._multi.run(8)
+except RuntimeError as e:
+    assert ref() is None
+    print("FAILED:", str(e).splitlines()[0])
+"""
+
+
+def test_multi_tick_capture_fails_if_a_dead_engine_is_collected_in_it(dev):
+    """Why the capture pauses the collector: a collection inside a
+    capture that frees a dead Engine's graphs and memory invalidates the
+    capture (forced here with an explicit gc.collect in the body). A
+    failed capture leaves the CUDA generator's capture state behind, so
+    this runs in a process of its own."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", _COLLECT_IN_CAPTURE],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    assert "FAILED: multi-tick decode: the capture of the k=8" in run.stdout
+    assert "during capture" in run.stdout
+
+
+def test_multi_tick_capture_runs_no_collection(dev):
+    """With a dead k=8 Engine pending and the collector at threshold 1,
+    a new Engine captures its graph with no collection inside the
+    capture, and its tokens equal those of the engine before it."""
+    import gc
+    seen = []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            seen.append(torch.cuda.is_current_stream_capturing())
+
+    gc.collect()
+    ref = _dead_engine(dev)
+    threshold = gc.get_threshold()
+    gc.callbacks.append(on_gc)
+    gc.set_threshold(1, 1, 1)
+    try:
+        eng = _decoding_engine(dev)
+        got = []
+        while eng.num_active:
+            got.extend(eng.step())
+    finally:
+        gc.set_threshold(*threshold)
+        gc.callbacks.remove(on_gc)
+    assert eng._multi.captured and seen and not any(seen)
+    assert gc.isenabled()
+    assert all(o.ok and len(o.token_ids) == 40 for o in got)
+    del ref
+
+
 # -- the reliability plane on the card ---------------------------------------
 
 @pytest.mark.parametrize("k", [1, 8])
@@ -1746,3 +1836,41 @@ def test_quantized_engine_on_card_matches_cpu(dev, weight_dtype, k):
         agree = float((torch.tensor(o.token_ids) == want.argmax(-1))
                       .float().mean())
         assert agree >= 0.97, agree
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_profiler_device_view_counts_the_wgmma_kernels(dev, tmp_path, d):
+    """One profiled bf16 flash forward and backward: the profiler's
+    device view (CUPTI, through ``paddle_tpu_torch.profiler``) lists the
+    wgmma forward, dQ and dK/dV kernels with the launches their wrappers
+    counted, and the exported chrome trace's device lane the same."""
+    from paddle_tpu_torch import profiler as P
+    g = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = (torch.randn(2, 256, 4, d, generator=g, device=dev)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    torch.cuda.synchronize()
+
+    def counts():
+        return (fa.flash_fwd.launches, fa.flash_bwd.launches_dq,
+                fa.flash_bwd.launches_dkv)
+    before = counts()
+    with P.Profiler(targets=[P.ProfilerTarget.CPU, P.ProfilerTarget.GPU],
+                    log_dir=str(tmp_path / "log"),
+                    on_trace_ready=P.export_chrome_tracing(
+                        str(tmp_path))) as p:
+        with P.RecordEvent("fwd_bwd"):
+            out = fa.flash_attention_arrays(q, k, v, causal=True)
+            out.float().sum().backward()
+        torch.cuda.synchronize()
+    want = {name: after - b for name, after, b in zip(
+        ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+         "flash_bwd_dkv_wgmma_kernel"), counts(), before)}
+    assert set(want.values()) == {1}
+    view = p.statistic_data.kernel_stats
+    assert {name: view[name]["calls"] for name in want} == want
+    assert all(view[name]["total_ms"] > 0 for name in want)
+    trace = P.load_profiler_result(p.last_trace_path)
+    lane = [e["name"] for e in trace["traceEvents"]
+            if e.get("cat") == "kernel"]
+    assert {name: lane.count(name) for name in want} == want
+    assert "fwd_bwd" not in lane and "Device Summary" in p.summary()

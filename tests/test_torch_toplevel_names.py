@@ -6,7 +6,9 @@ no jax and nothing of ``paddle_tpu`` pulled in), and ``dir()`` lists
 them; the quantization slice's ``quantization``, ``nn.quant`` and
 ``incubate`` names resolve after a bare import too, and every public name
 of the JAX package's ``quantization`` and ``nn.quant`` modules exists in
-the port's."""
+the port's; the observability slice's ``profiler``, ``device``, ``utils``,
+``sysconfig``, ``version``, ``to_dlpack`` and ``from_dlpack`` resolve
+lazily (a bare import pulls in none of them)."""
 import os
 import subprocess
 import sys
@@ -22,10 +24,9 @@ ROOT = Path(__file__).resolve().parent.parent
 #: public names of paddle_tpu with no counterpart in the port yet
 NOT_PORTED = {
     "CustomPlace", "DataParallel", "analysis", "audio", "cost_model", "csrc",
-    "device", "disable_static", "distribution", "enable_static", "fft",
-    "from_dlpack", "geometric", "hub", "jax", "jnp", "onnx", "profiler",
-    "signal", "sparse", "static", "sysconfig", "tensor", "to_dlpack",
-    "utils", "version", "vision"}
+    "disable_static", "distribution", "enable_static", "fft", "geometric",
+    "hub", "jax", "jnp", "onnx", "signal", "sparse", "static", "tensor",
+    "vision"}
 
 #: the names the high-level training / inference slice brought
 HIGH_LEVEL = ("LazyGuard", "Model", "batch", "callbacks", "check_shape",
@@ -138,3 +139,37 @@ def test_quantization_names_match_jax(path):
     missing = {n for n in dir(jmod) if not n.startswith("_")} - \
         set(dir(tmod)) - imports
     assert missing == set()
+
+
+#: the names the observability slice brought (profiler, device, utils)
+OBSERVABILITY = ("device", "profiler", "utils", "sysconfig", "version",
+                 "to_dlpack", "from_dlpack")
+
+
+@pytest.mark.parametrize("name", OBSERVABILITY)
+def test_observability_names_exist(name):
+    assert name in dir(tp) and getattr(tp, name) is not None
+    assert name in dir(jp)
+
+
+def test_observability_names_resolve_lazily_without_jax():
+    code = ("import sys\n"
+            "import paddle_tpu_torch as p\n"
+            "mods = ('profiler', 'device', 'utils', 'sysconfig', 'version')\n"
+            "print(sorted(m for m in mods if 'paddle_tpu_torch.' + m in "
+            "sys.modules))\n"
+            "print(p.to_dlpack.__module__, p.from_dlpack.__module__, "
+            "p.profiler.__name__, p.device.cuda.__name__, "
+            "p.version.with_gpu, p.sysconfig.__name__, p.utils.__name__)\n"
+            "import paddle_tpu_torch.amp.debugging\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines() == [
+        "[]", "paddle_tpu_torch.utils.dlpack paddle_tpu_torch.utils.dlpack "
+        "paddle_tpu_torch.profiler paddle_tpu_torch.device.cuda ON "
+        "paddle_tpu_torch.sysconfig paddle_tpu_torch.utils", "[]"]
