@@ -432,7 +432,36 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    the default stream's bit for bit, ``to_dlpack`` / ``from_dlpack``
    share the tensor's memory, and ``cpp_extension.load`` (g++) +
    ``register_op`` run a C function forward and backward when the
-   machine has g++.
+   machine has g++;
+25. paddle.vision (no port kernel on its paths, gated: every launch
+   count stays 0): (a) ``resnet50()`` through one ``Model.train_batch``
+   on the card and on the CPU with the card's weights (batch 2 x 224):
+   in f32 the loss and every BatchNorm running statistic within
+   closeness's f32 gate (the gradients' ratio printed: at random weights
+   a rounding flips ReLU and max-pool kinks), in f64 also every
+   gradient; (b) ResNet-50 in eval at batch 64 after the host pipeline
+   Resize(256) -> CenterCrop(224) -> Normalize: ``Model.predict_batch``
+   in f32 and O1 bf16 and the ``jit.save`` predictor, held to the eager
+   f32 logits within the f32 gate, counted, ms and images/s of each,
+   the share of bf16 top-1 equal to f32's, peak memory; (c) the main
+   path, counted: PaddleClas's ResNet-50 recipe (Momentum 0.9 at 0.1,
+   L2Decay 1e-4, cross-entropy, top-1 / top-5 accuracy, O1 bf16, 64
+   images a step) through ``Model.fit`` over ``DatasetFolder`` of 512
+   synthetic 256 x 256 images (``.npy``, 8 classes) with
+   RandomResizedCrop, flip and Normalize in 8 DataLoader workers, one
+   epoch: finite losses, every running statistic moved and finite, no
+   build after the first step; ms a step (events, host), images/s, the
+   share of a cycle the device waits on the loader, peak memory, and the
+   same step on one fixed batch; (d) the detection ops at their
+   detectors' sizes on the card against the CPU path (values and
+   gradients within the f32 gate): roi_align / roi_pool on Faster R-CNN
+   R50-C4's [2, 1024, 50, 84] map with 512 RoIs an image, nms on 6,000
+   RPN proposals at IoU 0.7 (kept indices equal but for pairs within
+   1e-6 of the threshold; ms and CUDA kernels a call),
+   generate_proposals and multiclass_nms3 equal, psroi_pool at R-FCN's
+   size, yolo_box / yolo_loss on YOLOv3's three heads at 608, and
+   DCNv2's deform_conv2d in stage 5, ms of each; (e) the smallest
+   factory of each of 13 families in f32 against the CPU.
 
 It prints the card line, a {"kernels": [...]} line (the tensor-core
 forward, dQ and dK/dV as ``flash_fwd`` / ``flash_bwd_dq`` /
@@ -454,8 +483,8 @@ last line
 {"ok": true, "device":
 {...}}. Details land in
 chiprun_out/chip_smoke/ (result JSON, nvcc/ptxas logs, the replay
-runs' logs). About eight minutes of command time on an H100, the six
-kernel builds included.
+runs' logs). About nine and a half minutes of command time on an H100,
+the six kernel builds included.
 """
 from __future__ import annotations
 
@@ -3523,6 +3552,8 @@ def _xcheck(paddle, build, inputs, loss_of, then=None, grads_of=None):
              for k, g in res["gpu"][1].items()}
     worst = max(grads, key=lambda k: grads[k]["ratio"])
     n_params = len(card_net.parameters())
+    n_bn = sum(isinstance(m, paddle.nn.BatchNorm2D)
+               for m in card_net.sublayers())
     rec = dict(loss_cuda=float(res["gpu"][0]), loss_cpu=float(res["cpu"][0]),
                loss_ratio=loss_c["ratio"], grads=len(grads),
                worst_grad=worst, worst_grad_ratio=grads[worst]["ratio"],
@@ -5114,6 +5145,731 @@ SPEC_K = 4
 PROFILE_SLOTS, PROFILE_PROMPT = 16, 128
 
 
+# -- phase 25: paddle.vision: ResNet-50 served and trained, detection ops --
+
+#: the seed every phase-25 input and weight is drawn from
+VISION_SEED = 25
+#: ImageNet's mean and std, on the [0, 1] scale ToTensor gives
+IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+#: (a) the card-vs-CPU copy of ResNet-50: f32, a batch of 2 x 224 x 224
+VISION_XCHECK_BATCH = 2
+#: (b) serving: ResNet-50 in eval, batch 64 of 375 x 500 x 3 uint8 images
+#: (ImageNet's typical size) through Resize(256) -> CenterCrop(224) ->
+#: Normalize once on the host; timed runs a path
+VISION_SERVE_BATCH, VISION_SERVE_HW, VISION_SERVE_RUNS = 64, (375, 500), 6
+#: (c) PaddleClas's ImageNet ResNet-50 recipe
+#: (ppcls/configs/ImageNet/ResNet/ResNet50.yaml): 64 images a card,
+#: Momentum 0.9 at lr 0.1, L2Decay 1e-4, O1; over IMAGES 256 x 256 x 3
+#: uint8 images in CLASSES class folders, one epoch of drop_last batches
+#: (WARM untimed steps, then the rest timed)
+VISION_TRAIN = dict(batch=64, lr=0.1, momentum=0.9, decay=1e-4, images=512,
+                    classes=8, hw=256, warm=2)
+#: (d) the detectors' shapes: Faster R-CNN R50-C4 (an 800 x 1333 image at
+#: stride 16: a [2, 1024, 50, 84] C4 map, 512 RoIs an image, 14 x 14
+#: RoIAlign / 7 x 7 RoIPool, RPN's 15 anchors a cell, 6,000 pre-NMS
+#: proposals at IoU 0.7, 1,000 kept); R-FCN (21 classes x 7 x 7
+#: position-sensitive channels, 300 RoIs an image); YOLOv3-DarkNet53 at
+#: 608 x 608, 80 classes, batch 8 (heads 19 / 38 / 76, COCO's anchors,
+#: 50 ground-truth boxes an image); DCNv2 in ResNet-50's stage 5 (3 x 3,
+#: 512 -> 512 on [2, 512, 25, 42])
+DET = dict(c4=(2, 1024, 50, 84), image=(800, 1333), stride=16, rois=512,
+           align=14, pool=7, anchors=15, pre_nms=6000, post_nms=1000,
+           iou=0.7, rfcn_classes=21, rfcn_rois=300, yolo_batch=8,
+           yolo_size=608, yolo_classes=80, yolo_gt=50,
+           yolo_anchors=[10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119,
+                         116, 90, 156, 198, 373, 326],
+           yolo_masks=[[6, 7, 8], [3, 4, 5], [0, 1, 2]],
+           yolo_strides=[32, 16, 8], dcn=(2, 512, 25, 42))
+#: (d) a trained YOLOv3's heads are mostly empty: objectness logits drawn
+#: from N(OBJ), class logits from N(CLS) (mean, std), so that about a tenth
+#: of the 22,743 boxes an image pass the 0.01 confidence threshold
+YOLO_OBJ, YOLO_CLS = (-7.0, 2.0), (-5.0, 2.0)
+#: (e) the smallest factory of each family, f32, batch 2, and its input
+ZOO = (("LeNet", (1, 28, 28)), ("alexnet", (3, 224, 224)),
+       ("vgg11", (3, 224, 224)), ("resnet18", (3, 224, 224)),
+       ("resnext50_32x4d", (3, 224, 224)), ("mobilenet_v1", (3, 224, 224)),
+       ("mobilenet_v2", (3, 224, 224)),
+       ("mobilenet_v3_small", (3, 224, 224)),
+       ("squeezenet1_1", (3, 224, 224)),
+       ("shufflenet_v2_x0_25", (3, 224, 224)),
+       ("densenet121", (3, 224, 224)), ("googlenet", (3, 224, 224)),
+       ("inception_v3", (3, 299, 299)))
+
+
+def _vision_model(paddle, net, amp):
+    """``paddle.Model(net)`` prepared as PaddleClas's recipe: Momentum,
+    L2Decay, cross-entropy, top-1 / top-5 accuracy; O1 when ``amp``."""
+    model = paddle.Model(net)
+    opt = paddle.optimizer.Momentum(
+        learning_rate=VISION_TRAIN["lr"], momentum=VISION_TRAIN["momentum"],
+        parameters=net.parameters(),
+        weight_decay=paddle.regularizer.L2Decay(VISION_TRAIN["decay"]))
+    model.prepare(opt, paddle.nn.CrossEntropyLoss(),
+                  paddle.metric.Accuracy(topk=(1, 5)),
+                  amp_configs={"level": "O1"} if amp else None)
+    if model._train_step is None:
+        fail("phase 25: Model.prepare built no TrainStep (the eager "
+             "fallback ran)")
+    return model
+
+
+def _vision_step(torch, paddle, dtype):
+    """One ``Model.train_batch`` of ``resnet50()`` in ``dtype`` on the card
+    and on the CPU with the card's weights, on VISION_SEED's batch:
+    ({device: (loss, {name: gradient}, {name: running stat})}, the
+    parameter and BatchNorm counts), the gradients from
+    ``loss_and_grads`` (the running statistics restored after it), the
+    statistics after the step."""
+    import numpy as np
+    from paddle_tpu_torch.vision import models
+    rng = np.random.default_rng(VISION_SEED)
+    x = rng.standard_normal((VISION_XCHECK_BATCH, 3, 224, 224))
+    y = rng.integers(0, 1000, (VISION_XCHECK_BATCH,)).astype(np.int64)
+    paddle.set_device("gpu")
+    paddle.seed(VISION_SEED)
+    card_net = models.resnet50()
+    paddle.set_device("cpu")
+    cpu_net = models.resnet50()
+    cpu_net.set_state_dict(card_net.state_dict())
+    res = {}
+    for dev, net in (("gpu", card_net), ("cpu", cpu_net)):
+        paddle.set_device(dev)
+        net.to(dtype=dtype)
+        model = _vision_model(paddle, net, amp=False)
+        xt = paddle.to_tensor(x, dtype=dtype)
+        yt = paddle.to_tensor(y)
+        bufs = {k: b._data.clone() for k, b in net.named_buffers()}
+        _, grads = model._train_step.loss_and_grads((xt._data,), yt._data)
+        for k, b in net.named_buffers():
+            b._data.copy_(bufs[k])
+        loss = model.train_batch([xt], yt)[0]
+        res[dev] = (torch.tensor(loss),
+                    {k: g.double().cpu() for k, g in grads.items()},
+                    {k: b._data.double().cpu()
+                     for k, b in net.named_buffers()})
+        del model
+    counts = dict(params=len(card_net.parameters()),
+                  bn=sum(isinstance(m, paddle.nn.BatchNorm2D)
+                         for m in card_net.sublayers()))
+    paddle.set_device("gpu")
+    del card_net, cpu_net
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def vision_cross_check(torch, paddle):
+    """Phase 25 (a): ``resnet50()`` through one ``Model.train_batch`` on the
+    card and on the CPU with the card's weights, batch 2 x 3 x 224 x 224
+    (``_vision_step``). In f32 (TF32 off): the loss and every BatchNorm
+    ``_mean`` / ``_variance`` after the step within closeness's f32 gate;
+    the gradients' ratio is printed, not gated. At random weights a
+    ResNet-50's gradients move by ~90x that gate when the input moves by
+    1e-7 (f64 on the CPU): a rounding flips a ReLU or max-pool kink, so
+    two f32 computations differ there by more than f32's rounding. In
+    f64, where nothing flips: the loss, every gradient and every running
+    statistic within the same gate."""
+    rec = {}
+    for dtype in ("float32", "float64"):
+        res, counts = _vision_step(torch, paddle, dtype)
+        loss_c = closeness(res["gpu"][0], res["cpu"][0])
+        grads = {k: closeness(g, res["cpu"][1][k])
+                 for k, g in res["gpu"][1].items()}
+        stats = {k: closeness(b, res["cpu"][2][k])
+                 for k, b in res["gpu"][2].items()}
+        worst_g = max(grads, key=lambda k: grads[k]["ratio"])
+        worst_s = max(stats, key=lambda k: stats[k]["ratio"])
+        r = dict(loss_cuda=float(res["gpu"][0]),
+                 loss_cpu=float(res["cpu"][0]), loss_ratio=loss_c["ratio"],
+                 grads=len(grads), worst_grad=worst_g,
+                 worst_grad_ratio=grads[worst_g]["ratio"],
+                 worst_grad_max_abs_err=grads[worst_g]["max_abs_err"],
+                 running_stats=len(stats), worst_stat=worst_s,
+                 worst_stat_ratio=stats[worst_s]["ratio"])
+        gated = [loss_c["ratio"], r["worst_stat_ratio"]] + (
+            [r["worst_grad_ratio"]] if dtype == "float64" else [])
+        if len(grads) != len(res["cpu"][1]) or \
+                len(grads) != counts["params"] or \
+                len(stats) != 2 * counts["bn"] or max(gated) > 1:
+            fail(f"phase 25 (a): ResNet-50 card vs CPU off in {dtype}: {r}")
+        rec[dtype] = r
+        print(f"vision (a) ResNet-50 train_batch card vs CPU ({dtype}, batch "
+              f"{VISION_XCHECK_BATCH}): loss {r['loss_cuda']:.6f} / "
+              f"{r['loss_cpu']:.6f} (ratio {r['loss_ratio']:.3f}); "
+              f"{len(stats)} running stats, worst {worst_s} ratio "
+              f"{r['worst_stat_ratio']:.3f}; {len(grads)} gradients, worst "
+              f"{worst_g} ratio {r['worst_grad_ratio']:.3f}"
+              f"{'' if dtype == 'float64' else ' (not gated)'}; pass <= 1",
+              flush=True)
+    return rec
+
+
+def _events_and_host(torch, fn, runs):
+    """Median (event ms, host ms) of ``runs`` calls of fn, each synced."""
+    ev, host = [], []
+    for _ in range(runs):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        ev.append(e0.elapsed_time(e1))
+    return statistics.median(ev), statistics.median(host)
+
+
+def vision_serving(torch, paddle, launches_of, reset_counts, card):
+    """Phase 25 (b): ``resnet50(num_classes=1000)`` in eval at batch 64:
+    the host pipeline (ToTensor, Resize(256), CenterCrop(224), Normalize
+    with ImageNet's mean and std) once, then ``Model.predict_batch`` in
+    f32 and under ``amp.auto_cast`` O1 bf16, then ``jit.save`` ->
+    ``inference.create_predictor`` in f32 held to the eager f32 logits
+    within closeness's f32 gate; counts around the three paths."""
+    import shutil
+
+    import numpy as np
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.vision import models
+    from paddle_tpu_torch.vision import transforms as T
+    rng = np.random.default_rng(VISION_SEED + 1)
+    h, w = VISION_SERVE_HW
+    raw = rng.integers(0, 256, (VISION_SERVE_BATCH, h, w, 3), np.uint8)
+    pipe = T.Compose([T.ToTensor(), T.Resize(256), T.CenterCrop(224),
+                      T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+    t0 = time.perf_counter()
+    batch = np.stack([pipe(im) for im in raw])
+    pipe_ms = (time.perf_counter() - t0) * 1e3
+    paddle.set_device("gpu")
+    paddle.seed(VISION_SEED + 1)
+    net = models.resnet50(num_classes=1000)
+    net.eval()
+    model = paddle.Model(net)
+    model.prepare()
+    x = paddle.to_tensor(batch)
+    rec = dict(batch=VISION_SERVE_BATCH, image_hw=list(VISION_SERVE_HW),
+               pipeline_ms=pipe_ms)
+
+    def f32():
+        return model.predict_batch([x])
+
+    def bf16():
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            return model.predict_batch([x])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    logits = f32()._data.float()
+    logits_bf16 = bf16()._data
+    for name, fn in (("f32", f32), ("bf16", bf16)):
+        fn()
+        ev, host = _events_and_host(torch, fn, VISION_SERVE_RUNS)
+        rec[name] = dict(ms_events=ev, ms_host=host,
+                         images_per_s=VISION_SERVE_BATCH / ev * 1e3)
+    rec["peak_gb_eager"] = torch.cuda.max_memory_allocated() / 1e9
+    d = ROOT / "build" / "chip_smoke_vision"
+    shutil.rmtree(d, ignore_errors=True)
+    prefix = str(d / "resnet50")
+    t0 = time.perf_counter()
+    jit.save(net, prefix, input_spec=[jit.InputSpec(
+        [VISION_SERVE_BATCH, 3, 224, 224], "float32")])
+    rec["save_s"] = time.perf_counter() - t0
+    pred = inference.create_predictor(inference.Config(prefix + ".pdmodel"))
+    pred.get_input_handle(pred.get_input_names()[0]).copy_from_cpu(batch)
+    pred.run()
+    got = torch.from_numpy(pred.get_output_handle(
+        pred.get_output_names()[0]).copy_to_cpu())
+    ev, host = _events_and_host(torch, pred.run, VISION_SERVE_RUNS)
+    rec["predictor"] = dict(ms_events=ev, ms_host=host,
+                            images_per_s=VISION_SERVE_BATCH / ev * 1e3)
+    x_dev = x._data
+    rec["predictor"]["program_ms"] = _events_and_host(
+        torch, lambda: pred._layer(x_dev), VISION_SERVE_RUNS)[0]
+    torch.cuda.synchronize()
+    launches = launches_of()
+    # -- end of the counted paths --
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gate = closeness(got, logits.cpu())
+    finite = bool(torch.isfinite(logits).all() and
+                  torch.isfinite(logits_bf16.float()).all())
+    top1 = float((logits.argmax(-1) == logits_bf16.float().argmax(-1))
+                 .float().mean())
+    rec.update(predictor_gate=gate, bf16_top1_equal_share=top1,
+               launches=launches, shape=list(logits.shape))
+    if tuple(logits.shape) != (VISION_SERVE_BATCH, 1000) or not finite or \
+            gate["ratio"] > 1:
+        fail(f"phase 25 (b): serving off: shape {tuple(logits.shape)}, "
+             f"finite {finite}, predictor {gate}")
+    if any(launches.values()):
+        fail(f"phase 25 (b): serving launched port kernels: {launches}")
+    print(f"vision (b) ResNet-50 serving, batch {VISION_SERVE_BATCH} "
+          f"(host pipeline {pipe_ms:.1f} ms): f32 "
+          f"{rec['f32']['ms_events']:.2f} ms (host "
+          f"{rec['f32']['ms_host']:.2f}) = "
+          f"{rec['f32']['images_per_s']:.0f} images/s; bf16 O1 "
+          f"{rec['bf16']['ms_events']:.2f} ms (host "
+          f"{rec['bf16']['ms_host']:.2f}) = "
+          f"{rec['bf16']['images_per_s']:.0f} images/s, top-1 equal to "
+          f"f32's {top1:.3f}; predictor (saved in {rec['save_s']:.1f} s) "
+          f"{rec['predictor']['ms_events']:.2f} ms a run with host copies "
+          f"(program {rec['predictor']['program_ms']:.2f}) = "
+          f"{rec['predictor']['images_per_s']:.0f} images/s, ratio "
+          f"{gate['ratio']:.3f} of the f32 gate; peak "
+          f"{rec['peak_gb']:.2f} GB on {card}", flush=True)
+    del pred, model, net, x
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _vision_folders(root):
+    """VISION_TRAIN's images as ``root/class_k/i.npy`` (HWC uint8 256 x
+    256 x 3), the class-conditional patterns of the datasets'
+    ``_synthetic_images`` from VISION_SEED."""
+    import numpy as np
+    from paddle_tpu_torch.vision.datasets import _synthetic_images
+    n, k, hw = (VISION_TRAIN[n] for n in ("images", "classes", "hw"))
+    imgs, labels = _synthetic_images(n, k, (3, hw, hw), VISION_SEED)
+    imgs = np.round(imgs * 255).astype(np.uint8).transpose(0, 2, 3, 1)
+    for c in range(k):
+        (root / f"class_{c}").mkdir(parents=True)
+    for i, (im, c) in enumerate(zip(imgs, labels)):
+        np.save(root / f"class_{c}" / f"{i:04d}.npy", im)
+    return np.bincount(labels, minlength=k).tolist()
+
+
+def vision_train_main_path(torch, paddle, launches_of, reset_counts, card):
+    """Phase 25 (c), the main path: ``resnet50()`` trained by PaddleClas's
+    recipe through ``Model.fit`` over ``DatasetFolder(root,
+    loader=np.load, extensions=(".npy",))`` with ToTensor,
+    RandomResizedCrop(224), RandomHorizontalFlip and Normalize, in a
+    ``DataLoader(batch_size=64, shuffle=True, drop_last=True,
+    num_workers=min(8, cpus))``: one epoch (2 warm steps, the rest timed),
+    counts to 0 just before and read just after. Then the same
+    ``train_batch`` on one fixed batch, without the loader."""
+    import shutil
+
+    import numpy as np
+    from paddle_tpu_torch.vision import datasets, models
+    from paddle_tpu_torch.vision import transforms as T
+    root = OUT_DIR / "vision_data"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        per_class = _vision_folders(root)
+        data_s = time.perf_counter() - t0
+        ds = datasets.DatasetFolder(
+            str(root), loader=np.load, extensions=(".npy",),
+            transform=T.Compose([T.ToTensor(), T.RandomResizedCrop(224),
+                                 T.RandomHorizontalFlip(),
+                                 T.Normalize(IMAGENET_MEAN, IMAGENET_STD)]))
+        workers = min(8, os.cpu_count() or 1)
+        loader = paddle.io.DataLoader(ds, batch_size=VISION_TRAIN["batch"],
+                                      shuffle=True, drop_last=True,
+                                      num_workers=workers)
+        paddle.set_device("gpu")
+        paddle.seed(VISION_SEED + 2)
+        np.random.seed(VISION_SEED + 2)
+        net = models.resnet50()
+        model = _vision_model(paddle, net, amp=True)
+        stats0 = {k: b._data.clone() for k, b in net.named_buffers()}
+        clock = _step_clock(torch, paddle)
+        builds = []
+
+        class Builds(paddle.callbacks.Callback):
+            def on_train_batch_end(self, step, logs=None):
+                builds.append(int(paddle.monitor.snapshot().get(
+                    "kernels.builds", 0)))
+        steps = len(loader)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        model.fit(loader, epochs=1, verbose=0, callbacks=[clock, Builds()])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = launches_of()
+        counters = {k: v for k, v in paddle.monitor.snapshot().items()
+                    if k.startswith("kernels.")}
+        # -- end of the counted path --
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = clock.losses
+        moved = [k for k, b in net.named_buffers()
+                 if not torch.equal(b._data, stats0[k])]
+        finite_stats = all(bool(torch.isfinite(b._data).all())
+                           for _, b in net.named_buffers())
+        if len(losses) != steps or not all(map(math.isfinite, losses)):
+            fail(f"phase 25 (c): {len(losses)} losses for {steps} steps: "
+                 f"{losses}")
+        if len(moved) != len(stats0) or not finite_stats:
+            fail(f"phase 25 (c): running stats moved {len(moved)} of "
+                 f"{len(stats0)}, finite {finite_stats}")
+        if len(set(builds)) != 1:
+            fail(f"phase 25 (c): kernel builds after the first step: "
+                 f"{builds}")
+        if any(launches.values()):
+            fail(f"phase 25 (c): the vision path launched port kernels "
+                 f"{launches} (none of them is on it)")
+        warm = VISION_TRAIN["warm"]
+        step_t, cycles = clock.timings()
+        med = statistics.median
+        step_host = med(h for h, _ in step_t[warm:])
+        step_ev = med(e for _, e in step_t[warm:])
+        cycle = med(cycles[warm:])
+        # the same step on one fixed batch, no loader
+        x, y = next(iter(loader))
+        model.train_batch([x], y)
+        fixed_ev, fixed_host = _events_and_host(
+            torch, lambda: model.train_batch([x], y), steps - warm)
+        model.eval_batch([x], y)
+        acc = model._metrics[0].accumulate()
+        b = VISION_TRAIN["batch"]
+        rec = dict(steps=steps, timed=steps - warm, workers=workers,
+                   per_class=per_class, data_s=data_s, fit_s=fit_s,
+                   losses=losses, step_ms_host=step_host,
+                   step_ms_events=step_ev, cycle_ms=cycle,
+                   images_per_s=b / cycle * 1e3,
+                   loader_wait_share=(cycle - step_ev) / cycle,
+                   fixed_batch=dict(ms_events=fixed_ev, ms_host=fixed_host,
+                                    images_per_s=b / fixed_host * 1e3),
+                   step_host_ms=[h for h, _ in step_t],
+                   step_events_ms=[e for _, e in step_t], cycles_ms=cycles,
+                   accuracy_top1_top5=acc, peak_gb=peak_gb,
+                   running_stats_moved=len(moved), builds=builds,
+                   launches=launches, counters=counters)
+        print(f"vision (c) ResNet-50 Model.fit (PaddleClas recipe, O1 bf16, "
+              f"batch {b}, {workers} workers, {steps} steps of which "
+              f"{steps - warm} timed): losses {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; step {step_ev:.2f} ms events / "
+              f"{step_host:.2f} ms host, cycle {cycle:.2f} ms = "
+              f"{rec['images_per_s']:.0f} images/s, device waits on the "
+              f"loader {rec['loader_wait_share']:.3f} of a cycle; one fixed "
+              f"batch {fixed_ev:.2f} ms events / {fixed_host:.2f} host; "
+              f"{len(moved)} running stats moved; peak {peak_gb:.2f} GB; "
+              f"no port kernel launched on {card}", flush=True)
+        del model, net, loader
+        torch.cuda.empty_cache()
+        return rec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _det_check(torch, what, fn, inputs, grad_of=(), iters=3):
+    """``fn(*inputs)`` on the card against the CPU path on copies of the
+    same inputs: every floating output within closeness's f32 gate, and
+    the gradients of sum(out * w) (w fixed, from VISION_SEED) in the
+    inputs named by ``grad_of`` (indices); ms of the card's forward and of
+    forward + backward (events, after one warm call)."""
+    def leaves(dev):
+        """The inputs as fresh leaves on ``dev`` (a gradient must stop
+        there, never reach ``inputs`` through the copy)."""
+        return [t.detach().to(dev).requires_grad_(i in grad_of)
+                if torch.is_tensor(t) else t for i, t in enumerate(inputs)]
+
+    def run(dev):
+        ins = leaves(dev)
+        outs = fn(*ins)
+        outs = outs if isinstance(outs, (tuple, list)) else (outs,)
+        outs = [o._data if hasattr(o, "_data") else o for o in outs]
+        grads = {}
+        if grad_of:
+            g = torch.Generator().manual_seed(VISION_SEED)
+            loss = sum((o * torch.randn(tuple(o.shape), generator=g).to(
+                dev)).sum() for o in outs if o.is_floating_point())
+            gs = torch.autograd.grad(loss, [ins[i] for i in grad_of])
+            grads = {i: g.cpu() for i, g in zip(grad_of, gs)}
+        return [o.detach().cpu() for o in outs], grads
+    card_out, card_g = run("cuda")
+    cpu_out, cpu_g = run("cpu")
+    gates = [closeness(a, b) for a, b in zip(card_out, cpu_out)
+             if a.is_floating_point()]
+    gates += [closeness(card_g[i], cpu_g[i]) for i in grad_of]
+    equal_ints = all(torch.equal(a, b) for a, b in zip(card_out, cpu_out)
+                     if not a.is_floating_point())
+    worst = max((g["ratio"] for g in gates), default=0.0)
+    if worst > 1 or not equal_ints:
+        fail(f"phase 25 (d) {what}: card vs CPU {gates}, integer outputs "
+             f"equal {equal_ints}")
+    dev_in = leaves("cuda")
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: fn(*dev_in), iters=iters, warmup=1)
+
+    def fwd_bwd():
+        outs = fn(*dev_in)
+        outs = outs if isinstance(outs, (tuple, list)) else (outs,)
+        sum(o._data.float().sum() for o in outs
+            if o._data.is_floating_point()).backward()
+    bwd_ms = cuda_ms(fwd_bwd, iters=iters, warmup=1) if grad_of else None
+    return dict(ratio=worst, max_abs_err=max(
+        (g["max_abs_err"] for g in gates), default=0.0), gates=len(gates),
+        fwd_ms=fwd_ms, fwd_bwd_ms=bwd_ms)
+
+
+def _rpn_boxes(rng, n, image):
+    """n RPN-like proposals on an image of (h, w): a dense cluster of
+    jittered boxes around each of n/60 objects."""
+    import numpy as np
+    h, w = image
+    k = max(n // 60, 1)
+    cx, cy = rng.uniform(0, w, k), rng.uniform(0, h, k)
+    bw, bh = rng.uniform(32, 400, k), rng.uniform(32, 400, k)
+    obj = rng.integers(0, k, n)
+    jit = rng.normal(0, 0.12, (n, 4))
+    x1 = cx[obj] - bw[obj] / 2 + jit[:, 0] * bw[obj]
+    y1 = cy[obj] - bh[obj] / 2 + jit[:, 1] * bh[obj]
+    x2 = cx[obj] + bw[obj] / 2 + jit[:, 2] * bw[obj]
+    y2 = cy[obj] + bh[obj] / 2 + jit[:, 3] * bh[obj]
+    b = np.stack([np.minimum(x1, x2), np.minimum(y1, y2),
+                  np.maximum(x1, x2), np.maximum(y1, y2)], 1)
+    return np.clip(b, 0, [w - 1, h - 1, w - 1, h - 1]).astype(np.float32)
+
+
+def _nms_check(torch, tops, rng):
+    """nms on DET['pre_nms'] proposals at IoU DET['iou']: the kept indices
+    on the card equal the CPU's, or differ only where a suppression bit
+    differs on a pair whose CPU IoU lies within 1e-6 of the threshold;
+    ms (events and host) and the CUDA kernels and copies one call makes
+    (torch.profiler)."""
+    import numpy as np
+    n, thr = DET["pre_nms"], DET["iou"]
+    boxes = torch.from_numpy(_rpn_boxes(rng, n, DET["image"]))
+    scores = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32))
+    keep = {d: tops.nms(boxes.to(d), thr, scores.to(d))._data.cpu()
+            for d in ("cuda", "cpu")}
+    order = torch.argsort(-scores, stable=True)
+    iou = {d: tops._iou_matrix(boxes[order].to(d)).cpu()
+           for d in ("cuda", "cpu")}
+    later = torch.ones(n, n, dtype=torch.bool).triu(1)
+    near = ((iou["cpu"] - thr).abs() <= 1e-6) & later
+    flips = ((iou["cuda"] > thr) != (iou["cpu"] > thr)) & later
+    if not torch.equal(keep["cuda"], keep["cpu"]) and \
+            bool((flips & ~near).any()):
+        fail(f"phase 25 (d) nms: kept indices differ beyond the near-"
+             f"threshold pairs ({int(flips.sum())} flipped bits)")
+    b_dev, s_dev = boxes.cuda(), scores.cuda()
+    ev, host = _events_and_host(
+        torch, lambda: tops.nms(b_dev, thr, s_dev), 5)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tops.nms(b_dev, thr, s_dev)
+        torch.cuda.synchronize()
+    launches = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+    kept = int((keep["cpu"] >= 0).sum())
+    return dict(boxes=n, kept=kept, equal=torch.equal(keep["cuda"],
+                                                      keep["cpu"]),
+                near_threshold_pairs=int(near.sum()),
+                flipped_bits=int(flips.sum()), ms_events=ev, ms_host=host,
+                cuda_activities=launches)
+
+
+def vision_detection_ops(torch, paddle, card):
+    """Phase 25 (d): the detection ops at their detectors' sizes (DET), each
+    on the card against the port's CPU path on the same inputs (TF32 off):
+    values and, where the op has them, gradients within closeness's f32
+    gate; generate_proposals and multiclass_nms3 (host numpy) equal; nms
+    by _nms_check. ms of each beside the card."""
+    import numpy as np
+    from paddle_tpu_torch.vision import ops as tops
+    rng = np.random.default_rng(VISION_SEED + 3)
+    T = torch.from_numpy
+    out = {}
+    n_img, c, fh, fw = DET["c4"]
+    ih, iw = DET["image"]
+    scale = 1.0 / DET["stride"]
+    c4 = T(rng.standard_normal(DET["c4"]).astype(np.float32))
+    rois = T(np.concatenate([_rpn_boxes(rng, DET["rois"], DET["image"])
+                             for _ in range(n_img)]))
+    num = np.full(n_img, DET["rois"], np.int32)
+    out["roi_align"] = _det_check(
+        torch, "roi_align", lambda x, b: tops.roi_align(
+            x, b, num, DET["align"], scale, -1, True), [c4, rois], (0,))
+    out["roi_pool"] = _det_check(
+        torch, "roi_pool", lambda x, b: tops.roi_pool(
+            x, b, num, DET["pool"], scale), [c4, rois], (0,))
+    del c4
+    out["nms"] = _nms_check(torch, tops, rng)
+    # RPN proposals from [2, 15, 50, 84] scores and [2, 60, 50, 84] deltas
+    a = DET["anchors"]
+    sizes = np.array([32, 64, 128, 256, 512], np.float32)
+    ratios = np.array([0.5, 1.0, 2.0], np.float32)
+    aw = (sizes[:, None] / np.sqrt(ratios)[None]).reshape(-1)
+    ah = (sizes[:, None] * np.sqrt(ratios)[None]).reshape(-1)
+    cy, cx = np.meshgrid((np.arange(fh) + 0.5) * DET["stride"],
+                         (np.arange(fw) + 0.5) * DET["stride"],
+                         indexing="ij")
+    anchors = np.stack([cx[..., None] - aw / 2, cy[..., None] - ah / 2,
+                        cx[..., None] + aw / 2, cy[..., None] + ah / 2],
+                       -1).astype(np.float32)            # [H, W, A, 4]
+    rpn = [rng.uniform(0, 1, (n_img, a, fh, fw)).astype(np.float32),
+           rng.normal(0, 0.2, (n_img, 4 * a, fh, fw)).astype(np.float32),
+           np.array([[ih, iw]] * n_img, np.float32), anchors,
+           np.ones_like(anchors)]
+    props = {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res = tops.generate_proposals(
+            *[T(v).to(d) for v in rpn], pre_nms_top_n=DET["pre_nms"],
+            post_nms_top_n=DET["post_nms"], nms_thresh=DET["iou"])
+        props[d] = ([r._data.cpu() for r in res],
+                    (time.perf_counter() - t0) * 1e3)
+    if not all(torch.equal(p, q) for p, q in zip(props["cuda"][0],
+                                                 props["cpu"][0])):
+        fail("phase 25 (d) generate_proposals: card result differs")
+    out["generate_proposals"] = dict(
+        kept=props["cpu"][0][2].tolist(), ms_host=props["cuda"][1])
+    # R-FCN position-sensitive pooling
+    k = DET["pool"]
+    ps = T(rng.standard_normal((n_img, DET["rfcn_classes"] * k * k, fh,
+                                fw)).astype(np.float32))
+    ps_rois = T(np.concatenate([_rpn_boxes(rng, DET["rfcn_rois"],
+                                           DET["image"])
+                                for _ in range(n_img)]))
+    ps_num = np.full(n_img, DET["rfcn_rois"], np.int32)
+    out["psroi_pool"] = _det_check(
+        torch, "psroi_pool", lambda x, b: tops.psroi_pool(
+            x, b, ps_num, k, scale), [ps, ps_rois], (0,))
+    del ps
+    # YOLOv3: three heads, decode, loss, NMS
+    nb, cls, size = DET["yolo_batch"], DET["yolo_classes"], DET["yolo_size"]
+    heads = []
+    for stride in DET["yolo_strides"]:
+        s = size // stride
+        v = rng.normal(0, 1, (nb, 3, 5 + cls, s, s))
+        v[:, :, 2:4] *= 0.5
+        v[:, :, 4] = rng.normal(*YOLO_OBJ, (nb, 3, s, s))
+        v[:, :, 5:] = rng.normal(*YOLO_CLS, (nb, 3, cls, s, s))
+        heads.append(T(v.reshape(nb, 3 * (5 + cls), s, s).astype(
+            np.float32)))
+    img = T(np.array([[size, size]] * nb, np.int32))
+    anc = DET["yolo_anchors"]
+    gt = np.zeros((nb, DET["yolo_gt"], 4), np.float32)
+    gt[..., :2] = rng.uniform(0.05, 0.95, (nb, DET["yolo_gt"], 2))
+    gt[..., 2:] = rng.uniform(0.02, 0.5, (nb, DET["yolo_gt"], 2))
+    label = T(rng.integers(0, cls, (nb, DET["yolo_gt"])).astype(np.int64))
+    decoded = []
+    for i, (mask, stride) in enumerate(zip(DET["yolo_masks"],
+                                           DET["yolo_strides"])):
+        sub = [v for j in mask for v in anc[2 * j:2 * j + 2]]
+        out[f"yolo_box_{size // stride}"] = _det_check(
+            torch, f"yolo_box {size // stride}", lambda x, im: tops.yolo_box(
+                x, im, sub, cls, 0.01, stride), [heads[i], img], (0,))
+        out[f"yolo_loss_{size // stride}"] = _det_check(
+            torch, f"yolo_loss {size // stride}",
+            lambda x, g, lab: tops.yolo_loss(
+                x, g, lab, anc, mask, cls, 0.7, stride),
+            [heads[i], T(gt), label], (0,))
+        with torch.no_grad():
+            decoded.append(tops.yolo_box(heads[i].cuda(), img.cuda(), sub,
+                                         cls, 0.01, stride))
+    boxes = torch.cat([b._data for b, _ in decoded], 1)
+    scores = torch.cat([s._data for _, s in decoded], 1).transpose(1, 2)
+    nms3 = {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res = tops.multiclass_nms3(boxes.to(d), scores.contiguous().to(d),
+                                   score_threshold=0.01, nms_top_k=1000,
+                                   keep_top_k=100, nms_threshold=0.45)
+        nms3[d] = ([r._data.cpu() for r in res],
+                   (time.perf_counter() - t0) * 1e3)
+    if not all(torch.equal(p, q) for p, q in zip(nms3["cuda"][0],
+                                                 nms3["cpu"][0])):
+        fail("phase 25 (d) multiclass_nms3: card result differs")
+    cand = int(((scores > 0.01).sum(-1) > 0).sum())
+    out["multiclass_nms3"] = dict(
+        boxes_per_image=int(boxes.shape[1]), kept=nms3["cpu"][0][1].tolist(),
+        boxes_over_threshold=cand, ms_host=nms3["cuda"][1])
+    del heads, decoded, boxes, scores
+    # DCNv2 in ResNet-50's stage 5
+    n, ch, h, w = DET["dcn"]
+    x = T(rng.standard_normal((n, ch, h, w)).astype(np.float32))
+    off = T(rng.normal(0, 1, (n, 18, h, w)).astype(np.float32))
+    msk = T(rng.uniform(0, 1, (n, 9, h, w)).astype(np.float32))
+    wt = T((rng.standard_normal((ch, ch, 3, 3)) / np.sqrt(ch * 9)).astype(
+        np.float32))
+    out["deform_conv2d"] = _det_check(
+        torch, "deform_conv2d", lambda a, o, m, ww: tops.deform_conv2d(
+            a, o, ww, padding=1, mask=m), [x, off, msk, wt], (0, 1, 2, 3))
+    print(f"vision (d) detection ops on the card vs the CPU (f32 gate; ms "
+          f"forward / forward + backward on {card}):", flush=True)
+    for name, r in out.items():
+        if "fwd_ms" in r:
+            bwd = "" if r["fwd_bwd_ms"] is None else \
+                f" / {r['fwd_bwd_ms']:.2f}"
+            print(f"  {name}: {r['fwd_ms']:.2f}{bwd} ms, ratio "
+                  f"{r['ratio']:.3f}", flush=True)
+    r = out["nms"]
+    print(f"  nms: {r['boxes']} boxes -> {r['kept']} kept, equal to the "
+          f"CPU {r['equal']} ({r['near_threshold_pairs']} pairs within 1e-6 "
+          f"of the threshold, {r['flipped_bits']} bits flipped); "
+          f"{r['ms_events']:.2f} ms events / {r['ms_host']:.2f} ms host, "
+          f"{r['cuda_activities']} CUDA kernels and copies a call",
+          flush=True)
+    gp, mn = out["generate_proposals"], out["multiclass_nms3"]
+    print(f"  generate_proposals (host): kept {gp['kept']}, "
+          f"{gp['ms_host']:.1f} ms; multiclass_nms3 (host): {mn['kept']} "
+          f"rows an image of {mn['boxes_per_image']} boxes, "
+          f"{mn['ms_host']:.1f} ms; both equal to the CPU's", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def vision_zoo(torch, paddle, card):
+    """Phase 25 (e): the smallest factory of each family (ZOO) in f32, eval,
+    batch 2, on the card against a CPU copy with its weights, within
+    closeness's f32 gate."""
+    import numpy as np
+    from paddle_tpu_torch.vision import models
+    rng = np.random.default_rng(VISION_SEED + 4)
+    out = {}
+    for name, shape in ZOO:
+        x = rng.standard_normal((2, *shape)).astype(np.float32)
+        paddle.set_device("gpu")
+        paddle.seed(VISION_SEED + 4)
+        card_net = getattr(models, name)()
+        paddle.set_device("cpu")
+        cpu_net = getattr(models, name)()
+        cpu_net.set_state_dict(card_net.state_dict())
+        res = []
+        for dev, net in (("gpu", card_net), ("cpu", cpu_net)):
+            paddle.set_device(dev)
+            net.eval()
+            with torch.no_grad():
+                res.append(net(paddle.to_tensor(x))._data.float().cpu())
+        paddle.set_device("gpu")
+        gate = closeness(res[0], res[1])
+        if gate["ratio"] > 1 or not torch.isfinite(res[0]).all():
+            fail(f"phase 25 (e) {name}: card vs CPU {gate}")
+        out[name] = dict(ratio=gate["ratio"],
+                         max_abs_err=gate["max_abs_err"],
+                         shape=list(res[0].shape))
+        del card_net, cpu_net
+    torch.cuda.empty_cache()
+    worst = max(out, key=lambda k: out[k]["ratio"])
+    print(f"vision (e) zoo, {len(out)} families, f32 batch 2 card vs CPU: "
+          f"worst {worst} ratio {out[worst]['ratio']:.3f} (pass <= 1) on "
+          f"{card}", flush=True)
+    return out
+
+
+def vision_main_path(torch, launches_of, reset_counts, card):
+    """Phase 25: paddle.vision on the card, (a)-(e); ``set_device("gpu")``
+    throughout but for the CPU copies."""
+    import paddle_tpu_torch as paddle
+    t0 = time.perf_counter()
+    paddle.set_device("gpu")
+    out = dict(cross_check=vision_cross_check(torch, paddle))
+    out["serving"] = vision_serving(torch, paddle, launches_of,
+                                    reset_counts, card)
+    out["training"] = vision_train_main_path(torch, paddle, launches_of,
+                                             reset_counts, card)
+    out["detection"] = vision_detection_ops(torch, paddle, card)
+    out["zoo"] = vision_zoo(torch, paddle, card)
+    paddle.set_device("gpu")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 25 in {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def bench_trace(vocab, n_requests=24, prompt_lo=64, prompt_hi=192,
                 arrival_rate_hz=40.0, shared_prefix=0, whale_every=0,
                 whale_prompt=0):
@@ -6518,6 +7274,11 @@ def main():
     debugging = debugging_check(torch, paddle, ep, card)
     device_utils = device_utils_check(torch, paddle, card)
 
+    # 25. paddle.vision: ResNet-50 card vs CPU, served, trained (counts
+    # around each path), the detection ops at their detectors' sizes and
+    # the zoo against the CPU
+    vision = vision_main_path(torch, launches_of, reset_counts, card)
+
     src = "paddle_tpu_torch/csrc/"
 
     def replay_by_path(kernel):
@@ -6887,7 +7648,8 @@ def main():
                   hapi_cross_check=hapi_xcheck, hapi=hapi,
                   predictor=predictor, quantized_serving=quant,
                   profiler=prof_run, debugging=debugging,
-                  device_utils=device_utils, kernels=kernels)
+                  device_utils=device_utils, vision=vision,
+                  kernels=kernels)
     (OUT_DIR / "result.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,12 +28,12 @@ names and ``Tensor`` methods, and ``nn`` holds conv, pooling, the resize
 / fold / shuffle / grid functionals and the recurrent layers. ``jit``,
 ``inference``, ``text``, ``incubate``, ``regularizer``, ``quantization``
 ``distributed``, ``io``, ``metric``, ``hapi``, ``callbacks``,
-``reader``, ``profiler``, ``device``, ``utils``, ``sysconfig`` and
-``version`` resolve as attributes on first use, and so do ``Model``,
-``summary`` and ``flops`` of ``hapi`` and ``to_dlpack`` / ``from_dlpack``
-of ``utils.dlpack`` (a module ``__getattr__``: importing them here would
-pull the serving, model, data and profiler stacks into every
-``import``; ``dir()`` lists them). The high-level paths:
+``reader``, ``profiler``, ``device``, ``utils``, ``sysconfig``,
+``version`` and ``vision`` resolve as attributes on first use, and so
+do ``Model``, ``summary`` and ``flops`` of ``hapi`` and ``to_dlpack`` /
+``from_dlpack`` of ``utils.dlpack`` (a module ``__getattr__``: importing
+them here would pull the serving, model, data, vision and profiler stacks
+into every ``import``; ``dir()`` lists them). The high-level paths:
 
     model = paddle.Model(net)                      # a Layer or a Module
     model.prepare(paddle.optimizer.AdamW(2e-5, parameters=net.parameters()),
@@ -46,7 +46,7 @@ pull the serving, model, data and profiler stacks into every
         paddle.inference.Config("out/net.pdmodel"))
 
 The names of the JAX package's top level whose modules are not ported
-yet (``vision``, ``fft``, ``static``, ``jit.to_static``, ...) are absent.
+yet (``fft``, ``static``, ``jit.to_static``, ...) are absent.
 
 The port's models and the serving ``Engine`` take raw torch tensors:
 
@@ -122,7 +122,7 @@ def in_dynamic_mode():
 _LAZY_SUBPACKAGES = ("jit", "inference", "text", "incubate", "regularizer",
                      "quantization", "distributed", "io", "metric", "hapi",
                      "callbacks", "reader", "profiler", "device", "utils",
-                     "sysconfig", "version")
+                     "sysconfig", "version", "vision")
 #: names of a subpackage resolved on first access (``paddle.Model``)
 _LAZY_NAMES = {"Model": "hapi", "summary": "hapi", "flops": "hapi",
                "to_dlpack": "utils.dlpack", "from_dlpack": "utils.dlpack"}

@@ -156,6 +156,9 @@ def layer_state_from_jax(jax_layer) -> Dict[str, np.ndarray]:
     - Linear ``weight`` [in, out] (paddle's layout) and ``bias``;
     - Conv*D ``weight`` [out, in/groups, *k], Conv*DTranspose ``weight``
       [in, out/groups, *k] (torch's layouts too), ``bias`` [out];
+      ``vision.ops.DeformConv2D`` ``weight`` [out, in/groups, kh, kw] and
+      ``bias`` [out], as Conv2D's (so every ``vision.models`` factory
+      crosses with no missing and no unexpected key);
     - BatchNorm*D ``weight``, ``bias`` and the buffers ``_mean`` /
       ``_variance`` [C];
     - SimpleRNN / LSTM / GRU ``weight_ih_l{k}`` [G*H, in], ``weight_hh_l{k}``

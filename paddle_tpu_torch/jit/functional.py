@@ -71,6 +71,18 @@ def _unwrap_tree(out):
     return out
 
 
+#: how many ``functional_call``s are running (nested calls count each)
+_active = 0
+
+
+def in_functional_call() -> bool:
+    """True inside ``functional_call``: the counterpart of a JAX trace
+    (``jax.grad`` of the JAX ``TrainStep``), where every array op is
+    differentiated, the batch statistics of a training batch norm too;
+    the eager tape of either package treats them as constants."""
+    return _active > 0
+
+
 def functional_call(layer, params, buffers, args, kwargs=None,
                     frozen=None, rng_key=None, training=None):
     """Run ``layer`` on ``args`` (torch tensors, passed in as surface
@@ -82,10 +94,12 @@ def functional_call(layer, params, buffers, args, kwargs=None,
         raise NotImplementedError(
             "functional_call: the port has no PRNG keys; dropout draws "
             "from the generator of its device (paddle.seed)")
+    global _active
     kwargs = kwargs or {}
     was_training = layer.training
     if training is not None:
         layer.train() if training else layer.eval()
+    _active += 1
     try:
         with bind_state(layer, params, buffers, frozen or {}) as reg:
             targs = [Tensor._from_data(a) if isinstance(a, torch.Tensor)
@@ -93,6 +107,7 @@ def functional_call(layer, params, buffers, args, kwargs=None,
             out = _unwrap_tree(layer(*targs, **kwargs))
             new_buffers = {n: reg[n]._data for n in buffers}
     finally:
+        _active -= 1
         if training is not None:
             layer.train() if was_training else layer.eval()
     return out, new_buffers

@@ -73,11 +73,19 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                data_format="NCHW", use_global_stats=None, name=None):
     """Batch statistics in training (then ``running = momentum * running
     + (1 - momentum) * batch_stat``, the variance unbiased, written in
-    place), the running ones otherwise."""
+    place), the running ones otherwise. The gradient treats the batch
+    statistics as constants, as the JAX package's eager tape does (it
+    computes them outside its op), except inside ``jit.functional_call``
+    (``TrainStep``), where it runs through them as ``jax.grad`` does in
+    the JAX ``TrainStep``."""
     a = unwrap(x)
     ch = _channel_axis(a, data_format)
     axes = tuple(i for i in range(a.dim()) if i != ch)
     use_batch = training and not use_global_stats
+    traced = False
+    if use_batch:
+        from ...jit import functional as jit_functional
+        traced = jit_functional.in_functional_call()
     if use_batch:
         with torch.no_grad():
             n = a.numel() // a.shape[ch]
@@ -92,10 +100,12 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
         shape = [1] * v.dim()
         shape[ch] = v.shape[ch]
         if use_batch:
-            # the statistics as constants, as the JAX package wraps them
-            # outside its op (no gradient through the batch mean / var)
-            m = v.detach().mean(dim=axes)
-            s = v.detach().var(dim=axes, unbiased=False)
+            # eager: the statistics as constants, as the JAX package wraps
+            # them outside its op (no gradient through the batch mean /
+            # var); traced: differentiated, as under jax.grad
+            stat = v if traced else v.detach()
+            m = stat.mean(dim=axes)
+            s = stat.var(dim=axes, unbiased=False)
         out = (v - m.reshape(shape)) / torch.sqrt(s.reshape(shape) + epsilon)
         if w is not None:
             out = out * w.reshape(shape)

@@ -5,7 +5,10 @@ and nvcc, so they skip elsewhere; on the card run
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 
-(chip_smoke.py repeats the comparison at the serving shapes.)
+(chip_smoke.py repeats the comparison at the serving shapes.) The last
+tests hold paddle.vision's detection ops and a resnet18 train_batch on
+the card to their CPU path (no kernel of the port: plain PyTorch on
+either device).
 Tolerances: 1e-4 relative to the output's scale for f32, 1e-2 for half
 precision outputs (the kernels accumulate in f32; the plain versions sum
 in another order).
@@ -1874,3 +1877,155 @@ def test_profiler_device_view_counts_the_wgmma_kernels(dev, tmp_path, d):
             if e.get("cat") == "kernel"]
     assert {name: lane.count(name) for name in want} == want
     assert "fwd_bwd" not in lane and "Device Summary" in p.summary()
+
+
+# -- paddle.vision's detection ops: the card against the CPU path -----------
+
+def _vision_ops():
+    from paddle_tpu_torch.vision import ops
+    return ops
+
+
+def _card_vs_cpu(fn, inputs, grad_of=()):
+    """fn(*inputs) on the card and on the CPU: floating outputs and the
+    gradients of sum(out * w) in ``grad_of`` within 1e-4 of the scale,
+    integer outputs equal."""
+    res = []
+    for d in ("cuda", "cpu"):
+        ins = [t.to(d).requires_grad_(i in grad_of) if torch.is_tensor(t)
+               else t for i, t in enumerate(inputs)]
+        outs = fn(*ins)
+        outs = [o._data for o in (outs if isinstance(outs, (tuple, list))
+                                  else (outs,))]
+        grads = []
+        if grad_of:
+            g = torch.Generator().manual_seed(0)
+            loss = sum((o * torch.randn(tuple(o.shape), generator=g).to(d))
+                       .sum() for o in outs if o.is_floating_point())
+            grads = [x.cpu() for x in torch.autograd.grad(
+                loss, [ins[i] for i in grad_of])]
+        res.append(([o.detach().cpu() for o in outs], grads))
+    (card, card_g), (cpu, cpu_g) = res
+    for a, b in zip(card, cpu):
+        if a.is_floating_point():
+            _close(a, b, 1e-4)
+        else:
+            assert torch.equal(a, b)
+    for a, b in zip(card_g, cpu_g):
+        _close(a, b, 1e-4)
+
+
+def _boxes(g, n, size, lo=2.0, hi=24.0):
+    xy = torch.rand(n, 2, generator=g) * size
+    wh = lo + torch.rand(n, 2, generator=g) * (hi - lo)
+    return torch.cat([xy, xy + wh], 1)
+
+
+@pytest.mark.parametrize("op", ["roi_align", "roi_pool", "psroi_pool"])
+def test_vision_roi_ops_on_card_match_cpu(dev, op, monkeypatch):
+    ops = _vision_ops()
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 2 * 3 * 3, 20, 26, generator=g)
+    # random boxes, and boxes on the map's edges whose bins and samples
+    # fall on whole pixels (an ulp there moves a pixel)
+    boxes = torch.cat([_boxes(g, 9, 80.0), torch.tensor(
+        [[0.0, 0.0, 103.0, 79.0], [0.0, 0.0, 55.0, 27.0],
+         [8.0, 4.0, 63.0, 59.0]])])
+    num = torch.tensor([7, 5], dtype=torch.int32)
+    monkeypatch.setattr(ops, "CHUNK_BYTES", 4096)    # several chunks
+    _card_vs_cpu(lambda a, b: getattr(ops, op)(a, b, num, 3, 0.25),
+                 [x, boxes], (0,))
+
+
+def test_vision_nms_on_card_matches_cpu(dev):
+    ops = _vision_ops()
+    g = torch.Generator().manual_seed(2)
+    boxes = _boxes(g, 700, 200.0, 8.0, 60.0)
+    scores = torch.rand(700, generator=g)
+    for thr, top_k in ((0.7, None), (0.3, 50)):
+        keep = [ops.nms(boxes.to(d), thr, scores.to(d), top_k=top_k)
+                ._data.cpu() for d in ("cuda", "cpu")]
+        assert torch.equal(keep[0], keep[1])
+        assert keep[0].device.type == "cpu" and (keep[0] >= 0).any()
+
+
+def test_vision_yolo_ops_on_card_match_cpu(dev):
+    ops = _vision_ops()
+    g = torch.Generator().manual_seed(3)
+    cls, anchors = 6, [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119]
+    x = torch.randn(2, 3 * (5 + cls), 8, 8, generator=g)
+    img = torch.tensor([[256, 256], [200, 240]], dtype=torch.int32)
+    _card_vs_cpu(lambda a, im: ops.yolo_box(a, im, anchors[:6], cls, 0.3,
+                                            32), [x, img], (0,))
+    gt = torch.zeros(2, 7, 4)
+    gt[:, :5, :2] = torch.rand(2, 5, 2, generator=g) * 0.9 + 0.05
+    gt[:, :5, 2:] = torch.rand(2, 5, 2, generator=g) * 0.5 + 0.02
+    label = torch.randint(0, cls, (2, 7), generator=g)
+    _card_vs_cpu(lambda a, b, lab: ops.yolo_loss(
+        a, b, lab, anchors, [3, 4, 5], cls, 0.7, 32), [x, gt, label], (0,))
+
+
+@pytest.mark.parametrize("v2", [False, True])
+def test_vision_deform_conv2d_on_card_matches_cpu(dev, v2):
+    ops = _vision_ops()
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 8, 9, 11, generator=g)
+    off = torch.randn(2, 18, 9, 11, generator=g) * 1.5
+    w = torch.randn(6, 8, 3, 3, generator=g) * 0.2
+    inputs = [x, off, w] + ([torch.rand(2, 9, 9, 11, generator=g)]
+                            if v2 else [])
+    _card_vs_cpu(lambda a, o, wt, *m: ops.deform_conv2d(
+        a, o, wt, padding=1, mask=m[0] if m else None), inputs,
+        tuple(range(len(inputs))))
+
+
+def test_vision_host_ops_return_on_the_card(dev):
+    ops = _vision_ops()
+    g = torch.Generator().manual_seed(5)
+    b = torch.stack([_boxes(g, 30, 50.0) for _ in range(2)])
+    s = torch.rand(2, 4, 30, generator=g)
+    outs = [ops.multiclass_nms3(b.to(d), s.to(d), score_threshold=0.3,
+                                nms_threshold=0.5) for d in ("cuda", "cpu")]
+    for a, c in zip(*outs):
+        assert a._data.device.type == "cuda"
+        assert torch.equal(a._data.cpu(), c._data)
+
+
+def test_vision_resnet18_train_batch_on_card_matches_cpu(dev):
+    """One Model.train_batch of resnet18 (f32, cuDNN with TF32 off) on the
+    card and on the CPU with the card's weights: the loss, every
+    parameter and running statistic after the step within 1e-4 of its
+    scale."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place as place_mod
+    from paddle_tpu_torch.vision import models
+    prev, cudnn_tf32 = place_mod._current_place, \
+        torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        g = torch.Generator().manual_seed(6)
+        x = torch.randn(4, 3, 64, 64, generator=g)
+        y = torch.randint(0, 10, (4,), generator=g)
+        paddle.set_device("gpu")
+        card_net = models.resnet18(num_classes=10)
+        paddle.set_device("cpu")
+        cpu_net = models.resnet18(num_classes=10)
+        cpu_net.set_state_dict(card_net.state_dict())
+        res = []
+        for d, net in (("gpu", card_net), ("cpu", cpu_net)):
+            paddle.set_device(d)
+            model = paddle.Model(net)
+            model.prepare(paddle.optimizer.Momentum(
+                0.01, parameters=net.parameters(),
+                weight_decay=paddle.regularizer.L2Decay(1e-4)),
+                paddle.nn.CrossEntropyLoss())
+            loss = model.train_batch([paddle.to_tensor(x)],
+                                     paddle.to_tensor(y))[0]
+            res.append((loss, {k: v._data.cpu()
+                               for k, v in net.state_dict().items()}))
+        assert abs(res[0][0] - res[1][0]) <= 1e-4 * max(1.0, res[1][0])
+        for k, v in res[0][1].items():
+            _close(v, res[1][1][k], 1e-4)
+    finally:
+        place_mod._current_place = prev
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32

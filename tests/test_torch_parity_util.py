@@ -38,12 +38,24 @@ def _np(t):
     return np.asarray(t.numpy())
 
 
+def assert_f32_gate(got, ref, err_msg=""):
+    """chip_smoke's ``closeness`` gate for f32: |got - ref| <= 1e-4 *
+    max(1, max |ref|), element by element."""
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    assert got.shape == ref.shape, (got.shape, ref.shape, err_msg)
+    atol = 1e-4 * max(1.0, float(np.abs(ref).max(initial=0.0)))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=atol, err_msg=err_msg)
+
+
 def run_both(jfn, tfn, arrays, grad=True, tol=None, grad_tol=None,
-             int_args=()):
+             int_args=(), gate=False):
     """Call ``jfn`` / ``tfn`` on the arrays as JAX-package / port Tensors
     (float arrays differentiable when ``grad``), compare every output
     leaf, then the gradients of sum(out_i * w_i) (fixed random weights
-    w_i) with respect to every float input. Returns the port's outputs."""
+    w_i) with respect to every float input. Returns the port's outputs.
+    ``gate`` compares floating outputs and gradients by
+    ``assert_f32_gate`` instead of ``tol``."""
     tol = tol or dict(rtol=1e-5, atol=1e-5)
     grad_tol = grad_tol or tol
 
@@ -59,6 +71,8 @@ def run_both(jfn, tfn, arrays, grad=True, tol=None, grad_tol=None,
         assert jv.shape == tv.shape, (jv.shape, tv.shape)
         if jv.dtype.kind in "iub":
             np.testing.assert_array_equal(tv, jv)
+        elif gate:
+            assert_f32_gate(tv, jv)
         else:
             np.testing.assert_allclose(tv.astype(np.float64),
                                        jv.astype(np.float64), **tol)
@@ -82,8 +96,11 @@ def run_both(jfn, tfn, arrays, grad=True, tol=None, grad_tol=None,
             for g in (j.grad, t.grad):
                 assert g is None or not np.any(_np(g)), k
             continue
-        np.testing.assert_allclose(_np(t.grad), _np(j.grad), **grad_tol,
-                                   err_msg=f"grad of input {k}")
+        if gate:
+            assert_f32_gate(_np(t.grad), _np(j.grad), f"grad of input {k}")
+        else:
+            np.testing.assert_allclose(_np(t.grad), _np(j.grad), **grad_tol,
+                                       err_msg=f"grad of input {k}")
     return tout
 
 
@@ -96,3 +113,7 @@ def test_run_both_catches_a_mismatch(cpu_place):
         run_both(lambda a: a * 2.0,
                  lambda a: a * 2.0 + (a * 0.0).detach() + a - a.detach(),
                  [x])
+    run_both(lambda a: a * 2.0, lambda a: a * 2.0 + 5e-5, [x], gate=True)
+    with pytest.raises(AssertionError):      # over the f32 gate
+        run_both(lambda a: a * 2.0, lambda a: a * 2.0 + 2e-4, [x],
+                 gate=True)

@@ -8,7 +8,10 @@ them; the quantization slice's ``quantization``, ``nn.quant`` and
 of the JAX package's ``quantization`` and ``nn.quant`` modules exists in
 the port's; the observability slice's ``profiler``, ``device``, ``utils``,
 ``sysconfig``, ``version``, ``to_dlpack`` and ``from_dlpack`` resolve
-lazily (a bare import pulls in none of them)."""
+lazily (a bare import pulls in none of them); the vision slice's
+``vision`` resolves lazily, and the public names of the JAX package's
+``vision``, ``vision.models``, ``vision.datasets``, ``vision.ops`` and
+``vision.transforms`` all exist in the port's."""
 import os
 import subprocess
 import sys
@@ -25,8 +28,7 @@ ROOT = Path(__file__).resolve().parent.parent
 NOT_PORTED = {
     "CustomPlace", "DataParallel", "analysis", "audio", "cost_model", "csrc",
     "disable_static", "distribution", "enable_static", "fft", "geometric",
-    "hub", "jax", "jnp", "onnx", "signal", "sparse", "static", "tensor",
-    "vision"}
+    "hub", "jax", "jnp", "onnx", "signal", "sparse", "static", "tensor"}
 
 #: the names the high-level training / inference slice brought
 HIGH_LEVEL = ("LazyGuard", "Model", "batch", "callbacks", "check_shape",
@@ -173,3 +175,38 @@ def test_observability_names_resolve_lazily_without_jax():
         "[]", "paddle_tpu_torch.utils.dlpack paddle_tpu_torch.utils.dlpack "
         "paddle_tpu_torch.profiler paddle_tpu_torch.device.cuda ON "
         "paddle_tpu_torch.sysconfig paddle_tpu_torch.utils", "[]"]
+
+
+def test_vision_resolves_lazily_without_jax():
+    code = ("import sys\n"
+            "import paddle_tpu_torch as p\n"
+            "print([m for m in sys.modules if m.startswith("
+            "'paddle_tpu_torch.vision')])\n"
+            "print('vision' in dir(p), p.vision.__name__, "
+            "p.vision.models.resnet50.__module__)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines() == [
+        "[]", "True paddle_tpu_torch.vision "
+        "paddle_tpu_torch.vision.models.resnet", "[]"]
+
+
+@pytest.mark.parametrize("path", ["vision", "vision.models",
+                                  "vision.datasets", "vision.ops",
+                                  "vision.transforms",
+                                  "vision.transforms.functional",
+                                  "vision.image"])
+def test_vision_names_match_jax(path):
+    import importlib
+    jmod = importlib.import_module("paddle_tpu." + path)
+    tmod = importlib.import_module("paddle_tpu_torch." + path)
+    imports = {"annotations", "jax", "jnp", "run_op", "run_op_nodiff",
+               "unwrap"}
+    missing = {n for n in dir(jmod) if not n.startswith("_")} - \
+        set(dir(tmod)) - imports
+    assert missing == set()
