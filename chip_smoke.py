@@ -462,6 +462,48 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    size, yolo_box / yolo_loss on YOLOv3's three heads at 608, and
    DCNv2's deform_conv2d in stage 5, ms of each; (e) the smallest
    factory of each of 13 families in f32 against the CPU.
+26. fft, signal, audio, text.viterbi, geometric, sparse and distribution:
+   (a) BERT-CRF tagging, the serving path that reaches the flash forward:
+   the port's BertModel at BERT-base (12 layers) -> Linear(768, 9) ->
+   ``text.ViterbiDecoder`` (MSRA-NER's 7 tags + start and stop), lengths
+   32-128 from the seed; at batch 4 in f32 card vs CPU (emissions within
+   the f32 gate, each card path re-scored under the CPU's emissions
+   within the gate of the CPU's best score, the share of identical paths
+   printed); served at batch 32 x 128 in f32 and from a bf16 copy of the
+   encoder (emissions decoded in f32), counted: 12 flash forward launches
+   a batch, all tf32x3 (f32) / tc (bf16); ms a batch (events, host)
+   split into encoder and decode, the decode's device kernels,
+   sequences/s, tokens/s, peak memory, the share of bf16 paths equal to
+   f32's; (b) Whisper's front end: 16 x 30 s of seeded tones and noise
+   through ``LogMelSpectrogram`` (16 kHz, n_fft 400, hop 160, 80 mels,
+   top_db 80) -> [16, 80, 3001] and ``MFCC`` (40), ms and frames/s;
+   ``istft(stft(x))`` with a Hann window within 1e-5 max|x| of x away
+   from the edges; fft / rfft2 / irfftn / hfft / ihfft2 on [2, 3001,
+   400], stft, the log-mel and the MFCC card vs CPU within the f32 gate;
+   a WAV through ``audio.save`` / ``audio.load`` equal to 16-bit
+   precision; (c) a 2-layer GCN at Cora's shape card vs CPU, loss and
+   gradients within the f32 gate, through ``geometric.send_ue_recv`` and
+   through ``sparse.matmul`` (the routes within the gate of each other);
+   OGB's 3-layer GCN at ogbn-arxiv's shape (169,343 nodes, 1,166,243
+   Zipf-sourced edges made symmetric, hidden 256, BatchNorm, dropout
+   0.5, Adam 0.01) through ``Model.train_batch`` in f32, 2 warm and 10
+   timed full-batch steps a route, counted (the fused Adam update the one
+   port kernel): finite falling losses, no build after the first step,
+   ms a step, edges/s, peak memory; GraphSAGE sampling [25, 10] for
+   1,024 seeds (``sample_neighbors`` twice, ``reindex_graph``,
+   ``incubate.graph_khop_sampler``), each pick an edge of its node, none
+   twice, count = min(size, degree), host ms; (d) distributions at
+   [4096, 256] (Categorical over 1,000, MultivariateNormal and
+   LKJCholesky at d = 64): log_prob, entropy and the five registered KL
+   pairs with their parameter gradients card vs CPU within the f32 gate
+   (MultivariateNormal and LKJCholesky in f64 too), 65,536 draws of each
+   class within 4 standard errors of the analytic mean and variance (the
+   Cauchy's median), the five reparameterised rsamples' gradients
+   finite; (e) SECOND's first ``SubmConv3D(4, 16, 3)`` on a 41 x 1600 x
+   1408 grid with 16,000 voxels, densified as in the JAX package: ms,
+   peak memory, nnz in and out; at a 41 x 200 x 176 crop the conv,
+   ``sparse.nn.BatchNorm`` and ``MaxPool3D`` card vs CPU within the f32
+   gate.
 
 It prints the card line, a {"kernels": [...]} line (the tensor-core
 forward, dQ and dK/dV as ``flash_fwd`` / ``flash_bwd_dq`` /
@@ -5319,6 +5361,16 @@ def _events_and_host(torch, fn, runs):
     return statistics.median(ev), statistics.median(host)
 
 
+def device_kernels(torch, fn):
+    """Device kernels, copies and memsets of one synced fn(), as
+    torch.profiler records them."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+
+
 def vision_serving(torch, paddle, launches_of, reset_counts, card):
     """Phase 25 (b): ``resnet50(num_classes=1000)`` in eval at batch 64:
     the host pipeline (ToTensor, Resize(256), CenterCrop(224), Normalize
@@ -5649,11 +5701,7 @@ def _nms_check(torch, tops, rng):
     b_dev, s_dev = boxes.cuda(), scores.cuda()
     ev, host = _events_and_host(
         torch, lambda: tops.nms(b_dev, thr, s_dev), 5)
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        tops.nms(b_dev, thr, s_dev)
-        torch.cuda.synchronize()
-    launches = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+    launches = device_kernels(torch, lambda: tops.nms(b_dev, thr, s_dev))
     kept = int((keep["cpu"] >= 0).sum())
     return dict(boxes=n, kept=kept, equal=torch.equal(keep["cuda"],
                                                       keep["cpu"]),
@@ -5867,6 +5915,993 @@ def vision_main_path(torch, launches_of, reset_counts, card):
     paddle.set_device("gpu")
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 25 in {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# -- phase 26: fft, signal, audio, text.viterbi, geometric, sparse, ------
+# -- distribution: BERT-CRF tagging, a Whisper log-mel front end and an ---
+# -- ogbn-arxiv GCN -------------------------------------------------------
+
+#: the seed every phase-26 input and weight is drawn from
+SIGNAL_SEED = 26
+#: (a) PaddleNLP's BERT/ERNIE + CRF token classification at BERT-base
+#: widths (12 layers, hidden 768, 12 heads, vocabulary 30,522), MSRA-NER's
+#: 7 BIO tags + start and stop (N = 9), max_seq_len 128; lengths 32-128;
+#: a card-vs-CPU copy at batch 4, served at batch 32; RUNS timed runs
+CRF = dict(layers=12, tags=9, seq=128, len_lo=32, len_hi=128, xcheck=4,
+           batch=32, runs=5)
+#: (b) Whisper's front end (openai/whisper, whisper/audio.py): 16 kHz,
+#: N_FFT 400, HOP_LENGTH 160, 80 mels, 30 s chunks; 16 chunks a batch;
+#: MFCC with 40 coefficients; a batch of 2 against the CPU
+WHISPER = dict(sr=16000, n_fft=400, hop=160, n_mels=80, seconds=30.0,
+               batch=16, n_mfcc=40, xcheck=2, runs=5)
+#: (c) Planetoid Cora in Kipf & Welling's GCN (2,708 nodes, 10,556
+#: directed edges, 1,433 bag-of-words features, 7 classes, hidden 16,
+#: dropout 0 for the check); OGB ogbn-arxiv (169,343 nodes, 1,166,243
+#: edges made symmetric, 128 features, 40 classes) in OGB's GCN baseline
+#: (3 layers, hidden 256, BatchNorm, ReLU, dropout 0.5, Adam at 0.01),
+#: 2 warm and 10 timed full-batch steps a route; PGL's GraphSAGE sizes
+#: [25, 10] for 1,024 seeds
+CORA = dict(nodes=2708, edges=10556, feats=1433, classes=7, hidden=16,
+            words=18)
+ARXIV = dict(nodes=169343, edges=1166243, feats=128, classes=40,
+             hidden=256, layers=3, dropout=0.5, lr=0.01, warm=2, steps=10,
+             zipf=1.8)
+SAGE = dict(sizes=(25, 10), seeds=1024)
+#: (d) a policy-gradient / VAE loss's width: parameters [4096, 256],
+#: Categorical over [4096, 1000] logits, MultivariateNormal and
+#: LKJCholesky at d = 64; SAMPLES draws a class for the moment gates
+DIST = dict(rows=4096, cols=256, classes=1000, d=64, samples=65536)
+#: (e) SECOND's voxel backbone (PaddleDetection): a 41 x 1600 x 1408
+#: grid, 4 point features, the first SubmConv3D(4, 16, 3), 16,000 active
+#: voxels; the card-vs-CPU crop 41 x 200 x 176
+SECOND = dict(grid=(41, 1600, 1408), crop=(41, 200, 176), in_ch=4,
+              out_ch=16, voxels=16000)
+
+
+def _gate26(what, got, ref, **kw):
+    """closeness's gate (f32 unless given) of a card result against the
+    CPU's; fails the phase beyond it."""
+    import torch
+    got, ref = got.detach().cpu(), ref.detach().cpu()
+    if got.is_complex():
+        got, ref = torch.view_as_real(got), torch.view_as_real(ref)
+    if tuple(got.shape) != tuple(ref.shape):
+        fail(f"phase 26 {what}: shape {tuple(got.shape)} vs "
+             f"{tuple(ref.shape)}")
+    c = closeness(got.double(), ref.double(), **kw)
+    if not c["ratio"] <= 1.0:
+        fail(f"phase 26 {what}: card vs CPU {c}")
+    return c
+
+
+# -- (a) BERT-CRF ---------------------------------------------------------
+
+def _crf_batch(rng, cfg, batch):
+    import numpy as np
+    ids = rng.integers(1, cfg.vocab_size, (batch, CRF["seq"]))
+    lens = rng.integers(CRF["len_lo"], CRF["len_hi"] + 1, batch)
+    am = (np.arange(CRF["seq"])[None, :] < lens[:, None]).astype(np.int64)
+    return ids.astype(np.int64) * am, lens.astype(np.int64), am
+
+
+def _path_score(em, trans, path, n):
+    """A path's score under the text.viterbi convention (start row N-1,
+    stop row N-2 at the last valid step), in f64."""
+    N = trans.shape[0]
+    s = trans[N - 1, path[0]] + em[0, path[0]]
+    for t in range(1, n):
+        s += trans[path[t - 1], path[t]] + em[t, path[t]]
+    return s + trans[N - 2, path[n - 1]]
+
+
+def crf_main_path(torch, paddle, mods, launches_of, reset_counts, card):
+    """Phase 26 (a), the serving path that reaches a TPU kernel's port:
+    the port's BertModel (12 layers, BERT-base) -> Linear(768, 9) ->
+    ``text.ViterbiDecoder(transitions, include_bos_eos_tag=True)``.
+    A card-vs-CPU copy at batch 4 in f32 (emissions within the f32 gate;
+    each card path re-scored under the CPU's emissions within the gate of
+    the CPU's best score), then batch 32 x 128 served in f32 and with a
+    bf16 copy of the encoder (emissions decoded in f32), counts to 0 just
+    before each and read just after: every flash forward launch of the
+    f32 path on tf32x3, of the bf16 path on tc."""
+    import dataclasses
+
+    import numpy as np
+    cfg = dataclasses.replace(mods.BertConfig(),
+                              num_hidden_layers=CRF["layers"],
+                              hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    g = torch.Generator().manual_seed(SIGNAL_SEED)
+    head_w = torch.randn(CRF["tags"], cfg.hidden_size, generator=g) * 0.05
+    head_b = torch.randn(CRF["tags"], generator=g) * 0.1
+    trans = torch.randn(CRF["tags"], CRF["tags"], generator=g)
+    enc = mods.BertModel(cfg, device="cuda", seed=SIGNAL_SEED).eval()
+    cpu = mods.BertModel(cfg, device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in enc.state_dict().items()})
+    heads = {"cpu": (head_w, head_b, trans)}
+    heads["cuda"] = tuple(t.to("cuda") for t in heads["cpu"])
+
+    def emissions(net, dev, ids, am):
+        w, b, _ = heads[dev]
+        seq = net(ids, attention_mask=am)[0]
+        return seq.float() @ w.T + b
+
+    def decode(dev, em, lens):
+        dec = paddle.text.ViterbiDecoder(paddle.to_tensor(heads[dev][2]),
+                                         include_bos_eos_tag=True)
+        sc, path = dec(paddle.to_tensor(em), paddle.to_tensor(lens))
+        return sc._data, path._data
+
+    rng = np.random.default_rng(SIGNAL_SEED)
+    ids, lens, am = _crf_batch(rng, cfg, CRF["xcheck"])
+    res = {}
+    with torch.no_grad():
+        for dev, net in (("cuda", enc), ("cpu", cpu)):
+            paddle.set_device("gpu" if dev == "cuda" else "cpu")
+            t = [torch.from_numpy(a).to(dev) for a in (ids, lens, am)]
+            em = emissions(net, dev, t[0], t[2])
+            res[dev] = (em, *decode(dev, em, t[1]))
+    paddle.set_device("gpu")
+    em_gate = _gate26("(a) emissions", res["cuda"][0], res["cpu"][0])
+    em_cpu = res["cpu"][0].double().numpy()
+    tr = trans.double().numpy()
+    paths = res["cuda"][2].cpu().numpy()
+    rescored = torch.tensor([_path_score(em_cpu[b], tr, paths[b], lens[b])
+                             for b in range(len(lens))])
+    score_gate = _gate26("(a) re-scored card paths", rescored,
+                         res["cpu"][1].double())
+    same = float(np.mean([np.array_equal(paths[b, :n],
+                                         res["cpu"][2].numpy()[b, :n])
+                          for b, n in enumerate(lens)]))
+    del cpu
+    # serving at batch 32 x 128: f32, then the bf16 copy
+    ids, lens, am = _crf_batch(rng, cfg, CRF["batch"])
+    t_ids, t_lens, t_am = (torch.from_numpy(a).to("cuda")
+                           for a in (ids, lens, am))
+    enc16 = mods.BertModel(cfg, device="cuda", seed=SIGNAL_SEED).eval()
+    enc16.load_state_dict(enc.state_dict())
+    enc16.to(torch.bfloat16)
+    out = dict(xcheck=dict(batch=CRF["xcheck"], emissions=em_gate,
+                           rescored=score_gate, identical_share=same))
+    for what, net in (("f32", enc), ("bf16", enc16)):
+        with torch.no_grad():
+            em = emissions(net, "cuda", t_ids, t_am)
+            decode("cuda", em, t_lens)
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            em = emissions(net, "cuda", t_ids, t_am)
+            sc, path = decode("cuda", em, t_lens)
+            torch.cuda.synchronize()
+            launches = launches_of()
+            counters = {k: v for k, v in paddle.monitor.snapshot().items()
+                        if k.startswith("kernels.")}
+            # -- end of the counted path --
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            enc_ev, enc_host = _events_and_host(
+                torch, lambda: emissions(net, "cuda", t_ids, t_am),
+                CRF["runs"])
+            dec_ev, dec_host = _events_and_host(
+                torch, lambda: decode("cuda", em, t_lens), CRF["runs"])
+            bat_ev, bat_host = _events_and_host(
+                torch, lambda: decode("cuda", emissions(
+                    net, "cuda", t_ids, t_am), t_lens), CRF["runs"])
+            dec_launch = device_kernels(
+                torch, lambda: decode("cuda", em, t_lens))
+        if not (bool(torch.isfinite(sc).all())
+                and tuple(path.shape) == (CRF["batch"], CRF["seq"])):
+            fail(f"phase 26 (a) {what}: scores / paths {tuple(path.shape)}")
+        want = CRF["layers"]
+        routes = flash_routes(counters)
+        route = "fwd_cuda_tf32x3" if what == "f32" else "fwd_cuda_tc"
+        if launches["flash_fwd"] != want or routes[route] != want:
+            fail(f"phase 26 (a) {what}: flash forward launches "
+                 f"{launches['flash_fwd']}, by route {routes}, expected "
+                 f"{want} on {route}")
+        toks = int(lens.sum())
+        rec = dict(launches=launches, counters=counters, flash_routes=routes,
+                   encoder_ms_events=enc_ev, encoder_ms_host=enc_host,
+                   decode_ms_events=dec_ev, decode_ms_host=dec_host,
+                   batch_ms_events=bat_ev, batch_ms_host=bat_host,
+                   decode_launches=dec_launch,
+                   decode_share=dec_ev / bat_ev,
+                   sequences_per_s=CRF["batch"] / bat_host * 1e3,
+                   tokens_per_s=toks / bat_host * 1e3,
+                   padded_tokens_per_s=CRF["batch"] * CRF["seq"]
+                   / bat_host * 1e3, peak_gb=peak, paths=path.cpu())
+        out[what] = rec
+        print(f"phase 26 (a) BERT-CRF {what} (BERT-base widths x "
+              f"{CRF['layers']} layers, batch {CRF['batch']} x {CRF['seq']}, "
+              f"{toks} valid tokens): batch "
+              f"{bat_ev:.2f} ms events / {bat_host:.2f} host = encoder "
+              f"{enc_ev:.2f} / {enc_host:.2f} + decode {dec_ev:.2f} / "
+              f"{dec_host:.2f} ({dec_launch} device kernels); "
+              f"{rec['sequences_per_s']:.0f} sequences/s, "
+              f"{rec['tokens_per_s']:.0f} tokens/s; flash forward "
+              f"{routes}; peak {peak:.2f} GB on {card}", flush=True)
+    b16 = out["bf16"].pop("paths").numpy()
+    f32 = out["f32"].pop("paths").numpy()
+    out["bf16_identical_share"] = float(np.mean([
+        np.array_equal(b16[b, :n], f32[b, :n]) for b, n in enumerate(lens)]))
+    print(f"phase 26 (a) cross-check at batch {CRF['xcheck']}: emissions "
+          f"ratio {em_gate['ratio']:.3f}, re-scored paths ratio "
+          f"{score_gate['ratio']:.3f} (pass <= 1), {same:.2f} of paths "
+          f"identical; bf16 paths equal to f32's: "
+          f"{out['bf16_identical_share']:.2f}", flush=True)
+    del enc, enc16
+    free_cuda(torch)
+    return out
+
+
+# -- (b) the Whisper log-mel front end ---------------------------------------
+
+def audio_main_path(torch, paddle, card):
+    """Phase 26 (b): 16 x 30 s of ``audio.datasets``' seeded tones and
+    noise through ``LogMelSpectrogram`` at Whisper's settings ([16, 80,
+    3001]) and ``MFCC``; ``istft(stft(x))`` with a Hann window equal to x
+    within 1e-5 max|x| away from the edges; fft / rfft2 / irfftn / hfft /
+    ihfft2 on [2, 3001, 400], stft, the log-mel and the MFCC at batch 2
+    against the CPU; a WAV written and read back."""
+    import numpy as np
+    from paddle_tpu_torch.audio import datasets as adatasets
+    from paddle_tpu_torch.audio import features as afeatures
+    W = WHISPER
+    syn = adatasets._SyntheticAudio(7, W["batch"], W["sr"], W["seconds"],
+                                    SIGNAL_SEED)
+    x = torch.from_numpy(syn._waves).to("cuda")
+    n_frames = int(W["sr"] * W["seconds"]) // W["hop"] + 1
+    layers = {}
+
+    def build(dev):
+        paddle.set_device("gpu" if dev == "cuda" else "cpu")
+        lm = afeatures.LogMelSpectrogram(
+            sr=W["sr"], n_fft=W["n_fft"], hop_length=W["hop"],
+            n_mels=W["n_mels"], f_min=0.0, f_max=8000.0, power=2.0,
+            top_db=80.0)
+        mf = afeatures.MFCC(sr=W["sr"], n_mfcc=W["n_mfcc"],
+                            n_mels=W["n_mels"], n_fft=W["n_fft"],
+                            hop_length=W["hop"])
+        return lm, mf
+    layers["cuda"] = build("cuda")
+    layers["cpu"] = build("cpu")
+    paddle.set_device("gpu")
+    lm, mf = layers["cuda"]
+    xt = paddle.to_tensor(x)
+    win = paddle.audio.functional.get_window("hann", W["n_fft"])
+    out = {}
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        logmel = lm(xt)._data
+        mfcc = mf(xt)._data
+        if tuple(logmel.shape) != (W["batch"], W["n_mels"], n_frames) or \
+                tuple(mfcc.shape) != (W["batch"], W["n_mfcc"], n_frames):
+            fail(f"phase 26 (b): log-mel {tuple(logmel.shape)}, MFCC "
+                 f"{tuple(mfcc.shape)}")
+        if not (bool(torch.isfinite(logmel).all())
+                and bool(torch.isfinite(mfcc).all())):
+            fail("phase 26 (b): the features are not finite")
+        for name, fn in (
+                ("logmel", lambda: lm(xt)), ("mfcc", lambda: mf(xt)),
+                ("stft", lambda: paddle.signal.stft(
+                    xt, W["n_fft"], W["hop"], window=win)),
+                ("istft_of_stft", lambda: paddle.signal.istft(
+                    paddle.signal.stft(xt, W["n_fft"], W["hop"], window=win),
+                    W["n_fft"], W["hop"], window=win,
+                    length=x.shape[-1]))):
+            ev, host = _events_and_host(torch, fn, W["runs"])
+            out[name] = dict(ms_events=ev, ms_host=host,
+                             frames_per_s=W["batch"] * n_frames / ev * 1e3)
+        back = paddle.signal.istft(
+            paddle.signal.stft(xt, W["n_fft"], W["hop"], window=win),
+            W["n_fft"], W["hop"], window=win, length=x.shape[-1])._data
+        edge = W["n_fft"]
+        err = float((back - x)[:, edge:-edge].abs().max())
+        lim = 1e-5 * float(x.abs().max())
+        if not err <= lim:
+            fail(f"phase 26 (b): istft(stft(x)) off by {err:.3e} > {lim:.3e}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    # card vs CPU at batch 2
+    B = W["xcheck"]
+    g = np.random.default_rng(SIGNAL_SEED + 1)
+    a = g.standard_normal((B, n_frames, W["n_fft"])).astype(np.float32)
+    c = (g.standard_normal((B, n_frames, W["n_fft"] // 2 + 1))
+         + 1j * g.standard_normal((B, n_frames, W["n_fft"] // 2 + 1))
+         ).astype(np.complex64)
+    gates = {}
+    cases = {"fft": (a, lambda t: paddle.fft.fft(t)),
+             "rfft2": (a, lambda t: paddle.fft.rfft2(t)),
+             "irfftn": (c, lambda t: paddle.fft.irfftn(t)),
+             "hfft": (c, lambda t: paddle.fft.hfft(t)),
+             "ihfft2": (a, lambda t: paddle.fft.ihfft2(t)),
+             "stft": (syn._waves[:B], lambda t: paddle.signal.stft(
+                 t, W["n_fft"], W["hop"], window=paddle.audio.functional
+                 .get_window("hann", W["n_fft"]))),
+             "logmel": (syn._waves[:B], None), "mfcc": (syn._waves[:B],
+                                                        None)}
+    with torch.no_grad():
+        for name, (arr_, fn) in cases.items():
+            got = {}
+            for dev in ("cuda", "cpu"):
+                paddle.set_device("gpu" if dev == "cuda" else "cpu")
+                t = paddle.to_tensor(torch.from_numpy(arr_).to(dev))
+                if fn is None:
+                    layer = layers[dev][0 if name == "logmel" else 1]
+                    got[dev] = layer(t)._data
+                else:
+                    got[dev] = fn(t)._data
+                if name in ("fft", "rfft2", "irfftn", "hfft", "ihfft2") \
+                        and dev == "cuda":
+                    ev, _ = _events_and_host(torch, lambda: fn(t), 3)
+                    out.setdefault("fft_ms", {})[name] = ev
+            gates[name] = _gate26(f"(b) {name}", got["cuda"], got["cpu"])
+    paddle.set_device("gpu")
+    # a WAV written by audio.save, read back by audio.load
+    wav = OUT_DIR / "phase26_whisper.wav"
+    clip = x[:2, :W["sr"]].clamp(-0.99, 0.99)
+    paddle.audio.save(str(wav), paddle.to_tensor(clip), W["sr"])
+    loaded, sr = paddle.audio.load(str(wav))
+    werr = float((loaded._data.to(clip.device) - clip).abs().max())
+    if sr != W["sr"] or not werr <= 1.0 / 32768 + 1e-7:
+        fail(f"phase 26 (b): WAV round trip sr {sr}, error {werr:.3e}")
+    wav.unlink()
+    out.update(shape_logmel=list(logmel.shape), shape_mfcc=list(mfcc.shape),
+               istft_max_err=err, istft_limit=lim, gates=gates,
+               wav_max_err=werr, peak_gb=peak)
+    print(f"phase 26 (b) Whisper front end ([{W['batch']}, "
+          f"{int(W['sr'] * W['seconds'])}] -> log-mel "
+          f"{list(logmel.shape)}, MFCC {list(mfcc.shape)}): log-mel "
+          f"{out['logmel']['ms_events']:.2f} ms events / "
+          f"{out['logmel']['ms_host']:.2f} host "
+          f"({out['logmel']['frames_per_s']:.0f} frames/s), MFCC "
+          f"{out['mfcc']['ms_events']:.2f} / {out['mfcc']['ms_host']:.2f}, "
+          f"stft {out['stft']['ms_events']:.2f}, istft(stft) "
+          f"{out['istft_of_stft']['ms_events']:.2f}; fft ms "
+          f"{ {k: round(v, 3) for k, v in out['fft_ms'].items()} }; "
+          f"istft error {err:.2e} (limit {lim:.2e}); card vs CPU ratios "
+          f"{ {k: round(v['ratio'], 3) for k, v in gates.items()} }; "
+          f"peak {peak:.2f} GB on {card}", flush=True)
+    return out
+
+
+# -- (c) graph learning --------------------------------------------------------
+
+def _random_graph(rng, n, e, zipf=None):
+    """``e`` directed edges (sources Zipf-distributed over a random
+    ranking of the nodes when ``zipf``), made symmetric."""
+    import numpy as np
+    if zipf:
+        rank = rng.permutation(n)
+        src = rank[np.minimum(rng.zipf(zipf, e) - 1, n - 1)]
+    else:
+        src = rng.integers(0, n, e)
+    dst = rng.integers(0, n, e)
+    return (np.concatenate([src, dst]).astype(np.int64),
+            np.concatenate([dst, src]).astype(np.int64))
+
+
+def _gcn_norm(src, dst, n):
+    """Self loops added, then D^-1/2 (A + I) D^-1/2 per edge (f32)."""
+    import numpy as np
+    loops = np.arange(n, dtype=np.int64)
+    s, d = np.concatenate([src, loops]), np.concatenate([dst, loops])
+    deg = np.bincount(d, minlength=n).astype(np.float64)
+    w = (1.0 / np.sqrt(deg[s] * deg[d])).astype(np.float32)
+    return s, d, w
+
+
+def _aggregate(paddle, route, graph):
+    """The aggregation A_hat h of one route."""
+    src, dst, w, adj, n = graph
+    if route == "send_ue_recv":
+        return lambda h: paddle.geometric.send_ue_recv(
+            h, w, src, dst, "mul", "sum", out_size=n)
+    return lambda h: paddle.sparse.matmul(adj, h)
+
+
+def _graph_tensors(paddle, torch, s, d, w, n, dev):
+    import numpy as np
+    paddle.set_device("gpu" if dev == "cuda" else "cpu")
+    src = paddle.to_tensor(torch.from_numpy(s).to(dev))
+    dst = paddle.to_tensor(torch.from_numpy(d).to(dev))
+    wt = paddle.to_tensor(torch.from_numpy(w[:, None]).to(dev))
+    adj = paddle.sparse.sparse_coo_tensor(
+        paddle.to_tensor(torch.from_numpy(np.stack([d, s])).to(dev)),
+        paddle.to_tensor(torch.from_numpy(w).to(dev)), [n, n])
+    return src, dst, wt, adj, n
+
+
+def cora_cross_check(torch, paddle, card):
+    """Phase 26 (c) check: a 2-layer GCN at Cora's shape, forward and
+    backward on the card and on the CPU through each aggregation route:
+    the loss and every gradient within the f32 gate, and the two routes
+    within the gate of each other."""
+    import numpy as np
+    C = CORA
+    rng = np.random.default_rng(SIGNAL_SEED + 2)
+    src, dst = _random_graph(rng, C["nodes"], C["edges"] // 2)
+    s, d, w = _gcn_norm(src, dst, C["nodes"])
+    x = (rng.random((C["nodes"], C["feats"])) < C["words"] / C["feats"]
+         ).astype(np.float32)
+    y = rng.integers(0, C["classes"], C["nodes"]).astype(np.int64)
+    w1 = (rng.standard_normal((C["feats"], C["hidden"]))
+          / np.sqrt(C["feats"])).astype(np.float32)
+    w2 = (rng.standard_normal((C["hidden"], C["classes"]))
+          / np.sqrt(C["hidden"])).astype(np.float32)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        graph = _graph_tensors(paddle, torch, s, d, w, C["nodes"], dev)
+        for route in ("send_ue_recv", "sparse_matmul"):
+            agg = _aggregate(paddle, route, graph)
+            ps = [paddle.to_tensor(torch.from_numpy(a).to(dev),
+                                   stop_gradient=False) for a in (w1, w2)]
+            xt = paddle.to_tensor(torch.from_numpy(x).to(dev))
+            h = paddle.nn.functional.relu(agg(paddle.matmul(xt, ps[0])))
+            logits = agg(paddle.matmul(h, ps[1]))
+            loss = paddle.nn.functional.cross_entropy(
+                logits, paddle.to_tensor(torch.from_numpy(y).to(dev)))
+            loss.backward()
+            res[(dev, route)] = [loss._data.detach(), logits._data.detach()
+                                 ] + [p.grad._data for p in ps]
+    paddle.set_device("gpu")
+    names = ("loss", "logits", "grad_w1", "grad_w2")
+    gates = {}
+    for route in ("send_ue_recv", "sparse_matmul"):
+        for nm, a, b in zip(names, res[("cuda", route)], res[("cpu", route)]):
+            gates[f"{route}.{nm}"] = _gate26(f"(c) Cora {route} {nm}", a, b)
+    for nm, a, b in zip(names, res[("cuda", "send_ue_recv")],
+                        res[("cuda", "sparse_matmul")]):
+        gates[f"routes.{nm}"] = _gate26(f"(c) Cora routes {nm}", a, b)
+    worst = max(v["ratio"] for v in gates.values())
+    print(f"phase 26 (c) Cora GCN ({C['nodes']} nodes, {len(s)} edges with "
+          f"self loops, {C['feats']} features): loss "
+          f"{float(res[('cuda', 'send_ue_recv')][0]):.6f}; card vs CPU and "
+          f"route vs route worst ratio {worst:.3f} (pass <= 1) on {card}",
+          flush=True)
+    return dict(gates=gates, worst_ratio=worst)
+
+
+def _gcn_layer(paddle):
+    class GCN(paddle.nn.Layer):
+        """OGB's full-batch GCN: (Linear -> A_hat -> BatchNorm -> ReLU ->
+        dropout) x (layers - 1), then Linear -> A_hat."""
+
+        def __init__(self, agg, feats, hidden, classes, layers, dropout):
+            super().__init__()
+            dims = [feats] + [hidden] * (layers - 1) + [classes]
+            self.lins = paddle.nn.LayerList([
+                paddle.nn.Linear(a, b) for a, b in zip(dims, dims[1:])])
+            self.bns = paddle.nn.LayerList([
+                paddle.nn.BatchNorm1D(hidden) for _ in range(layers - 1)])
+            self.drop = paddle.nn.Dropout(dropout)
+            self.agg = agg
+
+        def forward(self, x):
+            for lin, bn in zip(self.lins[:-1], self.bns):
+                x = self.drop(paddle.nn.functional.relu(bn(self.agg(lin(x)))))
+            return self.agg(self.lins[-1](x))
+    return GCN
+
+
+def arxiv_main_path(torch, paddle, launches_of, reset_counts, card):
+    """Phase 26 (c) main path: OGB's GCN baseline at ogbn-arxiv's shape
+    through ``Model.train_batch`` in f32 (full batch), on each
+    aggregation route: 2 warm steps, then 10 timed, counts to 0 just
+    before and read just after; finite, falling losses and no kernel
+    build after the first step; the port kernel the path launches is
+    the fused Adam update (counted)."""
+    import numpy as np
+    A = ARXIV
+    rng = np.random.default_rng(SIGNAL_SEED + 3)
+    t0 = time.perf_counter()
+    src, dst = _random_graph(rng, A["nodes"], A["edges"], A["zipf"])
+    s, d, w = _gcn_norm(src, dst, A["nodes"])
+    x = rng.standard_normal((A["nodes"], A["feats"])).astype(np.float32)
+    y = rng.integers(0, A["classes"], A["nodes"]).astype(np.int64)
+    data_s = time.perf_counter() - t0
+    graph = _graph_tensors(paddle, torch, s, d, w, A["nodes"], "cuda")
+    xt = paddle.to_tensor(torch.from_numpy(x).to("cuda"))
+    yt = paddle.to_tensor(torch.from_numpy(y).to("cuda"))
+    GCN = _gcn_layer(paddle)
+    out = dict(nodes=A["nodes"], edges=len(s), data_s=data_s)
+    for route in ("send_ue_recv", "sparse_matmul"):
+        paddle.seed(SIGNAL_SEED + 4)
+        net = GCN(_aggregate(paddle, route, graph), A["feats"], A["hidden"],
+                  A["classes"], A["layers"], A["dropout"])
+        model = paddle.Model(net)
+        model.prepare(paddle.optimizer.Adam(A["lr"],
+                                            parameters=net.parameters()),
+                      paddle.nn.CrossEntropyLoss())
+        if model._train_step is None:
+            fail("phase 26 (c): Model.prepare built no TrainStep")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, builds, step_ev, step_host = [], [], [], []
+        for i in range(A["warm"] + A["steps"]):
+            ev, host = _events_and_host(torch, lambda: losses.append(
+                model.train_batch([xt], yt)[0]), 1)
+            step_ev.append(ev)
+            step_host.append(host)
+            builds.append(int(paddle.monitor.snapshot().get(
+                "kernels.builds", 0)))
+        launches = launches_of()
+        # -- end of the counted path --
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not all(map(math.isfinite, losses)) or \
+                not losses[-1] < losses[0]:
+            fail(f"phase 26 (c) {route}: losses {losses}")
+        if len(set(builds)) != 1:
+            fail(f"phase 26 (c) {route}: kernel builds after the first "
+                 f"step: {builds}")
+        others = {k: v for k, v in launches.items() if k != "fused_adam"}
+        if any(others.values()) or not launches["fused_adam"]:
+            fail(f"phase 26 (c) {route}: port kernels launched {launches} "
+                 f"(the fused Adam update only is on the path)")
+        warm = A["warm"]
+        ev = statistics.median(step_ev[warm:])
+        host = statistics.median(step_host[warm:])
+        rec = dict(losses=losses, step_ms_events=ev, step_ms_host=host,
+                   edges_per_s=len(s) / host * 1e3, peak_gb=peak,
+                   builds=builds, launches=launches,
+                   step_events_ms=step_ev, step_host_ms=step_host)
+        out[route] = rec
+        print(f"phase 26 (c) ogbn-arxiv GCN via {route} ({A['nodes']} "
+              f"nodes, {len(s)} edges with self loops, {A['layers']} layers "
+              f"x {A['hidden']}, f32, {A['steps']} timed steps): losses "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; step {ev:.2f} ms "
+              f"events / {host:.2f} host, {rec['edges_per_s']:.3e} edges/s; "
+              f"peak {peak:.2f} GB on {card}", flush=True)
+        del model, net
+    out["csc"] = (s, d)
+    return out
+
+
+def sage_sampling(torch, paddle, csc, card):
+    """Phase 26 (c) sampling: GraphSAGE at PGL's sizes [25, 10] for 1,024
+    seeds on the arxiv graph in CSC: ``geometric.sample_neighbors`` twice
+    and ``reindex_graph``, then ``incubate.graph_khop_sampler``; the
+    samples a subset of the neighbours with no repeats, count = min(size,
+    degree), the edge ids of the picks distinct and the picks' own; host
+    ms of each."""
+    import numpy as np
+    s, d = csc
+    n = ARXIV["nodes"]
+    order = np.argsort(d, kind="stable")
+    row = s[order]
+    colptr = np.concatenate([[0], np.cumsum(np.bincount(d, minlength=n))]
+                            ).astype(np.int64)
+    deg = np.diff(colptr)
+    rng = np.random.default_rng(SIGNAL_SEED + 5)
+    seeds = rng.choice(n, SAGE["seeds"], replace=False).astype(np.int64)
+    paddle.seed(SIGNAL_SEED + 5)
+    t_row, t_col, t_seeds, t_eids = (
+        paddle.to_tensor(torch.from_numpy(a).to("cuda"))
+        for a in (row, colptr, seeds, np.arange(len(row), dtype=np.int64)))
+    out, frontier = {}, t_seeds
+    hop_nodes = []
+    t0 = time.perf_counter()
+    for hop, size in enumerate(SAGE["sizes"]):
+        t1 = time.perf_counter()
+        nb, cnt, eid = paddle.geometric.sample_neighbors(
+            t_row, t_col, frontier, sample_size=size, eids=t_eids,
+            return_eids=True)
+        torch.cuda.synchronize()
+        out[f"hop{hop}_ms"] = (time.perf_counter() - t1) * 1e3
+        nodes = frontier.numpy()
+        nb_np, cnt_np, eid_np = nb.numpy(), cnt.numpy(), eid.numpy()
+        if cnt_np.tolist() != np.minimum(deg[nodes], size).tolist():
+            fail(f"phase 26 (c) sampling hop {hop}: counts differ from "
+                 f"min(size, degree)")
+        owner = np.repeat(nodes, cnt_np)
+        # each pick an edge of its node (CSC positions), none twice, and
+        # the neighbour that edge brings
+        if not (np.all(eid_np >= colptr[owner])
+                and np.all(eid_np < colptr[owner + 1])
+                and np.array_equal(row[eid_np], nb_np)
+                and len(np.unique(eid_np)) == len(eid_np)):
+            fail(f"phase 26 (c) sampling hop {hop}: a pick is not an edge "
+                 f"of its node, or an edge was picked twice")
+        hop_nodes.append((frontier, nb, cnt))
+        frontier = paddle.to_tensor(torch.from_numpy(np.unique(
+            np.concatenate([nodes, nb_np]))).to("cuda"))
+    t1 = time.perf_counter()
+    r_src, r_dst, r_nodes = paddle.geometric.reindex_graph(*hop_nodes[0])
+    torch.cuda.synchronize()
+    out["reindex_ms"] = (time.perf_counter() - t1) * 1e3
+    out["sample_two_hops_and_reindex_ms"] = (time.perf_counter() - t0) * 1e3
+    if r_nodes.numpy()[:SAGE["seeds"]].tolist() != seeds.tolist():
+        fail("phase 26 (c) reindex_graph: the seeds do not come first")
+    t1 = time.perf_counter()
+    k_src, k_dst, k_nodes, k_idx = paddle.incubate.graph_khop_sampler(
+        t_row, t_col, t_seeds, list(SAGE["sizes"]))
+    torch.cuda.synchronize()
+    out["khop_ms"] = (time.perf_counter() - t1) * 1e3
+    kn = k_nodes.numpy()
+    if k_idx.numpy().tolist() != list(range(SAGE["seeds"])):
+        fail("phase 26 (c) graph_khop_sampler: sample_index is not the seeds")
+    out["khop_edges"] = int(k_src.shape[0])
+    out["khop_nodes"] = int(len(kn))
+    print(f"phase 26 (c) GraphSAGE sampling [{SAGE['sizes'][0]}, "
+          f"{SAGE['sizes'][1]}] x {SAGE['seeds']} seeds: hop 0 "
+          f"{out['hop0_ms']:.1f} ms, hop 1 {out['hop1_ms']:.1f} ms, reindex "
+          f"{out['reindex_ms']:.1f} ms (host); graph_khop_sampler "
+          f"{out['khop_ms']:.1f} ms host, {out['khop_edges']} edges over "
+          f"{out['khop_nodes']} nodes on {card}", flush=True)
+    return out
+
+
+# -- (d) distributions -------------------------------------------------------
+
+def _dist_cases(D):
+    """name -> (ctor of params, params as numpy, value, methods)."""
+    import numpy as np
+    r, c = DIST["rows"], DIST["cols"]
+    k, d = DIST["classes"], DIST["d"]
+    g = np.random.default_rng(SIGNAL_SEED + 6)
+
+    def u(lo, hi, *shape):
+        return g.uniform(lo, hi, shape).astype(np.float32)
+    a = g.standard_normal((d, d))
+    cov = (a @ a.T / d + np.eye(d)).astype(np.float32)
+    corr = cov.astype(np.float64)
+    sd = np.sqrt(np.diag(corr))
+    lkj_l = np.linalg.cholesky(corr / np.outer(sd, sd)).astype(np.float32)
+    return {
+        "Normal": (lambda m, s: D.Normal(m, s), [u(-1, 1, r, c),
+                   u(.5, 2, r, c)], u(-2, 2, r, c)),
+        "Uniform": (lambda lo, hi: D.Uniform(lo, hi), [u(-2, -1, r, c),
+                    u(1, 2, r, c)], u(-1, 1, r, c)),
+        "Bernoulli": (lambda lg: D.Bernoulli(logits=lg), [u(-2, 2, r, c)],
+                      (g.random((r, c)) < .5).astype(np.float32)),
+        "Categorical": (lambda lg: D.Categorical(lg), [u(-3, 3, r, k)],
+                        g.integers(0, k, r).astype(np.int64)),
+        "Exponential": (lambda lam: D.Exponential(lam), [u(.5, 2, r, c)],
+                        u(.1, 3, r, c)),
+        "Cauchy": (lambda m, s: D.Cauchy(m, s), [u(-1, 1, r, c),
+                   u(.5, 2, r, c)], u(-3, 3, r, c)),
+        "ContinuousBernoulli": (lambda p: D.ContinuousBernoulli(p),
+                                [u(.05, .95, r, c)], u(.01, .99, r, c)),
+        "Geometric": (lambda p: D.Geometric(p), [u(.1, .9, r, c)],
+                      g.integers(0, 6, (r, c)).astype(np.float32)),
+        "StudentT": (lambda df, m, s: D.StudentT(df, m, s), [
+            u(3, 8, r, c), u(-1, 1, r, c), u(.5, 2, r, c)], u(-3, 3, r, c)),
+        "Binomial": (lambda p: D.Binomial(np.full((r, c), 10), p),
+                     [u(.1, .9, r, c)],
+                     g.integers(0, 11, (r, c)).astype(np.float32)),
+        "MultivariateNormal": (lambda m, cv: D.MultivariateNormal(
+            m, covariance_matrix=cv), [u(-1, 1, d), cov],
+            g.standard_normal((r, d)).astype(np.float32)),
+        "LKJCholesky": (lambda: D.LKJCholesky(d, 2.0), [], lkj_l),
+    }
+
+
+_KL26 = {
+    "Normal": lambda D, p: (D.Normal(p[0], p[1]), D.Normal(p[2], p[1] + 1)),
+    "Uniform": lambda D, p: (D.Uniform(p[0] - 2, p[1] + 1),
+                             D.Uniform(p[0] - 3, p[1] + 2)),
+    "Bernoulli": lambda D, p: (D.Bernoulli(logits=p[0]),
+                               D.Bernoulli(logits=p[2])),
+    "Categorical": lambda D, p: (D.Categorical(p[3]), D.Categorical(p[4])),
+    "Exponential": lambda D, p: (D.Exponential(p[1]), D.Exponential(
+        p[1] + 0.5)),
+}
+
+
+def distribution_check(torch, paddle, card):
+    """Phase 26 (d): each class's log_prob and entropy (where it has one)
+    and the five registered KL pairs at [4096, 256] (Categorical over
+    [4096, 1000], MultivariateNormal and LKJCholesky at d = 64), on the
+    card against the CPU within the f32 gate with their gradients in the
+    parameters (MultivariateNormal and LKJCholesky in f64 too); then
+    65,536 draws a class within 4 standard errors of the analytic mean
+    and variance, and the five reparameterised rsamples' gradients
+    finite."""
+    from torch.profiler import ProfilerActivity, profile
+    D = paddle.distribution
+    gates, ms, first_ops = {}, {}, {}
+    for dtype in ("float32", "float64"):
+        cases = _dist_cases(D)
+        names = sorted(cases) if dtype == "float32" else \
+            ["MultivariateNormal", "LKJCholesky"]
+        for name in names:
+            ctor, params, value = cases[name]
+            res = {}
+
+            def run(dev):
+                ps = [paddle.to_tensor(torch.from_numpy(p).to(dev),
+                                       dtype=dtype, stop_gradient=False)
+                      for p in params]
+                v = torch.from_numpy(value).to(dev)
+                vt = paddle.to_tensor(v, dtype=None if value.dtype.kind in
+                                      "iu" else dtype)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dist = ctor(*ps)
+                outs = [dist.log_prob(vt)]
+                if name not in ("LKJCholesky", "ContinuousBernoulli"):
+                    outs.append(dist.entropy())
+                total = sum(o.sum() for o in outs if not o.stop_gradient)
+                grads = []
+                if ps and not isinstance(total, int):
+                    total.backward()
+                    grads = [p.grad._data for p in ps if p.grad is not None]
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3, \
+                    [o._data for o in outs] + grads
+            for dev in ("cuda", "cpu"):
+                paddle.set_device("gpu" if dev == "cuda" else "cpu")
+                if dev == "cuda":
+                    # the first call is profiled (the host ops that took
+                    # the most of it), the second one timed
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        first_ms = run(dev)[0]
+                    first_ops[f"{name}.{dtype}"] = [
+                        (e.key, e.self_cpu_time_total / 1e3) for e in sorted(
+                            prof.key_averages(),
+                            key=lambda e: -e.self_cpu_time_total)[:3]]
+                    ms[f"{name}.{dtype}"], res[dev] = run(dev)
+                    ms[f"{name}.{dtype}.first_call"] = first_ms
+                else:
+                    res[dev] = run(dev)[1]
+            for i, (a, b) in enumerate(zip(res["cuda"], res["cpu"])):
+                gates[f"{name}.{dtype}.{i}"] = _gate26(
+                    f"(d) {name} {dtype} output {i}", a, b)
+    paddle.set_device("gpu")
+    for pair in sorted(_KL26):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            paddle.set_device("gpu" if dev == "cuda" else "cpu")
+            cs = _dist_cases(D)
+            raw = [cs["Normal"][1][0], cs["Normal"][1][1],
+                   cs["Cauchy"][1][0], cs["Categorical"][1][0],
+                   cs["Categorical"][1][0][::-1].copy()]
+            ps = [paddle.to_tensor(torch.from_numpy(p).to(dev),
+                                   stop_gradient=False) for p in raw]
+            p, q = _KL26[pair](D, ps)
+            kl = D.kl_divergence(p, q)
+            kl.sum().backward()
+            res[dev] = [kl._data] + [t.grad._data for t in ps
+                                     if t.grad is not None]
+        for i, (a, b) in enumerate(zip(res["cuda"], res["cpu"])):
+            gates[f"kl.{pair}.{i}"] = _gate26(f"(d) KL {pair} {i}", a, b)
+    paddle.set_device("gpu")
+    moments = _moment_gates(torch, paddle, D)
+    rs = _rsample_grads(torch, paddle, D)
+    worst = max(v["ratio"] for v in gates.values())
+    print(f"phase 26 (d) distributions at [{DIST['rows']}, {DIST['cols']}] "
+          f"(Categorical x {DIST['classes']}, d = {DIST['d']}): "
+          f"{len(gates)} card-vs-CPU outputs and gradients, worst ratio "
+          f"{worst:.3f} (pass <= 1); {DIST['samples']} draws of "
+          f"{len(moments)} classes within 4 standard errors; rsample "
+          f"gradients finite for {sorted(rs)}; ms (second call) "
+          f"{ {k: round(v, 2) for k, v in ms.items() if 'first' not in k} } "
+          f"on {card}",
+          flush=True)
+    slow = {k: (round(ms[f"{k}.first_call"], 1), v)
+            for k, v in first_ops.items() if ms[f"{k}.first_call"] > 100}
+    print(f"phase 26 (d) first calls over 100 ms and their top host ops "
+          f"(self ms): {slow}", flush=True)
+    return dict(gates=gates, worst_ratio=worst, ms=ms, moments=moments,
+                rsample=rs, first_call_top_ops=first_ops)
+
+
+def _moment_gates(torch, paddle, D):
+    """65,536 draws of each class (scalar parameters) against its analytic
+    mean and variance, each within 4 standard errors (the variance's
+    standard error from the sample's own kurtosis)."""
+    import numpy as np
+    n = DIST["samples"]
+
+    def f(v):
+        return np.float32(v)
+    cb = 0.3
+    cb_mean = cb / (2 * cb - 1) + 1 / (2 * math.atanh(1 - 2 * cb))
+    cb_var = (cb * (cb - 1) / (1 - 2 * cb) ** 2
+              + 1 / (2 * math.atanh(1 - 2 * cb)) ** 2)
+    table = {
+        "Normal": (D.Normal(f(0.5), f(2.0)), 0.5, 4.0),
+        "Uniform": (D.Uniform(f(-1.0), f(3.0)), 1.0, 16 / 12),
+        "Bernoulli": (D.Bernoulli(f(0.3)), 0.3, 0.21),
+        "Categorical": (D.Categorical(np.log(np.array([.2, .5, .3],
+                                                      np.float32))),
+                        1.1, 0.49),
+        "Exponential": (D.Exponential(f(2.0)), 0.5, 0.25),
+        "Gamma": (D.Gamma(f(3.0), f(2.0)), 1.5, 0.75),
+        "Chi2": (D.Chi2(f(4.0)), 4.0, 8.0),
+        "Beta": (D.Beta(f(2.0), f(3.0)), 0.4, 0.04),
+        "Laplace": (D.Laplace(f(1.0), f(0.5)), 1.0, 0.5),
+        "Gumbel": (D.Gumbel(f(0.0), f(1.0)), 0.5772156649, math.pi ** 2 / 6),
+        "Poisson": (D.Poisson(f(3.5)), 3.5, 3.5),
+        "Binomial": (D.Binomial(np.array(10), f(0.3)), 3.0, 2.1),
+        "Geometric": (D.Geometric(f(0.4)), 1.5, 3.75),
+        "StudentT": (D.StudentT(f(6.0), f(1.0), f(2.0)), 1.0, 6.0),
+        "ContinuousBernoulli": (D.ContinuousBernoulli(f(cb)), cb_mean,
+                                cb_var),
+        "LogNormal": (D.LogNormal(f(0.1), f(0.4)), math.exp(0.18),
+                      (math.exp(0.16) - 1) * math.exp(0.36)),
+        "Dirichlet": (D.Dirichlet(np.array([2.0, 3.0], np.float32)),
+                      np.array([0.4, 0.6]), np.array([0.04, 0.04])),
+        "Multinomial": (D.Multinomial(5, np.array([.2, .8], np.float32)),
+                        np.array([1.0, 4.0]), np.array([0.8, 0.8])),
+        "MultivariateNormal": (D.MultivariateNormal(
+            np.array([1.0, -1.0], np.float32), covariance_matrix=np.array(
+                [[2.0, 0.5], [0.5, 1.0]], np.float32)),
+            np.array([1.0, -1.0]), np.array([2.0, 1.0])),
+        "Cauchy": (None, None, None),
+    }
+    out = {}
+    paddle.seed(SIGNAL_SEED + 7)
+    for name, (dist, mean, var) in table.items():
+        if dist is None:                  # no moments: the median, 4 SE
+            dist = D.Cauchy(f(1.0), f(2.0))
+            s = dist.sample([n]).numpy().astype(np.float64)
+            se = math.pi * 2.0 / 2 / math.sqrt(n)
+            med = float(np.median(s))
+            if not abs(med - 1.0) <= 4 * se:
+                fail(f"phase 26 (d) Cauchy: sample median {med} vs 1.0 "
+                     f"(4 SE {4 * se:.4f})")
+            out[name] = dict(median=med, se=se)
+            continue
+        s = dist.sample([n]).numpy().astype(np.float64)
+        if not np.all(np.isfinite(s)):
+            fail(f"phase 26 (d) {name}: non-finite samples")
+        m, v = s.mean(axis=0), s.var(axis=0)
+        se = np.sqrt(np.asarray(var) / n)
+        kurt = np.maximum(((s - m) ** 4).mean(axis=0)
+                          / np.maximum(v, 1e-12) ** 2, 3.0)
+        se_v = np.asarray(var) * np.sqrt((kurt - 1) / n)
+        if not (np.all(np.abs(m - mean) <= 4 * se)
+                and np.all(np.abs(v - var) <= 4 * se_v)):
+            fail(f"phase 26 (d) {name}: mean {m} var {v}, analytic {mean} "
+                 f"{var} (4 SE {4 * se} / {4 * se_v})")
+        out[name] = dict(mean=np.asarray(m).tolist(),
+                         var=np.asarray(v).tolist())
+    return out
+
+
+def _rsample_grads(torch, paddle, D):
+    import numpy as np
+    g = np.random.default_rng(SIGNAL_SEED + 8)
+    r, c, d = DIST["rows"], DIST["cols"], DIST["d"]
+
+    def t(a):
+        return paddle.to_tensor(a.astype(np.float32), stop_gradient=False)
+    loc, scale = t(g.uniform(-1, 1, (r, c))), t(g.uniform(.5, 2, (r, c)))
+    p = t(g.uniform(.05, .95, (r, c)))
+    mloc = t(g.uniform(-1, 1, d))
+    a = g.standard_normal((d, d))
+    tril = t(np.linalg.cholesky(a @ a.T / d + np.eye(d)))
+    out = {}
+    for name, dist, leaves in (
+            ("Normal", D.Normal(loc, scale), (loc, scale)),
+            ("Cauchy", D.Cauchy(loc, scale), (loc, scale)),
+            ("ContinuousBernoulli", D.ContinuousBernoulli(p), (p,)),
+            ("MultivariateNormal", D.MultivariateNormal(mloc,
+                                                        scale_tril=tril),
+             (mloc, tril)),
+            ("Independent", D.Independent(D.Normal(loc, scale), 1),
+             (loc, scale))):
+        for x in leaves:
+            x.clear_grad()
+        s = dist.rsample([4])
+        (s * s).mean().backward()
+        ok = all(x.grad is not None and bool(torch.isfinite(
+            x.grad._data).all()) for x in leaves)
+        if not ok:
+            fail(f"phase 26 (d) {name}: rsample gradients not finite")
+        out[name] = [float(x.grad._data.abs().max()) for x in leaves]
+    return out
+
+
+# -- (e) SECOND's first sparse convolution -----------------------------------
+
+def _voxel_grid(rng, grid, voxels, ch):
+    """``voxels`` distinct active sites of a [1, *grid] grid and their
+    [voxels, ch] point features (a hybrid COO: indices [4, nnz])."""
+    import numpy as np
+    flat = rng.choice(int(np.prod(grid)), voxels, replace=False)
+    sites = np.stack(np.unravel_index(np.sort(flat), grid))
+    idx = np.concatenate([np.zeros((1, voxels), np.int64), sites]
+                         ).astype(np.int64)
+    return idx, rng.standard_normal((voxels, ch)).astype(np.float32)
+
+
+def sparse_conv_check(torch, paddle, card):
+    """Phase 26 (e): ``sparse.nn.SubmConv3D(4, 16, 3, padding=1)`` on
+    SECOND's 41 x 1600 x 1408 grid with 16,000 active voxels, with the
+    JAX package's semantics (densify, dense conv, submanifold mask,
+    sparsify): ms, peak allocated, nnz in and out; then at a 41 x 200 x
+    176 crop the conv, ``sparse.nn.BatchNorm(16)`` and ``MaxPool3D(3, 2,
+    1)`` against the CPU within the f32 gate."""
+    import numpy as np
+    S = SECOND
+    rng = np.random.default_rng(SIGNAL_SEED + 9)
+    paddle.seed(SIGNAL_SEED + 9)
+    conv = paddle.sparse.nn.SubmConv3D(S["in_ch"], S["out_ch"], 3,
+                                       padding=1)
+    idx, vals = _voxel_grid(rng, S["grid"], S["voxels"], S["in_ch"])
+    x = paddle.sparse.sparse_coo_tensor(
+        paddle.to_tensor(torch.from_numpy(idx).to("cuda")),
+        paddle.to_tensor(torch.from_numpy(vals).to("cuda")),
+        [1, *S["grid"], S["in_ch"]])
+    with torch.no_grad():
+        conv(x)
+        torch.cuda.reset_peak_memory_stats()
+        y = conv(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ev, host = _events_and_host(torch, lambda: conv(x), 3)
+    nnz_in, nnz_out = x.nnz(), y.nnz()
+    active_out = int(y.indices()._data[:4].unique(dim=1).shape[1])
+    if active_out > S["voxels"] or y.shape != [1, *S["grid"], S["out_ch"]]:
+        fail(f"phase 26 (e): {active_out} active output sites for "
+             f"{S['voxels']} input voxels, shape {y.shape}")
+    del y
+    free_cuda(torch)
+    # the crop against the CPU
+    crop = S["crop"]
+    n_crop = max(1, S["voxels"] * crop[1] * crop[2]
+                 // (S["grid"][1] * S["grid"][2]))
+    idx, vals = _voxel_grid(rng, crop, n_crop, S["in_ch"])
+    state = {k: v.numpy() for k, v in conv.state_dict().items()}
+    pool = paddle.sparse.nn.MaxPool3D(3, 2, 1)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        paddle.set_device("gpu" if dev == "cuda" else "cpu")
+        c = paddle.sparse.nn.SubmConv3D(S["in_ch"], S["out_ch"], 3,
+                                        padding=1)
+        c.set_state_dict(state)
+        b = paddle.sparse.nn.BatchNorm(S["out_ch"])
+        xs = paddle.sparse.sparse_coo_tensor(
+            paddle.to_tensor(torch.from_numpy(idx).to(dev)),
+            paddle.to_tensor(torch.from_numpy(vals).to(dev)),
+            [1, *crop, S["in_ch"]])
+        y = c(xs)
+        z = b(y)
+        p = pool(z)
+        got[dev] = [y.to_dense()._data, z.to_dense()._data,
+                    p.to_dense()._data, y.nnz(), p.nnz()]
+    paddle.set_device("gpu")
+    gates = {n: _gate26(f"(e) crop {n}", a, b)
+             for n, a, b in zip(("subm_conv", "batch_norm", "max_pool"),
+                                got["cuda"][:3], got["cpu"][:3])}
+    if got["cuda"][3:] != got["cpu"][3:]:
+        fail(f"phase 26 (e) crop: nnz card {got['cuda'][3:]} vs CPU "
+             f"{got['cpu'][3:]}")
+    out = dict(ms_events=ev, ms_host=host, peak_gb=peak, nnz_in=nnz_in,
+               nnz_out=nnz_out, active_out=active_out, crop_gates=gates,
+               crop_nnz=got["cpu"][3:])
+    print(f"phase 26 (e) SECOND SubmConv3D({S['in_ch']}, {S['out_ch']}, 3) "
+          f"on [1, {S['grid'][0]}, {S['grid'][1]}, {S['grid'][2]}, "
+          f"{S['in_ch']}] ({S['voxels']} voxels, densified as in JAX): "
+          f"{ev:.2f} ms events / {host:.2f} host, peak {peak:.2f} GB, nnz "
+          f"in {nnz_in} out {nnz_out} ({active_out} sites); crop "
+          f"{list(crop)} card vs CPU ratios "
+          f"{ {k: round(v['ratio'], 3) for k, v in gates.items()} } on "
+          f"{card}", flush=True)
+    return out
+
+
+def signal_graph_main_path(torch, mods, launches_of, reset_counts, card):
+    """Phase 26: (a) BERT-CRF tagging, (b) the Whisper log-mel front end,
+    (c) the Cora cross-check, ogbn-arxiv GCN training and GraphSAGE
+    sampling, (d) distributions, (e) SECOND's first sparse convolution;
+    ``set_device("gpu")`` throughout but for the CPU copies."""
+    import paddle_tpu_torch as paddle
+    t0 = time.perf_counter()
+    paddle.set_device("gpu")
+    out = dict(crf=crf_main_path(torch, paddle, mods, launches_of,
+                                 reset_counts, card))
+    out["audio"] = audio_main_path(torch, paddle, card)
+    out["cora"] = cora_cross_check(torch, paddle, card)
+    arxiv = arxiv_main_path(torch, paddle, launches_of, reset_counts, card)
+    out["sampling"] = sage_sampling(torch, paddle, arxiv.pop("csc"), card)
+    out["arxiv"] = arxiv
+    out["distributions"] = distribution_check(torch, paddle, card)
+    out["sparse_conv"] = sparse_conv_check(torch, paddle, card)
+    paddle.set_device("gpu")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 26 in {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -7279,6 +8314,14 @@ def main():
     # the zoo against the CPU
     vision = vision_main_path(torch, launches_of, reset_counts, card)
 
+    # 26. fft / signal / audio, text.viterbi, geometric, sparse and
+    # distribution: BERT-CRF tagging (counts around each served batch),
+    # the Whisper log-mel front end, the Cora check, ogbn-arxiv GCN
+    # training on both aggregation routes (counts around each), GraphSAGE
+    # sampling, distributions and SECOND's first sparse convolution
+    signal = signal_graph_main_path(torch, mods, launches_of, reset_counts,
+                                    card)
+
     src = "paddle_tpu_torch/csrc/"
 
     def replay_by_path(kernel):
@@ -7315,13 +8358,15 @@ def main():
     tc_paths = {"training": training, "moe_training": moe_training,
                 "bert_training": bert_training, "eager_training": eager,
                 **{f"recipe_{g}": r for g, r in recipe["runs"].items()},
-                "hapi": hapi, **quant_runs, "profiler": prof_run}
+                "hapi": hapi, **quant_runs, "profiler": prof_run,
+                "bert_crf_bf16": signal["crf"]["bf16"]}
     f32_paths = {"serving": dict(counters=counters),
                  "encoder_serving": enc_serving,
                  "one_shot_padded": one_shot["one_shot_padded"],
                  "replay_embedding": replay["embedding"],
                  "replay_embedding_fixture": replay["embedding_fixture"],
-                 "hapi": hapi, "predictor": predictor}
+                 "hapi": hapi, "predictor": predictor,
+                 "bert_crf_f32": signal["crf"]["f32"]}
 
     def by_path(paths, route):
         return {p: flash_routes(r["counters"])[route]
@@ -7509,9 +8554,13 @@ def main():
         name="probe_minor64", route="cuda", source=src + "flash_fwd.cu",
         replaces="paddle_tpu/kernels/flash_attention.py:801",
         launches=es_l["probe_minor64"] + sum(
-            replay_by_path("probe_minor64").values()),
+            replay_by_path("probe_minor64").values()) + sum(
+            signal["crf"][w]["launches"]["probe_minor64"]
+            for w in ("f32", "bf16")),
         launches_by_path={"encoder_serving": es_l["probe_minor64"],
-                          **replay_by_path("probe_minor64")},
+                          **replay_by_path("probe_minor64"),
+                          **{f"bert_crf_{w}": signal["crf"][w]["launches"][
+                              "probe_minor64"] for w in ("f32", "bf16")}},
         cases=minor64_cases,
         note="library_ms times the pair of torch.matmul calls (timed only); "
              "the plain version is the same pair",
@@ -7593,7 +8642,10 @@ def main():
                   "recipe_flashmask": recipe["runs"]["selective"][
                       "flashmask_step"]["launches"]["fused_adam"],
                   "hapi": hapi["launches"]["fused_adam"],
-                  "profiler": prof_run["launches"]["fused_adam"]}
+                  "profiler": prof_run["launches"]["fused_adam"],
+                  **{f"arxiv_gcn_{r}": signal["arxiv"][r]["launches"][
+                      "fused_adam"] for r in ("send_ue_recv",
+                                              "sparse_matmul")}}
     kernels.append(dict(
         name="fused_adam", route="cuda", source=src + "fused_adam.cu",
         replaces="port-only: no TPU kernel; the per-parameter fusion XLA "
@@ -7649,7 +8701,7 @@ def main():
                   predictor=predictor, quantized_serving=quant,
                   profiler=prof_run, debugging=debugging,
                   device_utils=device_utils, vision=vision,
-                  kernels=kernels)
+                  signal_graph_distribution=signal, kernels=kernels)
     (OUT_DIR / "result.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,9 @@ names and ``Tensor`` methods, and ``nn`` holds conv, pooling, the resize
 ``inference``, ``text``, ``incubate``, ``regularizer``, ``quantization``
 ``distributed``, ``io``, ``metric``, ``hapi``, ``callbacks``,
 ``reader``, ``profiler``, ``device``, ``utils``, ``sysconfig``,
-``version`` and ``vision`` resolve as attributes on first use, and so
+``version``, ``vision``, ``tensor``, ``fft``, ``signal``, ``audio``,
+``distribution``, ``sparse``, ``geometric`` and ``hub`` resolve as
+attributes on first use, and so
 do ``Model``, ``summary`` and ``flops`` of ``hapi`` and ``to_dlpack`` /
 ``from_dlpack`` of ``utils.dlpack`` (a module ``__getattr__``: importing
 them here would pull the serving, model, data, vision and profiler stacks
@@ -46,7 +48,7 @@ into every ``import``; ``dir()`` lists them). The high-level paths:
         paddle.inference.Config("out/net.pdmodel"))
 
 The names of the JAX package's top level whose modules are not ported
-yet (``fft``, ``static``, ``jit.to_static``, ...) are absent.
+yet (``static``, ``jit.to_static``, ``onnx``, ...) are absent.
 
 The port's models and the serving ``Engine`` take raw torch tensors:
 
@@ -71,8 +73,8 @@ from .core.dtype import (bfloat16, bool_, complex64, complex128, dtype,
                          float64, get_default_dtype, iinfo, int8, int16,
                          int32, int64, promote_types, pstring, raw,
                          set_default_dtype, uint8)
-from .core.place import (CPUPlace, CUDAPinnedPlace, CUDAPlace, Place,
-                         TPUPlace, XPUPlace, get_device,
+from .core.place import (CPUPlace, CUDAPinnedPlace, CUDAPlace, CustomPlace,
+                         Place, TPUPlace, XPUPlace, get_device,
                          is_compiled_with_cuda, is_compiled_with_tpu,
                          is_compiled_with_xpu, set_device)
 from .core.tensor import Tensor, to_tensor
@@ -122,7 +124,9 @@ def in_dynamic_mode():
 _LAZY_SUBPACKAGES = ("jit", "inference", "text", "incubate", "regularizer",
                      "quantization", "distributed", "io", "metric", "hapi",
                      "callbacks", "reader", "profiler", "device", "utils",
-                     "sysconfig", "version", "vision")
+                     "sysconfig", "version", "vision", "fft", "signal",
+                     "audio", "distribution", "sparse", "geometric", "hub",
+                     "tensor")
 #: names of a subpackage resolved on first access (``paddle.Model``)
 _LAZY_NAMES = {"Model": "hapi", "summary": "hapi", "flops": "hapi",
                "to_dlpack": "utils.dlpack", "from_dlpack": "utils.dlpack"}

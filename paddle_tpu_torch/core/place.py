@@ -61,6 +61,24 @@ class _Unsupported(Place):
             f"NVIDIA GPUs (CUDAPlace) or, on request, the CPU (CPUPlace)")
 
 
+class CustomPlace(Place):
+    """A plug-in device kind (``CustomPlace("npu", 0)``). The port has no
+    plug-in runtime: the place constructs, prints and compares as the
+    JAX package's does, and ``set_device`` of it raises as for any
+    unknown kind."""
+
+    def __init__(self, device_type: str, device_id: int = 0):
+        super().__init__(device_id)
+        self.device_type = device_type
+
+    def __repr__(self):
+        return f"Place({self.device_type}:{self.device_id})"
+
+    def torch_device(self):
+        raise ValueError(f"unknown device {self.device_type!r}: the port "
+                         f"runs on 'gpu' (default) or, on request, 'cpu'")
+
+
 class TPUPlace(_Unsupported):
     pass
 

@@ -17,6 +17,7 @@ import torch
 
 _seed = 0
 _generators: Dict[torch.device, torch.Generator] = {}
+_numpy_generator = None
 
 
 def generator(device) -> torch.Generator:
@@ -31,11 +32,21 @@ def generator(device) -> torch.Generator:
     return gen
 
 
+def numpy_generator() -> np.random.Generator:
+    """The port's numpy generator for host-side draws (the graph
+    samplers), made from the seed once and remade by ``seed``."""
+    global _numpy_generator
+    if _numpy_generator is None:
+        _numpy_generator = np.random.default_rng(_seed)
+    return _numpy_generator
+
+
 def seed(s: int = None):
-    """paddle.seed: reseed every device's generator (a new time-based
-    seed when ``s`` is None)."""
-    global _seed
+    """paddle.seed: reseed every device's generator and the host numpy
+    generator (a new time-based seed when ``s`` is None)."""
+    global _seed, _numpy_generator
     _seed = int(s) if s is not None else time.time_ns() & 0xFFFFFFFF
+    _numpy_generator = None
     np.random.seed(_seed & 0xFFFFFFFF)
     for gen in _generators.values():
         gen.manual_seed(_seed)

@@ -48,7 +48,9 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A host copy of ``t``; bfloat16 and float8 come back as the
     ``ml_dtypes`` types the JAX package returns when ``ml_dtypes`` is
     installed, else as float32."""
-    t = t.detach().cpu()
+    on_cpu = t.device.type == "cpu"
+    # lazy conjugate / negative views (torch.fft's ihfft, imag of one)
+    t = t.detach().cpu().resolve_conj().resolve_neg()
     if t.dtype in (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2):
         try:
             import ml_dtypes
@@ -57,7 +59,9 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
         name = dtype_mod.from_torch(t.dtype).name
         view = torch.int16 if t.dtype == torch.bfloat16 else torch.uint8
         return t.view(view).numpy().view(getattr(ml_dtypes, name))
-    return t.numpy()
+    # a CPU tensor's .numpy() shares its memory: copy, so a later
+    # in-place op leaves the snapshot as it was (as the card's copy does)
+    return t.numpy().copy() if on_cpu else t.numpy()
 
 
 def _coerce(data, dt: Optional[DType], device) -> torch.Tensor:

@@ -98,10 +98,13 @@ def _patch_inplace():
     Tensor.exponential_ = exponential_
 
 
-def _scalar_op(op_name, fn):
-    """``o <op> s`` for a Python scalar ``o`` on the left."""
+def _scalar_op(op_name, body):
+    """``o <op> s`` for a Python scalar ``o`` on the left, through the
+    binary op's own body: the scalar is weakly typed as on the right
+    (``math._scalar_like``: a float beside an integer tensor is float64,
+    as in JAX) and bool operands are promoted."""
     def op(s, o):
-        return run_op(op_name, lambda a: fn(o, a), [s])
+        return run_op(op_name, lambda a: body(o, a), [s])
     return op
 
 
@@ -110,16 +113,16 @@ def _patch_operators():
     Tensor.__radd__ = lambda s, o: math.add(s, o)
     Tensor.__sub__ = lambda s, o: math.subtract(s, o)
     Tensor.__rsub__ = lambda s, o: math.subtract(o, s) if isinstance(
-        o, Tensor) else _scalar_op("rsub", lambda a, b: a - b)(s, o)
+        o, Tensor) else _scalar_op("rsub", math.subtract.body)(s, o)
     Tensor.__mul__ = lambda s, o: math.multiply(s, o)
     Tensor.__rmul__ = lambda s, o: math.multiply(s, o)
     Tensor.__truediv__ = lambda s, o: math.divide(s, o)
     Tensor.__rtruediv__ = lambda s, o: math.divide(o, s) if isinstance(
-        o, Tensor) else _scalar_op("rdiv", lambda a, b: a / b)(s, o)
+        o, Tensor) else _scalar_op("rdiv", math.divide.body)(s, o)
     Tensor.__floordiv__ = lambda s, o: math.floor_divide(s, o)
     Tensor.__mod__ = lambda s, o: math.remainder(s, o)
     Tensor.__pow__ = lambda s, o: math.pow_(s, o)
-    Tensor.__rpow__ = _scalar_op("rpow", lambda a, b: a ** b)
+    Tensor.__rpow__ = _scalar_op("rpow", math.pow_.body)
     Tensor.__neg__ = lambda s: math.neg(s)
     Tensor.__abs__ = lambda s: math.abs(s)
     Tensor.__matmul__ = lambda s, o: math.matmul(s, o)

@@ -170,9 +170,13 @@ def meshgrid(*args, name=None):
 
 
 def assign(x, output=None):
-    a = x._data if isinstance(x, Tensor) else Tensor(x)._data
+    """A copy of ``x`` with no graph back to it (``stop_gradient=True``),
+    as the JAX package's new array; ``output`` is rebound to the copy."""
+    a = x._data.detach().clone() if isinstance(x, Tensor) \
+        else Tensor(x)._data
     if output is not None:
         output._data = a
+        output._sg = True
         return output
     return wrap(a)
 

@@ -775,16 +775,27 @@ def frame(x, frame_length, hop_length, axis=-1, name=None):
     return run_op("frame", fn, [x])
 
 
+def overlap_add_frames(frames, hop_length):
+    """Sum the frames of ``frames`` [..., frame_length, num], frame i
+    shifted by ``i * hop_length``, into [..., (num - 1) * hop + length]:
+    one ``F.fold`` (no loop over frames)."""
+    if frames.is_complex():
+        return torch.complex(overlap_add_frames(frames.real, hop_length),
+                             overlap_add_frames(frames.imag, hop_length))
+    lead = frames.shape[:-2]
+    frame_length, num = frames.shape[-2], frames.shape[-1]
+    out_len = (num - 1) * hop_length + frame_length
+    out = torch.nn.functional.fold(
+        frames.reshape(-1, frame_length, num), output_size=(1, out_len),
+        kernel_size=(1, frame_length), stride=(1, hop_length))
+    return out.reshape(lead + (out_len,))
+
+
 def overlap_add(x, hop_length, axis=-1, name=None):
     def fn(a):
         last = axis in (-1, a.dim() - 1)
         a_m = a if last else torch.movedim(torch.movedim(a, 0, -1), 0, -2)
-        frame_length, num = a_m.shape[-2], a_m.shape[-1]
-        out_len = (num - 1) * hop_length + frame_length
-        out = a_m.new_zeros(a_m.shape[:-2] + (out_len,))
-        for i in range(num):
-            pad_ = [i * hop_length, out_len - i * hop_length - frame_length]
-            out = out + torch.nn.functional.pad(a_m[..., :, i], pad_)
+        out = overlap_add_frames(a_m, hop_length)
         return out if last else torch.movedim(out, -1, 0)
     return run_op("overlap_add", fn, [x])
 

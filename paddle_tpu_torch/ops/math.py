@@ -71,13 +71,36 @@ def _float_of(a: torch.Tensor) -> torch.Tensor:
 
 # ---- binary elementwise ----------------------------------------------------
 
-def _binary(op_name, fn):
-    def body(a, b):
-        return fn(*_pair(a, b))
+def _numeric(a, b):
+    """JAX's numeric promotion of bool operands (torch refuses bool in
+    ``-``, and integer ``//`` / ``%`` / ``**`` of two bools): a bool
+    beside a non-bool tensor takes the other's dtype, two bools become
+    int32, as ``jnp.subtract`` / ``floor_divide`` / ``remainder`` /
+    ``power`` promote them."""
+    if a.dtype == torch.bool and b.dtype == torch.bool:
+        return a.to(torch.int32), b.to(torch.int32)
+    if a.dtype == torch.bool:
+        return a.to(b.dtype), b
+    if b.dtype == torch.bool:
+        return a, b.to(a.dtype)
+    return a, b
+
+
+def _binary_body(fn, numeric=False):
+    """``fn`` on a (tensor | Python scalar) pair: scalars weakly typed
+    (``_scalar_like``), then bool operands promoted when ``numeric``."""
+    if numeric:
+        return lambda a, b: fn(*_numeric(*_pair(a, b)))
+    return lambda a, b: fn(*_pair(a, b))
+
+
+def _binary(op_name, fn, numeric=False, body=None):
+    body = body or _binary_body(fn, numeric)
 
     def op(x, y, name=None):
         return run_op(op_name, body, [x, y])
     op.__name__ = op_name
+    op.body = body
     return op
 
 
@@ -89,16 +112,103 @@ def _true_divide(a, b):
     return torch.true_divide(a, b)
 
 
+def _sum_to(g, shape):
+    """``g`` summed over the axes broadcasting added to ``shape``."""
+    if tuple(g.shape) == tuple(shape):
+        return g
+    lead = g.dim() - len(shape)
+    g = g.sum(dim=tuple(range(lead))) if lead else g
+    axes = tuple(i for i, n in enumerate(shape) if n == 1 and g.shape[i] != 1)
+    return g.sum(dim=axes, keepdim=True) if axes else g
+
+
+class _ZeroGrad(torch.autograd.Function):
+    """``fn(*inputs)`` with a zero gradient in every input: what
+    ``jax.grad`` gives through ``floor``-like ops (``floor_divide``) and
+    through ``imag`` of a real tensor, where torch has no derivative."""
+
+    @staticmethod
+    def forward(ctx, fn, *inputs):
+        ctx.shapes = [(i.shape, i.dtype) for i in inputs]
+        return fn(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) + tuple(
+            g.new_zeros(s, dtype=d) if d.is_floating_point or d.is_complex
+            else None for s, d in ctx.shapes)
+
+
+def _zero_grad(fn, *inputs):
+    if torch.is_grad_enabled() and any(i.requires_grad for i in inputs):
+        return _ZeroGrad.apply(fn, *inputs)
+    return fn(*inputs)
+
+
+class _Heaviside(torch.autograd.Function):
+    """``jnp.heaviside``: 0 below zero, 1 above, ``b`` at zero; the
+    gradient reaches ``b`` where ``a == 0`` and is zero in ``a``."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a)
+        ctx.b_meta = (b.shape, b.dtype)
+        return torch.heaviside(a, b.to(a.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        a, = ctx.saved_tensors
+        shape, dt = ctx.b_meta
+        gb = _sum_to(torch.where(a == 0, g, torch.zeros_like(g)), shape)
+        return torch.zeros_like(a), gb.to(dt)
+
+
 def _heaviside(a, b):
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _Heaviside.apply(a, b)
     return torch.heaviside(a, b.to(a.dtype))
 
 
+def _floor_divide(a, b):
+    """``jnp.floor_divide``: XLA's integer division by zero gives -1
+    (then the floor adjustment), where torch raises; a float quotient has
+    a zero gradient."""
+    if a.is_floating_point() or b.is_floating_point():
+        return _zero_grad(torch.floor_divide, a, b)
+    zero = b == 0
+    safe = torch.where(zero, torch.ones_like(b), b)
+    q = torch.div(a, safe, rounding_mode="trunc")
+    q = torch.where(zero, torch.full_like(q, -1), q)
+    r = torch.where(zero, a, a - q * safe)
+    fix = (torch.sign(a) != torch.sign(b)) & (r != 0)
+    return torch.where(fix, q - 1, q)
+
+
+def _remainder(a, b):
+    """``jnp.remainder``: an integer ``x % 0`` is 0, where torch raises."""
+    if a.is_floating_point() or b.is_floating_point() or a.is_complex():
+        return torch.remainder(a, b)
+    zero = b == 0
+    r = torch.remainder(a, torch.where(zero, torch.ones_like(b), b))
+    return torch.where(zero, torch.zeros_like(r), r)
+
+
+def _pow_body(a, b):
+    # jnp.power with a Python int exponent is lax.integer_pow of the base
+    # promoted on its own: a bool base becomes int32 before the scalar
+    # takes its dtype
+    if isinstance(a, torch.Tensor) and a.dtype == torch.bool and \
+            isinstance(b, int) and not isinstance(b, bool):
+        a = a.to(torch.int32)
+    return torch.pow(*_numeric(*_pair(a, b)))
+
+
 add = _binary("add", torch.add)
-subtract = _binary("subtract", torch.subtract)
+subtract = _binary("subtract", torch.subtract, numeric=True)
 multiply = _binary("multiply", torch.multiply)
 divide = _binary("divide", _true_divide)
-floor_divide = _binary("floor_divide", torch.floor_divide)
-remainder = _binary("remainder", torch.remainder)
+floor_divide = _binary("floor_divide", _floor_divide, numeric=True)
+remainder = _binary("remainder", _remainder, numeric=True)
 mod = remainder
 floor_mod = remainder
 fmod = _binary("fmod", torch.fmod)
@@ -106,7 +216,7 @@ maximum = _binary("maximum", torch.maximum)
 minimum = _binary("minimum", torch.minimum)
 fmax = _binary("fmax", torch.fmax)
 fmin = _binary("fmin", torch.fmin)
-pow_ = _binary("pow", torch.pow)
+pow_ = _binary("pow", torch.pow, body=_pow_body)
 atan2 = _binary("atan2", lambda a, b: torch.atan2(_float_of(a), b))
 hypot = _binary("hypot", torch.hypot)
 copysign = _binary("copysign", torch.copysign)
@@ -197,7 +307,7 @@ angle = _f("angle", torch.angle)
 conj = _unary("conj", lambda a: torch.conj(a).resolve_conj())
 real = _unary("real", lambda a: torch.real(a) if a.is_complex() else a)
 imag = _unary("imag", lambda a: torch.imag(a) if a.is_complex()
-              else torch.zeros_like(a))
+              else _zero_grad(torch.zeros_like, a))
 exponent = _unary("exponent", lambda a: torch.frexp(a)[1].to(a.dtype))
 
 
@@ -214,12 +324,147 @@ def polygamma(x, n, name=None):
                   [x])
 
 
+#: f64's epsilon and -log of its largest finite value, the stopping and
+#: underflow thresholds of ``_igamma_grad_a``
+_EPS64 = float(np.finfo(np.float64).eps)
+_LOG_TINY64 = -float(np.log(np.finfo(np.float64).max))
+#: steps of ``_igamma_grad_a``'s loops between two host reads of whether
+#: any element is still converging
+_IGAMMA_CHECK = 16
+
+
+def _igamma_grad_a(a, x):
+    """d/da of the regularized lower incomplete gamma P(a, x), in f64, as
+    XLA's and JAX's ``igamma_grad_a`` compute it.
+
+    Where x > 1 and x > a it differentiates the continued fraction of
+    Q = 1 - P term by term (JAX's cap of 2,000 steps); elsewhere the
+    series P = x^a e^-x / Gamma(a + 1) sum_n x^n / ((a + 1)...(a + n)).
+    Each element stops when its derivative's last step falls below f64's
+    epsilon (relative to the sum on the series branch), and is held there
+    while the others go on; the loops read the host once every
+    ``_IGAMMA_CHECK`` steps. Against mpmath's derivative at 50 digits,
+    on 300 log-uniform points of a in [1e-3, 1e4] and x in [1e-3, 1e5]
+    and on x = a up to 1e4, the absolute error is below 1e-13. The series
+    takes about 8 sqrt(a) steps near x = a (830 at a = 1e4) and fewer
+    away from it; the fraction takes a few dozen. Where x^a e^-x /
+    Gamma(a) underflows f64 the derivative is 0; a <= 0, x < 0 or NaN
+    give NaN and x = 0 gives 0, as in JAX."""
+    a64, x64 = torch.broadcast_tensors(a.double(), x.double())
+    nan = torch.isnan(a64) | torch.isnan(x64) | (x64 < 0) | (a64 <= 0)
+    log_ax = a64 * torch.log(x64) - x64 - torch.lgamma(a64)
+    on = ~(nan | (x64 == 0) | (log_ax < _LOG_TINY64))
+    one = torch.ones_like(a64)
+    a64, x64 = torch.where(on, a64, one), torch.where(on, x64, one)
+    ax = torch.exp(torch.where(on, log_ax, torch.zeros_like(log_ax)))
+    use_cf = (x64 > 1) & (x64 > a64)
+    series = _igamma_series_grad(a64, x64, on & ~use_cf)
+    series = ax * series / a64
+    frac = _igammac_fraction_grad(a64, x64, on & use_cf)
+    out = torch.where(use_cf, -ax * frac, series)
+    out = torch.where(on, out, torch.zeros_like(out))
+    return torch.where(nan, torch.full_like(out, float("nan")), out)
+
+
+def _igamma_series_grad(a, x, active):
+    """sum_n t_n log'(t_n) of JAX's ``_igamma_series`` (t_0 = 1, t_n =
+    t_(n-1) x / (a + n)) plus the prefix's log-derivative times the sum."""
+    r, c, ans = a.clone(), torch.ones_like(a), torch.ones_like(a)
+    dc, dans = torch.zeros_like(a), torch.zeros_like(a)
+    step = 0
+    while step % _IGAMMA_CHECK or bool(active.any()):
+        r1 = r + 1
+        dc1 = dc * (x / r1) - c * x / (r1 * r1)
+        dans1 = dans + dc1
+        c1 = c * (x / r1)
+        r, c, dc, dans = (torch.where(active, new, old) for new, old in
+                          ((r1, r), (c1, c), (dc1, dc), (dans1, dans)))
+        ans = torch.where(active, ans + c1, ans)
+        active = active & ((dc1 / dans1).abs() > _EPS64)
+        step += 1
+    return ans * (torch.log(x) - torch.digamma(a + 1)) + dans
+
+
+def _igammac_fraction_grad(a, x, active):
+    """d/da of Q(a, x) / (x^a e^-x / Gamma(a)) times that prefix, from
+    JAX's ``_igammac_continued_fraction``: the convergents p_k / q_k and
+    their derivatives in a, rescaled by epsilon when p_k grows past
+    1 / epsilon."""
+    y = 1 - a
+    z = x + y + 1
+    pkm2, qkm2, pkm1, qkm1 = torch.ones_like(x), x, x + 1, z * x
+    ans = pkm1 / qkm1
+    dpkm2, dqkm2, dpkm1, dqkm1 = (torch.zeros_like(x), torch.zeros_like(x),
+                                  torch.zeros_like(x), -x)
+    dans = (dpkm1 - ans * dqkm1) / qkm1
+    for c in range(1, 2001):
+        if (c - 1) % _IGAMMA_CHECK == 0 and not bool(active.any()):
+            break
+        y1, z1 = y + 1, z + 2
+        yc = y1 * c
+        pk = pkm1 * z1 - pkm2 * yc
+        qk = qkm1 * z1 - qkm2 * yc
+        nz = qk != 0
+        ans1 = torch.where(nz, pk / qk, ans)
+        dpk = dpkm1 * z1 - pkm1 - dpkm2 * yc + pkm2 * c
+        dqk = dqkm1 * z1 - qkm1 - dqkm2 * yc + qkm2 * c
+        dans1 = torch.where(nz, (dpk - ans1 * dqk) / qk, dans)
+        moved = torch.where(nz, (dans1 - dans).abs(), torch.ones_like(dans))
+        s = torch.where(pk.abs() > 1 / _EPS64, torch.full_like(pk, _EPS64),
+                        torch.ones_like(pk))
+        new = (ans1, y1, z1, pk * s, qk * s, pkm1 * s, qkm1 * s, dpkm1 * s,
+               dqkm1 * s, dpk * s, dqk * s, dans1)
+        old = (ans, y, z, pkm1, qkm1, pkm2, qkm2, dpkm2, dqkm2, dpkm1, dqkm1,
+               dans)
+        (ans, y, z, pkm1, qkm1, pkm2, qkm2, dpkm2, dqkm2, dpkm1, dqkm1,
+         dans) = (torch.where(active, n, o) for n, o in zip(new, old))
+        active = active & (moved > _EPS64)
+    return ans * (torch.log(x) - torch.digamma(a)) + dans
+
+
+class _Igamma(torch.autograd.Function):
+    """``gammainc`` / ``gammaincc`` (``upper``) with the gradient in both
+    arguments: torch has none in ``a``; see ``_igamma_grad_a``."""
+
+    @staticmethod
+    def forward(ctx, a, x, upper):
+        ctx.save_for_backward(a, x)
+        ctx.upper = upper
+        f = torch.special.gammaincc if upper else torch.special.gammainc
+        return f(a, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, x = ctx.saved_tensors
+        sign = -1.0 if ctx.upper else 1.0
+        ga = gx = None
+        if ctx.needs_input_grad[0]:
+            ga = _sum_to(g * (sign * _igamma_grad_a(a, x)).to(g.dtype),
+                         a.shape)
+        if ctx.needs_input_grad[1]:
+            a64, x64 = a.double(), x.double()
+            dx = torch.exp((a64 - 1) * torch.log(x64) - x64
+                           - torch.lgamma(a64))
+            gx = _sum_to(g * (sign * dx).to(g.dtype), x.shape)
+        return ga, gx, None
+
+
+def _igamma(upper):
+    def body(a, x):
+        a, x = _pair(a, x)
+        if torch.is_grad_enabled() and (a.requires_grad or x.requires_grad):
+            return _Igamma.apply(a, x, upper)
+        f = torch.special.gammaincc if upper else torch.special.gammainc
+        return f(a, x)
+    return body
+
+
 def gammainc(x, y, name=None):
-    return run_op("gammainc", torch.special.gammainc, [x, y])
+    return run_op("gammainc", _igamma(False), [x, y])
 
 
 def gammaincc(x, y, name=None):
-    return run_op("gammaincc", torch.special.gammaincc, [x, y])
+    return run_op("gammaincc", _igamma(True), [x, y])
 
 
 def _pred(op_name, fn):
@@ -245,6 +490,8 @@ def nan_to_num(x, nan=0.0, posinf=None, neginf=None, name=None):
 
 def clip(x, min=None, max=None, name=None):  # noqa: A002
     lo, hi = unwrap(min), unwrap(max)
+    if lo is None and hi is None:       # jnp.clip(a, None, None) is a
+        return run_op("clip", torch.clone, [x])
     return run_op("clip", lambda a: torch.clamp(a, lo, hi), [x])
 
 

@@ -464,13 +464,6 @@ def test_autotune_records_the_config(tmp_path):
         autotune._config = saved
 
 
-#: names of paddle_tpu.incubate waiting for the port's geometric module
-WAITS_FOR_GEOMETRIC = {"graph_khop_sampler", "graph_reindex",
-                       "graph_sample_neighbors", "graph_send_recv",
-                       "segment_max", "segment_mean", "segment_min",
-                       "segment_sum", "graph"}
-
-
 @pytest.mark.parametrize("path", ["incubate", "incubate.nn",
                                   "incubate.nn.functional",
                                   "incubate.optimizer",
@@ -488,7 +481,7 @@ def test_incubate_names_match_jax(path):
             "annotations", "jax", "jnp", "np", "json", "warnings",
             "weakref", "torch", "math", "run_op"}
     missing = public(get(jp)) - public(get(tp))
-    assert missing == (WAITS_FOR_GEOMETRIC if path == "incubate" else set())
+    assert missing == set()
 
 
 def test_incubate_reexports():

@@ -8,7 +8,12 @@ and nvcc, so they skip elsewhere; on the card run
 (chip_smoke.py repeats the comparison at the serving shapes.) The last
 tests hold paddle.vision's detection ops and a resnet18 train_batch on
 the card to their CPU path (no kernel of the port: plain PyTorch on
-either device).
+either device), and so do the tests after them: ``text.viterbi_decode``
+and a tiny BERT-CRF, the ``fft`` transforms, ``stft`` / ``istft`` and
+the audio features, message passing, segment pooling and a GCN layer on
+both aggregation routes, the sparse convolution, batch norm and pooling,
+the distributions' densities, entropies and KLs with their gradients,
+and samples drawn on the card.
 Tolerances: 1e-4 relative to the output's scale for f32, 1e-2 for half
 precision outputs (the kernels accumulate in f32; the plain versions sum
 in another order).
@@ -2029,3 +2034,279 @@ def test_vision_resnet18_train_batch_on_card_matches_cpu(dev):
     finally:
         place_mod._current_place = prev
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+
+# -- fft / signal / audio, text.viterbi, geometric, sparse, distribution ---
+
+def _surface_card_vs_cpu(fn, arrays, grad_of=(), tol=1e-4):
+    """fn(*Tensors) of the port's surface on the card and on the CPU, the
+    same numpy inputs: every floating output (complex ones as real and
+    imaginary parts) and the gradients of sum(out * w) in ``grad_of``
+    within ``tol`` of the scale; integer outputs equal."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place as place_mod
+    prev, cudnn_tf32 = place_mod._current_place, \
+        torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False     # f32 convolutions, as the CPU
+    res = []
+    try:
+        for d in ("gpu", "cpu"):
+            paddle.set_device(d)
+            ins = [paddle.to_tensor(a, dtype=str(a.dtype),
+                                    stop_gradient=i not in grad_of)
+                   if isinstance(a, np.ndarray) else a
+                   for i, a in enumerate(arrays)]
+            outs = fn(*ins)
+            outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+            datas = [o._data.resolve_conj().resolve_neg() for o in outs]
+            grads = []
+            if grad_of:
+                g = torch.Generator().manual_seed(0)
+                loss = 0
+                for o in datas:
+                    if o.is_complex():
+                        o = torch.view_as_real(o)
+                    if o.is_floating_point() and o.requires_grad:
+                        w = torch.randn(tuple(o.shape), generator=g)
+                        loss = loss + torch.where(
+                            torch.isfinite(o), o * w.to(o.device),
+                            torch.zeros_like(o)).sum()
+                xs = [ins[i]._data for i in grad_of]
+                grads = [torch.zeros_like(x).cpu() if gr is None
+                         else gr.cpu() for x, gr in zip(
+                             xs, torch.autograd.grad(loss, xs,
+                                                     allow_unused=True))]
+            res.append(([o.detach().cpu() for o in datas], grads))
+    finally:
+        place_mod._current_place = prev
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    (card, card_g), (cpu, cpu_g) = res
+    for a, b in list(zip(card, cpu)) + list(zip(card_g, cpu_g)):
+        if a.is_complex():
+            a, b = torch.view_as_real(a), torch.view_as_real(b)
+        if a.is_floating_point():
+            # infinities (an empty segment's fill, a density outside its
+            # support) where the CPU has them, the finite values close
+            fin = torch.isfinite(b)
+            assert torch.equal(torch.isnan(a), torch.isnan(b))
+            inf = torch.isinf(b)
+            assert torch.equal(a[inf], b[inf])
+            if fin.any():
+                _close(a[fin], b[fin], tol)
+        else:
+            assert torch.equal(a, b)
+
+
+def _np_rand(*shape, seed=0, lo=-1.0, hi=1.0):
+    import numpy as np
+    return np.random.default_rng(seed).uniform(lo, hi, shape).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("bos_eos", [True, False])
+def test_text_viterbi_on_card_matches_cpu(dev, bos_eos):
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    emis, trans = _np_rand(4, 20, 9, seed=1), _np_rand(9, 9, seed=2)
+    lens = np.array([20, 7, 1, 13], np.int64)
+    _surface_card_vs_cpu(lambda e, t, n: paddle.text.viterbi_decode(
+        e, t, n, bos_eos), [emis, trans, lens], grad_of=(0, 1))
+
+
+def test_bert_crf_tiny_on_card_matches_cpu(dev):
+    """A 2-layer BertModel -> Linear -> ViterbiDecoder at batch 3 with
+    padding, the card's weights on the CPU: emissions within 1e-4 of
+    their scale, the paths equal."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.text.models import BertConfig, BertModel
+    cfg = BertConfig.tiny(vocab=300, hidden=64, layers=2, heads=4)
+    nets = {"cuda": BertModel(cfg, seed=3).eval()}
+    nets["cpu"] = BertModel(cfg, device="cpu").eval()
+    nets["cpu"].load_state_dict({k: v.cpu() for k, v in
+                                 nets["cuda"].state_dict().items()})
+    rng = np.random.default_rng(4)
+    ids = rng.integers(1, 300, (3, 32))
+    lens = np.array([32, 9, 20])
+    am = (np.arange(32)[None] < lens[:, None]).astype(np.int64)
+    w = torch.from_numpy(_np_rand(9, 64, seed=5))
+    trans = _np_rand(9, 9, seed=6)
+    out = {}
+    with torch.no_grad():
+        for d, net in nets.items():
+            seq = net(torch.from_numpy(ids).to(d),
+                      attention_mask=torch.from_numpy(am).to(d))[0]
+            em = seq @ w.to(d).T
+            dec = paddle.text.ViterbiDecoder(paddle.to_tensor(
+                torch.from_numpy(trans).to(d)))
+            sc, path = dec(paddle.to_tensor(em),
+                           paddle.to_tensor(torch.from_numpy(lens).to(d)))
+            out[d] = (em.cpu(), sc._data.cpu(), path._data.cpu())
+    _close(out["cuda"][0], out["cpu"][0], 1e-4)
+    _close(out["cuda"][1], out["cpu"][1], 1e-4)
+    assert torch.equal(out["cuda"][2], out["cpu"][2])
+
+
+@pytest.mark.parametrize("name,cplx,kw", [
+    ("fft", True, {}), ("rfft", False, dict(norm="ortho")),
+    ("irfft", True, dict(n=14)), ("hfft", True, {}), ("ihfft", False, {}),
+    ("fft2", True, dict(norm="forward")), ("rfftn", False, {}),
+    ("irfftn", True, {}), ("hfft2", True, {}), ("ihfft2", False, {})])
+def test_fft_on_card_matches_cpu(dev, name, cplx, kw):
+    import paddle_tpu_torch as paddle
+    ins = [_np_rand(3, 8, 8, seed=7)] + ([_np_rand(3, 8, 8, seed=8)]
+                                          if cplx else [])
+
+    def fn(*parts):
+        x = paddle.complex(*parts) if cplx else parts[0]
+        return getattr(paddle.fft, name)(x, **kw)
+    _surface_card_vs_cpu(fn, ins, grad_of=tuple(range(len(ins))))
+
+
+def test_stft_istft_and_features_on_card_match_cpu(dev):
+    import paddle_tpu_torch as paddle
+    x = _np_rand(2, 4000, seed=9)
+
+    def fn(a):
+        win = paddle.audio.functional.get_window("hann", 64)
+        spec = paddle.signal.stft(a, 64, 16, window=win)
+        back = paddle.signal.istft(spec, 64, 16, window=win, length=4000)
+        lm = paddle.audio.features.LogMelSpectrogram(
+            sr=16000, n_fft=64, hop_length=16, n_mels=16, top_db=80.0)(a)
+        mf = paddle.audio.features.MFCC(sr=16000, n_mfcc=13, n_mels=16,
+                                        n_fft=64, hop_length=16)(a)
+        return spec, back, lm, mf
+    _surface_card_vs_cpu(fn, [x], grad_of=(0,), tol=1e-3)
+
+
+@pytest.mark.parametrize("reduce_op", ["sum", "mean", "max", "min"])
+def test_message_passing_on_card_matches_cpu(dev, reduce_op):
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    rng = np.random.default_rng(10)
+    src = rng.integers(0, 50, 400).astype(np.int64)
+    dst = rng.integers(0, 45, 400).astype(np.int64)
+    x, e = _np_rand(50, 8, seed=11), _np_rand(400, 1, seed=12)
+    _surface_card_vs_cpu(lambda a, w, s, d: paddle.geometric.send_ue_recv(
+        a, w, s, d, "mul", reduce_op), [x, e, src, dst], grad_of=(0, 1))
+    seg = np.sort(rng.integers(0, 30, 50)).astype(np.int64)
+    _surface_card_vs_cpu(lambda a, s: getattr(
+        paddle.geometric, f"segment_{reduce_op}")(a, s), [x, seg],
+        grad_of=(0,))
+
+
+def test_gcn_routes_on_card_match_cpu(dev):
+    """Two aggregation routes of a GCN layer (send_ue_recv, sparse.matmul
+    of the COO adjacency) on the card against the CPU, gradients in the
+    weights included."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    rng = np.random.default_rng(13)
+    n = 80
+    src = np.concatenate([rng.integers(0, n, 300), np.arange(n)])
+    dst = np.concatenate([rng.integers(0, n, 300), np.arange(n)])
+    wts = rng.uniform(0.1, 1.0, len(src)).astype(np.float32)
+    x, w1 = _np_rand(n, 12, seed=14), _np_rand(12, 6, seed=15)
+
+    def fn(a, w, s, d, ew):
+        h = paddle.matmul(a, w)
+        adj = paddle.sparse.sparse_coo_tensor(paddle.stack([d, s]),
+                                              ew[:, 0], [n, n])
+        return (paddle.geometric.send_ue_recv(h, ew, s, d, "mul", "sum",
+                                              out_size=n),
+                paddle.sparse.matmul(adj, h))
+    _surface_card_vs_cpu(fn, [x, w1, src.astype(np.int64),
+                              dst.astype(np.int64), wts[:, None]],
+                         grad_of=(0, 1))
+
+
+def test_sparse_conv_pool_batchnorm_on_card_match_cpu(dev):
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    rng = np.random.default_rng(16)
+    dense = np.zeros((1, 6, 8, 8, 3), np.float32)
+    flat = rng.choice(6 * 8 * 8, 40, replace=False)
+    dense.reshape(-1, 3)[flat] = rng.standard_normal((40, 3))
+    paddle.seed(17)
+    from paddle_tpu_torch.core import place as place_mod
+    prev = place_mod._current_place
+    paddle.set_device("cpu")
+    state = paddle.sparse.nn.SubmConv3D(3, 4, 3, padding=1).state_dict()
+    state = {k: v.numpy() for k, v in state.items()}
+    place_mod._current_place = prev
+
+    def fn(a):
+        conv = paddle.sparse.nn.SubmConv3D(3, 4, 3, padding=1)
+        conv.set_state_dict(state)
+        y = conv(paddle.sparse.to_sparse_coo(a))
+        z = paddle.sparse.nn.BatchNorm(4)(y)
+        p = paddle.sparse.nn.MaxPool3D(2)(z)
+        return y.to_dense(), z.to_dense(), p.to_dense()
+    _surface_card_vs_cpu(fn, [dense], grad_of=(0,))
+
+
+@pytest.mark.parametrize("name", ["Normal", "Categorical", "Bernoulli",
+                                  "StudentT", "MultivariateNormal",
+                                  "Binomial", "Uniform"])
+def test_distributions_on_card_match_cpu(dev, name):
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    a, b = _np_rand(16, 8, seed=18), _np_rand(16, 8, seed=19, lo=0.5, hi=2)
+    v = _np_rand(16, 8, seed=20, lo=-2, hi=2)
+    cov = (np.eye(8) * 2 + 0.3).astype(np.float32)
+
+    def fn(p, q, val):
+        D = paddle.distribution
+        dist, other = {
+            "Normal": lambda: (D.Normal(p, q), D.Normal(q, q + 1)),
+            "Categorical": lambda: (D.Categorical(p), D.Categorical(q)),
+            "Bernoulli": lambda: (D.Bernoulli(logits=p),
+                                  D.Bernoulli(logits=q)),
+            "StudentT": lambda: (D.StudentT(q + 3, p, q), None),
+            "MultivariateNormal": lambda: (D.MultivariateNormal(
+                p[0], covariance_matrix=paddle.to_tensor(cov)), None),
+            "Binomial": lambda: (D.Binomial(np.full((16, 8), 7),
+                                            paddle.nn.functional.sigmoid(p)),
+                                 None),
+            "Uniform": lambda: (D.Uniform(p - 3, q + 1),
+                                D.Uniform(p - 4, q + 2)),
+        }[name]()
+        val_ = paddle.floor(paddle.abs(val) * 3) if name == "Binomial" \
+            else (paddle.cast(paddle.abs(val) * 3, "int64")
+                  if name == "Categorical" else val)
+        outs = [dist.log_prob(val_[:, 0] if name == "Categorical"
+                              else val_)]
+        if name != "MultivariateNormal":
+            outs.append(dist.entropy())
+        if other is not None:
+            outs.append(paddle.distribution.kl_divergence(dist, other))
+        return outs
+    _surface_card_vs_cpu(fn, [a, b, v], grad_of=(0, 1))
+
+
+def test_distribution_samples_on_card(dev):
+    """Draws on the card within 4 standard errors of the analytic mean,
+    reproducible under seed."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place as place_mod
+    prev = place_mod._current_place
+    paddle.set_device("gpu")
+    try:
+        D = paddle.distribution
+        for dist, mean, var in ((D.Normal(np.float32(1.0), np.float32(2.0)),
+                                 1.0, 4.0),
+                                (D.Gamma(np.float32(3.0), np.float32(2.0)),
+                                 1.5, 0.75),
+                                (D.Poisson(np.float32(4.0)), 4.0, 4.0),
+                                (D.Exponential(np.float32(2.0)), 0.5, 0.25)):
+            paddle.seed(21)
+            s = dist.sample([65536])
+            assert s.place.device_type == "gpu"
+            s = s.numpy().astype(np.float64)
+            paddle.seed(21)
+            assert np.array_equal(dist.sample([65536]).numpy(), s)
+            assert abs(s.mean() - mean) <= 4 * np.sqrt(var / len(s))
+    finally:
+        place_mod._current_place = prev

@@ -11,7 +11,12 @@ the port's; the observability slice's ``profiler``, ``device``, ``utils``,
 lazily (a bare import pulls in none of them); the vision slice's
 ``vision`` resolves lazily, and the public names of the JAX package's
 ``vision``, ``vision.models``, ``vision.datasets``, ``vision.ops`` and
-``vision.transforms`` all exist in the port's."""
+``vision.transforms`` all exist in the port's; the signal / graph /
+distribution slice's ``tensor``, ``fft``, ``signal``, ``audio``,
+``distribution``, ``sparse``, ``geometric`` and ``hub`` resolve lazily
+and import no jax, ``CustomPlace`` is a top-level name, and the public
+names of those modules, ``text`` and ``incubate``'s graph names all exist
+in the port's."""
 import os
 import subprocess
 import sys
@@ -26,9 +31,8 @@ ROOT = Path(__file__).resolve().parent.parent
 
 #: public names of paddle_tpu with no counterpart in the port yet
 NOT_PORTED = {
-    "CustomPlace", "DataParallel", "analysis", "audio", "cost_model", "csrc",
-    "disable_static", "distribution", "enable_static", "fft", "geometric",
-    "hub", "jax", "jnp", "onnx", "signal", "sparse", "static", "tensor"}
+    "DataParallel", "analysis", "cost_model", "csrc", "disable_static",
+    "enable_static", "jax", "jnp", "onnx", "static"}
 
 #: the names the high-level training / inference slice brought
 HIGH_LEVEL = ("LazyGuard", "Model", "batch", "callbacks", "check_shape",
@@ -210,3 +214,73 @@ def test_vision_names_match_jax(path):
     missing = {n for n in dir(jmod) if not n.startswith("_")} - \
         set(dir(tmod)) - imports
     assert missing == set()
+
+
+#: the subpackages the signal / graph / distribution slice brought
+SLICE21 = ("tensor", "fft", "signal", "audio", "distribution", "sparse",
+           "geometric", "hub")
+
+#: every module of that slice, by dotted path under the package
+SLICE21_MODULES = (
+    "tensor", "fft", "signal", "audio", "audio.functional",
+    "audio.features", "audio.backends", "audio.datasets", "distribution",
+    "distribution.transform", "distribution.distributions",
+    "distribution.chi2", "distribution.kl", "distribution.lkj_cholesky",
+    "sparse", "sparse.creation", "sparse.nn", "sparse.nn.functional",
+    "geometric", "hub", "text", "text.viterbi", "text.viterbi_decode",
+    "text.datasets", "incubate", "incubate.graph")
+
+
+def test_slice21_subpackages_resolve_lazily_without_jax():
+    code = ("import importlib, sys\n"
+            "import paddle_tpu_torch as p\n"
+            f"names = {SLICE21!r}\n"
+            "print([n for n in names if 'paddle_tpu_torch.' + n in "
+            "sys.modules])\n"
+            "print([n for n in names if n not in dir(p)])\n"
+            "print(p.CustomPlace('npu', 0))\n"
+            f"for m in {SLICE21_MODULES!r}:\n"
+            "    importlib.import_module('paddle_tpu_torch.' + m)\n"
+            "print([n for n in names if getattr(p, n).__name__ != "
+            "'paddle_tpu_torch.' + n])\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines() == ["[]", "[]", "Place(npu:0)", "[]",
+                                       "[]"]
+
+
+@pytest.mark.parametrize("path", SLICE21_MODULES)
+def test_slice21_names_match_jax(path, monkeypatch):
+    import importlib
+    for root in ("paddle_tpu.", "paddle_tpu_torch."):
+        # a first import of a submodule binds it on its package, over a
+        # name of the same spelling (the JAX package's text.viterbi_decode
+        # is the function and never imports its submodule): put the
+        # attribute back after the test for the tests sharing the process
+        parent, _, leaf = (root + path).rpartition(".")
+        pkg = importlib.import_module(parent)
+        if hasattr(pkg, leaf):
+            monkeypatch.setattr(pkg, leaf, getattr(pkg, leaf))
+    jmod = importlib.import_module("paddle_tpu." + path)
+    tmod = importlib.import_module("paddle_tpu_torch." + path)
+    imports = {"annotations", "jax", "jnp", "jsparse", "np", "run_op",
+               "run_op_nodiff", "unwrap", "wrap", "Tensor", "math",
+               "random_mod", "Dict", "Tuple", "Type", "importlib", "os",
+               "sys", "Dataset", "Layer", "dtype_mod"}
+    missing = {n for n in dir(jmod) if not n.startswith("_")} - \
+        set(dir(tmod)) - imports
+    assert missing == set()
+
+
+@pytest.mark.parametrize("name", ["graph_khop_sampler", "graph_reindex",
+                                  "graph_sample_neighbors", "graph_send_recv",
+                                  "segment_sum", "segment_mean",
+                                  "segment_max", "segment_min"])
+def test_incubate_graph_names(name):
+    assert name in dir(tp.incubate) and name in dir(jp.incubate)
+    assert callable(getattr(tp.incubate, name))
