@@ -503,7 +503,36 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    1408 grid with 16,000 voxels, densified as in the JAX package: ms,
    peak memory, nnz in and out; at a 41 x 200 x 176 crop the conv,
    ``sparse.nn.BatchNorm`` and ``MaxPool3D`` card vs CPU within the f32
-   gate.
+   gate;
+27. ``jit.to_static``, ``static`` and ``onnx`` (Inductor and Triton
+   caching under build/): (a) phase 19's model at 2 layers, f32, dropout
+   0, batch 4 through ``to_static`` on the card against the same weights
+   eagerly on the CPU, loss and every gradient within the f32 gate, the
+   call compiled (a graph, no break, no eager pin or fallback warning,
+   ``flash_fwd_lse`` in the compiled forward and ``flash_bwd`` in the
+   backward); (b) the main path: phase 19's model at BERT-base widths
+   and depth (O1 bf16, dropout 0.1, 32 x 128, key mask) with its forward
+   and loss through ``to_static`` and the fused AdamW outside it, 2 warm
+   steps that compile, then 6 counted: finite losses, the eval-mode loss
+   lower after, 72 wgmma forward, dQ and dK/dV launches each from the
+   compiled graphs, no surface op dispatched inside them, one fused Adam
+   a step, no plain route, no graph break and no new graph; compile
+   seconds, ms a step (events, host), tokens/s, peak, and eager and
+   compiled steps in turns; (c) its encoder served in eval under
+   ``no_grad`` through ``to_static`` at f32 and under O1 bf16, batch 32
+   x 128: f32 within the f32 gate of the eager forward, bf16's RMS error
+   against the f32 forward within 1.25x eager bf16's (its max within
+   2x); 12 tf32x3 / 12 wgmma forward launches a batch; the counted and
+   the timed compiled batches run the compiled graph (no surface op
+   dispatched, no new graph, no break); ms a batch and sequences/s
+   compiled and eager; (d) ``static.nn.cond`` and
+   ``while_loop`` compiled on card tensors equal to eager, no break, and
+   a negative control (``float(x.sum().numpy())`` must warn once, fall
+   back with the right values and pin); (e) ``onnx.export`` of 12
+   ``BertEncoderLayer``s at BERT-base widths from the card's weights,
+   parsed back and run on the host by ``run_onnx`` at batch 2,
+   within the f32 gate of the card's forward; negative control: one
+   ``wq`` element moved by 1 must fail it.
 
 It prints the card line, a {"kernels": [...]} line (the tensor-core
 forward, dQ and dK/dV as ``flash_fwd`` / ``flash_bwd_dq`` /
@@ -525,8 +554,9 @@ last line
 {"ok": true, "device":
 {...}}. Details land in
 chiprun_out/chip_smoke/ (result JSON, nvcc/ptxas logs, the replay
-runs' logs). About nine and a half minutes of command time on an H100,
-the six kernel builds included.
+runs' logs). About fourteen minutes of command time on an H100, the six
+kernel builds included; phase 27 about five of them, most of it
+Inductor's compiles.
 """
 from __future__ import annotations
 
@@ -6905,6 +6935,669 @@ def signal_graph_main_path(torch, mods, launches_of, reset_counts, card):
     return out
 
 
+# -- phase 27: jit.to_static, static and onnx on the card ------------------
+
+#: (a): phase 19's model cut to 2 layers, f32, dropout 0, batch 4
+STATIC_XCHECK_LAYERS, STATIC_XCHECK_BATCH = 2, 4
+#: (b): warm steps (they compile) before the TRAIN_STEPS counted ones; then
+#: eager and compiled steps in turns (eager, compiled, eager, compiled)
+STATIC_WARM, STATIC_TURNS, STATIC_TURN_STEPS = 2, 2, 3
+#: (c): timed batches of each serving entry, compiled and eager
+STATIC_SERVE_ITERS = 10
+#: (c): a 12-layer bf16 forward rounds at other points compiled (Inductor
+#: keeps a fused chain's intermediates in f32) than eager, and the layers
+#: carry a flipped rounding on, so the compiled bf16 output is held to the
+#: eager bf16 one's distance from the f32 forward: its RMS error at most
+#: this factor of eager's, and its max error at most twice eager's
+STATIC_BF16_RMS_FACTOR = 1.25
+#: (e): the exported stack (BERT-base widths), its sequence and the batch
+#: the host evaluates
+ONNX_BERT = dict(layers=12, seq=128, batch=2)
+
+
+def host_probes(torch):
+    """How fast the host runs where the script stands: ms of a fixed
+    pure-Python loop and µs of host time a tiny CUDA launch takes to
+    enqueue (medians of 5), the load average, the Python threads alive
+    and the child processes. Phase 27 compares its reading with the one
+    taken after the build: every compiled path is host-bound, and its
+    compiles are host work."""
+    import threading
+
+    def median_of(run, n):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run()
+            times.append((time.perf_counter() - t0) / n)
+            torch.cuda.synchronize()
+        return statistics.median(times)
+
+    x = torch.zeros(1, device="cuda")
+
+    def launches():
+        for _ in range(500):
+            x.add_(1)
+    launches()
+    me = str(os.getpid())
+    children = 0
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                children += f.read().rsplit(")", 1)[1].split()[1] == me
+        except OSError:
+            pass
+    return dict(
+        python_loop_ms=median_of(lambda: sum(i * i for i in range(200_000)),
+                                 1) * 1e3,
+        launch_us=median_of(launches, 500) * 1e6,
+        load_avg=os.getloadavg(),
+        threads=sorted(t.name for t in threading.enumerate()),
+        os_threads=len(os.listdir("/proc/self/task")), children=children)
+
+
+class _GraphLog:
+    """A Dynamo backend: Inductor (``compile_fx``, what the "inductor"
+    backend runs) that keeps the op targets of every AOTAutograd forward
+    and backward graph it compiles (its ``inner_compile``)."""
+
+    def __init__(self):
+        self.fw, self.bw = [], []
+
+    def __call__(self, gm, example_inputs):
+        from torch._inductor.compile_fx import compile_fx, compile_fx_inner
+
+        def inner(g, ex, **kw):
+            (self.bw if kw.get("is_backward") else self.fw).append(
+                {str(n.target) for n in g.graph.nodes
+                 if n.op == "call_function"})
+            return compile_fx_inner(g, ex, **kw)
+        return compile_fx(gm, example_inputs, inner_compile=inner)
+
+
+def _dynamo_counts():
+    """(graphs Dynamo made, graph breaks it counted) so far."""
+    from torch._dynamo.utils import counters
+    return (int(counters["stats"]["unique_graphs"]),
+            int(sum(counters["graph_break"].values())))
+
+
+def _static_warnings(caught):
+    return [str(w.message) for w in caught if "to_static" in str(w.message)]
+
+
+def static_cross_check(torch, paddle, ep):
+    """Phase 27 (a): phase 19's model at 2 layers, f32, dropout 0, batch 4,
+    through ``paddle.jit.to_static`` on the card (Inductor) against the
+    same weights eagerly on the CPU: closeness's f32 gate on the loss and
+    every gradient (``_xcheck``). The call compiled: Dynamo made a graph
+    and counted no break, no eager pin and no fallback warning, the
+    compiled forward holds ``flash_fwd_lse`` and the backward
+    ``flash_bwd``."""
+    import warnings
+    log = _GraphLog()
+    entry = {}
+
+    def grads_of(net, ids, keep, labels):
+        t0 = time.perf_counter()
+        card_side = paddle.get_device() != "cpu"     # _xcheck's device
+        if card_side:
+            fn = paddle.jit.to_static(
+                lambda i, k, y: ep.loss_of(net, i, k, y), backend=log)
+            entry["fn"] = fn
+            loss = fn(ids, keep, labels)
+        else:
+            loss = ep.loss_of(net, ids, keep, labels)
+        loss.backward()
+        if card_side:
+            torch.cuda.synchronize()
+            entry["compile_s"] = time.perf_counter() - t0
+        return loss, {k: p.grad._data for k, p in net.named_parameters()
+                      if p.grad is not None}
+
+    paddle.set_device("gpu")
+    paddle.seed(1)
+    batch, _ = ep.fixed_batch(STATIC_XCHECK_BATCH)
+    graphs0, breaks0 = _dynamo_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        rec = _xcheck(paddle, lambda: ep.build_model(STATIC_XCHECK_LAYERS,
+                                                     0.0),
+                      [t._data.cpu() for t in batch], None,
+                      grads_of=grads_of)
+    graphs, breaks = _dynamo_counts()
+    fw = set().union(*log.fw) if log.fw else set()
+    bw = set().union(*log.bw) if log.bw else set()
+    rec.update(layers=STATIC_XCHECK_LAYERS, batch=STATIC_XCHECK_BATCH,
+               seq=ep.SEQ, graphs=graphs - graphs0,
+               graph_breaks=breaks - breaks0,
+               eager_sigs=len(entry["fn"]._eager_sigs),
+               fallback_warnings=_static_warnings(caught),
+               fw_graphs=len(log.fw), bw_graphs=len(log.bw),
+               fw_holds_flash_fwd="paddle_tpu_torch.flash_fwd_lse.default"
+               in fw,
+               bw_holds_flash_bwd="paddle_tpu_torch.flash_bwd.default" in bw,
+               compile_s=entry["compile_s"])
+    if rec["graphs"] < 1 or rec["graph_breaks"] or rec["eager_sigs"] or \
+            rec["fallback_warnings"] or not rec["fw_holds_flash_fwd"] or \
+            not rec["bw_holds_flash_bwd"]:
+        fail(f"phase 27 (a): the card's to_static call did not compile "
+             f"whole onto the flash ops: {rec}")
+    print(f"phase 27 (a) to_static card vs CPU ({STATIC_XCHECK_LAYERS} "
+          f"layers, f32, batch {STATIC_XCHECK_BATCH}): loss cuda "
+          f"{rec['loss_cuda']:.6f} cpu {rec['loss_cpu']:.6f} (ratio "
+          f"{rec['loss_ratio']:.3f}); {rec['grads']} gradients, worst "
+          f"{rec['worst_grad']} ratio {rec['worst_grad_ratio']:.3f}; "
+          f"{rec['graphs']} graph, {rec['graph_breaks']} breaks, flash_fwd_lse "
+          f"in the forward graph, flash_bwd in the backward; compile + first "
+          f"call {rec['compile_s']:.1f} s", flush=True)
+    return rec
+
+
+def static_train_main_path(torch, paddle, ep, dispatch, launches_of,
+                           reset_counts, card):
+    """Phase 27 (b), the main path: phase 19's model at BERT-base widths and
+    depth (O1 bf16, dropout 0.1, batch 32 x 128, key mask) with its
+    forward and loss through ``paddle.jit.to_static`` (Inductor) and the
+    fused AdamW step outside the compiled call. STATIC_WARM warm steps
+    compile; counts set to 0 just before the TRAIN_STEPS counted steps and
+    read just after. Then phase 19's eager step and the compiled one in
+    turns on the same model and batch (recorded, not gated)."""
+    import warnings
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    m = ep.MODEL
+    model = ep.build_model()
+    opt = ep.make_optimizer(model)
+    batch, lens = ep.fixed_batch()
+    train_loss = paddle.jit.to_static(
+        lambda ids, keep, labels: ep.loss_of(model, ids, keep, labels))
+
+    def eager_loss(ids, keep, labels):
+        return ep.loss_of(model, ids, keep, labels)
+
+    def eval_loss():
+        model.eval()
+        with paddle.no_grad():
+            loss = float(ep.forward_loss(model, batch))
+        model.train()
+        return loss
+
+    rows = dict(loss=[], host_s=[], step_s=[], ev_ms=[], fb_ops=[])
+
+    def step(fn, into=rows):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        n0 = dispatch.op_count
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = fn(*batch)
+        loss.backward()
+        fb_ops = dispatch.op_count - n0
+        opt.step()
+        opt.clear_grad()
+        e1.record()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if into is not None:
+            into["loss"].append(float(loss))
+            into["host_s"].append(t1 - t0)
+            into["step_s"].append(t2 - t0)
+            into["ev_ms"].append(e0.elapsed_time(e1))
+            into["fb_ops"].append(fb_ops)
+        return t2 - t0
+
+    eval_before = eval_loss()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        warm_s = [step(train_loss, None) for _ in range(STATIC_WARM)]
+        graphs_warm, breaks0 = _dynamo_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with ep.GcClock() as gc_clock:
+            for _ in range(TRAIN_STEPS):
+                step(train_loss)
+        launches = launches_of()
+        counters = {k: v for k, v in paddle.monitor.snapshot().items()
+                    if k.startswith("kernels.")}
+        # -- end of the counted compiled path --
+        graphs_after, breaks = _dynamo_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    eval_after = eval_loss()
+    turns = {"eager": [], "compiled": []}
+    for _ in range(STATIC_TURNS):
+        for name, fn in (("eager", eager_loss), ("compiled", train_loss)):
+            turns[name] += [step(fn, None) * 1e3
+                            for _ in range(STATIC_TURN_STEPS)]
+    losses = rows["loss"]
+    want = m["layers"] * TRAIN_STEPS
+    got = {k: launches[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv")}
+    problems = []
+    if not all(map(math.isfinite, losses + [eval_before, eval_after])) \
+            or not eval_after < eval_before:
+        problems.append(f"losses {losses}, eval mode {eval_before} -> "
+                        f"{eval_after}")
+    if set(got.values()) != {want}:
+        problems.append(f"flash launches {got}, expected {want} each")
+    if any(rows["fb_ops"]):
+        problems.append(f"surface ops dispatched eagerly in the compiled "
+                        f"forward + backward: {rows['fb_ops']}")
+    if counters.get("kernels.optimizer.adam_fused") != TRAIN_STEPS or \
+            counters.get("kernels.optimizer.adam_plain", 0):
+        problems.append(f"optimizer routes {counters}")
+    plain = {k: v for k, v in counters.items()
+             if (k.endswith("_plain") or "fallback" in k) and v}
+    sdpa = {k: v for k, v in counters.items()
+            if k.startswith("kernels.flash.sdpa.") and v}
+    if plain or sdpa:
+        problems.append(f"plain routes {plain} or eager sdpa calls {sdpa}")
+    msgs = _static_warnings(caught)
+    if breaks != breaks0 or graphs_after != graphs_warm or msgs or \
+            train_loss._eager_sigs or len(train_loss._cache) != 1:
+        problems.append(f"graphs {graphs_warm} -> {graphs_after}, breaks "
+                        f"{breaks0} -> {breaks}, warnings {msgs}, eager "
+                        f"pins {train_loss._eager_sigs}")
+    if problems:
+        fail("phase 27 (b): " + "; ".join(problems))
+    routes = check_tc_routes(counters, want, "phase 27 (b)")
+    med = statistics.median
+    steady = med(rows["step_s"][1:])
+    tokens = ep.BATCH * ep.SEQ
+    rec = dict(batch=ep.BATCH, seq=ep.SEQ, lengths=lens.tolist(),
+               steps=TRAIN_STEPS, warm_steps=STATIC_WARM,
+               dropout=m["dropout"], losses=losses,
+               eval_loss_before=eval_before, eval_loss_after=eval_after,
+               warm_step_s=warm_s, compile_s=warm_s[0] - steady,
+               ms_per_step=steady * 1e3,
+               events_ms_per_step=med(rows["ev_ms"][1:]),
+               host_ms_per_step=med(rows["host_s"][1:]) * 1e3,
+               host_share=med(rows["host_s"][1:]) / steady,
+               tokens_per_s=tokens / steady, peak_mem_gb=peak_gb,
+               gc_ms_per_step=gc_clock.seconds * 1e3 / TRAIN_STEPS,
+               fb_ops=rows["fb_ops"], graphs=graphs_after,
+               launches=launches, counters=counters, flash_routes=routes,
+               fused_adam_launches=launches["fused_adam"],
+               turns_ms=turns, eager_ms_per_step=med(turns["eager"]),
+               compiled_ms_per_step=med(turns["compiled"]))
+    print(f"phase 27 (b) to_static training: BERT-base ({m['layers']} "
+          f"layers), batch {ep.BATCH} x seq {ep.SEQ}, O1 bf16, dropout "
+          f"{m['dropout']}, losses {[round(x, 4) for x in losses]} (eval "
+          f"mode {eval_before:.4f} -> {eval_after:.4f}); compile "
+          f"{rec['compile_s']:.1f} s (warm steps "
+          f"{[round(s, 1) for s in warm_s]} s); median step "
+          f"{rec['ms_per_step']:.1f} ms (events "
+          f"{rec['events_ms_per_step']:.1f} ms) = {rec['tokens_per_s']:.0f} "
+          f"tokens/s, host {rec['host_ms_per_step']:.1f} ms a step "
+          f"({rec['host_share']:.3f} of it), peak {peak_gb:.1f} GB; "
+          f"launches {got}, {launches['fused_adam']} fused Adam, 0 surface "
+          f"ops dispatched in the compiled forward + backward; in turns: "
+          f"eager {rec['eager_ms_per_step']:.1f} ms vs compiled "
+          f"{rec['compiled_ms_per_step']:.1f} ms a step on {card}",
+          flush=True)
+    return model, batch, rec
+
+
+def _rms(t):
+    return float(t.float().square().mean().sqrt())
+
+
+def static_serving(torch, paddle, model, batch, dispatch, launches_of,
+                   reset_counts, card):
+    """Phase 27 (c): the trained model in eval mode under ``no_grad``,
+    its encoder's forward (the hidden states of every token) and the
+    logits through ``to_static`` at f32 and under O1 bf16, batch 32 x 128:
+    each against the eager forward on the card (f32: closeness's gate;
+    bf16: held to the eager bf16 output's distance from the f32 forward,
+    STATIC_BF16_RMS_FACTOR), one counted batch each (tf32x3 == 12 at f32,
+    wgmma == 12 at bf16), then ms a batch compiled and eager. The counted
+    batch and the timed compiled ones must run the graph compiled at the
+    precision's first call: no surface op dispatched (``op_count``), no
+    new Dynamo graph and no graph break."""
+    import contextlib
+    model.eval()
+    ids, keep = batch[0], batch[1]
+    layers = len(model[1].layers)
+
+    def forward(ids, keep):
+        h = model[1](model[0](ids), src_mask=keep)
+        return h, model[2](h[:, 0])
+    serve = paddle.jit.to_static(forward)
+    out = {}
+    ref32 = None
+    for what in ("f32", "bf16"):
+        def amp():
+            return paddle.amp.auto_cast(level="O1", dtype="bfloat16") \
+                if what == "bf16" else contextlib.nullcontext()
+        with paddle.no_grad():
+            t0 = time.perf_counter()
+            with amp():
+                h, logits = serve(ids, keep)
+            torch.cuda.synchronize()
+            compile_s = time.perf_counter() - t0
+            with amp():
+                he, le = forward(ids, keep)
+
+            def timed(fn):
+                """(device ms, host ms to enqueue) a batch: events and
+                the host's clock around STATIC_SERVE_ITERS batches after
+                3 warm ones."""
+                def run():
+                    with amp():
+                        fn(ids, keep)
+                for _ in range(3):
+                    run()
+                torch.cuda.synchronize()
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                t0 = time.perf_counter()
+                for _ in range(STATIC_SERVE_ITERS):
+                    run()
+                host_s = time.perf_counter() - t0
+                e1.record()
+                e1.synchronize()
+                return (e0.elapsed_time(e1) / STATIC_SERVE_ITERS,
+                        host_s * 1e3 / STATIC_SERVE_ITERS)
+            # the counted batch and the timed compiled ones ran the graph
+            # compiled at the first call: no surface op dispatched eagerly
+            # (an eager run, Dynamo's own fallback too, dispatches ~200),
+            # no new graph (a recompile) and no break
+            graphs0, breaks0 = _dynamo_counts()
+            ops0 = dispatch.op_count
+            reset_counts()
+            with amp():
+                serve(ids, keep)
+            torch.cuda.synchronize()
+            launches = launches_of()
+            counters = {k: v for k, v in paddle.monitor.snapshot().items()
+                        if k.startswith("kernels.")}
+            # -- end of the counted batch --
+            counted_ops = dispatch.op_count - ops0
+            ms, host_ms = timed(serve)
+            compiled_ops = dispatch.op_count - ops0
+            graphs, breaks = _dynamo_counts()
+            eager_ops0 = dispatch.op_count
+            eager_ms, eager_host_ms = timed(forward)
+            eager_ops = (dispatch.op_count - eager_ops0) // \
+                (STATIC_SERVE_ITERS + 3)
+        h, he = h._data, he._data
+        rec = dict(compile_s=compile_s, ms=ms, eager_ms=eager_ms,
+                   host_ms=host_ms, host_share=host_ms / ms,
+                   eager_host_ms=eager_host_ms,
+                   sequences_per_s=ids.shape[0] / ms * 1e3,
+                   eager_sequences_per_s=ids.shape[0] / eager_ms * 1e3,
+                   launches=launches, counters=counters,
+                   counted_batch_ops=counted_ops,
+                   compiled_ops=compiled_ops, eager_ops_per_batch=eager_ops,
+                   new_graphs=graphs - graphs0,
+                   graph_breaks=breaks - breaks0,
+                   hidden_vs_eager=closeness(h, he),
+                   logits_vs_eager=closeness(logits._data, le._data))
+        if compiled_ops or graphs != graphs0 or breaks != breaks0 or \
+                not eager_ops:
+            fail(f"phase 27 (c) {what} serving did not run its compiled "
+                 f"graph: {compiled_ops} surface ops dispatched eagerly in "
+                 f"the counted and timed batches (eager: {eager_ops} a "
+                 f"batch), {graphs - graphs0} new graphs, "
+                 f"{breaks - breaks0} breaks")
+        finite = bool(torch.isfinite(h).all()) and \
+            tuple(h.shape) == (ids.shape[0], ids.shape[1], h.shape[-1])
+        if what == "f32":
+            ref32 = he.float()
+            good = rec["hidden_vs_eager"]["ratio"] <= 1 and \
+                rec["logits_vs_eager"]["ratio"] <= 1
+            routes = check_f32_routes(counters, layers,
+                                      "phase 27 (c) f32 serving")
+        else:
+            err_c, err_e = (h.float() - ref32), (he.float() - ref32)
+            rec.update(rms_err_vs_f32=_rms(err_c),
+                       eager_rms_err_vs_f32=_rms(err_e),
+                       max_err_vs_f32=float(err_c.abs().max()),
+                       eager_max_err_vs_f32=float(err_e.abs().max()),
+                       rms_factor=STATIC_BF16_RMS_FACTOR)
+            good = rec["rms_err_vs_f32"] <= STATIC_BF16_RMS_FACTOR * \
+                rec["eager_rms_err_vs_f32"] and rec["max_err_vs_f32"] <= \
+                2 * rec["eager_max_err_vs_f32"]
+            routes = check_routes(counters, {"fwd_cuda_tc": layers,
+                                             "fwd_cuda_tc_wgmma": layers},
+                                  "phase 27 (c) bf16 serving")
+        rec["flash_routes"] = routes
+        if not finite or not good or launches["flash_fwd"] != layers or \
+                any(launches[k] for k in ("flash_bwd_dq", "flash_bwd_dkv")):
+            fail(f"phase 27 (c) {what} serving: finite {finite}, "
+                 f"launches {launches}, {rec}")
+        out[what] = rec
+        print(f"phase 27 (c) to_static serving {what} (batch {ids.shape[0]}"
+              f" x {ids.shape[1]}): {ms:.2f} ms a batch compiled (host "
+              f"{host_ms:.2f} ms to enqueue it) = "
+              f"{rec['sequences_per_s']:.0f} sequences/s, eager "
+              f"{eager_ms:.2f} ms (host {eager_host_ms:.2f}) = "
+              f"{rec['eager_sequences_per_s']:.0f}; 0 surface ops, 0 new "
+              f"graphs in the counted and timed compiled batches; "
+              f"hidden vs eager ratio {rec['hidden_vs_eager']['ratio']:.3f}"
+              + (f", rms error vs f32 {rec['rms_err_vs_f32']:.2e} (eager "
+                 f"{rec['eager_rms_err_vs_f32']:.2e})" if what == "bf16"
+                 else "") + f"; compile + first batch {compile_s:.1f} s; "
+              f"{launches['flash_fwd']} flash launches on {card}",
+              flush=True)
+    if len(serve._cache) != 1 or serve._eager_sigs:
+        fail(f"phase 27 (c): serving entries {len(serve._cache)}, pins "
+             f"{serve._eager_sigs}")
+    model.train()
+    return out
+
+
+def static_control_flow(torch, paddle, card):
+    """Phase 27 (d): ``static.nn.cond`` and ``while_loop`` inside
+    ``to_static`` on card tensors, equal to eager with no graph break; then
+    the negative control: ``float(x.sum().numpy())`` in a ``to_static``
+    function must warn once, fall back, return the right values and show
+    its pin in ``_eager_sigs`` (the check (a)-(c) rely on sees a break)."""
+    import warnings
+    paddle.set_device("gpu")
+    g = torch.Generator(device="cuda").manual_seed(27)
+    x = paddle.to_tensor(torch.randn(64, 256, generator=g, device="cuda"))
+    n = paddle.static.nn
+
+    def branchy(x):
+        y = n.cond(x.mean() > 0, lambda: x * 2.0, lambda: x - 1.0)
+        _, acc = n.while_loop(lambda i, a: i < 5,
+                              lambda i, a: (i + 1, paddle.tanh(a) + a),
+                              [paddle.to_tensor(0), y])
+        return acc
+
+    def value_branch(x):
+        if float(x.sum().numpy()) > 0:
+            return x * 2.0
+        return x - 1.0
+    rec = {}
+    graphs0, breaks0 = _dynamo_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        flow = paddle.jit.to_static(branchy)
+        got = {s: flow(x * s) for s in (1.0, -1.0)}
+    graphs, breaks = _dynamo_counts()
+    for s, t in got.items():
+        c = closeness(t._data, branchy(x * s)._data)
+        rec[f"sign_{s:+.0f}"] = c
+        if c["ratio"] > 1:
+            fail(f"phase 27 (d): compiled cond / while_loop off eager: {c}")
+    rec.update(graphs=graphs - graphs0, graph_breaks=breaks - breaks0,
+               warnings=_static_warnings(caught))
+    if rec["graphs"] < 1 or rec["graph_breaks"] or rec["warnings"] or \
+            flow._eager_sigs:
+        fail(f"phase 27 (d): cond / while_loop broke the graph: {rec}")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        neg = paddle.jit.to_static(value_branch)
+        outs = [neg(x * s) for s in (1.0, -1.0)]
+    msgs = _static_warnings(caught)
+    wants = [value_branch(x * s) for s in (1.0, -1.0)]
+    right = all(torch.equal(o._data, w._data) for o, w in zip(outs, wants))
+    rec["negative_control"] = dict(warnings=msgs, pins=len(neg._eager_sigs),
+                                   right_values=right)
+    if len(msgs) != 1 or "falling back to eager" not in msgs[0] or \
+            len(neg._eager_sigs) != 1 or not right:
+        fail(f"phase 27 (d) negative control: the value-dependent branch "
+             f"was not caught as a graph break: {rec['negative_control']}")
+    print(f"phase 27 (d) cond + while_loop compiled on the card, equal to "
+          f"eager (ratios {rec['sign_+1']['ratio']:.3f}, "
+          f"{rec['sign_-1']['ratio']:.3f}), {rec['graphs']} graph(s), no "
+          f"break; negative control: one fallback warning, pinned, right "
+          f"values", flush=True)
+    return rec
+
+
+def run_onnx(model, x):
+    """A numpy evaluator of the op set ``paddle.onnx.export`` writes for a
+    stack of ``BertEncoderLayer``s: runs a parsed graph
+    (``_proto.parse_model``) on input ``x``, bound to the graph input
+    ``input``, on the host, with no onnx package. ``Gelu`` is the exact
+    erf in float64, cast back. Raises on any other op."""
+    import numpy as np
+    from scipy.special import erf
+
+    def layer_norm(x, scale, bias, axis=-1, epsilon=1e-5):
+        axes = tuple(range(axis % x.ndim, x.ndim))
+        mean, var = x.mean(axis=axes, keepdims=True), \
+            x.var(axis=axes, keepdims=True)
+        return (x - mean) / np.sqrt(var + epsilon) * scale + bias
+
+    def softmax(x, axis=-1):
+        e = np.exp(x - x.max(axis=axis, keepdims=True))
+        return e / e.sum(axis=axis, keepdims=True)
+
+    def gelu(x):
+        x64 = x.astype(np.float64)
+        return (0.5 * x64 * (1.0 + erf(x64 / np.sqrt(2.0)))).astype(x.dtype)
+
+    ops = {"MatMul": np.matmul, "Add": np.add, "Mul": np.multiply,
+           "Gelu": gelu, "Softmax": softmax, "LayerNormalization": layer_norm,
+           "Transpose": lambda x, perm: x.transpose(perm),
+           "Reshape": lambda x, shape: x.reshape(
+               [x.shape[i] if d == 0 else int(d) for i, d in
+                enumerate(shape)])}
+    g = model["graph"]
+    env = dict(g["initializers"], input=x)
+    for node in g["nodes"]:
+        if node["op_type"] not in ops:
+            raise NotImplementedError(
+                f"run_onnx: op {node['op_type']} is not in the BERT "
+                "encoder's op set")
+        env[node["outputs"][0]] = ops[node["op_type"]](
+            *[env[i] for i in node["inputs"]], **node["attrs"])
+    return env[g["outputs"][0]]
+
+
+def onnx_export_check(torch, paddle, mods, card):
+    """Phase 27 (e): a stack of the port's ``BertEncoderLayer``s at
+    BERT-base widths (12 layers, f32) exported by ``paddle.onnx.export``
+    from the card's weights with a symbolic batch ([None, 128, 768]),
+    parsed back with ``_proto.parse_model`` and run on the host by
+    ``run_onnx`` at batch 2: within closeness's f32 gate
+    of the card's eager forward. Negative control: the parsed file with
+    one element of the first ``wq`` initializer moved by 1 must fail the
+    gate."""
+    import numpy as np
+    from paddle_tpu_torch.onnx import _proto
+    E = ONNX_BERT
+    model = mods.BertModel(mods.BertConfig(num_hidden_layers=E["layers"]),
+                           seed=27).eval()
+    stack = model.encoder
+    h = model.config.hidden_size
+    g = torch.Generator(device="cuda").manual_seed(27)
+    x = torch.randn(E["batch"], E["seq"], h, generator=g, device="cuda")
+    with torch.no_grad():
+        want = x
+        for lyr in stack:
+            want = lyr(want)
+    path = ROOT / "build" / "phase27_bert_encoder"    # ~340 MB, removed
+    t0 = time.perf_counter()
+    fname = paddle.onnx.export(stack, str(path), input_spec=[
+        paddle.jit.InputSpec([None, E["seq"], h], "float32")])
+    export_s = time.perf_counter() - t0
+    size_mb = os.path.getsize(fname) / 2 ** 20
+    parsed = _proto.parse_model(open(fname, "rb").read())
+    os.remove(fname)
+    xs = x.cpu().numpy()
+    t0 = time.perf_counter()
+    got = run_onnx(parsed, xs)
+    run_s = time.perf_counter() - t0
+    ref = want.cpu()
+    c = closeness(torch.from_numpy(np.asarray(got)), ref)
+    inits = parsed["graph"]["initializers"]
+    wq = next(k for k in inits if k.startswith("wq"))
+    inits[wq] = inits[wq].copy()
+    inits[wq].flat[0] += 1.0
+    moved = closeness(torch.from_numpy(np.asarray(run_onnx(parsed, xs))),
+                      ref)
+    ops = sorted({n["op_type"] for n in parsed["graph"]["nodes"]})
+    rec = dict(layers=E["layers"], seq=E["seq"], batch=E["batch"],
+               hidden=h, nodes=len(parsed["graph"]["nodes"]), ops=ops,
+               initializers=len(inits), size_mb=size_mb,
+               export_s=export_s, host_run_s=run_s, vs_card=c,
+               negative_control=dict(initializer=wq, ratio=moved["ratio"]))
+    if tuple(np.asarray(got).shape) != tuple(ref.shape) or c["ratio"] > 1 \
+            or moved["ratio"] <= 1:
+        fail(f"phase 27 (e): ONNX export of the BERT stack: {rec}")
+    print(f"phase 27 (e) onnx.export of {E['layers']} BertEncoderLayers "
+          f"({h} wide, [None, {E['seq']}, {h}]): {rec['nodes']} nodes, "
+          f"{size_mb:.0f} MB in {export_s:.1f} s; run on the host at batch "
+          f"{E['batch']} in {run_s:.1f} s, ratio {c['ratio']:.3f} to the "
+          f"card's forward (max abs err {c['max_abs_err']:.2e}); negative "
+          f"control ({wq}[0] + 1) ratio {moved['ratio']:.1f}", flush=True)
+    del model, stack
+    torch.cuda.empty_cache()
+    return rec
+
+
+def to_static_main_path(torch, mods, launches_of, reset_counts, card,
+                        host_at_start):
+    """Phase 27: (a) ``to_static`` card vs CPU, (b) BERT-base trained
+    through ``to_static`` (the main path), (c) served through it at f32
+    and bf16, (d) ``static.nn`` control flow and the graph-break negative
+    control, (e) ``onnx.export`` of a BERT-base encoder stack."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import profile_eager as ep
+    from paddle_tpu_torch.core import dispatch
+    host = host_probes(torch)
+    print(f"phase 27 host, after the build -> now: python loop "
+          f"{host_at_start['python_loop_ms']:.2f} -> "
+          f"{host['python_loop_ms']:.2f} ms, a launch "
+          f"{host_at_start['launch_us']:.2f} -> {host['launch_us']:.2f} us "
+          f"to enqueue, load average {host_at_start['load_avg'][0]:.2f} -> "
+          f"{host['load_avg'][0]:.2f}, OS threads "
+          f"{host_at_start['os_threads']} -> {host['os_threads']}, "
+          f"children {host_at_start['children']} -> {host['children']}; "
+          f"Python threads now {host['threads']}", flush=True)
+    t0 = time.perf_counter()
+    out = dict(host_at_start=host_at_start, host=host,
+               cross_check=static_cross_check(torch, paddle, ep))
+    model, batch, out["training"] = static_train_main_path(
+        torch, paddle, ep, dispatch, launches_of, reset_counts, card)
+    out["serving"] = static_serving(torch, paddle, model, batch, dispatch,
+                                    launches_of, reset_counts, card)
+    del model, batch
+    torch.cuda.empty_cache()
+    out["control_flow"] = static_control_flow(torch, paddle, card)
+    out["onnx"] = onnx_export_check(torch, paddle, mods, card)
+    from torch._dynamo.utils import compile_times
+    (OUT_DIR / "phase27_compile_times.txt").write_text(
+        compile_times(repr="str"))
+    try:                     # Inductor's compile workers end with the phase
+        from torch._inductor.async_compile import shutdown_compile_workers
+        shutdown_compile_workers()
+    except ImportError:
+        pass
+    paddle.set_device("gpu")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 27 in {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def bench_trace(vocab, n_requests=24, prompt_lo=64, prompt_hi=192,
                 arrival_rate_hz=40.0, shared_prefix=0, whale_every=0,
                 whale_prompt=0):
@@ -8051,6 +8744,10 @@ def main():
             GradScaler=GradScaler)
     except ImportError as e:
         fail(f"cannot import the port (run from the repository root): {e}")
+    # Inductor's and Triton's caches (phase 27) in build/, which git ignores
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
     # a reference states its float32 matmul precision: full f32, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -8078,6 +8775,7 @@ def main():
         build.load(name)
     print(f"build: {sorted(build.SOURCES)} in {build_s:.1f} s, probes ok",
           flush=True)
+    host_at_start = host_probes(torch)   # phase 27 compares its own
 
     def reset_counts():
         build.probe.launches = 0
@@ -8322,6 +9020,13 @@ def main():
     signal = signal_graph_main_path(torch, mods, launches_of, reset_counts,
                                     card)
 
+    # 27. jit.to_static, static and onnx: the card against the CPU through
+    # to_static, BERT-base trained (counts around the counted steps) and
+    # served (counts around one batch each) through it, static.nn control
+    # flow with the graph-break negative control, the ONNX export
+    static = to_static_main_path(torch, mods, launches_of, reset_counts,
+                                 card, host_at_start)
+
     src = "paddle_tpu_torch/csrc/"
 
     def replay_by_path(kernel):
@@ -8359,14 +9064,22 @@ def main():
                 "bert_training": bert_training, "eager_training": eager,
                 **{f"recipe_{g}": r for g, r in recipe["runs"].items()},
                 "hapi": hapi, **quant_runs, "profiler": prof_run,
-                "bert_crf_bf16": signal["crf"]["bf16"]}
+                "bert_crf_bf16": signal["crf"]["bf16"],
+                "static_training": static["training"],
+                "static_serving_bf16": static["serving"]["bf16"]}
     f32_paths = {"serving": dict(counters=counters),
                  "encoder_serving": enc_serving,
                  "one_shot_padded": one_shot["one_shot_padded"],
                  "replay_embedding": replay["embedding"],
                  "replay_embedding_fixture": replay["embedding_fixture"],
                  "hapi": hapi, "predictor": predictor,
-                 "bert_crf_f32": signal["crf"]["f32"]}
+                 "bert_crf_f32": signal["crf"]["f32"],
+                 "static_serving_f32": static["serving"]["f32"]}
+
+    # phase 27's counted runs (the probe ran in an earlier phase: 0 here)
+    static_runs = {"static_training": static["training"],
+                   **{f"static_serving_{w}": static["serving"][w]
+                      for w in ("f32", "bf16")}}
 
     def by_path(paths, route):
         return {p: flash_routes(r["counters"])[route]
@@ -8556,11 +9269,14 @@ def main():
         launches=es_l["probe_minor64"] + sum(
             replay_by_path("probe_minor64").values()) + sum(
             signal["crf"][w]["launches"]["probe_minor64"]
-            for w in ("f32", "bf16")),
+            for w in ("f32", "bf16")) + sum(
+            r["launches"]["probe_minor64"] for r in static_runs.values()),
         launches_by_path={"encoder_serving": es_l["probe_minor64"],
                           **replay_by_path("probe_minor64"),
                           **{f"bert_crf_{w}": signal["crf"][w]["launches"][
-                              "probe_minor64"] for w in ("f32", "bf16")}},
+                              "probe_minor64"] for w in ("f32", "bf16")},
+                          **{p: r["launches"]["probe_minor64"]
+                             for p, r in static_runs.items()}},
         cases=minor64_cases,
         note="library_ms times the pair of torch.matmul calls (timed only); "
              "the plain version is the same pair",
@@ -8645,7 +9361,8 @@ def main():
                   "profiler": prof_run["launches"]["fused_adam"],
                   **{f"arxiv_gcn_{r}": signal["arxiv"][r]["launches"][
                       "fused_adam"] for r in ("send_ue_recv",
-                                              "sparse_matmul")}}
+                                              "sparse_matmul")},
+                  "static_training": static["training"]["fused_adam_launches"]}
     kernels.append(dict(
         name="fused_adam", route="cuda", source=src + "fused_adam.cu",
         replaces="port-only: no TPU kernel; the per-parameter fusion XLA "
@@ -8701,7 +9418,8 @@ def main():
                   predictor=predictor, quantized_serving=quant,
                   profiler=prof_run, debugging=debugging,
                   device_utils=device_utils, vision=vision,
-                  signal_graph_distribution=signal, kernels=kernels)
+                  signal_graph_distribution=signal, to_static=static,
+                  kernels=kernels)
     (OUT_DIR / "result.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,8 @@ names and ``Tensor`` methods, and ``nn`` holds conv, pooling, the resize
 ``distributed``, ``io``, ``metric``, ``hapi``, ``callbacks``,
 ``reader``, ``profiler``, ``device``, ``utils``, ``sysconfig``,
 ``version``, ``vision``, ``tensor``, ``fft``, ``signal``, ``audio``,
-``distribution``, ``sparse``, ``geometric`` and ``hub`` resolve as
+``distribution``, ``sparse``, ``geometric``, ``hub``, ``static`` and
+``onnx`` resolve as
 attributes on first use, and so
 do ``Model``, ``summary`` and ``flops`` of ``hapi`` and ``to_dlpack`` /
 ``from_dlpack`` of ``utils.dlpack`` (a module ``__getattr__``: importing
@@ -47,8 +48,13 @@ into every ``import``; ``dir()`` lists them). The high-level paths:
     pred = paddle.inference.create_predictor(
         paddle.inference.Config("out/net.pdmodel"))
 
-The names of the JAX package's top level whose modules are not ported
-yet (``static``, ``jit.to_static``, ``onnx``, ...) are absent.
+``paddle.jit.to_static`` compiles a function or a Layer with Dynamo and
+Inductor (one entry an input signature; the flash kernels enter the
+graph as custom ops); ``static`` keeps the graph-free names of
+``paddle.static`` and its control flow, ``onnx.export`` writes an ONNX
+file from a Layer walk. The names of the JAX package's top level whose
+modules are not ported yet (``DataParallel``, ``analysis``, ...) are
+absent.
 
 The port's models and the serving ``Engine`` take raw torch tensors:
 
@@ -120,13 +126,23 @@ def in_dynamic_mode():
     return True
 
 
+def disable_static(place=None):
+    """A no-op: dygraph is the only mode; the compiled path is
+    ``jit.to_static``, not a Program / Executor world."""
+
+
+def enable_static():
+    raise NotImplementedError(
+        "static graph mode is subsumed by paddle.jit.to_static in the port")
+
+
 #: subpackages resolved on first attribute access (``paddle.jit``, ...)
 _LAZY_SUBPACKAGES = ("jit", "inference", "text", "incubate", "regularizer",
                      "quantization", "distributed", "io", "metric", "hapi",
                      "callbacks", "reader", "profiler", "device", "utils",
                      "sysconfig", "version", "vision", "fft", "signal",
                      "audio", "distribution", "sparse", "geometric", "hub",
-                     "tensor")
+                     "tensor", "static", "onnx")
 #: names of a subpackage resolved on first access (``paddle.Model``)
 _LAZY_NAMES = {"Model": "hapi", "summary": "hapi", "flops": "hapi",
                "to_dlpack": "utils.dlpack", "from_dlpack": "utils.dlpack"}

@@ -22,22 +22,17 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from torch.compiler import is_compiling as _tracing
+
 from .flags import get_flag
 from .tensor import Tensor
 
-_amp = None
-
 #: ops dispatched through ``run_op`` / ``run_op_nodiff`` since import
-#: (read by the per-op host-overhead measurement)
+#: (read by the per-op host-overhead measurement); ops traced by
+#: ``jit.to_static`` are not dispatched at each call and count nothing
+#: (a count bumped under the trace would also guard the compiled entry
+#: on its value and recompile it at every call)
 op_count = 0
-
-
-def _amp_state():
-    global _amp
-    if _amp is None:
-        import importlib
-        _amp = importlib.import_module("paddle_tpu_torch.amp.auto_cast")
-    return _amp
 
 
 def unwrap(x):
@@ -175,10 +170,10 @@ def run_op(name: str, fn: Callable, tensor_args: Sequence[Any], **attrs):
 
 def _run_op(name: str, fn: Callable, tensor_args: Sequence[Any], **attrs):
     global op_count
-    op_count += 1
-    amp = _amp_state()
-    if amp._amp_state.enabled:
-        tensor_args = amp.autocast_inputs(name, tensor_args)
+    if not _tracing():
+        op_count += 1
+    if _amp_state.enabled:
+        tensor_args = autocast_inputs(name, tensor_args)
     out = fn(*_unwrap_all(tensor_args), **attrs)
     if get_flag("check_nan_inf"):
         _check_nan_inf(name, out)
@@ -198,7 +193,8 @@ def run_op_nodiff(name: str, fn: Callable, tensor_args: Sequence[Any],
 def _run_op_nodiff(name: str, fn: Callable, tensor_args: Sequence[Any],
                    **attrs):
     global op_count
-    op_count += 1
+    if not _tracing():
+        op_count += 1
     with torch.no_grad():
         out = fn(*_unwrap_all(tensor_args), **attrs)
     if get_flag("check_nan_inf"):
@@ -226,3 +222,8 @@ def surface(name: str, body: Callable, args: Sequence[Any], **attrs):
     if any(isinstance(a, Tensor) for a in args):
         return run_op(name, body, args, **attrs)
     return body(*args, **attrs)
+
+
+# at the bottom: ``amp`` imports this module. Bound at import, not on the
+# first op, so that an op traced by ``jit.to_static`` imports nothing
+from ..amp.auto_cast import _amp_state, autocast_inputs  # noqa: E402

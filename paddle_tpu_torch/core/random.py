@@ -32,6 +32,16 @@ def generator(device) -> torch.Generator:
     return gen
 
 
+def draw_generator(device):
+    """The generator an op on ``device`` draws from: the port's
+    (``generator``), or None (torch's default one) while ``jit.to_static``
+    traces the op. A traced graph cannot take a generator object: the
+    compiled graph draws from its backend's generator (Inductor's, seeded
+    from torch's default one), so compiled dropout draws other bits than
+    eager dropout, from the same distribution."""
+    return None if torch.compiler.is_compiling() else generator(device)
+
+
 def numpy_generator() -> np.random.Generator:
     """The port's numpy generator for host-side draws (the graph
     samplers), made from the seed once and remade by ``seed``."""

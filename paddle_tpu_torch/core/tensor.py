@@ -72,6 +72,15 @@ def _coerce(data, dt: Optional[DType], device) -> torch.Tensor:
         t = data._data.detach()
     elif isinstance(data, torch.Tensor):
         t = data.detach()
+    elif isinstance(data, (bool, int, float)) and \
+            torch.compiler.is_compiling():
+        # a Python scalar under ``jit.to_static``: Dynamo cannot trace the
+        # numpy path; torch.tensor gives numpy's dtype (bool, int64 or
+        # float64, the last cast below)
+        t = torch.tensor(data, dtype=torch.float64
+                         if isinstance(data, float) else None)
+        if dt is None and isinstance(data, float):
+            t = t.to(dtype_mod.default_float_dtype().torch_dtype)
     else:
         a = np.asarray(data)
         t = _from_numpy(a)

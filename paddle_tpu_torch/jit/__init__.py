@@ -1,17 +1,20 @@
-"""paddle.jit of the port (counterpart of ``paddle_tpu/jit``): the
-whole-step ``TrainStep``, ``InputSpec``, the Layer functionalization
-(``functional_call``, ``get_params``, ``get_buffers``) and ``save`` /
-``load`` through ``torch.export``. ``to_static`` comes with the port of
-``static``."""
+"""paddle.jit of the port (counterpart of ``paddle_tpu/jit``):
+``to_static`` (``StaticFunction``: Dynamo + Inductor, one compiled entry
+an input signature), the whole-step ``TrainStep``, ``InputSpec``, the
+Layer functionalization (``functional_call``, ``get_params``,
+``get_buffers``) and ``save`` / ``load`` through ``torch.export``."""
 import logging
 
-from .api import InputSpec, TrainStep, compile_train_step
+from .api import (InputSpec, StaticFunction, TrainStep, compile_train_step,
+                  enable_to_static, not_to_static, to_static)
 from .functional import functional_call, get_buffers, get_params
 from .serialization import TranslatedLayer, load, save
 
-__all__ = ["InputSpec", "TrainStep", "TranslatedLayer", "compile_train_step",
-           "functional_call", "get_buffers", "get_params", "ignore_module",
-           "load", "save", "set_code_level", "set_verbosity"]
+__all__ = ["InputSpec", "StaticFunction", "TrainStep", "TranslatedLayer",
+           "compile_train_step", "enable_to_static", "functional_call",
+           "get_buffers", "get_params", "ignore_module", "load",
+           "not_to_static", "save", "set_code_level", "set_verbosity",
+           "to_static"]
 
 _ignored_modules: list = []
 

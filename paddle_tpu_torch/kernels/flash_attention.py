@@ -27,12 +27,16 @@
 - ``flash_attention_arrays`` / ``flash_attention``: the validated,
   differentiable entry (counterparts of :871 and :943). With a gradient
   to take it runs ``_FlashAttnFn`` (the ``_flash_pallas`` custom_vjp,
-  :700); under ``torch.no_grad()`` only the forward, with no lse —
-  through the custom op ``torch.ops.paddle_tpu_torch.flash_fwd``
-  (``flash_fwd_op``) while torch traces the call (``torch.export``, as
-  ``jit.save`` exports, or ``torch.compile``): the C entry launches on
-  ``data_ptr()`` through ctypes, which a fake tensor cannot give, so the
-  traced graph holds the op and runs ``flash_fwd`` itself when it runs.
+  :700); under ``torch.no_grad()`` only the forward, with no lse. While
+  torch traces the call (``torch.export``, as ``jit.save`` exports, or
+  ``torch.compile``, as ``jit.to_static`` compiles) the C entries cannot
+  run: they launch on ``data_ptr()`` through ctypes, which a fake tensor
+  cannot give. So the traced graph holds custom ops that launch the
+  kernels when it runs: ``paddle_tpu_torch::flash_fwd_lse``
+  (``flash_fwd_lse_op``, with a gradient; its autograd, registered with
+  ``register_autograd``, puts ``paddle_tpu_torch::flash_bwd``,
+  ``flash_bwd_op``, in the backward graph) and
+  ``paddle_tpu_torch::flash_fwd`` (``flash_fwd_op``, without one).
 
 Semantics shared by every version: causal masking is bottom-right
 aligned (query i sees keys j <= i + sk - sq); GQA by index (query head h
@@ -550,6 +554,62 @@ def _flash_fwd_fake(q, k, v, se, causal, scale, window):
     return q.new_empty(q.shape)
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd_lse", mutates_args=())
+def flash_fwd_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     se: Optional[torch.Tensor], causal: bool, scale: float,
+                     window: Optional[int]
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_fwd(..., want_lse=True)`` as an op a traced graph can hold,
+    differentiable (its backward is ``flash_bwd_op``): on a CUDA tensor
+    the kernel launch, counted as ``flash_fwd`` counts it; on a CPU tensor
+    the plain version (made contiguous, as the fake says)."""
+    out, lse = flash_fwd(q, k, v, causal, scale, window, se, want_lse=True)
+    return (out if q.device.type == "cuda" else out.contiguous()), lse
+
+
+@flash_fwd_lse_op.register_fake
+def _flash_fwd_lse_fake(q, k, v, se, causal, scale, window):
+    b, sq, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, sq), dtype=torch.float32)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_bwd", mutates_args=())
+def flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                 se: Optional[torch.Tensor], causal: bool, scale: float,
+                 window: Optional[int]
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``flash_bwd`` as an op a traced graph can hold: on a CUDA tensor
+    the dQ and dK/dV launches, counted as ``flash_bwd`` counts them; on a
+    CPU tensor the plain backward (made contiguous, as the fake says)."""
+    grads = flash_bwd(q, k, v, o, lse, do, causal, scale, window, se)
+    if q.device.type == "cuda":
+        return grads
+    return tuple(g.contiguous() for g in grads)
+
+
+@flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, o, lse, do, se, causal, scale, window):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _fwd_lse_setup(ctx, inputs, output):
+    q, k, v, se, causal, scale, window = inputs
+    ctx.save_for_backward(q, k, v, output[0], output[1], se)
+    ctx.causal, ctx.scale, ctx.window = causal, scale, window
+
+
+def _fwd_lse_backward(ctx, do, _dlse):
+    q, k, v, out, lse, se = ctx.saved_tensors
+    dq, dk, dv = flash_bwd_op(q, k, v, out, lse, do, se, ctx.causal,
+                              ctx.scale, ctx.window)
+    return dq, dk, dv, None, None, None, None
+
+
+flash_fwd_lse_op.register_autograd(_fwd_lse_backward,
+                                   setup_context=_fwd_lse_setup)
+
+
 class _FlashAttnFn(torch.autograd.Function):
     """Differentiable flash attention (the ``_flash_pallas`` custom_vjp,
     :700-740): the forward writes the logsumexp and saves q, k, v, out,
@@ -614,10 +674,17 @@ def flash_attention_arrays(q, k, v, causal=False, scale=None,
         se = _normalize_startend(
             torch.as_tensor(startend_row_indices, device=q.device),
             q.shape[1], k.shape[1], causal)
+    traced = _traced(q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if traced:
+            return flash_fwd_lse_op(q, k, v, se, causal, s, window)[0]
+        # eagerly the autograd.Function: the same launches and counts.
+        # Through the custom op, phase 19's host-bound eager BERT-base
+        # step ran slower (profile_eager in turns on an H100: medians
+        # 80.7 ms a step with this Function, 112.4 ms with the op)
         return _FlashAttnFn.apply(q, k, v, se, causal, s, window)
-    if _traced(q):
+    if traced:
         return flash_fwd_op(q, k, v, se, causal, s, window)
     return flash_fwd(q, k, v, causal, s, window, se)
 

@@ -43,6 +43,13 @@ What the port builds or captures at run time (``profiler/stats.py``'s
 ``cuda.graph_capture_secs`` (the Engine's multi-tick CUDA graphs);
 ``dispatch.ops`` counts the ops a ``Profiler`` window recorded.
 
+Under ``jit.to_static`` (a Dynamo trace) a counter's write is skipped:
+a compiled graph runs no Python, so a count bumped by traced code would
+count the trace, not the calls, and the tracer cannot enter the
+registry's lock. The kernel counters above are bumped inside the flash
+custom ops, which run at every call of a compiled graph; the ``sdpa``
+route counters (bumped by traced Python) count eager calls only.
+
 The registry is always live; ``PADDLE_TPU_MONITOR=1`` (or ``enable()``)
 gates only emission: hapi's per-epoch ``TelemetryLogger`` line.
 """
@@ -52,6 +59,8 @@ import math
 import os
 import threading
 from typing import Dict, Optional
+
+from torch.compiler import is_compiling as _tracing
 
 _lock = threading.Lock()
 _counters: Dict[str, "Counter"] = {}
@@ -70,6 +79,8 @@ class Counter:
         self._value = 0
 
     def increase(self, n: int = 1) -> int:
+        if _tracing():
+            return self._value
         with _lock:
             self._value += n
             return self._value
@@ -230,6 +241,8 @@ def counter(name: str) -> Counter:
     """Get-or-create the named counter."""
     c = _counters.get(name)
     if c is None:
+        if _tracing():
+            return Counter(name)       # unregistered: its writes are skipped
         with _lock:
             c = _counters.setdefault(name, Counter(name))
     return c

@@ -73,7 +73,7 @@ def rrelu(x, lower=0.125, upper=0.3333333333333333, training=True,
 
     def fn(a):
         slope = torch.empty_like(a).uniform_(
-            lower, upper, generator=random_mod.generator(a.device))
+            lower, upper, generator=random_mod.draw_generator(a.device))
         return torch.where(a >= 0, a, slope * a)
     return surface("rrelu", fn, [x])
 
@@ -145,7 +145,7 @@ def log_softmax(x, axis=-1, dtype=None, name=None):
 def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None):
     def fn(a):
         u = torch.empty_like(a).uniform_(
-            1e-10, 1.0, generator=random_mod.generator(a.device))
+            1e-10, 1.0, generator=random_mod.draw_generator(a.device))
         y = torch.softmax((a - torch.log(-torch.log(u))) / temperature,
                           dim=axis)
         if not hard:

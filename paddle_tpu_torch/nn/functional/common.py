@@ -71,7 +71,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         return surface("dropout", torch.zeros_like, [x])
     a = unwrap(x)
     if generator is None and isinstance(x, Tensor):
-        generator = random_mod.generator(a.device)
+        generator = random_mod.draw_generator(a.device)
     keep = _keep_mask(a.shape, p, axis, a.device, generator)
 
     def fn(v):
@@ -100,7 +100,7 @@ def alpha_dropout(x, p=0.5, training=True, name=None):
         return x
     a = unwrap(x)
     keep = _keep_mask(a.shape, p, None, a.device,
-                      random_mod.generator(a.device))
+                      random_mod.draw_generator(a.device))
     a_coef = ((1 - p) * (1 + p * _SELU_ALPHA_P ** 2)) ** -0.5
     b_coef = -a_coef * p * _SELU_ALPHA_P
     return surface("alpha_dropout", lambda v: (a_coef * torch.where(
@@ -114,7 +114,7 @@ def feature_alpha_dropout(x, p=0.5, training=True, name=None):
         return x
     a = unwrap(x)
     keep = _keep_mask(a.shape, p, [0, 1], a.device,
-                      random_mod.generator(a.device))
+                      random_mod.draw_generator(a.device))
     A = (1 - p + p * _SELU_ALPHA_P ** 2 * (1 - p)) ** -0.5
     B = -A * p * _SELU_ALPHA_P
     return surface("feature_alpha_dropout", lambda v: A * torch.where(

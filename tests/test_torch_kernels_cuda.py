@@ -13,7 +13,9 @@ and a tiny BERT-CRF, the ``fft`` transforms, ``stft`` / ``istft`` and
 the audio features, message passing, segment pooling and a GCN layer on
 both aggregation routes, the sparse convolution, batch norm and pooling,
 the distributions' densities, entropies and KLs with their gradients,
-and samples drawn on the card.
+and samples drawn on the card. The last two hold the flash custom ops of
+``jit.to_static``'s graphs to the plain versions, and a compiled masked
+attention layer to the wgmma route and to its eager gradients.
 Tolerances: 1e-4 relative to the output's scale for f32, 1e-2 for half
 precision outputs (the kernels accumulate in f32; the plain versions sum
 in another order).
@@ -2308,5 +2310,97 @@ def test_distribution_samples_on_card(dev):
             paddle.seed(21)
             assert np.array_equal(dist.sample([65536]).numpy(), s)
             assert abs(s.mean() - mean) <= 4 * np.sqrt(var / len(s))
+    finally:
+        place_mod._current_place = prev
+
+
+# -- jit.to_static: the flash custom ops and a compiled surface attention ----
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 128)])
+def test_flash_lse_and_bwd_custom_ops_on_the_card(dev, dtype, d):
+    """``paddle_tpu_torch::flash_fwd_lse`` and ``::flash_bwd`` (what a
+    compiled graph holds) on the card: the same launches as ``flash_fwd``
+    / ``flash_bwd``, counted once each, and the plain versions' values
+    within 1e-4 (f32) / 1e-2 (bf16) of their scale, under key bands."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    q, k, v, do = (torch.randn(2, 128, 4, d, generator=g, device=dev)
+                   .to(dtype) for _ in range(4))
+    keep = torch.arange(128, device=dev)[None] < torch.tensor(
+        [128, 77], device=dev)[:, None]
+    se = fa._normalize_startend(
+        torch.where(keep, 128, 0).to(torch.int32)[:, None, :, None],
+        128, 128, False)
+    s = d ** -0.5
+    n_fwd, n_dq = fa.flash_fwd.launches, fa.flash_bwd.launches_dq
+    out, lse = torch.ops.paddle_tpu_torch.flash_fwd_lse(q, k, v, se, False,
+                                                       s, None)
+    dq, dk, dv = torch.ops.paddle_tpu_torch.flash_bwd(q, k, v, out, lse, do,
+                                                      se, False, s, None)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches == n_fwd + 1
+    assert fa.flash_bwd.launches_dq == n_dq + 1
+    def t(x):                   # the plain versions in f32, as above
+        return x.transpose(1, 2).float()
+    want, want_lse = fa.flash_plain(t(q), t(k), t(v), False, s, None, se,
+                                    return_lse=True)
+    rtol = 1e-4 if dtype == torch.float32 else 1e-2
+    _close(out, want.transpose(1, 2), rtol)
+    _close(lse, want_lse, 1e-5)
+    grads = fa.flash_bwd_plain(t(q), t(k), t(v), t(out), lse, t(do), False,
+                               s, None, se)
+    for got, ref in zip((dq, dk, dv), grads):
+        _close(got, ref.transpose(1, 2), rtol)
+
+
+def test_to_static_masked_attention_on_the_wgmma_route(dev):
+    """A surface TransformerEncoderLayer under a key mask through
+    ``paddle.jit.to_static`` (Inductor) on the card, O1 bf16: each call's
+    forward and backward launch the wgmma forward, dQ and dK/dV once from
+    the compiled graphs, dispatch no surface op eagerly, and the loss
+    and gradients agree with the eager layer's (1e-2 of their scale)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import monitor, nn
+    from paddle_tpu_torch.core import dispatch
+    from paddle_tpu_torch.core import place as place_mod
+    prev = place_mod._current_place
+    paddle.set_device("gpu")
+    try:
+        paddle.seed(0)
+        layer = nn.TransformerEncoderLayer(256, 4, 512, dropout=0.0,
+                                           activation="gelu")
+        g = torch.Generator().manual_seed(2)
+        x = paddle.to_tensor(torch.randn(4, 128, 256, generator=g))
+        keep = paddle.to_tensor((torch.arange(128)[None] < torch.tensor(
+            [128, 100, 64, 77])[:, None])[:, None, None, :])
+        def loss_of(x, keep):
+            return layer(x, src_mask=keep).astype("float32").mean()
+        sloss = paddle.jit.to_static(loss_of)
+
+        def run(fn):
+            with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss = fn(x, keep)
+            loss.backward()
+            grads = {n: p.grad._data.float().clone()
+                     for n, p in layer.named_parameters()}
+            layer.clear_gradients()
+            return float(loss), grads
+        run(sloss)                                    # compiles
+        monitor.reset()
+        n0 = dispatch.op_count
+        loss_c, grads_c = run(sloss)
+        torch.cuda.synchronize()
+        snap = monitor.snapshot()
+        assert dispatch.op_count == n0
+        for k in ("fwd", "dq", "dkv"):
+            assert snap.get(f"kernels.flash.{k}_cuda_tc_wgmma") == 1, snap
+        assert not any(v for k, v in snap.items()
+                       if k.endswith("_plain") or ".sdpa." in k), snap
+        assert not sloss._eager_sigs and len(sloss._cache) == 1
+        loss_e, grads_e = run(loss_of)
+        assert abs(loss_c - loss_e) <= 1e-2 * max(1.0, abs(loss_e))
+        for n, ge in grads_e.items():
+            _close(grads_c[n], ge, 1e-2)
     finally:
         place_mod._current_place = prev
