@@ -3,6 +3,8 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py --dist-fault   # phase 28 (b)'s gates against a
+                                         # planted TP fault (alone)
 
 Every phase is fatal (any failure exits non-zero and prints no result):
 
@@ -505,7 +507,10 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    ``sparse.nn.BatchNorm`` and ``MaxPool3D`` card vs CPU within the f32
    gate;
 27. ``jit.to_static``, ``static`` and ``onnx`` (Inductor and Triton
-   caching under build/): (a) phase 19's model at 2 layers, f32, dropout
+   caching under build/; (b) and (c)'s graphs compiled into those
+   caches beforehand by ``chip_smoke.py --static-warm``, a process at
+   the lowest CPU priority started after the build, which phase 27
+   waits for; the caches' hits and misses printed): (a) phase 19's model at 2 layers, f32, dropout
    0, batch 4 through ``to_static`` on the card against the same weights
    eagerly on the CPU, loss and every gradient within the f32 gate, the
    call compiled (a graph, no break, no eager pin or fallback warning,
@@ -532,7 +537,29 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    ``BertEncoderLayer``s at BERT-base widths from the card's weights,
    parsed back and run on the host by ``run_onnx`` at batch 2,
    within the f32 gate of the card's forward; negative control: one
-   ``wq`` element moved by 1 must fail it.
+   ``wq`` element moved by 1 must fail it;
+28. collective training (``paddle_tpu_torch.distributed``): (a) one
+   rank, ``init_parallel_env()`` picking NCCL: every collective on a
+   [4096, 4096] bf16 tensor equal to it (a world of one), nothing
+   staged; phase 9's configuration through ``fleet.init`` ->
+   ``distributed_model`` -> ``distributed_optimizer`` ->
+   ``DistributedTrainStep`` for 6 steps, the losses bit-equal to a plain
+   ``TrainStep``'s from the same seed, 24 wgmma forward, dQ and dK/dV and
+   6 fused Adam launches; (b) two ranks sharing the card under gloo,
+   started by the port's launcher (``chip_smoke.py --dist-rank b``),
+   mp=2: LLaMA-7B widths x 1 layer in f32 at 2 x 256, the loss, the
+   gathered logits and every gathered gradient within closeness's f32
+   gate of rank 0's own mp=1 model from the same seed, a send / recv,
+   batched isend / irecv and broadcast of CUDA tensors, then phase 9's
+   configuration for 6 bf16 steps, each loss within rtol 2^-7 of (a)'s
+   (below 2^-7 of the first loss, within 2^-14 of the first loss), each
+   rank launching 24 wgmma forward, dQ and dK/dV and 6 fused Adam, bytes
+   staged; (c) two ranks, dp=2, ZeRO-1, at 2 layers, 12 x 1024 split 6
+   a rank, 3 steps: losses within (b)'s gate of a one-rank
+   run on the whole batch, each rank's optimizer state at most 0.55 of its;
+   (d) the two ranks' o_proj shards swapped must fail (b)'s f32 gate.
+   Per run: the backend, ms a step (events), the staged bytes and host
+   ms of the collectives a step by op, peak GB, and the phase's seconds.
 
 It prints the card line, a {"kernels": [...]} line (the tensor-core
 forward, dQ and dK/dV as ``flash_fwd`` / ``flash_bwd_dq`` /
@@ -554,9 +581,9 @@ last line
 {"ok": true, "device":
 {...}}. Details land in
 chiprun_out/chip_smoke/ (result JSON, nvcc/ptxas logs, the replay
-runs' logs). About fourteen minutes of command time on an H100, the six
-kernel builds included; phase 27 about five of them, most of it
-Inductor's compiles.
+runs' logs). About fifteen minutes of command time on an H100, the six
+kernel builds included; phase 27's Inductor compiles (about five
+minutes) run in the warm-up process beside phases 3-26.
 """
 from __future__ import annotations
 
@@ -7094,6 +7121,21 @@ def static_cross_check(torch, paddle, ep):
     return rec
 
 
+def static_entries(paddle, ep, model):
+    """Phase 27's ``to_static`` entries on ``model``: (b)'s training loss,
+    (c)'s eager serving forward (the encoder's hidden states and the
+    logits) and that forward through ``to_static``. One definition, so
+    that the warm-up (``static_warm_main``) compiles the very graphs
+    phase 27 runs."""
+    train_loss = paddle.jit.to_static(
+        lambda ids, keep, labels: ep.loss_of(model, ids, keep, labels))
+
+    def forward(ids, keep):
+        h = model[1](model[0](ids), src_mask=keep)
+        return h, model[2](h[:, 0])
+    return train_loss, forward, paddle.jit.to_static(forward)
+
+
 def static_train_main_path(torch, paddle, ep, dispatch, launches_of,
                            reset_counts, card):
     """Phase 27 (b), the main path: phase 19's model at BERT-base widths and
@@ -7110,8 +7152,7 @@ def static_train_main_path(torch, paddle, ep, dispatch, launches_of,
     model = ep.build_model()
     opt = ep.make_optimizer(model)
     batch, lens = ep.fixed_batch()
-    train_loss = paddle.jit.to_static(
-        lambda ids, keep, labels: ep.loss_of(model, ids, keep, labels))
+    train_loss = static_entries(paddle, ep, model)[0]
 
     def eager_loss(ids, keep, labels):
         return ep.loss_of(model, ids, keep, labels)
@@ -7244,7 +7285,7 @@ def _rms(t):
     return float(t.float().square().mean().sqrt())
 
 
-def static_serving(torch, paddle, model, batch, dispatch, launches_of,
+def static_serving(torch, paddle, ep, model, batch, dispatch, launches_of,
                    reset_counts, card):
     """Phase 27 (c): the trained model in eval mode under ``no_grad``,
     its encoder's forward (the hidden states of every token) and the
@@ -7260,11 +7301,7 @@ def static_serving(torch, paddle, model, batch, dispatch, launches_of,
     model.eval()
     ids, keep = batch[0], batch[1]
     layers = len(model[1].layers)
-
-    def forward(ids, keep):
-        h = model[1](model[0](ids), src_mask=keep)
-        return h, model[2](h[:, 0])
-    serve = paddle.jit.to_static(forward)
+    _, forward, serve = static_entries(paddle, ep, model)
     out = {}
     ref32 = None
     for what in ("f32", "bf16"):
@@ -7554,8 +7591,92 @@ def onnx_export_check(torch, paddle, mods, card):
     return rec
 
 
+def static_warm_main(argv):
+    """``chip_smoke.py --static-warm OUT``: phase 27 (b)'s and (c)'s
+    ``to_static`` entries (``static_entries``) compiled once, at the
+    lowest CPU priority, beside the earlier phases, into the Inductor and
+    Triton caches under ``build/`` that ``main`` names before it starts
+    this process; phase 27 then loads those graphs from the caches in
+    its own first calls. At phase 27's model, batch and precisions: one
+    O1 bf16 training step (forward and backward), then one serving batch
+    in eval mode at f32 and under O1 bf16. Writes the seconds to OUT."""
+    import contextlib
+    os.nice(19)             # its compile workers inherit the priority
+    t0 = time.perf_counter()
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import profile_eager as ep
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    model = ep.build_model()
+    batch, _ = ep.fixed_batch()
+    train_loss, _, serve = static_entries(paddle, ep, model)
+    rec = {}
+    t = time.perf_counter()
+    with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss = train_loss(*batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    rec["train_s"] = time.perf_counter() - t
+    model.eval()
+    with paddle.no_grad():
+        for what in ("f32", "bf16"):
+            t = time.perf_counter()
+            with (paddle.amp.auto_cast(level="O1", dtype="bfloat16")
+                  if what == "bf16" else contextlib.nullcontext()):
+                serve(batch[0], batch[1])
+            torch.cuda.synchronize()
+            rec[f"serve_{what}_s"] = time.perf_counter() - t
+    rec["seconds"] = time.perf_counter() - t0
+    Path(argv[0]).write_text(json.dumps(rec))
+
+
+def start_static_warm():
+    """Start ``static_warm_main`` in a process of its own (its output in
+    OUT_DIR); stopped at exit if a phase fails before phase 27 waits."""
+    import atexit
+    log = open(OUT_DIR / "static_warm.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--static-warm",
+         str(OUT_DIR / "static_warm.json")], cwd=ROOT, stdout=log,
+        stderr=subprocess.STDOUT)
+    log.close()
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    return dict(proc=proc, t0=time.perf_counter())
+
+
+def finish_static_warm(warm):
+    """Wait for the warm-up; any exit but 0 fails phase 27. Returns its
+    seconds, and how long phase 27 waited for it."""
+    t0 = time.perf_counter()
+    rc = warm["proc"].wait(timeout=DIST_RANK_TIMEOUT)
+    waited = time.perf_counter() - t0
+    if rc != 0:
+        tail = (OUT_DIR / "static_warm.log").read_text()[-3000:]
+        fail(f"phase 27: the compile warm-up exited {rc}:\n{tail}")
+    rec = json.loads((OUT_DIR / "static_warm.json").read_text())
+    rec.update(waited_s=waited, ended_after_s=t0 - warm["t0"] + waited)
+    return rec
+
+
+def _cache_counts():
+    """Inductor's FX-graph and AOTAutograd cache hits and misses so far."""
+    from torch._dynamo.utils import counters
+    return {k: int(counters[g][k]) for g, k in (
+        ("inductor", "fxgraph_cache_hit"), ("inductor", "fxgraph_cache_miss"),
+        ("aot_autograd", "autograd_cache_hit"),
+        ("aot_autograd", "autograd_cache_miss"))}
+
+
 def to_static_main_path(torch, mods, launches_of, reset_counts, card,
-                        host_at_start):
+                        host_at_start, warm):
     """Phase 27: (a) ``to_static`` card vs CPU, (b) BERT-base trained
     through ``to_static`` (the main path), (c) served through it at f32
     and bf16, (d) ``static.nn`` control flow and the graph-break negative
@@ -7563,6 +7684,8 @@ def to_static_main_path(torch, mods, launches_of, reset_counts, card,
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch import profile_eager as ep
     from paddle_tpu_torch.core import dispatch
+    t0 = time.perf_counter()
+    warm = finish_static_warm(warm)
     host = host_probes(torch)
     print(f"phase 27 host, after the build -> now: python loop "
           f"{host_at_start['python_loop_ms']:.2f} -> "
@@ -7573,13 +7696,24 @@ def to_static_main_path(torch, mods, launches_of, reset_counts, card,
           f"{host_at_start['os_threads']} -> {host['os_threads']}, "
           f"children {host_at_start['children']} -> {host['children']}; "
           f"Python threads now {host['threads']}", flush=True)
-    t0 = time.perf_counter()
     out = dict(host_at_start=host_at_start, host=host,
                cross_check=static_cross_check(torch, paddle, ep))
+    cache0 = _cache_counts()
     model, batch, out["training"] = static_train_main_path(
         torch, paddle, ep, dispatch, launches_of, reset_counts, card)
-    out["serving"] = static_serving(torch, paddle, model, batch, dispatch,
-                                    launches_of, reset_counts, card)
+    out["serving"] = static_serving(torch, paddle, ep, model, batch,
+                                    dispatch, launches_of, reset_counts, card)
+    cache = {k: v - cache0[k] for k, v in _cache_counts().items()}
+    out["warm_up"] = dict(warm, cache=cache)
+    print(f"phase 27 warm-up: (b) and (c) compiled beside the earlier "
+          f"phases in {warm['seconds']:.1f} s (training step "
+          f"{warm['train_s']:.1f} s, serving f32 {warm['serve_f32_s']:.1f} "
+          f"s, bf16 {warm['serve_bf16_s']:.1f} s), ended "
+          f"{warm['ended_after_s']:.1f} s after its start, phase 27 waited "
+          f"{warm['waited_s']:.1f} s; (b) and (c)'s caches: FX graph "
+          f"{cache['fxgraph_cache_hit']} hits / {cache['fxgraph_cache_miss']} "
+          f"misses, AOTAutograd {cache['autograd_cache_hit']} / "
+          f"{cache['autograd_cache_miss']}", flush=True)
     del model, batch
     torch.cuda.empty_cache()
     out["control_flow"] = static_control_flow(torch, paddle, card)
@@ -8661,6 +8795,541 @@ def one_shot_decoding(torch, mods, model, engine_ticks, launches_of,
     return res, paths
 
 
+# -- phase 28: collective training (process groups, collectives, fleet) ----
+
+#: (b)'s f32 check: LLaMA-7B widths x 1 layer, f32, the fused loss, at
+#: batch DIST_F32_BATCH x DIST_F32_SEQ; (c): phase 9's widths at
+#: DIST_ZERO_LAYERS layers, DIST_ZERO_STEPS steps
+DIST_F32_BATCH, DIST_F32_SEQ = 2, 256
+DIST_ZERO_LAYERS, DIST_ZERO_STEPS = 2, 3
+#: (b) and (c)'s bf16 gate on each step's loss against the one-rank
+#: run's: |got - want| <= max(rtol |want|, floor). rtol 2^-7, bf16's eps
+#: (the mp ranks round their partial products to bf16 before the
+#: all-reduce, where one rank accumulates them in f32 and rounds once),
+#: holds every step whose loss is at least 2^-7 of the first step's (the
+#: first two of phase 9's batch); below that, the floor of 2^-14 of the
+#: first step's loss: the fixed batch drives the loss from ~11.2 to
+#: ~0.005 in 6 steps, where that rounding alone moves it by ~2e-4 (2.8e-2
+#: relative)
+DIST_BF16_RTOL = 2.0 ** -7
+DIST_BF16_FLOOR_OF_FIRST = 2.0 ** -14
+#: ZeRO-1's optimizer state a rank against the one-rank run's
+DIST_ZERO_STATE_SHARE = 0.55
+#: a rank process's time limit (its imports, builds loaded, the runs)
+DIST_RANK_TIMEOUT = 600
+
+
+def _loss_gate(got, want):
+    """The largest |got - want| over its allowance (pass: <= 1) of two
+    runs' per-step losses, and the largest relative difference."""
+    floor = DIST_BF16_FLOOR_OF_FIRST * abs(want[0])
+    ratio = max(abs(g - w) / max(DIST_BF16_RTOL * abs(w), floor)
+                for g, w in zip(got, want))
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    return ratio, rel
+
+
+def _dist_counts(torch, fa, fad, monitor):
+    """Zero the launch counts and the counters a run reads."""
+    fa.flash_fwd.launches = 0
+    fa.flash_bwd.launches_dq = fa.flash_bwd.launches_dkv = 0
+    fad.fused_adam_launch.launches = 0
+    monitor.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _dist_comm(counters, steps):
+    """Staged bytes, calls and host ms of the collectives a step, by op."""
+    out = {}
+    for k, v in counters.items():
+        for kind in ("staged_bytes", "calls", "host_us"):
+            pre = f"distributed.{kind}."
+            if k.startswith(pre) and v:
+                op = k[len(pre):]
+                val = v / steps
+                out.setdefault(op, {})[
+                    "host_ms" if kind == "host_us" else kind] = \
+                    val / 1e3 if kind == "host_us" else val
+    return out
+
+
+def _dist_train(torch, mods, model_cfg, stage, steps, distributed):
+    """``steps`` bf16 steps of phase 9's batch through fleet's
+    DistributedTrainStep (``distributed``) or a plain TrainStep; counts
+    read around the steps. The model is built from seed 0."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.parallel_step import \
+        DistributedTrainStep
+    cfg = mods.LlamaConfig(**model_cfg)
+    model = mods.LlamaForCausalLM(cfg, seed=0)
+    opt = mods.AdamW(3e-4, parameters=model.parameters(),
+                     moment_dtype="bfloat16")
+    if distributed:
+        step = DistributedTrainStep(
+            fleet.distributed_model(model), lambda out, lab: out,
+            fleet.distributed_optimizer(opt), amp_dtype="bfloat16",
+            sharding_stage=stage)
+        state_bytes = step.opt_state_bytes()
+    else:
+        step = mods.TrainStep(model, lambda out, lab: out, opt,
+                              amp_dtype="bfloat16")
+        state_bytes = sum(t.numel() * t.element_size()
+                          for s in step.opt_state.values()
+                          for t in s.values())
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ids, labels = (torch.randint(0, cfg.vocab_size,
+                                 (mods.train.BATCH, mods.train.SEQ),
+                                 generator=gen, device="cuda")
+                   for _ in range(2))
+    _dist_counts(torch, mods.fa, mods.fad, monitor)
+    losses, ms = [], []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = step((ids, labels), labels)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses.append(float(loss))
+    counters = dict(monitor.snapshot())
+    rec = dict(losses=losses, step_ms=ms,
+               ms_per_step=sorted(ms[1:])[len(ms[1:]) // 2] if steps > 1
+               else ms[0],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               opt_state_bytes=state_bytes,
+               params=sum(p.numel() for p in model.parameters()),
+               launches={"flash_fwd": mods.fa.flash_fwd.launches,
+                         "flash_bwd_dq": mods.fa.flash_bwd.launches_dq,
+                         "flash_bwd_dkv": mods.fa.flash_bwd.launches_dkv,
+                         "fused_adam": mods.fad.fused_adam_launch.launches},
+               counters={k: v for k, v in counters.items()
+                         if k.startswith("kernels.")},
+               comm=_dist_comm(counters, steps))
+    del step, opt, model, loss
+    free_cuda(torch)
+    return rec
+
+
+def _dist_f32_check(torch, mods, mp_group):
+    """(b)'s f32 gate and (d)'s negative control, on the mp=2 ranks: the
+    loss, the gathered logits and every gradient of LLaMA-7B widths x 1
+    layer against rank 0's own mp=1 model from the same seed; then the
+    two ranks' o_proj shards swapped, which must fail the gate."""
+    from paddle_tpu_torch import bridge
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.distributed.communication import collectives as C
+    cfg = mods.LlamaConfig(**{**mods.train.MODEL, "num_hidden_layers": 1})
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ids = torch.randint(0, cfg.vocab_size, (DIST_F32_BATCH, DIST_F32_SEQ),
+                        generator=gen, device="cuda")
+    model = mods.LlamaForCausalLM(cfg, seed=1)
+    loss = model(ids, labels=ids)
+    loss.backward()
+    with torch.no_grad():
+        logits = model(ids)
+    grads = {}
+    for name, p in model.named_parameters():
+        parts = C.all_gather(None, p.grad.contiguous(), group=mp_group)
+        if mp_group.rank == 0:
+            grads[name] = bridge.tp_merge(parts, "llama", name)
+    o = model.llama.layers[0].self_attn.o_proj.weight
+    with torch.no_grad():
+        shards = C.all_gather(None, o.detach().contiguous(), group=mp_group)
+        o.copy_(shards[1 - mp_group.rank])
+        swapped = (model(ids, labels=ids), model(ids))
+    rec = None
+    if mp_group.rank == 0:
+        saved = mesh_mod.get_mesh()
+        mesh_mod.set_mesh(None)
+        try:
+            ref = mods.LlamaForCausalLM(cfg, seed=1)
+        finally:
+            mesh_mod.set_mesh(saved)
+        want = ref(ids, labels=ids)
+        want.backward()
+        with torch.no_grad():
+            want_logits = ref(ids)
+        g = {n: closeness(grads[n], p.grad)
+             for n, p in ref.named_parameters()}
+        rec = dict(loss=closeness(loss.detach(), want.detach()),
+                   logits=closeness(logits, want_logits),
+                   grads_worst=max(g.values(), key=lambda c: c["ratio"]),
+                   grads_ratio=max(c["ratio"] for c in g.values()),
+                   n_grads=len(g), losses=(float(loss), float(want)))
+        neg = dict(loss=closeness(swapped[0].detach(), want.detach()),
+                   logits=closeness(swapped[1], want_logits))
+        rec["negative_control"] = dict(
+            ratio=max(c["ratio"] for c in neg.values()), **neg)
+        del ref, want, want_logits
+    del model, loss, logits, grads, swapped
+    free_cuda(torch)
+    return rec
+
+
+def _dist_p2p(torch, rank, world_group):
+    """A send / recv and a batched isend / irecv between the two ranks,
+    and a broadcast, on CUDA tensors (staged under gloo)."""
+    from paddle_tpu_torch import distributed as dist
+    peer = 1 - rank
+    got = torch.zeros(1 << 20, device="cuda")
+    mine = torch.full((1 << 20,), float(rank + 1), device="cuda")
+    if rank == 0:
+        dist.send(mine, dst=peer)
+        dist.recv(got, src=peer)
+    else:
+        dist.recv(got, src=peer)
+        dist.send(mine, dst=peer)
+    ok = bool((got == peer + 1).all())
+    got.zero_()
+    for t in dist.batch_isend_irecv([dist.P2POp(dist.isend, mine, peer),
+                                     dist.P2POp(dist.irecv, got, peer)]):
+        t.wait()
+    ok = ok and bool((got == peer + 1).all())
+    b = mine.clone()
+    dist.broadcast(b, src=1)
+    return ok and bool((b == 2).all())
+
+
+def dist_rank_main(argv):
+    """Phase 28's rank, started by the port's launcher: ``b`` (mp=2: the
+    f32 check, the negative control, P2P, then phase 9's bf16 training
+    for TRAIN_STEPS steps) or ``c`` (dp=2, ZeRO-1: DIST_ZERO_LAYERS
+    layers, DIST_ZERO_STEPS steps). Writes ``rank<r>.json`` to --out."""
+    import argparse
+    p = argparse.ArgumentParser(prog="chip_smoke.py --dist-rank")
+    p.add_argument("which", choices=("b", "c"))
+    p.add_argument("--out", required=True)
+    p.add_argument("--plant-fault", action="store_true",
+                   help="_c_identity's backward without its all-reduce "
+                        "(``--dist-fault``)")
+    args = p.parse_args(argv)
+    t0 = time.perf_counter()
+    import torch
+    if args.plant_fault:
+        from paddle_tpu_torch.distributed.fleet.layers.mpu import mp_ops
+        mp_ops._Identity.backward = staticmethod(lambda ctx, g: (g, None))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from types import SimpleNamespace
+
+    from paddle_tpu_torch import profile_training as train
+    from paddle_tpu_torch.distributed import env, fleet
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_adam as fad
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+    mods = SimpleNamespace(train=train, LlamaConfig=LlamaConfig,
+                           LlamaForCausalLM=LlamaForCausalLM, AdamW=AdamW,
+                           TrainStep=TrainStep, fa=fa, fad=fad)
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"mp_degree": 2} if args.which == "b" \
+        else {"dp_degree": 2}
+    fleet.init(is_collective=True, strategy=s)
+    hcg = fleet.get_hybrid_communicate_group()
+    rank = env.get_rank()
+    rec = dict(rank=rank, backend=env.backend(), device=str(env.device()),
+               world=env.get_world_size(),
+               mp=hcg.get_model_parallel_world_size(),
+               dp=hcg.get_data_parallel_world_size())
+    if args.which == "b":
+        rec["f32"] = _dist_f32_check(torch, mods,
+                                     hcg.get_model_parallel_group())
+        rec["p2p_ok"] = _dist_p2p(torch, rank, None)
+        rec["run"] = _dist_train(torch, mods, train.MODEL, 0, TRAIN_STEPS,
+                                 True)
+    else:
+        rec["run"] = _dist_train(
+            torch, mods, {**train.MODEL,
+                          "num_hidden_layers": DIST_ZERO_LAYERS},
+            1, DIST_ZERO_STEPS, True)
+    rec["seconds"] = time.perf_counter() - t0
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"rank{rank}.json").write_text(json.dumps(rec))
+    # leave the world together (a process group alive at exit can abort)
+    from paddle_tpu_torch import distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _dist_launch(which, timeout=DIST_RANK_TIMEOUT, fault=False):
+    """Two ranks of ``chip_smoke.py --dist-rank which`` through the port's
+    launcher (subprocesses sharing the card); any exit but 0 fails."""
+    out = OUT_DIR / f"dist_{which}{'_fault' if fault else ''}"
+    for f in out.glob("rank*.json"):
+        f.unlink()
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", "2", "--log_dir", str(out),
+           str(ROOT / "chip_smoke.py"), "--dist-rank", which, "--out",
+           str(out)] + (["--plant-fault"] if fault else [])
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=timeout)
+    secs = time.perf_counter() - t0
+    if run.returncode != 0:
+        logs = "".join(f"--- {p.name}\n{p.read_text()[-3000:]}"
+                       for p in sorted(out.glob("workerlog.*")))
+        fail(f"phase 28 ({which}): the launcher exited {run.returncode}: "
+             f"{run.stdout[-1000:]}{run.stderr[-1000:]}\n{logs}")
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(2)]
+    return dict(ranks=ranks, process_s=secs)
+
+
+def dist_fault_main():
+    """``chip_smoke.py --dist-fault``: phase 28 (b)'s gates against a
+    planted tensor-parallel fault, ``_c_identity``'s backward without its
+    all-reduce on both ranks (each keeps its own part of the gradient of
+    the column-parallel layers' input). Builds the kernels, runs phase
+    9's configuration on one rank for TRAIN_STEPS bf16 steps, then the
+    faulted mp=2 ranks; prints the f32 gate's and each step's bf16 loss
+    gate ratios. Exits 0 only when both gates fail the faulted run."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device is visible")
+    from types import SimpleNamespace
+
+    from paddle_tpu_torch import profile_training as train
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import _build as build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_adam as fad
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    build.build()
+    for name in build.SOURCES:
+        build.load(name)
+    mods = SimpleNamespace(train=train, LlamaConfig=LlamaConfig,
+                           LlamaForCausalLM=LlamaForCausalLM, AdamW=AdamW,
+                           TrainStep=TrainStep, fa=fa, fad=fad)
+    want = _dist_train(torch, mods, train.MODEL, 0, TRAIN_STEPS, False)
+    ranks = _dist_launch("b", fault=True)["ranks"]
+    f32 = ranks[0]["f32"]
+    f32_ratio = max(f32["loss"]["ratio"], f32["logits"]["ratio"],
+                    f32["grads_ratio"])
+    floor = DIST_BF16_FLOOR_OF_FIRST * abs(want["losses"][0])
+    for r in ranks:
+        got = r["run"]["losses"]
+        per = [abs(g - w) / max(DIST_BF16_RTOL * abs(w), floor)
+               for g, w in zip(got, want["losses"])]
+        r["bf16_gate_ratio"] = _loss_gate(got, want["losses"])[0]
+        print(f"dist fault, rank {r['rank']}: losses "
+              f"{[round(x, 5) for x in got]} against one rank's "
+              f"{[round(x, 5) for x in want['losses']]}: bf16 gate ratio "
+              f"a step {[round(x, 3) for x in per]}", flush=True)
+    print(f"dist fault: f32 gate ratio {f32_ratio:.1f} (loss "
+          f"{f32['loss']['ratio']:.3f}, logits {f32['logits']['ratio']:.3f}, "
+          f"gradients {f32['grads_ratio']:.1f}) on {card}", flush=True)
+    if f32_ratio <= 1 or any(r["bf16_gate_ratio"] <= 1 for r in ranks):
+        fail("dist fault: a gate passed the planted fault")
+
+
+def _dist_collectives_nccl(torch, card):
+    """(a)'s collectives on a world of one under NCCL: every op of
+    ``communication`` on a [4096, 4096] bf16 tensor (P2P needs a peer:
+    the two-rank runs hold it), values checked, nothing staged."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import monitor
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    x = torch.randn(4096, 4096, generator=gen, device="cuda").bfloat16()
+    monitor.reset()
+    bad = []
+
+    def same(what, got):
+        if not torch.equal(got, x):
+            bad.append(what)
+
+    for op in ("SUM", "MAX", "MIN", "PROD", "AVG"):
+        t = x.clone()
+        dist.all_reduce(t, op=getattr(dist.ReduceOp, op))
+        same(f"all_reduce {op}", t)
+    t = x.clone()
+    dist.reduce(t, dst=0)
+    same("reduce", t)
+    got = []
+    dist.all_gather(got, x)
+    same("all_gather", got[0])
+    objs = []
+    dist.all_gather_object(objs, {"rank": 0})
+    if objs != [{"rank": 0}]:
+        bad.append("all_gather_object")
+    t = x.clone()
+    dist.broadcast(t, src=0)
+    same("broadcast", t)
+    t = torch.empty_like(x)
+    dist.scatter(t, [x], src=0)
+    same("scatter", t)
+    t = torch.empty_like(x)
+    dist.reduce_scatter(t, [x])
+    same("reduce_scatter", t)
+    got = []
+    dist.alltoall(got, [x])
+    same("alltoall", got[0])
+    t = torch.empty_like(x)
+    dist.alltoall_single(t, x)
+    same("alltoall_single", t)
+    dist.barrier()
+    torch.cuda.synchronize()
+    counters = dict(monitor.snapshot())
+    staged = dist.communication.staged_bytes()
+    if bad or staged:
+        fail(f"phase 28 (a): collectives on a world of one under NCCL: "
+             f"wrong {bad}, staged bytes {staged}")
+    return _dist_comm(counters, 1)
+
+
+def dist_main_path(torch, mods, launches_of, reset_counts, card):
+    """Phase 28: collective training. (a) one rank under NCCL: the
+    collectives, then phase 9's configuration through fleet.init ->
+    distributed_model -> distributed_optimizer -> DistributedTrainStep
+    for TRAIN_STEPS steps, the losses bit-equal to a plain TrainStep's
+    from the same seed; (b) two ranks sharing the card under gloo (the
+    port's launcher), mp=2: the f32 gate against rank 0's mp=1 model and
+    (d) its negative control, then phase 9's bf16 training, each step's
+    loss within ``_loss_gate`` of (a)'s; (c) two ranks, dp=2, ZeRO-1 at
+    DIST_ZERO_LAYERS layers against a one-rank run of that model on the
+    whole batch (losses, and at most DIST_ZERO_STATE_SHARE of its
+    optimizer state a rank)."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import env, fleet
+    t_phase = time.perf_counter()
+    free_cuda(torch)
+    # (a)
+    dist.init_parallel_env()
+    backend = env.backend()
+    if backend != "nccl":
+        fail(f"phase 28 (a): one rank on one card picked {backend}, not nccl")
+    comm_a = _dist_collectives_nccl(torch, card)
+    fleet.init(is_collective=True)
+    plain = _dist_train(torch, mods, mods.train.MODEL, 0, TRAIN_STEPS, False)
+    reset_counts()
+    a = _dist_train(torch, mods, mods.train.MODEL, 0, TRAIN_STEPS, True)
+    a_launches = launches_of()
+    want = mods.train.MODEL["num_hidden_layers"] * TRAIN_STEPS
+    if a["losses"] != plain["losses"]:
+        fail(f"phase 28 (a): DistributedTrainStep losses {a['losses']} are "
+             f"not bit-equal to TrainStep's {plain['losses']}")
+    if a["comm"].get("all_reduce", {}).get("staged_bytes") or any(
+            c.get("staged_bytes") for c in a["comm"].values()):
+        fail(f"phase 28 (a): bytes staged under NCCL: {a['comm']}")
+    if {a["launches"][k] for k in ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv")} != {want} \
+            or a["launches"]["fused_adam"] != TRAIN_STEPS:
+        fail(f"phase 28 (a): launches {a['launches']}")
+    a["routes"] = check_tc_routes(a["counters"], want, "phase 28 (a)")
+    check_adam_routes(a["counters"], TRAIN_STEPS, "phase 28 (a)")
+    a["collectives"] = comm_a
+    a["backend"] = backend
+    dist.destroy_process_group()
+    fleet._reset()
+    free_cuda(torch)
+    # (b) and (d)
+    b = _dist_launch("b")
+    r0 = b["ranks"][0]
+    f32 = r0["f32"]
+    ratio = max(f32["loss"]["ratio"], f32["logits"]["ratio"],
+                f32["grads_ratio"])
+    if ratio > 1:
+        fail(f"phase 28 (b): mp=2 f32 against mp=1 outside closeness's f32 "
+             f"gate (ratio {ratio:.3f}): {f32}")
+    if f32["negative_control"]["ratio"] <= 1:
+        fail(f"phase 28 (d): swapped o_proj shards pass the f32 gate: "
+             f"{f32['negative_control']}")
+    for r in b["ranks"]:
+        run = r["run"]
+        if r["backend"] != "gloo" or r["mp"] != 2 or not r["p2p_ok"]:
+            fail(f"phase 28 (b): rank {r['rank']}: backend {r['backend']}, "
+                 f"mp {r['mp']}, p2p {r['p2p_ok']}")
+        ratio_b, rel = _loss_gate(run["losses"], a["losses"])
+        if ratio_b > 1:
+            fail(f"phase 28 (b): rank {r['rank']} losses {run['losses']} vs "
+                 f"(a) {a['losses']}: gate ratio {ratio_b:.3f} (relative "
+                 f"{rel:.2e})")
+        run["loss_gate_ratio"], run["loss_rel_to_a"] = ratio_b, rel
+        if {run["launches"][k] for k in ("flash_fwd", "flash_bwd_dq",
+                                         "flash_bwd_dkv")} != {want} \
+                or run["launches"]["fused_adam"] != TRAIN_STEPS:
+            fail(f"phase 28 (b): rank {r['rank']} launches {run['launches']}")
+        run["routes"] = check_tc_routes(run["counters"], want,
+                                        f"phase 28 (b) rank {r['rank']}")
+        if not run["comm"].get("all_reduce", {}).get("staged_bytes"):
+            fail(f"phase 28 (b): nothing staged under gloo: {run['comm']}")
+    # (c)
+    zero_cfg = {**mods.train.MODEL, "num_hidden_layers": DIST_ZERO_LAYERS}
+    c_ref = _dist_train(torch, mods, zero_cfg, 0, DIST_ZERO_STEPS, False)
+    c = _dist_launch("c")
+    want_c = DIST_ZERO_LAYERS * DIST_ZERO_STEPS
+    for r in c["ranks"]:
+        run = r["run"]
+        ratio_c, rel = _loss_gate(run["losses"], c_ref["losses"])
+        run["loss_gate_ratio"], run["loss_rel_to_one_rank"] = ratio_c, rel
+        run["state_share"] = run["opt_state_bytes"] / c_ref["opt_state_bytes"]
+        if r["dp"] != 2 or ratio_c > 1 \
+                or run["state_share"] > DIST_ZERO_STATE_SHARE:
+            fail(f"phase 28 (c): rank {r['rank']}: dp {r['dp']}, losses "
+                 f"{run['losses']} vs one rank {c_ref['losses']} (gate "
+                 f"ratio {ratio_c:.3f}, relative {rel:.2e}), optimizer state "
+                 f"share {run['state_share']:.3f}")
+        if {run["launches"][k] for k in ("flash_fwd", "flash_bwd_dq",
+                                         "flash_bwd_dkv")} != {want_c} \
+                or run["launches"]["fused_adam"] != DIST_ZERO_STEPS:
+            fail(f"phase 28 (c): rank {r['rank']} launches {run['launches']}")
+        run["routes"] = check_tc_routes(run["counters"], want_c,
+                                        f"phase 28 (c) rank {r['rank']}")
+    secs = time.perf_counter() - t_phase
+    rec = dict(a=a, a_plain=plain, a_launches=a_launches, b=b, c=c,
+               c_one_rank=c_ref, seconds=secs, card=card)
+
+    def comm_line(comm):
+        return ", ".join(f"{op} {v.get('staged_bytes', 0) / 1e6:.1f} MB "
+                         f"staged, {v.get('host_ms', 0):.1f} host ms"
+                         for op, v in sorted(comm.items()))
+    print(f"phase 28 (a): backend nccl, 1 rank; collectives on [4096, 4096] "
+          f"bf16 equal, 0 bytes staged; DistributedTrainStep losses "
+          f"{[round(x, 4) for x in a['losses']]} bit-equal to TrainStep's; "
+          f"{a['ms_per_step']:.1f} ms a step (events; TrainStep "
+          f"{plain['ms_per_step']:.1f}), peak {a['peak_gb']:.1f} GB; "
+          f"collectives a step: {comm_line(a['comm']) or 'none'} on {card}",
+          flush=True)
+    print(f"phase 28 (b): backend gloo, 2 ranks on one card, mp=2; f32 "
+          f"gate ratio {ratio:.3f} (loss {f32['loss']['ratio']:.3f}, "
+          f"logits {f32['logits']['ratio']:.3f}, {f32['n_grads']} "
+          f"gradients {f32['grads_ratio']:.3f}); (d) swapped o_proj ratio "
+          f"{f32['negative_control']['ratio']:.1f} (caught) on {card}",
+          flush=True)
+    for name, run_set in (("b", b), ("c", c)):
+        for r in run_set["ranks"]:
+            run = r["run"]
+            rel = run.get("loss_rel_to_a", run.get("loss_rel_to_one_rank"))
+            print(f"phase 28 ({name}) rank {r['rank']}: backend "
+                  f"{r['backend']}, losses "
+                  f"{[round(x, 4) for x in run['losses']]} (gate ratio "
+                  f"{run['loss_gate_ratio']:.3f}, relative {rel:.2e}), "
+                  f"{run['ms_per_step']:.1f} ms a step (events), peak "
+                  f"{run['peak_gb']:.1f} GB, optimizer state "
+                  f"{run['opt_state_bytes'] / 1e9:.3f} GB, launches "
+                  f"{run['launches']}; collectives a step: "
+                  f"{comm_line(run['comm'])}; {r['seconds']:.1f} s in the "
+                  f"rank on {card}", flush=True)
+    print(f"phase 28 (c): one rank on the whole batch: losses "
+          f"{[round(x, 4) for x in c_ref['losses']]}, "
+          f"{c_ref['ms_per_step']:.1f} ms a step, optimizer state "
+          f"{c_ref['opt_state_bytes'] / 1e9:.3f} GB; phase 28 "
+          f"{secs:.1f} s ((b) {b['process_s']:.1f} s, (c) "
+          f"{c['process_s']:.1f} s of launcher time) on {card}", flush=True)
+    return rec
+
+
 # -- phases 4 and 5: the main path -----------------------------------------
 
 def make_requests(SamplingParams, vocab_size):
@@ -8776,6 +9445,8 @@ def main():
     print(f"build: {sorted(build.SOURCES)} in {build_s:.1f} s, probes ok",
           flush=True)
     host_at_start = host_probes(torch)   # phase 27 compares its own
+    # phase 27's compiles, warmed beside phases 3-26 in a process of its own
+    warm = start_static_warm()
 
     def reset_counts():
         build.probe.launches = 0
@@ -9025,7 +9696,14 @@ def main():
     # served (counts around one batch each) through it, static.nn control
     # flow with the graph-break negative control, the ONNX export
     static = to_static_main_path(torch, mods, launches_of, reset_counts,
-                                 card, host_at_start)
+                                 card, host_at_start, warm)
+
+    # 28. collective training: one rank under NCCL through fleet and
+    # DistributedTrainStep (counts around its steps), two ranks sharing
+    # the card under gloo at mp=2 and at dp=2 with ZeRO-1 (each rank's
+    # counts around its steps), the f32 gate and its negative control
+    distributed = dist_main_path(torch, mods, launches_of, reset_counts,
+                                 card)
 
     src = "paddle_tpu_torch/csrc/"
 
@@ -9060,13 +9738,20 @@ def main():
     quant_runs = {(p if p.startswith("quant_") else f"quant_serving_{p}"):
                   r for p, r in quant.items()
                   if isinstance(r, dict) and "counters" in r}
+    # phase 28's counted runs: (a) in this process, each rank of (b), (c)
+    dist_runs = {"dist_nccl": distributed["a"],
+                 **{f"dist_mp2_rank{r['rank']}": r["run"]
+                    for r in distributed["b"]["ranks"]},
+                 **{f"dist_zero1_rank{r['rank']}": r["run"]
+                    for r in distributed["c"]["ranks"]}}
     tc_paths = {"training": training, "moe_training": moe_training,
                 "bert_training": bert_training, "eager_training": eager,
                 **{f"recipe_{g}": r for g, r in recipe["runs"].items()},
                 "hapi": hapi, **quant_runs, "profiler": prof_run,
                 "bert_crf_bf16": signal["crf"]["bf16"],
                 "static_training": static["training"],
-                "static_serving_bf16": static["serving"]["bf16"]}
+                "static_serving_bf16": static["serving"]["bf16"],
+                **dist_runs}
     f32_paths = {"serving": dict(counters=counters),
                  "encoder_serving": enc_serving,
                  "one_shot_padded": one_shot["one_shot_padded"],
@@ -9362,7 +10047,9 @@ def main():
                   **{f"arxiv_gcn_{r}": signal["arxiv"][r]["launches"][
                       "fused_adam"] for r in ("send_ue_recv",
                                               "sparse_matmul")},
-                  "static_training": static["training"]["fused_adam_launches"]}
+                  "static_training": static["training"]["fused_adam_launches"],
+                  **{p: r["launches"]["fused_adam"]
+                     for p, r in dist_runs.items()}}
     kernels.append(dict(
         name="fused_adam", route="cuda", source=src + "fused_adam.cu",
         replaces="port-only: no TPU kernel; the per-parameter fusion XLA "
@@ -9419,7 +10106,7 @@ def main():
                   profiler=prof_run, debugging=debugging,
                   device_utils=device_utils, vision=vision,
                   signal_graph_distribution=signal, to_static=static,
-                  kernels=kernels)
+                  distributed=distributed, kernels=kernels)
     (OUT_DIR / "result.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -9428,4 +10115,11 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-rank"]:
+        dist_rank_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["--static-warm"]:
+        static_warm_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["--dist-fault"]:
+        dist_fault_main()
+    else:
+        main()

@@ -52,9 +52,10 @@ into every ``import``; ``dir()`` lists them). The high-level paths:
 Inductor (one entry an input signature; the flash kernels enter the
 graph as custom ops); ``static`` keeps the graph-free names of
 ``paddle.static`` and its control flow, ``onnx.export`` writes an ONNX
-file from a Layer walk. The names of the JAX package's top level whose
-modules are not ported yet (``DataParallel``, ``analysis``, ...) are
-absent.
+file from a Layer walk. ``DataParallel`` (``distributed``'s, resolved
+lazily) averages gradients over the data-parallel ranks. The names of
+the JAX package's top level whose modules are not ported yet
+(``analysis``, ``cost_model``) are absent.
 
 The port's models and the serving ``Engine`` take raw torch tensors:
 
@@ -145,7 +146,9 @@ _LAZY_SUBPACKAGES = ("jit", "inference", "text", "incubate", "regularizer",
                      "tensor", "static", "onnx")
 #: names of a subpackage resolved on first access (``paddle.Model``)
 _LAZY_NAMES = {"Model": "hapi", "summary": "hapi", "flops": "hapi",
-               "to_dlpack": "utils.dlpack", "from_dlpack": "utils.dlpack"}
+               "to_dlpack": "utils.dlpack", "from_dlpack": "utils.dlpack",
+               "DataParallel":
+                   "distributed.fleet.meta_parallel.parallel_wrappers"}
 
 
 def __getattr__(name):

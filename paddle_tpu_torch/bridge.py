@@ -40,11 +40,65 @@ def _float_linear(name, state, dtype) -> bool:
             and name + "_scale" not in state)
 
 
-def llama_state_from_numpy(params: Dict[str, np.ndarray]
-                           ) -> Dict[str, torch.Tensor]:
-    """{name: array} in the JAX package's layout -> a state_dict for
-    ``paddle_tpu_torch.text.models.LlamaForCausalLM.load_state_dict`` (of
-    a converted model too: its buffers are among the arrays)."""
+#: tensor-parallel shards in the port's layout, by parameter-name
+#: suffix: (suffix, dim, blocks). A column-parallel Linear's weight
+#: ([out, in] here) and bias split on dim 0, a row-parallel weight on
+#: dim 1, a vocabulary-parallel embedding on dim 0; ``blocks`` > 1
+#: splits each of that many equal blocks on its own (BERT's fused qkv:
+#: rank r takes the q, k and v rows of its heads). Other parameters are
+#: whole on every rank.
+TP_RULES = {
+    "llama": (("embed_tokens.weight", 0, 1), ("q_proj.weight", 0, 1),
+              ("k_proj.weight", 0, 1), ("v_proj.weight", 0, 1),
+              ("gate_proj.weight", 0, 1), ("up_proj.weight", 0, 1),
+              ("o_proj.weight", 1, 1), ("down_proj.weight", 1, 1),
+              ("lm_head.weight", 0, 1)),
+    "bert": (("word_embeddings.weight", 0, 1), (".qkv.weight", 0, 3),
+             (".qkv.bias", 0, 3), (".out.weight", 1, 1),
+             (".fc1.weight", 0, 1), (".fc1.bias", 0, 1),
+             (".fc2.weight", 1, 1)),
+}
+
+
+def _tp_rule(family, name):
+    return next(((d, b) for suffix, d, b in TP_RULES[family]
+                 if name.endswith(suffix)), None)
+
+
+def tp_shard(a, family: str, name: str, mp_rank: int, mp_degree: int):
+    """Rank ``mp_rank``'s part of the global port-layout array ``a`` of
+    parameter ``name`` (``a`` itself for a whole parameter)."""
+    rule = _tp_rule(family, name)
+    if rule is None or mp_degree == 1:
+        return a
+    dim, blocks = rule
+    parts = []
+    for blk in np.split(a, blocks, axis=dim):
+        size = blk.shape[dim] // mp_degree
+        parts.append(np.take(blk, np.arange(mp_rank * size,
+                                            (mp_rank + 1) * size), axis=dim))
+    return np.concatenate(parts, axis=dim)
+
+
+def tp_merge(shards, family: str, name: str):
+    """The global port-layout array of parameter ``name`` from its ranks'
+    parts (``shards[r]`` of mp rank r), the inverse of ``tp_shard``; a
+    whole parameter comes from rank 0. Torch tensors merge as torch
+    tensors, on their device."""
+    rule = _tp_rule(family, name)
+    if torch.is_tensor(shards[0]):
+        split, cat = torch.chunk, torch.cat
+    else:
+        shards = [np.asarray(s) for s in shards]
+        split, cat = np.split, np.concatenate
+    if rule is None or len(shards) == 1:
+        return shards[0]
+    dim, blocks = rule
+    per = [split(s, blocks, dim) for s in shards]
+    return cat([cat([p[b] for p in per], dim) for b in range(blocks)], dim)
+
+
+def _state_from_numpy(params, family, mp_rank, mp_degree):
     out = {}
     for name, arr in params.items():
         a = np.asarray(arr)
@@ -53,8 +107,19 @@ def llama_state_from_numpy(params: Dict[str, np.ndarray]
                 raise ValueError(f"{name}: expected a 2-D Linear weight, "
                                  f"got shape {a.shape}")
             a = a.T
+        a = tp_shard(a, family, name, mp_rank, mp_degree)
         out[name] = torch.tensor(np.ascontiguousarray(a))
     return out
+
+
+def llama_state_from_numpy(params: Dict[str, np.ndarray], mp_rank: int = 0,
+                           mp_degree: int = 1) -> Dict[str, torch.Tensor]:
+    """{name: array} in the JAX package's layout -> a state_dict for
+    ``paddle_tpu_torch.text.models.LlamaForCausalLM.load_state_dict`` (of
+    a converted model too: its buffers are among the arrays). With
+    ``mp_degree`` > 1, the state of mp rank ``mp_rank``'s shard of a
+    tensor-parallel model (``TP_RULES["llama"]``)."""
+    return _state_from_numpy(params, "llama", mp_rank, mp_degree)
 
 
 def llama_state_to_numpy(state: Dict[str, torch.Tensor]
@@ -82,8 +147,16 @@ ernie_moe_state_to_numpy = llama_state_to_numpy
 #: embeddings and LayerNorm parameters cross as they are, and the MLM
 #: decoder is the word embedding itself (one parameter, crossed once). The
 #: Adam state bridge below holds for BERT unchanged.
-bert_state_from_numpy = llama_state_from_numpy
 bert_state_to_numpy = llama_state_to_numpy
+
+
+def bert_state_from_numpy(params: Dict[str, np.ndarray], mp_rank: int = 0,
+                          mp_degree: int = 1) -> Dict[str, torch.Tensor]:
+    """The BERT counterpart of ``llama_state_from_numpy``: with
+    ``mp_degree`` > 1, mp rank ``mp_rank``'s shard, whose fused qkv holds
+    the q, k and v of its heads (the JAX package's global [h, 3h] weight
+    is column-split by head within each of q, k and v, not by column)."""
+    return _state_from_numpy(params, "bert", mp_rank, mp_degree)
 
 
 def _numpy_of(t):

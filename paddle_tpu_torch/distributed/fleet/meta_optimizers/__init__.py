@@ -1,0 +1,5 @@
+from . import dygraph_optimizer  # noqa: F401
+from .dygraph_optimizer import (  # noqa: F401
+    DygraphShardingOptimizer, DygraphShardingOptimizerV2,
+    HybridParallelGradScaler, HybridParallelOptimizer,
+)

@@ -1,0 +1,5 @@
+from .hybrid_parallel_optimizer import (  # noqa: F401
+    DygraphShardingOptimizer, DygraphShardingOptimizerV2, FlatParams,
+    HybridParallelGradScaler, HybridParallelOptimizer, clip_scale,
+    hybrid_global_norm,
+)

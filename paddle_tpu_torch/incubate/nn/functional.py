@@ -119,66 +119,103 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
     return tuple(make(t) for t in (q, k, v))
 
 
-def _chunk_stats(hc, w, lc, ignore_index):
-    """f32 logits of one row chunk and their logsumexp, the clipped
-    label index and the validity mask (:216-221)."""
+def _chunk_stats(hc, w, group):
+    """f32 logits of one row chunk (over a group, this rank's vocabulary
+    columns) and their logsumexp over the whole vocabulary (:216-221):
+    over a group of n > 1 two all-reduces, the row max and the sum of
+    exponentials, ``_c_softmax_with_cross_entropy``'s."""
     logits = (hc @ w).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    v = logits.shape[-1]
-    safe = torch.clamp(lc, 0, v - 1)
-    # labels outside [0, V) are invalid, not clipped to a class
-    valid = (lc != ignore_index) & (lc >= 0) & (lc < v)
-    return logits, lse, safe, valid
+    if group is None:
+        return logits, torch.logsumexp(logits, dim=-1)
+    from ...distributed.communication import collectives as C
+    m = logits.max(dim=-1).values
+    C.all_reduce(m, op=C.ReduceOp.MAX, group=group)
+    s = torch.exp(logits - m[:, None]).sum(dim=-1)
+    C.all_reduce(s, group=group)
+    return logits, m + torch.log(s)
+
+
+def _in_shard(lc, start, width):
+    """Each label's column in the vocabulary shard [start, start +
+    width), and the mask of the labels that fall in it."""
+    local = lc - start
+    inside = (local >= 0) & (local < width)
+    return torch.where(inside, local, 0), inside
 
 
 class _FusedLinearCE(torch.autograd.Function):
     """Mean NLL of ``softmax(h @ w)`` over row chunks. The forward keeps
-    no logits; the backward recomputes each chunk's logits, so one
-    [rows / chunks, V] f32 tile is alive at a time (the JAX package's
-    ``jax.checkpoint`` over the scan body, :226)."""
+    no logits, only each row's logsumexp; the backward recomputes each
+    chunk's logits, so one [rows / chunks, V] f32 tile is alive at a time
+    (the JAX package's ``jax.checkpoint`` over the scan body, :226).
+
+    ``group`` (None, or an mp group of n > 1): ``w`` is then this rank's
+    vocabulary shard [H, V / n], columns [rank * V / n, (rank + 1) * V /
+    n); each chunk's logits stay a shard, the label's logit takes a third
+    all-reduce, and the backward all-reduces the hidden's gradient (each
+    rank holds a part). ``hs`` and the labels are the same on every
+    rank."""
 
     @staticmethod
-    def forward(ctx, hs, w, ls, ignore_index, chunks):
+    def forward(ctx, hs, w, ls, ignore_index, chunks, group):
+        n = 1 if group is None else group.nranks
+        start = 0 if group is None else group.rank * w.shape[1]
         tot = torch.zeros((), dtype=torch.float32, device=hs.device)
         cnt = torch.zeros((), dtype=torch.float32, device=hs.device)
+        lses = []
         for hc, lc in zip(hs.chunk(chunks), ls.chunk(chunks)):
-            logits, lse, safe, valid = _chunk_stats(hc, w, lc, ignore_index)
-            picked = logits.gather(-1, safe[:, None])[:, 0]
+            logits, lse = _chunk_stats(hc, w, group)
+            safe, inside = _in_shard(lc, start, w.shape[1])
+            picked = torch.where(
+                inside, logits.gather(-1, safe[:, None])[:, 0], 0.0)
+            if group is not None:
+                from ...distributed.communication import collectives as C
+                C.all_reduce(picked, group=group)
+            # labels outside [0, V) are invalid, not clipped to a class
+            valid = (lc != ignore_index) & (lc >= 0) & \
+                (lc < w.shape[1] * n)
             tot = tot + torch.where(valid, lse - picked, 0.0).sum()
             cnt = cnt + valid.float().sum()
+            lses.append(lse)
             del logits
         denom = torch.clamp(cnt, min=1.0)
-        ctx.save_for_backward(hs, w, ls, denom)
-        ctx.ignore_index, ctx.chunks = ignore_index, chunks
+        ctx.save_for_backward(hs, w, ls, denom, torch.cat(lses))
+        ctx.ignore_index, ctx.chunks, ctx.group = ignore_index, chunks, group
+        ctx.start, ctx.vocab = start, w.shape[1] * n
         return tot / denom
 
     @staticmethod
     def backward(ctx, g):
-        hs, w, ls, denom = ctx.saved_tensors
-        coef = (g.float() / denom)
+        hs, w, ls, denom, lse_all = ctx.saved_tensors
+        coef = g.float() / denom
         dh = torch.empty_like(hs)
         dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
         rows = 0
         for hc, lc in zip(hs.chunk(ctx.chunks), ls.chunk(ctx.chunks)):
-            logits, lse, safe, valid = _chunk_stats(hc, w, lc,
-                                                    ctx.ignore_index)
+            n = hc.shape[0]
+            lse = lse_all[rows:rows + n]
+            logits = (hc @ w).float()
+            safe, inside = _in_shard(lc, ctx.start, w.shape[1])
             # d(lse - picked)/dlogits = softmax - onehot, on valid rows
             dlog = torch.exp(logits.sub_(lse[:, None]))
-            dlog.scatter_add_(-1, safe[:, None],
-                              torch.full_like(lse[:, None], -1.0))
+            dlog.scatter_add_(-1, safe[:, None], -inside.float()[:, None])
+            valid = (lc != ctx.ignore_index) & (lc >= 0) & (lc < ctx.vocab)
             dlog.mul_((valid.float() * coef)[:, None])
             # the f32 logits' cotangent reaches the matmul in its dtype,
             # as the autodiff of astype does
             dlog = dlog.to(w.dtype)
-            dh[rows:rows + hc.shape[0]] = dlog @ w.t()
+            dh[rows:rows + n] = dlog @ w.t()
             dw += (hc.t() @ dlog).float()
-            rows += hc.shape[0]
+            rows += n
             del logits, dlog
-        return dh, dw.to(w.dtype), None, None, None
+        if ctx.group is not None:
+            from ...distributed.communication import collectives as C
+            C.all_reduce(dh, group=ctx.group)
+        return dh, dw.to(w.dtype), None, None, None, None
 
 
 def fused_linear_cross_entropy(hidden, weight, labels, ignore_index=-100,
-                               n_chunks=8):
+                               n_chunks=8, group=None):
     """Fused lm-head matmul + softmax cross entropy, chunked over rows
     (counterpart of ``fused_linear_cross_entropy``,
     ``paddle_tpu/incubate/nn/functional/__init__.py:173``).
@@ -191,7 +228,11 @@ def fused_linear_cross_entropy(hidden, weight, labels, ignore_index=-100,
     [rows / chunks, V] f32 logits tile in the forward and in the
     backward. The two products per chunk are plain matmuls
     (``torch.matmul``), as the JAX package leaves them to XLA.
-    Gradients flow to hidden and weight."""
+    Gradients flow to hidden and weight.
+
+    ``group``: a model-parallel group of n ranks over which ``weight`` is
+    split by vocabulary (this rank's [H, V / n] columns); the loss is then
+    the same as the unsplit one's, with no [rows, V] logits gathered."""
     if int(n_chunks) < 1:
         raise ValueError(f"n_chunks must be >= 1, got {n_chunks}")
     hs = hidden.reshape(-1, hidden.shape[-1])
@@ -203,7 +244,10 @@ def fused_linear_cross_entropy(hidden, weight, labels, ignore_index=-100,
         pad = chunks - n % chunks
         hs = torch.cat([hs, hs.new_zeros(pad, hs.shape[-1])])
         ls = torch.cat([ls, ls.new_full((pad,), ignore_index)])
-    return _FusedLinearCE.apply(hs, weight, ls, int(ignore_index), chunks)
+    if group is not None and group.nranks == 1:
+        group = None
+    return _FusedLinearCE.apply(hs, weight, ls, int(ignore_index), chunks,
+                                group)
 
 
 def masked_multihead_attention(x, cache_kv=None, bias=None, src_mask=None,

@@ -470,7 +470,10 @@ class TrainStep:
         self._layer = _is_layer(model)
         self._runner = None if self._layer else _LossAndGrads(model)
         self.sync_from_model()
-        self._opt_state = optimizer.init_state_pytree(self._params)
+        self._opt_state = self._init_opt_state()
+
+    def _init_opt_state(self):
+        return self._opt.init_state_pytree(self._params)
 
     @property
     def opt_state(self):
@@ -501,6 +504,14 @@ class TrainStep:
     def loss_and_grads(self, inputs, labels):
         """The step without its update: (loss, {parameter name: gradient}),
         the gradients clipped by the optimizer's ``grad_clip``."""
+        loss, names, grads = self._raw_loss_and_grads(inputs, labels)
+        clip = self._opt._grad_clip
+        if clip is not None:
+            grads = clip.clip_grads(grads)
+        return loss, dict(zip(names, grads))
+
+    def _raw_loss_and_grads(self, inputs, labels):
+        """(loss, parameter names, their unclipped gradients)."""
         if not isinstance(inputs, (list, tuple)):
             inputs = (inputs,)
         inputs = tuple(self._cast(x) for x in _as_tensor(tuple(inputs),
@@ -519,10 +530,7 @@ class TrainStep:
                     self._runner, bound, (inputs, labels, self._loss_fn,
                                           masters))
                 del bound
-        clip = self._opt._grad_clip
-        if clip is not None:
-            grads = clip.clip_grads(grads)
-        return loss, dict(zip(names, grads))
+        return loss, names, grads
 
     def _layer_loss_and_grads(self, names, masters, inputs, labels):
         """A surface Layer's forward on the cast weights (bound through

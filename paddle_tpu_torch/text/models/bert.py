@@ -15,9 +15,21 @@ the head-dim-64 probe). Dropout draws from the model's one
 
 Divergence: a sequence longer than ``max_position_embeddings`` raises
 ValueError, where the JAX package's ``jnp.take`` fills the missing
-position rows with NaN. Tensor-parallel layers (an ``mp`` mesh axis,
-``mp_degree`` > 1 here) come with the distributed slice of the port and
-raise NotImplementedError.
+position rows with NaN.
+
+Tensor parallelism (:59-66, :94-95, :125-126): under a hybrid topology
+with ``mp`` > 1 the word embedding is a ``VocabParallelEmbeddingModule``,
+qkv and fc1 ``ColumnParallelLinearModule``s, out and fc2
+``RowParallelLinearModule``s, each rank holding its shard and running
+its h / mp heads. The fused qkv is split by head, not by column: rank r
+holds the q, k and v of its heads (``split=3``), where a plain column
+split of the [h, 3h] weight would give rank 0 all of q and half of k;
+``bridge.bert_state_from_numpy(..., mp_rank, mp_degree)`` permutes the
+JAX package's global weight to match. The MLM head, tied to the word
+embedding, produces a vocabulary shard of the logits: its loss is
+vocabulary-parallel (``_c_softmax_with_cross_entropy``, or the fused
+head's ``group``) and its logits are gathered. Weights are drawn at
+their global shapes and sliced, so any mp degree builds the same model.
 """
 from __future__ import annotations
 
@@ -27,6 +39,12 @@ import torch
 from torch import nn
 
 from ...core.device import resolve_device
+from ...distributed import mesh as mesh_mod
+from ...distributed.fleet.layers.mpu.mp_layers import (
+    ColumnParallelLinearModule, RowParallelLinearModule,
+    VocabParallelEmbeddingModule, _ShardedModule)
+from ...distributed.fleet.layers.mpu.mp_ops import (
+    _c_concat, _c_identity, _c_softmax_with_cross_entropy)
 from ...incubate.nn.functional import fused_linear_cross_entropy
 from ...nn import functional as F
 from ...nn._modules import Dropout, LayerNorm
@@ -65,12 +83,17 @@ def _linear(i, o, device):
     return nn.Linear(i, o, device=device)
 
 
+def _use_tp():
+    return mesh_mod.axis_degree("mp") > 1
+
+
 class BertEmbeddings(nn.Module):
     def __init__(self, c: BertConfig, device=None, generator=None):
         super().__init__()
         self.max_positions = c.max_position_embeddings
-        self.word_embeddings = nn.Embedding(c.vocab_size, c.hidden_size,
-                                            device=device)
+        emb = VocabParallelEmbeddingModule if _use_tp() else nn.Embedding
+        self.word_embeddings = emb(c.vocab_size, c.hidden_size,
+                                   device=device)
         self.position_embeddings = nn.Embedding(c.max_position_embeddings,
                                                 c.hidden_size, device=device)
         self.token_type_embeddings = nn.Embedding(c.type_vocab_size,
@@ -97,8 +120,20 @@ class BertSelfAttention(nn.Module):
         super().__init__()
         self.num_heads = c.num_attention_heads
         self.head_dim = c.hidden_size // c.num_attention_heads
-        self.qkv = _linear(c.hidden_size, 3 * c.hidden_size, device)
-        self.out = _linear(c.hidden_size, c.hidden_size, device)
+        hs = c.hidden_size
+        if _use_tp():
+            mp = mesh_mod.axis_degree("mp")
+            if self.num_heads % mp:
+                raise ValueError(f"num_attention_heads ({self.num_heads}) "
+                                 f"must be divisible by mp ({mp})")
+            self.num_heads //= mp
+            self.qkv = ColumnParallelLinearModule(hs, 3 * hs, bias=True,
+                                                  device=device, split=3)
+            self.out = RowParallelLinearModule(hs, hs, bias=True,
+                                               device=device)
+        else:
+            self.qkv = _linear(hs, 3 * hs, device)
+            self.out = _linear(hs, hs, device)
         self.dropout_p = c.attention_probs_dropout_prob
 
     def forward(self, x, attn_mask=None):
@@ -119,8 +154,14 @@ class BertEncoderLayer(nn.Module):
         self.attention = BertSelfAttention(c, device)
         self.attn_norm = LayerNorm(c.hidden_size, epsilon=c.layer_norm_eps,
                                    device=device)
-        self.fc1 = _linear(c.hidden_size, c.intermediate_size, device)
-        self.fc2 = _linear(c.intermediate_size, c.hidden_size, device)
+        if _use_tp():
+            self.fc1 = ColumnParallelLinearModule(
+                c.hidden_size, c.intermediate_size, bias=True, device=device)
+            self.fc2 = RowParallelLinearModule(
+                c.intermediate_size, c.hidden_size, bias=True, device=device)
+        else:
+            self.fc1 = _linear(c.hidden_size, c.intermediate_size, device)
+            self.fc2 = _linear(c.intermediate_size, c.hidden_size, device)
         self.ffn_norm = LayerNorm(c.hidden_size, epsilon=c.layer_norm_eps,
                                   device=device)
         self.dropout = Dropout(c.hidden_dropout_prob, generator=generator)
@@ -133,17 +174,35 @@ class BertEncoderLayer(nn.Module):
 
 def _init(module, seed, init_std):
     """Weights normal(0, init_std) from ``seed``; LayerNorms 1 and 0,
-    Linear biases 0."""
+    Linear biases 0. A tensor-parallel weight is drawn at its global
+    shape and sliced to this rank's shard."""
     gen = torch.Generator(device=module.device).manual_seed(int(seed))
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+            elif isinstance(m, _ShardedModule):
+                full = torch.empty(m.global_shape(), device=m.weight.device,
+                                   dtype=m.weight.dtype)
+                m.weight.copy_(m.shard(full.normal_(0.0, init_std,
+                                                    generator=gen)))
+                if getattr(m, "bias", None) is not None:
+                    m.bias.zero_()
             elif isinstance(m, (nn.Linear, nn.Embedding)):
                 m.weight.normal_(0.0, init_std, generator=gen)
                 if getattr(m, "bias", None) is not None:
                     m.bias.zero_()
+
+
+def _check_mp_degree(mp_degree):
+    """``mp_degree`` (None: the topology's) must be the topology's."""
+    have = mesh_mod.axis_degree("mp")
+    if mp_degree is not None and int(mp_degree) != have:
+        raise ValueError(
+            f"mp_degree={mp_degree}, but the hybrid topology's mp degree is "
+            f"{have}: build the model after fleet.init with "
+            f"hybrid_configs={{'mp_degree': {mp_degree}}}")
 
 
 class BertModel(nn.Module):
@@ -154,13 +213,9 @@ class BertModel(nn.Module):
     draws from ``self.generator``, seeded from ``seed`` as well."""
 
     def __init__(self, config: BertConfig, device=None, seed: int = 0,
-                 init_std: float = 0.02, mp_degree: int = 1,
-                 generator=None):
+                 init_std: float = 0.02, mp_degree=None, generator=None):
         super().__init__()
-        if int(mp_degree) > 1:
-            raise NotImplementedError(
-                "tensor-parallel BERT layers (the 'mp' mesh axis) come "
-                "with the distributed slice of the port")
+        _check_mp_degree(mp_degree)
         self.config = config
         self.device = resolve_device(device)
         self.generator = generator if generator is not None else \
@@ -214,7 +269,7 @@ class BertForPretraining(nn.Module):
     ``config.fused_mlm_ce``."""
 
     def __init__(self, config: BertConfig, device=None, seed: int = 0,
-                 init_std: float = 0.02, mp_degree: int = 1):
+                 init_std: float = 0.02, mp_degree=None):
         super().__init__()
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -237,11 +292,26 @@ class BertForPretraining(nn.Module):
         cfg = self.bert.config
         if labels is not None:
             labels = torch.as_tensor(labels, device=self.device)
+        emb = self.bert.embeddings.word_embeddings
+        group = getattr(emb, "group", None)
+        if group is not None and group.nranks == 1:
+            group = None
         if labels is not None and cfg.fused_mlm_ce:
             # the fused CE takes the [H, V] (paddle Linear) layout
             loss = fused_linear_cross_entropy(h, w.t(), labels,
-                                              n_chunks=cfg.fused_ce_chunks)
+                                              n_chunks=cfg.fused_ce_chunks,
+                                              group=group)
             return loss, nsp_logits
+        if group is not None:
+            # this rank's vocabulary shard of the logits
+            local = torch.nn.functional.linear(_c_identity(h, group=group),
+                                               w)
+            if labels is None:
+                return _c_concat(local, group=group), nsp_logits
+            nll = _c_softmax_with_cross_entropy(local, labels, group=group)
+            valid = (labels != -100).float()
+            return (nll * valid).sum() / valid.sum().clamp(min=1.0), \
+                nsp_logits
         mlm_logits = torch.nn.functional.linear(h, w)
         if labels is not None:
             loss = F.cross_entropy(mlm_logits.reshape(-1, w.shape[0]),

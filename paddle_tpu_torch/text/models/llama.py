@@ -46,11 +46,27 @@ they are tagged (``attn_q`` / ``attn_k`` / ``attn_v``, not on the
 flashmask path, as in the JAX model) and the attention region runs under
 ``save_only_names`` of them. See ``distributed/fleet/recompute.py``.
 
+Tensor parallelism (:184-196, :580-584, :632, :715): under a hybrid
+topology with ``mp`` > 1 (``fleet.init``), or inside
+``force_tp_layers()``, q / k / v, gate / up and the head are
+``ColumnParallelLinearModule``s, o_proj and down_proj
+``RowParallelLinearModule``s and the embedding a
+``VocabParallelEmbeddingModule`` (``distributed/fleet/layers/mpu``): each
+rank holds its shard, and its attention runs its heads (h / mp query and
+h_kv / mp kv heads). ``reset_parameters`` draws every parameter at its
+global shape from the seed's generator and keeps this rank's shard, so
+any mp degree builds the same global model. The logits are gathered
+(``gather_output``, as the JAX head); the fused LM loss is
+vocabulary-parallel: each rank's chunk logits stay a [rows, V / mp]
+shard, with three all-reduces a chunk (``fused_linear_cross_entropy``'s
+``group``).
+
 Not carried yet, raising NotImplementedError: sequence parallelism (the
-distributed slice).
+sequence-parallel slice of the distributed port).
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -59,6 +75,11 @@ import torch
 from torch import nn
 
 from ...core.device import resolve_device
+from ...distributed import mesh as mesh_mod
+from ...distributed.fleet.layers.mpu.mp_layers import (
+    ColumnParallelLinearModule, RowParallelLinearModule,
+    VocabParallelEmbeddingModule, global_shape, shard_of)
+from ...distributed.fleet.layers.mpu.mp_ops import _c_concat, _c_identity
 from ...distributed.fleet.recompute import (checkpoint_name, recompute,
                                              save_only_names)
 from ...incubate.nn.functional import (fused_linear_cross_entropy,
@@ -132,11 +153,54 @@ def _check_supported(c: LlamaConfig):
             f"'full', 'selective' or 'selective_qkv'")
     if c.sequence_parallel:
         raise NotImplementedError(
-            "sequence_parallel comes with the distributed slice of the "
-            "port")
+            "sequence_parallel comes with the sequence-parallel slice of "
+            "the distributed port (ROADMAP D3)")
     if c.sliding_window is not None and int(c.sliding_window) < 1:
         raise ValueError(
             f"sliding_window must be >= 1, got {c.sliding_window}")
+
+
+# Under force_tp_layers the parallel module classes are used even at
+# mp=1 (where they compute what the plain ones do), so that one run can
+# build the module tree of a TP run (:132-159).
+_FORCE_TP = False
+
+
+class force_tp_layers:
+    """Build LLaMA modules with the parallel classes whatever the
+    topology's mp degree (a context manager)."""
+
+    def __enter__(self):
+        global _FORCE_TP
+        self._prev = _FORCE_TP
+        _FORCE_TP = True
+        return self
+
+    def __exit__(self, *exc):
+        global _FORCE_TP
+        _FORCE_TP = self._prev
+        return False
+
+
+def _use_tp():
+    return _FORCE_TP or mesh_mod.axis_degree("mp") > 1
+
+
+def _tp_input(x, first):
+    """The input of a group of column-parallel products (``first`` one of
+    them): ``_c_identity`` once under TP, so that its gradient is
+    all-reduced once for the group."""
+    if isinstance(first, ColumnParallelLinearModule):
+        return _c_identity(x, group=first.group)
+    return x
+
+
+def _tp_divide(n, what):
+    mp = mesh_mod.axis_degree("mp")
+    if n % mp:
+        raise ValueError(f"{what} ({n}) must be divisible by the "
+                         f"model-parallel degree ({mp})")
+    return n // mp
 
 
 #: the recompute granularities (llama.py:677-684)
@@ -179,10 +243,22 @@ class LlamaAttention(nn.Module):
         self._tag_qkv = _tags_qkv(c)
         hs = c.hidden_size
         kv = self.num_kv_heads * self.head_dim
-        self.q_proj = _linear(hs, hs, device, dtype)
-        self.k_proj = _linear(hs, kv, device, dtype)
-        self.v_proj = _linear(hs, kv, device, dtype)
-        self.o_proj = _linear(hs, hs, device, dtype)
+        if _use_tp():
+            self.num_heads = _tp_divide(self.num_heads, "num_attention_heads")
+            self.num_kv_heads = _tp_divide(self.num_kv_heads,
+                                           "num_key_value_heads")
+            col = functools.partial(ColumnParallelLinearModule,
+                                    device=device, dtype=dtype,
+                                    sync_input_grad=False)
+            self.q_proj, self.k_proj, self.v_proj = (
+                col(hs, hs), col(hs, kv), col(hs, kv))
+            self.o_proj = RowParallelLinearModule(hs, hs, device=device,
+                                                  dtype=dtype)
+        else:
+            self.q_proj = _linear(hs, hs, device, dtype)
+            self.k_proj = _linear(hs, kv, device, dtype)
+            self.v_proj = _linear(hs, kv, device, dtype)
+            self.o_proj = _linear(hs, hs, device, dtype)
 
     def forward(self, x, kv_cache=None, cache_index=None,
                 attn_mask_startend_row_indices=None):
@@ -194,6 +270,7 @@ class LlamaAttention(nn.Module):
     def _qkv(self, x, cache_index=None):
         """q, k, v [b, s, heads, head_dim], q and k after rope."""
         b, s, _ = x.shape
+        x = _tp_input(x, self.q_proj)
         q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
@@ -445,15 +522,24 @@ class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         hs, im = config.hidden_size, config.intermediate_size
-        self.gate_proj = _linear(hs, im, device, dtype)
-        self.up_proj = _linear(hs, im, device, dtype)
-        self.down_proj = _linear(im, hs, device, dtype)
+        if _use_tp():
+            col = functools.partial(ColumnParallelLinearModule,
+                                    device=device, dtype=dtype,
+                                    sync_input_grad=False)
+            self.gate_proj, self.up_proj = col(hs, im), col(hs, im)
+            self.down_proj = RowParallelLinearModule(im, hs, device=device,
+                                                     dtype=dtype)
+        else:
+            self.gate_proj = _linear(hs, im, device, dtype)
+            self.up_proj = _linear(hs, im, device, dtype)
+            self.down_proj = _linear(im, hs, device, dtype)
 
     def forward(self, x):
         return self.down_proj(self.mid(x))
 
     def mid(self, x):
         """The SwiGLU product (``ffn_mid``)."""
+        x = _tp_input(x, self.gate_proj)
         return F.silu(self.gate_proj(x)) * self.up_proj(x)
 
 
@@ -506,9 +592,9 @@ class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         self.config = config
-        self.embed_tokens = nn.Embedding(config.vocab_size,
-                                         config.hidden_size, device=device,
-                                         dtype=dtype)
+        emb = VocabParallelEmbeddingModule if _use_tp() else nn.Embedding
+        self.embed_tokens = emb(config.vocab_size, config.hidden_size,
+                                device=device, dtype=dtype)
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, device, dtype)
              for _ in range(config.num_hidden_layers)])
@@ -561,26 +647,59 @@ class LlamaForCausalLM(nn.Module):
         self.device = resolve_device(device)
         dtype = getattr(torch, config.dtype)
         self.llama = LlamaModel(config, self.device, dtype)
-        self.lm_head = None if config.tie_word_embeddings else _linear(
-            config.hidden_size, config.vocab_size, self.device, dtype)
+        if config.tie_word_embeddings:
+            self.lm_head = None
+        elif _use_tp():
+            self.lm_head = ColumnParallelLinearModule(
+                config.hidden_size, config.vocab_size, gather_output=True,
+                device=self.device, dtype=dtype)
+        else:
+            self.lm_head = _linear(config.hidden_size, config.vocab_size,
+                                   self.device, dtype)
         self.reset_parameters(seed, init_std)
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0, init_std: float = 0.02):
+        """Norms at 1, every other parameter normal(0, ``init_std``) from
+        one generator in parameter order; a tensor-parallel parameter is
+        drawn at its global shape and sliced to this rank's shard."""
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        modules = dict(self.named_modules())
         for name, p in self.named_parameters():
             if name.endswith("norm.weight"):
                 p.fill_(1.0)
-            else:
+                continue
+            mname, _, pname = name.rpartition(".")
+            m = modules[mname]
+            shape = global_shape(m, pname)
+            if list(shape) == list(p.shape):
                 p.normal_(0.0, init_std, generator=gen)
+            else:
+                full = torch.empty(shape, device=p.device, dtype=p.dtype)
+                p.copy_(shard_of(m, pname, full.normal_(
+                    0.0, init_std, generator=gen)))
+
+    def _vocab_group(self):
+        """The mp group the head's vocabulary is split over (None
+        unsplit)."""
+        m = self.lm_head if self.lm_head is not None \
+            else self.llama.embed_tokens
+        g = getattr(m, "group", None)
+        return g if g is not None and g.nranks > 1 else None
 
     def _head(self, h):
         """The LM head module (a ``torch.nn.Linear``, or what
         ``quantize_for_inference`` put in its place); tied, the embedding
-        weight."""
+        weight (a vocabulary shard's logits gathered under TP)."""
         if self.lm_head is not None:
             return self.lm_head(h)
-        return torch.nn.functional.linear(h, self.llama.embed_tokens.weight)
+        g = self._vocab_group()
+        if g is None:
+            return torch.nn.functional.linear(h,
+                                              self.llama.embed_tokens.weight)
+        local = torch.nn.functional.linear(_c_identity(h, group=g),
+                                           self.llama.embed_tokens.weight)
+        return _c_concat(local, group=g)
 
     def forward(self, input_ids, labels=None,
                 attn_mask_startend_row_indices=None, kv_caches=None,
@@ -617,7 +736,8 @@ class LlamaForCausalLM(nn.Module):
                     ": training a quantized model is not supported")
             return fused_linear_cross_entropy(
                 h, w, torch.as_tensor(labels, device=self.device),
-                n_chunks=self.config.fused_ce_chunks)
+                n_chunks=self.config.fused_ce_chunks,
+                group=self._vocab_group())
         return self._head(h)
 
     def serving_spec(self):

@@ -392,7 +392,11 @@ def test_position_limit_raises_where_jax_gives_nan():
 
 
 def test_tensor_parallel_raises():
-    with pytest.raises(NotImplementedError, match="distributed slice"):
+    """Tensor-parallel BERT is built under a hybrid topology with mp = 2
+    (``fleet.init``; its parity case is
+    ``test_torch_fleet_tp.py::test_bert_mp2_per_rank_qkv_matches_jax``):
+    asking for mp_degree=2 without one raises."""
+    with pytest.raises(ValueError, match="hybrid topology's mp degree"):
         BertModel(BertConfig.tiny(), device="cpu", mp_degree=2)
 
 

@@ -2404,3 +2404,69 @@ def test_to_static_masked_attention_on_the_wgmma_route(dev):
             _close(grads_c[n], ge, 1e-2)
     finally:
         place_mod._current_place = prev
+
+
+# -- collective training: NCCL on a world of one, gloo ranks sharing the card
+
+def test_distributed_nccl_world_of_one(dev):
+    """One rank on one card: the backend rule picks NCCL; every
+    collective keeps the tensor on the card and stages nothing."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.distributed import env
+    dist.init_parallel_env()
+    try:
+        assert env.backend() == "nccl" and dist.get_backend() == "NCCL"
+        monitor.reset()
+        x = torch.randn(64, 64, device=dev).bfloat16()
+        for op in ("SUM", "MAX", "MIN", "PROD", "AVG"):
+            t = x.clone()
+            dist.all_reduce(t, op=getattr(dist.ReduceOp, op))
+            assert torch.equal(t, x), op
+        got = []
+        dist.all_gather(got, x)
+        t = torch.empty_like(x)
+        dist.reduce_scatter(t, [x])
+        u = torch.empty_like(x)
+        dist.alltoall_single(u, x)
+        v = x.clone()
+        dist.broadcast(v, src=0)
+        dist.barrier()
+        assert all(torch.equal(a, x) for a in (got[0], t, u, v))
+        assert dist.communication.staged_bytes() == {}
+        assert monitor.counter("distributed.calls.all_reduce").get() == 5
+    finally:
+        dist.destroy_process_group()
+
+
+def test_distributed_gloo_ranks_stage_cuda_tensors(dev, tmp_path):
+    """Two ranks sharing the card: gloo, each CUDA tensor staged through
+    pinned host memory and copied back (the counters count both ways)."""
+    import torch_dist_worker as W
+    if torch.cuda.device_count() > 1:
+        pytest.skip("with a card a rank the backend rule picks NCCL")
+    (tmp_path / "inputs.pkl").write_bytes(__import__("pickle").dumps({}))
+    ranks = W.join_world(W.start_world(2, "cuda_gloo", tmp_path, None),
+                         str(tmp_path), timeout=180)
+    n = 1 << 16
+    for r, out in enumerate(ranks):
+        assert out["backend"] == "gloo" and out["device"] == "cuda:0"
+        assert out["on_cuda"]
+        assert (out["all_reduce"] == 3.0).all()
+        assert [g.tolist() for g in out["all_gather"]] == [[0.0] * 4,
+                                                            [1.0] * 4]
+        assert (out["broadcast"] == 1.0).all()
+        assert out["staged"] == {"all_reduce": 8 * n, "all_gather": 48,
+                                 "broadcast": 32 if r == 1 else 16}
+
+
+def test_distributed_nccl_refuses_two_ranks_on_one_card(dev, tmp_path):
+    """Why two ranks on one card run gloo: NCCL refuses them."""
+    import torch_dist_worker as W
+    if torch.cuda.device_count() > 1:
+        pytest.skip("needs exactly one card")
+    (tmp_path / "inputs.pkl").write_bytes(__import__("pickle").dumps({}))
+    with pytest.raises(RuntimeError) as exc:
+        W.join_world(W.start_world(2, "cuda_nccl_shared", tmp_path, "nccl"),
+                     str(tmp_path), timeout=120)
+    assert "duplicate gpu" in str(exc.value).lower(), str(exc.value)[-3000:]

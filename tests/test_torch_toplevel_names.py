@@ -30,7 +30,7 @@ import paddle_tpu_torch as tp
 ROOT = Path(__file__).resolve().parent.parent
 
 #: public names of paddle_tpu with no counterpart in the port yet
-NOT_PORTED = {"DataParallel", "analysis", "cost_model", "csrc"}
+NOT_PORTED = {"analysis", "cost_model", "csrc"}
 
 #: public names of paddle_tpu never ported, by design: the JAX modules
 #: the JAX package re-exports (the port imports no jax)
@@ -43,6 +43,10 @@ HIGH_LEVEL = ("LazyGuard", "Model", "batch", "callbacks", "check_shape",
               "set_cuda_rng_state", "set_printoptions", "summary")
 
 
+#: the names the distributed slice brought to the top level
+DISTRIBUTED = ("DataParallel",)
+
+
 def _public(mod):
     return {n for n in dir(mod) if not n.startswith("_")}
 
@@ -51,6 +55,22 @@ def test_dir_parity_with_the_jax_top_level():
     missing = _public(jp) - _public(tp)
     assert missing == NOT_PORTED | NEVER_PORTED
     assert not set(HIGH_LEVEL) & missing
+
+
+@pytest.mark.parametrize("name", DISTRIBUTED)
+def test_distributed_names_resolve_lazily_without_jax(name):
+    code = ("import sys\n"
+            "import paddle_tpu_torch as p\n"
+            "assert 'paddle_tpu_torch.distributed.fleet' not in sys.modules\n"
+            f"obj = getattr(p, {name!r})\n"
+            f"assert {name!r} in dir(p)\n"
+            "assert obj.__module__.startswith('paddle_tpu_torch.distributed')\n"
+            "assert 'jax' not in sys.modules\n"
+            "assert not any(m.split('.')[0] == 'paddle_tpu' "
+            "for m in sys.modules)\n")
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
 
 
 @pytest.mark.parametrize("name", HIGH_LEVEL)

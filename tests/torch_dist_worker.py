@@ -1,0 +1,473 @@
+"""Ranks of the port's distributed CPU tests (``test_torch_distributed``,
+``test_torch_fleet_tp``): gloo worlds started with the port's ``spawn``,
+each rank joining through a ``FileStore`` in the test's temporary
+directory (no TCP port), on the CPU. The parent writes ``inputs.pkl``
+(weights and batches, from the JAX package) before it starts a world;
+each rank runs one job function of this module and writes its results
+to ``rank<r>.pkl`` (a failure's traceback to ``rank<r>.err``). This
+module imports torch and the port only: the ranks never import jax."""
+import os
+import pickle
+import traceback
+
+import numpy as np
+
+B, S, VOCAB, LR, CLIP, STEPS = 4, 12, 64, 1e-3, 0.1, 3
+
+
+def start_world(nprocs, job, tmp, backend="gloo"):
+    """Start ``nprocs`` ranks of ``job`` (a function name of this module)
+    without waiting: the parent computes its references meanwhile.
+    ``backend`` None leaves it to the backend rule."""
+    from paddle_tpu_torch.distributed import spawn
+    return spawn(entry, args=(job, str(tmp)), nprocs=nprocs, join=False,
+                 backend=backend)
+
+
+def join_world(ctx, tmp, timeout=300):
+    """Every rank's results, in rank order; a rank's failure raises with
+    its traceback."""
+    for p in ctx.processes:
+        p.join(timeout)
+    for p in ctx.processes:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errs = []
+    for r, p in enumerate(ctx.processes):
+        err = os.path.join(tmp, f"rank{r}.err")
+        if os.path.exists(err):
+            errs.append(open(err).read())
+        elif p.exitcode:
+            errs.append(f"rank {r} exited with {p.exitcode}")
+    if errs:
+        raise RuntimeError("\n".join(errs))
+    out = []
+    for r in range(len(ctx.processes)):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def entry(job, tmp):
+    import torch
+    torch.set_num_threads(1)
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    world = int(os.environ["PADDLE_TRAINERS_NUM"])
+    try:
+        with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
+            inputs = pickle.load(f)
+        out = globals()[job](rank, world, tmp, inputs)
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        # leave the world together: a process group still alive at
+        # interpreter exit can abort the process
+        from paddle_tpu_torch import distributed as dist
+        if dist.is_initialized():
+            dist.barrier()
+            dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(f"rank {rank}:\n{traceback.format_exc()}")
+        raise
+
+
+def _join(rank, world, tmp):
+    import torch.distributed as tdist
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import init_parallel_env
+    paddle.set_device("cpu")
+    init_parallel_env(device="cpu", store=tdist.FileStore(
+        os.path.join(tmp, "store"), world), rank=rank, world_size=world)
+
+
+def _fleet(mp=1, dp=1):
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": dp, "mp_degree": mp}
+    fleet.init(is_collective=True, strategy=s)
+    return fleet
+
+
+def _np(t):
+    t = getattr(t, "_data", t)
+    return t.detach().float().cpu().numpy()
+
+
+# -- the 4-rank world: collectives, DataParallel, DistributedTrainStep ----
+
+def _collectives(rank, world):
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import monitor
+    monitor.reset()
+    out = {}
+    base = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    for name in ("SUM", "MAX", "MIN", "PROD", "AVG"):
+        t = base * (rank + 1)
+        dist.all_reduce(t, op=getattr(dist.ReduceOp, name))
+        out[f"all_reduce_{name}"] = t.numpy()
+    t = torch.full((3,), rank + 1, dtype=torch.int64)
+    dist.all_reduce(t)
+    out["all_reduce_int"] = t.numpy()
+    tt = paddle.to_tensor(np.full((2,), rank + 1.0, np.float32))
+    dist.all_reduce(tt)
+    out["all_reduce_tensor"] = tt.numpy()
+    t = base * (rank + 1)
+    dist.reduce(t, dst=1)
+    out["reduce"] = t.numpy()
+    got = []
+    dist.all_gather(got, torch.full((2,), float(rank)))
+    out["all_gather"] = np.stack([g.numpy() for g in got])
+    pre = [torch.zeros(2) for _ in range(world)]
+    dist.all_gather(pre, torch.full((2,), float(rank * 10)))
+    out["all_gather_into"] = np.stack([g.numpy() for g in pre])
+    objs = []
+    dist.all_gather_object(objs, {"rank": rank})
+    out["all_gather_object"] = objs
+    t = torch.full((3,), float(rank))
+    dist.broadcast(t, src=2)
+    out["broadcast"] = t.numpy()
+    t = torch.zeros(2)
+    src = [torch.full((2,), 100.0 + i) for i in range(world)] \
+        if rank == 0 else None
+    dist.scatter(t, src, src=0)
+    out["scatter"] = t.numpy()
+    t = torch.zeros(2)
+    dist.reduce_scatter(t, [torch.full((2,), float(rank * world + i))
+                            for i in range(world)])
+    out["reduce_scatter_list"] = t.numpy()
+    t = torch.zeros(2)
+    dist.reduce_scatter(t, torch.arange(2.0 * world) + rank,
+                        op=dist.ReduceOp.AVG)
+    out["reduce_scatter_avg"] = t.numpy()
+    got = []
+    dist.alltoall(got, [torch.full((1,), float(rank * 10 + i))
+                        for i in range(world)])
+    out["alltoall"] = np.concatenate([g.numpy() for g in got])
+    t = torch.zeros(world)
+    dist.alltoall_single(t, torch.arange(float(world)) + rank * 10)
+    out["alltoall_single"] = t.numpy()
+    # uneven: rank r sends i + 1 elements to rank i
+    send_sizes = [i + 1 for i in range(world)]
+    recv_sizes = [rank + 1] * world
+    t = torch.zeros(sum(recv_sizes))
+    dist.alltoall_single(t, torch.full((sum(send_sizes),), float(rank)),
+                         in_split_sizes=send_sizes,
+                         out_split_sizes=recv_sizes)
+    out["alltoall_single_uneven"] = t.numpy()
+    nxt, prv = (rank + 1) % world, (rank - 1) % world
+    t = torch.zeros(2)
+    if rank % 2 == 0:
+        dist.send(torch.full((2,), float(rank)), dst=nxt)
+        dist.recv(t, src=prv)
+    else:
+        dist.recv(t, src=prv)
+        dist.send(torch.full((2,), float(rank)), dst=nxt)
+    out["send_recv"] = t.numpy()
+    t = torch.zeros(2)
+    tasks = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, torch.full((2,), float(rank)), nxt),
+        dist.P2POp(dist.irecv, t, prv)])
+    for task in tasks:
+        task.wait()
+    out["batch_isend_irecv"] = t.numpy()
+    evens = dist.new_group([0, 2])
+    t = torch.full((2,), float(rank + 1))
+    if evens.is_member():
+        dist.all_reduce(t, group=evens)
+    out["new_group"] = (evens.ranks, evens.rank, t.numpy())
+    dist.barrier()
+    out["backend"] = dist.get_backend()
+    out["staged_bytes"] = dist.communication.staged_bytes()
+    out["calls"] = {k: v for k, v in monitor.counters().items()
+                    if k.startswith("distributed.calls.")}
+    return out
+
+
+def _data_parallel(rank, world, inputs):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    x, y = inputs["dp_x"], inputs["dp_y"]
+
+    def build(seed):
+        paddle.seed(seed)
+        return nn.Sequential(nn.Linear(8, 16), nn.ReLU(), nn.Linear(16, 4))
+
+    ref = build(0)
+    loss = nn.CrossEntropyLoss()(ref(paddle.to_tensor(x)),
+                                 paddle.to_tensor(y))
+    loss.backward()
+    want = [_np(p.grad) for p in ref.parameters()]
+    model = paddle.DataParallel(build(rank), comm_buffer_size=0.0001,
+                                last_comm_buffer_size=0.0001)
+    k = x.shape[0] // world
+    part = slice(rank * k, (rank + 1) * k)
+    xs, ys = paddle.to_tensor(x[part]), paddle.to_tensor(y[part])
+    loss = nn.CrossEntropyLoss()(model(xs), ys)
+    loss.backward()
+    got = [_np(p.grad) for p in model.parameters()]
+    weights_equal = all(np.array_equal(_np(a), _np(b)) for a, b in
+                        zip(model.parameters(), ref.parameters()))
+    for p in model.parameters():
+        p.clear_gradient()
+    with model.no_sync():
+        nn.CrossEntropyLoss()(model(xs), ys).backward()
+    local = [_np(p.grad) for p in model.parameters()]
+    return dict(dp_grads=got, dp_want=want, dp_weights_equal=weights_equal,
+                dp_buckets=len(model._buckets), no_sync=local)
+
+
+def _train_steps(rank, inputs, stage):
+    import torch
+
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.bridge import llama_state_from_numpy
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.parallel_step import \
+        DistributedTrainStep
+    from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+    hcg = fleet.get_hybrid_communicate_group()
+    mp_rank = hcg.get_model_parallel_rank()
+    cfg = LlamaConfig(**inputs["llama_cfg"])
+    net = LlamaForCausalLM(cfg, device="cpu")
+    net.load_state_dict(llama_state_from_numpy(inputs["llama_params"],
+                                               mp_rank, 2))
+    opt = optimizer.AdamW(LR, parameters=net.named_parameters(),
+                          grad_clip=nn.ClipGradByGlobalNorm(CLIP))
+    step = DistributedTrainStep(fleet.distributed_model(net),
+                                lambda out, lab: out,
+                                fleet.distributed_optimizer(opt),
+                                sharding_stage=stage)
+    ids = torch.from_numpy(inputs["batch"])
+    losses = [float(step((ids, ids), ids)) for _ in range(STEPS)]
+    return dict(losses=losses, state_bytes=step.opt_state_bytes(),
+                params={n: _np(p) for n, p in net.named_parameters()},
+                mp_rank=mp_rank, dp_rank=hcg.get_data_parallel_rank())
+
+
+def _zero_eager(rank, inputs, level):
+    """``group_sharded_parallel`` at ``level`` (ZeRO-1 "os" / ZeRO-2
+    "os_g") on the eager surface: 2 AdamW steps, each data rank on its
+    half of the batch, against one process on the whole batch."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    x, y = inputs["dp_x"], inputs["dp_y"]
+
+    def build():
+        paddle.seed(3)
+        net = nn.Sequential(nn.Linear(8, 16), nn.ReLU(), nn.Linear(16, 4))
+        return net, paddle.optimizer.AdamW(1e-2,
+                                           parameters=net.parameters())
+
+    ref, ref_opt = build()
+    for _ in range(2):
+        nn.CrossEntropyLoss()(ref(paddle.to_tensor(x)),
+                              paddle.to_tensor(y)).backward()
+        ref_opt.step()
+        ref_opt.clear_grad()
+    net, opt = build()
+    model, opt, _ = group_sharded_parallel(net, opt, level)
+    dp = fleet.get_hybrid_communicate_group().get_data_parallel_rank()
+    k = x.shape[0] // 2
+    xs = paddle.to_tensor(x[dp * k:(dp + 1) * k])
+    ys = paddle.to_tensor(y[dp * k:(dp + 1) * k])
+    for _ in range(2):
+        nn.CrossEntropyLoss()(model(xs), ys).backward()
+        opt.step()
+        opt.clear_grad()
+    return dict(got=[_np(p) for p in net.parameters()],
+                want=[_np(p) for p in ref.parameters()],
+                stage=opt.sharding_stage,
+                state=sum(t.numel() for t in opt._state.values()
+                          if t.dim()))
+
+
+def world4(rank, world, tmp, inputs):
+    _join(rank, world, tmp)
+    out = _collectives(rank, world)
+    out.update(_data_parallel(rank, world, inputs))
+    fleet = _fleet(mp=2, dp=2)
+    hcg = fleet.get_hybrid_communicate_group()
+    out["groups"] = {
+        "dp": hcg.get_data_parallel_group().ranks,
+        "mp": hcg.get_model_parallel_group().ranks,
+        "pp": hcg.get_pipe_parallel_group().ranks,
+        "sharding": hcg.get_sharding_parallel_group().ranks,
+        "sep": hcg.get_sep_parallel_group().ranks,
+        "dp_src": hcg.get_data_parallel_group_src_rank(),
+        "mp_src": hcg.get_model_parallel_group_src_rank(),
+        "coord": (hcg.get_data_parallel_rank(),
+                  hcg.get_model_parallel_rank())}
+    out["steps"] = {s: _train_steps(rank, inputs, s) for s in (0, 1, 2)}
+    out["zero_eager"] = {lv: _zero_eager(rank, inputs, lv)
+                         for lv in ("os", "os_g")}
+    return out
+
+
+# -- the 2-rank world (mp=2): TP layers, LLaMA, BERT, a clipped step -------
+
+def _tp_layers(rank, inputs):
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
+        VocabParallelEmbedding)
+    from paddle_tpu_torch.nn import functional as F
+    t = inputs["tp"]
+    col = ColumnParallelLinear(16, 32, gather_output=False)
+    row = RowParallelLinear(32, 16, input_is_parallel=True)
+    with torch.no_grad():
+        col.weight._data.copy_(torch.from_numpy(
+            t["w1"][:, rank * 16:(rank + 1) * 16]))
+        col.bias._data.copy_(torch.from_numpy(t["b1"][rank * 16:
+                                                      (rank + 1) * 16]))
+        row.weight._data.copy_(torch.from_numpy(
+            t["w2"][rank * 16:(rank + 1) * 16]))
+        row.bias._data.copy_(torch.from_numpy(t["b2"]))
+    x = paddle.to_tensor(t["x"], stop_gradient=False)
+    out = row(F.relu(col(x)))
+    (out * paddle.to_tensor(t["cot"])).sum().backward()
+    res = dict(mlp_out=_np(out), mlp_dx=_np(x.grad),
+               mlp_dw1=_np(col.weight.grad), mlp_db1=_np(col.bias.grad),
+               mlp_dw2=_np(row.weight.grad), mlp_db2=_np(row.bias.grad),
+               distributed=(col.weight.is_distributed,
+                            row.weight.is_distributed,
+                            row.bias.is_distributed))
+    emb = VocabParallelEmbedding(32, 8)
+    with torch.no_grad():
+        emb.weight._data.copy_(torch.from_numpy(
+            t["emb"][rank * 16:(rank + 1) * 16]))
+    e = emb(paddle.to_tensor(t["ids"]))
+    (e * paddle.to_tensor(t["ecot"])).sum().backward()
+    logits = paddle.to_tensor(t["logits"][..., rank * 16:(rank + 1) * 16],
+                              stop_gradient=False)
+    ce = ParallelCrossEntropy()(logits, paddle.to_tensor(t["labels"]))
+    ce.sum().backward()
+    res.update(emb_out=_np(e), emb_dw=_np(emb.weight.grad), ce=_np(ce),
+               ce_dlogits=_np(logits.grad))
+    return res
+
+
+def _llama_grads(rank, inputs, fused):
+    import dataclasses
+
+    import torch
+
+    from paddle_tpu_torch.bridge import llama_state_from_numpy
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig(**inputs["llama_cfg"])
+    cfg = dataclasses.replace(cfg, fused_linear_ce=fused)
+    net = LlamaForCausalLM(cfg, device="cpu")
+    net.load_state_dict(llama_state_from_numpy(inputs["llama_params"],
+                                               rank, 2))
+    ids = torch.from_numpy(inputs["batch"])
+    if fused:
+        loss = net(ids, labels=ids)
+    else:
+        logits = net(ids)
+        loss = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                               ids.reshape(-1))
+    loss.backward()
+    return dict(loss=float(loss),
+                grads={n: _np(p.grad) for n, p in net.named_parameters()})
+
+
+def _bert_grads(rank, inputs, fused):
+    import dataclasses
+
+    import torch
+
+    from paddle_tpu_torch.bridge import bert_state_from_numpy
+    from paddle_tpu_torch.text.models import BertConfig, BertForPretraining
+    cfg = dataclasses.replace(BertConfig(**inputs["bert_cfg"]),
+                              fused_mlm_ce=fused)
+    net = BertForPretraining(cfg, device="cpu", mp_degree=2)
+    net.load_state_dict(bert_state_from_numpy(inputs["bert_params"], rank,
+                                              2))
+    b = inputs["bert_batch"]
+    loss, _ = net(torch.from_numpy(b["ids"]), torch.from_numpy(b["types"]),
+                  labels=torch.from_numpy(b["labels"]),
+                  attention_mask=torch.from_numpy(b["mask"]))
+    loss.backward()
+    return dict(loss=float(loss),
+                grads={n: np.zeros(tuple(p.shape), np.float32)
+                       if p.grad is None else _np(p.grad)
+                       for n, p in net.named_parameters()})
+
+
+def _clipped_step(rank, inputs):
+    res = _train_steps(rank, inputs, 0)
+    return dict(losses=res["losses"], params=res["params"])
+
+
+def _rng(rank):
+    import torch
+
+    from paddle_tpu_torch.distributed.fleet.layers.mpu import random as R
+    R.model_parallel_random_seed(1234)
+    x = torch.ones(4096)
+    return dict(inside=_np(R.dropout(x, p=0.5)),
+                outside=_np(R.dropout(x, p=0.5, rng_name=None)),
+                seed=R.determinate_seed(R.MODEL_PARALLEL_RNG))
+
+
+def world2(rank, world, tmp, inputs):
+    _join(rank, world, tmp)
+    _fleet(mp=2)
+    out = dict(layers=_tp_layers(rank, inputs), rng=_rng(rank))
+    out["llama"] = {f: _llama_grads(rank, inputs, f) for f in (False, True)}
+    out["bert"] = {f: _bert_grads(rank, inputs, f) for f in (False, True)}
+    out["clipped"] = _clipped_step(rank, inputs)
+    return out
+
+
+# -- on the card (tests/test_torch_kernels_cuda.py) ------------------------
+
+def _store(tmp, world):
+    import torch.distributed as tdist
+    return tdist.FileStore(os.path.join(tmp, "store"), world)
+
+
+def cuda_gloo(rank, world, tmp, inputs):
+    """Two ranks on one card: the backend rule picks gloo, and the
+    collectives stage their CUDA tensors through host memory."""
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.distributed import env
+    env.init_parallel_env(store=_store(tmp, world), rank=rank,
+                          world_size=world)
+    monitor.reset()
+    t = torch.full((1 << 16,), float(rank + 1), device="cuda")
+    dist.all_reduce(t)
+    got = []
+    dist.all_gather(got, torch.full((4,), float(rank), device="cuda"))
+    b = torch.full((4,), float(rank), device="cuda")
+    dist.broadcast(b, src=1)
+    return dict(backend=env.backend(), device=str(env.device()),
+                on_cuda=t.is_cuda and all(g.is_cuda for g in got),
+                all_reduce=_np(t[:4]), all_gather=[_np(g) for g in got],
+                broadcast=_np(b), staged=dist.communication.staged_bytes())
+
+
+def cuda_nccl_shared(rank, world, tmp, inputs):
+    """Two ranks on one card forced onto NCCL: NCCL refuses it."""
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import env
+    env.init_parallel_env(backend="nccl", store=_store(tmp, world),
+                          rank=rank, world_size=world)
+    t = torch.ones(4, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return dict(value=_np(t))
