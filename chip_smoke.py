@@ -5,6 +5,9 @@ NVIDIA GPU.
     python3 chip_smoke.py            # from the repository root
     python3 chip_smoke.py --dist-fault   # phase 28 (b)'s gates against a
                                          # planted TP fault (alone)
+    python3 chip_smoke.py --pipe-fault   # phase 29 (a)'s and (b)'s gates
+                                         # against planted pipeline faults,
+                                         # one a run
 
 Every phase is fatal (any failure exits non-zero and prints no result):
 
@@ -560,6 +563,36 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    (d) the two ranks' o_proj shards swapped must fail (b)'s f32 gate.
    Per run: the backend, ms a step (events), the staged bytes and host
    ms of the collectives a step by op, peak GB, and the phase's seconds.
+29. pipeline parallelism and ZeRO-3: two pp ranks sharing the card
+   under gloo (``chip_smoke.py --dist-rank p``): (b) LLaMA-7B widths in
+   f32 at 2 x 256, 2 microbatches, one ``train_batch`` (SGD at lr 0) and
+   the forward in FThenB, 1F1B, ZBH1 (2 layers), VPP and ZBVPP
+   (vpp_degree 2, 4 layers), a 1 + 3 layer split and the tied head (2
+   layers): the loss, the logits and every gradient of each stage within
+   closeness's f32 gate of a one-rank model from the same seed; (a)
+   phase 9's configuration through ``fleet.init(pp_degree=2)`` ->
+   ``build_llama_pipe`` -> ``distributed_model`` (``PipelineParallel``,
+   1F1B, 4 microbatches of 3 x 1024, AMP bf16) ->
+   ``distributed_optimizer`` -> ``train_batch`` for 6 steps: each loss
+   within (b)'s ``_loss_gate`` of phase 28 (a)'s, each stage launching
+   its 2 layers x 4 x 6 wgmma forward, dQ and dK/dV and 6 fused Adam,
+   the bytes staged by send and by recv a step equal to 4 boundary
+   activations (3 x 1024 x 4096 bf16) to the byte; (c) the MPMD modes
+   ("MPMD", "MPMD-ZBH1") in this process, both stages on the card, at
+   (b)'s first model: within the f32 gate of the one-rank model and of
+   (b)'s FThenB loss (gradient norms within 1e-4), a graph with a
+   dropped receive refused by ``MpmdDriver``; (d) the same two ranks
+   re-cut as dp=2, ZeRO-3 at 2 layers, 2 steps: losses within the gate
+   of phase 28 (c)'s one-rank run, each rank holding at most 0.505 of
+   one rank's parameters (+ the unsliced, printed) and 0.500-0.505 of
+   its optimizer state. (b) holds each gradient to closeness's f32 gate
+   at its own scale (atol 1e-4 of its max |ref|), and (c) holds
+   MPMD-ZBH1's dQ and dK/dV launches to MPMD's (no backward node runs
+   twice). ``--pipe-fault`` plants three faults, each in its own run: a
+   stage sending the previous microbatch's activation (exits 0 only when
+   (a)'s and (b)'s gates both fail it), the tied weight's gradient not
+   all-reduced between its stages, and each stage's first W event of
+   ZBH1 / ZBVPP skipped (each only when (b)'s gradient gate fails it).
 
 It prints the card line, a {"kernels": [...]} line (the tensor-core
 forward, dQ and dK/dV as ``flash_fwd`` / ``flash_bwd_dq`` /
@@ -8872,12 +8905,15 @@ def _dist_train(torch, mods, model_cfg, stage, steps, distributed):
             fleet.distributed_optimizer(opt), amp_dtype="bfloat16",
             sharding_stage=stage)
         state_bytes = step.opt_state_bytes()
+        param_bytes = step.parameter_bytes()
     else:
         step = mods.TrainStep(model, lambda out, lab: out, opt,
                               amp_dtype="bfloat16")
         state_bytes = sum(t.numel() * t.element_size()
                           for s in step.opt_state.values()
                           for t in s.values())
+        n = sum(p.numel() * p.element_size() for p in model.parameters())
+        param_bytes = dict(sliced=0, whole=n, total=n)
     gen = torch.Generator(device="cuda").manual_seed(4)
     ids, labels = (torch.randint(0, cfg.vocab_size,
                                  (mods.train.BATCH, mods.train.SEQ),
@@ -8899,7 +8935,7 @@ def _dist_train(torch, mods, model_cfg, stage, steps, distributed):
                ms_per_step=sorted(ms[1:])[len(ms[1:]) // 2] if steps > 1
                else ms[0],
                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-               opt_state_bytes=state_bytes,
+               opt_state_bytes=state_bytes, param_bytes=param_bytes,
                params=sum(p.numel() for p in model.parameters()),
                launches={"flash_fwd": mods.fa.flash_fwd.launches,
                          "flash_bwd_dq": mods.fa.flash_bwd.launches_dq,
@@ -8994,21 +9030,29 @@ def _dist_p2p(torch, rank, world_group):
 
 
 def dist_rank_main(argv):
-    """Phase 28's rank, started by the port's launcher: ``b`` (mp=2: the
-    f32 check, the negative control, P2P, then phase 9's bf16 training
-    for TRAIN_STEPS steps) or ``c`` (dp=2, ZeRO-1: DIST_ZERO_LAYERS
-    layers, DIST_ZERO_STEPS steps). Writes ``rank<r>.json`` to --out."""
+    """Phase 28's and 29's rank, started by the port's launcher: ``b``
+    (mp=2: the f32 check, the negative control, P2P, then phase 9's bf16
+    training for TRAIN_STEPS steps), ``c`` (dp=2, ZeRO-1:
+    DIST_ZERO_LAYERS layers, DIST_ZERO_STEPS steps), ``p`` (pp=2: phase
+    29 (b)'s f32 gate in every schedule, then (a), phase 9's pipeline for
+    TRAIN_STEPS steps, then (d), the world re-cut as dp=2 for ZeRO-3 at
+    DIST_ZERO_LAYERS layers, PIPE_ZERO3_STEPS steps). Writes
+    ``rank<r>.json`` to --out."""
     import argparse
     p = argparse.ArgumentParser(prog="chip_smoke.py --dist-rank")
-    p.add_argument("which", choices=("b", "c"))
+    p.add_argument("which", choices=("b", "c", "p"))
     p.add_argument("--out", required=True)
-    p.add_argument("--plant-fault", action="store_true",
-                   help="_c_identity's backward without its all-reduce "
-                        "(``--dist-fault``)")
+    p.add_argument("--plant-fault", nargs="?", const="on",
+                   choices=("on",) + tuple(PIPE_FAULTS),
+                   help="b: _c_identity's backward without its all-reduce "
+                        "(``--dist-fault``); p: one of PIPE_FAULTS "
+                        "(``--pipe-fault``)")
     args = p.parse_args(argv)
     t0 = time.perf_counter()
     import torch
-    if args.plant_fault:
+    if args.plant_fault and args.which == "p":
+        _plant_pipe_fault(args.plant_fault)
+    elif args.plant_fault:
         from paddle_tpu_torch.distributed.fleet.layers.mpu import mp_ops
         mp_ops._Identity.backward = staticmethod(lambda ctx, g: (g, None))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -9027,7 +9071,7 @@ def dist_rank_main(argv):
                            TrainStep=TrainStep, fa=fa, fad=fad)
     s = fleet.DistributedStrategy()
     s.hybrid_configs = {"mp_degree": 2} if args.which == "b" \
-        else {"dp_degree": 2}
+        else {"pp_degree": 2} if args.which == "p" else {"dp_degree": 2}
     fleet.init(is_collective=True, strategy=s)
     hcg = fleet.get_hybrid_communicate_group()
     rank = env.get_rank()
@@ -9041,11 +9085,29 @@ def dist_rank_main(argv):
         rec["p2p_ok"] = _dist_p2p(torch, rank, None)
         rec["run"] = _dist_train(torch, mods, train.MODEL, 0, TRAIN_STEPS,
                                  True)
-    else:
+    elif args.which == "c":
         rec["run"] = _dist_train(
             torch, mods, {**train.MODEL,
                           "num_hidden_layers": DIST_ZERO_LAYERS},
             1, DIST_ZERO_STEPS, True)
+    elif args.plant_fault and PIPE_FAULTS.get(args.plant_fault) is not None:
+        rec["f32"] = _pipe_f32_check(torch, mods, [
+            c for c in PIPE_F32_CASES
+            if _pipe_case_name(*c) in PIPE_FAULTS[args.plant_fault]])
+    else:
+        rec["f32"] = _pipe_f32_check(torch, mods)
+        rec["run"] = _pipe_train(torch, mods, TRAIN_STEPS)
+        if not args.plant_fault:
+            # (d) in the same processes, the world re-cut as dp=2
+            s = fleet.DistributedStrategy()
+            s.hybrid_configs = {"dp_degree": 2}
+            fleet.init(is_collective=True, strategy=s)
+            rec["dp"] = fleet.get_hybrid_communicate_group() \
+                .get_data_parallel_world_size()
+            rec["zero3"] = _dist_train(
+                torch, mods, {**train.MODEL,
+                              "num_hidden_layers": DIST_ZERO_LAYERS},
+                3, PIPE_ZERO3_STEPS, True)
     rec["seconds"] = time.perf_counter() - t0
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -9059,13 +9121,14 @@ def dist_rank_main(argv):
 def _dist_launch(which, timeout=DIST_RANK_TIMEOUT, fault=False):
     """Two ranks of ``chip_smoke.py --dist-rank which`` through the port's
     launcher (subprocesses sharing the card); any exit but 0 fails."""
-    out = OUT_DIR / f"dist_{which}{'_fault' if fault else ''}"
+    kind = fault if isinstance(fault, str) else "on"
+    out = OUT_DIR / f"dist_{which}{'_fault_' + kind if fault else ''}"
     for f in out.glob("rank*.json"):
         f.unlink()
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
            "--nproc_per_node", "2", "--log_dir", str(out),
            str(ROOT / "chip_smoke.py"), "--dist-rank", which, "--out",
-           str(out)] + (["--plant-fault"] if fault else [])
+           str(out)] + (["--plant-fault", kind] if fault else [])
     t0 = time.perf_counter()
     run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                          timeout=timeout)
@@ -9328,6 +9391,535 @@ def dist_main_path(torch, mods, launches_of, reset_counts, card):
           f"{secs:.1f} s ((b) {b['process_s']:.1f} s, (c) "
           f"{c['process_s']:.1f} s of launcher time) on {card}", flush=True)
     return rec
+
+
+# -- phase 29: pipeline parallelism and ZeRO-3 -----------------------------
+
+#: (a): phase 9's LLaMA at pp=2 (two gloo ranks on the card), 1F1B over
+#: PIPE_M microbatches of 3 x 1024
+PIPE_M, PIPE_MODE = 4, "1F1B"
+#: (b): the f32 gate, LLaMA-7B widths at DIST_F32_BATCH x DIST_F32_SEQ in
+#: PIPE_F32_M microbatches: (schedule, layers, vpp_degree, seg_method,
+#: tied head) against a one-rank f32 model from the same seed
+PIPE_F32_M = 2
+PIPE_F32_CASES = (("FThenB", 2, 1, "uniform", False),
+                  ("1F1B", 2, 1, "uniform", False),
+                  ("VPP", 4, 2, "uniform", False),
+                  ("ZBH1", 2, 1, "uniform", False),
+                  ("ZBVPP", 4, 2, "uniform", False),
+                  ("FThenB", 4, 1, [2, 5], False),     # 1 + 3 layers
+                  ("FThenB", 2, 1, "uniform", True))   # the tied head
+#: (c): the one-process MPMD modes at (b)'s first model
+PIPE_MPMD_MODES = ("MPMD", "MPMD-ZBH1")
+#: (b)'s gradient gate: closeness's f32 gate at each gradient's own scale
+#: (atol this fraction of its max |ref|), not of max(1, max |ref|)
+PIPE_GRAD_ATOL = 1e-4
+#: ``--pipe-fault``'s planted faults, each in its own run, and the (b)
+#: cases whose gradient gate must fail it (None: every case, and (a)'s
+#: loss gate too)
+PIPE_FAULTS = {"stale": None,
+               "shared": ("FThenB_2l_tied",),
+               "w": ("ZBH1_2l", "ZBVPP_4l_v2")}
+#: (d): ZeRO-3's steps (the first of phase 28 (c)'s one-rank run's), its
+#: resident parameters a rank (the sliced ones) and its optimizer state,
+#: over one rank's
+PIPE_ZERO3_STEPS = 2
+PIPE_ZERO3_PARAM_SHARE = 0.505
+PIPE_ZERO3_STATE_SHARE = (0.500, 0.505)
+
+
+def _pipe_case_name(mode, layers, vpp, seg, tied):
+    return (f"{mode}_{layers}l" + (f"_v{vpp}" if vpp > 1 else "")
+            + ("_seg" + "+".join(map(str, seg)) if isinstance(seg, list)
+               else "") + ("_tied" if tied else ""))
+
+
+def _plant_pipe_fault(kind):
+    """``--pipe-fault``'s planted fault ``kind`` in a pp rank: "stale",
+    every stage sends the previous microbatch's activation in place of
+    its own (from the second message on); "shared", the stages holding a
+    shared weight keep their own parts of its gradient (no all-reduce);
+    "w", each stage skips its first W event (microbatch 0's weight
+    gradients) under ZBH1 / ZBVPP."""
+    from paddle_tpu_torch.distributed import pipeline as P
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import pp_layers
+    orig = P.StageRunner._event
+
+    def stale(self, ev, ops, inbox, produced, slots):
+        orig(self, ev, ops, inbox, produced, slots)
+        if ev.phase == "fwd":
+            prev = self.__dict__.setdefault("_planted_prev", {})
+            for msg in ev.sends:
+                key = (tuple(msg.tag), msg.peer)
+                mine = produced[key]
+                old = prev.get(msg.peer)
+                prev[msg.peer] = mine
+                if old is not None and old.shape == mine.shape:
+                    produced[key] = old
+
+    def skip_w(self, ev, ops, inbox, produced, slots):
+        if ev.phase == "w" and ev.micro == 0 and ev.chunk == 0:
+            slots.pop(ev.reads[0])
+            return
+        orig(self, ev, ops, inbox, produced, slots)
+
+    if kind == "stale":
+        P.StageRunner._event = stale
+    elif kind == "w":
+        P.StageRunner._event = skip_w
+    elif kind == "shared":
+        pp_layers.PipelineLayer.allreduce_shared_weight_gradients = \
+            lambda self: None
+    else:
+        raise ValueError(f"unknown pipeline fault {kind!r}")
+
+
+def _pipe_reference(torch, mods, cfg, ids):
+    """The one-rank f32 model of (b) / (c) from seed 1: its loss, logits
+    and gradients (built with no mesh: a whole model)."""
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    saved = mesh_mod.get_mesh()
+    mesh_mod.set_mesh(None)
+    try:
+        ref = mods.LlamaForCausalLM(cfg, seed=1)
+    finally:
+        mesh_mod.set_mesh(saved)
+    want = ref(ids, labels=ids)
+    want.backward()
+    with torch.no_grad():
+        logits = ref(ids)
+    grads = {n: p.grad for n, p in ref.named_parameters()}
+    del ref
+    return want.detach(), logits, grads
+
+
+def _pipe_f32_ids(torch):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    return torch.randint(0, 32000, (DIST_F32_BATCH, DIST_F32_SEQ),
+                         generator=gen, device="cuda")
+
+
+def _pipe_closeness(torch, model, loss, logits, want, want_logits,
+                    ref_grads, rename):
+    """closeness's f32 gate of a pipeline's loss, output and gradients
+    (this rank's stage) against the one-rank model's."""
+    g = {}
+    for n, p in model.named_parameters():
+        ref = ref_grads[rename(n)]
+        g[n] = closeness(p.grad, ref, atol=PIPE_GRAD_ATOL *
+                         float(ref.float().abs().max()))
+    rec = dict(loss=closeness(loss.reshape(()), want),
+               loss_value=float(loss),
+               grads_ratio=max(c["ratio"] for c in g.values()),
+               grads_worst=max(g, key=lambda n: g[n]["ratio"]),
+               n_grads=len(g),
+               grad_norms={n: float(p.grad.float().norm())
+                           for n, p in model.named_parameters()})
+    if logits is not None:
+        rec["logits"] = closeness(logits, want_logits)
+    rec["ratio"] = max([rec["loss"]["ratio"], rec["grads_ratio"]]
+                       + ([rec["logits"]["ratio"]] if logits is not None
+                          else []))
+    return rec
+
+
+def _pipe_f32_check(torch, mods, cases=PIPE_F32_CASES):
+    """(b), on a pp=2 rank: each case's one f32 train_batch (SGD at lr 0,
+    so the gradients stay in .grad) and its forward against the one-rank
+    model of its layers from the same seed: closeness's f32 gate on the
+    loss, the logits (the last stage) and every gradient of this rank's
+    stage."""
+    from paddle_tpu_torch import bridge, optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.text.models import build_llama_pipe
+    ids = _pipe_f32_ids(torch)
+    refs, out = {}, {}
+    for mode, layers, vpp, seg, tied in cases:
+        cfg = mods.LlamaConfig(**{**mods.train.MODEL,
+                                  "num_hidden_layers": layers,
+                                  "tie_word_embeddings": tied})
+        if (layers, tied) not in refs:
+            refs.clear()
+            free_cuda(torch)
+            refs[(layers, tied)] = _pipe_reference(torch, mods, cfg, ids)
+        want, want_logits, ref_grads = refs[(layers, tied)]
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs = {"pp_degree": 2}
+        s.pipeline_configs = {"accumulate_steps": PIPE_F32_M,
+                              "schedule_mode": mode, "vpp_degree": vpp}
+        fleet.init(is_collective=True, strategy=s)
+        model = fleet.distributed_model(build_llama_pipe(
+            cfg, seed=1, seg_method=seg))
+        loss = model.train_batch(
+            (ids, ids), optimizer.SGD(0.0, parameters=model.parameters()))
+        logits = model.eval_batch((ids, None), compute_loss=False)
+        rec = _pipe_closeness(torch, model, loss, logits, want, want_logits,
+                              ref_grads, bridge._pipe_to_llama_names(
+                                  layers, tied))
+        rec["names"] = sorted(n for n, _ in model.named_parameters())
+        out[_pipe_case_name(mode, layers, vpp, seg, tied)] = rec
+        del model, loss, logits
+        free_cuda(torch)
+    refs.clear()
+    free_cuda(torch)
+    return out
+
+
+def _pipe_train(torch, mods, steps):
+    """(a), on a pp=2 rank: phase 9's configuration through fleet.init
+    (pp_degree 2, PIPE_MODE over PIPE_M microbatches, AMP bf16) ->
+    build_llama_pipe -> distributed_model -> distributed_optimizer ->
+    train_batch for ``steps`` steps on phase 9's batch (seed 4), the model
+    from seed 0; counts read around the steps."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.text.models import build_llama_pipe
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"pp_degree": 2}
+    s.pipeline_configs = {"accumulate_steps": PIPE_M,
+                          "schedule_mode": PIPE_MODE}
+    s.amp = True
+    fleet.init(is_collective=True, strategy=s)
+    cfg = mods.LlamaConfig(**mods.train.MODEL)
+    model = fleet.distributed_model(build_llama_pipe(cfg, seed=0))
+    opt = fleet.distributed_optimizer(mods.AdamW(
+        3e-4, parameters=model.parameters(), moment_dtype="bfloat16"))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ids, labels = (torch.randint(0, cfg.vocab_size,
+                                 (mods.train.BATCH, mods.train.SEQ),
+                                 generator=gen, device="cuda")
+                   for _ in range(2))
+    stage = fleet.get_hybrid_communicate_group().get_stage_id()
+    layers = sum(1 for n, _ in model.named_parameters()
+                 if n.endswith("input_layernorm.weight"))
+    _dist_counts(torch, mods.fa, mods.fad, monitor)
+    losses, ms = [], []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = model.train_batch((ids, labels), opt)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses.append(float(loss))
+    counters = dict(monitor.snapshot())
+    act = (mods.train.BATCH // PIPE_M) * mods.train.SEQ * \
+        cfg.hidden_size * 2
+    rec = dict(losses=losses, step_ms=ms,
+               ms_per_step=sorted(ms[1:])[len(ms[1:]) // 2],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               stage=stage, stage_layers=layers,
+               params=sum(p.numel() for p in model.parameters()),
+               names=sorted(n for n, _ in model.named_parameters()),
+               boundary_bytes=act,
+               runner=dict(model.last_runner.stats),
+               launches={"flash_fwd": mods.fa.flash_fwd.launches,
+                         "flash_bwd_dq": mods.fa.flash_bwd.launches_dq,
+                         "flash_bwd_dkv": mods.fa.flash_bwd.launches_dkv,
+                         "fused_adam": mods.fad.fused_adam_launch.launches},
+               counters={k: v for k, v in counters.items()
+                         if k.startswith("kernels.")},
+               comm=_dist_comm(counters, steps))
+    del model, opt, loss
+    free_cuda(torch)
+    return rec
+
+
+def _pipe_mpmd(torch, mods, reset_counts, launches_of, fthenb):
+    """(c): ``PipelineParallel`` in the MPMD modes in this process, both
+    stages on the card (stage_devices), at (b)'s first model: one f32
+    train_batch (SGD at lr 0) and the forward against the one-rank model
+    (the f32 gate) and against (b)'s FThenB loss and gradient norms; a
+    graph with a dropped receive must be refused by ``MpmdDriver``."""
+    from paddle_tpu_torch import bridge, monitor, optimizer
+    from paddle_tpu_torch.distributed import mpmd_graph as mg
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        PipelineParallel
+    from paddle_tpu_torch.distributed.mpmd_runtime import (
+        MpmdDriver, MpmdGraphRejected)
+    from paddle_tpu_torch.text.models import build_llama_pipe
+    mode0, layers, vpp, seg, tied = PIPE_F32_CASES[0]
+    cfg = mods.LlamaConfig(**{**mods.train.MODEL,
+                              "num_hidden_layers": layers})
+    ids = _pipe_f32_ids(torch)
+    want, want_logits, ref_grads = _pipe_reference(torch, mods, cfg, ids)
+    rename = bridge._pipe_to_llama_names(layers, False)
+    out = {}
+    for mode in PIPE_MPMD_MODES:
+        s = DistributedStrategy()
+        s.pipeline_configs = {"accumulate_steps": PIPE_F32_M,
+                              "schedule_mode": mode}
+        model = PipelineParallel(build_llama_pipe(cfg, num_stages=2, seed=1),
+                                 strategy=s)
+        reset_counts()
+        loss = model.train_batch(
+            (ids, ids), optimizer.SGD(0.0, parameters=model.parameters()))
+        torch.cuda.synchronize()
+        launches = launches_of()
+        counters = {k: v for k, v in monitor.snapshot().items()
+                    if k.startswith("kernels.")}
+        logits = model.eval_batch((ids, None), compute_loss=False)
+        rec = _pipe_closeness(torch, model, loss, logits, want, want_logits,
+                              ref_grads, rename)
+        norms = rec.pop("grad_norms")
+        rec["loss_equal_to_fthenb"] = rec["loss_value"] == \
+            fthenb["loss_value"]
+        rec["grad_norms_rel_to_fthenb"] = max(
+            abs(norms[n] - g) / max(abs(g), 1e-30)
+            for n, g in fthenb["grad_norms"].items())
+        rec["fthenb_loss"] = closeness(torch.tensor(rec["loss_value"]),
+                                       torch.tensor(fthenb["loss_value"]))
+        rec.update(launches=launches, counters=counters,
+                   driver=model.mpmd_driver.stats(),
+                   devices=[str(d) for d in model._devices])
+        out[mode] = rec
+        del model, loss, logits
+        free_cuda(torch)
+    del want, want_logits, ref_grads
+    free_cuda(torch)
+    g = mg.schedule_graph("FThenB", 2, PIPE_F32_M)
+    g.programs[1][0].recvs.clear()          # stage 1's first receive
+    try:
+        MpmdDriver(g)
+        out["refused"] = None
+    except MpmdGraphRejected as e:
+        out["refused"] = list(e.rules)
+    return out
+
+
+def pipe_main_path(torch, mods, launches_of, reset_counts, card, dist):
+    """Phase 29: pipeline parallelism and ZeRO-3. (b) then (a) on two pp
+    ranks sharing the card under gloo (the port's launcher,
+    ``--dist-rank p``): (b) the f32 gate in every schedule, the 1 + 3
+    split and the tied head, each against a one-rank f32 model; (a)
+    phase 9's LLaMA at pp=2, PIPE_MODE, TRAIN_STEPS bf16 steps, each
+    loss within ``_loss_gate`` of phase 28 (a)'s (a one-rank step from
+    the same seed, bit-equal to TrainStep's), the boundary's bytes staged
+    to the byte, each stage's flash launches = its layers x PIPE_M x
+    steps; (c) the MPMD modes in this process (both stages on the card)
+    within the f32 gate of the one-rank model and of (b)'s FThenB, a
+    defective graph refused; (d) the same two ranks re-cut as dp=2,
+    ZeRO-3 at DIST_ZERO_LAYERS for PIPE_ZERO3_STEPS steps against phase
+    28 (c)'s one-rank run: losses within ``_loss_gate``, each rank's
+    resident parameters and optimizer state a half of one rank's."""
+    t_phase = time.perf_counter()
+    free_cuda(torch)
+    p = _dist_launch("p")
+    # (b)
+    cases = {}
+    for r in p["ranks"]:
+        for name, rec in r["f32"].items():
+            cases.setdefault(name, []).append(rec)
+    b_ratio = {n: max(c["ratio"] for c in recs) for n, recs in cases.items()}
+    if max(b_ratio.values()) > 1:
+        fail(f"phase 29 (b): a pipeline outside closeness's f32 gate: "
+             f"{b_ratio}")
+    for name, recs in cases.items():
+        names = [set(r["names"]) for r in recs]
+        tied = name.endswith("_tied")
+        if (names[0] & names[1]) != ({"0.weight"} if tied else set()):
+            fail(f"phase 29 (b) {name}: the stages' parameters overlap: "
+                 f"{sorted(names[0] & names[1])}")
+    # (a)
+    want = dist["a"]["losses"]
+    exp_layers = mods.train.MODEL["num_hidden_layers"] // 2
+    for r in p["ranks"]:
+        run = r["run"]
+        ratio, rel = _loss_gate(run["losses"], want)
+        run["loss_gate_ratio"], run["loss_rel_to_one_rank"] = ratio, rel
+        if r["backend"] != "gloo" or ratio > 1:
+            fail(f"phase 29 (a): rank {r['rank']} ({r['backend']}) losses "
+                 f"{run['losses']} vs one rank's {want}: gate ratio "
+                 f"{ratio:.3f} (relative {rel:.2e})")
+        k = exp_layers * PIPE_M * TRAIN_STEPS
+        if run["stage_layers"] != exp_layers or \
+                {run["launches"][n] for n in ("flash_fwd", "flash_bwd_dq",
+                                              "flash_bwd_dkv")} != {k} \
+                or run["launches"]["fused_adam"] != TRAIN_STEPS:
+            fail(f"phase 29 (a): rank {r['rank']} layers "
+                 f"{run['stage_layers']}, launches {run['launches']}")
+        run["routes"] = check_tc_routes(run["counters"], k,
+                                        f"phase 29 (a) rank {r['rank']}")
+        staged = PIPE_M * run["boundary_bytes"]
+        for op in ("send", "recv"):
+            got = run["comm"].get(op, {}).get("staged_bytes")
+            if got != staged:
+                fail(f"phase 29 (a): rank {r['rank']} staged {got} bytes a "
+                     f"step by {op}, the microbatches give {staged}")
+    # (c)
+    fthenb = [c for c in cases[_pipe_case_name(*PIPE_F32_CASES[0])]
+              if c.get("logits") is not None][0]
+    fthenb_norms = {}
+    for c in cases[_pipe_case_name(*PIPE_F32_CASES[0])]:
+        fthenb_norms.update(c["grad_norms"])
+    mpmd = _pipe_mpmd(torch, mods, reset_counts, launches_of,
+                      dict(loss_value=fthenb["loss_value"],
+                           grad_norms=fthenb_norms))
+    for mode in PIPE_MPMD_MODES:
+        c = mpmd[mode]
+        # each forward and each backward node once a microbatch: the
+        # zero-bubble W events run no dQ or dK/dV again
+        k = PIPE_F32_CASES[0][1] * PIPE_F32_M
+        if c["ratio"] > 1 or c["fthenb_loss"]["ratio"] > 1 or \
+                c["grad_norms_rel_to_fthenb"] > 1e-4 or \
+                {c["launches"][n] for n in ("flash_fwd", "flash_bwd_dq",
+                                            "flash_bwd_dkv")} != {k}:
+            fail(f"phase 29 (c): {mode}: {c}")
+    if not mpmd["refused"] or "mpmd.unmatched-p2p" not in mpmd["refused"]:
+        fail(f"phase 29 (c): MpmdDriver ran a graph with a dropped "
+             f"receive (refused: {mpmd['refused']})")
+    # (d), run by the same ranks after (a)
+    c_ref = dist["c_one_rank"]
+    want_z = DIST_ZERO_LAYERS * PIPE_ZERO3_STEPS
+    for r in p["ranks"]:
+        run = r["zero3"]
+        ratio, rel = _loss_gate(run["losses"],
+                                c_ref["losses"][:PIPE_ZERO3_STEPS])
+        run["loss_gate_ratio"], run["loss_rel_to_one_rank"] = ratio, rel
+        one = c_ref["param_bytes"]["total"]
+        pb = run["param_bytes"]
+        run["param_share"] = pb["sliced"] / one
+        run["param_whole_share"] = pb["whole"] / one
+        run["state_share"] = run["opt_state_bytes"] / \
+            c_ref["opt_state_bytes"]
+        lo, hi = PIPE_ZERO3_STATE_SHARE
+        if r["dp"] != 2 or ratio > 1 or \
+                run["param_share"] > PIPE_ZERO3_PARAM_SHARE or \
+                not lo <= run["state_share"] <= hi:
+            fail(f"phase 29 (d): rank {r['rank']}: dp {r['dp']}, losses "
+                 f"{run['losses']} vs one rank {c_ref['losses']} (gate "
+                 f"ratio {ratio:.3f}), parameter share "
+                 f"{run['param_share']:.4f} (+ whole "
+                 f"{run['param_whole_share']:.4f}), state share "
+                 f"{run['state_share']:.4f}")
+        if {run["launches"][k] for k in ("flash_fwd", "flash_bwd_dq",
+                                         "flash_bwd_dkv")} != {want_z} \
+                or run["launches"]["fused_adam"] != PIPE_ZERO3_STEPS:
+            fail(f"phase 29 (d): rank {r['rank']} launches {run['launches']}")
+        run["routes"] = check_tc_routes(run["counters"], want_z,
+                                        f"phase 29 (d) rank {r['rank']}")
+    secs = time.perf_counter() - t_phase
+
+    def comm_line(comm):
+        return ", ".join(f"{op} {v.get('staged_bytes', 0) / 1e6:.1f} MB "
+                         f"staged, {v.get('calls', 0):.0f} calls, "
+                         f"{v.get('host_ms', 0):.1f} host ms"
+                         for op, v in sorted(comm.items()))
+    g_ratio = {n: max(c["grads_ratio"] for c in recs)
+               for n, recs in cases.items()}
+    print(f"phase 29 (b): pp=2, 2 gloo ranks, f32 gate ratio by case "
+          + ", ".join(f"{n} {v:.3f} (gradients {g_ratio[n]:.3f})"
+                      for n, v in b_ratio.items())
+          + f" on {card}", flush=True)
+    for r in p["ranks"]:
+        run = r["run"]
+        print(f"phase 29 (a) rank {r['rank']} (stage {run['stage']}, "
+              f"{run['stage_layers']} layers, {run['params'] / 1e6:.1f} M "
+              f"parameters): losses {[round(x, 4) for x in run['losses']]} "
+              f"(gate ratio {run['loss_gate_ratio']:.3f}, relative "
+              f"{run['loss_rel_to_one_rank']:.2e}), "
+              f"{run['ms_per_step']:.1f} ms a step (events), peak "
+              f"{run['peak_gb']:.1f} GB, launches {run['launches']}; a "
+              f"step: {comm_line(run['comm'])}; {r['seconds']:.1f} s in "
+              f"the rank on {card}", flush=True)
+    for mode in PIPE_MPMD_MODES:
+        c = mpmd[mode]
+        print(f"phase 29 (c) {mode}: one process, stages on "
+              f"{c['devices']}: f32 gate ratio {c['ratio']:.3f}, loss "
+              f"{'==' if c['loss_equal_to_fthenb'] else '!='} (b)'s FThenB "
+              f"(ratio {c['fthenb_loss']['ratio']:.3f}), gradient norms "
+              f"within {c['grad_norms_rel_to_fthenb']:.1e}; launches "
+              f"{c['launches']}; driver {c['driver']}", flush=True)
+    print(f"phase 29 (c): a graph with a dropped receive refused: "
+          f"{mpmd['refused']}", flush=True)
+    for r in p["ranks"]:
+        run = r["zero3"]
+        print(f"phase 29 (d) rank {r['rank']}: ZeRO-3, losses "
+              f"{[round(x, 4) for x in run['losses']]} (gate ratio "
+              f"{run['loss_gate_ratio']:.3f}), parameters "
+              f"{run['param_share']:.4f} of one rank's (+ unsliced "
+              f"{run['param_whole_share']:.4f}), optimizer state "
+              f"{run['state_share']:.4f}, {run['ms_per_step']:.1f} ms a "
+              f"step, peak {run['peak_gb']:.1f} GB; a step: "
+              f"{comm_line(run['comm'])} on {card}", flush=True)
+    print(f"phase 29: {secs:.1f} s ((b), (a) and (d) {p['process_s']:.1f} "
+          f"s of launcher time) on {card}", flush=True)
+    return dict(p=p, mpmd=mpmd, b_ratio=b_ratio, seconds=secs, card=card)
+
+
+def pipe_fault_main():
+    """``chip_smoke.py --pipe-fault``: phase 29's gates against planted
+    pipeline faults, each in its own pair of pp ranks (``--dist-rank p
+    --plant-fault KIND``, PIPE_FAULTS): "stale" (each stage sends the
+    previous microbatch's activation) must fail (a)'s bf16 loss gate and
+    (b)'s f32 gate in every case; "shared" (the tied weight's gradient not
+    all-reduced) and "w" (a skipped ZB W event) must each fail (b)'s
+    gradient gate in their cases. Builds the kernels, runs phase 9's
+    configuration on one rank (a TrainStep) for TRAIN_STEPS bf16 steps,
+    then the faulted ranks; prints each gate's ratios. Exits 0 only when
+    every fault is caught."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device is visible")
+    from types import SimpleNamespace
+
+    from paddle_tpu_torch import profile_training as train
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import _build as build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_adam as fad
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    t0 = time.perf_counter()
+    build.build()
+    for name in build.SOURCES:
+        build.load(name)
+    mods = SimpleNamespace(train=train, LlamaConfig=LlamaConfig,
+                           LlamaForCausalLM=LlamaForCausalLM, AdamW=AdamW,
+                           TrainStep=TrainStep, fa=fa, fad=fad)
+    want = _dist_train(torch, mods, train.MODEL, 0, TRAIN_STEPS, False)
+    floor = DIST_BF16_FLOOR_OF_FIRST * abs(want["losses"][0])
+    missed = []
+    for kind, case_names in PIPE_FAULTS.items():
+        ranks = _dist_launch("p", fault=kind)["ranks"]
+        b, g = {}, {}
+        for r in ranks:
+            for name, rec in r["f32"].items():
+                b[name] = max(b.get(name, 0.0), rec["ratio"])
+                g[name] = max(g.get(name, 0.0), rec["grads_ratio"])
+        print(f"pipe fault {kind}: (b) f32 gate ratio by case "
+              + ", ".join(f"{n} {v:.1f} (gradients {g[n]:.1f})"
+                          for n, v in b.items()), flush=True)
+        if case_names is not None:
+            if sorted(g) != sorted(case_names) or \
+                    min(g.values()) <= 1:
+                missed.append(kind)
+            continue
+        a = []
+        for r in ranks:
+            got = r["run"]["losses"]
+            per = [abs(x - w) / max(DIST_BF16_RTOL * abs(w), floor)
+                   for x, w in zip(got, want["losses"])]
+            a.append(_loss_gate(got, want["losses"])[0])
+            print(f"pipe fault {kind}, rank {r['rank']}: losses "
+                  f"{[round(x, 5) for x in got]} against one rank's "
+                  f"{[round(x, 5) for x in want['losses']]}: bf16 gate "
+                  f"ratio a step {[round(x, 3) for x in per]}", flush=True)
+        if len(b) != len(PIPE_F32_CASES) or min(b.values()) <= 1 or \
+                min(a) <= 1:
+            missed.append(kind)
+    print(f"pipe fault: {time.perf_counter() - t0:.1f} s on {card}",
+          flush=True)
+    if missed:
+        fail(f"pipe fault: a gate passed the planted fault(s) {missed}")
 
 
 # -- phases 4 and 5: the main path -----------------------------------------
@@ -9705,6 +10297,14 @@ def main():
     distributed = dist_main_path(torch, mods, launches_of, reset_counts,
                                  card)
 
+    # 29. pipeline parallelism and ZeRO-3: two pp ranks sharing the card
+    # (the f32 gate in every schedule, then phase 9's LLaMA at pp=2, each
+    # rank's counts around its steps), the MPMD modes in this process
+    # (counts around each train_batch), two dp ranks at ZeRO-3 (each
+    # rank's counts around its steps)
+    pipe = pipe_main_path(torch, mods, launches_of, reset_counts, card,
+                          distributed)
+
     src = "paddle_tpu_torch/csrc/"
 
     def replay_by_path(kernel):
@@ -9743,7 +10343,16 @@ def main():
                  **{f"dist_mp2_rank{r['rank']}": r["run"]
                     for r in distributed["b"]["ranks"]},
                  **{f"dist_zero1_rank{r['rank']}": r["run"]
-                    for r in distributed["c"]["ranks"]}}
+                    for r in distributed["c"]["ranks"]},
+                 # phase 29's bf16 counted runs: (a) each pp rank, (d)
+                 # each ZeRO-3 rank
+                 **{f"pipe_pp2_rank{r['rank']}": r["run"]
+                    for r in pipe["p"]["ranks"]},
+                 **{f"pipe_zero3_rank{r['rank']}": r["zero3"]
+                    for r in pipe["p"]["ranks"]}}
+    # phase 29 (c)'s f32 counted runs (the MPMD modes in this process)
+    pipe_f32 = {f"pipe_{m.lower()}": pipe["mpmd"][m]
+                for m in PIPE_MPMD_MODES}
     tc_paths = {"training": training, "moe_training": moe_training,
                 "bert_training": bert_training, "eager_training": eager,
                 **{f"recipe_{g}": r for g, r in recipe["runs"].items()},
@@ -9759,7 +10368,8 @@ def main():
                  "replay_embedding_fixture": replay["embedding_fixture"],
                  "hapi": hapi, "predictor": predictor,
                  "bert_crf_f32": signal["crf"]["f32"],
-                 "static_serving_f32": static["serving"]["f32"]}
+                 "static_serving_f32": static["serving"]["f32"],
+                 **pipe_f32}
 
     # phase 27's counted runs (the probe ran in an earlier phase: 0 here)
     static_runs = {"static_training": static["training"],
@@ -9894,7 +10504,8 @@ def main():
             ("flash_bwd_dq", "dq", 452, ("dq",), "tc"),
             ("flash_bwd_dq_simt", "dq", 452, ("dq",), "simt"),
             ("flash_bwd_dkv", "dkv", 521, ("dk", "dv"), "tc")):
-        paths = by_path(tc_paths, f"{part}_cuda_{route}")
+        paths = by_path(tc_paths if route == "tc" else
+                        {**tc_paths, **pipe_f32}, f"{part}_cuda_{route}")
         wgmma_paths = by_path(tc_paths, f"{part}_cuda_tc_wgmma")
         main = main_train if route == "tc" else \
             first_on(all_train, route, part)
@@ -10106,7 +10717,8 @@ def main():
                   profiler=prof_run, debugging=debugging,
                   device_utils=device_utils, vision=vision,
                   signal_graph_distribution=signal, to_static=static,
-                  distributed=distributed, kernels=kernels)
+                  distributed=distributed, pipeline=pipe,
+                  kernels=kernels)
     (OUT_DIR / "result.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -10121,5 +10733,7 @@ if __name__ == "__main__":
         static_warm_main(sys.argv[2:])
     elif sys.argv[1:2] == ["--dist-fault"]:
         dist_fault_main()
+    elif sys.argv[1:2] == ["--pipe-fault"]:
+        pipe_fault_main()
     else:
         main()

@@ -249,3 +249,53 @@ def layer_state_to_numpy(layer) -> Dict[str, np.ndarray]:
     ``set_state_dict`` (bfloat16 entries as float32)."""
     return {name: _numpy_of(t._data)
             for name, t in layer.state_dict().items()}
+
+
+def _pipe_to_llama_names(n_layers: int, tied: bool):
+    """{pipe name: LlamaForCausalLM name} of ``build_llama_pipe``'s items:
+    0 the embedding, 1..L the decoder layers, L+1 the final norm, L+2 the
+    head (absent when tied: the embedding is item 0's)."""
+    def rename(name):
+        idx, _, rest = name.partition(".")
+        i = int(idx)
+        if i == 0:
+            return f"llama.embed_tokens.{rest}"
+        if i <= n_layers:
+            return f"llama.layers.{i - 1}.{rest}"
+        if i == n_layers + 1:
+            return f"llama.norm.{rest}"
+        if i == n_layers + 2 and not tied:
+            return f"lm_head.{rest}"
+        raise KeyError(f"{name} is no parameter of a {n_layers}-layer "
+                       f"LLaMA pipe")
+    return rename
+
+
+def pipe_state_from_numpy(params: Dict[str, np.ndarray], config,
+                          mp_rank: int = 0, mp_degree: int = 1,
+                          names=None) -> Dict[str, torch.Tensor]:
+    """The JAX ``build_llama_pipe`` ``PipelineLayer``'s parameters (named
+    by item index: ``0.weight``, ``1.self_attn.q_proj.weight``, ...,
+    ``{L+2}.weight`` the untied head) -> a state_dict of the port's
+    ``build_llama_pipe`` (the same names; Linear weights transposed,
+    mp rank ``mp_rank``'s shard under TP). ``names``: keep only these
+    (one stage's slice, ``PipelineParallel.state_dict()``'s keys)."""
+    rename = _pipe_to_llama_names(config.num_hidden_layers,
+                                  config.tie_word_embeddings)
+    as_llama = {rename(n): a for n, a in params.items()}
+    back = {rename(n): n for n in params}
+    state = llama_state_from_numpy(as_llama, mp_rank, mp_degree)
+    keep = None if names is None else set(names)
+    return {back[n]: t for n, t in state.items()
+            if keep is None or back[n] in keep}
+
+
+def pipe_state_to_numpy(state: Dict[str, torch.Tensor], config
+                        ) -> Dict[str, np.ndarray]:
+    """The inverse of ``pipe_state_from_numpy`` (one stage's slice gives
+    that slice's arrays)."""
+    rename = _pipe_to_llama_names(config.num_hidden_layers,
+                                  config.tie_word_embeddings)
+    back = {rename(n): n for n in state}
+    out = llama_state_to_numpy({rename(n): t for n, t in state.items()})
+    return {back[n]: a for n, a in out.items()}

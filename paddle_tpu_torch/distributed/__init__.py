@@ -10,14 +10,18 @@ the rank grid over ``("pp", "dp", "sharding", "sep", "mp")`` and the
 hybrid topology, ``fleet`` the tensor-parallel layers on local shards,
 the meta-parallel wrappers (``DataParallel``, ``TensorParallel``,
 ``ShardingParallel``) and the hybrid / ZeRO-1-2 optimizers,
-``parallel_step.DistributedTrainStep`` the hybrid train step,
-``sharding`` the group-sharded API, ``spawn`` and ``launch`` the
-processes. ``fleet.recompute`` is activation checkpointing and
+``parallel_step.DistributedTrainStep`` the hybrid train step (ZeRO
+stages 1-3), ``sharding`` the group-sharded API, ``spawn`` and ``launch``
+the processes. Pipeline parallelism: ``fleet.meta_parallel``'s
+``PipelineLayer`` and ``PipelineParallel`` over ``pipeline`` (the rank
+runtime and the schedules), ``zero_bubble``, ``mpmd_graph`` (the
+schedules' event graphs) and ``mpmd_runtime`` (the one-process MPMD
+driver). ``fleet.recompute`` is activation checkpointing and
 ``watchdog.Heartbeat`` the in-process stall watcher of ``Engine.run``.
 
-Not here yet: pipeline parallelism and ZeRO-3, sequence / segment and
-expert parallelism, auto_parallel, distributed checkpoints, the
-launcher's cross-rank heartbeats, elastic, rpc and ps (ROADMAP D2-D6).
+Not here yet: sequence / segment and expert parallelism, auto_parallel,
+distributed checkpoints, the launcher's cross-rank heartbeats, elastic,
+rpc and ps (ROADMAP D3-D6).
 """
 from . import communication, env, fleet, launch, mesh  # noqa: F401
 from . import parallel_step, sharding, store, watchdog  # noqa: F401

@@ -33,6 +33,7 @@ import torch
 from .....nn.clip import ClipGradByGlobalNorm, ClipGradByNorm
 from .... import mesh as mesh_mod
 from ....communication import collectives as C
+from ...meta_parallel.meta_parallel_base import is_distributed
 
 #: a ZeRO slice is a multiple of this many elements (32-byte vectors)
 _ALIGN = 64
@@ -234,9 +235,8 @@ class HybridParallelOptimizer(_OptimizerWrapper):
                 off += p.numel()
         inner = self._inner_opt
         clip = inner._grad_clip
-        scale = clip_scale(clip, [(p.grad, getattr(p, "is_distributed",
-                                                   False)) for p in params],
-                           mp_group)
+        scale = clip_scale(clip, [(p.grad, is_distributed(p))
+                                  for p in params], mp_group)
         if scale is not None:
             for p in params:
                 p.grad.mul_(scale.to(p.grad.dtype))
@@ -266,7 +266,7 @@ class DygraphShardingOptimizer(HybridParallelOptimizer):
         params = self._params()
         if self._flat is None:
             self._flat = FlatParams(
-                [(str(i), p, bool(getattr(p, "is_distributed", False)))
+                [(str(i), p, is_distributed(p))
                  for i, p in enumerate(params)], data_group)
             self._state = inner._init_state(self._flat.shard)
         flat = self._flat
@@ -286,6 +286,38 @@ class DygraphShardingOptimizerV2(DygraphShardingOptimizer):
     """ZeRO-2 (reference :586): the gradients reduce-scattered."""
 
     sharding_stage = 2
+
+
+class GroupShardedOptimizerStage3(HybridParallelOptimizer):
+    """The eager step of a ZeRO-3 model (``group_sharded_parallel``
+    "p_g_os"; reference group_sharded_stage3.py): the backward already
+    averaged the gradients (the slices' reduce-scattered, the whole
+    parameters' all-reduced), so the step takes the ZeRO-3 global norm
+    for the clip and runs the inner optimizer on the slices (its state
+    slice-sized)."""
+
+    sharding_stage = 3
+
+    @torch.no_grad()
+    def step(self):
+        mp_group, _ = _groups(self._hcg)
+        params = [p for p in self._params() if p.grad is not None]
+        if not params:
+            return
+        z = params[0].__dict__.get("_zero3")
+        inner = self._inner_opt
+        clip = inner._grad_clip
+        scale = None if z is None else z.clip_scale(
+            clip, [(p.grad, is_distributed(p),
+                    z.is_whole(p)) for p in params], mp_group)
+        if scale is not None:
+            for p in params:
+                p.grad.mul_(scale.to(p.grad.dtype))
+            inner._grad_clip = None
+        try:
+            inner.step()
+        finally:
+            inner._grad_clip = clip
 
 
 class HybridParallelGradScaler:

@@ -7,3 +7,7 @@ from .parallel_wrappers import (  # noqa: F401
     DataParallel, SegmentParallel, ShardingParallel, TensorParallel,
     shard_parameters_fsdp,
 )
+from .pp_layers import (  # noqa: F401
+    LayerDesc, PipelineLayer, SharedLayerDesc,
+)
+from .pipeline_parallel import PipelineParallel  # noqa: F401

@@ -15,15 +15,20 @@ import torch
 from torch import nn
 
 
+def is_distributed(t) -> bool:
+    """Whether a parameter is a tensor-parallel shard: its
+    ``is_distributed`` set True by the mp layers (a torch tensor's own
+    ``is_distributed`` method is no mark)."""
+    return getattr(t, "is_distributed", False) is True
+
+
 def torch_params(model) -> List[Tuple[str, torch.Tensor, bool]]:
     """(name, the torch leaf tensor, is_distributed) of each parameter of
     a Module or a surface Layer (whose Parameters wrap their leaves)."""
     out = []
     for name, p in model.named_parameters():
         leaf = getattr(p, "_data", p)
-        out.append((name, leaf, bool(getattr(p, "is_distributed", False)
-                                     or getattr(leaf, "is_distributed",
-                                                False))))
+        out.append((name, leaf, is_distributed(p) or is_distributed(leaf)))
     return out
 
 

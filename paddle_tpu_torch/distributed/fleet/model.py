@@ -1,12 +1,15 @@
 """distributed_model: pick the meta-parallel wrapper (counterpart of
 ``paddle_tpu/distributed/fleet/model.py:15-36``; reference
-fleet/model.py:32): TensorParallel when mp > 1, else ShardingParallel
-when sharding > 1, else DataParallel. Pipeline parallelism (pp > 1) and
-ZeRO-3 (sharding stage 3) raise: they come with the pipeline slice."""
+fleet/model.py:32): under sharding > 1 at stage 3 the parameters are
+first sliced (ZeRO-3, ``shard_parameters_fsdp``); then PipelineParallel
+when pp > 1 (the model must be a ``PipelineLayer``), else TensorParallel
+when mp > 1, ShardingParallel when sharding > 1, DataParallel
+otherwise."""
 from __future__ import annotations
 
 from .. import mesh as mesh_mod
-from .meta_parallel import DataParallel, ShardingParallel, TensorParallel
+from .meta_parallel import (DataParallel, ShardingParallel, TensorParallel,
+                            shard_parameters_fsdp)
 
 
 def distributed_model(model):
@@ -14,15 +17,12 @@ def distributed_model(model):
     strategy = get_strategy()
     stage = int(strategy.sharding_configs.get("stage", 1)) \
         if strategy is not None else 1
-    if mesh_mod.axis_degree("pp") > 1:
-        raise NotImplementedError(
-            "pipeline parallelism (pp_degree > 1) comes with the pipeline "
-            "slice of the port (ROADMAP D2)")
     if mesh_mod.axis_degree("sharding") > 1 and stage >= 3:
-        raise NotImplementedError(
-            "ZeRO-3 (sharding stage 3) comes with the pipeline / ZeRO-3 "
-            "slice of the port (ROADMAP D2)")
+        shard_parameters_fsdp(model, axis="sharding")
     hcg = mesh_mod.get_hybrid_communicate_group()
+    if mesh_mod.axis_degree("pp") > 1:
+        from .meta_parallel.pipeline_parallel import PipelineParallel
+        return PipelineParallel(model, hcg, strategy=strategy)
     if mesh_mod.axis_degree("mp") > 1:
         return TensorParallel(model, hcg, strategy=strategy)
     if mesh_mod.axis_degree("sharding") > 1:

@@ -1,0 +1,454 @@
+"""mpmd_runtime: the MPMD pipeline runtime, one process driving verified
+per-stage programs (counterpart of ``paddle_tpu/distributed/
+mpmd_runtime.py``).
+
+The contract, in both directions (the JAX package's):
+
+* ``MpmdDriver`` REFUSES any graph with ``mpmd_lint`` findings at
+  construction (``MpmdGraphRejected`` names the rules): ``MpmdDriver``
+  executes only verified schedules;
+* at run time ``MpmdDriver`` makes the lint's model real: recvs are matched
+  FIFO against the declared routes (tag/shape/dtype validated per
+  payload leaf), sends are bounded by the graph's channel capacities,
+  buffer slots are ref-counted against the declared reads and a live
+  slot cannot be overwritten, and a stage program's exception is
+  re-raised as ``MpmdDispatchError`` naming the (stage, micro, phase)
+  event.
+
+In the port ``MpmdDriver`` is one process: stage s's program runs on
+``stage_devices(S)[s]`` and a cross-stage edge is an explicit ``.to``
+of the payload to the destination stage's device (with one card, every
+stage sits on ``cuda:0``). Programs are pluggable (``begin`` /
+``execute`` / ``finish``): ``SymbolicPrograms`` walks a schedule with
+shape/dtype tokens, ``PipelinePrograms`` runs pipeline events on the
+stage ops ``PipelineParallel`` builds in its MPMD modes, through the
+event functions the pp ranks' ``pipeline.StageRunner`` runs.
+
+Not here: ``steady_state_recompiles`` and ``_hotpath_inventory`` wait
+for the analysis slice (the JAX driver counts XLA compiles; the port's
+stage programs are eager) and raise naming it; ``MpmdRingExecutor`` and
+the ring-attention hop programs come with sequence parallelism (D3).
+"""
+from __future__ import annotations
+
+from collections import Counter, deque
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from .mpmd_graph import BWD, FWD, W, Event, MpmdGraph, Msg
+
+
+class MpmdGraphRejected(ValueError):
+    """MpmdDriver refused an unverified graph: mpmd_lint findings at
+    construction time. ``.rules`` carries the finding rule ids."""
+
+    def __init__(self, message: str, rules: Tuple[str, ...] = ()):
+        super().__init__(message)
+        self.rules = tuple(rules)
+
+
+class MpmdDispatchError(RuntimeError):
+    """A schedule violation or stage failure at execution time, named
+    by its (stage, micro, phase) event."""
+
+
+# ---------------------------------------------------------------------------
+# payload plumbing (tensors are leaves with .shape/.dtype)
+# ---------------------------------------------------------------------------
+
+def _leaves(payload) -> List:
+    """Flatten a payload (array | tuple/list | dict) into leaves."""
+    if isinstance(payload, (tuple, list)):
+        out: List = []
+        for p in payload:
+            out.extend(_leaves(p))
+        return out
+    if isinstance(payload, dict):
+        out = []
+        for k in sorted(payload):
+            out.extend(_leaves(payload[k]))
+        return out
+    return [payload]
+
+
+class _SymToken:
+    """A shape/dtype-only payload: what ``SymbolicPrograms`` circulates
+    so a schedule executes device-free."""
+
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, shape, dtype):
+        self.shape = tuple(shape)
+        self.dtype = str(dtype)
+
+    def __repr__(self):
+        return f"_SymToken({self.shape}, {self.dtype!r})"
+
+
+class SymbolicPrograms:
+    """Default stage programs: every compute event is a no-op that
+    emits shape/dtype tokens for its declared sends/writes. Running a
+    driver with these is a full schedule walk — FIFO matching, channel
+    capacities, buffer ref-counts all enforced — without touching a
+    device."""
+
+    def __init__(self, graph: MpmdGraph):
+        self.graph = graph
+        self.executed = 0
+
+    def begin(self, feeds):
+        self.executed = 0
+
+    def execute(self, ev: Event, inbox, reads):
+        self.executed += 1
+        sends = {tuple(m.tag): _SymToken(m.shape, m.dtype)
+                 for m in ev.sends}
+        writes = {ws: _SymToken(self.graph.act_shape,
+                                self.graph.act_dtype)
+                  for ws in ev.writes}
+        return sends, writes
+
+    def finish(self):
+        return {"executed": self.executed}
+
+    def executable_specs(self):
+        return []
+
+
+# ---------------------------------------------------------------------------
+# MpmdDriver
+# ---------------------------------------------------------------------------
+
+class MpmdDriver:
+    """Executes a VERIFIED ``MpmdGraph`` tick-by-tick over pluggable
+    stage programs.
+
+    programs protocol::
+
+        programs.begin(feeds)                  # once per run()
+        programs.execute(event, inbox, reads)  # -> (sends, writes)
+        #   inbox:  {tag: payload} — this event's declared recvs,
+        #           already FIFO-popped and shape/dtype validated
+        #   reads:  {(buffer, slot): payload} — declared buffer reads
+        #   sends:  {tag: payload} for every declared send
+        #   writes: {(buffer, slot): payload} for every declared write
+        programs.finish()                      # -> run() result
+
+    placements: optional per-stage list of devices; cross-stage
+    payloads are moved to the DESTINATION stage's device at send time
+    — the explicit data-movement edge.
+    """
+
+    def __init__(self, graph: MpmdGraph, programs=None, *,
+                 placements: Optional[Sequence] = None,
+                 hbm_budget: Optional[int] = None):
+        from ..analysis.mpmd_lint import check_graph
+        report = check_graph(graph, hbm_budget=hbm_budget)
+        if report:
+            rules = tuple(sorted({f.rule for f in report.findings}))
+            raise MpmdGraphRejected(
+                f"MpmdDriver refused {graph.subject}: "
+                f"{len(report.findings)} mpmd_lint finding(s) "
+                f"[{', '.join(rules)}]\n{report.format()}", rules)
+        self.graph = graph
+        self.programs = programs if programs is not None \
+            else SymbolicPrograms(graph)
+        if placements is not None \
+                and len(placements) < graph.n_stages:
+            raise ValueError(
+                f"placements covers {len(placements)} stages, graph "
+                f"has {graph.n_stages}")
+        self.placements = list(placements) if placements is not None \
+            else None
+        # tick-grouped execution order (stable: tick, then stage, then
+        # each stage's local program order)
+        evs = list(graph.events())
+        order = sorted(range(len(evs)),
+                       key=lambda i: (evs[i].tick, evs[i].stage, i))
+        self._ticks: List[Tuple[int, List[Event]]] = []
+        for i in order:
+            ev = evs[i]
+            if self._ticks and self._ticks[-1][0] == ev.tick:
+                self._ticks[-1][1].append(ev)
+            else:
+                self._ticks.append((ev.tick, [ev]))
+        # declared reads of each write, until the slot's next write
+        # (a slot may be reused, as 1F1B's are): the slot's ref-count — a
+        # live slot (reads pending) cannot be overwritten
+        self._read_counts = Counter()
+        for s in range(graph.n_stages):
+            last = {}
+            for ev in graph.programs.get(s, ()):
+                for (buf, slot) in ev.reads:
+                    if (buf, slot) in last:
+                        self._read_counts[last[(buf, slot)]] += 1
+                for (buf, slot) in ev.writes:
+                    last[(buf, slot)] = (ev.key, buf, slot)
+        self.steps = 0
+
+    # -- execution -----------------------------------------------------------
+
+    def run(self, feeds=None):
+        """Execute the full schedule once; returns
+        ``programs.finish()``."""
+        inflight: Dict[Tuple[int, int], deque] = {}
+        store: Dict[Tuple[int, str, int], object] = {}
+        reads_left: Dict[Tuple[int, str, int], int] = {}
+        self.programs.begin(feeds or {})
+        for _, events in self._ticks:
+            self._run_tick(events, inflight, store, reads_left)
+        leftover = {f"{a}->{b}": len(q)
+                    for (a, b), q in inflight.items() if q}
+        if leftover:
+            raise MpmdDispatchError(
+                f"{self.graph.subject}: schedule completed with "
+                f"unconsumed in-flight messages: {leftover}")
+        result = self.programs.finish()
+        self.steps += 1
+        return result
+
+    def _run_tick(self, events, inflight, store, reads_left):
+        # phase 1: pop this tick's recvs (FIFO per route, validated)
+        inboxes = {}
+        for ev in events:
+            inbox = {}
+            for msg in ev.recvs:
+                route = (msg.peer, ev.stage)
+                q = inflight.get(route)
+                if not q:
+                    raise MpmdDispatchError(
+                        f"{self.graph.subject}: {ev.describe()} expects "
+                        f"{tuple(msg.tag)} on route {msg.peer}->"
+                        f"{ev.stage} but the channel is empty")
+                tag, payload = q.popleft()
+                if tag != tuple(msg.tag):
+                    raise MpmdDispatchError(
+                        f"{self.graph.subject}: {ev.describe()} FIFO "
+                        f"head on route {msg.peer}->{ev.stage} is "
+                        f"{tag}, expected {tuple(msg.tag)}")
+                inbox[tag] = payload
+            inboxes[id(ev)] = inbox
+        # phase 2: execute each event's stage program
+        outs = {}
+        for ev in events:
+            reads = {}
+            for (buf, slot) in ev.reads:
+                key = (ev.stage, buf, slot)
+                if key not in store:
+                    raise MpmdDispatchError(
+                        f"{self.graph.subject}: {ev.describe()} reads "
+                        f"({buf}, {slot}) before any write")
+                reads[(buf, slot)] = store[key]
+            try:
+                produced = self.programs.execute(
+                    ev, inboxes[id(ev)], reads)
+            except MpmdDispatchError:
+                raise
+            except Exception as e:
+                raise MpmdDispatchError(
+                    f"{self.graph.subject}: stage {ev.stage} micro "
+                    f"{ev.micro} phase {ev.phase!r} (chunk {ev.chunk}, "
+                    f"tick {ev.tick}) failed: "
+                    f"{type(e).__name__}: {e}") from e
+            sends, writes = produced if produced is not None \
+                else ({}, {})
+            outs[id(ev)] = (sends or {}, writes or {})
+            for (buf, slot) in ev.reads:
+                key = (ev.stage, buf, slot)
+                reads_left[key] -= 1
+                if reads_left[key] <= 0:
+                    del store[key]
+        # phase 3: commit writes, enqueue sends (capacity-bounded,
+        # payloads moved to the destination stage's placement)
+        for ev in events:
+            sends, writes = outs[id(ev)]
+            for (buf, slot) in ev.writes:
+                key = (ev.stage, buf, slot)
+                if key in store and reads_left.get(key, 0) > 0:
+                    raise MpmdDispatchError(
+                        f"{self.graph.subject}: {ev.describe()} "
+                        f"overwrites live slot ({buf}, {slot}) with "
+                        f"{reads_left[key]} read(s) pending")
+                if (buf, slot) not in writes:
+                    raise MpmdDispatchError(
+                        f"{self.graph.subject}: {ev.describe()} "
+                        f"declared write ({buf}, {slot}) but the "
+                        f"program produced none")
+                store[key] = writes[(buf, slot)]
+                reads_left[key] = self._read_counts.get((ev.key, buf, slot),
+                                                        0)
+            for msg in ev.sends:
+                tag = tuple(msg.tag)
+                if tag not in sends:
+                    raise MpmdDispatchError(
+                        f"{self.graph.subject}: {ev.describe()} "
+                        f"declared send {tag} -> {msg.peer} but the "
+                        f"program produced none")
+                payload = sends[tag]
+                self._validate(ev, msg, payload)
+                route = (ev.stage, msg.peer)
+                cap = self.graph.channel_capacity.get(
+                    route, self.graph.DEFAULT_CHANNEL_CAPACITY)
+                q = inflight.setdefault(route, deque())
+                if len(q) >= cap:
+                    raise MpmdDispatchError(
+                        f"{self.graph.subject}: {ev.describe()} send "
+                        f"{tag} overflows route {ev.stage}->{msg.peer} "
+                        f"(capacity {cap})")
+                q.append((tag, self._place(payload, msg.peer)))
+            extra_s = [t for t in sends
+                       if t not in {tuple(m.tag) for m in ev.sends}]
+            extra_w = [wsl for wsl in writes if wsl not in ev.writes]
+            if extra_s or extra_w:
+                raise MpmdDispatchError(
+                    f"{self.graph.subject}: {ev.describe()} produced "
+                    f"undeclared sends {extra_s} / writes {extra_w}")
+
+    def _validate(self, ev: Event, msg: Msg, payload) -> None:
+        want_shape, want_dtype = tuple(msg.shape), str(msg.dtype)
+        for leaf in _leaves(payload):
+            shape = tuple(getattr(leaf, "shape", ()))
+            dtype = str(getattr(leaf, "dtype", "")).replace("torch.", "")
+            if shape != want_shape or dtype != want_dtype:
+                raise MpmdDispatchError(
+                    f"{self.graph.subject}: {ev.describe()} send "
+                    f"{tuple(msg.tag)} -> {msg.peer} payload leaf is "
+                    f"{dtype}{list(shape)}, route declares "
+                    f"{want_dtype}{list(want_shape)}")
+
+    def _place(self, payload, dst_stage: int):
+        """The cross-stage edge: every tensor of ``payload`` moved to the
+        destination stage's device (``.to``; a no-op on one device)."""
+        if self.placements is None:
+            return payload
+        target = self.placements[dst_stage]
+        if target is None:
+            return payload
+
+        def one(x):
+            if isinstance(x, torch.Tensor):
+                return x.to(target)
+            if isinstance(x, (tuple, list)):
+                return type(x)(one(a) for a in x)
+            if isinstance(x, dict):
+                return {k: one(a) for k, a in x.items()}
+            return x
+
+        return one(payload)
+
+    # -- accounting ----------------------------------------------------------
+
+    def steady_state_recompiles(self, warmup_steps: int = 1) -> int:
+        """Compiles inside ``run()`` after the warm-up: the JAX driver's
+        compile tracker. The port's stage programs run eagerly; counting
+        its compiles comes with the analysis slice."""
+        raise NotImplementedError(
+            "steady_state_recompiles comes with the analysis slice of the "
+            "port (ROADMAP item 4)")
+
+    def stats(self) -> Dict[str, object]:
+        """Driver-measured schedule occupancy: each executed event
+        occupies one (stage, tick) cell; bubble = idle cells / total
+        cells over the executed span. Pure structural counting — the
+        driver keeps no wall clock (bench times ``run()`` outside)."""
+        ticks = [ev.tick for ev in self.graph.events()]
+        span = (max(ticks) - min(ticks) + 1) if ticks else 0
+        busy = len(ticks)
+        total = self.graph.n_stages * span
+        out = {"stages": self.graph.n_stages, "span_ticks": span,
+               "busy_cells": busy, "steps": self.steps,
+               "bubble_fraction":
+                   round(1.0 - busy / total, 6) if total else 0.0}
+        stats = self.graph.meta.get("stats")
+        if isinstance(stats, dict) and "bubble_fraction" in stats:
+            out["predicted_bubble_fraction"] = stats["bubble_fraction"]
+        return out
+
+    def _hotpath_inventory(self):
+        """The tick loop and executables for the hot-path lint: it comes
+        with the analysis slice."""
+        raise NotImplementedError(
+            "the hot-path inventory comes with the analysis slice of the "
+            "port (ROADMAP item 4)")
+
+
+def stage_devices(n_stages: int, devices=None) -> List:
+    """Per-stage devices on this host: the first ``n_stages`` of
+    ``devices`` (by default the visible CUDA devices), cycled if fewer
+    exist (one card: every stage on ``cuda:0``)."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "stage_devices: no CUDA device is visible; pass "
+                "devices=[torch.device('cpu')] to place the stages on the "
+                "CPU")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devs = [torch.device(d) for d in devices]
+    return [devs[s % len(devs)] for s in range(int(n_stages))]
+
+
+# ---------------------------------------------------------------------------
+# pipeline stage programs: schedule events -> the per-stage callables
+# the pipeline surface builds
+# ---------------------------------------------------------------------------
+
+class PipelinePrograms:
+    """Runs a pipeline graph's events (FThenB / 1F1B / VPP / ZBH1 /
+    ZBVPP) on the stages' ``pipeline.StageOps``, ``ops[s]`` stage s's:
+    the pp ranks' event semantics (``pipeline.stage_forward`` /
+    ``stage_backward`` / ``stage_weights``), the messages and slots the
+    driver's. An fwd event writes its chunk's graph (input leaf, output)
+    to the slot its bwd event reads; under the zero-bubble graphs the
+    bwd event writes the W half to the slot its w event reads.
+    ``primed``: {(stage, chunk, micro): (x, y)} forwards already run
+    (the first, whose output shape the graph was built from)."""
+
+    def __init__(self, graph: MpmdGraph, ops: Sequence, primed=None):
+        if len(ops) != graph.n_stages:
+            raise ValueError(f"{len(ops)} stage ops for {graph.n_stages} "
+                             f"stages")
+        self.graph = graph
+        self.ops = list(ops)
+        self.primed = dict(primed or {})
+        self._zb = any(ev.phase == W for ev in graph.events())
+
+    def begin(self, feeds):
+        pass
+
+    def execute(self, ev: Event, inbox, reads):
+        from .pipeline import stage_backward, stage_forward, stage_weights
+        ops = self.ops[ev.stage]
+        got = next(iter(inbox.values())) if inbox else None
+        if ev.phase == FWD:
+            xy = self.primed.pop((ev.stage, ev.chunk, ev.micro), None)
+            x, y = xy if xy is not None else \
+                stage_forward(ops, ev.chunk, ev.micro, got)
+            return ({tuple(msg.tag): y.detach() for msg in ev.sends},
+                    {ws: (x, y) for ws in ev.writes})
+        (slot,) = reads.values()
+        if ev.phase == BWD:
+            x, y = slot
+            dx, half = stage_backward(ops, ev, x, y, got, self.graph,
+                                      self._zb)
+            return ({tuple(msg.tag): dx for msg in ev.sends},
+                    {ws: half for ws in ev.writes})
+        stage_weights(slot)
+        return {}, {}
+
+    def finish(self):
+        return None
+
+    def executable_specs(self):
+        return []
+
+
+class MpmdRingExecutor:
+    """Ring attention as MPMD programs: it comes with sequence
+    parallelism."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "MpmdRingExecutor (ring attention over 'sep') comes with the "
+            "sequence-parallel slice of the port (ROADMAP D3)")

@@ -23,7 +23,15 @@ every collective. The port's runs on each rank:
 6. the loss averaged over the data group (the global batch's mean when
    the ranks' parts count the same tokens).
 
-Stage 3 (parameters sharded) raises: it comes with the ZeRO-3 slice.
+Stage 3 (ZeRO-3, Paddle's group_sharded_stage3): the model's parameters
+are sliced over the data group (``shard_parameters_fsdp``, unless
+``fleet.distributed_model`` or ``group_sharded_parallel`` did it) and
+gathered layer by layer in the forward and again in the backward; the
+slices' gradients come out of the backward reduce-scattered (averaged),
+the unsliced parameters' are averaged after it; the global norm sums the
+slices' squares over the data group; the update (the fused kernel, one
+launch) runs on this rank's slices, with slice-sized optimizer state, and
+nothing is gathered after it.
 """
 from __future__ import annotations
 
@@ -37,11 +45,12 @@ from . import mesh as mesh_mod
 from .communication import collectives as C
 from .fleet.meta_optimizers.dygraph_optimizer.hybrid_parallel_optimizer \
     import FlatParams, _apply_clip, clip_scale
+from .fleet.meta_parallel.meta_parallel_base import is_distributed
 
 
 class DistributedTrainStep(TrainStep):
     """``TrainStep`` over the hybrid topology; ``sharding_stage`` 0 / None
-    (data parallelism: the optimizer's own stage), 1 or 2 (ZeRO)."""
+    (data parallelism: the optimizer's own stage), 1, 2 or 3 (ZeRO)."""
 
     def __init__(self, model, loss_fn, optimizer, amp_dtype=None,
                  donate=True, sharding_stage: Optional[int] = None):
@@ -52,24 +61,27 @@ class DistributedTrainStep(TrainStep):
         stage = sharding_stage if sharding_stage is not None \
             else getattr(inner_opt, "_sharding_stage", 0)
         stage = int(stage or 0)
-        if stage >= 3:
-            raise NotImplementedError(
-                "ZeRO-3 (sharding_stage 3) comes with the pipeline / ZeRO-3 "
-                "slice of the port (ROADMAP D2)")
         hcg = mesh_mod.get_hybrid_communicate_group()
         self._mp_group = hcg.get_model_parallel_group()
         self._data_group = hcg.get_dp_sharding_group()
         self._sharding_stage = stage
         self._flat = None
+        self._zero3 = None
+        if stage >= 3:
+            from .fleet.meta_parallel.parallel_wrappers import (
+                shard_parameters_fsdp, zero3_of)
+            if zero3_of(inner_model) is None:
+                shard_parameters_fsdp(inner_model, axis=("dp", "sharding"))
+            self._zero3 = zero3_of(inner_model)
         super().__init__(inner_model, loss_fn, inner_opt, amp_dtype=amp_dtype,
                          donate=donate)
-        self._dist = {n: bool(getattr(p, "is_distributed", False))
+        self._dist = {n: is_distributed(p)
                       for n, p in self._params.items()}
 
     def _init_opt_state(self):
-        if self._sharding_stage == 0:
-            return super()._init_opt_state()
-        named = [(n, p, bool(getattr(p, "is_distributed", False)))
+        if self._sharding_stage in (0, 3):
+            return super()._init_opt_state()     # ZeRO-3: on the slices
+        named = [(n, p, is_distributed(p))
                  for n, p in self._params.items()]
         self._flat = FlatParams(named, self._data_group)
         return {"@flat_shard": self._opt._init_state(self._flat.shard)}
@@ -110,11 +122,74 @@ class DistributedTrainStep(TrainStep):
             off += x.numel()
         return out
 
+    def parameter_bytes(self) -> dict:
+        """Bytes of parameters this rank holds (ZeRO-3: its slices and
+        the unsliced remainder)."""
+        if self._zero3 is not None:
+            return self._zero3.resident_bytes()
+        n = sum(p.numel() * p.element_size() for p in self._params.values())
+        return {"sliced": 0, "whole": n, "total": n}
+
+    def full_parameters(self) -> dict:
+        """{name: the whole parameter}; ZeRO-3 gathers the slices (every
+        rank of the data group must call it)."""
+        if self._zero3 is not None:
+            return self._zero3.full_parameters()
+        return {n: p.detach() for n, p in self._params.items()}
+
+    def _zero3_loss_and_grads(self, inputs, labels):
+        """The forward with the parameters gathered by the ZeRO-3 hooks
+        (in the AMP dtype), the f32 loss's gradients on the slices."""
+        z = self._zero3
+        dev = self._device
+        inputs = tuple(self._cast(torch.as_tensor(getattr(x, "_data", x),
+                                                  device=dev))
+                       for x in inputs)
+        labels = torch.as_tensor(getattr(labels, "_data", labels),
+                                 device=dev)
+        names = list(self._params)
+        masters = [self._params[n] for n in names]
+        z.amp = self._amp_dtype
+        try:
+            with torch.enable_grad():
+                out = self._model(*inputs)
+                loss = self._loss_fn(out, labels)
+                loss = getattr(loss, "_data", loss).float()
+                grads = list(torch.autograd.grad(loss, masters,
+                                                 materialize_grads=True))
+        finally:
+            z.amp = None
+        whole = {id(p) for _, p in z.whole}
+        z.reduce_whole([g for n, g in zip(names, grads)
+                        if id(self._params[n]) in whole])
+        return loss.detach(), names, grads
+
+    def _zero3_clip_scale(self, clip, names, grads):
+        z = self._zero3
+        return z.clip_scale(clip, [(g, self._dist[n],
+                                    z.is_whole(self._params[n]))
+                                   for n, g in zip(names, grads)],
+                            self._mp_group)
+
     def __call__(self, inputs, labels):
         if not isinstance(inputs, (list, tuple)):
             inputs = (inputs,)
         inputs = tuple(self._local(x) for x in inputs)
         labels = self._local(labels)
+        if self._zero3 is not None:
+            loss, names, grads = self._zero3_loss_and_grads(inputs, labels)
+            clip, lr = self._opt._grad_clip, self._opt.get_lr()
+            with torch.no_grad():
+                scale = self._zero3_clip_scale(clip, names, grads)
+                grads = _apply_clip(clip, grads, scale)
+                self._opt.apply_gradients_pytree(
+                    self._params, dict(zip(names, grads)), self._opt_state,
+                    lr)
+                if self._data_group.nranks > 1:
+                    loss = loss.clone()
+                    C.all_reduce(loss, op=C.ReduceOp.AVG,
+                                 group=self._data_group)
+            return loss
         loss, names, grads = self._raw_loss_and_grads(inputs, labels)
         clip, lr = self._opt._grad_clip, self._opt.get_lr()
         with torch.no_grad():

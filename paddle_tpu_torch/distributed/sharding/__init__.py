@@ -5,7 +5,11 @@
 optimizer in the ZeRO-1 ``DygraphShardingOptimizer``, "os_g" in the
 ZeRO-2 ``DygraphShardingOptimizerV2`` (and ``DistributedTrainStep``
 reads the stage from it); the model is broadcast over the data group.
-"p_g_os" (ZeRO-3) raises: it comes with the ZeRO-3 slice."""
+"p_g_os" (ZeRO-3) slices a torch module's parameters over the data group
+(``shard_parameters_fsdp``: gathered layer by layer in the forward and
+the backward, gradients reduce-scattered) and wraps the optimizer in
+``GroupShardedOptimizerStage3``; ``DistributedTrainStep`` then runs stage
+3 and an eager ``loss.backward(); opt.step()`` works as well."""
 from __future__ import annotations
 
 import os
@@ -20,17 +24,17 @@ def group_sharded_parallel(model, optimizer, level, scaler=None,
                            exclude_layer=None):
     if level not in ("os", "os_g", "p_g_os"):
         raise ValueError("level must be one of os / os_g / p_g_os")
-    if level == "p_g_os":
-        raise NotImplementedError(
-            "level 'p_g_os' (ZeRO-3) comes with the pipeline / ZeRO-3 "
-            "slice of the port (ROADMAP D2)")
     if offload:
         raise NotImplementedError("optimizer-state offload is not ported")
     from ..fleet.meta_optimizers import (DygraphShardingOptimizer,
-                                         DygraphShardingOptimizerV2)
-    from ..fleet.meta_parallel import ShardingParallel
-    cls = DygraphShardingOptimizer if level == "os" \
-        else DygraphShardingOptimizerV2
+                                         DygraphShardingOptimizerV2,
+                                         GroupShardedOptimizerStage3)
+    from ..fleet.meta_parallel import ShardingParallel, shard_parameters_fsdp
+    cls = {"os": DygraphShardingOptimizer, "os_g": DygraphShardingOptimizerV2,
+           "p_g_os": GroupShardedOptimizerStage3}[level]
+    if level == "p_g_os":
+        shard_parameters_fsdp(getattr(model, "_layers", model),
+                              axis=("dp", "sharding"))
     model = ShardingParallel(model)
     optimizer = cls(getattr(optimizer, "_inner_opt", optimizer))
     return model, optimizer, scaler

@@ -6,7 +6,8 @@ the four KV-cache layouts: dense and int8 dense, :293-375, paged,
 :377-487, rolling, :489-567), the SwiGLU MLP, the decoder stack with
 per-layer recompute, full or selective (:669-700), the causal-LM head,
 the fused chunked LM loss when ``labels`` are given (:746-754),
-``serving_spec`` (:760) and ``llama_flops_per_token`` (:837). Module and
+``serving_spec`` (:760), ``build_llama_pipe`` (:786, the pipeline view) and
+``llama_flops_per_token`` (:837). Module and
 parameter names match the JAX package, so
 ``bridge.llama_state_from_numpy`` maps one set of weights onto the
 other.
@@ -740,6 +741,13 @@ class LlamaForCausalLM(nn.Module):
                 group=self._vocab_group())
         return self._head(h)
 
+    def zero3_entry_modules(self):
+        """The module whose weight ``forward`` reads without calling it
+        (the fused loss's and the tied head's weight): ZeRO-3 gathers it
+        for the whole forward."""
+        return [self.lm_head if self.lm_head is not None
+                else self.llama.embed_tokens]
+
     def serving_spec(self):
         """Engine geometry probe (``Engine`` reads it through
         ``serving_model_spec``): the decoder's KV-cache geometry as a
@@ -755,6 +763,127 @@ class LlamaForCausalLM(nn.Module):
             "max_context": c.max_position_embeddings,
             "vocab_size": c.vocab_size,
         }
+
+
+class _TiedHead:
+    """The tied LM head of ``build_llama_pipe`` (JAX ``_tied_head`` :776):
+    logits = h E^T from the shared embedding (a vocabulary shard's
+    logits gathered under TP). With ``fused_ce_chunks`` it also offers
+    ``pipe_loss(embed, h, labels)``, the fused chunked LM loss, which the
+    pipeline's last stage takes in place of logits + loss."""
+
+    def __init__(self, fused_ce_chunks=None):
+        if fused_ce_chunks:
+            self.chunks = int(fused_ce_chunks)
+            self.pipe_loss = self._loss
+
+    @staticmethod
+    def _group(embed):
+        g = getattr(embed, "group", None)
+        return g if g is not None and g.nranks > 1 else None
+
+    def __call__(self, embed, h):
+        g = self._group(embed)
+        if g is None:
+            return torch.nn.functional.linear(h, embed.weight)
+        return _c_concat(torch.nn.functional.linear(
+            _c_identity(h, group=g), embed.weight), group=g)
+
+    def _loss(self, embed, h, labels):
+        return fused_linear_cross_entropy(h, embed.weight.t(), labels,
+                                          n_chunks=self.chunks,
+                                          group=self._group(embed))
+
+
+def _head_loss(head, chunks, h, labels):
+    """The untied head's fused chunked LM loss (``pipe_loss``)."""
+    g = getattr(head, "group", None)
+    return fused_linear_cross_entropy(
+        h, head.weight.t(), labels, n_chunks=chunks,
+        group=g if g is not None and g.nranks > 1 else None)
+
+
+def build_llama_pipe(config: LlamaConfig, num_stages=None, loss_fn=None,
+                     device=None, seed: int = 0, init_std: float = 0.02,
+                     seg_method="uniform", num_virtual_pipeline_stages=None):
+    """``LlamaForCausalLM`` as a ``PipelineLayer`` (JAX :786): [embedding]
+    + num_hidden_layers ``LlamaDecoderLayer`` blocks + [final RMSNorm, LM
+    head], the blocks the run ``PipelineParallel`` chunks over the stages
+    (the embedding joins stage 0, the norm and head the last).
+
+    The modules are built in ``LlamaForCausalLM``'s order and drawn as
+    ``reset_parameters`` draws them (one generator from ``seed``, in
+    parameter order; norms at 1; a TP parameter at its global shape,
+    sliced), so a pipe and the causal LM from one seed hold the same
+    weights. ``tie_word_embeddings`` maps to a ``SharedLayerDesc`` pair
+    (the embedding's weight on the first and the last stage, its gradient
+    summed between them); ``recompute`` to ``recompute_interval``; under
+    mp > 1 the embedding is vocabulary-parallel and the head a
+    ``ColumnParallelLinearModule`` gathering its output. With
+    ``fused_linear_ce`` (and no ``loss_fn`` given) the head offers
+    ``pipe_loss``, the fused chunked loss the last stage then computes
+    instead of logits + ``CrossEntropyLoss`` (the JAX pipe always takes
+    the latter). ``device`` as ``LlamaForCausalLM``'s: ``cuda`` unless
+    ``device="cpu"``. ``seg_method`` and ``num_virtual_pipeline_stages``
+    go to the ``PipelineLayer``."""
+    from ...distributed.fleet.meta_parallel import (PipelineLayer,
+                                                    SharedLayerDesc)
+    from ...nn._modules import CrossEntropyLoss
+    c = config
+    _check_supported(c)
+    dev = resolve_device(device)
+    dtype = getattr(torch, c.dtype)
+    emb = VocabParallelEmbeddingModule if _use_tp() else nn.Embedding
+    # the embedding first either way (the causal LM's draw order)
+    embed = emb(c.vocab_size, c.hidden_size, device=dev, dtype=dtype)
+    fused = c.fused_ce_chunks if (c.fused_linear_ce and loss_fn is None) \
+        else None
+    first = SharedLayerDesc("tok_embed", lambda: embed) \
+        if c.tie_word_embeddings else embed
+    blocks = [LlamaDecoderLayer(c, dev, dtype)
+              for _ in range(c.num_hidden_layers)]
+    norm = LlamaRMSNorm(c.hidden_size, c.rms_norm_eps, dev, dtype)
+    if c.tie_word_embeddings:
+        head = SharedLayerDesc("tok_embed", lambda: embed,
+                               forward_func=_TiedHead(fused))
+    else:
+        head = ColumnParallelLinearModule(
+            c.hidden_size, c.vocab_size, gather_output=True, device=dev,
+            dtype=dtype) if _use_tp() else _linear(c.hidden_size,
+                                                   c.vocab_size, dev, dtype)
+        if fused:
+            head.pipe_loss = functools.partial(_head_loss, head, fused)
+    pipe = PipelineLayer([first] + blocks + [norm, head],
+                         num_stages=num_stages,
+                         recompute_interval=1 if c.recompute else 0,
+                         loss_fn=loss_fn or CrossEntropyLoss(),
+                         seg_method=seg_method,
+                         num_virtual_pipeline_stages=(
+                             num_virtual_pipeline_stages))
+    pipe.config = c
+    _draw_pipe(pipe, seed, init_std, dev)
+    return pipe
+
+
+@torch.no_grad()
+def _draw_pipe(pipe, seed, init_std, device):
+    """``LlamaForCausalLM.reset_parameters`` over the pipe's parameters
+    (the same order)."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    modules = dict(pipe.named_modules())
+    for name, p in pipe.named_parameters():
+        mname, _, pname = name.rpartition(".")
+        m = modules[mname]
+        if isinstance(m, LlamaRMSNorm):
+            p.fill_(1.0)
+            continue
+        shape = global_shape(m, pname)
+        if list(shape) == list(p.shape):
+            p.normal_(0.0, init_std, generator=gen)
+        else:
+            full = torch.empty(shape, device=p.device, dtype=p.dtype)
+            p.copy_(shard_of(m, pname, full.normal_(
+                0.0, init_std, generator=gen)))
 
 
 def llama_flops_per_token(config: LlamaConfig) -> float:

@@ -15,9 +15,11 @@ One 4-rank gloo world (the port's ``spawn``, a ``FileStore``; ranks in
 whole batch (and ``no_sync``'s local ones); then ``fleet.init`` at
 dp2 x mp2, its groups, and 3 ``DistributedTrainStep`` steps of a tiny
 LLaMA (2 layers, vocabulary-parallel fused loss, AdamW with
-``ClipGradByGlobalNorm``) at sharding stages 0, 1 and 2, each against
-JAX's ``DistributedTrainStep`` on its dp2 x mp2 mesh (losses rtol 1e-4,
-atol 1e-5, as ``test_distributed_train_step_matches_single``); last,
+``ClipGradByGlobalNorm``) at sharding stages 0, 1, 2 and 3 (ZeRO-3: the
+parameters sliced over the data group, gathered layer by layer), and
+through ``group_sharded_parallel(level="p_g_os")``, each against JAX's
+``DistributedTrainStep`` on its dp2 x mp2 mesh (losses rtol 1e-4, atol
+1e-5, as ``test_distributed_train_step_matches_single``); last,
 ``group_sharded_parallel`` at "os" and "os_g" on the eager surface, 2
 AdamW steps against one process on the whole batch (rtol 1e-5, atol
 1e-6).
@@ -193,6 +195,16 @@ def test_entry_points_refuse_the_cpu_without_asking():
     assert env.choose_backend(torch.device("cpu"), 2) == "gloo"
     with pytest.raises(ValueError, match="NCCL backend needs a CUDA"):
         env.choose_backend(torch.device("cpu"), 1, "nccl")
+    # the pipeline's entry points: the LLaMA pipe is built on cuda, and
+    # the MPMD driver's stages are the visible cards
+    from paddle_tpu_torch.distributed.mpmd_runtime import stage_devices
+    from paddle_tpu_torch.text.models import LlamaConfig, build_llama_pipe
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_llama_pipe(LlamaConfig.tiny(), num_stages=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stage_devices(2)
+    assert stage_devices(3, [torch.device("cpu")]) == \
+        [torch.device("cpu")] * 3
 
 
 # -- the 4-rank world ---------------------------------------------------------
@@ -235,6 +247,23 @@ def _jax_steps(jc, params, batch, stage, degrees):
         return [float(step((x, x), x).numpy()) for _ in range(W.STEPS)]
 
 
+def _jax_linear_steps(params, x, y):
+    """JAX ``DistributedTrainStep(sharding_stage=3)`` of two Linears at
+    dp2 x mp2: the losses and the parameters after STEPS AdamW steps."""
+    with jmesh_scope({"dp": 2, "mp": 2}):
+        net = jnn.Sequential(jnn.Linear(8, 16), jnn.ReLU(),
+                             jnn.Linear(16, 4))
+        net.set_state_dict({k: paddle.to_tensor(v)
+                            for k, v in params.items()})
+        opt = paddle.optimizer.AdamW(W.LIN_LR, parameters=net.parameters())
+        step = JaxDistributedTrainStep(net, W._mse, opt, sharding_stage=3)
+        losses = [float(step((paddle.to_tensor(x),),
+                             paddle.to_tensor(y)).numpy())
+                  for _ in range(W.STEPS)]
+        return losses, {k: np.asarray(v, np.float32)
+                        for k, v in get_params(net).items()}
+
+
 @pytest.fixture(scope="module")
 def world4(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("world4")
@@ -243,12 +272,23 @@ def world4(tmp_path_factory):
     inputs = dict(llama_cfg=dataclasses.asdict(jc), llama_params=params,
                   batch=rng.integers(0, W.VOCAB, (W.B, W.S)),
                   dp_x=rng.standard_normal((8, 8)).astype(np.float32),
-                  dp_y=rng.integers(0, 4, 8))
+                  dp_y=rng.integers(0, 4, 8),
+                  lin_params={
+                      "0.weight": rng.standard_normal((8, 16)) * 0.3,
+                      "0.bias": rng.standard_normal(16) * 0.1,
+                      "2.weight": rng.standard_normal((16, 4)) * 0.3,
+                      "2.bias": rng.standard_normal(4) * 0.1},
+                  lin_x=rng.standard_normal((8, 8)).astype(np.float32),
+                  lin_y=rng.standard_normal((8, 4)).astype(np.float32))
+    inputs["lin_params"] = {k: v.astype(np.float32)
+                            for k, v in inputs["lin_params"].items()}
     with open(tmp / "inputs.pkl", "wb") as f:
         pickle.dump(inputs, f)
     ctx = W.start_world(4, "world4", tmp)
     want = {s: _jax_steps(jc, params, inputs["batch"], s,
-                          {"dp": 2, "mp": 2}) for s in (0, 1, 2)}
+                          {"dp": 2, "mp": 2}) for s in (0, 1, 2, 3)}
+    want["linears"] = _jax_linear_steps(inputs["lin_params"],
+                                        inputs["lin_x"], inputs["lin_y"])
     return W.join_world(ctx, str(tmp)), want
 
 
@@ -323,13 +363,14 @@ def test_hybrid_groups_dp2_mp2(world4):
         assert g["dp_src"] == mp and g["mp_src"] == 2 * dp
 
 
-@pytest.mark.parametrize("stage", [0, 1, 2])
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
 def test_distributed_train_step_matches_jax(world4, stage):
     ranks, want = world4
     for out in ranks:
         np.testing.assert_allclose(out["steps"][stage]["losses"],
                                    want[stage], rtol=1e-4, atol=1e-5)
     # every rank of a data group ends the step with the same parameters
+    # (ZeRO-3: the slices gathered)
     for mp_rank in (0, 1):
         a, b = [o["steps"][stage]["params"] for o in ranks
                 if o["steps"][stage]["mp_rank"] == mp_rank]
@@ -339,6 +380,64 @@ def test_distributed_train_step_matches_jax(world4, stage):
         # ZeRO: each data rank holds half the optimizer state (+ padding)
         full = ranks[0]["steps"][0]["state_bytes"]
         assert ranks[0]["steps"][stage]["state_bytes"] <= 0.55 * full
+    if stage == 3:
+        # ZeRO-3: and half of every parameter (all are dim-0 divisible)
+        for out in ranks:
+            got, whole = (out["steps"][s]["param_bytes"] for s in (3, 0))
+            assert got["whole"] == 0
+            assert got["total"] * 2 == whole["total"]
+
+
+def test_zero3_gathers_each_step_anew(world4):
+    """ZeRO-3 on two Linears, whose four gathered weights all fit the
+    backward's gather cache, over STEPS AdamW steps: each step's backward
+    uses that step's weights. The losses and parameters equal the
+    unsharded run's (summation order: rtol 1e-5) and JAX's
+    ``DistributedTrainStep(sharding_stage=3)`` (rtol 1e-4)."""
+    ranks, want = world4
+    jax_losses, jax_params = want["linears"]
+    for out in ranks:
+        z3, z0 = (out["zero3_linears"][s] for s in (3, 0))
+        assert (z3["stage"], z0["stage"]) == (3, 0)
+        np.testing.assert_allclose(z3["losses"], z0["losses"], rtol=1e-5,
+                                   atol=1e-7)
+        np.testing.assert_allclose(z3["losses"], jax_losses, rtol=1e-4,
+                                   atol=1e-6)
+        for n, a in z3["params"].items():
+            np.testing.assert_allclose(a, z0["params"][n], rtol=1e-5,
+                                       atol=1e-7, err_msg=n)
+            np.testing.assert_allclose(a, jax_params[n], rtol=1e-4,
+                                       atol=1e-6, err_msg=n)
+
+
+def test_group_sharded_p_g_os_matches_jax(world4):
+    """``group_sharded_parallel(level="p_g_os")``: ZeRO-3 from the
+    optimizer's stage, the same steps as ``sharding_stage=3``."""
+    ranks, want = world4
+    for out in ranks:
+        run = out["steps"]["p_g_os"]
+        assert run["stage"] == 3
+        np.testing.assert_allclose(run["losses"], want[3], rtol=1e-4,
+                                   atol=1e-5)
+        for n, a in run["params"].items():
+            np.testing.assert_array_equal(a, out["steps"][3]["params"][n])
+
+
+def test_group_sharded_p_g_os_eager_step_matches_jax(world4):
+    """ZeRO-3 in eager code (``loss.backward(); opt.step()`` through
+    ``GroupShardedOptimizerStage3``): the gradients averaged by the
+    backward's reduce-scatters, the clip's norm over the slices; the same
+    losses as JAX's ``sharding_stage=3`` and the same parameters as
+    ``DistributedTrainStep(sharding_stage=3)``."""
+    ranks, want = world4
+    for out in ranks:
+        run = out["zero3_eager"]
+        assert run["stage"] == 3
+        np.testing.assert_allclose(run["losses"], want[3], rtol=1e-4,
+                                   atol=1e-5)
+        for n, a in run["params"].items():
+            np.testing.assert_allclose(a, out["steps"][3]["params"][n],
+                                       rtol=1e-5, atol=1e-6, err_msg=n)
 
 
 @pytest.mark.parametrize("level,stage", [("os", 1), ("os_g", 2)])

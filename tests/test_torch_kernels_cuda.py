@@ -2470,3 +2470,82 @@ def test_distributed_nccl_refuses_two_ranks_on_one_card(dev, tmp_path):
         W.join_world(W.start_world(2, "cuda_nccl_shared", tmp_path, "nccl"),
                      str(tmp_path), timeout=120)
     assert "duplicate gpu" in str(exc.value).lower(), str(exc.value)[-3000:]
+
+
+# -- pipeline parallelism: the flash kernels at a microbatch's shape ------
+
+def test_pipeline_microbatch_flash_matches_plain(dev):
+    """A pipeline stage calls the flash kernels on one microbatch: phase
+    9's LLaMA at accumulate_steps 4 gives [3, 1024, 32, 128] bf16, causal.
+    The forward with logsumexp and both backward kernels against their
+    plain versions there."""
+    g = torch.Generator().manual_seed(29)
+    q, k, v, do = (torch.randn(3, 1024, 32, 128, generator=g).to(
+        dev, torch.bfloat16) for _ in range(4))
+    scale = 128 ** -0.5
+    t = lambda x: x.transpose(1, 2).float()
+    n = (fa.flash_fwd.launches, fa.flash_bwd.launches_dq,
+         fa.flash_bwd.launches_dkv)
+    out, lse = fa.flash_fwd(q, k, v, True, scale, None, None, want_lse=True)
+    want, want_lse = fa.flash_plain(t(q), t(k), t(v), True, scale, None,
+                                    None, return_lse=True)
+    _close(out, want.transpose(1, 2), 1e-2)
+    _close(lse, want_lse, 1e-5)
+    o = want.transpose(1, 2).to(torch.bfloat16)
+    got = fa.flash_bwd(q, k, v, o, want_lse, do, True, scale, None, None)
+    ref = fa.flash_bwd_plain(t(q), t(k), t(v), t(o), want_lse, t(do), True,
+                             scale, None, None)
+    torch.cuda.synchronize()
+    for g_, r_ in zip(got, ref):
+        _close(g_, r_.transpose(1, 2), 1e-2)
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches_dq,
+            fa.flash_bwd.launches_dkv) == tuple(x + 1 for x in n)
+
+
+def test_pipeline_mpmd_step_on_the_card_matches_the_cpu(dev):
+    """A 2-stage LLaMA pipe in the MPMD and MPMD-ZBH1 modes, both stages
+    on the card: one f32 train_batch (SGD at lr 0, so the gradients stay
+    in ``.grad``) against the same step on the CPU: the loss within 1e-5
+    of its value, each parameter's gradient within 1e-4 of its norm (the
+    norm of the difference) and 1e-3 of its max entry (any entry); each
+    microbatch runs each layer's flash forward, dQ and dK/dV once (the
+    zero-bubble W events run none of them again)."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        PipelineParallel
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.text.models import LlamaConfig, build_llama_pipe
+    cfg = LlamaConfig.tiny(vocab=256, hidden=256, layers=4, heads=4)
+    ids = torch.randint(0, 256, (4, 64), generator=torch.Generator()
+                        .manual_seed(3))
+    # the CPU's weights on both (a CUDA generator draws other numbers)
+    state = build_llama_pipe(cfg, num_stages=2, device="cpu",
+                             seed=1).state_dict()
+
+    def counts():
+        return (fa.flash_fwd.launches, fa.flash_bwd.launches_dq,
+                fa.flash_bwd.launches_dkv)
+
+    for mode in ("MPMD", "MPMD-ZBH1"):
+        runs = {}
+        for d in ("cpu", "cuda"):
+            s = fleet.DistributedStrategy()
+            s.pipeline_configs = {"accumulate_steps": 2,
+                                  "schedule_mode": mode}
+            pipe = build_llama_pipe(cfg, num_stages=2, device=d, seed=1)
+            pipe.load_state_dict(state)
+            model = PipelineParallel(pipe, strategy=s)
+            n = counts()
+            loss = model.train_batch((ids, ids),
+                                     SGD(0.0, parameters=model.parameters()))
+            runs[d] = (float(loss), {k: p.grad.detach().cpu() for k, p in
+                                     model.named_parameters()},
+                       tuple(b - a for a, b in zip(n, counts())))
+        (want, want_g, _), (got, got_g, launched) = runs["cpu"], runs["cuda"]
+        assert abs(got - want) <= 1e-5 * abs(want), (mode, got, want)
+        for k, g in want_g.items():
+            diff = (got_g[k].float() - g.float())
+            assert float(diff.norm()) <= 1e-4 * float(g.norm()), (mode, k)
+            assert float(diff.abs().max()) <= 1e-3 * float(g.abs().max()), \
+                (mode, k)
+        assert launched == (cfg.num_hidden_layers * 2,) * 3, (mode, launched)

@@ -13,6 +13,7 @@ import traceback
 import numpy as np
 
 B, S, VOCAB, LR, CLIP, STEPS = 4, 12, 64, 1e-3, 0.1, 3
+LIN_LR = 0.1
 
 
 def start_world(nprocs, job, tmp, backend="gloo"):
@@ -238,14 +239,23 @@ def _train_steps(rank, inputs, stage):
                                                mp_rank, 2))
     opt = optimizer.AdamW(LR, parameters=net.named_parameters(),
                           grad_clip=nn.ClipGradByGlobalNorm(CLIP))
-    step = DistributedTrainStep(fleet.distributed_model(net),
-                                lambda out, lab: out,
-                                fleet.distributed_optimizer(opt),
-                                sharding_stage=stage)
+    if stage == "p_g_os":
+        from paddle_tpu_torch.distributed.sharding import \
+            group_sharded_parallel
+        model, opt, _ = group_sharded_parallel(net, opt, "p_g_os")
+        step = DistributedTrainStep(model, lambda out, lab: out, opt)
+    else:
+        step = DistributedTrainStep(fleet.distributed_model(net),
+                                    lambda out, lab: out,
+                                    fleet.distributed_optimizer(opt),
+                                    sharding_stage=stage)
     ids = torch.from_numpy(inputs["batch"])
     losses = [float(step((ids, ids), ids)) for _ in range(STEPS)]
     return dict(losses=losses, state_bytes=step.opt_state_bytes(),
-                params={n: _np(p) for n, p in net.named_parameters()},
+                param_bytes=step.parameter_bytes(),
+                stage=step._sharding_stage,
+                params={n: _np(p) for n, p in
+                        step.full_parameters().items()},
                 mp_rank=mp_rank, dp_rank=hcg.get_data_parallel_rank())
 
 
@@ -288,6 +298,79 @@ def _zero_eager(rank, inputs, level):
                           if t.dim()))
 
 
+def _zero3_eager(rank, inputs):
+    """``group_sharded_parallel(level="p_g_os")`` in eager code: the
+    LLaMA of ``_train_steps``, ``loss.backward(); opt.step()`` on this
+    data rank's half of the batch for STEPS steps; the losses averaged
+    over the data group and the parameters gathered."""
+    import torch
+
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.bridge import llama_state_from_numpy
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.communication import collectives as C
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_wrappers \
+        import zero3_of
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+    hcg = fleet.get_hybrid_communicate_group()
+    mp_rank = hcg.get_model_parallel_rank()
+    net = LlamaForCausalLM(LlamaConfig(**inputs["llama_cfg"]), device="cpu")
+    net.load_state_dict(llama_state_from_numpy(inputs["llama_params"],
+                                               mp_rank, 2))
+    opt = optimizer.AdamW(LR, parameters=net.parameters(),
+                          grad_clip=nn.ClipGradByGlobalNorm(CLIP))
+    model, opt, _ = group_sharded_parallel(net, opt, "p_g_os")
+    g = hcg.get_dp_sharding_group()
+    ids = torch.from_numpy(inputs["batch"])
+    k = ids.shape[0] // g.nranks
+    mine = ids[g.rank * k:(g.rank + 1) * k]
+    losses = []
+    for _ in range(STEPS):
+        loss = model(mine, labels=mine)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        mean = loss.detach().clone()
+        C.all_reduce(mean, op=C.ReduceOp.AVG, group=g)
+        losses.append(float(mean))
+    return dict(losses=losses, mp_rank=mp_rank, stage=opt.sharding_stage,
+                params={n: _np(p) for n, p in
+                        zero3_of(net).full_parameters().items()})
+
+
+def _mse(out, lab):
+    return ((out - lab) ** 2).mean()
+
+
+def _zero3_linears(rank, inputs, stage):
+    """Two ``torch.nn.Linear`` layers (four gathered tensors: fewer than
+    the ZeRO-3 gather cache holds) under ``DistributedTrainStep`` at
+    ``sharding_stage`` for STEPS AdamW steps on the data group's halves
+    of the batch; the losses and the gathered parameters (JAX layout)."""
+    import torch
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.parallel_step import \
+        DistributedTrainStep
+    net = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.ReLU(),
+                              torch.nn.Linear(16, 4))
+    with torch.no_grad():
+        for n, p in net.named_parameters():
+            p.copy_(torch.from_numpy(inputs["lin_params"][n]).T)
+    opt = optimizer.AdamW(LIN_LR, parameters=net.named_parameters())
+    step = DistributedTrainStep(fleet.distributed_model(net), _mse,
+                                fleet.distributed_optimizer(opt),
+                                sharding_stage=stage)
+    x = torch.from_numpy(inputs["lin_x"])
+    y = torch.from_numpy(inputs["lin_y"])
+    losses = [float(step((x,), y)) for _ in range(STEPS)]
+    return dict(losses=losses, stage=step._sharding_stage,
+                params={n: _np(p).T for n, p in
+                        step.full_parameters().items()})
+
+
 def world4(rank, world, tmp, inputs):
     _join(rank, world, tmp)
     out = _collectives(rank, world)
@@ -304,9 +387,13 @@ def world4(rank, world, tmp, inputs):
         "mp_src": hcg.get_model_parallel_group_src_rank(),
         "coord": (hcg.get_data_parallel_rank(),
                   hcg.get_model_parallel_rank())}
-    out["steps"] = {s: _train_steps(rank, inputs, s) for s in (0, 1, 2)}
+    out["steps"] = {s: _train_steps(rank, inputs, s)
+                    for s in (0, 1, 2, 3, "p_g_os")}
     out["zero_eager"] = {lv: _zero_eager(rank, inputs, lv)
                          for lv in ("os", "os_g")}
+    out["zero3_eager"] = _zero3_eager(rank, inputs)
+    out["zero3_linears"] = {s: _zero3_linears(rank, inputs, s)
+                            for s in (0, 3)}
     return out
 
 
@@ -471,3 +558,204 @@ def cuda_nccl_shared(rank, world, tmp, inputs):
     dist.all_reduce(t)
     torch.cuda.synchronize()
     return dict(value=_np(t))
+
+
+# -- the pipeline worlds (test_torch_pipeline_ranks.py) ---------------------
+
+PIPE_M, PIPE_LR, PIPE_CLIP, PIPE_STEPS = 4, 0.1, 1.0, 2
+
+
+def _pipe_fleet(pp, mp=1, dp=1, mode="", vpp=1, accumulate=PIPE_M):
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"pp_degree": pp, "mp_degree": mp, "dp_degree": dp}
+    s.pipeline_configs = {"accumulate_steps": accumulate,
+                          "schedule_mode": mode, "vpp_degree": vpp}
+    fleet.init(is_collective=True, strategy=s)
+    return fleet
+
+
+def _block_cls():
+    import torch
+
+    class Block(torch.nn.Module):
+        """The JAX tests' ``_Block``: tanh(fc(x))."""
+
+        def __init__(self, din, dout=None):
+            super().__init__()
+            self.fc = torch.nn.Linear(din, dout or din)
+
+        def forward(self, x):
+            return torch.tanh(self.fc(x))
+
+    return Block
+
+
+def _load_linear_pipe(model, params):
+    """JAX Linear weights ([in, out]) onto this stage's modules."""
+    import torch
+    state = {}
+    for name, p in model.state_dict().items():
+        a = params[name]
+        state[name] = torch.from_numpy(np.ascontiguousarray(
+            a.T if name.endswith("fc.weight") else a))
+    model.load_state_dict(state)
+
+
+def _pipe_train(model, opt_of, data, steps=PIPE_STEPS):
+    from paddle_tpu_torch import monitor
+    monitor.reset()
+    opt = opt_of(model)
+    losses = [float(model.train_batch(data, opt)) for _ in range(steps)]
+    params = {n: _np(p) for n, p in model.named_parameters()}
+    return dict(losses=losses, params=params,
+                stats=dict(getattr(model.last_runner, "stats", {}) or {}),
+                sends=int(monitor.counters().get("distributed.calls.send",
+                                                 0)))
+
+
+def _sgd(model):
+    from paddle_tpu_torch import nn, optimizer
+    return optimizer.SGD(PIPE_LR, parameters=model.parameters(),
+                         grad_clip=nn.ClipGradByGlobalNorm(PIPE_CLIP))
+
+
+def _pipe_blocks(inputs, S, mode, vpp, widths=None, seg="uniform", dp=1):
+    """A PipelineLayer of Blocks (or of ``widths`` Blocks under ``seg``)
+    with the JAX weights, trained PIPE_STEPS steps (``dp`` > 1: each data
+    rank on its part of the batch)."""
+    import torch
+
+    from paddle_tpu_torch.distributed.fleet import distributed_model
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        LayerDesc, PipelineLayer)
+    Block = _block_cls()
+    key = "het" if widths else "blocks"
+    descs = [LayerDesc(Block, a, b) for a, b in widths] if widths else \
+        [LayerDesc(Block, inputs["D"]) for _ in range(inputs["n_blocks"])]
+    _pipe_fleet(S, mode=mode, vpp=vpp, dp=dp)
+    pl = PipelineLayer(descs, num_stages=S, loss_fn=torch.nn.MSELoss(),
+                       seg_method=seg)
+    model = distributed_model(pl)
+    _load_linear_pipe(model, inputs[f"{key}_params"])
+    x, y = inputs[f"{key}_x"], inputs[f"{key}_y"]
+    out = _pipe_train(model, _sgd, (torch.from_numpy(x),
+                                      torch.from_numpy(y)))
+    out["type"] = type(model).__name__
+    # evaluation on the updated stages: the loss on every rank, the
+    # output on the last stage (None elsewhere)
+    out["eval_loss"] = float(model.eval_batch((torch.from_numpy(x),
+                                               torch.from_numpy(y))))
+    y_out = model.eval_batch((torch.from_numpy(x), None),
+                             compute_loss=False)
+    out["eval_out"] = None if y_out is None else _np(y_out)
+    return out
+
+
+def _pipe_llama(inputs, tied, mp=1, mode="FThenB"):
+    import dataclasses
+
+    import torch
+
+    from paddle_tpu_torch.bridge import pipe_state_from_numpy
+    from paddle_tpu_torch.distributed.fleet import (
+        distributed_model, get_hybrid_communicate_group)
+    from paddle_tpu_torch.text.models import LlamaConfig, build_llama_pipe
+    _pipe_fleet(2, mp=mp, mode=mode, accumulate=2)
+    cfg = dataclasses.replace(LlamaConfig(**inputs["llama_cfg"]),
+                              tie_word_embeddings=tied)
+    model = distributed_model(build_llama_pipe(cfg, device="cpu"))
+    mp_rank = get_hybrid_communicate_group().get_model_parallel_rank()
+    key = "tied" if tied else "untied"
+    model.load_state_dict(pipe_state_from_numpy(
+        inputs[f"llama_{key}"], cfg, mp_rank, mp,
+        names=model.state_dict().keys()))
+    ids = torch.from_numpy(inputs["llama_ids"])
+    out = _pipe_train(model, _sgd, (ids, ids))
+    out["mp_rank"] = mp_rank
+    if mp > 1:
+        from paddle_tpu_torch.bridge import tp_merge
+        from paddle_tpu_torch.bridge import _pipe_to_llama_names
+        from paddle_tpu_torch.distributed.communication import \
+            collectives as C
+        g = get_hybrid_communicate_group().get_model_parallel_group()
+        rename = _pipe_to_llama_names(cfg.num_hidden_layers, tied)
+        merged = {}
+        for n, p in model.named_parameters():
+            parts = C.all_gather(None, p.detach().contiguous(), group=g)
+            merged[n] = _np(tp_merge(parts, "llama", rename(n)))
+        out["params"] = merged
+    return out
+
+
+def _pipe_apply(rank, world):
+    """``pipeline_apply*`` over the world's pp group against the
+    sequential run of the same blocks in this rank: the largest
+    differences of the outputs and of the gradients (stage and input)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import fleet, pipeline
+    fleet.init(is_collective=True, strategy=fleet.DistributedStrategy())
+    group = fleet.get_hybrid_communicate_group().get_data_parallel_group()
+    S, M, V = world, PIPE_M, 2
+    gen = torch.Generator().manual_seed(6)
+    w = torch.randn(S * V, 8, 8, generator=gen) * 0.3
+    b = torch.randn(S * V, 8, generator=gen) * 0.1
+    xs = torch.randn(M, 3, 8, generator=gen)
+
+    def block(p, x, m, c):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    def chunk(c):
+        return {"w": w[c].clone().requires_grad_(),
+                "b": b[c].clone().requires_grad_()}
+
+    out = {}
+    for name in ("gpipe", "zb", "vpp", "zbvpp"):
+        vv = V if "vpp" in name else 1
+        cs = [chunk(v * S + rank) for v in range(vv)]
+        x = xs.clone().requires_grad_()
+        if name == "gpipe":
+            ys = pipeline.pipeline_apply(block, cs[0], x, group)
+        elif name == "zb":
+            ys = pipeline.pipeline_apply_zb(block, cs[0], x, group)
+        elif name == "vpp":
+            ys = pipeline.pipeline_apply_vpp(block, cs, x, V, group)
+        else:
+            ys = pipeline.pipeline_apply_zbvpp(block, cs, x, V, group)
+        (ys ** 2).mean().backward()
+        ref = [chunk(c) for c in range(S * vv)]
+        xr = xs.clone().requires_grad_()
+        y = xr
+        for p in ref:
+            y = block(p, y, 0, 0)
+        (y ** 2).mean().backward()
+        errs = [float((ys - y).detach().abs().max())]
+        for v, c in enumerate(cs):
+            errs.append(float((c["w"].grad - ref[v * S + rank]["w"].grad)
+                              .abs().max()))
+        if rank == 0:
+            errs.append(float((x.grad - xr.grad).abs().max()))
+        out[name] = max(errs)
+    return out
+
+
+def pipe_world(rank, world, tmp, inputs):
+    """Every schedule of a Block pipeline at pp=world against JAX; world
+    2: the LLaMA pipe tied and untied; world 4: the heterogeneous stages
+    and the LLaMA pipe at pp=2 x mp=2. First, ``pipeline_apply*`` over
+    the world."""
+    _join(rank, world, tmp)
+    out = {"blocks": {}, "apply": _pipe_apply(rank, world)}
+    for mode, vpp in inputs["modes"]:
+        out["blocks"][(mode, vpp)] = _pipe_blocks(inputs, world, mode, vpp)
+    if world == 4:
+        out["het"] = _pipe_blocks(inputs, 4, "FThenB", 1,
+                                  widths=inputs["het_widths"],
+                                  seg=inputs["het_seg"])
+        out["llama_mp2"] = _pipe_llama(inputs, False, mp=2, mode="1F1B")
+        out["pp2_dp2"] = _pipe_blocks(inputs, 2, "1F1B", 1, dp=2)
+    else:
+        out["llama_untied"] = _pipe_llama(inputs, False, mode="1F1B")
+        out["llama_tied"] = _pipe_llama(inputs, True, mode="ZBH1")
+    return out
