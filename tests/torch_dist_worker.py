@@ -759,3 +759,49 @@ def pipe_world(rank, world, tmp, inputs):
         out["llama_untied"] = _pipe_llama(inputs, False, mode="1F1B")
         out["llama_tied"] = _pipe_llama(inputs, True, mode="ZBH1")
     return out
+
+
+# -- the sequence-parallel worlds (test_torch_sequence_parallel.py) --------
+
+def _fleet_degrees(**degrees):
+    """``fleet.init`` at ``degrees`` ({"sep": 2, "mp": 2, ...})."""
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {f"{k}_degree": v for k, v in degrees.items()}
+    fleet.init(is_collective=True, strategy=s)
+    return fleet
+
+
+def _sep_drift(rank, inputs):
+    """Each sep rank feeds its own sequence chunk to the LLaMA (no
+    wrapper) and steps an AdamW through ``fleet.distributed_optimizer``:
+    the ring must see the other chunk and the step reduce over sep, else
+    the ranks attend within their chunks and their weights drift."""
+    import torch
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.bridge import llama_state_from_numpy
+    from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+    fleet = _fleet_degrees(sep=2)
+    sep = fleet.get_hybrid_communicate_group().get_sep_parallel_rank()
+    net = LlamaForCausalLM(LlamaConfig(**inputs["llama_cfg"]), device="cpu")
+    net.load_state_dict(llama_state_from_numpy(inputs["llama_params"]))
+    opt = fleet.distributed_optimizer(
+        optimizer.AdamW(LR, parameters=net.parameters()))
+    ids = torch.from_numpy(inputs["batch"])
+    k = ids.shape[1] // 2
+    mine = ids[:, sep * k:(sep + 1) * k]
+    losses = []
+    for _ in range(STEPS):
+        loss = net(mine, labels=mine)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    return dict(losses=losses, sep_rank=sep,
+                params={n: _np(p) for n, p in net.named_parameters()})
+
+
+def sep_world2(rank, world, tmp, inputs):
+    _join(rank, world, tmp)
+    return dict(drift=_sep_drift(rank, inputs))
