@@ -8,6 +8,9 @@ NVIDIA GPU.
     python3 chip_smoke.py --pipe-fault   # phase 29 (a)'s and (b)'s gates
                                          # against planted pipeline faults,
                                          # one a run
+    python3 chip_smoke.py --sep-fault    # phase 30's f32 gates against
+                                         # planted sequence / expert
+                                         # parallelism faults, one a run
 
 Every phase is fatal (any failure exits non-zero and prints no result):
 
@@ -593,6 +596,35 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    (a)'s and (b)'s gates both fail it), the tied weight's gradient not
    all-reduced between its stages, and each stage's first W event of
    ZBH1 / ZBVPP skipped (each only when (b)'s gradient gate fails it).
+30. sequence, segment and expert parallelism: two ranks sharing the
+   card under gloo (``chip_smoke.py --dist-rank s``): (a) sep=2,
+   LLaMA-7B widths in f32 at 1 x 2048 (1,024 tokens a rank), 2 layers,
+   and 1 layer with 8 kv heads and a 512-token window across the chunks:
+   the loss, the gathered logits and every gradient (averaged over sep)
+   within closeness's f32 gate of rank 0's own sep=1 model from the same
+   seed (each gradient at its own scale, as phase 29 (b)); then
+   ``MpmdRingExecutor`` at R=2 in rank 0 (both stages on the card)
+   within the f32 gate of the two ranks' ``ring_attention_arrays``; (b)
+   phase 9's configuration at 2 layers through
+   ``fleet.init(sep_degree=2)`` -> ``SegmentParallel`` ->
+   ``DistributedTrainStep`` (12 x 512 a rank, the ring attention, no
+   flash launch), AMP bf16, 2 steps, each loss within phase 29's
+   ``_loss_gate`` of phase 28 (c)'s one-rank run (2 layers), the k/v
+   staged by the ring's sends; (c) mp=2 with ``sequence_parallel``:
+   phase 28 (b)'s f32 gate, then phase 9's configuration for 2 bf16
+   steps within the gate of 28 (a)'s, each rank launching 4 layers x 2
+   wgmma forward, dQ and dK/dV, all_gather and reduce_scatter staged;
+   (d) ep=2: ERNIE-MoE at
+   its training widths and depth (4 of 8 experts a rank), f32 at 2 x 128
+   within the f32 gate of a one-rank model (loss, l_aux, logits, every
+   gradient), then its 32 x 512 training batch for 2 bf16 steps within
+   the gate of a one-rank run, each rank holding 0.50 of the expert
+   parameter bytes and counting one ``ep-sharded`` fallback a MoE layer
+   a forward; (e) the ep ranks' expert shards swapped must fail (d)'s f32
+   gate. ``--sep-fault`` plants three faults, each in its own run: the
+   ring's keys at the wrong source offset ((a) must fail), the
+   sequence-parallel norms' gradients not summed over mp ((c)), the ep
+   all-gather's backward summing where it should slice ((d)).
 
 It prints the card line, a {"kernels": [...]} line (the tensor-core
 forward, dQ and dK/dV as ``flash_fwd`` / ``flash_bwd_dq`` /
@@ -8949,21 +8981,29 @@ def _dist_train(torch, mods, model_cfg, stage, steps, distributed):
     return rec
 
 
-def _dist_f32_check(torch, mods, mp_group):
+def _dist_f32_check(torch, mods, mp_group, sequence_parallel=False):
     """(b)'s f32 gate and (d)'s negative control, on the mp=2 ranks: the
     loss, the gathered logits and every gradient of LLaMA-7B widths x 1
     layer against rank 0's own mp=1 model from the same seed; then the
-    two ranks' o_proj shards swapped, which must fail the gate."""
+    two ranks' o_proj shards swapped, which must fail the gate.
+    ``sequence_parallel`` (phase 30 (c)): the mp=2 model with it, its
+    norms' gradients summed over mp as the step sums them."""
     from paddle_tpu_torch import bridge
     from paddle_tpu_torch.distributed import mesh as mesh_mod
     from paddle_tpu_torch.distributed.communication import collectives as C
-    cfg = mods.LlamaConfig(**{**mods.train.MODEL, "num_hidden_layers": 1})
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers \
+        .dygraph_optimizer import hybrid_parallel_optimizer as hpo
+    cfg = mods.LlamaConfig(**{**mods.train.MODEL, "num_hidden_layers": 1,
+                              "sequence_parallel": sequence_parallel})
     gen = torch.Generator(device="cuda").manual_seed(7)
     ids = torch.randint(0, cfg.vocab_size, (DIST_F32_BATCH, DIST_F32_SEQ),
                         generator=gen, device="cuda")
     model = mods.LlamaForCausalLM(cfg, seed=1)
     loss = model(ids, labels=ids)
     loss.backward()
+    if sequence_parallel:
+        hpo.sum_sequence_parallel_grads(
+            [(p, p.grad) for p in model.parameters()], mp_group)
     with torch.no_grad():
         logits = model(ids)
     grads = {}
@@ -9030,7 +9070,8 @@ def _dist_p2p(torch, rank, world_group):
 
 
 def dist_rank_main(argv):
-    """Phase 28's and 29's rank, started by the port's launcher: ``b``
+    """Phase 28's, 29's and 30's rank, started by the port's launcher
+    (``s``: phase 30, ``seq_rank``); ``b``
     (mp=2: the f32 check, the negative control, P2P, then phase 9's bf16
     training for TRAIN_STEPS steps), ``c`` (dp=2, ZeRO-1:
     DIST_ZERO_LAYERS layers, DIST_ZERO_STEPS steps), ``p`` (pp=2: phase
@@ -9040,18 +9081,21 @@ def dist_rank_main(argv):
     ``rank<r>.json`` to --out."""
     import argparse
     p = argparse.ArgumentParser(prog="chip_smoke.py --dist-rank")
-    p.add_argument("which", choices=("b", "c", "p"))
+    p.add_argument("which", choices=("b", "c", "p", "s"))
     p.add_argument("--out", required=True)
     p.add_argument("--plant-fault", nargs="?", const="on",
-                   choices=("on",) + tuple(PIPE_FAULTS),
+                   choices=("on",) + tuple(PIPE_FAULTS) + tuple(SEP_FAULTS),
                    help="b: _c_identity's backward without its all-reduce "
                         "(``--dist-fault``); p: one of PIPE_FAULTS "
-                        "(``--pipe-fault``)")
+                        "(``--pipe-fault``); s: one of SEP_FAULTS "
+                        "(``--sep-fault``)")
     args = p.parse_args(argv)
     t0 = time.perf_counter()
     import torch
     if args.plant_fault and args.which == "p":
         _plant_pipe_fault(args.plant_fault)
+    elif args.plant_fault and args.which == "s":
+        _plant_sep_fault(args.plant_fault)
     elif args.plant_fault:
         from paddle_tpu_torch.distributed.fleet.layers.mpu import mp_ops
         mp_ops._Identity.backward = staticmethod(lambda ctx, g: (g, None))
@@ -9059,19 +9103,28 @@ def dist_rank_main(argv):
     torch.backends.cudnn.allow_tf32 = False
     from types import SimpleNamespace
 
+    from paddle_tpu_torch import profile_moe as moe_profile
     from paddle_tpu_torch import profile_training as train
     from paddle_tpu_torch.distributed import env, fleet
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_adam as fad
+    from paddle_tpu_torch.nn._modules import CrossEntropyLoss
     from paddle_tpu_torch.optimizer import AdamW
-    from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.text.models import (ErnieMoEConfig,
+                                              ErnieMoEForCausalLM,
+                                              LlamaConfig, LlamaForCausalLM)
     mods = SimpleNamespace(train=train, LlamaConfig=LlamaConfig,
                            LlamaForCausalLM=LlamaForCausalLM, AdamW=AdamW,
-                           TrainStep=TrainStep, fa=fa, fad=fad)
+                           TrainStep=TrainStep, fa=fa, fad=fad,
+                           moe_profile=moe_profile,
+                           ErnieMoEConfig=ErnieMoEConfig,
+                           ErnieMoEForCausalLM=ErnieMoEForCausalLM,
+                           CrossEntropyLoss=CrossEntropyLoss)
     s = fleet.DistributedStrategy()
     s.hybrid_configs = {"mp_degree": 2} if args.which == "b" \
-        else {"pp_degree": 2} if args.which == "p" else {"dp_degree": 2}
+        else {"pp_degree": 2} if args.which == "p" \
+        else {"sep_degree": 2} if args.which == "s" else {"dp_degree": 2}
     fleet.init(is_collective=True, strategy=s)
     hcg = fleet.get_hybrid_communicate_group()
     rank = env.get_rank()
@@ -9085,6 +9138,8 @@ def dist_rank_main(argv):
         rec["p2p_ok"] = _dist_p2p(torch, rank, None)
         rec["run"] = _dist_train(torch, mods, train.MODEL, 0, TRAIN_STEPS,
                                  True)
+    elif args.which == "s":
+        rec.update(seq_rank(torch, mods, args.plant_fault))
     elif args.which == "c":
         rec["run"] = _dist_train(
             torch, mods, {**train.MODEL,
@@ -9922,6 +9977,555 @@ def pipe_fault_main():
         fail(f"pipe fault: a gate passed the planted fault(s) {missed}")
 
 
+# -- phase 30: sequence, segment and expert parallelism --------------------
+
+#: (a): LLaMA-7B widths at 1 x SEP_F32_SEQ over sep=2 (1,024 tokens a
+#: rank) in f32, against rank 0's sep=1 model: (case, config overrides)
+SEP_F32_SEQ = 2048
+SEP_F32_CASES = (("mha_2l", dict(num_hidden_layers=2)),
+                 ("gqa8_window512_1l", dict(num_hidden_layers=1,
+                                            num_key_value_heads=8,
+                                            sliding_window=512)))
+#: (b), (c), (d): bf16 steps of each configuration; (b) at phase 28
+#: (c)'s depth (its one-rank run the reference): at 4 layers its 4.29 GB
+#: f32 gradient all-reduce over sep, staged through host memory, took
+#: 6.9 of its 8.9 s a step. At 3 steps a configuration phase 30 took
+#: 112.4 s of a 1,091 s ``chip_smoke.py`` (both on H100 80GB HBM3, 700 W):
+#: 2 steps keep the script inside its limit on slower hosts
+SEQ_STEPS = 2
+SEP_TRAIN_LAYERS = DIST_ZERO_LAYERS
+#: (d): ERNIE-MoE's f32 check at EP_F32_BATCH x EP_F32_SEQ; the share of
+#: the expert parameters a rank holds at ep=2
+EP_F32_BATCH, EP_F32_SEQ = 2, 128
+EP_PARAM_SHARE = 0.50
+#: ``--sep-fault``'s planted faults, each in its own run, and the part
+#: whose f32 gate must fail it
+SEP_FAULTS = {"ring_offset": "a", "sp_norm": "c", "ep_gather": "d"}
+
+
+def _plant_sep_fault(kind):
+    """``--sep-fault``'s planted fault ``kind`` in a rank: "ring_offset",
+    every ring hop places the block's keys at this rank's own positions
+    (not at their source rank's); "sp_norm", the sequence-parallel norms'
+    gradients are not summed over mp; "ep_gather", the ep all-gather's
+    backward sums the ranks' gradients where it should keep this rank's
+    rows."""
+    from paddle_tpu_torch.distributed import parallel_step
+    from paddle_tpu_torch.distributed.fleet.layers.mpu import mp_ops
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers \
+        .dygraph_optimizer import hybrid_parallel_optimizer as hpo
+    from paddle_tpu_torch.incubate.distributed.models.moe import moe_layer
+    from paddle_tpu_torch.kernels import ring_attention as ra
+    if kind == "ring_offset":
+        fwd, bwd = ra.fwd_hop, ra.bwd_hop
+
+        def fwd_hop(q32, kk, vv, acc, m, l, pos_q, k_off, causal, window):
+            return fwd(q32, kk, vv, acc, m, l, pos_q, int(pos_q[0]), causal,
+                       window)
+
+        def bwd_hop(q32, do32, lse, d_rows, kk, vv, dk, dv, dq, pos_q, k_off,
+                    causal, window):
+            return bwd(q32, do32, lse, d_rows, kk, vv, dk, dv, dq, pos_q,
+                       int(pos_q[0]), causal, window)
+
+        ra.fwd_hop, ra.bwd_hop = fwd_hop, bwd_hop
+    elif kind == "sp_norm":
+        hpo.sum_sequence_parallel_grads = lambda pairs, group: None
+        parallel_step.sum_sequence_parallel_grads = hpo \
+            .sum_sequence_parallel_grads
+    elif kind == "ep_gather":
+        moe_layer._EpGather.backward = staticmethod(
+            lambda ctx, g: (mp_ops._reduce_scatter(g, ctx.group, ctx.dim),
+                            None, None))
+    else:
+        raise ValueError(f"unknown sequence-parallel fault {kind!r}")
+
+
+def _seq_fleet(**degrees):
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {f"{k}_degree": v for k, v in degrees.items()}
+    fleet.init(is_collective=True, strategy=s)
+    return fleet.get_hybrid_communicate_group()
+
+
+def _whole_model(cls, cfg, seed):
+    """``cls(cfg, seed=seed)`` built with no mesh: the whole model, as one
+    rank's (a model's splits are fixed when it is built)."""
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    saved = mesh_mod.get_mesh()
+    mesh_mod.set_mesh(None)
+    try:
+        return cls(cfg, seed=seed)
+    finally:
+        mesh_mod.set_mesh(saved)
+
+
+def _own_scale_grads(got, ref):
+    """closeness's f32 gate of each gradient at its own scale (phase 29
+    (b)'s): {name: ratio}."""
+    return {n: closeness(g, ref[n], atol=PIPE_GRAD_ATOL * float(
+        ref[n].float().abs().max()))["ratio"] for n, g in got.items()}
+
+
+def _ring_bytes(counters):
+    return {op: counters.get(f"distributed.staged_bytes.{op}", 0)
+            for op in ("send", "recv")}
+
+
+def _sep_f32(torch, mods, mpmd=True):
+    """(a), on a sep=2 rank: each SEP_F32_CASES model's loss, gathered
+    logits and every gradient (summed over sep, as the step sums them)
+    against rank 0's own sep=1 model from the same seed; then
+    MpmdRingExecutor at R=2 in rank 0 against the two ranks' ring."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.distributed.communication import collectives as C
+    from paddle_tpu_torch.distributed.mpmd_runtime import MpmdRingExecutor
+    from paddle_tpu_torch.kernels.ring_attention import ring_attention_arrays
+    hcg = _seq_fleet(sep=2)
+    g = hcg.get_sep_parallel_group()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ids = torch.randint(0, mods.train.MODEL["vocab_size"], (1, SEP_F32_SEQ),
+                        generator=gen, device="cuda")
+    k = SEP_F32_SEQ // 2
+    mine = ids[:, g.rank * k:(g.rank + 1) * k]
+    out = {}
+    for name, over in SEP_F32_CASES:
+        cfg = mods.LlamaConfig(**{**mods.train.MODEL, **over,
+                                  "max_position_embeddings": SEP_F32_SEQ})
+        model = mods.LlamaForCausalLM(cfg, seed=1)
+        monitor.reset()
+        loss = model(mine, labels=mine)
+        loss.backward()
+        staged = _ring_bytes(monitor.counters())
+        with torch.no_grad():
+            logits = torch.cat(C.all_gather(None, model(mine).contiguous(),
+                                            group=g), dim=1)
+        grads = {}
+        for n, p in model.named_parameters():
+            t = p.grad.contiguous()
+            C.all_reduce(t, group=g)
+            grads[n] = t
+        rec = dict(staged_a_step=staged, loss_value=float(loss.detach()))
+        if g.rank == 0:
+            ref = _whole_model(mods.LlamaForCausalLM, cfg, 1)
+            want = ref(ids, labels=ids)
+            want.backward()
+            want = want.detach()
+            with torch.no_grad():
+                want_logits = ref(ids)
+            gr = _own_scale_grads(grads, {n: p.grad for n, p in
+                                          ref.named_parameters()})
+            rec.update(loss=closeness(loss.detach(), want),
+                       logits=closeness(logits, want_logits),
+                       grads_ratio=max(gr.values()),
+                       grads_worst=max(gr, key=gr.get), n_grads=len(gr),
+                       want_loss=float(want))
+            rec["ratio"] = max(rec["loss"]["ratio"], rec["logits"]["ratio"],
+                               rec["grads_ratio"])
+            del ref, want, want_logits
+        out[name] = rec
+        del model, loss, logits, grads
+        free_cuda(torch)
+    if not mpmd:
+        return out
+    # MpmdRingExecutor (one process, both stages on the card) against the
+    # two ranks' ring_attention_arrays, attention at LLaMA-7B's shape
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    q, kk, v, cot = (torch.randn(1, 32, SEP_F32_SEQ, 128, generator=gen,
+                                 device="cuda") for _ in range(4))
+    part = slice(g.rank * k, (g.rank + 1) * k)
+    qs, ks, vs = (t[:, :, part].clone().requires_grad_() for t in (q, kk, v))
+    ring = ring_attention_arrays(qs, ks, vs, causal=True)
+    (ring * cot[:, :, part]).sum().backward()
+    got = {n: torch.cat(C.all_gather(None, t.detach().contiguous(), group=g),
+                        dim=2)
+           for n, t in (("out", ring), ("dq", qs.grad), ("dk", ks.grad),
+                        ("dv", vs.grad))}
+    if g.rank == 0:
+        ex = MpmdRingExecutor(2, causal=True)
+        t0 = time.perf_counter()
+        o, (dq, dk, dv) = ex.run(q, kk, v, dout=cot)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        c = {n: closeness(x, got[n]) for n, x in
+             (("out", o), ("dq", dq), ("dk", dk), ("dv", dv))}
+        out["mpmd"] = dict(ratio=max(x["ratio"] for x in c.values()),
+                           by_tensor={n: x["ratio"] for n, x in c.items()},
+                           seconds=secs, driver=ex.stats())
+    del q, kk, v, cot, qs, ks, vs, ring, got
+    free_cuda(torch)
+    return out
+
+
+def _ep_f32(torch, mods, hcg):
+    """(d)'s f32 check and (e), on an ep=2 rank: ERNIE-MoE at its training
+    widths and depth, f32, EP_F32_BATCH x EP_F32_SEQ: CE + aux, the loss,
+    l_aux, the logits and every gradient (the experts' gathered over ep)
+    against rank 0's own one-rank model from the same seed (the einsum
+    dispatch, whose routing the ep fallback takes); then (e) the two
+    ranks' expert shards swapped, which must fail the gate."""
+    from paddle_tpu_torch.bridge import ep_merge
+    from paddle_tpu_torch.distributed.communication import collectives as C
+    P = mods.moe_profile
+    g = hcg.get_expert_parallel_group()
+    cfg = mods.ErnieMoEConfig(**P.MOE_TRAIN_MODEL)
+    model = mods.ErnieMoEForCausalLM(cfg, seed=1)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ids = torch.randint(0, cfg.vocab_size, (EP_F32_BATCH, EP_F32_SEQ),
+                        generator=gen, device="cuda")
+    ce = mods.CrossEntropyLoss()
+
+    def loss_of(net):
+        logits = net(ids)
+        aux = net.aux_loss()
+        return ce(logits, ids) + aux, aux, logits
+
+    loss, aux, logits = loss_of(model)
+    loss.backward()
+    grads = {n: ep_merge(C.all_gather(None, p.grad.contiguous(), group=g), n)
+             for n, p in model.named_parameters()}
+    experts = [p for n, p in model.named_parameters() if ".experts." in n]
+    mine = sum(p.numel() * p.element_size() for p in experts)
+    with torch.no_grad():
+        for p in experts:
+            shards = C.all_gather(None, p.detach().contiguous(), group=g)
+            p.copy_(shards[1 - g.rank])
+        swapped = loss_of(model)
+    rec = dict(expert_bytes=mine, loss_value=float(loss.detach()))
+    if g.rank == 0:
+        one_cfg = mods.ErnieMoEConfig(**{**P.MOE_TRAIN_MODEL,
+                                         "moe_dispatch_mode": "einsum"})
+
+        ref = _whole_model(mods.ErnieMoEForCausalLM, one_cfg, 1)
+        want, want_aux, want_logits = loss_of(ref)
+        want.backward()
+        gr = _own_scale_grads(grads, {n: p.grad for n, p in
+                                      ref.named_parameters()})
+        rec.update(loss=closeness(loss.detach(), want.detach()),
+                   l_aux=closeness(aux.detach(), want_aux.detach()),
+                   logits=closeness(logits.detach(), want_logits.detach()),
+                   grads_ratio=max(gr.values()),
+                   grads_worst=max(gr, key=gr.get), n_grads=len(gr),
+                   want_loss=float(want),
+                   one_rank_expert_bytes=sum(
+                       p.numel() * p.element_size()
+                       for n, p in ref.named_parameters()
+                       if ".experts." in n))
+        rec["ratio"] = max(rec[k]["ratio"] for k in ("loss", "l_aux",
+                                                     "logits"))
+        rec["ratio"] = max(rec["ratio"], rec["grads_ratio"])
+        neg = dict(loss=closeness(swapped[0].detach(), want.detach()),
+                   logits=closeness(swapped[2].detach(),
+                                    want_logits.detach()))
+        rec["negative_control"] = dict(
+            ratio=max(c["ratio"] for c in neg.values()), **neg)
+        del ref, want, want_logits
+    del model, loss, logits, grads, swapped
+    free_cuda(torch)
+    return rec
+
+
+def _ep_train(torch, mods, steps, distributed):
+    """(d)'s bf16 run: ERNIE-MoE's training configuration (phase 14's
+    batch, CE + aux, AdamW with bf16 moments, AMP bf16) for ``steps``
+    steps through DistributedTrainStep at ep=2 (``distributed``), or one
+    rank's TrainStep with the einsum dispatch (whose routing the ep
+    fallback takes); counts read around the steps."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.parallel_step import \
+        DistributedTrainStep
+    P = mods.moe_profile
+    over = {} if distributed else {"moe_dispatch_mode": "einsum"}
+    cfg = mods.ErnieMoEConfig(**{**P.MOE_TRAIN_MODEL, **over})
+    model = mods.ErnieMoEForCausalLM(cfg, seed=0)
+    ce = mods.CrossEntropyLoss()
+    opt = mods.AdamW(P.MOE_LR, parameters=model.parameters(),
+                     moment_dtype="bfloat16")
+
+    def loss_fn(out, lab):
+        return ce(out, lab) + model.aux_loss()
+
+    if distributed:
+        step = DistributedTrainStep(fleet.distributed_model(model), loss_fn,
+                                    fleet.distributed_optimizer(opt),
+                                    amp_dtype="bfloat16")
+    else:
+        step = mods.TrainStep(model, loss_fn, opt, amp_dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ids, labels = (torch.randint(0, cfg.vocab_size, (P.MOE_BATCH, P.MOE_SEQ),
+                                 generator=gen, device="cuda")
+                   for _ in range(2))
+    _dist_counts(torch, mods.fa, mods.fad, monitor)
+    losses, ms = [], []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = step(ids, labels)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses.append(float(loss))
+    counters = dict(monitor.snapshot())
+    rec = dict(losses=losses, step_ms=ms,
+               ms_per_step=sorted(ms[1:])[len(ms[1:]) // 2],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               n_moe=len(model.moe_layers()),
+               layers=cfg.num_hidden_layers,
+               expert_bytes=sum(p.numel() * p.element_size()
+                                for n, p in model.named_parameters()
+                                if ".experts." in n),
+               launches={"flash_fwd": mods.fa.flash_fwd.launches,
+                         "flash_bwd_dq": mods.fa.flash_bwd.launches_dq,
+                         "flash_bwd_dkv": mods.fa.flash_bwd.launches_dkv,
+                         "fused_adam": mods.fad.fused_adam_launch.launches},
+               counters={k: v for k, v in counters.items()
+                         if k.startswith("kernels.")},
+               comm=_dist_comm(counters, steps))
+    del step, opt, model, loss
+    free_cuda(torch)
+    return rec
+
+
+def seq_rank(torch, mods, fault=None):
+    """Phase 30's rank (``--dist-rank s``): (a) sep=2 the f32 checks and
+    MpmdRingExecutor; (b) sep=2, phase 9's configuration through
+    SegmentParallel and DistributedTrainStep for SEQ_STEPS bf16 steps;
+    (c) mp=2 + sequence_parallel, the f32 check then SEQ_STEPS bf16
+    steps (SEP_TRAIN_LAYERS layers in (b)); (d) ep=2, ERNIE-MoE's f32
+    check with (e), then SEQ_STEPS bf16 steps. With a planted fault, only
+    the f32 check of its part."""
+    out, secs = {}, {}
+    part = SEP_FAULTS.get(fault)
+    t = time.perf_counter()
+    if part in (None, "a"):
+        out["a"] = _sep_f32(torch, mods, mpmd=part is None)
+        secs["a"], t = time.perf_counter() - t, time.perf_counter()
+    if part is None:
+        _seq_fleet(sep=2)
+        out["b"] = _dist_train(torch, mods, {
+            **mods.train.MODEL, "num_hidden_layers": SEP_TRAIN_LAYERS}, 0,
+            SEQ_STEPS, True)
+        secs["b"], t = time.perf_counter() - t, time.perf_counter()
+    if part in (None, "c"):
+        hcg = _seq_fleet(mp=2)
+        out["c_f32"] = _dist_f32_check(
+            torch, mods, hcg.get_model_parallel_group(),
+            sequence_parallel=True)
+        if part is None:
+            out["c"] = _dist_train(torch, mods, {**mods.train.MODEL,
+                                                 "sequence_parallel": True},
+                                   0, SEQ_STEPS, True)
+        secs["c"], t = time.perf_counter() - t, time.perf_counter()
+    if part in (None, "d"):
+        hcg = _seq_fleet(ep=2)
+        out["d_f32"] = _ep_f32(torch, mods, hcg)
+        if part is None:
+            out["d"] = _ep_train(torch, mods, SEQ_STEPS, True)
+        secs["d"] = time.perf_counter() - t
+    out["part_seconds"] = secs
+    return out
+
+
+def _seq_comm_line(comm):
+    return ", ".join(f"{op} {v.get('staged_bytes', 0) / 1e6:.1f} MB "
+                     f"staged, {v.get('calls', 0):.0f} calls, "
+                     f"{v.get('host_ms', 0):.1f} host ms"
+                     for op, v in sorted(comm.items()))
+
+
+def seq_main_path(torch, mods, launches_of, reset_counts, card, dist):
+    """Phase 30: sequence, segment and expert parallelism on two gloo
+    ranks sharing the card (``--dist-rank s``): (a) the ring's f32 gate
+    at sep=2 (LLaMA-7B widths x 2 layers, and x 1 layer with GQA and a
+    window across the chunks) and MpmdRingExecutor against the ring; (b)
+    phase 9's configuration at sep=2 (SegmentParallel, 512 tokens a
+    rank) at SEP_TRAIN_LAYERS layers, each loss within ``_loss_gate`` of
+    phase 28 (c)'s one-rank run of that depth; (c) mp=2
+    with ``sequence_parallel``: phase 28 (b)'s f32 gate, then phase 9's
+    configuration, each loss within the gate of 28 (a)'s, each rank's
+    wgmma launches its 4 layers x SEQ_STEPS; (d) ep=2: ERNIE-MoE's f32
+    gate at its training widths and depth, (e) swapped expert shards
+    failing it, then its training batch for SEQ_STEPS bf16 steps within
+    the gate of a one-rank run (built here), each rank holding half of
+    the expert parameters and counting one ep-sharded fallback a MoE
+    layer a forward."""
+    t_phase = time.perf_counter()
+    free_cuda(torch)
+    one_rank_ep = _ep_train(torch, mods, SEQ_STEPS, False)
+    s = _dist_launch("s")
+    ranks = s["ranks"]
+    r0 = ranks[0]
+    want = {"b": dist["c_one_rank"]["losses"][:SEQ_STEPS],
+            "c": dist["a"]["losses"][:SEQ_STEPS]}
+    layers = mods.train.MODEL["num_hidden_layers"]
+    # (a)
+    a = r0["a"]
+    a_ratio = {n: a[n]["ratio"] for n, _ in SEP_F32_CASES}
+    if max(a_ratio.values()) > 1 or a["mpmd"]["ratio"] > 1:
+        fail(f"phase 30 (a): sep=2 outside closeness's f32 gate: {a_ratio}, "
+             f"MpmdRingExecutor {a['mpmd']}")
+    # (b), (c)
+    for part in ("b", "c"):
+        for r in ranks:
+            run = r[part]
+            ratio, rel = _loss_gate(run["losses"], want[part])
+            run["loss_gate_ratio"], run["loss_rel_to_a"] = ratio, rel
+            flash = 0 if part == "b" else layers * SEQ_STEPS
+            launched = {run["launches"][k] for k in (
+                "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+            if r["backend"] != "gloo" or ratio > 1 or launched != {flash} \
+                    or run["launches"]["fused_adam"] != SEQ_STEPS:
+                fail(f"phase 30 ({part}): rank {r['rank']} ({r['backend']}) "
+                     f"losses {run['losses']} vs one rank's {want[part]}: "
+                     f"gate ratio {ratio:.3f} (relative {rel:.2e}); "
+                     f"launches {run['launches']}")
+            if flash:
+                run["routes"] = check_tc_routes(
+                    run["counters"], flash, f"phase 30 ({part}) rank "
+                                            f"{r['rank']}")
+    sends = [r["b"]["comm"].get("send", {}).get("staged_bytes", 0)
+             for r in ranks]
+    if not all(sends):
+        fail(f"phase 30 (b): no k/v staged by the ring: {sends}")
+    c32 = r0["c_f32"]
+    c_ratio = max(c32["loss"]["ratio"], c32["logits"]["ratio"],
+                  c32["grads_ratio"])
+    if c_ratio > 1:
+        fail(f"phase 30 (c): mp=2 + sequence_parallel f32 against mp=1 "
+             f"outside closeness's f32 gate: {c32}")
+    for r in ranks:
+        comm = r["c"]["comm"]
+        if not (comm.get("all_gather", {}).get("staged_bytes")
+                and comm.get("reduce_scatter", {}).get("staged_bytes")):
+            fail(f"phase 30 (c): rank {r['rank']} staged no all_gather / "
+                 f"reduce_scatter: {comm}")
+    # (d), (e)
+    d32 = r0["d_f32"]
+    if d32["ratio"] > 1:
+        fail(f"phase 30 (d): ep=2 ERNIE-MoE f32 outside closeness's f32 "
+             f"gate: {d32}")
+    if d32["negative_control"]["ratio"] <= 1:
+        fail(f"phase 30 (e): swapped expert shards pass the f32 gate: "
+             f"{d32['negative_control']}")
+    for r in ranks:
+        run = r["d"]
+        ratio, rel = _loss_gate(run["losses"], one_rank_ep["losses"])
+        run["loss_gate_ratio"], run["loss_rel_to_one_rank"] = ratio, rel
+        run["expert_share"] = run["expert_bytes"] / \
+            one_rank_ep["expert_bytes"]
+        fallback = run["counters"].get(
+            "kernels.moe.dispatch_path.fallback.ep-sharded", 0)
+        want_fb = run["n_moe"] * SEQ_STEPS
+        flash = run["layers"] * SEQ_STEPS
+        if ratio > 1 or run["expert_share"] != EP_PARAM_SHARE or \
+                fallback != want_fb or \
+                {run["launches"][k] for k in ("flash_fwd", "flash_bwd_dq",
+                                              "flash_bwd_dkv")} != {flash} \
+                or run["launches"]["fused_adam"] != SEQ_STEPS:
+            fail(f"phase 30 (d): rank {r['rank']}: losses {run['losses']} vs "
+                 f"one rank {one_rank_ep['losses']} (gate ratio "
+                 f"{ratio:.3f}), expert share {run['expert_share']:.4f}, "
+                 f"ep-sharded fallbacks {fallback} (want {want_fb}), "
+                 f"launches {run['launches']}")
+        run["routes"] = check_tc_routes(run["counters"], flash,
+                                        f"phase 30 (d) rank {r['rank']}")
+    secs = time.perf_counter() - t_phase
+    for name, _ in SEP_F32_CASES:
+        c = a[name]
+        print(f"phase 30 (a) {name}: sep=2, 2 gloo ranks, f32 gate ratio "
+              f"{c['ratio']:.3f} (loss {c['loss']['ratio']:.3f}, logits "
+              f"{c['logits']['ratio']:.3f}, {c['n_grads']} gradients "
+              f"{c['grads_ratio']:.3f}, worst {c['grads_worst']}); k/v "
+              f"staged a forward + backward by send "
+              f"{c['staged_a_step']['send'] / 1e6:.1f} MB on {card}",
+              flush=True)
+    print(f"phase 30 (a): MpmdRingExecutor R=2 in one process against the "
+          f"ranks' ring: ratio {a['mpmd']['ratio']:.3f} "
+          f"({a['mpmd']['by_tensor']}), {a['mpmd']['seconds']:.2f} s, "
+          f"driver {a['mpmd']['driver']} on {card}", flush=True)
+    kv_hop = mods.train.BATCH * (mods.train.SEQ // 2) * \
+        mods.train.MODEL["num_key_value_heads"] * \
+        (mods.train.MODEL["hidden_size"] //
+         mods.train.MODEL["num_attention_heads"]) * 2 * 2
+    for part in ("b", "c", "d"):
+        for r in ranks:
+            run = r[part]
+            rel = run.get("loss_rel_to_a", run.get("loss_rel_to_one_rank"))
+            fallbacks = run["counters"].get(
+                "kernels.moe.dispatch_path.fallback.ep-sharded", 0)
+            extra = (f", expert share {run['expert_share']:.2f}, ep-sharded "
+                     f"fallbacks {fallbacks}" if part == "d" else "")
+            print(f"phase 30 ({part}) rank {r['rank']}: losses "
+                  f"{[round(x, 4) for x in run['losses']]} (gate ratio "
+                  f"{run['loss_gate_ratio']:.3f}, relative {rel:.2e}), "
+                  f"{run['ms_per_step']:.1f} ms a step (events), peak "
+                  f"{run['peak_gb']:.1f} GB, launches {run['launches']}"
+                  f"{extra}; a step: {_seq_comm_line(run['comm'])} on "
+                  f"{card}", flush=True)
+    print(f"phase 30 (b): k/v a ring hop {kv_hop / 1e6:.1f} MB a layer (bf16, "
+          f"12 x 512 x 32 x 128 x 2); staged by send a step "
+          f"{sends[0] / 1e6:.1f} MB (rank 0)", flush=True)
+    print(f"phase 30 (c): mp=2 + sequence_parallel f32 gate ratio "
+          f"{c_ratio:.3f} (loss {c32['loss']['ratio']:.3f}, logits "
+          f"{c32['logits']['ratio']:.3f}, {c32['n_grads']} gradients "
+          f"{c32['grads_ratio']:.3f}) on {card}", flush=True)
+    print(f"phase 30 (d): ERNIE-MoE ep=2 f32 gate ratio {d32['ratio']:.3f} "
+          f"(loss {d32['loss']['ratio']:.3f}, l_aux "
+          f"{d32['l_aux']['ratio']:.3f}, logits {d32['logits']['ratio']:.3f},"
+          f" {d32['n_grads']} gradients {d32['grads_ratio']:.3f}); (e) "
+          f"swapped expert shards ratio "
+          f"{d32['negative_control']['ratio']:.1f} (caught); one rank: "
+          f"losses {[round(x, 4) for x in one_rank_ep['losses']]}, "
+          f"{one_rank_ep['ms_per_step']:.1f} ms a step on {card}",
+          flush=True)
+    print(f"phase 30: {secs:.1f} s ({s['process_s']:.1f} s of launcher time; "
+          f"rank 0 {r0['seconds']:.1f} s, by part "
+          f"{ {k: round(v, 1) for k, v in r0['part_seconds'].items()} }) "
+          f"on {card}", flush=True)
+    return dict(s=s, one_rank_ep=one_rank_ep, seconds=secs, card=card)
+
+
+def sep_fault_main():
+    """``chip_smoke.py --sep-fault``: phase 30's f32 gates against planted
+    faults (SEP_FAULTS), each in its own pair of ranks (``--dist-rank s
+    --plant-fault KIND``): the ring placing keys at the wrong source
+    offset must fail (a)'s; the sequence-parallel norms' gradients left
+    unsummed over mp must fail (c)'s; the ep all-gather's backward summing
+    where it should slice must fail (d)'s. Builds the kernels, then the
+    faulted ranks; prints each gate's ratio. Exits 0 only when every
+    fault is caught."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device is visible")
+    from paddle_tpu_torch.kernels import _build as build
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    t0 = time.perf_counter()
+    build.build()
+    missed = []
+    for kind, part in SEP_FAULTS.items():
+        r0 = _dist_launch("s", fault=kind)["ranks"][0]
+        if part == "a":
+            ratio = {n: r0["a"][n]["ratio"] for n, _ in SEP_F32_CASES}
+            caught = min(ratio.values()) > 1
+        else:
+            rec = r0[f"{part}_f32"]
+            ratio = rec.get("grads_ratio")
+            caught = ratio > 1
+        print(f"sep fault {kind}: ({part}) f32 gate ratio {ratio}", flush=True)
+        if not caught:
+            missed.append(kind)
+    print(f"sep fault: {time.perf_counter() - t0:.1f} s on {card}",
+          flush=True)
+    if missed:
+        fail(f"sep fault: a gate passed the planted fault(s) {missed}")
+
+
 # -- phases 4 and 5: the main path -----------------------------------------
 
 def make_requests(SamplingParams, vocab_size):
@@ -10305,6 +10909,13 @@ def main():
     pipe = pipe_main_path(torch, mods, launches_of, reset_counts, card,
                           distributed)
 
+    # 30. sequence, segment and expert parallelism: two ranks sharing the
+    # card (sep=2: the ring's f32 gate and MpmdRingExecutor, phase 9's
+    # LLaMA through SegmentParallel; mp=2 + sequence_parallel; ep=2
+    # ERNIE-MoE), each rank's counts around its steps
+    seq = seq_main_path(torch, mods, launches_of, reset_counts, card,
+                        distributed)
+
     src = "paddle_tpu_torch/csrc/"
 
     def replay_by_path(kernel):
@@ -10349,7 +10960,13 @@ def main():
                  **{f"pipe_pp2_rank{r['rank']}": r["run"]
                     for r in pipe["p"]["ranks"]},
                  **{f"pipe_zero3_rank{r['rank']}": r["zero3"]
-                    for r in pipe["p"]["ranks"]}}
+                    for r in pipe["p"]["ranks"]},
+                 # phase 30's bf16 counted runs: each rank at sep=2 (the
+                 # ring: no flash launch), mp=2 + SP and ep=2 ERNIE-MoE
+                 **{f"seq_{name}_rank{r['rank']}": r[part]
+                    for part, name in (("b", "sep2"), ("c", "sp_mp2"),
+                                       ("d", "ep2"))
+                    for r in seq["s"]["ranks"]}}
     # phase 29 (c)'s f32 counted runs (the MPMD modes in this process)
     pipe_f32 = {f"pipe_{m.lower()}": pipe["mpmd"][m]
                 for m in PIPE_MPMD_MODES}
@@ -10718,6 +11335,7 @@ def main():
                   device_utils=device_utils, vision=vision,
                   signal_graph_distribution=signal, to_static=static,
                   distributed=distributed, pipeline=pipe,
+                  sequence_parallel=seq,
                   kernels=kernels)
     (OUT_DIR / "result.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -10735,5 +11353,7 @@ if __name__ == "__main__":
         dist_fault_main()
     elif sys.argv[1:2] == ["--pipe-fault"]:
         pipe_fault_main()
+    elif sys.argv[1:2] == ["--sep-fault"]:
+        sep_fault_main()
     else:
         main()

@@ -139,8 +139,43 @@ def llama_state_to_numpy(state: Dict[str, torch.Tensor]
 #: (``gate_weight`` [h, E], ``experts.w1`` [E, h, dff], ``b1`` [E, 1, dff],
 #: ``w2``, ``b2``) are kept in the JAX layout by the port and cross as they
 #: are — so the Adam state bridge below holds for MoE unchanged.
-ernie_moe_state_from_numpy = llama_state_from_numpy
 ernie_moe_state_to_numpy = llama_state_to_numpy
+
+#: expert-parallel shards: an MoE block's stacked expert parameters, split
+#: on dim 0 (the experts) over the ep group, rank r holding rows
+#: [r E / n, (r + 1) E / n)
+EP_SUFFIXES = ("experts.w1", "experts.b1", "experts.w2", "experts.b2")
+
+
+def ep_shard(a, name: str, ep_rank: int, ep_degree: int):
+    """Rank ``ep_rank``'s rows of the global expert parameter ``a`` (``a``
+    itself for a parameter not split over ep)."""
+    if ep_degree == 1 or not name.endswith(EP_SUFFIXES):
+        return a
+    e = a.shape[0] // ep_degree
+    return a[ep_rank * e:(ep_rank + 1) * e]
+
+
+def ep_merge(shards, name: str):
+    """The global expert parameter from its ep ranks' rows (``shards[r]``
+    of rank r), the inverse of ``ep_shard``; another parameter from rank
+    0. Torch tensors merge as torch tensors."""
+    if len(shards) == 1 or not name.endswith(EP_SUFFIXES):
+        return shards[0]
+    if torch.is_tensor(shards[0]):
+        return torch.cat(list(shards))
+    return np.concatenate([np.asarray(x) for x in shards])
+
+
+def ernie_moe_state_from_numpy(params: Dict[str, np.ndarray],
+                               mp_rank: int = 0, mp_degree: int = 1,
+                               ep_rank: int = 0, ep_degree: int = 1
+                               ) -> Dict[str, torch.Tensor]:
+    """``llama_state_from_numpy`` for ERNIE-MoE; with ``ep_degree`` > 1,
+    ep rank ``ep_rank``'s rows of every MoE block's experts
+    (``EP_SUFFIXES``)."""
+    out = llama_state_from_numpy(params, mp_rank, mp_degree)
+    return {n: ep_shard(t, n, ep_rank, ep_degree) for n, t in out.items()}
 
 
 #: BERT crosses by the same rule: its Linear weights are transposed, the

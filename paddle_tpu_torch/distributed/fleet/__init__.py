@@ -36,6 +36,7 @@ from .model import distributed_model  # noqa: F401
 from .optimizer import distributed_optimizer  # noqa: F401
 from .recompute import (checkpoint_name, recompute,  # noqa: F401
                         recompute_sequential, save_only_names)
+from . import utils  # noqa: F401,E402
 
 _fleet_initialized = False
 _strategy: Optional[DistributedStrategy] = None
@@ -71,7 +72,8 @@ def init(role_maker=None, is_collective=True, strategy=None, log_level=None,
     mesh_mod.set_mesh(mesh)
     # every group now, by every rank in one order (torch needs each rank
     # to make each group); later asks are cache hits
-    for axes in mesh_mod.HYBRID_AXES + (("dp", "sharding"),):
+    for axes in mesh.axis_names + (("dp", "sharding"),
+                                   ("dp", "sharding", "sep")):
         mesh.group(axes)
     mesh_mod.set_hybrid_communicate_group(mesh_mod.HybridCommunicateGroup())
     _fleet_initialized = True

@@ -87,6 +87,11 @@ class DistributedStrategy:
                                   self.sharding_configs.get("degree", 1))),
             "sep": int(c.get("sep_degree", 1)),
             "mp": int(c.get("mp_degree", 1)),
+            # expert parallelism: an "ep" axis innermost, only when asked
+            # for (the JAX package's fleet builds none; its MoE reads an
+            # "ep" axis of a mesh built by hand)
+            **({"ep": int(c["ep_degree"])}
+               if int(c.get("ep_degree", 1)) > 1 else {}),
         }
 
     def __repr__(self):

@@ -13,7 +13,14 @@ op                     forward                     backward
 ``_mp_allreduce``      all-reduce (sum)            identity
 ``_c_split``           this rank's last-dim slice  all-gather (concat)
 ``_c_concat``          all-gather (concat)         this rank's slice
+``_ReduceScatter``     reduce-scatter (sum)        all-gather (concat)
+``_AllGatherRS``       all-gather (concat)         reduce-scatter (sum)
 =====================  ==========================  =======================
+
+``_Split`` and ``_Concat`` take the dim they act on: -1 for the
+tensor-parallel ops above, 1 (the sequence) for the sequence-parallel
+ones of ``fleet/utils/sequence_parallel_utils.py``, which also use the
+last two.
 
 ``_c_lookup_table`` looks ids up in a vocabulary shard (ids outside it
 give zero rows); ``_c_softmax_with_cross_entropy`` is the cross entropy
@@ -53,15 +60,27 @@ def _all_reduce(x, group):
     return out
 
 
-def _gather_last(x, group):
+def _gather(x, group, dim):
     parts = C.all_gather(None, x.contiguous(), group=group)
-    return torch.cat(parts, dim=-1)
+    return torch.cat(parts, dim=dim)
 
 
-def _my_slice(x, group):
+def _my_slice(x, group, dim):
     n = group.nranks
-    w = x.shape[-1] // n
-    return x[..., group.rank * w:(group.rank + 1) * w].contiguous()
+    w = x.shape[dim] // n
+    return x.narrow(dim, group.rank * w, w).contiguous()
+
+
+def _reduce_scatter(x, group, dim):
+    """The group's sum of ``x``, this rank's slice of ``dim``."""
+    n = group.nranks
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce-scatter: dim {dim} ({x.shape[dim]}) must "
+                         f"be divisible by the group size ({n})")
+    whole = x.movedim(dim, 0).contiguous()
+    out = whole.new_empty((whole.shape[0] // n,) + tuple(whole.shape[1:]))
+    C.reduce_scatter(out, whole, group=group)
+    return out.movedim(0, dim).contiguous()
 
 
 class _Identity(torch.autograd.Function):
@@ -87,31 +106,59 @@ class _AllReduce(torch.autograd.Function):
 
 class _Split(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _my_slice(x, group)
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _my_slice(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _gather_last(g, ctx.group), None
+        return _gather(g, ctx.group, ctx.dim), None, None
 
 
 class _Concat(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _gather_last(x, group)
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _my_slice(g, ctx.group), None
+        return _my_slice(g, ctx.group, ctx.dim), None, None
 
 
-def _apply(name, fn, tensor, group):
+class _ReduceScatter(torch.autograd.Function):
+    """The ranks' partial sums reduced, this rank's slice of ``dim`` kept;
+    the backward all-gathers the slices' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.dim), None, None
+
+
+class _AllGatherRS(torch.autograd.Function):
+    """All-gather on ``dim`` whose consumers hold parts of its gradient
+    (a column-parallel product): the backward reduce-scatters."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+def _apply(name, fn, tensor, group, *extra):
     g = _mp_group(group)
     if _n(g) == 1:
         return tensor
-    return surface(name, lambda x: fn.apply(x, g), [tensor])
+    return surface(name, lambda x: fn.apply(x, g, *extra), [tensor])
 
 
 def _c_identity(tensor, group=None, skip_c_identity_dynamic=False):
@@ -130,12 +177,12 @@ def _mp_allreduce(tensor, op=None, group=None, use_calc_stream=True,
 
 def _c_split(tensor, group=None):
     """This rank's slice of the last dim; the backward gathers."""
-    return _apply("c_split", _Split, tensor, group)
+    return _apply("c_split", _Split, tensor, group, -1)
 
 
 def _c_concat(tensor, group=None):
     """The ranks' last-dim slices concatenated; the backward slices."""
-    return _apply("c_concat", _Concat, tensor, group)
+    return _apply("c_concat", _Concat, tensor, group, -1)
 
 
 def _c_lookup_table(table, index, start_index=0, vocab_size=-1, name=None):

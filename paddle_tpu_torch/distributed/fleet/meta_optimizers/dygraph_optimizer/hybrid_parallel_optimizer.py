@@ -11,7 +11,22 @@ shards, so ``hybrid_global_norm`` does the reference's
 ``is_distributed`` (mp-sharded) parameters are summed over the mp
 group, the replicated ones (norm weights) counted once, and under ZeRO,
 where each rank holds a slice of every gradient, both sums are first
-summed over the data group.
+summed over the data group. Expert-parallel parameters (an MoE layer's
+rows of experts, split over the ``ep`` group) are summed over that group,
+each shard once.
+
+The gradient policy of the data and sequence splits, stated here and
+applied by every step (this module's optimizers, ``DistributedTrainStep``;
+``reduce_data_grads``): a data rank's gradient is that of its part of
+the batch, so the data group (dp x sharding) averages them; a sep rank's
+is its chunk's part of the gradient of the whole sequence's loss, so the
+sep group sums them. The loss a sep rank returns must therefore be the
+sequence's, with its chunk's true gradient: ``fused_linear_cross_entropy``
+with ``seq_group`` (LLaMA's loss under sep; the model refuses to hand out
+chunk logits for a loss of the caller's). The gradients of the
+sequence-parallel parameters (``mark_as_sequence_parallel_parameter``:
+norms applied to an mp rank's sequence rows) are summed over the mp
+group first, once (``sum_sequence_parallel_grads``).
 
 ``FlatParams`` is the ZeRO layout: every trainable f32 parameter of the
 model becomes a view into one flat buffer, padded to a multiple of the
@@ -33,7 +48,9 @@ import torch
 from .....nn.clip import ClipGradByGlobalNorm, ClipGradByNorm
 from .... import mesh as mesh_mod
 from ....communication import collectives as C
-from ...meta_parallel.meta_parallel_base import is_distributed
+from ...meta_parallel.meta_parallel_base import is_distributed, is_expert
+from ...utils.sequence_parallel_utils import (
+    allreduce_sequence_parallel_grads, is_sequence_parallel_parameter)
 
 #: a ZeRO slice is a multiple of this many elements (32-byte vectors)
 _ALIGN = 64
@@ -43,37 +60,44 @@ def _trivial(group) -> bool:
     return group is None or group.nranks == 1
 
 
-def hybrid_global_norm(parts: List[Tuple[torch.Tensor, bool]], mp_group=None,
-                       data_group=None) -> torch.Tensor:
+def hybrid_global_norm(parts, mp_group=None, data_group=None,
+                       ep_group=None) -> torch.Tensor:
     """The global L2 norm (f32) of a gradient held in ``parts``: (tensor,
-    is_distributed) pairs of this rank. ``data_group``: the parts are
-    this rank's ZeRO slices, summed over the group first."""
+    is_distributed[, is_expert]) of this rank. ``data_group``: the parts
+    are this rank's ZeRO slices, summed over the group first; the
+    mp-sharded squares are summed over ``mp_group``, the expert shards'
+    over ``ep_group``, the replicated ones counted once."""
     dev = parts[0][0].device
-    sq = torch.zeros(2, dtype=torch.float32, device=dev)
-    for g, is_dist in parts:
+    sq = torch.zeros(3, dtype=torch.float32, device=dev)
+    for part in parts:
+        g, is_dist = part[0], part[1]
         if g is not None and g.numel():
-            sq[0 if is_dist else 1] += torch.sum(torch.square(g.float()))
+            kind = 2 if len(part) > 2 and part[2] else (0 if is_dist else 1)
+            sq[kind] += torch.sum(torch.square(g.float()))
     if not _trivial(data_group):
         C.all_reduce(sq, group=data_group)
-    if not _trivial(mp_group):
-        dist_sq = sq[:1].clone()
-        C.all_reduce(dist_sq, group=mp_group)
-        sq = torch.cat([dist_sq, sq[1:]])
+    for i, group in ((0, mp_group), (2, ep_group)):
+        if not _trivial(group):
+            part_sq = sq[i:i + 1].clone()
+            C.all_reduce(part_sq, group=group)
+            sq = torch.cat([sq[:i], part_sq, sq[i + 1:]])
     return torch.sqrt(sq.sum())
 
 
-def clip_scale(clip, parts, mp_group=None, data_group=None):
+def clip_scale(clip, parts, mp_group=None, data_group=None, ep_group=None):
     """The factor ``clip`` scales every gradient by, or None for no
     global clip. A per-tensor or value clip acts on each tensor alone:
     ``ClipGradByNorm`` of a sharded tensor is refused."""
     if clip is None:
         return None
     if isinstance(clip, ClipGradByGlobalNorm):
-        gn = hybrid_global_norm(parts, mp_group, data_group)
+        gn = hybrid_global_norm(parts, mp_group, data_group, ep_group)
         return clip.clip_norm / torch.clamp(gn, min=clip.clip_norm)
     if isinstance(clip, ClipGradByNorm) and (
             not _trivial(data_group)
-            or (not _trivial(mp_group) and any(d for _, d in parts))):
+            or (not _trivial(mp_group) and any(p[1] for p in parts))
+            or (not _trivial(ep_group)
+                and any(len(p) > 2 and p[2] for p in parts))):
         raise NotImplementedError(
             "ClipGradByNorm of sharded gradients: use ClipGradByGlobalNorm "
             "or ClipGradByValue under model parallelism or ZeRO")
@@ -172,6 +196,46 @@ def _groups(hcg):
     return hcg.get_model_parallel_group(), hcg.get_dp_sharding_group()
 
 
+def grad_groups(hcg=None):
+    """(the group a gradient is reduced over: dp x sharding, x sep when
+    the sequence is split; the sep group or None; the ep group or None)."""
+    hcg = hcg or mesh_mod.get_hybrid_communicate_group()
+    sep = hcg.get_sep_parallel_group() \
+        if mesh_mod.axis_degree("sep") > 1 else None
+    ep = hcg.get_expert_parallel_group() \
+        if mesh_mod.axis_degree("ep") > 1 else None
+    data = hcg.get_data_sep_group() if sep is not None \
+        else hcg.get_dp_sharding_group()
+    return data, sep, ep
+
+
+@torch.no_grad()
+def reduce_data_grads(flat, group, sep_group=None):
+    """``flat``, this rank's gradients, reduced in place by the policy of
+    the module docstring: summed over ``group`` (dp x sharding, x sep when
+    ``sep_group`` is given) and divided by its dp x sharding degree."""
+    if _trivial(group):
+        return flat
+    if sep_group is None:
+        C.all_reduce(flat, op=C.ReduceOp.AVG, group=group)
+        return flat
+    C.all_reduce(flat, group=group)
+    n = group.nranks // sep_group.nranks
+    if n > 1:
+        flat.div_(n)
+    return flat
+
+
+def sum_sequence_parallel_grads(pairs, mp_group):
+    """Sum over the mp group the gradients of the sequence-parallel
+    parameters among ``pairs`` ((param, grad)): the one place they are
+    summed."""
+    allreduce_sequence_parallel_grads(
+        [g for p, g in pairs if is_sequence_parallel_parameter(p)
+         or is_sequence_parallel_parameter(getattr(p, "_data", p))],
+        mp_group)
+
+
 class _OptimizerWrapper:
     """Delegating wrapper; ``_inner_opt`` is the user's optimizer."""
 
@@ -221,22 +285,25 @@ class HybridParallelOptimizer(_OptimizerWrapper):
 
     @torch.no_grad()
     def step(self):
-        mp_group, data_group = _groups(self._hcg)
+        mp_group, _ = _groups(self._hcg)
+        data_group, sep_group, ep_group = grad_groups(self._hcg)
         params = [p for p in self._params() if p.grad is not None]
         if not params:
             return
+        sum_sequence_parallel_grads([(p, p.grad) for p in params], mp_group)
         if not _trivial(data_group) and not all(
                 getattr(p, "_dp_reduced", False) for p in params):
             flat = torch.cat([p.grad.reshape(-1).float() for p in params])
-            C.all_reduce(flat, op=C.ReduceOp.AVG, group=data_group)
+            reduce_data_grads(flat, data_group, sep_group)
             off = 0
             for p in params:
                 p.grad.copy_(flat[off:off + p.numel()].view_as(p.grad))
                 off += p.numel()
         inner = self._inner_opt
         clip = inner._grad_clip
-        scale = clip_scale(clip, [(p.grad, is_distributed(p))
-                                  for p in params], mp_group)
+        scale = clip_scale(clip, [(p.grad, is_distributed(p), is_expert(p))
+                                  for p in params], mp_group,
+                           ep_group=ep_group)
         if scale is not None:
             for p in params:
                 p.grad.mul_(scale.to(p.grad.dtype))
@@ -262,8 +329,15 @@ class DygraphShardingOptimizer(HybridParallelOptimizer):
     @torch.no_grad()
     def step(self):
         mp_group, data_group = _groups(self._hcg)
+        _, sep_group, ep_group = grad_groups(self._hcg)
+        if ep_group is not None:
+            raise NotImplementedError(
+                "ZeRO-1/2 with expert parallelism: the flat slices would mix "
+                "the ep ranks' expert shards")
         inner = self._inner_opt
         params = self._params()
+        sum_sequence_parallel_grads([(p, p.grad) for p in params
+                                     if p.grad is not None], mp_group)
         if self._flat is None:
             self._flat = FlatParams(
                 [(str(i), p, is_distributed(p))
@@ -271,6 +345,9 @@ class DygraphShardingOptimizer(HybridParallelOptimizer):
             self._state = inner._init_state(self._flat.shard)
         flat = self._flat
         gflat = flat.flat_grad({str(i): p.grad for i, p in enumerate(params)})
+        if sep_group is not None:
+            # summed over sep, then averaged over the data group
+            C.all_reduce(gflat, group=sep_group)
         gshard = flat.reduce(gflat, self.sharding_stage)
         clip = inner._grad_clip
         scale = clip_scale(clip, flat.parts(gshard), mp_group, data_group)

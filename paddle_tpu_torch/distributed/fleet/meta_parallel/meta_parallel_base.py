@@ -22,6 +22,28 @@ def is_distributed(t) -> bool:
     return getattr(t, "is_distributed", False) is True
 
 
+def is_expert(t) -> bool:
+    """Whether a parameter is an expert-parallel shard (an MoE layer's
+    rows of experts over the ``ep`` group), marked by ``MoELayer``."""
+    return getattr(t, "expert_parallel", False) is True
+
+
+def check_sequence_split(model, group):
+    """Refuse to split ``model``'s sequence over ``group`` (a sep group of
+    n > 1) unless it was built for that split: one of its modules (LLaMA's
+    attention) holds the sep group it was built with. A model built
+    without it would attend within each rank's chunk."""
+    modules = model.modules() if hasattr(model, "modules") \
+        else model.sublayers(include_self=True)
+    if not any(getattr(m, "sep_group", None) is not None
+               for m in modules):
+        raise ValueError(
+            f"{type(model).__name__} was not built for a sequence split "
+            f"over sep ({group.nranks} ranks): build it after "
+            "fleet.init(sep_degree=...), from a model whose attention "
+            "takes the ring")
+
+
 def torch_params(model) -> List[Tuple[str, torch.Tensor, bool]]:
     """(name, the torch leaf tensor, is_distributed) of each parameter of
     a Module or a surface Layer (whose Parameters wrap their leaves)."""

@@ -43,8 +43,15 @@ parameters without calling it (LLaMA's fused loss reads the head's
 weight) names that submodule in ``zero3_entry_modules()``: its
 parameters are gathered for the whole forward.
 
-``SegmentParallel`` (sequence parallelism) raises: it comes with the
-sequence-parallel slice.
+``SegmentParallel`` (sequence parallelism over ``sep``, reference
+meta_parallel/segment_parallel.py:26; JAX :70-83) broadcasts the
+parameters and buffers over dp x sharding x sep (and the unsliced ones
+over mp) at wrap time; its forward keeps this rank's slice of dim 1 of
+every tensor input of two or more dims (the ids, the labels), where the
+JAX one constrains that dim over 'sep'. Its gradients are averaged over
+dp x sharding x sep by ``HybridParallelOptimizer.step`` (eager code) or
+``DistributedTrainStep`` (which splits the inputs itself and unwraps the
+wrapper).
 """
 from __future__ import annotations
 
@@ -57,7 +64,8 @@ import torch
 from ... import mesh as mesh_mod
 from ...communication import collectives as C
 from ...communication.group import _get_global_group
-from .meta_parallel_base import MetaParallelBase, torch_buffers, torch_params
+from .meta_parallel_base import (MetaParallelBase, check_sequence_split,
+                                 torch_buffers, torch_params)
 
 
 def _broadcast_all(tensors, group):
@@ -178,10 +186,41 @@ class ShardingParallel(MetaParallelBase):
 
 
 class SegmentParallel(MetaParallelBase):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SegmentParallel (the sequence dim split over 'sep') comes with "
-            "the sequence-parallel slice of the port (ROADMAP D3)")
+    def _prepare_for_model(self):
+        hcg = self._hcg or mesh_mod.get_hybrid_communicate_group()
+        self._sep = hcg.get_sep_parallel_group()
+        if self._sep.nranks > 1:
+            check_sequence_split(self._layers, self._sep)
+        params = torch_params(self._layers)
+        with torch.no_grad():
+            _broadcast_all(_unsliced(self._layers,
+                                     [t for _, t, d in params if not d]),
+                           hcg.get_model_parallel_group())
+            _broadcast_all(_unsliced(self._layers, [t for _, t, _ in params])
+                           + torch_buffers(self._layers),
+                           hcg.get_data_sep_group())
+
+    def forward(self, *inputs, **kwargs):
+        return self._layers(*(self._chunk(x) for x in inputs),
+                            **{k: self._chunk(v) for k, v in kwargs.items()})
+
+    def _chunk(self, x):
+        """This sep rank's slice of dim 1 of a tensor of 2+ dims."""
+        g = self._sep
+        data = getattr(x, "_data", x)
+        if g.nranks == 1 or not isinstance(data, torch.Tensor) \
+                or data.dim() < 2:
+            return x
+        n = data.shape[1]
+        if n % g.nranks:
+            raise ValueError(f"the sequence dim ({n}) must be divisible by "
+                             f"the sep degree ({g.nranks})")
+        k = n // g.nranks
+        part = data.narrow(1, g.rank * k, k)
+        if x is data:
+            return part
+        from ....core.tensor import Tensor
+        return Tensor._from_data(part)
 
 
 class _Gather(torch.autograd.Function):

@@ -173,6 +173,11 @@ class PipelineParallel(MetaParallelBase):
             raise TypeError(
                 "pipeline parallel requires the model to be a PipelineLayer "
                 "(reference fleet/model.py:32 has the same requirement)")
+        if mesh_mod.axis_degree("sep") > 1:
+            raise NotImplementedError(
+                "a pipeline over a sep mesh: the stages' ring attention "
+                "and the sequence-wide loss are not carried (pp with "
+                "sep > 1)")
         super().__init__(layers, hcg=hcg, strategy=strategy)
         self._pp = mesh_mod.axis_degree("pp")
         if self._pp > 1 and layers.get_num_stages() != self._pp:

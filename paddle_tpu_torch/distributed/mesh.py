@@ -282,6 +282,22 @@ class HybridCommunicateGroup:
         shard (dp x sharding), over which the batch is split."""
         return self._mesh.group(("dp", "sharding"))
 
+    def get_data_sep_group(self):
+        """The ranks that hold the same model shard: dp x sharding x sep,
+        over which the batch and the sequence are split and the gradients
+        averaged."""
+        return self._mesh.group(("dp", "sharding", "sep"))
+
+    # expert parallelism: the mesh's "ep" axis (an extra axis of
+    # ``build_mesh``), absent unless it was asked for
+    def get_expert_parallel_world_size(self):
+        return axis_degree("ep")
+
+    def get_expert_parallel_group(self):
+        if "ep" not in self._mesh.axis_names:
+            return None
+        return self._mesh.group("ep")
+
     def get_check_parallel_group(self, *a, **k):
         from .communication.group import _get_global_group
         return _get_global_group()

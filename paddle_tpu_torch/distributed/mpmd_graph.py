@@ -716,11 +716,37 @@ def ring_graph(ring_degree: int, *, hops: Optional[int] = None,
                act_dtype: str = "float32",
                backward: bool = True,
                subject: str = "") -> MpmdGraph:
-    """The ring-attention (sep) event structure: it comes with sequence
-    parallelism."""
-    raise NotImplementedError(
-        "ring_graph (ring attention over 'sep') comes with the "
-        "sequence-parallel slice of the port (ROADMAP D3)")
+    """Ring-attention (sep) event structure: R devices each run R
+    softmax hops; k/v rotate one hop per tick on the forward ring and
+    the gradients counter-rotate on the reverse ring. ``micro`` is the
+    hop index — the event at (r, h) consumes the kv block that
+    originated on device (r - h) % R."""
+    R = int(ring_degree)
+    H = int(hops) if hops is not None else R
+    g = MpmdGraph(R, schedule_mode="", n_micro=H,
+                  act_shape=act_shape, act_dtype=act_dtype,
+                  subject=subject or f"mpmd(ring, R={R}, hops={H})")
+    ev_f: Dict[Tuple[int, int], Event] = {}
+    for h in range(H):
+        for r in range(R):
+            ev = g.add_event(r, h, FWD, tick=h)
+            ev_f[(r, h)] = ev
+            if h > 0:
+                g.connect(ev_f[((r - 1) % R, h - 1)], ev,
+                          tag=("kv", h - 1))
+    if not backward:
+        return g
+    ev_b: Dict[Tuple[int, int], Event] = {}
+    for t in range(H):
+        h = H - 1 - t
+        for r in range(R):
+            ev = g.add_event(r, h, BWD, tick=H + t)
+            ev_b[(r, h)] = ev
+            g.add_dep(ev_f[(r, h)].key, ev.key)
+            if h < H - 1:   # counter-rotation: grads ride r+1 -> r
+                g.connect(ev_b[((r + 1) % R, h + 1)], ev,
+                          tag=("dkv", h + 1))
+    return g
 
 
 def disagg_graph(prefill_workers: int, decode_workers: int,

@@ -24,10 +24,15 @@ shape/dtype tokens, ``PipelinePrograms`` runs pipeline events on the
 stage ops ``PipelineParallel`` builds in its MPMD modes, through the
 event functions the pp ranks' ``pipeline.StageRunner`` runs.
 
+``MpmdRingExecutor`` runs ring attention as such a schedule
+(``ring_graph``): stage r on ``stage_devices(R)[r]``, each hop the hop
+body of ``kernels.ring_attention`` (the JAX package's ``_ring_fwd_hop``
+/ ``_ring_bwd_hop``, :524-597), the k/v rotation and the counter-rotating
+dK/dV the driver's ``.to`` edges.
+
 Not here: ``steady_state_recompiles`` and ``_hotpath_inventory`` wait
 for the analysis slice (the JAX driver counts XLA compiles; the port's
-stage programs are eager) and raise naming it; ``MpmdRingExecutor`` and
-the ring-attention hop programs come with sequence parallelism (D3).
+stage programs are eager) and raise naming it.
 """
 from __future__ import annotations
 
@@ -444,11 +449,212 @@ class PipelinePrograms:
         return []
 
 
-class MpmdRingExecutor:
-    """Ring attention as MPMD programs: it comes with sequence
-    parallelism."""
+# ---------------------------------------------------------------------------
+# ring attention as MPMD: every hop an explicit per-device program, the
+# k/v and dk/dv rotation driver-moved edge data
+# ---------------------------------------------------------------------------
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "MpmdRingExecutor (ring attention over 'sep') comes with the "
-            "sequence-parallel slice of the port (ROADMAP D3)")
+class _RingPrograms:
+    """Stage programs for ``ring_graph(R)`` (JAX :597): fwd event (r, h)
+    runs the online-softmax hop on the k/v block that originated at rank
+    (r - h) % R; bwd event (r, h) replays the same block on the
+    counter-rotating dk/dv accumulators, so each block's gradients arrive
+    home at h = 0. Every rank's state lives on its device; the driver's
+    ``.to`` edges are the ring."""
+
+    def __init__(self, ring, R: int, s_local: int, devices):
+        self._ex = ring
+        self.R, self.s_local = R, s_local
+        self._devices = devices
+
+    def begin(self, feeds):
+        from ..kernels.ring_attention import NEG_INF, fold_queries
+        R, devs = self.R, self._devices
+        f32 = torch.float32
+        qs, ks, vs = feeds["q"], feeds["k"], feeds["v"]
+        self._dout_fn = feeds.get("dout_fn")
+        douts = feeds.get("dout")
+        h_kv = ks[0].shape[1]
+        self._q, self._pos, self._carry = [], [], []
+        self._held = [None] * R
+        self._out, self._lse = [None] * R, [None] * R
+        self._dout, self._D = [None] * R, [None] * R
+        self._dq, self._dk, self._dv = [None] * R, [None] * R, [None] * R
+        self._zk, self._zv = [None] * R, [None] * R
+        self._k0, self._v0 = [], []
+        for r in range(R):
+            dev = devs[r]
+            q32, pos = fold_queries(qs[r].to(dev), feeds["scale"], r, h_kv)
+            self._q.append(q32)
+            self._pos.append(pos)
+            self._k0.append(ks[r].to(dev, f32))
+            self._v0.append(vs[r].to(dev, f32))
+            rows = q32.shape[:3]
+            self._carry.append((
+                torch.zeros(rows + (vs[r].shape[3],), dtype=f32, device=dev),
+                torch.full(rows, NEG_INF, dtype=f32, device=dev),
+                torch.zeros(rows, dtype=f32, device=dev)))
+            if douts is not None:
+                self._dout[r] = douts[r].to(dev, f32).reshape(
+                    q32.shape[:3] + (douts[r].shape[3],))
+        if douts is not None or self._dout_fn is not None:
+            for r in range(R):
+                self._zk[r] = torch.zeros(ks[r].shape, dtype=f32,
+                                          device=devs[r])
+                self._zv[r] = torch.zeros(vs[r].shape, dtype=f32,
+                                          device=devs[r])
+
+    def _block_dout(self, r: int):
+        """Seed rank r's cotangent lazily: by the first bwd event every
+        forward output exists, so a ``dout_fn`` can close over the whole
+        forward result."""
+        if self._dout[r] is None:
+            b, h_kv, rq, d = self._q[r].shape
+            h = (rq // self.s_local) * h_kv
+            out_block = self._out[r].reshape(b, h, self.s_local, d)
+            dout = self._dout_fn(r, out_block)
+            self._dout[r] = dout.to(self._devices[r], torch.float32) \
+                .reshape(self._out[r].shape)
+        if self._D[r] is None:
+            self._D[r] = (self._dout[r] * self._out[r]).sum(dim=-1)
+
+    def execute(self, ev: Event, inbox, reads):
+        from ..kernels.ring_attention import bwd_hop, fwd_finish, fwd_hop
+        ex = self._ex
+        r, h = ev.stage, ev.micro
+        j = (r - h) % self.R
+        k_off = j * self.s_local
+        if ev.phase == FWD:
+            if h == 0:
+                kk, vv = self._k0[r], self._v0[r]
+            else:
+                kk, vv = inbox[("kv", h - 1)]
+            self._carry[r] = fwd_hop(self._q[r], kk, vv, *self._carry[r],
+                                     self._pos[r], k_off, ex.causal,
+                                     ex.window)
+            if h == self.R - 1:
+                self._held[r] = (kk, vv)
+                self._out[r], self._lse[r] = fwd_finish(*self._carry[r])
+            return {tuple(msg.tag): (kk, vv) for msg in ev.sends}, {}
+        self._block_dout(r)
+        if h == self.R - 1:
+            kk, vv = self._held[r]
+            dk, dv = self._zk[r], self._zv[r]
+        else:
+            kk, vv, dk, dv = inbox[("dkv", h + 1)]
+        if self._dq[r] is None:
+            self._dq[r] = torch.zeros_like(self._q[r])
+        self._dq[r], dk, dv = bwd_hop(
+            self._q[r], self._dout[r], self._lse[r], self._D[r], kk, vv,
+            dk, dv, self._dq[r], self._pos[r], k_off, ex.causal, ex.window)
+        if h == 0:      # the block is home: j == r
+            self._dk[r], self._dv[r] = dk, dv
+            return {}, {}
+        return {tuple(msg.tag): (kk, vv, dk, dv) for msg in ev.sends}, {}
+
+    def finish(self):
+        return {"out": self._out, "lse": self._lse, "dq": self._dq,
+                "dk": self._dk, "dv": self._dv}
+
+    def executable_specs(self):
+        return []
+
+
+class MpmdRingExecutor:
+    """Ring attention executed as an MPMD schedule (JAX :765):
+    ``ring_graph(R)`` verified by mpmd_lint (``MpmdDriver`` refuses a
+    graph with findings), each hop a per-device program, the k/v rotation
+    (and the counter-rotating dk/dv in the backward) explicit driver
+    ``.to`` edges; no collective.
+
+    ``run(q, k, v)`` computes exact attention over [b, h, s, d] tensors
+    with s split into R sequence blocks, block r on stage r's device;
+    pass ``dout`` (a full cotangent) or ``dout_fn(r, out_block) ->
+    dout_block`` (seeded lazily once every forward block exists) to also
+    get (dq, dk, dv). ``devices``: the stages' devices (``stage_devices``
+    by default: the visible cards)."""
+
+    def __init__(self, ring_degree: int, *, causal: bool = False,
+                 scale: Optional[float] = None,
+                 window: Optional[int] = None, devices=None):
+        self.R = int(ring_degree)
+        if self.R < 2:
+            raise ValueError("MpmdRingExecutor needs ring_degree >= 2")
+        if window is not None and not causal:
+            raise ValueError("ring attention window requires "
+                             "causal=True")
+        self.causal = bool(causal)
+        self.window = int(window) if window is not None else None
+        self.scale = scale          # None: head_dim ** -0.5, each run
+        self._devices = devices
+        self._cache: Dict[Tuple, Tuple[MpmdDriver, _RingPrograms]] = {}
+
+    def _driver_for(self, shape, kv_shape, backward: bool):
+        sig = (tuple(shape), tuple(kv_shape), backward)
+        hit = self._cache.get(sig)
+        if hit is not None:
+            return hit
+        from .mpmd_graph import ring_graph
+        b, h, sl, d = shape
+        h_kv = kv_shape[1]
+        devices = stage_devices(self.R, self._devices)
+        graph = ring_graph(
+            self.R, act_shape=(b, h_kv, sl, d), act_dtype="float32",
+            backward=backward,
+            subject=f"mpmd(ring-exec, R={self.R}, "
+                    f"block={b}x{h_kv}x{sl}x{d})")
+        programs = _RingPrograms(self, self.R, sl, devices)
+        driver = MpmdDriver(graph, programs, placements=devices)
+        self._cache[sig] = (driver, programs)
+        return driver, programs
+
+    def run(self, q, k, v, *, dout=None, dout_fn=None):
+        R = self.R
+        b, h, s, d = q.shape
+        h_kv = k.shape[1]
+        if s % R:
+            raise ValueError(f"seq len {s} not divisible by ring "
+                             f"degree {R}")
+        if h % h_kv or k.shape != v.shape:
+            raise ValueError(
+                f"GQA requires query heads ({h}) to be a multiple of "
+                f"key/value heads ({h_kv}, v {v.shape[1]})")
+        scale = self.scale if self.scale is not None else float(d) ** -0.5
+        in_dtype = q.dtype
+        sl = s // R
+        backward = dout is not None or dout_fn is not None
+        driver, programs = self._driver_for(
+            (b, h, sl, d), (b, h_kv, sl, d), backward)
+
+        def split(x):
+            return [x[:, :, r * sl:(r + 1) * sl, :] for r in range(R)]
+
+        feeds = {"q": split(q), "k": split(k), "v": split(v),
+                 "scale": scale}
+        if dout is not None:
+            feeds["dout"] = split(dout)
+        if dout_fn is not None:
+            feeds["dout_fn"] = dout_fn
+        res = driver.run(feeds)
+        home = q.device
+
+        def gather(blocks, heads):
+            return torch.cat([x.reshape(b, heads, sl, d).to(home)
+                              for x in blocks], dim=2)
+
+        out = gather(res["out"], h).to(in_dtype)
+        if not backward:
+            return out, None
+        grads = (gather([x * scale for x in res["dq"]], h)
+                 .to(in_dtype),
+                 gather(res["dk"], h_kv).to(in_dtype),
+                 gather(res["dv"], h_kv).to(in_dtype))
+        return out, grads
+
+    def stats(self) -> Dict[str, object]:
+        """The last-built driver's schedule occupancy
+        (``MpmdDriver.stats``)."""
+        if not self._cache:
+            return {}
+        driver, _ = next(reversed(list(self._cache.values())))
+        return driver.stats()

@@ -23,6 +23,21 @@ every collective. The port's runs on each rank:
 6. the loss averaged over the data group (the global batch's mean when
    the ranks' parts count the same tokens).
 
+Sequence parallelism over ``sep`` (a mesh sep degree > 1): every tensor
+input of two or more dims (the ids, the labels) is also split along dim
+1 over the sep group, this rank taking its chunk of the sequence (the
+model's attention is then the ring, ``kernels.ring_attention``); the
+gradients are summed over sep and averaged over dp x sharding (the
+policy of ``hybrid_parallel_optimizer``'s docstring: a sep rank's loss
+is the sequence's, its gradient its chunk's part); ZeRO-1/2 sum the
+flat gradient over sep before their data-group reduction; ZeRO-3 with
+sep raises. The loss, the same on the sep ranks, is averaged over the
+data group. Sequence-parallel parameters (norms on an mp rank's
+sequence rows) have their gradients summed over the mp group before the
+clip. Expert-parallel parameters (an MoE layer's experts over ``ep``)
+count once a shard in the global norm (summed over the ep group); ZeRO
+with ep raises.
+
 Stage 3 (ZeRO-3, Paddle's group_sharded_stage3): the model's parameters
 are sliced over the data group (``shard_parameters_fsdp``, unless
 ``fleet.distributed_model`` or ``group_sharded_parallel`` did it) and
@@ -44,8 +59,11 @@ from ..jit.api import TrainStep
 from . import mesh as mesh_mod
 from .communication import collectives as C
 from .fleet.meta_optimizers.dygraph_optimizer.hybrid_parallel_optimizer \
-    import FlatParams, _apply_clip, clip_scale
-from .fleet.meta_parallel.meta_parallel_base import is_distributed
+    import (FlatParams, _apply_clip, clip_scale, grad_groups,
+            reduce_data_grads, sum_sequence_parallel_grads)
+from .fleet.meta_parallel.meta_parallel_base import (check_sequence_split,
+                                                     is_distributed,
+                                                     is_expert)
 
 
 class DistributedTrainStep(TrainStep):
@@ -64,6 +82,17 @@ class DistributedTrainStep(TrainStep):
         hcg = mesh_mod.get_hybrid_communicate_group()
         self._mp_group = hcg.get_model_parallel_group()
         self._data_group = hcg.get_dp_sharding_group()
+        self._grad_group, self._sep_group, self._ep_group = grad_groups(hcg)
+        if stage >= 3 and self._sep_group is not None:
+            raise NotImplementedError(
+                "ZeRO-3 with sequence parallelism over sep: use sharding "
+                "stage 0, 1 or 2 with sep > 1")
+        if stage >= 1 and self._ep_group is not None:
+            raise NotImplementedError(
+                "ZeRO with expert parallelism: the slices would mix the ep "
+                "ranks' expert shards")
+        if self._sep_group is not None:
+            check_sequence_split(inner_model, self._sep_group)
         self._sharding_stage = stage
         self._flat = None
         self._zero3 = None
@@ -75,7 +104,7 @@ class DistributedTrainStep(TrainStep):
             self._zero3 = zero3_of(inner_model)
         super().__init__(inner_model, loss_fn, inner_opt, amp_dtype=amp_dtype,
                          donate=donate)
-        self._dist = {n: is_distributed(p)
+        self._dist = {n: (is_distributed(p), is_expert(p))
                       for n, p in self._params.items()}
 
     def _init_opt_state(self):
@@ -94,28 +123,26 @@ class DistributedTrainStep(TrainStep):
 
     def _local(self, x):
         """This rank's part of a global batch tensor (dim 0 split over
-        the data group); 0-d values and non-arrays pass."""
-        g = self._data_group
+        the data group, dim 1 over the sep group); 0-d values and
+        non-arrays pass."""
         if isinstance(x, (list, tuple)):
             return type(x)(self._local(a) for a in x)
         x = getattr(x, "_data", x)
-        if g.nranks == 1 or not isinstance(x, (torch.Tensor, np.ndarray)) \
-                or x.ndim == 0:
+        if not isinstance(x, (torch.Tensor, np.ndarray)) or x.ndim == 0:
             return x
-        n = x.shape[0]
-        if n % g.nranks:
-            raise ValueError(f"the batch's dim 0 ({n}) must be divisible by "
-                             f"the data-parallel degree ({g.nranks})")
-        k = n // g.nranks
-        return x[g.rank * k:(g.rank + 1) * k]
+        x = _part_of(x, 0, self._data_group, "the data-parallel degree")
+        if self._sep_group is not None and x.ndim >= 2:
+            x = _part_of(x, 1, self._sep_group, "the sep degree")
+        return x
 
     @torch.no_grad()
     def _reduce_grads(self, grads):
-        g = self._data_group
+        g = self._grad_group
         if g.nranks == 1:
             return grads
-        flat = torch.cat([x.reshape(-1).float() for x in grads])
-        C.all_reduce(flat, op=C.ReduceOp.AVG, group=g)
+        flat = reduce_data_grads(
+            torch.cat([x.reshape(-1).float() for x in grads]), g,
+            self._sep_group)
         out, off = [], 0
         for x in grads:
             out.append(flat[off:off + x.numel()].view_as(x).to(x.dtype))
@@ -166,7 +193,7 @@ class DistributedTrainStep(TrainStep):
 
     def _zero3_clip_scale(self, clip, names, grads):
         z = self._zero3
-        return z.clip_scale(clip, [(g, self._dist[n],
+        return z.clip_scale(clip, [(g, self._dist[n][0],
                                     z.is_whole(self._params[n]))
                                    for n, g in zip(names, grads)],
                             self._mp_group)
@@ -180,6 +207,7 @@ class DistributedTrainStep(TrainStep):
             loss, names, grads = self._zero3_loss_and_grads(inputs, labels)
             clip, lr = self._opt._grad_clip, self._opt.get_lr()
             with torch.no_grad():
+                self._sum_sp(names, grads)
                 scale = self._zero3_clip_scale(clip, names, grads)
                 grads = _apply_clip(clip, grads, scale)
                 self._opt.apply_gradients_pytree(
@@ -193,11 +221,12 @@ class DistributedTrainStep(TrainStep):
         loss, names, grads = self._raw_loss_and_grads(inputs, labels)
         clip, lr = self._opt._grad_clip, self._opt.get_lr()
         with torch.no_grad():
+            self._sum_sp(names, grads)
             if self._flat is None:
                 grads = self._reduce_grads(grads)
-                scale = clip_scale(clip, [(g, self._dist[n])
+                scale = clip_scale(clip, [(g,) + self._dist[n]
                                           for n, g in zip(names, grads)],
-                                   self._mp_group)
+                                   self._mp_group, ep_group=self._ep_group)
                 grads = _apply_clip(clip, grads, scale)
                 self._opt.apply_gradients_pytree(
                     self._params, dict(zip(names, grads)), self._opt_state,
@@ -206,6 +235,9 @@ class DistributedTrainStep(TrainStep):
                 flat = self._flat
                 gflat = flat.flat_grad(dict(zip(names, grads)))
                 del grads
+                if self._sep_group is not None:
+                    # summed over sep, then averaged over the data group
+                    C.all_reduce(gflat, group=self._sep_group)
                 gshard = flat.reduce(gflat, self._sharding_stage)
                 scale = clip_scale(clip, flat.parts(gshard), self._mp_group,
                                    self._data_group)
@@ -215,7 +247,26 @@ class DistributedTrainStep(TrainStep):
                       torch.float32)], float(lr), self._opt._weight_decay)
                 del gflat, gshard
                 flat.gather()
-            if self._data_group.nranks > 1:
+            if self._grad_group.nranks > 1:
                 loss = loss.clone()
-                C.all_reduce(loss, op=C.ReduceOp.AVG, group=self._data_group)
+                C.all_reduce(loss, op=C.ReduceOp.AVG, group=self._grad_group)
         return loss
+
+    def _sum_sp(self, names, grads):
+        """The sequence-parallel parameters' gradients summed over mp."""
+        sum_sequence_parallel_grads(
+            [(self._params[n], g) for n, g in zip(names, grads)],
+            self._mp_group)
+
+
+def _part_of(x, dim, group, what):
+    """Group rank ``group.rank``'s part of ``x`` along ``dim``."""
+    if group.nranks == 1:
+        return x
+    n = x.shape[dim]
+    if n % group.nranks:
+        raise ValueError(f"the batch's dim {dim} ({n}) must be divisible by "
+                         f"{what} ({group.nranks})")
+    k = n // group.nranks
+    return x[(slice(None),) * dim + (slice(group.rank * k,
+                                          (group.rank + 1) * k),)]

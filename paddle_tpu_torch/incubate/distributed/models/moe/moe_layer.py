@@ -24,7 +24,33 @@ and an activation the kernels do not compute — counted on
 the einsum dispatch, as in JAX) and ``kernels.moe.decode_path.fallback.
 <reason>`` (serving decode mode, the scatter dispatch). The geometry,
 platform and Mosaic-probe reasons are TPU constraints and do not exist
-here. Expert parallelism (``moe_group``) comes with the distributed slice.
+here.
+
+Expert parallelism (``moe_group``, or the mesh's ``ep`` axis, of n > 1
+ranks): ``GroupedExpertsFFN`` holds this rank's E / n experts, rows
+[r E / n, (r + 1) E / n) of the stacked [E, ...] parameters (drawn at
+their global shape and sliced, marked ``expert_parallel``). The JAX
+package shards the experts over 'ep' and lets GSPMD move the tokens;
+the port reproduces its semantics exactly:
+
+- routing is global: the capacity comes from the global token count and
+  the positions run over every token in batch order. Tokens are split
+  over dp x sharding only (``mesh.data_axes``) and replicated over ep;
+  with a data group of D > 1 ranks, the [N / D, E] gate logits are
+  all-gathered over it (the backward reduce-scatters: the aux loss reads
+  every row on every rank), routed as one device routes them, and this
+  rank keeps its rows of the dispatch and combine;
+- the kernel dispatch falls back to the einsum one over an ep group
+  (``kernels.moe.dispatch_path.fallback.ep-sharded``, JAX :321-327;
+  decode mode to the scatter one). The einsum and scatter dispatches
+  build this rank's tokens' part of ``expert_in`` [E, C, h], all-reduce
+  it over the data group (backward: all-reduce), keep this rank's E / n
+  rows (backward: all-gather over ep), run the local experts, all-gather
+  their outputs over ep (backward: this rank's rows) and combine this
+  rank's tokens. An all-to-all is later work.
+
+An MoE layer built on a mesh that splits the sequence over ``sep``
+raises (the tokens' global order would span the sep ranks).
 
 Counters, bumped per call (the port runs eagerly, there is no trace):
 ``kernels.moe.dispatch_path.{pallas,scatter,einsum}`` and
@@ -41,6 +67,9 @@ from torch import nn
 
 from ..... import monitor
 from .....core.device import resolve_device
+from .....distributed import mesh as mesh_mod
+from .....distributed.communication import collectives as C
+from .....distributed.fleet.layers.mpu import mp_ops
 from .....kernels import moe as moe_kernels
 from .gate import (BaseGate, GShardGate, NaiveGate, SwitchGate,
                    apply_router_jitter, topk_gating, topk_gating_sparse)
@@ -57,21 +86,42 @@ def _act(h, activation):
 
 class GroupedExpertsFFN(nn.Module):
     """E parallel FFN experts as stacked weights w1 [E, h, dff], b1
-    [E, 1, dff], w2 [E, dff, h], b2 [E, 1, h] (the JAX layout)."""
+    [E, 1, dff], w2 [E, dff, h], b2 [E, 1, h] (the JAX layout). With an
+    expert-parallel group of n > 1 ranks (``ep_group``) this rank holds
+    its E / n rows of each (``num_local_experts``), marked
+    ``expert_parallel``; ``shard(full)`` slices a global tensor to them."""
 
     def __init__(self, num_experts: int, d_model: int, d_hidden: int,
-                 activation="gelu", device=None, dtype=None):
+                 activation="gelu", device=None, dtype=None, ep_group=None):
         super().__init__()
         self.num_experts = num_experts
+        self.ep_group = ep_group if ep_group is not None and \
+            ep_group.nranks > 1 else None
+        n = 1 if self.ep_group is None else self.ep_group.nranks
+        if num_experts % n:
+            raise ValueError(f"num_experts ({num_experts}) must be divisible "
+                             f"by the expert-parallel degree ({n})")
+        self.ep_rank = 0 if self.ep_group is None else self.ep_group.rank
+        self.ep_degree = n
+        self.num_local_experts = e = num_experts // n
 
         def p(*shape):
-            return nn.Parameter(torch.zeros(shape, device=device,
-                                            dtype=dtype))
-        self.w1 = p(num_experts, d_model, d_hidden)
-        self.b1 = p(num_experts, 1, d_hidden)
-        self.w2 = p(num_experts, d_hidden, d_model)
-        self.b2 = p(num_experts, 1, d_model)
+            t = nn.Parameter(torch.zeros(shape, device=device, dtype=dtype))
+            t.expert_parallel = n > 1
+            return t
+        self.w1 = p(e, d_model, d_hidden)
+        self.b1 = p(e, 1, d_hidden)
+        self.w2 = p(e, d_hidden, d_model)
+        self.b2 = p(e, 1, d_model)
         self._act = activation
+
+    def shard(self, full):
+        """This rank's rows of a global [E, ...] tensor."""
+        e = self.num_local_experts
+        return full[self.ep_rank * e:(self.ep_rank + 1) * e]
+
+    def global_shape(self, name):
+        return (self.num_experts,) + tuple(getattr(self, name).shape[1:])
 
     def forward(self, x):
         """x [E, C, h] -> [E, C, h] (batched per-expert products)."""
@@ -120,6 +170,35 @@ def moe_combine_einsum(eo, c):
     return torch.einsum("gech,gnec->gnh", eg, c).reshape(g * gn, h)
 
 
+class _SumOverData(torch.autograd.Function):
+    """The data ranks' parts of an expert buffer summed (their token slots
+    are disjoint); the backward sums the ranks' gradients likewise."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        C.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.contiguous().clone()
+        C.all_reduce(out, group=ctx.group)
+        return out, None
+
+
+class _EpSlice(mp_ops._Split):
+    """This rank's experts' rows of [E, C, h]; the backward all-gathers
+    over ep."""
+
+
+class _EpGather(mp_ops._Concat):
+    """The ep ranks' expert outputs gathered to [E, C, h]; the backward
+    keeps this rank's rows (every ep rank holds the whole gradient: the
+    tokens are replicated over ep)."""
+
+
 def _slots(idx, pos, keep, cap, trash):
     """Flat buffer slot of every (round, token): expert * cap + position,
     or ``trash`` where the assignment was not kept."""
@@ -133,8 +212,9 @@ class MoELayer(nn.Module):
     top_k / capacity_factor, experts (a custom module [E, C, h] ->
     [E, C, h]), group_size (GShard group-wise dispatch of the einsum
     mode), dispatch_mode ("pallas" | "einsum" | "scatter"). ``moe_group``
-    (expert parallelism) raises NotImplementedError; ``ep_axis`` and
-    ``name`` are accepted for API parity and unused.
+    (a ``Group``) or the mesh's ``ep_axis`` of n > 1 ranks: expert
+    parallelism, this rank holding E / n experts (module docstring);
+    ``name`` is accepted for API parity and unused.
 
     ``device=None`` builds it on ``cuda``; ``device="cpu"`` on the CPU.
     Weights are drawn from ``seed`` (normal, std 0.02; biases 0).
@@ -153,11 +233,18 @@ class MoELayer(nn.Module):
             raise ValueError(
                 f"dispatch_mode must be 'pallas', 'einsum' or 'scatter', "
                 f"got {dispatch_mode!r}")
-        if moe_group is not None:
+        if mesh_mod.get_mesh() is not None and \
+                mesh_mod.axis_degree("sep") > 1:
             raise NotImplementedError(
-                "expert parallelism (moe_group, the 'ep' mesh axis) comes "
-                "with the distributed slice of the port")
+                "an MoE layer on a mesh that splits the sequence over sep: "
+                "global routing across the sep ranks' tokens is not "
+                "carried")
         device = resolve_device(device)
+        self._ep, self._tok = _expert_groups(moe_group, ep_axis)
+        if self._ep is not None and num_experts % self._ep.nranks:
+            raise ValueError(
+                f"num_experts ({num_experts}) must be divisible by the "
+                f"expert-parallel degree ({self._ep.nranks})")
         self.d_model = d_model
         self.num_experts = num_experts
         self._group_size = group_size
@@ -183,14 +270,23 @@ class MoELayer(nn.Module):
         own = [self.gate_weight]
         if experts is None:
             experts = GroupedExpertsFFN(num_experts, d_model, d_hidden,
-                                        device=device, dtype=dtype)
+                                        device=device, dtype=dtype,
+                                        ep_group=self._ep)
             own += [experts.w1, experts.w2]
         self.experts = experts
         self.l_aux = None
         gen = torch.Generator(device=device).manual_seed(int(seed))
         with torch.no_grad():
             for p in own:
-                p.normal_(0.0, 0.02, generator=gen)
+                if p is self.gate_weight or self._ep is None:
+                    p.normal_(0.0, 0.02, generator=gen)
+                else:
+                    # drawn at the global shape: any ep degree builds the
+                    # same global layer from one seed
+                    full = torch.empty((num_experts,) + tuple(p.shape[1:]),
+                                       device=p.device, dtype=p.dtype)
+                    p.copy_(experts.shard(full.normal_(0.0, 0.02,
+                                                       generator=gen)))
 
     def _jitter(self):
         jitter = getattr(self.gate, "jitter", 0.0)
@@ -199,12 +295,56 @@ class MoELayer(nn.Module):
     def _sparse_route(self, tokens, cap, token_mask):
         """The one sparse routing call the scatter and kernel dispatches
         share: (idx, pos, keep, w); sets ``l_aux``."""
+        mask = token_mask
+        if self._tok is not None and mask is not None:
+            mask = C.all_gather(None, mask.contiguous(), group=self._tok)
+            mask = torch.cat(mask)
         idx, pos, keep, w, aux = topk_gating_sparse(
-            tokens @ self.gate_weight, self.gate.top_k, cap,
+            self._global_logits(tokens), self.gate.top_k, cap,
             train=self.training, generator=self.generator,
-            switch_jitter=self._jitter(), token_mask=token_mask)
+            switch_jitter=self._jitter(), token_mask=mask)
         self.l_aux = aux
-        return idx, pos, keep, w
+        return tuple(self._rows(t, 1) for t in (idx, pos, keep, w))
+
+    # -- expert parallelism (module docstring) ------------------------------
+    def _global_logits(self, tokens):
+        """The router logits of every token of the data group, in batch
+        order (this rank's when the tokens are not split)."""
+        logits = tokens @ self.gate_weight
+        if self._tok is None:
+            return logits
+        return mp_ops._AllGatherRS.apply(logits, self._tok, 0)
+
+    def _n_global(self, n):
+        """The data group's token count (the capacity's)."""
+        return int(n) * (1 if self._tok is None else self._tok.nranks)
+
+    def _rows(self, t, dim):
+        """This data rank's token rows of a global routing tensor."""
+        if self._tok is None:
+            return t
+        k = t.shape[dim] // self._tok.nranks
+        return t.narrow(dim, self._tok.rank * k, k)
+
+    def _global_tokens(self, tokens):
+        """[N, h]: this rank's tokens in its rows of the data group's
+        batch, zeros elsewhere (its part of a dispatch)."""
+        if self._tok is None:
+            return tokens
+        n, r = self._tok.nranks, self._tok.rank
+        pad = [tokens.new_zeros(tokens.shape) for _ in range(n)]
+        return torch.cat(pad[:r] + [tokens] + pad[r + 1:])
+
+    def _run_experts(self, expert_in):
+        """``expert_in`` [E, C, h] (this rank's tokens' part) -> the
+        experts' output [E, C, h]: summed over the data group, this
+        rank's experts run, their outputs gathered over ep."""
+        if self._tok is not None:
+            expert_in = _SumOverData.apply(expert_in, self._tok)
+        if self._ep is None:
+            return self.experts(expert_in)
+        local = self.experts(_EpSlice.apply(expert_in, self._ep, 0))
+        return _EpGather.apply(local, self._ep, 0)
 
     def _forward_scatter(self, tokens, orig_shape, token_mask=None,
                          cap=None):
@@ -214,13 +354,13 @@ class MoELayer(nn.Module):
         n, h = tokens.shape
         e = self.num_experts
         if cap is None:
-            cap = self.gate.capacity(int(n))
+            cap = self.gate.capacity(self._n_global(n))
         idx, pos, keep, w = self._sparse_route(tokens, cap, token_mask)
         dst = _slots(idx, pos, keep, cap, e * cap)
         buf = tokens.new_zeros((e * cap + 1, h))
         for r in range(idx.shape[0]):
             buf = buf.index_add(0, dst[r], tokens)
-        expert_out = self.experts(buf[:e * cap].reshape(e, cap, h))
+        expert_out = self._run_experts(buf[:e * cap].reshape(e, cap, h))
         flat = expert_out.reshape(e * cap, h)
         src = _slots(idx, pos, keep, cap, 0)
         out = 0.0
@@ -235,6 +375,10 @@ class MoELayer(nn.Module):
             return "custom-experts"
         if self.experts._act not in ("gelu", "relu"):
             return "activation"
+        if self._ep is not None:
+            # as in JAX: the kernels take a rank's whole expert buffer, so
+            # an expert-parallel layer keeps the einsum dispatch
+            return "ep-sharded"
         return None
 
     def _forward_pallas(self, tokens, orig_shape, token_mask=None, cap=None):
@@ -246,7 +390,7 @@ class MoELayer(nn.Module):
         n, h = tokens.shape
         e = self.num_experts
         if cap is None:
-            cap = self.gate.capacity(int(n))
+            cap = self.gate.capacity(self._n_global(n))
         cap_pad = moe_kernels.padded_capacity(cap, tokens.dtype)
         idx, pos, keep, w = self._sparse_route(tokens, cap, token_mask)
         dst = _slots(idx, pos, keep, cap_pad, e * cap_pad)
@@ -262,6 +406,11 @@ class MoELayer(nn.Module):
         counts = torch.zeros(e + 1, dtype=torch.int32,
                              device=tokens.device).index_add(
             0, owner.reshape(-1), keep.reshape(-1).to(torch.int32))[:e]
+        if self._tok is not None:
+            # every data rank's tokens: the buffers' parts summed
+            buf = _SumOverData.apply(buf, self._tok)
+            wbuf = _SumOverData.apply(wbuf, self._tok)
+            C.all_reduce(counts, group=self._tok)
         ex = self.experts
         expert_out = moe_kernels.grouped_ffn(
             buf[:e * cap_pad].reshape(e, cap_pad, h), ex.w1, ex.b1, ex.w2,
@@ -288,7 +437,7 @@ class MoELayer(nn.Module):
         they claim no buffer slot, and the kernels' live counts skip them.
         The kernel dispatch, or the sparse scatter when the layer falls
         back; never the dense einsum."""
-        n = int(tokens.shape[0])
+        n = self._n_global(tokens.shape[0])
         mask = None if token_mask is None else \
             token_mask.reshape(-1).to(torch.bool)
         reason = self._pallas_fallback_reason()
@@ -323,12 +472,12 @@ class MoELayer(nn.Module):
         return self._forward_einsum(tokens, orig_shape)
 
     def _forward_einsum(self, tokens, orig_shape):
-        n = int(tokens.shape[0])
+        logits = self._global_logits(tokens)
+        n = int(logits.shape[0])
         e = self.num_experts
         top_k = self.gate.top_k
         ng = _n_groups_cached(n, self._group_size)
         cap = self.gate.capacity(n // ng)
-        logits = tokens @ self.gate_weight
         if ng == 1:
             dispatch, combine, aux = topk_gating(
                 logits, top_k, cap, train=self.training,
@@ -344,8 +493,28 @@ class MoELayer(nn.Module):
             combine = torch.stack([r[1] for r in routed])
             aux = torch.stack([r[2] for r in routed]).mean()
         self.l_aux = aux
-        expert_out = self.experts(moe_dispatch_einsum(tokens, dispatch))
-        return moe_combine_einsum(expert_out, combine).reshape(orig_shape)
+        expert_out = self._run_experts(moe_dispatch_einsum(
+            self._global_tokens(tokens), dispatch))
+        out = moe_combine_einsum(expert_out, combine)
+        return self._rows(out, 0).reshape(orig_shape)
+
+
+def _expert_groups(moe_group, ep_axis):
+    """(the ep group, the data group the tokens are split over), each
+    None when trivial: ``moe_group`` or the mesh's ``ep_axis``; the
+    mesh's dp x sharding."""
+    mesh = mesh_mod.get_mesh()
+    ep = moe_group
+    if ep is None and mesh is not None and ep_axis in mesh.axis_names \
+            and mesh.shape[ep_axis] > 1:
+        ep = mesh.group(ep_axis)
+    if ep is not None and ep.nranks <= 1:
+        ep = None
+    tok = None
+    if mesh is not None and mesh.shape.get("dp", 1) * \
+            mesh.shape.get("sharding", 1) > 1:
+        tok = mesh.group(("dp", "sharding"))
+    return ep, tok
 
 
 __all__ = ["GroupedExpertsFFN", "MoELayer", "NaiveGate", "SwitchGate",

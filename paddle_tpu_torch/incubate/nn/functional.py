@@ -154,10 +154,17 @@ class _FusedLinearCE(torch.autograd.Function):
     n); each chunk's logits stay a shard, the label's logit takes a third
     all-reduce, and the backward all-reduces the hidden's gradient (each
     rank holds a part). ``hs`` and the labels are the same on every
-    rank."""
+    rank.
+
+    ``seq_group`` (None, or a sep group of n > 1): the rows are this
+    rank's chunk of the sequence; the sums and the valid counts are
+    all-reduced over it, so the loss is the whole sequence's mean on every
+    rank, and the backward gives this rank's rows their part of its
+    gradient (the ranks' gradients are then summed over sep: the policy
+    of ``hybrid_parallel_optimizer``)."""
 
     @staticmethod
-    def forward(ctx, hs, w, ls, ignore_index, chunks, group):
+    def forward(ctx, hs, w, ls, ignore_index, chunks, group, seq_group):
         n = 1 if group is None else group.nranks
         start = 0 if group is None else group.rank * w.shape[1]
         tot = torch.zeros((), dtype=torch.float32, device=hs.device)
@@ -178,6 +185,11 @@ class _FusedLinearCE(torch.autograd.Function):
             cnt = cnt + valid.float().sum()
             lses.append(lse)
             del logits
+        if seq_group is not None:
+            from ...distributed.communication import collectives as C
+            both = torch.stack([tot, cnt])
+            C.all_reduce(both, group=seq_group)
+            tot, cnt = both[0], both[1]
         denom = torch.clamp(cnt, min=1.0)
         ctx.save_for_backward(hs, w, ls, denom, torch.cat(lses))
         ctx.ignore_index, ctx.chunks, ctx.group = ignore_index, chunks, group
@@ -211,11 +223,11 @@ class _FusedLinearCE(torch.autograd.Function):
         if ctx.group is not None:
             from ...distributed.communication import collectives as C
             C.all_reduce(dh, group=ctx.group)
-        return dh, dw.to(w.dtype), None, None, None, None
+        return dh, dw.to(w.dtype), None, None, None, None, None
 
 
 def fused_linear_cross_entropy(hidden, weight, labels, ignore_index=-100,
-                               n_chunks=8, group=None):
+                               n_chunks=8, group=None, seq_group=None):
     """Fused lm-head matmul + softmax cross entropy, chunked over rows
     (counterpart of ``fused_linear_cross_entropy``,
     ``paddle_tpu/incubate/nn/functional/__init__.py:173``).
@@ -232,7 +244,12 @@ def fused_linear_cross_entropy(hidden, weight, labels, ignore_index=-100,
 
     ``group``: a model-parallel group of n ranks over which ``weight`` is
     split by vocabulary (this rank's [H, V / n] columns); the loss is then
-    the same as the unsplit one's, with no [rows, V] logits gathered."""
+    the same as the unsplit one's, with no [rows, V] logits gathered.
+
+    ``seq_group``: a sep group over which the sequence is split (this
+    rank's rows are its chunk): the loss is the mean over every rank's
+    valid labels, its gradient this rank's rows' part
+    (``_FusedLinearCE``)."""
     if int(n_chunks) < 1:
         raise ValueError(f"n_chunks must be >= 1, got {n_chunks}")
     hs = hidden.reshape(-1, hidden.shape[-1])
@@ -246,8 +263,10 @@ def fused_linear_cross_entropy(hidden, weight, labels, ignore_index=-100,
         ls = torch.cat([ls, ls.new_full((pad,), ignore_index)])
     if group is not None and group.nranks == 1:
         group = None
+    if seq_group is not None and seq_group.nranks == 1:
+        seq_group = None
     return _FusedLinearCE.apply(hs, weight, ls, int(ignore_index), chunks,
-                                group)
+                                group, seq_group)
 
 
 def masked_multihead_attention(x, cache_kv=None, bias=None, src_mask=None,

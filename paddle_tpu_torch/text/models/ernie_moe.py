@@ -18,6 +18,13 @@ paged).
   claims no expert slot and the kernels skip it. One-shot decoding
   passes one scalar index >= 0: every lane is live.
 
+Expert parallelism: with the mesh's ``ep`` axis of n > 1 ranks (or a
+``moe_group``), each MoE block holds its E / n experts
+(``incubate/distributed/models/moe/moe_layer.py``); the weights are drawn
+at their global shapes and sliced, so any ep degree builds the same
+global model from a seed, and ``bridge.ernie_moe_state_from_numpy(...,
+ep_rank, ep_degree)`` slices the JAX weights the same way.
+
 Parameter names equal the JAX names (``layers.1.mlp.experts.w1``,
 ``layers.1.mlp.gate_weight``, ...; no ``llama.`` prefix), so
 ``bridge.ernie_moe_state_from_numpy`` maps one set of weights onto the
@@ -57,7 +64,7 @@ class ErnieMoEConfig(LlamaConfig):
 
 class ErnieMoEDecoderLayer(nn.Module):
     def __init__(self, config: ErnieMoEConfig, use_moe: bool, device=None,
-                 dtype=None):
+                 dtype=None, moe_group=None):
         super().__init__()
         c = config
         self.input_layernorm = LlamaRMSNorm(c.hidden_size, c.rms_norm_eps,
@@ -71,8 +78,8 @@ class ErnieMoEDecoderLayer(nn.Module):
                 num_experts=c.num_experts, gate="gshard", top_k=c.top_k,
                 capacity_factor=c.capacity_factor,
                 group_size=c.moe_group_size,
-                dispatch_mode=c.moe_dispatch_mode, device=device,
-                dtype=dtype)
+                dispatch_mode=c.moe_dispatch_mode, moe_group=moe_group,
+                device=device, dtype=dtype)
         else:
             self.mlp = LlamaMLP(c, device, dtype)
         self.is_moe = use_moe
@@ -102,7 +109,7 @@ class ErnieMoEForCausalLM(nn.Module):
     ``load_state_dict`` (``bridge.ernie_moe_state_from_numpy``)."""
 
     def __init__(self, config: ErnieMoEConfig, device=None, seed: int = 0,
-                 init_std: float = 0.02):
+                 init_std: float = 0.02, moe_group=None):
         super().__init__()
         _check_supported(config)
         c = config
@@ -114,7 +121,7 @@ class ErnieMoEForCausalLM(nn.Module):
         self.layers = nn.ModuleList([
             ErnieMoEDecoderLayer(
                 c, use_moe=(i % c.moe_every == c.moe_every - 1),
-                device=self.device, dtype=dtype)
+                device=self.device, dtype=dtype, moe_group=moe_group)
             for i in range(c.num_hidden_layers)])
         self.norm = LlamaRMSNorm(c.hidden_size, c.rms_norm_eps, self.device,
                                  dtype)
@@ -124,12 +131,22 @@ class ErnieMoEForCausalLM(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0, init_std: float = 0.02):
+        """Norms at 1, expert biases 0, every other parameter normal(0,
+        ``init_std``) from one generator in parameter order; an
+        expert-parallel shard drawn at its global shape and sliced."""
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        modules = dict(self.named_modules())
         for name, p in self.named_parameters():
+            mname, _, pname = name.rpartition(".")
+            m = modules[mname]
             if name.endswith("norm.weight"):
                 p.fill_(1.0)
             elif name.endswith(("experts.b1", "experts.b2")):
                 p.zero_()
+            elif getattr(m, "ep_degree", 1) > 1:
+                full = torch.empty(m.global_shape(pname), device=p.device,
+                                   dtype=p.dtype)
+                p.copy_(m.shard(full.normal_(0.0, init_std, generator=gen)))
             else:
                 p.normal_(0.0, init_std, generator=gen)
 

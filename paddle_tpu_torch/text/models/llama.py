@@ -62,8 +62,31 @@ vocabulary-parallel: each rank's chunk logits stay a [rows, V / mp]
 shard, with three all-reduces a chunk (``fused_linear_cross_entropy``'s
 ``group``).
 
-Not carried yet, raising NotImplementedError: sequence parallelism (the
-sequence-parallel slice of the distributed port).
+Sequence parallelism over mp (``sequence_parallel`` at mp > 1; JAX
+:664-668, where GSPMD places the collectives): the embedding's output is
+split along the sequence over the mp group (``ScatterOp``); each layer's
+norms and residuals run on the rank's s / mp rows, q / k / v and gate /
+up are ``ColumnSequenceParallelLinearModule``s fed one all-gather a group
+(``AllGatherOp``, whose backward reduce-scatters), o_proj and down_proj
+``RowSequenceParallelLinearModule``s (reduce-scatter back to the split);
+the sequence is gathered (``GatherOp``) before the final norm and the
+head. The norms' weights are sequence-parallel parameters (their
+gradients summed over mp by the step or the optimizer). The weights are
+the TP layers' shards, so ``bridge.TP_RULES`` hold. Flashmask with it
+raises, as in JAX (:646-651).
+
+Context parallelism over ``sep`` (a model built on a mesh whose sep
+degree is > 1, JAX :229-234 and :259-276; the sep group is kept from
+construction, as the TP layers are): each rank holds a chunk of the
+sequence (dim 1 of the ids, split by ``SegmentParallel`` or
+``DistributedTrainStep``, or fed so by the caller); attention is
+``kernels.ring_attention.ring_flash_attention`` over that group with the
+layer's window; rope takes the chunk's global positions (``sep_rank *
+s_local`` on), which the JAX package gets from its global shapes; the
+fused loss is the whole sequence's mean, its gradient the chunk's part
+(``fused_linear_cross_entropy``'s ``seq_group``), and a forward that
+would hand out the chunk's logits for a loss of the caller's raises
+unless gradients are off. Flashmask with sep raises, as in JAX.
 """
 from __future__ import annotations
 
@@ -81,6 +104,10 @@ from ...distributed.fleet.layers.mpu.mp_layers import (
     ColumnParallelLinearModule, RowParallelLinearModule,
     VocabParallelEmbeddingModule, global_shape, shard_of)
 from ...distributed.fleet.layers.mpu.mp_ops import _c_concat, _c_identity
+from ...distributed.fleet.utils.sequence_parallel_utils import (
+    AllGatherOp, ColumnSequenceParallelLinearModule, GatherOp,
+    RowSequenceParallelLinearModule, ScatterOp,
+    mark_as_sequence_parallel_parameter)
 from ...distributed.fleet.recompute import (checkpoint_name, recompute,
                                              save_only_names)
 from ...incubate.nn.functional import (fused_linear_cross_entropy,
@@ -152,10 +179,6 @@ def _check_supported(c: LlamaConfig):
         raise ValueError(
             f"recompute_granularity={c.recompute_granularity!r}: expected "
             f"'full', 'selective' or 'selective_qkv'")
-    if c.sequence_parallel:
-        raise NotImplementedError(
-            "sequence_parallel comes with the sequence-parallel slice of "
-            "the distributed port (ROADMAP D3)")
     if c.sliding_window is not None and int(c.sliding_window) < 1:
         raise ValueError(
             f"sliding_window must be >= 1, got {c.sliding_window}")
@@ -187,10 +210,28 @@ def _use_tp():
     return _FORCE_TP or mesh_mod.axis_degree("mp") > 1
 
 
+def _use_sp(config) -> bool:
+    """Sequence parallelism over mp (JAX :664: ``sequence_parallel`` at
+    mp > 1)."""
+    return bool(config.sequence_parallel) and mesh_mod.axis_degree("mp") > 1
+
+
+def _sep_group():
+    """The sep group when the mesh splits the sequence over it, else None:
+    read when a model is built, which then keeps it (its attention, rope
+    offsets and loss are fixed at construction, as its TP layers are)."""
+    if mesh_mod.axis_degree("sep") <= 1:
+        return None
+    return mesh_mod.get_mesh().group("sep")
+
+
 def _tp_input(x, first):
     """The input of a group of column-parallel products (``first`` one of
-    them): ``_c_identity`` once under TP, so that its gradient is
-    all-reduced once for the group."""
+    them): under TP ``_c_identity`` once, so that its gradient is
+    all-reduced once for the group; under sequence parallelism the
+    sequence's all-gather once (its backward reduce-scatters)."""
+    if isinstance(first, ColumnSequenceParallelLinearModule):
+        return AllGatherOp.apply(x, first.group)
     if isinstance(first, ColumnParallelLinearModule):
         return _c_identity(x, group=first.group)
     return x
@@ -242,19 +283,24 @@ class LlamaAttention(nn.Module):
             else int(c.sliding_window)
         self.use_flash = c.use_flash_attention
         self._tag_qkv = _tags_qkv(c)
+        # the sequence split over sep this layer takes (the ring), if any
+        self.sep_group = _sep_group()
         hs = c.hidden_size
         kv = self.num_kv_heads * self.head_dim
         if _use_tp():
             self.num_heads = _tp_divide(self.num_heads, "num_attention_heads")
             self.num_kv_heads = _tp_divide(self.num_kv_heads,
                                            "num_key_value_heads")
-            col = functools.partial(ColumnParallelLinearModule,
-                                    device=device, dtype=dtype,
-                                    sync_input_grad=False)
+            sp = _use_sp(c)
+            col = functools.partial(
+                ColumnSequenceParallelLinearModule if sp
+                else ColumnParallelLinearModule, device=device, dtype=dtype,
+                sync_input_grad=False)
+            row = RowSequenceParallelLinearModule if sp \
+                else RowParallelLinearModule
             self.q_proj, self.k_proj, self.v_proj = (
                 col(hs, hs), col(hs, kv), col(hs, kv))
-            self.o_proj = RowParallelLinearModule(hs, hs, device=device,
-                                                  dtype=dtype)
+            self.o_proj = row(hs, hs, device=device, dtype=dtype)
         else:
             self.q_proj = _linear(hs, hs, device, dtype)
             self.k_proj = _linear(hs, kv, device, dtype)
@@ -270,8 +316,8 @@ class LlamaAttention(nn.Module):
 
     def _qkv(self, x, cache_index=None):
         """q, k, v [b, s, heads, head_dim], q and k after rope."""
-        b, s, _ = x.shape
         x = _tp_input(x, self.q_proj)
+        b, s, _ = x.shape
         q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
@@ -282,6 +328,11 @@ class LlamaAttention(nn.Module):
             idx = torch.as_tensor(cache_index, device=x.device).reshape(-1, 1)
             position_ids = (torch.arange(s, device=x.device)[None, :]
                             + idx).expand(b, s)
+        elif self.sep_group is not None:
+            # this sep rank's chunk of the sequence: its global positions
+            off = self.sep_group.rank * s
+            position_ids = (torch.arange(s, device=x.device)[None, :]
+                            + off).expand(b, s)
         q, k, _ = fused_rotary_position_embedding(
             q, k, None, position_ids=position_ids,
             use_neox_rotary_style=True)
@@ -295,6 +346,13 @@ class LlamaAttention(nn.Module):
         the flash path, as in the JAX model)."""
         from ...kernels.flash_attention import flash_attention
         se = attn_mask_startend_row_indices
+        sep = self.sep_group is not None
+        if se is not None and sep:
+            raise ValueError(
+                "attn_mask_startend_row_indices is not supported under "
+                "sequence/context parallelism (sep > 1): ring attention "
+                "rotates K/V blocks and cannot apply per-column band masks "
+                "yet")
         if se is not None and self.window is not None:
             raise ValueError(
                 "attn_mask_startend_row_indices cannot be combined with "
@@ -305,12 +363,17 @@ class LlamaAttention(nn.Module):
                 "attn_mask_startend_row_indices requires "
                 "use_flash_attention=True (the flashmask bands only exist "
                 "on the flash path)")
-        b, s, _ = x.shape
         q, k, v = self._qkv(x)
+        b, s = q.shape[:2]
         if self._tag_qkv and se is None:
             q, k, v = (checkpoint_name(t, n)
                        for t, n in zip((q, k, v), QKV_TAGS))
-        if self.use_flash or self.window is not None:
+        if sep:
+            from ...kernels.ring_attention import ring_flash_attention
+            out = ring_flash_attention(q, k, v, causal=True,
+                                       window=self.window,
+                                       group=self.sep_group)
+        elif self.use_flash or self.window is not None:
             out = flash_attention(q, k, v, causal=True, window=self.window,
                                   startend_row_indices=se)
         else:
@@ -524,12 +587,15 @@ class LlamaMLP(nn.Module):
         super().__init__()
         hs, im = config.hidden_size, config.intermediate_size
         if _use_tp():
-            col = functools.partial(ColumnParallelLinearModule,
-                                    device=device, dtype=dtype,
-                                    sync_input_grad=False)
+            sp = _use_sp(config)
+            col = functools.partial(
+                ColumnSequenceParallelLinearModule if sp
+                else ColumnParallelLinearModule, device=device, dtype=dtype,
+                sync_input_grad=False)
+            row = RowSequenceParallelLinearModule if sp \
+                else RowParallelLinearModule
             self.gate_proj, self.up_proj = col(hs, im), col(hs, im)
-            self.down_proj = RowParallelLinearModule(im, hs, device=device,
-                                                     dtype=dtype)
+            self.down_proj = row(im, hs, device=device, dtype=dtype)
         else:
             self.gate_proj = _linear(hs, im, device, dtype)
             self.up_proj = _linear(hs, im, device, dtype)
@@ -553,6 +619,10 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = LlamaRMSNorm(
             config.hidden_size, config.rms_norm_eps, device, dtype)
         self.mlp = LlamaMLP(config, device, dtype)
+        if _use_sp(config):
+            # applied to the rank's sequence rows: a part of the gradient
+            for norm in (self.input_layernorm, self.post_attention_layernorm):
+                mark_as_sequence_parallel_parameter(norm.weight)
 
     def forward(self, x, kv_cache=None, cache_index=None,
                 attn_mask_startend_row_indices=None):
@@ -601,15 +671,29 @@ class LlamaModel(nn.Module):
              for _ in range(config.num_hidden_layers)])
         self.norm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps,
                                  device, dtype)
+        # fixed at construction, with the layers' module classes
+        self.sequence_parallel = _use_sp(config)
+        self.sep_group = _sep_group()
 
     def forward(self, input_ids, kv_caches=None, cache_index=None,
                 attn_mask_startend_row_indices=None):
         se = attn_mask_startend_row_indices
+        sp = self.sequence_parallel
+        if se is not None and sp:
+            raise ValueError(
+                "attn_mask_startend_row_indices is not supported with "
+                "sequence_parallel (the scattered activations would desync "
+                "from the full-sequence mask bands)")
         if se is not None and kv_caches is not None:
             raise ValueError(
                 "attn_mask_startend_row_indices is not supported with "
                 "kv_caches (cached decode applies causal(+window) masks "
                 "only)")
+        if kv_caches is not None and (sp or self.sep_group is not None):
+            raise ValueError(
+                "a KV-cache forward takes whole sequences: build the model "
+                "without sequence_parallel, on a mesh without sep, to "
+                "decode")
         x = self.embed_tokens(input_ids)
         if kv_caches is not None:
             new_caches = []
@@ -617,6 +701,8 @@ class LlamaModel(nn.Module):
                 x, nc = lyr(x, kv_cache=cache, cache_index=cache_index)
                 new_caches.append(nc)
             return self.norm(x), new_caches
+        if sp:
+            x = ScatterOp.apply(x, self.embed_tokens.group)
         gran = self.config.recompute_granularity \
             if self.config.recompute else None
         policy = save_only_names(*QKV_TAGS) \
@@ -630,6 +716,8 @@ class LlamaModel(nn.Module):
                 x = lyr.forward_selective(x, se, policy)
             else:
                 x = lyr(x, attn_mask_startend_row_indices=se)
+        if sp:
+            x = GatherOp.apply(x, self.embed_tokens.group)
         return self.norm(x)
 
 
@@ -717,6 +805,14 @@ class LlamaForCausalLM(nn.Module):
                 "kv_caches (cached decode applies causal(+window) masks "
                 "only — packed multi-document contexts must be decoded as "
                 "separate requests)")
+        fused = labels is not None and self.config.fused_linear_ce
+        if self.llama.sep_group is not None and kv_caches is None \
+                and not fused and torch.is_grad_enabled():
+            raise ValueError(
+                "a model built for a sequence split over sep trains through "
+                "its fused loss (labels, with fused_linear_ce=True): a loss "
+                "on a rank's chunk of the logits is not the sequence's "
+                "(take logits under torch.no_grad())")
         input_ids = torch.as_tensor(input_ids, device=self.device)
         if kv_caches is not None:
             h, new_caches = self.llama(input_ids, kv_caches=kv_caches,
@@ -725,7 +821,7 @@ class LlamaForCausalLM(nn.Module):
         if se is not None:
             se = torch.as_tensor(se, device=self.device)
         h = self.llama(input_ids, attn_mask_startend_row_indices=se)
-        if labels is not None and self.config.fused_linear_ce:
+        if fused:
             # [H, V] (paddle Linear layout); tied: the embedding transposed
             w = (self.lm_head.weight if self.lm_head is not None
                  else self.llama.embed_tokens.weight).t()
@@ -738,7 +834,7 @@ class LlamaForCausalLM(nn.Module):
             return fused_linear_cross_entropy(
                 h, w, torch.as_tensor(labels, device=self.device),
                 n_chunks=self.config.fused_ce_chunks,
-                group=self._vocab_group())
+                group=self._vocab_group(), seq_group=self.llama.sep_group)
         return self._head(h)
 
     def zero3_entry_modules(self):

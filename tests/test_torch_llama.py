@@ -143,10 +143,16 @@ def test_unsupported_arguments_raise():
     _, wnet, _ = make_pair(window=3)
     with pytest.raises(ValueError, match="sliding_window"):
         wnet(ids, attn_mask_startend_row_indices=se)
+    # sequence_parallel is a layout of mp > 1: at mp=1 it builds the
+    # plain model, equal to the one without it
     cfg = LlamaConfig.tiny(vocab=64)
     cfg.recompute, cfg.sequence_parallel = True, True
-    with pytest.raises(NotImplementedError):
-        LlamaForCausalLM(cfg, device="cpu")
+    sp = LlamaForCausalLM(cfg, device="cpu", seed=3)
+    plain = LlamaForCausalLM(dataclasses.replace(cfg, sequence_parallel=False),
+                             device="cpu", seed=3)
+    ids = torch.arange(8).reshape(1, 8) % 64
+    with torch.no_grad():
+        assert torch.equal(sp(ids), plain(ids))
     cfg = LlamaConfig.tiny(vocab=64)
     cfg.recompute, cfg.recompute_granularity = True, "layer"
     with pytest.raises(ValueError, match="recompute_granularity"):

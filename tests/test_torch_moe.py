@@ -223,8 +223,9 @@ def test_decode_mode_with_token_mask_matches_jax(jax_pallas):
 
 def test_fallback_reasons_are_counter_visible():
     """Custom experts leave the kernel path, counted: the forward takes the
-    einsum dispatch (as JAX), decode mode the scatter dispatch; expert
-    parallelism and unknown modes raise."""
+    einsum dispatch (as JAX), decode mode the scatter dispatch; an
+    expert-parallel layer holds its rows of experts and leaves the kernels
+    as "ep-sharded"; unknown modes raise."""
     class Experts(torch.nn.Module):
         def __init__(self):
             super().__init__()
@@ -243,8 +244,23 @@ def test_fallback_reasons_are_counter_visible():
     layer(x, decode_mode=True)
     assert [monitor.counter(n).get() - b for n, b in zip(names, before)] == \
         [1, 1, 1]
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        MoELayer(16, 16, 2, moe_group=object(), device="cpu")
+    # expert parallelism: a moe_group of n ranks leaves this rank E / n
+    # experts (rank 1 of 2: the second of a one-rank layer's, same seed),
+    # marked expert-parallel, and the kernel dispatch falls back, counted
+    # as "ep-sharded"
+    class _Group:
+        nranks, rank = 2, 1
+
+    ep = MoELayer(16, 16, 2, moe_group=_Group(), device="cpu", seed=4)
+    whole = MoELayer(16, 16, 2, device="cpu", seed=4)
+    assert ep.experts.num_local_experts == 1
+    assert torch.equal(ep.experts.w1, whole.experts.w1[1:])
+    assert torch.equal(ep.experts.w2, whole.experts.w2[1:])
+    assert torch.equal(ep.gate_weight, whole.gate_weight)
+    assert ep.experts.w1.expert_parallel and \
+        not whole.experts.w1.expert_parallel
+    assert ep._pallas_fallback_reason() == "ep-sharded"
+    assert whole._pallas_fallback_reason() is None
     with pytest.raises(ValueError, match="dispatch_mode"):
         MoELayer(16, 16, 2, dispatch_mode="cuda", device="cpu")
 

@@ -172,8 +172,11 @@ def test_driver_walks_every_event_and_names_a_failure(mode, vpp):
 def test_planner_graphs_wait_for_their_slices():
     with pytest.raises(NotImplementedError, match="planner"):
         mg.plan_graph(None, None)
-    with pytest.raises(NotImplementedError, match="D3"):
-        mg.ring_graph(4)
+    # the ring-attention graph (the sequence-parallel slice): R x R
+    # forward and backward hops, clean under the lint
+    ring = mg.ring_graph(4)
+    assert ring.n_events() == 2 * 4 * 4
+    assert not check_graph(ring)
     with pytest.raises(NotImplementedError, match="D5"):
         mg.disagg_graph(1, 1, 2)
 

@@ -560,6 +560,82 @@ def cuda_nccl_shared(rank, world, tmp, inputs):
     return dict(value=_np(t))
 
 
+def cuda_ring(rank, world, tmp, inputs):
+    """Two ranks sharing the card (gloo): the ring cases on CUDA chunks."""
+    import torch
+
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.kernels.ring_attention import ring_attention_arrays
+    env.init_parallel_env(store=_store(tmp, world), rank=rank,
+                          world_size=world)
+    mesh = mesh_mod.build_mesh({"sep": world})
+    out = []
+    for case in inputs["ring_cases"]:
+        s = case["q"].shape[2] // world
+        q, k, v, cot = (torch.from_numpy(
+            case[n][:, :, rank * s:(rank + 1) * s].copy()).cuda()
+            for n in ("q", "k", "v", "cot"))
+        for t in (q, k, v):
+            t.requires_grad_()
+        got = ring_attention_arrays(q, k, v, mesh=mesh, causal=case["causal"],
+                                    window=case["window"])
+        (got * cot).sum().backward()
+        out.append(dict(out=_np(got), dq=_np(q.grad), dk=_np(k.grad),
+                        dv=_np(v.grad), on_cuda=got.is_cuda))
+    from paddle_tpu_torch import distributed as dist
+    return dict(ring=out, backend=env.backend(),
+                staged=dist.communication.staged_bytes())
+
+
+def cuda_sp(rank, world, tmp, inputs):
+    """Two ranks sharing the card (gloo), mp=2 with ``sequence_parallel``:
+    a tiny LLaMA's fused loss and merged gradients (the sequence-parallel
+    norms' summed over mp) against rank 0's own mp=1 model from the same
+    seed on the card."""
+    import torch
+
+    from paddle_tpu_torch.distributed import env, fleet
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers \
+        .dygraph_optimizer.hybrid_parallel_optimizer import \
+        sum_sequence_parallel_grads
+    from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+    env.init_parallel_env(store=_store(tmp, world), rank=rank,
+                          world_size=world)
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"mp_degree": 2}
+    fleet.init(is_collective=True, strategy=s)
+    g = fleet.get_hybrid_communicate_group().get_model_parallel_group()
+    cfg = LlamaConfig.tiny(vocab=256, hidden=256, layers=2, heads=4)
+    cfg.fused_linear_ce, cfg.fused_ce_chunks = True, 2
+    cfg.sequence_parallel = True
+    ids = torch.randint(0, 256, (2, 64), generator=torch.Generator()
+                        .manual_seed(5)).cuda()
+    net = LlamaForCausalLM(cfg, seed=2)
+    loss = net(ids, labels=ids)
+    loss.backward()
+    sum_sequence_parallel_grads([(p, p.grad) for p in net.parameters()], g)
+    grads = _merged_grads(net, g)
+    out = dict(loss=float(loss), backend=env.backend())
+    if rank == 0:
+        saved = mesh_mod.get_mesh()
+        mesh_mod.set_mesh(None)
+        try:
+            ref = LlamaForCausalLM(cfg, seed=2)
+        finally:
+            mesh_mod.set_mesh(saved)
+        want = ref(ids, labels=ids)
+        want.backward()
+        out["want_loss"] = float(want)
+        out["ratios"] = {}
+        for n, p in ref.named_parameters():
+            r = p.grad.detach().float().cpu().numpy()
+            tol = 1e-4 * max(1.0, float(np.abs(r).max()))
+            out["ratios"][n] = float(np.abs(grads[n] - r).max()) / tol
+    return out
+
+
 # -- the pipeline worlds (test_torch_pipeline_ranks.py) ---------------------
 
 PIPE_M, PIPE_LR, PIPE_CLIP, PIPE_STEPS = 4, 0.1, 1.0, 2
@@ -802,6 +878,399 @@ def _sep_drift(rank, inputs):
                 params={n: _np(p) for n, p in net.named_parameters()})
 
 
+def _ring_cases(inputs, degree):
+    """Each ring case of ``inputs["ring_cases"]`` on this rank's chunk
+    (sep=``degree``): the output and the q / k / v gradients of
+    sum(out * cot), chunks."""
+    import torch
+
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.kernels.ring_attention import ring_attention_arrays
+    mesh = mesh_mod.build_mesh({"sep": degree},
+                               world_size=mesh_mod.ensure_mesh().ranks.size)
+    r = mesh.group("sep").rank
+    out = []
+    for case in inputs["ring_cases"]:
+        s = case["q"].shape[2] // degree
+        q, k, v, cot = (torch.from_numpy(case[n][:, :, r * s:(r + 1) * s]
+                                         .copy())
+                        for n in ("q", "k", "v", "cot"))
+        for t in (q, k, v):
+            t.requires_grad_()
+        got = ring_attention_arrays(q, k, v, mesh=mesh, causal=case["causal"],
+                                    window=case["window"])
+        (got * cot).sum().backward()
+        out.append(dict(out=_np(got), dq=_np(q.grad), dk=_np(k.grad),
+                        dv=_np(v.grad), rank=r))
+    return out
+
+
+def ring_world(rank, world, tmp, inputs):
+    _join(rank, world, tmp)
+    return dict(ring=_ring_cases(inputs, world))
+
+
+def _llama_net(inputs, key="llama", mp_rank=0, mp=1, **cfg):
+    import dataclasses
+
+    from paddle_tpu_torch.bridge import llama_state_from_numpy
+    from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+    c = dataclasses.replace(LlamaConfig(**inputs[f"{key}_cfg"]), **cfg)
+    net = LlamaForCausalLM(c, device="cpu")
+    net.load_state_dict(llama_state_from_numpy(inputs[f"{key}_params"],
+                                               mp_rank, mp))
+    return net
+
+
+def _merged_grads(net, group):
+    """{name: the global gradient}: the mp ranks' shards merged."""
+    from paddle_tpu_torch.bridge import tp_merge
+    from paddle_tpu_torch.distributed.communication import collectives as C
+    out = {}
+    for n, p in net.named_parameters():
+        parts = C.all_gather(None, p.grad.contiguous(), group=group)
+        out[n] = _np(tp_merge(parts, "llama", n))
+    return out
+
+
+def _sp_layers(rank, inputs):
+    """The sequence-parallel linears (surface Layers, mp=2) on the JAX
+    weights: scatter -> column -> row -> gather, gradients of
+    sum(out * cot); and the scatter / gather round trip."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.fleet.utils.sequence_parallel_utils \
+        import (ColumnSequenceParallelLinear, GatherOp, ReduceScatterOp,
+                RowSequenceParallelLinear, ScatterOp)
+    t = inputs["sp"]
+    col = ColumnSequenceParallelLinear(16, 32, has_bias=True)
+    row = RowSequenceParallelLinear(32, 16, has_bias=True)
+    with torch.no_grad():
+        col.weight._data.copy_(torch.from_numpy(
+            t["w1"][:, rank * 16:(rank + 1) * 16]))
+        col.bias._data.copy_(torch.from_numpy(t["b1"][rank * 16:
+                                                      (rank + 1) * 16]))
+        row.weight._data.copy_(torch.from_numpy(
+            t["w2"][rank * 16:(rank + 1) * 16]))
+        row.bias._data.copy_(torch.from_numpy(t["b2"]))
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers \
+        .dygraph_optimizer.hybrid_parallel_optimizer import \
+        sum_sequence_parallel_grads
+    x = paddle.to_tensor(t["x"], stop_gradient=False)
+    out = GatherOp.apply(row(col(ScatterOp.apply(x))))
+    (out * paddle.to_tensor(t["cot"])).sum().backward()
+    # the bias, a sequence-parallel parameter, holds its rows' part: the
+    # step's (the optimizer's) sum over mp
+    sum_sequence_parallel_grads(
+        [(row.bias, row.bias._data.grad)],
+        fleet.get_hybrid_communicate_group().get_model_parallel_group())
+    res = dict(out=_np(out), dx=_np(x.grad), dw1=_np(col.weight.grad),
+               db1=_np(col.bias.grad), dw2=_np(row.weight.grad),
+               db2=_np(row.bias.grad),
+               bias_marked=bool(getattr(row.bias, "sequence_parallel",
+                                        False)))
+    y = torch.arange(64, dtype=torch.float32).reshape(2, 8, 4)
+    half = ScatterOp.apply(y)
+    res["round_trip"] = _np(GatherOp.apply(half))
+    res["scattered"] = _np(half)
+    res["reduce_scattered"] = _np(ReduceScatterOp.apply(y))
+    return res
+
+
+def _llama_sp(rank, inputs):
+    """LLaMA with ``sequence_parallel`` at mp=2: the fused loss and every
+    gradient (merged), the sequence-parallel norms' summed over mp (as the
+    step sums them)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers \
+        .dygraph_optimizer.hybrid_parallel_optimizer import \
+        sum_sequence_parallel_grads
+    from paddle_tpu_torch.distributed.fleet.utils.sequence_parallel_utils \
+        import ColumnSequenceParallelLinearModule
+    from paddle_tpu_torch.distributed.fleet.utils.sequence_parallel_utils \
+        import register_sequence_parallel_allreduce_hooks
+    g = fleet.get_hybrid_communicate_group().get_model_parallel_group()
+    net = _llama_net(inputs, mp_rank=rank, mp=2, sequence_parallel=True)
+    # the hooks register nothing: the step's sum is the only one (once,
+    # not twice)
+    register_sequence_parallel_allreduce_hooks(net)
+    ids = torch.from_numpy(inputs["batch"])
+    loss = net(ids, labels=ids)
+    loss.backward()
+    sum_sequence_parallel_grads([(p, p.grad) for p in net.parameters()], g)
+    sp_types = isinstance(net.llama.layers[0].self_attn.q_proj,
+                          ColumnSequenceParallelLinearModule)
+    return dict(loss=float(loss), grads=_merged_grads(net, g),
+                sp_modules=sp_types)
+
+
+def _llama_steps(rank, inputs, wrap="step", key="llama", labels="batch"):
+    """STEPS AdamW steps of the LLaMA on the global batch: through
+    ``DistributedTrainStep`` ("step": it splits the batch and the
+    sequence) or eagerly through ``fleet.distributed_model`` (the
+    wrapper splits) and ``distributed_optimizer`` ("eager"); the labels
+    are ``inputs[labels]``."""
+    import torch
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.parallel_step import \
+        DistributedTrainStep
+    hcg = fleet.get_hybrid_communicate_group()
+    mp = hcg.get_model_parallel_world_size()
+    net = _llama_net(inputs, key, mp_rank=hcg.get_model_parallel_rank(),
+                     mp=mp)
+    model = fleet.distributed_model(net)
+    opt = fleet.distributed_optimizer(
+        optimizer.AdamW(LR, parameters=net.parameters()))
+    ids = torch.from_numpy(inputs["batch"])
+    lab = torch.from_numpy(inputs[labels])
+    losses = []
+    if wrap == "step":
+        step = DistributedTrainStep(model, lambda out, lab: out, opt)
+        losses = [float(step((ids, lab), lab)) for _ in range(STEPS)]
+    else:
+        for _ in range(STEPS):
+            loss = model(ids, labels=lab)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss.detach()))
+    return dict(losses=losses, wrapper=type(model).__name__)
+
+
+def _sep_refusals():
+    """On the current sep=2 mesh, what must raise rather than attend
+    within a rank's chunk: {case: "<exception type>: <message>", or None
+    when nothing was raised}; and a LLaMA built on the mesh, which takes
+    the ring (its logits under no_grad)."""
+    import torch
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        PipelineLayer, PipelineParallel, SegmentParallel)
+    from paddle_tpu_torch.distributed.parallel_step import \
+        DistributedTrainStep
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.text.models import (BertConfig, BertModel,
+                                              LlamaConfig, LlamaForCausalLM)
+    hcg = fleet.get_hybrid_communicate_group()
+    cfg = LlamaConfig.tiny(vocab=64)
+    saved = mesh_mod.get_mesh()
+    mesh_mod.set_mesh(None)
+    try:
+        whole = LlamaForCausalLM(cfg, device="cpu")
+        bert = BertModel(BertConfig.tiny(), device="cpu")
+    finally:
+        mesh_mod.set_mesh(saved)
+    split = LlamaForCausalLM(cfg, device="cpu")
+    ids = torch.zeros((1, 4), dtype=torch.int64)
+    cache = [(torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 4, 16))] * 2
+    cases = {
+        "pipeline": lambda: PipelineParallel(
+            PipelineLayer([torch.nn.Linear(4, 4)], num_stages=1)),
+        "moe": lambda: MoELayer(16, 16, 2, device="cpu"),
+        "segment_whole_llama": lambda: SegmentParallel(whole, hcg),
+        "segment_bert": lambda: SegmentParallel(bert, hcg),
+        "step_whole_llama": lambda: DistributedTrainStep(
+            whole, lambda out, lab: out,
+            optimizer.AdamW(LR, parameters=whole.parameters())),
+        "kv_cache": lambda: split(ids, kv_caches=cache, cache_index=0),
+        "chunk_logits": lambda: split(ids),
+    }
+    out = {}
+    for name, fn in cases.items():
+        try:
+            fn()
+            out[name] = None
+        except (ValueError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
+    with torch.no_grad():
+        out["logits_shape"] = tuple(split(ids).shape)
+    out["takes_ring"] = all(
+        m.self_attn.sep_group is not None for m in split.llama.layers)
+    return out
+
+
 def sep_world2(rank, world, tmp, inputs):
     _join(rank, world, tmp)
-    return dict(drift=_sep_drift(rank, inputs))
+    out = dict(drift=_sep_drift(rank, inputs))
+    out["steps"] = {name: _llama_steps(rank, inputs, *run)
+                    for name, run in inputs["sep_runs"].items()}
+    out["refusals"] = _sep_refusals()
+    _fleet_degrees(mp=2)
+    out["sp_layers"] = _sp_layers(rank, inputs)
+    out["llama_sp"] = _llama_sp(rank, inputs)
+    return out
+
+
+def sep_world4(rank, world, tmp, inputs):
+    """sep=2 x mp=2: the LLaMA's steps through DistributedTrainStep."""
+    _join(rank, world, tmp)
+    hcg = _fleet_degrees(sep=2, mp=2).get_hybrid_communicate_group()
+    out = dict(coord=(hcg.get_sep_parallel_rank(),
+                      hcg.get_model_parallel_rank()))
+    out["steps"] = {name: _llama_steps(rank, inputs, *run)
+                    for name, run in inputs["sep_runs"].items()}
+    return out
+
+
+# -- the expert-parallel worlds (test_torch_moe_ep.py) ---------------------
+
+def _moe_layer(inputs, case, device="cpu"):
+    import torch
+
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.bridge import ep_shard
+    mode, gname, top_k, cf, gs = case
+    layer = MoELayer(d_model=inputs["moe_h"], d_hidden=inputs["moe_dff"],
+                     num_experts=inputs["moe_e"], gate=gname, top_k=top_k,
+                     capacity_factor=cf, group_size=gs, dispatch_mode=mode,
+                     device=device)
+    ep = layer.experts
+    layer.load_state_dict({
+        k: torch.tensor(ep_shard(v, k, ep.ep_rank, ep.ep_degree))
+        for k, v in inputs["moe_params"].items()})
+    return layer.eval()
+
+
+def _moe_layer_grads(rank, inputs, name):
+    """One MoE layer case at this world's dp x ep: the output rows, l_aux
+    and the gradients of D * sum(out * cot) + l_aux on this data rank's
+    rows (so that the data group's mean is the whole batch's loss),
+    parameter gradients averaged over the data group as a step does."""
+    import torch
+
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.communication import collectives as C
+    hcg = fleet.get_hybrid_communicate_group()
+    data = hcg.get_dp_sharding_group()
+    layer = _moe_layer(inputs, inputs["moe_cases"][name])
+    x_all, cot_all = inputs["moe_x"], inputs["moe_cot"]
+    k = x_all.shape[0] // data.nranks
+    rows = slice(data.rank * k, (data.rank + 1) * k)
+    x = torch.from_numpy(x_all[rows].copy()).requires_grad_()
+    monitor.reset()
+    out = layer(x)
+    loss = data.nranks * (out * torch.from_numpy(cot_all[rows])).sum() \
+        + layer.l_aux
+    loss.backward()
+    grads = {"gate_weight": layer.gate_weight.grad}
+    for n in ("w1", "b1", "w2", "b2"):
+        grads[n] = getattr(layer.experts, n).grad
+    for g in grads.values():
+        C.all_reduce(g, op=C.ReduceOp.AVG, group=data)
+    return dict(out=_np(out), l_aux=float(layer.l_aux), x_grad=_np(x.grad),
+                grads={n: _np(g) for n, g in grads.items()},
+                ep_rank=layer.experts.ep_rank, dp_rank=data.rank,
+                local_experts=layer.experts.num_local_experts,
+                counters={c: v for c, v in monitor.counters().items()
+                          if c.startswith("kernels.moe.dispatch_path")})
+
+
+def _moe_net_steps(rank, inputs):
+    """dryrun phase 3's MoENet (MoE + Linear head, CE + 0.01 l_aux) for
+    STEPS AdamW steps through DistributedTrainStep."""
+    import torch
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.parallel_step import \
+        DistributedTrainStep
+    from paddle_tpu_torch.nn._modules import CrossEntropyLoss
+
+    class MoENet(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.moe = _moe_layer(inputs, inputs["moe_cases"]["einsum"])
+            self.head = torch.nn.Linear(inputs["moe_h"], 8)
+
+        def forward(self, x):
+            return self.head(self.moe(x))
+
+    net = MoENet().train()
+    with torch.no_grad():
+        net.head.weight.copy_(torch.from_numpy(inputs["head_w"].T))
+        net.head.bias.copy_(torch.from_numpy(inputs["head_b"]))
+    ce = CrossEntropyLoss()
+
+    def loss_fn(out, lab):
+        return ce(out.reshape(-1, 8), lab.reshape(-1)) + 0.01 * net.moe.l_aux
+
+    opt = fleet.distributed_optimizer(
+        optimizer.AdamW(LR, parameters=net.parameters()))
+    step = DistributedTrainStep(fleet.distributed_model(net), loss_fn, opt)
+    x = torch.from_numpy(inputs["net_x"])
+    y = torch.from_numpy(inputs["net_y"])
+    return dict(losses=[float(step((x,), y)) for _ in range(STEPS)])
+
+
+def _ernie_ep(rank, inputs):
+    """The tiny ERNIE-MoE at ep=2: CE + aux, its loss, aux and every
+    gradient (the experts' merged over ep)."""
+    import dataclasses
+
+    import torch
+
+    from paddle_tpu_torch.bridge import ep_merge, ernie_moe_state_from_numpy
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.communication import collectives as C
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.text.models import (ErnieMoEConfig,
+                                              ErnieMoEForCausalLM)
+    hcg = fleet.get_hybrid_communicate_group()
+    ep = hcg.get_expert_parallel_group()
+    cfg = ErnieMoEConfig(**inputs["ernie_cfg"])
+    net = ErnieMoEForCausalLM(cfg, device="cpu").eval()
+    net.load_state_dict(ernie_moe_state_from_numpy(
+        inputs["ernie_params"], ep_rank=ep.rank, ep_degree=ep.nranks))
+    ids = torch.from_numpy(inputs["ernie_ids"])
+    logits = net(ids)
+    aux = net.aux_loss()
+    loss = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                           ids.reshape(-1)) + aux
+    loss.backward()
+    grads = {}
+    for n, p in net.named_parameters():
+        parts = C.all_gather(None, p.grad.contiguous(), group=ep)
+        grads[n] = _np(ep_merge(parts, n))
+    # a one-rank model from the same seed equals the ep model's weights
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    saved = mesh_mod.get_mesh()
+    mesh_mod.set_mesh(None)
+    try:
+        whole = ErnieMoEForCausalLM(cfg, device="cpu", seed=3)
+    finally:
+        mesh_mod.set_mesh(saved)
+    mine = ErnieMoEForCausalLM(cfg, device="cpu", seed=3)
+    seeded = all(
+        torch.equal(ep_merge(C.all_gather(None, p.detach().contiguous(),
+                                          group=ep), n), w)
+        for (n, p), (_, w) in zip(mine.named_parameters(),
+                                  whole.named_parameters()))
+    return dict(loss=float(loss), aux=float(aux), logits=_np(logits),
+                grads=grads, seeded_equal=seeded,
+                expert_bytes=sum(p.numel() for n, p in net.named_parameters()
+                                 if ".experts." in n))
+
+
+def moe_world(rank, world, tmp, inputs):
+    _join(rank, world, tmp)
+    ep = inputs["moe_ep"]
+    fleet = _fleet_degrees(ep=ep, dp=world // ep)
+    hcg = fleet.get_hybrid_communicate_group()
+    out = dict(ep=hcg.get_expert_parallel_world_size(),
+               dp=hcg.get_data_parallel_world_size())
+    out["layer"] = {name: _moe_layer_grads(rank, inputs, name)
+                    for name in inputs["moe_cases"]}
+    out["net"] = _moe_net_steps(rank, inputs)
+    if world == ep:
+        out["ernie"] = _ernie_ep(rank, inputs)
+    return out
