@@ -11,6 +11,9 @@ NVIDIA GPU.
     python3 chip_smoke.py --sep-fault    # phase 30's f32 gates against
                                          # planted sequence / expert
                                          # parallelism faults, one a run
+    python3 chip_smoke.py --disagg-fault # phase 31 (a)'s token gate
+                                         # against a migration that skips
+                                         # a page
 
 Every phase is fatal (any failure exits non-zero and prints no result):
 
@@ -624,7 +627,29 @@ Every phase is fatal (any failure exits non-zero and prints no result):
    gate. ``--sep-fault`` plants three faults, each in its own run: the
    ring's keys at the wrong source offset ((a) must fail), the
    sequence-parallel norms' gradients not summed over mp ((c)), the ep
-   all-gather's backward summing where it should slice ((d)).
+   all-gather's backward summing where it should slice ((d));
+31. disaggregated and fleet serving of phase 20's LLaMA (LLaMA-7B
+   widths x 4 layers, f32, one set of seeded weights) on phase 20's
+   replay geometry (8 slots, 16-token pages, 128 pages, a 64-token
+   bucket): (a) ``inference.DisaggEngine``, one prefill worker and two
+   decode workers at multi_tick 8 with the prefix cache, 8 requests
+   (prompts 64-127, half seeded sampling, two sharing a 32-token prefix,
+   64 new tokens), decode worker 1 killed two steps after the first
+   migrations: every stream equal to the single-loop Engine's, no page
+   leaked, a migration a request at least, the kill's requests
+   re-admitted, every decode tick on the split paged-decode kernel, no
+   flash launch (the Engine's prefill attends through the paged gather),
+   no kernel build and one graph capture a k bucket a decode worker; the
+   migration's gather and scatter timed with CUDA events; (b)
+   ``inference.ServingFleet``, two replicas behind the session router,
+   8 requests in two sessions of four sharing a 32-token system prompt,
+   a live greedy and a live sampled request migrated, replica 1 killed
+   mid-decode: every stream the single-loop Engine's, no page leaked,
+   warm routes; (c) the replay tool's ``--disagg --prefill-workers 1
+   --decode-workers 2 --kill-worker decode:1:20 --expect-pallas`` on
+   phase 20 (a)'s trace, its tokens phase 20 (a)'s plain run's.
+   ``--disagg-fault`` runs (a) with every migration's scatter skipping
+   the request's last page: its token gate must fail.
 
 It prints the card line, a {"kernels": [...]} line (the tensor-core
 forward, dQ and dK/dV as ``flash_fwd`` / ``flash_bwd_dq`` /
@@ -3592,6 +3617,8 @@ def replay_main_path(torch, mods, launches_of, reset_counts, card):
               f"{rep['failed']}, launches {rep['launches']} "
               f"({rep['process_s']:.1f} s of process) on {card}", flush=True)
     out["migration"] = migration
+    # phase 31 (c) holds its disaggregated replay to these tokens
+    out["plain"]["tokens"] = runs["plain"]["tokens"]
     print(f"replay migration: {MIGRATE_REQUESTS} requests, moved greedy "
           f"{migration['moved_greedy']} and sampled "
           f"{migration['moved_sampled']} after step {MIGRATE_AT}: every "
@@ -10526,6 +10553,415 @@ def sep_fault_main():
         fail(f"sep fault: a gate passed the planted fault(s) {missed}")
 
 
+# -- phase 31: disaggregated and fleet serving -------------------------------
+
+#: phase 31's engines: phase 20's replay geometry (8 slots, 16-token pages,
+#: 128 pages a pool, a 64-token bucket, f32 pool) over phase 20's LLaMA
+DISAGG_ENGINE = dict(max_slots=8, page_size=16, pool_pages=128,
+                     prefill_bucket=64, max_context=256)
+#: (a): 8 requests of REPLAY_PROMPT tokens (phase 20 (d)'s generator),
+#: alternately greedy and seeded sampling (temperature 0.8, top-k 50),
+#: DISAGG_NEW new tokens; requests 0 and 1 open with one
+#: DISAGG_PREFIX-token prefix; decode worker 1 dies DISAGG_KILL_AFTER
+#: driver steps after the first migrations
+DISAGG_REQUESTS, DISAGG_NEW, DISAGG_PREFIX, DISAGG_KILL_AFTER = 8, 64, 32, 2
+#: (b): 8 requests in two sessions of four, each opening with its own
+#: FLEET_SYSTEM-token system prompt, one arriving a step; after
+#: FLEET_MIGRATE_AT steps a live greedy and a live sampled request
+#: migrate, after FLEET_KILL_AT replica 1 dies
+FLEET_SYSTEM, FLEET_MIGRATE_AT, FLEET_KILL_AT = 32, 10, 14
+#: (c)'s kill: decode worker 1 at this replay step
+DISAGG_REPLAY_KILL_STEP = 20
+
+
+def _disagg_requests(mods, vocab):
+    import numpy as np
+    rng = np.random.default_rng(21)
+    prefix = rng.integers(0, vocab, (DISAGG_PREFIX,))
+    reqs = []
+    for i in range(DISAGG_REQUESTS):
+        n = int(rng.integers(REPLAY_PROMPT[0], REPLAY_PROMPT[1] + 1))
+        p = rng.integers(0, vocab, (n,))
+        if i < 2:
+            p[:DISAGG_PREFIX] = prefix
+        sampled = i % 2 == 1
+        reqs.append((p.astype(np.int64), mods.SamplingParams(
+            max_new_tokens=DISAGG_NEW, temperature=0.8 if sampled else 0.0,
+            top_k=50 if sampled else 0, seed=300 + i)))
+    return reqs
+
+
+def _fleet_requests(mods, vocab):
+    import numpy as np
+    rng = np.random.default_rng(31)
+    systems = [rng.integers(0, vocab, (FLEET_SYSTEM,)) for _ in range(2)]
+    reqs = []
+    for i in range(DISAGG_REQUESTS):
+        n = int(rng.integers(REPLAY_PROMPT[0], REPLAY_PROMPT[1] + 1))
+        p = np.concatenate([systems[i % 2],
+                            rng.integers(0, vocab, (n - FLEET_SYSTEM,))])
+        sampled = i % 4 in (1, 2)
+        reqs.append((p.astype(np.int64), mods.SamplingParams(
+            max_new_tokens=DISAGG_NEW, temperature=0.8 if sampled else 0.0,
+            top_k=50 if sampled else 0, seed=400 + i)))
+    return reqs
+
+
+def _reference_tokens(mods, model, reqs):
+    eng = mods.Engine(model, **DISAGG_ENGINE)
+    return {o.req_id: o.token_ids for o in eng.run(reqs)}
+
+
+def _plant_disagg_fault():
+    """``--disagg-fault``: every migration's scatter skips the request's
+    last page (its row index sent to the scratch page), so the decode
+    worker attends stale KV there."""
+    from paddle_tpu_torch.inference import disagg
+    scatter = disagg.DecodeWorker._scatter
+
+    def skipping(self, block, idx):
+        idx = idx.clone()
+        idx[int((idx > 0).sum()) - 1] = 0
+        return scatter(self, block, idx)
+    disagg.DecodeWorker._scatter = skipping
+
+
+def _disagg_serve(torch, mods, model, launches_of, reset_counts, card):
+    """Phase 31 (a): the DisaggEngine (one prefill worker, two decode
+    workers at multi_tick 8, the prefix cache on) serving the 8 requests,
+    decode worker 1 killed DISAGG_KILL_AFTER steps after the first
+    migrations; its gather and scatter timed with CUDA events. Returns the
+    record (``mismatched`` lists the requests whose tokens differ from the
+    single-loop Engine's; the caller gates it)."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.inference import DisaggEngine, disagg
+    reqs = _disagg_requests(mods, model.config.vocab_size)
+    ref = _reference_tokens(mods, model, reqs)
+    free_cuda(torch)
+    ev = {"gather": [], "scatter": []}
+    gather, scatter = DisaggEngine._gather, disagg.DecodeWorker._scatter
+
+    def timed(kind, fn):
+        def run(self, *a):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(self, *a)
+            end.record()
+            ev[kind].append((start, end))
+            return out
+        return run
+    DisaggEngine._gather = timed("gather", gather)
+    disagg.DecodeWorker._scatter = timed("scatter", scatter)
+    migrate_s = [0.0]
+    migrate = DisaggEngine._migrate
+
+    def migrate_timed(self):
+        t = time.perf_counter()
+        migrate(self)
+        migrate_s[0] += time.perf_counter() - t
+    DisaggEngine._migrate = migrate_timed
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = DisaggEngine(model, prefill_workers=1, decode_workers=2,
+                           prefix_cache=True, multi_tick=8, **DISAGG_ENGINE)
+        for p, sp in reqs:
+            eng.add_request(p, sp)
+        done, steps, first_mig, displaced = {}, 0, None, None
+        captured_dead = 0
+        while not eng.idle:
+            done.update({o.req_id: o for o in eng.step()})
+            steps += 1
+            mig = monitor.counter("serving.disagg.migrations").get()
+            if first_mig is None and mig:
+                first_mig = steps
+            if displaced is None and first_mig is not None \
+                    and steps == first_mig + DISAGG_KILL_AFTER:
+                captured_dead = len(eng.decode[1]._multi.captured)
+                displaced = eng.kill_worker("decode", 1)
+            if steps > 5000:
+                fail("phase 31 (a): the disaggregated engine did not drain")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        DisaggEngine._gather, disagg.DecodeWorker._scatter = gather, scatter
+        DisaggEngine._migrate = migrate
+    launches = launches_of()
+    counters = monitor.counters()
+    got = {rid: o.token_ids for rid, o in done.items()}
+    mismatched = sorted(r for r in ref if got.get(r) != ref[r])
+    leaked = eng.leaked_pages()
+    findings = eng.check_invariants()
+    captured = {f"decode{i}": w._multi.captured
+                for i, w in enumerate(eng.decode) if w is not None}
+    gms = [s.elapsed_time(e) for s, e in ev["gather"]]
+    sms = [s.elapsed_time(e) for s, e in ev["scatter"]]
+    cfg = model.config
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    page_bytes = (cfg.num_hidden_layers * 2 * cfg.num_key_value_heads *
+                  eng.page_size * hd * 4)
+    n_tok = sum(len(t) for t in got.values())
+    rec = dict(
+        requests=len(reqs), steps=steps, wall_s=wall,
+        tokens=n_tok, tokens_per_s=n_tok / wall, mismatched=mismatched,
+        failed=[rid for rid, o in done.items() if not o.ok],
+        leaked_pages=leaked, invariant_findings=findings,
+        migrations=counters.get("serving.disagg.migrations", 0),
+        migrated_pages=counters.get("serving.migrated_pages", 0),
+        migrated_bytes=counters.get("serving.migrated_pages", 0)
+        * page_bytes,
+        moved_block_bytes=len(sms) * eng.max_blocks * page_bytes,
+        readmitted=counters.get("serving.disagg.readmitted", 0),
+        displaced=displaced, killed_at_step=(first_mig or 0)
+        + DISAGG_KILL_AFTER, first_migration_step=first_mig,
+        gather_ms=gms, scatter_ms=sms,
+        gather_ms_a_request=sum(gms) / max(len(gms), 1),
+        scatter_ms_a_request=sum(sms) / max(len(sms), 1),
+        gather_share=sum(gms) / 1e3 / wall,
+        scatter_share=sum(sms) / 1e3 / wall,
+        migrate_step_share=migrate_s[0] / wall,
+        graph_captures=counters.get("cuda.graph_captures", 0),
+        captured=captured, captured_by_dead_worker=captured_dead,
+        kernel_builds=counters.get("kernels.builds", 0),
+        prefix_hit_rate=eng.prefix_hit_rate,
+        utilization=eng.utilization(), launches=launches,
+        counters={k: v for k, v in counters.items()
+                  if k.startswith(("kernels.", "serving.disagg.",
+                                   "serving.multi_tick.dispatches"))},
+        card=card)
+    del eng
+    free_cuda(torch)
+    return rec
+
+
+def _disagg_gates(rec):
+    """(a)'s gates beside its tokens: every request finished, no leak, at
+    least one migration a request, the kill's displaced requests
+    re-admitted (no decode preemption happens at this size), every decode
+    tick on the split kernel, no flash launch outside a prefill (the
+    Engine's prefill attends through the paged gather: none at all), no
+    kernel build, and no graph capture beyond one a k bucket a decode
+    worker."""
+    c, l = rec["counters"], rec["launches"]
+    if rec["failed"] or len(rec["mismatched"]) or rec["tokens"] != \
+            DISAGG_REQUESTS * DISAGG_NEW:
+        fail(f"phase 31 (a): failed {rec['failed']}, tokens differ from "
+             f"the single-loop Engine's for {rec['mismatched']}")
+    if rec["leaked_pages"] or rec["invariant_findings"]:
+        fail(f"phase 31 (a): {rec['leaked_pages']} pages leaked, findings "
+             f"{rec['invariant_findings']}")
+    if rec["migrations"] < DISAGG_REQUESTS or not rec["displaced"] or \
+            rec["readmitted"] != rec["displaced"]:
+        fail(f"phase 31 (a): {rec['migrations']} migrations, "
+             f"{rec['readmitted']} re-admitted for {rec['displaced']} "
+             f"displaced by the kill")
+    rec["paged_decode_routes"] = check_paged_split(
+        c, l["paged_decode"], "phase 31 (a)")
+    if not l["paged_decode"] or c.get("kernels.decode.paged_plain"):
+        fail(f"phase 31 (a): paged decode launches {l['paged_decode']}, "
+             f"counters {c}")
+    if l["flash_fwd"]:
+        fail(f"phase 31 (a): {l['flash_fwd']} flash forward launches; the "
+             f"engine's prefill and decode attend through the paged pools")
+    n_graphs = sum(len(v) for v in rec["captured"].values()) + \
+        rec["captured_by_dead_worker"]
+    if rec["kernel_builds"] or rec["graph_captures"] != n_graphs or \
+            not c.get("serving.multi_tick.dispatches"):
+        fail(f"phase 31 (a): {rec['kernel_builds']} kernel builds, "
+             f"{rec['graph_captures']} graph captures for {n_graphs} k "
+             f"buckets {rec['captured']}, multi-tick dispatches "
+             f"{c.get('serving.multi_tick.dispatches')}")
+
+
+def _fleet_serve(torch, mods, model, launches_of, reset_counts, card):
+    """Phase 31 (b): a two-replica ServingFleet behind the session router
+    serving the two sessions' requests (one arriving a step), a live
+    greedy and a live sampled request migrated, then replica 1 killed
+    mid-decode; every stream against the single-loop Engine's."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.inference import ServingFleet
+    reqs = _fleet_requests(mods, model.config.vocab_size)
+    ref = _reference_tokens(mods, model, reqs)
+    free_cuda(torch)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fleet = ServingFleet(model, replicas=2, router="session",
+                         **DISAGG_ENGINE)
+    done, moved, killed, steps, i = {}, [], None, 0, 0
+    while i < len(reqs) or not fleet.idle:
+        if i < len(reqs):
+            fleet.add_request(*reqs[i])
+            i += 1
+        done.update({o.req_id: o for o in fleet.step()})
+        steps += 1
+        if steps == FLEET_MIGRATE_AT:
+            for sampled in (False, True):
+                rid = next(r for r, q in sorted(fleet.requests.items())
+                           if q.generated and r not in moved
+                           and (q.params.temperature > 0) == sampled)
+                if not fleet.migrate_request(rid):
+                    fail(f"phase 31 (b): request {rid} did not migrate")
+                moved.append(rid)
+        if steps == FLEET_KILL_AT:
+            killed = fleet.kill_replica(1)
+        if steps > 5000:
+            fail("phase 31 (b): the fleet did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launches_of()
+    counters = monitor.counters()
+    got = {rid: o.token_ids for rid, o in done.items()}
+    mismatched = sorted(r for r in ref if got.get(r) != ref[r])
+    n_tok = sum(len(t) for t in got.values())
+    rec = dict(requests=len(reqs), steps=steps, wall_s=wall, tokens=n_tok,
+               tokens_per_s=n_tok / wall, mismatched=mismatched,
+               failed=[rid for rid, o in done.items() if not o.ok],
+               migrated=moved, killed_readmitted=killed,
+               leaked_pages=fleet.leaked_pages(),
+               invariant_findings=fleet.check_invariants(),
+               prefix_hit_rate=fleet.prefix_hit_rate,
+               routed_warm=counters.get("serving.fleet.routed_warm", 0),
+               routed_cold=counters.get("serving.fleet.routed_cold", 0),
+               replicas=fleet.utilization(), launches=launches,
+               counters={k: v for k, v in counters.items()
+                         if k.startswith(("kernels.", "serving.fleet."))},
+               card=card)
+    if rec["failed"] or mismatched or rec["leaked_pages"] or \
+            rec["invariant_findings"] or not rec["routed_warm"] or \
+            not killed:
+        fail(f"phase 31 (b): failed {rec['failed']}, tokens differ for "
+             f"{mismatched}, {rec['leaked_pages']} pages leaked, findings "
+             f"{rec['invariant_findings']}, routed warm "
+             f"{rec['routed_warm']}, {killed} re-admitted by the kill")
+    rec["paged_decode_routes"] = check_paged_split(
+        counters, launches["paged_decode"], "phase 31 (b)")
+    del fleet
+    free_cuda(torch)
+    return rec
+
+
+def disagg_main_path(torch, mods, launches_of, reset_counts, card, replay):
+    """Phase 31: disaggregated and fleet serving of phase 20's LLaMA
+    (LLaMA-7B widths x 4 layers, one set of seeded weights for every
+    engine) on phase 20's replay geometry: (a) ``_disagg_serve`` and its
+    gates; (b) ``_fleet_serve``; (c) the replay tool with ``--disagg
+    --prefill-workers 1 --decode-workers 2 --kill-worker decode:1:<step>
+    --expect-pallas`` on phase 20 (a)'s trace, its tokens phase 20 (a)'s
+    plain run's. Counts are set to 0 before each served run and read
+    after it; (c)'s come back in its report."""
+    t_phase = time.perf_counter()
+    free_cuda(torch)
+    cfg = mods.LlamaConfig.tiny(vocab=32000, hidden=4096, layers=4,
+                                heads=32)
+    model = mods.LlamaForCausalLM(cfg, seed=0)
+    model.eval()
+    a = _disagg_serve(torch, mods, model, launches_of, reset_counts, card)
+    _disagg_gates(a)
+    print(f"phase 31 (a): DisaggEngine 1 prefill + 2 decode workers "
+          f"(multi_tick 8) at LLaMA-7B widths x 4 layers f32: "
+          f"{a['requests']} requests, {a['tokens']} tokens in "
+          f"{a['wall_s']:.2f} s = {a['tokens_per_s']:.1f} tok/s, equal to "
+          f"the single-loop Engine's; decode1 killed at step "
+          f"{a['killed_at_step']} ({a['displaced']} re-admitted); "
+          f"{a['migrations']} migrations, {a['migrated_pages']} pages "
+          f"({a['migrated_bytes'] / 1e6:.1f} MB of KV; "
+          f"{a['moved_block_bytes'] / 1e6:.1f} MB in fixed blocks); gather "
+          f"{a['gather_ms_a_request']:.3f} ms and scatter "
+          f"{a['scatter_ms_a_request']:.3f} ms a request (events), shares "
+          f"of the wall: gather {a['gather_share']:.4f}, scatter "
+          f"{a['scatter_share']:.4f}, migration steps (host) "
+          f"{a['migrate_step_share']:.4f}; prefix hit rate "
+          f"{a['prefix_hit_rate']:.4f}; graphs {a['captured']}; launches "
+          f"{a['launches']} on {card}", flush=True)
+    b = _fleet_serve(torch, mods, model, launches_of, reset_counts, card)
+    print(f"phase 31 (b): ServingFleet 2 replicas (session router): "
+          f"{b['requests']} requests, {b['tokens']} tokens in "
+          f"{b['wall_s']:.2f} s = {b['tokens_per_s']:.1f} tok/s, equal to "
+          f"the single-loop Engine's; migrated {b['migrated']}, replica 1 "
+          f"killed ({b['killed_readmitted']} re-admitted); prefix hit rate "
+          f"{b['prefix_hit_rate']:.4f}, routed warm / cold "
+          f"{b['routed_warm']} / {b['routed_cold']}; launches "
+          f"{b['launches']} on {card}", flush=True)
+    del model
+    free_cuda(torch)
+    trace = OUT_DIR / "replay_trace.jsonl"
+    c = run_replay("disagg", [
+        trace, "--disagg", "--prefill-workers", "1", "--decode-workers",
+        "2", "--kill-worker", f"decode:1:{DISAGG_REPLAY_KILL_STEP}",
+        "--expect-pallas"] + REPLAY_LLAMA + REPLAY_ENGINE)
+    # the tool zeroes its counts after its clean reference run: the
+    # launches and the counters are both the kill run's
+    _replay_decoder_gates("disagg", c)
+    wk = c["worker_kill"]
+    if c["tokens"] != replay["plain"]["tokens"] or not wk["survivors_exact"] \
+            or not c["disagg"]["readmitted"]:
+        fail(f"phase 31 (c): tokens equal phase 20 (a)'s: "
+             f"{c['tokens'] == replay['plain']['tokens']}, kill {wk}, "
+             f"disagg {c['disagg']}")
+    secs = time.perf_counter() - t_phase
+    print(f"phase 31 (c): replay --disagg 1p+2d, decode:1 killed at step "
+          f"{DISAGG_REPLAY_KILL_STEP}: {c['requests']} requests, "
+          f"{c['total_tokens']} tokens, tokens equal to phase 20 (a)'s, "
+          f"{c['disagg']['migrations']} migrations, "
+          f"{c['disagg']['readmitted']} re-admitted, {c['tokens_per_sec']} "
+          f"tok/s ({c['process_s']:.1f} s of process) on {card}",
+          flush=True)
+    print(f"phase 31: {secs:.1f} s on {card}", flush=True)
+    c = {k: v for k, v in c.items() if k != "tokens"}
+    return dict(a=a, b=b, c=c, seconds=secs, card=card)
+
+
+def disagg_fault_main():
+    """``chip_smoke.py --disagg-fault``: phase 31 (a) with every
+    migration's scatter skipping the request's last page
+    (``_plant_disagg_fault``). Exits 0 only when (a)'s token gate fails
+    it; prints the mismatched requests."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device is visible")
+    from types import SimpleNamespace
+
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.inference import Engine, SamplingParams
+    from paddle_tpu_torch.kernels import _build as build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    t0 = time.perf_counter()
+    build.build()
+    mods = SimpleNamespace(Engine=Engine, SamplingParams=SamplingParams,
+                           LlamaConfig=LlamaConfig,
+                           LlamaForCausalLM=LlamaForCausalLM)
+
+    def reset_counts():
+        build.probe.launches = pa.paged_decode.launches = 0
+        fa.flash_fwd.launches = 0
+        monitor.reset()
+
+    def launches_of():
+        return {"probe": build.probe.launches,
+                "paged_decode": pa.paged_decode.launches,
+                "flash_fwd": fa.flash_fwd.launches}
+    _plant_disagg_fault()
+    cfg = LlamaConfig.tiny(vocab=32000, hidden=4096, layers=4, heads=32)
+    model = LlamaForCausalLM(cfg, seed=0)
+    model.eval()
+    rec = _disagg_serve(torch, mods, model, launches_of, reset_counts, card)
+    print(f"disagg fault: a scatter skipping each request's last page: "
+          f"{len(rec['mismatched'])} of {rec['requests']} requests' tokens "
+          f"differ from the single-loop Engine's {rec['mismatched']}; "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    if not rec["mismatched"]:
+        fail("disagg fault: (a)'s token gate passed the planted fault")
+
+
 # -- phases 4 and 5: the main path -----------------------------------------
 
 def make_requests(SamplingParams, vocab_size):
@@ -10916,6 +11352,13 @@ def main():
     seq = seq_main_path(torch, mods, launches_of, reset_counts, card,
                         distributed)
 
+    # 31. disaggregated and fleet serving of phase 20's LLaMA: the
+    # DisaggEngine with a decode worker killed, the two-replica fleet with
+    # migrations and a replica killed (counts around each), and the replay
+    # tool's --disagg with --kill-worker (a subprocess)
+    disagg = disagg_main_path(torch, mods, launches_of, reset_counts, card,
+                              replay)
+
     src = "paddle_tpu_torch/csrc/"
 
     def replay_by_path(kernel):
@@ -10926,6 +11369,12 @@ def main():
 
     def accel_by_path(kernel):
         return {p: l[kernel] for p, l in accel_paths.items()}
+
+    def disagg_by_path(kernel):
+        """Phase 31's launches of ``kernel``: (a), (b) and (c)'s report."""
+        return {"disagg_a": disagg["a"]["launches"][kernel],
+                "fleet_b": disagg["b"]["launches"][kernel],
+                "replay_disagg_c": disagg["c"]["launches"][kernel]}
 
     def quant_by_path(kernel):
         """Phase 23's launches of ``kernel``, by counted run."""
@@ -11021,11 +11470,13 @@ def main():
              replaces="paddle_tpu/kernels/flash_attention.py:105",
              launches=launches["probe"] + ms_l["probe"] + sum(
                  accel_by_path("probe").values()) + sum(
-                 replay_by_path("probe").values()),
+                 replay_by_path("probe").values()) + sum(
+                 disagg_by_path("probe").values()),
              launches_by_path={"serving": launches["probe"],
                                "moe_serving": ms_l["probe"],
                                **accel_by_path("probe"),
-                               **replay_by_path("probe")},
+                               **replay_by_path("probe"),
+                               **disagg_by_path("probe")},
              cases=probe_cases,
              **{k: probe_cases[0][k] for k in (
                  "max_abs_err", "tol", "ratio", "ms", "plain_ms",
@@ -11037,12 +11488,14 @@ def main():
              launches=launches["paged_decode"] + ms_l["paged_decode"] + sum(
                  accel_by_path("paged_decode").values()) + sum(
                  replay_by_path("paged_decode").values()) + sum(
-                 quant_by_path("paged_decode").values()),
+                 quant_by_path("paged_decode").values()) + sum(
+                 disagg_by_path("paged_decode").values()),
              launches_by_path={"serving": launches["paged_decode"],
                                "moe_serving": ms_l["paged_decode"],
                                **accel_by_path("paged_decode"),
                                **replay_by_path("paged_decode"),
-                               **quant_by_path("paged_decode")},
+                               **quant_by_path("paged_decode"),
+                               **disagg_by_path("paged_decode")},
              launches_split={"serving": decode_routes["split"],
                              "moe_serving": moe_serving[
                                  "paged_decode_routes"]["split"],
@@ -11055,7 +11508,13 @@ def main():
                                 if "counters" in r},
                              **{p: int(r["counters"].get(
                                  "kernels.decode.paged_cuda_split", 0))
-                                for p, r in quant_runs.items()}},
+                                for p, r in quant_runs.items()},
+                             **{p: disagg[k]["paged_decode_routes"]["split"]
+                                for p, k in (("disagg_a", "a"),
+                                             ("fleet_b", "b"))},
+                             "replay_disagg_c": int(disagg["c"][
+                                 "counters"].get(
+                                 "kernels.decode.paged_cuda_split", 0))},
              moe_serving_case={k: moe_paged[k] for k in (
                  "case", "max_abs_err", "ratio", "wrapper_ratio", "ms",
                  "pool_copies", "wrapper_ms", "plain_ms", "bound_ms",
@@ -11335,7 +11794,7 @@ def main():
                   device_utils=device_utils, vision=vision,
                   signal_graph_distribution=signal, to_static=static,
                   distributed=distributed, pipeline=pipe,
-                  sequence_parallel=seq,
+                  sequence_parallel=seq, disaggregated_serving=disagg,
                   kernels=kernels)
     (OUT_DIR / "result.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -11355,5 +11814,7 @@ if __name__ == "__main__":
         pipe_fault_main()
     elif sys.argv[1:2] == ["--sep-fault"]:
         sep_fault_main()
+    elif sys.argv[1:2] == ["--disagg-fault"]:
+        disagg_fault_main()
     else:
         main()

@@ -11,7 +11,7 @@ check flags below, ``sdpa_use_flash`` in ``nn/functional/attention.py``.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 
 class _Flag:
@@ -63,6 +63,11 @@ def set_flags(flags: Dict[str, Any]) -> None:
 
 def get_flag(name: str):
     return _registry[_key(name)].value
+
+
+def all_flags() -> List[str]:
+    """The name of every registered flag."""
+    return list(_registry)
 
 
 def get_flags(flags) -> Dict[str, Any]:

@@ -19,9 +19,13 @@ schedules' event graphs) and ``mpmd_runtime`` (the one-process MPMD
 driver). ``fleet.recompute`` is activation checkpointing and
 ``watchdog.Heartbeat`` the in-process stall watcher of ``Engine.run``.
 
-Not here yet: sequence / segment and expert parallelism, auto_parallel,
-distributed checkpoints, the launcher's cross-rank heartbeats, elastic,
-rpc and ps (ROADMAP D3-D6).
+Sequence, segment and expert parallelism: ``fleet.utils.
+sequence_parallel_utils``, ring attention over the ``sep`` group
+(``kernels/ring_attention.py``), ``SegmentParallel`` and the MoE ``ep``
+axis.
+
+Not here yet: auto_parallel and distributed checkpoints (ROADMAP D4),
+the launcher's cross-rank heartbeats, elastic, rpc and ps (D6).
 """
 from . import communication, env, fleet, launch, mesh  # noqa: F401
 from . import parallel_step, sharding, store, watchdog  # noqa: F401

@@ -354,7 +354,10 @@ class _P2PTask:
         return self._work is None or self._work.is_completed()
 
 
-def isend(tensor, dst=0, group=None):
+def isend(tensor, dst=0, group=None, sync_op=True):
+    """Post a send and return its task (``wait()``); ``sync_op`` is the
+    JAX package's flag, taken for its signature: the send is asynchronous
+    either way."""
     g = _resolve(group)
     t = _data(tensor)
     c = _Call("send", [t])
@@ -362,7 +365,9 @@ def isend(tensor, dst=0, group=None):
     return _P2PTask(work, c)
 
 
-def irecv(tensor, src=0, group=None):
+def irecv(tensor, src=0, group=None, sync_op=True):
+    """Post a receive into ``tensor`` and return its task; ``sync_op`` as
+    in ``isend``."""
     g = _resolve(group)
     t = _data(tensor)
     c = _Call("recv", [t])

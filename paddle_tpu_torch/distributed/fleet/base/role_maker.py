@@ -57,14 +57,32 @@ class PaddleCloudRoleMaker:
 
 
 class UserDefinedRoleMaker(PaddleCloudRoleMaker):
-    """A role maker with the role and endpoints given, not read."""
+    """A role maker with the role and the ranks given, not read: the JAX
+    package's positional order ``(is_collective, current_id, role,
+    worker_num, server_endpoints)`` (``paddle_tpu/distributed/fleet/
+    compat.py:25``); ``worker_index`` is ``current_id`` and
+    ``worker_num`` the given count."""
 
-    def __init__(self, is_collective=True, init_gloo=False, role=Role.WORKER,
-                 current_id=0, worker_num=1, server_endpoints=None,
-                 worker_endpoints=None, **kwargs):
+    def __init__(self, is_collective=False, current_id=0, role=Role.WORKER,
+                 worker_num=1, server_endpoints=None, **kwargs):
         super().__init__(is_collective=is_collective)
+        self._current_id = int(current_id)
+        self._worker_count = int(worker_num)
         self._training_role = "PSERVER" if role == Role.SERVER else "TRAINER"
         self._server_endpoints = list(server_endpoints or [])
         if self._server_endpoints:
             self._is_collective = False
-        self._worker_endpoints = list(worker_endpoints or [])
+        self._worker_endpoints = list(kwargs.get("worker_endpoints") or [])
+
+    def _worker_index(self):
+        return self._current_id
+
+    def _worker_num(self):
+        return self._worker_count
+
+    def _is_first_worker(self):
+        return self.is_worker() and self._current_id == 0
+
+    worker_index = _worker_index
+    worker_num = _worker_num
+    is_first_worker = _is_first_worker

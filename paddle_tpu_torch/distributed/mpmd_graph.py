@@ -755,11 +755,25 @@ def disagg_graph(prefill_workers: int, decode_workers: int,
                  act_dtype: str = "float32",
                  pool_slots: int = 2,
                  subject: str = "") -> MpmdGraph:
-    """Disaggregated serving's KV migration graph: it comes with
-    disaggregated serving."""
-    raise NotImplementedError(
-        "disagg_graph (prefill -> decode KV migration) comes with the "
-        "disaggregated-serving slice of the port (ROADMAP D5)")
+    """Disaggregated serving (prefill -> decode KV migration,
+    ``inference/disagg.py``): request r prefills on worker r % P, then
+    its KV pages migrate to decode worker P + r % D. The decode pool
+    bounds the migrations in flight on a route (``pool_slots``): the
+    back-pressure a driver must respect."""
+    P, D, N = int(prefill_workers), int(decode_workers), int(n_requests)
+    g = MpmdGraph(P + D, schedule_mode="", n_micro=N,
+                  act_shape=kv_shape, act_dtype=act_dtype,
+                  subject=subject or f"mpmd(disagg, P={P}, D={D}, "
+                                     f"reqs={N})")
+    for p in range(P):
+        for d in range(D):
+            g.channel_capacity[(p, P + d)] = pool_slots
+    for r in range(N):
+        p, d = r % P, P + (r % D)
+        pre = g.add_event(p, r, FWD, tick=2 * (r // P))
+        dec = g.add_event(d, r, FWD, tick=2 * (r // P) + 1)
+        g.connect(pre, dec, shape=kv_shape, tag=("kv", r))
+    return g
 
 
 # ---------------------------------------------------------------------------

@@ -99,11 +99,12 @@ def get_cuda_rng_state():
             for i in range(torch.cuda.device_count())]
 
 
-def set_cuda_rng_state(state_list):
-    """Restore ``get_cuda_rng_state``'s states, device by device."""
-    if len(state_list) != torch.cuda.device_count():
+def set_cuda_rng_state(state):
+    """Restore ``get_cuda_rng_state``'s states (a list, one a device),
+    device by device."""
+    if len(state) != torch.cuda.device_count():
         raise ValueError(
-            f"set_cuda_rng_state: {len(state_list)} states for "
+            f"set_cuda_rng_state: {len(state)} states for "
             f"{torch.cuda.device_count()} CUDA devices")
-    for i, st in enumerate(state_list):
+    for i, st in enumerate(state):
         random_mod.generator(torch.device("cuda", i)).set_state(st)

@@ -76,7 +76,7 @@ class Model:
     def inspect(self, inputs=None, labels=None, mesh=None):
         raise NotImplementedError(
             "Model.inspect lints the compiled program: it comes with the "
-            "analysis slice of the port (ROADMAP section 1, item 5)")
+            "analysis slice of the port (ROADMAP section 1, item 6)")
 
     # -- the network on a batch ----------------------------------------------
     def _forward(self, inputs):

@@ -13,10 +13,10 @@
 (:346), ``fused_feedforward`` (:383), ``fused_multi_head_attention``
 (:452) and ``fused_multi_transformer`` (:543, refused as there).
 
-The fused-op batch is plain PyTorch, as the JAX ops are plain ``jnp``
-compositions (no Pallas kernel in any of them), and follows
-``nn.functional``'s rule: surface Tensors in and out, or raw torch
-tensors in and out. ``fused_moe`` runs every expert on every token, as
+Every op follows ``nn.functional``'s rule: surface Tensors in and out,
+or raw torch tensors in and out (``core.dispatch.surface``). The
+fused-op batch is plain PyTorch, as the JAX ops are plain ``jnp``
+compositions (no Pallas kernel in any of them). ``fused_moe`` runs every expert on every token, as
 the JAX one does; it is not the grouped-FFN kernel of ``MoELayer``.
 Their dropouts draw f32 uniforms from the port's generator of the
 input's device (``core.random``): the JAX threefry masks cannot be
@@ -27,7 +27,8 @@ approximation, ``jax.nn.gelu``'s default.
 CUDA paged-decode kernel on a CUDA tensor, its plain version on a CPU
 tensor. The writes (``paged_write``, ``paged_quant_write``,
 ``masked_multihead_attention``'s cache) update the caches IN PLACE and
-return the same tensors, where the JAX package returns new arrays.
+return the same tensors (the caller's own surface Tensors when it passed
+them), where the JAX package returns new arrays.
 """
 from __future__ import annotations
 
@@ -92,7 +93,12 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
     and ``cos`` are given: user tables, used as they are (broadcast
     against [b, s, h, d]) or, with ``position_ids``, as [s_max, d]
     tables indexed by them."""
-    neox = use_neox_rotary_style
+    return surface("fused_rotary_position_embedding",
+                   lambda *a: _rope(*a, use_neox_rotary_style),
+                   [q, k, v, sin, cos, position_ids])
+
+
+def _rope(q, k, v, sin, cos, position_ids, neox):
     user = sin is not None and cos is not None
 
     def make(t):
@@ -227,7 +233,8 @@ class _FusedLinearCE(torch.autograd.Function):
 
 
 def fused_linear_cross_entropy(hidden, weight, labels, ignore_index=-100,
-                               n_chunks=8, group=None, seq_group=None):
+                               n_chunks=8, name=None, group=None,
+                               seq_group=None):
     """Fused lm-head matmul + softmax cross entropy, chunked over rows
     (counterpart of ``fused_linear_cross_entropy``,
     ``paddle_tpu/incubate/nn/functional/__init__.py:173``).
@@ -252,6 +259,13 @@ def fused_linear_cross_entropy(hidden, weight, labels, ignore_index=-100,
     (``_FusedLinearCE``)."""
     if int(n_chunks) < 1:
         raise ValueError(f"n_chunks must be >= 1, got {n_chunks}")
+    return surface("fused_linear_cross_entropy", lambda h, w, lab: _fused_ce(
+        h, w, lab, ignore_index, n_chunks, group, seq_group),
+        [hidden, weight, labels])
+
+
+def _fused_ce(hidden, weight, labels, ignore_index, n_chunks, group,
+              seq_group):
     hs = hidden.reshape(-1, hidden.shape[-1])
     ls = torch.as_tensor(labels, device=hidden.device).reshape(-1).long()
     n = hs.shape[0]
@@ -287,7 +301,8 @@ def masked_multihead_attention(x, cache_kv=None, bias=None, src_mask=None,
     Returns (out [b, h*d], cache_kv), the cache written in place. Beam
     offsets, in-kernel rotary and the int8-quant arguments are refused as
     in the JAX package. The capacity check of ``sequence_lengths`` reads
-    the positions on the host (a sync)."""
+    the positions on the host (a sync). A surface ``cache_kv`` comes back
+    as the same Tensor."""
     if cum_offsets is not None or beam_cache_offset is not None:
         raise NotImplementedError(
             "cum_offsets/beam_cache_offset are CUDA-serving specifics")
@@ -306,6 +321,22 @@ def masked_multihead_attention(x, cache_kv=None, bias=None, src_mask=None,
         raise ValueError(
             "pass sequence_lengths (write positions) or src_mask "
             "(whose last dim implies position = L - 1)")
+    out = surface("masked_multihead_attention", _mmha,
+                  [x, cache_kv, bias, src_mask, sequence_lengths])
+    return _in_place(out, {1: cache_kv})
+
+
+def _in_place(out, given):
+    """An in-place op's result with each written cache or pool (at the
+    output positions of ``given``) handed back as the object the caller
+    passed: the same surface Tensor, not a new wrapper of its storage."""
+    out = list(out)
+    for i, obj in given.items():
+        out[i] = obj
+    return tuple(out)
+
+
+def _mmha(x, cache_kv, bias, src_mask, sequence_lengths):
     _, b, h, max_seq, d = cache_kv.shape
     dev = cache_kv.device
     if sequence_lengths is not None:
@@ -353,6 +384,13 @@ def variable_length_memory_efficient_attention(query, key, value,
     at or past ``seq_lens`` give zeros; ``causal`` aligns the queries to
     the last keys (query s sees keys <= s + T - S); ``mask`` is added to
     the scores. Computed in the inputs' dtype."""
+    return surface("varlen_mem_efficient_attention",
+                   lambda *a: _varlen_attention(*a, scale, causal),
+                   [query, key, value, seq_lens, kv_seq_lens, mask])
+
+
+def _varlen_attention(query, key, value, seq_lens, kv_seq_lens, mask,
+                      scale, causal):
     B, H, S, D = query.shape
     T = key.shape[2]
     dev = query.device
@@ -385,30 +423,44 @@ def paged_attention(query, k_cache, v_cache, block_tables, context_lens,
     pool. Runs ``kernels.paged_attention.paged_decode``: the CUDA
     kernel on the card, its plain version on the CPU."""
     from ...kernels.paged_attention import paged_decode
-    return paged_decode(query, k_cache, v_cache, block_tables, context_lens,
-                        scale=scale, k_scale=k_scale, v_scale=v_scale)
+    return surface("paged_attention",
+                   lambda q, kc, vc, bt, cl, ks, vs: paged_decode(
+                       q, kc, vc, bt, cl, scale=scale, k_scale=ks,
+                       v_scale=vs),
+                   [query, k_cache, v_cache, block_tables, context_lens,
+                    k_scale, v_scale])
 
 
 def paged_write(key, value, k_cache, v_cache, block_tables, positions):
     """Append one token's k / v per sequence ([b, h_kv, d], or a chunk
     [b, s, h_kv, d]) at ``positions`` [b] into the paged pools, in place
-    (the write half of the paged-decode loop). Returns the pools."""
+    (the write half of the paged-decode loop). Returns the pools: the
+    caller's own surface Tensors when it passed them."""
     from ...kernels.paged_attention import paged_write_arrays
-    return paged_write_arrays(key, value, k_cache, v_cache, block_tables,
-                              torch.as_tensor(positions,
-                                              device=k_cache.device))
+
+    def body(k, v, kc, vc, bt, pos):
+        return paged_write_arrays(k, v, kc, vc, bt,
+                                  torch.as_tensor(pos, device=kc.device))
+    out = surface("paged_write", body,
+                  [key, value, k_cache, v_cache, block_tables, positions])
+    return _in_place(out, {0: k_cache, 1: v_cache})
 
 
 def paged_quant_write(key, value, k_cache, v_cache, k_scale, v_scale,
                       block_tables, positions):
     """paged_write for an int8 page pool: quantizes the float chunk per
     (token, kv_head) and writes the values and the per-slot scales, in
-    place. Returns the four pools."""
+    place. Returns the four pools (the caller's surface Tensors when it
+    passed them)."""
     from ...kernels.paged_attention import paged_write_quant_arrays
-    return paged_write_quant_arrays(key, value, k_cache, v_cache, k_scale,
-                                    v_scale, block_tables,
-                                    torch.as_tensor(positions,
-                                                    device=k_cache.device))
+
+    def body(k, v, kc, vc, ks, vs, bt, pos):
+        return paged_write_quant_arrays(
+            k, v, kc, vc, ks, vs, bt, torch.as_tensor(pos, device=kc.device))
+    out = surface("paged_quant_write", body,
+                  [key, value, k_cache, v_cache, k_scale, v_scale,
+                   block_tables, positions])
+    return _in_place(out, {0: k_cache, 1: v_cache, 2: k_scale, 3: v_scale})
 
 
 def block_multihead_attention(*args, **kwargs):

@@ -97,8 +97,11 @@ timelines):
   (``Output.spans``); ``label`` names the engine in them and scopes its
   metrics (``monitor.scope``).
 
-Left out: mesh/TP decode, the fleet's ``extract_request`` and the
-compile tracker (the distributed and analysis slices).
+``extract_request`` / ``readmit`` move a live request to another Engine
+over the same weights (the serving fleet's migration, fleet.py), and the
+disaggregated driver (disagg.py) subclasses the Engine into prefill and
+decode workers through ``_activate``. Left out: mesh/TP decode (ROADMAP
+section 1, item 3) and the compile tracker (item 6).
 
 ``monitor`` surface: counters ``serving.requests`` / ``serving.tokens``
 / ``serving.finished`` / ``serving.failed`` / ``serving.preemptions`` /
@@ -880,6 +883,11 @@ class Engine:
     def restore_from(self, path: str, strict: bool = True) -> int:
         from .reliability import load_snapshot
         return self.restore(load_snapshot(path), strict=strict)
+
+    def close(self) -> None:
+        """The JAX engine's ``close`` detaches its compile listener; the
+        port's Engine has none, so this is a no-op (the drivers call it on
+        every worker they drop)."""
 
     def check_invariants(self, repair: bool = False) -> List[str]:
         """Cross-check the allocator against every reference the engine

@@ -43,6 +43,11 @@ hardening is built and proven on.
       ``spec.disagree``             the drafted tokens are replaced with
                                     garbage — exact-match verification must
                                     reject them with output unchanged
+      ``worker.die_prefill`` /      the DisaggEngine drops one live worker of
+      ``worker.die_decode``         the kind wholesale; its requests re-admit
+                                    from host truth (never the last one)
+      ``replica.die``               the ServingFleet drops one live replica
+                                    wholesale (never the last one)
       ============================  =========================================
 
 * **Crash-exact snapshot/restore**: :func:`snapshot_engine` serializes
@@ -103,9 +108,8 @@ define_flag("serving_debug_invariants", False,
             "raise on the first finding (the chaos paths audit WITH "
             "repair instead)")
 
-#: every named fault point the engine queries (the JAX package's list,
-#: less the disaggregated and fleet sites ``worker.die_*`` /
-#: ``replica.die``, which come with those layers)
+#: every named fault point the engines query, in the order a step visits
+#: them (the JAX package's list)
 FAULT_SITES = (
     "alloc.exhausted",
     "alloc.refcount_skew",
@@ -116,6 +120,17 @@ FAULT_SITES = (
     "decode.nan",
     "decode.device_error",
     "spec.disagree",
+    # disaggregated serving (disagg.py): a whole worker dies, pools,
+    # allocator and device state lost, and its requests re-admit
+    # elsewhere token-exact. Queried by the DisaggEngine driver only,
+    # never by an Engine; it never fires on the last worker of a kind
+    # (recorded only when a kill landed).
+    "worker.die_prefill",
+    "worker.die_decode",
+    # the serving fleet (fleet.py): one whole Engine replica dies, and
+    # its requests re-admit on the survivors from host truth alone.
+    # Queried by the ServingFleet driver only; never the last replica.
+    "replica.die",
 )
 
 SNAPSHOT_VERSION = 1

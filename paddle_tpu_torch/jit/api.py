@@ -254,7 +254,7 @@ class StaticFunction:
         raise NotImplementedError(
             "StaticFunction.inspect lints the traced program: it comes "
             "with the analysis slice of the port (ROADMAP section 1, "
-            "item 5)")
+            "item 6)")
 
     def _maybe_lint_first_compile(self, args, kwargs):
         """The opt-in first-compile lint (``PADDLE_TPU_LINT=1``, :170)."""
@@ -262,7 +262,7 @@ class StaticFunction:
                 "1", "true", "yes", "on"):
             raise NotImplementedError(
                 "PADDLE_TPU_LINT: the first-compile lint comes with the "
-                "analysis slice of the port (ROADMAP section 1, item 5)")
+                "analysis slice of the port (ROADMAP section 1, item 6)")
 
     def _compile(self):
         if self._layer is None:

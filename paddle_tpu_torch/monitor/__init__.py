@@ -203,6 +203,19 @@ class Histogram:
         """Sum of the recorded values."""
         return self._sum
 
+    def merge(self, other: "Histogram") -> "Histogram":
+        """Fold ``other``'s buckets into this histogram (exact: the same
+        as one that recorded both streams). Returns self."""
+        with _lock:
+            self._count += other._count
+            self._sum += other._sum
+            self._zeros += other._zeros
+            self._min = min(self._min, other._min)
+            self._max = max(self._max, other._max)
+            for idx, n in other._buckets.items():
+                self._buckets[idx] = self._buckets.get(idx, 0) + n
+        return self
+
     def percentile(self, q: float) -> float:
         """Value at percentile ``q`` (0..100)."""
         if self._count == 0:

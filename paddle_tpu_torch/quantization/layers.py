@@ -24,8 +24,9 @@ by ``state_dict``, so a JAX-converted model's state loads as it is
 
 The JAX package's tensor-parallel branch (``_shard_buffers``, ``_tp_kind``,
 :84-133, converting ``ColumnParallelLinear`` / ``RowParallelLinear`` with
-their 'mp' sharding) waits for the port's distributed layers, which do not
-exist yet.
+their 'mp' sharding) is not carried: the port's TP layers exist
+(``distributed.fleet``), and converting them comes with the Engine on mp
+ranks (ROADMAP section 1, item 3, D5b).
 """
 from __future__ import annotations
 

@@ -15,12 +15,30 @@ Run: python -m paddle_tpu_torch.serving_replay trace.jsonl
          [--chaos] [--fault-seed 0] [--fault-rate 0.05]
          [--trace-out spans.json] [--expect-complete-timelines]
          [--multi-tick K] [--expect-host-share PCT]
+         [--disagg --prefill-workers N --decode-workers M]
+         [--kill-worker decode:1:40]
+         [--replicas N --route session] [--kill-replica 1:40]
 
 The PyTorch/CUDA counterpart of the JAX package's replay tool
 (``tools/serving_replay.py``, which stays the JAX tool): the same flags,
 trace schema, virtual clock, report and exit codes for the single-engine
-decoder mode and the ``--embedding`` mode, plus ``--device`` (default
-``cuda``; ``--device cpu`` runs the kernels' plain versions).
+decoder mode, the disaggregated (``--disagg``) and fleet (``--replicas``)
+modes and the ``--embedding`` mode, plus ``--device`` (default ``cuda``;
+``--device cpu`` runs the kernels' plain versions).
+
+``--disagg`` serves the trace with ``inference.DisaggEngine``
+(``--prefill-workers`` / ``--decode-workers``; trace lines may carry
+``"tenant"``); the report adds a ``disagg`` block (migrations, pages
+migrated, re-admissions, per-worker utilization). ``--kill-worker
+KIND:INDEX:STEP`` (repeatable) first runs the trace clean for reference
+tokens, then with the worker death(s): exit 8 when a survivor's tokens
+differ, a page leaks or the invariant audit finds something.
+``--replicas N`` serves it with ``inference.ServingFleet`` behind the
+``--route`` router (``session``, ``least_loaded`` or ``round_robin``;
+lines may carry ``"session"``, each session drawing its own system
+block); the report adds a ``fleet`` block. ``--kill-replica INDEX:STEP``
+is the fleet's failover gate (exit 9). Under ``--multi-tick`` the decode
+workers (or every replica) take K.
 
 The model is a LLaMA of ``LlamaConfig.tiny`` geometry from ``--hidden``,
 ``--layers``, ``--heads`` and ``--vocab`` (FFN 4 x hidden, 256
@@ -46,13 +64,13 @@ drain; 4 ``--expect-pallas`` saw a decode step off the CUDA split-K
 paged-decode kernel; 5 ``--expect-prefix-hit-rate`` missed; 6 ``--chaos``
 found a diverged survivor, a leaked page or an invariant finding; 7
 ``--expect-p99-ttft-ms`` missed; 10 ``--expect-moe-pallas`` saw an MoE
-decode step off the grouped-FFN kernels; 12 ``--expect-complete-timelines``
-found a broken timeline; 14 ``--expect-host-share`` exceeded.
+decode step off the grouped-FFN kernels; 8 ``--kill-worker`` / 9
+``--kill-replica`` found a diverged survivor, a leaked page or an
+invariant finding; 12 ``--expect-complete-timelines`` found a broken
+timeline; 14 ``--expect-host-share`` exceeded.
 
-Not carried yet, refused with exit 2: ``--disagg`` (with
-``--prefill-workers`` / ``--decode-workers`` / ``--kill-worker``),
-``--replicas`` (with ``--route`` / ``--kill-replica``),
-``--expect-hotpath-clean`` and ``--expect-zero-recompiles``.
+Not carried yet, refused with exit 2: ``--expect-hotpath-clean`` and
+``--expect-zero-recompiles`` (the analysis slice, ROADMAP item 6).
 """
 from __future__ import annotations
 
@@ -67,19 +85,6 @@ import numpy as np
 #: flags of the JAX tool whose modules the port does not have yet, and
 #: what each needs
 UNPORTED = (
-    ("--disagg", "disagg", "the disaggregated engine "
-     "(inference/disagg.py)"),
-    ("--prefill-workers", "prefill_workers", "the disaggregated engine "
-     "(inference/disagg.py)"),
-    ("--decode-workers", "decode_workers", "the disaggregated engine "
-     "(inference/disagg.py)"),
-    ("--kill-worker", "kill_worker", "the disaggregated engine "
-     "(inference/disagg.py)"),
-    ("--replicas", "replicas", "the elastic serving fleet "
-     "(inference/fleet.py)"),
-    ("--route", "route", "the elastic serving fleet (inference/fleet.py)"),
-    ("--kill-replica", "kill_replica", "the elastic serving fleet "
-     "(inference/fleet.py)"),
     ("--expect-hotpath-clean", "expect_hotpath_clean", "the hot-path lint "
      "(analysis/hotpath_lint.py)"),
     ("--expect-zero-recompiles", "expect_zero_recompiles", "the "
@@ -103,7 +108,12 @@ COUNTER_PREFIXES = (
     "serving.multi_tick.ticks", "serving.multi_tick.clamp.",
     "serving.multi_tick.scan_exit.", "serving.nan_quarantines",
     "serving.step_errors", "serving.invariant_repairs",
-    "serving.fault_injected.")
+    "serving.fault_injected.",
+    # fleet COUNTERS only: the serving.fleet.* namespace also holds
+    # gauges that a delta would misreport
+    "serving.fleet.routed_", "serving.fleet.migrations",
+    "serving.fleet.replica_deaths", "serving.fleet.readmitted",
+    "serving.fleet.scale_events")
 
 EMBED_COUNTER_PREFIXES = (
     "serving.embed.requests", "serving.embed.finished",
@@ -126,8 +136,10 @@ def _percentiles(vals):
 
 
 def _launch_counts():
-    """Each CUDA kernel wrapper's launch count in this process (0 on the
-    CPU, where the wrappers run the plain versions)."""
+    """Each CUDA kernel wrapper's launch count in this process since its
+    start or the last ``_reset_launch_counts`` (a decoder replay's, just
+    before it builds its measured engine); 0 on the CPU, where the
+    wrappers run the plain versions."""
     from .kernels import _build
     from .kernels import flash_attention as fa
     from .kernels import paged_attention as pa
@@ -135,6 +147,17 @@ def _launch_counts():
             "probe_minor64": fa.probe_minor64.launches,
             "paged_decode": pa.paged_decode.launches,
             "flash_fwd": fa.flash_fwd.launches}
+
+
+def _reset_launch_counts():
+    """Set every wrapper's launch count that ``_launch_counts`` reads to
+    0, so that a report counts its measured run alone."""
+    from .kernels import _build
+    from .kernels import flash_attention as fa
+    from .kernels import paged_attention as pa
+    for fn in (_build.probe, fa.probe_minor64, pa.paged_decode,
+               fa.flash_fwd):
+        fn.launches = 0
 
 
 def _deltas(before, after, prefixes):
@@ -387,20 +410,30 @@ def _parser():
     ap.add_argument("--expect-complete-timelines", action="store_true",
                     help="exit 12 unless every request stitches into one "
                          "contiguous timeline in the export")
+    ap.add_argument("--disagg", action="store_true",
+                    help="serve with the disaggregated engine: prefill "
+                         "and decode workers, KV pages migrating")
+    ap.add_argument("--prefill-workers", type=int, default=1)
+    ap.add_argument("--decode-workers", type=int, default=1)
+    ap.add_argument("--kill-worker", action="append", default=[],
+                    metavar="KIND:INDEX:STEP",
+                    help="worker death under --disagg (e.g. decode:1:40), "
+                         "after a clean reference run; exit 8 on a "
+                         "diverged survivor, a leak or a finding")
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="serve with the fleet of this many Engine "
+                         "replicas behind the router")
+    ap.add_argument("--route", default=None,
+                    choices=("session", "least_loaded", "round_robin"),
+                    help="the fleet's router under --replicas (default "
+                         "session)")
+    ap.add_argument("--kill-replica", action="append", default=[],
+                    metavar="INDEX:STEP",
+                    help="replica death under --replicas (e.g. 1:40), "
+                         "after a clean reference run; exit 9 on a "
+                         "diverged survivor, a leak or a finding")
     # the JAX tool's flags for modules not ported yet: parsed so that
     # each is refused by name, never ignored
-    ap.add_argument("--disagg", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--prefill-workers", type=int, default=None,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--decode-workers", type=int, default=None,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--kill-worker", action="append", default=[],
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--replicas", type=int, default=0,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--route", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--kill-replica", action="append", default=[],
-                    help=argparse.SUPPRESS)
     ap.add_argument("--expect-hotpath-clean", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--expect-zero-recompiles", action="store_true",
@@ -470,7 +503,11 @@ def main(argv=None, weights=None) -> int:
         return 2
     if args.embedding:
         bad = [flag for flag, on in (
+            ("--disagg", args.disagg),
+            ("--replicas", bool(args.replicas)),
             ("--chaos", args.chaos),
+            ("--kill-worker", bool(args.kill_worker)),
+            ("--kill-replica", bool(args.kill_replica)),
             ("--spec-k", args.spec_k > 0),
             ("--max-prefill-tokens", args.max_prefill_tokens is not None),
             ("--no-prefix-cache", args.no_prefix_cache),
@@ -505,34 +542,122 @@ def main(argv=None, weights=None) -> int:
     return _run_decoder(args, trace, weights)
 
 
+def _kills(args):
+    """The scheduled worker / replica deaths as (kind, index, step), or an
+    exit code: the JAX tool's misuse checks, in its order (2 for each)."""
+    kills = []
+    for spec in args.kill_worker:
+        try:
+            kind, idx, step = spec.split(":")
+            if kind not in ("prefill", "decode"):
+                raise ValueError(kind)
+            kills.append((kind, int(idx), int(step)))
+        except ValueError:
+            print(f"serving_replay: bad --kill-worker spec {spec!r} (want "
+                  f"KIND:INDEX:STEP, e.g. decode:1:40)", file=sys.stderr)
+            return 2
+    if kills and not args.disagg:
+        print("serving_replay: --kill-worker needs --disagg",
+              file=sys.stderr)
+        return 2
+    for spec in args.kill_replica:
+        try:
+            idx, step = spec.split(":")
+            kills.append(("replica", int(idx), int(step)))
+        except ValueError:
+            print(f"serving_replay: bad --kill-replica spec {spec!r} (want "
+                  f"INDEX:STEP, e.g. 1:40)", file=sys.stderr)
+            return 2
+    if args.kill_replica and not args.replicas:
+        print("serving_replay: --kill-replica needs --replicas",
+              file=sys.stderr)
+        return 2
+    if args.route is not None and not args.replicas:
+        print("serving_replay: --route needs --replicas (without it the "
+              "replay drives the single-loop engine and the routing policy "
+              "would be silently ignored)", file=sys.stderr)
+        return 2
+    if args.route is None:
+        args.route = "session"
+    if args.replicas and args.disagg:
+        print("serving_replay: --replicas and --disagg are exclusive (the "
+              "fleet multiplexes whole engines; disagg splits one engine "
+              "into prefill/decode workers)", file=sys.stderr)
+        return 2
+    fleets = [("replica", args.replicas)] if args.replicas else []
+    if not args.disagg and (args.prefill_workers != 1
+                            or args.decode_workers != 1):
+        print("serving_replay: --prefill-workers/--decode-workers need "
+              "--disagg (without it the replay drives the single-loop "
+              "engine and the worker counts would be silently ignored)",
+              file=sys.stderr)
+        return 2
+    fleets += [("prefill", args.prefill_workers),
+               ("decode", args.decode_workers)]
+    for kind, n in fleets:
+        idxs = {i for k, i, _ in kills if k == kind}
+        bad = sorted(i for i in idxs if not 0 <= i < n)
+        flag = "--kill-replica" if kind == "replica" else "--kill-worker"
+        what = "" if kind == "replica" else f" {kind}"
+        if bad:
+            print(f"serving_replay: {flag}{what} index(es) {bad} out of "
+                  f"range (fleet size {n})", file=sys.stderr)
+            return 2
+        if idxs and len(idxs) >= n:
+            print(f"serving_replay: {flag} would kill every {kind} "
+                  f"({sorted(idxs)} of {n}): the fleet must keep serving; "
+                  f"leave at least one alive", file=sys.stderr)
+            return 2
+    return kills
+
+
 def _run_decoder(args, trace, weights) -> int:
     from . import monitor
-    from .inference import Engine, FaultInjector, SamplingParams, tracing
+    from .inference import (DisaggEngine, Engine, FaultInjector,
+                            SamplingParams, ServingFleet, tracing)
+    from .inference.reliability import FAULT_SITES
 
+    kills = _kills(args)
+    if isinstance(kills, int):
+        return kills
     max_ctx = max(r["prompt_len"] + r["new_tokens"] for r in trace)
     net, draft = build_model(args, max_ctx, args.device, weights)
     vt_box = {"vt": 0.0}
 
-    def make_engine(injector=None):
+    def make_engine(injector=False):
+        kw = dict(page_size=args.page_size,
+                  prefill_bucket=args.prefill_bucket,
+                  cache_dtype=args.cache_dtype, max_context=max_ctx,
+                  prefix_cache=not args.no_prefix_cache,
+                  draft_model=draft, spec_k=max(args.spec_k, 1),
+                  clock=lambda: vt_box["vt"] / 1e3,
+                  fault_injector=injector,
+                  max_prefill_tokens_per_step=args.max_prefill_tokens,
+                  multi_tick=args.multi_tick, device=args.device)
+        if args.disagg:
+            return DisaggEngine(net, prefill_workers=args.prefill_workers,
+                                decode_workers=args.decode_workers,
+                                max_slots=args.max_slots,
+                                pool_pages=args.pool_pages, **kw)
+        if args.replicas:
+            return ServingFleet(net, replicas=args.replicas,
+                                max_slots=args.max_slots,
+                                pool_pages=args.pool_pages,
+                                router=args.route, **kw)
         return Engine(net, max_slots=args.max_slots,
-                      pool_pages=args.pool_pages, page_size=args.page_size,
-                      prefill_bucket=args.prefill_bucket,
-                      cache_dtype=args.cache_dtype, max_context=max_ctx,
-                      prefix_cache=not args.no_prefix_cache,
-                      draft_model=draft, spec_k=max(args.spec_k, 1),
-                      clock=lambda: vt_box["vt"] / 1e3,
-                      fault_injector=injector,
-                      max_prefill_tokens_per_step=args.max_prefill_tokens,
-                      multi_tick=args.multi_tick, device=args.device)
+                      pool_pages=args.pool_pages, **kw)
 
     prompts = _prompts(args, trace)
+    driver = bool(args.disagg or args.replicas)
 
-    def drive(eng):
+    def drive(eng, kills=()):
         """One full replay on the virtual clock; None when the engine did
-        not drain."""
+        not drain. ``kills`` are (kind, index, step) deaths fired as the
+        step count passes them."""
         before = monitor.snapshot()
         vt_box["vt"] = 0.0
         arrival_vt, first_vt, finish, tags = {}, {}, {}, {}
+        pending = sorted(kills, key=lambda k: k[2])
         i = steps = 0
         t0 = time.perf_counter()
         pf_key = "serving.prefill_tokens"
@@ -547,11 +672,19 @@ def _run_decoder(args, trace, weights) -> int:
                         max_new_tokens=r["new_tokens"],
                         temperature=args.temperature, seed=args.seed + i,
                         deadline_ms=r.get("deadline_ms"),
-                        max_queue_steps=r.get("max_queue_steps")))
+                        max_queue_steps=r.get("max_queue_steps")),
+                    **({"tenant": str(r["tenant"])}
+                       if driver and r.get("tenant") else {}))
                 arrival_vt[rid] = r["arrival_ms"]
                 if r.get("tag"):
                     tags[rid] = str(r["tag"])
                 i += 1
+            while pending and steps >= pending[0][2]:
+                kind, idx, _ = pending.pop(0)
+                n = (eng.kill_replica(idx) if kind == "replica"
+                     else eng.kill_worker(kind, idx))
+                print(f"serving_replay: killed {kind}{idx} at step {steps} "
+                      f"({n} request(s) re-admitted)", file=sys.stderr)
             if i < len(trace) and eng.idle:
                 # idle gap: fast-forward to the next arrival
                 vt_box["vt"] = max(vt, float(trace[i]["arrival_ms"]))
@@ -575,24 +708,48 @@ def _run_decoder(args, trace, weights) -> int:
         return {"finish": finish, "first_vt": first_vt,
                 "arrival_vt": arrival_vt, "tags": tags, "steps": steps,
                 "wall_s": time.perf_counter() - t0, "before": before,
-                "after": monitor.snapshot()}
+                "after": monitor.snapshot(), "unfired_kills": pending}
 
-    baseline = injector = None
-    if args.chaos:
-        baseline = drive(make_engine())
+    baseline = None
+    # False: injection forced off (the clean contract even when the
+    # process is flag-armed); only --chaos builds an injector, so a kill
+    # run diverges from its baseline through the kill alone
+    injector = False
+    if args.chaos or kills:
+        clean = make_engine()
+        baseline = drive(clean)
         if baseline is None:
             print("serving_replay: clean engine did not drain",
                   file=sys.stderr)
             return 3
-        injector = FaultInjector(seed=args.fault_seed, rate=args.fault_rate)
-    # a fresh registry for the measured run: the histograms cannot be
-    # subtracted, so the chaos baseline must not leak into them
+        clean.close()
+        del clean
+    if args.chaos:
+        # with scheduled kills the injector's own death sites stay off: a
+        # chaos kill first would make a scheduled one hit the last worker
+        sites = (tuple(x for x in FAULT_SITES
+                       if not x.startswith(("worker.", "replica.")))
+                 if kills else None)
+        injector = FaultInjector(seed=args.fault_seed, rate=args.fault_rate,
+                                 sites=sites)
+    # a fresh registry and launch counts for the measured run: the
+    # histograms cannot be subtracted, so the baseline run must not leak
+    # into them, and the report's launches are the measured run's own
     monitor.reset()
+    _reset_launch_counts()
     eng = make_engine(injector)
-    run = drive(eng)
+    run = drive(eng, kills)
     if run is None:
         print("serving_replay: engine did not drain", file=sys.stderr)
         return 3
+    if run["unfired_kills"]:
+        # a kill past the drain point never fired: the failover gate
+        # would pass vacuously
+        print(f"serving_replay: --kill-worker never fired for "
+              f"{[f'{k}:{i}:{st}' for k, i, st in run['unfired_kills']]}: "
+              f"the trace drained in {run['steps']} step(s); schedule the "
+              f"kill earlier", file=sys.stderr)
+        return 2
     finish, first_vt, tags = run["finish"], run["first_vt"], run["tags"]
     arrival_vt = run["arrival_vt"]
     ttft = [first_vt[r] - arrival_vt[r] for r in sorted(first_vt)]
@@ -670,23 +827,81 @@ def _run_decoder(args, trace, weights) -> int:
                  if getattr(out, "spans", None)}
     moe_paths = {}
     if args.model == "ernie_moe":
-        moe_paths = eng.moe_decode_path()
+        if driver:
+            # the drivers' workers republish their MoE paths into the
+            # serving.moe.decode_path.* counters
+            pfx = "serving.moe.decode_path."
+            moe_paths = {k[len(pfx):]: v for k, v in deltas.items()
+                         if k.startswith(pfx)}
+        else:
+            moe_paths = eng.moe_decode_path()
         report["moe"] = {
             "experts": args.experts, "top_k": args.top_k,
-            "pallas_eligible": eng.moe_pallas_eligible,
-            "fallback_reason": eng.moe_fallback_reason,
+            "pallas_eligible": getattr(eng, "moe_pallas_eligible", None),
+            "fallback_reason": getattr(eng, "moe_fallback_reason", None),
             "decode_paths": moe_paths,
+        }
+    if args.replicas:
+        report["fleet"] = {
+            "replicas": args.replicas,
+            "route": args.route,
+            "routed_warm": deltas.get("serving.fleet.routed_warm", 0),
+            "routed_cold": deltas.get("serving.fleet.routed_cold", 0),
+            "migrations": deltas.get("serving.fleet.migrations", 0),
+            "replica_deaths": deltas.get("serving.fleet.replica_deaths", 0),
+            "readmitted": deltas.get("serving.fleet.readmitted", 0),
+            "scale_events": deltas.get("serving.fleet.scale_events", 0),
+            "replica_kills": [f"{i}:{st}" for k, i, st in kills
+                              if k == "replica"],
+            "replicas_table": eng.utilization(),
+            # each replica's own labeled TTFT histogram
+            "ttft_by_replica": {
+                k.split(".")[1]: v for k, v in sorted(hists.items())
+                if k.startswith("serving.replica")
+                and k.endswith(".hist.ttft_ms")},
+        }
+    if args.disagg:
+        after, before = run["after"], run["before"]
+
+        def cdelta(key):
+            return int(after.get(key, 0)) - int(before.get(key, 0))
+        report["disagg"] = {
+            "prefill_workers": args.prefill_workers,
+            "decode_workers": args.decode_workers,
+            "migrations": cdelta("serving.disagg.migrations"),
+            "migrated_pages": cdelta("serving.migrated_pages"),
+            "worker_kills": [f"{k}:{i}:{st}" for k, i, st in kills],
+            "readmitted": cdelta("serving.disagg.readmitted"),
+            "workers": eng.utilization(),
         }
     findings = eng.check_invariants()
     # after the audit: counting leaks releases the prefix cache's pages
     report["leaked_pages"] = leaked = eng.leaked_pages()
+
+    def diverged():
+        out = []
+        for rid, (o, _) in sorted(finish.items()):
+            ref_out, _ = baseline["finish"][rid]
+            if o.ok and ref_out.ok and o.token_ids != ref_out.token_ids:
+                out.append(rid)
+        return out
+
+    kill_failed = False
+    if kills:
+        # a death may slow requests, never change a survivor's tokens,
+        # leak a page or leave the audit dirty
+        mismatched = diverged()
+        report["replica_kill" if args.replicas else "worker_kill"] = {
+            "kills": [f"{k}:{i}:{st}" for k, i, st in kills],
+            "survivors_exact": not mismatched,
+            "mismatched_request_ids": mismatched,
+            "leaked_pages": leaked,
+            "invariant_findings": findings,
+        }
+        kill_failed = bool(mismatched or leaked or findings)
     chaos_failed = False
     if args.chaos:
-        mismatched = []
-        for rid, (out, _) in sorted(finish.items()):
-            ref_out, _ = baseline["finish"][rid]
-            if out.ok and ref_out.ok and out.token_ids != ref_out.token_ids:
-                mismatched.append(rid)
+        mismatched = diverged()
         report["chaos"] = {
             "fault_seed": args.fault_seed,
             "fault_rate": args.fault_rate,
@@ -708,11 +923,12 @@ def _run_decoder(args, trace, weights) -> int:
         print(f"serving_replay: wrote {len(timelines)} timeline(s) to "
               f"{args.trace_out}", file=sys.stderr)
     return _gates(args, report, eng, finish, ttft, ttft_by_tag, tags,
-                  timelines, chaos_failed, trace, decode_paths, moe_paths)
+                  timelines, chaos_failed, kill_failed, trace, decode_paths,
+                  moe_paths)
 
 
 def _gates(args, report, eng, finish, ttft, ttft_by_tag, tags, timelines,
-           chaos_failed, trace, decode_paths, moe_paths) -> int:
+           chaos_failed, kill_failed, trace, decode_paths, moe_paths) -> int:
     """The JAX tool's gates, in its order, with its exit codes."""
     from .inference import tracing
     if args.expect_pallas and (
@@ -770,6 +986,17 @@ def _gates(args, report, eng, finish, ttft, ttft_by_tag, tags, timelines,
               f"{ch['invariant_findings']} (seed {args.fault_seed} replays "
               f"this schedule)", file=sys.stderr)
         return 6
+    if kill_failed:
+        flag = "--kill-replica" if args.replicas else "--kill-worker"
+        wk = report["replica_kill" if args.replicas else "worker_kill"]
+        print(f"serving_replay: {flag} FAILED — mismatched survivors "
+              f"{wk['mismatched_request_ids']}, leaked_pages "
+              f"{wk['leaked_pages']}, invariant findings "
+              f"{wk['invariant_findings']}: a "
+              f"{'replica' if args.replicas else 'worker'} death may slow "
+              f"requests, never change a survivor's tokens",
+              file=sys.stderr)
+        return 9 if args.replicas else 8
     if args.expect_complete_timelines:
         # checked on the stitched export, the artifact --trace-out writes
         rebuilt = tracing.timelines_from_trace(
@@ -834,6 +1061,36 @@ def _print_report(report, args):
             f"{k} x{v}" for k, v in sorted(report["failed"].items())))
     print(f"  prefix_hit_rate {report['prefix_hit_rate']}  "
           f"spec_accept_rate {report['spec_accept_rate']}")
+    if "fleet" in report:
+        fl = report["fleet"]
+        print(f"  fleet: {fl['replicas']} replicas (route={fl['route']}), "
+              f"routed warm/cold {fl['routed_warm']}/{fl['routed_cold']}, "
+              f"{fl['migrations']} migrations, {fl['replica_deaths']} "
+              f"deaths / {fl['readmitted']} re-admitted, "
+              f"{fl['scale_events']} scale events")
+        for name, st in sorted(fl["replicas_table"].items()):
+            hr = st["prefix_hit_rate"]
+            print(f"    {name:10s} util {st['utilization']:6.2%}  warm "
+                  f"{st['routed_warm']:3d}  cold {st['routed_cold']:3d}  "
+                  f"hit_rate {hr if hr is not None else '-':>6}  finished "
+                  f"{st['finished']:3d}{'' if st['alive'] else '  [DEAD]'}")
+    if "disagg" in report:
+        dg = report["disagg"]
+        print(f"  disagg: {dg['prefill_workers']}p+{dg['decode_workers']}d "
+              f"workers, {dg['migrations']} migrations / "
+              f"{dg['migrated_pages']} pages migrated, {dg['readmitted']} "
+              f"re-admitted")
+        for name, st in sorted(dg["workers"].items()):
+            print(f"    {name:10s} util {st['utilization']:6.2%}  "
+                  f"migrations {st['migrations']:3d}  pages_migrated "
+                  f"{st['pages_migrated']:4d}"
+                  f"{'' if st['alive'] else '  [DEAD]'}")
+    for key in ("worker_kill", "replica_kill"):
+        if key in report:
+            wk = report[key]
+            print(f"  kill: {', '.join(wk['kills'])} — exact="
+                  f"{wk['survivors_exact']} leaked_pages="
+                  f"{wk['leaked_pages']}")
     if args.chaos:
         ch = report["chaos"]
         print(f"  chaos: {ch['total_injected']} faults injected (seed "

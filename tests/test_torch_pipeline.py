@@ -177,8 +177,11 @@ def test_planner_graphs_wait_for_their_slices():
     ring = mg.ring_graph(4)
     assert ring.n_events() == 2 * 4 * 4
     assert not check_graph(ring)
-    with pytest.raises(NotImplementedError, match="D5"):
-        mg.disagg_graph(1, 1, 2)
+    # the disaggregated-serving graph (ported with inference/disagg.py):
+    # one prefill and one decode event a request, clean under the lint
+    dg = mg.disagg_graph(1, 1, 2)
+    assert dg.n_events() == 2 * 2
+    assert not check_graph(dg)
 
 
 # -- segmentation and the constructor --------------------------------------

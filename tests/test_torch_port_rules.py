@@ -54,6 +54,8 @@ def test_port_import_pulls_in_no_jax():
         "import sys\n"
         "import paddle_tpu_torch, paddle_tpu_torch.bridge\n"
         "import paddle_tpu_torch.inference.engine\n"
+        "import paddle_tpu_torch.inference.disagg\n"
+        "import paddle_tpu_torch.inference.fleet\n"
         "import paddle_tpu_torch.kernels.flash_attention\n"
         "import paddle_tpu_torch.kernels.paged_attention\n"
         "import paddle_tpu_torch.text.models.llama\n"
@@ -107,6 +109,15 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu(no_gpu):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(net)
     assert Engine(net, device="cpu").device == torch.device("cpu")
+    from paddle_tpu_torch.inference import DisaggEngine, ServingFleet
+    for cls in (DisaggEngine, ServingFleet):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(net)
+        drv = cls(net, device="cpu")
+        assert drv.device == torch.device("cpu")
+        workers = (drv.prefill + drv.decode if cls is DisaggEngine
+                   else drv._replicas)
+        assert {w.device for w in workers} == {torch.device("cpu")}
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
 

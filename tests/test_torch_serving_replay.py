@@ -8,9 +8,11 @@ Deterministic report fields must be equal: every request's tokens, the
 ``serving.*`` counters (the MoE decode-path counters aside: the JAX ones
 count compiled executables, the port's count calls), the virtual-clock
 TTFT / TPOT (or embedding latency) percentiles, prefix hit rate,
-failures and the exit code. Also: ``tools/trace_summary.py`` reads the
-port's ``--trace-out``; every flag of a mode not ported yet exits 2, as
-do the CUDA route gates on the CPU.
+failures and the exit code, and under ``--disagg`` / ``--replicas`` the
+driver's block and the kill gate's. Also: ``tools/trace_summary.py`` reads
+the port's ``--trace-out``; the drivers' misuse checks exit 2 as the JAX
+tool's do; every flag of a mode not ported yet exits 2, as do the CUDA
+route gates on the CPU.
 
 Tolerance: exact (every compared field is a count or a virtual-clock
 time).
@@ -162,9 +164,6 @@ def test_trace_summary_reads_the_port_export(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--disagg"], ["--prefill-workers", "2"], ["--decode-workers", "2"],
-    ["--kill-worker", "decode:0:3"], ["--replicas", "2"],
-    ["--route", "session"], ["--kill-replica", "0:3"],
     ["--expect-hotpath-clean"], ["--expect-zero-recompiles"],
     ["--expect-pallas"], ["--expect-moe-pallas", "--model", "ernie_moe"],
 ], ids=lambda f: f[0].lstrip("-"))
@@ -173,6 +172,121 @@ def test_unported_and_cuda_only_flags_exit_2(flags):
         str(FIX / "serving_trace.jsonl"), "--device", "cpu"] + flags)
     assert rc == 2 and report is None
     assert flags[0] in err
+
+
+@pytest.fixture
+def jax_driver_tokens(monkeypatch):
+    """Every Output the JAX tool's drivers retire, per driver (the last
+    driver is the measured run)."""
+    from paddle_tpu.inference import disagg as jdisagg
+    from paddle_tpu.inference import fleet as jfleet
+    runs = []
+    for cls in (jdisagg.DisaggEngine, jfleet.ServingFleet):
+        orig = cls.step
+
+        def step(self, _orig=orig):
+            outs = _orig(self)
+            if not runs or runs[-1][0] is not self:
+                runs.append((self, {}))
+            for o in outs:
+                runs[-1][1][str(o.req_id)] = list(map(int, o.token_ids))
+            return outs
+        monkeypatch.setattr(cls, "step", step)
+    return runs
+
+
+#: the JAX tool's own driver cases (tests/test_serving_disagg.py,
+#: tests/test_serving_fleet.py), held report for report
+DRIVER_CASES = {
+    "disagg_kill_worker": [
+        "serving_trace.jsonl", "--disagg", "--prefill-workers", "2",
+        "--decode-workers", "2", "--kill-worker", "decode:1:8",
+        "--expect-complete-timelines"],
+    "fleet_session": ["serving_trace_fleet.jsonl", "--replicas", "2",
+                      "--route", "session"],
+    "fleet_kill_replica": [
+        "serving_trace_fleet.jsonl", "--replicas", "2", "--kill-replica",
+        "1:12", "--expect-prefix-hit-rate", "0.8",
+        "--expect-complete-timelines"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(DRIVER_CASES))
+def test_driver_report_matches_the_jax_tool(case, jax_driver_tokens):
+    args = DRIVER_CASES[case]
+    argv = [str(FIX / args[0])] + args[1:] + ["--json"]
+    jrc, J, jerr = _call(jax_tool.main, argv)
+    trc, T, terr = _call(port_tool.main, argv + ["--device", "cpu"],
+                         weights=jax_weights(0))
+    assert jrc == trc == 0, (jerr, terr)
+    assert T["tokens"] == jax_driver_tokens[-1][1]
+    assert _serving(T["counters"]) == _serving(J["counters"])
+    for key in ("requests", "steps", "total_tokens", "preemptions",
+                "failed", "ttft_ms", "tpot_ms", "prefix_hit_rate"):
+        assert T[key] == J[key], key
+    for block in ("disagg", "fleet", "worker_kill", "replica_kill"):
+        assert (block in T) == (block in J), block
+        if block in J:
+            want = {k: v for k, v in J[block].items()
+                    if k != "ttft_by_replica"}
+            got = {k: T[block][k] for k in want}
+            assert got == want, block
+    assert T["decode_paths"]["plain"] > 0
+    assert T["decode_paths"]["cuda_split"] == 0
+
+
+def test_report_launches_count_the_measured_run_alone(monkeypatch):
+    """A kill run's report counts the launches of its measured run, not
+    those of the clean reference run before it in the same process: each
+    worker step stands in for one counted launch here (the CPU runs no
+    kernel), and the report's count is the measured driver's steps."""
+    from paddle_tpu_torch.inference import disagg
+    from paddle_tpu_torch.inference.engine import Engine
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    monkeypatch.setattr(pa.paged_decode, "launches", 0)
+    drivers, stepped = [], []
+    init, step = disagg.DisaggEngine.__init__, Engine.step
+
+    def counted_init(self, *a, **kw):
+        init(self, *a, **kw)
+        drivers.append(list(self.prefill) + list(self.decode))
+
+    def counted_step(self):
+        pa.paged_decode.launches += 1
+        stepped.append(self)
+        return step(self)
+    monkeypatch.setattr(disagg.DisaggEngine, "__init__", counted_init)
+    monkeypatch.setattr(Engine, "step", counted_step)
+    args = DRIVER_CASES["disagg_kill_worker"]
+    rc, report, err = _call(port_tool.main, [str(FIX / args[0])] + args[1:]
+                            + ["--json", "--device", "cpu"])
+    assert rc == 0, err
+    assert len(drivers) == 2                 # the reference run, the kill run
+    measured = {id(w) for w in drivers[-1]}
+    n = sum(1 for w in stepped if id(w) in measured)
+    assert 0 < n < len(stepped)
+    assert report["launches"]["paged_decode"] == n
+
+
+@pytest.mark.parametrize("flags", [
+    ["--kill-worker", "decode:0:3"],
+    ["--disagg", "--kill-worker", "decode-0-3"],
+    ["--disagg", "--decode-workers", "2", "--kill-worker", "decode:0:3",
+     "--kill-worker", "decode:1:4"],
+    ["--route", "session"],
+    ["--kill-replica", "0:3"],
+    ["--replicas", "2", "--disagg"],
+    ["--replicas", "2", "--kill-replica", "2:3"],
+    ["--prefill-workers", "2"],
+], ids=["kill_worker_needs_disagg", "bad_kill_worker_spec",
+        "kill_every_decode_worker", "route_needs_replicas",
+        "kill_replica_needs_replicas", "replicas_excludes_disagg",
+        "kill_replica_out_of_range", "workers_need_disagg"])
+def test_driver_misuse_exits_2_as_the_jax_tool(flags):
+    argv = [str(FIX / "serving_trace.jsonl"), "--json"] + flags
+    jrc, _, jerr = _call(jax_tool.main, argv)
+    trc, report, terr = _call(port_tool.main, argv + ["--device", "cpu"])
+    assert jrc == trc == 2 and report is None, (jerr, terr)
 
 
 def test_exit_codes_of_the_gates_match_the_jax_tool():
